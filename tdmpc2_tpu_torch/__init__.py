@@ -1,0 +1,13 @@
+"""tdmpc2_tpu_torch — the PyTorch/CUDA port of tdmpc2_tpu for NVIDIA Hopper.
+
+A package of its own beside the JAX one, which stays the reference. It
+imports torch and numpy, never jax and never tdmpc2_tpu. Every TPU kernel
+on a ported path is a hand-written CUDA kernel under `csrc/`, built with
+nvcc for sm_90a on first use (ops/_build.py), with a plain PyTorch version
+beside it that the CPU runs.
+
+Ported so far: the acting/evaluation path — config, world-model heads, the
+MPPI planner (ops/value.py, ops/cem.py), the toy env and `evaluate`.
+"""
+
+__version__ = "0.1.0"

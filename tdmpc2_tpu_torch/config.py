@@ -1,0 +1,213 @@
+"""Configuration for the PyTorch port.
+
+A copy of the reference-facing part of ``tdmpc2_tpu/config.py``: the same
+``Config`` field names and defaults (reference tdmpc2/config.yaml), the same
+``MODEL_SIZE`` table and the same ``key=value`` override parser, so a recipe
+that runs the JAX package runs the port unchanged. Fields that only steer
+the JAX runtime (mesh, platform, Pallas gates, fused dispatches) are left
+out. One field is added: ``device``, where the port runs (``cuda`` unless the
+caller asks for ``cpu``).
+
+``yaml`` is imported only when a YAML path is given.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any, Optional
+
+# Model-size table: parameters (M) -> architecture dims.
+# Reference: tdmpc2/common/__init__.py:1-24.
+MODEL_SIZE = {
+    1: dict(enc_dim=256, mlp_dim=384, latent_dim=128, num_enc_layers=2, num_q=2),
+    5: dict(enc_dim=256, mlp_dim=512, latent_dim=512, num_enc_layers=2),
+    19: dict(enc_dim=1024, mlp_dim=1024, latent_dim=768, num_enc_layers=3),
+    48: dict(enc_dim=1792, mlp_dim=1792, latent_dim=768, num_enc_layers=4),
+    317: dict(enc_dim=4096, mlp_dim=4096, latent_dim=1376, num_enc_layers=5, num_q=8),
+}
+
+# Multi-task set names (reference tdmpc2/common/__init__.py:26-60). The port
+# runs single-task only so far; the names are kept so `multitask` is set
+# exactly as the JAX package sets it and a multi-task config is refused.
+_MULTITASK_SETS = ('mt30', 'mt80')
+
+
+@dataclass
+class Config:
+    """Hyperparameters. Defaults mirror reference tdmpc2/config.yaml:4-91."""
+
+    # environment
+    task: str = 'dog-run'
+    obs: str = 'state'
+    episodic: bool = False
+
+    # evaluation
+    checkpoint: Optional[str] = None
+    eval_episodes: int = 10
+    eval_freq: int = 50_000
+
+    # training
+    steps: int = 10_000_000
+    batch_size: int = 256
+    reward_coef: float = 0.1
+    value_coef: float = 0.1
+    termination_coef: float = 1.0
+    consistency_coef: float = 20.0
+    rho: float = 0.5
+    lr: float = 3e-4
+    enc_lr_scale: float = 0.3
+    grad_clip_norm: float = 20.0
+    tau: float = 0.01
+    discount_denom: float = 5
+    discount_min: float = 0.95
+    discount_max: float = 0.995
+    buffer_size: int = 1_000_000
+    exp_name: str = 'default'
+    data_dir: Optional[str] = None
+
+    # planning
+    mpc: bool = True
+    iterations: int = 6
+    num_samples: int = 512
+    num_elites: int = 64
+    num_pi_trajs: int = 24
+    horizon: int = 3
+    min_std: float = 0.05
+    max_std: float = 2.0
+    temperature: float = 0.5
+
+    # actor
+    log_std_min: float = -10.0
+    log_std_max: float = 2.0
+    entropy_coef: float = 1e-4
+
+    # critic
+    num_bins: int = 101
+    vmin: float = -10.0
+    vmax: float = 10.0
+
+    # architecture
+    model_size: Optional[int] = None
+    num_enc_layers: int = 2
+    enc_dim: int = 256
+    num_channels: int = 32
+    mlp_dim: int = 512
+    latent_dim: int = 512
+    task_dim: int = 96
+    num_q: int = 5
+    dropout: float = 0.01
+    simnorm_dim: int = 8
+
+    # where the port runs: 'cuda' (the default) or 'cpu' (tests)
+    device: str = 'cuda'
+
+    # logging
+    save_csv: bool = True
+
+    # misc
+    save_video: bool = False
+    save_agent: bool = True
+    seed: int = 1
+
+    # filled by parse_cfg / the env factory
+    work_dir: Optional[str] = None
+    task_title: Optional[str] = None
+    multitask: Optional[bool] = None
+    tasks: Any = None
+    obs_shape: Any = None           # dict: obs-kind -> shape tuple
+    action_dim: Optional[int] = None
+    episode_length: Optional[int] = None
+    seed_steps: Optional[int] = None
+    bin_size: Optional[float] = None
+
+    def get(self, key, default=None):
+        return getattr(self, key, default)
+
+    def replace(self, **kwargs) -> 'Config':
+        return dataclasses.replace(self, **kwargs)
+
+
+_ALGEBRA_RE = re.compile(r"^(\d+)([+\-*/])(\d+)$")
+
+
+def _coerce(value: str) -> Any:
+    """Coerce a CLI string override to the right python type."""
+    # string algebra, e.g. steps=5*1000000 (reference parser.py:44-54)
+    m = _ALGEBRA_RE.match(value)
+    if m:
+        out = eval(m.group(1) + m.group(2) + m.group(3))  # noqa: S307 — digits only
+        if isinstance(out, float) and out.is_integer():
+            out = int(out)
+        return out
+    low = value.lower()
+    if low in ('true', 'yes'):
+        return True
+    if low in ('false', 'no'):
+        return False
+    if low in ('none', 'null'):
+        return None
+    for cast in (int, float):
+        try:
+            return cast(value)
+        except ValueError:
+            pass
+    return value
+
+
+def parse_overrides(args) -> dict:
+    """Parse a list of 'key=value' CLI overrides."""
+    out = {}
+    for a in args:
+        if '=' not in a:
+            raise ValueError(f"Override '{a}' is not of the form key=value")
+        k, v = a.split('=', 1)
+        out[k.strip()] = _coerce(v)
+    return out
+
+
+def parse_cfg(cfg: Config) -> Config:
+    """Fill derived fields; mirrors reference parse_cfg (parser.py:29-80)."""
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if isinstance(v, str) and _ALGEBRA_RE.match(v):
+            setattr(cfg, f.name, _coerce(v))
+
+    cfg.work_dir = str(Path.cwd() / 'logs' / cfg.task / str(cfg.seed) / cfg.exp_name)
+    cfg.task_title = cfg.task.replace('-', ' ').title()
+    cfg.bin_size = (cfg.vmax - cfg.vmin) / (cfg.num_bins - 1)
+
+    if cfg.model_size is not None:
+        if cfg.model_size not in MODEL_SIZE:
+            raise ValueError(
+                f'Invalid model size {cfg.model_size}. Must be one of {list(MODEL_SIZE)}')
+        for k, v in MODEL_SIZE[cfg.model_size].items():
+            setattr(cfg, k, v)
+
+    cfg.multitask = cfg.task in _MULTITASK_SETS
+    if cfg.multitask:
+        raise NotImplementedError(
+            f'multi-task config {cfg.task!r}: the PyTorch port runs '
+            'single-task only so far')
+    cfg.task_dim = 0
+    cfg.tasks = [cfg.task]
+    return cfg
+
+
+def load_cfg(yaml_path: Optional[str] = None, overrides=()) -> Config:
+    """Build a Config from an optional YAML file + CLI overrides, then parse."""
+    cfg = Config()
+    values = {}
+    if yaml_path:
+        import yaml
+        with open(yaml_path) as f:
+            values.update(yaml.safe_load(f) or {})
+    values.update(parse_overrides(list(overrides)))
+    known = {f.name for f in dataclasses.fields(Config)}
+    for k, v in values.items():
+        if k not in known:
+            raise ValueError(f'Unknown config key: {k}')
+        setattr(cfg, k, v)
+    return parse_cfg(cfg)

@@ -1,0 +1,206 @@
+// The MPPI/CEM planning loop, as a sequence of kernels per plan.
+//
+// Replaces the TPU kernel _cem_kernel (tdmpc2_tpu/ops/pallas_cem.py,
+// launched by _cem_flat / cem_prepared), which runs one environment's whole
+// loop in one program because the TPU's VMEM holds every weight and
+// activation of it. A Hopper SM holds 227 KB of shared memory, so the loop
+// is split at the one step that needs all S samples at once, the elite
+// threshold. Kernel boundaries are the only synchronisation across blocks:
+// no cooperative launch, no grid barrier, no spin-wait. Per plan:
+//   pi_rollout_kernel  once: the n_pi policy-prior trajectories
+//   then per iteration:
+//     sample_kernel    clip(mean + std * noise), policy rows overriding
+//     value_kernel     (value.cu) the value of every sample
+//     elite_kernel     one block: NaN guard, E-th largest value by 32-step
+//                      bisection with the TPU kernel's boundary-shell tie
+//                      weights, softmax-weighted mean/std update
+//
+// Bounds, default 5M model at S=512: the value step carries the plan
+// (~36 GFLOP over 6 iterations, ~36 us at 989 TFLOP/s). The pi rollout is
+// 24 rows of the same row-block code (value.cu's design note). The sample
+// and elite kernels move a few tens of KB, a few microseconds of launch
+// and latency each, and sit far below any throughput bound.
+#include "mlp_rows.cuh"
+
+namespace tdm {
+
+__global__ void __launch_bounds__(kThreads)
+pi_rollout_kernel(Weights w, Dims d, float lsmin, float lsdif, int n_pi, const float* z0,
+                  const float* pi_eps, float* pi_acts) {
+  extern __shared__ float4 smem_f4[];
+  const RowSmem sm(reinterpret_cast<float*>(smem_f4), d);
+  const int row0 = blockIdx.x * kRows;
+  const int nrows = min(kRows, n_pi - row0);
+  const int HA = d.H * d.A;
+
+  load_z(sm, d, z0, 0, row0, nrows);
+  __syncthreads();
+  for (int t = 0; t < d.H; ++t) {
+    pi_head_rows(sm, d, w);
+    for (int i = threadIdx.x; i < kRows * d.A; i += kThreads) {
+      const int r = i / d.A, c = i % d.A;
+      const float e = r < nrows ? pi_eps[(row0 + r) * HA + t * d.A + c] : 0.f;
+      const float a = pi_action(sm, d, r, c, e, lsmin, lsdif);
+      if (r < nrows) pi_acts[(row0 + r) * HA + t * d.A + c] = a;
+      sm.a[r * sm.ldA + c] = bf16r(a);
+    }
+    __syncthreads();
+    dynamics_rows(sm, d, w);
+  }
+}
+
+__global__ void sample_kernel(const float* mean, const float* stdv, const float* noise,
+                              const float* pi_acts, const float* amask, int S, int HA,
+                              int A, int n_pi, float* acts) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= S * HA) return;
+  const int s = i / HA, c = i % HA;
+  // _rn intrinsics: no contraction into an fma, the plain version's rounding
+  const float x = __fadd_rn(mean[c], __fmul_rn(stdv[c], noise[i]));
+  const float a = s < n_pi ? pi_acts[i] : fminf(fmaxf(x, -1.f), 1.f);
+  acts[i] = a * amask[c % A];
+}
+
+// Block-wide reductions over kThreads threads; `red` holds kWarps+1 floats.
+template <typename Op>
+__device__ float block_reduce(float x, float* red, Op op) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int o = 16; o > 0; o >>= 1) x = op(x, __shfl_xor_sync(0xffffffffu, x, o));
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    // xor offsets below kWarps (a power of two) keep lanes 0..kWarps-1 among
+    // themselves, so lane 0 ends with the reduction of red[0..kWarps-1]
+    float y = red[lane & (kWarps - 1)];
+    for (int o = kWarps / 2; o > 0; o >>= 1) y = op(y, __shfl_xor_sync(0xffffffffu, y, o));
+    if (lane == 0) red[kWarps] = y;
+  }
+  __syncthreads();
+  const float out = red[kWarps];
+  __syncthreads();
+  return out;
+}
+
+struct SumOp { __device__ float operator()(float a, float b) const { return a + b; } };
+struct MaxOp { __device__ float operator()(float a, float b) const { return fmaxf(a, b); } };
+struct MinOp { __device__ float operator()(float a, float b) const { return fminf(a, b); } };
+
+__device__ float count_ge(const float* v, int S, float thr, float* red) {
+  float c = 0.f;
+  for (int i = threadIdx.x; i < S; i += kThreads) c += v[i] >= thr ? 1.f : 0.f;
+  return block_reduce(c, red, SumOp());
+}
+
+// One block. v_in [S] -> v_out [S] NaN/huge-guarded; new mean/std [HA].
+// The order of f32 operations follows the TPU kernel (pallas_cem.py:186-231).
+__global__ void __launch_bounds__(kThreads)
+elite_kernel(const float* v_in, const float* acts, const float* amask, int S, int HA,
+             int A, float E, float temperature, float min_std, float max_std,
+             float* v_out, float* mean_out, float* std_out) {
+  extern __shared__ float4 smem_f4[];
+  float* v = reinterpret_cast<float*>(smem_f4);
+  float* score = v + S;
+  float* red = score + S;
+
+  float lmax = __int_as_float(0xff800000), lmin = __int_as_float(0x7f800000);
+  for (int i = threadIdx.x; i < S; i += kThreads) {
+    float x = v_in[i];
+    x = (x == x && fabsf(x) <= 3.0e38f) ? x : 0.f;
+    v[i] = x;
+    v_out[i] = x;
+    lmax = fmaxf(lmax, x);
+    lmin = fminf(lmin, x);
+  }
+  const float vmax = block_reduce(lmax, red, MaxOp());
+  float lo = block_reduce(lmin, red, MinOp());
+  float hi = __fadd_rn(__fadd_rn(vmax, __fmul_rn(0.001f, fabsf(vmax))), 1.f);
+  for (int it = 0; it < 32; ++it) {
+    const float mid = __fadd_rn(lo, __fmul_rn(0.5f, __fsub_rn(hi, lo)));
+    const bool ge = count_ge(v, S, mid, red) >= E;
+    lo = ge ? mid : lo;
+    hi = ge ? hi : mid;
+  }
+  const float n1 = count_ge(v, S, hi, red);
+  const float nb = __fsub_rn(count_ge(v, S, lo, red), n1);
+  const float wb = __fdiv_rn(__fsub_rn(E, n1), fmaxf(nb, 1.f));
+
+  float ls = 0.f;
+  for (int i = threadIdx.x; i < S; i += kThreads) {
+    const float x = v[i];
+    const float wgt = x >= hi ? 1.f : (x >= lo ? wb : 0.f);
+    const float s = __fmul_rn(expf(__fmul_rn(temperature, __fsub_rn(x, vmax))), wgt);
+    score[i] = s;
+    ls += s;
+  }
+  const float total = block_reduce(ls, red, SumOp());
+  float ld = 0.f;
+  for (int i = threadIdx.x; i < S; i += kThreads) {
+    score[i] = __fdiv_rn(score[i], total);
+    ld += score[i];
+  }
+  const float denom = __fadd_rn(block_reduce(ld, red, SumOp()), 1e-9f);
+
+  // one warp per column of the [S, HA] actions
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int c = warp; c < HA; c += kWarps) {
+    float m = 0.f;
+    for (int s = lane; s < S; s += 32) m += score[s] * acts[s * HA + c];
+    m = __fdiv_rn(warp_sum(m), denom);
+    float q = 0.f;
+    for (int s = lane; s < S; s += 32) {
+      const float dv = acts[s * HA + c] - m;
+      q += score[s] * dv * dv;
+    }
+    const float sd = fminf(fmaxf(sqrtf(__fdiv_rn(warp_sum(q), denom)), min_std), max_std);
+    if (lane == 0) {
+      const float mk = amask[c % A];
+      mean_out[c] = m * mk;
+      std_out[c] = sd * mk;
+    }
+  }
+}
+
+}  // namespace tdm
+
+// Each launch function runs on `stream` and returns cudaGetLastError().
+extern "C" int tdm_pi_rollout(const void* const* wptrs, const int* dims, float lsmin,
+                              float lsdif, int n_pi, const float* z0, const float* pi_eps,
+                              float* pi_acts, void* stream) {
+  using namespace tdm;
+  Weights w;
+  for (int i = 0; i < kNumWeights; ++i) w.p[i] = wptrs[i];
+  const Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6]};
+  const size_t smem = RowSmem::bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      pi_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (n_pi + kRows - 1) / kRows;
+  pi_rollout_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      w, d, lsmin, lsdif, n_pi, z0, pi_eps, pi_acts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tdm_sample(const float* mean, const float* stdv, const float* noise,
+                          const float* pi_acts, const float* amask, int S, int HA, int A,
+                          int n_pi, float* acts, void* stream) {
+  const int n = S * HA, threads = 256;
+  tdm::sample_kernel<<<(n + threads - 1) / threads, threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(mean, stdv, noise, pi_acts, amask,
+                                                            S, HA, A, n_pi, acts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tdm_elite(const float* v_in, const float* acts, const float* amask, int S,
+                         int HA, int A, int num_elites, float temperature, float min_std,
+                         float max_std, float* v_out, float* mean_out, float* std_out,
+                         void* stream) {
+  using namespace tdm;
+  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(S) + kWarps + 1);
+  cudaError_t err = cudaFuncSetAttribute(
+      elite_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  elite_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      v_in, acts, amask, S, HA, A, static_cast<float>(num_elites), temperature, min_std,
+      max_std, v_out, mean_out, std_out);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,110 @@
+// Planner value estimate: H-step reward + dynamics rollout, terminal policy
+// prior, 2-of-num_q Q bootstrap (single-task, non-episodic).
+//
+// Replaces the TPU kernel _value_kernel (tdmpc2_tpu/ops/pallas_rollout.py,
+// launched by _value_flat / value_prepared). For S sampled action sequences:
+//   G = sum_t discs[t] * symexp(two_hot(reward(z_t, a_t))), z_{t+1} = dyn(z_t, a_t)
+//   a_H = tanh(mean(z_H) + eps * exp(log_std(z_H)))
+//   v = G + discs[H] * (Q_i(z_H, a_H) + Q_j(z_H, a_H)) / 2, (i, j) = qidx
+//
+// Bound: at the default 5M model and S=512 one call does ~5.9 GFLOP of
+// bf16-input products over ~6 MB of weights: ~6.0 us at 989 TFLOP/s
+// against ~1.8 us at 3.35 TB/s, so the work is compute-bound. This first
+// version runs its products on the FMA pipes, not the tensor cores, and is
+// far from that bound. Its design: one block per kRows=8 rows keeps every
+// activation of the whole rollout in shared memory (nothing but the result
+// goes back to device memory); all blocks read the same bf16 weights, which
+// the 50 MB L2 holds, so device memory sees them about once per call.
+// The grouped SimNorm softmax is computed directly, where the TPU kernel
+// used a block-diagonal mask product.
+#include "mlp_rows.cuh"
+
+namespace tdm {
+
+__global__ void __launch_bounds__(kThreads)
+value_kernel(Weights w, Dims d, float lsmin, float lsdif, int S, const float* z0, long zs,
+             const float* actions, long ats, long ass, const float* eps, const int* qidx,
+             const float* discs, float* out) {
+  extern __shared__ float4 smem_f4[];
+  const RowSmem sm(reinterpret_cast<float*>(smem_f4), d);
+  const int row0 = blockIdx.x * kRows;
+  const int nrows = min(kRows, S - row0);
+  float* G = sm.s0;   // discounted reward sum
+  float* r = sm.s1;   // decoded reward / Q of the current head
+  float* q = sm.s2;   // Q sum over the two heads
+
+  load_z(sm, d, z0, zs, row0, nrows);
+  if (threadIdx.x < kRows) {
+    G[threadIdx.x] = 0.f;
+    q[threadIdx.x] = 0.f;
+  }
+  for (int t = 0; t < d.H; ++t) {
+    for (int i = threadIdx.x; i < kRows * d.A; i += kThreads) {
+      const int rr = i / d.A, c = i % d.A;
+      sm.a[rr * sm.ldA + c] =
+          rr < nrows ? bf16r(actions[t * ats + (row0 + rr) * ass + c]) : 0.f;
+    }
+    __syncthreads();
+    // reward head on (z_t, a_t)
+    hidden2(sm, d, sm.z, sm.ldL, d.L, w.bf(rWz), sm.a, sm.ldA, d.A, w.bf(rWa), w.f(rb0),
+            w.f(rg0), w.f(re0), w.bf(rW1), w.f(rb1), w.f(rg1), w.f(re1));
+    mm_rows(sm.h2, sm.ldM, d.M, w.bf(rW2), nullptr, 0, 0, nullptr, w.f(rb2), d.B, sm.lg,
+            sm.ldB);
+    __syncthreads();
+    two_hot_rows(sm.lg, sm.ldB, d.B, w.f(bins), r);
+    __syncthreads();
+    if (threadIdx.x < kRows) G[threadIdx.x] += discs[t] * r[threadIdx.x];
+    // z_{t+1}
+    dynamics_rows(sm, d, w);
+  }
+
+  // terminal policy prior action
+  pi_head_rows(sm, d, w);
+  for (int i = threadIdx.x; i < kRows * d.A; i += kThreads) {
+    const int rr = i / d.A, c = i % d.A;
+    const float e = rr < nrows ? eps[(row0 + rr) * d.A + c] : 0.f;
+    sm.a[rr * sm.ldA + c] = bf16r(pi_action(sm, d, rr, c, e, lsmin, lsdif));
+  }
+  __syncthreads();
+
+  // the two Q heads named by qidx
+  for (int j = 0; j < 2; ++j) {
+    const int h = min(max(qidx[j], 0), d.NQ - 1);
+    const long M = d.M;
+    hidden2(sm, d, sm.z, sm.ldL, d.L, w.bf(qWz) + h * d.L * M, sm.a, sm.ldA, d.A,
+            w.bf(qWa) + h * d.A * M, w.f(qb0) + h * M, w.f(qg0) + h * M,
+            w.f(qe0) + h * M, w.bf(qW1) + h * M * M, w.f(qb1) + h * M, w.f(qg1) + h * M,
+            w.f(qe1) + h * M);
+    mm_rows(sm.h2, sm.ldM, d.M, w.bf(qW2) + h * M * d.B, nullptr, 0, 0, nullptr,
+            w.f(qb2) + static_cast<long>(h) * d.B, d.B, sm.lg, sm.ldB);
+    __syncthreads();
+    two_hot_rows(sm.lg, sm.ldB, d.B, w.f(bins), r);
+    __syncthreads();
+    if (threadIdx.x < kRows) q[threadIdx.x] += r[threadIdx.x];
+    __syncthreads();
+  }
+  if (threadIdx.x < nrows) {
+    out[row0 + threadIdx.x] = G[threadIdx.x] + discs[d.H] * (q[threadIdx.x] / 2.f);
+  }
+}
+
+}  // namespace tdm
+
+// Launch on `stream`; returns cudaGetLastError() after the launch.
+extern "C" int tdm_value(const void* const* wptrs, const int* dims, float lsmin, float lsdif,
+                         int S, const float* z0, long zs, const float* actions, long ats,
+                         long ass, const float* eps, const int* qidx, const float* discs,
+                         float* out, void* stream) {
+  using namespace tdm;
+  Weights w;
+  for (int i = 0; i < kNumWeights; ++i) w.p[i] = wptrs[i];
+  const Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6]};
+  const size_t smem = RowSmem::bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      value_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (S + kRows - 1) / kRows;
+  value_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      w, d, lsmin, lsdif, S, z0, zs, actions, ats, ass, eps, qidx, discs, out);
+  return static_cast<int>(cudaGetLastError());
+}

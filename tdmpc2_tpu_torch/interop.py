@@ -1,0 +1,54 @@
+"""Parameters from the JAX package into the port.
+
+`params_from_jax` maps a JAX parameter pytree whose leaves are numpy arrays
+(what `TDMPC2.save` pickles, or `jax.tree.map(np.asarray, params)`) onto the
+port's pytree: the same dict keys and tuple positions, torch tensors for
+leaves, bf16 upcast to f32 as the JAX agent does on load
+(tdmpc2_tpu/tdmpc2.py:320-323).
+
+`load_blob` reads a JAX checkpoint file (pickle, gzip-sniffed). The
+committed checkpoints (results/checkpoints/*.pkl.gz) hold ml_dtypes bf16
+arrays, and unpickling those imports `ml_dtypes`; so `load_blob` is a
+CPU/test utility for machines that have that package, not part of the
+path that runs on the card.
+"""
+
+from __future__ import annotations
+
+import gzip
+import pickle
+
+import numpy as np
+import torch
+
+
+def _leaf(x, device):
+    x = np.asarray(x)
+    if x.dtype.kind == 'V' or x.dtype.name == 'bfloat16':
+        # ml_dtypes bf16: torch.from_numpy rejects it; upcast on the numpy side
+        x = x.astype(np.float32)
+    elif x.dtype.kind == 'f':
+        x = x.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def params_from_jax(tree, device='cpu'):
+    """JAX pytree of numpy leaves -> the port's pytree of f32 tensors."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(params_from_jax(v, device) for v in tree)
+    return _leaf(tree, device)
+
+
+def load_blob(path) -> dict:
+    """Unpickle a JAX checkpoint (plain or gzipped pickle) into a dict.
+
+    Needs `ml_dtypes` when the file holds bf16 arrays, as the committed
+    checkpoints do. Unpickling runs code: load only files this project wrote.
+    """
+    with open(path, 'rb') as f:
+        magic = f.read(2)
+    opener = gzip.open if magic == b'\x1f\x8b' else open
+    with opener(str(path), 'rb') as f:
+        return pickle.load(f)

@@ -1,0 +1,137 @@
+"""Functional NN building blocks (port of tdmpc2_tpu/models/layers.py).
+
+Parameters are the JAX package's pytree with torch tensors for leaves, in
+its layout, so weights carry across by renaming nothing:
+- Linear:       {'w': [in, out], 'b': [out]}
+- NormedLinear: {'w': [in, out], 'b': [out], 'ln_w': [out], 'ln_b': [out]}
+- MLP:          tuple of layer dicts; the last is a plain Linear, or a
+                NormedLinear whose activation the caller supplies.
+- Ensemble:     one MLP whose leaves carry a leading [n] member axis.
+
+Dropout takes its keep-mask as an input (noise is data in the port).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import torch
+
+# ---------------------------------------------------------------------------
+# Initializers (reference: tdmpc2/common/init.py; JAX layers.py:31-56)
+# ---------------------------------------------------------------------------
+
+
+def trunc_normal(gen: torch.Generator, shape, std: float = 0.02):
+    """Normal(0, std) truncated to [-2, 2] absolute, as
+    torch.nn.init.trunc_normal_(std=0.02) in the reference (init.py:7).
+    At std 0.02 the bounds sit at 100 sigma, so clamping is exact in
+    distribution."""
+    return (torch.randn(shape, generator=gen) * std).clamp_(-2.0, 2.0)
+
+
+def linear_init(gen, in_dim: int, out_dim: int, zero: bool = False):
+    w = (torch.zeros(in_dim, out_dim) if zero
+         else trunc_normal(gen, (in_dim, out_dim)))
+    return {'w': w, 'b': torch.zeros(out_dim)}
+
+
+def normed_linear_init(gen, in_dim: int, out_dim: int):
+    p = linear_init(gen, in_dim, out_dim)
+    p['ln_w'] = torch.ones(out_dim)
+    p['ln_b'] = torch.zeros(out_dim)
+    return p
+
+
+def mlp_init(gen, in_dim: int, mlp_dims: Sequence[int], out_dim: int,
+             final_normed: bool = False, zero_final: bool = False):
+    """dims = [in] + mlp_dims + [out]; NormedLinear (Mish) layers, then a
+    plain Linear or a NormedLinear (reference layers.py:121-133)."""
+    dims = [in_dim] + list(mlp_dims) + [out_dim]
+    layers = [normed_linear_init(gen, dims[i], dims[i + 1])
+              for i in range(len(dims) - 2)]
+    if final_normed:
+        layers.append(normed_linear_init(gen, dims[-2], dims[-1]))
+    else:
+        layers.append(linear_init(gen, dims[-2], dims[-1], zero=zero_final))
+    return tuple(layers)
+
+
+def ensemble_init(n: int, init_fn: Callable):
+    """`n` independent copies with leaves stacked on a leading axis."""
+    members = [init_fn() for _ in range(n)]
+    return tuple({k: torch.stack([m[i][k] for m in members])
+                  for k in members[0][i]}
+                 for i in range(len(members[0])))
+
+
+# ---------------------------------------------------------------------------
+# Activations / normalizers
+# ---------------------------------------------------------------------------
+
+
+def mish(x):
+    """x * tanh(softplus(x)) through tanh(log z) = (z²-1)/(z²+1), z = 1+eˣ,
+    with the exp argument clamped at 15 (JAX layers.py:74-85)."""
+    z = torch.exp(torch.clamp(x, max=15.0)) + 1.0
+    z2 = z * z
+    return x * (z2 - 1.0) / (z2 + 1.0)
+
+
+def simnorm(x, dim: int):
+    """Softmax over contiguous groups of `dim` (reference layers.py:74-91)."""
+    shp = x.shape
+    return torch.softmax(x.reshape(*shp[:-1], -1, dim), dim=-1).reshape(shp)
+
+
+def layer_norm(x, w, b, eps: float = 1e-5):
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * w + b
+
+
+# ---------------------------------------------------------------------------
+# Layers
+# ---------------------------------------------------------------------------
+
+
+def linear(p, x):
+    """y = x @ w + b, weights [in, out] (a leading member axis batches)."""
+    return torch.matmul(x, p['w']) + p['b'].unsqueeze(-2)
+
+
+def normed_linear(p, x, act: Callable = mish, keep_mask=None,
+                  dropout: float = 0.0):
+    """Linear -> Dropout -> LayerNorm -> act (reference layers.py:107-111).
+
+    `keep_mask` (bool, the linear output's shape) turns on dropout at rate
+    `dropout`; without it the layer is in eval mode.
+    """
+    x = linear(p, x)
+    if keep_mask is not None and dropout > 0.0:
+        keep = 1.0 - dropout
+        x = torch.where(keep_mask, x / keep, torch.zeros_like(x))
+    return act(layer_norm(x, p['ln_w'].unsqueeze(-2), p['ln_b'].unsqueeze(-2)))
+
+
+def mlp(params, x, final_act: Optional[Callable] = None, keep_mask=None,
+        dropout: float = 0.0):
+    """Apply the MLP; dropout (if a mask is given) on the first layer only
+    (reference layers.py:131)."""
+    for i, p in enumerate(params[:-1]):
+        x = normed_linear(p, x, keep_mask=keep_mask if i == 0 else None,
+                          dropout=dropout)
+    last = params[-1]
+    if 'ln_w' in last:
+        return normed_linear(last, x, act=final_act or mish)
+    x = linear(last, x)
+    return final_act(x) if final_act is not None else x
+
+
+def ensemble(params, x):
+    """Every member of a stacked MLP on shared input x [..., in] ->
+    [n, ..., out] (a batched matmul over the member axis)."""
+    n = params[0]['w'].shape[0]
+    xs = x.reshape(1, -1, x.shape[-1]).expand(n, -1, -1)
+    out = mlp(params, xs)
+    return out.reshape(n, *x.shape[:-1], out.shape[-1])

@@ -1,0 +1,111 @@
+"""TD-MPC2 implicit world model, single-task state path
+(port of tdmpc2_tpu/models/world_model.py:126-256).
+
+The model is a parameter pytree (the JAX package's names and [in, out]
+layout, torch tensors for leaves) plus pure apply methods. Where the JAX
+heads draw randomness inside, the port takes it as input: `pi` takes its
+Gaussian `eps`, `Q` takes the indices of the two heads it averages.
+
+Networks (reference world_model.py:25-30):
+- encoder:     state MLP, SimNorm-capped
+- dynamics:    MLP([z, a] -> z'), SimNorm-capped
+- reward:      MLP([z, a] -> num_bins logits)
+- termination: MLP(z -> 1 logit), episodic tasks only
+- pi:          MLP(z -> 2*action_dim), tanh-squashed Gaussian
+- Qs:          stacked ensemble of MLPs -> num_bins logits, zero-init output
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tdmpc2_tpu_torch.models import layers
+from tdmpc2_tpu_torch.ops import math
+
+
+class WorldModel:
+    """Stateless apply-function namespace; all params are explicit."""
+
+    def __init__(self, cfg):
+        if cfg.obs != 'state':
+            raise NotImplementedError(
+                f'obs={cfg.obs!r}: the port has the state encoder only so far')
+        self.cfg = cfg
+        self.log_std_min = float(cfg.log_std_min)
+        self.log_std_dif = float(cfg.log_std_max) - float(cfg.log_std_min)
+
+    def init(self, gen: torch.Generator) -> dict:
+        """Fresh parameters on the CPU, drawn from `gen` (the JAX package's
+        shapes and init rules, world_model.py:58-104)."""
+        cfg = self.cfg
+        n_bins = max(cfg.num_bins, 1)
+        act_in = cfg.latent_dim + cfg.action_dim
+        params = {
+            'encoder': {'state': layers.mlp_init(
+                gen, cfg.obs_shape['state'][0],
+                max(cfg.num_enc_layers - 1, 1) * [cfg.enc_dim],
+                cfg.latent_dim, final_normed=True)},
+            'dynamics': layers.mlp_init(
+                gen, act_in, 2 * [cfg.mlp_dim], cfg.latent_dim,
+                final_normed=True),
+            'reward': layers.mlp_init(
+                gen, act_in, 2 * [cfg.mlp_dim], n_bins, zero_final=True),
+            'pi': layers.mlp_init(
+                gen, cfg.latent_dim, 2 * [cfg.mlp_dim], 2 * cfg.action_dim),
+            'Qs': layers.ensemble_init(
+                cfg.num_q, lambda: layers.mlp_init(
+                    gen, act_in, 2 * [cfg.mlp_dim], n_bins, zero_final=True)),
+        }
+        if cfg.episodic:
+            params['termination'] = layers.mlp_init(
+                gen, cfg.latent_dim, 2 * [cfg.mlp_dim], 1)
+        return params
+
+    def _simnorm(self, x):
+        return layers.simnorm(x, self.cfg.simnorm_dim)
+
+    def encode(self, params, obs):
+        """obs -> SimNorm latent (reference world_model.py:103-112)."""
+        return layers.mlp(params['encoder']['state'], obs,
+                          final_act=self._simnorm)
+
+    def next(self, params, z, a):
+        """Latent dynamics (reference world_model.py:114-121)."""
+        return layers.mlp(params['dynamics'], torch.cat([z, a], dim=-1),
+                          final_act=self._simnorm)
+
+    def reward(self, params, z, a):
+        """Reward logits (reference world_model.py:123-130)."""
+        return layers.mlp(params['reward'], torch.cat([z, a], dim=-1))
+
+    def termination(self, params, z, unnormalized: bool = False):
+        """Termination probability/logit (reference world_model.py:132-141)."""
+        logit = layers.mlp(params['termination'], z)
+        return logit if unnormalized else torch.sigmoid(logit)
+
+    def pi(self, params, z, eps):
+        """Tanh-squashed Gaussian policy prior with the caller's standard
+        normal `eps` (the shape of the action). Returns (action, info) with
+        the squashed mean and the log-std (reference world_model.py:144-184).
+        """
+        out = layers.mlp(params['pi'], z)
+        mean, lstd = torch.chunk(out, 2, dim=-1)
+        lstd = math.log_std(lstd, self.log_std_min, self.log_std_dif)
+        action = torch.tanh(mean + eps * torch.exp(lstd))
+        return action, {'mean': torch.tanh(mean), 'log_std': lstd}
+
+    def Q(self, params, z, a, qidx=None, return_type: str = 'min'):
+        """State-action value through the stacked Q-ensemble.
+
+        return_type 'all' gives every head's logits [num_q, ..., bins];
+        'min'/'avg' decode the two heads `qidx` names (the JAX package draws
+        them with a permutation, world_model.py:238-252).
+        """
+        cfg = self.cfg
+        out = layers.ensemble(params['Qs'], torch.cat([z, a], dim=-1))
+        if return_type == 'all':
+            return out
+        qsub = math.two_hot_inv(out[qidx], cfg.num_bins, cfg.vmin, cfg.vmax)
+        if return_type == 'min':
+            return torch.min(qsub, dim=0).values
+        return torch.sum(qsub, dim=0) / 2

@@ -1,0 +1,122 @@
+"""Build and load the port's CUDA kernels.
+
+Each `csrc/<name>.cu` is compiled on first use with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \\
+         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+
+into a plain-C shared library that `ctypes` loads. `<hash>` covers every
+source under `csrc/` and the flags, so an edit rebuilds and an unchanged
+tree reuses the library. `_build/` is listed in `.gitignore`. The sources
+are compiled in parallel, one `nvcc` each. A missing `nvcc`, a failed build
+or a failed load raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
+SOURCES = ('value', 'cem')
+FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
+         '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
+_PTRS, _INTS = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+# (library, function) -> argtypes; every function returns a cudaError_t as int
+SIGNATURES = {
+    ('value', 'tdm_value'): (_PTRS, _INTS, _F, _F, _I, _P, _L, _P, _L, _L, _P,
+                             _P, _P, _P, _P),
+    ('cem', 'tdm_pi_rollout'): (_PTRS, _INTS, _F, _F, _I, _P, _P, _P, _P),
+    ('cem', 'tdm_sample'): (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    ('cem', 'tdm_elite'): (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P,
+                           _P, _P),
+}
+
+_loaded: dict = {}
+
+
+def nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, then PATH, then /usr/local/cuda/bin."""
+    cands = []
+    if os.environ.get('CUDA_HOME'):
+        cands.append(str(Path(os.environ['CUDA_HOME']) / 'bin' / 'nvcc'))
+    if shutil.which('nvcc'):
+        cands.append(shutil.which('nvcc'))
+    cands.append('/usr/local/cuda/bin/nvcc')
+    for c in cands:
+        if Path(c).is_file():
+            return c
+    raise RuntimeError('nvcc not found (set CUDA_HOME or put nvcc on PATH)')
+
+
+def _digest() -> str:
+    h = hashlib.sha256(' '.join(FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def target(name: str) -> Path:
+    return BUILD_DIR / f'{name}-{_digest()}.so'
+
+
+def build(names=SOURCES) -> dict:
+    """Compile every library of `names` that is not built yet, all at once.
+
+    Returns {name: (seconds, ptxas report)} for the ones it compiled."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [n for n in names if not target(n).exists()]
+    if not todo:
+        return {}
+    exe = nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for n in todo:
+        tmp = BUILD_DIR / f'{n}.{os.getpid()}.tmp.so'
+        cmd = [exe, *FLAGS, '-o', str(tmp), str(CSRC / f'{n}.cu')]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+    report, failed = {}, []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f'{n}.cu (nvcc exit {proc.returncode}):\n{out}')
+            continue
+        os.replace(tmp, target(n))
+        report[n] = (time.perf_counter() - t0, out)
+    if failed:
+        raise RuntimeError('CUDA build failed:\n' + '\n'.join(failed))
+    return report
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library `name`, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build((name,))
+        lib = ctypes.CDLL(str(target(name)))
+        for (lname, fn), argtypes in SIGNATURES.items():
+            if lname == name:
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+        lib.tdm_error_name.argtypes = (ctypes.c_int,)
+        lib.tdm_error_name.restype = ctypes.c_char_p
+        _loaded[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str):
+    """Raise if a launch function returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(
+            f'{what}: {lib.tdm_error_name(rc).decode()} ({rc}) at launch')

@@ -1,0 +1,264 @@
+"""The MPPI/CEM planning loop: the port of the TPU kernel `_cem_kernel`
+(tdmpc2_tpu/ops/pallas_cem.py:53, entry `cem_prepared` :247).
+
+The TPU kernel runs one environment's whole loop in one program. Here the
+loop is four hand-written kernels (csrc/cem.cu, csrc/value.cu) whose launch
+boundaries are the only synchronisation across thread blocks:
+
+    pi_rollout                 once per plan: the n_pi policy-prior rows
+    per iteration:
+      sample_actions           clip(mean + std * noise), pi rows override
+      value_estimate           ops/value.py
+      elite_moments            one block: NaN guard, E-th largest by
+                               bisection with boundary-shell tie weights,
+                               softmax-weighted mean/std update
+
+Each wrapper launches its kernel on CUDA tensors and runs its plain
+version on CPU tensors. `cem_plan` chains the wrappers; `cem_plan_plain`
+chains the plain versions. All noise is input, laid out as for
+`cem_prepared`: z0 [1, L]; pi_eps [n_pi, H*A]; noise [I, S, H*A] (rows
+below n_pi unused); eps [I, S, A]; qidx [I, 2] int32; discs [H+1];
+mean0/std0 [H*A]; amask [A]. Returns (mean [H*A], std [H*A], value [S, 1]
+of the last iteration, NaN-guarded, and its actions [S, H*A]).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tdmpc2_tpu_torch.ops import _build
+from tdmpc2_tpu_torch.ops.value import (check_prep, dynamics_plain,
+                                        pi_head_plain, prep_dims,
+                                        value_estimate, value_estimate_plain,
+                                        weight_ptrs)
+
+_F32_HUGE = 3.0e38  # finite-value guard (nan_to_num semantics)
+
+
+def _cuda_operands(name, dev, *tensors):
+    for t in tensors:
+        if (t.device != dev or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f'{name}: operands must be contiguous f32 '
+                             f'tensors on {dev}')
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# Policy-prior rollouts
+# ---------------------------------------------------------------------------
+
+
+def pi_rollout_plain(prep, z0, pi_eps, *, log_std_min: float,
+                     log_std_dif: float, simnorm_dim: int = 8):
+    """z0 [1, L]; pi_eps [n_pi, H*A] -> actions [n_pi, H*A]."""
+    A = prep['pWm'].shape[1]
+    n_pi, HA = pi_eps.shape
+    z = z0.float().expand(n_pi, -1)
+    out = []
+    for t in range(HA // A):
+        mean, ls = pi_head_plain(prep, z, log_std_min, log_std_dif)
+        a = torch.tanh(mean + pi_eps[:, t * A:(t + 1) * A] * torch.exp(ls))
+        out.append(a)
+        z = dynamics_plain(prep, z, a, simnorm_dim)
+    return torch.cat(out, dim=-1)
+
+
+def pi_rollout(prep, z0, pi_eps, *, log_std_min: float, log_std_dif: float,
+               simnorm_dim: int = 8):
+    """The pi-rollout kernel on CUDA tensors, the plain version on CPU."""
+    dev = z0.device
+    if dev.type == 'cpu':
+        return pi_rollout_plain(prep, z0, pi_eps, log_std_min=log_std_min,
+                                log_std_dif=log_std_dif,
+                                simnorm_dim=simnorm_dim)
+    if dev.type != 'cuda':
+        raise ValueError(f'pi_rollout: unsupported device {dev}')
+    check_prep(prep, dev, simnorm_dim)
+    _cuda_operands('pi_rollout', dev, z0, pi_eps)
+    n_pi, HA = pi_eps.shape
+    L, A = prep['dWz'].shape[0], prep['pWm'].shape[1]
+    if z0.shape != (1, L) or HA % A or n_pi < 1:
+        raise ValueError(f'pi_rollout: z0 {tuple(z0.shape)} / pi_eps '
+                         f'{tuple(pi_eps.shape)} do not fit L={L}, A={A}')
+    out = torch.empty(n_pi, HA, dtype=torch.float32, device=dev)
+    lib = _build.library('cem')
+    dims = (ctypes.c_int * 7)(*prep_dims(prep, simnorm_dim, HA // A))
+    rc = lib.tdm_pi_rollout(weight_ptrs(prep), dims, log_std_min, log_std_dif,
+                            n_pi, z0.data_ptr(), pi_eps.data_ptr(),
+                            out.data_ptr(), _stream(dev))
+    _build.check(lib, rc, 'pi_rollout kernel')
+    pi_rollout.launches += 1
+    return out
+
+
+pi_rollout.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Sampling
+# ---------------------------------------------------------------------------
+
+
+def sample_actions_plain(mean, std, noise, pi_acts, amask):
+    """mean/std [H*A]; noise [S, H*A]; pi_acts [n_pi, H*A]; amask [A]
+    -> actions [S, H*A]."""
+    n_pi = pi_acts.shape[0]
+    acts = torch.clamp(mean + std * noise, -1.0, 1.0)
+    if n_pi:
+        acts = torch.cat([pi_acts, acts[n_pi:]], dim=0)
+    return acts * amask.repeat(mean.shape[0] // amask.shape[0])
+
+
+def sample_actions(mean, std, noise, pi_acts, amask):
+    """The sample kernel on CUDA tensors, the plain version on CPU."""
+    dev = noise.device
+    if dev.type == 'cpu':
+        return sample_actions_plain(mean, std, noise, pi_acts, amask)
+    if dev.type != 'cuda':
+        raise ValueError(f'sample_actions: unsupported device {dev}')
+    _cuda_operands('sample_actions', dev, mean, std, noise, pi_acts, amask)
+    S, HA = noise.shape
+    A, n_pi = amask.shape[0], pi_acts.shape[0]
+    if (mean.shape != (HA,) or std.shape != (HA,) or HA % A or n_pi > S
+            or (n_pi and pi_acts.shape[1] != HA)):
+        raise ValueError('sample_actions: shapes do not agree')
+    out = torch.empty(S, HA, dtype=torch.float32, device=dev)
+    lib = _build.library('cem')
+    rc = lib.tdm_sample(mean.data_ptr(), std.data_ptr(), noise.data_ptr(),
+                        pi_acts.data_ptr(), amask.data_ptr(), S, HA, A, n_pi,
+                        out.data_ptr(), _stream(dev))
+    _build.check(lib, rc, 'sample kernel')
+    sample_actions.launches += 1
+    return out
+
+
+sample_actions.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Elite selection and moment update
+# ---------------------------------------------------------------------------
+
+
+def elite_moments_plain(value, acts, amask, *, num_elites: int,
+                        temperature: float, min_std: float, max_std: float):
+    """value [S] or [S, 1]; acts [S, H*A]; amask [A]
+    -> (mean [H*A], std [H*A], guarded value [S]).
+
+    The E-th largest value is found by 32-step bisection; the weight left
+    over at the boundary is shared by the values tied there, so distinct
+    values give exactly the top E and all-tied values a uniform E/S
+    (tdmpc2_tpu/ops/pallas_cem.py:186-231).
+    """
+    v = value.reshape(-1).float()
+    v = torch.where((v == v) & (torch.abs(v) <= _F32_HUGE), v,
+                    torch.zeros_like(v))
+    E = float(num_elites)
+    vmax = v.max()
+    lo = v.min()
+    hi = vmax + 0.001 * torch.abs(vmax) + 1.0
+    for _ in range(32):
+        mid = lo + 0.5 * (hi - lo)
+        ge = (v >= mid).float().sum() >= E
+        lo = torch.where(ge, mid, lo)
+        hi = torch.where(ge, hi, mid)
+    n1 = (v >= hi).float().sum()
+    nb = (v >= lo).float().sum() - n1
+    wb = (E - n1) / torch.clamp(nb, min=1.0)
+    w = torch.where(v >= hi, torch.ones_like(v),
+                    torch.where(v >= lo, wb, torch.zeros_like(v)))
+    score = torch.exp(temperature * (v - vmax)) * w
+    score = (score / score.sum())[:, None]
+    denom = score.sum() + 1e-9
+    mean = (score * acts).sum(0) / denom
+    std = torch.sqrt((score * (acts - mean) ** 2).sum(0) / denom)
+    std = torch.clamp(std, min_std, max_std)
+    mask = amask.repeat(acts.shape[1] // amask.shape[0])
+    return mean * mask, std * mask, v
+
+
+def elite_moments(value, acts, amask, *, num_elites: int, temperature: float,
+                  min_std: float, max_std: float):
+    """The elite kernel on CUDA tensors, the plain version on CPU."""
+    dev = acts.device
+    kw = dict(num_elites=num_elites, temperature=temperature,
+              min_std=min_std, max_std=max_std)
+    if dev.type == 'cpu':
+        return elite_moments_plain(value, acts, amask, **kw)
+    if dev.type != 'cuda':
+        raise ValueError(f'elite_moments: unsupported device {dev}')
+    _cuda_operands('elite_moments', dev, value, acts, amask)
+    S, HA = acts.shape
+    A = amask.shape[0]
+    if value.numel() != S or HA % A or not 0 < num_elites <= S:
+        raise ValueError('elite_moments: shapes do not agree')
+    v_out = torch.empty(S, dtype=torch.float32, device=dev)
+    mean = torch.empty(HA, dtype=torch.float32, device=dev)
+    std = torch.empty(HA, dtype=torch.float32, device=dev)
+    lib = _build.library('cem')
+    rc = lib.tdm_elite(value.data_ptr(), acts.data_ptr(), amask.data_ptr(),
+                       S, HA, A, num_elites, temperature, min_std, max_std,
+                       v_out.data_ptr(), mean.data_ptr(), std.data_ptr(),
+                       _stream(dev))
+    _build.check(lib, rc, 'elite kernel')
+    elite_moments.launches += 1
+    return mean, std, v_out
+
+
+elite_moments.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The planning loop
+# ---------------------------------------------------------------------------
+
+
+def _cem_loop(steps, prep, z0, pi_eps, noise, eps, qidx, discs, mean0, std0,
+              amask, *, iterations, n_pi, num_elites, temperature, min_std,
+              max_std, log_std_min, log_std_dif, simnorm_dim):
+    pi_roll, sample, value, elite = steps
+    I, S, HA = noise.shape
+    H = discs.shape[0] - 1
+    A = HA // H
+    if not 1 <= iterations <= I:
+        raise ValueError(f'{iterations} iterations with noise for {I}')
+    heads = dict(log_std_min=log_std_min, log_std_dif=log_std_dif,
+                 simnorm_dim=simnorm_dim)
+    if n_pi > 0:
+        pi_acts = pi_roll(prep, z0, pi_eps[:n_pi], **heads)
+    else:
+        pi_acts = noise.new_zeros(0, HA)
+    z = z0.expand(S, z0.shape[-1])
+    mean, std = mean0.reshape(HA), std0.reshape(HA)
+    amask = amask.reshape(A)
+    for it in range(iterations):
+        acts = sample(mean, std, noise[it], pi_acts, amask)
+        v = value(prep, z, acts.view(S, H, A).permute(1, 0, 2), eps[it],
+                  qidx[it], discs, **heads)
+        mean, std, v = elite(v, acts, amask, num_elites=num_elites,
+                             temperature=temperature, min_std=min_std,
+                             max_std=max_std)
+    return mean, std, v[:, None], acts
+
+
+def cem_plan(prep, z0, pi_eps, noise, eps, qidx, discs, mean0, std0, amask,
+             **kw):
+    """The planning loop through the kernels (CUDA) or plain versions (CPU)."""
+    return _cem_loop((pi_rollout, sample_actions, value_estimate,
+                      elite_moments), prep, z0, pi_eps, noise, eps, qidx,
+                     discs, mean0, std0, amask, **kw)
+
+
+def cem_plan_plain(prep, z0, pi_eps, noise, eps, qidx, discs, mean0, std0,
+                   amask, **kw):
+    """The planning loop through the plain versions, on any device."""
+    return _cem_loop((pi_rollout_plain, sample_actions_plain,
+                      value_estimate_plain, elite_moments_plain), prep, z0,
+                     pi_eps, noise, eps, qidx, discs, mean0, std0, amask,
+                     **kw)

@@ -1,0 +1,146 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked `cuda`; without a card every test skips. On the card:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py -q
+
+Small widths with ragged edges (row counts that are not a multiple of the
+kernels' row block). Both sides use bf16 weights and bf16-rounded dot
+inputs with f32 accumulation, so they differ only in summation order and
+in last-bit rounding ahead of bf16 roundings: values are held at 2e-2,
+the elite update (no dots) at 1e-4, sampling exactly."""
+
+import pytest
+import torch
+
+from tdmpc2_tpu_torch.config import Config, parse_cfg
+from tdmpc2_tpu_torch.models.layers import simnorm
+from tdmpc2_tpu_torch.ops import cem
+from tdmpc2_tpu_torch.ops.value import (prepare_value_params, value_estimate,
+                                        value_estimate_plain)
+from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
+
+pytestmark = pytest.mark.cuda
+
+BAND = dict(rtol=2e-2, atol=2e-2)
+ELITE = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope='module')
+def agent():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card (python -m pytest -m cuda on the card)')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = parse_cfg(Config(task='toy', device='cuda', enc_dim=48, mlp_dim=64,
+                           latent_dim=64, num_q=3, num_samples=77,
+                           num_elites=9, num_pi_trajs=5, iterations=3))
+    cfg.obs_shape, cfg.action_dim, cfg.episode_length = {'state': (10,)}, 3, 30
+    ag = TDMPC2(cfg)
+    g = torch.Generator().manual_seed(0)
+    params = ag.model.init(g)
+
+    def perturb(t):
+        if isinstance(t, dict):
+            return {k: perturb(v) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return tuple(perturb(v) for v in t)
+        return t + 0.05 * torch.randn(t.shape, generator=g)
+    ag.load_params(perturb(params))
+    return ag
+
+
+def _heads(ag):
+    return dict(log_std_min=ag.model.log_std_min,
+                log_std_dif=ag.model.log_std_dif, simnorm_dim=8)
+
+
+def test_value_kernel_matches_plain(agent):
+    cfg, dev = agent.cfg, agent.device
+    S, H, A = cfg.num_samples, cfg.horizon, cfg.action_dim
+    g = torch.Generator(device=dev).manual_seed(1)
+    z0 = simnorm(torch.randn(S, cfg.latent_dim, device=dev, generator=g), 8)
+    acts = torch.rand(S, H * A, device=dev, generator=g) * 2 - 1
+    args = (agent.prep, z0, acts.view(S, H, A).permute(1, 0, 2),
+            torch.randn(S, A, device=dev, generator=g),
+            torch.tensor([2, 0], dtype=torch.int32, device=dev), agent.discs)
+    n0 = value_estimate.launches
+    got = value_estimate(*args, **_heads(agent))
+    assert value_estimate.launches == n0 + 1
+    torch.testing.assert_close(got, value_estimate_plain(*args, **_heads(agent)),
+                               **BAND)
+    # broadcast latent rows (stride 0), as the planner passes them
+    zb = z0[:1].expand(S, -1)
+    torch.testing.assert_close(
+        value_estimate(agent.prep, zb, *args[2:], **_heads(agent)),
+        value_estimate_plain(agent.prep, zb, *args[2:], **_heads(agent)), **BAND)
+
+
+def test_value_wrapper_refuses_f32_weights(agent):
+    prep32 = prepare_value_params(agent.params, agent.cfg, torch.float32)
+    S, dev = 8, agent.device
+    with pytest.raises(ValueError, match='prepared weight'):
+        value_estimate(prep32, torch.zeros(S, agent.cfg.latent_dim, device=dev),
+                       torch.zeros(3, S, 3, device=dev), torch.zeros(S, 3, device=dev),
+                       torch.zeros(2, dtype=torch.int32, device=dev), agent.discs,
+                       **_heads(agent))
+
+
+def test_pi_rollout_and_sample_kernels_match_plain(agent):
+    noise = agent.draw_noise()
+    z0 = agent.model.encode(agent.params, torch.randn(1, 10, device=agent.device))
+    n_pi = agent.cfg.num_pi_trajs
+    args = (agent.prep, z0, noise.pi_eps[:n_pi])
+    pa = cem.pi_rollout(*args, **_heads(agent))
+    torch.testing.assert_close(pa, cem.pi_rollout_plain(*args, **_heads(agent)), **BAND)
+    HA = pa.shape[1]
+    s_args = (torch.full((HA,), 0.2, device=agent.device),
+              torch.full((HA,), 0.7, device=agent.device), noise.sample[0], pa,
+              agent.amask)
+    torch.testing.assert_close(cem.sample_actions(*s_args),
+                               cem.sample_actions_plain(*s_args), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('values', ['distinct', 'tied', 'nan'])
+def test_elite_kernel_matches_plain(agent, values):
+    dev, S, HA = agent.device, 300, 9
+    g = torch.Generator(device=dev).manual_seed(2)
+    acts = torch.rand(S, HA, device=dev, generator=g) * 2 - 1
+    v = torch.randn(S, 1, device=dev, generator=g)
+    if values == 'tied':
+        v = torch.full_like(v, 0.25)
+    elif values == 'nan':
+        v[::7] = float('nan')
+        v[3] = float('inf')
+    kw = dict(num_elites=17, temperature=0.5, min_std=0.05, max_std=2.0)
+    amask = torch.ones(3, device=dev)
+    got = cem.elite_moments(v, acts, amask, **kw)
+    ref = cem.elite_moments_plain(v, acts, amask, **kw)
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, **ELITE)
+
+
+def test_cem_plan_kernels_match_plain(agent):
+    cfg = agent.cfg
+    noise = agent.draw_noise()
+    z0 = agent.model.encode(agent.params, torch.randn(1, 10, device=agent.device))
+    HA = cfg.horizon * cfg.action_dim
+    args = (agent.prep, z0, noise.pi_eps, noise.sample, noise.eps, noise.qidx,
+            agent.discs, torch.zeros(HA, device=agent.device),
+            torch.full((HA,), cfg.max_std, device=agent.device), agent.amask)
+    kw = dict(iterations=agent.iterations, n_pi=cfg.num_pi_trajs,
+              num_elites=cfg.num_elites, temperature=cfg.temperature,
+              min_std=cfg.min_std, max_std=cfg.max_std, **_heads(agent))
+    mk, sk, vk, ak = cem.cem_plan(*args, **kw)
+    mp, sp, vp, ap = cem.cem_plan_plain(*args, **kw)
+    torch.testing.assert_close(mk, mp, rtol=0, atol=0.15)
+    torch.testing.assert_close(sk, sp, rtol=0, atol=0.15)
+    assert vk.shape == vp.shape and ak.shape == ap.shape
+
+
+def test_act_on_card(agent):
+    import numpy as np
+    counts = cem.elite_moments.launches
+    a = agent.act(np.zeros(10, np.float32), t0=True, eval_mode=True)
+    assert a.shape == (3,) and np.isfinite(a).all()
+    assert cem.elite_moments.launches == counts + agent.iterations
