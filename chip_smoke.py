@@ -4,17 +4,29 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `tdmpc2_tpu_torch/csrc` with nvcc,
-holds every kernel of the acting path against its plain PyTorch version at
-the default 5M model's full width, then drives the path through its entry
-point, `tdmpc2_tpu_torch.evaluate`, on the `toy-reach` task with random
-weights drawn from a seed, and shows through the launch counters that the
-planner ran on the kernels. Phases print one progress line each. It ends
-with the card's name and power limit, one JSON line of per-kernel numbers
-(launches on the path, error against the plain version, kernel and plain
-times, the card's least time for the same work), and last
-`{"ok": true, "device": {...}}`. Any failed phase exits non-zero before
-that line; so does a machine without CUDA, or a directory without the
-port's package. A watchdog turns a hang into an exit with a traceback.
+runs the kernel-engine canary, holds every kernel against its plain
+PyTorch version at the default 5M model's full width, then drives the
+port's paths through the entry points a user calls, with random weights
+drawn from a seed, each with the launch counters set to 0 just before it
+and read just after:
+
+- evaluate: `tdmpc2_tpu_torch.evaluate` on `toy-reach` (the planner);
+- rollout: `ops.rollout.fused_value_rollout`, the reward+dynamics
+  rollout's own entry point;
+- train (the main path): `tdmpc2_tpu_torch.train` on `toy-reach`, 1,200
+  steps (1,000 random, a 1,000-update burst, then planned steps with one
+  update each), which constructs the agent and so runs the canary.
+
+Then one update on the card is held against the same update on the CPU,
+and the training path is timed (update steps/s, env-steps/s, and the
+shares of an env step spent in `act` and in `update`). Phases print one
+progress line each. It ends with the card's name and power limit, one
+JSON line of per-kernel numbers (launches on their path, error against
+the plain version, kernel, plain and library times, the card's least time
+for the same work), and last `{"ok": true, "device": {...}}`. Any failed
+phase exits non-zero before that line; so does a machine without CUDA, or
+a directory without the port's package. A watchdog turns a hang into an
+exit with a traceback.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ import sys
 import time
 
 WATCHDOG_S = 1000          # the whole run is expected well under 300 s
+TRAIN_STEPS = 1200         # make_env sets seed_steps to 1000 on toy-reach
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # dense bf16 tensor-core peak
 F32_FLOPS = 67e12          # f32 outside the tensor cores
@@ -49,6 +62,16 @@ CEM_TOL = dict(rtol=0.0, atol=0.15)
 # Plain value estimate in f32 against the model heads in f32 (the JAX
 # agent's plain branch): the same function in another factoring.
 REF_TOL = dict(rtol=1e-4, atol=1e-4)
+# The rollout kernel is the value kernel's row-block code without the
+# policy and Q tail: its return G is held at the value band, and z_H (a
+# SimNorm output in [0, 1]) at the same absolute band.
+ROLLOUT_TOL = dict(rtol=2e-2, atol=2e-2)
+# x + 1 in f32 is exact on both sides.
+PROBE_TOL = dict(rtol=0.0, atol=0.0)
+# One update on the card against the CPU, both f32 with TF32 off, on a
+# state that has trained (so Adam's step is not a sign of a tiny
+# gradient): sums in another order, 1e-4 as the CPU parity with JAX.
+UPDATE_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def log(msg):
@@ -113,6 +136,34 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_share(fn, reps):
+    """(device-busy ms, device activities, top activities) per call of fn,
+    from the kernel and copy events of a torch.profiler trace of `reps`
+    calls; top is [(ms, count, name)] of the 6 largest by time. (None, 0,
+    []) when the trace holds no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return None, 0, []
+    by_name = {}
+    for e in dev:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3 / reps,
+                           n + 1 / reps)
+    top = sorted(((t, n, k) for k, (t, n) in by_name.items()), reverse=True)
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps
+    return busy, len(dev) / reps, top[:6]
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -144,12 +195,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        from tdmpc2_tpu_torch import train as train_mod
         from tdmpc2_tpu_torch.config import load_cfg
         from tdmpc2_tpu_torch.envs import make_env
         from tdmpc2_tpu_torch.evaluate import evaluate
         from tdmpc2_tpu_torch.models.layers import simnorm
-        from tdmpc2_tpu_torch.ops import _build, cem, value
+        from tdmpc2_tpu_torch.ops import _build, cem, probe, rollout, value
         from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
+        from tdmpc2_tpu_torch.utils import tree
     except ImportError as e:
         print(f'chip_smoke: the port is not importable here ({e})',
               file=sys.stderr)
@@ -172,6 +225,15 @@ def main() -> int:
         for name in _build.SOURCES:
             _build.library(name)
 
+    results = {}
+    with Phase('canary: kernel_engine_alive (child process, then here)'):
+        if not probe.kernel_engine_alive(dev):
+            raise AssertionError(f'canary: {probe.verdict()["reason"]}')
+        log(f'  canary child {probe.verdict()["seconds"]:.2f} s')
+        x_probe = torch.randn(probe.SHAPE, device=dev)
+        results['probe'] = hold('probe', probe.add_one(x_probe),
+                                probe.add_one_plain(x_probe), PROBE_TOL)
+
     # the main path's model: toy-reach at the default 5M config
     cfg = load_cfg(overrides=['task=toy-reach', f'seed={SEED}'])
     make_env(cfg)
@@ -185,7 +247,6 @@ def main() -> int:
                  log_std_dif=agent.model.log_std_dif,
                  simnorm_dim=cfg.simnorm_dim)
     g = torch.Generator(device=dev).manual_seed(SEED)
-    results = {}
 
     with Phase(f'value kernel vs plain (S={S}, L={L}, H={H}, A={A})'):
         z0 = simnorm(torch.randn(S, L, device=dev, generator=g), cfg.simnorm_dim)
@@ -209,6 +270,21 @@ def main() -> int:
                                         eps[:n], qidx, agent.discs, **heads),
              agent._estimate_value(z0[:n], actions[:, :n], eps[:n], qidx),
              REF_TOL)
+
+    dyn, rew = agent.params['dynamics'], agent.params['reward']
+    r_kw = dict(horizon=H, discount=agent.discount,
+                simnorm_dim=cfg.simnorm_dim)
+    with Phase(f'rollout kernel vs plain (S={S}, L={L}, H={H}, A={A})'):
+        prep_r = rollout.prepare_rollout_params(dyn, rew, L, cfg.vmin,
+                                                cfg.vmax)
+        r_args = (prep_r, z0, actions)
+        G_k, zH_k = rollout.rollout_prepared(*r_args, **r_kw)
+        G_p, zH_p = rollout.rollout_prepared_plain(*r_args, **r_kw)
+        if G_k.shape != (S, 1) or zH_k.shape != (S, L):
+            raise AssertionError('rollout: wrong output shapes')
+        results['rollout'] = max(hold('rollout G', G_k, G_p, ROLLOUT_TOL),
+                                 hold('rollout z_H', zH_k, zH_p, ROLLOUT_TOL))
+        log(f'  G range [{float(G_p.min()):.3f}, {float(G_p.max()):.3f}]')
 
     obs = torch.randn(1, cfg.obs_shape['state'][0], device=dev, generator=g)
     zenc = agent.model.encode(agent.params, obs)
@@ -259,21 +335,156 @@ def main() -> int:
     wrappers = {'value': value.value_estimate,
                 'cem_pi_rollout': cem.pi_rollout,
                 'cem_sample': cem.sample_actions,
-                'cem_elite': cem.elite_moments}
-    with Phase('main path: evaluate toy-reach, 5M model, 2 episodes'):
-        ev_cfg = load_cfg(overrides=['task=toy-reach', 'eval_episodes=2',
-                                     f'seed={SEED}', 'device=cuda'])
+                'cem_elite': cem.elite_moments,
+                'rollout': rollout.rollout_prepared,
+                'probe': probe.add_one}
+    planner = ('value', 'cem_pi_rollout', 'cem_sample', 'cem_elite')
+
+    def zero_counts():
         for w in wrappers.values():
             w.launches = 0
+
+    def read_counts():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    with Phase('path: evaluate toy-reach, 5M model, 2 episodes'):
+        ev_cfg = load_cfg(overrides=['task=toy-reach', 'eval_episodes=2',
+                                     f'seed={SEED}', 'device=cuda'])
+        zero_counts()
         res = evaluate(ev_cfg)['toy-reach']
-        launches = {k: w.launches for k, w in wrappers.items()}
+        ev_launches = read_counts()
         log(f'  reward {res["reward"]:.4f}, {res["plans"]} plans, '
-            f'{res["plans"] / res["seconds"]:.1f} plans/s; launches {launches}')
+            f'{res["plans"] / res["seconds"]:.1f} plans/s; launches {ev_launches}')
         if not math.isfinite(res['reward']):
             raise AssertionError('evaluate: non-finite reward')
-        for k, n in launches.items():
-            if n <= 0:
+        for k in planner:
+            if ev_launches[k] <= 0:
                 raise AssertionError(f'evaluate: kernel {k} never launched')
+
+    with Phase(f'path: fused_value_rollout (S={S}, H={H}, 5M heads)'):
+        zero_counts()
+        G_e, zH_e = rollout.fused_value_rollout(
+            dyn, rew, z0, actions, vmin=cfg.vmin, vmax=cfg.vmax, **r_kw)
+        ro_launches = read_counts()
+        log(f'  launches {ro_launches}')
+        if ro_launches['rollout'] <= 0:
+            raise AssertionError('fused_value_rollout: the kernel never launched')
+        if not (bool(torch.isfinite(G_e).all()) and bool(torch.isfinite(zH_e).all())):
+            raise AssertionError('fused_value_rollout: non-finite output')
+        hold('fused_value_rollout G vs rollout_prepared', G_e, G_k,
+             dict(rtol=0.0, atol=0.0))
+
+    # the main path, as `python -m tdmpc2_tpu_torch.train` runs it: a fresh
+    # process has no canary verdict yet, so agent construction runs it
+    losses = []
+    update = TDMPC2.update
+
+    def recording_update(self, buffer):
+        info = update(self, buffer)
+        losses.append(torch.stack([info['total_loss'], info['pi_loss']]))
+        return info
+
+    with Phase(f'main path: train toy-reach, 5M model, {TRAIN_STEPS} steps'):
+        TDMPC2.update = recording_update
+        probe._verdict = None       # as in a fresh process
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer = train_mod.main([
+            'task=toy-reach', f'steps={TRAIN_STEPS}', f'eval_freq={TRAIN_STEPS}',
+            'eval_episodes=1', f'seed={SEED}', 'save_agent=false',
+            'device=cuda', 'exp_name=chip_smoke'])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = read_counts()
+        TDMPC2.update = update
+        losses = torch.stack(losses)
+        log(f'  {trainer._step} steps, {len(losses)} updates in {train_s:.1f} s '
+            f'({trainer._step / train_s:.1f} env-steps/s over the whole run); '
+            f'launches {launches}; canary child {probe.verdict()["seconds"]:.2f} s')
+        log(f'  last losses: total {float(losses[-1, 0]):.4f}, '
+            f'pi {float(losses[-1, 1]):.4f}')
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError('train: non-finite loss')
+        # the seed_steps burst at step seed_steps, then one per later step
+        if len(losses) != TRAIN_STEPS:
+            raise AssertionError(f'train: {len(losses)} updates')
+        for k in planner + ('probe',):
+            if launches[k] <= 0:
+                raise AssertionError(f'train: kernel {k} never launched')
+    launches['rollout'] = ro_launches['rollout']
+    t_agent, buffer, env = trainer.agent, trainer.buffer, trainer.env
+
+    with Phase('one update on the card vs the same update on the CPU'):
+        cpu_agent = TDMPC2(trainer.cfg, device='cpu')
+        cpu_agent.state = t_agent.state.to('cpu')
+        batch = buffer.sample()
+        u_noise = t_agent.draw_update_noise()
+        cpu_batch = [x.cpu() for x in batch]
+        cpu_noise = type(u_noise)(**{
+            k: (None if v is None else v.cpu()) for k, v in vars(u_noise).items()})
+        info_k = t_agent._update(t_agent.state, *batch, u_noise)
+        info_c = cpu_agent._update(cpu_agent.state, *cpu_batch, cpu_noise)
+        errs = [hold(f'update {k}', info_k[k].cpu(), info_c[k], UPDATE_TOL)
+                for k in ('total_loss', 'consistency_loss', 'reward_loss',
+                          'value_loss', 'pi_loss', 'grad_norm', 'pi_grad_norm',
+                          'pi_scale')]
+        got, ref = t_agent.state.to('cpu'), cpu_agent.state
+        for name in ('params', 'target_Qs', 'opt_state', 'pi_opt_state'):
+            e = [max_err(a, b) for a, b in zip(tree.leaves(getattr(got, name)),
+                                                tree.leaves(getattr(ref, name)))]
+            bad = [a for a, b in zip(tree.leaves(getattr(got, name)),
+                                     tree.leaves(getattr(ref, name)))
+                   if bool(((a.float() - b.float()).abs() > UPDATE_TOL['atol']
+                            + UPDATE_TOL['rtol'] * b.float().abs()).any())]
+            log(f'  {name}: max |err| {max(e):.3g}')
+            if bad:
+                raise AssertionError(f'update: {name} outside {UPDATE_TOL}')
+        t_agent._prep = None
+
+    with Phase('training path timing (update steps/s, env-steps/s)'):
+        B = trainer.cfg.batch_size
+        upd_ms = time_ms(lambda: t_agent.update(buffer), 30)
+
+        def update_with_item():
+            return {k: float(v) for k, v in t_agent.update(buffer).items()}
+        upd_item_ms = time_ms(update_with_item, 30)
+        n_loop = 100
+        act_s = upd_s = env_s = 0.0
+        obs = env.reset()
+        torch.cuda.synchronize()
+        t_loop = time.perf_counter()
+        for t in range(n_loop):
+            t1 = time.perf_counter()
+            a = t_agent.act(obs, t0=(t % 50 == 0))
+            t2 = time.perf_counter()
+            obs, _, done, _ = env.step(a)
+            if done:
+                obs = env.reset()
+            t3 = time.perf_counter()
+            t_agent.update(buffer)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            act_s, env_s, upd_s = act_s + t2 - t1, env_s + t3 - t2, upd_s + t4 - t3
+        loop_s = time.perf_counter() - t_loop
+        log(f'  update: {upd_ms:.3f} ms ({1e3 / upd_ms:.1f} update steps/s at '
+            f'batch {B}); with .item() of each info value: {upd_item_ms:.3f} ms')
+        log(f'  collect+update loop: {n_loop / loop_s:.1f} env-steps/s; per step '
+            f'act {1e3 * act_s / n_loop:.3f} ms ({100 * act_s / loop_s:.1f}%), '
+            f'update {1e3 * upd_s / n_loop:.3f} ms ({100 * upd_s / loop_s:.1f}%), '
+            f'env {1e3 * env_s / n_loop:.3f} ms ({100 * env_s / loop_s:.1f}%)')
+        act_ms = 1e3 * act_s / n_loop
+        for name, fn, ms in (('update', lambda: t_agent.update(buffer), upd_ms),
+                             ('act', lambda: t_agent.act(obs), act_ms)):
+            busy, n_dev, top = device_share(fn, 5)
+            if busy is None:
+                log(f'  {name}: device busy time not measured (no device '
+                    'events in the profiler trace)')
+                continue
+            log(f'  {name}: device busy {busy:.3f} ms of {ms:.3f} ms '
+                f'(idle share {100 * (1 - busy / ms):.1f}%), '
+                f'{n_dev:.0f} device activities per call (torch.profiler)')
+            for t, n, k in top:
+                log(f'    {t:.3f} ms in {n:.0f} x {k[:90]}')
 
     with Phase('timing (CUDA events) and bounds'):
         HA = H * A
@@ -287,6 +498,9 @@ def main() -> int:
         mac_pi = L * M + M * M + 2 * M * A
         v_flops = 2 * S * (H * (mac_rew + mac_dyn) + mac_pi + 2 * mac_rew)
         v_bytes = w_all + w_q2 + nbytes(z0, actions, eps, qidx, agent.discs) + S * 4
+        r_flops = 2 * S * H * (mac_rew + mac_dyn)
+        r_bytes = (nbytes(*[prep_r[k] for k in value.ROLLOUT_NAMES])
+                   + nbytes(z0, actions) + S * 4 + S * L * 4)
         pi_w = nbytes(*[prep[k] for k in value.PREP_NAMES if k[0] in 'dp'])
         pi_flops = 2 * n_pi * H * (mac_pi + mac_dyn)
         pi_bytes = pi_w + nbytes(zenc, noise.pi_eps[:n_pi]) + n_pi * HA * 4
@@ -296,37 +510,50 @@ def main() -> int:
         timed = {
             'value': (lambda: value.value_estimate(*v_args, **heads),
                       lambda: value.value_estimate_plain(*v_args, **heads),
-                      bound_ms(v_bytes, v_flops, BF16_FLOPS)),
+                      None, bound_ms(v_bytes, v_flops, BF16_FLOPS)),
             'cem_pi_rollout': (lambda: cem.pi_rollout(*pi_args, **heads),
                                lambda: cem.pi_rollout_plain(*pi_args, **heads),
-                               bound_ms(pi_bytes, pi_flops, BF16_FLOPS)),
+                               None, bound_ms(pi_bytes, pi_flops, BF16_FLOPS)),
             'cem_sample': (lambda: cem.sample_actions(*s_args),
                            lambda: cem.sample_actions_plain(*s_args),
-                           bound_ms(s_bytes, 3 * S * HA, F32_FLOPS)),
+                           None, bound_ms(s_bytes, 3 * S * HA, F32_FLOPS)),
             'cem_elite': (lambda: cem.elite_moments(v_in, acts, agent.amask, **elite_kw),
                           lambda: cem.elite_moments_plain(v_in, acts, agent.amask,
                                                           **elite_kw),
-                          bound_ms(e_bytes, e_flops, F32_FLOPS)),
+                          None, bound_ms(e_bytes, e_flops, F32_FLOPS)),
+            'rollout': (lambda: rollout.rollout_prepared(*r_args, **r_kw),
+                        lambda: rollout.rollout_prepared_plain(*r_args, **r_kw),
+                        None, bound_ms(r_bytes, r_flops, BF16_FLOPS)),
+            # x + 1 is itself one PyTorch call: the library time
+            'probe': (lambda: probe.add_one(x_probe),
+                      lambda: probe.add_one_plain(x_probe),
+                      lambda: torch.add(x_probe, 1.0),
+                      bound_ms(2 * nbytes(x_probe), x_probe.numel(), F32_FLOPS)),
         }
-        source = {'value': 'tdmpc2_tpu_torch/csrc/value.cu'}
-        replaces = {'value': 'tdmpc2_tpu/ops/pallas_rollout.py:437'}
+        source = {'value': 'tdmpc2_tpu_torch/csrc/value.cu',
+                  'rollout': 'tdmpc2_tpu_torch/csrc/rollout.cu',
+                  'probe': 'tdmpc2_tpu_torch/csrc/probe.cu'}
+        replaces = {'value': 'tdmpc2_tpu/ops/pallas_rollout.py:437',
+                    'rollout': 'tdmpc2_tpu/ops/pallas_rollout.py:50',
+                    'probe': 'tdmpc2_tpu/ops/pallas_rollout.py:233'}
         kernels = []
-        for name, (kern, plain, (b_ms, b_by)) in timed.items():
+        for name, (kern, plain, lib, (b_ms, b_by)) in timed.items():
             ms = time_ms(kern, 50)
             plain_ms = time_ms(plain, 10)
+            lib_ms = time_ms(lib, 50) if lib is not None else None
             log(f'  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
-                f'bound {b_ms:.5f} ms ({b_by})')
+                f'library {lib_ms}, bound {b_ms:.6f} ms ({b_by})')
             kernels.append({
                 'name': name, 'route': 'cuda',
                 'source': source.get(name, 'tdmpc2_tpu_torch/csrc/cem.cu'),
                 'replaces': replaces.get(name, 'tdmpc2_tpu/ops/pallas_cem.py:53'),
                 'launches': launches[name], 'max_abs_err': results[name],
                 'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
-                'bound_by': b_by, 'library_ms': None})
+                'bound_by': b_by, 'library_ms': lib_ms})
         plan_ms = time_ms(lambda: cem.cem_plan(*plan_args, **plan_kw), 10)
         plan_plain_ms = time_ms(lambda: cem.cem_plan_plain(*plan_args, **plan_kw), 3)
         log(f'  whole cem_plan: kernels {plan_ms:.3f} ms, plain {plan_plain_ms:.3f} ms; '
-            f'value flops/call {v_flops / 1e9:.2f} G')
+            f'value flops/call {v_flops / 1e9:.2f} G, rollout {r_flops / 1e9:.2f} G')
 
     log(f'[done] {time.perf_counter() - t_start:.1f} s')
     log(smi)

@@ -6,8 +6,11 @@ on a ported path is a hand-written CUDA kernel under `csrc/`, built with
 nvcc for sm_90a on first use (ops/_build.py), with a plain PyTorch version
 beside it that the CPU runs.
 
-Ported so far: the acting/evaluation path — config, world-model heads, the
-MPPI planner (ops/value.py, ops/cem.py), the toy env and `evaluate`.
+Ported so far: single-task, state-observation online training and
+evaluation — config, world-model heads, the MPPI planner (ops/value.py,
+ops/cem.py), the update and its optimisers, the replay buffer, the online
+trainer, the toy env, `train` and `evaluate` — and every TPU kernel of the
+JAX package (value step, CEM loop, reward+dynamics rollout, canary).
 """
 
 __version__ = "0.1.0"

@@ -101,6 +101,13 @@ class Config:
     dropout: float = 0.01
     simnorm_dim: int = 8
 
+    # online training (JAX config names and defaults; the port trains with
+    # one env, one seed and from scratch, and raises on anything else)
+    update_ratio: float = 1.0
+    num_envs: int = 1
+    seeds: Any = None
+    resume: bool = False
+
     # where the port runs: 'cuda' (the default) or 'cpu' (tests)
     device: str = 'cuda'
 

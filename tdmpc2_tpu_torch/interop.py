@@ -6,6 +6,11 @@ port's pytree: the same dict keys and tuple positions, torch tensors for
 leaves, bf16 upcast to f32 as the JAX agent does on load
 (tdmpc2_tpu/tdmpc2.py:320-323).
 
+`state_from_jax` carries a whole JAX TrainState across: parameters, the
+target Q heads, optax's Adam moments of both optimiser chains and the
+running scale, so one JAX state and one port state take the same update
+step.
+
 `load_blob` reads a JAX checkpoint file (pickle, gzip-sniffed). The
 committed checkpoints (results/checkpoints/*.pkl.gz) hold ml_dtypes bf16
 arrays, and unpickling those imports `ml_dtypes`; so `load_blob` is a
@@ -39,6 +44,36 @@ def params_from_jax(tree, device='cpu'):
     if isinstance(tree, (tuple, list)):
         return tuple(params_from_jax(v, device) for v in tree)
     return _leaf(tree, device)
+
+
+def _adam_from_optax(adam, select, device):
+    """A ScaleByAdamState (count, mu, nu) -> the port's Adam state, its
+    moment trees cut to the subtree `select` picks."""
+    return {'count': torch.tensor(np.asarray(adam.count), device=device),
+            'mu': params_from_jax(select(adam.mu), device),
+            'nu': params_from_jax(select(adam.nu), device)}
+
+
+def state_from_jax(state, device='cpu'):
+    """A JAX TrainState (tdmpc2_tpu/tdmpc2.py:42-50) -> the port's
+    TrainState. The model chain's state is optax's
+    (clip, multi_transform) pair, whose 'enc' and 'rest' Adam moments are
+    masked to their group; the policy chain's is (clip, (adam, scale))."""
+    from tdmpc2_tpu_torch.ops.optim import model_groups
+    from tdmpc2_tpu_torch.tdmpc2 import TrainState
+    params = params_from_jax(state.params, device)
+    inner = state.opt_state[1].inner_states
+    opt_state = {
+        g: _adam_from_optax(inner[g].inner_state[0],
+                            lambda t, g=g: model_groups(t)[g], device)
+        for g in ('enc', 'rest')}
+    return TrainState(
+        params=params,
+        target_Qs=params_from_jax(state.target_Qs, device),
+        opt_state=opt_state,
+        pi_opt_state=_adam_from_optax(state.pi_opt_state[1][0],
+                                      lambda t: t, device),
+        scale=torch.tensor(np.asarray(state.scale, np.float32), device=device))
 
 
 def load_blob(path) -> dict:

@@ -128,10 +128,16 @@ def mlp(params, x, final_act: Optional[Callable] = None, keep_mask=None,
     return final_act(x) if final_act is not None else x
 
 
-def ensemble(params, x):
+def ensemble(params, x, keep_mask=None, dropout: float = 0.0):
     """Every member of a stacked MLP on shared input x [..., in] ->
-    [n, ..., out] (a batched matmul over the member axis)."""
+    [n, ..., out] (a batched matmul over the member axis).
+
+    `keep_mask` [n, ..., hidden] (bool) turns on each member's own dropout
+    on its first layer, as the JAX package's per-member keys do
+    (layers.py:180-193)."""
     n = params[0]['w'].shape[0]
     xs = x.reshape(1, -1, x.shape[-1]).expand(n, -1, -1)
-    out = mlp(params, xs)
+    if keep_mask is not None:
+        keep_mask = keep_mask.reshape(n, xs.shape[1], -1)
+    out = mlp(params, xs, keep_mask=keep_mask, dropout=dropout)
     return out.reshape(n, *x.shape[:-1], out.shape[-1])

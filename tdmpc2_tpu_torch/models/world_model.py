@@ -85,24 +85,42 @@ class WorldModel:
 
     def pi(self, params, z, eps):
         """Tanh-squashed Gaussian policy prior with the caller's standard
-        normal `eps` (the shape of the action). Returns (action, info) with
-        the squashed mean and the log-std (reference world_model.py:144-184).
+        normal `eps` (the shape of the action). Returns (action, info):
+        the squashed mean, the log-std, the entropy and the entropy scaled
+        by the action size (reference world_model.py:144-184).
         """
         out = layers.mlp(params['pi'], z)
         mean, lstd = torch.chunk(out, 2, dim=-1)
         lstd = math.log_std(lstd, self.log_std_min, self.log_std_dif)
-        action = torch.tanh(mean + eps * torch.exp(lstd))
-        return action, {'mean': torch.tanh(mean), 'log_std': lstd}
+        log_prob = math.gaussian_logprob(eps, lstd)
+        scaled_log_prob = log_prob * float(eps.shape[-1])
+        mean, action, log_prob = math.squash(
+            mean, mean + eps * torch.exp(lstd), log_prob)
+        entropy_scale = scaled_log_prob / (log_prob + 1e-8)
+        return action, {'mean': mean, 'log_std': lstd, 'entropy': -log_prob,
+                        'scaled_entropy': -log_prob * entropy_scale}
 
-    def Q(self, params, z, a, qidx=None, return_type: str = 'min'):
+    def Q(self, params, z, a, qidx=None, return_type: str = 'min',
+          target_params=None, detach: bool = False, keep_mask=None):
         """State-action value through the stacked Q-ensemble.
 
         return_type 'all' gives every head's logits [num_q, ..., bins];
         'min'/'avg' decode the two heads `qidx` names (the JAX package draws
-        them with a permutation, world_model.py:238-252).
+        them with a permutation, world_model.py:238-252). `target_params`
+        replaces the online heads (the Polyak targets); `detach` stops
+        gradients into the online heads; `keep_mask` [num_q, ..., mlp_dim]
+        turns on each head's first-layer dropout (world_model.py:216-257).
         """
         cfg = self.cfg
-        out = layers.ensemble(params['Qs'], torch.cat([z, a], dim=-1))
+        if target_params is not None:
+            qp = target_params
+        elif detach:
+            qp = tuple({k: v.detach() for k, v in layer.items()}
+                       for layer in params['Qs'])
+        else:
+            qp = params['Qs']
+        out = layers.ensemble(qp, torch.cat([z, a], dim=-1),
+                              keep_mask=keep_mask, dropout=cfg.dropout)
         if return_type == 'all':
             return out
         qsub = math.two_hot_inv(out[qidx], cfg.num_bins, cfg.vmin, cfg.vmax)

@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
-SOURCES = ('value', 'cem')
+SOURCES = ('value', 'cem', 'rollout', 'probe')
 FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
          '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -38,6 +38,9 @@ SIGNATURES = {
     ('cem', 'tdm_sample'): (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     ('cem', 'tdm_elite'): (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P,
                            _P, _P),
+    ('rollout', 'tdm_rollout'): (_PTRS, _INTS, _I, _P, _L, _P, _L, _L, _P,
+                                 _P, _P, _P),
+    ('probe', 'tdm_probe'): (_P, _P, _I, _P),
 }
 
 _loaded: dict = {}

@@ -40,25 +40,30 @@ PREP_NAMES = (
 )
 
 
-def prepare_value_params(params, cfg, dot_dtype=torch.bfloat16) -> dict:
-    """Slice and cast the value step's operands once per set of weights.
+# The reward+dynamics operands (and `bins`), all that the rollout kernel
+# reads (ops/rollout.py).
+ROLLOUT_NAMES = tuple(k for k in PREP_NAMES if k[0] in 'dr') + ('bins',)
 
-    Matrices go to `dot_dtype` (bf16 for the kernel; f32 gives the exact
-    plain reference), everything else stays f32; all contiguous, on the
-    params' device. Keys are PREP_NAMES.
-    """
-    L, A = cfg.latent_dim, cfg.action_dim
-    dyn, rew, pi, qs = (params['dynamics'], params['reward'], params['pi'],
-                        params['Qs'])
 
+def _casts(dot_dtype):
     def w(x):
         return x.to(dot_dtype).contiguous()
 
     def f(x):
         return x.float().contiguous()
+    return w, f
 
+
+def prepare_rollout_params(dyn, rew, latent_dim: int, vmin: float,
+                           vmax: float, dot_dtype=torch.bfloat16) -> dict:
+    """The rollout's operands (keys ROLLOUT_NAMES) from the dynamics and
+    reward MLP parameter tuples: each first layer split into its latent and
+    action rows, matrices in `dot_dtype` (bf16 for the kernels, f32 for an
+    exact plain reference), the rest f32, all contiguous."""
+    L = latent_dim
+    w, f = _casts(dot_dtype)
     B = rew[2]['w'].shape[-1]
-    prep = {
+    return {
         'dWz': w(dyn[0]['w'][:L]), 'dWa': w(dyn[0]['w'][L:]),
         'db0': f(dyn[0]['b']), 'dg0': f(dyn[0]['ln_w']), 'de0': f(dyn[0]['ln_b']),
         'dW1': w(dyn[1]['w']), 'db1': f(dyn[1]['b']),
@@ -70,6 +75,24 @@ def prepare_value_params(params, cfg, dot_dtype=torch.bfloat16) -> dict:
         'rW1': w(rew[1]['w']), 'rb1': f(rew[1]['b']),
         'rg1': f(rew[1]['ln_w']), 're1': f(rew[1]['ln_b']),
         'rW2': w(rew[2]['w']), 'rb2': f(rew[2]['b']),
+        'bins': torch.linspace(vmin, vmax, B, dtype=torch.float32,
+                               device=dyn[0]['w'].device),
+    }
+
+
+def prepare_value_params(params, cfg, dot_dtype=torch.bfloat16) -> dict:
+    """Slice and cast the value step's operands once per set of weights.
+
+    Matrices go to `dot_dtype` (bf16 for the kernel; f32 gives the exact
+    plain reference), everything else stays f32; all contiguous, on the
+    params' device. Keys are PREP_NAMES.
+    """
+    L, A = cfg.latent_dim, cfg.action_dim
+    pi, qs = params['pi'], params['Qs']
+    w, f = _casts(dot_dtype)
+    prep = prepare_rollout_params(params['dynamics'], params['reward'], L,
+                                  cfg.vmin, cfg.vmax, dot_dtype)
+    prep.update({
         'pW0': w(pi[0]['w']), 'pb0': f(pi[0]['b']),
         'pg0': f(pi[0]['ln_w']), 'pe0': f(pi[0]['ln_b']),
         'pW1': w(pi[1]['w']), 'pb1': f(pi[1]['b']),
@@ -81,9 +104,7 @@ def prepare_value_params(params, cfg, dot_dtype=torch.bfloat16) -> dict:
         'qW1': w(qs[1]['w']), 'qb1': f(qs[1]['b']),
         'qg1': f(qs[1]['ln_w']), 'qe1': f(qs[1]['ln_b']),
         'qW2': w(qs[2]['w']), 'qb2': f(qs[2]['b']),
-        'bins': torch.linspace(cfg.vmin, cfg.vmax, B, dtype=torch.float32,
-                               device=dyn[0]['w'].device),
-    }
+    })
     return {k: prep[k] for k in PREP_NAMES}
 
 
@@ -94,9 +115,10 @@ def prep_dims(prep, simnorm_dim: int, horizon: int) -> tuple:
             prep['qWz'].shape[0], simnorm_dim, horizon)
 
 
-def check_prep(prep, device, simnorm_dim: int):
-    """Validate prepared weights for the kernels: device, dtype, layout."""
-    for k in PREP_NAMES:
+def check_prep(prep, device, simnorm_dim: int, names=PREP_NAMES):
+    """Validate prepared weights `names` for the kernels: device, dtype,
+    layout."""
+    for k in names:
         t = prep[k]
         want = torch.bfloat16 if k[1] == 'W' else torch.float32
         if t.device != device or t.dtype != want or not t.is_contiguous():
@@ -108,8 +130,9 @@ def check_prep(prep, device, simnorm_dim: int):
 
 
 def weight_ptrs(prep):
+    """Pointers in PREP_NAMES order; a name `prep` lacks is null."""
     return (ctypes.c_void_p * len(PREP_NAMES))(
-        *[prep[k].data_ptr() for k in PREP_NAMES])
+        *[prep[k].data_ptr() if k in prep else None for k in PREP_NAMES])
 
 
 # ---------------------------------------------------------------------------
@@ -153,13 +176,9 @@ def pi_head_plain(p, z, log_std_min: float, log_std_dif: float):
     return mean, log_std_min + 0.5 * log_std_dif * (torch.tanh(ls) + 1.0)
 
 
-def value_estimate_plain(prep, z0, actions, eps, qidx, discs, *,
-                         log_std_min: float, log_std_dif: float,
-                         simnorm_dim: int = 8, episodic: bool = False):
-    """z0 [S, L]; actions [H, S, A]; eps [S, A]; qidx [2] int; discs [H+1]
-    -> value [S, 1]."""
-    if episodic:
-        raise NotImplementedError('episodic value estimate (termination head)')
+def rollout_plain(prep, z0, actions, discs, simnorm_dim: int = 8):
+    """The reward+dynamics rollout: z0 [S, L]; actions [H, S, A]; discs
+    [>= H] -> (G [S, 1], z_H [S, L]), G = sum_t discs[t] * r(z_t, a_t)."""
     p = prep
     z = z0.float()
     G = torch.zeros(z.shape[0], 1, dtype=torch.float32, device=z.device)
@@ -168,6 +187,18 @@ def value_estimate_plain(prep, z0, actions, eps, qidx, discs, *,
         u = _hidden2(_dot(z, p['rWz']) + _dot(a, p['rWa']), p, 'r')
         G = G + discs[t] * _two_hot_dec(_dot(u, p['rW2']) + p['rb2'], p['bins'])
         z = dynamics_plain(p, z, a, simnorm_dim)
+    return G, z
+
+
+def value_estimate_plain(prep, z0, actions, eps, qidx, discs, *,
+                         log_std_min: float, log_std_dif: float,
+                         simnorm_dim: int = 8, episodic: bool = False):
+    """z0 [S, L]; actions [H, S, A]; eps [S, A]; qidx [2] int; discs [H+1]
+    -> value [S, 1]."""
+    if episodic:
+        raise NotImplementedError('episodic value estimate (termination head)')
+    p = prep
+    G, z = rollout_plain(p, z0, actions, discs, simnorm_dim)
     mean, ls = pi_head_plain(p, z, log_std_min, log_std_dif)
     a = torch.tanh(mean + eps * torch.exp(ls))
     q = 0.0

@@ -1,4 +1,4 @@
-"""TD-MPC2 agent, acting path (port of tdmpc2_tpu/tdmpc2.py).
+"""TD-MPC2 agent: acting and learning (port of tdmpc2_tpu/tdmpc2.py).
 
 `act` encodes the observation and plans with MPPI, as the JAX agent's
 `_plan` (tdmpc2.py:523-641) with the whole-CEM kernel: the policy-prior
@@ -8,24 +8,35 @@ The loop runs on the hand-written kernels of ops/cem.py on the card, and
 on their plain versions on the CPU. The encoder, the final top-k and the
 Gumbel pick are plain torch, as they are plain XLA in the JAX package.
 
-All noise is data. `draw_noise` draws it from the agent's explicit
-`torch.Generator` on the device; `plan` takes a `PlanNoise` so a test can
-feed the draws the JAX planner made.
+`update` is one training step (`_update`, tdmpc2.py:928-1057): TD targets
+without gradient, the consistency, reward and value losses, the model's
+Adam step, the policy loss with the running Q scale on the updated
+weights, the policy's Adam step and the Polyak update of the target Q
+heads. It is plain autograd, as it is plain XLA in the JAX package. The
+step updates the train state in place and keeps its info on the device.
 
-No update or optimizer yet: training is a later part of the port.
+All noise is data. `draw_noise` and `draw_update_noise` draw it from the
+agent's explicit `torch.Generator` on the device; `plan` takes a
+`PlanNoise` and `_update` an `UpdateNoise`, so a test can feed the draws
+the JAX agent made.
 """
 
 from __future__ import annotations
 
+import pickle
 from dataclasses import dataclass
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 
 from tdmpc2_tpu_torch.models.world_model import WorldModel
-from tdmpc2_tpu_torch.ops import math
+from tdmpc2_tpu_torch.ops import math, optim, probe
 from tdmpc2_tpu_torch.ops.cem import cem_plan
+from tdmpc2_tpu_torch.ops.scale import update_scale
 from tdmpc2_tpu_torch.ops.value import prepare_value_params
+from tdmpc2_tpu_torch.utils import tree
 
 
 @dataclass
@@ -39,6 +50,39 @@ class PlanNoise:
     act: torch.Tensor       # [A] exploration noise (not in eval mode)
 
 
+@dataclass
+class UpdateNoise:
+    """Every random draw of one update step (T horizon, B batch, A action,
+    N Q heads, M mlp width); the JAX step splits them from its key as
+    k_td (td_eps, td_qidx), k_drop, k_pi_upd, k_pi_q and k_pi_drop
+    (tdmpc2.py:933-936)."""
+    td_eps: torch.Tensor               # [T, B, A] TD-target policy eps
+    td_qidx: torch.Tensor              # [2] long, TD-target Q heads
+    q_keep: Optional[torch.Tensor]     # [N, T, B, M] bool, Q('all') dropout
+    pi_eps: torch.Tensor               # [T+1, B, A] policy-loss eps
+    pi_qidx: torch.Tensor              # [2] long, policy-loss Q heads
+    pi_keep: Optional[torch.Tensor]    # [N, T+1, B, M] bool, its dropout
+
+
+@dataclass
+class TrainState:
+    """What one update step reads and writes (the JAX TrainState without
+    the planner's warm start and the PRNG key, which the agent keeps)."""
+    params: dict
+    target_Qs: tuple
+    opt_state: dict       # {'enc', 'rest'}: Adam states (ops/optim.py)
+    pi_opt_state: dict    # the policy's Adam state
+    scale: torch.Tensor   # [] running Q scale (ops/scale.py)
+
+    def to(self, device) -> 'TrainState':
+        """A copy of the state on `device`."""
+        def mv(x):
+            return x.detach().to(device, copy=True)
+        return TrainState(*[tree.map(mv, x) for x in (
+            self.params, self.target_Qs, self.opt_state, self.pi_opt_state,
+            self.scale)])
+
+
 def device_of(name: str) -> torch.device:
     """torch.device for `name`; 'cuda' without a card raises."""
     dev = torch.device(name)
@@ -50,13 +94,25 @@ def device_of(name: str) -> torch.device:
 
 
 class TDMPC2:
-    """TD-MPC2 agent: single-task, state observations, acting/eval only."""
+    """TD-MPC2 agent: single-task, state observations."""
+
+    # cfg fields that fix the parameter tree's shapes, written into every
+    # checkpoint in the JAX package's format (tdmpc2.py:214-226)
+    _ARCH_FIELDS = (
+        'obs', 'action_dim', 'latent_dim', 'mlp_dim', 'enc_dim',
+        'num_enc_layers', 'num_channels', 'num_q', 'num_bins', 'episodic',
+        'multitask', 'task_dim', 'simnorm_dim', 'model_size')
 
     def __init__(self, cfg, device=None):
         if cfg.episodic:
             raise NotImplementedError('episodic tasks: later part of the port')
         self.cfg = cfg
         self.device = device_of(device or cfg.device)
+        # the kernel-engine canary before anything runs on the card (the
+        # JAX agent's probe site, tdmpc2.py:124-128); no fallback behind it
+        if not probe.kernel_engine_alive(self.device):
+            raise RuntimeError('the CUDA kernels cannot run on this card: '
+                               f'{probe.verdict()["reason"]}')
         self.model = WorldModel(cfg)
         # heuristic for large action spaces (reference tdmpc2.py:34)
         self.iterations = cfg.iterations + 2 * int(cfg.action_dim >= 20)
@@ -64,6 +120,8 @@ class TDMPC2:
         H = cfg.horizon
         self.discs = (torch.tensor(self.discount, dtype=torch.float32)
                       ** torch.arange(H + 1, dtype=torch.float32)).to(self.device)
+        self.rho = (torch.tensor(cfg.rho, dtype=torch.float32)
+                    ** torch.arange(H + 1, dtype=torch.float32)).to(self.device)
         self.amask = torch.ones(cfg.action_dim, device=self.device)
         # the kernels take bf16 weights; the CPU path keeps f32 (reference)
         self.dot_dtype = (torch.bfloat16 if self.device.type == 'cuda'
@@ -79,11 +137,86 @@ class TDMPC2:
         return min(max((frac - 1) / frac, self.cfg.discount_min),
                    self.cfg.discount_max)
 
+    # ---------------------------------------------------------------- state
+
     def load_params(self, params):
-        """Take a parameter pytree (e.g. from interop.params_from_jax) and
-        prepare the planner's weights once."""
-        self.params = _to(params, self.device)
-        self.prep = prepare_value_params(self.params, self.cfg, self.dot_dtype)
+        """Take a parameter tree (e.g. from interop.params_from_jax) as a
+        fresh train state: targets copied from the Q heads, new optimiser
+        states and scale, as the JAX agent's init and weights-only load."""
+        params = _to(params, self.device)
+        self.state = TrainState(
+            params=params,
+            target_Qs=tree.map(torch.clone, params['Qs']),
+            opt_state=optim.model_opt_init(params),
+            pi_opt_state=optim.adam_init(params['pi']),
+            scale=torch.ones((), dtype=torch.float32, device=self.device))
+        self._prep = None
+
+    @property
+    def params(self):
+        return self.state.params
+
+    @property
+    def prep(self):
+        """The planner's prepared weights, redone after the weights change."""
+        if self._prep is None:
+            self._prep = prepare_value_params(self.params, self.cfg,
+                                              self.dot_dtype)
+        return self._prep
+
+    def _arch_meta(self) -> dict:
+        meta = {k: self.cfg.get(k) for k in self._ARCH_FIELDS}
+        meta['obs_shape'] = {k: tuple(v)
+                             for k, v in dict(self.cfg.obs_shape).items()}
+        meta['num_tasks'] = 1
+        return meta
+
+    def save(self, fp, extra: Optional[dict] = None):
+        """Pickle the train state. 'model', 'target_Qs' and 'scale' are in
+        the JAX package's pytree names as numpy arrays, so interop and the
+        JAX agent's `load` read them; the port's optimiser states go under
+        keys of their own, which the JAX agent does not read."""
+        def np_(x):
+            return x.detach().cpu().numpy()
+        blob = {
+            'model': tree.map(np_, self.state.params),
+            'target_Qs': tree.map(np_, self.state.target_Qs),
+            'scale': np_(self.state.scale),
+            'torch_opt_state': tree.map(np_, self.state.opt_state),
+            'torch_pi_opt_state': tree.map(np_, self.state.pi_opt_state),
+            'arch': self._arch_meta(),
+        }
+        if extra:
+            blob['extra'] = dict(extra)
+        Path(fp).parent.mkdir(parents=True, exist_ok=True)
+        with open(fp, 'wb') as f:
+            pickle.dump(blob, f)
+
+    def load(self, fp) -> dict:
+        """Load a checkpoint this port or the JAX package wrote (pickle,
+        gzip-sniffed); returns its 'extra' dict. Without the port's
+        optimiser states (a JAX checkpoint) they start fresh."""
+        from tdmpc2_tpu_torch.interop import load_blob, params_from_jax
+        blob = load_blob(fp)
+        arch = blob.get('arch')
+        if isinstance(arch, dict):
+            mine = self._arch_meta()
+            diffs = {k: (arch.get(k), v) for k, v in mine.items()
+                     if _canon(arch.get(k)) != _canon(v)}
+            if diffs:
+                raise ValueError(f'checkpoint architecture does not match '
+                                 f'the configured model: {diffs}')
+        self.load_params(params_from_jax(blob['model'], self.device))
+        st = self.state
+        if 'target_Qs' in blob:
+            st.target_Qs = params_from_jax(blob['target_Qs'], self.device)
+        if 'torch_opt_state' in blob:
+            def t(x):
+                return torch.from_numpy(np.asarray(x)).to(self.device)
+            st.opt_state = tree.map(t, blob['torch_opt_state'])
+            st.pi_opt_state = tree.map(t, blob['torch_pi_opt_state'])
+            st.scale = t(blob['scale']).float()
+        return blob.get('extra', {})
 
     # ------------------------------------------------------------------ act
 
@@ -110,13 +243,17 @@ class TDMPC2:
                                device=dev),
             sample=torch.randn(I, S, H * A, generator=g, device=dev),
             eps=torch.randn(I, S, A, generator=g, device=dev),
-            qidx=torch.argsort(torch.rand(I, cfg.num_q, generator=g,
-                                          device=dev), dim=-1)[:, :2]
-            .to(torch.int32).contiguous(),
+            qidx=self._qpair(I).to(torch.int32).contiguous(),
             gumbel=-torch.log(-torch.log(
                 u.clamp(min=torch.finfo(torch.float32).tiny))),
             act=torch.randn(A, generator=g, device=dev),
         )
+
+    def _qpair(self, *lead):
+        """Two distinct Q heads (the first two of a random permutation)."""
+        r = torch.rand(*lead, self.cfg.num_q, generator=self.generator,
+                       device=self.device)
+        return torch.argsort(r, dim=-1)[..., :2]
 
     @torch.no_grad()
     def plan(self, obs, t0=False, eval_mode=False, noise: PlanNoise = None):
@@ -167,10 +304,132 @@ class TDMPC2:
         q = self.model.Q(params, z, action, qidx=qidx.long(), return_type='avg')
         return G + disc * q
 
+    # ------------------------------------------------------------- learning
 
-def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return tuple(_to(v, device) for v in tree)
-    return tree.to(device=device, dtype=torch.float32)
+    def draw_update_noise(self) -> UpdateNoise:
+        """Every draw of one update step, from the agent's generator."""
+        cfg, g, dev = self.cfg, self.generator, self.device
+        T, B, A = cfg.horizon, cfg.batch_size, cfg.action_dim
+        N, M = cfg.num_q, cfg.mlp_dim
+
+        def keep(*shape):
+            if cfg.dropout <= 0.0:
+                return None
+            return torch.rand(*shape, generator=g, device=dev) < 1.0 - cfg.dropout
+        return UpdateNoise(
+            td_eps=torch.randn(T, B, A, generator=g, device=dev),
+            td_qidx=self._qpair(),
+            q_keep=keep(N, T, B, M),
+            pi_eps=torch.randn(T + 1, B, A, generator=g, device=dev),
+            pi_qidx=self._qpair(),
+            pi_keep=keep(N, T + 1, B, M))
+
+    def update(self, buffer) -> dict:
+        """One learning step on a batch from `buffer` (reference
+        tdmpc2.py:334-349); returns the step's info as device tensors."""
+        info = self._update(self.state, *buffer.sample(),
+                            self.draw_update_noise())
+        self._prep = None
+        return info
+
+    def _td_target(self, params, target_Qs, next_z, reward, terminated,
+                   noise: UpdateNoise):
+        """Min-Q TD target (reference tdmpc2.py:241-257)."""
+        action, _ = self.model.pi(params, next_z, noise.td_eps)
+        q = self.model.Q(params, next_z, action, qidx=noise.td_qidx,
+                         return_type='min', target_params=target_Qs)
+        return reward + self.discount * (1.0 - terminated) * q
+
+    def _update(self, state: TrainState, obs, action, reward, terminated,
+                noise: UpdateNoise) -> dict:
+        """The training step on a batch in the buffer's layout (obs
+        [T+1, B, ...], action [T, B, A], reward and terminated [T, B, 1]),
+        in place on `state` (reference tdmpc2.py:259-332)."""
+        cfg, model = self.cfg, self.model
+        T = cfg.horizon
+        rho_t, rho_pi = self.rho[:T], self.rho
+
+        with torch.no_grad():
+            next_z = model.encode(state.params, obs[1:])
+            td_targets = self._td_target(state.params, state.target_Qs,
+                                         next_z, reward, terminated, noise)
+
+        # -- model loss (reference tdmpc2.py:268-304)
+        live = tree.map(lambda p: p.detach().requires_grad_(True),
+                        state.params)
+        z = model.encode(live, obs[0])
+        zs = [z]
+        for t in range(T):
+            z = model.next(live, z, action[t])
+            zs.append(z)
+        zs = torch.stack(zs)                                   # [T+1, B, L]
+        consistency = torch.sum(
+            torch.mean((zs[1:] - next_z) ** 2, dim=(1, 2)) * rho_t) / T
+        qs = model.Q(live, zs[:-1], action, return_type='all',
+                     keep_mask=noise.q_keep)
+        reward_preds = model.reward(live, zs[:-1], action)
+        reward_loss = torch.sum(torch.mean(
+            math.soft_ce(reward_preds, reward, cfg.num_bins, cfg.vmin,
+                         cfg.vmax), dim=(1, 2)) * rho_t) / T
+        value_loss = torch.sum(torch.mean(
+            math.soft_ce(qs, td_targets[None], cfg.num_bins, cfg.vmin,
+                         cfg.vmax), dim=(2, 3)) * rho_t[None]) / (T * cfg.num_q)
+        total = (cfg.consistency_coef * consistency
+                 + cfg.reward_coef * reward_loss
+                 + cfg.value_coef * value_loss)
+        groups = optim.model_groups(live)
+        flat = {g: tree.leaves(p) for g, p in groups.items()}
+        grads = torch.autograd.grad(total, flat['enc'] + flat['rest'])
+        n_enc = len(flat['enc'])
+        grad_norm = optim.model_step_(
+            state.params, {'enc': list(grads[:n_enc]),
+                           'rest': list(grads[n_enc:])},
+            state.opt_state, cfg)
+
+        # -- policy loss on the updated weights (reference tdmpc2.py:208-239)
+        zs = zs.detach()
+        pi_live = tree.map(lambda p: p.detach().requires_grad_(True),
+                           state.params['pi'])
+        p = dict(state.params, pi=pi_live)
+        a_pi, info = model.pi(p, zs, noise.pi_eps)
+        qs_pi = model.Q(p, zs, a_pi, qidx=noise.pi_qidx, return_type='avg',
+                        detach=True, keep_mask=noise.pi_keep)
+        new_scale = update_scale(state.scale, qs_pi[0], cfg.tau)
+        pi_loss = torch.mean(-torch.mean(
+            cfg.entropy_coef * info['scaled_entropy'] + qs_pi / new_scale,
+            dim=(1, 2)) * rho_pi)
+        pi_grads = list(torch.autograd.grad(pi_loss, tree.leaves(pi_live)))
+        pi_grad_norm = optim.pi_step_(state.params['pi'], pi_grads,
+                                      state.pi_opt_state, cfg)
+
+        # -- Polyak target update (reference tdmpc2.py:316)
+        optim.polyak_(state.target_Qs, state.params['Qs'], cfg.tau)
+        state.scale = new_scale
+        return {
+            'consistency_loss': consistency.detach(),
+            'reward_loss': reward_loss.detach(),
+            'value_loss': value_loss.detach(),
+            'termination_loss': torch.zeros((), device=total.device),
+            'total_loss': total.detach(),
+            'grad_norm': grad_norm,
+            'pi_loss': pi_loss.detach(),
+            'pi_grad_norm': pi_grad_norm,
+            'pi_entropy': info['entropy'].detach().mean(),
+            'pi_scaled_entropy': info['scaled_entropy'].detach().mean(),
+            'pi_scale': new_scale,
+        }
+
+
+def _canon(v):
+    """Compare across pickling: tuples for lists, Python scalars."""
+    if isinstance(v, dict):
+        return {k: _canon(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return tuple(_canon(x) for x in v)
+    if isinstance(v, (np.generic, np.ndarray)) and np.ndim(v) == 0:
+        return v.item()
+    return v
+
+
+def _to(tree_, device):
+    return tree.map(lambda x: x.to(device=device, dtype=torch.float32), tree_)

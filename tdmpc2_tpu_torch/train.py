@@ -1,0 +1,57 @@
+"""Training entry point, single-task online (port of tdmpc2_tpu/train.py).
+
+Usage:
+    python -m tdmpc2_tpu_torch.train task=toy-reach
+    python -m tdmpc2_tpu_torch.train task=toy-reach steps=2000 device=cpu
+
+Collects with the planner (the CUDA kernels on the card, their plain
+versions on the CPU), stores episodes in the replay buffer and takes one
+update per environment step after the seed phase. `device` defaults to
+`cuda`; without a card that raises unless `device=cpu` is given. The
+JAX package's other modes raise here: multi-task offline training,
+vectorised collection (num_envs > 1), seed fleets and resuming.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from tdmpc2_tpu_torch.config import load_cfg
+from tdmpc2_tpu_torch.data.buffer import Buffer
+from tdmpc2_tpu_torch.envs import make_env
+from tdmpc2_tpu_torch.tdmpc2 import TDMPC2, device_of
+from tdmpc2_tpu_torch.trainer.online import OnlineTrainer
+from tdmpc2_tpu_torch.utils.logger import Logger
+from tdmpc2_tpu_torch.utils.seed import set_seed
+
+
+def train(cfg) -> OnlineTrainer:
+    """Train as `cfg` says; returns the finished trainer."""
+    if cfg.steps <= 0:
+        raise ValueError('Must train for at least 1 step.')
+    if int(cfg.num_envs or 1) > 1:
+        raise NotImplementedError('num_envs > 1 (vectorised collection) is '
+                                  'a later part of the port')
+    if cfg.seeds is not None:
+        raise NotImplementedError('seed fleets (seeds=...) are a later part '
+                                  'of the port; pass seed=<n>')
+    if cfg.resume:
+        raise NotImplementedError('resume=true is a later part of the port')
+    device_of(cfg.device)       # raise before any work when there is no card
+    set_seed(cfg.seed)
+    env = make_env(cfg)
+    agent = TDMPC2(cfg)
+    trainer = OnlineTrainer(cfg=cfg, env=env, agent=agent,
+                            buffer=Buffer(cfg), logger=Logger(cfg))
+    trainer.train()
+    print('Training completed successfully')
+    return trainer
+
+
+def main(argv=None) -> OnlineTrainer:
+    cfg = load_cfg(overrides=(argv if argv is not None else sys.argv[1:]))
+    return train(cfg)
+
+
+if __name__ == '__main__':
+    main()

@@ -1,0 +1,91 @@
+"""Console and CSV logger (port of tdmpc2_tpu/utils/logger.py; reference
+tdmpc2/common/logger.py:13-241).
+
+Fixed-format console lines per category, the eval CSV with the published
+results schema (step,episode_reward,episode_success), and checkpoints
+through the agent's `save`. No wandb and no video in the port.
+"""
+
+from __future__ import annotations
+
+import csv
+from pathlib import Path
+
+import numpy as np
+
+_CAT_COLOR = {'train': '34', 'eval': '32', 'pretrain': '35'}
+_PRINT_KEYS = (
+    ('step', 'S', 'int'),
+    ('episode', 'E', 'int'),
+    ('episode_reward', 'R', 'float'),
+    ('episode_success', 'SR', 'float'),
+    ('total_loss', 'L', 'float'),
+    ('pi_loss', 'PL', 'float'),
+    ('steps_per_second', 'SPS', 'float'),
+    ('elapsed_time', 'T', 'time'),
+)
+
+
+def _fmt(value, ty):
+    if ty == 'int':
+        return f'{int(value):,}'
+    if ty == 'time':
+        value = float(value)
+        if value < 3600:
+            return f'{value / 60:.1f}m'
+        return f'{value / 3600:.1f}h'
+    return f'{float(value):.3f}'
+
+
+class Logger:
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self._work_dir = Path(cfg.work_dir or '.')
+        self._model_dir = self._work_dir / 'models'
+        self._work_dir.mkdir(parents=True, exist_ok=True)
+        self._eval_rows = []
+        self.print_run()
+
+    def print_run(self):
+        cfg = self.cfg
+        print('=' * 60)
+        print(f'  task: {cfg.task_title}   steps: {cfg.steps:,}')
+        print(f'  obs: {cfg.obs}   seed: {cfg.seed}   experiment: {cfg.exp_name}')
+        print(f'  work dir: {self._work_dir}')
+        print('=' * 60)
+
+    def log(self, metrics: dict, category: str = 'train'):
+        """Print one line; an eval line also goes into the CSV. Device
+        tensors are converted here (one host sync per logged line)."""
+        metrics = {k: (float(v) if hasattr(v, 'item') or isinstance(
+            v, (int, float, np.floating, np.integer)) else v)
+            for k, v in metrics.items()}
+        color = _CAT_COLOR.get(category, '0')
+        parts = [f'{abbrev}: {_fmt(metrics[key], ty)}'
+                 for key, abbrev, ty in _PRINT_KEYS if key in metrics]
+        print(f'\033[{color}m[{category:>8s}]\033[0m ' + '  '.join(parts))
+        if category == 'eval' and self.cfg.save_csv and 'episode_reward' in metrics:
+            step = int(metrics.get('step', 0))
+            self._eval_rows = [r for r in self._eval_rows if r['step'] != step]
+            self._eval_rows.append(
+                dict(step=step,
+                     episode_reward=float(metrics['episode_reward']),
+                     episode_success=float(metrics.get('episode_success', 0.0))))
+            self._eval_rows.sort(key=lambda r: r['step'])
+            with open(self._work_dir / 'eval.csv', 'w', newline='') as f:
+                w = csv.DictWriter(
+                    f, fieldnames=['step', 'episode_reward', 'episode_success'])
+                w.writeheader()
+                w.writerows(self._eval_rows)
+
+    def save_agent(self, agent, identifier: str = 'final', extra=None):
+        if not self.cfg.save_agent:
+            return None
+        fp = self._model_dir / f'{identifier}.pkl'
+        agent.save(fp, extra=extra)
+        return fp
+
+    def finish(self, agent=None):
+        """The final checkpoint (reference logger.py:167-173)."""
+        if agent is not None:
+            self.save_agent(agent)

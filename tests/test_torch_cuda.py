@@ -7,18 +7,23 @@ Marked `cuda`; without a card every test skips. On the card:
 Small widths with ragged edges (row counts that are not a multiple of the
 kernels' row block). Both sides use bf16 weights and bf16-rounded dot
 inputs with f32 accumulation, so they differ only in summation order and
-in last-bit rounding ahead of bf16 roundings: values are held at 2e-2,
-the elite update (no dots) at 1e-4, sampling exactly."""
+in last-bit rounding ahead of bf16 roundings: values and the rollout are
+held at 2e-2, the elite update (no dots) at 1e-4, sampling and the canary
+exactly. One update on the card is held against the CPU's (f32, TF32 off)
+at 1e-4."""
 
+import numpy as np
 import pytest
 import torch
 
 from tdmpc2_tpu_torch.config import Config, parse_cfg
 from tdmpc2_tpu_torch.models.layers import simnorm
-from tdmpc2_tpu_torch.ops import cem
+from tdmpc2_tpu_torch.data.buffer import Buffer
+from tdmpc2_tpu_torch.ops import cem, probe, rollout
 from tdmpc2_tpu_torch.ops.value import (prepare_value_params, value_estimate,
                                         value_estimate_plain)
-from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
+from tdmpc2_tpu_torch.tdmpc2 import TDMPC2, UpdateNoise
+from tdmpc2_tpu_torch.utils import tree
 
 pytestmark = pytest.mark.cuda
 
@@ -144,3 +149,91 @@ def test_act_on_card(agent):
     a = agent.act(np.zeros(10, np.float32), t0=True, eval_mode=True)
     assert a.shape == (3,) and np.isfinite(a).all()
     assert cem.elite_moments.launches == counts + agent.iterations
+
+
+def test_rollout_kernel_matches_plain(agent):
+    cfg, dev = agent.cfg, agent.device
+    S, H, A, L = cfg.num_samples, cfg.horizon, cfg.action_dim, cfg.latent_dim
+    g = torch.Generator(device=dev).manual_seed(3)
+    z0 = simnorm(torch.randn(S, L, device=dev, generator=g), 8)
+    acts = (torch.rand(S, H * A, device=dev, generator=g) * 2 - 1).view(
+        S, H, A).permute(1, 0, 2)
+    prep = rollout.prepare_rollout_params(agent.params['dynamics'],
+                                          agent.params['reward'], L,
+                                          cfg.vmin, cfg.vmax)
+    kw = dict(horizon=H, discount=agent.discount, simnorm_dim=8)
+    for z in (z0, z0[:1].expand(S, -1)):
+        n0 = rollout.rollout_prepared.launches
+        G, zH = rollout.rollout_prepared(prep, z, acts, **kw)
+        assert rollout.rollout_prepared.launches == n0 + 1
+        Gp, zHp = rollout.rollout_prepared_plain(prep, z, acts, **kw)
+        torch.testing.assert_close(G, Gp, **BAND)
+        torch.testing.assert_close(zH, zHp, **BAND)
+
+
+def test_probe_kernel_and_canary(agent):
+    assert probe.kernel_engine_alive(agent.device)
+    x = torch.randn(probe.SHAPE, device=agent.device)
+    n0 = probe.add_one.launches
+    torch.testing.assert_close(probe.add_one(x), probe.add_one_plain(x),
+                               rtol=0, atol=0)
+    assert probe.add_one.launches == n0 + 1
+
+
+def _episodes(rng, n, rows=31, obs=10, act=3):
+    for _ in range(n):
+        ep = dict(obs=rng.normal(size=(rows, obs)).astype(np.float32),
+                  action=rng.uniform(-1, 1, (rows, act)).astype(np.float32),
+                  reward=rng.uniform(size=rows).astype(np.float32),
+                  terminated=np.zeros(rows, np.float32))
+        ep['action'][0] = ep['reward'][0] = ep['terminated'][0] = np.nan
+        yield ep
+
+
+def test_buffer_in_host_memory_feeds_the_card(agent, monkeypatch):
+    """When 2.5x the ring does not fit in the card's free memory, the ring
+    stays in host RAM and each batch is copied to the card."""
+    cfg = parse_cfg(Config(task='toy', device='cuda', batch_size=8,
+                           buffer_size=300, steps=300))
+    cfg.episode_length = 30
+    on_card, in_host = Buffer(cfg), Buffer(cfg)
+    for ep in _episodes(np.random.default_rng(1), 4):
+        on_card.add(ep)
+    # the ring is placed at the first add
+    monkeypatch.setattr(torch.cuda, 'mem_get_info', lambda *a: (1, 1 << 30))
+    for ep in _episodes(np.random.default_rng(1), 4):
+        in_host.add(ep)
+    assert on_card._storage['obs'].is_cuda
+    assert in_host._storage['obs'].device.type == 'cpu'
+    batch = in_host.sample()
+    assert all(x.is_cuda for x in batch)
+    ep_idx = torch.tensor([0, 3, 1, 2, 3, 0, 1, 2])
+    start = torch.tensor([0, 27, 5, 9, 11, 3, 26, 0])
+    for a, b in zip(in_host.gather(ep_idx, start), on_card.gather(ep_idx, start)):
+        assert a.is_cuda and b.is_cuda
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_update_on_card_matches_cpu(agent):
+    cfg = agent.cfg
+    cfg.batch_size, cfg.buffer_size, cfg.steps = 16, 300, 300
+    buf = Buffer(cfg)
+    for ep in _episodes(np.random.default_rng(0), 3):
+        buf.add(ep)
+    for _ in range(3):        # past Adam's first steps, which are sign(g)
+        agent.update(buf)
+    cpu = TDMPC2(cfg, device='cpu')
+    cpu.state = agent.state.to('cpu')
+    batch = buf.sample()
+    noise = agent.draw_update_noise()
+    cpu_noise = UpdateNoise(**{k: None if v is None else v.cpu()
+                               for k, v in vars(noise).items()})
+    info = agent._update(agent.state, *batch, noise)
+    ref = cpu._update(cpu.state, *[x.cpu() for x in batch], cpu_noise)
+    for k in ref:
+        torch.testing.assert_close(info[k].cpu(), ref[k], rtol=1e-4, atol=1e-4)
+    got = agent.state.to('cpu')
+    for name in ('params', 'target_Qs', 'opt_state', 'pi_opt_state'):
+        for a, b in zip(tree.leaves(getattr(got, name)),
+                        tree.leaves(getattr(cpu.state, name))):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
