@@ -13,20 +13,27 @@ and read just after:
 - evaluate: `tdmpc2_tpu_torch.evaluate` on `toy-reach` (the planner);
 - rollout: `ops.rollout.fused_value_rollout`, the reward+dynamics
   rollout's own entry point;
-- train (the main path): `tdmpc2_tpu_torch.train` on `toy-reach`, 1,200
-  steps (1,000 random, a 1,000-update burst, then planned steps with one
-  update each), which constructs the agent and so runs the canary.
+- train: `tdmpc2_tpu_torch.train` on `toy-reach`, 1,200 steps (1,000
+  random, a 1,000-update burst, then planned steps with one update each),
+  which constructs the agent and so runs the canary;
+- vec train (the vectorised path): the same with `num_envs=8`, 1,200 env
+  steps in vector steps of 8 (1,000 random, the 1,000-update burst as 125
+  x `update_many(8)`, planned vector steps of one 8-env plan and 8
+  updates, and the batched eval on the training envs).
 
-Then one update on the card is held against the same update on the CPU,
-and the training path is timed (update steps/s, env-steps/s, and the
-shares of an env step spent in `act` and in `update`). Phases print one
-progress line each. It ends with the card's name and power limit, one
-JSON line of per-kernel numbers (launches on their path, error against
-the plain version, kernel, plain and library times, the card's least time
-for the same work), and last `{"ok": true, "device": {...}}`. Any failed
-phase exits non-zero before that line; so does a machine without CUDA, or
-a directory without the port's package. A watchdog turns a hang into an
-exit with a traceback.
+The four planner kernels are also held at N=8 envs, against their plain
+versions and, bit for bit, against 8 one-env launches, and the whole
+8-env plan against the plain loop. Then one update on the card is held
+against the same update on the CPU, and the training paths are timed
+(update steps/s, env-steps/s, and the shares of an env step spent in
+`act` and in `update`; plans/s of batched `act` at N = 1, 8, 16). Phases
+print one progress line each. It ends with the card's name and power
+limit, one JSON line of per-kernel numbers (launches on each path, error
+against the plain version, kernel, plain and library times at N=8 and
+one env, the card's least time for the same work), and last
+`{"ok": true, "device": {...}}`. Any failed phase exits non-zero before
+that line; so does a machine without CUDA, or a directory without the
+port's package. A watchdog turns a hang into an exit with a traceback.
 """
 
 from __future__ import annotations
@@ -39,8 +46,9 @@ import subprocess
 import sys
 import time
 
-WATCHDOG_S = 1000          # the whole run is expected well under 300 s
+WATCHDOG_S = 1000          # the whole run is expected well under 600 s
 TRAIN_STEPS = 1200         # make_env sets seed_steps to 1000 on toy-reach
+N_ENVS = 8                 # the vectorised path's env count
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # dense bf16 tensor-core peak
 F32_FLOPS = 67e12          # f32 outside the tensor cores
@@ -68,6 +76,8 @@ REF_TOL = dict(rtol=1e-4, atol=1e-4)
 ROLLOUT_TOL = dict(rtol=2e-2, atol=2e-2)
 # x + 1 in f32 is exact on both sides.
 PROBE_TOL = dict(rtol=0.0, atol=0.0)
+# An N-env launch is held against N one-env launches with torch.equal:
+# every env's blocks run the one-env code on the same data.
 # One update on the card against the CPU, both f32 with TF32 off, on a
 # state that has trained (so Adam's step is not a sign of a tiny
 # gradient): sums in another order, 1e-4 as the CPU parity with JAX.
@@ -164,6 +174,10 @@ def device_share(fn, reps):
     return busy, len(dev) / reps, top[:6]
 
 
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -188,6 +202,7 @@ def perturbed(params, gen, scale=0.05):
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device (torch.cuda.is_available() is '
@@ -202,6 +217,7 @@ def main() -> int:
         from tdmpc2_tpu_torch.models.layers import simnorm
         from tdmpc2_tpu_torch.ops import _build, cem, probe, rollout, value
         from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
+        from tdmpc2_tpu_torch.trainer.vec_online import VecOnlineTrainer
         from tdmpc2_tpu_torch.utils import tree
     except ImportError as e:
         print(f'chip_smoke: the port is not importable here ({e})',
@@ -248,16 +264,18 @@ def main() -> int:
                  simnorm_dim=cfg.simnorm_dim)
     g = torch.Generator(device=dev).manual_seed(SEED)
 
+    # one env: the planner kernels' operands with a leading env axis of 1
     with Phase(f'value kernel vs plain (S={S}, L={L}, H={H}, A={A})'):
         z0 = simnorm(torch.randn(S, L, device=dev, generator=g), cfg.simnorm_dim)
         actions = torch.rand(H, S, A, device=dev, generator=g) * 2 - 1
         eps = torch.randn(S, A, device=dev, generator=g)
         qidx = torch.tensor([1, 3], dtype=torch.int32, device=dev)
-        v_args = (prep, z0, actions, eps, qidx, agent.discs)
+        v_args = (prep, z0[None], actions[None], eps[None], qidx[None],
+                  agent.discs[None])
         v_k = value.value_estimate(*v_args, **heads)
         v_p = value.value_estimate_plain(*v_args, **heads)
         torch.cuda.synchronize()
-        if v_k.shape != (S, 1) or float(v_p.std()) == 0.0:
+        if v_k.shape != (1, S, 1) or float(v_p.std()) == 0.0:
             raise AssertionError('value: wrong shape or tied values')
         results['value'] = hold('value', v_k, v_p, VALUE_TOL)
         log(f'  value range [{float(v_p.min()):.3f}, {float(v_p.max()):.3f}]')
@@ -266,8 +284,9 @@ def main() -> int:
         prep32 = value.prepare_value_params(agent.params, cfg, torch.float32)
         n = 64
         hold('value_f32_vs_heads',
-             value.value_estimate_plain(prep32, z0[:n], actions[:, :n],
-                                        eps[:n], qidx, agent.discs, **heads),
+             value.value_estimate_plain(
+                 prep32, z0[None, :n], actions[None, :, :n], eps[None, :n],
+                 qidx[None], agent.discs[None], **heads)[0],
              agent._estimate_value(z0[:n], actions[:, :n], eps[:n], qidx),
              REF_TOL)
 
@@ -288,18 +307,18 @@ def main() -> int:
 
     obs = torch.randn(1, cfg.obs_shape['state'][0], device=dev, generator=g)
     zenc = agent.model.encode(agent.params, obs)
-    noise = agent.draw_noise()
+    noise = agent.draw_noise()      # one env's draws: a leading axis of 1
 
     with Phase(f'pi rollout kernel vs plain (n_pi={n_pi})'):
-        pi_args = (prep, zenc, noise.pi_eps[:n_pi])
+        pi_args = (prep, zenc[None], noise.pi_eps[:, :n_pi])
         pa_k = cem.pi_rollout(*pi_args, **heads)
         pa_p = cem.pi_rollout_plain(*pi_args, **heads)
         results['cem_pi_rollout'] = hold('pi_rollout', pa_k, pa_p, PI_TOL)
 
-    mean0 = torch.zeros(H * A, device=dev)
-    std0 = torch.full((H * A,), cfg.max_std, device=dev)
+    mean0 = torch.zeros(1, H * A, device=dev)
+    std0 = torch.full((1, H * A), cfg.max_std, device=dev)
     with Phase('sample kernel vs plain'):
-        s_args = (mean0 + 0.1, std0, noise.sample[0], pa_p, agent.amask)
+        s_args = (mean0 + 0.1, std0, noise.sample[:, 0], pa_p, agent.amask)
         acts = cem.sample_actions(*s_args)
         results['cem_sample'] = hold('sample', acts,
                                      cem.sample_actions_plain(*s_args),
@@ -308,10 +327,10 @@ def main() -> int:
     elite_kw = dict(num_elites=E, temperature=cfg.temperature,
                     min_std=cfg.min_std, max_std=cfg.max_std)
     with Phase('elite kernel vs plain on identical values'):
-        v_in = value.value_estimate(prep, zenc.expand(S, L),
-                                    acts.view(S, H, A).permute(1, 0, 2),
-                                    noise.eps[0], noise.qidx[0], agent.discs,
-                                    **heads)
+        v_in = value.value_estimate(prep, zenc[None].expand(1, S, L),
+                                    acts.view(1, S, H, A).permute(0, 2, 1, 3),
+                                    noise.eps[:, 0], noise.qidx[:, 0],
+                                    agent.discs[None], **heads)
         errs = []
         for label, vv in (('distinct', v_in), ('all tied', torch.zeros_like(v_in))):
             mk, sk, gk = cem.elite_moments(vv, acts, agent.amask, **elite_kw)
@@ -323,14 +342,76 @@ def main() -> int:
 
     with Phase(f'cem_plan vs cem_plan_plain ({I} iterations)'):
         plan_kw = dict(iterations=I, n_pi=n_pi, **elite_kw, **heads)
-        plan_args = (prep, zenc, noise.pi_eps, noise.sample, noise.eps,
-                     noise.qidx, agent.discs, mean0, std0, agent.amask)
+        plan_args = (prep, zenc[None], noise.pi_eps, noise.sample, noise.eps,
+                     noise.qidx, agent.discs[None], mean0, std0, agent.amask)
         mk, sk, vk, ak = cem.cem_plan(*plan_args, **plan_kw)
         mp, sp, vp, ap = cem.cem_plan_plain(*plan_args, **plan_kw)
         hold('cem_plan mean', mk, mp, CEM_TOL)
         hold('cem_plan std', sk, sp, CEM_TOL)
-        if vk.shape != (S, 1) or ak.shape != (S, H * A):
+        if vk.shape != (1, S, 1) or ak.shape != (1, S, H * A):
             raise AssertionError('cem_plan: wrong output shapes')
+
+    # the planner kernels' env axis, at the vectorised path's N and full width
+    NE = N_ENVS
+    obs_n = torch.randn(NE, cfg.obs_shape['state'][0], device=dev, generator=g)
+    z_n = agent.model.encode(agent.params, obs_n)[:, None]          # [NE, 1, L]
+    noise_n = agent.draw_noise(NE)
+    discs_n = agent.discs.expand(NE, -1)
+    mean_n = torch.rand(NE, H * A, device=dev, generator=g) * 0.4 - 0.2
+    std_n = torch.rand(NE, H * A, device=dev, generator=g) * 1.9 + 0.1
+    with Phase(f'N={NE} envs: each planner kernel vs plain, and vs {NE} '
+               'one-env launches'):
+        pa_n = cem.pi_rollout_plain(prep, z_n, noise_n.pi_eps[:, :n_pi], **heads)
+        pi_n_args = (prep, z_n, noise_n.pi_eps[:, :n_pi])
+        s_n_args = (mean_n, std_n, noise_n.sample[:, 0], pa_n, agent.amask)
+        acts_n = cem.sample_actions_plain(*s_n_args)
+        v_n_args = (prep, z_n.expand(NE, S, L),
+                    acts_n.view(NE, S, H, A).permute(0, 2, 1, 3),
+                    noise_n.eps[:, 0], noise_n.qidx[:, 0], discs_n)
+        v_n_in = value.value_estimate_plain(*v_n_args, **heads)
+        e_n_args = (v_n_in, acts_n, agent.amask)
+        n_env_calls = {
+            'value': (value.value_estimate, value.value_estimate_plain, v_n_args,
+                      heads, VALUE_TOL),
+            'cem_pi_rollout': (cem.pi_rollout, cem.pi_rollout_plain, pi_n_args,
+                               heads, PI_TOL),
+            'cem_sample': (cem.sample_actions, cem.sample_actions_plain, s_n_args,
+                           {}, SAMPLE_TOL),
+            'cem_elite': (cem.elite_moments, cem.elite_moments_plain, e_n_args,
+                          elite_kw, ELITE_TOL),
+        }
+        shared = (prep, agent.amask)
+        for name, (kern, plain, args, kw, tol) in n_env_calls.items():
+            got, ref = as_tuple(kern(*args, **kw)), as_tuple(plain(*args, **kw))
+            errs = [hold(f'{name} N={NE} [{j}]', a, b, tol)
+                    for j, (a, b) in enumerate(zip(got, ref))]
+            results[name] = max(results[name], *errs)
+            for i in range(NE):
+                one = as_tuple(kern(*[a if any(a is x for x in shared)
+                                      else a[i:i + 1] for a in args], **kw))
+                for a, b in zip(got, one):
+                    if not torch.equal(a[i:i + 1], b):
+                        raise AssertionError(f'{name}: env {i} of the N={NE} '
+                                             'launch differs from its one-env launch')
+            log(f'  {name}: the N={NE} launch equals {NE} one-env launches bit for bit')
+
+    with Phase(f'plan_vec at N={NE} through the kernels vs cem_plan_plain'):
+        plan_n_args = (prep, z_n, noise_n.pi_eps, noise_n.sample, noise_n.eps,
+                       noise_n.qidx, discs_n, torch.zeros(NE, H * A, device=dev),
+                       torch.full((NE, H * A), cfg.max_std, device=dev), agent.amask)
+        mp, sp, vp, ap = cem.cem_plan_plain(*plan_n_args, **plan_kw)
+        mk, sk, vk, ak = cem.cem_plan(*plan_n_args, **plan_kw)
+        hold(f'cem_plan N={NE} mean', mk, mp, CEM_TOL)
+        hold(f'cem_plan N={NE} std', sk, sp, CEM_TOL)
+        if vk.shape != (NE, S, 1) or ak.shape != (NE, S, H * A):
+            raise AssertionError('cem_plan N-env: wrong output shapes')
+        agent.prev_mean = torch.zeros(NE, H, A, device=dev)
+        a_pv, m_pv = agent.plan_vec(obs_n, np.ones(NE, bool), eval_mode=True,
+                                    noise=noise_n)
+        hold(f'plan_vec N={NE} means vs cem_plan_plain', m_pv.reshape(NE, H * A),
+             mp, CEM_TOL)
+        if a_pv.shape != (NE, A) or not bool(torch.isfinite(a_pv).all()):
+            raise AssertionError('plan_vec: wrong or non-finite actions')
 
     wrappers = {'value': value.value_estimate,
                 'cem_pi_rollout': cem.pi_rollout,
@@ -374,44 +455,72 @@ def main() -> int:
         hold('fused_value_rollout G vs rollout_prepared', G_e, G_k,
              dict(rtol=0.0, atol=0.0))
 
-    # the main path, as `python -m tdmpc2_tpu_torch.train` runs it: a fresh
-    # process has no canary verdict yet, so agent construction runs it
-    losses = []
-    update = TDMPC2.update
+    # the training paths, as `python -m tdmpc2_tpu_torch.train` runs them: a
+    # fresh process has no canary verdict yet, so agent construction runs it
+    update_step = TDMPC2._update
+    orig_eval = VecOnlineTrainer.eval
 
-    def recording_update(self, buffer):
-        info = update(self, buffer)
-        losses.append(torch.stack([info['total_loss'], info['pi_loss']]))
-        return info
+    def train_path(name, extra):
+        """Run `train` with the counts zeroed just before; returns (trainer,
+        launches, [total, pi] loss of every update, eval results, seconds)."""
+        losses, evals = [], []
 
-    with Phase(f'main path: train toy-reach, 5M model, {TRAIN_STEPS} steps'):
-        TDMPC2.update = recording_update
-        probe._verdict = None       # as in a fresh process
-        zero_counts()
-        t0 = time.perf_counter()
-        trainer = train_mod.main([
-            'task=toy-reach', f'steps={TRAIN_STEPS}', f'eval_freq={TRAIN_STEPS}',
-            'eval_episodes=1', f'seed={SEED}', 'save_agent=false',
-            'device=cuda', 'exp_name=chip_smoke'])
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        launches = read_counts()
-        TDMPC2.update = update
+        def recording_update(self, *args):
+            info = update_step(self, *args)
+            losses.append(torch.stack([info['total_loss'], info['pi_loss']]))
+            return info
+
+        def recording_eval(self):
+            evals.append(orig_eval(self))
+            return evals[-1]
+        TDMPC2._update = recording_update
+        VecOnlineTrainer.eval = recording_eval
+        try:
+            probe._verdict = None       # as in a fresh process
+            zero_counts()
+            t0 = time.perf_counter()
+            tr = train_mod.main([
+                'task=toy-reach', f'steps={TRAIN_STEPS}',
+                f'eval_freq={TRAIN_STEPS}', 'eval_episodes=1', f'seed={SEED}',
+                'save_agent=false', 'device=cuda', f'exp_name=chip_smoke_{name}',
+                *extra])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+        finally:
+            TDMPC2._update = update_step
+            VecOnlineTrainer.eval = orig_eval
         losses = torch.stack(losses)
-        log(f'  {trainer._step} steps, {len(losses)} updates in {train_s:.1f} s '
-            f'({trainer._step / train_s:.1f} env-steps/s over the whole run); '
-            f'launches {launches}; canary child {probe.verdict()["seconds"]:.2f} s')
+        log(f'  {tr._step} env steps, {len(losses)} updates in {secs:.1f} s '
+            f'({tr._step / secs:.1f} env-steps/s over the whole run); '
+            f'launches {counts}; canary child {probe.verdict()["seconds"]:.2f} s')
         log(f'  last losses: total {float(losses[-1, 0]):.4f}, '
             f'pi {float(losses[-1, 1]):.4f}')
         if not bool(torch.isfinite(losses).all()):
-            raise AssertionError('train: non-finite loss')
-        # the seed_steps burst at step seed_steps, then one per later step
+            raise AssertionError(f'{name}: non-finite loss')
+        # the seed_steps burst at step seed_steps, then one per later env step
         if len(losses) != TRAIN_STEPS:
-            raise AssertionError(f'train: {len(losses)} updates')
+            raise AssertionError(f'{name}: {len(losses)} updates')
         for k in planner + ('probe',):
-            if launches[k] <= 0:
-                raise AssertionError(f'train: kernel {k} never launched')
-    launches['rollout'] = ro_launches['rollout']
+            if counts[k] <= 0:
+                raise AssertionError(f'{name}: kernel {k} never launched')
+        return tr, counts, secs, evals
+
+    with Phase(f'path: train toy-reach, 5M model, {TRAIN_STEPS} steps, one env'):
+        trainer, launches, _, _ = train_path('one_env', [])
+
+    with Phase(f'main path (vectorised): train toy-reach num_envs={NE}, 5M '
+               f'model, {TRAIN_STEPS} env steps'):
+        vtrainer, vec_launches, vec_s, vec_evals = train_path(
+            'vec', [f'num_envs={NE}'])
+        if not isinstance(vtrainer, VecOnlineTrainer) or vtrainer._n != NE:
+            raise AssertionError('vec path: not the vectorised trainer')
+        if len(vec_evals) < 2 or not all(
+                math.isfinite(e['episode_reward']) for e in vec_evals):
+            raise AssertionError(f'vec path: eval results {vec_evals}')
+        log(f'  eval reward on the training envs: '
+            f'{[round(e["episode_reward"], 4) for e in vec_evals]} '
+            f'(steps 0 and {TRAIN_STEPS})')
     t_agent, buffer, env = trainer.agent, trainer.buffer, trainer.env
 
     with Phase('one update on the card vs the same update on the CPU'):
@@ -486,74 +595,197 @@ def main() -> int:
             for t, n, k in top:
                 log(f'    {t:.3f} ms in {n:.0f} x {k[:90]}')
 
-    with Phase('timing (CUDA events) and bounds'):
+    with Phase(f'vec path timing (plans/s of batched act at N=1, 8, 16; '
+               f'env-steps/s of the N={NE} training loop)'):
+        v_agent, v_buf, v_env = vtrainer.agent, vtrainer.buffer, vtrainer.env
+        cfg16 = load_cfg(overrides=['task=toy-reach', f'seed={SEED}', 'num_envs=16'])
+        make_env(cfg16)
+        agent16 = TDMPC2(cfg16, device='cuda')
+        agent16.load_params(tree.map(torch.clone, v_agent.params))
+        obs16 = np.random.default_rng(SEED).normal(size=(16, 6)).astype(np.float32)
+        act_plans = {}
+        for n in (1, 8, 16):
+            o = obs16[0] if n == 1 else obs16[:n]
+            agent16.act(o, t0=True)                  # warm-up
+            reps = 30
+            t0 = time.perf_counter()
+            for r in range(reps):
+                agent16.act(o, t0=(r % 50 == 0))     # ends in a copy to the host
+            dt = (time.perf_counter() - t0) / reps
+            act_plans[n] = (1e3 * dt, n / dt)
+            log(f'  act N={n}: {1e3 * dt:.3f} ms per call, {n / dt:.1f} plans/s '
+                f'({1 / dt:.1f} calls/s)')
+        busy, n_dev, _ = device_share(lambda: agent16.act(obs16[:NE]), 5)
+        if busy is not None:
+            ms8 = act_plans[NE][0]
+            log(f'  act N={NE}: device busy {busy:.3f} ms of {ms8:.3f} ms (idle share '
+                f'{100 * (1 - busy / ms8):.1f}%), {n_dev:.0f} device activities')
+
+        def vec_loop(steps, wait_for_update):
+            """The trainer's vector step (act, the queued update_many,
+            env.step); with wait_for_update the host waits for the updates
+            before stepping the envs."""
+            o = v_env.reset()
+            t_in = np.zeros(NE, np.int64)
+            ph = dict(act=0.0, update=0.0, env=0.0)
+            torch.cuda.synchronize()
+            t_all = time.perf_counter()
+            for _ in range(steps):
+                t1 = time.perf_counter()
+                a = v_agent.act(o, t0=t_in == 0)
+                t2 = time.perf_counter()
+                v_agent.update_many(v_buf, NE)
+                if wait_for_update:
+                    torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                o, _, dones, _ = v_env.step(a)
+                t_in += 1
+                for i in np.flatnonzero(dones):
+                    o[i] = v_env.reset_at(i)
+                    t_in[i] = 0
+                t4 = time.perf_counter()
+                ph['act'] += t2 - t1
+                ph['update'] += t3 - t2
+                ph['env'] += t4 - t3
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t_all
+            log(f'  N={NE} loop, {"update waited for" if wait_for_update else "pipelined"}: '
+                f'{NE * steps / total:.2f} env-steps/s, {1e3 * total / steps:.1f} ms '
+                'per vector step; ' + ', '.join(
+                    f'{k} {1e3 * v / steps:.1f} ms ({100 * v / total:.1f}%)'
+                    for k, v in ph.items()) + ' (host clock)')
+            return total / steps
+        vec_loop(2, False)                           # warm-up
+        t_pipe = vec_loop(12, False)
+        t_wait = vec_loop(12, True)
+        log(f'  pipelining saved {1e3 * (t_wait - t_pipe):.1f} ms per vector step '
+            f'({100 * (t_wait - t_pipe) / t_wait:.1f}%)')
+        um_ms = time_ms(lambda: v_agent.update_many(v_buf, NE), 5)
+        # the same NE updates one call each, on both trained agents, in turns
+        for label, ag, buf in (('vec agent', v_agent, v_buf),
+                               ('one-env agent', t_agent, buffer)):
+            many, seq = [], []
+            for _ in range(2):
+                many.append(time_ms(lambda: ag.update_many(buf, NE), 3))
+                seq.append(time_ms(lambda: [ag.update(buf) for _ in range(NE)], 3))
+            log(f'  {label}: update_many({NE}) {many[0]:.1f} / {many[1]:.1f} ms, '
+                f'{NE} x update() {seq[0]:.1f} / {seq[1]:.1f} ms (CUDA events, '
+                'in turns)')
+        busy, n_dev, top = device_share(lambda: v_agent.update_many(v_buf, NE), 2)
+        log(f'  update_many({NE}): {um_ms:.3f} ms ({NE * 1e3 / um_ms:.1f} update '
+            'steps/s, CUDA events)' + (
+                '' if busy is None else
+                f'; device busy {busy:.3f} ms (idle share '
+                f'{100 * (1 - busy / um_ms):.1f}%), {n_dev:.0f} device activities'))
+
+    with Phase('timing (CUDA events) and bounds, one env and N envs'):
         HA = H * A
-        W = [prep[k] for k in value.PREP_NAMES]
         q_heads = [k for k in value.PREP_NAMES if k[0] == 'q']
-        w_all = nbytes(*[t for k, t in zip(value.PREP_NAMES, W) if k[0] != 'q'])
-        w_q2 = 2 * nbytes(*[prep[k][0] for k in q_heads])
+        w_all = nbytes(*[prep[k] for k in value.PREP_NAMES if k[0] != 'q'])
+        w_q1 = nbytes(*[prep[k][0] for k in q_heads])
         M, B = prep['dWz'].shape[1], prep['rW2'].shape[1]
         mac_rew = L * M + A * M + M * M + M * B
         mac_dyn = L * M + A * M + M * M + M * L
         mac_pi = L * M + M * M + 2 * M * A
-        v_flops = 2 * S * (H * (mac_rew + mac_dyn) + mac_pi + 2 * mac_rew)
-        v_bytes = w_all + w_q2 + nbytes(z0, actions, eps, qidx, agent.discs) + S * 4
+        pi_w = nbytes(*[prep[k] for k in value.PREP_NAMES if k[0] in 'dp'])
+        e_flops = 35 * S + 8 * S * HA
+
+        def value_bound(args):
+            z, acts_, eps_, qidx_, discs_ = args[1:]
+            n = z.shape[0]
+            heads_used = len(set(qidx_.flatten().tolist()))   # this run's data
+            flops = 2 * n * S * (H * (mac_rew + mac_dyn) + mac_pi + 2 * mac_rew)
+            # the latent is one row per env (the rows broadcast it)
+            by = (w_all + heads_used * w_q1 + n * L * 4
+                  + nbytes(acts_, eps_, qidx_, discs_) + n * S * 4)
+            return bound_ms(by, flops, BF16_FLOPS)
+
+        def pi_bound(args):
+            n = args[2].numel() // (n_pi * HA)
+            return bound_ms(pi_w + nbytes(args[1], args[2]) + n * n_pi * HA * 4,
+                            2 * n * n_pi * H * (mac_pi + mac_dyn), BF16_FLOPS)
+
+        def sample_bound(args):
+            # the first n_pi rows come from pi_acts: their noise is never read
+            mean_, std_, noise_, pi_, amask_ = args
+            n = noise_.shape[0]
+            by = (nbytes(mean_, std_, pi_, amask_) + n * (S - n_pi) * HA * 4
+                  + n * S * HA * 4)
+            return bound_ms(by, 3 * n * S * HA, F32_FLOPS)
+
+        def elite_bound(args):
+            n = args[1].numel() // (S * HA)
+            return bound_ms(nbytes(*args) + n * S * 4 + 2 * n * HA * 4,
+                            n * e_flops, F32_FLOPS)
+
         r_flops = 2 * S * H * (mac_rew + mac_dyn)
         r_bytes = (nbytes(*[prep_r[k] for k in value.ROLLOUT_NAMES])
                    + nbytes(z0, actions) + S * 4 + S * L * 4)
-        pi_w = nbytes(*[prep[k] for k in value.PREP_NAMES if k[0] in 'dp'])
-        pi_flops = 2 * n_pi * H * (mac_pi + mac_dyn)
-        pi_bytes = pi_w + nbytes(zenc, noise.pi_eps[:n_pi]) + n_pi * HA * 4
-        s_bytes = nbytes(mean0, std0, noise.sample[0], pa_p, agent.amask) + S * HA * 4
-        e_bytes = nbytes(v_in, acts, agent.amask) + S * 4 + 2 * HA * 4
-        e_flops = 35 * S + 8 * S * HA
-        timed = {
-            'value': (lambda: value.value_estimate(*v_args, **heads),
-                      lambda: value.value_estimate_plain(*v_args, **heads),
-                      None, bound_ms(v_bytes, v_flops, BF16_FLOPS)),
-            'cem_pi_rollout': (lambda: cem.pi_rollout(*pi_args, **heads),
-                               lambda: cem.pi_rollout_plain(*pi_args, **heads),
-                               None, bound_ms(pi_bytes, pi_flops, BF16_FLOPS)),
-            'cem_sample': (lambda: cem.sample_actions(*s_args),
-                           lambda: cem.sample_actions_plain(*s_args),
-                           None, bound_ms(s_bytes, 3 * S * HA, F32_FLOPS)),
-            'cem_elite': (lambda: cem.elite_moments(v_in, acts, agent.amask, **elite_kw),
-                          lambda: cem.elite_moments_plain(v_in, acts, agent.amask,
-                                                          **elite_kw),
-                          None, bound_ms(e_bytes, e_flops, F32_FLOPS)),
+        e_args = (v_in, acts, agent.amask)
+        # name -> ((kernel, plain, args, kw, bound) at one env, the same at N)
+        planner_calls = {
+            'value': (value.value_estimate, value.value_estimate_plain,
+                      v_args, v_n_args, heads, value_bound),
+            'cem_pi_rollout': (cem.pi_rollout, cem.pi_rollout_plain,
+                               pi_args, pi_n_args, heads, pi_bound),
+            'cem_sample': (cem.sample_actions, cem.sample_actions_plain,
+                           s_args, s_n_args, {}, sample_bound),
+            'cem_elite': (cem.elite_moments, cem.elite_moments_plain,
+                          e_args, e_n_args, elite_kw, elite_bound),
+        }
+        paths = {'evaluate': ev_launches, 'rollout entry': ro_launches,
+                 'train, one env': launches, f'train, num_envs={NE}': vec_launches}
+        kernels = []
+        for name, (kern, plain, a1, an, kw, bound) in planner_calls.items():
+            row = {'name': name, 'route': 'cuda',
+                   'source': ('tdmpc2_tpu_torch/csrc/value.cu' if name == 'value'
+                              else 'tdmpc2_tpu_torch/csrc/cem.cu'),
+                   'replaces': ('tdmpc2_tpu/ops/pallas_rollout.py:437'
+                                if name == 'value' else 'tdmpc2_tpu/ops/pallas_cem.py:53'),
+                   'launches': vec_launches[name],
+                   'launches_by_path': {k: v[name] for k, v in paths.items()},
+                   'max_abs_err': results[name], 'n_envs': NE}
+            for suffix, args in (('', an), ('_n1', a1)):
+                ms = time_ms(lambda: kern(*args, **kw), 50)
+                plain_ms = time_ms(lambda: plain(*args, **kw), 10)
+                b_ms, b_by = bound(args)
+                row.update({f'ms{suffix}': ms, f'plain_ms{suffix}': plain_ms,
+                            f'bound_ms{suffix}': b_ms, f'bound_by{suffix}': b_by})
+                log(f'  {name} ({"N=%d" % NE if not suffix else "one env"}): kernel '
+                    f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})')
+            row['library_ms'] = None
+            kernels.append(row)
+        others = {
             'rollout': (lambda: rollout.rollout_prepared(*r_args, **r_kw),
                         lambda: rollout.rollout_prepared_plain(*r_args, **r_kw),
-                        None, bound_ms(r_bytes, r_flops, BF16_FLOPS)),
+                        None, bound_ms(r_bytes, r_flops, BF16_FLOPS),
+                        'tdmpc2_tpu_torch/csrc/rollout.cu',
+                        'tdmpc2_tpu/ops/pallas_rollout.py:50', ro_launches),
             # x + 1 is itself one PyTorch call: the library time
             'probe': (lambda: probe.add_one(x_probe),
                       lambda: probe.add_one_plain(x_probe),
                       lambda: torch.add(x_probe, 1.0),
-                      bound_ms(2 * nbytes(x_probe), x_probe.numel(), F32_FLOPS)),
+                      bound_ms(2 * nbytes(x_probe), x_probe.numel(), F32_FLOPS),
+                      'tdmpc2_tpu_torch/csrc/probe.cu',
+                      'tdmpc2_tpu/ops/pallas_rollout.py:233', vec_launches),
         }
-        source = {'value': 'tdmpc2_tpu_torch/csrc/value.cu',
-                  'rollout': 'tdmpc2_tpu_torch/csrc/rollout.cu',
-                  'probe': 'tdmpc2_tpu_torch/csrc/probe.cu'}
-        replaces = {'value': 'tdmpc2_tpu/ops/pallas_rollout.py:437',
-                    'rollout': 'tdmpc2_tpu/ops/pallas_rollout.py:50',
-                    'probe': 'tdmpc2_tpu/ops/pallas_rollout.py:233'}
-        kernels = []
-        for name, (kern, plain, lib, (b_ms, b_by)) in timed.items():
+        for name, (kern, plain, lib, (b_ms, b_by), src, rpl, own) in others.items():
             ms = time_ms(kern, 50)
             plain_ms = time_ms(plain, 10)
             lib_ms = time_ms(lib, 50) if lib is not None else None
             log(f'  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
                 f'library {lib_ms}, bound {b_ms:.6f} ms ({b_by})')
             kernels.append({
-                'name': name, 'route': 'cuda',
-                'source': source.get(name, 'tdmpc2_tpu_torch/csrc/cem.cu'),
-                'replaces': replaces.get(name, 'tdmpc2_tpu/ops/pallas_cem.py:53'),
-                'launches': launches[name], 'max_abs_err': results[name],
-                'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
-                'bound_by': b_by, 'library_ms': lib_ms})
-        plan_ms = time_ms(lambda: cem.cem_plan(*plan_args, **plan_kw), 10)
-        plan_plain_ms = time_ms(lambda: cem.cem_plan_plain(*plan_args, **plan_kw), 3)
-        log(f'  whole cem_plan: kernels {plan_ms:.3f} ms, plain {plan_plain_ms:.3f} ms; '
-            f'value flops/call {v_flops / 1e9:.2f} G, rollout {r_flops / 1e9:.2f} G')
+                'name': name, 'route': 'cuda', 'source': src, 'replaces': rpl,
+                'launches': own[name],
+                'launches_by_path': {k: v[name] for k, v in paths.items()},
+                'max_abs_err': results[name], 'ms': ms, 'plain_ms': plain_ms,
+                'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': lib_ms})
+        for label, args in (('one env', plan_args), (f'N={NE}', plan_n_args)):
+            plan_ms = time_ms(lambda: cem.cem_plan(*args, **plan_kw), 10)
+            plan_plain_ms = time_ms(lambda: cem.cem_plan_plain(*args, **plan_kw), 3)
+            log(f'  whole cem_plan, {label}: kernels {plan_ms:.3f} ms, plain '
+                f'{plan_plain_ms:.3f} ms')
 
     log(f'[done] {time.perf_counter() - t_start:.1f} s')
     log(smi)

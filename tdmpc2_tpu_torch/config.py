@@ -101,9 +101,10 @@ class Config:
     dropout: float = 0.01
     simnorm_dim: int = 8
 
-    # online training (JAX config names and defaults; the port trains with
-    # one env, one seed and from scratch, and raises on anything else)
+    # online training (JAX config names and defaults; the port trains one
+    # seed from scratch, and raises on seed fleets and resuming)
     update_ratio: float = 1.0
+    # parallel env copies for vectorised collection (trainer/vec_online.py)
     num_envs: int = 1
     seeds: Any = None
     resume: bool = False

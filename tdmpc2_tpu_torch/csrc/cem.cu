@@ -6,12 +6,16 @@
 // activation of it. A Hopper SM holds 227 KB of shared memory, so the loop
 // is split at the one step that needs all S samples at once, the elite
 // threshold. Kernel boundaries are the only synchronisation across blocks:
-// no cooperative launch, no grid barrier, no spin-wait. Per plan:
-//   pi_rollout_kernel  once: the n_pi policy-prior trajectories
+// no cooperative launch, no grid barrier, no spin-wait. Each kernel plans N
+// environments at once (the TPU kernel's grid=(N,), one program per env):
+// a block belongs to one env, and every per-env operand is addressed
+// through an env stride. Per plan:
+//   pi_rollout_kernel  once: the n_pi policy-prior trajectories of each env,
+//                      ceil(n_pi / kRows) blocks per env
 //   then per iteration:
 //     sample_kernel    clip(mean + std * noise), policy rows overriding
 //     value_kernel     (value.cu) the value of every sample
-//     elite_kernel     one block: NaN guard, E-th largest value by 32-step
+//     elite_kernel     one block per env: NaN guard, E-th largest value by 32-step
 //                      bisection with the TPU kernel's boundary-shell tie
 //                      weights, softmax-weighted mean/std update
 //
@@ -25,13 +29,17 @@
 namespace tdm {
 
 __global__ void __launch_bounds__(kThreads)
-pi_rollout_kernel(Weights w, Dims d, float lsmin, float lsdif, int n_pi, const float* z0,
-                  const float* pi_eps, float* pi_acts) {
+pi_rollout_kernel(Weights w, Dims d, float lsmin, float lsdif, int n_pi, int blocks_per_env,
+                  const float* z0, long zn, const float* pi_eps, long pn, float* pi_acts) {
   extern __shared__ float4 smem_f4[];
   const RowSmem sm(reinterpret_cast<float*>(smem_f4), d);
-  const int row0 = blockIdx.x * kRows;
+  const int env = blockIdx.x / blocks_per_env;
+  const int row0 = (blockIdx.x % blocks_per_env) * kRows;
   const int nrows = min(kRows, n_pi - row0);
   const int HA = d.H * d.A;
+  z0 += env * zn;
+  pi_eps += env * pn;
+  pi_acts += static_cast<long>(env) * n_pi * HA;
 
   load_z(sm, d, z0, 0, row0, nrows);
   __syncthreads();
@@ -49,15 +57,20 @@ pi_rollout_kernel(Weights w, Dims d, float lsmin, float lsdif, int n_pi, const f
   }
 }
 
+// Element i of the [N, S, HA] output: env i / (S*HA), sample s, column c.
 __global__ void sample_kernel(const float* mean, const float* stdv, const float* noise,
-                              const float* pi_acts, const float* amask, int S, int HA,
-                              int A, int n_pi, float* acts) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= S * HA) return;
-  const int s = i / HA, c = i % HA;
+                              long nn, const float* pi_acts, const float* amask, int N,
+                              int S, int HA, int A, int n_pi, float* acts) {
+  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long>(N) * S * HA) return;
+  const int env = static_cast<int>(i / (static_cast<long>(S) * HA));
+  const int k = static_cast<int>(i % (static_cast<long>(S) * HA));
+  const int s = k / HA, c = k % HA;
+  const int m = env * HA + c;
   // _rn intrinsics: no contraction into an fma, the plain version's rounding
-  const float x = __fadd_rn(mean[c], __fmul_rn(stdv[c], noise[i]));
-  const float a = s < n_pi ? pi_acts[i] : fminf(fmaxf(x, -1.f), 1.f);
+  const float x = __fadd_rn(mean[m], __fmul_rn(stdv[m], noise[env * nn + k]));
+  const float a = s < n_pi ? pi_acts[(static_cast<long>(env) * n_pi + s) * HA + c]
+                           : fminf(fmaxf(x, -1.f), 1.f);
   acts[i] = a * amask[c % A];
 }
 
@@ -91,12 +104,19 @@ __device__ float count_ge(const float* v, int S, float thr, float* red) {
   return block_reduce(c, red, SumOp());
 }
 
-// One block. v_in [S] -> v_out [S] NaN/huge-guarded; new mean/std [HA].
-// The order of f32 operations follows the TPU kernel (pallas_cem.py:186-231).
+// One block per env. v_in [N, S] -> v_out [N, S] NaN/huge-guarded; acts
+// [N, S, HA]; new mean/std [N, HA]. The order of f32 operations follows
+// the TPU kernel (pallas_cem.py:186-231).
 __global__ void __launch_bounds__(kThreads)
 elite_kernel(const float* v_in, const float* acts, const float* amask, int S, int HA,
              int A, float E, float temperature, float min_std, float max_std,
              float* v_out, float* mean_out, float* std_out) {
+  const int env = blockIdx.x;
+  v_in += static_cast<long>(env) * S;
+  v_out += static_cast<long>(env) * S;
+  acts += static_cast<long>(env) * S * HA;
+  mean_out += env * HA;
+  std_out += env * HA;
   extern __shared__ float4 smem_f4[];
   float* v = reinterpret_cast<float*>(smem_f4);
   float* score = v + S;
@@ -163,9 +183,11 @@ elite_kernel(const float* v_in, const float* acts, const float* amask, int S, in
 }  // namespace tdm
 
 // Each launch function runs on `stream` and returns cudaGetLastError().
+// pi rollout of env e: z0 + e*zn ([L]), pi_eps + e*pn ([n_pi, HA]);
+// pi_acts [N, n_pi, HA].
 extern "C" int tdm_pi_rollout(const void* const* wptrs, const int* dims, float lsmin,
-                              float lsdif, int n_pi, const float* z0, const float* pi_eps,
-                              float* pi_acts, void* stream) {
+                              float lsdif, int N, int n_pi, const float* z0, long zn,
+                              const float* pi_eps, long pn, float* pi_acts, void* stream) {
   using namespace tdm;
   Weights w;
   for (int i = 0; i < kNumWeights; ++i) w.p[i] = wptrs[i];
@@ -174,24 +196,29 @@ extern "C" int tdm_pi_rollout(const void* const* wptrs, const int* dims, float l
   cudaError_t err = cudaFuncSetAttribute(
       pi_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (n_pi + kRows - 1) / kRows;
-  pi_rollout_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      w, d, lsmin, lsdif, n_pi, z0, pi_eps, pi_acts);
+  const int blocks_per_env = (n_pi + kRows - 1) / kRows;
+  pi_rollout_kernel<<<N * blocks_per_env, kThreads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      w, d, lsmin, lsdif, n_pi, blocks_per_env, z0, zn, pi_eps, pn, pi_acts);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int tdm_sample(const float* mean, const float* stdv, const float* noise,
-                          const float* pi_acts, const float* amask, int S, int HA, int A,
-                          int n_pi, float* acts, void* stream) {
-  const int n = S * HA, threads = 256;
-  tdm::sample_kernel<<<(n + threads - 1) / threads, threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(mean, stdv, noise, pi_acts, amask,
-                                                            S, HA, A, n_pi, acts);
+// mean/std [N, HA]; noise of env e: noise + e*nn ([S, HA]); pi_acts
+// [N, n_pi, HA]; acts [N, S, HA].
+extern "C" int tdm_sample(const float* mean, const float* stdv, const float* noise, long nn,
+                          const float* pi_acts, const float* amask, int N, int S, int HA,
+                          int A, int n_pi, float* acts, void* stream) {
+  const long n = static_cast<long>(N) * S * HA;
+  const int threads = 256;
+  tdm::sample_kernel<<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(mean, stdv, noise, nn, pi_acts,
+                                                            amask, N, S, HA, A, n_pi, acts);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int tdm_elite(const float* v_in, const float* acts, const float* amask, int S,
-                         int HA, int A, int num_elites, float temperature, float min_std,
+// v_in, v_out [N, S]; acts [N, S, HA]; mean_out, std_out [N, HA].
+extern "C" int tdm_elite(const float* v_in, const float* acts, const float* amask, int N,
+                         int S, int HA, int A, int num_elites, float temperature, float min_std,
                          float max_std, float* v_out, float* mean_out, float* std_out,
                          void* stream) {
   using namespace tdm;
@@ -199,7 +226,7 @@ extern "C" int tdm_elite(const float* v_in, const float* acts, const float* amas
   cudaError_t err = cudaFuncSetAttribute(
       elite_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  elite_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  elite_kernel<<<N, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       v_in, acts, amask, S, HA, A, static_cast<float>(num_elites), temperature, min_std,
       max_std, v_out, mean_out, std_out);
   return static_cast<int>(cudaGetLastError());

@@ -2,19 +2,28 @@
 // prior, 2-of-num_q Q bootstrap (single-task, non-episodic).
 //
 // Replaces the TPU kernel _value_kernel (tdmpc2_tpu/ops/pallas_rollout.py,
-// launched by _value_flat / value_prepared). For S sampled action sequences:
+// launched by _value_flat / value_prepared). For N environments, each with
+// S sampled action sequences:
 //   G = sum_t discs[t] * symexp(two_hot(reward(z_t, a_t))), z_{t+1} = dyn(z_t, a_t)
 //   a_H = tanh(mean(z_H) + eps * exp(log_std(z_H)))
 //   v = G + discs[H] * (Q_i(z_H, a_H) + Q_j(z_H, a_H)) / 2, (i, j) = qidx
+// with the env's own discs [H+1] and qidx [2].
 //
-// Bound: at the default 5M model and S=512 one call does ~5.9 GFLOP of
+// Env axis: as the TPU kernel's `blocks_per_env`, the grid holds N runs of
+// ceil(S / kRows) blocks, env = block / blocks_per_env, and a block never
+// straddles two envs (its last rows are masked when S % kRows != 0). Every
+// per-env operand is addressed through an env stride, so the planner's
+// broadcast latent and its strided per-iteration noise need no copies.
+//
+// Bound: at the default 5M model and S=512 one env's call does ~5.9 GFLOP of
 // bf16-input products over ~6 MB of weights: ~6.0 us at 989 TFLOP/s
 // against ~1.8 us at 3.35 TB/s, so the work is compute-bound. This first
 // version runs its products on the FMA pipes, not the tensor cores, and is
 // far from that bound. Its design: one block per kRows=8 rows keeps every
 // activation of the whole rollout in shared memory (nothing but the result
 // goes back to device memory); all blocks read the same bf16 weights, which
-// the 50 MB L2 holds, so device memory sees them about once per call.
+// the 50 MB L2 holds, so device memory sees them about once per call. N
+// envs multiply the work by N and leave the weight bytes as they are.
 // The grouped SimNorm softmax is computed directly, where the TPU kernel
 // used a block-diagonal mask product.
 #include "mlp_rows.cuh"
@@ -22,13 +31,21 @@
 namespace tdm {
 
 __global__ void __launch_bounds__(kThreads)
-value_kernel(Weights w, Dims d, float lsmin, float lsdif, int S, const float* z0, long zs,
-             const float* actions, long ats, long ass, const float* eps, const int* qidx,
-             const float* discs, float* out) {
+value_kernel(Weights w, Dims d, float lsmin, float lsdif, int S, int blocks_per_env,
+             const float* z0, long zn, long zs, const float* actions, long an, long ats,
+             long ass, const float* eps, long en, const int* qidx, long qn,
+             const float* discs, long dn, float* out) {
   extern __shared__ float4 smem_f4[];
   const RowSmem sm(reinterpret_cast<float*>(smem_f4), d);
-  const int row0 = blockIdx.x * kRows;
+  const int env = blockIdx.x / blocks_per_env;
+  const int row0 = (blockIdx.x % blocks_per_env) * kRows;
   const int nrows = min(kRows, S - row0);
+  z0 += env * zn;
+  actions += env * an;
+  eps += env * en;
+  qidx += env * qn;
+  discs += env * dn;
+  out += static_cast<long>(env) * S;
   float* G = sm.s0;   // discounted reward sum
   float* r = sm.s1;   // decoded reward / Q of the current head
   float* q = sm.s2;   // Q sum over the two heads
@@ -91,9 +108,13 @@ value_kernel(Weights w, Dims d, float lsmin, float lsdif, int S, const float* z0
 }  // namespace tdm
 
 // Launch on `stream`; returns cudaGetLastError() after the launch.
+// Operands of env e: z0 + e*zn (rows zs apart, 0 broadcasts one row),
+// actions + e*an ([H, S, A] with strides ats, ass, 1), eps + e*en ([S, A]),
+// qidx + e*qn ([2]), discs + e*dn ([H+1]); out [N, S].
 extern "C" int tdm_value(const void* const* wptrs, const int* dims, float lsmin, float lsdif,
-                         int S, const float* z0, long zs, const float* actions, long ats,
-                         long ass, const float* eps, const int* qidx, const float* discs,
+                         int N, int S, const float* z0, long zn, long zs,
+                         const float* actions, long an, long ats, long ass, const float* eps,
+                         long en, const int* qidx, long qn, const float* discs, long dn,
                          float* out, void* stream) {
   using namespace tdm;
   Weights w;
@@ -103,8 +124,9 @@ extern "C" int tdm_value(const void* const* wptrs, const int* dims, float lsmin,
   cudaError_t err = cudaFuncSetAttribute(
       value_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (S + kRows - 1) / kRows;
-  value_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      w, d, lsmin, lsdif, S, z0, zs, actions, ats, ass, eps, qidx, discs, out);
+  const int blocks_per_env = (S + kRows - 1) / kRows;
+  value_kernel<<<N * blocks_per_env, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      w, d, lsmin, lsdif, S, blocks_per_env, z0, zn, zs, actions, an, ats, ass, eps, en,
+      qidx, qn, discs, dn, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,6 +12,8 @@ task state path).
 - `sample` draws (episode, start) pairs with `draw_slice_indices` from the
   buffer's own `torch.Generator` and returns the update's layout
   (obs [H+1, B, ...], action [H, B, A], reward and terminated [H, B, 1]).
+  `sample_many(n)` draws n*B slices at once and returns n batches with a
+  leading n axis, for `TDMPC2.update_many`.
 
 Pixel frame restacking, bulk `load`/`reserve` (offline datasets) and
 snapshots are later parts of the port.
@@ -121,10 +123,12 @@ class Buffer:
         self._num_eps += 1
         return self._num_eps
 
-    def gather(self, ep_idx, start):
+    def gather(self, ep_idx, start, n_batches: int = 1):
         """The slices (ep_idx[i], rows start[i] .. start[i]+H) in the
         update's layout, on the buffer's device: obs [H+1, B, ...], action
-        [H, B, A], reward and terminated [H, B, 1]."""
+        [H, B, A], reward and terminated [H, B, 1]; with n_batches > 1 the
+        slices are n batches of B, laid out [n, H(+1), B, ...]
+        (JAX `_to_batch_layout`, buffer.py:610-630)."""
         T = self._horizon
         st = self._storage
         dev = st['obs'].device
@@ -137,20 +141,31 @@ class Buffer:
         reward = st['reward'][ep_b, rows_act]
         terminated = (st['terminated'][ep_b, rows_act] if 'terminated' in st
                       else torch.zeros_like(reward))
-        return tuple(x.transpose(0, 1).to(self.device).contiguous()
-                     for x in (obs, action, reward[..., None],
-                               terminated[..., None]))
+        out = (obs, action, reward[..., None], terminated[..., None])
+        if n_batches == 1:
+            return tuple(x.transpose(0, 1).to(self.device).contiguous()
+                         for x in out)
+        # [n*B, T(+1), ...] -> [n, T(+1), B, ...]
+        return tuple(
+            x.reshape(n_batches, -1, *x.shape[1:]).transpose(1, 2)
+            .to(self.device).contiguous() for x in out)
 
     def sample(self):
         """A batch of batch_size slices of horizon+1 rows (reference
         buffer.py:93-115)."""
+        return self.sample_many(1)
+
+    def sample_many(self, n: int):
+        """n batches from one draw of n * batch_size slices (JAX
+        buffer.py:481-507): leaves [n, H(+1), B, ...]; n == 1 gives the
+        unbatched layout of `sample`."""
         if self._num_eps == 0:
             raise RuntimeError('cannot sample from an empty buffer')
         ep_idx, start = draw_slice_indices(
             self._generator, self._ep_rows,
-            min(self._num_eps, self._capacity_eps), self._batch_size,
+            min(self._num_eps, self._capacity_eps), n * self._batch_size,
             self._horizon, self._capacity_eps)
-        return self.gather(ep_idx, start)
+        return self.gather(ep_idx, start, n)
 
     def close(self):
         """Nothing runs beside the buffer; kept for the trainer's teardown."""

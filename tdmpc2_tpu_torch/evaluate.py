@@ -7,9 +7,10 @@ Usage:
 Runs `eval_episodes` greedy-planning episodes and reports the mean return.
 `device` defaults to `cuda`, where the planner runs on the hand-written
 kernels; without a card that raises unless `device=cpu` is given. With
-`checkpoint=<file>` the weights come from a JAX checkpoint (interop.py,
-which needs `ml_dtypes` for the committed bf16 files); without one the
-agent keeps its fresh weights, drawn from `seed`.
+`checkpoint=<file>` the weights come from a checkpoint of this port or
+of the JAX package (`TDMPC2.load`, which refuses one whose architecture
+differs from the config's; the committed bf16 files need `ml_dtypes`);
+without one the agent keeps its fresh weights, drawn from `seed`.
 """
 
 from __future__ import annotations
@@ -33,9 +34,7 @@ def evaluate(cfg) -> dict:
     env = make_env(cfg)
     agent = TDMPC2(cfg)
     if cfg.checkpoint:
-        from tdmpc2_tpu_torch.interop import load_blob, params_from_jax
-        blob = load_blob(cfg.checkpoint)
-        agent.load_params(params_from_jax(blob.get('model', blob)))
+        agent.load(cfg.checkpoint)      # raises on an architecture mismatch
 
     rewards, successes, plans, seconds = [], [], 0, 0.0
     for _ in range(cfg.eval_episodes):

@@ -7,9 +7,9 @@ leaves, bf16 upcast to f32 as the JAX agent does on load
 (tdmpc2_tpu/tdmpc2.py:320-323).
 
 `state_from_jax` carries a whole JAX TrainState across: parameters, the
-target Q heads, optax's Adam moments of both optimiser chains and the
-running scale, so one JAX state and one port state take the same update
-step.
+target Q heads, optax's Adam moments of both optimiser chains, the
+running scale and the planner's per-env warm starts, so one JAX state and
+one port state take the same update step and plan from the same means.
 
 `load_blob` reads a JAX checkpoint file (pickle, gzip-sniffed). The
 committed checkpoints (results/checkpoints/*.pkl.gz) hold ml_dtypes bf16
@@ -73,7 +73,8 @@ def state_from_jax(state, device='cpu'):
         opt_state=opt_state,
         pi_opt_state=_adam_from_optax(state.pi_opt_state[1][0],
                                       lambda t: t, device),
-        scale=torch.tensor(np.asarray(state.scale, np.float32), device=device))
+        scale=torch.tensor(np.asarray(state.scale, np.float32), device=device),
+        prev_mean=_leaf(state.prev_mean, device))
 
 
 def load_blob(path) -> dict:

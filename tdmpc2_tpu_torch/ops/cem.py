@@ -1,25 +1,28 @@
 """The MPPI/CEM planning loop: the port of the TPU kernel `_cem_kernel`
-(tdmpc2_tpu/ops/pallas_cem.py:53, entry `cem_prepared` :247).
+(tdmpc2_tpu/ops/pallas_cem.py:53, entry `cem_prepared` :247), for N
+environments at once (the TPU kernel's grid=(N,), `_cem_flat` :303).
 
 The TPU kernel runs one environment's whole loop in one program. Here the
 loop is four hand-written kernels (csrc/cem.cu, csrc/value.cu) whose launch
-boundaries are the only synchronisation across thread blocks:
+boundaries are the only synchronisation across thread blocks; each launch
+covers all N envs:
 
     pi_rollout                 once per plan: the n_pi policy-prior rows
     per iteration:
       sample_actions           clip(mean + std * noise), pi rows override
       value_estimate           ops/value.py
-      elite_moments            one block: NaN guard, E-th largest by
-                               bisection with boundary-shell tie weights,
-                               softmax-weighted mean/std update
+      elite_moments            one block per env: NaN guard, E-th largest
+                               by bisection with boundary-shell tie
+                               weights, softmax-weighted mean/std update
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 version on CPU tensors. `cem_plan` chains the wrappers; `cem_plan_plain`
 chains the plain versions. All noise is input, laid out as for
-`cem_prepared`: z0 [1, L]; pi_eps [n_pi, H*A]; noise [I, S, H*A] (rows
-below n_pi unused); eps [I, S, A]; qidx [I, 2] int32; discs [H+1];
-mean0/std0 [H*A]; amask [A]. Returns (mean [H*A], std [H*A], value [S, 1]
-of the last iteration, NaN-guarded, and its actions [S, H*A]).
+`cem_prepared` with a leading env axis N (N=1 for one env): z0 [N, 1, L];
+pi_eps [N, n_pi, H*A]; noise [N, I, S, H*A] (rows below n_pi unused); eps
+[N, I, S, A]; qidx [N, I, 2] int32; discs [N, H+1]; mean0/std0 [N, H*A];
+amask [A]; returns (mean [N, H*A], std [N, H*A], value [N, S, 1] of the
+last iteration, NaN-guarded, and its actions [N, S, H*A]).
 """
 
 from __future__ import annotations
@@ -56,14 +59,14 @@ def _stream(dev):
 
 def pi_rollout_plain(prep, z0, pi_eps, *, log_std_min: float,
                      log_std_dif: float, simnorm_dim: int = 8):
-    """z0 [1, L]; pi_eps [n_pi, H*A] -> actions [n_pi, H*A]."""
+    """z0 [N, 1, L]; pi_eps [N, n_pi, H*A] -> actions [N, n_pi, H*A]."""
     A = prep['pWm'].shape[1]
-    n_pi, HA = pi_eps.shape
-    z = z0.float().expand(n_pi, -1)
+    HA = pi_eps.shape[-1]
+    z = z0.float().expand(*pi_eps.shape[:-1], z0.shape[-1])
     out = []
     for t in range(HA // A):
         mean, ls = pi_head_plain(prep, z, log_std_min, log_std_dif)
-        a = torch.tanh(mean + pi_eps[:, t * A:(t + 1) * A] * torch.exp(ls))
+        a = torch.tanh(mean + pi_eps[..., t * A:(t + 1) * A] * torch.exp(ls))
         out.append(a)
         z = dynamics_plain(prep, z, a, simnorm_dim)
     return torch.cat(out, dim=-1)
@@ -71,7 +74,8 @@ def pi_rollout_plain(prep, z0, pi_eps, *, log_std_min: float,
 
 def pi_rollout(prep, z0, pi_eps, *, log_std_min: float, log_std_dif: float,
                simnorm_dim: int = 8):
-    """The pi-rollout kernel on CUDA tensors, the plain version on CPU."""
+    """The pi-rollout kernel on CUDA tensors, the plain version on CPU.
+    pi_eps rows contiguous; any stride on the env axes."""
     dev = z0.device
     if dev.type == 'cpu':
         return pi_rollout_plain(prep, z0, pi_eps, log_std_min=log_std_min,
@@ -80,17 +84,22 @@ def pi_rollout(prep, z0, pi_eps, *, log_std_min: float, log_std_dif: float,
     if dev.type != 'cuda':
         raise ValueError(f'pi_rollout: unsupported device {dev}')
     check_prep(prep, dev, simnorm_dim)
-    _cuda_operands('pi_rollout', dev, z0, pi_eps)
-    n_pi, HA = pi_eps.shape
+    N, n_pi, HA = pi_eps.shape
     L, A = prep['dWz'].shape[0], prep['pWm'].shape[1]
-    if z0.shape != (1, L) or HA % A or n_pi < 1:
+    for t in (z0, pi_eps):
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f'pi_rollout: operands must be f32 on {dev}')
+    if (z0.shape != (N, 1, L) or z0.stride(2) != 1 or HA % A or n_pi < 1
+            or pi_eps.stride()[1:] != (HA, 1)):
         raise ValueError(f'pi_rollout: z0 {tuple(z0.shape)} / pi_eps '
-                         f'{tuple(pi_eps.shape)} do not fit L={L}, A={A}')
-    out = torch.empty(n_pi, HA, dtype=torch.float32, device=dev)
+                         f'{tuple(pi_eps.shape)} do not fit L={L}, A={A} '
+                         'with contiguous rows')
+    out = torch.empty(N, n_pi, HA, dtype=torch.float32, device=dev)
     lib = _build.library('cem')
     dims = (ctypes.c_int * 7)(*prep_dims(prep, simnorm_dim, HA // A))
     rc = lib.tdm_pi_rollout(weight_ptrs(prep), dims, log_std_min, log_std_dif,
-                            n_pi, z0.data_ptr(), pi_eps.data_ptr(),
+                            N, n_pi, z0.data_ptr(), z0.stride(0),
+                            pi_eps.data_ptr(), pi_eps.stride(0),
                             out.data_ptr(), _stream(dev))
     _build.check(lib, rc, 'pi_rollout kernel')
     pi_rollout.launches += 1
@@ -106,33 +115,37 @@ pi_rollout.launches = 0
 
 
 def sample_actions_plain(mean, std, noise, pi_acts, amask):
-    """mean/std [H*A]; noise [S, H*A]; pi_acts [n_pi, H*A]; amask [A]
-    -> actions [S, H*A]."""
-    n_pi = pi_acts.shape[0]
-    acts = torch.clamp(mean + std * noise, -1.0, 1.0)
+    """mean/std [N, H*A]; noise [N, S, H*A]; pi_acts [N, n_pi, H*A];
+    amask [A] -> actions [N, S, H*A]."""
+    n_pi = pi_acts.shape[1]
+    acts = torch.clamp(mean[:, None] + std[:, None] * noise, -1.0, 1.0)
     if n_pi:
-        acts = torch.cat([pi_acts, acts[n_pi:]], dim=0)
-    return acts * amask.repeat(mean.shape[0] // amask.shape[0])
+        acts = torch.cat([pi_acts, acts[:, n_pi:]], dim=1)
+    return acts * amask.repeat(mean.shape[-1] // amask.shape[0])
 
 
 def sample_actions(mean, std, noise, pi_acts, amask):
-    """The sample kernel on CUDA tensors, the plain version on CPU."""
+    """The sample kernel on CUDA tensors, the plain version on CPU. noise
+    rows contiguous, any stride on its env axis; the rest contiguous."""
     dev = noise.device
     if dev.type == 'cpu':
         return sample_actions_plain(mean, std, noise, pi_acts, amask)
     if dev.type != 'cuda':
         raise ValueError(f'sample_actions: unsupported device {dev}')
-    _cuda_operands('sample_actions', dev, mean, std, noise, pi_acts, amask)
-    S, HA = noise.shape
-    A, n_pi = amask.shape[0], pi_acts.shape[0]
-    if (mean.shape != (HA,) or std.shape != (HA,) or HA % A or n_pi > S
-            or (n_pi and pi_acts.shape[1] != HA)):
+    _cuda_operands('sample_actions', dev, mean, std, pi_acts, amask)
+    N, S, HA = noise.shape
+    A, n_pi = amask.shape[0], pi_acts.shape[1]
+    if (noise.device != dev or noise.dtype != torch.float32
+            or noise.stride()[1:] != (HA, 1)):
+        raise ValueError('sample_actions: noise must be f32 with contiguous rows')
+    if (mean.shape != (N, HA) or std.shape != (N, HA) or HA % A or n_pi > S
+            or pi_acts.shape[0] != N or (n_pi and pi_acts.shape[2] != HA)):
         raise ValueError('sample_actions: shapes do not agree')
-    out = torch.empty(S, HA, dtype=torch.float32, device=dev)
+    out = torch.empty(N, S, HA, dtype=torch.float32, device=dev)
     lib = _build.library('cem')
     rc = lib.tdm_sample(mean.data_ptr(), std.data_ptr(), noise.data_ptr(),
-                        pi_acts.data_ptr(), amask.data_ptr(), S, HA, A, n_pi,
-                        out.data_ptr(), _stream(dev))
+                        noise.stride(0), pi_acts.data_ptr(), amask.data_ptr(),
+                        N, S, HA, A, n_pi, out.data_ptr(), _stream(dev))
     _build.check(lib, rc, 'sample kernel')
     sample_actions.launches += 1
     return out
@@ -148,38 +161,40 @@ sample_actions.launches = 0
 
 def elite_moments_plain(value, acts, amask, *, num_elites: int,
                         temperature: float, min_std: float, max_std: float):
-    """value [S] or [S, 1]; acts [S, H*A]; amask [A]
-    -> (mean [H*A], std [H*A], guarded value [S]).
+    """value [N, S] or [N, S, 1]; acts [N, S, H*A]; amask [A]
+    -> (mean [N, H*A], std [N, H*A], guarded value [N, S]), each env on
+    its own.
 
     The E-th largest value is found by 32-step bisection; the weight left
     over at the boundary is shared by the values tied there, so distinct
     values give exactly the top E and all-tied values a uniform E/S
     (tdmpc2_tpu/ops/pallas_cem.py:186-231).
     """
-    v = value.reshape(-1).float()
+    N, S, HA = acts.shape
+    v = value.reshape(N, S).float()
     v = torch.where((v == v) & (torch.abs(v) <= _F32_HUGE), v,
                     torch.zeros_like(v))
     E = float(num_elites)
-    vmax = v.max()
-    lo = v.min()
+    vmax = v.max(-1, keepdim=True).values
+    lo = v.min(-1, keepdim=True).values
     hi = vmax + 0.001 * torch.abs(vmax) + 1.0
     for _ in range(32):
         mid = lo + 0.5 * (hi - lo)
-        ge = (v >= mid).float().sum() >= E
+        ge = (v >= mid).float().sum(-1, keepdim=True) >= E
         lo = torch.where(ge, mid, lo)
         hi = torch.where(ge, hi, mid)
-    n1 = (v >= hi).float().sum()
-    nb = (v >= lo).float().sum() - n1
+    n1 = (v >= hi).float().sum(-1, keepdim=True)
+    nb = (v >= lo).float().sum(-1, keepdim=True) - n1
     wb = (E - n1) / torch.clamp(nb, min=1.0)
     w = torch.where(v >= hi, torch.ones_like(v),
                     torch.where(v >= lo, wb, torch.zeros_like(v)))
     score = torch.exp(temperature * (v - vmax)) * w
-    score = (score / score.sum())[:, None]
-    denom = score.sum() + 1e-9
-    mean = (score * acts).sum(0) / denom
-    std = torch.sqrt((score * (acts - mean) ** 2).sum(0) / denom)
+    score = (score / score.sum(-1, keepdim=True))[..., None]
+    denom = score.sum(-2) + 1e-9
+    mean = (score * acts).sum(-2) / denom
+    std = torch.sqrt((score * (acts - mean[:, None]) ** 2).sum(-2) / denom)
     std = torch.clamp(std, min_std, max_std)
-    mask = amask.repeat(acts.shape[1] // amask.shape[0])
+    mask = amask.repeat(HA // amask.shape[0])
     return mean * mask, std * mask, v
 
 
@@ -194,16 +209,16 @@ def elite_moments(value, acts, amask, *, num_elites: int, temperature: float,
     if dev.type != 'cuda':
         raise ValueError(f'elite_moments: unsupported device {dev}')
     _cuda_operands('elite_moments', dev, value, acts, amask)
-    S, HA = acts.shape
+    N, S, HA = acts.shape
     A = amask.shape[0]
-    if value.numel() != S or HA % A or not 0 < num_elites <= S:
+    if value.numel() != N * S or HA % A or not 0 < num_elites <= S:
         raise ValueError('elite_moments: shapes do not agree')
-    v_out = torch.empty(S, dtype=torch.float32, device=dev)
-    mean = torch.empty(HA, dtype=torch.float32, device=dev)
-    std = torch.empty(HA, dtype=torch.float32, device=dev)
+    v_out = torch.empty(N, S, dtype=torch.float32, device=dev)
+    mean = torch.empty(N, HA, dtype=torch.float32, device=dev)
+    std = torch.empty(N, HA, dtype=torch.float32, device=dev)
     lib = _build.library('cem')
     rc = lib.tdm_elite(value.data_ptr(), acts.data_ptr(), amask.data_ptr(),
-                       S, HA, A, num_elites, temperature, min_std, max_std,
+                       N, S, HA, A, num_elites, temperature, min_std, max_std,
                        v_out.data_ptr(), mean.data_ptr(), std.data_ptr(),
                        _stream(dev))
     _build.check(lib, rc, 'elite kernel')
@@ -223,28 +238,28 @@ def _cem_loop(steps, prep, z0, pi_eps, noise, eps, qidx, discs, mean0, std0,
               amask, *, iterations, n_pi, num_elites, temperature, min_std,
               max_std, log_std_min, log_std_dif, simnorm_dim):
     pi_roll, sample, value, elite = steps
-    I, S, HA = noise.shape
-    H = discs.shape[0] - 1
+    N, I, S, HA = noise.shape
+    H = discs.shape[-1] - 1
     A = HA // H
     if not 1 <= iterations <= I:
         raise ValueError(f'{iterations} iterations with noise for {I}')
     heads = dict(log_std_min=log_std_min, log_std_dif=log_std_dif,
                  simnorm_dim=simnorm_dim)
     if n_pi > 0:
-        pi_acts = pi_roll(prep, z0, pi_eps[:n_pi], **heads)
+        pi_acts = pi_roll(prep, z0, pi_eps[:, :n_pi], **heads)
     else:
-        pi_acts = noise.new_zeros(0, HA)
-    z = z0.expand(S, z0.shape[-1])
-    mean, std = mean0.reshape(HA), std0.reshape(HA)
+        pi_acts = noise.new_zeros(N, 0, HA)
+    z = z0.expand(N, S, z0.shape[-1])
+    mean, std = mean0.reshape(N, HA), std0.reshape(N, HA)
     amask = amask.reshape(A)
     for it in range(iterations):
-        acts = sample(mean, std, noise[it], pi_acts, amask)
-        v = value(prep, z, acts.view(S, H, A).permute(1, 0, 2), eps[it],
-                  qidx[it], discs, **heads)
+        acts = sample(mean, std, noise[:, it], pi_acts, amask)
+        v = value(prep, z, acts.view(N, S, H, A).permute(0, 2, 1, 3),
+                  eps[:, it], qidx[:, it], discs, **heads)
         mean, std, v = elite(v, acts, amask, num_elites=num_elites,
                              temperature=temperature, min_std=min_std,
                              max_std=max_std)
-    return mean, std, v[:, None], acts
+    return mean, std, v[..., None], acts
 
 
 def cem_plan(prep, z0, pi_eps, noise, eps, qidx, discs, mean0, std0, amask,

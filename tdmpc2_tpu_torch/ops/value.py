@@ -1,10 +1,12 @@
 """Planner value estimate: the port of the TPU kernel `_value_kernel`
 (tdmpc2_tpu/ops/pallas_rollout.py:437, entry `value_prepared` :688) and of
-its weight prep `prepare_value_params` (:538-632), single-task.
+its weight prep `prepare_value_params` (:538-632), single-task, for N
+environments at once (the TPU kernel's env axis, `_value_flat` :635).
 
 `value_estimate` runs the hand-written kernel `csrc/value.cu` on CUDA
 tensors and `value_estimate_plain` on CPU tensors; on any other device it
-raises. Both compute, for S sampled action sequences of length H,
+raises. Both compute, for each env's S sampled action sequences of
+length H,
 
     G = sum_t discs[t] * r(z_t, a_t),  z_{t+1} = next(z_t, a_t)
     v = G + discs[H] * avg_{i in qidx} Q_i(z_H, tanh(mean + eps * exp(log_std)))
@@ -178,10 +180,12 @@ def pi_head_plain(p, z, log_std_min: float, log_std_dif: float):
 
 def rollout_plain(prep, z0, actions, discs, simnorm_dim: int = 8):
     """The reward+dynamics rollout: z0 [S, L]; actions [H, S, A]; discs
-    [>= H] -> (G [S, 1], z_H [S, L]), G = sum_t discs[t] * r(z_t, a_t)."""
+    [>= H] -> (G [S, 1], z_H [S, L]), G = sum_t discs[t] * r(z_t, a_t).
+    Leading axes of z0 and actions[t] broadcast (value_estimate_plain
+    passes N envs' rows, with discs[t] shaped to match)."""
     p = prep
     z = z0.float()
-    G = torch.zeros(z.shape[0], 1, dtype=torch.float32, device=z.device)
+    G = torch.zeros(z.shape[:-1] + (1,), dtype=torch.float32, device=z.device)
     for t in range(actions.shape[0]):
         a = actions[t]
         u = _hidden2(_dot(z, p['rWz']) + _dot(a, p['rWa']), p, 'r')
@@ -193,23 +197,27 @@ def rollout_plain(prep, z0, actions, discs, simnorm_dim: int = 8):
 def value_estimate_plain(prep, z0, actions, eps, qidx, discs, *,
                          log_std_min: float, log_std_dif: float,
                          simnorm_dim: int = 8, episodic: bool = False):
-    """z0 [S, L]; actions [H, S, A]; eps [S, A]; qidx [2] int; discs [H+1]
-    -> value [S, 1]."""
+    """z0 [N, S, L]; actions [N, H, S, A]; eps [N, S, A]; qidx [N, 2] int;
+    discs [N, H+1] -> value [N, S, 1], each env with its own Q heads and
+    discounts (N=1 for one env)."""
     if episodic:
         raise NotImplementedError('episodic value estimate (termination head)')
     p = prep
-    G, z = rollout_plain(p, z0, actions, discs, simnorm_dim)
+    H = actions.shape[1]
+    G, z = rollout_plain(p, z0, actions.transpose(0, 1), discs.T[..., None, None],
+                         simnorm_dim)
     mean, ls = pi_head_plain(p, z, log_std_min, log_std_dif)
     a = torch.tanh(mean + eps * torch.exp(ls))
     q = 0.0
     for j in range(2):
-        # the head's slices, picked on the device (no host read of qidx)
-        i = qidx[j:j + 1].long()
-        h = {k: torch.index_select(p[k], 0, i)[0]
-             for k in PREP_NAMES if k[0] == 'q'}
+        # each env's head, picked on the device (no host read of qidx):
+        # matrices [N, K, M], vectors [N, 1, M]
+        i = qidx[:, j].long()
+        h = {k: torch.index_select(p[k], 0, i) for k in PREP_NAMES if k[0] == 'q'}
+        h = {k: v if k[1] == 'W' else v[:, None] for k, v in h.items()}
         u = _hidden2(_dot(z, h['qWz']) + _dot(a, h['qWa']), h, 'q')
         q = q + _two_hot_dec(_dot(u, h['qW2']) + h['qb2'], p['bins'])
-    return G + discs[actions.shape[0]] * (q / 2.0)
+    return G + discs[:, H, None, None] * (q / 2.0)
 
 
 # ---------------------------------------------------------------------------
@@ -222,10 +230,12 @@ def value_estimate(prep, z0, actions, eps, qidx, discs, *,
                    simnorm_dim: int = 8, episodic: bool = False):
     """The value kernel on CUDA tensors, its plain version on CPU tensors.
 
-    z0 [S, L] f32 (rows may be a broadcast view, stride 0); actions
-    [H, S, A] f32 with unit stride on A (any strides on H and S, e.g. a
-    permuted view of the planner's [S, H*A] samples); eps [S, A] f32;
-    qidx [2] int32; discs [H+1] f32 -> value [S, 1] f32.
+    N envs in one launch (N=1 for one env): z0 [N, S, L] f32; actions
+    [N, H, S, A] f32; eps [N, S, A] f32; qidx [N, 2] int32; discs [N, H+1]
+    f32 -> value [N, S, 1] f32. Any strides on the env and row axes (the
+    planner passes a broadcast latent, stride 0, and permuted or strided
+    views of its samples and noise); unit stride on the last axis, and eps
+    rows contiguous.
     """
     if episodic:
         raise NotImplementedError('episodic value estimate (termination head)')
@@ -237,32 +247,39 @@ def value_estimate(prep, z0, actions, eps, qidx, discs, *,
     if dev.type != 'cuda':
         raise ValueError(f'value_estimate: unsupported device {dev}')
     check_prep(prep, dev, simnorm_dim)
-    H, S, A = actions.shape
+    if actions.dim() != 4:
+        raise ValueError(f'value_estimate: actions {tuple(actions.shape)} '
+                         'must be [N, H, S, A] with z0 [N, S, L]')
+    N, H, S, A = actions.shape
     L = prep['dWz'].shape[0]
-    if (z0.shape != (S, L) or z0.stride(1) != 1 or actions.stride(2) != 1
+    if (z0.shape != (N, S, L) or z0.stride(2) != 1 or actions.stride(3) != 1
             or prep['dWa'].shape[0] != A):
         raise ValueError(f'value_estimate: z0 {tuple(z0.shape)} / actions '
                          f'{tuple(actions.shape)} do not fit the weights '
                          f'(L={L}, A={prep["dWa"].shape[0]}) with unit inner stride')
-    for name, t, shape, dtype in (('eps', eps, (S, A), torch.float32),
-                                  ('qidx', qidx, (2,), torch.int32),
-                                  ('discs', discs, (H + 1,), torch.float32)):
+    for name, t, shape, dtype, inner in (
+            ('eps', eps, (N, S, A), torch.float32, (A, 1)),
+            ('qidx', qidx, (N, 2), torch.int32, (1,)),
+            ('discs', discs, (N, H + 1), torch.float32, (1,))):
         if (t.device != dev or tuple(t.shape) != shape or t.dtype != dtype
-                or not t.is_contiguous()):
-            raise ValueError(f'value_estimate: {name} must be a contiguous '
-                             f'{dtype} {shape} tensor on {dev}')
+                or t.stride()[1:] != inner):
+            raise ValueError(f'value_estimate: {name} must be a {dtype} '
+                             f'{shape} tensor on {dev}, contiguous after the '
+                             'env axis')
     for t in (z0, actions):
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError('value_estimate: z0/actions must be f32 on the '
                              'weights\' device')
-    out = torch.empty(S, 1, dtype=torch.float32, device=dev)
+    out = torch.empty(N, S, 1, dtype=torch.float32, device=dev)
     lib = _build.library('value')
     dims = (ctypes.c_int * 7)(*prep_dims(prep, simnorm_dim, H))
     rc = lib.tdm_value(
-        weight_ptrs(prep), dims, log_std_min, log_std_dif, S,
-        z0.data_ptr(), z0.stride(0), actions.data_ptr(), actions.stride(0),
-        actions.stride(1), eps.data_ptr(), qidx.data_ptr(), discs.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        weight_ptrs(prep), dims, log_std_min, log_std_dif, N, S,
+        z0.data_ptr(), z0.stride(0), z0.stride(1),
+        actions.data_ptr(), actions.stride(0), actions.stride(1),
+        actions.stride(2), eps.data_ptr(), eps.stride(0), qidx.data_ptr(),
+        qidx.stride(0), discs.data_ptr(), discs.stride(0), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, 'value kernel')
     value_estimate.launches += 1
     return out

@@ -1,12 +1,15 @@
 """TD-MPC2 agent: acting and learning (port of tdmpc2_tpu/tdmpc2.py).
 
-`act` encodes the observation and plans with MPPI, as the JAX agent's
-`_plan` (tdmpc2.py:523-641) with the whole-CEM kernel: the policy-prior
-rollouts, `iterations` x (sample, value, elite moment update), then the top
-E of the last iteration and a Gumbel pick of one elite's first action.
-The loop runs on the hand-written kernels of ops/cem.py on the card, and
-on their plain versions on the CPU. The encoder, the final top-k and the
-Gumbel pick are plain torch, as they are plain XLA in the JAX package.
+`act` encodes one observation, or a stack of N envs' observations, and
+plans for all of them at once with MPPI, as the JAX agent's `_plan_vec`
+(tdmpc2.py:378-394) over `_plan` (:523-641) with the whole-CEM kernel:
+the policy-prior rollouts, `iterations` x (sample, value, elite moment
+update), then each env's top E of the last iteration and a Gumbel pick of
+one elite's first action. The loop runs on the hand-written kernels of
+ops/cem.py on the card, one launch per step for all N envs, and on their
+plain versions on the CPU. The encoder, the final top-k and the Gumbel
+pick are plain torch, as they are plain XLA in the JAX package. Each env
+keeps its own warm-start mean (`prev_mean` [max(1, num_envs), H, A]).
 
 `update` is one training step (`_update`, tdmpc2.py:928-1057): TD targets
 without gradient, the consistency, reward and value losses, the model's
@@ -14,9 +17,11 @@ Adam step, the policy loss with the running Q scale on the updated
 weights, the policy's Adam step and the Polyak update of the target Q
 heads. It is plain autograd, as it is plain XLA in the JAX package. The
 step updates the train state in place and keeps its info on the device.
+`update_many` takes n such steps on n batches drawn at once
+(`Buffer.sample_many`), the vectorised trainer's schedule.
 
 All noise is data. `draw_noise` and `draw_update_noise` draw it from the
-agent's explicit `torch.Generator` on the device; `plan` takes a
+agent's explicit `torch.Generator` on the device; `plan_vec` takes a
 `PlanNoise` and `_update` an `UpdateNoise`, so a test can feed the draws
 the JAX agent made.
 """
@@ -41,13 +46,14 @@ from tdmpc2_tpu_torch.utils import tree
 
 @dataclass
 class PlanNoise:
-    """Every random draw of one plan (shapes for H, S, A, E, I, n_pi)."""
-    pi_eps: torch.Tensor    # [n_pi, H*A] policy-prior rollout eps
-    sample: torch.Tensor    # [I, S, H*A] sampling noise (rows < n_pi unused)
-    eps: torch.Tensor       # [I, S, A] terminal policy eps
-    qidx: torch.Tensor      # [I, 2] int32 Q heads
-    gumbel: torch.Tensor    # [E] Gumbel noise of the final pick
-    act: torch.Tensor       # [A] exploration noise (not in eval mode)
+    """Every random draw of one plan for n envs (shapes for H, S, A, E, I,
+    n_pi); env i's draws are the JAX `_plan`'s from its own key."""
+    pi_eps: torch.Tensor    # [n, n_pi, H*A] policy-prior rollout eps
+    sample: torch.Tensor    # [n, I, S, H*A] sampling noise (rows < n_pi unused)
+    eps: torch.Tensor       # [n, I, S, A] terminal policy eps
+    qidx: torch.Tensor      # [n, I, 2] int32 Q heads
+    gumbel: torch.Tensor    # [n, E] Gumbel noise of the final pick
+    act: torch.Tensor       # [n, A] exploration noise (not in eval mode)
 
 
 @dataclass
@@ -66,13 +72,15 @@ class UpdateNoise:
 
 @dataclass
 class TrainState:
-    """What one update step reads and writes (the JAX TrainState without
-    the planner's warm start and the PRNG key, which the agent keeps)."""
+    """The JAX TrainState without its PRNG key: the agent draws from its
+    own `torch.Generator` instead. An update step reads and writes all but
+    `prev_mean`, which only acting touches."""
     params: dict
     target_Qs: tuple
     opt_state: dict       # {'enc', 'rest'}: Adam states (ops/optim.py)
     pi_opt_state: dict    # the policy's Adam state
     scale: torch.Tensor   # [] running Q scale (ops/scale.py)
+    prev_mean: torch.Tensor   # [max(1, num_envs), H, A] warm starts
 
     def to(self, device) -> 'TrainState':
         """A copy of the state on `device`."""
@@ -80,7 +88,7 @@ class TrainState:
             return x.detach().to(device, copy=True)
         return TrainState(*[tree.map(mv, x) for x in (
             self.params, self.target_Qs, self.opt_state, self.pi_opt_state,
-            self.scale)])
+            self.scale, self.prev_mean)])
 
 
 def device_of(name: str) -> torch.device:
@@ -127,7 +135,6 @@ class TDMPC2:
         self.dot_dtype = (torch.bfloat16 if self.device.type == 'cuda'
                           else torch.float32)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
-        self.prev_mean = torch.zeros(H, cfg.action_dim, device=self.device)
         self.load_params(self.model.init(
             torch.Generator().manual_seed(cfg.seed)))
 
@@ -143,18 +150,30 @@ class TDMPC2:
         """Take a parameter tree (e.g. from interop.params_from_jax) as a
         fresh train state: targets copied from the Q heads, new optimiser
         states and scale, as the JAX agent's init and weights-only load."""
+        cfg = self.cfg
         params = _to(params, self.device)
         self.state = TrainState(
             params=params,
             target_Qs=tree.map(torch.clone, params['Qs']),
             opt_state=optim.model_opt_init(params),
             pi_opt_state=optim.adam_init(params['pi']),
-            scale=torch.ones((), dtype=torch.float32, device=self.device))
+            scale=torch.ones((), dtype=torch.float32, device=self.device),
+            prev_mean=torch.zeros(max(1, int(cfg.num_envs or 1)), cfg.horizon,
+                                  cfg.action_dim, device=self.device))
         self._prep = None
 
     @property
     def params(self):
         return self.state.params
+
+    @property
+    def prev_mean(self):
+        """The planner's warm starts, one [H, A] mean per env."""
+        return self.state.prev_mean
+
+    @prev_mean.setter
+    def prev_mean(self, value):
+        self.state.prev_mean = value
 
     @property
     def prep(self):
@@ -195,7 +214,9 @@ class TDMPC2:
     def load(self, fp) -> dict:
         """Load a checkpoint this port or the JAX package wrote (pickle,
         gzip-sniffed); returns its 'extra' dict. Without the port's
-        optimiser states (a JAX checkpoint) they start fresh."""
+        optimiser states (a JAX checkpoint) they start fresh. A checkpoint
+        holds no warm starts (nor does the JAX package's): `prev_mean`
+        stays as it was."""
         from tdmpc2_tpu_torch.interop import load_blob, params_from_jax
         blob = load_blob(fp)
         arch = blob.get('arch')
@@ -206,8 +227,10 @@ class TDMPC2:
             if diffs:
                 raise ValueError(f'checkpoint architecture does not match '
                                  f'the configured model: {diffs}')
+        prev_mean = self.prev_mean
         self.load_params(params_from_jax(blob['model'], self.device))
         st = self.state
+        st.prev_mean = prev_mean
         if 'target_Qs' in blob:
             st.target_Qs = params_from_jax(blob['target_Qs'], self.device)
         if 'torch_opt_state' in blob:
@@ -222,31 +245,43 @@ class TDMPC2:
 
     @torch.no_grad()
     def act(self, obs, t0=False, eval_mode=False):
-        """One observation (numpy) -> one action (numpy) by planning."""
-        obs = torch.as_tensor(np.asarray(obs, np.float32), device=self.device)
+        """Plan for one observation (numpy [obs_dim] -> action [A]) or for a
+        stack of n envs' observations ([n, obs_dim] -> [n, A]), the JAX
+        agent's rank test (tdmpc2.py:349-352). `t0` (a bool, or one per
+        env) starts an env's episode: its warm start is reset."""
+        obs = np.asarray(obs, np.float32)
+        single = obs.ndim == len(self.cfg.obs_shape[self.cfg.obs])
+        if single:
+            obs = obs[None]
+        n = obs.shape[0]
+        obs = torch.as_tensor(obs, device=self.device)
         if not self.cfg.mpc:
-            z = self.model.encode(self.params, obs[None])
-            eps = torch.randn(1, self.cfg.action_dim, generator=self.generator,
+            z = self.model.encode(self.params, obs)
+            eps = torch.randn(n, self.cfg.action_dim, generator=self.generator,
                               device=self.device)
             a, info = self.model.pi(self.params, z, eps)
-            return (info['mean'] if eval_mode else a)[0].cpu().numpy()
-        a, self.prev_mean = self.plan(obs, t0=t0, eval_mode=eval_mode)
-        return a.cpu().numpy()
+            a = info['mean'] if eval_mode else a
+        else:
+            t0 = np.broadcast_to(np.asarray(t0, bool).reshape(-1), (n,))
+            a, _ = self.plan_vec(obs, t0, eval_mode=eval_mode)
+        a = a.cpu().numpy()
+        return a[0] if single else a
 
-    def draw_noise(self) -> PlanNoise:
+    def draw_noise(self, n: int = 1) -> PlanNoise:
+        """Every draw of one plan for n envs, from the agent's generator."""
         cfg, g, dev = self.cfg, self.generator, self.device
         H, S, A = cfg.horizon, cfg.num_samples, cfg.action_dim
         I = self.iterations
-        u = torch.rand(cfg.num_elites, generator=g, device=dev)
+        u = torch.rand(n, cfg.num_elites, generator=g, device=dev)
         return PlanNoise(
-            pi_eps=torch.randn(max(cfg.num_pi_trajs, 1), H * A, generator=g,
+            pi_eps=torch.randn(n, max(cfg.num_pi_trajs, 1), H * A, generator=g,
                                device=dev),
-            sample=torch.randn(I, S, H * A, generator=g, device=dev),
-            eps=torch.randn(I, S, A, generator=g, device=dev),
-            qidx=self._qpair(I).to(torch.int32).contiguous(),
+            sample=torch.randn(n, I, S, H * A, generator=g, device=dev),
+            eps=torch.randn(n, I, S, A, generator=g, device=dev),
+            qidx=self._qpair(n, I).to(torch.int32).contiguous(),
             gumbel=-torch.log(-torch.log(
                 u.clamp(min=torch.finfo(torch.float32).tiny))),
-            act=torch.randn(A, generator=g, device=dev),
+            act=torch.randn(n, A, generator=g, device=dev),
         )
 
     def _qpair(self, *lead):
@@ -256,35 +291,47 @@ class TDMPC2:
         return torch.argsort(r, dim=-1)[..., :2]
 
     @torch.no_grad()
-    def plan(self, obs, t0=False, eval_mode=False, noise: PlanNoise = None):
-        """MPPI plan for one observation [obs_dim] -> (action [A], mean [H, A])."""
+    def plan_vec(self, obs, t0, eval_mode=False, noise: PlanNoise = None):
+        """MPPI plan for n envs in one pass of the kernels (JAX `_plan_vec`,
+        tdmpc2.py:378-394): obs [n, obs_dim] on the device, t0 [n] bool
+        (numpy) -> (actions [n, A], means [n, H, A]). Writes the n means
+        into `prev_mean[:n]`; rows past n keep theirs."""
         cfg = self.cfg
         H, E, A = cfg.horizon, cfg.num_elites, cfg.action_dim
+        n = obs.shape[0]
+        if n > self.prev_mean.shape[0]:
+            raise ValueError(f'{n} observations for {self.prev_mean.shape[0]} '
+                             'warm starts (cfg.num_envs)')
         if noise is None:
-            noise = self.draw_noise()
-        z0 = self.model.encode(self.params, obs.reshape(1, -1).float())
-        if t0:
-            mean0 = torch.zeros(H, A, device=self.device)
-        else:
-            mean0 = torch.cat([self.prev_mean[1:],
-                               torch.zeros(1, A, device=self.device)], 0)
-        std0 = torch.full((H * A,), cfg.max_std, device=self.device)
+            noise = self.draw_noise(n)
+        z0 = self.model.encode(self.params, obs.reshape(n, -1).float())
+        mean0 = torch.cat([self.prev_mean[:n, 1:],
+                           torch.zeros(n, 1, A, device=self.device)], 1)
+        # t0 is host data: zero rows in place rather than copy a mask over
+        for i in np.flatnonzero(t0):
+            mean0[int(i)].zero_()
+        std0 = torch.full((n, H * A), cfg.max_std, device=self.device)
         mean, std, value, acts = cem_plan(
-            self.prep, z0, noise.pi_eps, noise.sample, noise.eps, noise.qidx,
-            self.discs, mean0.reshape(H * A), std0, self.amask,
-            iterations=self.iterations, n_pi=cfg.num_pi_trajs, num_elites=E,
-            temperature=cfg.temperature, min_std=cfg.min_std,
-            max_std=cfg.max_std, log_std_min=self.model.log_std_min,
+            self.prep, z0[:, None], noise.pi_eps, noise.sample, noise.eps,
+            noise.qidx, self.discs.expand(n, -1), mean0.reshape(n, H * A),
+            std0, self.amask, iterations=self.iterations,
+            n_pi=cfg.num_pi_trajs, num_elites=E, temperature=cfg.temperature,
+            min_std=cfg.min_std, max_std=cfg.max_std,
+            log_std_min=self.model.log_std_min,
             log_std_dif=self.model.log_std_dif, simnorm_dim=cfg.simnorm_dim)
-        # last iteration's elites + Gumbel pick (JAX tdmpc2.py:630-641)
-        elite_value, elite_idx = torch.topk(value[:, 0], E)
-        score = torch.exp(cfg.temperature * (elite_value - elite_value.max()))
-        score = score / score.sum()
+        # each env's last-iteration elites + Gumbel pick (JAX tdmpc2.py:630-641)
+        elite_value, elite_idx = torch.topk(value[..., 0], E, dim=-1)
+        score = torch.exp(cfg.temperature * (
+            elite_value - elite_value.max(-1, keepdim=True).values))
+        score = score / score.sum(-1, keepdim=True)
         idx = math.gumbel_softmax_sample(score, noise.gumbel)
-        a = acts[elite_idx[idx], :A]
+        rows = torch.arange(n, device=self.device)
+        a = acts[rows, elite_idx[rows, idx], :A]
         if not eval_mode:
-            a = a + std[:A] * noise.act
-        return torch.clamp(a, -1.0, 1.0), mean.reshape(H, A)
+            a = a + std[:, :A] * noise.act
+        means = mean.reshape(n, H, A)
+        self.prev_mean[:n] = means
+        return torch.clamp(a, -1.0, 1.0), means
 
     def _estimate_value(self, z, actions, eps, qidx):
         """H-step value through the model heads, the JAX agent's plain
@@ -330,6 +377,31 @@ class TDMPC2:
         info = self._update(self.state, *buffer.sample(),
                             self.draw_update_noise())
         self._prep = None
+        return info
+
+    def update_many(self, buffer, n: int) -> dict:
+        """`n` learning steps on `n` batches drawn at once
+        (`Buffer.sample_many`, JAX tdmpc2.py:747-772); returns the last
+        step's info. On the same n batches and draws this is n sequential
+        `update`s."""
+        if n == 1:
+            return self.update(buffer)
+        info = self._update_scan(
+            self.state, *buffer.sample_many(n),
+            (self.draw_update_noise() for _ in range(n)))
+        self._prep = None
+        return info
+
+    def _update_scan(self, state: TrainState, obs, action, reward,
+                     terminated, noises) -> dict:
+        """`_update` on each of n batches in the layout of
+        `Buffer.sample_many` (obs [n, T+1, B, ...], ...), with one
+        UpdateNoise per batch from `noises`, in place on `state`; returns
+        the last step's info (JAX `_update_scan`, tdmpc2.py:903-914)."""
+        info = None
+        for i, noise in zip(range(obs.shape[0]), noises):
+            info = self._update(state, obs[i], action[i], reward[i],
+                                terminated[i], noise)
         return info
 
     def _td_target(self, params, target_Qs, next_z, reward, terminated,

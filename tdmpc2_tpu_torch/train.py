@@ -2,14 +2,17 @@
 
 Usage:
     python -m tdmpc2_tpu_torch.train task=toy-reach
+    python -m tdmpc2_tpu_torch.train task=toy-reach num_envs=8
     python -m tdmpc2_tpu_torch.train task=toy-reach steps=2000 device=cpu
 
 Collects with the planner (the CUDA kernels on the card, their plain
 versions on the CPU), stores episodes in the replay buffer and takes one
-update per environment step after the seed phase. `device` defaults to
+update per environment step after the seed phase. `num_envs > 1` steps
+that many env copies together with one batched plan per vector step
+(`VecOnlineTrainer`), as the JAX `train.py` does. `device` defaults to
 `cuda`; without a card that raises unless `device=cpu` is given. The
-JAX package's other modes raise here: multi-task offline training,
-vectorised collection (num_envs > 1), seed fleets and resuming.
+JAX package's other modes raise here: multi-task offline training, seed
+fleets and resuming.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from tdmpc2_tpu_torch.data.buffer import Buffer
 from tdmpc2_tpu_torch.envs import make_env
 from tdmpc2_tpu_torch.tdmpc2 import TDMPC2, device_of
 from tdmpc2_tpu_torch.trainer.online import OnlineTrainer
+from tdmpc2_tpu_torch.trainer.vec_online import VecOnlineTrainer
 from tdmpc2_tpu_torch.utils.logger import Logger
 from tdmpc2_tpu_torch.utils.seed import set_seed
 
@@ -29,9 +33,6 @@ def train(cfg) -> OnlineTrainer:
     """Train as `cfg` says; returns the finished trainer."""
     if cfg.steps <= 0:
         raise ValueError('Must train for at least 1 step.')
-    if int(cfg.num_envs or 1) > 1:
-        raise NotImplementedError('num_envs > 1 (vectorised collection) is '
-                                  'a later part of the port')
     if cfg.seeds is not None:
         raise NotImplementedError('seed fleets (seeds=...) are a later part '
                                   'of the port; pass seed=<n>')
@@ -41,8 +42,9 @@ def train(cfg) -> OnlineTrainer:
     set_seed(cfg.seed)
     env = make_env(cfg)
     agent = TDMPC2(cfg)
-    trainer = OnlineTrainer(cfg=cfg, env=env, agent=agent,
-                            buffer=Buffer(cfg), logger=Logger(cfg))
+    cls = VecOnlineTrainer if int(cfg.num_envs or 1) > 1 else OnlineTrainer
+    trainer = cls(cfg=cfg, env=env, agent=agent, buffer=Buffer(cfg),
+                  logger=Logger(cfg))
     trainer.train()
     print('Training completed successfully')
     return trainer

@@ -9,8 +9,10 @@ kernels' row block). Both sides use bf16 weights and bf16-rounded dot
 inputs with f32 accumulation, so they differ only in summation order and
 in last-bit rounding ahead of bf16 roundings: values and the rollout are
 held at 2e-2, the elite update (no dots) at 1e-4, sampling and the canary
-exactly. One update on the card is held against the CPU's (f32, TF32 off)
-at 1e-4."""
+exactly. Every planner operand has a leading env axis (N=1 for one env);
+each planner kernel's env axis is held against its plain version and, bit
+for bit, against one-env launches. One update on the card is held
+against the CPU's (f32, TF32 off) at 1e-4."""
 
 import numpy as np
 import pytest
@@ -65,16 +67,17 @@ def test_value_kernel_matches_plain(agent):
     g = torch.Generator(device=dev).manual_seed(1)
     z0 = simnorm(torch.randn(S, cfg.latent_dim, device=dev, generator=g), 8)
     acts = torch.rand(S, H * A, device=dev, generator=g) * 2 - 1
-    args = (agent.prep, z0, acts.view(S, H, A).permute(1, 0, 2),
-            torch.randn(S, A, device=dev, generator=g),
-            torch.tensor([2, 0], dtype=torch.int32, device=dev), agent.discs)
+    args = (agent.prep, z0[None], acts.view(1, S, H, A).permute(0, 2, 1, 3),
+            torch.randn(1, S, A, device=dev, generator=g),
+            torch.tensor([[2, 0]], dtype=torch.int32, device=dev),
+            agent.discs[None])
     n0 = value_estimate.launches
     got = value_estimate(*args, **_heads(agent))
     assert value_estimate.launches == n0 + 1
     torch.testing.assert_close(got, value_estimate_plain(*args, **_heads(agent)),
                                **BAND)
     # broadcast latent rows (stride 0), as the planner passes them
-    zb = z0[:1].expand(S, -1)
+    zb = z0[None, :1].expand(1, S, -1)
     torch.testing.assert_close(
         value_estimate(agent.prep, zb, *args[2:], **_heads(agent)),
         value_estimate_plain(agent.prep, zb, *args[2:], **_heads(agent)), **BAND)
@@ -84,22 +87,23 @@ def test_value_wrapper_refuses_f32_weights(agent):
     prep32 = prepare_value_params(agent.params, agent.cfg, torch.float32)
     S, dev = 8, agent.device
     with pytest.raises(ValueError, match='prepared weight'):
-        value_estimate(prep32, torch.zeros(S, agent.cfg.latent_dim, device=dev),
-                       torch.zeros(3, S, 3, device=dev), torch.zeros(S, 3, device=dev),
-                       torch.zeros(2, dtype=torch.int32, device=dev), agent.discs,
-                       **_heads(agent))
+        value_estimate(prep32, torch.zeros(1, S, agent.cfg.latent_dim, device=dev),
+                       torch.zeros(1, 3, S, 3, device=dev),
+                       torch.zeros(1, S, 3, device=dev),
+                       torch.zeros(1, 2, dtype=torch.int32, device=dev),
+                       agent.discs[None], **_heads(agent))
 
 
 def test_pi_rollout_and_sample_kernels_match_plain(agent):
-    noise = agent.draw_noise()
+    noise = agent.draw_noise()          # one env: a leading axis of 1
     z0 = agent.model.encode(agent.params, torch.randn(1, 10, device=agent.device))
     n_pi = agent.cfg.num_pi_trajs
-    args = (agent.prep, z0, noise.pi_eps[:n_pi])
+    args = (agent.prep, z0[None], noise.pi_eps[:, :n_pi])
     pa = cem.pi_rollout(*args, **_heads(agent))
     torch.testing.assert_close(pa, cem.pi_rollout_plain(*args, **_heads(agent)), **BAND)
-    HA = pa.shape[1]
-    s_args = (torch.full((HA,), 0.2, device=agent.device),
-              torch.full((HA,), 0.7, device=agent.device), noise.sample[0], pa,
+    HA = pa.shape[2]
+    s_args = (torch.full((1, HA), 0.2, device=agent.device),
+              torch.full((1, HA), 0.7, device=agent.device), noise.sample[:, 0], pa,
               agent.amask)
     torch.testing.assert_close(cem.sample_actions(*s_args),
                                cem.sample_actions_plain(*s_args), rtol=0, atol=0)
@@ -109,13 +113,13 @@ def test_pi_rollout_and_sample_kernels_match_plain(agent):
 def test_elite_kernel_matches_plain(agent, values):
     dev, S, HA = agent.device, 300, 9
     g = torch.Generator(device=dev).manual_seed(2)
-    acts = torch.rand(S, HA, device=dev, generator=g) * 2 - 1
-    v = torch.randn(S, 1, device=dev, generator=g)
+    acts = torch.rand(1, S, HA, device=dev, generator=g) * 2 - 1
+    v = torch.randn(1, S, 1, device=dev, generator=g)
     if values == 'tied':
         v = torch.full_like(v, 0.25)
     elif values == 'nan':
-        v[::7] = float('nan')
-        v[3] = float('inf')
+        v[:, ::7] = float('nan')
+        v[0, 3] = float('inf')
     kw = dict(num_elites=17, temperature=0.5, min_std=0.05, max_std=2.0)
     amask = torch.ones(3, device=dev)
     got = cem.elite_moments(v, acts, amask, **kw)
@@ -130,9 +134,9 @@ def test_cem_plan_kernels_match_plain(agent):
     noise = agent.draw_noise()
     z0 = agent.model.encode(agent.params, torch.randn(1, 10, device=agent.device))
     HA = cfg.horizon * cfg.action_dim
-    args = (agent.prep, z0, noise.pi_eps, noise.sample, noise.eps, noise.qidx,
-            agent.discs, torch.zeros(HA, device=agent.device),
-            torch.full((HA,), cfg.max_std, device=agent.device), agent.amask)
+    args = (agent.prep, z0[None], noise.pi_eps, noise.sample, noise.eps,
+            noise.qidx, agent.discs[None], torch.zeros(1, HA, device=agent.device),
+            torch.full((1, HA), cfg.max_std, device=agent.device), agent.amask)
     kw = dict(iterations=agent.iterations, n_pi=cfg.num_pi_trajs,
               num_elites=cfg.num_elites, temperature=cfg.temperature,
               min_std=cfg.min_std, max_std=cfg.max_std, **_heads(agent))
@@ -148,6 +152,85 @@ def test_act_on_card(agent):
     counts = cem.elite_moments.launches
     a = agent.act(np.zeros(10, np.float32), t0=True, eval_mode=True)
     assert a.shape == (3,) and np.isfinite(a).all()
+    assert cem.elite_moments.launches == counts + agent.iterations
+
+
+def _n_env_inputs(agent, n):
+    """Per-env operands of one CEM iteration for n envs, as the planner
+    lays them out (strided noise views, a broadcast latent)."""
+    cfg, dev = agent.cfg, agent.device
+    H, A, S, L = cfg.horizon, cfg.action_dim, cfg.num_samples, cfg.latent_dim
+    noise = agent.draw_noise(n)
+    z0 = agent.model.encode(agent.params, torch.randn(n, 10, device=dev))[:, None]
+    n_pi = cfg.num_pi_trajs
+    pa = cem.pi_rollout_plain(agent.prep, z0, noise.pi_eps[:, :n_pi], **_heads(agent))
+    mean = torch.rand(n, H * A, device=dev) * 0.4 - 0.2
+    std = torch.rand(n, H * A, device=dev) + 0.1
+    acts = cem.sample_actions_plain(mean, std, noise.sample[:, 0], pa, agent.amask)
+    discs = torch.stack([g ** torch.arange(H + 1, device=dev, dtype=torch.float32)
+                         for g in torch.linspace(0.9, 0.99, n).tolist()])
+    return dict(noise=noise, z0=z0, z=z0.expand(n, S, L), pa=pa, mean=mean,
+                std=std, acts=acts, discs=discs,
+                actions=acts.view(n, S, H, A).permute(0, 2, 1, 3))
+
+
+def test_n_env_kernels_match_plain_and_single_env_launches(agent):
+    """Each kernel's env axis: one launch for n envs against the plain
+    version (the bands above) and against n one-env launches, bit for bit
+    (every env's blocks compute as a one-env launch's do)."""
+    n, cfg = 4, agent.cfg
+    x = _n_env_inputs(agent, n)
+    noise, n_pi = x['noise'], cfg.num_pi_trajs
+    kw = dict(num_elites=cfg.num_elites, temperature=0.5, min_std=0.05, max_std=2.0)
+    v_args = (agent.prep, x['z'], x['actions'], noise.eps[:, 0], noise.qidx[:, 0],
+              x['discs'])
+    calls = {
+        'value': (value_estimate, value_estimate_plain, v_args, _heads(agent), BAND),
+        'pi_rollout': (cem.pi_rollout, cem.pi_rollout_plain,
+                       (agent.prep, x['z0'], noise.pi_eps[:, :n_pi]), _heads(agent),
+                       BAND),
+        'sample': (cem.sample_actions, cem.sample_actions_plain,
+                   (x['mean'], x['std'], noise.sample[:, 0], x['pa'], agent.amask),
+                   {}, dict(rtol=0, atol=0)),
+        'elite': (cem.elite_moments, cem.elite_moments_plain,
+                  (value_estimate_plain(*v_args, **_heads(agent)), x['acts'],
+                   agent.amask), kw, ELITE),
+    }
+    for name, (kern, plain, args, extra, tol) in calls.items():
+        got = kern(*args, **extra)
+        ref = plain(*args, **extra)
+        for g, r in zip(got if isinstance(got, tuple) else (got,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            assert g.shape[0] == n and torch.isfinite(g).all(), name
+            torch.testing.assert_close(g, r, **tol, msg=name)
+        singles = [kern(*[a if a is agent.prep or a is agent.amask else a[i:i + 1]
+                          for a in args], **extra) for i in range(n)]
+        for i, one in enumerate(singles):
+            for g, o in zip(got if isinstance(got, tuple) else (got,),
+                            one if isinstance(one, tuple) else (one,)):
+                torch.testing.assert_close(g[i:i + 1], o, rtol=0, atol=0, msg=name)
+
+
+def test_plan_vec_on_card_matches_plain(agent):
+    cfg, n = agent.cfg, 4
+    x = _n_env_inputs(agent, n)
+    noise = x['noise']
+    HA = cfg.horizon * cfg.action_dim
+    args = (agent.prep, x['z0'], noise.pi_eps, noise.sample, noise.eps, noise.qidx,
+            x['discs'], torch.zeros(n, HA, device=agent.device),
+            torch.full((n, HA), cfg.max_std, device=agent.device), agent.amask)
+    kw = dict(iterations=agent.iterations, n_pi=cfg.num_pi_trajs,
+              num_elites=cfg.num_elites, temperature=cfg.temperature,
+              min_std=cfg.min_std, max_std=cfg.max_std, **_heads(agent))
+    mk, sk, vk, ak = cem.cem_plan(*args, **kw)
+    mp, sp, vp, ap = cem.cem_plan_plain(*args, **kw)
+    torch.testing.assert_close(mk, mp, rtol=0, atol=0.15)
+    torch.testing.assert_close(sk, sp, rtol=0, atol=0.15)
+    assert vk.shape == (n, cfg.num_samples, 1) and ak.shape == ap.shape
+    agent.prev_mean = torch.zeros(n, cfg.horizon, cfg.action_dim, device=agent.device)
+    counts = cem.elite_moments.launches
+    a = agent.act(np.zeros((n, 10), np.float32), t0=True)
+    assert a.shape == (n, cfg.action_dim) and np.isfinite(a).all()
     assert cem.elite_moments.launches == counts + agent.iterations
 
 

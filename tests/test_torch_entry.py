@@ -66,6 +66,24 @@ def test_evaluate_on_cpu(mpc):
     assert value.value_estimate.launches == 0 and cem.elite_moments.launches == 0
 
 
+@pytest.mark.parametrize('mismatch', ['mlp_dim=48', 'num_bins=51', 'num_q=2', None])
+def test_evaluate_checks_the_checkpoint_architecture(tmp_path, mismatch):
+    """`checkpoint=` goes through `TDMPC2.load`, which refuses a checkpoint
+    whose architecture differs from the config's, as the JAX `evaluate`
+    does (tdmpc2_tpu/evaluate.py:33, tdmpc2.py:230-241)."""
+    from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
+    cfg = load_cfg(overrides=SMALL)
+    make_env(cfg)
+    fp = tmp_path / 'ckpt.pkl'
+    TDMPC2(cfg).save(fp)
+    argv = SMALL + [f'checkpoint={fp}'] + ([mismatch] if mismatch else [])
+    if mismatch:
+        with pytest.raises(ValueError, match=mismatch.split('=')[0]):
+            evaluate(load_cfg(overrides=argv))
+    else:
+        assert math.isfinite(evaluate(load_cfg(overrides=argv))['toy-reach']['reward'])
+
+
 def test_evaluate_needs_cuda_unless_asked_for_cpu():
     if torch.cuda.is_available():
         pytest.skip('a card is present: the default device works here')

@@ -100,9 +100,9 @@ def test_value_estimate_matches_pallas_value_kernel(agents, qidx):
         **_heads(jagent))
     got = value_estimate(
         prepare_value_params(tagent.params, tagent.cfg, torch.float32),
-        _t(z0), _t(actions), _t(eps), _t(q), _t(discs), **_heads(tagent))
-    assert got.shape == (S, 1)
-    _close(got, ref, VTOL)
+        *(_t(x)[None] for x in (z0, actions, eps, q, discs)), **_heads(tagent))
+    assert got.shape == (1, S, 1)
+    _close(got[0], ref, VTOL)
 
 
 def test_value_estimate_matches_jax_plain_value(agents):
@@ -123,25 +123,25 @@ def test_value_estimate_matches_jax_plain_value(agents):
     _close(tagent._estimate_value(_t(z), _t(actions), eps, qidx), ref, VTOL)
     _close(value_estimate(
         prepare_value_params(tagent.params, tagent.cfg, torch.float32),
-        _t(z), _t(actions), eps, qidx, tagent.discs, **_heads(tagent)),
-        ref, VTOL)
+        *(x[None] for x in (_t(z), _t(actions), eps, qidx, tagent.discs)),
+        **_heads(tagent))[0], ref, VTOL)
 
 
 def test_wrappers_refuse_unsupported_input(agents):
     _, _, tagent = agents
     prep = tagent.prep
-    z = torch.zeros(4, 32)
-    a = torch.zeros(3, 4, 4)
-    args = (prep, z, a, torch.zeros(4, 4), torch.zeros(2, dtype=torch.int32),
-            tagent.discs)
+    z = torch.zeros(1, 4, 32)
+    a = torch.zeros(1, 3, 4, 4)
+    args = (prep, z, a, torch.zeros(1, 4, 4),
+            torch.zeros(1, 2, dtype=torch.int32), tagent.discs[None])
     with pytest.raises(NotImplementedError):
         value_estimate(*args, episodic=True, **_heads(tagent))
     meta = [t.to('meta') if isinstance(t, torch.Tensor) else t for t in args]
     with pytest.raises(ValueError, match='unsupported device'):
         value_estimate(*meta, **_heads(tagent))
     with pytest.raises(ValueError, match='unsupported device'):
-        cem.elite_moments(torch.zeros(4, device='meta'),
-                          torch.zeros(4, 8, device='meta'),
+        cem.elite_moments(torch.zeros(1, 4, device='meta'),
+                          torch.zeros(1, 4, 8, device='meta'),
                           torch.ones(4, device='meta'), num_elites=2,
                           temperature=0.5, min_std=0.05, max_std=2.0)
 
@@ -186,16 +186,17 @@ def test_cem_plan_matches_pallas_cem_kernel(n_pi, perturb):
         jprepare(jp, cfg, dot_dtype=jnp.float32), *inputs,
         jnp.ones((1, A), jnp.float32), horizon=H, episodic=False,
         dot_dtype=jnp.float32, interpret=True, **kw, **_heads(jagent))
-    z0, pi_eps, noise, eps, qidx, discs, mean0, std0 = map(_t, inputs)
+    # one env: a leading env axis of 1 (mean0/std0 [1, H*A] already)
+    z0, pi_eps, noise, eps, qidx, discs = (_t(x)[None] for x in inputs[:6])
     got = cem.cem_plan(
         prepare_value_params(tagent.params, tagent.cfg, torch.float32), z0,
-        pi_eps, noise, eps, qidx, discs, mean0.reshape(-1), std0.reshape(-1),
+        pi_eps, noise, eps, qidx, discs, _t(inputs[6]), _t(inputs[7]),
         torch.ones(A), simnorm_dim=8, **kw, **_heads(tagent))
     for g, r in zip(got, ref):
-        assert torch.isfinite(g).all()
-        _close(g, r, VTOL)
+        assert g.shape[0] == 1 and torch.isfinite(g).all()
+        _close(g[0], r, VTOL)
     if not perturb:
-        v = got[2][:, 0]
+        v = got[2][0, :, 0]
         assert torch.all(v == v[0])        # every value tied
 
 
@@ -206,16 +207,20 @@ def test_elite_moments_tie_rule():
     acts = torch.linspace(-1, 1, S * HA).reshape(S, HA)
     v = torch.arange(S, dtype=torch.float32)
     kw = dict(num_elites=E, temperature=0.5, min_std=0.0, max_std=10.0)
-    mean, _, _ = cem.elite_moments(v, acts, torch.ones(2), **kw)
+
+    def elite(values):                      # one env: N=1
+        return [x[0] for x in cem.elite_moments(values[None], acts[None],
+                                                torch.ones(2), **kw)]
+    mean, _, _ = elite(v)
     w = torch.exp(0.5 * (v[-E:] - v[-1]))
     w = w / w.sum()
     torch.testing.assert_close(mean, (w[:, None] * acts[-E:]).sum(0) / (w.sum() + 1e-9))
-    mean, std, _ = cem.elite_moments(torch.zeros(S), acts, torch.ones(2), **kw)
+    mean, std, _ = elite(torch.zeros(S))
     torch.testing.assert_close(mean, acts.mean(0), rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(std, acts.std(0, unbiased=False), rtol=1e-5, atol=1e-6)
     nan_v = v.clone()
     nan_v[3], nan_v[5] = float('nan'), float('inf')
-    _, _, guarded = cem.elite_moments(nan_v, acts, torch.ones(2), **kw)
+    _, _, guarded = elite(nan_v)
     assert guarded[3] == 0 and guarded[5] == 0
 
 
@@ -223,7 +228,8 @@ def test_elite_moments_tie_rule():
 
 
 def _jax_plan_noise(key, cfg, iterations) -> PlanNoise:
-    """The draws of `TDMPC2._plan` for `key`, replayed from its key splits."""
+    """The draws of `TDMPC2._plan` for `key`, replayed from its key splits,
+    as the draws of one env (a leading axis of 1)."""
     H, S, A, E = cfg.horizon, cfg.num_samples, cfg.action_dim, cfg.num_elites
     n_pi = cfg.num_pi_trajs
     _, _, k_pi_roll, k_loop, k_gumbel, k_noise, _ = jax.random.split(key, 7)
@@ -241,10 +247,11 @@ def _jax_plan_noise(key, cfg, iterations) -> PlanNoise:
         [jax.random.normal(kh, (n_pi, A), jnp.float32)
          for kh in jax.random.split(k_pi_roll, H)], axis=-1)
     return PlanNoise(
-        pi_eps=_t(pi_eps), sample=_t(jnp.stack(samples)), eps=_t(jnp.stack(epss)),
-        qidx=_t(jnp.stack(qidxs)).to(torch.int32),
-        gumbel=_t(jax.random.gumbel(k_gumbel, (E,), jnp.float32)),
-        act=_t(jax.random.normal(k_noise, (A,))))
+        pi_eps=_t(pi_eps)[None], sample=_t(jnp.stack(samples))[None],
+        eps=_t(jnp.stack(epss))[None],
+        qidx=_t(jnp.stack(qidxs)).to(torch.int32)[None],
+        gumbel=_t(jax.random.gumbel(k_gumbel, (E,), jnp.float32))[None],
+        act=_t(jax.random.normal(k_noise, (A,)))[None])
 
 
 @pytest.mark.parametrize('seed,eval_mode', [(7, True), (8, False)])
@@ -257,11 +264,12 @@ def test_plan_matches_jax_plan(agents, seed, eval_mode):
     a_ref, mean_ref, _ = jagent._plan(jp, obs, prev_mean, jnp.asarray(False),
                                       key, None, eval_mode=eval_mode,
                                       fused=False)
-    tagent.prev_mean = _t(prev_mean)
-    a, mean = tagent.plan(_t(obs[0]), t0=False, eval_mode=eval_mode,
-                          noise=_jax_plan_noise(key, cfg, jagent.iterations))
-    _close(mean, mean_ref, VTOL)
-    _close(a, a_ref, ATOL)
+    tagent.prev_mean = _t(prev_mean)[None]
+    a, mean = tagent.plan_vec(_t(obs), np.array([False]), eval_mode=eval_mode,
+                              noise=_jax_plan_noise(key, cfg, jagent.iterations))
+    _close(mean[0], mean_ref, VTOL)
+    _close(a[0], a_ref, ATOL)
+    _close(tagent.prev_mean[0], mean_ref, VTOL)
 
 
 def test_act_draws_its_own_noise_and_warm_starts(agents):

@@ -14,8 +14,8 @@ f32).
 - the replay buffer: `draw_slice_indices` by distribution, and the batch
   layout against the JAX Buffer's on the same episodes and slices;
 - checkpoints: save/load round trip, and the JAX agent reading the port's;
-- the online trainer's update schedule against the JAX trainer's, and a
-  CPU run of `train` on toy-reach at a tiny width."""
+- the online trainer's update schedule against the JAX trainer's, and
+  CPU runs of `train` on toy-reach at a tiny width, with one env and four."""
 
 import math
 import subprocess
@@ -424,8 +424,34 @@ def test_train_on_cpu(tmp_path, monkeypatch):
     assert csv[0] == 'step,episode_reward,episode_success' and len(csv) == 3
 
 
+def test_train_num_envs_on_cpu(tmp_path, monkeypatch):
+    """num_envs=4 picks the vectorised trainer: one batched plan per vector
+    step, the 60-update burst once the first four episodes are in, then four
+    updates per vector step."""
+    monkeypatch.chdir(tmp_path)
+
+    def small_seed_phase(cfg):
+        env = make_env(cfg)
+        cfg.seed_steps = 60
+        return env
+    monkeypatch.setattr(train_mod, 'make_env', small_seed_phase)
+    infos = []
+    upd = TDMPC2._update
+    monkeypatch.setattr(TDMPC2, '_update', lambda self, *a: infos.append(
+        upd(self, *a)) or infos[-1])
+    trainer = train_mod.main(TINY + ['num_envs=4'])
+    assert type(trainer).__name__ == 'VecOnlineTrainer'
+    assert trainer._step == 224 and trainer.buffer.num_eps == 4
+    assert trainer.agent.prev_mean.shape == (4, 3, 2)
+    # episodes flush at step 200, eval there, then the burst and 4 per step
+    assert len(infos) == 60 + 4 * len(range(204, 221, 4))
+    assert all(math.isfinite(float(v)) for v in infos[-1].values())
+    csv = (Path(trainer.cfg.work_dir) / 'eval.csv').read_text().splitlines()
+    assert len(csv) == 3                         # steps 0, 200 and 224 > 220
+
+
 @pytest.mark.parametrize('extra,err', [
-    ([], RuntimeError), (['num_envs=4'], NotImplementedError),
+    ([], RuntimeError), (['num_envs=4', 'obs=rgb'], NotImplementedError),
     (['seeds=1,2'], NotImplementedError), (['resume=true'], NotImplementedError)])
 def test_train_refuses_what_the_port_lacks(extra, err):
     argv = [o for o in TINY if not o.startswith('device=')] + extra
