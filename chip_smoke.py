@@ -19,12 +19,20 @@ and read just after:
 - vec train (the vectorised path): the same with `num_envs=8`, 1,200 env
   steps in vector steps of 8 (1,000 random, the 1,000-update burst as 125
   x `update_many(8)`, planned vector steps of one 8-env plan and 8
-  updates, and the batched eval on the training envs).
+  updates, and the batched eval on the training envs);
+- episodic train: `train task=toy-reach-episodic episodic=true`, one env
+  and `num_envs=8`, 1,200 env steps each (the value kernel's termination
+  gate in every plan, the termination loss in every update; the task ends
+  an episode on reaching the goal), and episodic evaluate: `evaluate` on
+  the same task from the `num_envs=8` run's checkpoint.
 
 The four planner kernels are also held at N=8 envs, against their plain
 versions and, bit for bit, against 8 one-env launches, and the whole
-8-env plan against the plain loop. Then one update on the card is held
-against the same update on the CPU, and the training paths are timed
+8-env plan against the plain loop. The value kernel's episodic branch is
+held at one env and at N=8 under the gate rule (see VALUE_TOL), its N=8
+launch against 8 one-env launches, and the episodic 8-env plan against
+the plain loop. Then one update on the card is held against the same
+update on the CPU (and one episodic update), and the training paths are timed
 (update steps/s, env-steps/s, and the shares of an env step spent in
 `act` and in `update`; plans/s of batched `act` at N = 1, 8, 16). Phases
 print one progress line each. It ends with the card's name and power
@@ -45,6 +53,7 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 WATCHDOG_S = 1000          # the whole run is expected well under 600 s
 TRAIN_STEPS = 1200         # make_env sets seed_steps to 1000 on toy-reach
@@ -53,13 +62,30 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # dense bf16 tensor-core peak
 F32_FLOPS = 67e12          # f32 outside the tensor cores
 SEED = 1
+EP_TASK = 'toy-reach-episodic'
+EP_ARGS = [f'task={EP_TASK}', 'episodic=true']
+MAX_EP_LEN = 50            # toy-reach's time limit
+EP_EVAL_EPISODES = 16      # episodic evaluate: the trained agent ends some early
 
 # Bands of kernel against plain version. Both round every dot input to
 # bf16 and accumulate in f32; they differ in summation order and in the
 # transcendental routines, and a last-bit difference ahead of a bf16
 # rounding can move an activation by one bf16 step (2^-8 relative). The
 # elite kernel has no dot and is held at 1e-4; sampling is exact.
+# The gate rule (episodic value step, ops.value.gate_check): the
+# termination gate is a step function of the logit, so a logit within a
+# bf16 step of 0 can set the flag in one version and not the other, which
+# zeroes that row's later reward and Q. So the value is held in VALUE_TOL
+# on every row whose flags agree; a row whose flags differ is allowed only
+# if the plain (f32-accumulated) logit is within GATE_NEAR of 0 at the
+# first step where they differ, and such rows may be at most
+# GATE_FLIP_SHARE of the rows. Any other row outside the band fails.
 VALUE_TOL = dict(rtol=2e-2, atol=2e-2)
+GATE_NEAR = 1e-2
+GATE_FLIP_SHARE = 0.01
+# The episodic checks need the flag to split the rows: between 5% and 95%
+# of them flagged at t=H.
+FLAG_SPLIT = (0.05, 0.95)
 PI_TOL = dict(rtol=2e-2, atol=2e-2)
 SAMPLE_TOL = dict(rtol=0.0, atol=1e-6)
 ELITE_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -199,6 +225,53 @@ def perturbed(params, gen, scale=0.05):
     return params + scale * torch.randn(params.shape, generator=gen)
 
 
+def split_termination(agent, g, rows=2048):
+    """Spread and centre the agent's termination head in place: its last
+    layer scaled so that the logit of one-step latents has std 4, and its
+    bias moved so that about half of the H-step rollouts end flagged
+    (rollouts of random SimNorm latents and actions drawn from `g`, not the
+    rows that are then checked)."""
+    import torch
+    from tdmpc2_tpu_torch.models.layers import simnorm
+    from tdmpc2_tpu_torch.ops import value
+    cfg, dev = agent.cfg, agent.device
+    z = simnorm(torch.randn(1, rows, cfg.latent_dim, device=dev, generator=g),
+                cfg.simnorm_dim)
+    acts = torch.rand(1, cfg.horizon, rows, cfg.action_dim, device=dev,
+                      generator=g) * 2 - 1
+    prep32 = value.prepare_value_params(agent.params, cfg, torch.float32)
+    logits, _ = value.termination_trace_plain(prep32, z, acts, agent.discs[None],
+                                              cfg.simnorm_dim)
+    last = agent.params['termination'][-1]
+    scale = 4.0 / float(logits[:, 0].std())
+    last['w'].mul_(scale)
+    last['b'].mul_(scale).sub_(float((scale * logits).amax(1).median()))
+    agent._prep = None
+
+
+def flag_shares(term_at, horizon):
+    """Share of the rows flagged by step t, for t = 1..H."""
+    return [float(((term_at > 0) & (term_at <= t)).float().mean())
+            for t in range(1, horizon + 1)]
+
+
+def hold_gated(name, got, want, got_at, want_at, logits, tol):
+    """Hold an episodic value step under the gate rule (VALUE_TOL's note);
+    returns the max |err| over the rows whose flags agree."""
+    from tdmpc2_tpu_torch.ops.value import gate_check
+    flips, bad = gate_check(got, want, got_at, want_at, logits, **tol,
+                            near=GATE_NEAR)
+    agree = (got_at == want_at)[..., None]
+    err = max_err(got[agree], want[agree])
+    log(f'  {name}: max |err| {err:.3g} on the {int(agree.sum())} rows whose '
+        f'flags agree (band {tol}); {flips} rows flip with |logit| < {GATE_NEAR}, '
+        f'{bad} rows break the rule')
+    if bad or flips > GATE_FLIP_SHARE * want.numel():
+        raise AssertionError(f'{name}: {bad} rows outside the gate rule, {flips} '
+                             f'flips (at most {GATE_FLIP_SHARE:.0%} allowed)')
+    return err
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
@@ -212,11 +285,13 @@ def main() -> int:
     try:
         from tdmpc2_tpu_torch import train as train_mod
         from tdmpc2_tpu_torch.config import load_cfg
+        from tdmpc2_tpu_torch.data.buffer import Buffer
         from tdmpc2_tpu_torch.envs import make_env
         from tdmpc2_tpu_torch.evaluate import evaluate
         from tdmpc2_tpu_torch.models.layers import simnorm
         from tdmpc2_tpu_torch.ops import _build, cem, probe, rollout, value
         from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
+        from tdmpc2_tpu_torch.trainer.online import OnlineTrainer
         from tdmpc2_tpu_torch.trainer.vec_online import VecOnlineTrainer
         from tdmpc2_tpu_torch.utils import tree
     except ImportError as e:
@@ -413,6 +488,97 @@ def main() -> int:
         if a_pv.shape != (NE, A) or not bool(torch.isfinite(a_pv).all()):
             raise AssertionError('plan_vec: wrong or non-finite actions')
 
+    # the value kernel's episodic branch, on toy-reach-episodic's agent at the
+    # default 5M config, its termination head spread so that the flag splits
+    ecfg = load_cfg(overrides=EP_ARGS + [f'seed={SEED}'])
+    make_env(ecfg)
+    e_agent = TDMPC2(ecfg, device='cuda')
+    e_agent.load_params(perturbed(e_agent.model.init(gen), gen))
+    split_termination(e_agent, g)
+    e_prep = e_agent.prep
+    e_discs_n = e_agent.discs.expand(NE, -1)
+
+    def episodic_value_args(n):
+        return (e_prep, simnorm(torch.randn(n, S, L, device=dev, generator=g),
+                                cfg.simnorm_dim),
+                torch.rand(n, H, S, A, device=dev, generator=g) * 2 - 1,
+                torch.randn(n, S, A, device=dev, generator=g),
+                torch.stack([torch.randperm(cfg.num_q, device=dev, generator=g)[:2]
+                             for _ in range(n)]).to(torch.int32),
+                e_agent.discs.expand(n, -1))
+
+    def term_at_like(args):
+        return torch.empty(args[1].shape[:2], dtype=torch.int32, device=dev)
+
+    with Phase(f'episodic value kernel vs plain under the gate rule (one env '
+               f'and N={NE})'):
+        smem, per_sm = value.kernel_occupancy(e_prep, cfg.simnorm_dim, H)
+        log(f'  value kernel block: {smem} bytes of shared memory (RowSmem::bytes), '
+            f'{per_sm} blocks per SM')
+        if per_sm < 2:
+            raise AssertionError('value kernel: fewer than two blocks fit an SM')
+        ev1_args, evn_args = episodic_value_args(1), episodic_value_args(NE)
+        errs = []
+        for label, args in (('one env', ev1_args), (f'N={NE}', evn_args)):
+            k_at, p_at = term_at_like(args), term_at_like(args)
+            vk = value.value_estimate(*args, **heads, episodic=True, term_at=k_at)
+            vp = value.value_estimate_plain(*args, **heads, episodic=True,
+                                            term_at=p_at)
+            logits, at = value.termination_trace_plain(*args[:3], args[5],
+                                                       cfg.simnorm_dim)
+            torch.cuda.synchronize()
+            if not torch.equal(at, p_at):
+                raise AssertionError('termination_trace_plain disagrees with the '
+                                     'plain value step')
+            shares = flag_shares(p_at, H)
+            log(f'  {label}: rows flagged by step t=1..{H} (plain): '
+                + ', '.join(f'{100 * x:.1f}%' for x in shares)
+                + '; kernel: ' + ', '.join(f'{100 * x:.1f}%'
+                                           for x in flag_shares(k_at, H)))
+            if not FLAG_SPLIT[0] <= shares[-1] <= FLAG_SPLIT[1]:
+                raise AssertionError(f'{label}: {100 * shares[-1]:.1f}% of the rows '
+                                     f'flagged at t={H}: the gate is not split')
+            errs.append(hold_gated(f'value episodic {label}', vk, vp, k_at, p_at,
+                                   logits, VALUE_TOL))
+        results['value_episodic'] = max(errs)
+        k_at = term_at_like(evn_args)
+        got = value.value_estimate(*evn_args, **heads, episodic=True, term_at=k_at)
+        for i in range(NE):
+            one_at = torch.empty(1, S, dtype=torch.int32, device=dev)
+            one = value.value_estimate(e_prep, *[a[i:i + 1] for a in evn_args[1:]],
+                                       **heads, episodic=True, term_at=one_at)
+            if not (torch.equal(got[i:i + 1], one) and torch.equal(k_at[i:i + 1],
+                                                                    one_at)):
+                raise AssertionError(f'value episodic: env {i} of the N={NE} launch '
+                                     'differs from its one-env launch')
+        log(f'  value episodic: the N={NE} launch equals {NE} one-env launches bit '
+            'for bit (values and flags)')
+
+    with Phase(f'episodic plan_vec at N={NE} through the kernels vs cem_plan_plain'):
+        e_noise = e_agent.draw_noise(NE)
+        z_e = e_agent.model.encode(e_agent.params, obs_n)[:, None]
+        e_plan_args = (e_prep, z_e, e_noise.pi_eps, e_noise.sample, e_noise.eps,
+                       e_noise.qidx, e_discs_n, torch.zeros(NE, H * A, device=dev),
+                       torch.full((NE, H * A), cfg.max_std, device=dev),
+                       e_agent.amask)
+        e_plan_kw = dict(plan_kw, episodic=True)
+        mp, sp, vp, ap = cem.cem_plan_plain(*e_plan_args, **e_plan_kw)
+        mk, sk, vk, ak = cem.cem_plan(*e_plan_args, **e_plan_kw)
+        hold(f'episodic cem_plan N={NE} mean', mk, mp, CEM_TOL)
+        hold(f'episodic cem_plan N={NE} std', sk, sp, CEM_TOL)
+        e_agent.prev_mean = torch.zeros(NE, H, A, device=dev)
+        a_pv, m_pv = e_agent.plan_vec(obs_n, np.ones(NE, bool), eval_mode=True,
+                                      noise=e_noise)
+        hold(f'episodic plan_vec N={NE} means vs cem_plan_plain',
+             m_pv.reshape(NE, H * A), mp, CEM_TOL)
+        if a_pv.shape != (NE, A) or not bool(torch.isfinite(a_pv).all()):
+            raise AssertionError('episodic plan_vec: wrong or non-finite actions')
+        _, at = value.termination_trace_plain(
+            e_prep, z_e.expand(NE, S, L), ap.view(NE, S, H, A).permute(0, 2, 1, 3),
+            e_discs_n, cfg.simnorm_dim)
+        log(f'  the last iteration\'s samples flagged by step t=1..{H} (plain): '
+            + ', '.join(f'{100 * x:.1f}%' for x in flag_shares(at, H)))
+
     wrappers = {'value': value.value_estimate,
                 'cem_pi_rollout': cem.pi_rollout,
                 'cem_sample': cem.sample_actions,
@@ -458,23 +624,34 @@ def main() -> int:
     # the training paths, as `python -m tdmpc2_tpu_torch.train` runs them: a
     # fresh process has no canary verdict yet, so agent construction runs it
     update_step = TDMPC2._update
-    orig_eval = VecOnlineTrainer.eval
+    orig_evals = {c: c.eval for c in (OnlineTrainer, VecOnlineTrainer)}
+    orig_add = Buffer.add
 
     def train_path(name, extra):
         """Run `train` with the counts zeroed just before; returns (trainer,
-        launches, [total, pi] loss of every update, eval results, seconds)."""
-        losses, evals = [], []
+        launches, seconds, eval results, lengths of the episodes flushed to
+        the buffer) and logs the [total, pi, termination] losses."""
+        losses, evals, lengths = [], [], []
 
         def recording_update(self, *args):
             info = update_step(self, *args)
-            losses.append(torch.stack([info['total_loss'], info['pi_loss']]))
+            losses.append(torch.stack([info['total_loss'], info['pi_loss'],
+                                       info['termination_loss']]))
             return info
 
-        def recording_eval(self):
-            evals.append(orig_eval(self))
-            return evals[-1]
+        def recording_add(self, ep):
+            lengths.append(int(ep.get('valid_rows', len(ep['reward']))) - 1)
+            return orig_add(self, ep)
+
+        def recording_eval(cls):
+            def run(self):
+                evals.append(orig_evals[cls](self))
+                return evals[-1]
+            return run
         TDMPC2._update = recording_update
-        VecOnlineTrainer.eval = recording_eval
+        Buffer.add = recording_add
+        for c in orig_evals:
+            c.eval = recording_eval(c)
         try:
             probe._verdict = None       # as in a fresh process
             zero_counts()
@@ -489,13 +666,17 @@ def main() -> int:
             counts = read_counts()
         finally:
             TDMPC2._update = update_step
-            VecOnlineTrainer.eval = orig_eval
+            Buffer.add = orig_add
+            for c, f in orig_evals.items():
+                c.eval = f
         losses = torch.stack(losses)
         log(f'  {tr._step} env steps, {len(losses)} updates in {secs:.1f} s '
             f'({tr._step / secs:.1f} env-steps/s over the whole run); '
             f'launches {counts}; canary child {probe.verdict()["seconds"]:.2f} s')
         log(f'  last losses: total {float(losses[-1, 0]):.4f}, '
-            f'pi {float(losses[-1, 1]):.4f}')
+            f'pi {float(losses[-1, 1]):.4f}, termination {float(losses[-1, 2]):.4f}')
+        log(f'  eval reward: {[round(e["episode_reward"], 4) for e in evals]}, '
+            f'mean eval episode length {[e["episode_length"] for e in evals]}')
         if not bool(torch.isfinite(losses).all()):
             raise AssertionError(f'{name}: non-finite loss')
         # the seed_steps burst at step seed_steps, then one per later env step
@@ -504,40 +685,83 @@ def main() -> int:
         for k in planner + ('probe',):
             if counts[k] <= 0:
                 raise AssertionError(f'{name}: kernel {k} never launched')
-        return tr, counts, secs, evals
+        if not evals or not all(math.isfinite(e['episode_reward']) for e in evals):
+            raise AssertionError(f'{name}: eval results {evals}')
+        return tr, counts, secs, evals, lengths, losses
+
+    def check_episodic(name, lengths, losses=None):
+        """Episodes must end early on this task, and the termination loss
+        (losses[:, 2]) must not be zero."""
+        short = sorted(x for x in lengths if x < MAX_EP_LEN)
+        log(f'  episode lengths: {len(lengths)} episodes, {len(short)} shorter '
+            f'than {MAX_EP_LEN}: {short}')
+        if not short:
+            raise AssertionError(f'{name}: no episode ended before the time limit')
+        if losses is not None and not float(losses[-1, 2]) > 0:
+            raise AssertionError(f'{name}: the termination loss is zero')
 
     with Phase(f'path: train toy-reach, 5M model, {TRAIN_STEPS} steps, one env'):
-        trainer, launches, _, _ = train_path('one_env', [])
+        trainer, launches, _, _, _, _ = train_path('one_env', [])
 
     with Phase(f'main path (vectorised): train toy-reach num_envs={NE}, 5M '
                f'model, {TRAIN_STEPS} env steps'):
-        vtrainer, vec_launches, vec_s, vec_evals = train_path(
+        vtrainer, vec_launches, vec_s, vec_evals, _, _ = train_path(
             'vec', [f'num_envs={NE}'])
         if not isinstance(vtrainer, VecOnlineTrainer) or vtrainer._n != NE:
             raise AssertionError('vec path: not the vectorised trainer')
-        if len(vec_evals) < 2 or not all(
-                math.isfinite(e['episode_reward']) for e in vec_evals):
+        if len(vec_evals) < 2:
             raise AssertionError(f'vec path: eval results {vec_evals}')
-        log(f'  eval reward on the training envs: '
-            f'{[round(e["episode_reward"], 4) for e in vec_evals]} '
-            f'(steps 0 and {TRAIN_STEPS})')
+
+    with Phase(f'path: train {EP_TASK} episodic=true, 5M model, {TRAIN_STEPS} '
+               'steps, one env'):
+        ep_trainer, ep_launches, _, ep_evals, ep_lengths, ep_losses = train_path(
+            'episodic_one_env', EP_ARGS)
+        check_episodic('episodic one env', ep_lengths + [
+            round(e['episode_length']) for e in ep_evals], ep_losses)
+    with Phase(f'path: train {EP_TASK} episodic=true num_envs={NE}, 5M model, '
+               f'{TRAIN_STEPS} env steps'):
+        vep_trainer, vep_launches, _, vep_evals, vep_lengths, vep_losses = train_path(
+            'episodic_vec', EP_ARGS + [f'num_envs={NE}', 'save_agent=true'])
+        check_episodic(f'episodic num_envs={NE}', vep_lengths + [
+            round(e['episode_length']) for e in vep_evals], vep_losses)
+
+    with Phase(f'path: evaluate {EP_TASK} episodic=true from the num_envs={NE} '
+               f'run\'s checkpoint, {EP_EVAL_EPISODES} episodes'):
+        ckpt = Path(vep_trainer.cfg.work_dir) / 'models' / 'latest.pkl'
+        ev_ep_cfg = load_cfg(overrides=EP_ARGS + [
+            f'eval_episodes={EP_EVAL_EPISODES}', f'seed={SEED}', 'device=cuda',
+            f'checkpoint={ckpt}'])
+        zero_counts()
+        t0 = time.perf_counter()
+        res = evaluate(ev_ep_cfg)[EP_TASK]
+        ev_ep_launches = read_counts()
+        log(f'  reward {res["reward"]:.4f}, success {res["success"]:.2f}, '
+            f'{res["plans"]} plans, {res["plans"] / res["seconds"]:.1f} plans/s, '
+            f'{time.perf_counter() - t0:.1f} s; launches {ev_ep_launches}')
+        if not math.isfinite(res['reward']):
+            raise AssertionError('episodic evaluate: non-finite reward')
+        for k in planner:
+            if ev_ep_launches[k] <= 0:
+                raise AssertionError(f'episodic evaluate: kernel {k} never launched')
+        check_episodic('episodic evaluate', res['lengths'])
     t_agent, buffer, env = trainer.agent, trainer.buffer, trainer.env
 
-    with Phase('one update on the card vs the same update on the CPU'):
-        cpu_agent = TDMPC2(trainer.cfg, device='cpu')
-        cpu_agent.state = t_agent.state.to('cpu')
-        batch = buffer.sample()
-        u_noise = t_agent.draw_update_noise()
+    def hold_update(agent, batch):
+        """One update of `agent` on the card against the same update of a
+        copy of its state on the CPU, on `batch` with the same draws."""
+        cpu_agent = TDMPC2(agent.cfg, device='cpu')
+        cpu_agent.state = agent.state.to('cpu')
+        u_noise = agent.draw_update_noise()
         cpu_batch = [x.cpu() for x in batch]
         cpu_noise = type(u_noise)(**{
             k: (None if v is None else v.cpu()) for k, v in vars(u_noise).items()})
-        info_k = t_agent._update(t_agent.state, *batch, u_noise)
+        info_k = agent._update(agent.state, *batch, u_noise)
         info_c = cpu_agent._update(cpu_agent.state, *cpu_batch, cpu_noise)
-        errs = [hold(f'update {k}', info_k[k].cpu(), info_c[k], UPDATE_TOL)
-                for k in ('total_loss', 'consistency_loss', 'reward_loss',
-                          'value_loss', 'pi_loss', 'grad_norm', 'pi_grad_norm',
-                          'pi_scale')]
-        got, ref = t_agent.state.to('cpu'), cpu_agent.state
+        if set(info_k) != set(info_c):
+            raise AssertionError('update: the info keys differ')
+        for k in sorted(info_c):
+            hold(f'update {k}', info_k[k].cpu(), info_c[k], UPDATE_TOL)
+        got, ref = agent.state.to('cpu'), cpu_agent.state
         for name in ('params', 'target_Qs', 'opt_state', 'pi_opt_state'):
             e = [max_err(a, b) for a, b in zip(tree.leaves(getattr(got, name)),
                                                 tree.leaves(getattr(ref, name)))]
@@ -548,7 +772,20 @@ def main() -> int:
             log(f'  {name}: max |err| {max(e):.3g}')
             if bad:
                 raise AssertionError(f'update: {name} outside {UPDATE_TOL}')
-        t_agent._prep = None
+        agent._prep = None
+        return info_k
+
+    with Phase('one update on the card vs the same update on the CPU'):
+        hold_update(t_agent, buffer.sample())
+
+    with Phase('one episodic update on the card vs the same update on the CPU, '
+               'a fifth of the batch terminated'):
+        batch = list(ep_trainer.buffer.sample())
+        batch[3] = (torch.rand(batch[3].shape, device=dev, generator=g) < 0.2).float()
+        log(f'  terminated: {100 * float(batch[3].mean()):.1f}% of the batch')
+        info = hold_update(ep_trainer.agent, batch)
+        if not float(info['termination_loss']) > 0:
+            raise AssertionError('episodic update: the termination loss is zero')
 
     with Phase('training path timing (update steps/s, env-steps/s)'):
         B = trainer.cfg.batch_size
@@ -681,24 +918,32 @@ def main() -> int:
     with Phase('timing (CUDA events) and bounds, one env and N envs'):
         HA = H * A
         q_heads = [k for k in value.PREP_NAMES if k[0] == 'q']
-        w_all = nbytes(*[prep[k] for k in value.PREP_NAMES if k[0] != 'q'])
+        w_all = nbytes(*[prep[k] for k in value.PREP_NAMES
+                         if k in prep and k[0] not in 'qt'])
+        w_term = nbytes(*[e_prep[k] for k in value.TERM_NAMES])
         w_q1 = nbytes(*[prep[k][0] for k in q_heads])
         M, B = prep['dWz'].shape[1], prep['rW2'].shape[1]
         mac_rew = L * M + A * M + M * M + M * B
         mac_dyn = L * M + A * M + M * M + M * L
         mac_pi = L * M + M * M + 2 * M * A
+        mac_term = L * M + M * M + M
         pi_w = nbytes(*[prep[k] for k in value.PREP_NAMES if k[0] in 'dp'])
         e_flops = 35 * S + 8 * S * HA
 
-        def value_bound(args):
+        def value_bound(args, episodic=False):
             z, acts_, eps_, qidx_, discs_ = args[1:]
             n = z.shape[0]
             heads_used = len(set(qidx_.flatten().tolist()))   # this run's data
-            flops = 2 * n * S * (H * (mac_rew + mac_dyn) + mac_pi + 2 * mac_rew)
-            # the latent is one row per env (the rows broadcast it)
-            by = (w_all + heads_used * w_q1 + n * L * 4
-                  + nbytes(acts_, eps_, qidx_, discs_) + n * S * 4)
+            mac_step = mac_rew + mac_dyn + (mac_term if episodic else 0)
+            flops = 2 * n * S * (H * mac_step + mac_pi + 2 * mac_rew)
+            # a latent broadcast over the rows (stride 0) is read once per env
+            z_bytes = n * L * 4 if z.stride(1) == 0 else nbytes(z)
+            by = (w_all + (w_term if episodic else 0) + heads_used * w_q1
+                  + z_bytes + nbytes(acts_, eps_, qidx_, discs_) + n * S * 4)
             return bound_ms(by, flops, BF16_FLOPS)
+
+        def value_episodic_bound(args):
+            return value_bound(args, episodic=True)
 
         def pi_bound(args):
             n = args[2].numel() // (n_pi * HA)
@@ -732,18 +977,32 @@ def main() -> int:
                            s_args, s_n_args, {}, sample_bound),
             'cem_elite': (cem.elite_moments, cem.elite_moments_plain,
                           e_args, e_n_args, elite_kw, elite_bound),
+            # the episodic branch of the same kernel, on the episodic paths
+            'value_episodic': (value.value_estimate, value.value_estimate_plain,
+                               ev1_args, evn_args, dict(heads, episodic=True),
+                               value_episodic_bound),
         }
         paths = {'evaluate': ev_launches, 'rollout entry': ro_launches,
-                 'train, one env': launches, f'train, num_envs={NE}': vec_launches}
+                 'train, one env': launches, f'train, num_envs={NE}': vec_launches,
+                 'evaluate episodic': ev_ep_launches,
+                 'train episodic, one env': ep_launches,
+                 f'train episodic, num_envs={NE}': vep_launches}
+        episodic_paths = ('evaluate episodic', 'train episodic, one env',
+                          f'train episodic, num_envs={NE}')
         kernels = []
         for name, (kern, plain, a1, an, kw, bound) in planner_calls.items():
+            wname = 'value' if name == 'value_episodic' else name
+            by_path = {k: v[wname] for k, v in paths.items()
+                       if (k in episodic_paths) == (name == 'value_episodic')
+                       or wname != 'value'}
             row = {'name': name, 'route': 'cuda',
-                   'source': ('tdmpc2_tpu_torch/csrc/value.cu' if name == 'value'
+                   'source': ('tdmpc2_tpu_torch/csrc/value.cu' if wname == 'value'
                               else 'tdmpc2_tpu_torch/csrc/cem.cu'),
                    'replaces': ('tdmpc2_tpu/ops/pallas_rollout.py:437'
-                                if name == 'value' else 'tdmpc2_tpu/ops/pallas_cem.py:53'),
-                   'launches': vec_launches[name],
-                   'launches_by_path': {k: v[name] for k, v in paths.items()},
+                                if wname == 'value' else 'tdmpc2_tpu/ops/pallas_cem.py:53'),
+                   'launches': (vep_launches if name == 'value_episodic'
+                                else vec_launches)[wname],
+                   'launches_by_path': by_path,
                    'max_abs_err': results[name], 'n_envs': NE}
             for suffix, args in (('', an), ('_n1', a1)):
                 ms = time_ms(lambda: kern(*args, **kw), 50)
@@ -781,9 +1040,11 @@ def main() -> int:
                 'launches_by_path': {k: v[name] for k, v in paths.items()},
                 'max_abs_err': results[name], 'ms': ms, 'plain_ms': plain_ms,
                 'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': lib_ms})
-        for label, args in (('one env', plan_args), (f'N={NE}', plan_n_args)):
-            plan_ms = time_ms(lambda: cem.cem_plan(*args, **plan_kw), 10)
-            plan_plain_ms = time_ms(lambda: cem.cem_plan_plain(*args, **plan_kw), 3)
+        for label, args, kw in (('one env', plan_args, plan_kw),
+                                (f'N={NE}', plan_n_args, plan_kw),
+                                (f'episodic N={NE}', e_plan_args, e_plan_kw)):
+            plan_ms = time_ms(lambda: cem.cem_plan(*args, **kw), 10)
+            plan_plain_ms = time_ms(lambda: cem.cem_plan_plain(*args, **kw), 3)
             log(f'  whole cem_plan, {label}: kernels {plan_ms:.3f} ms, plain '
                 f'{plan_plain_ms:.3f} ms')
 

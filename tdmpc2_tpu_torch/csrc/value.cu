@@ -1,13 +1,20 @@
 // Planner value estimate: H-step reward + dynamics rollout, terminal policy
-// prior, 2-of-num_q Q bootstrap (single-task, non-episodic).
+// prior, 2-of-num_q Q bootstrap, and on episodic tasks the sticky
+// termination gate (single-task).
 //
 // Replaces the TPU kernel _value_kernel (tdmpc2_tpu/ops/pallas_rollout.py,
 // launched by _value_flat / value_prepared). For N environments, each with
 // S sampled action sequences:
-//   G = sum_t discs[t] * symexp(two_hot(reward(z_t, a_t))), z_{t+1} = dyn(z_t, a_t)
+//   G = sum_t discs[t] * (1 - term_t) * symexp(two_hot(reward(z_t, a_t))),
+//   z_{t+1} = dyn(z_t, a_t)
 //   a_H = tanh(mean(z_H) + eps * exp(log_std(z_H)))
-//   v = G + discs[H] * (Q_i(z_H, a_H) + Q_j(z_H, a_H)) / 2, (i, j) = qidx
-// with the env's own discs [H+1] and qidx [2].
+//   v = G + discs[H] * (1 - term_H) * (Q_i(z_H, a_H) + Q_j(z_H, a_H)) / 2, (i, j) = qidx
+// with the env's own discs [H+1] and qidx [2]. term_0 = 0; when `episodic`,
+// term_{t+1} = min(term_t + (logit(z_{t+1}) > 0), 1) with the termination
+// head's logit on the new latent, else term stays 0 (the multiply by 1 is
+// exact, so the non-episodic result is unchanged). When term_at is not
+// null, term_at[row] receives the step 1..H at which the row's flag was
+// set, or 0: how a check tells the kernel's gates from another version's.
 //
 // Env axis: as the TPU kernel's `blocks_per_env`, the grid holds N runs of
 // ceil(S / kRows) blocks, env = block / blocks_per_env, and a block never
@@ -24,6 +31,9 @@
 // goes back to device memory); all blocks read the same bf16 weights, which
 // the 50 MB L2 holds, so device memory sees them about once per call. N
 // envs multiply the work by N and leave the weight bytes as they are.
+// The termination head (episodic) adds L*M + M*M + M multiply-adds per row
+// and step, ~27% at the default model, and reuses the hidden buffers: the
+// shared memory per block does not grow.
 // The grouped SimNorm softmax is computed directly, where the TPU kernel
 // used a block-diagonal mask product.
 #include "mlp_rows.cuh"
@@ -31,10 +41,11 @@
 namespace tdm {
 
 __global__ void __launch_bounds__(kThreads)
-value_kernel(Weights w, Dims d, float lsmin, float lsdif, int S, int blocks_per_env,
+value_kernel(Weights w, Dims d, float lsmin, float lsdif, int episodic, int S,
+             int blocks_per_env,
              const float* z0, long zn, long zs, const float* actions, long an, long ats,
              long ass, const float* eps, long en, const int* qidx, long qn,
-             const float* discs, long dn, float* out) {
+             const float* discs, long dn, float* out, int* term_at) {
   extern __shared__ float4 smem_f4[];
   const RowSmem sm(reinterpret_cast<float*>(smem_f4), d);
   const int env = blockIdx.x / blocks_per_env;
@@ -46,14 +57,18 @@ value_kernel(Weights w, Dims d, float lsmin, float lsdif, int S, int blocks_per_
   qidx += env * qn;
   discs += env * dn;
   out += static_cast<long>(env) * S;
+  if (term_at != nullptr) term_at += static_cast<long>(env) * S;
   float* G = sm.s0;   // discounted reward sum
   float* r = sm.s1;   // decoded reward / Q of the current head
   float* q = sm.s2;   // Q sum over the two heads
+  float* term = sm.s3;  // sticky termination flag, 0 or 1
 
   load_z(sm, d, z0, zs, row0, nrows);
   if (threadIdx.x < kRows) {
     G[threadIdx.x] = 0.f;
     q[threadIdx.x] = 0.f;
+    term[threadIdx.x] = 0.f;
+    if (term_at != nullptr && threadIdx.x < nrows) term_at[row0 + threadIdx.x] = 0;
   }
   for (int t = 0; t < d.H; ++t) {
     for (int i = threadIdx.x; i < kRows * d.A; i += kThreads) {
@@ -70,9 +85,23 @@ value_kernel(Weights w, Dims d, float lsmin, float lsdif, int S, int blocks_per_
     __syncthreads();
     two_hot_rows(sm.lg, sm.ldB, d.B, w.f(bins), r);
     __syncthreads();
-    if (threadIdx.x < kRows) G[threadIdx.x] += discs[t] * r[threadIdx.x];
+    if (threadIdx.x < kRows) {
+      G[threadIdx.x] += discs[t] * ((1.f - term[threadIdx.x]) * r[threadIdx.x]);
+    }
     // z_{t+1}
     dynamics_rows(sm, d, w);
+    if (episodic) {
+      // the reward in r was consumed above: the logits go there
+      termination_rows(sm, d, w, r);
+      if (threadIdx.x < kRows) {
+        const float hit = r[threadIdx.x] > 0.f ? 1.f : 0.f;
+        if (term_at != nullptr && threadIdx.x < nrows && term[threadIdx.x] == 0.f &&
+            hit != 0.f) {
+          term_at[row0 + threadIdx.x] = t + 1;
+        }
+        term[threadIdx.x] = fminf(term[threadIdx.x] + hit, 1.f);
+      }
+    }
   }
 
   // terminal policy prior action
@@ -101,7 +130,8 @@ value_kernel(Weights w, Dims d, float lsmin, float lsdif, int S, int blocks_per_
     __syncthreads();
   }
   if (threadIdx.x < nrows) {
-    out[row0 + threadIdx.x] = G[threadIdx.x] + discs[d.H] * (q[threadIdx.x] / 2.f);
+    out[row0 + threadIdx.x] =
+        G[threadIdx.x] + discs[d.H] * ((1.f - term[threadIdx.x]) * (q[threadIdx.x] / 2.f));
   }
 }
 
@@ -110,12 +140,13 @@ value_kernel(Weights w, Dims d, float lsmin, float lsdif, int S, int blocks_per_
 // Launch on `stream`; returns cudaGetLastError() after the launch.
 // Operands of env e: z0 + e*zn (rows zs apart, 0 broadcasts one row),
 // actions + e*an ([H, S, A] with strides ats, ass, 1), eps + e*en ([S, A]),
-// qidx + e*qn ([2]), discs + e*dn ([H+1]); out [N, S].
+// qidx + e*qn ([2]), discs + e*dn ([H+1]); out [N, S]; term_at [N, S] or
+// null. `episodic` (0/1) needs the termination head's weights among wptrs.
 extern "C" int tdm_value(const void* const* wptrs, const int* dims, float lsmin, float lsdif,
-                         int N, int S, const float* z0, long zn, long zs,
+                         int episodic, int N, int S, const float* z0, long zn, long zs,
                          const float* actions, long an, long ats, long ass, const float* eps,
                          long en, const int* qidx, long qn, const float* discs, long dn,
-                         float* out, void* stream) {
+                         float* out, int* term_at, void* stream) {
   using namespace tdm;
   Weights w;
   for (int i = 0; i < kNumWeights; ++i) w.p[i] = wptrs[i];
@@ -126,7 +157,21 @@ extern "C" int tdm_value(const void* const* wptrs, const int* dims, float lsmin,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks_per_env = (S + kRows - 1) / kRows;
   value_kernel<<<N * blocks_per_env, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      w, d, lsmin, lsdif, S, blocks_per_env, z0, zn, zs, actions, an, ats, ass, eps, en,
-      qidx, qn, discs, dn, out);
+      w, d, lsmin, lsdif, episodic, S, blocks_per_env, z0, zn, zs, actions, an, ats, ass,
+      eps, en, qidx, qn, discs, dn, out, term_at);
   return static_cast<int>(cudaGetLastError());
+}
+
+// out[0] = shared-memory bytes of one block, out[1] = blocks of the value
+// kernel that fit one SM at that size; returns the CUDA error code.
+extern "C" int tdm_value_occupancy(const int* dims, int* out) {
+  using namespace tdm;
+  const Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6]};
+  const size_t smem = RowSmem::bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      value_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = static_cast<int>(smem);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], value_kernel, kThreads, smem));
 }

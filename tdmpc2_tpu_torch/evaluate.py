@@ -3,6 +3,7 @@
 Usage:
     python -m tdmpc2_tpu_torch.evaluate task=toy-reach eval_episodes=2
     python -m tdmpc2_tpu_torch.evaluate task=toy-reach device=cpu
+    python -m tdmpc2_tpu_torch.evaluate task=toy-reach-episodic episodic=true
 
 Runs `eval_episodes` greedy-planning episodes and reports the mean return.
 `device` defaults to `cuda`, where the planner runs on the hand-written
@@ -27,8 +28,9 @@ from tdmpc2_tpu_torch.utils.seed import set_seed
 
 
 def evaluate(cfg) -> dict:
-    """-> {task: {'reward', 'success', 'plans', 'seconds'}}: mean episode
-    return and success, and the plans made in `seconds` of acting."""
+    """-> {task: {'reward', 'success', 'lengths', 'plans', 'seconds'}}:
+    mean episode return and success, each episode's length, and the plans
+    made in `seconds` of acting."""
     device_of(cfg.device)       # raise before any work when there is no card
     set_seed(cfg.seed)
     env = make_env(cfg)
@@ -36,7 +38,7 @@ def evaluate(cfg) -> dict:
     if cfg.checkpoint:
         agent.load(cfg.checkpoint)      # raises on an architecture mismatch
 
-    rewards, successes, plans, seconds = [], [], 0, 0.0
+    rewards, successes, lengths, plans, seconds = [], [], [], 0, 0.0
     for _ in range(cfg.eval_episodes):
         obs, done, ep_reward, t, info = env.reset(), False, 0.0, 0, {}
         while not done:
@@ -49,11 +51,12 @@ def evaluate(cfg) -> dict:
             t += 1
         rewards.append(ep_reward)
         successes.append(info.get('success', 0.0))
+        lengths.append(t)
     r, s = float(np.nanmean(rewards)), float(np.nanmean(successes))
     print(f'  {cfg.task:<28s} R: {r:8.1f}  S: {s:.2f}  '
           f'({plans / seconds:.1f} plans/s on {agent.device})')
-    return {cfg.task: {'reward': r, 'success': s, 'plans': plans,
-                       'seconds': seconds}}
+    return {cfg.task: {'reward': r, 'success': s, 'lengths': lengths,
+                       'plans': plans, 'seconds': seconds}}
 
 
 def main(argv=None):

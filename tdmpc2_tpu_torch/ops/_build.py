@@ -32,8 +32,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _PTRS, _INTS = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 # (library, function) -> argtypes; every function returns a cudaError_t as int
 SIGNATURES = {
-    ('value', 'tdm_value'): (_PTRS, _INTS, _F, _F, _I, _I, _P, _L, _L, _P, _L,
-                             _L, _L, _P, _L, _P, _L, _P, _L, _P, _P),
+    ('value', 'tdm_value'): (_PTRS, _INTS, _F, _F, _I, _I, _I, _P, _L, _L, _P,
+                             _L, _L, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P),
+    ('value', 'tdm_value_occupancy'): (_INTS, _INTS),
     ('cem', 'tdm_pi_rollout'): (_PTRS, _INTS, _F, _F, _I, _I, _P, _L, _P, _L,
                                 _P, _P),
     ('cem', 'tdm_sample'): (_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P,

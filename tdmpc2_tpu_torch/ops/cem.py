@@ -22,7 +22,10 @@ chains the plain versions. All noise is input, laid out as for
 pi_eps [N, n_pi, H*A]; noise [N, I, S, H*A] (rows below n_pi unused); eps
 [N, I, S, A]; qidx [N, I, 2] int32; discs [N, H+1]; mean0/std0 [N, H*A];
 amask [A]; returns (mean [N, H*A], std [N, H*A], value [N, S, 1] of the
-last iteration, NaN-guarded, and its actions [N, S, H*A]).
+last iteration, NaN-guarded, and its actions [N, S, H*A]). With
+`episodic=True` the value step applies the termination gate
+(pallas_cem.py:161-172, 190-191; ops/value.py); the policy-prior rollouts
+have none, as in the TPU kernel.
 """
 
 from __future__ import annotations
@@ -236,7 +239,7 @@ elite_moments.launches = 0
 
 def _cem_loop(steps, prep, z0, pi_eps, noise, eps, qidx, discs, mean0, std0,
               amask, *, iterations, n_pi, num_elites, temperature, min_std,
-              max_std, log_std_min, log_std_dif, simnorm_dim):
+              max_std, log_std_min, log_std_dif, simnorm_dim, episodic=False):
     pi_roll, sample, value, elite = steps
     N, I, S, HA = noise.shape
     H = discs.shape[-1] - 1
@@ -255,7 +258,7 @@ def _cem_loop(steps, prep, z0, pi_eps, noise, eps, qidx, discs, mean0, std0,
     for it in range(iterations):
         acts = sample(mean, std, noise[:, it], pi_acts, amask)
         v = value(prep, z, acts.view(N, S, H, A).permute(0, 2, 1, 3),
-                  eps[:, it], qidx[:, it], discs, **heads)
+                  eps[:, it], qidx[:, it], discs, episodic=episodic, **heads)
         mean, std, v = elite(v, acts, amask, num_elites=num_elites,
                              temperature=temperature, min_std=min_std,
                              max_std=max_std)

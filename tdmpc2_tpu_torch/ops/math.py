@@ -83,6 +83,17 @@ def termination_statistics(pred, target, eps: float = 1e-9):
     return {'termination_rate': rate, 'termination_f1': f1}
 
 
+def sigmoid_binary_cross_entropy(logits, labels):
+    """Elementwise cross-entropy of sigmoid(logits) against labels in
+    [0, 1], as optax.sigmoid_binary_cross_entropy computes it (the JAX
+    update's termination loss, tdmpc2.py:977-984): through log-sigmoids,
+    whose gradient is sigmoid(x) - z everywhere. (The equal form
+    relu(x) - x*z + log1p(exp(-|x|)) differentiates to -z at x = 0.)"""
+    labels = labels.to(logits.dtype)
+    return (-labels * F.logsigmoid(logits)
+            - (1.0 - labels) * F.logsigmoid(-logits))
+
+
 def percentile_range(x, lo: float = 5.0, hi: float = 95.0):
     """Linearly interpolated (lo, hi) percentiles over axis 0 of x [N, ...]
     -> two tensors of shape [prod(...)], by the reference's own

@@ -8,14 +8,17 @@ tensors and `value_estimate_plain` on CPU tensors; on any other device it
 raises. Both compute, for each env's S sampled action sequences of
 length H,
 
-    G = sum_t discs[t] * r(z_t, a_t),  z_{t+1} = next(z_t, a_t)
-    v = G + discs[H] * avg_{i in qidx} Q_i(z_H, tanh(mean + eps * exp(log_std)))
+    G = sum_t discs[t] * (1 - term_t) * r(z_t, a_t),  z_{t+1} = next(z_t, a_t)
+    v = G + discs[H] * (1 - term_H) * avg_{i in qidx} Q_i(z_H, tanh(mean + eps * exp(log_std)))
 
 with the weights as `prepare_value_params` laid them out: every first
 layer split into its latent and action rows, the pi head split into mean
-and log-std columns, the Q heads stacked. The TPU kernel's block-diagonal
-mask product for SimNorm is not carried over: the grouped softmax is
-computed directly.
+and log-std columns, the Q heads stacked. On episodic tasks the sticky
+termination flag starts at term_0 = 0 and after each dynamics step
+becomes term_{t+1} = min(term_t + (logit(z_{t+1}) > 0), 1), the
+termination head's logit on the new latent (pallas_rollout.py:503-510);
+otherwise term stays 0. The TPU kernel's block-diagonal mask product for
+SimNorm is not carried over: the grouped softmax is computed directly.
 """
 
 from __future__ import annotations
@@ -39,7 +42,12 @@ PREP_NAMES = (
     'qWz', 'qWa', 'qb0', 'qg0', 'qe0', 'qW1', 'qb1', 'qg1', 'qe1',
     'qW2', 'qb2',
     'bins',
+    # the termination head, episodic tasks only (last, so that the indices
+    # above stay those of every kernel)
+    'tW0', 'tb0', 'tg0', 'te0', 'tW1', 'tb1', 'tg1', 'te1', 'tW2', 'tb2',
 )
+
+TERM_NAMES = tuple(k for k in PREP_NAMES if k[0] == 't')
 
 
 # The reward+dynamics operands (and `bins`), all that the rollout kernel
@@ -87,7 +95,8 @@ def prepare_value_params(params, cfg, dot_dtype=torch.bfloat16) -> dict:
 
     Matrices go to `dot_dtype` (bf16 for the kernel; f32 gives the exact
     plain reference), everything else stays f32; all contiguous, on the
-    params' device. Keys are PREP_NAMES.
+    params' device. Keys are PREP_NAMES, the termination head's
+    (TERM_NAMES) only when cfg.episodic.
     """
     L, A = cfg.latent_dim, cfg.action_dim
     pi, qs = params['pi'], params['Qs']
@@ -107,7 +116,17 @@ def prepare_value_params(params, cfg, dot_dtype=torch.bfloat16) -> dict:
         'qg1': f(qs[1]['ln_w']), 'qe1': f(qs[1]['ln_b']),
         'qW2': w(qs[2]['w']), 'qb2': f(qs[2]['b']),
     })
-    return {k: prep[k] for k in PREP_NAMES}
+    if cfg.episodic:
+        # the first layer reads the latent only: no action rows to split
+        trm = params['termination']
+        prep.update({
+            'tW0': w(trm[0]['w']), 'tb0': f(trm[0]['b']),
+            'tg0': f(trm[0]['ln_w']), 'te0': f(trm[0]['ln_b']),
+            'tW1': w(trm[1]['w']), 'tb1': f(trm[1]['b']),
+            'tg1': f(trm[1]['ln_w']), 'te1': f(trm[1]['ln_b']),
+            'tW2': w(trm[2]['w']), 'tb2': f(trm[2]['b']),
+        })
+    return {k: prep[k] for k in PREP_NAMES if k in prep}
 
 
 def prep_dims(prep, simnorm_dim: int, horizon: int) -> tuple:
@@ -119,8 +138,10 @@ def prep_dims(prep, simnorm_dim: int, horizon: int) -> tuple:
 
 def check_prep(prep, device, simnorm_dim: int, names=PREP_NAMES):
     """Validate prepared weights `names` for the kernels: device, dtype,
-    layout."""
+    layout. The termination head's are checked where present."""
     for k in names:
+        if k in TERM_NAMES and k not in prep:
+            continue
         t = prep[k]
         want = torch.bfloat16 if k[1] == 'W' else torch.float32
         if t.device != device or t.dtype != want or not t.is_contiguous():
@@ -178,34 +199,75 @@ def pi_head_plain(p, z, log_std_min: float, log_std_dif: float):
     return mean, log_std_min + 0.5 * log_std_dif * (torch.tanh(ls) + 1.0)
 
 
-def rollout_plain(prep, z0, actions, discs, simnorm_dim: int = 8):
-    """The reward+dynamics rollout: z0 [S, L]; actions [H, S, A]; discs
-    [>= H] -> (G [S, 1], z_H [S, L]), G = sum_t discs[t] * r(z_t, a_t).
-    Leading axes of z0 and actions[t] broadcast (value_estimate_plain
-    passes N envs' rows, with discs[t] shaped to match)."""
-    p = prep
+def termination_logit_plain(p, z):
+    """The termination head's logit on z [..., L] -> [..., 1]."""
+    u = _hidden2(_dot(z, p['tW0']), p, 't')
+    return _dot(u, p['tW2']) + p['tb2']
+
+
+def _rollout(p, z0, actions, discs, simnorm_dim, episodic, logits=None):
+    """(G, z_H, term_H, term_at) of the module docstring; term is None
+    unless `episodic`, and term_at [..., S] int32 is the step 1..H at which
+    a row's flag was set, or 0. Each step's logit is appended to `logits`
+    when that is a list."""
     z = z0.float()
     G = torch.zeros(z.shape[:-1] + (1,), dtype=torch.float32, device=z.device)
+    term = torch.zeros_like(G) if episodic else None
+    term_at = torch.zeros(z.shape[:-1], dtype=torch.int32, device=z.device)
     for t in range(actions.shape[0]):
         a = actions[t]
         u = _hidden2(_dot(z, p['rWz']) + _dot(a, p['rWa']), p, 'r')
-        G = G + discs[t] * _two_hot_dec(_dot(u, p['rW2']) + p['rb2'], p['bins'])
+        r = _two_hot_dec(_dot(u, p['rW2']) + p['rb2'], p['bins'])
+        if episodic:
+            r = (1.0 - term) * r
+        G = G + discs[t] * r
         z = dynamics_plain(p, z, a, simnorm_dim)
+        if episodic:
+            logit = termination_logit_plain(p, z)
+            if logits is not None:
+                logits.append(logit[..., 0])
+            hit = (logit > 0.0).float()
+            term_at = torch.where(((term == 0) & (hit > 0))[..., 0],
+                                  t + 1, term_at).to(torch.int32)
+            term = torch.clamp(term + hit, max=1.0)
+    return G, z, term, term_at
+
+
+def termination_trace_plain(prep, z0, actions, discs, simnorm_dim: int = 8):
+    """The plain value step's termination logits and flags: z0 [N, S, L];
+    actions [N, H, S, A]; discs [N, H+1] -> (logits [N, H, S] of the new
+    latent at steps 1..H, term_at [N, S] int32: the step at which a row's
+    sticky flag was set, or 0)."""
+    logits = []
+    _, _, _, term_at = _rollout(prep, z0, actions.transpose(0, 1),
+                                discs.T[..., None, None], simnorm_dim, True,
+                                logits)
+    return torch.stack(logits, dim=1), term_at
+
+
+def rollout_plain(prep, z0, actions, discs, simnorm_dim: int = 8):
+    """The reward+dynamics rollout: z0 [S, L]; actions [H, S, A]; discs
+    [>= H] -> (G [S, 1], z_H [S, L]), G = sum_t discs[t] * r(z_t, a_t).
+    Leading axes of z0 and actions[t] broadcast."""
+    G, z, _, _ = _rollout(prep, z0, actions, discs, simnorm_dim, False)
     return G, z
 
 
 def value_estimate_plain(prep, z0, actions, eps, qidx, discs, *,
                          log_std_min: float, log_std_dif: float,
-                         simnorm_dim: int = 8, episodic: bool = False):
+                         simnorm_dim: int = 8, episodic: bool = False,
+                         term_at=None):
     """z0 [N, S, L]; actions [N, H, S, A]; eps [N, S, A]; qidx [N, 2] int;
     discs [N, H+1] -> value [N, S, 1], each env with its own Q heads and
-    discounts (N=1 for one env)."""
-    if episodic:
-        raise NotImplementedError('episodic value estimate (termination head)')
+    discounts (N=1 for one env); `episodic` gates by the termination
+    head, whose weights `prep` must then hold. `term_at` [N, S] int32, if
+    given, receives the step 1..H at which each row's flag was set, or 0."""
     p = prep
     H = actions.shape[1]
-    G, z = rollout_plain(p, z0, actions.transpose(0, 1), discs.T[..., None, None],
-                         simnorm_dim)
+    G, z, term, at = _rollout(p, z0, actions.transpose(0, 1),
+                              discs.T[..., None, None], simnorm_dim, episodic)
+    if term_at is not None:
+        term_at.copy_(at)
     mean, ls = pi_head_plain(p, z, log_std_min, log_std_dif)
     a = torch.tanh(mean + eps * torch.exp(ls))
     q = 0.0
@@ -217,7 +279,35 @@ def value_estimate_plain(prep, z0, actions, eps, qidx, discs, *,
         h = {k: v if k[1] == 'W' else v[:, None] for k, v in h.items()}
         u = _hidden2(_dot(z, h['qWz']) + _dot(a, h['qWa']), h, 'q')
         q = q + _two_hot_dec(_dot(u, h['qW2']) + h['qb2'], p['bins'])
-    return G + discs[:, H, None, None] * (q / 2.0)
+    q = q / 2.0
+    if episodic:
+        q = (1.0 - term) * q
+    return G + discs[:, H, None, None] * q
+
+
+def gate_check(got, want, got_at, want_at, logits, *, rtol: float,
+               atol: float, near: float = 1e-2):
+    """Hold an episodic value step `got` against the plain `want` (both
+    [N, S, 1]) under the gate rule. The gate is a step function of the
+    logit, so a logit within a bf16 step of 0 may set the flag in one
+    version and not the other, and that zeroes the row's later reward and
+    Q. A row whose flags agree (`got_at == want_at`, each the step at which
+    the flag was set, or 0) must be finite and within atol + rtol * |want|;
+    a row whose flags differ is allowed only if the plain logit (`logits`
+    [N, H, S], termination_trace_plain) at the first step where they differ
+    has |logit| < `near`. Returns (flips, bad): the allowed disagreements
+    and the rows that break the rule."""
+    got, want = got[..., 0], want[..., 0]
+    H = logits.shape[1]
+    k_at = torch.where(got_at > 0, got_at, H + 1)
+    p_at = torch.where(want_at > 0, want_at, H + 1)
+    differ = k_at != p_at
+    first = (torch.minimum(k_at, p_at).clamp(max=H) - 1).long()
+    logit = logits.gather(1, first[:, None]).squeeze(1)
+    flip = differ & (logit.abs() < near)
+    outside = ~((got - want).abs() <= atol + rtol * want.abs())
+    bad = (~differ & outside) | (differ & ~flip) | ~torch.isfinite(got)
+    return int(flip.sum()), int(bad.sum())
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +317,7 @@ def value_estimate_plain(prep, z0, actions, eps, qidx, discs, *,
 
 def value_estimate(prep, z0, actions, eps, qidx, discs, *,
                    log_std_min: float, log_std_dif: float,
-                   simnorm_dim: int = 8, episodic: bool = False):
+                   simnorm_dim: int = 8, episodic: bool = False, term_at=None):
     """The value kernel on CUDA tensors, its plain version on CPU tensors.
 
     N envs in one launch (N=1 for one env): z0 [N, S, L] f32; actions
@@ -235,15 +325,20 @@ def value_estimate(prep, z0, actions, eps, qidx, discs, *,
     f32 -> value [N, S, 1] f32. Any strides on the env and row axes (the
     planner passes a broadcast latent, stride 0, and permuted or strided
     views of its samples and noise); unit stride on the last axis, and eps
-    rows contiguous.
+    rows contiguous. `episodic` needs the termination head's weights in
+    `prep`. `term_at`, a contiguous int32 [N, S] tensor or None, receives
+    the step 1..H at which each row's termination flag was set, or 0 (for
+    checks of the gate).
     """
-    if episodic:
-        raise NotImplementedError('episodic value estimate (termination head)')
+    if episodic and any(k not in prep for k in TERM_NAMES):
+        raise ValueError('value_estimate: episodic=True needs the termination '
+                         'head in prep (prepare_value_params with cfg.episodic)')
     dev = z0.device
     if dev.type == 'cpu':
         return value_estimate_plain(
             prep, z0, actions, eps, qidx, discs, log_std_min=log_std_min,
-            log_std_dif=log_std_dif, simnorm_dim=simnorm_dim)
+            log_std_dif=log_std_dif, simnorm_dim=simnorm_dim,
+            episodic=episodic, term_at=term_at)
     if dev.type != 'cuda':
         raise ValueError(f'value_estimate: unsupported device {dev}')
     check_prep(prep, dev, simnorm_dim)
@@ -270,15 +365,21 @@ def value_estimate(prep, z0, actions, eps, qidx, discs, *,
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError('value_estimate: z0/actions must be f32 on the '
                              'weights\' device')
+    if term_at is not None and (
+            term_at.device != dev or term_at.dtype != torch.int32
+            or tuple(term_at.shape) != (N, S) or not term_at.is_contiguous()):
+        raise ValueError(f'value_estimate: term_at must be a contiguous int32 '
+                         f'{(N, S)} tensor on {dev}')
     out = torch.empty(N, S, 1, dtype=torch.float32, device=dev)
     lib = _build.library('value')
     dims = (ctypes.c_int * 7)(*prep_dims(prep, simnorm_dim, H))
     rc = lib.tdm_value(
-        weight_ptrs(prep), dims, log_std_min, log_std_dif, N, S,
+        weight_ptrs(prep), dims, log_std_min, log_std_dif, int(episodic), N, S,
         z0.data_ptr(), z0.stride(0), z0.stride(1),
         actions.data_ptr(), actions.stride(0), actions.stride(1),
         actions.stride(2), eps.data_ptr(), eps.stride(0), qidx.data_ptr(),
         qidx.stride(0), discs.data_ptr(), discs.stride(0), out.data_ptr(),
+        None if term_at is None else term_at.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, 'value kernel')
     value_estimate.launches += 1
@@ -286,3 +387,13 @@ def value_estimate(prep, z0, actions, eps, qidx, discs, *,
 
 
 value_estimate.launches = 0
+
+
+def kernel_occupancy(prep, simnorm_dim: int = 8, horizon: int = 3) -> tuple:
+    """(shared-memory bytes of one value-kernel block, blocks that fit one
+    SM) for these weights' dims, as the built kernel reports them."""
+    lib = _build.library('value')
+    dims = (ctypes.c_int * 7)(*prep_dims(prep, simnorm_dim, horizon))
+    out = (ctypes.c_int * 2)()
+    _build.check(lib, lib.tdm_value_occupancy(dims, out), 'value occupancy')
+    return out[0], out[1]

@@ -9,14 +9,17 @@ one elite's first action. The loop runs on the hand-written kernels of
 ops/cem.py on the card, one launch per step for all N envs, and on their
 plain versions on the CPU. The encoder, the final top-k and the Gumbel
 pick are plain torch, as they are plain XLA in the JAX package. Each env
-keeps its own warm-start mean (`prev_mean` [max(1, num_envs), H, A]).
+keeps its own warm-start mean (`prev_mean` [max(1, num_envs), H, A]). On
+episodic tasks (`cfg.episodic`) the value step gates later rewards and
+the terminal Q by the termination head's sticky flag.
 
 `update` is one training step (`_update`, tdmpc2.py:928-1057): TD targets
 without gradient, the consistency, reward and value losses, the model's
 Adam step, the policy loss with the running Q scale on the updated
 weights, the policy's Adam step and the Polyak update of the target Q
-heads. It is plain autograd, as it is plain XLA in the JAX package. The
-step updates the train state in place and keeps its info on the device.
+heads, and on episodic tasks the termination loss. It is plain autograd,
+as it is plain XLA in the JAX package. The step updates the train state in
+place and keeps its info on the device.
 `update_many` takes n such steps on n batches drawn at once
 (`Buffer.sample_many`), the vectorised trainer's schedule.
 
@@ -112,8 +115,6 @@ class TDMPC2:
         'multitask', 'task_dim', 'simnorm_dim', 'model_size')
 
     def __init__(self, cfg, device=None):
-        if cfg.episodic:
-            raise NotImplementedError('episodic tasks: later part of the port')
         self.cfg = cfg
         self.device = device_of(device or cfg.device)
         # the kernel-engine canary before anything runs on the card (the
@@ -318,7 +319,8 @@ class TDMPC2:
             n_pi=cfg.num_pi_trajs, num_elites=E, temperature=cfg.temperature,
             min_std=cfg.min_std, max_std=cfg.max_std,
             log_std_min=self.model.log_std_min,
-            log_std_dif=self.model.log_std_dif, simnorm_dim=cfg.simnorm_dim)
+            log_std_dif=self.model.log_std_dif, simnorm_dim=cfg.simnorm_dim,
+            episodic=cfg.episodic)
         # each env's last-iteration elites + Gumbel pick (JAX tdmpc2.py:630-641)
         elite_value, elite_idx = torch.topk(value[..., 0], E, dim=-1)
         score = torch.exp(cfg.temperature * (
@@ -337,19 +339,25 @@ class TDMPC2:
         """H-step value through the model heads, the JAX agent's plain
         branch (tdmpc2.py:498-521): z [S, L]; actions [H, S, A];
         eps [S, A]; qidx [2] -> [S, 1]. A reference for the planner's value
-        step; the planner itself runs ops/value.py."""
+        step; the planner itself runs ops/value.py. On episodic tasks a
+        sticky flag, set where the termination probability of the new
+        latent exceeds 0.5, zeroes later rewards and the terminal Q."""
         params, cfg = self.params, self.cfg
         G = torch.zeros(z.shape[0], 1, device=z.device)
+        term = torch.zeros_like(G)
         disc = 1.0
         for a_t in actions:
             r = math.two_hot_inv(self.model.reward(params, z, a_t),
                                  cfg.num_bins, cfg.vmin, cfg.vmax)
             z = self.model.next(params, z, a_t)
-            G = G + disc * r
+            G = G + disc * (1.0 - term) * r
             disc = disc * self.discount
+            if cfg.episodic:
+                hit = (self.model.termination(params, z) > 0.5).float()
+                term = torch.clamp(term + hit, max=1.0)
         action, _ = self.model.pi(params, z, eps)
         q = self.model.Q(params, z, action, qidx=qidx.long(), return_type='avg')
-        return G + disc * q
+        return G + disc * (1.0 - term) * q
 
     # ------------------------------------------------------------- learning
 
@@ -446,9 +454,17 @@ class TDMPC2:
         value_loss = torch.sum(torch.mean(
             math.soft_ce(qs, td_targets[None], cfg.num_bins, cfg.vmin,
                          cfg.vmax), dim=(2, 3)) * rho_t[None]) / (T * cfg.num_q)
-        total = (cfg.consistency_coef * consistency
-                 + cfg.reward_coef * reward_loss
-                 + cfg.value_coef * value_loss)
+        total = cfg.consistency_coef * consistency + cfg.reward_coef * reward_loss
+        if cfg.episodic:
+            # the termination head on the predicted latents z_1..z_T
+            # (JAX tdmpc2.py:977-987)
+            term_logit = model.termination(live, zs[1:], unnormalized=True)
+            termination_loss = torch.mean(
+                math.sigmoid_binary_cross_entropy(term_logit, terminated))
+            total = total + cfg.termination_coef * termination_loss
+        else:
+            termination_loss = torch.zeros((), device=total.device)
+        total = total + cfg.value_coef * value_loss
         groups = optim.model_groups(live)
         flat = {g: tree.leaves(p) for g, p in groups.items()}
         grads = torch.autograd.grad(total, flat['enc'] + flat['rest'])
@@ -477,11 +493,11 @@ class TDMPC2:
         # -- Polyak target update (reference tdmpc2.py:316)
         optim.polyak_(state.target_Qs, state.params['Qs'], cfg.tau)
         state.scale = new_scale
-        return {
+        out = {
             'consistency_loss': consistency.detach(),
             'reward_loss': reward_loss.detach(),
             'value_loss': value_loss.detach(),
-            'termination_loss': torch.zeros((), device=total.device),
+            'termination_loss': termination_loss.detach(),
             'total_loss': total.detach(),
             'grad_norm': grad_norm,
             'pi_loss': pi_loss.detach(),
@@ -490,6 +506,10 @@ class TDMPC2:
             'pi_scaled_entropy': info['scaled_entropy'].detach().mean(),
             'pi_scale': new_scale,
         }
+        if cfg.episodic:
+            out.update(math.termination_statistics(
+                torch.sigmoid(term_logit[-1].detach()), terminated[-1]))
+        return out
 
 
 def _canon(v):

@@ -3,6 +3,7 @@
 Usage:
     python -m tdmpc2_tpu_torch.train task=toy-reach
     python -m tdmpc2_tpu_torch.train task=toy-reach num_envs=8
+    python -m tdmpc2_tpu_torch.train task=toy-reach-episodic episodic=true
     python -m tdmpc2_tpu_torch.train task=toy-reach steps=2000 device=cpu
 
 Collects with the planner (the CUDA kernels on the card, their plain

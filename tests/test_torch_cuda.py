@@ -12,7 +12,10 @@ held at 2e-2, the elite update (no dots) at 1e-4, sampling and the canary
 exactly. Every planner operand has a leading env axis (N=1 for one env);
 each planner kernel's env axis is held against its plain version and, bit
 for bit, against one-env launches. One update on the card is held
-against the CPU's (f32, TF32 off) at 1e-4."""
+against the CPU's (f32, TF32 off) at 1e-4. On an episodic agent the value
+kernel's termination gate is held under `ops.value.gate_check`: the 2e-2
+band where the flags agree, a flip only where the plain logit is within
+1e-2 of 0 (at most 1% of the rows)."""
 
 import numpy as np
 import pytest
@@ -22,7 +25,8 @@ from tdmpc2_tpu_torch.config import Config, parse_cfg
 from tdmpc2_tpu_torch.models.layers import simnorm
 from tdmpc2_tpu_torch.data.buffer import Buffer
 from tdmpc2_tpu_torch.ops import cem, probe, rollout
-from tdmpc2_tpu_torch.ops.value import (prepare_value_params, value_estimate,
+from tdmpc2_tpu_torch.ops.value import (gate_check, prepare_value_params,
+                                        termination_trace_plain, value_estimate,
                                         value_estimate_plain)
 from tdmpc2_tpu_torch.tdmpc2 import TDMPC2, UpdateNoise
 from tdmpc2_tpu_torch.utils import tree
@@ -320,3 +324,85 @@ def test_update_on_card_matches_cpu(agent):
         for a, b in zip(tree.leaves(getattr(got, name)),
                         tree.leaves(getattr(cpu.state, name))):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# ----------------------------------------------------------------- episodic
+
+
+@pytest.fixture(scope='module')
+def episodic_agent(agent):
+    """The module's agent on an episodic task, its termination head spread
+    (logit std 4 on one-step latents) and centred so that about half of
+    the H-step rollouts end flagged."""
+    cfg = agent.cfg.replace(episodic=True)
+    ag = TDMPC2(cfg)
+    g = torch.Generator().manual_seed(1)
+    params = tree.map(lambda t: t + 0.05 * torch.randn(t.shape, generator=g),
+                      ag.model.init(g))
+    ag.load_params(params)
+    dev, H, A = ag.device, cfg.horizon, cfg.action_dim
+    gd = torch.Generator(device=dev).manual_seed(5)
+    z = ag.model.encode(ag.params, torch.randn(1, 256, 10, device=dev, generator=gd))
+    acts = torch.rand(1, H, 256, A, device=dev, generator=gd) * 2 - 1
+    prep32 = prepare_value_params(ag.params, cfg, torch.float32)
+    logits, _ = termination_trace_plain(prep32, z, acts, ag.discs[None])
+    last = ag.params['termination'][-1]
+    scale = 4.0 / float(logits[:, 0].std())
+    last['w'].mul_(scale)
+    last['b'].mul_(scale).sub_(float((logits * scale).amax(1).median()))
+    ag._prep = None
+    return ag
+
+
+def _episodic_inputs(ag, n, seed):
+    cfg, dev = ag.cfg, ag.device
+    S, H, A = cfg.num_samples, cfg.horizon, cfg.action_dim
+    g = torch.Generator(device=dev).manual_seed(seed)
+    z = ag.model.encode(ag.params, torch.randn(n, 1, 10, device=dev, generator=g))
+    acts = torch.rand(n, S, H * A, device=dev, generator=g) * 2 - 1
+    qidx = torch.stack([torch.randperm(cfg.num_q, device=dev, generator=g)[:2]
+                        for _ in range(n)]).to(torch.int32)
+    return (ag.prep, z.expand(n, S, -1), acts.view(n, S, H, A).permute(0, 2, 1, 3),
+            torch.randn(n, S, A, device=dev, generator=g), qidx,
+            ag.discs.expand(n, -1))
+
+
+@pytest.mark.parametrize('n', [1, 4])
+def test_episodic_value_kernel_matches_plain_under_gate_rule(episodic_agent, n):
+    ag = episodic_agent
+    args = _episodic_inputs(ag, n, 6 + n)
+    N, S = n, ag.cfg.num_samples
+    k_at = torch.empty(N, S, dtype=torch.int32, device=ag.device)
+    p_at = torch.empty_like(k_at)
+    got = value_estimate(*args, **_heads(ag), episodic=True, term_at=k_at)
+    ref = value_estimate_plain(*args, **_heads(ag), episodic=True, term_at=p_at)
+    logits, at = termination_trace_plain(*args[:3], args[5])
+    torch.testing.assert_close(at, p_at, rtol=0, atol=0)
+    share = float((p_at > 0).float().mean())
+    assert 0.05 < share < 0.95, share            # the gate splits the rows
+    flips, bad = gate_check(got, ref, k_at, p_at, logits, **BAND)
+    assert bad == 0 and flips <= 0.01 * N * S, (flips, bad)
+    # the gate changes the value: not the non-episodic launch's
+    assert not torch.allclose(got, value_estimate(*args, **_heads(ag)), **BAND)
+
+
+def test_episodic_n_env_launch_equals_single_env_launches(episodic_agent):
+    ag, n = episodic_agent, 4
+    args = _episodic_inputs(ag, n, 11)
+    S = ag.cfg.num_samples
+    k_at = torch.empty(n, S, dtype=torch.int32, device=ag.device)
+    got = value_estimate(*args, **_heads(ag), episodic=True, term_at=k_at)
+    for i in range(n):
+        one_at = torch.empty(1, S, dtype=torch.int32, device=ag.device)
+        one = value_estimate(args[0], *[a[i:i + 1] for a in args[1:]], **_heads(ag),
+                             episodic=True, term_at=one_at)
+        assert torch.equal(got[i:i + 1], one) and torch.equal(k_at[i:i + 1], one_at)
+
+
+def test_episodic_act_on_card(episodic_agent):
+    ag, n = episodic_agent, 4
+    launches = value_estimate.launches
+    ag.prev_mean = torch.zeros(n, ag.cfg.horizon, ag.cfg.action_dim, device=ag.device)
+    a = ag.act(np.zeros((n, 10), np.float32), t0=True)
+    assert a.shape == (n, ag.cfg.action_dim) and np.isfinite(a).all()
+    assert value_estimate.launches == launches + ag.iterations

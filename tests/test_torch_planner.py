@@ -134,8 +134,6 @@ def test_wrappers_refuse_unsupported_input(agents):
     a = torch.zeros(1, 3, 4, 4)
     args = (prep, z, a, torch.zeros(1, 4, 4),
             torch.zeros(1, 2, dtype=torch.int32), tagent.discs[None])
-    with pytest.raises(NotImplementedError):
-        value_estimate(*args, episodic=True, **_heads(tagent))
     meta = [t.to('meta') if isinstance(t, torch.Tensor) else t for t in args]
     with pytest.raises(ValueError, match='unsupported device'):
         value_estimate(*meta, **_heads(tagent))

@@ -252,11 +252,16 @@ def _hold_states(got, ref, tol=UPD):
             np.testing.assert_allclose(a.numpy(), b.numpy(), **tol, err_msg=name)
 
 
-@pytest.mark.parametrize('case', ['dropout0', 'dropout', 'perturbed'])
+@pytest.mark.parametrize('case', ['dropout0', 'dropout', 'perturbed',
+                                  'episodic'])
 def test_update_matches_jax_update(case):
+    """'episodic' adds the termination head and its loss, and sets a fifth
+    of `terminated`, which the TD target's (1 - terminated) reads."""
     kw = dict(dropout=0.0) if case == 'dropout0' else dict(dropout=0.01)
     if case == 'dropout':
         kw['num_bins'] = 5
+    if case == 'episodic':
+        kw['episodic'] = True
     jcfg, tcfg = _cfgs(**kw)
     jag, tag = JTDMPC2(jcfg), TDMPC2(tcfg)
     jstate = jag.state
@@ -275,8 +280,11 @@ def test_update_matches_jax_update(case):
             lambda x: 0.9 * x, params['Qs']))
     rng = np.random.default_rng(6)
     T = jcfg.horizon
+    terminated = np.zeros((T, B, 1))
+    if case == 'episodic':
+        terminated.flat[rng.permutation(terminated.size)[:terminated.size // 5]] = 1
     batch = (rng.normal(size=(T + 1, B, OBS)), rng.uniform(-1, 1, (T, B, ACT)),
-             rng.uniform(0, 1, (T, B, 1)), np.zeros((T, B, 1)))
+             rng.uniform(0, 1, (T, B, 1)), terminated)
     batch = tuple(x.astype(np.float32) for x in batch)
     tstate = state_from_jax(jstate)
     _hold_states(tstate, state_from_jax(jstate), dict(rtol=0, atol=0))
@@ -294,6 +302,8 @@ def test_update_matches_jax_update(case):
     assert int(tstate.opt_state['enc']['count']) == 5
     if case == 'perturbed':
         assert float(tinfo['pi_scale']) != 1.0
+    if case == 'episodic':
+        assert float(tinfo['termination_loss']) > 0.0
 
 
 def test_agent_update_from_buffer_and_checkpoint_round_trip(tmp_path):
