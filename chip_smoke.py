@@ -2,6 +2,8 @@
 """Smoke test of the PyTorch port on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare DIR   # the row-tile kernels against DIR's
+    python3 chip_smoke.py --cycles        # a value-kernel block's cycles
 
 Builds the port's CUDA kernels from `tdmpc2_tpu_torch/csrc` with nvcc,
 runs the kernel-engine canary, holds every kernel against its plain
@@ -31,17 +33,30 @@ versions and, bit for bit, against 8 one-env launches, and the whole
 8-env plan against the plain loop. The value kernel's episodic branch is
 held at one env and at N=8 under the gate rule (see VALUE_TOL), its N=8
 launch against 8 one-env launches, and the episodic 8-env plan against
-the plain loop. Then one update on the card is held against the same
-update on the CPU (and one episodic update), and the training paths are timed
+the plain loop. The row-tile kernels' plans (rows per block, shared
+memory, ring stages, blocks per SM) and `-Xptxas -v` registers and spills
+are printed, and the value kernel (both branches) and the pi rollout are
+held against their plain versions at the widths of model_size 1, 5, 19 and
+48 (one env), with the weight prep's packing timed. Then one update on the
+card is held against the same update on the CPU (and one episodic update),
+and the training paths are timed
 (update steps/s, env-steps/s, and the shares of an env step spent in
 `act` and in `update`; plans/s of batched `act` at N = 1, 8, 16). Phases
 print one progress line each. It ends with the card's name and power
 limit, one JSON line of per-kernel numbers (launches on each path, error
 against the plain version, kernel, plain and library times at N=8 and
-one env, the card's least time for the same work), and last
+one env by CUDA events, each kernel's own device time by torch.profiler,
+the card's least time for the same work), and last
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero before
 that line; so does a machine without CUDA, or a directory without the
 port's package. A watchdog turns a hang into an exit with a traceback.
+
+`--compare DIR` times the row-tile kernels (value, its episodic branch, pi
+rollout, rollout; one env and N=8) of another version of the port,
+unpacked in DIR, against this tree's on the same inputs, in four processes
+in the order DIR, this, this, DIR, and prints the ratios. `--cycles`
+builds the value kernel with its cycle counters (csrc/mlp_rows.cuh
+TDM_CYCLES) and prints where block 0 spends its cycles at the default model.
 """
 
 from __future__ import annotations
@@ -66,6 +81,7 @@ EP_TASK = 'toy-reach-episodic'
 EP_ARGS = [f'task={EP_TASK}', 'episodic=true']
 MAX_EP_LEN = 50            # toy-reach's time limit
 EP_EVAL_EPISODES = 16      # episodic evaluate: the trained agent ends some early
+SWEEP_SIZES = (1, 5, 19, 48)  # model sizes whose widths the kernels must run
 
 # Bands of kernel against plain version. Both round every dot input to
 # bf16 and accumulate in f32; they differ in summation order and in the
@@ -172,6 +188,19 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn, reps):
+    """Mean ms of fn() over `reps` runs by the host clock, synchronised at
+    both ends, after one warm-up run."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
 def device_share(fn, reps):
     """(device-busy ms, device activities, top activities) per call of fn,
     from the kernel and copy events of a torch.profiler trace of `reps`
@@ -181,13 +210,18 @@ def device_share(fn, reps):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a trace now and then comes back without its device events: up to
+    # three tries
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev:
+            break
     if not dev:
         return None, 0, []
     by_name = {}
@@ -249,6 +283,16 @@ def split_termination(agent, g, rows=2048):
     agent._prep = None
 
 
+def sweep_scale(mlp_dim):
+    """The width sweep's perturbation: 0.05 at the default mlp_dim 512,
+    scaled by sqrt(512 / mlp_dim) so that every width's logits have the
+    default model's spread. A fixed 0.05 grows the bins' logits with the
+    square root of the width, and symexp amplifies each bf16 flip with
+    them, until the band between two versions that round alike measures
+    the weights' conditioning rather than the kernel."""
+    return 0.05 * math.sqrt(512 / mlp_dim)
+
+
 def flag_shares(term_at, horizon):
     """Share of the rows flagged by step t, for t = 1..H."""
     return [float(((term_at > 0) & (term_at <= t)).float().mean())
@@ -270,6 +314,159 @@ def hold_gated(name, got, want, got_at, want_at, logits, tol):
         raise AssertionError(f'{name}: {bad} rows outside the gate rule, {flips} '
                              f'flips (at most {GATE_FLIP_SHARE:.0%} allowed)')
     return err
+
+
+def time_kernels(root) -> int:
+    """`--time-kernels ROOT`: time the row-tile kernels of the port at ROOT
+    (this tree, or an older one unpacked elsewhere) on the main paths'
+    inputs, made from SEED, through the entry points that every version
+    has; prints one JSON line {name: [ms by CUDA events, the kernel's own
+    device ms by torch.profiler]}."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    from tdmpc2_tpu_torch import __file__ as pkg_file
+    from tdmpc2_tpu_torch.config import load_cfg
+    from tdmpc2_tpu_torch.envs import make_env
+    from tdmpc2_tpu_torch.models.layers import simnorm
+    from tdmpc2_tpu_torch.ops import cem, rollout, value
+    from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
+    if not pkg_file.startswith(os.path.abspath(root)):
+        raise AssertionError(f'imported {pkg_file}, not the tree at {root}')
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(SEED)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    agents = {}
+    for label, args in (('', ['task=toy-reach']), ('episodic', EP_ARGS)):
+        c = load_cfg(overrides=args + [f'seed={SEED}'])
+        make_env(c)
+        ag = TDMPC2(c, device='cuda')
+        ag.load_params(perturbed(ag.model.init(gen), gen))
+        if label:
+            split_termination(ag, g)
+        agents[label] = ag
+    ag, cfg = agents[''], agents[''].cfg
+    H, S, A, L, n_pi = (cfg.horizon, cfg.num_samples, cfg.action_dim,
+                        cfg.latent_dim, cfg.num_pi_trajs)
+    heads = dict(log_std_min=ag.model.log_std_min, log_std_dif=ag.model.log_std_dif,
+                 simnorm_dim=cfg.simnorm_dim)
+
+    def value_args(a, n):
+        return (a.prep, simnorm(torch.randn(n, S, L, device=dev, generator=g),
+                                cfg.simnorm_dim),
+                torch.rand(n, H, S, A, device=dev, generator=g) * 2 - 1,
+                torch.randn(n, S, A, device=dev, generator=g),
+                torch.stack([torch.randperm(cfg.num_q, device=dev, generator=g)[:2]
+                             for _ in range(n)]).to(torch.int32),
+                a.discs.expand(n, -1))
+    obs = torch.randn(N_ENVS, cfg.obs_shape['state'][0], device=dev, generator=g)
+    z_n = ag.model.encode(ag.params, obs)[:, None]
+    pi_eps = ag.draw_noise(N_ENVS).pi_eps[:, :n_pi]
+    prep_r = rollout.prepare_rollout_params(ag.params['dynamics'], ag.params['reward'],
+                                            L, cfg.vmin, cfg.vmax)
+    r_args = (prep_r, value_args(ag, 1)[1][0], value_args(ag, 1)[2][0])
+    ep = dict(heads, episodic=True)
+    calls = {
+        'value_n1': (value.value_estimate, value_args(ag, 1), heads),
+        f'value_n{N_ENVS}': (value.value_estimate, value_args(ag, N_ENVS), heads),
+        'value_episodic_n1': (value.value_estimate, value_args(agents['episodic'], 1), ep),
+        f'value_episodic_n{N_ENVS}': (value.value_estimate,
+                                      value_args(agents['episodic'], N_ENVS), ep),
+        'pi_rollout_n1': (cem.pi_rollout, (ag.prep, z_n[:1], pi_eps[:1]), heads),
+        f'pi_rollout_n{N_ENVS}': (cem.pi_rollout, (ag.prep, z_n, pi_eps), heads),
+        'rollout': (rollout.rollout_prepared, r_args,
+                    dict(horizon=H, discount=ag.discount, simnorm_dim=cfg.simnorm_dim)),
+    }
+    out = {}
+    for name, (fn, args, kw) in calls.items():
+        out[name] = [time_ms(lambda: fn(*args, **kw), 50),
+                     device_share(lambda: fn(*args, **kw), 20)[0]]
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def cycles() -> int:
+    """`--cycles`: where one block of the value kernel spends its cycles, at
+    the default 5M model (one env and N=8, S=512, non-episodic and
+    episodic): the kernel built with csrc/mlp_rows.cuh's TDM_CYCLES
+    counters (block 0, thread 0), driven through `value_estimate`."""
+    import ctypes
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+    from tdmpc2_tpu_torch.config import load_cfg
+    from tdmpc2_tpu_torch.envs import make_env
+    from tdmpc2_tpu_torch.models.layers import simnorm
+    from tdmpc2_tpu_torch.ops import _build, value
+    from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
+    flags = ('TDM_CYCLES',)
+    library = _build.library
+    _build.library = lambda name, defines=(): library(
+        name, flags if name == 'value' else defines)
+    lib = _build.library('value')
+    lib.tdm_cycles.argtypes = (ctypes.POINTER(ctypes.c_ulonglong),)
+    lib.tdm_cycles.restype = ctypes.c_int
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(SEED)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    names = ('kernel', 'waiting for weight stages', 'wide K loops (waits included)',
+             'wide epilogues', 'LayerNorm row statistics')
+    for label, args in (('', ['task=toy-reach']), ('episodic ', EP_ARGS)):
+        cfg = load_cfg(overrides=args + [f'seed={SEED}'])
+        make_env(cfg)
+        ag = TDMPC2(cfg, device='cuda')
+        ag.load_params(perturbed(ag.model.init(gen), gen))
+        heads = dict(log_std_min=ag.model.log_std_min,
+                     log_std_dif=ag.model.log_std_dif, simnorm_dim=cfg.simnorm_dim,
+                     episodic=bool(label))
+        H, S, A, L = cfg.horizon, cfg.num_samples, cfg.action_dim, cfg.latent_dim
+        for n in (1, N_ENVS):
+            v_args = (ag.prep, simnorm(torch.randn(n, S, L, device=dev, generator=g),
+                                       cfg.simnorm_dim),
+                      torch.rand(n, H, S, A, device=dev, generator=g) * 2 - 1,
+                      torch.randn(n, S, A, device=dev, generator=g),
+                      torch.tensor([[1, 3]] * n, dtype=torch.int32, device=dev),
+                      ag.discs.expand(n, -1))
+            value.value_estimate(*v_args, **heads)
+            torch.cuda.synchronize()
+            out = (ctypes.c_ulonglong * 5)()
+            _build.check(lib, lib.tdm_cycles(out), 'cycle counters')
+            value.value_estimate(*v_args, **heads)
+            torch.cuda.synchronize()
+            _build.check(lib, lib.tdm_cycles(out), 'cycle counters')
+            ms = time_ms(lambda: value.value_estimate(*v_args, **heads), 20)
+            log(f'[cycles] value kernel, {label}N={n}: {ms:.4f} ms a launch with the '
+                'counters (CUDA events); block 0: ' + ', '.join(
+                    f'{k} {out[i]} ({100 * out[i] / out[0]:.1f}%)'
+                    for i, k in enumerate(names)))
+    log(nvidia_smi_line())
+    return 0
+
+
+def compare(prev_root) -> int:
+    """`--compare PREV`: the row-tile kernels of the tree at PREV (an older
+    version unpacked into a gitignored directory) against this tree's, in
+    four processes on the same card in the order PREV, this, this, PREV.
+    Prints each run's times and the ratio PREV / this of the means."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for root in (prev_root, here, here, prev_root):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), '--time-kernels',
+                            root], capture_output=True, text=True, timeout=900)
+        if r.returncode != 0:
+            print(r.stdout[-3000:], r.stderr[-3000:], file=sys.stderr)
+            return 1
+        runs.append((root, json.loads(r.stdout.strip().splitlines()[-1])))
+        log(f'[compare] {"prev" if root == prev_root else "this"} ({root}): '
+            f'{json.dumps(runs[-1][1])}')
+    ratios = {}
+    for name in runs[0][1]:
+        old = [t[name][0] for root, t in runs if root == prev_root]
+        new = [t[name][0] for root, t in runs if root != prev_root]
+        ratios[name] = sum(old) / sum(new)
+        log(f'[compare] {name}: prev {old} ms, this {new} ms, prev/this '
+            f'{ratios[name]:.2f}x (CUDA events)')
+    log(nvidia_smi_line())
+    log(json.dumps({'compare': ratios}))
+    return 0
 
 
 def main() -> int:
@@ -307,14 +504,17 @@ def main() -> int:
         log(f'  {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, '
             f'{torch.cuda.device_count()} device(s)')
 
+    usage = {}   # ptxas: function -> (registers, spill stores, spill loads)
     with Phase('build'):
-        for name, (secs, report) in _build.build().items():
+        for name, (secs, _) in _build.build().items():
             log(f'  {name}.cu built in {secs:.1f} s')
-            for line in report.splitlines():
-                if 'registers' in line or 'spill' in line:
-                    log(f'    {line.strip()}')
         for name in _build.SOURCES:
             _build.library(name)
+            for fn, (regs, st, ld) in _build.ptxas_usage(
+                    _build.ptxas_report(name)).items():
+                usage[fn] = (regs, st, ld)
+                log(f'    {name}.cu {fn}: {regs} registers, {st} bytes spill '
+                    f'stores, {ld} bytes spill loads')
 
     results = {}
     with Phase('canary: kernel_engine_alive (child process, then here)'):
@@ -354,6 +554,20 @@ def main() -> int:
             raise AssertionError('value: wrong shape or tied values')
         results['value'] = hold('value', v_k, v_p, VALUE_TOL)
         log(f'  value range [{float(v_p.min()):.3f}, {float(v_p.max()):.3f}]')
+
+    plans = {}
+    with Phase('row-tile plans of the tensor-core kernels (default 5M model)'):
+        for kname in ('value', 'pi_rollout', 'rollout'):
+            plans[kname] = value.kernel_plan(prep, cfg.simnorm_dim, H, kname)
+            regs = {k: v for k, v in usage.items() if k.startswith(kname + '_kernel<')}
+            log(f'  {kname}_kernel: RT={plans[kname]["rt"]}, '
+                f'{plans[kname]["smem_bytes"]} bytes of shared memory, '
+                f'{plans[kname]["stages"]} ring stages, '
+                f'{plans[kname]["blocks_per_sm"]} block(s) per SM; ptxas {regs}')
+            if plans[kname]['blocks_per_sm'] < 1:
+                raise AssertionError(f'{kname}: no block fits an SM')
+        log(f'  device functions: '
+            f'{ {k: v for k, v in usage.items() if "_layer<" in k} }')
 
     with Phase('plain value (f32) vs the model heads (f32)'):
         prep32 = value.prepare_value_params(agent.params, cfg, torch.float32)
@@ -512,11 +726,11 @@ def main() -> int:
 
     with Phase(f'episodic value kernel vs plain under the gate rule (one env '
                f'and N={NE})'):
-        smem, per_sm = value.kernel_occupancy(e_prep, cfg.simnorm_dim, H)
-        log(f'  value kernel block: {smem} bytes of shared memory (RowSmem::bytes), '
-            f'{per_sm} blocks per SM')
-        if per_sm < 2:
-            raise AssertionError('value kernel: fewer than two blocks fit an SM')
+        e_plan = value.kernel_plan(e_prep, cfg.simnorm_dim, H)
+        log(f'  value kernel plan: {e_plan} (the same as without the head: the '
+            'plan depends on the widths only)')
+        if e_plan != plans['value']:
+            raise AssertionError('value kernel: the episodic plan differs')
         ev1_args, evn_args = episodic_value_args(1), episodic_value_args(NE)
         errs = []
         for label, args in (('one env', ev1_args), (f'N={NE}', evn_args)):
@@ -578,6 +792,64 @@ def main() -> int:
             e_discs_n, cfg.simnorm_dim)
         log(f'  the last iteration\'s samples flagged by step t=1..{H} (plain): '
             + ', '.join(f'{100 * x:.1f}%' for x in flag_shares(at, H)))
+
+    sweep = {}
+    with Phase(f'width sweep: value (and its episodic branch) and pi rollout kernels '
+               f'vs plain at model_size {SWEEP_SIZES}, one env, S={S}'):
+        for size in SWEEP_SIZES:
+            wcfg = load_cfg(overrides=EP_ARGS + [f'seed={SEED}', f'model_size={size}'])
+            make_env(wcfg)
+            w_agent = TDMPC2(wcfg, device='cuda')
+            # generators of its own: the later phases' draws stay as they were
+            wg = torch.Generator().manual_seed(SEED + size)
+            wgd = torch.Generator(device=dev).manual_seed(SEED + size)
+            w_agent.load_params(perturbed(w_agent.model.init(wg), wg,
+                                          sweep_scale(wcfg.mlp_dim)))
+            split_termination(w_agent, wgd)
+            w_prep, wL = w_agent.prep, wcfg.latent_dim
+            wplan = value.kernel_plan(w_prep, wcfg.simnorm_dim, H)
+            w_args = (w_prep,
+                      simnorm(torch.randn(1, S, wL, device=dev, generator=wgd),
+                              wcfg.simnorm_dim),
+                      torch.rand(1, H, S, A, device=dev, generator=wgd) * 2 - 1,
+                      torch.randn(1, S, A, device=dev, generator=wgd),
+                      torch.randperm(wcfg.num_q, device=dev,
+                                     generator=wgd)[None, :2].to(torch.int32),
+                      w_agent.discs[None])
+            tag = f'model_size {size} (L={wL}, M={wcfg.mlp_dim}, num_q={wcfg.num_q})'
+            err_v = hold(f'{tag} value', value.value_estimate(*w_args, **heads),
+                         value.value_estimate_plain(*w_args, **heads), VALUE_TOL)
+            k_at, p_at = term_at_like(w_args), term_at_like(w_args)
+            vk = value.value_estimate(*w_args, **heads, episodic=True, term_at=k_at)
+            vp = value.value_estimate_plain(*w_args, **heads, episodic=True,
+                                            term_at=p_at)
+            logits, _ = value.termination_trace_plain(*w_args[:3], w_args[5],
+                                                      wcfg.simnorm_dim)
+            err_e = hold_gated(f'{tag} value episodic', vk, vp, k_at, p_at, logits,
+                               VALUE_TOL)
+            zw = w_agent.model.encode(w_agent.params, obs)
+            pi_w = (w_prep, zw[None], w_agent.draw_noise().pi_eps[:, :n_pi])
+            err_p = hold(f'{tag} pi_rollout', cem.pi_rollout(*pi_w, **heads),
+                         cem.pi_rollout_plain(*pi_w, **heads), PI_TOL)
+            ms = time_ms(lambda: value.value_estimate(*w_args, **heads), 20)
+            ms_pi = time_ms(lambda: cem.pi_rollout(*pi_w, **heads), 20)
+            sweep[size] = dict(plan=wplan, value_err=err_v, episodic_err=err_e,
+                               pi_err=err_p, value_ms=ms, pi_ms=ms_pi)
+            log(f'  {tag}: plan {wplan}; value kernel {ms:.4f} ms, pi rollout '
+                f'{ms_pi:.4f} ms (CUDA events)')
+            del w_agent, w_prep, w_args
+
+    with Phase('weight prep: prepare_value_params with its packed copies, 5M model'):
+        prep_ms = host_ms(lambda: value.prepare_value_params(agent.params, cfg), 20)
+        pack_ms = host_ms(lambda: [
+            value.pack_matrix(*[prep[p] for p in parts],
+                              cat_dim=-1 if k == 'pP2' else -2)
+            for k, parts in value.PACKED.items() if all(p in prep for p in parts)], 20)
+        busy, n_dev, _ = device_share(
+            lambda: value.prepare_value_params(agent.params, cfg), 5)
+        log(f'  prepare_value_params {prep_ms:.3f} ms, of it packing {pack_ms:.3f} ms '
+            f'(host clock, synchronised); device busy {busy} ms over {n_dev} '
+            'activities (torch.profiler)')
 
     wrappers = {'value': value.value_estimate,
                 'cem_pi_rollout': cem.pi_rollout,
@@ -1006,12 +1278,20 @@ def main() -> int:
                    'max_abs_err': results[name], 'n_envs': NE}
             for suffix, args in (('', an), ('_n1', a1)):
                 ms = time_ms(lambda: kern(*args, **kw), 50)
+                dev_ms = device_share(lambda: kern(*args, **kw), 20)[0]
                 plain_ms = time_ms(lambda: plain(*args, **kw), 10)
                 b_ms, b_by = bound(args)
-                row.update({f'ms{suffix}': ms, f'plain_ms{suffix}': plain_ms,
+                row.update({f'ms{suffix}': ms, f'device_ms{suffix}': dev_ms,
+                            f'plain_ms{suffix}': plain_ms,
                             f'bound_ms{suffix}': b_ms, f'bound_by{suffix}': b_by})
                 log(f'  {name} ({"N=%d" % NE if not suffix else "one env"}): kernel '
-                    f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})')
+                    f'{ms:.4f} ms (its own device time {dev_ms} ms), plain '
+                    f'{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})')
+            if name in ('value', 'value_episodic', 'cem_pi_rollout'):
+                kname = 'pi_rollout' if name == 'cem_pi_rollout' else 'value'
+                row['plan'] = plans[kname]
+                row['ptxas'] = {k: v for k, v in usage.items()
+                                if k.startswith(kname + '_kernel<')}
             row['library_ms'] = None
             kernels.append(row)
         others = {
@@ -1030,16 +1310,25 @@ def main() -> int:
         }
         for name, (kern, plain, lib, (b_ms, b_by), src, rpl, own) in others.items():
             ms = time_ms(kern, 50)
+            dev_ms = device_share(kern, 20)[0]
             plain_ms = time_ms(plain, 10)
             lib_ms = time_ms(lib, 50) if lib is not None else None
-            log(f'  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
-                f'library {lib_ms}, bound {b_ms:.6f} ms ({b_by})')
-            kernels.append({
+            lib_dev_ms = device_share(lib, 20)[0] if lib is not None else None
+            log(f'  {name}: kernel {ms:.4f} ms (its own device time {dev_ms} ms), '
+                f'plain {plain_ms:.4f} ms, library {lib_ms} ms (its kernel\'s device '
+                f'time {lib_dev_ms} ms), bound {b_ms:.6f} ms ({b_by})')
+            row = {
                 'name': name, 'route': 'cuda', 'source': src, 'replaces': rpl,
                 'launches': own[name],
                 'launches_by_path': {k: v[name] for k, v in paths.items()},
-                'max_abs_err': results[name], 'ms': ms, 'plain_ms': plain_ms,
-                'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': lib_ms})
+                'max_abs_err': results[name], 'ms': ms, 'device_ms': dev_ms,
+                'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
+                'library_ms': lib_ms, 'library_device_ms': lib_dev_ms}
+            if name == 'rollout':
+                row['plan'] = plans['rollout']
+                row['ptxas'] = {k: v for k, v in usage.items()
+                                if k.startswith('rollout_kernel<')}
+            kernels.append(row)
         for label, args, kw in (('one env', plan_args, plan_kw),
                                 (f'N={NE}', plan_n_args, plan_kw),
                                 (f'episodic N={NE}', e_plan_args, e_plan_kw)):
@@ -1058,4 +1347,10 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+    if len(sys.argv) == 3 and sys.argv[1] == '--time-kernels':
+        sys.exit(time_kernels(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == '--compare':
+        sys.exit(compare(sys.argv[2]))
+    if len(sys.argv) == 2 and sys.argv[1] == '--cycles':
+        sys.exit(cycles())
     sys.exit(main())

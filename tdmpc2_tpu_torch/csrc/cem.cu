@@ -11,7 +11,7 @@
 // a block belongs to one env, and every per-env operand is addressed
 // through an env stride. Per plan:
 //   pi_rollout_kernel  once: the n_pi policy-prior trajectories of each env,
-//                      ceil(n_pi / kRows) blocks per env
+//                      ceil(n_pi / RT) row tiles per env (one at n_pi = 24)
 //   then per iteration:
 //     sample_kernel    clip(mean + std * noise), policy rows overriding
 //     value_kernel     (value.cu) the value of every sample
@@ -21,39 +21,58 @@
 //
 // Bounds, default 5M model at S=512: the value step carries the plan
 // (~36 GFLOP over 6 iterations, ~36 us at 989 TFLOP/s). The pi rollout is
-// 24 rows of the same row-block code (value.cu's design note). The sample
-// and elite kernels move a few tens of KB, a few microseconds of launch
-// and latency each, and sit far below any throughput bound.
+// 24 rows on the tensor-core row-tile engine (mlp_rows.cuh): H steps of the
+// pi head and the dynamics, whose ~7.9 MB of packed weights its one block
+// per env streams from L2 (~0.07 ms at ~64 bytes a cycle); only the m-tiles
+// that hold rows are multiplied. The sample and elite kernels move a few
+// tens of KB, a few microseconds of launch and latency each, and sit far
+// below any throughput bound.
 #include "mlp_rows.cuh"
 
 namespace tdm {
 
-__global__ void __launch_bounds__(kThreads)
-pi_rollout_kernel(Weights w, Dims d, float lsmin, float lsdif, int n_pi, int blocks_per_env,
-                  const float* z0, long zn, const float* pi_eps, long pn, float* pi_acts) {
-  extern __shared__ float4 smem_f4[];
-  const RowSmem sm(reinterpret_cast<float*>(smem_f4), d);
+template <int RT, int NP>
+__global__ void __launch_bounds__(kBlock, 1)
+pi_rollout_kernel(Weights w, Dims d, Plan pl, float lsmin, float lsdif, int n_pi,
+                  int blocks_per_env, const float* z0, long zn, const float* pi_eps, long pn,
+                  float* pi_acts) {
+  extern __shared__ uint4 smem_u4[];
+  const Tile tl(smem_u4, pl, d);
+  const Heads hd(w, d, pl);
   const int env = blockIdx.x / blocks_per_env;
-  const int row0 = (blockIdx.x % blocks_per_env) * kRows;
-  const int nrows = min(kRows, n_pi - row0);
+  const int row0 = (blockIdx.x % blocks_per_env) * RT;
+  const int nrows = min(RT, n_pi - row0);
   const int HA = d.H * d.A;
   z0 += env * zn;
   pi_eps += env * pn;
   pi_acts += static_cast<long>(env) * n_pi * HA;
 
-  load_z(sm, d, z0, 0, row0, nrows);
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int t = 0; t < d.H; ++t) {
+      for (int i = 0; i < 3; ++i) tl.mats[n++] = hd.pi(i);
+      for (int i = 0; i < 3; ++i) tl.mats[n++] = hd.dyn(i);
+    }
+  }
+  load_z(tl, d, z0, 0, row0, nrows);
+  ring_init(tl, pl);
   __syncthreads();
+  if (threadIdx.x >= kThreads) {
+    produce(tl, pl, 6 * d.H);
+    return;
+  }
+  Stream st(tl, pl);
   for (int t = 0; t < d.H; ++t) {
-    pi_head_rows(sm, d, w);
-    for (int i = threadIdx.x; i < kRows * d.A; i += kThreads) {
+    pi_head<RT, NP>(st, tl, d, w, hd);
+    for (int i = threadIdx.x; i < RT * d.A; i += kThreads) {
       const int r = i / d.A, c = i % d.A;
       const float e = r < nrows ? pi_eps[(row0 + r) * HA + t * d.A + c] : 0.f;
-      const float a = pi_action(sm, d, r, c, e, lsmin, lsdif);
+      const float a = pi_action(tl, d, r, c, e, lsmin, lsdif);
       if (r < nrows) pi_acts[(row0 + r) * HA + t * d.A + c] = a;
-      sm.a[r * sm.ldA + c] = bf16r(a);
+      tl.z[r * tl.ldz + tl.Lp + c] = bf16_bits(a);
     }
-    __syncthreads();
-    dynamics_rows(sm, d, w);
+    sync_consumers();
+    dynamics<RT, NP>(st, tl, d, w, hd);
   }
 }
 
@@ -180,9 +199,23 @@ elite_kernel(const float* v_in, const float* acts, const float* amask, int S, in
   }
 }
 
+template <int RT, int NP>
+int launch_pi(const Weights& w, const Dims& d, const Plan& pl, float lsmin, float lsdif, int N,
+              int n_pi, const float* z0, long zn, const float* pi_eps, long pn, float* pi_acts,
+              cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      pi_rollout_kernel<RT, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks_per_env = (n_pi + RT - 1) / RT;
+  pi_rollout_kernel<RT, NP><<<N * blocks_per_env, kBlock, pl.bytes, stream>>>(
+      w, d, pl, lsmin, lsdif, n_pi, blocks_per_env, z0, zn, pi_eps, pn, pi_acts);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace tdm
 
-// Each launch function runs on `stream` and returns cudaGetLastError().
+// Each launch function runs on `stream` and returns cudaGetLastError()
+// (the pi rollout: kNoPlan when no row tile fits the widths).
 // pi rollout of env e: z0 + e*zn ([L]), pi_eps + e*pn ([n_pi, HA]);
 // pi_acts [N, n_pi, HA].
 extern "C" int tdm_pi_rollout(const void* const* wptrs, const int* dims, float lsmin,
@@ -190,17 +223,26 @@ extern "C" int tdm_pi_rollout(const void* const* wptrs, const int* dims, float l
                               const float* pi_eps, long pn, float* pi_acts, void* stream) {
   using namespace tdm;
   Weights w;
-  for (int i = 0; i < kNumWeights; ++i) w.p[i] = wptrs[i];
+  for (int i = 0; i < kNumOps; ++i) w.p[i] = wptrs[i];
   const Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6]};
-  const size_t smem = RowSmem::bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      pi_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks_per_env = (n_pi + kRows - 1) / kRows;
-  pi_rollout_kernel<<<N * blocks_per_env, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      w, d, lsmin, lsdif, n_pi, blocks_per_env, z0, zn, pi_eps, pn, pi_acts);
-  return static_cast<int>(cudaGetLastError());
+  const Plan pl = pick_plan(d);
+  if (pl.shape < 0) return kNoPlan;
+  return with_shape(pl.shape, [&](auto t) {
+    return launch_pi<decltype(t)::rt, decltype(t)::np>(w, d, pl, lsmin, lsdif, N, n_pi, z0, zn,
+                                                        pi_eps, pn, pi_acts,
+                                                        static_cast<cudaStream_t>(stream));
+  });
+}
+
+// out = {rows per block, shared bytes, ring stages, blocks per SM} of the
+// pi-rollout kernel at these dims; returns an error code.
+extern "C" int tdm_pi_rollout_plan(const int* dims, int* out) {
+  using namespace tdm;
+  const Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6]};
+  const Plan pl = pick_plan(d);
+  return with_shape(pl.shape, [&](auto t) {
+    return plan_report(pi_rollout_kernel<decltype(t)::rt, decltype(t)::np>, pl, out);
+  });
 }
 
 // mean/std [N, HA]; noise of env e: noise + e*nn ([S, HA]); pi_acts

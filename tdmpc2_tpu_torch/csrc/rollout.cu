@@ -6,75 +6,102 @@
 //   G   = sum_t discs[t] * symexp(two_hot(reward(z_t, a_t)))
 //   z_H = dyn(... dyn(z_0, a_0) ..., a_{H-1})        (f32, not rounded)
 //
-// It is value.cu without the policy and Q tail: the same row-block code
-// (mlp_rows.cuh), one block per kRows rows with every activation of the
-// rollout in shared memory, bf16 weights read from L2, dot inputs rounded
-// to bf16 and f32 accumulation as the TPU kernel does with
-// dot_dtype=bf16. The last dynamics step keeps its SimNorm output in f32,
-// because z_H is written out instead of feeding another dot.
+// It is value.cu's first half on the same row-tile engine (mlp_rows.cuh):
+// RT rows a block with every activation of the rollout in shared memory,
+// products on the tensor cores, packed bf16 weights streamed from L2 into
+// a ring of shared-memory stages by bulk copies, dot inputs rounded to bf16
+// and f32 sums as the TPU kernel does with dot_dtype=bf16. The last
+// dynamics step writes its SimNorm output to z_H in f32 from the
+// accumulators, because z_H is written out instead of feeding another dot.
 //
 // Bound: at the default 5M model, S=512, H=3 one call does ~4.2 GFLOP of
 // bf16-input products (~4.2 us at 989 TFLOP/s) against ~5 MB of weights,
-// latents and actions (~1.5 us at 3.35 TB/s): compute-bound. Like value.cu
-// this first version runs its products on the FMA pipes, far from that
-// bound; the tensor-core redesign of the row-block code serves both.
+// latents and actions (~1.5 us at 3.35 TB/s): compute-bound. Each block
+// streams the ~8 MB of packed reward and dynamics weights of the H steps
+// from L2, ~0.07 ms at ~64 bytes a cycle per SM.
 #include "mlp_rows.cuh"
 
 namespace tdm {
 
-__global__ void __launch_bounds__(kThreads)
-rollout_kernel(Weights w, Dims d, int S, const float* z0, long zs, const float* actions,
-               long ats, long ass, const float* discs, float* G_out, float* zH) {
-  extern __shared__ float4 smem_f4[];
-  const RowSmem sm(reinterpret_cast<float*>(smem_f4), d);
-  const int row0 = blockIdx.x * kRows;
-  const int nrows = min(kRows, S - row0);
-  float* G = sm.s0;   // discounted reward sum
-  float* r = sm.s1;   // decoded reward of the current step
+template <int RT, int NP>
+__global__ void __launch_bounds__(kBlock, 1)
+rollout_kernel(Weights w, Dims d, Plan pl, int S, const float* z0, long zs,
+               const float* actions, long ats, long ass, const float* discs, float* G_out,
+               float* zH) {
+  extern __shared__ uint4 smem_u4[];
+  const Tile tl(smem_u4, pl, d);
+  const Heads hd(w, d, pl);
+  const int row0 = blockIdx.x * RT;
+  const int nrows = min(RT, S - row0);
+  float* G = tl.s0;  // discounted reward sum
+  float* r = tl.s1;  // decoded reward of the current step
 
-  load_z(sm, d, z0, zs, row0, nrows);
-  if (threadIdx.x < kRows) G[threadIdx.x] = 0.f;
-  for (int t = 0; t < d.H; ++t) {
-    for (int i = threadIdx.x; i < kRows * d.A; i += kThreads) {
-      const int rr = i / d.A, c = i % d.A;
-      sm.a[rr * sm.ldA + c] =
-          rr < nrows ? bf16r(actions[t * ats + (row0 + rr) * ass + c]) : 0.f;
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int t = 0; t < d.H; ++t) {
+      for (int i = 0; i < 3; ++i) tl.mats[n++] = hd.rew(i);
+      for (int i = 0; i < 3; ++i) tl.mats[n++] = hd.dyn(i);
     }
-    __syncthreads();
-    hidden2(sm, d, sm.z, sm.ldL, d.L, w.bf(rWz), sm.a, sm.ldA, d.A, w.bf(rWa), w.f(rb0),
-            w.f(rg0), w.f(re0), w.bf(rW1), w.f(rb1), w.f(rg1), w.f(re1));
-    mm_rows(sm.h2, sm.ldM, d.M, w.bf(rW2), nullptr, 0, 0, nullptr, w.f(rb2), d.B, sm.lg,
-            sm.ldB);
-    __syncthreads();
-    two_hot_rows(sm.lg, sm.ldB, d.B, w.f(bins), r);
-    __syncthreads();
-    if (threadIdx.x < kRows) G[threadIdx.x] += discs[t] * r[threadIdx.x];
-    dynamics_rows(sm, d, w, t + 1 < d.H);
+  }
+  load_z(tl, d, z0, zs, row0, nrows);
+  if (threadIdx.x < RT) G[threadIdx.x] = 0.f;
+  ring_init(tl, pl);
+  __syncthreads();
+  if (threadIdx.x >= kThreads) {
+    produce(tl, pl, 6 * d.H);
+    return;
+  }
+  Stream st(tl, pl);
+  for (int t = 0; t < d.H; ++t) {
+    put_actions(tl, d, actions + t * ats, ass, row0, nrows);
+    reward<RT, NP>(st, tl, d, w, hd, r);
+    if (threadIdx.x < RT) G[threadIdx.x] += discs[t] * r[threadIdx.x];
+    const bool last = t + 1 == d.H;
+    dynamics<RT, NP>(st, tl, d, w, hd, last ? zH + static_cast<long>(row0) * d.L : nullptr,
+                     nrows);
   }
   if (threadIdx.x < nrows) G_out[row0 + threadIdx.x] = G[threadIdx.x];
-  for (int i = threadIdx.x; i < nrows * d.L; i += kThreads) {
-    const int rr = i / d.L, c = i % d.L;
-    zH[static_cast<long>(row0 + rr) * d.L + c] = sm.z[rr * sm.ldL + c];
-  }
+}
+
+template <int RT, int NP>
+int launch_rollout(const Weights& w, const Dims& d, const Plan& pl, int S, const float* z0,
+                   long zs, const float* actions, long ats, long ass, const float* discs,
+                   float* G, float* zH, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      rollout_kernel<RT, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rollout_kernel<RT, NP><<<(S + RT - 1) / RT, kBlock, pl.bytes, stream>>>(
+      w, d, pl, S, z0, zs, actions, ats, ass, discs, G, zH);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tdm
 
-// Launch on `stream`; returns cudaGetLastError() after the launch. Only
-// the dynamics and reward weights and `bins` of wptrs are read.
+// Launch on `stream`; returns cudaGetLastError() after the launch, or
+// kNoPlan when no row tile fits the widths. Only the dynamics and reward
+// operands and `bins` of wptrs are read.
 extern "C" int tdm_rollout(const void* const* wptrs, const int* dims, int S, const float* z0,
                            long zs, const float* actions, long ats, long ass,
                            const float* discs, float* G, float* zH, void* stream) {
   using namespace tdm;
   Weights w;
-  for (int i = 0; i < kNumWeights; ++i) w.p[i] = wptrs[i];
+  for (int i = 0; i < kNumOps; ++i) w.p[i] = wptrs[i];
   const Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6]};
-  const size_t smem = RowSmem::bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (S + kRows - 1) / kRows;
-  rollout_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      w, d, S, z0, zs, actions, ats, ass, discs, G, zH);
-  return static_cast<int>(cudaGetLastError());
+  const Plan pl = pick_plan(d);
+  if (pl.shape < 0) return kNoPlan;
+  return with_shape(pl.shape, [&](auto t) {
+    return launch_rollout<decltype(t)::rt, decltype(t)::np>(
+        w, d, pl, S, z0, zs, actions, ats, ass, discs, G, zH, static_cast<cudaStream_t>(stream));
+  });
+}
+
+// out = {rows per block, shared bytes, ring stages, blocks per SM} of the
+// rollout kernel at these dims; returns an error code.
+extern "C" int tdm_rollout_plan(const int* dims, int* out) {
+  using namespace tdm;
+  const Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6]};
+  const Plan pl = pick_plan(d);
+  return with_shape(pl.shape, [&](auto t) {
+    return plan_report(rollout_kernel<decltype(t)::rt, decltype(t)::np>, pl, out);
+  });
 }

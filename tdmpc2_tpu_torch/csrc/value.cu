@@ -17,40 +17,46 @@
 // set, or 0: how a check tells the kernel's gates from another version's.
 //
 // Env axis: as the TPU kernel's `blocks_per_env`, the grid holds N runs of
-// ceil(S / kRows) blocks, env = block / blocks_per_env, and a block never
-// straddles two envs (its last rows are masked when S % kRows != 0). Every
+// ceil(S / RT) blocks, env = block / blocks_per_env, and a block never
+// straddles two envs (its last rows are masked when S % RT != 0). Every
 // per-env operand is addressed through an env stride, so the planner's
-// broadcast latent and its strided per-iteration noise need no copies.
+// broadcast latent and its strided per-iteration noise need no copies. A
+// row's result does not depend on the other rows of its tile, so an N-env
+// launch equals N one-env launches bit for bit.
 //
 // Bound: at the default 5M model and S=512 one env's call does ~5.9 GFLOP of
 // bf16-input products over ~6 MB of weights: ~6.0 us at 989 TFLOP/s
-// against ~1.8 us at 3.35 TB/s, so the work is compute-bound. This first
-// version runs its products on the FMA pipes, not the tensor cores, and is
-// far from that bound. Its design: one block per kRows=8 rows keeps every
-// activation of the whole rollout in shared memory (nothing but the result
-// goes back to device memory); all blocks read the same bf16 weights, which
-// the 50 MB L2 holds, so device memory sees them about once per call. N
-// envs multiply the work by N and leave the weight bytes as they are.
+// against ~1.8 us at 3.35 TB/s, so the work is compute-bound on the card.
+// Each block, though, streams every weight of the step once (~11.5 MB of
+// packed bf16 at the default model) from L2, and one SM draws on the order
+// of 64 bytes a cycle from it: no block finishes under ~0.1 ms. The design
+// (mlp_rows.cuh): RT rows a block (32 at the default model: 16 blocks at
+// one env, 128 at N=8, one wave on 132 SMs), every product on the tensor
+// cores (mma.sync), weights streamed into a ring of shared-memory stages by
+// a producer warp's bulk copies while the consumer warps multiply the
+// stages before, every activation of the rollout in shared memory.
 // The termination head (episodic) adds L*M + M*M + M multiply-adds per row
-// and step, ~27% at the default model, and reuses the hidden buffers: the
-// shared memory per block does not grow.
+// and step, ~27% at the default model, and reuses the hidden buffer.
 // The grouped SimNorm softmax is computed directly, where the TPU kernel
 // used a block-diagonal mask product.
 #include "mlp_rows.cuh"
 
 namespace tdm {
 
-__global__ void __launch_bounds__(kThreads)
-value_kernel(Weights w, Dims d, float lsmin, float lsdif, int episodic, int S,
-             int blocks_per_env,
-             const float* z0, long zn, long zs, const float* actions, long an, long ats,
-             long ass, const float* eps, long en, const int* qidx, long qn,
+template <int RT, int NP>
+__global__ void __launch_bounds__(kBlock, 1)
+value_kernel(Weights w, Dims d, Plan pl, float lsmin, float lsdif, int episodic, int S,
+             int blocks_per_env, const float* z0, long zn, long zs, const float* actions,
+             long an, long ats, long ass, const float* eps, long en, const int* qidx, long qn,
              const float* discs, long dn, float* out, int* term_at) {
-  extern __shared__ float4 smem_f4[];
-  const RowSmem sm(reinterpret_cast<float*>(smem_f4), d);
+  extern __shared__ uint4 smem_u4[];
+  TDM_CLOCK(t_kernel);
+  const Tile tl(smem_u4, pl, d);
+  const Heads hd(w, d, pl);
   const int env = blockIdx.x / blocks_per_env;
-  const int row0 = (blockIdx.x % blocks_per_env) * kRows;
-  const int nrows = min(kRows, S - row0);
+  const int row0 = (blockIdx.x % blocks_per_env) * RT;
+  const int nrows = min(RT, S - row0);
+  const int tid = threadIdx.x;
   z0 += env * zn;
   actions += env * an;
   eps += env * en;
@@ -58,90 +64,115 @@ value_kernel(Weights w, Dims d, float lsmin, float lsdif, int episodic, int S,
   discs += env * dn;
   out += static_cast<long>(env) * S;
   if (term_at != nullptr) term_at += static_cast<long>(env) * S;
-  float* G = sm.s0;   // discounted reward sum
-  float* r = sm.s1;   // decoded reward / Q of the current head
-  float* q = sm.s2;   // Q sum over the two heads
-  float* term = sm.s3;  // sticky termination flag, 0 or 1
+  float* G = tl.s0;     // discounted reward sum
+  float* r = tl.s1;     // decoded reward / Q of the current head
+  float* q = tl.s2;     // Q sum over the two heads
+  float* term = tl.s3;  // sticky termination flag, 0 or 1
+  int qh[2];
+  for (int j = 0; j < 2; ++j) qh[j] = min(max(qidx[j], 0), d.NQ - 1);
 
-  load_z(sm, d, z0, zs, row0, nrows);
-  if (threadIdx.x < kRows) {
-    G[threadIdx.x] = 0.f;
-    q[threadIdx.x] = 0.f;
-    term[threadIdx.x] = 0.f;
-    if (term_at != nullptr && threadIdx.x < nrows) term_at[row0 + threadIdx.x] = 0;
+  // the weight stream: every matrix in the order it is multiplied
+  int nmat = 0;
+  if (tid == 0) {
+    for (int t = 0; t < d.H; ++t) {
+      for (int i = 0; i < 3; ++i) tl.mats[nmat++] = hd.rew(i);
+      for (int i = 0; i < 3; ++i) tl.mats[nmat++] = hd.dyn(i);
+      if (episodic)
+        for (int i = 0; i < 3; ++i) tl.mats[nmat++] = hd.term(i);
+    }
+    for (int i = 0; i < 3; ++i) tl.mats[nmat++] = hd.pi(i);
+    for (int j = 0; j < 2; ++j)
+      for (int i = 0; i < 3; ++i) tl.mats[nmat++] = hd.q(i, qh[j]);
   }
+  nmat = (episodic ? 9 : 6) * d.H + 9;
+  load_z(tl, d, z0, zs, row0, nrows);
+  if (tid < RT) {
+    G[tid] = 0.f;
+    q[tid] = 0.f;
+    term[tid] = 0.f;
+    if (term_at != nullptr && tid < nrows) term_at[row0 + tid] = 0;
+  }
+  ring_init(tl, pl);
+  __syncthreads();
+  if (threadIdx.x >= kThreads) {
+    produce(tl, pl, nmat);
+    return;
+  }
+  Stream st(tl, pl);
+
   for (int t = 0; t < d.H; ++t) {
-    for (int i = threadIdx.x; i < kRows * d.A; i += kThreads) {
-      const int rr = i / d.A, c = i % d.A;
-      sm.a[rr * sm.ldA + c] =
-          rr < nrows ? bf16r(actions[t * ats + (row0 + rr) * ass + c]) : 0.f;
-    }
-    __syncthreads();
+    put_actions(tl, d, actions + t * ats, ass, row0, nrows);
     // reward head on (z_t, a_t)
-    hidden2(sm, d, sm.z, sm.ldL, d.L, w.bf(rWz), sm.a, sm.ldA, d.A, w.bf(rWa), w.f(rb0),
-            w.f(rg0), w.f(re0), w.bf(rW1), w.f(rb1), w.f(rg1), w.f(re1));
-    mm_rows(sm.h2, sm.ldM, d.M, w.bf(rW2), nullptr, 0, 0, nullptr, w.f(rb2), d.B, sm.lg,
-            sm.ldB);
-    __syncthreads();
-    two_hot_rows(sm.lg, sm.ldB, d.B, w.f(bins), r);
-    __syncthreads();
-    if (threadIdx.x < kRows) {
-      G[threadIdx.x] += discs[t] * ((1.f - term[threadIdx.x]) * r[threadIdx.x]);
-    }
+    reward<RT, NP>(st, tl, d, w, hd, r);
+    if (tid < RT) G[tid] += discs[t] * ((1.f - term[tid]) * r[tid]);
     // z_{t+1}
-    dynamics_rows(sm, d, w);
+    dynamics<RT, NP>(st, tl, d, w, hd);
     if (episodic) {
-      // the reward in r was consumed above: the logits go there
-      termination_rows(sm, d, w, r);
-      if (threadIdx.x < kRows) {
-        const float hit = r[threadIdx.x] > 0.f ? 1.f : 0.f;
-        if (term_at != nullptr && threadIdx.x < nrows && term[threadIdx.x] == 0.f &&
-            hit != 0.f) {
-          term_at[row0 + threadIdx.x] = t + 1;
+      hidden2<RT, NP>(st, tl, d, hd.term(0), hd.term(1), w.f(tb0), w.f(tg0),
+                      w.f(te0), w.f(tb1), w.f(tg1), w.f(te1));
+      st = narrow_layer<RT>(st, hd.term(2), tl.h, tl.ldh, tl.part, tl.head, tl.hp, 1,
+                            w.f(tb2), nullptr, 1);
+      if (tid < RT) {
+        const float hit = tl.head[tid * tl.hp] > 0.f ? 1.f : 0.f;
+        if (term_at != nullptr && tid < nrows && term[tid] == 0.f && hit != 0.f) {
+          term_at[row0 + tid] = t + 1;
         }
-        term[threadIdx.x] = fminf(term[threadIdx.x] + hit, 1.f);
+        term[tid] = fminf(term[tid] + hit, 1.f);
       }
     }
   }
 
-  // terminal policy prior action
-  pi_head_rows(sm, d, w);
-  for (int i = threadIdx.x; i < kRows * d.A; i += kThreads) {
+  // terminal policy prior action, into the action columns
+  pi_head<RT, NP>(st, tl, d, w, hd);
+  for (int i = tid; i < RT * d.A; i += kThreads) {
     const int rr = i / d.A, c = i % d.A;
     const float e = rr < nrows ? eps[(row0 + rr) * d.A + c] : 0.f;
-    sm.a[rr * sm.ldA + c] = bf16r(pi_action(sm, d, rr, c, e, lsmin, lsdif));
+    tl.z[rr * tl.ldz + tl.Lp + c] = bf16_bits(pi_action(tl, d, rr, c, e, lsmin, lsdif));
   }
-  __syncthreads();
+  sync_consumers();
 
   // the two Q heads named by qidx
   for (int j = 0; j < 2; ++j) {
-    const int h = min(max(qidx[j], 0), d.NQ - 1);
+    const int h = qh[j];
     const long M = d.M;
-    hidden2(sm, d, sm.z, sm.ldL, d.L, w.bf(qWz) + h * d.L * M, sm.a, sm.ldA, d.A,
-            w.bf(qWa) + h * d.A * M, w.f(qb0) + h * M, w.f(qg0) + h * M,
-            w.f(qe0) + h * M, w.bf(qW1) + h * M * M, w.f(qb1) + h * M, w.f(qg1) + h * M,
-            w.f(qe1) + h * M);
-    mm_rows(sm.h2, sm.ldM, d.M, w.bf(qW2) + h * M * d.B, nullptr, 0, 0, nullptr,
-            w.f(qb2) + static_cast<long>(h) * d.B, d.B, sm.lg, sm.ldB);
-    __syncthreads();
-    two_hot_rows(sm.lg, sm.ldB, d.B, w.f(bins), r);
-    __syncthreads();
-    if (threadIdx.x < kRows) q[threadIdx.x] += r[threadIdx.x];
-    __syncthreads();
+    hidden2<RT, NP>(st, tl, d, hd.q(0, h), hd.q(1, h), w.f(qb0) + h * M,
+                    w.f(qg0) + h * M, w.f(qe0) + h * M, w.f(qb1) + h * M, w.f(qg1) + h * M,
+                    w.f(qe1) + h * M);
+    Epi e{kTwoHot, d.B, w.f(qb2) + static_cast<long>(h) * d.B, nullptr, nullptr, w.f(bins),
+          0, nullptr, 0, nullptr, 0, 0, r};
+    st = wide<RT, NP>(st, hd.q(2, h), tl.h, tl.ldh, tl.red, e);
+    if (tid < RT) q[tid] += r[tid];
   }
-  if (threadIdx.x < nrows) {
-    out[row0 + threadIdx.x] =
-        G[threadIdx.x] + discs[d.H] * ((1.f - term[threadIdx.x]) * (q[threadIdx.x] / 2.f));
+  if (tid < nrows) {
+    out[row0 + tid] = G[tid] + discs[d.H] * ((1.f - term[tid]) * (q[tid] / 2.f));
   }
+  TDM_COUNT(0, t_kernel);
+}
+
+template <int RT, int NP>
+int launch_value(const Weights& w, const Dims& d, const Plan& pl, float lsmin, float lsdif,
+                 int episodic, int N, int S, const float* z0, long zn, long zs,
+                 const float* actions, long an, long ats, long ass, const float* eps, long en,
+                 const int* qidx, long qn, const float* discs, long dn, float* out,
+                 int* term_at, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      value_kernel<RT, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks_per_env = (S + RT - 1) / RT;
+  value_kernel<RT, NP><<<N * blocks_per_env, kBlock, pl.bytes, stream>>>(
+      w, d, pl, lsmin, lsdif, episodic, S, blocks_per_env, z0, zn, zs, actions, an, ats, ass,
+      eps, en, qidx, qn, discs, dn, out, term_at);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tdm
 
-// Launch on `stream`; returns cudaGetLastError() after the launch.
-// Operands of env e: z0 + e*zn (rows zs apart, 0 broadcasts one row),
-// actions + e*an ([H, S, A] with strides ats, ass, 1), eps + e*en ([S, A]),
-// qidx + e*qn ([2]), discs + e*dn ([H+1]); out [N, S]; term_at [N, S] or
-// null. `episodic` (0/1) needs the termination head's weights among wptrs.
+// Launch on `stream`; returns cudaGetLastError() after the launch, or
+// kNoPlan when no row tile fits the widths. Operands of env e: z0 + e*zn
+// (rows zs apart, 0 broadcasts one row), actions + e*an ([H, S, A] with
+// strides ats, ass, 1), eps + e*en ([S, A]), qidx + e*qn ([2]), discs +
+// e*dn ([H+1]); out [N, S]; term_at [N, S] or null. `episodic` (0/1) needs
+// the termination head's operands among wptrs.
 extern "C" int tdm_value(const void* const* wptrs, const int* dims, float lsmin, float lsdif,
                          int episodic, int N, int S, const float* z0, long zn, long zs,
                          const float* actions, long an, long ats, long ass, const float* eps,
@@ -149,29 +180,34 @@ extern "C" int tdm_value(const void* const* wptrs, const int* dims, float lsmin,
                          float* out, int* term_at, void* stream) {
   using namespace tdm;
   Weights w;
-  for (int i = 0; i < kNumWeights; ++i) w.p[i] = wptrs[i];
+  for (int i = 0; i < kNumOps; ++i) w.p[i] = wptrs[i];
   const Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6]};
-  const size_t smem = RowSmem::bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      value_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks_per_env = (S + kRows - 1) / kRows;
-  value_kernel<<<N * blocks_per_env, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      w, d, lsmin, lsdif, episodic, S, blocks_per_env, z0, zn, zs, actions, an, ats, ass,
-      eps, en, qidx, qn, discs, dn, out, term_at);
-  return static_cast<int>(cudaGetLastError());
+  const Plan pl = pick_plan(d);
+  if (pl.shape < 0) return kNoPlan;
+  return with_shape(pl.shape, [&](auto t) {
+    return launch_value<decltype(t)::rt, decltype(t)::np>(
+        w, d, pl, lsmin, lsdif, episodic, N, S, z0, zn, zs, actions, an, ats, ass, eps, en, qidx,
+        qn, discs, dn, out, term_at, static_cast<cudaStream_t>(stream));
+  });
 }
 
-// out[0] = shared-memory bytes of one block, out[1] = blocks of the value
-// kernel that fit one SM at that size; returns the CUDA error code.
-extern "C" int tdm_value_occupancy(const int* dims, int* out) {
+// out = {rows per block, shared bytes of one block, ring stages, blocks
+// per SM} of the value kernel at these dims; returns an error code.
+extern "C" int tdm_value_plan(const int* dims, int* out) {
   using namespace tdm;
   const Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6]};
-  const size_t smem = RowSmem::bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      value_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = static_cast<int>(smem);
-  return static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], value_kernel, kThreads, smem));
+  const Plan pl = pick_plan(d);
+  return with_shape(pl.shape, [&](auto t) {
+    return plan_report(value_kernel<decltype(t)::rt, decltype(t)::np>, pl, out);
+  });
 }
+
+#ifdef TDM_CYCLES
+// Copy the cycle counters (mlp_rows.cuh) to out[5] and reset them.
+extern "C" int tdm_cycles(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, tdm::g_cycles, sizeof(tdm::g_cycles));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[5] = {0, 0, 0, 0, 0};
+  return static_cast<int>(cudaMemcpyToSymbol(tdm::g_cycles, zero, sizeof(zero)));
+}
+#endif

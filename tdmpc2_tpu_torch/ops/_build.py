@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -34,7 +35,9 @@ _PTRS, _INTS = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     ('value', 'tdm_value'): (_PTRS, _INTS, _F, _F, _I, _I, _I, _P, _L, _L, _P,
                              _L, _L, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P),
-    ('value', 'tdm_value_occupancy'): (_INTS, _INTS),
+    ('value', 'tdm_value_plan'): (_INTS, _INTS),
+    ('cem', 'tdm_pi_rollout_plan'): (_INTS, _INTS),
+    ('rollout', 'tdm_rollout_plan'): (_INTS, _INTS),
     ('cem', 'tdm_pi_rollout'): (_PTRS, _INTS, _F, _F, _I, _I, _P, _L, _P, _L,
                                 _P, _P),
     ('cem', 'tdm_sample'): (_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P,
@@ -71,16 +74,19 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def target(name: str) -> Path:
-    return BUILD_DIR / f'{name}-{_digest()}.so'
+def target(name: str, defines=()) -> Path:
+    tag = ''.join(f'-{d.lower()}' for d in defines)
+    return BUILD_DIR / f'{name}{tag}-{_digest()}.so'
 
 
-def build(names=SOURCES) -> dict:
-    """Compile every library of `names` that is not built yet, all at once.
+def build(names=SOURCES, defines=()) -> dict:
+    """Compile every library of `names` that is not built yet, all at once,
+    with the preprocessor `defines` (a variant of its own, such as
+    TDM_CYCLES: csrc/mlp_rows.cuh's cycle counters).
 
     Returns {name: (seconds, ptxas report)} for the ones it compiled."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = [n for n in names if not target(n).exists()]
+    todo = [n for n in names if not target(n, defines).exists()]
     if not todo:
         return {}
     exe = nvcc()
@@ -88,7 +94,8 @@ def build(names=SOURCES) -> dict:
     t0 = time.perf_counter()
     for n in todo:
         tmp = BUILD_DIR / f'{n}.{os.getpid()}.tmp.so'
-        cmd = [exe, *FLAGS, '-o', str(tmp), str(CSRC / f'{n}.cu')]
+        cmd = [exe, *FLAGS, *[f'-D{d}' for d in defines], '-o', str(tmp),
+               str(CSRC / f'{n}.cu')]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
     report, failed = {}, []
@@ -97,19 +104,27 @@ def build(names=SOURCES) -> dict:
         if proc.returncode != 0:
             failed.append(f'{n}.cu (nvcc exit {proc.returncode}):\n{out}')
             continue
-        os.replace(tmp, target(n))
+        os.replace(tmp, target(n, defines))
+        target(n, defines).with_suffix('.ptxas.txt').write_text(out)
         report[n] = (time.perf_counter() - t0, out)
     if failed:
         raise RuntimeError('CUDA build failed:\n' + '\n'.join(failed))
     return report
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library `name`, built first if needed."""
-    lib = _loaded.get(name)
+def ptxas_report(name: str) -> str:
+    """The `-Xptxas -v` report of the built library `name` ('' if none)."""
+    p = target(name).with_suffix('.ptxas.txt')
+    return p.read_text() if p.exists() else ''
+
+
+def library(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library `name` (built with `defines`), built first if
+    needed."""
+    lib = _loaded.get((name, defines))
     if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(target(name)))
+        build((name,), defines)
+        lib = ctypes.CDLL(str(target(name, defines)))
         for (lname, fn), argtypes in SIGNATURES.items():
             if lname == name:
                 f = getattr(lib, fn)
@@ -117,12 +132,58 @@ def library(name: str) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
         lib.tdm_error_name.argtypes = (ctypes.c_int,)
         lib.tdm_error_name.restype = ctypes.c_char_p
-        _loaded[name] = lib
+        _loaded[(name, defines)] = lib
     return lib
 
 
-def check(lib: ctypes.CDLL, rc: int, what: str):
-    """Raise if a launch function returned a CUDA error."""
+# Returned by a launch function when no row tile fits the model's widths
+# (csrc/mlp_rows.cuh kNoPlan).
+NO_PLAN = 10000
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str, dims=None):
+    """Raise if a launch function returned an error: ValueError naming the
+    widths (`dims`, csrc/mlp_rows.cuh's Dims order) when no row tile fits
+    them, RuntimeError for a CUDA error."""
+    if rc == NO_PLAN:
+        names = ('L', 'M', 'A', 'B', 'num_q', 'simnorm_dim', 'H')
+        widths = ', '.join(f'{k}={v}' for k, v in zip(names, dims or ()))
+        raise ValueError(f'{what}: no row tile fits the widths ({widths}): '
+                         'the accumulators or shared memory are too small')
     if rc != 0:
         raise RuntimeError(
             f'{what}: {lib.tdm_error_name(rc).decode()} ({rc}) at launch')
+
+
+def _short(mangled: str) -> str:
+    """`value_kernel<32,4>` for a function of namespace tdm (its integer
+    template arguments, the row tile, in brackets); other names as they
+    are."""
+    k = re.search(r'tdm(\d+)', mangled)   # namespace tdm, then the name
+    if not k:
+        return mangled
+    end = k.end() + int(k.group(1))
+    args = re.match(r'I((?:Li\d+E)+)E', mangled[end:])
+    shape = ','.join(re.findall(r'Li(\d+)E', args.group(1))) if args else ''
+    return mangled[k.end():end] + (f'<{shape}>' if shape else '')
+
+
+def ptxas_usage(report: str) -> dict:
+    """{function: (registers, spill store bytes, spill load bytes)} from an
+    `nvcc -Xptxas -v` report, for kernels and the device functions they
+    call (registers None for the latter: ptxas reports them per kernel)."""
+    usage, fn, entry = {}, None, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = _short(m.group(1))
+        m = re.search(r'Function properties for (\w+)', line)
+        if m:
+            fn = _short(m.group(1))
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+        if m and fn:
+            usage[fn] = (usage.get(fn, (None,))[0], int(m.group(1)), int(m.group(2)))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and entry:
+            usage[entry] = (int(m.group(1)), *usage.get(entry, (None, 0, 0))[1:])
+    return usage

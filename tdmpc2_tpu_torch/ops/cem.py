@@ -104,7 +104,7 @@ def pi_rollout(prep, z0, pi_eps, *, log_std_min: float, log_std_dif: float,
                             N, n_pi, z0.data_ptr(), z0.stride(0),
                             pi_eps.data_ptr(), pi_eps.stride(0),
                             out.data_ptr(), _stream(dev))
-    _build.check(lib, rc, 'pi_rollout kernel')
+    _build.check(lib, rc, 'pi_rollout kernel', dims)
     pi_rollout.launches += 1
     return out
 

@@ -14,8 +14,9 @@ raises. The weights are laid out by `prepare_rollout_params` as for the
 value step (ops/value.py): the first layers split into latent and action
 rows. As there, SimNorm is a grouped softmax computed per group: the TPU
 kernel's block-diagonal mask product is not carried over, so no group mask
-is prepared. The kernel rounds every dot input to bf16 and accumulates in
-f32; the plain version rounds at the same places, to the weights' dtype.
+is prepared. The kernel reads the packed copies of a bf16 prep, rounds
+every dot input to bf16 and accumulates in f32; the plain version rounds
+at the same places, to the weights' dtype.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 from tdmpc2_tpu_torch.ops import _build
 # The rollout is the value step's first part: its weight prep and plain
 # version live in ops/value.py, which builds on them.
-from tdmpc2_tpu_torch.ops.value import (ROLLOUT_NAMES, check_prep,
+from tdmpc2_tpu_torch.ops.value import (ROLLOUT_KERNEL_NAMES, check_prep,
                                         prepare_rollout_params, rollout_plain,
                                         weight_ptrs)
 
@@ -61,7 +62,7 @@ def rollout_prepared(prep, z0, actions, *, horizon: int, discount: float,
                                       simnorm_dim=simnorm_dim)
     if dev.type != 'cuda':
         raise ValueError(f'rollout_prepared: unsupported device {dev}')
-    check_prep(prep, dev, simnorm_dim, ROLLOUT_NAMES)
+    check_prep(prep, dev, simnorm_dim, ROLLOUT_KERNEL_NAMES)
     L, M = prep['dWz'].shape
     A, B = prep['dWa'].shape[0], prep['rW2'].shape[1]
     if (horizon < 1 or actions.dim() != 3 or actions.shape[0] < horizon
@@ -85,7 +86,7 @@ def rollout_prepared(prep, z0, actions, *, horizon: int, discount: float,
         actions.data_ptr(), actions.stride(0), actions.stride(1),
         discs.data_ptr(), G.data_ptr(), zH.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, 'rollout kernel')
+    _build.check(lib, rc, 'rollout kernel', dims)
     rollout_prepared.launches += 1
     return G, zH
 

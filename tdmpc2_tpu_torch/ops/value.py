@@ -19,6 +19,11 @@ becomes term_{t+1} = min(term_t + (logit(z_{t+1}) > 0), 1), the
 termination head's logit on the new latent (pallas_rollout.py:503-510);
 otherwise term stays 0. The TPU kernel's block-diagonal mask product for
 SimNorm is not carried over: the grouped softmax is computed directly.
+
+The kernels read the matrices in a packed copy (`pack_matrix`) that the
+prep adds for bf16 weights: zero-padded to multiples of 16 and laid out in
+the order of the tensor-core fragments the kernels load
+(csrc/mlp_rows.cuh). The plain versions read the [in, out] matrices.
 """
 
 from __future__ import annotations
@@ -26,12 +31,12 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from tdmpc2_tpu_torch.models.layers import layer_norm, mish, simnorm
 from tdmpc2_tpu_torch.ops import _build
 
-# Operand order of the prepared weights; csrc/mlp_rows.cuh's WeightIndex
-# follows it.
+# The prepared weights the plain versions read.
 PREP_NAMES = (
     'dWz', 'dWa', 'db0', 'dg0', 'de0', 'dW1', 'db1', 'dg1', 'de1',
     'dW2', 'db2', 'dg2', 'de2',
@@ -47,12 +52,80 @@ PREP_NAMES = (
     'tW0', 'tb0', 'tg0', 'te0', 'tW1', 'tb1', 'tg1', 'te1', 'tW2', 'tb2',
 )
 
+# Operand order of the kernels: packed matrices (xP*) and f32 vectors;
+# csrc/mlp_rows.cuh's Op follows it. The termination head's come last.
+KERNEL_NAMES = (
+    'dP0', 'db0', 'dg0', 'de0', 'dP1', 'db1', 'dg1', 'de1',
+    'dP2', 'db2', 'dg2', 'de2',
+    'rP0', 'rb0', 'rg0', 're0', 'rP1', 'rb1', 'rg1', 're1', 'rP2', 'rb2',
+    'pP0', 'pb0', 'pg0', 'pe0', 'pP1', 'pb1', 'pg1', 'pe1', 'pP2', 'pbm',
+    'pbl',
+    'qP0', 'qb0', 'qg0', 'qe0', 'qP1', 'qb1', 'qg1', 'qe1', 'qP2', 'qb2',
+    'bins',
+    'tP0', 'tb0', 'tg0', 'te0', 'tP1', 'tb1', 'tg1', 'te1', 'tP2', 'tb2',
+)
+
+# Each packed matrix and the [in, out] matrices it is made of, stacked
+# along K (the z||a first layers) or, for the pi head's mean and log-std
+# columns, along N.
+PACKED = {
+    'dP0': ('dWz', 'dWa'), 'dP1': ('dW1',), 'dP2': ('dW2',),
+    'rP0': ('rWz', 'rWa'), 'rP1': ('rW1',), 'rP2': ('rW2',),
+    'pP0': ('pW0',), 'pP1': ('pW1',), 'pP2': ('pWm', 'pWl'),
+    'qP0': ('qWz', 'qWa'), 'qP1': ('qW1',), 'qP2': ('qW2',),
+    'tP0': ('tW0',), 'tP1': ('tW1',), 'tP2': ('tW2',),
+}
+
+# The termination head's weights (episodic tasks only).
 TERM_NAMES = tuple(k for k in PREP_NAMES if k[0] == 't')
 
 
-# The reward+dynamics operands (and `bins`), all that the rollout kernel
-# reads (ops/rollout.py).
+# The reward+dynamics operands (and `bins`), all that the rollout reads
+# (ops/rollout.py): the plain version's and the kernel's.
 ROLLOUT_NAMES = tuple(k for k in PREP_NAMES if k[0] in 'dr') + ('bins',)
+ROLLOUT_KERNEL_NAMES = tuple(k for k in KERNEL_NAMES if k[0] in 'dr') + ('bins',)
+
+
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def pack_matrix(*blocks, cat_dim: int = -2):
+    """The kernels' copy of a matrix given as blocks [..., K_i, N_i]
+    stacked along K (cat_dim=-2, each block's rows zero-padded to a
+    multiple of 16: the latent rows, then the action rows of a z||a
+    layer) or along N (cat_dim=-1). N is zero-padded to a multiple of 16,
+    and the result is flat in the order the kernels load it
+    (csrc/mlp_rows.cuh): for each 16-row k-tile kt and 16-column pair p,
+    32 lanes l = 4g + q of 8 values, value 4t + 2r + h being
+    W[16kt + 8r + 2q + h, 16p + 8t + g] (the mma B fragments of the pair's
+    two 8-column tiles). Leading axes (the stacked Q heads) stay."""
+    if cat_dim == -2:
+        W = torch.cat([F.pad(b, (0, 0, 0, _up16(b.shape[-2]) - b.shape[-2]))
+                       for b in blocks], dim=-2)
+    else:
+        W = torch.cat(blocks, dim=-1)
+        W = F.pad(W, (0, 0, 0, _up16(W.shape[-2]) - W.shape[-2]))
+    W = F.pad(W, (0, _up16(W.shape[-1]) - W.shape[-1]))
+    lead, (Kp, Np) = W.shape[:-2], W.shape[-2:]
+    n = len(lead)
+    # k = 16 kt + 8 r + 2 q + h, n = 16 p + 8 t + g
+    W = W.reshape(*lead, Kp // 16, 2, 4, 2, Np // 16, 2, 8)
+    order = (0, 4, 6, 2, 5, 1, 3)
+    W = W.permute(*range(n), *(n + i for i in order))
+    return W.reshape(*lead, -1).contiguous()
+
+
+def _add_packed(prep: dict, dot_dtype):
+    """Add the packed copies of prep's matrices (bf16 preps only: the
+    kernels take bf16; an f32 prep feeds the plain versions)."""
+    if dot_dtype != torch.bfloat16:
+        return prep
+    for k, parts in PACKED.items():
+        if k not in prep and all(p in prep for p in parts):
+            prep[k] = pack_matrix(*[prep[p] for p in parts],
+                                  cat_dim=-1 if k == 'pP2' else -2)
+    return prep
 
 
 def _casts(dot_dtype):
@@ -73,7 +146,7 @@ def prepare_rollout_params(dyn, rew, latent_dim: int, vmin: float,
     L = latent_dim
     w, f = _casts(dot_dtype)
     B = rew[2]['w'].shape[-1]
-    return {
+    return _add_packed({
         'dWz': w(dyn[0]['w'][:L]), 'dWa': w(dyn[0]['w'][L:]),
         'db0': f(dyn[0]['b']), 'dg0': f(dyn[0]['ln_w']), 'de0': f(dyn[0]['ln_b']),
         'dW1': w(dyn[1]['w']), 'db1': f(dyn[1]['b']),
@@ -87,7 +160,7 @@ def prepare_rollout_params(dyn, rew, latent_dim: int, vmin: float,
         'rW2': w(rew[2]['w']), 'rb2': f(rew[2]['b']),
         'bins': torch.linspace(vmin, vmax, B, dtype=torch.float32,
                                device=dyn[0]['w'].device),
-    }
+    }, dot_dtype)
 
 
 def prepare_value_params(params, cfg, dot_dtype=torch.bfloat16) -> dict:
@@ -96,7 +169,8 @@ def prepare_value_params(params, cfg, dot_dtype=torch.bfloat16) -> dict:
     Matrices go to `dot_dtype` (bf16 for the kernel; f32 gives the exact
     plain reference), everything else stays f32; all contiguous, on the
     params' device. Keys are PREP_NAMES, the termination head's
-    (TERM_NAMES) only when cfg.episodic.
+    (TERM_NAMES) only when cfg.episodic; a bf16 prep also holds the
+    kernels' packed matrices (PACKED).
     """
     L, A = cfg.latent_dim, cfg.action_dim
     pi, qs = params['pi'], params['Qs']
@@ -126,24 +200,29 @@ def prepare_value_params(params, cfg, dot_dtype=torch.bfloat16) -> dict:
             'tg1': f(trm[1]['ln_w']), 'te1': f(trm[1]['ln_b']),
             'tW2': w(trm[2]['w']), 'tb2': f(trm[2]['b']),
         })
-    return {k: prep[k] for k in PREP_NAMES if k in prep}
+    return _add_packed({k: prep[k] for k in (*PREP_NAMES, *PACKED)
+                        if k in prep}, dot_dtype)
 
 
 def prep_dims(prep, simnorm_dim: int, horizon: int) -> tuple:
     """(L, M, A, B, NQ, G, H), the order of csrc/mlp_rows.cuh's Dims."""
     L, M = prep['dWz'].shape
-    return (L, M, prep['dWa'].shape[0], prep['rW2'].shape[1],
-            prep['qWz'].shape[0], simnorm_dim, horizon)
+    nq = prep['qWz'].shape[0] if 'qWz' in prep else 0   # none in a rollout prep
+    return (L, M, prep['dWa'].shape[0], prep['rW2'].shape[1], nq,
+            simnorm_dim, horizon)
 
 
-def check_prep(prep, device, simnorm_dim: int, names=PREP_NAMES):
-    """Validate prepared weights `names` for the kernels: device, dtype,
-    layout. The termination head's are checked where present."""
+def check_prep(prep, device, simnorm_dim: int, names=KERNEL_NAMES):
+    """Validate the kernels' operands `names` in `prep`: present, device,
+    dtype, layout. The termination head's are checked where present."""
     for k in names:
-        if k in TERM_NAMES and k not in prep:
+        if k[0] == 't' and 'tW0' not in prep:
             continue
+        want = torch.bfloat16 if k[1] in 'WP' else torch.float32
+        if k not in prep:
+            raise ValueError(f'prepared weight {k}: missing (the kernels take '
+                             'the packed copies of a bf16 prep)')
         t = prep[k]
-        want = torch.bfloat16 if k[1] == 'W' else torch.float32
         if t.device != device or t.dtype != want or not t.is_contiguous():
             raise ValueError(
                 f'prepared weight {k}: need a contiguous {want} tensor on '
@@ -153,9 +232,9 @@ def check_prep(prep, device, simnorm_dim: int, names=PREP_NAMES):
 
 
 def weight_ptrs(prep):
-    """Pointers in PREP_NAMES order; a name `prep` lacks is null."""
-    return (ctypes.c_void_p * len(PREP_NAMES))(
-        *[prep[k].data_ptr() if k in prep else None for k in PREP_NAMES])
+    """Pointers in KERNEL_NAMES order; a name `prep` lacks is null."""
+    return (ctypes.c_void_p * len(KERNEL_NAMES))(
+        *[prep[k].data_ptr() if k in prep else None for k in KERNEL_NAMES])
 
 
 # ---------------------------------------------------------------------------
@@ -381,7 +460,7 @@ def value_estimate(prep, z0, actions, eps, qidx, discs, *,
         qidx.stride(0), discs.data_ptr(), discs.stride(0), out.data_ptr(),
         None if term_at is None else term_at.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, 'value kernel')
+    _build.check(lib, rc, 'value kernel', dims)
     value_estimate.launches += 1
     return out
 
@@ -389,11 +468,18 @@ def value_estimate(prep, z0, actions, eps, qidx, discs, *,
 value_estimate.launches = 0
 
 
-def kernel_occupancy(prep, simnorm_dim: int = 8, horizon: int = 3) -> tuple:
-    """(shared-memory bytes of one value-kernel block, blocks that fit one
-    SM) for these weights' dims, as the built kernel reports them."""
-    lib = _build.library('value')
+def kernel_plan(prep, simnorm_dim: int = 8, horizon: int = 3,
+                kernel: str = 'value') -> dict:
+    """The built kernel's plan for these weights' dims (csrc/mlp_rows.cuh
+    Plan): rows per block `rt`, shared-memory bytes of one block, weight
+    ring `stages`, and blocks that fit one SM. `kernel` is 'value',
+    'pi_rollout' or 'rollout'. Raises ValueError when no row tile fits."""
+    lib, fn = {'value': ('value', 'tdm_value_plan'),
+               'pi_rollout': ('cem', 'tdm_pi_rollout_plan'),
+               'rollout': ('rollout', 'tdm_rollout_plan')}[kernel]
+    lib = _build.library(lib)
     dims = (ctypes.c_int * 7)(*prep_dims(prep, simnorm_dim, horizon))
-    out = (ctypes.c_int * 2)()
-    _build.check(lib, lib.tdm_value_occupancy(dims, out), 'value occupancy')
-    return out[0], out[1]
+    out = (ctypes.c_int * 4)()
+    _build.check(lib, getattr(lib, fn)(dims, out), f'{kernel} plan', dims)
+    return dict(rt=out[0], smem_bytes=out[1], stages=out[2],
+                blocks_per_sm=out[3])

@@ -15,7 +15,10 @@ for bit, against one-env launches. One update on the card is held
 against the CPU's (f32, TF32 off) at 1e-4. On an episodic agent the value
 kernel's termination gate is held under `ops.value.gate_check`: the 2e-2
 band where the flags agree, a flip only where the plain logit is within
-1e-2 of 0 (at most 1% of the rows)."""
+1e-2 of 0 (at most 1% of the rows). The tensor-core kernels are also held
+at the widths of model_size 1, 19 and 48 (row tiles of 32, 32 and 16 rows
+with 4, 8 and 16 column pairs a warp), and a width that no row tile fits
+raises, naming the widths."""
 
 import numpy as np
 import pytest
@@ -406,3 +409,74 @@ def test_episodic_act_on_card(episodic_agent):
     a = ag.act(np.zeros((n, 10), np.float32), t0=True)
     assert a.shape == (n, ag.cfg.action_dim) and np.isfinite(a).all()
     assert value_estimate.launches == launches + ag.iterations
+
+
+# ------------------------------------------------------------ model widths
+
+
+def _sized_agent(size):
+    """An episodic agent at the widths of `size`, S = 77 (ragged row
+    tiles), its termination head spread and centred as above. Weights
+    are perturbed by 0.05 * sqrt(512 / mlp_dim), so that each width's
+    logits spread as the default model's do (chip_smoke.sweep_scale)."""
+    cfg = parse_cfg(Config(task='toy', device='cuda', model_size=size, episodic=True,
+                           num_samples=77, num_elites=9, num_pi_trajs=5, iterations=3))
+    cfg.obs_shape, cfg.action_dim, cfg.episode_length = {'state': (10,)}, 3, 30
+    ag = TDMPC2(cfg)
+    g = torch.Generator().manual_seed(size)
+    scale = 0.05 * (512 / cfg.mlp_dim) ** 0.5
+    ag.load_params(tree.map(lambda t: t + scale * torch.randn(t.shape, generator=g),
+                            ag.model.init(g)))
+    dev, H, A = ag.device, cfg.horizon, cfg.action_dim
+    gd = torch.Generator(device=dev).manual_seed(size)
+    z = ag.model.encode(ag.params, torch.randn(1, 256, 10, device=dev, generator=gd))
+    acts = torch.rand(1, H, 256, A, device=dev, generator=gd) * 2 - 1
+    prep32 = prepare_value_params(ag.params, cfg, torch.float32)
+    logits, _ = termination_trace_plain(prep32, z, acts, ag.discs[None])
+    last = ag.params['termination'][-1]
+    scale = 4.0 / float(logits[:, 0].std())
+    last['w'].mul_(scale)
+    last['b'].mul_(scale).sub_(float((logits * scale).amax(1).median()))
+    ag._prep = None
+    return ag
+
+
+@pytest.mark.parametrize('size', [1, 19, 48])
+def test_kernels_match_plain_at_model_widths(agent, size):
+    """The value kernel (both branches) and the pi rollout at the widths of
+    model_size 1, 19 and 48, one env, in the bands above."""
+    ag = _sized_agent(size)
+    S = ag.cfg.num_samples
+    args = _episodic_inputs(ag, 1, 20 + size)
+    torch.testing.assert_close(value_estimate(*args, **_heads(ag)),
+                               value_estimate_plain(*args, **_heads(ag)), **BAND)
+    k_at = torch.empty(1, S, dtype=torch.int32, device=ag.device)
+    p_at = torch.empty_like(k_at)
+    got = value_estimate(*args, **_heads(ag), episodic=True, term_at=k_at)
+    ref = value_estimate_plain(*args, **_heads(ag), episodic=True, term_at=p_at)
+    logits, _ = termination_trace_plain(*args[:3], args[5])
+    flips, bad = gate_check(got, ref, k_at, p_at, logits, **BAND)
+    assert bad == 0 and flips <= 0.01 * S, (flips, bad)
+    z0 = ag.model.encode(ag.params, torch.randn(1, 10, device=ag.device))
+    pi_args = (ag.prep, z0[None], ag.draw_noise().pi_eps[:, :ag.cfg.num_pi_trajs])
+    torch.testing.assert_close(cem.pi_rollout(*pi_args, **_heads(ag)),
+                               cem.pi_rollout_plain(*pi_args, **_heads(ag)), **BAND)
+
+
+def test_width_without_row_tile_raises(agent):
+    """mlp_dim 4096 (model_size 317's) fits no row tile: the wrappers raise
+    naming the widths, before any launch, and run no plain version."""
+    prep = dict(agent.prep)
+    L = agent.cfg.latent_dim
+    prep['dWz'] = torch.zeros(L, 4096, dtype=torch.bfloat16, device=agent.device)
+    S, A, dev = 8, agent.cfg.action_dim, agent.device
+    n0 = value_estimate.launches
+    with pytest.raises(ValueError, match='no row tile fits the widths.*M=4096'):
+        value_estimate(prep, torch.zeros(1, S, L, device=dev),
+                       torch.zeros(1, 3, S, A, device=dev), torch.zeros(1, S, A, device=dev),
+                       torch.zeros(1, 2, dtype=torch.int32, device=dev),
+                       agent.discs[None], **_heads(agent))
+    with pytest.raises(ValueError, match='no row tile fits the widths.*M=4096'):
+        cem.pi_rollout(prep, torch.zeros(1, 1, L, device=dev),
+                       torch.zeros(1, 4, 3 * A, device=dev), **_heads(agent))
+    assert value_estimate.launches == n0
