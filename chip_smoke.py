@@ -2,8 +2,8 @@
 """Smoke test of the PyTorch port on one NVIDIA H100.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --compare DIR   # the row-tile kernels against DIR's
-    python3 chip_smoke.py --cycles        # a value-kernel block's cycles
+    python3 chip_smoke.py --compare DIR   # kernel times against the port in DIR
+    python3 chip_smoke.py --cycles        # value and elite kernels: block 0 cycles
 
 Builds the port's CUDA kernels from `tdmpc2_tpu_torch/csrc` with nvcc,
 runs the kernel-engine canary, holds every kernel against its plain
@@ -28,6 +28,10 @@ and read just after:
   an episode on reaching the goal), and episodic evaluate: `evaluate` on
   the same task from the `num_envs=8` run's checkpoint.
 
+The elite kernel is also held at its edges (S = 77, 2048; HA = 114; E = 1
+and E = S; ties across the boundary, all tied, NaN, inf and +-3e38) and
+the canary at sizes 1, 3 and 1027 and at a storage offset; the canary's and
+`torch.add`'s device times are medians of interleaved profiler readings.
 The four planner kernels are also held at N=8 envs, against their plain
 versions and, bit for bit, against 8 one-env launches, and the whole
 8-env plan against the plain loop. The value kernel's episodic branch is
@@ -52,11 +56,12 @@ that line; so does a machine without CUDA, or a directory without the
 port's package. A watchdog turns a hang into an exit with a traceback.
 
 `--compare DIR` times the row-tile kernels (value, its episodic branch, pi
-rollout, rollout; one env and N=8) of another version of the port,
-unpacked in DIR, against this tree's on the same inputs, in four processes
-in the order DIR, this, this, DIR, and prints the ratios. `--cycles`
-builds the value kernel with its cycle counters (csrc/mlp_rows.cuh
-TDM_CYCLES) and prints where block 0 spends its cycles at the default model.
+rollout, rollout; one env and N=8), the elite kernel (one env and N=8) and
+the canary of another version of the port, unpacked in DIR, against this
+tree's on the same inputs, in four processes in the order DIR, this, this,
+DIR, and prints the ratios. `--cycles` builds the value and elite kernels
+with their cycle counters (TDM_CYCLES: csrc/mlp_rows.cuh, csrc/cem.cu) and
+prints where block 0 of each spends its cycles at the default model.
 """
 
 from __future__ import annotations
@@ -126,8 +131,37 @@ PROBE_TOL = dict(rtol=0.0, atol=0.0)
 UPDATE_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
+# The elite kernel's edges: values in registers (S <= 512) or in shared
+# memory (2048), actions staged in shared memory (HA = 6) or read from L2
+# (HA = 114, A = 38), each at N=NE_EDGE envs.
+ELITE_EDGE_SHAPES = ((77, 6, 2), (2048, 6, 2), (512, 114, 38))
+NE_EDGE = 4
+# Interleaved profiler readings of the canary's and torch.add's device time.
+PROBE_READINGS = 7
+
+
 def log(msg):
     print(msg, flush=True)
+
+
+def elite_edge_values(kind, n, S, g):
+    """[n, S] values: distinct, integer ties across the elite boundary, all
+    tied, or normal values with NaN, +-inf, +-3e38 and 3.3e38 among them."""
+    import torch
+    dev = g.device
+    if kind == 'boundary ties':
+        return torch.randint(-3, 4, (n, S), device=dev, generator=g).float()
+    if kind == 'all tied':
+        return torch.full((n, S), 0.25, device=dev)
+    v = torch.randn(n, S, device=dev, generator=g)
+    if kind == 'guarded':
+        v[:, ::7] = float('nan')
+        v[:, 1::9] = float('inf')
+        v[:, 2::11] = -float('inf')
+        v[:, 3::5] = 3.0e38
+        v[:, 4::13] = -3.0e38
+        v[:, 5::17] = 3.3e38
+    return v
 
 
 class Phase:
@@ -316,19 +350,41 @@ def hold_gated(name, got, want, got_at, want_at, logits, tol):
     return err
 
 
+def elite_inputs(ag, n, g):
+    """The elite step's operands at `ag`'s widths for n envs, drawn from the
+    card generator g: the value kernel's values of uniform actions, the
+    actions, the action mask; and the step's keywords."""
+    import torch
+    from tdmpc2_tpu_torch.models.layers import simnorm
+    from tdmpc2_tpu_torch.ops import value
+    cfg, dev = ag.cfg, torch.device('cuda')
+    H, S, A, L = cfg.horizon, cfg.num_samples, cfg.action_dim, cfg.latent_dim
+    acts = torch.rand(n, S, H * A, device=dev, generator=g) * 2 - 1
+    z = simnorm(torch.randn(n, S, L, device=dev, generator=g), cfg.simnorm_dim)
+    v = value.value_estimate(
+        ag.prep, z, acts.view(n, S, H, A).permute(0, 2, 1, 3),
+        torch.randn(n, S, A, device=dev, generator=g),
+        torch.tensor([[1, 3]] * n, dtype=torch.int32, device=dev), ag.discs.expand(n, -1),
+        log_std_min=ag.model.log_std_min, log_std_dif=ag.model.log_std_dif,
+        simnorm_dim=cfg.simnorm_dim)
+    kw = dict(num_elites=cfg.num_elites, temperature=cfg.temperature,
+              min_std=cfg.min_std, max_std=cfg.max_std)
+    return (v, acts, ag.amask), kw
+
+
 def time_kernels(root) -> int:
-    """`--time-kernels ROOT`: time the row-tile kernels of the port at ROOT
-    (this tree, or an older one unpacked elsewhere) on the main paths'
-    inputs, made from SEED, through the entry points that every version
-    has; prints one JSON line {name: [ms by CUDA events, the kernel's own
-    device ms by torch.profiler]}."""
+    """`--time-kernels ROOT`: time the row-tile kernels, the elite kernel and
+    the canary of the port at ROOT (this tree, or an older one unpacked
+    elsewhere) on the main paths' inputs, made from SEED, through the entry
+    points that every version has; prints one JSON line {name: [ms by CUDA
+    events, the kernel's own device ms by torch.profiler]}."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from tdmpc2_tpu_torch import __file__ as pkg_file
     from tdmpc2_tpu_torch.config import load_cfg
     from tdmpc2_tpu_torch.envs import make_env
     from tdmpc2_tpu_torch.models.layers import simnorm
-    from tdmpc2_tpu_torch.ops import cem, rollout, value
+    from tdmpc2_tpu_torch.ops import cem, probe, rollout, value
     from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
     if not pkg_file.startswith(os.path.abspath(root)):
         raise AssertionError(f'imported {pkg_file}, not the tree at {root}')
@@ -376,6 +432,11 @@ def time_kernels(root) -> int:
         'rollout': (rollout.rollout_prepared, r_args,
                     dict(horizon=H, discount=ag.discount, simnorm_dim=cfg.simnorm_dim)),
     }
+    for n in (1, N_ENVS):
+        e_args, e_kw = elite_inputs(ag, n, g)
+        calls[f'elite_n{n}'] = (cem.elite_moments, e_args, e_kw)
+    calls['probe'] = (probe.add_one, (torch.randn(probe.SHAPE, device=dev, generator=g),),
+                      {})
     out = {}
     for name, (fn, args, kw) in calls.items():
         out[name] = [time_ms(lambda: fn(*args, **kw), 50),
@@ -385,35 +446,41 @@ def time_kernels(root) -> int:
 
 
 def cycles() -> int:
-    """`--cycles`: where one block of the value kernel spends its cycles, at
-    the default 5M model (one env and N=8, S=512, non-episodic and
-    episodic): the kernel built with csrc/mlp_rows.cuh's TDM_CYCLES
-    counters (block 0, thread 0), driven through `value_estimate`."""
+    """`--cycles`: where one block of the value kernel and of the elite
+    kernel spends its cycles, at the default 5M model (one env and N=8,
+    S=512; the value kernel non-episodic and episodic): the kernels built
+    with their TDM_CYCLES counters (csrc/mlp_rows.cuh, csrc/cem.cu; block 0,
+    thread 0), driven through `value_estimate` and `elite_moments`."""
     import ctypes
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
     from tdmpc2_tpu_torch.config import load_cfg
     from tdmpc2_tpu_torch.envs import make_env
     from tdmpc2_tpu_torch.models.layers import simnorm
-    from tdmpc2_tpu_torch.ops import _build, value
+    from tdmpc2_tpu_torch.ops import _build, cem, value
     from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
     flags = ('TDM_CYCLES',)
     library = _build.library
     _build.library = lambda name, defines=(): library(
-        name, flags if name == 'value' else defines)
+        name, flags if name in ('value', 'cem') else defines)
     lib = _build.library('value')
     lib.tdm_cycles.argtypes = (ctypes.POINTER(ctypes.c_ulonglong),)
     lib.tdm_cycles.restype = ctypes.c_int
+    elib = _build.library('cem')
+    elib.tdm_elite_cycles.argtypes = (ctypes.POINTER(ctypes.c_ulonglong),)
+    elib.tdm_elite_cycles.restype = ctypes.c_int
     dev = torch.device('cuda')
     gen = torch.Generator().manual_seed(SEED)
     g = torch.Generator(device=dev).manual_seed(SEED)
     names = ('kernel', 'waiting for weight stages', 'wide K loops (waits included)',
              'wide epilogues', 'LayerNorm row statistics')
+    agents = []
     for label, args in (('', ['task=toy-reach']), ('episodic ', EP_ARGS)):
         cfg = load_cfg(overrides=args + [f'seed={SEED}'])
         make_env(cfg)
         ag = TDMPC2(cfg, device='cuda')
         ag.load_params(perturbed(ag.model.init(gen), gen))
+        agents.append(ag)
         heads = dict(log_std_min=ag.model.log_std_min,
                      log_std_dif=ag.model.log_std_dif, simnorm_dim=cfg.simnorm_dim,
                      episodic=bool(label))
@@ -437,6 +504,21 @@ def cycles() -> int:
                 'counters (CUDA events); block 0: ' + ', '.join(
                     f'{k} {out[i]} ({100 * out[i] / out[0]:.1f}%)'
                     for i, k in enumerate(names)))
+    enames = ('kernel', 'guard and extrema', 'selection and bisection',
+              'boundary counts and score', 'moments')
+    for n in (1, N_ENVS):
+        e_args, e_kw = elite_inputs(agents[0], n, g)
+        out = (ctypes.c_ulonglong * 5)()
+        for _ in range(2):      # the second launch's counts are kept
+            cem.elite_moments(*e_args, **e_kw)
+            torch.cuda.synchronize()
+            _build.check(elib, elib.tdm_elite_cycles(out), 'cycle counters')
+        ms = time_ms(lambda: cem.elite_moments(*e_args, **e_kw), 50)
+        log(f'[cycles] elite kernel, N={n}, S={e_args[1].shape[1]}, '
+            f'HA={e_args[1].shape[2]}: {ms:.4f} ms a call with the counters (CUDA '
+            'events); block 0: ' + ', '.join(
+                f'{k} {out[i]} ({100 * out[i] / out[0]:.1f}%)'
+                for i, k in enumerate(enames)))
     log(nvidia_smi_line())
     return 0
 
@@ -524,6 +606,14 @@ def main() -> int:
         x_probe = torch.randn(probe.SHAPE, device=dev)
         results['probe'] = hold('probe', probe.add_one(x_probe),
                                 probe.add_one_plain(x_probe), PROBE_TOL)
+        # the float4 body's scalar head and tail: sizes not a multiple of 4,
+        # and a view one float into its storage (x not 16-byte aligned)
+        for n in (1, 3, 1027):
+            x = torch.randn(n, device=dev)
+            hold(f'probe n={n}', probe.add_one(x), probe.add_one_plain(x), PROBE_TOL)
+        x = torch.randn(1028, device=dev)[1:]
+        hold('probe n=1027 at storage offset 1', probe.add_one(x), probe.add_one_plain(x),
+             PROBE_TOL)
 
     # the main path's model: toy-reach at the default 5M config
     cfg = load_cfg(overrides=['task=toy-reach', f'seed={SEED}'])
@@ -628,6 +718,38 @@ def main() -> int:
                      hold(f'elite std ({label})', sk, sp, ELITE_TOL),
                      hold(f'elite guarded v ({label})', gk, gp, SAMPLE_TOL)]
         results['cem_elite'] = max(errs)
+
+    with Phase('elite kernel vs plain at its edges: S, HA, E, ties and guarded values'):
+        ge = torch.Generator(device=dev).manual_seed(SEED)
+        edge_err = 0.0
+        for eS, eHA, eA in ELITE_EDGE_SHAPES:
+            eacts = torch.rand(NE_EDGE, eS, eHA, device=dev, generator=ge) * 2 - 1
+            emask = torch.ones(eA, device=dev)
+            for kind in ('distinct', 'boundary ties', 'all tied', 'guarded'):
+                ev = elite_edge_values(kind, NE_EDGE, eS, ge)
+                for eE in sorted({1, min(E, eS), eS}):
+                    ekw = dict(elite_kw, num_elites=eE)
+                    got = cem.elite_moments(ev, eacts, emask, **ekw)
+                    ref = cem.elite_moments_plain(ev, eacts, emask, **ekw)
+                    tag = f'S={eS}, HA={eHA}, E={eE}, {kind}'
+                    for j, tol in enumerate((ELITE_TOL, ELITE_TOL, SAMPLE_TOL)):
+                        err = max_err(got[j], ref[j])
+                        bad = (got[j] - ref[j]).abs() > tol['atol'] + tol['rtol'] * ref[j].abs()
+                        if not bool(torch.isfinite(got[j]).all()) or bool(bad.any()):
+                            raise AssertionError(f'elite {tag} [{j}]: max |err| {err:.3g} '
+                                                 f'outside {tol}')
+                        edge_err = max(edge_err, err if j < 2 else 0.0)
+                    for i in range(NE_EDGE):
+                        one = cem.elite_moments(ev[i:i + 1], eacts[i:i + 1], emask, **ekw)
+                        if not all(torch.equal(a[i:i + 1], b) for a, b in zip(got, one)):
+                            raise AssertionError(f'elite {tag}: env {i} of the '
+                                                 f'N={NE_EDGE} launch differs from its '
+                                                 'one-env launch')
+            log(f'  S={eS}, HA={eHA}: 4 kinds of values x E in {{1, {min(E, eS)}, {eS}}}, '
+                f'N={NE_EDGE} envs: within {ELITE_TOL}, guarded v exact, each env '
+                'equal to its one-env launch bit for bit')
+        log(f'  max |err| of mean/std over the edges {edge_err:.3g}')
+        results['cem_elite'] = max(results['cem_elite'], edge_err)
 
     with Phase(f'cem_plan vs cem_plan_plain ({I} iterations)'):
         plan_kw = dict(iterations=I, n_pi=n_pi, **elite_kw, **heads)
@@ -1310,10 +1432,22 @@ def main() -> int:
         }
         for name, (kern, plain, lib, (b_ms, b_by), src, rpl, own) in others.items():
             ms = time_ms(kern, 50)
-            dev_ms = device_share(kern, 20)[0]
             plain_ms = time_ms(plain, 10)
             lib_ms = time_ms(lib, 50) if lib is not None else None
-            lib_dev_ms = device_share(lib, 20)[0] if lib is not None else None
+            if lib is None:
+                dev_ms, lib_dev_ms = device_share(kern, 20)[0], None
+            else:
+                # kernel and library device times a microsecond apart: the
+                # median of interleaved readings of each
+                reads = [(device_share(kern, 20)[0], device_share(lib, 20)[0])
+                         for _ in range(PROBE_READINGS)]
+                if any(x is None for r in reads for x in r):
+                    raise AssertionError(f'{name}: a profiler reading has no device time')
+                dev_ms, lib_dev_ms = (float(np.median([r[j] for r in reads]))
+                                      for j in (0, 1))
+                log(f'  {name}: device time, median of {PROBE_READINGS} interleaved '
+                    f'readings: kernel {dev_ms:.6f} ms, library {lib_dev_ms:.6f} ms, '
+                    f'kernel / library {dev_ms / lib_dev_ms:.3f}; readings {reads}')
             log(f'  {name}: kernel {ms:.4f} ms (its own device time {dev_ms} ms), '
                 f'plain {plain_ms:.4f} ms, library {lib_ms} ms (its kernel\'s device '
                 f'time {lib_dev_ms} ms), bound {b_ms:.6f} ms ({b_by})')

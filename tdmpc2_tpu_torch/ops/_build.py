@@ -23,6 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 SOURCES = ('value', 'cem', 'rollout', 'probe')
@@ -46,7 +48,7 @@ SIGNATURES = {
                            _P, _P),
     ('rollout', 'tdm_rollout'): (_PTRS, _INTS, _I, _P, _L, _P, _L, _L, _P,
                                  _P, _P, _P),
-    ('probe', 'tdm_probe'): (_P, _P, _I, _P),
+    ('probe', 'tdm_probe'): (_P, _P, _L, _P),
 }
 
 _loaded: dict = {}
@@ -134,6 +136,15 @@ def library(name: str, defines=()) -> ctypes.CDLL:
         lib.tdm_error_name.restype = ctypes.c_char_p
         _loaded[(name, defines)] = lib
     return lib
+
+
+def stream(dev) -> int:
+    """The handle of PyTorch's current stream on the CUDA device `dev`, for a
+    launch function's stream argument."""
+    raw = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+    if raw is None:
+        return torch.cuda.current_stream(dev).cuda_stream
+    return raw(torch.cuda.current_device() if dev.index is None else dev.index)
 
 
 # Returned by a launch function when no row tile fits the model's widths

@@ -11,9 +11,9 @@ covers all N envs:
     per iteration:
       sample_actions           clip(mean + std * noise), pi rows override
       value_estimate           ops/value.py
-      elite_moments            one block per env: NaN guard, E-th largest
-                               by bisection with boundary-shell tie
-                               weights, softmax-weighted mean/std update
+      elite_moments            one warp per env: NaN guard, E-th largest
+                               by bisection in one warp with boundary-shell
+                               tie weights, softmax-weighted mean/std update
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 version on CPU tensors. `cem_plan` chains the wrappers; `cem_plan_plain`
@@ -49,10 +49,6 @@ def _cuda_operands(name, dev, *tensors):
                 or not t.is_contiguous()):
             raise ValueError(f'{name}: operands must be contiguous f32 '
                              f'tensors on {dev}')
-
-
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +99,7 @@ def pi_rollout(prep, z0, pi_eps, *, log_std_min: float, log_std_dif: float,
     rc = lib.tdm_pi_rollout(weight_ptrs(prep), dims, log_std_min, log_std_dif,
                             N, n_pi, z0.data_ptr(), z0.stride(0),
                             pi_eps.data_ptr(), pi_eps.stride(0),
-                            out.data_ptr(), _stream(dev))
+                            out.data_ptr(), _build.stream(dev))
     _build.check(lib, rc, 'pi_rollout kernel', dims)
     pi_rollout.launches += 1
     return out
@@ -148,7 +144,7 @@ def sample_actions(mean, std, noise, pi_acts, amask):
     lib = _build.library('cem')
     rc = lib.tdm_sample(mean.data_ptr(), std.data_ptr(), noise.data_ptr(),
                         noise.stride(0), pi_acts.data_ptr(), amask.data_ptr(),
-                        N, S, HA, A, n_pi, out.data_ptr(), _stream(dev))
+                        N, S, HA, A, n_pi, out.data_ptr(), _build.stream(dev))
     _build.check(lib, rc, 'sample kernel')
     sample_actions.launches += 1
     return out
@@ -203,12 +199,14 @@ def elite_moments_plain(value, acts, amask, *, num_elites: int,
 
 def elite_moments(value, acts, amask, *, num_elites: int, temperature: float,
                   min_std: float, max_std: float):
-    """The elite kernel on CUDA tensors, the plain version on CPU."""
+    """The elite kernel on CUDA tensors, the plain version on CPU. Raises
+    ValueError where S values and their row list do not fit in a block's
+    shared memory (S above 29,022)."""
     dev = acts.device
-    kw = dict(num_elites=num_elites, temperature=temperature,
-              min_std=min_std, max_std=max_std)
     if dev.type == 'cpu':
-        return elite_moments_plain(value, acts, amask, **kw)
+        return elite_moments_plain(value, acts, amask, num_elites=num_elites,
+                                   temperature=temperature, min_std=min_std,
+                                   max_std=max_std)
     if dev.type != 'cuda':
         raise ValueError(f'elite_moments: unsupported device {dev}')
     _cuda_operands('elite_moments', dev, value, acts, amask)
@@ -223,7 +221,10 @@ def elite_moments(value, acts, amask, *, num_elites: int, temperature: float,
     rc = lib.tdm_elite(value.data_ptr(), acts.data_ptr(), amask.data_ptr(),
                        N, S, HA, A, num_elites, temperature, min_std, max_std,
                        v_out.data_ptr(), mean.data_ptr(), std.data_ptr(),
-                       _stream(dev))
+                       _build.stream(dev))
+    if rc == _build.NO_PLAN:
+        raise ValueError(f'elite_moments: S={S} samples of HA={HA} columns do '
+                         'not fit in a block\'s shared memory')
     _build.check(lib, rc, 'elite kernel')
     elite_moments.launches += 1
     return mean, std, v_out

@@ -44,23 +44,27 @@ def add_one_plain(x):
 
 
 def add_one(x):
-    """The canary kernel on a CUDA tensor, its plain version on a CPU one."""
-    if x.device.type == 'cpu':
+    """The canary kernel on a CUDA tensor, its plain version on a CPU one.
+    Any contiguous f32 tensor, a view with a storage offset too."""
+    dev = x.device
+    if dev.type == 'cpu':
         return add_one_plain(x)
-    if x.device.type != 'cuda':
-        raise ValueError(f'add_one: unsupported device {x.device}')
+    if dev.type != 'cuda':
+        raise ValueError(f'add_one: unsupported device {dev}')
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError('add_one: needs a contiguous f32 tensor')
     out = torch.empty_like(x)
-    lib = _build.library('probe')
-    rc = lib.tdm_probe(x.data_ptr(), out.data_ptr(), x.numel(),
-                       torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, 'probe kernel')
+    if add_one.launch is None:
+        add_one.launch = _build.library('probe').tdm_probe
+    rc = add_one.launch(x.data_ptr(), out.data_ptr(), x.numel(), _build.stream(dev))
+    if rc:
+        _build.check(_build.library('probe'), rc, 'probe kernel')
     add_one.launches += 1
     return out
 
 
 add_one.launches = 0
+add_one.launch = None     # the library's launch function, once loaded
 
 
 def check_once(device):

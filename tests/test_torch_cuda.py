@@ -18,7 +18,10 @@ band where the flags agree, a flip only where the plain logit is within
 1e-2 of 0 (at most 1% of the rows). The tensor-core kernels are also held
 at the widths of model_size 1, 19 and 48 (row tiles of 32, 32 and 16 rows
 with 4, 8 and 16 column pairs a warp), and a width that no row tile fits
-raises, naming the widths."""
+raises, naming the widths. The elite kernel is held at its edges (S = 77,
+2048 and 28,000, HA = 114, E = 1 and E = S, ties across the boundary, all
+tied, NaN, inf and +-3e38), its N=8 launch against 8 one-env launches bit
+for bit, and the canary at n = 1, 3, 1027 and at a storage offset."""
 
 import numpy as np
 import pytest
@@ -134,6 +137,91 @@ def test_elite_kernel_matches_plain(agent, values):
     for a, b in zip(got, ref):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, **ELITE)
+
+
+@pytest.fixture(scope='module')
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card (python -m pytest -m cuda on the card)')
+    return torch.device('cuda')
+
+
+def _elite_values(kind, n, S, g):
+    """[n, S, 1] values: distinct, integer ties across the elite boundary,
+    all tied, or normal values with NaN, +-inf, +-3e38 and 3.3e38 (guarded
+    to 0) among them."""
+    dev = g.device
+    if kind == 'boundary-ties':
+        return torch.randint(-3, 4, (n, S, 1), device=dev, generator=g).float()
+    if kind == 'all-tied':
+        return torch.full((n, S, 1), 0.25, device=dev)
+    v = torch.randn(n, S, 1, device=dev, generator=g)
+    if kind == 'guarded':
+        v[:, ::7] = float('nan')
+        v[:, 1::9] = float('inf')
+        v[:, 2::11] = -float('inf')
+        v[:, 3::5] = 3.0e38
+        v[:, 4::13] = -3.0e38
+        v[:, 5::17] = 3.3e38
+    return v
+
+
+def _elite_check(got, ref):
+    for a, b in zip(got[:2], ref[:2]):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, **ELITE)
+    torch.testing.assert_close(got[2], ref[2], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('S,HA,A', [(77, 6, 2), (2048, 6, 2), (512, 114, 38)])
+@pytest.mark.parametrize('E', ['1', 'S', 'S/8'])
+@pytest.mark.parametrize('kind', ['distinct', 'boundary-ties', 'all-tied', 'guarded'])
+def test_elite_kernel_edge_cases(card, kind, E, S, HA, A):
+    """Registers (S <= 512) and shared memory (S = 2048) for the values;
+    actions staged in shared memory (HA = 6) or read from L2 (HA = 114)."""
+    g = torch.Generator(device=card).manual_seed(S + HA)
+    v = _elite_values(kind, 1, S, g)
+    acts = torch.rand(1, S, HA, device=card, generator=g) * 2 - 1
+    amask = torch.ones(A, device=card)
+    amask[-1] = 0
+    kw = dict(num_elites={'1': 1, 'S': S, 'S/8': S // 8}[E], temperature=0.5,
+              min_std=0.05, max_std=2.0)
+    n0 = cem.elite_moments.launches
+    got = cem.elite_moments(v, acts, amask, **kw)
+    assert cem.elite_moments.launches == n0 + 1
+    _elite_check(got, cem.elite_moments_plain(v, acts, amask, **kw))
+
+
+@pytest.mark.parametrize('S,HA,A', [(512, 6, 2), (2048, 6, 2), (512, 114, 38)])
+def test_elite_kernel_n8_equals_single_env_launches(card, S, HA, A):
+    n = 8
+    g = torch.Generator(device=card).manual_seed(5)
+    kinds = ['distinct', 'boundary-ties', 'all-tied', 'guarded']
+    v = torch.cat([_elite_values(kinds[i % 4], 1, S, g) for i in range(n)])
+    acts = torch.rand(n, S, HA, device=card, generator=g) * 2 - 1
+    amask = torch.ones(A, device=card)
+    kw = dict(num_elites=S // 8, temperature=0.5, min_std=0.05, max_std=2.0)
+    got = cem.elite_moments(v, acts, amask, **kw)
+    _elite_check(got, cem.elite_moments_plain(v, acts, amask, **kw))
+    for i in range(n):
+        one = cem.elite_moments(v[i:i + 1], acts[i:i + 1], amask, **kw)
+        for a, b in zip(got, one):
+            torch.testing.assert_close(a[i:i + 1], b, rtol=0, atol=0)
+
+
+def test_elite_kernel_shared_memory_limit(card):
+    """S = 28,000 fits (values and row list, 8 bytes a sample); 30,000 does
+    not and raises, naming the shape."""
+    g = torch.Generator(device=card).manual_seed(6)
+    kw = dict(num_elites=100, temperature=0.5, min_std=0.05, max_std=2.0)
+    amask = torch.ones(2, device=card)
+    v = torch.randn(1, 28000, device=card, generator=g)
+    acts = torch.rand(1, 28000, 6, device=card, generator=g) * 2 - 1
+    _elite_check(cem.elite_moments(v, acts, amask, **kw),
+                 cem.elite_moments_plain(v, acts, amask, **kw))
+    with pytest.raises(ValueError, match='S=30000 samples of HA=6 columns'):
+        cem.elite_moments(torch.zeros(1, 30000, device=card),
+                          torch.zeros(1, 30000, 6, device=card), amask, **kw)
 
 
 def test_cem_plan_kernels_match_plain(agent):
@@ -267,6 +355,22 @@ def test_probe_kernel_and_canary(agent):
     n0 = probe.add_one.launches
     torch.testing.assert_close(probe.add_one(x), probe.add_one_plain(x),
                                rtol=0, atol=0)
+    assert probe.add_one.launches == n0 + 1
+
+
+@pytest.mark.parametrize('n', [1, 3, 1027, 'offset 1'])
+def test_probe_kernel_any_size_and_offset(card, n):
+    """Scalar head and tail around the float4 body: sizes not a multiple
+    of 4, and a view with a storage offset of one float (x not 16-byte
+    aligned, out aligned)."""
+    g = torch.Generator(device=card).manual_seed(7)
+    if n == 'offset 1':
+        x = torch.randn(1028, device=card, generator=g)[1:]
+        assert x.storage_offset() == 1 and x.is_contiguous()
+    else:
+        x = torch.randn(n, device=card, generator=g)
+    n0 = probe.add_one.launches
+    torch.testing.assert_close(probe.add_one(x), probe.add_one_plain(x), rtol=0, atol=0)
     assert probe.add_one.launches == n0 + 1
 
 
