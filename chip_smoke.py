@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch port on one NVIDIA H100.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --compare DIR   # kernel times against the port in DIR
+    python3 chip_smoke.py --compare DIR [PAIRS]  # kernel times against the port in DIR
     python3 chip_smoke.py --cycles        # value and elite kernels: block 0 cycles
 
 Builds the port's CUDA kernels from `tdmpc2_tpu_torch/csrc` with nvcc,
@@ -58,10 +58,12 @@ port's package. A watchdog turns a hang into an exit with a traceback.
 `--compare DIR` times the row-tile kernels (value, its episodic branch, pi
 rollout, rollout; one env and N=8), the elite kernel (one env and N=8) and
 the canary of another version of the port, unpacked in DIR, against this
-tree's on the same inputs, in four processes in the order DIR, this, this,
-DIR, and prints the ratios. `--cycles` builds the value and elite kernels
-with their cycle counters (TDM_CYCLES: csrc/mlp_rows.cuh, csrc/cem.cu) and
-prints where block 0 of each spends its cycles at the default model.
+tree's on the same inputs, in PAIRS (2 unless given) pairs of processes,
+alternating as DIR, this, this, DIR, DIR, this, ..., and prints the median
+and range of the pairs' ratios by CUDA events and by own device time.
+`--cycles` builds the value and elite kernels with their cycle counters
+(TDM_CYCLES: csrc/mlp_rows.cuh, csrc/cem.cu) and prints where block 0 of
+each spends its cycles at the default model.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ import faulthandler
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -123,6 +126,8 @@ REF_TOL = dict(rtol=1e-4, atol=1e-4)
 ROLLOUT_TOL = dict(rtol=2e-2, atol=2e-2)
 # x + 1 in f32 is exact on both sides.
 PROBE_TOL = dict(rtol=0.0, atol=0.0)
+# The elite kernel's guarded values are a select of the input: exact.
+GUARD_TOL = dict(rtol=0.0, atol=0.0)
 # An N-env launch is held against N one-env launches with torch.equal:
 # every env's blocks run the one-env code on the same data.
 # One update on the card against the CPU, both f32 with TF32 off, on a
@@ -235,28 +240,37 @@ def host_ms(fn, reps):
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
-def device_share(fn, reps):
+def device_share(fn, reps, tries=8):
     """(device-busy ms, device activities, top activities) per call of fn,
     from the kernel and copy events of a torch.profiler trace of `reps`
-    calls; top is [(ms, count, name)] of the 6 largest by time. (None, 0,
-    []) when the trace holds no device events."""
+    calls; top is [(ms, count, name)] of the 6 largest by time. A trace
+    now and then comes back with its device events missing or cut short
+    (after many traces in one process, every other one), so two traces
+    are taken and the one with more device events is kept; every fn given
+    here launches at least one device activity a call, so while the kept
+    trace has fewer events than calls, more are taken, up to `tries` in
+    all. (None, 0, []) when none had as many."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    # a trace now and then comes back without its device events: up to
-    # three tries
-    for _ in range(3):
+    dev = []
+    for i in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        dev = [e for e in prof.events()
+        got = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-        if dev:
+        if len(got) < reps:
+            log(f'  (trace {i + 1} of {tries}: {len(got)} device events for {reps} '
+                'calls, cut short)')
+        if len(got) > len(dev):
+            dev = got
+        if i >= 1 and len(dev) >= reps:
             break
-    if not dev:
+    if len(dev) < reps:
         return None, 0, []
     by_name = {}
     for e in dev:
@@ -523,29 +537,40 @@ def cycles() -> int:
     return 0
 
 
-def compare(prev_root) -> int:
-    """`--compare PREV`: the row-tile kernels of the tree at PREV (an older
+def compare(prev_root, pairs=2) -> int:
+    """`--compare PREV [PAIRS]`: the kernels of the tree at PREV (an older
     version unpacked into a gitignored directory) against this tree's, in
-    four processes on the same card in the order PREV, this, this, PREV.
-    Prints each run's times and the ratio PREV / this of the means."""
+    2 * PAIRS processes on the same card, PREV and this alternating as
+    PREV, this, this, PREV, PREV, this, ... Prints each run's times and, per
+    kernel, the ratios PREV / this of the pairs by CUDA events and by own
+    device time: their median and range."""
     here = os.path.dirname(os.path.abspath(__file__))
     runs = []
-    for root in (prev_root, here, here, prev_root):
-        r = subprocess.run([sys.executable, os.path.abspath(__file__), '--time-kernels',
-                            root], capture_output=True, text=True, timeout=900)
-        if r.returncode != 0:
-            print(r.stdout[-3000:], r.stderr[-3000:], file=sys.stderr)
-            return 1
-        runs.append((root, json.loads(r.stdout.strip().splitlines()[-1])))
-        log(f'[compare] {"prev" if root == prev_root else "this"} ({root}): '
-            f'{json.dumps(runs[-1][1])}')
+    for i in range(pairs):
+        pair = {}
+        for root in ((prev_root, here) if i % 2 == 0 else (here, prev_root)):
+            r = subprocess.run([sys.executable, os.path.abspath(__file__), '--time-kernels',
+                                root], capture_output=True, text=True, timeout=900)
+            if r.returncode != 0:
+                print(r.stdout[-3000:], r.stderr[-3000:], file=sys.stderr)
+                return 1
+            label = 'prev' if root == prev_root else 'this'
+            pair[label] = json.loads(r.stdout.strip().splitlines()[-1])
+            log(f'[compare] pair {i}, {label} ({root}): {json.dumps(pair[label])}')
+        runs.append(pair)
     ratios = {}
-    for name in runs[0][1]:
-        old = [t[name][0] for root, t in runs if root == prev_root]
-        new = [t[name][0] for root, t in runs if root != prev_root]
-        ratios[name] = sum(old) / sum(new)
-        log(f'[compare] {name}: prev {old} ms, this {new} ms, prev/this '
-            f'{ratios[name]:.2f}x (CUDA events)')
+    for name in runs[0]['prev']:
+        ratios[name] = {}
+        for k, kind in enumerate(('events', 'device')):
+            rs = sorted(p['prev'][name][k] / p['this'][name][k] for p in runs
+                        if p['prev'][name][k] and p['this'][name][k])
+            if not rs:
+                continue
+            med = statistics.median(rs)
+            ratios[name][kind] = {'median': med, 'range': [rs[0], rs[-1]]}
+            log(f'[compare] {name}, {kind}: prev {[p["prev"][name][k] for p in runs]} ms, '
+                f'this {[p["this"][name][k] for p in runs]} ms; prev/this median '
+                f'{med:.3f}x, range {rs[0]:.3f}-{rs[-1]:.3f}x over {len(rs)} pairs')
     log(nvidia_smi_line())
     log(json.dumps({'compare': ratios}))
     return 0
@@ -716,7 +741,7 @@ def main() -> int:
             mp, sp, gp = cem.elite_moments_plain(vv, acts, agent.amask, **elite_kw)
             errs += [hold(f'elite mean ({label})', mk, mp, ELITE_TOL),
                      hold(f'elite std ({label})', sk, sp, ELITE_TOL),
-                     hold(f'elite guarded v ({label})', gk, gp, SAMPLE_TOL)]
+                     hold(f'elite guarded v ({label})', gk, gp, GUARD_TOL)]
         results['cem_elite'] = max(errs)
 
     with Phase('elite kernel vs plain at its edges: S, HA, E, ties and guarded values'):
@@ -732,7 +757,7 @@ def main() -> int:
                     got = cem.elite_moments(ev, eacts, emask, **ekw)
                     ref = cem.elite_moments_plain(ev, eacts, emask, **ekw)
                     tag = f'S={eS}, HA={eHA}, E={eE}, {kind}'
-                    for j, tol in enumerate((ELITE_TOL, ELITE_TOL, SAMPLE_TOL)):
+                    for j, tol in enumerate((ELITE_TOL, ELITE_TOL, GUARD_TOL)):
                         err = max_err(got[j], ref[j])
                         bad = (got[j] - ref[j]).abs() > tol['atol'] + tol['rtol'] * ref[j].abs()
                         if not bool(torch.isfinite(got[j]).all()) or bool(bad.any()):
@@ -1483,8 +1508,8 @@ def main() -> int:
 if __name__ == '__main__':
     if len(sys.argv) == 3 and sys.argv[1] == '--time-kernels':
         sys.exit(time_kernels(sys.argv[2]))
-    if len(sys.argv) == 3 and sys.argv[1] == '--compare':
-        sys.exit(compare(sys.argv[2]))
+    if len(sys.argv) in (3, 4) and sys.argv[1] == '--compare':
+        sys.exit(compare(sys.argv[2], *map(int, sys.argv[3:])))
     if len(sys.argv) == 2 and sys.argv[1] == '--cycles':
         sys.exit(cycles())
     sys.exit(main())

@@ -106,8 +106,10 @@ __global__ void sample_kernel(const float* mean, const float* stdv, const float*
 // what bounds it on this card is the latency of one dependent chain, and
 // the design keeps that chain in one warp, with no block barrier at all:
 // - The values sit in the warp's registers (kEliteRegs a lane, S <= 512)
-//   or, past that, in shared memory. Extrema and counts use the warp's
-//   reduction instructions (redux.sync); sums, shuffles.
+//   or, past that, in shared memory; the shared-memory copy alone runs
+//   every S, but is measured slower at S=512 (PERF.md §6). Extrema and
+//   counts use the warp's reduction instructions (redux.sync); sums,
+//   shuffles.
 // - count(v >= mid) >= E holds exactly when mid <= t, the E-th largest value
 //   counted with multiplicity. So the bisection counts only until at most
 //   kEliteCand values are left in [lo, hi); then it ranks those, one a

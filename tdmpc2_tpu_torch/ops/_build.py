@@ -23,8 +23,6 @@ import subprocess
 import time
 from pathlib import Path
 
-import torch
-
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 SOURCES = ('value', 'cem', 'rollout', 'probe')
@@ -136,15 +134,6 @@ def library(name: str, defines=()) -> ctypes.CDLL:
         lib.tdm_error_name.restype = ctypes.c_char_p
         _loaded[(name, defines)] = lib
     return lib
-
-
-def stream(dev) -> int:
-    """The handle of PyTorch's current stream on the CUDA device `dev`, for a
-    launch function's stream argument."""
-    raw = getattr(torch._C, '_cuda_getCurrentRawStream', None)
-    if raw is None:
-        return torch.cuda.current_stream(dev).cuda_stream
-    return raw(torch.cuda.current_device() if dev.index is None else dev.index)
 
 
 # Returned by a launch function when no row tile fits the model's widths

@@ -51,6 +51,10 @@ def _cuda_operands(name, dev, *tensors):
                              f'tensors on {dev}')
 
 
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 # ---------------------------------------------------------------------------
 # Policy-prior rollouts
 # ---------------------------------------------------------------------------
@@ -99,7 +103,7 @@ def pi_rollout(prep, z0, pi_eps, *, log_std_min: float, log_std_dif: float,
     rc = lib.tdm_pi_rollout(weight_ptrs(prep), dims, log_std_min, log_std_dif,
                             N, n_pi, z0.data_ptr(), z0.stride(0),
                             pi_eps.data_ptr(), pi_eps.stride(0),
-                            out.data_ptr(), _build.stream(dev))
+                            out.data_ptr(), _stream(dev))
     _build.check(lib, rc, 'pi_rollout kernel', dims)
     pi_rollout.launches += 1
     return out
@@ -144,7 +148,7 @@ def sample_actions(mean, std, noise, pi_acts, amask):
     lib = _build.library('cem')
     rc = lib.tdm_sample(mean.data_ptr(), std.data_ptr(), noise.data_ptr(),
                         noise.stride(0), pi_acts.data_ptr(), amask.data_ptr(),
-                        N, S, HA, A, n_pi, out.data_ptr(), _build.stream(dev))
+                        N, S, HA, A, n_pi, out.data_ptr(), _stream(dev))
     _build.check(lib, rc, 'sample kernel')
     sample_actions.launches += 1
     return out
@@ -221,7 +225,7 @@ def elite_moments(value, acts, amask, *, num_elites: int, temperature: float,
     rc = lib.tdm_elite(value.data_ptr(), acts.data_ptr(), amask.data_ptr(),
                        N, S, HA, A, num_elites, temperature, min_std, max_std,
                        v_out.data_ptr(), mean.data_ptr(), std.data_ptr(),
-                       _build.stream(dev))
+                       _stream(dev))
     if rc == _build.NO_PLAN:
         raise ValueError(f'elite_moments: S={S} samples of HA={HA} columns do '
                          'not fit in a block\'s shared memory')

@@ -56,7 +56,8 @@ def add_one(x):
     out = torch.empty_like(x)
     if add_one.launch is None:
         add_one.launch = _build.library('probe').tdm_probe
-    rc = add_one.launch(x.data_ptr(), out.data_ptr(), x.numel(), _build.stream(dev))
+    rc = add_one.launch(x.data_ptr(), out.data_ptr(), x.numel(),
+                        torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         _build.check(_build.library('probe'), rc, 'probe kernel')
     add_one.launches += 1

@@ -85,7 +85,7 @@ def rollout_prepared(prep, z0, actions, *, horizon: int, discount: float,
         weight_ptrs(prep), dims, S, z0.data_ptr(), z0.stride(0),
         actions.data_ptr(), actions.stride(0), actions.stride(1),
         discs.data_ptr(), G.data_ptr(), zH.data_ptr(),
-        _build.stream(dev))
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, 'rollout kernel', dims)
     rollout_prepared.launches += 1
     return G, zH

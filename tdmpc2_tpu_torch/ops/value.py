@@ -459,7 +459,7 @@ def value_estimate(prep, z0, actions, eps, qidx, discs, *,
         actions.stride(2), eps.data_ptr(), eps.stride(0), qidx.data_ptr(),
         qidx.stride(0), discs.data_ptr(), discs.stride(0), out.data_ptr(),
         None if term_at is None else term_at.data_ptr(),
-        _build.stream(dev))
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, 'value kernel', dims)
     value_estimate.launches += 1
     return out
