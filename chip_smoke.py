@@ -32,9 +32,16 @@ The elite kernel is also held at its edges (S = 77, 2048; HA = 114; E = 1
 and E = S; ties across the boundary, all tied, NaN, inf and +-3e38) and
 the canary at sizes 1, 3 and 1027 and at a storage offset; the canary's and
 `torch.add`'s device times are medians of interleaved profiler readings.
-The four planner kernels are also held at N=8 envs, against their plain
-versions and, bit for bit, against 8 one-env launches, and the whole
-8-env plan against the plain loop. The value kernel's episodic branch is
+The value kernel's sampled mode (the planner's step: the CEM sampling
+done where the kernel stages the actions) is held exactly, at one env, N=8
+and episodic N=8: its actions against `sample_actions_plain`, its values
+and flags against the given-actions launch on those actions. The three
+planner kernels are also held at N=8 envs, against their plain versions
+and, bit for bit, against 8 one-env launches, and the whole 8-env plan
+against the plain loop. The agent's plan, one CUDA graph replay, is held
+bit for bit against its eager body at n=1 and N=8, episodic too; each
+path's launch counts show 1 + 2 x 6 planner launches and one graph replay
+(or a capture's eager run) a plan. The value kernel's episodic branch is
 held at one env and at N=8 under the gate rule (see VALUE_TOL), its N=8
 launch against 8 one-env launches, and the episodic 8-env plan against
 the plain loop. The row-tile kernels' plans (rows per block, shared
@@ -50,17 +57,21 @@ print one progress line each. It ends with the card's name and power
 limit, one JSON line of per-kernel numbers (launches on each path, error
 against the plain version, kernel, plain and library times at N=8 and
 one env by CUDA events, each kernel's own device time by torch.profiler,
-the card's least time for the same work), and last
+the card's least time for the same work), the prep refresh's host and
+device time, and last
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero before
 that line; so does a machine without CUDA, or a directory without the
 port's package. A watchdog turns a hang into an exit with a traceback.
 
 `--compare DIR` times the row-tile kernels (value, its episodic branch, pi
-rollout, rollout; one env and N=8), the elite kernel (one env and N=8) and
-the canary of another version of the port, unpacked in DIR, against this
+rollout, rollout; one env and N=8), the elite kernel (one env and N=8), the
+canary, the planner's value step (the sampled mode where the version has
+it) and the agent's `plan_vec` (one env and N=8) of another version of the
+port, unpacked in DIR, against this
 tree's on the same inputs, in PAIRS (2 unless given) pairs of processes,
 alternating as DIR, this, this, DIR, DIR, this, ..., and prints the median
-and range of the pairs' ratios by CUDA events and by own device time.
+and range of the pairs' ratios by CUDA events (plan_vec: by the host clock,
+each call synchronised) and by own device time.
 `--cycles` builds the value and elite kernels with their cycle counters
 (TDM_CYCLES: csrc/mlp_rows.cuh, csrc/cem.cu) and prints where block 0 of
 each spends its cycles at the default model.
@@ -111,7 +122,9 @@ GATE_FLIP_SHARE = 0.01
 # of them flagged at t=H.
 FLAG_SPLIT = (0.05, 0.95)
 PI_TOL = dict(rtol=2e-2, atol=2e-2)
-SAMPLE_TOL = dict(rtol=0.0, atol=1e-6)
+# The fused kernel's sampled actions are sample_actions_plain's, bit for
+# bit, and its values the given-actions launch's on them.
+SAMPLE_TOL = dict(rtol=0.0, atol=0.0)
 ELITE_TOL = dict(rtol=1e-4, atol=1e-4)
 # The whole loop: an elite swap at the boundary (values within the value
 # band of each other) moves the softmax-weighted mean by about 1/E of an
@@ -290,9 +303,11 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound_ms(n_bytes, flops, peak_flops):
+def bound_ms(n_bytes, flops, peak_flops, f32_flops=0):
+    """The card's least time for `n_bytes` moved and `flops` at
+    `peak_flops` (plus `f32_flops` at the f32 rate)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
+    t_ops = (flops / peak_flops + f32_flops / F32_FLOPS) * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
 
 
@@ -364,6 +379,83 @@ def hold_gated(name, got, want, got_at, want_at, logits, tol):
     return err
 
 
+def hold_sampled(label, args, heads, episodic=False):
+    """The value kernel's sampled mode (value_sampled) on `args` against
+    sample_actions_plain and the given-actions launch (value_estimate) on
+    those actions: actions, values and, when episodic, the termination
+    flags, bit for bit. Returns the values' max |err| against the plain
+    step (value_sampled_plain), held in VALUE_TOL or, episodic, under the
+    gate rule."""
+    import torch
+    from tdmpc2_tpu_torch.ops import value
+    n, S = args[1].shape[:2]
+    H = args[-1].shape[-1] - 1
+    A = args[6].shape[0]
+    k_at = torch.empty(n, S, dtype=torch.int32, device=args[1].device)
+    at, p_at = torch.empty_like(k_at), torch.empty_like(k_at)
+    v, acts = value.value_sampled(*args, **heads, episodic=episodic, term_at=k_at)
+    hold(f'sampled actions, {label}', acts, value.sample_actions_plain(*args[2:7]),
+         SAMPLE_TOL)
+    given = (args[0], args[1], acts.view(n, S, H, A).permute(0, 2, 1, 3), *args[7:])
+    ref = value.value_estimate(*given, **heads, episodic=episodic, term_at=at)
+    if not (torch.equal(v, ref) and torch.equal(k_at, at)):
+        raise AssertionError(f'{label}: the sampled launch differs from the '
+                             'given-actions launch on its actions')
+    v_p, _ = value.value_sampled_plain(*args, **heads, episodic=episodic, term_at=p_at)
+    if episodic:
+        logits, _ = value.termination_trace_plain(*given[:3], args[-1],
+                                                  heads['simnorm_dim'])
+        err = hold_gated(f'value sampled episodic, {label}', v, v_p, k_at, p_at,
+                         logits, VALUE_TOL)
+    else:
+        err = hold(f'value sampled, {label}', v, v_p, VALUE_TOL)
+    log(f'  {label}: actions equal sample_actions_plain\'s and values (and flags) '
+        'the given-actions launch\'s on them, bit for bit')
+    return err
+
+
+def hold_plan_graph(label, ag, n, eval_mode, seed):
+    """One plan of `ag` through its CUDA graph (captured by a first plan of
+    (n, eval_mode) if need be) against the eager body on the same draws
+    and warm starts, with mixed episode starts and a negative warm start:
+    actions, means, every row of prev_mean and its sign bits equal; the
+    replay counted once, with the eager body's launches."""
+    import numpy as np
+    import torch
+    from tdmpc2_tpu_torch.tdmpc2 import PLAN_WRAPPERS
+    from tdmpc2_tpu_torch.utils.cuda_graph import Graph
+    obs = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(n, ag.cfg.obs_shape['state'][0])).astype(np.float32))
+    t0 = np.arange(n) % 3 == 0
+    ag.plan_vec(obs, t0, eval_mode=eval_mode)
+    pm = ag.prev_mean.clone()
+    pm[0, :, 0] = -0.5
+    ag.prev_mean = pm
+    ag.generator.manual_seed(seed)
+    counts = [w.launches for w in PLAN_WRAPPERS]
+    replays = Graph.replays.get('plan', 0)
+    a, m = (x.clone() for x in ag.plan_vec(obs, t0, eval_mode=eval_mode))
+    launched = [w.launches - c for w, c in zip(PLAN_WRAPPERS, counts)]
+    pm_graph = ag.prev_mean.clone()
+    ag.prev_mean = pm
+    ag.generator.manual_seed(seed)
+    a_e, m_e = ag._plan_body(ag.prep, obs.to(ag.device),
+                             torch.tensor(t0, device=ag.device), ag.draw_noise(n),
+                             eval_mode)
+    I = ag.iterations
+    if Graph.replays['plan'] != replays + 1 or launched != [1, I, I]:
+        raise AssertionError(f'plan graph {label}: {Graph.replays["plan"] - replays} '
+                             f'replays, launches {launched}')
+    if not (torch.equal(a, a_e) and torch.equal(m, m_e)
+            and torch.equal(pm_graph, ag.prev_mean)
+            and torch.equal(torch.signbit(pm_graph), torch.signbit(ag.prev_mean))):
+        raise AssertionError(f'plan graph {label}: the replay differs from the eager '
+                             f'body (max |err| actions {max_err(a, a_e):.3g}, means '
+                             f'{max_err(m, m_e):.3g})')
+    log(f'  {label}, eval_mode={eval_mode}: one replay ({launched} launches of '
+        f'pi_rollout, value_sampled, elite_moments) equals the eager body bit for bit')
+
+
 def elite_inputs(ag, n, g):
     """The elite step's operands at `ag`'s widths for n envs, drawn from the
     card generator g: the value kernel's values of uniform actions, the
@@ -387,12 +479,15 @@ def elite_inputs(ag, n, g):
 
 
 def time_kernels(root) -> int:
-    """`--time-kernels ROOT`: time the row-tile kernels, the elite kernel and
-    the canary of the port at ROOT (this tree, or an older one unpacked
-    elsewhere) on the main paths' inputs, made from SEED, through the entry
-    points that every version has; prints one JSON line {name: [ms by CUDA
-    events, the kernel's own device ms by torch.profiler]}."""
+    """`--time-kernels ROOT`: time the row-tile kernels, the elite kernel,
+    the canary, the planner's value step and `plan_vec` of the port at ROOT
+    (this tree, or an older one unpacked elsewhere) on the main paths'
+    inputs, made from SEED, through the entry points that every version
+    has; prints one JSON line {name: [ms by CUDA events (plan_vec: by the
+    host clock, each call synchronised), own device ms by
+    torch.profiler]}."""
     sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
     import torch
     from tdmpc2_tpu_torch import __file__ as pkg_file
     from tdmpc2_tpu_torch.config import load_cfg
@@ -400,6 +495,7 @@ def time_kernels(root) -> int:
     from tdmpc2_tpu_torch.models.layers import simnorm
     from tdmpc2_tpu_torch.ops import cem, probe, rollout, value
     from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
+    from tdmpc2_tpu_torch.utils import tree
     if not pkg_file.startswith(os.path.abspath(root)):
         raise AssertionError(f'imported {pkg_file}, not the tree at {root}')
     dev = torch.device('cuda')
@@ -451,10 +547,44 @@ def time_kernels(root) -> int:
         calls[f'elite_n{n}'] = (cem.elite_moments, e_args, e_kw)
     calls['probe'] = (probe.add_one, (torch.randn(probe.SHAPE, device=dev, generator=g),),
                       {})
+    # The planner's value step on the same actions: a tree with the sampled
+    # mode launches it (sampling included); an older one the value kernel on
+    # actions sampled before (its sample kernel not timed).
+    noise = ag.draw_noise(N_ENVS)
+    mean = torch.rand(N_ENVS, H * A, device=dev, generator=g) * 0.4 - 0.2
+    std = torch.rand(N_ENVS, H * A, device=dev, generator=g) * 1.9 + 0.1
+    pa = cem.pi_rollout(ag.prep, z_n, noise.pi_eps[:, :n_pi], **heads)
+    step = (ag.prep, z_n.expand(N_ENVS, S, L), mean, std, noise.sample[:, 0], pa, ag.amask,
+            noise.eps[:, 0], noise.qidx[:, 0], ag.discs.expand(N_ENVS, -1))
+    for n in (1, N_ENVS):
+        args = tuple(a if a is ag.prep or a is ag.amask else a[:n] for a in step)
+        if hasattr(value, 'value_sampled'):
+            calls[f'value_step_n{n}'] = (value.value_sampled, args, heads)
+        else:
+            acts = cem.sample_actions_plain(*args[2:7])
+            calls[f'value_step_n{n}'] = (
+                value.value_estimate, (args[0], args[1], acts.view(n, S, H, A).permute(
+                    0, 2, 1, 3), *args[7:]), heads)
+    # the agent's whole plan (a graph replay where the tree has one), in eval
+    # mode, each call waited for as act waits for it: its call time by the
+    # host clock (back to back, the plan is device-bound on either tree)
+    c8 = load_cfg(overrides=['task=toy-reach', f'seed={SEED}', f'num_envs={N_ENVS}'])
+    make_env(c8)
+    ag8 = TDMPC2(c8, device='cuda')
+    ag8.load_params(tree.map(torch.clone, ag.params))
+    obs8 = torch.randn(N_ENVS, c8.obs_shape['state'][0], device=dev, generator=g)
+    for n in (1, N_ENVS):
+        t0 = np.zeros(n, bool)
+        calls[f'plan_vec_n{n}'] = (ag8.plan_vec, (obs8[:n], t0), dict(eval_mode=True))
+    calls['plan_vec_episodic_n1'] = (agents['episodic'].plan_vec, (obs8[:1], np.zeros(1, bool)),
+                                     dict(eval_mode=True))
     out = {}
     for name, (fn, args, kw) in calls.items():
-        out[name] = [time_ms(lambda: fn(*args, **kw), 50),
-                     device_share(lambda: fn(*args, **kw), 20)[0]]
+        if name.startswith('plan_vec'):
+            ms = host_ms(lambda: (fn(*args, **kw), torch.cuda.synchronize()), 50)
+        else:
+            ms = time_ms(lambda: fn(*args, **kw), 50)
+        out[name] = [ms, device_share(lambda: fn(*args, **kw), 20)[0]]
     print(json.dumps(out), flush=True)
     return 0
 
@@ -598,6 +728,7 @@ def main() -> int:
         from tdmpc2_tpu_torch.trainer.online import OnlineTrainer
         from tdmpc2_tpu_torch.trainer.vec_online import VecOnlineTrainer
         from tdmpc2_tpu_torch.utils import tree
+        from tdmpc2_tpu_torch.utils.cuda_graph import Graph
     except ImportError as e:
         print(f'chip_smoke: the port is not importable here ({e})',
               file=sys.stderr)
@@ -721,20 +852,17 @@ def main() -> int:
 
     mean0 = torch.zeros(1, H * A, device=dev)
     std0 = torch.full((1, H * A), cfg.max_std, device=dev)
-    with Phase('sample kernel vs plain'):
-        s_args = (mean0 + 0.1, std0, noise.sample[:, 0], pa_p, agent.amask)
-        acts = cem.sample_actions(*s_args)
-        results['cem_sample'] = hold('sample', acts,
-                                     cem.sample_actions_plain(*s_args),
-                                     SAMPLE_TOL)
+    with Phase('fused value kernel (sampled mode) vs sample_actions_plain + value '
+               'kernel, exact'):
+        vs_args = (prep, zenc[None].expand(1, S, L), mean0 + 0.1, std0,
+                   noise.sample[:, 0], pa_p, agent.amask, noise.eps[:, 0],
+                   noise.qidx[:, 0], agent.discs[None])
+        results['value_sampled'] = hold_sampled('one env', vs_args, heads)
+        v_in, acts = value.value_sampled(*vs_args, **heads)
 
     elite_kw = dict(num_elites=E, temperature=cfg.temperature,
                     min_std=cfg.min_std, max_std=cfg.max_std)
     with Phase('elite kernel vs plain on identical values'):
-        v_in = value.value_estimate(prep, zenc[None].expand(1, S, L),
-                                    acts.view(1, S, H, A).permute(0, 2, 1, 3),
-                                    noise.eps[:, 0], noise.qidx[:, 0],
-                                    agent.discs[None], **heads)
         errs = []
         for label, vv in (('distinct', v_in), ('all tied', torch.zeros_like(v_in))):
             mk, sk, gk = cem.elite_moments(vv, acts, agent.amask, **elite_kw)
@@ -799,27 +927,32 @@ def main() -> int:
                'one-env launches'):
         pa_n = cem.pi_rollout_plain(prep, z_n, noise_n.pi_eps[:, :n_pi], **heads)
         pi_n_args = (prep, z_n, noise_n.pi_eps[:, :n_pi])
-        s_n_args = (mean_n, std_n, noise_n.sample[:, 0], pa_n, agent.amask)
-        acts_n = cem.sample_actions_plain(*s_n_args)
+        vs_n_args = (prep, z_n.expand(NE, S, L), mean_n, std_n, noise_n.sample[:, 0],
+                     pa_n, agent.amask, noise_n.eps[:, 0], noise_n.qidx[:, 0], discs_n)
+        acts_n = cem.sample_actions_plain(*vs_n_args[2:7])
         v_n_args = (prep, z_n.expand(NE, S, L),
                     acts_n.view(NE, S, H, A).permute(0, 2, 1, 3),
                     noise_n.eps[:, 0], noise_n.qidx[:, 0], discs_n)
         v_n_in = value.value_estimate_plain(*v_n_args, **heads)
         e_n_args = (v_n_in, acts_n, agent.amask)
+        results['value_sampled'] = max(results['value_sampled'],
+                                       hold_sampled(f'N={NE}', vs_n_args, heads))
         n_env_calls = {
             'value': (value.value_estimate, value.value_estimate_plain, v_n_args,
                       heads, VALUE_TOL),
+            'value_sampled': (value.value_sampled, value.value_sampled_plain,
+                              vs_n_args, heads, VALUE_TOL),
             'cem_pi_rollout': (cem.pi_rollout, cem.pi_rollout_plain, pi_n_args,
                                heads, PI_TOL),
-            'cem_sample': (cem.sample_actions, cem.sample_actions_plain, s_n_args,
-                           {}, SAMPLE_TOL),
             'cem_elite': (cem.elite_moments, cem.elite_moments_plain, e_n_args,
                           elite_kw, ELITE_TOL),
         }
         shared = (prep, agent.amask)
         for name, (kern, plain, args, kw, tol) in n_env_calls.items():
             got, ref = as_tuple(kern(*args, **kw)), as_tuple(plain(*args, **kw))
-            errs = [hold(f'{name} N={NE} [{j}]', a, b, tol)
+            # the sampled actions (value_sampled's [1]) are exact
+            errs = [hold(f'{name} N={NE} [{j}]', a, b,
+                         SAMPLE_TOL if name == 'value_sampled' and j == 1 else tol)
                     for j, (a, b) in enumerate(zip(got, ref))]
             results[name] = max(results[name], *errs)
             for i in range(NE):
@@ -914,6 +1047,21 @@ def main() -> int:
                                      'differs from its one-env launch')
         log(f'  value episodic: the N={NE} launch equals {NE} one-env launches bit '
             'for bit (values and flags)')
+        # the planner's step on the episodic paths: the sampled mode with the gate
+        evs_args = (e_prep, evn_args[1], mean_n, std_n, noise_n.sample[:, 1], pa_n,
+                    agent.amask, *evn_args[3:])
+        results['value_sampled_episodic'] = hold_sampled(
+            f'episodic N={NE}', evs_args, heads, episodic=True)
+        got = value.value_sampled(*evs_args, **heads, episodic=True)
+        for i in range(NE):
+            one = value.value_sampled(*[a if a is e_prep or a is agent.amask
+                                        else a[i:i + 1] for a in evs_args],
+                                      **heads, episodic=True)
+            if not all(torch.equal(a[i:i + 1], b) for a, b in zip(got, one)):
+                raise AssertionError(f'value sampled episodic: env {i} of the N={NE} '
+                                     'launch differs from its one-env launch')
+        log(f'  value sampled episodic: the N={NE} launch equals {NE} one-env launches '
+            'bit for bit (values and actions)')
 
     with Phase(f'episodic plan_vec at N={NE} through the kernels vs cem_plan_plain'):
         e_noise = e_agent.draw_noise(NE)
@@ -939,6 +1087,14 @@ def main() -> int:
             e_discs_n, cfg.simnorm_dim)
         log(f'  the last iteration\'s samples flagged by step t=1..{H} (plain): '
             + ', '.join(f'{100 * x:.1f}%' for x in flag_shares(at, H)))
+
+    with Phase(f'plan_vec graph vs its eager body, bit for bit (n=1 and N={NE}, '
+               'episodic too)'):
+        for label, ag, n, ev in (('one env', agent, 1, False),
+                                 (f'N={NE}, eval', agent, NE, True),
+                                 (f'N={NE}', agent, NE, False),
+                                 (f'episodic N={NE}', e_agent, NE, False)):
+            hold_plan_graph(label, ag, n, ev, SEED + n)
 
     sweep = {}
     with Phase(f'width sweep: value (and its episodic branch) and pi rollout kernels '
@@ -998,20 +1154,58 @@ def main() -> int:
             f'(host clock, synchronised); device busy {busy} ms over {n_dev} '
             'activities (torch.profiler)')
 
+        def refresh():
+            agent._prep = None
+            return agent.prep
+
+        refresh()       # the prep graph is captured by now
+        reps = 50
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            refresh()
+        issue_ms = 1e3 * (time.perf_counter() - t0) / reps
+        torch.cuda.synchronize()
+        refresh_ms = host_ms(refresh, 20)
+        r_busy, r_dev, _ = device_share(refresh, 5)
+        if agent.prep is not prep:
+            raise AssertionError('the prep refresh made new tensors')
+        log(f'  prep refresh (the prep graph replayed in place): host {issue_ms:.4f} ms '
+            f'to issue, {refresh_ms:.3f} ms synchronised (host clock); device busy '
+            f'{r_busy} ms over {r_dev} activities (torch.profiler)')
+
     wrappers = {'value': value.value_estimate,
+                'value_sampled': value.value_sampled,
                 'cem_pi_rollout': cem.pi_rollout,
-                'cem_sample': cem.sample_actions,
                 'cem_elite': cem.elite_moments,
                 'rollout': rollout.rollout_prepared,
                 'probe': probe.add_one}
-    planner = ('value', 'cem_pi_rollout', 'cem_sample', 'cem_elite')
+    planner = ('value_sampled', 'cem_pi_rollout', 'cem_elite')
 
     def zero_counts():
         for w in wrappers.values():
             w.launches = 0
+        Graph.replays['plan'] = Graph.captures['plan'] = 0
 
     def read_counts():
-        return {k: w.launches for k, w in wrappers.items()}
+        return {**{k: w.launches for k, w in wrappers.items()},
+                'plan_replays': Graph.replays.get('plan', 0),
+                'plan_captures': Graph.captures.get('plan', 0)}
+
+    def check_plan_counts(name, counts, plans=None):
+        """Each plan of a path: one pi rollout, I sampled value launches and
+        I elite launches (1 + 2 I kernels), none of the given-actions value
+        launch, and one graph replay, or the eager run of a capture."""
+        p = counts['cem_pi_rollout']
+        ok = (p > 0 and counts['value_sampled'] == I * p and counts['cem_elite'] == I * p
+              and counts['value'] == 0 and counts['plan_replays'] > 0
+              and counts['plan_replays'] + counts['plan_captures'] == p
+              and (plans is None or p == plans))
+        log(f'  {name}: {p} plans, {1 + 2 * I} planner launches a plan '
+            f'({counts["value_sampled"]} sampled value, {counts["cem_elite"]} elite), '
+            f'{counts["plan_replays"]} graph replays, {counts["plan_captures"]} captures')
+        if not ok:
+            raise AssertionError(f'{name}: planner launches {counts} for {plans} plans')
 
     with Phase('path: evaluate toy-reach, 5M model, 2 episodes'):
         ev_cfg = load_cfg(overrides=['task=toy-reach', 'eval_episodes=2',
@@ -1026,6 +1220,7 @@ def main() -> int:
         for k in planner:
             if ev_launches[k] <= 0:
                 raise AssertionError(f'evaluate: kernel {k} never launched')
+        check_plan_counts('evaluate', ev_launches, res['plans'])
 
     with Phase(f'path: fused_value_rollout (S={S}, H={H}, 5M heads)'):
         zero_counts()
@@ -1104,6 +1299,7 @@ def main() -> int:
         for k in planner + ('probe',):
             if counts[k] <= 0:
                 raise AssertionError(f'{name}: kernel {k} never launched')
+        check_plan_counts(name, counts)
         if not evals or not all(math.isfinite(e['episode_reward']) for e in evals):
             raise AssertionError(f'{name}: eval results {evals}')
         return tr, counts, secs, evals, lengths, losses
@@ -1162,6 +1358,7 @@ def main() -> int:
         for k in planner:
             if ev_ep_launches[k] <= 0:
                 raise AssertionError(f'episodic evaluate: kernel {k} never launched')
+        check_plan_counts('episodic evaluate', ev_ep_launches, res['plans'])
         check_episodic('episodic evaluate', res['lengths'])
     t_agent, buffer, env = trainer.agent, trainer.buffer, trainer.env
 
@@ -1262,7 +1459,10 @@ def main() -> int:
         act_plans = {}
         for n in (1, 8, 16):
             o = obs16[0] if n == 1 else obs16[:n]
-            agent16.act(o, t0=True)                  # warm-up
+            t0 = time.perf_counter()
+            agent16.act(o, t0=True)                  # captures the plan's graph
+            log(f'  act N={n}, the first call of a fresh agent (the eager warm-up and '
+                f'the capture): {1e3 * (time.perf_counter() - t0):.1f} ms')
             reps = 30
             t0 = time.perf_counter()
             for r in range(reps):
@@ -1276,6 +1476,15 @@ def main() -> int:
             ms8 = act_plans[NE][0]
             log(f'  act N={NE}: device busy {busy:.3f} ms of {ms8:.3f} ms (idle share '
                 f'{100 * (1 - busy / ms8):.1f}%), {n_dev:.0f} device activities')
+        # the episodic plan (the termination head in each value launch)
+        for n in (1, NE):
+            o = obs16[0] if n == 1 else obs16[:n]
+            e_agent.act(o, t0=True)
+            ms = host_ms(lambda: e_agent.act(o), 30)
+            busy, _, _ = device_share(lambda: e_agent.act(o), 5)
+            log(f'  episodic act N={n}: {ms:.3f} ms per call, {1e3 * n / ms:.1f} plans/s; '
+                f'device busy {busy} ms (idle share '
+                f'{"not measured" if busy is None else f"{100 * (1 - busy / ms):.1f}%"})')
 
         def vec_loop(steps, wait_for_update):
             """The trainer's vector step (act, the queued update_many,
@@ -1349,8 +1558,8 @@ def main() -> int:
         pi_w = nbytes(*[prep[k] for k in value.PREP_NAMES if k[0] in 'dp'])
         e_flops = 35 * S + 8 * S * HA
 
-        def value_bound(args, episodic=False):
-            z, acts_, eps_, qidx_, discs_ = args[1:]
+        def value_step_bound(z, eps_, qidx_, discs_, act_bytes, episodic,
+                             f32_flops=0):
             n = z.shape[0]
             heads_used = len(set(qidx_.flatten().tolist()))   # this run's data
             mac_step = mac_rew + mac_dyn + (mac_term if episodic else 0)
@@ -1358,24 +1567,33 @@ def main() -> int:
             # a latent broadcast over the rows (stride 0) is read once per env
             z_bytes = n * L * 4 if z.stride(1) == 0 else nbytes(z)
             by = (w_all + (w_term if episodic else 0) + heads_used * w_q1
-                  + z_bytes + nbytes(acts_, eps_, qidx_, discs_) + n * S * 4)
-            return bound_ms(by, flops, BF16_FLOPS)
+                  + z_bytes + act_bytes + nbytes(eps_, qidx_, discs_) + n * S * 4)
+            return bound_ms(by, flops, BF16_FLOPS, f32_flops)
+
+        def value_bound(args, episodic=False):
+            z, acts_, eps_, qidx_, discs_ = args[1:]
+            return value_step_bound(z, eps_, qidx_, discs_, nbytes(acts_), episodic)
 
         def value_episodic_bound(args):
             return value_bound(args, episodic=True)
+
+        def value_sampled_bound(args, episodic=False):
+            # the actions' operands in, the actions out; the first n_pi rows
+            # come from pi_acts: their noise is never read
+            z, mean_, std_, noise_, pi_, amask_, eps_, qidx_, discs_ = args[1:]
+            n = z.shape[0]
+            act_bytes = (nbytes(mean_, std_, pi_, amask_) + n * (S - n_pi) * HA * 4
+                         + n * S * HA * 4)
+            return value_step_bound(z, eps_, qidx_, discs_, act_bytes, episodic,
+                                    3 * n * S * HA)
+
+        def value_sampled_episodic_bound(args):
+            return value_sampled_bound(args, episodic=True)
 
         def pi_bound(args):
             n = args[2].numel() // (n_pi * HA)
             return bound_ms(pi_w + nbytes(args[1], args[2]) + n * n_pi * HA * 4,
                             2 * n * n_pi * H * (mac_pi + mac_dyn), BF16_FLOPS)
-
-        def sample_bound(args):
-            # the first n_pi rows come from pi_acts: their noise is never read
-            mean_, std_, noise_, pi_, amask_ = args
-            n = noise_.shape[0]
-            by = (nbytes(mean_, std_, pi_, amask_) + n * (S - n_pi) * HA * 4
-                  + n * S * HA * 4)
-            return bound_ms(by, 3 * n * S * HA, F32_FLOPS)
 
         def elite_bound(args):
             n = args[1].numel() // (S * HA)
@@ -1386,20 +1604,27 @@ def main() -> int:
         r_bytes = (nbytes(*[prep_r[k] for k in value.ROLLOUT_NAMES])
                    + nbytes(z0, actions) + S * 4 + S * L * 4)
         e_args = (v_in, acts, agent.amask)
+        evs1_args = tuple(a if a is e_prep or a is agent.amask else a[:1]
+                          for a in evs_args)
+        ep_heads = dict(heads, episodic=True)
         # name -> ((kernel, plain, args, kw, bound) at one env, the same at N)
         planner_calls = {
-            'value': (value.value_estimate, value.value_estimate_plain,
-                      v_args, v_n_args, heads, value_bound),
+            # the planner's step: the value kernel's sampled mode
+            'value_sampled': (value.value_sampled, value.value_sampled_plain,
+                              vs_args, vs_n_args, heads, value_sampled_bound),
             'cem_pi_rollout': (cem.pi_rollout, cem.pi_rollout_plain,
                                pi_args, pi_n_args, heads, pi_bound),
-            'cem_sample': (cem.sample_actions, cem.sample_actions_plain,
-                           s_args, s_n_args, {}, sample_bound),
             'cem_elite': (cem.elite_moments, cem.elite_moments_plain,
                           e_args, e_n_args, elite_kw, elite_bound),
-            # the episodic branch of the same kernel, on the episodic paths
+            # the same, with the termination branch, on the episodic paths
+            'value_sampled_episodic': (value.value_sampled, value.value_sampled_plain,
+                                       evs1_args, evs_args, ep_heads,
+                                       value_sampled_episodic_bound),
+            # the value kernel on given actions (value_estimate), no main path's
+            'value': (value.value_estimate, value.value_estimate_plain,
+                      v_args, v_n_args, heads, value_bound),
             'value_episodic': (value.value_estimate, value.value_estimate_plain,
-                               ev1_args, evn_args, dict(heads, episodic=True),
-                               value_episodic_bound),
+                               ev1_args, evn_args, ep_heads, value_episodic_bound),
         }
         paths = {'evaluate': ev_launches, 'rollout entry': ro_launches,
                  'train, one env': launches, f'train, num_envs={NE}': vec_launches,
@@ -1410,16 +1635,16 @@ def main() -> int:
                           f'train episodic, num_envs={NE}')
         kernels = []
         for name, (kern, plain, a1, an, kw, bound) in planner_calls.items():
-            wname = 'value' if name == 'value_episodic' else name
+            wname = name.replace('_episodic', '')
             by_path = {k: v[wname] for k, v in paths.items()
-                       if (k in episodic_paths) == (name == 'value_episodic')
-                       or wname != 'value'}
+                       if wname != 'value_sampled'
+                       or (k in episodic_paths) == name.endswith('_episodic')}
             row = {'name': name, 'route': 'cuda',
-                   'source': ('tdmpc2_tpu_torch/csrc/value.cu' if wname == 'value'
+                   'source': ('tdmpc2_tpu_torch/csrc/value.cu' if name.startswith('value')
                               else 'tdmpc2_tpu_torch/csrc/cem.cu'),
                    'replaces': ('tdmpc2_tpu/ops/pallas_rollout.py:437'
                                 if wname == 'value' else 'tdmpc2_tpu/ops/pallas_cem.py:53'),
-                   'launches': (vep_launches if name == 'value_episodic'
+                   'launches': (vep_launches if name.endswith('_episodic')
                                 else vec_launches)[wname],
                    'launches_by_path': by_path,
                    'max_abs_err': results[name], 'n_envs': NE}
@@ -1434,7 +1659,7 @@ def main() -> int:
                 log(f'  {name} ({"N=%d" % NE if not suffix else "one env"}): kernel '
                     f'{ms:.4f} ms (its own device time {dev_ms} ms), plain '
                     f'{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})')
-            if name in ('value', 'value_episodic', 'cem_pi_rollout'):
+            if name != 'cem_elite':
                 kname = 'pi_rollout' if name == 'cem_pi_rollout' else 'value'
                 row['plan'] = plans[kname]
                 row['ptxas'] = {k: v for k, v in usage.items()

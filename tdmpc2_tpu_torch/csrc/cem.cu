@@ -13,8 +13,9 @@
 //   pi_rollout_kernel  once: the n_pi policy-prior trajectories of each env,
 //                      ceil(n_pi / RT) row tiles per env (one at n_pi = 24)
 //   then per iteration:
-//     sample_kernel    clip(mean + std * noise), policy rows overriding
-//     value_kernel     (value.cu) the value of every sample
+//     value_kernel     (value.cu, sampled mode) samples clip(mean + std *
+//                      noise) with the policy rows overriding, where it
+//                      stages each step's actions, and values every sample
 //     elite_kernel     one warp per env: NaN guard, E-th largest value by the
 //                      TPU kernel's 32-step bisection in one warp (no block
 //                      barrier), boundary-shell tie weights, softmax-weighted
@@ -25,9 +26,10 @@
 // 24 rows on the tensor-core row-tile engine (mlp_rows.cuh): H steps of the
 // pi head and the dynamics, whose ~7.9 MB of packed weights its one block
 // per env streams from L2 (~0.07 ms at ~64 bytes a cycle); only the m-tiles
-// that hold rows are multiplied. The sample and elite kernels move a few
-// tens of KB and sit far below any throughput bound: what they take is
-// launch and latency (the elite kernel's design is at elite_kernel).
+// that hold rows are multiplied. The elite kernel moves a few tens of KB
+// and sits far below any throughput bound: what it takes is launch and
+// latency (its design is at elite_kernel). The sampling has no kernel of
+// its own: a microsecond of work would sit inside a launch's fixed cost.
 #include "mlp_rows.cuh"
 
 namespace tdm {
@@ -75,23 +77,6 @@ pi_rollout_kernel(Weights w, Dims d, Plan pl, float lsmin, float lsdif, int n_pi
     sync_consumers();
     dynamics<RT, NP>(st, tl, d, w, hd);
   }
-}
-
-// Element i of the [N, S, HA] output: env i / (S*HA), sample s, column c.
-__global__ void sample_kernel(const float* mean, const float* stdv, const float* noise,
-                              long nn, const float* pi_acts, const float* amask, int N,
-                              int S, int HA, int A, int n_pi, float* acts) {
-  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<long>(N) * S * HA) return;
-  const int env = static_cast<int>(i / (static_cast<long>(S) * HA));
-  const int k = static_cast<int>(i % (static_cast<long>(S) * HA));
-  const int s = k / HA, c = k % HA;
-  const int m = env * HA + c;
-  // _rn intrinsics: no contraction into an fma, the plain version's rounding
-  const float x = __fadd_rn(mean[m], __fmul_rn(stdv[m], noise[env * nn + k]));
-  const float a = s < n_pi ? pi_acts[(static_cast<long>(env) * n_pi + s) * HA + c]
-                           : fminf(fmaxf(x, -1.f), 1.f);
-  acts[i] = a * amask[c % A];
 }
 
 // ---------------------------------------------------------------------------
@@ -540,8 +525,7 @@ template <int RT, int NP>
 int launch_pi(const Weights& w, const Dims& d, const Plan& pl, float lsmin, float lsdif, int N,
               int n_pi, const float* z0, long zn, const float* pi_eps, long pn, float* pi_acts,
               cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      pi_rollout_kernel<RT, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.bytes);
+  const cudaError_t err = opt_in_smem(pi_rollout_kernel<RT, NP>, pl.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks_per_env = (n_pi + RT - 1) / RT;
   pi_rollout_kernel<RT, NP><<<N * blocks_per_env, kBlock, pl.bytes, stream>>>(
@@ -555,17 +539,9 @@ int launch_elite(int N, int smem, cudaStream_t stream, const float* v_in, const 
                  float min_std, float max_std, bool stage, float* v_out, float* mean_out,
                  float* std_out) {
   // above 48 KB of shared memory only after an opt-in, made once per device
-  static bool opted_in[64] = {};
   if (smem > 48 * 1024) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
+    const cudaError_t err = opt_in_smem(elite_kernel<R>, kSmemMax);
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev >= 64 || !opted_in[dev]) {
-      err = cudaFuncSetAttribute(elite_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kSmemMax);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      if (dev < 64) opted_in[dev] = true;
-    }
   }
   elite_kernel<R><<<N, 32, smem, stream>>>(v_in, acts, amask, S, HA, A, E, temperature, min_std,
                                            max_std, stage, v_out, mean_out, std_out);
@@ -603,19 +579,6 @@ extern "C" int tdm_pi_rollout_plan(const int* dims, int* out) {
   return with_shape(pl.shape, [&](auto t) {
     return plan_report(pi_rollout_kernel<decltype(t)::rt, decltype(t)::np>, pl, out);
   });
-}
-
-// mean/std [N, HA]; noise of env e: noise + e*nn ([S, HA]); pi_acts
-// [N, n_pi, HA]; acts [N, S, HA].
-extern "C" int tdm_sample(const float* mean, const float* stdv, const float* noise, long nn,
-                          const float* pi_acts, const float* amask, int N, int S, int HA,
-                          int A, int n_pi, float* acts, void* stream) {
-  const long n = static_cast<long>(N) * S * HA;
-  const int threads = 256;
-  tdm::sample_kernel<<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(mean, stdv, noise, nn, pi_acts,
-                                                            amask, N, S, HA, A, n_pi, acts);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // v_in, v_out [N, S]; acts [N, S, HA]; mean_out, std_out [N, HA]. Returns

@@ -67,8 +67,7 @@ template <int RT, int NP>
 int launch_rollout(const Weights& w, const Dims& d, const Plan& pl, int S, const float* z0,
                    long zs, const float* actions, long ats, long ass, const float* discs,
                    float* G, float* zH, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      rollout_kernel<RT, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.bytes);
+  const cudaError_t err = opt_in_smem(rollout_kernel<RT, NP>, pl.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   rollout_kernel<RT, NP><<<(S + RT - 1) / RT, kBlock, pl.bytes, stream>>>(
       w, d, pl, S, z0, zs, actions, ats, ass, discs, G, zH);

@@ -39,16 +39,79 @@
 // and step, ~27% at the default model, and reuses the hidden buffer.
 // The grouped SimNorm softmax is computed directly, where the TPU kernel
 // used a block-diagonal mask product.
+//
+// Sampled mode (the planner's step, ops/value.py value_sampled): the kernel
+// also does the CEM sampling of the TPU kernel _cem_kernel
+// (tdmpc2_tpu/ops/pallas_cem.py:136-147), which there runs in the same
+// program as the rollout that uses the samples. Row s of env e takes, at
+// step t and action column c, k = t*A + c,
+//   a = s < n_pi ? pi_acts[s, k] : clip(mean[k] + std[k] * noise[s, k], -1, 1)
+//   a = a * amask[c]
+// where the actions are staged, so that the sampling costs no launch of its
+// own (its microsecond of work would sit inside a launch's fixed cost).
+// Each action is written once, in f32, to acts [N, S, H*A] for the elite
+// step. The noise rows take the place of the action rows the given-actions
+// mode reads, at the same size.
 #include "mlp_rows.cuh"
 
 namespace tdm {
 
-template <int RT, int NP>
+// The sampled mode's operands, each env's through an env stride: mean and
+// std [H*A], noise [S, H*A] and the n_pi policy-prior rows pi_acts
+// [n_pi, H*A] (rows H*A apart); the action mask [A]; the sampled actions
+// acts [N, S, H*A]. mean == nullptr: the actions are given.
+struct Sampling {
+  const float* mean;
+  long mn;
+  const float* stdv;
+  long sn;
+  const float* noise;
+  long nn;
+  const float* pi_acts;
+  long pn;
+  const float* amask;
+  int n_pi;
+  float* acts;
+};
+
+// Step t's actions of the block's rows, sampled as the module comment says
+// (the _rn intrinsics: no contraction into an fma, the roundings of the
+// plain version's multiply, then add), written in f32 to acts and staged as
+// bf16 into the action columns of z||a. The operands point at the env's
+// own. Rows at or past nrows stage zeros and write nothing. Synchronises
+// the consumers after.
+__device__ __forceinline__ void put_sampled(const Tile& tl, const Dims& d, const Sampling& sp,
+                                            int t, int row0, int nrows) {
+  const int HA = d.H * d.A;
+  for (int i = threadIdx.x; i < tl.rt * d.A; i += kThreads) {
+    const int r = i / d.A, c = i % d.A, k = t * d.A + c;
+    uint16_t bits = 0;
+    if (r < nrows) {
+      const long at = static_cast<long>(row0 + r) * HA + k;
+      float a;
+      if (row0 + r < sp.n_pi) {
+        a = sp.pi_acts[at];
+      } else {
+        a = fminf(fmaxf(__fadd_rn(sp.mean[k], __fmul_rn(sp.stdv[k], sp.noise[at])), -1.f), 1.f);
+      }
+      a *= sp.amask[c];
+      sp.acts[at] = a;
+      bits = bf16_bits(a);
+    }
+    tl.z[r * tl.ldz + tl.Lp + c] = bits;
+  }
+  sync_consumers();
+}
+
+// kSampled: the sampled mode (sp), else the given actions. Two
+// instantiations, so that neither mode keeps the other's operands live
+// across the rollout.
+template <int RT, int NP, bool kSampled>
 __global__ void __launch_bounds__(kBlock, 1)
 value_kernel(Weights w, Dims d, Plan pl, float lsmin, float lsdif, int episodic, int S,
              int blocks_per_env, const float* z0, long zn, long zs, const float* actions,
-             long an, long ats, long ass, const float* eps, long en, const int* qidx, long qn,
-             const float* discs, long dn, float* out, int* term_at) {
+             long an, long ats, long ass, Sampling sp, const float* eps, long en,
+             const int* qidx, long qn, const float* discs, long dn, float* out, int* term_at) {
   extern __shared__ uint4 smem_u4[];
   TDM_CLOCK(t_kernel);
   const Tile tl(smem_u4, pl, d);
@@ -58,7 +121,15 @@ value_kernel(Weights w, Dims d, Plan pl, float lsmin, float lsdif, int episodic,
   const int nrows = min(RT, S - row0);
   const int tid = threadIdx.x;
   z0 += env * zn;
-  actions += env * an;
+  if constexpr (kSampled) {
+    sp.mean += env * sp.mn;
+    sp.stdv += env * sp.sn;
+    sp.noise += env * sp.nn;
+    sp.pi_acts += env * sp.pn;
+    sp.acts += static_cast<long>(env) * S * d.H * d.A;
+  } else {
+    actions += env * an;
+  }
   eps += env * en;
   qidx += env * qn;
   discs += env * dn;
@@ -101,7 +172,11 @@ value_kernel(Weights w, Dims d, Plan pl, float lsmin, float lsdif, int episodic,
   Stream st(tl, pl);
 
   for (int t = 0; t < d.H; ++t) {
-    put_actions(tl, d, actions + t * ats, ass, row0, nrows);
+    if constexpr (kSampled) {
+      put_sampled(tl, d, sp, t, row0, nrows);
+    } else {
+      put_actions(tl, d, actions + t * ats, ass, row0, nrows);
+    }
     // reward head on (z_t, a_t)
     reward<RT, NP>(st, tl, d, w, hd, r);
     if (tid < RT) G[tid] += discs[t] * ((1.f - term[tid]) * r[tid]);
@@ -149,23 +224,45 @@ value_kernel(Weights w, Dims d, Plan pl, float lsmin, float lsdif, int episodic,
   TDM_COUNT(0, t_kernel);
 }
 
-template <int RT, int NP>
+template <int RT, int NP, bool kSampled>
 int launch_value(const Weights& w, const Dims& d, const Plan& pl, float lsmin, float lsdif,
                  int episodic, int N, int S, const float* z0, long zn, long zs,
-                 const float* actions, long an, long ats, long ass, const float* eps, long en,
-                 const int* qidx, long qn, const float* discs, long dn, float* out,
-                 int* term_at, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      value_kernel<RT, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.bytes);
+                 const float* actions, long an, long ats, long ass, const Sampling& sp,
+                 const float* eps, long en, const int* qidx, long qn, const float* discs,
+                 long dn, float* out, int* term_at, cudaStream_t stream) {
+  const cudaError_t err = opt_in_smem(value_kernel<RT, NP, kSampled>, pl.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks_per_env = (S + RT - 1) / RT;
-  value_kernel<RT, NP><<<N * blocks_per_env, kBlock, pl.bytes, stream>>>(
+  value_kernel<RT, NP, kSampled><<<N * blocks_per_env, kBlock, pl.bytes, stream>>>(
       w, d, pl, lsmin, lsdif, episodic, S, blocks_per_env, z0, zn, zs, actions, an, ats, ass,
-      eps, en, qidx, qn, discs, dn, out, term_at);
+      sp, eps, en, qidx, qn, discs, dn, out, term_at);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tdm
+
+namespace {
+
+int value_launch(const void* const* wptrs, const int* dims, float lsmin, float lsdif,
+                 int episodic, int N, int S, const float* z0, long zn, long zs,
+                 const float* actions, long an, long ats, long ass, const tdm::Sampling& sp,
+                 const float* eps, long en, const int* qidx, long qn, const float* discs,
+                 long dn, float* out, int* term_at, void* stream) {
+  using namespace tdm;
+  Weights w;
+  for (int i = 0; i < kNumOps; ++i) w.p[i] = wptrs[i];
+  const Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6]};
+  const Plan pl = pick_plan(d);
+  if (pl.shape < 0) return kNoPlan;
+  return with_shape(pl.shape, [&](auto t) {
+    const auto launch = sp.mean != nullptr ? launch_value<decltype(t)::rt, decltype(t)::np, true>
+                                           : launch_value<decltype(t)::rt, decltype(t)::np, false>;
+    return launch(w, d, pl, lsmin, lsdif, episodic, N, S, z0, zn, zs, actions, an, ats, ass, sp,
+                  eps, en, qidx, qn, discs, dn, out, term_at, static_cast<cudaStream_t>(stream));
+  });
+}
+
+}  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() after the launch, or
 // kNoPlan when no row tile fits the widths. Operands of env e: z0 + e*zn
@@ -178,17 +275,26 @@ extern "C" int tdm_value(const void* const* wptrs, const int* dims, float lsmin,
                          const float* actions, long an, long ats, long ass, const float* eps,
                          long en, const int* qidx, long qn, const float* discs, long dn,
                          float* out, int* term_at, void* stream) {
-  using namespace tdm;
-  Weights w;
-  for (int i = 0; i < kNumOps; ++i) w.p[i] = wptrs[i];
-  const Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6]};
-  const Plan pl = pick_plan(d);
-  if (pl.shape < 0) return kNoPlan;
-  return with_shape(pl.shape, [&](auto t) {
-    return launch_value<decltype(t)::rt, decltype(t)::np>(
-        w, d, pl, lsmin, lsdif, episodic, N, S, z0, zn, zs, actions, an, ats, ass, eps, en, qidx,
-        qn, discs, dn, out, term_at, static_cast<cudaStream_t>(stream));
-  });
+  const tdm::Sampling given{};
+  return value_launch(wptrs, dims, lsmin, lsdif, episodic, N, S, z0, zn, zs, actions, an, ats,
+                      ass, given, eps, en, qidx, qn, discs, dn, out, term_at, stream);
+}
+
+// The sampled mode: as tdm_value, with the actions sampled in the kernel
+// from env e's mean + e*mn and std + e*sn ([H*A]), noise + e*nn and
+// pi_acts + e*pn ([S, H*A] and [n_pi, H*A], rows H*A apart) and amask [A];
+// the actions are written to acts [N, S, H*A].
+extern "C" int tdm_value_sampled(const void* const* wptrs, const int* dims, float lsmin,
+                                 float lsdif, int episodic, int N, int S, const float* z0,
+                                 long zn, long zs, const float* mean, long mn,
+                                 const float* stdv, long sn, const float* noise, long nn,
+                                 const float* pi_acts, long pn, const float* amask, int n_pi,
+                                 float* acts, const float* eps, long en, const int* qidx,
+                                 long qn, const float* discs, long dn, float* out,
+                                 int* term_at, void* stream) {
+  const tdm::Sampling sp{mean, mn, stdv, sn, noise, nn, pi_acts, pn, amask, n_pi, acts};
+  return value_launch(wptrs, dims, lsmin, lsdif, episodic, N, S, z0, zn, zs, nullptr, 0, 0, 0,
+                      sp, eps, en, qidx, qn, discs, dn, out, term_at, stream);
 }
 
 // out = {rows per block, shared bytes of one block, ring stages, blocks
@@ -198,7 +304,7 @@ extern "C" int tdm_value_plan(const int* dims, int* out) {
   const Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6]};
   const Plan pl = pick_plan(d);
   return with_shape(pl.shape, [&](auto t) {
-    return plan_report(value_kernel<decltype(t)::rt, decltype(t)::np>, pl, out);
+    return plan_report(value_kernel<decltype(t)::rt, decltype(t)::np, true>, pl, out);
   });
 }
 

@@ -35,13 +35,14 @@ _PTRS, _INTS = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     ('value', 'tdm_value'): (_PTRS, _INTS, _F, _F, _I, _I, _I, _P, _L, _L, _P,
                              _L, _L, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P),
+    ('value', 'tdm_value_sampled'): (_PTRS, _INTS, _F, _F, _I, _I, _I, _P, _L, _L,
+                                     _P, _L, _P, _L, _P, _L, _P, _L, _P, _I, _P,
+                                     _P, _L, _P, _L, _P, _L, _P, _P, _P),
     ('value', 'tdm_value_plan'): (_INTS, _INTS),
     ('cem', 'tdm_pi_rollout_plan'): (_INTS, _INTS),
     ('rollout', 'tdm_rollout_plan'): (_INTS, _INTS),
     ('cem', 'tdm_pi_rollout'): (_PTRS, _INTS, _F, _F, _I, _I, _P, _L, _P, _L,
                                 _P, _P),
-    ('cem', 'tdm_sample'): (_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P,
-                            _P),
     ('cem', 'tdm_elite'): (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P,
                            _P, _P),
     ('rollout', 'tdm_rollout'): (_PTRS, _INTS, _I, _P, _L, _P, _L, _L, _P,
@@ -156,15 +157,15 @@ def check(lib: ctypes.CDLL, rc: int, what: str, dims=None):
 
 
 def _short(mangled: str) -> str:
-    """`value_kernel<32,4>` for a function of namespace tdm (its integer
-    template arguments, the row tile, in brackets); other names as they
-    are."""
+    """`value_kernel<32,4,1>` for a function of namespace tdm (its integer
+    and bool template arguments, the row tile and the mode, in brackets);
+    other names as they are."""
     k = re.search(r'tdm(\d+)', mangled)   # namespace tdm, then the name
     if not k:
         return mangled
     end = k.end() + int(k.group(1))
-    args = re.match(r'I((?:Li\d+E)+)E', mangled[end:])
-    shape = ','.join(re.findall(r'Li(\d+)E', args.group(1))) if args else ''
+    args = re.match(r'I((?:L[ib]\d+E)+)E', mangled[end:])
+    shape = ','.join(re.findall(r'L[ib](\d+)E', args.group(1))) if args else ''
     return mangled[k.end():end] + (f'<{shape}>' if shape else '')
 
 

@@ -3,14 +3,15 @@
 environments at once (the TPU kernel's grid=(N,), `_cem_flat` :303).
 
 The TPU kernel runs one environment's whole loop in one program. Here the
-loop is four hand-written kernels (csrc/cem.cu, csrc/value.cu) whose launch
+loop is three hand-written kernels (csrc/cem.cu, csrc/value.cu) whose launch
 boundaries are the only synchronisation across thread blocks; each launch
-covers all N envs:
+covers all N envs, 1 + 2 x iterations launches a plan:
 
     pi_rollout                 once per plan: the n_pi policy-prior rows
     per iteration:
-      sample_actions           clip(mean + std * noise), pi rows override
-      value_estimate           ops/value.py
+      value_sampled            ops/value.py: clip(mean + std * noise), pi
+                               rows override, sampled where the value
+                               kernel stages the actions; the value of each
       elite_moments            one warp per env: NaN guard, E-th largest
                                by bisection in one warp with boundary-shell
                                tie weights, softmax-weighted mean/std update
@@ -37,8 +38,9 @@ import torch
 from tdmpc2_tpu_torch.ops import _build
 from tdmpc2_tpu_torch.ops.value import (check_prep, dynamics_plain,
                                         pi_head_plain, prep_dims,
-                                        value_estimate, value_estimate_plain,
-                                        weight_ptrs)
+                                        sample_actions_plain,  # noqa: F401
+                                        value_sampled,
+                                        value_sampled_plain, weight_ptrs)
 
 _F32_HUGE = 3.0e38  # finite-value guard (nan_to_num semantics)
 
@@ -110,51 +112,6 @@ def pi_rollout(prep, z0, pi_eps, *, log_std_min: float, log_std_dif: float,
 
 
 pi_rollout.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# Sampling
-# ---------------------------------------------------------------------------
-
-
-def sample_actions_plain(mean, std, noise, pi_acts, amask):
-    """mean/std [N, H*A]; noise [N, S, H*A]; pi_acts [N, n_pi, H*A];
-    amask [A] -> actions [N, S, H*A]."""
-    n_pi = pi_acts.shape[1]
-    acts = torch.clamp(mean[:, None] + std[:, None] * noise, -1.0, 1.0)
-    if n_pi:
-        acts = torch.cat([pi_acts, acts[:, n_pi:]], dim=1)
-    return acts * amask.repeat(mean.shape[-1] // amask.shape[0])
-
-
-def sample_actions(mean, std, noise, pi_acts, amask):
-    """The sample kernel on CUDA tensors, the plain version on CPU. noise
-    rows contiguous, any stride on its env axis; the rest contiguous."""
-    dev = noise.device
-    if dev.type == 'cpu':
-        return sample_actions_plain(mean, std, noise, pi_acts, amask)
-    if dev.type != 'cuda':
-        raise ValueError(f'sample_actions: unsupported device {dev}')
-    _cuda_operands('sample_actions', dev, mean, std, pi_acts, amask)
-    N, S, HA = noise.shape
-    A, n_pi = amask.shape[0], pi_acts.shape[1]
-    if (noise.device != dev or noise.dtype != torch.float32
-            or noise.stride()[1:] != (HA, 1)):
-        raise ValueError('sample_actions: noise must be f32 with contiguous rows')
-    if (mean.shape != (N, HA) or std.shape != (N, HA) or HA % A or n_pi > S
-            or pi_acts.shape[0] != N or (n_pi and pi_acts.shape[2] != HA)):
-        raise ValueError('sample_actions: shapes do not agree')
-    out = torch.empty(N, S, HA, dtype=torch.float32, device=dev)
-    lib = _build.library('cem')
-    rc = lib.tdm_sample(mean.data_ptr(), std.data_ptr(), noise.data_ptr(),
-                        noise.stride(0), pi_acts.data_ptr(), amask.data_ptr(),
-                        N, S, HA, A, n_pi, out.data_ptr(), _stream(dev))
-    _build.check(lib, rc, 'sample kernel')
-    sample_actions.launches += 1
-    return out
-
-
-sample_actions.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -245,7 +202,7 @@ elite_moments.launches = 0
 def _cem_loop(steps, prep, z0, pi_eps, noise, eps, qidx, discs, mean0, std0,
               amask, *, iterations, n_pi, num_elites, temperature, min_std,
               max_std, log_std_min, log_std_dif, simnorm_dim, episodic=False):
-    pi_roll, sample, value, elite = steps
+    pi_roll, value, elite = steps
     N, I, S, HA = noise.shape
     H = discs.shape[-1] - 1
     A = HA // H
@@ -261,9 +218,9 @@ def _cem_loop(steps, prep, z0, pi_eps, noise, eps, qidx, discs, mean0, std0,
     mean, std = mean0.reshape(N, HA), std0.reshape(N, HA)
     amask = amask.reshape(A)
     for it in range(iterations):
-        acts = sample(mean, std, noise[:, it], pi_acts, amask)
-        v = value(prep, z, acts.view(N, S, H, A).permute(0, 2, 1, 3),
-                  eps[:, it], qidx[:, it], discs, episodic=episodic, **heads)
+        v, acts = value(prep, z, mean, std, noise[:, it], pi_acts, amask,
+                        eps[:, it], qidx[:, it], discs, episodic=episodic,
+                        **heads)
         mean, std, v = elite(v, acts, amask, num_elites=num_elites,
                              temperature=temperature, min_std=min_std,
                              max_std=max_std)
@@ -273,15 +230,14 @@ def _cem_loop(steps, prep, z0, pi_eps, noise, eps, qidx, discs, mean0, std0,
 def cem_plan(prep, z0, pi_eps, noise, eps, qidx, discs, mean0, std0, amask,
              **kw):
     """The planning loop through the kernels (CUDA) or plain versions (CPU)."""
-    return _cem_loop((pi_rollout, sample_actions, value_estimate,
-                      elite_moments), prep, z0, pi_eps, noise, eps, qidx,
-                     discs, mean0, std0, amask, **kw)
+    return _cem_loop((pi_rollout, value_sampled, elite_moments), prep, z0,
+                     pi_eps, noise, eps, qidx, discs, mean0, std0, amask,
+                     **kw)
 
 
 def cem_plan_plain(prep, z0, pi_eps, noise, eps, qidx, discs, mean0, std0,
                    amask, **kw):
     """The planning loop through the plain versions, on any device."""
-    return _cem_loop((pi_rollout_plain, sample_actions_plain,
-                      value_estimate_plain, elite_moments_plain), prep, z0,
-                     pi_eps, noise, eps, qidx, discs, mean0, std0, amask,
-                     **kw)
+    return _cem_loop((pi_rollout_plain, value_sampled_plain,
+                      elite_moments_plain), prep, z0, pi_eps, noise, eps,
+                     qidx, discs, mean0, std0, amask, **kw)

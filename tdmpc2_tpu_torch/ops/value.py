@@ -20,6 +20,17 @@ termination head's logit on the new latent (pallas_rollout.py:503-510);
 otherwise term stays 0. The TPU kernel's block-diagonal mask product for
 SimNorm is not carried over: the grouped softmax is computed directly.
 
+`value_sampled` is the planner's step: the same value, on actions that the
+kernel samples where it stages them, as the TPU kernel `_cem_kernel`
+(tdmpc2_tpu/ops/pallas_cem.py:136-147) does in the program that rolls them
+out,
+
+    a[s, t*A + c] = (s < n_pi ? pi_acts[s, t*A + c]
+                     : clip(mean[t*A + c] + std[t*A + c] * noise[s, t*A + c], -1, 1)) * amask[c]
+
+returning the actions too, for the elite step. Its plain version is
+`sample_actions_plain` followed by `value_estimate_plain`.
+
 The kernels read the matrices in a packed copy (`pack_matrix`) that the
 prep adds for bf16 weights: zero-padded to multiples of 16 and laid out in
 the order of the tensor-core fragments the kernels load
@@ -364,6 +375,28 @@ def value_estimate_plain(prep, z0, actions, eps, qidx, discs, *,
     return G + discs[:, H, None, None] * q
 
 
+def sample_actions_plain(mean, std, noise, pi_acts, amask):
+    """mean/std [N, H*A]; noise [N, S, H*A]; pi_acts [N, n_pi, H*A];
+    amask [A] -> actions [N, S, H*A]."""
+    n_pi = pi_acts.shape[1]
+    acts = torch.clamp(mean[:, None] + std[:, None] * noise, -1.0, 1.0)
+    if n_pi:
+        acts = torch.cat([pi_acts, acts[:, n_pi:]], dim=1)
+    return acts * amask.repeat(mean.shape[-1] // amask.shape[0])
+
+
+def value_sampled_plain(prep, z0, mean, std, noise, pi_acts, amask, eps, qidx,
+                        discs, **kw):
+    """`sample_actions_plain`, then `value_estimate_plain` on its actions
+    (keywords as there) -> (value [N, S, 1], actions [N, S, H*A])."""
+    acts = sample_actions_plain(mean, std, noise, pi_acts, amask)
+    N, S, HA = acts.shape
+    H = discs.shape[-1] - 1
+    v = value_estimate_plain(prep, z0, acts.view(N, S, H, HA // H).permute(0, 2, 1, 3),
+                             eps, qidx, discs, **kw)
+    return v, acts
+
+
 def gate_check(got, want, got_at, want_at, logits, *, rtol: float,
                atol: float, near: float = 1e-2):
     """Hold an episodic value step `got` against the plain `want` (both
@@ -394,6 +427,36 @@ def gate_check(got, want, got_at, want_at, logits, *, rtol: float,
 # ---------------------------------------------------------------------------
 
 
+def _check_operands(name, prep, z0, eps, qidx, discs, N, S, simnorm_dim,
+                    term_at):
+    """Validate the operands both launches share, on a CUDA device; returns
+    (the device, H)."""
+    dev = z0.device
+    if dev.type != 'cuda':
+        raise ValueError(f'{name}: unsupported device {dev}')
+    check_prep(prep, dev, simnorm_dim)
+    L = prep['dWz'].shape[0]
+    H = discs.shape[-1] - 1
+    if (z0.shape != (N, S, L) or z0.stride(2) != 1 or z0.dtype != torch.float32):
+        raise ValueError(f'{name}: z0 {tuple(z0.shape)} must be an f32 [N, S, L] '
+                         f'tensor (N={N}, S={S}, L={L}) with unit inner stride')
+    A = prep['dWa'].shape[0]
+    for what, t, shape, dtype, inner in (
+            ('eps', eps, (N, S, A), torch.float32, (A, 1)),
+            ('qidx', qidx, (N, 2), torch.int32, (1,)),
+            ('discs', discs, (N, H + 1), torch.float32, (1,))):
+        if (t.device != dev or tuple(t.shape) != shape or t.dtype != dtype
+                or t.stride()[1:] != inner):
+            raise ValueError(f'{name}: {what} must be a {dtype} {shape} tensor '
+                             f'on {dev}, contiguous after the env axis')
+    if term_at is not None and (
+            term_at.device != dev or term_at.dtype != torch.int32
+            or tuple(term_at.shape) != (N, S) or not term_at.is_contiguous()):
+        raise ValueError(f'{name}: term_at must be a contiguous int32 '
+                         f'{(N, S)} tensor on {dev}')
+    return dev, H
+
+
 def value_estimate(prep, z0, actions, eps, qidx, discs, *,
                    log_std_min: float, log_std_dif: float,
                    simnorm_dim: int = 8, episodic: bool = False, term_at=None):
@@ -412,43 +475,23 @@ def value_estimate(prep, z0, actions, eps, qidx, discs, *,
     if episodic and any(k not in prep for k in TERM_NAMES):
         raise ValueError('value_estimate: episodic=True needs the termination '
                          'head in prep (prepare_value_params with cfg.episodic)')
-    dev = z0.device
-    if dev.type == 'cpu':
+    if z0.device.type == 'cpu':
         return value_estimate_plain(
             prep, z0, actions, eps, qidx, discs, log_std_min=log_std_min,
             log_std_dif=log_std_dif, simnorm_dim=simnorm_dim,
             episodic=episodic, term_at=term_at)
-    if dev.type != 'cuda':
-        raise ValueError(f'value_estimate: unsupported device {dev}')
-    check_prep(prep, dev, simnorm_dim)
     if actions.dim() != 4:
         raise ValueError(f'value_estimate: actions {tuple(actions.shape)} '
                          'must be [N, H, S, A] with z0 [N, S, L]')
     N, H, S, A = actions.shape
-    L = prep['dWz'].shape[0]
-    if (z0.shape != (N, S, L) or z0.stride(2) != 1 or actions.stride(3) != 1
-            or prep['dWa'].shape[0] != A):
-        raise ValueError(f'value_estimate: z0 {tuple(z0.shape)} / actions '
-                         f'{tuple(actions.shape)} do not fit the weights '
-                         f'(L={L}, A={prep["dWa"].shape[0]}) with unit inner stride')
-    for name, t, shape, dtype, inner in (
-            ('eps', eps, (N, S, A), torch.float32, (A, 1)),
-            ('qidx', qidx, (N, 2), torch.int32, (1,)),
-            ('discs', discs, (N, H + 1), torch.float32, (1,))):
-        if (t.device != dev or tuple(t.shape) != shape or t.dtype != dtype
-                or t.stride()[1:] != inner):
-            raise ValueError(f'value_estimate: {name} must be a {dtype} '
-                             f'{shape} tensor on {dev}, contiguous after the '
-                             'env axis')
-    for t in (z0, actions):
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError('value_estimate: z0/actions must be f32 on the '
-                             'weights\' device')
-    if term_at is not None and (
-            term_at.device != dev or term_at.dtype != torch.int32
-            or tuple(term_at.shape) != (N, S) or not term_at.is_contiguous()):
-        raise ValueError(f'value_estimate: term_at must be a contiguous int32 '
-                         f'{(N, S)} tensor on {dev}')
+    dev, _ = _check_operands('value_estimate', prep, z0, eps, qidx, discs, N, S,
+                             simnorm_dim, term_at)
+    if (actions.device != dev or actions.dtype != torch.float32
+            or actions.stride(3) != 1 or prep['dWa'].shape[0] != A
+            or discs.shape[-1] != H + 1):
+        raise ValueError(f'value_estimate: actions {tuple(actions.shape)} must be '
+                         f'f32 on {dev} with unit inner stride and fit the weights '
+                         f'(A={prep["dWa"].shape[0]}) and discs')
     out = torch.empty(N, S, 1, dtype=torch.float32, device=dev)
     lib = _build.library('value')
     dims = (ctypes.c_int * 7)(*prep_dims(prep, simnorm_dim, H))
@@ -466,6 +509,65 @@ def value_estimate(prep, z0, actions, eps, qidx, discs, *,
 
 
 value_estimate.launches = 0
+
+
+def value_sampled(prep, z0, mean, std, noise, pi_acts, amask, eps, qidx, discs,
+                  *, log_std_min: float, log_std_dif: float,
+                  simnorm_dim: int = 8, episodic: bool = False, term_at=None):
+    """The planner's step: the value kernel in its sampled mode on CUDA
+    tensors, `value_sampled_plain` on CPU tensors.
+
+    mean/std [N, H*A] f32; noise [N, S, H*A] f32 (rows below n_pi unused);
+    pi_acts [N, n_pi, H*A] f32, n_pi <= S; amask [A] f32; the rest as for
+    `value_estimate` -> (value [N, S, 1], actions [N, S, H*A]), the actions
+    the module docstring gives, bit for bit as `sample_actions_plain`'s.
+    Any stride on the env axes; rows and the last axis contiguous.
+    """
+    if episodic and any(k not in prep for k in TERM_NAMES):
+        raise ValueError('value_sampled: episodic=True needs the termination '
+                         'head in prep (prepare_value_params with cfg.episodic)')
+    kw = dict(log_std_min=log_std_min, log_std_dif=log_std_dif,
+              simnorm_dim=simnorm_dim, episodic=episodic, term_at=term_at)
+    if z0.device.type == 'cpu':
+        return value_sampled_plain(prep, z0, mean, std, noise, pi_acts, amask,
+                                   eps, qidx, discs, **kw)
+    N, S, HA = noise.shape
+    dev, H = _check_operands('value_sampled', prep, z0, eps, qidx, discs, N, S,
+                             simnorm_dim, term_at)
+    A, n_pi = prep['dWa'].shape[0], pi_acts.shape[1]
+    for what, t, shape, inner in (
+            ('mean', mean, (N, HA), (1,)), ('std', std, (N, HA), (1,)),
+            ('noise', noise, (N, S, HA), (HA, 1)),
+            ('pi_acts', pi_acts, (N, n_pi, HA), (HA, 1) if n_pi else None),
+            ('amask', amask, (A,), None)):
+        if (t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape
+                or (inner is not None and t.stride()[1:] != inner)
+                or (what == 'amask' and not t.is_contiguous())):
+            raise ValueError(f'value_sampled: {what} must be an f32 {shape} tensor '
+                             f'on {dev}, contiguous after the env axis (H={H}, '
+                             f'A={A}, H*A={H * A})')
+    if HA != H * A or n_pi > S:
+        raise ValueError(f'value_sampled: H*A={HA} columns for H={H}, A={A}, or '
+                         f'{n_pi} policy rows for S={S}')
+    out = torch.empty(N, S, 1, dtype=torch.float32, device=dev)
+    acts = torch.empty(N, S, HA, dtype=torch.float32, device=dev)
+    lib = _build.library('value')
+    dims = (ctypes.c_int * 7)(*prep_dims(prep, simnorm_dim, H))
+    rc = lib.tdm_value_sampled(
+        weight_ptrs(prep), dims, log_std_min, log_std_dif, int(episodic), N, S,
+        z0.data_ptr(), z0.stride(0), z0.stride(1), mean.data_ptr(),
+        mean.stride(0), std.data_ptr(), std.stride(0), noise.data_ptr(),
+        noise.stride(0), pi_acts.data_ptr(), pi_acts.stride(0),
+        amask.data_ptr(), n_pi, acts.data_ptr(), eps.data_ptr(), eps.stride(0),
+        qidx.data_ptr(), qidx.stride(0), discs.data_ptr(), discs.stride(0),
+        out.data_ptr(), None if term_at is None else term_at.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, 'value kernel (sampled)', dims)
+    value_sampled.launches += 1
+    return out, acts
+
+
+value_sampled.launches = 0
 
 
 def kernel_plan(prep, simnorm_dim: int = 8, horizon: int = 3,

@@ -3,7 +3,7 @@
 `act` encodes one observation, or a stack of N envs' observations, and
 plans for all of them at once with MPPI, as the JAX agent's `_plan_vec`
 (tdmpc2.py:378-394) over `_plan` (:523-641) with the whole-CEM kernel:
-the policy-prior rollouts, `iterations` x (sample, value, elite moment
+the policy-prior rollouts, `iterations` x (sample and value, elite moment
 update), then each env's top E of the last iteration and a Gumbel pick of
 one elite's first action. The loop runs on the hand-written kernels of
 ops/cem.py on the card, one launch per step for all N envs, and on their
@@ -12,6 +12,19 @@ pick are plain torch, as they are plain XLA in the JAX package. Each env
 keeps its own warm-start mean (`prev_mean` [max(1, num_envs), H, A]). On
 episodic tasks (`cfg.episodic`) the value step gates later rewards and
 the terminal Q by the termination head's sticky flag.
+
+On the card a plan is one CUDA graph (utils/cuda_graph.py), as the JAX
+agent's plan is one jitted program (tdmpc2.py:153-157): one graph for each
+(n, eval_mode), captured at the first plan of that pair, whose eager
+warm-up is that plan's result; later plans refill its inputs in place and
+replay it. It holds the encoder, the planner's 1 + 2 x iterations kernel
+launches, the final pick and the write of `prev_mean[:n]`. The generator's
+draws run outside it, into its input buffers. The weight prep is a graph
+too (the JAX agent's `_prep_jit`), replayed in place at the first plan
+after the weights changed; the weights change in place (`update`), and a
+new parameter tree (`load_params`, `load`, a new `state`) drops every
+graph, so that the next plan captures anew. On the CPU the same body runs
+eagerly.
 
 `update` is one training step (`_update`, tdmpc2.py:928-1057): TD targets
 without gradient, the consistency, reward and value losses, the model's
@@ -40,11 +53,14 @@ import numpy as np
 import torch
 
 from tdmpc2_tpu_torch.models.world_model import WorldModel
-from tdmpc2_tpu_torch.ops import math, optim, probe
-from tdmpc2_tpu_torch.ops.cem import cem_plan
+from tdmpc2_tpu_torch.ops import cem, math, optim, probe
 from tdmpc2_tpu_torch.ops.scale import update_scale
-from tdmpc2_tpu_torch.ops.value import prepare_value_params
+from tdmpc2_tpu_torch.ops.value import prepare_value_params, value_sampled
 from tdmpc2_tpu_torch.utils import tree
+from tdmpc2_tpu_torch.utils.cuda_graph import Graph
+
+# the kernel wrappers a plan runs, whose launch counts a replay adds
+PLAN_WRAPPERS = (cem.pi_rollout, value_sampled, cem.elite_moments)
 
 
 @dataclass
@@ -57,6 +73,18 @@ class PlanNoise:
     qidx: torch.Tensor      # [n, I, 2] int32 Q heads
     gumbel: torch.Tensor    # [n, E] Gumbel noise of the final pick
     act: torch.Tensor       # [n, A] exploration noise (not in eval mode)
+
+
+@dataclass
+class PlanDraws:
+    """The generator's raw draws behind a PlanNoise, in the order they are
+    drawn: `gumbel` is made from `u`, `qidx` from `qr`."""
+    u: torch.Tensor         # [n, E] uniform
+    pi_eps: torch.Tensor    # [n, max(n_pi, 1), H*A]
+    sample: torch.Tensor    # [n, I, S, H*A]
+    eps: torch.Tensor       # [n, I, S, A]
+    qr: torch.Tensor        # [n, I, num_q] uniform
+    act: torch.Tensor       # [n, A]
 
 
 @dataclass
@@ -162,6 +190,7 @@ class TDMPC2:
             prev_mean=torch.zeros(max(1, int(cfg.num_envs or 1)), cfg.horizon,
                                   cfg.action_dim, device=self.device))
         self._prep = None
+        self._drop_graphs()
 
     @property
     def params(self):
@@ -174,15 +203,46 @@ class TDMPC2:
 
     @prev_mean.setter
     def prev_mean(self, value):
-        self.state.prev_mean = value
+        """Copied into the warm starts in place where the shapes agree (the
+        plan graphs write there); otherwise they are replaced."""
+        pm = self.state.prev_mean
+        if (isinstance(value, torch.Tensor) and value.shape == pm.shape
+                and value.dtype == pm.dtype and value.device == pm.device):
+            pm.copy_(value)
+        else:
+            self.state.prev_mean = value
 
     @property
     def prep(self):
-        """The planner's prepared weights, redone after the weights change."""
+        """The planner's prepared weights, redone after the weights change
+        (`_prep` None); on the card in place, by the prep graph."""
+        self._check_bound()
         if self._prep is None:
-            self._prep = prepare_value_params(self.params, self.cfg,
-                                              self.dot_dtype)
+            self._prep = self._prepare()
         return self._prep
+
+    def _prepare(self) -> dict:
+        def prep():
+            return prepare_value_params(self.params, self.cfg, self.dot_dtype)
+        if self.device.type != 'cuda':
+            return prep()
+        g = self._graphs.get('prep')
+        if g is None:
+            g = self._graphs['prep'] = Graph(prep, (), self.device, 'prep')
+        return g.replay()
+
+    def _drop_graphs(self):
+        self._graphs, self._bound = {}, None
+
+    def _check_bound(self):
+        """Drop the graphs (and the prep) when the state holds other
+        parameters or warm starts than they were captured on."""
+        st, bound = self.state, self._bound
+        if bound is not None and bound[0] is not st.params:
+            self._graphs, self._prep = {}, None
+        elif bound is not None and bound[1] is not st.prev_mean:
+            self._graphs = {k: g for k, g in self._graphs.items() if k == 'prep'}
+        self._bound = (st.params, st.prev_mean)
 
     def _arch_meta(self) -> dict:
         meta = {k: self.cfg.get(k) for k in self._ARCH_FIELDS}
@@ -255,9 +315,9 @@ class TDMPC2:
         if single:
             obs = obs[None]
         n = obs.shape[0]
-        obs = torch.as_tensor(obs, device=self.device)
+        obs = torch.from_numpy(obs)
         if not self.cfg.mpc:
-            z = self.model.encode(self.params, obs)
+            z = self.model.encode(self.params, obs.to(self.device))
             eps = torch.randn(n, self.cfg.action_dim, generator=self.generator,
                               device=self.device)
             a, info = self.model.pi(self.params, z, eps)
@@ -270,20 +330,39 @@ class TDMPC2:
 
     def draw_noise(self, n: int = 1) -> PlanNoise:
         """Every draw of one plan for n envs, from the agent's generator."""
-        cfg, g, dev = self.cfg, self.generator, self.device
-        H, S, A = cfg.horizon, cfg.num_samples, cfg.action_dim
-        I = self.iterations
-        u = torch.rand(n, cfg.num_elites, generator=g, device=dev)
+        return self._noise_from(self._draw(n))
+
+    def _draws(self, n: int) -> dict:
+        """{field of PlanDraws: (torch.rand or torch.randn, shape)}, in the
+        order of the draws."""
+        cfg = self.cfg
+        H, S, A, I = cfg.horizon, cfg.num_samples, cfg.action_dim, self.iterations
+        return dict(u=(torch.rand, (n, cfg.num_elites)),
+                    pi_eps=(torch.randn, (n, max(cfg.num_pi_trajs, 1), H * A)),
+                    sample=(torch.randn, (n, I, S, H * A)),
+                    eps=(torch.randn, (n, I, S, A)),
+                    qr=(torch.rand, (n, I, cfg.num_q)),
+                    act=(torch.randn, (n, A)))
+
+    def _draw(self, n: int, out: Optional[PlanDraws] = None) -> PlanDraws:
+        """The raw draws of one plan for n envs, in their order; into the
+        tensors of `out` when given (the same bits)."""
+        g, dev = self.generator, self.device
+        return PlanDraws(**{
+            k: fn(*shape, generator=g, device=dev) if out is None
+            else fn(*shape, generator=g, out=getattr(out, k))
+            for k, (fn, shape) in self._draws(n).items()})
+
+    @staticmethod
+    def _noise_from(d: PlanDraws) -> PlanNoise:
+        """The plan's noise from its raw draws: two distinct Q heads (the
+        first two of a random permutation), Gumbel noise."""
         return PlanNoise(
-            pi_eps=torch.randn(n, max(cfg.num_pi_trajs, 1), H * A, generator=g,
-                               device=dev),
-            sample=torch.randn(n, I, S, H * A, generator=g, device=dev),
-            eps=torch.randn(n, I, S, A, generator=g, device=dev),
-            qidx=self._qpair(n, I).to(torch.int32).contiguous(),
+            pi_eps=d.pi_eps, sample=d.sample, eps=d.eps,
+            qidx=torch.argsort(d.qr, dim=-1)[..., :2].to(torch.int32).contiguous(),
             gumbel=-torch.log(-torch.log(
-                u.clamp(min=torch.finfo(torch.float32).tiny))),
-            act=torch.randn(n, A, generator=g, device=dev),
-        )
+                d.u.clamp(min=torch.finfo(torch.float32).tiny))),
+            act=d.act)
 
     def _qpair(self, *lead):
         """Two distinct Q heads (the first two of a random permutation)."""
@@ -293,27 +372,80 @@ class TDMPC2:
 
     @torch.no_grad()
     def plan_vec(self, obs, t0, eval_mode=False, noise: PlanNoise = None):
-        """MPPI plan for n envs in one pass of the kernels (JAX `_plan_vec`,
-        tdmpc2.py:378-394): obs [n, obs_dim] on the device, t0 [n] bool
-        (numpy) -> (actions [n, A], means [n, H, A]). Writes the n means
-        into `prev_mean[:n]`; rows past n keep theirs."""
-        cfg = self.cfg
-        H, E, A = cfg.horizon, cfg.num_elites, cfg.action_dim
+        """MPPI plan for n envs (JAX `_plan_vec`, tdmpc2.py:378-394): obs
+        [n, obs_dim] on the host or the device, t0 [n] bool (numpy) ->
+        (actions [n, A], means [n, H, A]) on the device. Writes the n means
+        into `prev_mean[:n]`; rows past n keep theirs. `noise` replaces the
+        generator's draws. On the card this replays the plan's graph, and
+        the returned tensors are its outputs, which the next plan for the
+        same n and mode overwrites."""
         n = obs.shape[0]
         if n > self.prev_mean.shape[0]:
             raise ValueError(f'{n} observations for {self.prev_mean.shape[0]} '
                              'warm starts (cfg.num_envs)')
+        prep = self.prep
+        t0 = torch.tensor(np.asarray(t0, bool).reshape(n))
+        if self.device.type == 'cuda':
+            return self._plan_graphed(prep, obs, t0, eval_mode, noise)
         if noise is None:
             noise = self.draw_noise(n)
+        return self._plan_body(prep, obs, t0, noise, eval_mode)
+
+    def _plan_graphed(self, prep, obs, t0, eval_mode, noise):
+        """`plan_vec` on the card: the draws (or `noise`), obs and t0 into
+        the graph's inputs, then its replay; the first plan of a key
+        captures."""
+        n = obs.shape[0]
+        key = (n, bool(eval_mode), None if noise is None else tuple(
+            tuple(x.shape) for x in vars(noise).values()))
+        entry = self._graphs.get(key)
+        if entry is None:
+            ins = dict(
+                obs=torch.empty(obs.shape, device=self.device),
+                t0=torch.empty(n, dtype=torch.bool, device=self.device),
+                draws=(PlanDraws(**{k: torch.empty(shape, device=self.device)
+                                    for k, (_, shape) in self._draws(n).items()})
+                       if noise is None else
+                       PlanNoise(**{k: torch.empty(v.shape, dtype=v.dtype,
+                                                   device=self.device)
+                                    for k, v in vars(noise).items()})))
+        else:
+            ins = entry[1]
+        ins['obs'].copy_(obs)
+        ins['t0'].copy_(t0)
+        if noise is None:
+            self._draw(n, out=ins['draws'])
+        else:
+            for k, v in vars(noise).items():
+                getattr(ins['draws'], k).copy_(v)
+        if entry is not None:
+            return entry[0].replay()
+
+        def body():
+            d = ins['draws']
+            return self._plan_body(
+                prep, ins['obs'], ins['t0'],
+                self._noise_from(d) if isinstance(d, PlanDraws) else d,
+                eval_mode)
+        g = Graph(body, PLAN_WRAPPERS, self.device, 'plan')
+        self._graphs[key] = (g, ins)
+        return g.first
+
+    def _plan_body(self, prep, obs, t0, noise: PlanNoise, eval_mode):
+        """The plan on device tensors (obs [n, obs_dim], t0 [n] bool, the
+        draws in `noise`): what the plan's graph captures, and the CPU's
+        plan."""
+        cfg = self.cfg
+        H, E, A = cfg.horizon, cfg.num_elites, cfg.action_dim
+        n = obs.shape[0]
         z0 = self.model.encode(self.params, obs.reshape(n, -1).float())
         mean0 = torch.cat([self.prev_mean[:n, 1:],
                            torch.zeros(n, 1, A, device=self.device)], 1)
-        # t0 is host data: zero rows in place rather than copy a mask over
-        for i in np.flatnonzero(t0):
-            mean0[int(i)].zero_()
+        # a reset row is +0.0, never -0.0
+        mean0 = torch.where(t0[:, None, None], 0.0, mean0)
         std0 = torch.full((n, H * A), cfg.max_std, device=self.device)
-        mean, std, value, acts = cem_plan(
-            self.prep, z0[:, None], noise.pi_eps, noise.sample, noise.eps,
+        mean, std, value, acts = cem.cem_plan(
+            prep, z0[:, None], noise.pi_eps, noise.sample, noise.eps,
             noise.qidx, self.discs.expand(n, -1), mean0.reshape(n, H * A),
             std0, self.amask, iterations=self.iterations,
             n_pi=cfg.num_pi_trajs, num_elites=E, temperature=cfg.temperature,

@@ -8,8 +8,11 @@ Small widths with ragged edges (row counts that are not a multiple of the
 kernels' row block). Both sides use bf16 weights and bf16-rounded dot
 inputs with f32 accumulation, so they differ only in summation order and
 in last-bit rounding ahead of bf16 roundings: values and the rollout are
-held at 2e-2, the elite update (no dots) at 1e-4, sampling and the canary
-exactly. Every planner operand has a leading env axis (N=1 for one env);
+held at 2e-2, the elite update (no dots) at 1e-4, the canary exactly. The
+value kernel's sampled mode (the planner's step) is held exactly: its
+actions against `sample_actions_plain`, its values against the
+given-actions mode on those actions. Every planner operand has a leading
+env axis (N=1 for one env);
 each planner kernel's env axis is held against its plain version and, bit
 for bit, against one-env launches. One update on the card is held
 against the CPU's (f32, TF32 off) at 1e-4. On an episodic agent the value
@@ -21,7 +24,11 @@ with 4, 8 and 16 column pairs a warp), and a width that no row tile fits
 raises, naming the widths. The elite kernel is held at its edges (S = 77,
 2048 and 28,000, HA = 114, E = 1 and E = S, ties across the boundary, all
 tied, NaN, inf and +-3e38), its N=8 launch against 8 one-env launches bit
-for bit, and the canary at n = 1, 3, 1027 and at a storage offset."""
+for bit, and the canary at n = 1, 3, 1027 and at a storage offset. The
+agent's plan, a replayed CUDA graph, is held bit for bit against its eager
+body (`TDMPC2._plan_body`) on the same draws: at n = 1 and n = num_envs,
+in both modes, with mixed episode starts, after an update (the prep
+refreshed in place) and after `load_params` (the graphs captured anew)."""
 
 import numpy as np
 import pytest
@@ -32,10 +39,13 @@ from tdmpc2_tpu_torch.models.layers import simnorm
 from tdmpc2_tpu_torch.data.buffer import Buffer
 from tdmpc2_tpu_torch.ops import cem, probe, rollout
 from tdmpc2_tpu_torch.ops.value import (gate_check, prepare_value_params,
+                                        sample_actions_plain,
                                         termination_trace_plain, value_estimate,
-                                        value_estimate_plain)
-from tdmpc2_tpu_torch.tdmpc2 import TDMPC2, UpdateNoise
+                                        value_estimate_plain, value_sampled,
+                                        value_sampled_plain)
+from tdmpc2_tpu_torch.tdmpc2 import PLAN_WRAPPERS, TDMPC2, UpdateNoise
 from tdmpc2_tpu_torch.utils import tree
+from tdmpc2_tpu_torch.utils.cuda_graph import Graph
 
 pytestmark = pytest.mark.cuda
 
@@ -104,19 +114,78 @@ def test_value_wrapper_refuses_f32_weights(agent):
                        agent.discs[None], **_heads(agent))
 
 
-def test_pi_rollout_and_sample_kernels_match_plain(agent):
+def test_pi_rollout_kernel_matches_plain(agent):
     noise = agent.draw_noise()          # one env: a leading axis of 1
     z0 = agent.model.encode(agent.params, torch.randn(1, 10, device=agent.device))
     n_pi = agent.cfg.num_pi_trajs
     args = (agent.prep, z0[None], noise.pi_eps[:, :n_pi])
     pa = cem.pi_rollout(*args, **_heads(agent))
     torch.testing.assert_close(pa, cem.pi_rollout_plain(*args, **_heads(agent)), **BAND)
-    HA = pa.shape[2]
-    s_args = (torch.full((1, HA), 0.2, device=agent.device),
-              torch.full((1, HA), 0.7, device=agent.device), noise.sample[:, 0], pa,
-              agent.amask)
-    torch.testing.assert_close(cem.sample_actions(*s_args),
-                               cem.sample_actions_plain(*s_args), rtol=0, atol=0)
+
+
+def _sampled_inputs(ag, n, n_pi, seed):
+    """The sampled value step's operands for n envs with n_pi policy rows:
+    a broadcast latent, strided noise views, means and stds that clip some
+    samples, every per-env operand its own."""
+    cfg, dev = ag.cfg, ag.device
+    H, A, S = cfg.horizon, cfg.action_dim, cfg.num_samples
+    g = torch.Generator(device=dev).manual_seed(seed)
+    z0 = ag.model.encode(ag.params, torch.randn(n, 1, 10, device=dev, generator=g))
+    noise = torch.randn(n, 2, S, H * A, device=dev, generator=g)[:, 1]
+    pi_acts = torch.rand(n, n_pi, H * A, device=dev, generator=g) * 2 - 1
+    amask = torch.ones(A, device=dev)
+    amask[-1] = 0
+    qidx = torch.stack([torch.randperm(cfg.num_q, device=dev, generator=g)[:2]
+                        for _ in range(n)]).to(torch.int32)
+    return (ag.prep, z0.expand(n, S, -1),
+            torch.rand(n, H * A, device=dev, generator=g) * 1.6 - 0.8,
+            torch.rand(n, H * A, device=dev, generator=g) * 1.9 + 0.1, noise, pi_acts,
+            amask, torch.randn(n, S, A, device=dev, generator=g), qidx,
+            ag.discs.expand(n, -1))
+
+
+def _hold_sampled(ag, args, episodic):
+    """The fused kernel's actions equal sample_actions_plain's and its values
+    (and flags) the given-actions launch's on those actions, exactly."""
+    n, S = args[1].shape[:2]
+    H, A = ag.cfg.horizon, ag.cfg.action_dim
+    k_at = torch.empty(n, S, dtype=torch.int32, device=ag.device)
+    at = torch.empty_like(k_at)
+    n0 = value_sampled.launches
+    v, acts = value_sampled(*args, **_heads(ag), episodic=episodic, term_at=k_at)
+    assert value_sampled.launches == n0 + 1
+    torch.testing.assert_close(acts, sample_actions_plain(*args[2:7]), rtol=0, atol=0)
+    ref = value_estimate(args[0], args[1], acts.view(n, S, H, A).permute(0, 2, 1, 3),
+                         *args[7:], **_heads(ag), episodic=episodic, term_at=at)
+    torch.testing.assert_close(v, ref, rtol=0, atol=0)
+    assert torch.equal(k_at, at)
+    return v, acts, k_at
+
+
+@pytest.mark.parametrize('n_pi', [0, 24])
+@pytest.mark.parametrize('n', [1, 8])
+def test_value_sampled_matches_sample_plain_and_value_kernel(agent, n, n_pi):
+    """S = 77 (a ragged last row tile); the rows below n_pi take the policy
+    prior's actions."""
+    args = _sampled_inputs(agent, n, n_pi, 30 + n + n_pi)
+    v, acts, _ = _hold_sampled(agent, args, False)
+    if n_pi:
+        torch.testing.assert_close(acts[:, :n_pi], args[5] * args[6].repeat(
+            agent.cfg.horizon), rtol=0, atol=0)
+    # and the plain version of the whole step, in the value band
+    v_p, acts_p = value_sampled_plain(*args, **_heads(agent))
+    torch.testing.assert_close(acts, acts_p, rtol=0, atol=0)
+    torch.testing.assert_close(v, v_p, **BAND)
+
+
+def test_value_sampled_n8_equals_single_env_launches(agent):
+    n = 8
+    args = _sampled_inputs(agent, n, 24, 41)
+    v, acts = value_sampled(*args, **_heads(agent))
+    for i in range(n):
+        one = value_sampled(*[a if a is args[0] or a is args[6] else a[i:i + 1]
+                              for a in args], **_heads(agent))
+        assert torch.equal(v[i:i + 1], one[0]) and torch.equal(acts[i:i + 1], one[1])
 
 
 @pytest.mark.parametrize('values', ['distinct', 'tied', 'nan'])
@@ -261,7 +330,7 @@ def _n_env_inputs(agent, n):
     pa = cem.pi_rollout_plain(agent.prep, z0, noise.pi_eps[:, :n_pi], **_heads(agent))
     mean = torch.rand(n, H * A, device=dev) * 0.4 - 0.2
     std = torch.rand(n, H * A, device=dev) + 0.1
-    acts = cem.sample_actions_plain(mean, std, noise.sample[:, 0], pa, agent.amask)
+    acts = sample_actions_plain(mean, std, noise.sample[:, 0], pa, agent.amask)
     discs = torch.stack([g ** torch.arange(H + 1, device=dev, dtype=torch.float32)
                          for g in torch.linspace(0.9, 0.99, n).tolist()])
     return dict(noise=noise, z0=z0, z=z0.expand(n, S, L), pa=pa, mean=mean,
@@ -284,9 +353,10 @@ def test_n_env_kernels_match_plain_and_single_env_launches(agent):
         'pi_rollout': (cem.pi_rollout, cem.pi_rollout_plain,
                        (agent.prep, x['z0'], noise.pi_eps[:, :n_pi]), _heads(agent),
                        BAND),
-        'sample': (cem.sample_actions, cem.sample_actions_plain,
-                   (x['mean'], x['std'], noise.sample[:, 0], x['pa'], agent.amask),
-                   {}, dict(rtol=0, atol=0)),
+        'value_sampled': (value_sampled, value_sampled_plain,
+                          (agent.prep, x['z'], x['mean'], x['std'], noise.sample[:, 0],
+                           x['pa'], agent.amask, noise.eps[:, 0], noise.qidx[:, 0],
+                           x['discs']), _heads(agent), BAND),
         'elite': (cem.elite_moments, cem.elite_moments_plain,
                   (value_estimate_plain(*v_args, **_heads(agent)), x['acts'],
                    agent.amask), kw, ELITE),
@@ -508,11 +578,21 @@ def test_episodic_n_env_launch_equals_single_env_launches(episodic_agent):
 
 def test_episodic_act_on_card(episodic_agent):
     ag, n = episodic_agent, 4
-    launches = value_estimate.launches
+    launches = value_sampled.launches
     ag.prev_mean = torch.zeros(n, ag.cfg.horizon, ag.cfg.action_dim, device=ag.device)
     a = ag.act(np.zeros((n, 10), np.float32), t0=True)
     assert a.shape == (n, ag.cfg.action_dim) and np.isfinite(a).all()
-    assert value_estimate.launches == launches + ag.iterations
+    assert value_sampled.launches == launches + ag.iterations
+
+
+@pytest.mark.parametrize('n', [1, 8])
+def test_episodic_value_sampled_matches_value_kernel(episodic_agent, n):
+    """The termination gate in the sampled mode: flags and values equal
+    the given-actions launch's on the same actions, bit for bit."""
+    args = _sampled_inputs(episodic_agent, n, 24, 50 + n)
+    _, _, k_at = _hold_sampled(episodic_agent, args, True)
+    share = float((k_at > 0).float().mean())
+    assert 0.05 < share < 0.95, share            # the gate splits the rows
 
 
 # ------------------------------------------------------------ model widths
@@ -584,3 +664,97 @@ def test_width_without_row_tile_raises(agent):
         cem.pi_rollout(prep, torch.zeros(1, 1, L, device=dev),
                        torch.zeros(1, 4, 3 * A, device=dev), **_heads(agent))
     assert value_estimate.launches == n0
+
+
+# ------------------------------------------------------- the plan's graph
+
+
+@pytest.fixture(scope='module')
+def graph_agent(agent):
+    """A fresh agent of the module's widths with num_envs = 4: no graph
+    captured yet."""
+    cfg = agent.cfg.replace(num_envs=4)
+    ag = TDMPC2(cfg)
+    g = torch.Generator().manual_seed(3)
+    ag.load_params(tree.map(lambda t: t + 0.05 * torch.randn(t.shape, generator=g),
+                            ag.model.init(g)))
+    return ag
+
+
+def _hold_graph_against_eager(ag, n, eval_mode, t0, seed):
+    """One plan through the graph against the eager body on the same draws
+    and warm starts: actions, means and every row of prev_mean bit for
+    bit. The first plan of (n, eval_mode) captures; the checked one
+    replays."""
+    obs = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(n, 10)).astype(np.float32))
+    ag.plan_vec(obs, t0, eval_mode=eval_mode)         # captured by now
+    pm = ag.prev_mean.clone()
+    pm[0, :, 0] = -0.5            # a negative warm start, reset where t0
+    ag.prev_mean = pm
+    ag.generator.manual_seed(seed)
+    counts = [w.launches for w in PLAN_WRAPPERS]
+    replays = Graph.replays.get('plan', 0)
+    a, m = (x.clone() for x in ag.plan_vec(obs, t0, eval_mode=eval_mode))
+    assert Graph.replays['plan'] == replays + 1
+    I = ag.iterations
+    assert [w.launches - c for w, c in zip(PLAN_WRAPPERS, counts)] == [1, I, I]
+    pm_graph = ag.prev_mean.clone()
+    ag.prev_mean = pm
+    ag.generator.manual_seed(seed)
+    noise = ag.draw_noise(n)
+    a_e, m_e = ag._plan_body(ag.prep, obs.to(ag.device),
+                             torch.tensor(t0, device=ag.device), noise, eval_mode)
+    assert torch.equal(a, a_e) and torch.equal(m, m_e)
+    assert torch.equal(pm_graph, ag.prev_mean)
+    # a reset row starts from +0.0: the sign bits agree too
+    assert torch.equal(torch.signbit(pm_graph), torch.signbit(ag.prev_mean))
+
+
+@pytest.mark.parametrize('eval_mode', [True, False])
+@pytest.mark.parametrize('n', [1, 4])
+def test_plan_graph_equals_eager_body(graph_agent, n, eval_mode):
+    t0 = np.arange(n) % 2 == 0                        # mixed episode starts
+    _hold_graph_against_eager(graph_agent, n, eval_mode, t0, 60 + n)
+
+
+def test_draws_into_the_graph_inputs_are_the_draws(graph_agent):
+    ag, n = graph_agent, 4
+    ag.generator.manual_seed(7)
+    ref = ag.draw_noise(n)
+    ag.generator.manual_seed(7)
+    out = ag._draw(n)
+    ag.generator.manual_seed(7)
+    ag._draw(n, out=out)
+    got = ag._noise_from(out)
+    for k, v in vars(ref).items():
+        assert torch.equal(getattr(got, k), v), k
+
+
+def test_plan_graph_after_update_and_load_params(graph_agent):
+    """After an update the prep graph refreshes the weights in place and
+    the plan graph is replayed, not captured; after load_params every
+    graph is captured anew. Both still equal the eager body."""
+    ag = graph_agent
+    cfg = ag.cfg
+    cfg.batch_size, cfg.buffer_size, cfg.steps = 16, 300, 300
+    buf = Buffer(cfg)
+    for ep in _episodes(np.random.default_rng(2), 3):
+        buf.add(ep)
+    t0 = np.array([False, True, False, False])
+    _hold_graph_against_eager(ag, 4, False, t0, 70)
+    prep = ag.prep
+    packed = prep['dP0'].clone()
+    captures = dict(Graph.captures)
+    ag.update(buf)
+    _hold_graph_against_eager(ag, 4, False, t0, 71)
+    assert ag.prep is prep and not torch.equal(prep['dP0'], packed)
+    assert Graph.captures == captures
+    torch.testing.assert_close(
+        prep['dP0'], prepare_value_params(ag.params, cfg)['dP0'], rtol=0, atol=0)
+    g = torch.Generator().manual_seed(9)
+    ag.load_params(tree.map(lambda t: t + 0.05 * torch.randn(t.shape, generator=g),
+                            ag.model.init(g)))
+    _hold_graph_against_eager(ag, 4, False, t0, 72)
+    assert Graph.captures['plan'] == captures['plan'] + 1
+    assert Graph.captures['prep'] == captures['prep'] + 1

@@ -57,13 +57,14 @@ def test_port_runs_without_jax_loaded():
 
 @pytest.mark.parametrize('mpc', ['true', 'false'])
 def test_evaluate_on_cpu(mpc):
-    for w in (value.value_estimate, cem.pi_rollout, cem.sample_actions,
-              cem.elite_moments):
+    wrappers = (value.value_estimate, value.value_sampled, cem.pi_rollout,
+                cem.elite_moments)
+    for w in wrappers:
         w.launches = 0
     res = evaluate(load_cfg(overrides=SMALL + [f'mpc={mpc}']))['toy-reach']
     assert math.isfinite(res['reward']) and res['plans'] == 50
     # on the CPU every step ran the plain versions: no kernel launched
-    assert value.value_estimate.launches == 0 and cem.elite_moments.launches == 0
+    assert all(w.launches == 0 for w in wrappers)
 
 
 @pytest.mark.parametrize('mismatch', ['mlp_dim=48', 'num_bins=51', 'num_q=2', None])

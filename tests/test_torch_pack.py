@@ -172,12 +172,14 @@ ptxas info    : Compiling entry function '_ZN3tdm12value_kernelILi32ELi4EEEvNS_7
 ptxas info    : Function properties for _ZN3tdm12value_kernelILi32ELi4EEEvNS_7WeightsE
     8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 152 registers, used 2 barriers, 1024 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN3tdm12value_kernelILi32ELi4ELb1EEEvNS_7WeightsE' for 'sm_90a'
+ptxas info    : Used 160 registers, used 2 barriers, 1024 bytes cmem[0]
 ptxas info    : Compiling entry function '_ZN3tdm12elite_kernelEPKfS1_' for 'sm_90a'
 ptxas info    : Used 40 registers, used 1 barriers
 """
     assert _build.ptxas_usage(report) == {
         'wide_layer<32,4>': (None, 8, 12), 'value_kernel<32,4>': (152, 0, 0),
-        'elite_kernel': (40, 0, 0)}
+        'value_kernel<32,4,1>': (160, 0, 0), 'elite_kernel': (40, 0, 0)}
 
 
 def test_no_row_tile_raises_value_error_naming_the_widths():
