@@ -26,7 +26,26 @@ and read just after:
   and `num_envs=8`, 1,200 env steps each (the value kernel's termination
   gate in every plan, the termination loss in every update; the task ends
   an episode on reaching the goal), and episodic evaluate: `evaluate` on
-  the same task from the `num_envs=8` run's checkpoint.
+  the same task from the `num_envs=8` run's checkpoint;
+- offline mt30 (multi-task, model_size 48, task_dim 64, the dataset's
+  per-task dims): `OfflineTrainer` for 256 iterations on 8 seeded chunks of
+  datasets/mt30_medium's geometry written to a temporary directory (eval
+  past the last iteration: the card has no dm_control), then `act_tasks`
+  over the 30 tasks for 5 lockstep steps on observations from the data;
+- toy multi-task: `train` on a toy multi-task config (two toy tasks, the
+  default 5M model): offline training, then the lockstep eval over its
+  envs, and `evaluate` from its checkpoint.
+
+The planner's kernels are also held on the task axis at mt30/model_size 48,
+N = 30 tasks with mixed action dims (each env's task id picks its rows of
+the prep's first-layer bias tables, its mask its action columns): the pi
+rollout step by step on the kernel's own trajectory (PI_TOL; the
+free-running error logged beside a CPU plain rollout's), the sampled value
+step (VALUE_TOL, and exactly against the given-actions launch), the elite
+step (ELITE_TOL), each N=30 launch against 30 one-task launches bit for
+bit; the episodic value step under the gate rule at the default widths on
+8 of the tasks, and exactly (with its statistics against the plain step,
+and those of two plain versions, logged) at N=30.
 
 The elite kernel is also held at its edges (S = 77, 2048; HA = 114; E = 1
 and E = S; ties across the boundary, all tied, NaN, inf and +-3e38) and
@@ -101,6 +120,22 @@ EP_ARGS = [f'task={EP_TASK}', 'episodic=true']
 MAX_EP_LEN = 50            # toy-reach's time limit
 EP_EVAL_EPISODES = 16      # episodic evaluate: the trained agent ends some early
 SWEEP_SIZES = (1, 5, 19, 48)  # model sizes whose widths the kernels must run
+# mt30's per-task dims, in the task set's order (config.TASK_SET['mt30']):
+# the action and observation columns each task uses in the in-repo dataset
+# datasets/mt30_medium (tests/test_torch_multitask.py holds them against
+# chunk_0.npz); every task's episodes are 500 steps. The card has no
+# dm_control, so the offline path sets them as the JAX suite does
+# (tests/test_agent.py:182-183).
+MT30_ACTION_DIMS = [6, 6, 6, 6, 2, 2, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2, 5, 4, 4, 6,
+                    6, 6, 6, 6, 6, 4, 3, 3, 2, 1]
+MT30_OBS_DIMS = [24, 24, 24, 17, 6, 6, 6, 3, 5, 5, 5, 5, 8, 9, 12, 12, 24, 15, 15,
+                 24, 24, 17, 17, 17, 17, 15, 8, 8, 8, 3]
+MT30_EPISODE_LENGTH = 500
+MT_CHUNKS, MT_EPISODES = 8, 150   # the in-repo mt30 set's size: 601,200 transitions
+MT_STEPS = 256             # offline iterations at mt30/48 (32 x update_many(8))
+MT_ACT_STEPS = 4           # lockstep act_tasks steps after the capturing one
+MT_GATE_TASKS = [0, 4, 6, 12, 16, 17, 26, 29]  # action dims 6, 2, 1, 2, 5, 4, 3, 1
+TOY_MT_STEPS = 64          # the toy multi-task path's iterations, then its eval
 
 # Bands of kernel against plain version. Both round every dot input to
 # bf16 and accumulate in f32; they differ in summation order and in the
@@ -337,7 +372,9 @@ def split_termination(agent, g, rows=2048):
     acts = torch.rand(1, cfg.horizon, rows, cfg.action_dim, device=dev,
                       generator=g) * 2 - 1
     prep32 = value.prepare_value_params(agent.params, cfg, torch.float32)
-    logits, _ = value.termination_trace_plain(prep32, z, acts, agent.discs[None],
+    # a multi-task agent's discounts are per task: task 0's, with its bias rows
+    discs = agent.discs[None] if agent.discs.dim() == 1 else agent.discs[:1]
+    logits, _ = value.termination_trace_plain(prep32, z, acts, discs,
                                               cfg.simnorm_dim)
     last = agent.params['termination'][-1]
     scale = 4.0 / float(logits[:, 0].std())
@@ -379,39 +416,75 @@ def hold_gated(name, got, want, got_at, want_at, logits, tol):
     return err
 
 
-def hold_sampled(label, args, heads, episodic=False):
+def hold_sampled(label, args, heads, episodic=False, task=None, gate_rule=True):
     """The value kernel's sampled mode (value_sampled) on `args` against
     sample_actions_plain and the given-actions launch (value_estimate) on
-    those actions: actions, values and, when episodic, the termination
-    flags, bit for bit. Returns the values' max |err| against the plain
-    step (value_sampled_plain), held in VALUE_TOL or, episodic, under the
-    gate rule."""
+    those actions, with the same mask on the terminal policy: actions,
+    values and, when episodic, the termination flags, bit for bit. `task`
+    (int32 [n] or None) is each env's task. Returns (the values' max |err|
+    against the plain step (value_sampled_plain), held in VALUE_TOL or,
+    episodic, under the gate rule, or only logged with gate_rule=False;
+    the values; the actions)."""
     import torch
     from tdmpc2_tpu_torch.ops import value
     n, S = args[1].shape[:2]
     H = args[-1].shape[-1] - 1
-    A = args[6].shape[0]
+    A = args[6].shape[-1]
     k_at = torch.empty(n, S, dtype=torch.int32, device=args[1].device)
     at, p_at = torch.empty_like(k_at), torch.empty_like(k_at)
-    v, acts = value.value_sampled(*args, **heads, episodic=episodic, term_at=k_at)
+    v, acts = value.value_sampled(*args, **heads, episodic=episodic, term_at=k_at,
+                                  task=task)
     hold(f'sampled actions, {label}', acts, value.sample_actions_plain(*args[2:7]),
          SAMPLE_TOL)
     given = (args[0], args[1], acts.view(n, S, H, A).permute(0, 2, 1, 3), *args[7:])
-    ref = value.value_estimate(*given, **heads, episodic=episodic, term_at=at)
+    ref = value.value_estimate(*given, **heads, episodic=episodic, term_at=at,
+                               task=task, amask=args[6])
     if not (torch.equal(v, ref) and torch.equal(k_at, at)):
         raise AssertionError(f'{label}: the sampled launch differs from the '
                              'given-actions launch on its actions')
-    v_p, _ = value.value_sampled_plain(*args, **heads, episodic=episodic, term_at=p_at)
-    if episodic:
+    v_p, _ = value.value_sampled_plain(*args, **heads, episodic=episodic, term_at=p_at,
+                                       task=task)
+    if episodic and not gate_rule:
         logits, _ = value.termination_trace_plain(*given[:3], args[-1],
-                                                  heads['simnorm_dim'])
+                                                  heads['simnorm_dim'], task=task)
+        flips, bad = value.gate_check(v, v_p, k_at, p_at, logits, **VALUE_TOL,
+                                      near=GATE_NEAR)
+        err = max_err(v[(k_at == p_at)[..., None]], v_p[(k_at == p_at)[..., None]])
+        log(f'  value sampled episodic, {label}, against the plain step (not held '
+            f'here): max |err| {err:.3g} where the flags agree, {flips} flips with '
+            f'|logit| < {GATE_NEAR}, {bad} rows outside the gate rule, of {v.numel()}')
+    elif episodic:
+        logits, _ = value.termination_trace_plain(*given[:3], args[-1],
+                                                  heads['simnorm_dim'], task=task)
         err = hold_gated(f'value sampled episodic, {label}', v, v_p, k_at, p_at,
                          logits, VALUE_TOL)
     else:
         err = hold(f'value sampled, {label}', v, v_p, VALUE_TOL)
     log(f'  {label}: actions equal sample_actions_plain\'s and values (and flags) '
         'the given-actions launch\'s on them, bit for bit')
-    return err
+    return err, v, acts
+
+
+def pi_rollout_forced(prep, z0, pi_eps, acts, heads, task=None, amask=None):
+    """The plain pi rollout with each step's latent advanced on the kernel's
+    actions `acts` [N, n_pi, H*A]: each step's plain action computed from
+    the kernel's own trajectory. A free-running comparison carries a bf16
+    flip of one step into the next step's latent, where the policy's
+    exp(log_std) (up to e^2) amplifies it; this one holds every step's
+    arithmetic on its own."""
+    import torch
+    from tdmpc2_tpu_torch.ops import value
+    A = prep['pWm'].shape[1]
+    z = z0.float().expand(*pi_eps.shape[:-1], z0.shape[-1])
+    m = 1.0 if amask is None else value.mask_rows(amask, A)
+    out = []
+    for t in range(pi_eps.shape[-1] // A):
+        sl = slice(t * A, (t + 1) * A)
+        mean, ls = value.pi_head_plain(prep, z, heads['log_std_min'],
+                                       heads['log_std_dif'], task)
+        out.append(value.pi_action_plain(mean, ls, pi_eps[..., sl], m))
+        z = value.dynamics_plain(prep, z, acts[..., sl], heads['simnorm_dim'], task)
+    return torch.cat(out, -1)
 
 
 def hold_plan_graph(label, ag, n, eval_mode, seed):
@@ -706,6 +779,464 @@ def compare(prev_root, pairs=2) -> int:
     return 0
 
 
+def plan_counters(I):
+    """The kernel wrappers by name, and (zero_counts, read_counts,
+    check_plan_counts) over their launch counters and the plan graphs'
+    replays and captures, for plans of I iterations."""
+    from tdmpc2_tpu_torch.ops import cem, probe, rollout, value
+    from tdmpc2_tpu_torch.utils.cuda_graph import Graph
+    wrappers = {'value': value.value_estimate,
+                'value_sampled': value.value_sampled,
+                'cem_pi_rollout': cem.pi_rollout,
+                'cem_elite': cem.elite_moments,
+                'rollout': rollout.rollout_prepared,
+                'probe': probe.add_one}
+
+    def zero_counts():
+        for w in wrappers.values():
+            w.launches = 0
+        Graph.replays['plan'] = Graph.captures['plan'] = 0
+
+    def read_counts():
+        return {**{k: w.launches for k, w in wrappers.items()},
+                'plan_replays': Graph.replays.get('plan', 0),
+                'plan_captures': Graph.captures.get('plan', 0)}
+
+    def check_plan_counts(name, counts, plans=None):
+        """Each plan of a path: one pi rollout, I sampled value launches and
+        I elite launches (1 + 2 I kernels), none of the given-actions value
+        launch, and one graph replay, or the eager run of a capture."""
+        p = counts['cem_pi_rollout']
+        ok = (p > 0 and counts['value_sampled'] == I * p and counts['cem_elite'] == I * p
+              and counts['value'] == 0 and counts['plan_replays'] > 0
+              and counts['plan_replays'] + counts['plan_captures'] == p
+              and (plans is None or p == plans))
+        log(f'  {name}: {p} plans, {1 + 2 * I} planner launches a plan '
+            f'({counts["value_sampled"]} sampled value, {counts["cem_elite"]} elite), '
+            f'{counts["plan_replays"]} graph replays, {counts["plan_captures"]} captures')
+        if not ok:
+            raise AssertionError(f'{name}: planner launches {counts} for {plans} plans')
+    return wrappers, zero_counts, read_counts, check_plan_counts
+
+
+def mt30_cfg(load_cfg, extra=(), model_size=48):
+    """mt30 at `model_size` (48 unless given; None: the default 5M widths;
+    task_dim 64 by the config's rule), its per-task dims set from the
+    literals above, as the JAX suite sets them where no dm_control builds
+    the envs."""
+    size = [] if model_size is None else [f'model_size={model_size}']
+    cfg = load_cfg(overrides=['task=mt30', *size, f'seed={SEED}', 'device=cuda',
+                              *extra])
+    cfg.obs_shape = {'state': (max(MT30_OBS_DIMS),)}
+    cfg.action_dim = max(MT30_ACTION_DIMS)
+    cfg.obs_shapes, cfg.action_dims = list(MT30_OBS_DIMS), list(MT30_ACTION_DIMS)
+    cfg.episode_lengths = [MT30_EPISODE_LENGTH] * len(MT30_ACTION_DIMS)
+    cfg.episode_length = MT30_EPISODE_LENGTH
+    return cfg
+
+
+def write_mt30_chunks(root, n_chunks, eps, seed):
+    """Seeded .npz chunks in the layout of datasets/mt30_medium: rows 501
+    (the bootstrap row first, its action and reward NaN), obs 24 with zeros
+    past each task's obs dim, actions 6 with zeros past its action dim, one
+    task id per episode, every task in turn."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    rows, n_tasks = MT30_EPISODE_LENGTH + 1, len(MT30_ACTION_DIMS)
+    for c in range(n_chunks):
+        task = (np.arange(eps) + c * eps) % n_tasks
+        obs = rng.standard_normal((eps, rows, max(MT30_OBS_DIMS)), dtype=np.float32)
+        act = rng.uniform(-1, 1, (eps, rows, max(MT30_ACTION_DIMS))).astype(np.float32)
+        for i, t in enumerate(task):
+            obs[i, :, MT30_OBS_DIMS[t]:] = 0.0
+            act[i, :, MT30_ACTION_DIMS[t]:] = 0.0
+        reward = rng.uniform(0, 1, (eps, rows)).astype(np.float32)
+        act[:, 0], reward[:, 0] = np.nan, np.nan
+        np.savez(Path(root) / f'chunk_{c}.npz', obs=obs, action=act, reward=reward,
+                 task=task.astype(np.int32))
+
+
+def write_toy_chunks(root, n_chunks=2, eps=6, rows=51):
+    """Two-task toy chunks (obs 6, actions 2), as tests/test_offline.py's."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    for c in range(n_chunks):
+        act = rng.uniform(-1, 1, (eps, rows, 2)).astype(np.float32)
+        act[:, 0] = np.nan
+        np.savez(Path(root) / f'chunk_{c}.npz',
+                 obs=rng.standard_normal((eps, rows, 6)).astype(np.float32),
+                 action=act, reward=rng.uniform(0, 1, (eps, rows)).astype(np.float32),
+                 task=(np.arange(eps) % 2).astype(np.int32))
+
+
+def multitask_phases(zero_counts, read_counts, check_plan_counts):
+    """The multi-task slice on the card. Returns (max |err| of each
+    task-axis check, {path: launch counts}, the task-axis kernels' rows of
+    the JSON line).
+
+    - the planner's kernels on the task axis: mt30 at model_size 48, N = 30
+      tasks (mixed action dims) against their plain versions, and one
+      N = 30 launch against 30 one-task launches bit for bit; the episodic
+      value step under the gate rule;
+    - offline mt30 training at model_size 48 on seeded chunks of the
+      dataset's geometry (`OfflineTrainer`, eval past the last iteration:
+      no env is stepped, the card has no dm_control);
+    - `act_tasks` over the 30 tasks, lockstep, on observations from the
+      data: one graph replay of 1 + 2 x iterations launches a step;
+    - a toy multi-task config through `train` (offline training, then the
+      lockstep eval over its envs) and `evaluate` from its checkpoint.
+    """
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tdmpc2_tpu_torch import train as train_mod
+    from tdmpc2_tpu_torch.config import load_cfg
+    from tdmpc2_tpu_torch.data.buffer import Buffer
+    from tdmpc2_tpu_torch.evaluate import evaluate
+    from tdmpc2_tpu_torch.ops import cem, value
+    from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
+    from tdmpc2_tpu_torch.trainer.offline import OfflineTrainer
+    from tdmpc2_tpu_torch.utils.logger import Logger
+    dev = torch.device('cuda')
+    errs, paths, rows = {}, {}, []
+    NT = len(MT30_ACTION_DIMS)
+
+    with Phase(f'kernels on the task axis: mt30, model_size 48, N={NT} tasks'):
+        cfg = mt30_cfg(load_cfg)
+        ag = TDMPC2(cfg, device='cuda')
+        mg = torch.Generator().manual_seed(SEED + 48)
+        ag.load_params(perturbed(ag.model.init(mg), mg, sweep_scale(cfg.mlp_dim)))
+        g = torch.Generator(device=dev).manual_seed(SEED + 48)
+        prep = ag.prep
+        H, S, A, L = cfg.horizon, cfg.num_samples, cfg.action_dim, cfg.latent_dim
+        n_pi, HA = cfg.num_pi_trajs, cfg.horizon * cfg.action_dim
+        heads = dict(log_std_min=ag.model.log_std_min,
+                     log_std_dif=ag.model.log_std_dif, simnorm_dim=cfg.simnorm_dim)
+        log(f'  task_dim {cfg.task_dim}, {NT} tasks, L={L}, M={cfg.mlp_dim}; bias '
+            f'tables {tuple(prep["db0"].shape)} and Q {tuple(prep["qb0"].shape)}; plan '
+            f'{value.kernel_plan(prep, cfg.simnorm_dim, H)}')
+        tt = torch.arange(NT, dtype=torch.int32, device=dev)
+        amask = ag.amask[tt.long()].contiguous()
+        discs = ag.discs[tt.long()]
+        obs = torch.randn(NT, cfg.obs_shape['state'][0], device=dev, generator=g)
+        obs *= torch.arange(obs.shape[1], device=dev) < torch.tensor(
+            MT30_OBS_DIMS, device=dev)[:, None]
+        z = ag.model.encode(ag.params, obs, tt.long())[:, None]
+        noise = ag.draw_noise(NT)
+        pi_args = (prep, z, noise.pi_eps[:, :n_pi])
+        pi_kw = dict(heads, task=tt, amask=amask)
+        pa = cem.pi_rollout(*pi_args, **pi_kw)
+        free = cem.pi_rollout_plain(*pi_args, **pi_kw)
+        over = (pa - free).abs() > PI_TOL['atol'] + PI_TOL['rtol'] * free.abs()
+        log(f'  pi_rollout N={NT} tasks against the free-running plain rollout: max '
+            f'|err| {max_err(pa, free):.3g} by step '
+            f'{[round(max_err(pa[..., t * A:(t + 1) * A], free[..., t * A:(t + 1) * A]), 5) for t in range(H)]}, '
+            f'{int(over.sum())} of {over.numel()} values outside {PI_TOL}')
+        free_c = cem.pi_rollout_plain({k: x.cpu() for k, x in prep.items()}, z.cpu(),
+                                      pi_args[2].cpu(), **heads, task=tt.cpu(),
+                                      amask=amask.cpu())
+        over_c = (free_c - free.cpu()).abs() > (PI_TOL['atol']
+                                                + PI_TOL['rtol'] * free.cpu().abs())
+        log(f'  the plain pi rollout on the CPU against the same on the card: max '
+            f'|err| {max_err(free_c, free.cpu()):.3g}, {int(over_c.sum())} of '
+            f'{over_c.numel()} values outside {PI_TOL}')
+        errs['cem_pi_rollout_tasks'] = hold(
+            f'pi_rollout N={NT} tasks, each step on the kernel\'s trajectory', pa,
+            pi_rollout_forced(*pi_args, pa, heads, tt, amask), PI_TOL)
+        vs_args = (prep, z.expand(NT, S, L),
+                   torch.rand(NT, HA, device=dev, generator=g) * 1.6 - 0.8,
+                   torch.rand(NT, HA, device=dev, generator=g) * 1.9 + 0.1,
+                   noise.sample[:, 0], pa, amask, noise.eps[:, 0], noise.qidx[:, 0],
+                   discs)
+        vs_kw = dict(heads, task=tt)
+        errs['value_sampled_tasks'], v, acts = hold_sampled(
+            f'N={NT} tasks', vs_args, heads, task=tt)
+        elite_kw = dict(num_elites=cfg.num_elites, temperature=cfg.temperature,
+                        min_std=cfg.min_std, max_std=cfg.max_std)
+        e_args = (v, acts, amask)
+        got = cem.elite_moments(*e_args, **elite_kw)
+        ref = cem.elite_moments_plain(*e_args, **elite_kw)
+        errs['cem_elite_tasks'] = max(hold(f'elite N={NT} tasks {k}', a, b, ELITE_TOL)
+                                      for k, a, b in zip(('mean', 'std', 'v'), got, ref))
+        masked = (torch.arange(A, device=dev) >= torch.tensor(
+            MT30_ACTION_DIMS, device=dev)[:, None]).float()       # [NT, A]
+        for name, x in (('policy rows', pa), ('sampled actions', acts),
+                        ('elite mean', got[0]), ('elite std', got[1])):
+            if float((x.reshape(NT, -1, H, A).abs() * masked[:, None, None]).max()) != 0:
+                raise AssertionError(f'task axis: {name} not 0 in masked columns')
+        log('  every masked action column is 0 (policy rows, samples, elite moments)')
+        for i in range(NT):
+            sl = slice(i, i + 1)
+            one_pa = cem.pi_rollout(prep, z[sl], pi_args[2][sl], **heads, task=tt[sl],
+                                    amask=amask[sl])
+            one_v = value.value_sampled(*[a if a is prep else a[sl] for a in vs_args],
+                                        **dict(vs_kw, task=tt[sl]))
+            one_e = cem.elite_moments(v[sl], acts[sl], amask[sl], **elite_kw)
+            if not (torch.equal(pa[sl], one_pa) and torch.equal(v[sl], one_v[0])
+                    and torch.equal(acts[sl], one_v[1])
+                    and all(torch.equal(a[sl], b) for a, b in zip(got, one_e))):
+                raise AssertionError(f'task axis: the N={NT} launch differs from the '
+                                     f'one-task launch of task {i}')
+        log(f'  pi rollout, sampled value and elite: the N={NT} launch equals {NT} '
+            'one-task launches, bit for bit')
+        # The episodic models: the termination head's first-layer bias per
+        # task. At N = 30 each launch is held exactly (against the
+        # given-actions launch on its actions, and against 30 one-task
+        # launches), and its statistics against the plain step (the value
+        # band where the flags agree, the gate rule where they differ) are
+        # logged beside those of two plain versions, the card's and the
+        # CPU's: 15,360 rows are past the population (N=8 x 512) on which the
+        # band and the rule's 1e-2 were set, and two summation orders of the
+        # same arithmetic break them too there. The gate rule is held at the
+        # default 5M widths on 8 of the tasks, one of each action dim and two
+        # more: the main paths' population.
+        for size in (None, 48):
+            e_cfg = mt30_cfg(load_cfg, ['episodic=true'], model_size=size)
+            e_ag = TDMPC2(e_cfg, device='cuda')
+            eg = torch.Generator().manual_seed(SEED + (size or 5))
+            e_ag.load_params(perturbed(e_ag.model.init(eg), eg,
+                                       sweep_scale(e_cfg.mlp_dim)))
+            split_termination(e_ag, g)
+            eL = e_cfg.latent_dim
+            ez = e_ag.model.encode(e_ag.params, obs, tt.long())[:, None]
+            e_args = (e_ag.prep, ez.expand(NT, S, eL)) + vs_args[2:]
+            tag = f'episodic N={NT} tasks, model_size {size or 5}'
+            _, e_v, e_acts = hold_sampled(tag, e_args, heads, episodic=True, task=tt,
+                                          gate_rule=False)
+            for i in range(NT):
+                sl = slice(i, i + 1)
+                one = value.value_sampled(
+                    *[a if a is e_args[0] else a[sl] for a in e_args], **heads,
+                    episodic=True, task=tt[sl])
+                if not (torch.equal(e_v[sl], one[0]) and torch.equal(e_acts[sl], one[1])):
+                    raise AssertionError(f'{tag}: the launch differs from task {i}\'s')
+            log(f'  {tag}: the N={NT} launch equals {NT} one-task launches, bit for bit')
+            nc = NT if size is None else 10     # the CPU's share: its plain step is slow
+            given = (e_args[0], e_args[1][:nc],
+                     e_acts[:nc].view(nc, S, H, A).permute(0, 2, 1, 3),
+                     *[a[:nc] for a in e_args[7:]])
+            kw = dict(heads, episodic=True, task=tt[:nc], amask=amask[:nc])
+            at_g = torch.empty(nc, S, dtype=torch.int32, device=dev)
+            v_g = value.value_estimate_plain(*given, **kw, term_at=at_g)
+            cpu = [{k: x.cpu() for k, x in given[0].items()}] + [x.cpu() for x in given[1:]]
+            at_c = torch.empty(nc, S, dtype=torch.int32)
+            v_c = value.value_estimate_plain(*cpu, **dict(
+                kw, task=tt[:nc].cpu(), amask=amask[:nc].cpu()), term_at=at_c)
+            lg, _ = value.termination_trace_plain(*given[:3], given[-1],
+                                                  heads['simnorm_dim'], task=tt[:nc])
+            lc, _ = value.termination_trace_plain(*cpu[:3], cpu[-1], heads['simnorm_dim'],
+                                                  task=tt[:nc].cpu())
+            flips, bad = value.gate_check(v_c, v_g.cpu(), at_c, at_g.cpu(), lg.cpu(),
+                                          **VALUE_TOL, near=GATE_NEAR)
+            agree = (at_c == at_g.cpu())[..., None]
+            log(f'  the plain step on the CPU against the same on the card ({nc} tasks, '
+                f'model_size {size or 5}): values differ by up to '
+                f'{max_err(v_c[agree], v_g.cpu()[agree]):.3g} where the flags agree, '
+                f'termination logits by up to {max_err(lc, lg.cpu()):.3g} (logit std '
+                f'{float(lg.std()):.3g}); {flips} flips with |logit| < {GATE_NEAR}, {bad} '
+                f'rows outside the gate rule, of {v_g.numel()}')
+            if size is None:
+                sub = torch.tensor(MT_GATE_TASKS, device=dev)
+                errs['value_sampled_tasks_episodic'] = hold_sampled(
+                    f'episodic, tasks {MT_GATE_TASKS}, model_size 5',
+                    tuple(a if a is e_args[0] else a[sub] for a in e_args), heads,
+                    episodic=True, task=tt[sub])[0]
+
+        # timing and bounds at N = 30 (CUDA events; own device time)
+        M, B = prep['dWz'].shape[1], prep['rW2'].shape[1]
+        mac_rew = L * M + A * M + M * M + M * B
+        mac_dyn = L * M + A * M + M * M + M * L
+        mac_pi = L * M + M * M + 2 * M * A
+        used = sorted(set(noise.qidx[:, 0].flatten().tolist()))
+        packed = [k for k in value.PACKED if k in prep and k[0] in 'drp']
+        w_dyn_pi = nbytes(*[prep[k] for k in value.PACKED if k[0] in 'dp'])
+        w_step = (nbytes(*[prep[k] for k in packed])
+                  + sum(nbytes(prep[k][j]) for k in ('qP0', 'qP1', 'qP2') for j in used)
+                  + 4 * (6 * M + L + B) * NT)
+        bounds = {
+            'value_sampled_tasks': bound_ms(
+                w_step + NT * (L * 4 + 2 * HA * 4 + (S - n_pi) * HA * 4 + n_pi * HA * 4
+                               + S * A * 4 + S * 4 + S * HA * 4),
+                2 * NT * S * (H * (mac_rew + mac_dyn) + mac_pi + 2 * mac_rew),
+                BF16_FLOPS, 3 * NT * S * HA),
+            'cem_pi_rollout_tasks': bound_ms(
+                w_dyn_pi + NT * (L * 4 + 2 * n_pi * HA * 4),
+                2 * NT * n_pi * H * (mac_pi + mac_dyn), BF16_FLOPS),
+            'cem_elite_tasks': bound_ms(
+                nbytes(v, acts, amask) + NT * S * 4 + 2 * NT * HA * 4,
+                NT * (35 * S + 8 * S * HA), F32_FLOPS)}
+        calls = {
+            'value_sampled_tasks': (value.value_sampled, value.value_sampled_plain,
+                                    vs_args, vs_kw, 'tdmpc2_tpu_torch/csrc/value.cu',
+                                    'tdmpc2_tpu/ops/pallas_rollout.py:437'),
+            'cem_pi_rollout_tasks': (cem.pi_rollout, cem.pi_rollout_plain, pi_args,
+                                     pi_kw, 'tdmpc2_tpu_torch/csrc/cem.cu',
+                                     'tdmpc2_tpu/ops/pallas_cem.py:53'),
+            'cem_elite_tasks': (cem.elite_moments, cem.elite_moments_plain,
+                                (v, acts, amask), elite_kw,
+                                'tdmpc2_tpu_torch/csrc/cem.cu',
+                                'tdmpc2_tpu/ops/pallas_cem.py:53')}
+        timed = {}
+        for name, (kern, plain, args, kw, src, rpl) in calls.items():
+            ms = time_ms(lambda: kern(*args, **kw), 10)
+            dev_ms = device_share(lambda: kern(*args, **kw), 5)[0]
+            plain_ms = time_ms(lambda: plain(*args, **kw), 3)
+            b_ms, b_by = bounds[name]
+            timed[name] = ms
+            log(f'  {name} (N={NT}, model_size 48): kernel {ms:.4f} ms (its own device '
+                f'time {dev_ms} ms), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms '
+                f'({b_by}), {ms / b_ms:.1f}x the bound')
+            rows.append({'name': name, 'route': 'cuda', 'source': src, 'replaces': rpl,
+                         'launches': None, 'max_abs_err': errs[name], 'ms': ms,
+                         'device_ms': dev_ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
+                         'bound_by': b_by, 'library_ms': None, 'n_envs': NT,
+                         'model_size': 48})
+        streamed = (H * nbytes(*[prep[k] for k in ('rP0', 'rP1', 'rP2', 'dP0', 'dP1',
+                                                   'dP2')])
+                    + nbytes(*[prep[k] for k in ('pP0', 'pP1', 'pP2')])
+                    + 2 * nbytes(*[prep[k][0] for k in ('qP0', 'qP1', 'qP2')]))
+        blocks = NT * -(-S // value.kernel_plan(prep, cfg.simnorm_dim, H)['rt'])
+        ms_v = timed['value_sampled_tasks']
+        log(f'  value_sampled N={NT}: each of its {blocks} blocks streams '
+            f'{streamed / 1e6:.1f} MB of packed weights ({blocks * streamed / 1e9:.1f} GB '
+            f'from L2 a launch, {streamed * blocks / 1e9 / ms_v:.2f} TB/s over its '
+            f'{ms_v:.3f} ms); the distinct weights it reads are {w_step / 1e6:.1f} MB')
+        del e_ag, ag, prep
+
+    with tempfile.TemporaryDirectory() as data_dir, \
+            Phase(f'path: offline training mt30, model_size 48, {MT_STEPS} iterations '
+                  f'(OfflineTrainer, {MT_CHUNKS} seeded chunks of the dataset\'s '
+                  'geometry)'):
+        t0 = time.perf_counter()
+        write_mt30_chunks(data_dir, MT_CHUNKS, MT_EPISODES, SEED)
+        log(f'  {MT_CHUNKS} chunks x {MT_EPISODES} episodes written in '
+            f'{time.perf_counter() - t0:.1f} s')
+        cfg = mt30_cfg(load_cfg, [f'data_dir={data_dir}', f'steps={MT_STEPS}',
+                                  f'eval_freq={10 * MT_STEPS}', 'save_agent=false',
+                                  'exp_name=chip_smoke_mt30'])
+        ag = TDMPC2(cfg, device='cuda')
+        trainer = OfflineTrainer(cfg=cfg, env=None, agent=ag, buffer=Buffer(cfg),
+                                 logger=Logger(cfg))
+        infos, t_load = [], {}
+        many = ag.update_many
+        ag.update_many = lambda buf, n: infos.append(many(buf, n)) or infos[-1]
+        load = trainer._load_dataset
+
+        def timed_load():
+            t1 = time.perf_counter()
+            load()
+            torch.cuda.synchronize()
+            t_load['s'] = time.perf_counter() - t1
+        trainer._load_dataset = timed_load
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0 - t_load['s']
+        paths['offline train mt30'] = read_counts()
+        del ag.update_many
+        buf = trainer.buffer
+        losses = torch.stack([torch.stack([i['total_loss'], i['pi_loss']])
+                              for i in infos])
+        store = buf._storage['obs']
+        log(f'  dataset: {buf.num_eps} episodes ({buf.num_eps * MT30_EPISODE_LENGTH:,} '
+            f'transitions) on {store.device}, '
+            f'{sum(nbytes(x) for x in buf._storage.values()) / 1e6:.1f} MB, loaded '
+            f'in {t_load["s"]:.1f} s')
+        log(f'  {MT_STEPS} iterations ({len(infos)} update_many calls) in {secs:.1f} s: '
+            f'{MT_STEPS / secs:.2f} iterations/s; last losses total '
+            f'{float(losses[-1, 0]):.4f}, pi {float(losses[-1, 1]):.4f}; launches '
+            f'{paths["offline train mt30"]}')
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError('offline mt30: non-finite loss')
+        if len(infos) != MT_STEPS // 8 or buf.num_eps != MT_CHUNKS * MT_EPISODES:
+            raise AssertionError(f'offline mt30: {len(infos)} calls, {buf.num_eps} '
+                                 'episodes')
+        if store.device.type != 'cuda':
+            raise AssertionError('offline mt30: the dataset is not on the card')
+        upd_ms = time_ms(lambda: ag.update_many(buf, 8), 3) / 8
+        busy, n_dev, _ = device_share(lambda: ag.update(buf), 3)
+        log(f'  update: {upd_ms:.3f} ms (CUDA events, update_many(8) / 8), '
+            f'{1e3 / upd_ms:.2f} update steps/s at batch {cfg.batch_size}; device busy '
+            f'{busy} ms of one update over {n_dev} device activities (torch.profiler)')
+
+        # act_tasks over the 30 tasks on the data's observations
+        task_store = buf._task_store
+        first = torch.stack([torch.nonzero(task_store == t)[0, 0] for t in range(NT)])
+        obs_at = [store[first, r].cpu().numpy() for r in range(MT_ACT_STEPS + 1)]
+        H, A = cfg.horizon, cfg.action_dim
+        tasks = np.arange(NT)
+        zero_counts()
+        t0 = time.perf_counter()
+        a, pm = ag.act_tasks(obs_at[0], np.zeros((NT, H, A), np.float32), True, tasks)
+        capture_ms = 1e3 * (time.perf_counter() - t0)
+        for r in range(1, MT_ACT_STEPS + 1):
+            a, pm = ag.act_tasks(obs_at[r], pm, False, tasks)
+        paths['act_tasks mt30'] = read_counts()
+        check_plan_counts(f'act_tasks mt30 (N={NT})', paths['act_tasks mt30'],
+                          MT_ACT_STEPS + 1)
+        if not np.isfinite(a).all() or any(
+                (a[i, MT30_ACTION_DIMS[i]:] != 0).any() for i in range(NT)):
+            raise AssertionError('act_tasks: non-finite actions or a masked column set')
+        ms = host_ms(lambda: ag.act_tasks(obs_at[-1], pm, False, tasks), 10)
+        busy, n_dev, top = device_share(
+            lambda: ag.act_tasks(obs_at[-1], pm, False, tasks), 3)
+        log(f'  act_tasks N={NT}: first call (eager warm-up and capture) '
+            f'{capture_ms:.1f} ms; then {ms:.3f} ms a call ({1e3 * NT / ms:.1f} task-plans/s, '
+            f'host clock); device busy {busy} ms ('
+            + ('not measured' if busy is None else
+               f'{100 * busy / ms:.1f}% of the call') + f') over {n_dev} activities')
+        for t, n, k in top or []:
+            log(f'    {t:.3f} ms in {n:.0f} x {k[:90]}')
+        for row in rows:
+            row['launches'] = paths['act_tasks mt30'][row['name'].replace('_tasks', '')]
+        del trainer, ag, buf, store
+
+    with tempfile.TemporaryDirectory() as data_dir, \
+            Phase('path: train, a toy multi-task config (2 tasks, 5M model): offline '
+                  f'training {TOY_MT_STEPS} iterations, then the lockstep eval; '
+                  'evaluate from its checkpoint'):
+        write_toy_chunks(data_dir)
+        cfg = load_cfg(overrides=['task=toy-mt2', f'seed={SEED}', 'device=cuda',
+                                  f'data_dir={data_dir}', f'steps={TOY_MT_STEPS}',
+                                  f'eval_freq={TOY_MT_STEPS}', 'eval_episodes=1',
+                                  'exp_name=chip_smoke_toy_mt'])
+        cfg.multitask, cfg.tasks, cfg.task_dim = True, ['toy-reach', 'toy-reach'], 8
+        scores = []
+        pprint = Logger.pprint_multitask
+        Logger.pprint_multitask = lambda self, m, c: scores.append(pprint(self, m, c)) \
+            or scores[-1]
+        try:
+            zero_counts()
+            tr = train_mod.train(cfg)
+            paths['offline train toy multi-task'] = read_counts()
+        finally:
+            Logger.pprint_multitask = pprint
+        check_plan_counts('offline train toy multi-task (its eval)',
+                          paths['offline train toy multi-task'], MAX_EP_LEN)
+        ckpt = Path(cfg.work_dir) / 'models' / f'{TOY_MT_STEPS}.pkl'
+        if not (isinstance(tr, OfflineTrainer) and scores and math.isfinite(scores[0])
+                and ckpt.exists()):
+            raise AssertionError(f'toy multi-task: trainer {type(tr).__name__}, '
+                                 f'scores {scores}, checkpoint {ckpt.exists()}')
+        log(f'  normalized score {scores[0]:.4f}; launches '
+            f'{paths["offline train toy multi-task"]}')
+        ev_cfg = load_cfg(overrides=['task=toy-mt2', f'seed={SEED}', 'device=cuda',
+                                     'eval_episodes=1', f'checkpoint={ckpt}'])
+        ev_cfg.multitask, ev_cfg.tasks, ev_cfg.task_dim = True, list(cfg.tasks), 8
+        zero_counts()
+        res = evaluate(ev_cfg)['toy-reach']
+        paths['evaluate toy multi-task'] = read_counts()
+        check_plan_counts('evaluate toy multi-task', paths['evaluate toy multi-task'],
+                          res['plans'])
+        if not math.isfinite(res['reward']) or res['plans'] != MAX_EP_LEN:
+            raise AssertionError(f'evaluate toy multi-task: {res}')
+        log(f'  evaluate: reward {res["reward"]:.4f}, {res["plans"]} lockstep plans, '
+            f'{res["plans"] / res["seconds"]:.1f} plans/s')
+    return errs, paths, rows
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
@@ -857,7 +1388,7 @@ def main() -> int:
         vs_args = (prep, zenc[None].expand(1, S, L), mean0 + 0.1, std0,
                    noise.sample[:, 0], pa_p, agent.amask, noise.eps[:, 0],
                    noise.qidx[:, 0], agent.discs[None])
-        results['value_sampled'] = hold_sampled('one env', vs_args, heads)
+        results['value_sampled'] = hold_sampled('one env', vs_args, heads)[0]
         v_in, acts = value.value_sampled(*vs_args, **heads)
 
     elite_kw = dict(num_elites=E, temperature=cfg.temperature,
@@ -936,7 +1467,7 @@ def main() -> int:
         v_n_in = value.value_estimate_plain(*v_n_args, **heads)
         e_n_args = (v_n_in, acts_n, agent.amask)
         results['value_sampled'] = max(results['value_sampled'],
-                                       hold_sampled(f'N={NE}', vs_n_args, heads))
+                                       hold_sampled(f'N={NE}', vs_n_args, heads)[0])
         n_env_calls = {
             'value': (value.value_estimate, value.value_estimate_plain, v_n_args,
                       heads, VALUE_TOL),
@@ -1051,7 +1582,7 @@ def main() -> int:
         evs_args = (e_prep, evn_args[1], mean_n, std_n, noise_n.sample[:, 1], pa_n,
                     agent.amask, *evn_args[3:])
         results['value_sampled_episodic'] = hold_sampled(
-            f'episodic N={NE}', evs_args, heads, episodic=True)
+            f'episodic N={NE}', evs_args, heads, episodic=True)[0]
         got = value.value_sampled(*evs_args, **heads, episodic=True)
         for i in range(NE):
             one = value.value_sampled(*[a if a is e_prep or a is agent.amask
@@ -1174,38 +1705,8 @@ def main() -> int:
             f'to issue, {refresh_ms:.3f} ms synchronised (host clock); device busy '
             f'{r_busy} ms over {r_dev} activities (torch.profiler)')
 
-    wrappers = {'value': value.value_estimate,
-                'value_sampled': value.value_sampled,
-                'cem_pi_rollout': cem.pi_rollout,
-                'cem_elite': cem.elite_moments,
-                'rollout': rollout.rollout_prepared,
-                'probe': probe.add_one}
+    wrappers, zero_counts, read_counts, check_plan_counts = plan_counters(I)
     planner = ('value_sampled', 'cem_pi_rollout', 'cem_elite')
-
-    def zero_counts():
-        for w in wrappers.values():
-            w.launches = 0
-        Graph.replays['plan'] = Graph.captures['plan'] = 0
-
-    def read_counts():
-        return {**{k: w.launches for k, w in wrappers.items()},
-                'plan_replays': Graph.replays.get('plan', 0),
-                'plan_captures': Graph.captures.get('plan', 0)}
-
-    def check_plan_counts(name, counts, plans=None):
-        """Each plan of a path: one pi rollout, I sampled value launches and
-        I elite launches (1 + 2 I kernels), none of the given-actions value
-        launch, and one graph replay, or the eager run of a capture."""
-        p = counts['cem_pi_rollout']
-        ok = (p > 0 and counts['value_sampled'] == I * p and counts['cem_elite'] == I * p
-              and counts['value'] == 0 and counts['plan_replays'] > 0
-              and counts['plan_replays'] + counts['plan_captures'] == p
-              and (plans is None or p == plans))
-        log(f'  {name}: {p} plans, {1 + 2 * I} planner launches a plan '
-            f'({counts["value_sampled"]} sampled value, {counts["cem_elite"]} elite), '
-            f'{counts["plan_replays"]} graph replays, {counts["plan_captures"]} captures')
-        if not ok:
-            raise AssertionError(f'{name}: planner launches {counts} for {plans} plans')
 
     with Phase('path: evaluate toy-reach, 5M model, 2 episodes'):
         ev_cfg = load_cfg(overrides=['task=toy-reach', 'eval_episodes=2',
@@ -1543,6 +2044,9 @@ def main() -> int:
                 f'; device busy {busy:.3f} ms (idle share '
                 f'{100 * (1 - busy / um_ms):.1f}%), {n_dev:.0f} device activities'))
 
+    mt_errs, mt_paths, mt_rows = multitask_phases(zero_counts, read_counts,
+                                                  check_plan_counts)
+
     with Phase('timing (CUDA events) and bounds, one env and N envs'):
         HA = H * A
         q_heads = [k for k in value.PREP_NAMES if k[0] == 'q']
@@ -1630,7 +2134,7 @@ def main() -> int:
                  'train, one env': launches, f'train, num_envs={NE}': vec_launches,
                  'evaluate episodic': ev_ep_launches,
                  'train episodic, one env': ep_launches,
-                 f'train episodic, num_envs={NE}': vep_launches}
+                 f'train episodic, num_envs={NE}': vep_launches, **mt_paths}
         episodic_paths = ('evaluate episodic', 'train episodic, one env',
                           f'train episodic, num_envs={NE}')
         kernels = []
@@ -1713,6 +2217,7 @@ def main() -> int:
                 row['ptxas'] = {k: v for k, v in usage.items()
                                 if k.startswith('rollout_kernel<')}
             kernels.append(row)
+        kernels.extend(mt_rows)
         for label, args, kw in (('one env', plan_args, plan_kw),
                                 (f'N={NE}', plan_n_args, plan_kw),
                                 (f'episodic N={NE}', e_plan_args, e_plan_kw)):
@@ -1737,4 +2242,5 @@ if __name__ == '__main__':
         sys.exit(compare(sys.argv[2], *map(int, sys.argv[3:])))
     if len(sys.argv) == 2 and sys.argv[1] == '--cycles':
         sys.exit(cycles())
+
     sys.exit(main())

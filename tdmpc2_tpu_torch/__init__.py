@@ -9,8 +9,11 @@ beside it that the CPU runs.
 Ported so far: single-task, state-observation online training and
 evaluation — config, world-model heads, the MPPI planner (ops/value.py,
 ops/cem.py), the update and its optimisers, the replay buffer, the online
-trainer, the toy env, `train` and `evaluate` — and every TPU kernel of the
-JAX package (value step, CEM loop, reward+dynamics rollout, canary).
+trainer, the toy env, `train` and `evaluate` — multi-task offline training
+(task embeddings, action masks, per-task discounts, the offline trainer,
+lockstep planning over tasks through the same kernels), and every TPU
+kernel of the JAX package (value step, CEM loop, reward+dynamics rollout,
+canary).
 """
 
 __version__ = "0.1.0"

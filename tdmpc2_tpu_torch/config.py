@@ -6,7 +6,9 @@ A copy of the reference-facing part of ``tdmpc2_tpu/config.py``: the same
 that runs the JAX package runs the port unchanged. Fields that only steer
 the JAX runtime (mesh, platform, Pallas gates, fused dispatches) are left
 out. One field is added: ``device``, where the port runs (``cuda`` unless the
-caller asks for ``cpu``).
+caller asks for ``cpu``). The multi-task sets (``mt30``, ``mt80``: the
+order of a set is the task embedding's index) and the ``task_dim`` rule
+are the JAX package's.
 
 ``yaml`` is imported only when a YAML path is given.
 """
@@ -29,10 +31,42 @@ MODEL_SIZE = {
     317: dict(enc_dim=4096, mlp_dim=4096, latent_dim=1376, num_enc_layers=5, num_q=8),
 }
 
-# Multi-task set names (reference tdmpc2/common/__init__.py:26-60). The port
-# runs single-task only so far; the names are kept so `multitask` is set
-# exactly as the JAX package sets it and a multi-task config is refused.
-_MULTITASK_SETS = ('mt30', 'mt80')
+# Multi-task task sets; list order defines the task-embedding index.
+# Reference: tdmpc2/common/__init__.py:26-60 (a copy of the JAX package's
+# TASK_SET, tdmpc2_tpu/config.py:40-71).
+_DMC_19 = [
+    'walker-stand', 'walker-walk', 'walker-run', 'cheetah-run', 'reacher-easy',
+    'reacher-hard', 'acrobot-swingup', 'pendulum-swingup', 'cartpole-balance',
+    'cartpole-balance-sparse', 'cartpole-swingup', 'cartpole-swingup-sparse',
+    'cup-catch', 'finger-spin', 'finger-turn-easy', 'finger-turn-hard',
+    'fish-swim', 'hopper-stand', 'hopper-hop',
+]
+_DMC_CUSTOM_11 = [
+    'walker-walk-backwards', 'walker-run-backwards', 'cheetah-run-backwards',
+    'cheetah-run-front', 'cheetah-run-back', 'cheetah-jump',
+    'hopper-hop-backwards', 'reacher-three-easy', 'reacher-three-hard',
+    'cup-spin', 'pendulum-spin',
+]
+_MW_50 = [
+    'mw-assembly', 'mw-basketball', 'mw-button-press-topdown',
+    'mw-button-press-topdown-wall', 'mw-button-press', 'mw-button-press-wall',
+    'mw-coffee-button', 'mw-coffee-pull', 'mw-coffee-push', 'mw-dial-turn',
+    'mw-disassemble', 'mw-door-open', 'mw-door-close', 'mw-drawer-close',
+    'mw-drawer-open', 'mw-faucet-open', 'mw-faucet-close', 'mw-hammer',
+    'mw-handle-press-side', 'mw-handle-press', 'mw-handle-pull-side',
+    'mw-handle-pull', 'mw-lever-pull', 'mw-peg-insert-side',
+    'mw-peg-unplug-side', 'mw-pick-out-of-hole', 'mw-pick-place',
+    'mw-pick-place-wall', 'mw-plate-slide', 'mw-plate-slide-side',
+    'mw-plate-slide-back', 'mw-plate-slide-back-side', 'mw-push-back',
+    'mw-push', 'mw-push-wall', 'mw-reach', 'mw-reach-wall', 'mw-shelf-place',
+    'mw-soccer', 'mw-stick-push', 'mw-stick-pull', 'mw-sweep-into', 'mw-sweep',
+    'mw-window-open', 'mw-window-close', 'mw-bin-picking', 'mw-box-close',
+    'mw-door-lock', 'mw-door-unlock', 'mw-hand-insert',
+]
+TASK_SET = {
+    'mt30': _DMC_19 + _DMC_CUSTOM_11,
+    'mt80': _DMC_19 + _DMC_CUSTOM_11 + _MW_50,
+}
 
 
 @dataclass
@@ -102,7 +136,8 @@ class Config:
     simnorm_dim: int = 8
 
     # online training (JAX config names and defaults; the port trains one
-    # seed from scratch, and raises on seed fleets and resuming)
+    # seed from scratch, and raises on seed fleets and resuming; multi-task
+    # configs train offline, trainer/offline.py)
     update_ratio: float = 1.0
     # parallel env copies for vectorised collection (trainer/vec_online.py)
     num_envs: int = 1
@@ -115,7 +150,8 @@ class Config:
     # logging
     save_csv: bool = True
 
-    # misc
+    # misc (save_video=true raises in train and evaluate: the port has no
+    # video recorder yet)
     save_video: bool = False
     save_agent: bool = True
     seed: int = 1
@@ -128,6 +164,9 @@ class Config:
     obs_shape: Any = None           # dict: obs-kind -> shape tuple
     action_dim: Optional[int] = None
     episode_length: Optional[int] = None
+    obs_shapes: Any = None          # multitask: per-task obs dims
+    action_dims: Any = None         # multitask: per-task action dims
+    episode_lengths: Any = None     # multitask: per-task episode lengths
     seed_steps: Optional[int] = None
     bin_size: Optional[float] = None
 
@@ -193,14 +232,17 @@ def parse_cfg(cfg: Config) -> Config:
                 f'Invalid model size {cfg.model_size}. Must be one of {list(MODEL_SIZE)}')
         for k, v in MODEL_SIZE[cfg.model_size].items():
             setattr(cfg, k, v)
+        if cfg.task == 'mt30' and cfg.model_size == 19:
+            cfg.latent_dim = 512  # published mt30/19M checkpoint quirk (parser.py:67-68)
 
-    cfg.multitask = cfg.task in _MULTITASK_SETS
+    cfg.multitask = cfg.task in TASK_SET
     if cfg.multitask:
-        raise NotImplementedError(
-            f'multi-task config {cfg.task!r}: the PyTorch port runs '
-            'single-task only so far')
-    cfg.task_dim = 0
-    cfg.tasks = [cfg.task]
+        cfg.task_title = cfg.task.upper()
+        # task_dim inconsistency across published mt experiments (parser.py:75)
+        cfg.task_dim = 96 if (cfg.task == 'mt80' or (cfg.model_size or 5) in (1, 317)) else 64
+    else:
+        cfg.task_dim = 0
+    cfg.tasks = TASK_SET.get(cfg.task, [cfg.task])
     return cfg
 
 

@@ -9,7 +9,10 @@
 // no cooperative launch, no grid barrier, no spin-wait. Each kernel plans N
 // environments at once (the TPU kernel's grid=(N,), one program per env):
 // a block belongs to one env, and every per-env operand is addressed
-// through an env stride. Per plan:
+// through an env stride. The envs may be tasks of a multi-task model, each
+// with its task id and action mask (value.cu, task axis): the pi rollout
+// reads its first-layer biases through the id and masks the policy's mean
+// and eps, the elite kernel masks the new mean and std. Per plan:
 //   pi_rollout_kernel  once: the n_pi policy-prior trajectories of each env,
 //                      ceil(n_pi / RT) row tiles per env (one at n_pi = 24)
 //   then per iteration:
@@ -38,16 +41,17 @@ template <int RT, int NP>
 __global__ void __launch_bounds__(kBlock, 1)
 pi_rollout_kernel(Weights w, Dims d, Plan pl, float lsmin, float lsdif, int n_pi,
                   int blocks_per_env, const float* z0, long zn, const float* pi_eps, long pn,
-                  float* pi_acts) {
+                  const int* task, int ntask, const float* amask, long amn, float* pi_acts) {
   extern __shared__ uint4 smem_u4[];
   const Tile tl(smem_u4, pl, d);
-  const Heads hd(w, d, pl);
   const int env = blockIdx.x / blocks_per_env;
+  const Heads hd(w, d, pl, task == nullptr ? 0 : min(max(task[env], 0), ntask - 1));
   const int row0 = (blockIdx.x % blocks_per_env) * RT;
   const int nrows = min(RT, n_pi - row0);
   const int HA = d.H * d.A;
   z0 += env * zn;
   pi_eps += env * pn;
+  if (amask != nullptr) amask += env * amn;
   pi_acts += static_cast<long>(env) * n_pi * HA;
 
   if (threadIdx.x == 0) {
@@ -70,7 +74,8 @@ pi_rollout_kernel(Weights w, Dims d, Plan pl, float lsmin, float lsdif, int n_pi
     for (int i = threadIdx.x; i < RT * d.A; i += kThreads) {
       const int r = i / d.A, c = i % d.A;
       const float e = r < nrows ? pi_eps[(row0 + r) * HA + t * d.A + c] : 0.f;
-      const float a = pi_action(tl, d, r, c, e, lsmin, lsdif);
+      const float m = amask != nullptr ? amask[c] : 1.f;
+      const float a = pi_action(tl, d, r, c, e, m, lsmin, lsdif);
       if (r < nrows) pi_acts[(row0 + r) * HA + t * d.A + c] = a;
       tl.z[r * tl.ldz + tl.Lp + c] = bf16_bits(a);
     }
@@ -319,18 +324,20 @@ __device__ __forceinline__ void elite_moments(const float* a, const float* sn, c
   }
 }
 
-// v_in, v_out [N, S] (v_out NaN/huge-guarded); acts [N, S, HA]; new
-// mean/std [N, HA]. Shared memory: an mbarrier (16 bytes), the values [S]
-// (then the weighted rows' normalised scores at their index), the staged
-// actions [S*HA] (stage only), the weighted rows' indices [S], the
-// candidates and the spare words [64].
+// v_in, v_out [N, S] (v_out NaN/huge-guarded); acts [N, S, HA]; the env's
+// action mask amask + env*amn [A]; new mean/std [N, HA]. Shared memory: an
+// mbarrier (16 bytes), the values [S] (then the weighted rows' normalised
+// scores at their index), the staged actions [S*HA] (stage only), the
+// weighted rows' indices [S], the candidates and the spare words [64].
 template <int R>
 __global__ void __launch_bounds__(32)
 elite_kernel(const float* __restrict__ v_in, const float* __restrict__ acts,
-             const float* __restrict__ amask, int S, int HA, int A, int E, float temperature,
-             float min_std, float max_std, bool stage, float* __restrict__ v_out,
-             float* __restrict__ mean_out, float* __restrict__ std_out) {
+             const float* __restrict__ amask, long amn, int S, int HA, int A, int E,
+             float temperature, float min_std, float max_std, bool stage,
+             float* __restrict__ v_out, float* __restrict__ mean_out,
+             float* __restrict__ std_out) {
   const int env = blockIdx.x, lane = threadIdx.x;
+  amask += env * amn;
   v_in += static_cast<long>(env) * S;
   v_out += static_cast<long>(env) * S;
   acts += static_cast<long>(env) * S * HA;
@@ -523,19 +530,20 @@ elite_kernel(const float* __restrict__ v_in, const float* __restrict__ acts,
 
 template <int RT, int NP>
 int launch_pi(const Weights& w, const Dims& d, const Plan& pl, float lsmin, float lsdif, int N,
-              int n_pi, const float* z0, long zn, const float* pi_eps, long pn, float* pi_acts,
-              cudaStream_t stream) {
+              int n_pi, const float* z0, long zn, const float* pi_eps, long pn, const int* task,
+              int ntask, const float* amask, long amn, float* pi_acts, cudaStream_t stream) {
   const cudaError_t err = opt_in_smem(pi_rollout_kernel<RT, NP>, pl.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks_per_env = (n_pi + RT - 1) / RT;
   pi_rollout_kernel<RT, NP><<<N * blocks_per_env, kBlock, pl.bytes, stream>>>(
-      w, d, pl, lsmin, lsdif, n_pi, blocks_per_env, z0, zn, pi_eps, pn, pi_acts);
+      w, d, pl, lsmin, lsdif, n_pi, blocks_per_env, z0, zn, pi_eps, pn, task, ntask, amask, amn,
+      pi_acts);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int R>
 int launch_elite(int N, int smem, cudaStream_t stream, const float* v_in, const float* acts,
-                 const float* amask, int S, int HA, int A, int E, float temperature,
+                 const float* amask, long amn, int S, int HA, int A, int E, float temperature,
                  float min_std, float max_std, bool stage, float* v_out, float* mean_out,
                  float* std_out) {
   // above 48 KB of shared memory only after an opt-in, made once per device
@@ -543,8 +551,8 @@ int launch_elite(int N, int smem, cudaStream_t stream, const float* v_in, const 
     const cudaError_t err = opt_in_smem(elite_kernel<R>, kSmemMax);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  elite_kernel<R><<<N, 32, smem, stream>>>(v_in, acts, amask, S, HA, A, E, temperature, min_std,
-                                           max_std, stage, v_out, mean_out, std_out);
+  elite_kernel<R><<<N, 32, smem, stream>>>(v_in, acts, amask, amn, S, HA, A, E, temperature,
+                                           min_std, max_std, stage, v_out, mean_out, std_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -552,11 +560,13 @@ int launch_elite(int N, int smem, cudaStream_t stream, const float* v_in, const 
 
 // Each launch function runs on `stream` and returns cudaGetLastError()
 // (the pi rollout: kNoPlan when no row tile fits the widths).
-// pi rollout of env e: z0 + e*zn ([L]), pi_eps + e*pn ([n_pi, HA]);
+// pi rollout of env e: z0 + e*zn ([L]), pi_eps + e*pn ([n_pi, HA]), task[e]
+// (clamped to [0, ntask); null: 0), amask + e*amn ([A]; null: ones);
 // pi_acts [N, n_pi, HA].
 extern "C" int tdm_pi_rollout(const void* const* wptrs, const int* dims, float lsmin,
                               float lsdif, int N, int n_pi, const float* z0, long zn,
-                              const float* pi_eps, long pn, float* pi_acts, void* stream) {
+                              const float* pi_eps, long pn, const int* task, int ntask,
+                              const float* amask, long amn, float* pi_acts, void* stream) {
   using namespace tdm;
   Weights w;
   for (int i = 0; i < kNumOps; ++i) w.p[i] = wptrs[i];
@@ -565,7 +575,8 @@ extern "C" int tdm_pi_rollout(const void* const* wptrs, const int* dims, float l
   if (pl.shape < 0) return kNoPlan;
   return with_shape(pl.shape, [&](auto t) {
     return launch_pi<decltype(t)::rt, decltype(t)::np>(w, d, pl, lsmin, lsdif, N, n_pi, z0, zn,
-                                                        pi_eps, pn, pi_acts,
+                                                        pi_eps, pn, task, ntask, amask, amn,
+                                                        pi_acts,
                                                         static_cast<cudaStream_t>(stream));
   });
 }
@@ -581,13 +592,14 @@ extern "C" int tdm_pi_rollout_plan(const int* dims, int* out) {
   });
 }
 
-// v_in, v_out [N, S]; acts [N, S, HA]; mean_out, std_out [N, HA]. Returns
-// kNoPlan when the values and the row list do not fit in shared memory
-// (8*S bytes and 272 more: S up to 29,022).
-extern "C" int tdm_elite(const float* v_in, const float* acts, const float* amask, int N,
-                         int S, int HA, int A, int num_elites, float temperature, float min_std,
-                         float max_std, float* v_out, float* mean_out, float* std_out,
-                         void* stream) {
+// v_in, v_out [N, S]; acts [N, S, HA]; env e's mask amask + e*amn [A];
+// mean_out, std_out [N, HA]. Returns kNoPlan when the values and the row
+// list do not fit in shared memory (8*S bytes and 272 more: S up to
+// 29,022).
+extern "C" int tdm_elite(const float* v_in, const float* acts, const float* amask, long amn,
+                         int N, int S, int HA, int A, int num_elites, float temperature,
+                         float min_std, float max_std, float* v_out, float* mean_out,
+                         float* std_out, void* stream) {
   using namespace tdm;
   const long base = 16 + static_cast<long>(sizeof(float)) * (2L * S + 2 * kEliteCand);
   const long staged = static_cast<long>(sizeof(float)) * S * HA;
@@ -596,7 +608,7 @@ extern "C" int tdm_elite(const float* v_in, const float* acts, const float* amas
   if (smem > kSmemMax) return kNoPlan;
   const auto launch = S <= 32 * kEliteRegs ? launch_elite<kEliteRegs> : launch_elite<0>;
   return launch(N, static_cast<int>(smem), static_cast<cudaStream_t>(stream), v_in, acts,
-                amask, S, HA, A, num_elites, temperature, min_std, max_std, stage, v_out,
+                amask, amn, S, HA, A, num_elites, temperature, min_std, max_std, stage, v_out,
                 mean_out, std_out);
 }
 

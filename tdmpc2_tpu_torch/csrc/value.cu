@@ -1,6 +1,6 @@
 // Planner value estimate: H-step reward + dynamics rollout, terminal policy
 // prior, 2-of-num_q Q bootstrap, and on episodic tasks the sticky
-// termination gate (single-task).
+// termination gate; single- and multi-task.
 //
 // Replaces the TPU kernel _value_kernel (tdmpc2_tpu/ops/pallas_rollout.py,
 // launched by _value_flat / value_prepared). For N environments, each with
@@ -23,6 +23,15 @@
 // broadcast latent and its strided per-iteration noise need no copies. A
 // row's result does not depend on the other rows of its tile, so an N-env
 // launch equals N one-env launches bit for bit.
+//
+// Task axis (multi-task models): each env carries a task id, task[env]. A
+// task changes only the first-layer biases, where the prep folds in its
+// embedding (tables with a row per task, read through the id: Heads), and
+// the action mask amask [A] of the env (its own row, env stride amn; 0
+// where the task has fewer action columns). The mask multiplies the
+// sampled actions where they are staged and the terminal policy's mean
+// and eps (pi_action). So N tasks plan in one launch, as N envs do; a
+// single-task model is task 0 of a one-row table, with a mask of ones.
 //
 // Bound: at the default 5M model and S=512 one env's call does ~5.9 GFLOP of
 // bf16-input products over ~6 MB of weights: ~6.0 us at 989 TFLOP/s
@@ -58,8 +67,8 @@ namespace tdm {
 
 // The sampled mode's operands, each env's through an env stride: mean and
 // std [H*A], noise [S, H*A] and the n_pi policy-prior rows pi_acts
-// [n_pi, H*A] (rows H*A apart); the action mask [A]; the sampled actions
-// acts [N, S, H*A]. mean == nullptr: the actions are given.
+// [n_pi, H*A] (rows H*A apart); the sampled actions acts [N, S, H*A].
+// mean == nullptr: the actions are given.
 struct Sampling {
   const float* mean;
   long mn;
@@ -69,7 +78,6 @@ struct Sampling {
   long nn;
   const float* pi_acts;
   long pn;
-  const float* amask;
   int n_pi;
   float* acts;
 };
@@ -78,10 +86,10 @@ struct Sampling {
 // (the _rn intrinsics: no contraction into an fma, the roundings of the
 // plain version's multiply, then add), written in f32 to acts and staged as
 // bf16 into the action columns of z||a. The operands point at the env's
-// own. Rows at or past nrows stage zeros and write nothing. Synchronises
-// the consumers after.
+// own, and amask is the env's action mask [A]. Rows at or past nrows stage
+// zeros and write nothing. Synchronises the consumers after.
 __device__ __forceinline__ void put_sampled(const Tile& tl, const Dims& d, const Sampling& sp,
-                                            int t, int row0, int nrows) {
+                                            const float* amask, int t, int row0, int nrows) {
   const int HA = d.H * d.A;
   for (int i = threadIdx.x; i < tl.rt * d.A; i += kThreads) {
     const int r = i / d.A, c = i % d.A, k = t * d.A + c;
@@ -94,7 +102,7 @@ __device__ __forceinline__ void put_sampled(const Tile& tl, const Dims& d, const
       } else {
         a = fminf(fmaxf(__fadd_rn(sp.mean[k], __fmul_rn(sp.stdv[k], sp.noise[at])), -1.f), 1.f);
       }
-      a *= sp.amask[c];
+      a *= amask[c];
       sp.acts[at] = a;
       bits = bf16_bits(a);
     }
@@ -110,13 +118,14 @@ template <int RT, int NP, bool kSampled>
 __global__ void __launch_bounds__(kBlock, 1)
 value_kernel(Weights w, Dims d, Plan pl, float lsmin, float lsdif, int episodic, int S,
              int blocks_per_env, const float* z0, long zn, long zs, const float* actions,
-             long an, long ats, long ass, Sampling sp, const float* eps, long en,
-             const int* qidx, long qn, const float* discs, long dn, float* out, int* term_at) {
+             long an, long ats, long ass, Sampling sp, const int* task, int ntask,
+             const float* amask, long amn, const float* eps, long en, const int* qidx, long qn,
+             const float* discs, long dn, float* out, int* term_at) {
   extern __shared__ uint4 smem_u4[];
   TDM_CLOCK(t_kernel);
   const Tile tl(smem_u4, pl, d);
-  const Heads hd(w, d, pl);
   const int env = blockIdx.x / blocks_per_env;
+  const Heads hd(w, d, pl, task == nullptr ? 0 : min(max(task[env], 0), ntask - 1));
   const int row0 = (blockIdx.x % blocks_per_env) * RT;
   const int nrows = min(RT, S - row0);
   const int tid = threadIdx.x;
@@ -130,6 +139,7 @@ value_kernel(Weights w, Dims d, Plan pl, float lsmin, float lsdif, int episodic,
   } else {
     actions += env * an;
   }
+  if (amask != nullptr) amask += env * amn;
   eps += env * en;
   qidx += env * qn;
   discs += env * dn;
@@ -173,7 +183,7 @@ value_kernel(Weights w, Dims d, Plan pl, float lsmin, float lsdif, int episodic,
 
   for (int t = 0; t < d.H; ++t) {
     if constexpr (kSampled) {
-      put_sampled(tl, d, sp, t, row0, nrows);
+      put_sampled(tl, d, sp, amask, t, row0, nrows);
     } else {
       put_actions(tl, d, actions + t * ats, ass, row0, nrows);
     }
@@ -183,7 +193,7 @@ value_kernel(Weights w, Dims d, Plan pl, float lsmin, float lsdif, int episodic,
     // z_{t+1}
     dynamics<RT, NP>(st, tl, d, w, hd);
     if (episodic) {
-      hidden2<RT, NP>(st, tl, d, hd.term(0), hd.term(1), w.f(tb0), w.f(tg0),
+      hidden2<RT, NP>(st, tl, d, hd.term(0), hd.term(1), w.f(tb0) + hd.boff, w.f(tg0),
                       w.f(te0), w.f(tb1), w.f(tg1), w.f(te1));
       st = narrow_layer<RT>(st, hd.term(2), tl.h, tl.ldh, tl.part, tl.head, tl.hp, 1,
                             w.f(tb2), nullptr, 1);
@@ -202,7 +212,8 @@ value_kernel(Weights w, Dims d, Plan pl, float lsmin, float lsdif, int episodic,
   for (int i = tid; i < RT * d.A; i += kThreads) {
     const int rr = i / d.A, c = i % d.A;
     const float e = rr < nrows ? eps[(row0 + rr) * d.A + c] : 0.f;
-    tl.z[rr * tl.ldz + tl.Lp + c] = bf16_bits(pi_action(tl, d, rr, c, e, lsmin, lsdif));
+    const float m = amask != nullptr ? amask[c] : 1.f;
+    tl.z[rr * tl.ldz + tl.Lp + c] = bf16_bits(pi_action(tl, d, rr, c, e, m, lsmin, lsdif));
   }
   sync_consumers();
 
@@ -210,7 +221,7 @@ value_kernel(Weights w, Dims d, Plan pl, float lsmin, float lsdif, int episodic,
   for (int j = 0; j < 2; ++j) {
     const int h = qh[j];
     const long M = d.M;
-    hidden2<RT, NP>(st, tl, d, hd.q(0, h), hd.q(1, h), w.f(qb0) + h * M,
+    hidden2<RT, NP>(st, tl, d, hd.q(0, h), hd.q(1, h), w.f(qb0) + hd.qoff + h * M,
                     w.f(qg0) + h * M, w.f(qe0) + h * M, w.f(qb1) + h * M, w.f(qg1) + h * M,
                     w.f(qe1) + h * M);
     Epi e{kTwoHot, d.B, w.f(qb2) + static_cast<long>(h) * d.B, nullptr, nullptr, w.f(bins),
@@ -228,14 +239,15 @@ template <int RT, int NP, bool kSampled>
 int launch_value(const Weights& w, const Dims& d, const Plan& pl, float lsmin, float lsdif,
                  int episodic, int N, int S, const float* z0, long zn, long zs,
                  const float* actions, long an, long ats, long ass, const Sampling& sp,
-                 const float* eps, long en, const int* qidx, long qn, const float* discs,
-                 long dn, float* out, int* term_at, cudaStream_t stream) {
+                 const int* task, int ntask, const float* amask, long amn, const float* eps,
+                 long en, const int* qidx, long qn, const float* discs, long dn, float* out,
+                 int* term_at, cudaStream_t stream) {
   const cudaError_t err = opt_in_smem(value_kernel<RT, NP, kSampled>, pl.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks_per_env = (S + RT - 1) / RT;
   value_kernel<RT, NP, kSampled><<<N * blocks_per_env, kBlock, pl.bytes, stream>>>(
       w, d, pl, lsmin, lsdif, episodic, S, blocks_per_env, z0, zn, zs, actions, an, ats, ass,
-      sp, eps, en, qidx, qn, discs, dn, out, term_at);
+      sp, task, ntask, amask, amn, eps, en, qidx, qn, discs, dn, out, term_at);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -246,8 +258,9 @@ namespace {
 int value_launch(const void* const* wptrs, const int* dims, float lsmin, float lsdif,
                  int episodic, int N, int S, const float* z0, long zn, long zs,
                  const float* actions, long an, long ats, long ass, const tdm::Sampling& sp,
-                 const float* eps, long en, const int* qidx, long qn, const float* discs,
-                 long dn, float* out, int* term_at, void* stream) {
+                 const int* task, int ntask, const float* amask, long amn, const float* eps,
+                 long en, const int* qidx, long qn, const float* discs, long dn, float* out,
+                 int* term_at, void* stream) {
   using namespace tdm;
   Weights w;
   for (int i = 0; i < kNumOps; ++i) w.p[i] = wptrs[i];
@@ -258,7 +271,8 @@ int value_launch(const void* const* wptrs, const int* dims, float lsmin, float l
     const auto launch = sp.mean != nullptr ? launch_value<decltype(t)::rt, decltype(t)::np, true>
                                            : launch_value<decltype(t)::rt, decltype(t)::np, false>;
     return launch(w, d, pl, lsmin, lsdif, episodic, N, S, z0, zn, zs, actions, an, ats, ass, sp,
-                  eps, en, qidx, qn, discs, dn, out, term_at, static_cast<cudaStream_t>(stream));
+                  task, ntask, amask, amn, eps, en, qidx, qn, discs, dn, out, term_at,
+                  static_cast<cudaStream_t>(stream));
   });
 }
 
@@ -267,34 +281,42 @@ int value_launch(const void* const* wptrs, const int* dims, float lsmin, float l
 // Launch on `stream`; returns cudaGetLastError() after the launch, or
 // kNoPlan when no row tile fits the widths. Operands of env e: z0 + e*zn
 // (rows zs apart, 0 broadcasts one row), actions + e*an ([H, S, A] with
-// strides ats, ass, 1), eps + e*en ([S, A]), qidx + e*qn ([2]), discs +
-// e*dn ([H+1]); out [N, S]; term_at [N, S] or null. `episodic` (0/1) needs
-// the termination head's operands among wptrs.
+// strides ats, ass, 1), task[e] (the row of the first-layer bias tables,
+// clamped to [0, ntask); task null: 0), amask + e*amn ([A]; null: ones),
+// eps + e*en ([S, A]), qidx + e*qn ([2]), discs + e*dn ([H+1]); out
+// [N, S]; term_at [N, S] or null. `episodic` (0/1) needs the termination
+// head's operands among wptrs.
 extern "C" int tdm_value(const void* const* wptrs, const int* dims, float lsmin, float lsdif,
                          int episodic, int N, int S, const float* z0, long zn, long zs,
-                         const float* actions, long an, long ats, long ass, const float* eps,
-                         long en, const int* qidx, long qn, const float* discs, long dn,
-                         float* out, int* term_at, void* stream) {
+                         const float* actions, long an, long ats, long ass, const int* task,
+                         int ntask, const float* amask, long amn, const float* eps, long en,
+                         const int* qidx, long qn, const float* discs, long dn, float* out,
+                         int* term_at, void* stream) {
   const tdm::Sampling given{};
   return value_launch(wptrs, dims, lsmin, lsdif, episodic, N, S, z0, zn, zs, actions, an, ats,
-                      ass, given, eps, en, qidx, qn, discs, dn, out, term_at, stream);
+                      ass, given, task, ntask, amask, amn, eps, en, qidx, qn, discs, dn, out,
+                      term_at, stream);
 }
 
 // The sampled mode: as tdm_value, with the actions sampled in the kernel
 // from env e's mean + e*mn and std + e*sn ([H*A]), noise + e*nn and
-// pi_acts + e*pn ([S, H*A] and [n_pi, H*A], rows H*A apart) and amask [A];
-// the actions are written to acts [N, S, H*A].
+// pi_acts + e*pn ([S, H*A] and [n_pi, H*A], rows H*A apart) and the
+// env's mask amask + e*amn ([A], not null); the actions are written to acts
+// [N, S, H*A].
 extern "C" int tdm_value_sampled(const void* const* wptrs, const int* dims, float lsmin,
                                  float lsdif, int episodic, int N, int S, const float* z0,
                                  long zn, long zs, const float* mean, long mn,
                                  const float* stdv, long sn, const float* noise, long nn,
-                                 const float* pi_acts, long pn, const float* amask, int n_pi,
-                                 float* acts, const float* eps, long en, const int* qidx,
-                                 long qn, const float* discs, long dn, float* out,
-                                 int* term_at, void* stream) {
-  const tdm::Sampling sp{mean, mn, stdv, sn, noise, nn, pi_acts, pn, amask, n_pi, acts};
+                                 const float* pi_acts, long pn, int n_pi, float* acts,
+                                 const int* task, int ntask, const float* amask, long amn,
+                                 const float* eps, long en, const int* qidx, long qn,
+                                 const float* discs, long dn, float* out, int* term_at,
+                                 void* stream) {
+  if (amask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const tdm::Sampling sp{mean, mn, stdv, sn, noise, nn, pi_acts, pn, n_pi, acts};
   return value_launch(wptrs, dims, lsmin, lsdif, episodic, N, S, z0, zn, zs, nullptr, 0, 0, 0,
-                      sp, eps, en, qidx, qn, discs, dn, out, term_at, stream);
+                      sp, task, ntask, amask, amn, eps, en, qidx, qn, discs, dn, out, term_at,
+                      stream);
 }
 
 // out = {rows per block, shared bytes of one block, ring stages, blocks

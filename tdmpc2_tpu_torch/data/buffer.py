@@ -1,5 +1,5 @@
-"""Episode replay buffer (port of tdmpc2_tpu/data/buffer.py, the single-
-task state path).
+"""Episode replay buffer (port of tdmpc2_tpu/data/buffer.py, the state
+path, single- and multi-task).
 
 - Storage is a ring of whole episodes, tensors [capacity_eps, rows, ...]
   with rows = episode_length + 1: each episode keeps the reference's
@@ -14,9 +14,16 @@ task state path).
   (obs [H+1, B, ...], action [H, B, A], reward and terminated [H, B, 1]).
   `sample_many(n)` draws n*B slices at once and returns n batches with a
   leading n axis, for `TDMPC2.update_many`.
+- Multi-task data: an episode may carry its task index ('task', a scalar),
+  kept in a per-episode store; a batch then ends with each slice's task
+  (task [B], or [n, B] from `sample_many`), as the JAX buffer's does
+  (buffer.py:202-207, 327-328).
+- `reserve(n)` sizes the ring to an offline dataset before the first
+  write, and `load(episodes)` writes whole chunks of episodes at once
+  (JAX buffer.py:363-440; the reference's offline loading,
+  common/buffer.py:69-82).
 
-Pixel frame restacking, bulk `load`/`reserve` (offline datasets) and
-snapshots are later parts of the port.
+Pixel frame restacking and snapshots are later parts of the port.
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ class Buffer:
         self._num_eps = 0
         self._storage = None
         self._ep_rows = None
+        self._task_store = None
         self._generator = None
 
     @property
@@ -74,9 +82,19 @@ class Buffer:
     def num_eps(self) -> int:
         return self._num_eps
 
-    def _init_storage(self, ep: dict):
+    def reserve(self, n_episodes: int):
+        """Clamp the ring to `n_episodes` before the first write (offline
+        loading, JAX buffer.py:363-369): storage sized to the dataset rather
+        than to the config's cap."""
+        if self._storage is not None:
+            raise RuntimeError('reserve() must precede the first write')
+        self._capacity_eps = max(1, min(self._capacity_eps, int(n_episodes)))
+        self._capacity = self._capacity_eps * int(self.cfg.episode_length)
+
+    def _init_storage(self, ep: dict, has_task: bool = False):
         """Allocate the ring, sized by the first episode (reference
-        buffer.py:50-67)."""
+        buffer.py:50-67), and the per-episode task store when the data
+        carries tasks."""
         total = self._rows * self._capacity_eps * sum(
             v[0].nbytes for v in ep.values())
         store = self.device
@@ -93,17 +111,21 @@ class Buffer:
             for k, v in ep.items()}
         self._ep_rows = torch.zeros(self._capacity_eps, dtype=torch.long,
                                     device=store)
+        if has_task:
+            self._task_store = torch.zeros(self._capacity_eps,
+                                           dtype=torch.int32, device=store)
         self._generator = torch.Generator(device=store).manual_seed(
             self.cfg.seed + 0x5EED)
 
     def add(self, ep: dict) -> int:
         """Add one episode: a dict of [rows, ...] arrays (obs, action,
-        reward, terminated) and optionally 'valid_rows'. Shorter episodes
-        are zero-padded; one too short for a slice of horizon+1 rows is
-        dropped (torchrl's strict_length). Returns the episode count
-        (reference buffer.py:84-91)."""
+        reward, terminated) and optionally 'valid_rows' and a scalar 'task'.
+        Shorter episodes are zero-padded; one too short for a slice of
+        horizon+1 rows is dropped (torchrl's strict_length). Returns the
+        episode count (reference buffer.py:84-91)."""
         ep = dict(ep)
         valid_rows = int(ep.pop('valid_rows', ep['reward'].shape[0]))
+        task = ep.pop('task', None)
         if valid_rows < self._horizon + 1:
             return self._num_eps
         for k, v in ep.items():
@@ -115,20 +137,72 @@ class Buffer:
                            + [(0, 0)] * (v.ndim - 1))
             ep[k] = np.ascontiguousarray(v)
         if self._storage is None:
-            self._init_storage(ep)
+            self._init_storage(ep, task is not None)
         slot = self._num_eps % self._capacity_eps
         for k, v in self._storage.items():
             v[slot].copy_(torch.from_numpy(ep[k]))
         self._ep_rows[slot] = valid_rows
+        if self._task_store is not None:
+            self._task_store[slot] = int(task)
         self._num_eps += 1
+        return self._num_eps
+
+    def load(self, episodes: dict) -> int:
+        """Write a chunk of episodes at once (offline datasets; JAX
+        buffer.py:373-440): arrays [N, rows, ...], with optional 'task'
+        ([N], or [N, rows] whose column 0 is taken) and 'valid_rows' [N].
+        Episodes are zero-padded to the ring's rows; those too short for a
+        slice are dropped. Returns the episode count."""
+        episodes = dict(episodes)
+        task = episodes.pop('task', None)
+        valid = episodes.pop('valid_rows', None)
+        n = int(episodes['reward'].shape[0])
+        if task is not None:
+            task = np.asarray(task)
+            task = (task[:, 0] if task.ndim > 1 else task).astype(np.int32)
+        for k, v in episodes.items():
+            v = np.asarray(v)
+            if v.dtype == np.float64:
+                v = v.astype(np.float32)
+            if v.shape[1] < self._rows:
+                v = np.pad(v, [(0, 0), (0, self._rows - v.shape[1])]
+                           + [(0, 0)] * (v.ndim - 2))
+            episodes[k] = v
+        valid = (np.full(n, self._rows, np.int64) if valid is None
+                 else np.asarray(valid, np.int64))
+        keep = valid >= self._horizon + 1
+        if not keep.all():
+            episodes = {k: v[keep] for k, v in episodes.items()}
+            valid = valid[keep]
+            task = None if task is None else task[keep]
+            n = int(valid.shape[0])
+        if n == 0:
+            return self._num_eps
+        if self._storage is None:
+            self._init_storage({k: v[0] for k, v in episodes.items()},
+                               task is not None)
+        i = 0
+        while i < n:
+            slot = self._num_eps % self._capacity_eps
+            m = min(n - i, self._capacity_eps - slot)
+            for k, v in self._storage.items():
+                v[slot:slot + m].copy_(torch.from_numpy(
+                    np.ascontiguousarray(episodes[k][i:i + m])))
+            self._ep_rows[slot:slot + m].copy_(torch.from_numpy(valid[i:i + m]))
+            if self._task_store is not None:
+                self._task_store[slot:slot + m].copy_(
+                    torch.from_numpy(task[i:i + m]))
+            self._num_eps += m
+            i += m
         return self._num_eps
 
     def gather(self, ep_idx, start, n_batches: int = 1):
         """The slices (ep_idx[i], rows start[i] .. start[i]+H) in the
         update's layout, on the buffer's device: obs [H+1, B, ...], action
-        [H, B, A], reward and terminated [H, B, 1]; with n_batches > 1 the
-        slices are n batches of B, laid out [n, H(+1), B, ...]
-        (JAX `_to_batch_layout`, buffer.py:610-630)."""
+        [H, B, A], reward and terminated [H, B, 1], and on multi-task data
+        each slice's task (int32 [B]); with n_batches > 1 the slices are n
+        batches of B, laid out [n, H(+1), B, ...] (task [n, B]) (JAX
+        `_to_batch_layout`, buffer.py:610-630)."""
         T = self._horizon
         st = self._storage
         dev = st['obs'].device
@@ -142,13 +216,19 @@ class Buffer:
         terminated = (st['terminated'][ep_b, rows_act] if 'terminated' in st
                       else torch.zeros_like(reward))
         out = (obs, action, reward[..., None], terminated[..., None])
+        if self._task_store is None:
+            task = ()
+        else:
+            task = (self._task_store[ep_idx].reshape(n_batches, -1)
+                    .to(self.device),)
+            task = (task[0][0],) if n_batches == 1 else task
         if n_batches == 1:
             return tuple(x.transpose(0, 1).to(self.device).contiguous()
-                         for x in out)
+                         for x in out) + task
         # [n*B, T(+1), ...] -> [n, T(+1), B, ...]
         return tuple(
             x.reshape(n_batches, -1, *x.shape[1:]).transpose(1, 2)
-            .to(self.device).contiguous() for x in out)
+            .to(self.device).contiguous() for x in out) + task
 
     def sample(self):
         """A batch of batch_size slices of horizon+1 rows (reference

@@ -43,6 +43,11 @@ def normed_linear_init(gen, in_dim: int, out_dim: int):
     return p
 
 
+def embedding_init(gen, num: int, dim: int):
+    """Uniform(-0.02, 0.02), as reference init.py:10-11 (JAX layers.py:51)."""
+    return {'w': torch.rand(num, dim, generator=gen) * 0.04 - 0.02}
+
+
 def mlp_init(gen, in_dim: int, mlp_dims: Sequence[int], out_dim: int,
              final_normed: bool = False, zero_final: bool = False):
     """dims = [in] + mlp_dims + [out]; NormedLinear (Mish) layers, then a

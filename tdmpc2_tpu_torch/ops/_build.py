@@ -34,17 +34,19 @@ _PTRS, _INTS = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 # (library, function) -> argtypes; every function returns a cudaError_t as int
 SIGNATURES = {
     ('value', 'tdm_value'): (_PTRS, _INTS, _F, _F, _I, _I, _I, _P, _L, _L, _P,
-                             _L, _L, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P),
+                             _L, _L, _L, _P, _I, _P, _L, _P, _L, _P, _L, _P,
+                             _L, _P, _P, _P),
     ('value', 'tdm_value_sampled'): (_PTRS, _INTS, _F, _F, _I, _I, _I, _P, _L, _L,
-                                     _P, _L, _P, _L, _P, _L, _P, _L, _P, _I, _P,
-                                     _P, _L, _P, _L, _P, _L, _P, _P, _P),
+                                     _P, _L, _P, _L, _P, _L, _P, _L, _I, _P,
+                                     _P, _I, _P, _L, _P, _L, _P, _L, _P, _L,
+                                     _P, _P, _P),
     ('value', 'tdm_value_plan'): (_INTS, _INTS),
     ('cem', 'tdm_pi_rollout_plan'): (_INTS, _INTS),
     ('rollout', 'tdm_rollout_plan'): (_INTS, _INTS),
     ('cem', 'tdm_pi_rollout'): (_PTRS, _INTS, _F, _F, _I, _I, _P, _L, _P, _L,
-                                _P, _P),
-    ('cem', 'tdm_elite'): (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P,
-                           _P, _P),
+                                _P, _I, _P, _L, _P, _P),
+    ('cem', 'tdm_elite'): (_P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+                           _P, _P, _P),
     ('rollout', 'tdm_rollout'): (_PTRS, _INTS, _I, _P, _L, _P, _L, _L, _P,
                                  _P, _P, _P),
     ('probe', 'tdm_probe'): (_P, _P, _L, _P),

@@ -22,11 +22,19 @@ chains the plain versions. All noise is input, laid out as for
 `cem_prepared` with a leading env axis N (N=1 for one env): z0 [N, 1, L];
 pi_eps [N, n_pi, H*A]; noise [N, I, S, H*A] (rows below n_pi unused); eps
 [N, I, S, A]; qidx [N, I, 2] int32; discs [N, H+1]; mean0/std0 [N, H*A];
-amask [A]; returns (mean [N, H*A], std [N, H*A], value [N, S, 1] of the
-last iteration, NaN-guarded, and its actions [N, S, H*A]). With
-`episodic=True` the value step applies the termination gate
-(pallas_cem.py:161-172, 190-191; ops/value.py); the policy-prior rollouts
-have none, as in the TPU kernel.
+amask [A] (every env) or [N, A]; task int32 [N] or None; returns (mean
+[N, H*A], std [N, H*A], value [N, S, 1] of the last iteration,
+NaN-guarded, and its actions [N, S, H*A]). With `episodic=True` the value
+step applies the termination gate (pallas_cem.py:161-172, 190-191;
+ops/value.py); the policy-prior rollouts have none, as in the TPU kernel.
+
+The envs may be the tasks of a multi-task model (the task axis of
+ops/value.py): each env's `task` id picks its first-layer bias rows, and
+its `amask` row masks the policy's mean and eps in the rollouts and the
+terminal value, the sampled actions, and the new mean and std, where the
+JAX planner masks the actions, the mean and the std
+(tdmpc2_tpu/tdmpc2.py:652-671). N tasks plan in the same 1 + 2 x
+iterations launches as one.
 """
 
 from __future__ import annotations
@@ -36,10 +44,11 @@ import ctypes
 import torch
 
 from tdmpc2_tpu_torch.ops import _build
-from tdmpc2_tpu_torch.ops.value import (check_prep, dynamics_plain,
-                                        pi_head_plain, prep_dims,
+from tdmpc2_tpu_torch.ops.value import (check_prep, dynamics_plain, mask_rows,
+                                        pi_action_plain, pi_head_plain,
+                                        prep_dims,
                                         sample_actions_plain,  # noqa: F401
-                                        value_sampled,
+                                        task_operands, value_sampled,
                                         value_sampled_plain, weight_ptrs)
 
 _F32_HUGE = 3.0e38  # finite-value guard (nan_to_num semantics)
@@ -63,29 +72,34 @@ def _stream(dev):
 
 
 def pi_rollout_plain(prep, z0, pi_eps, *, log_std_min: float,
-                     log_std_dif: float, simnorm_dim: int = 8):
-    """z0 [N, 1, L]; pi_eps [N, n_pi, H*A] -> actions [N, n_pi, H*A]."""
+                     log_std_dif: float, simnorm_dim: int = 8, task=None,
+                     amask=None):
+    """z0 [N, 1, L]; pi_eps [N, n_pi, H*A]; task [N] or None; amask [A],
+    [N, A] or None (ones) -> actions [N, n_pi, H*A]."""
     A = prep['pWm'].shape[1]
     HA = pi_eps.shape[-1]
     z = z0.float().expand(*pi_eps.shape[:-1], z0.shape[-1])
+    m = 1.0 if amask is None else mask_rows(amask, A)
     out = []
     for t in range(HA // A):
-        mean, ls = pi_head_plain(prep, z, log_std_min, log_std_dif)
-        a = torch.tanh(mean + pi_eps[..., t * A:(t + 1) * A] * torch.exp(ls))
+        mean, ls = pi_head_plain(prep, z, log_std_min, log_std_dif, task)
+        a = pi_action_plain(mean, ls, pi_eps[..., t * A:(t + 1) * A], m)
         out.append(a)
-        z = dynamics_plain(prep, z, a, simnorm_dim)
+        z = dynamics_plain(prep, z, a, simnorm_dim, task)
     return torch.cat(out, dim=-1)
 
 
 def pi_rollout(prep, z0, pi_eps, *, log_std_min: float, log_std_dif: float,
-               simnorm_dim: int = 8):
+               simnorm_dim: int = 8, task=None, amask=None):
     """The pi-rollout kernel on CUDA tensors, the plain version on CPU.
-    pi_eps rows contiguous; any stride on the env axes."""
+    pi_eps rows contiguous; any stride on the env axes. `task` (int32 [N])
+    and `amask` ([A] or [N, A]) as for ops/value.py `value_estimate`."""
     dev = z0.device
     if dev.type == 'cpu':
         return pi_rollout_plain(prep, z0, pi_eps, log_std_min=log_std_min,
                                 log_std_dif=log_std_dif,
-                                simnorm_dim=simnorm_dim)
+                                simnorm_dim=simnorm_dim, task=task,
+                                amask=amask)
     if dev.type != 'cuda':
         raise ValueError(f'pi_rollout: unsupported device {dev}')
     check_prep(prep, dev, simnorm_dim)
@@ -99,12 +113,13 @@ def pi_rollout(prep, z0, pi_eps, *, log_std_min: float, log_std_dif: float,
         raise ValueError(f'pi_rollout: z0 {tuple(z0.shape)} / pi_eps '
                          f'{tuple(pi_eps.shape)} do not fit L={L}, A={A} '
                          'with contiguous rows')
+    tk = task_operands('pi_rollout', prep, task, amask, N, dev, False)
     out = torch.empty(N, n_pi, HA, dtype=torch.float32, device=dev)
     lib = _build.library('cem')
     dims = (ctypes.c_int * 7)(*prep_dims(prep, simnorm_dim, HA // A))
     rc = lib.tdm_pi_rollout(weight_ptrs(prep), dims, log_std_min, log_std_dif,
                             N, n_pi, z0.data_ptr(), z0.stride(0),
-                            pi_eps.data_ptr(), pi_eps.stride(0),
+                            pi_eps.data_ptr(), pi_eps.stride(0), *tk,
                             out.data_ptr(), _stream(dev))
     _build.check(lib, rc, 'pi_rollout kernel', dims)
     pi_rollout.launches += 1
@@ -121,9 +136,9 @@ pi_rollout.launches = 0
 
 def elite_moments_plain(value, acts, amask, *, num_elites: int,
                         temperature: float, min_std: float, max_std: float):
-    """value [N, S] or [N, S, 1]; acts [N, S, H*A]; amask [A]
-    -> (mean [N, H*A], std [N, H*A], guarded value [N, S]), each env on
-    its own.
+    """value [N, S] or [N, S, 1]; acts [N, S, H*A]; amask [A] (every env)
+    or [N, A] -> (mean [N, H*A], std [N, H*A], guarded value [N, S]), each
+    env on its own.
 
     The E-th largest value is found by 32-step bisection; the weight left
     over at the boundary is shared by the values tied there, so distinct
@@ -154,7 +169,8 @@ def elite_moments_plain(value, acts, amask, *, num_elites: int,
     mean = (score * acts).sum(-2) / denom
     std = torch.sqrt((score * (acts - mean[:, None]) ** 2).sum(-2) / denom)
     std = torch.clamp(std, min_std, max_std)
-    mask = amask.repeat(HA // amask.shape[0])
+    A = amask.shape[-1]
+    mask = mask_rows(amask, A)[:, 0].repeat(1, HA // A)
     return mean * mask, std * mask, v
 
 
@@ -172,15 +188,16 @@ def elite_moments(value, acts, amask, *, num_elites: int, temperature: float,
         raise ValueError(f'elite_moments: unsupported device {dev}')
     _cuda_operands('elite_moments', dev, value, acts, amask)
     N, S, HA = acts.shape
-    A = amask.shape[0]
-    if value.numel() != N * S or HA % A or not 0 < num_elites <= S:
+    A = amask.shape[-1]
+    if (value.numel() != N * S or HA % A or not 0 < num_elites <= S
+            or amask.numel() not in (A, N * A)):
         raise ValueError('elite_moments: shapes do not agree')
     v_out = torch.empty(N, S, dtype=torch.float32, device=dev)
     mean = torch.empty(N, HA, dtype=torch.float32, device=dev)
     std = torch.empty(N, HA, dtype=torch.float32, device=dev)
     lib = _build.library('cem')
     rc = lib.tdm_elite(value.data_ptr(), acts.data_ptr(), amask.data_ptr(),
-                       N, S, HA, A, num_elites, temperature, min_std, max_std,
+                       A if amask.dim() == 2 else 0, N, S, HA, A, num_elites, temperature, min_std, max_std,
                        v_out.data_ptr(), mean.data_ptr(), std.data_ptr(),
                        _stream(dev))
     if rc == _build.NO_PLAN:
@@ -201,7 +218,8 @@ elite_moments.launches = 0
 
 def _cem_loop(steps, prep, z0, pi_eps, noise, eps, qidx, discs, mean0, std0,
               amask, *, iterations, n_pi, num_elites, temperature, min_std,
-              max_std, log_std_min, log_std_dif, simnorm_dim, episodic=False):
+              max_std, log_std_min, log_std_dif, simnorm_dim, episodic=False,
+              task=None):
     pi_roll, value, elite = steps
     N, I, S, HA = noise.shape
     H = discs.shape[-1] - 1
@@ -209,14 +227,14 @@ def _cem_loop(steps, prep, z0, pi_eps, noise, eps, qidx, discs, mean0, std0,
     if not 1 <= iterations <= I:
         raise ValueError(f'{iterations} iterations with noise for {I}')
     heads = dict(log_std_min=log_std_min, log_std_dif=log_std_dif,
-                 simnorm_dim=simnorm_dim)
+                 simnorm_dim=simnorm_dim, task=task)
+    amask = amask.reshape(A) if amask.numel() == A else amask.reshape(N, A)
     if n_pi > 0:
-        pi_acts = pi_roll(prep, z0, pi_eps[:, :n_pi], **heads)
+        pi_acts = pi_roll(prep, z0, pi_eps[:, :n_pi], amask=amask, **heads)
     else:
         pi_acts = noise.new_zeros(N, 0, HA)
     z = z0.expand(N, S, z0.shape[-1])
     mean, std = mean0.reshape(N, HA), std0.reshape(N, HA)
-    amask = amask.reshape(A)
     for it in range(iterations):
         v, acts = value(prep, z, mean, std, noise[:, it], pi_acts, amask,
                         eps[:, it], qidx[:, it], discs, episodic=episodic,

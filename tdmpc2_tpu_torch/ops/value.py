@@ -1,7 +1,8 @@
 """Planner value estimate: the port of the TPU kernel `_value_kernel`
 (tdmpc2_tpu/ops/pallas_rollout.py:437, entry `value_prepared` :688) and of
-its weight prep `prepare_value_params` (:538-632), single-task, for N
-environments at once (the TPU kernel's env axis, `_value_flat` :635).
+its weight prep `prepare_value_params` (:538-632), for N environments at
+once (the TPU kernel's env axis, `_value_flat` :635), single- and
+multi-task.
 
 `value_estimate` runs the hand-written kernel `csrc/value.cu` on CUDA
 tensors and `value_estimate_plain` on CPU tensors; on any other device it
@@ -19,6 +20,20 @@ becomes term_{t+1} = min(term_t + (logit(z_{t+1}) > 0), 1), the
 termination head's logit on the new latent (pallas_rollout.py:503-510);
 otherwise term stays 0. The TPU kernel's block-diagonal mask product for
 SimNorm is not carried over: the grouped softmax is computed directly.
+
+Task axis. A multi-task model concatenates a task embedding to the input
+of every head. The embedding is constant for a task, so the prep folds its
+product into the first-layer bias of the dynamics, reward, termination,
+pi and every Q head, as the JAX prep does for one task (`fold`,
+pallas_rollout.py:575-588), but for all tasks at once: each such bias is a
+table with a row per task, [tasks, M] ([tasks, num_q, M] for the Q heads),
+and the matrices keep only their latent and action rows, shared by every
+task. The wrappers take an int32 task id per env (`task` [N]; None: task 0)
+and an action mask per env (`amask` [N, A], or [A] for every env). Where
+the JAX prep folds the mask into the pi mean head's columns, the port
+multiplies the head's mean and eps by it (exact for a mask of 0s and 1s:
+the masked action is 0 either way, at most its sign differs). A
+single-task model is the one-row table, task 0, with a mask of ones.
 
 `value_sampled` is the planner's step: the same value, on actions that the
 kernel samples where it stages them, as the TPU kernel `_cem_kernel`
@@ -148,24 +163,42 @@ def _casts(dot_dtype):
     return w, f
 
 
+def _fold(W, b, L: int, emb):
+    """The first-layer bias table of a layer whose input rows are
+    [latent (L) | task embedding (dt) | rest]: b + emb @ W[L:L+dt] for each
+    task's embedding row of `emb` [tasks, dt] -> [tasks, out] (a leading Q
+    head axis of W and b goes after the task axis); emb None: b with a task
+    axis of one."""
+    if emb is None:
+        return b[None]
+    dt = emb.shape[-1]
+    return b + torch.einsum('td,...do->t...o', emb, W[..., L:L + dt, :])
+
+
 def prepare_rollout_params(dyn, rew, latent_dim: int, vmin: float,
-                           vmax: float, dot_dtype=torch.bfloat16) -> dict:
+                           vmax: float, dot_dtype=torch.bfloat16,
+                           emb=None) -> dict:
     """The rollout's operands (keys ROLLOUT_NAMES) from the dynamics and
     reward MLP parameter tuples: each first layer split into its latent and
     action rows, matrices in `dot_dtype` (bf16 for the kernels, f32 for an
-    exact plain reference), the rest f32, all contiguous."""
+    exact plain reference), the rest f32, all contiguous. The first-layer
+    biases are tables with a row per task of `emb` ([tasks, dt], the
+    renormed task embeddings; None: one row)."""
     L = latent_dim
+    dt = 0 if emb is None else emb.shape[-1]
     w, f = _casts(dot_dtype)
     B = rew[2]['w'].shape[-1]
     return _add_packed({
-        'dWz': w(dyn[0]['w'][:L]), 'dWa': w(dyn[0]['w'][L:]),
-        'db0': f(dyn[0]['b']), 'dg0': f(dyn[0]['ln_w']), 'de0': f(dyn[0]['ln_b']),
+        'dWz': w(dyn[0]['w'][:L]), 'dWa': w(dyn[0]['w'][L + dt:]),
+        'db0': f(_fold(dyn[0]['w'], dyn[0]['b'], L, emb)),
+        'dg0': f(dyn[0]['ln_w']), 'de0': f(dyn[0]['ln_b']),
         'dW1': w(dyn[1]['w']), 'db1': f(dyn[1]['b']),
         'dg1': f(dyn[1]['ln_w']), 'de1': f(dyn[1]['ln_b']),
         'dW2': w(dyn[2]['w']), 'db2': f(dyn[2]['b']),
         'dg2': f(dyn[2]['ln_w']), 'de2': f(dyn[2]['ln_b']),
-        'rWz': w(rew[0]['w'][:L]), 'rWa': w(rew[0]['w'][L:]),
-        'rb0': f(rew[0]['b']), 'rg0': f(rew[0]['ln_w']), 're0': f(rew[0]['ln_b']),
+        'rWz': w(rew[0]['w'][:L]), 'rWa': w(rew[0]['w'][L + dt:]),
+        'rb0': f(_fold(rew[0]['w'], rew[0]['b'], L, emb)),
+        'rg0': f(rew[0]['ln_w']), 're0': f(rew[0]['ln_b']),
         'rW1': w(rew[1]['w']), 'rb1': f(rew[1]['b']),
         'rg1': f(rew[1]['ln_w']), 're1': f(rew[1]['ln_b']),
         'rW2': w(rew[2]['w']), 'rb2': f(rew[2]['b']),
@@ -181,22 +214,27 @@ def prepare_value_params(params, cfg, dot_dtype=torch.bfloat16) -> dict:
     plain reference), everything else stays f32; all contiguous, on the
     params' device. Keys are PREP_NAMES, the termination head's
     (TERM_NAMES) only when cfg.episodic; a bf16 prep also holds the
-    kernels' packed matrices (PACKED).
+    kernels' packed matrices (PACKED). The first-layer biases (db0, rb0,
+    pb0, qb0, tb0) are tables with a row per task (cfg.tasks when
+    cfg.multitask, else one): the module docstring's task axis.
     """
     L, A = cfg.latent_dim, cfg.action_dim
     pi, qs = params['pi'], params['Qs']
     w, f = _casts(dot_dtype)
+    emb = task_embeddings(params) if getattr(cfg, 'multitask', False) else None
+    dt = 0 if emb is None else emb.shape[-1]
     prep = prepare_rollout_params(params['dynamics'], params['reward'], L,
-                                  cfg.vmin, cfg.vmax, dot_dtype)
+                                  cfg.vmin, cfg.vmax, dot_dtype, emb)
     prep.update({
-        'pW0': w(pi[0]['w']), 'pb0': f(pi[0]['b']),
+        'pW0': w(pi[0]['w'][:L]), 'pb0': f(_fold(pi[0]['w'], pi[0]['b'], L, emb)),
         'pg0': f(pi[0]['ln_w']), 'pe0': f(pi[0]['ln_b']),
         'pW1': w(pi[1]['w']), 'pb1': f(pi[1]['b']),
         'pg1': f(pi[1]['ln_w']), 'pe1': f(pi[1]['ln_b']),
         'pWm': w(pi[2]['w'][:, :A]), 'pbm': f(pi[2]['b'][:A]),
         'pWl': w(pi[2]['w'][:, A:]), 'pbl': f(pi[2]['b'][A:]),
-        'qWz': w(qs[0]['w'][:, :L]), 'qWa': w(qs[0]['w'][:, L:]),
-        'qb0': f(qs[0]['b']), 'qg0': f(qs[0]['ln_w']), 'qe0': f(qs[0]['ln_b']),
+        'qWz': w(qs[0]['w'][:, :L]), 'qWa': w(qs[0]['w'][:, L + dt:]),
+        'qb0': f(_fold(qs[0]['w'], qs[0]['b'], L, emb)),
+        'qg0': f(qs[0]['ln_w']), 'qe0': f(qs[0]['ln_b']),
         'qW1': w(qs[1]['w']), 'qb1': f(qs[1]['b']),
         'qg1': f(qs[1]['ln_w']), 'qe1': f(qs[1]['ln_b']),
         'qW2': w(qs[2]['w']), 'qb2': f(qs[2]['b']),
@@ -205,7 +243,8 @@ def prepare_value_params(params, cfg, dot_dtype=torch.bfloat16) -> dict:
         # the first layer reads the latent only: no action rows to split
         trm = params['termination']
         prep.update({
-            'tW0': w(trm[0]['w']), 'tb0': f(trm[0]['b']),
+            'tW0': w(trm[0]['w'][:L]),
+            'tb0': f(_fold(trm[0]['w'], trm[0]['b'], L, emb)),
             'tg0': f(trm[0]['ln_w']), 'te0': f(trm[0]['ln_b']),
             'tW1': w(trm[1]['w']), 'tb1': f(trm[1]['b']),
             'tg1': f(trm[1]['ln_w']), 'te1': f(trm[1]['ln_b']),
@@ -213,6 +252,19 @@ def prepare_value_params(params, cfg, dot_dtype=torch.bfloat16) -> dict:
         })
     return _add_packed({k: prep[k] for k in (*PREP_NAMES, *PACKED)
                         if k in prep}, dot_dtype)
+
+
+def task_embeddings(params):
+    """Every task's embedding row with the lookup's max_norm=1 renorm
+    (models/world_model.py `task_emb`) -> [tasks, task_dim]."""
+    emb = params['task_emb']['w']
+    norm = torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
+    return emb * torch.clamp(1.0 / torch.clamp(norm, min=1e-12), max=1.0)
+
+
+def num_tasks(prep) -> int:
+    """Rows of the prep's first-layer bias tables: the tasks it folds."""
+    return prep['db0'].shape[0]
 
 
 def prep_dims(prep, simnorm_dim: int, horizon: int) -> tuple:
@@ -265,55 +317,83 @@ def _two_hot_dec(logits, bins):
     return torch.sign(x) * torch.expm1(torch.abs(x))
 
 
-def _hidden2(x, p, pre):
-    """Two NormedLinear+Mish layers of head `pre` ('d', 'r', 'p', 'q').
-    The first layer's product (without its bias) is given as `x`."""
+def bias0(p, name: str, task=None):
+    """First-layer bias `name` (db0, rb0, pb0, tb0, qb0) of each env's
+    task: the table's row 0 when `task` is None (broadcasts over any
+    leading axes), else rows `task` [N] as [N, 1, ...] (over an env axis N
+    and a row axis)."""
+    t = p[name]
+    if task is None:
+        return t[0]
+    return t.index_select(0, task.long())[:, None]
+
+
+def mask_rows(amask, A: int):
+    """An action mask [A] (every env) or [N, A] (one row per env) as
+    [1 or N, 1, A], to multiply [N, rows, A] tensors."""
+    return amask.reshape(-1, A)[:, None]
+
+
+def _hidden2(x, p, pre, b0):
+    """Two NormedLinear+Mish layers of head `pre` ('d', 'r', 'p', 'q', 't').
+    The first layer's product (without its bias) is given as `x`, its bias
+    as `b0`."""
     def g(name):
         return p[pre + name]
-    u = mish(layer_norm(x + g('b0'), g('g0'), g('e0')))
+    u = mish(layer_norm(x + b0, g('g0'), g('e0')))
     u = _dot(u, g('W1')) + g('b1')
     return mish(layer_norm(u, g('g1'), g('e1')))
 
 
-def dynamics_plain(p, z, a, simnorm_dim: int):
-    u = _hidden2(_dot(z, p['dWz']) + _dot(a, p['dWa']), p, 'd')
+def dynamics_plain(p, z, a, simnorm_dim: int, task=None):
+    u = _hidden2(_dot(z, p['dWz']) + _dot(a, p['dWa']), p, 'd',
+                 bias0(p, 'db0', task))
     u = layer_norm(_dot(u, p['dW2']) + p['db2'], p['dg2'], p['de2'])
     return simnorm(u, simnorm_dim)
 
 
-def pi_head_plain(p, z, log_std_min: float, log_std_dif: float):
-    """(mean, log_std) of the policy prior on z."""
-    u = _hidden2(_dot(z, p['pW0']), p, 'p')
+def pi_head_plain(p, z, log_std_min: float, log_std_dif: float, task=None):
+    """(mean, log_std) of the policy prior on z, before the action mask."""
+    u = _hidden2(_dot(z, p['pW0']), p, 'p', bias0(p, 'pb0', task))
     mean = _dot(u, p['pWm']) + p['pbm']
     ls = _dot(u, p['pWl']) + p['pbl']
     return mean, log_std_min + 0.5 * log_std_dif * (torch.tanh(ls) + 1.0)
 
 
-def termination_logit_plain(p, z):
+def pi_action_plain(mean, ls, eps, mask):
+    """tanh(mean + eps * exp(ls)) with mean and eps times the action mask
+    (broadcast against them): a masked column gives 0."""
+    return torch.tanh(mean * mask + (eps * mask) * torch.exp(ls))
+
+
+def termination_logit_plain(p, z, task=None):
     """The termination head's logit on z [..., L] -> [..., 1]."""
-    u = _hidden2(_dot(z, p['tW0']), p, 't')
+    u = _hidden2(_dot(z, p['tW0']), p, 't', bias0(p, 'tb0', task))
     return _dot(u, p['tW2']) + p['tb2']
 
 
-def _rollout(p, z0, actions, discs, simnorm_dim, episodic, logits=None):
+def _rollout(p, z0, actions, discs, simnorm_dim, episodic, logits=None,
+             task=None):
     """(G, z_H, term_H, term_at) of the module docstring; term is None
     unless `episodic`, and term_at [..., S] int32 is the step 1..H at which
     a row's flag was set, or 0. Each step's logit is appended to `logits`
-    when that is a list."""
+    when that is a list. `task` [N] picks each env's bias rows (z0
+    [N, S, L])."""
     z = z0.float()
     G = torch.zeros(z.shape[:-1] + (1,), dtype=torch.float32, device=z.device)
     term = torch.zeros_like(G) if episodic else None
     term_at = torch.zeros(z.shape[:-1], dtype=torch.int32, device=z.device)
+    rb0 = bias0(p, 'rb0', task)
     for t in range(actions.shape[0]):
         a = actions[t]
-        u = _hidden2(_dot(z, p['rWz']) + _dot(a, p['rWa']), p, 'r')
+        u = _hidden2(_dot(z, p['rWz']) + _dot(a, p['rWa']), p, 'r', rb0)
         r = _two_hot_dec(_dot(u, p['rW2']) + p['rb2'], p['bins'])
         if episodic:
             r = (1.0 - term) * r
         G = G + discs[t] * r
-        z = dynamics_plain(p, z, a, simnorm_dim)
+        z = dynamics_plain(p, z, a, simnorm_dim, task)
         if episodic:
-            logit = termination_logit_plain(p, z)
+            logit = termination_logit_plain(p, z, task)
             if logits is not None:
                 logits.append(logit[..., 0])
             hit = (logit > 0.0).float()
@@ -323,15 +403,16 @@ def _rollout(p, z0, actions, discs, simnorm_dim, episodic, logits=None):
     return G, z, term, term_at
 
 
-def termination_trace_plain(prep, z0, actions, discs, simnorm_dim: int = 8):
+def termination_trace_plain(prep, z0, actions, discs, simnorm_dim: int = 8,
+                            task=None):
     """The plain value step's termination logits and flags: z0 [N, S, L];
-    actions [N, H, S, A]; discs [N, H+1] -> (logits [N, H, S] of the new
-    latent at steps 1..H, term_at [N, S] int32: the step at which a row's
-    sticky flag was set, or 0)."""
+    actions [N, H, S, A]; discs [N, H+1]; task [N] or None -> (logits
+    [N, H, S] of the new latent at steps 1..H, term_at [N, S] int32: the
+    step at which a row's sticky flag was set, or 0)."""
     logits = []
     _, _, _, term_at = _rollout(prep, z0, actions.transpose(0, 1),
                                 discs.T[..., None, None], simnorm_dim, True,
-                                logits)
+                                logits, task)
     return torch.stack(logits, dim=1), term_at
 
 
@@ -346,28 +427,36 @@ def rollout_plain(prep, z0, actions, discs, simnorm_dim: int = 8):
 def value_estimate_plain(prep, z0, actions, eps, qidx, discs, *,
                          log_std_min: float, log_std_dif: float,
                          simnorm_dim: int = 8, episodic: bool = False,
-                         term_at=None):
+                         term_at=None, task=None, amask=None):
     """z0 [N, S, L]; actions [N, H, S, A]; eps [N, S, A]; qidx [N, 2] int;
     discs [N, H+1] -> value [N, S, 1], each env with its own Q heads and
     discounts (N=1 for one env); `episodic` gates by the termination
     head, whose weights `prep` must then hold. `term_at` [N, S] int32, if
-    given, receives the step 1..H at which each row's flag was set, or 0."""
+    given, receives the step 1..H at which each row's flag was set, or 0.
+    `task` [N] int (None: task 0) picks each env's first-layer bias rows;
+    `amask` ([A] or [N, A]; None: ones) masks the terminal policy."""
     p = prep
     H = actions.shape[1]
     G, z, term, at = _rollout(p, z0, actions.transpose(0, 1),
-                              discs.T[..., None, None], simnorm_dim, episodic)
+                              discs.T[..., None, None], simnorm_dim, episodic,
+                              task=task)
     if term_at is not None:
         term_at.copy_(at)
-    mean, ls = pi_head_plain(p, z, log_std_min, log_std_dif)
-    a = torch.tanh(mean + eps * torch.exp(ls))
+    mean, ls = pi_head_plain(p, z, log_std_min, log_std_dif, task)
+    m = 1.0 if amask is None else mask_rows(amask, mean.shape[-1])
+    a = pi_action_plain(mean, ls, eps, m)
+    qb0 = p['qb0'][0] if task is None else p['qb0'].index_select(0, task.long())
     q = 0.0
     for j in range(2):
         # each env's head, picked on the device (no host read of qidx):
         # matrices [N, K, M], vectors [N, 1, M]
         i = qidx[:, j].long()
-        h = {k: torch.index_select(p[k], 0, i) for k in PREP_NAMES if k[0] == 'q'}
+        h = {k: torch.index_select(p[k], 0, i) for k in PREP_NAMES
+             if k[0] == 'q' and k != 'qb0'}
         h = {k: v if k[1] == 'W' else v[:, None] for k, v in h.items()}
-        u = _hidden2(_dot(z, h['qWz']) + _dot(a, h['qWa']), h, 'q')
+        b0 = (qb0.index_select(0, i) if task is None
+              else qb0[torch.arange(len(i), device=i.device), i])[:, None]
+        u = _hidden2(_dot(z, h['qWz']) + _dot(a, h['qWa']), h, 'q', b0)
         q = q + _two_hot_dec(_dot(u, h['qW2']) + h['qb2'], p['bins'])
     q = q / 2.0
     if episodic:
@@ -377,23 +466,25 @@ def value_estimate_plain(prep, z0, actions, eps, qidx, discs, *,
 
 def sample_actions_plain(mean, std, noise, pi_acts, amask):
     """mean/std [N, H*A]; noise [N, S, H*A]; pi_acts [N, n_pi, H*A];
-    amask [A] -> actions [N, S, H*A]."""
+    amask [A] or [N, A] -> actions [N, S, H*A]."""
     n_pi = pi_acts.shape[1]
     acts = torch.clamp(mean[:, None] + std[:, None] * noise, -1.0, 1.0)
     if n_pi:
         acts = torch.cat([pi_acts, acts[:, n_pi:]], dim=1)
-    return acts * amask.repeat(mean.shape[-1] // amask.shape[0])
+    A = amask.shape[-1]
+    return acts * mask_rows(amask, A).repeat(1, 1, mean.shape[-1] // A)
 
 
 def value_sampled_plain(prep, z0, mean, std, noise, pi_acts, amask, eps, qidx,
                         discs, **kw):
     """`sample_actions_plain`, then `value_estimate_plain` on its actions
-    (keywords as there) -> (value [N, S, 1], actions [N, S, H*A])."""
+    with the same mask (keywords as there) -> (value [N, S, 1], actions
+    [N, S, H*A])."""
     acts = sample_actions_plain(mean, std, noise, pi_acts, amask)
     N, S, HA = acts.shape
     H = discs.shape[-1] - 1
     v = value_estimate_plain(prep, z0, acts.view(N, S, H, HA // H).permute(0, 2, 1, 3),
-                             eps, qidx, discs, **kw)
+                             eps, qidx, discs, amask=amask, **kw)
     return v, acts
 
 
@@ -457,9 +548,35 @@ def _check_operands(name, prep, z0, eps, qidx, discs, N, S, simnorm_dim,
     return dev, H
 
 
+def task_operands(name, prep, task, amask, N: int, dev, need_mask: bool):
+    """The task axis's kernel operands: (task pointer or None, the number of
+    tasks, amask pointer or None, amask's env stride). `task` is an int32
+    [N] tensor or None (task 0); `amask` an f32 [A] tensor (every env,
+    stride 0), [N, A] with contiguous rows, or None (ones; refused when
+    `need_mask`)."""
+    A = prep['dWa'].shape[0]
+    if task is not None and (task.device != dev or task.dtype != torch.int32
+                             or tuple(task.shape) != (N,)
+                             or not task.is_contiguous()):
+        raise ValueError(f'{name}: task must be a contiguous int32 ({N},) '
+                         f'tensor on {dev}')
+    if amask is None:
+        if need_mask:
+            raise ValueError(f'{name}: amask is required')
+        return (None if task is None else task.data_ptr(), num_tasks(prep),
+                None, 0)
+    if (amask.device != dev or amask.dtype != torch.float32
+            or tuple(amask.shape) not in ((A,), (N, A)) or amask.stride(-1) != 1):
+        raise ValueError(f'{name}: amask must be an f32 ({A},) or ({N}, {A}) '
+                         f'tensor on {dev} with contiguous rows')
+    return (None if task is None else task.data_ptr(), num_tasks(prep),
+            amask.data_ptr(), amask.stride(0) if amask.dim() == 2 else 0)
+
+
 def value_estimate(prep, z0, actions, eps, qidx, discs, *,
                    log_std_min: float, log_std_dif: float,
-                   simnorm_dim: int = 8, episodic: bool = False, term_at=None):
+                   simnorm_dim: int = 8, episodic: bool = False, term_at=None,
+                   task=None, amask=None):
     """The value kernel on CUDA tensors, its plain version on CPU tensors.
 
     N envs in one launch (N=1 for one env): z0 [N, S, L] f32; actions
@@ -470,7 +587,9 @@ def value_estimate(prep, z0, actions, eps, qidx, discs, *,
     rows contiguous. `episodic` needs the termination head's weights in
     `prep`. `term_at`, a contiguous int32 [N, S] tensor or None, receives
     the step 1..H at which each row's termination flag was set, or 0 (for
-    checks of the gate).
+    checks of the gate). `task` (int32 [N], or None for task 0) and `amask`
+    (f32 [A] or [N, A], or None for ones) are the task axis of the module
+    docstring.
     """
     if episodic and any(k not in prep for k in TERM_NAMES):
         raise ValueError('value_estimate: episodic=True needs the termination '
@@ -479,7 +598,7 @@ def value_estimate(prep, z0, actions, eps, qidx, discs, *,
         return value_estimate_plain(
             prep, z0, actions, eps, qidx, discs, log_std_min=log_std_min,
             log_std_dif=log_std_dif, simnorm_dim=simnorm_dim,
-            episodic=episodic, term_at=term_at)
+            episodic=episodic, term_at=term_at, task=task, amask=amask)
     if actions.dim() != 4:
         raise ValueError(f'value_estimate: actions {tuple(actions.shape)} '
                          'must be [N, H, S, A] with z0 [N, S, L]')
@@ -492,6 +611,7 @@ def value_estimate(prep, z0, actions, eps, qidx, discs, *,
         raise ValueError(f'value_estimate: actions {tuple(actions.shape)} must be '
                          f'f32 on {dev} with unit inner stride and fit the weights '
                          f'(A={prep["dWa"].shape[0]}) and discs')
+    tk = task_operands('value_estimate', prep, task, amask, N, dev, False)
     out = torch.empty(N, S, 1, dtype=torch.float32, device=dev)
     lib = _build.library('value')
     dims = (ctypes.c_int * 7)(*prep_dims(prep, simnorm_dim, H))
@@ -499,7 +619,7 @@ def value_estimate(prep, z0, actions, eps, qidx, discs, *,
         weight_ptrs(prep), dims, log_std_min, log_std_dif, int(episodic), N, S,
         z0.data_ptr(), z0.stride(0), z0.stride(1),
         actions.data_ptr(), actions.stride(0), actions.stride(1),
-        actions.stride(2), eps.data_ptr(), eps.stride(0), qidx.data_ptr(),
+        actions.stride(2), *tk, eps.data_ptr(), eps.stride(0), qidx.data_ptr(),
         qidx.stride(0), discs.data_ptr(), discs.stride(0), out.data_ptr(),
         None if term_at is None else term_at.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -513,21 +633,24 @@ value_estimate.launches = 0
 
 def value_sampled(prep, z0, mean, std, noise, pi_acts, amask, eps, qidx, discs,
                   *, log_std_min: float, log_std_dif: float,
-                  simnorm_dim: int = 8, episodic: bool = False, term_at=None):
+                  simnorm_dim: int = 8, episodic: bool = False, term_at=None,
+                  task=None):
     """The planner's step: the value kernel in its sampled mode on CUDA
     tensors, `value_sampled_plain` on CPU tensors.
 
     mean/std [N, H*A] f32; noise [N, S, H*A] f32 (rows below n_pi unused);
-    pi_acts [N, n_pi, H*A] f32, n_pi <= S; amask [A] f32; the rest as for
-    `value_estimate` -> (value [N, S, 1], actions [N, S, H*A]), the actions
-    the module docstring gives, bit for bit as `sample_actions_plain`'s.
-    Any stride on the env axes; rows and the last axis contiguous.
+    pi_acts [N, n_pi, H*A] f32, n_pi <= S; amask [A] (every env) or [N, A]
+    f32; task int32 [N] or None (task 0); the rest as for `value_estimate`
+    -> (value [N, S, 1], actions [N, S, H*A]), the actions the module
+    docstring gives, bit for bit as `sample_actions_plain`'s. Any stride on
+    the env axes; rows and the last axis contiguous.
     """
     if episodic and any(k not in prep for k in TERM_NAMES):
         raise ValueError('value_sampled: episodic=True needs the termination '
                          'head in prep (prepare_value_params with cfg.episodic)')
     kw = dict(log_std_min=log_std_min, log_std_dif=log_std_dif,
-              simnorm_dim=simnorm_dim, episodic=episodic, term_at=term_at)
+              simnorm_dim=simnorm_dim, episodic=episodic, term_at=term_at,
+              task=task)
     if z0.device.type == 'cpu':
         return value_sampled_plain(prep, z0, mean, std, noise, pi_acts, amask,
                                    eps, qidx, discs, **kw)
@@ -538,17 +661,16 @@ def value_sampled(prep, z0, mean, std, noise, pi_acts, amask, eps, qidx, discs,
     for what, t, shape, inner in (
             ('mean', mean, (N, HA), (1,)), ('std', std, (N, HA), (1,)),
             ('noise', noise, (N, S, HA), (HA, 1)),
-            ('pi_acts', pi_acts, (N, n_pi, HA), (HA, 1) if n_pi else None),
-            ('amask', amask, (A,), None)):
+            ('pi_acts', pi_acts, (N, n_pi, HA), (HA, 1) if n_pi else None)):
         if (t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape
-                or (inner is not None and t.stride()[1:] != inner)
-                or (what == 'amask' and not t.is_contiguous())):
+                or (inner is not None and t.stride()[1:] != inner)):
             raise ValueError(f'value_sampled: {what} must be an f32 {shape} tensor '
                              f'on {dev}, contiguous after the env axis (H={H}, '
                              f'A={A}, H*A={H * A})')
     if HA != H * A or n_pi > S:
         raise ValueError(f'value_sampled: H*A={HA} columns for H={H}, A={A}, or '
                          f'{n_pi} policy rows for S={S}')
+    tk = task_operands('value_sampled', prep, task, amask, N, dev, True)
     out = torch.empty(N, S, 1, dtype=torch.float32, device=dev)
     acts = torch.empty(N, S, HA, dtype=torch.float32, device=dev)
     lib = _build.library('value')
@@ -557,8 +679,8 @@ def value_sampled(prep, z0, mean, std, noise, pi_acts, amask, eps, qidx, discs,
         weight_ptrs(prep), dims, log_std_min, log_std_dif, int(episodic), N, S,
         z0.data_ptr(), z0.stride(0), z0.stride(1), mean.data_ptr(),
         mean.stride(0), std.data_ptr(), std.stride(0), noise.data_ptr(),
-        noise.stride(0), pi_acts.data_ptr(), pi_acts.stride(0),
-        amask.data_ptr(), n_pi, acts.data_ptr(), eps.data_ptr(), eps.stride(0),
+        noise.stride(0), pi_acts.data_ptr(), pi_acts.stride(0), n_pi,
+        acts.data_ptr(), *tk, eps.data_ptr(), eps.stride(0),
         qidx.data_ptr(), qidx.stride(0), discs.data_ptr(), discs.stride(0),
         out.data_ptr(), None if term_at is None else term_at.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)

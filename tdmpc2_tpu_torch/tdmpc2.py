@@ -13,6 +13,16 @@ keeps its own warm-start mean (`prev_mean` [max(1, num_envs), H, A]). On
 episodic tasks (`cfg.episodic`) the value step gates later rewards and
 the terminal Q by the termination head's sticky flag.
 
+A multi-task model (`cfg.multitask`, tdmpc2.py:95-100, 188-197) plans each
+env for a task: `act(obs, task=i)` plans every env for task i, and
+`act_tasks` plans n tasks in lockstep, one env each with its own warm
+start (JAX `act_tasks`, tdmpc2.py:396-429). A task enters the planner's
+kernels only through its row of the prep's first-layer bias tables (the
+folded embedding), its action mask and its discounts, so n tasks are one
+plan at N = n: the same 1 + 2 x iterations launches, the same kind of
+graph. The JAX agent plans there in plain XLA (its kernels take one
+task's folded weights); the port has no plain path on the card.
+
 On the card a plan is one CUDA graph (utils/cuda_graph.py), as the JAX
 agent's plan is one jitted program (tdmpc2.py:153-157): one graph for each
 (n, eval_mode), captured at the first plan of that pair, whose eager
@@ -26,7 +36,9 @@ new parameter tree (`load_params`, `load`, a new `state`) drops every
 graph, so that the next plan captures anew. On the CPU the same body runs
 eagerly.
 
-`update` is one training step (`_update`, tdmpc2.py:928-1057): TD targets
+`update` is one training step (`_update`, tdmpc2.py:928-1057; on a
+multi-task model each sample carries its task, whose embedding, action
+mask and discount the step gathers): TD targets
 without gradient, the consistency, reward and value losses, the model's
 Adam step, the policy loss with the running Q scale on the updated
 weights, the policy's Adam step and the Polyak update of the target Q
@@ -133,7 +145,7 @@ def device_of(name: str) -> torch.device:
 
 
 class TDMPC2:
-    """TD-MPC2 agent: single-task, state observations."""
+    """TD-MPC2 agent: single- and multi-task, state observations."""
 
     # cfg fields that fix the parameter tree's shapes, written into every
     # checkpoint in the JAX package's format (tdmpc2.py:214-226)
@@ -150,16 +162,27 @@ class TDMPC2:
         if not probe.kernel_engine_alive(self.device):
             raise RuntimeError('the CUDA kernels cannot run on this card: '
                                f'{probe.verdict()["reason"]}')
-        self.model = WorldModel(cfg)
+        self.model = WorldModel(cfg).to(self.device)
         # heuristic for large action spaces (reference tdmpc2.py:34)
         self.iterations = cfg.iterations + 2 * int(cfg.action_dim >= 20)
-        self.discount = float(self._get_discount(cfg.episode_length))
         H = cfg.horizon
-        self.discs = (torch.tensor(self.discount, dtype=torch.float32)
-                      ** torch.arange(H + 1, dtype=torch.float32)).to(self.device)
+        powers = torch.arange(H + 1, dtype=torch.float32)
+        if cfg.multitask:
+            # one discount per task (tdmpc2.py:95-100): [tasks], and each
+            # task's powers discs [tasks, H+1]; amask [tasks, A]
+            self.discount = torch.tensor(
+                [self._get_discount(n) for n in cfg.episode_lengths],
+                dtype=torch.float32)
+            self.discs = (self.discount[:, None] ** powers).to(self.device)
+            self.discount = self.discount.to(self.device)
+            self.amask = self.model.action_masks
+        else:
+            self.discount = float(self._get_discount(cfg.episode_length))
+            self.discs = (torch.tensor(self.discount, dtype=torch.float32)
+                          ** powers).to(self.device)
+            self.amask = torch.ones(cfg.action_dim, device=self.device)
         self.rho = (torch.tensor(cfg.rho, dtype=torch.float32)
                     ** torch.arange(H + 1, dtype=torch.float32)).to(self.device)
-        self.amask = torch.ones(cfg.action_dim, device=self.device)
         # the kernels take bf16 weights; the CPU path keeps f32 (reference)
         self.dot_dtype = (torch.bfloat16 if self.device.type == 'cuda'
                           else torch.float32)
@@ -190,6 +213,7 @@ class TDMPC2:
             prev_mean=torch.zeros(max(1, int(cfg.num_envs or 1)), cfg.horizon,
                                   cfg.action_dim, device=self.device))
         self._prep = None
+        self._task_means = {}     # act_tasks' warm starts, by task count
         self._drop_graphs()
 
     @property
@@ -248,7 +272,7 @@ class TDMPC2:
         meta = {k: self.cfg.get(k) for k in self._ARCH_FIELDS}
         meta['obs_shape'] = {k: tuple(v)
                              for k, v in dict(self.cfg.obs_shape).items()}
-        meta['num_tasks'] = 1
+        meta['num_tasks'] = len(self.cfg.tasks) if self.cfg.multitask else 1
         return meta
 
     def save(self, fp, extra: Optional[dict] = None):
@@ -304,29 +328,73 @@ class TDMPC2:
 
     # ------------------------------------------------------------------ act
 
+    def _task_ids(self, task, n: int):
+        """int32 [n] task ids on the device from an int or n ints; None on a
+        single-task model (which takes no task)."""
+        if not self.cfg.multitask:
+            if task is not None:
+                raise ValueError('task given to a single-task model')
+            return None
+        if task is None:
+            raise ValueError('a multi-task model plans for a task: pass task')
+        ids = np.broadcast_to(np.asarray(task, np.int64).reshape(-1), (n,))
+        if ids.min() < 0 or ids.max() >= len(self.cfg.tasks):
+            raise ValueError(f'task ids {ids} outside [0, {len(self.cfg.tasks)})')
+        return torch.from_numpy(ids.astype(np.int32)).to(self.device)
+
     @torch.no_grad()
-    def act(self, obs, t0=False, eval_mode=False):
+    def act(self, obs, t0=False, eval_mode=False, task=None):
         """Plan for one observation (numpy [obs_dim] -> action [A]) or for a
         stack of n envs' observations ([n, obs_dim] -> [n, A]), the JAX
         agent's rank test (tdmpc2.py:349-352). `t0` (a bool, or one per
-        env) starts an env's episode: its warm start is reset."""
+        env) starts an env's episode: its warm start is reset. A multi-task
+        model plans for `task` (an index into cfg.tasks)."""
         obs = np.asarray(obs, np.float32)
         single = obs.ndim == len(self.cfg.obs_shape[self.cfg.obs])
         if single:
             obs = obs[None]
         n = obs.shape[0]
         obs = torch.from_numpy(obs)
+        task = self._task_ids(task, n)
         if not self.cfg.mpc:
-            z = self.model.encode(self.params, obs.to(self.device))
+            tl = None if task is None else task.long()
+            z = self.model.encode(self.params, obs.to(self.device), tl)
             eps = torch.randn(n, self.cfg.action_dim, generator=self.generator,
                               device=self.device)
-            a, info = self.model.pi(self.params, z, eps)
+            a, info = self.model.pi(self.params, z, eps, tl)
             a = info['mean'] if eval_mode else a
         else:
             t0 = np.broadcast_to(np.asarray(t0, bool).reshape(-1), (n,))
-            a, _ = self.plan_vec(obs, t0, eval_mode=eval_mode)
+            a, _ = self.plan_vec(obs, t0, eval_mode=eval_mode, task=task)
         a = a.cpu().numpy()
         return a[0] if single else a
+
+    @torch.no_grad()
+    def act_tasks(self, obs, prev_mean, t0, tasks, noise: PlanNoise = None):
+        """Greedy eval actions for n tasks in lockstep, one env each (JAX
+        `act_tasks`, tdmpc2.py:396-429): obs [n, obs_dim]; prev_mean
+        [n, H, A], the caller's warm starts (numpy or a tensor); t0 a bool
+        or [n]; tasks [n] task ids -> (actions [n, A] numpy, the new warm
+        starts [n, H, A] on the device). One plan at N = n: on the card one
+        graph replay of the planner's 1 + 2 x iterations launches for all
+        tasks. The returned warm starts are the agent's buffer, which the
+        next call for n tasks overwrites. `noise` replaces the draws."""
+        if not self.cfg.multitask:
+            raise ValueError('act_tasks needs a multi-task model')
+        obs = torch.from_numpy(np.array(obs, np.float32))
+        n = obs.shape[0]
+        pm = self._task_means.get(n)
+        if pm is None:
+            pm = self._task_means[n] = torch.zeros(
+                n, self.cfg.horizon, self.cfg.action_dim, device=self.device)
+        if prev_mean is not pm:
+            pm.copy_(torch.as_tensor(np.asarray(prev_mean, np.float32)
+                                     if not isinstance(prev_mean, torch.Tensor)
+                                     else prev_mean))
+        t0 = np.broadcast_to(np.asarray(t0, bool).reshape(-1), (n,))
+        a, _ = self.plan_vec(obs, t0, eval_mode=True, noise=noise,
+                             task=self._task_ids(tasks, n), prev_mean=pm)
+        return a.cpu().numpy(), pm
 
     def draw_noise(self, n: int = 1) -> PlanNoise:
         """Every draw of one plan for n envs, from the agent's generator."""
@@ -371,38 +439,50 @@ class TDMPC2:
         return torch.argsort(r, dim=-1)[..., :2]
 
     @torch.no_grad()
-    def plan_vec(self, obs, t0, eval_mode=False, noise: PlanNoise = None):
+    def plan_vec(self, obs, t0, eval_mode=False, noise: PlanNoise = None,
+                 task=None, prev_mean=None):
         """MPPI plan for n envs (JAX `_plan_vec`, tdmpc2.py:378-394): obs
         [n, obs_dim] on the host or the device, t0 [n] bool (numpy) ->
         (actions [n, A], means [n, H, A]) on the device. Writes the n means
         into `prev_mean[:n]`; rows past n keep theirs. `noise` replaces the
-        generator's draws. On the card this replays the plan's graph, and
-        the returned tensors are its outputs, which the next plan for the
-        same n and mode overwrites."""
+        generator's draws. `task`, on a multi-task model, is each env's task
+        id (int32 [n] on the device). `prev_mean` (default: the agent's
+        warm starts) is the [>= n, H, A] tensor the plan reads and writes.
+        On the card this replays the plan's graph, and the returned tensors
+        are its outputs, which the next plan for the same n and mode
+        overwrites."""
         n = obs.shape[0]
-        if n > self.prev_mean.shape[0]:
-            raise ValueError(f'{n} observations for {self.prev_mean.shape[0]} '
+        own = prev_mean is None
+        pm = self.prev_mean if own else prev_mean
+        if n > pm.shape[0]:
+            raise ValueError(f'{n} observations for {pm.shape[0]} '
                              'warm starts (cfg.num_envs)')
+        if self.cfg.multitask and task is None:
+            raise ValueError('a multi-task model plans for a task: pass task')
         prep = self.prep
         t0 = torch.tensor(np.asarray(t0, bool).reshape(n))
         if self.device.type == 'cuda':
-            return self._plan_graphed(prep, obs, t0, eval_mode, noise)
+            return self._plan_graphed(prep, obs, t0, eval_mode, noise, task, pm,
+                                      own)
         if noise is None:
             noise = self.draw_noise(n)
-        return self._plan_body(prep, obs, t0, noise, eval_mode)
+        return self._plan_body(prep, obs, t0, noise, eval_mode, task, pm)
 
-    def _plan_graphed(self, prep, obs, t0, eval_mode, noise):
-        """`plan_vec` on the card: the draws (or `noise`), obs and t0 into
-        the graph's inputs, then its replay; the first plan of a key
-        captures."""
+    def _plan_graphed(self, prep, obs, t0, eval_mode, noise, task, pm, own):
+        """`plan_vec` on the card: the draws (or `noise`), obs, t0 and the
+        task ids into the graph's inputs, then its replay; the first plan of
+        a key captures."""
         n = obs.shape[0]
         key = (n, bool(eval_mode), None if noise is None else tuple(
-            tuple(x.shape) for x in vars(noise).values()))
+            tuple(x.shape) for x in vars(noise).values()), task is not None,
+            own)
         entry = self._graphs.get(key)
         if entry is None:
             ins = dict(
                 obs=torch.empty(obs.shape, device=self.device),
                 t0=torch.empty(n, dtype=torch.bool, device=self.device),
+                task=(None if task is None else
+                      torch.empty(n, dtype=torch.int32, device=self.device)),
                 draws=(PlanDraws(**{k: torch.empty(shape, device=self.device)
                                     for k, (_, shape) in self._draws(n).items()})
                        if noise is None else
@@ -413,6 +493,8 @@ class TDMPC2:
             ins = entry[1]
         ins['obs'].copy_(obs)
         ins['t0'].copy_(t0)
+        if task is not None:
+            ins['task'].copy_(task)
         if noise is None:
             self._draw(n, out=ins['draws'])
         else:
@@ -426,33 +508,41 @@ class TDMPC2:
             return self._plan_body(
                 prep, ins['obs'], ins['t0'],
                 self._noise_from(d) if isinstance(d, PlanDraws) else d,
-                eval_mode)
+                eval_mode, ins['task'], pm)
         g = Graph(body, PLAN_WRAPPERS, self.device, 'plan')
         self._graphs[key] = (g, ins)
         return g.first
 
-    def _plan_body(self, prep, obs, t0, noise: PlanNoise, eval_mode):
+    def _plan_body(self, prep, obs, t0, noise: PlanNoise, eval_mode,
+                   task=None, pm=None):
         """The plan on device tensors (obs [n, obs_dim], t0 [n] bool, the
-        draws in `noise`): what the plan's graph captures, and the CPU's
-        plan."""
+        draws in `noise`, task ids int32 [n] or None, the warm starts `pm`,
+        by default the agent's): what the plan's graph captures, and the
+        CPU's plan."""
         cfg = self.cfg
         H, E, A = cfg.horizon, cfg.num_elites, cfg.action_dim
         n = obs.shape[0]
-        z0 = self.model.encode(self.params, obs.reshape(n, -1).float())
-        mean0 = torch.cat([self.prev_mean[:n, 1:],
+        pm = self.prev_mean if pm is None else pm
+        if task is None:
+            tl, discs, amask = None, self.discs.expand(n, -1), self.amask
+        else:
+            tl = task.long()
+            discs, amask = self.discs[tl], self.amask[tl]
+        z0 = self.model.encode(self.params, obs.reshape(n, -1).float(), tl)
+        mean0 = torch.cat([pm[:n, 1:],
                            torch.zeros(n, 1, A, device=self.device)], 1)
         # a reset row is +0.0, never -0.0
         mean0 = torch.where(t0[:, None, None], 0.0, mean0)
         std0 = torch.full((n, H * A), cfg.max_std, device=self.device)
         mean, std, value, acts = cem.cem_plan(
             prep, z0[:, None], noise.pi_eps, noise.sample, noise.eps,
-            noise.qidx, self.discs.expand(n, -1), mean0.reshape(n, H * A),
-            std0, self.amask, iterations=self.iterations,
+            noise.qidx, discs, mean0.reshape(n, H * A),
+            std0, amask, iterations=self.iterations,
             n_pi=cfg.num_pi_trajs, num_elites=E, temperature=cfg.temperature,
             min_std=cfg.min_std, max_std=cfg.max_std,
             log_std_min=self.model.log_std_min,
             log_std_dif=self.model.log_std_dif, simnorm_dim=cfg.simnorm_dim,
-            episodic=cfg.episodic)
+            episodic=cfg.episodic, task=task)
         # each env's last-iteration elites + Gumbel pick (JAX tdmpc2.py:630-641)
         elite_value, elite_idx = torch.topk(value[..., 0], E, dim=-1)
         score = torch.exp(cfg.temperature * (
@@ -464,7 +554,7 @@ class TDMPC2:
         if not eval_mode:
             a = a + std[:, :A] * noise.act
         means = mean.reshape(n, H, A)
-        self.prev_mean[:n] = means
+        pm[:n] = means
         return torch.clamp(a, -1.0, 1.0), means
 
     def _estimate_value(self, z, actions, eps, qidx):
@@ -514,8 +604,9 @@ class TDMPC2:
     def update(self, buffer) -> dict:
         """One learning step on a batch from `buffer` (reference
         tdmpc2.py:334-349); returns the step's info as device tensors."""
-        info = self._update(self.state, *buffer.sample(),
-                            self.draw_update_noise())
+        batch = buffer.sample()
+        info = self._update(self.state, *batch[:4], self.draw_update_noise(),
+                            *batch[4:])
         self._prep = None
         return info
 
@@ -523,63 +614,74 @@ class TDMPC2:
         """`n` learning steps on `n` batches drawn at once
         (`Buffer.sample_many`, JAX tdmpc2.py:747-772); returns the last
         step's info. On the same n batches and draws this is n sequential
-        `update`s."""
+        `update`s. A multi-task buffer's batches carry their tasks; the
+        JAX agent's fused schedules leave multi-task out
+        (tdmpc2.py:795, 841, 876), and so this is its schedule there too."""
         if n == 1:
             return self.update(buffer)
+        batch = buffer.sample_many(n)
         info = self._update_scan(
-            self.state, *buffer.sample_many(n),
-            (self.draw_update_noise() for _ in range(n)))
+            self.state, *batch[:4],
+            (self.draw_update_noise() for _ in range(n)), *batch[4:])
         self._prep = None
         return info
 
     def _update_scan(self, state: TrainState, obs, action, reward,
-                     terminated, noises) -> dict:
+                     terminated, noises, task=None) -> dict:
         """`_update` on each of n batches in the layout of
-        `Buffer.sample_many` (obs [n, T+1, B, ...], ...), with one
-        UpdateNoise per batch from `noises`, in place on `state`; returns
-        the last step's info (JAX `_update_scan`, tdmpc2.py:903-914)."""
+        `Buffer.sample_many` (obs [n, T+1, B, ...], ..., task [n, B] or
+        None), with one UpdateNoise per batch from `noises`, in place on
+        `state`; returns the last step's info (JAX `_update_scan`,
+        tdmpc2.py:903-914)."""
         info = None
         for i, noise in zip(range(obs.shape[0]), noises):
             info = self._update(state, obs[i], action[i], reward[i],
-                                terminated[i], noise)
+                                terminated[i], noise,
+                                *(() if task is None else (task[i],)))
         return info
 
     def _td_target(self, params, target_Qs, next_z, reward, terminated,
-                   noise: UpdateNoise):
-        """Min-Q TD target (reference tdmpc2.py:241-257)."""
-        action, _ = self.model.pi(params, next_z, noise.td_eps)
+                   noise: UpdateNoise, task=None):
+        """Min-Q TD target (reference tdmpc2.py:241-257), with each sample's
+        task discount on a multi-task model."""
+        action, _ = self.model.pi(params, next_z, noise.td_eps, task)
+        discount = self.discount if task is None else self.discount[task][..., None]
         q = self.model.Q(params, next_z, action, qidx=noise.td_qidx,
-                         return_type='min', target_params=target_Qs)
-        return reward + self.discount * (1.0 - terminated) * q
+                         return_type='min', target_params=target_Qs, task=task)
+        return reward + discount * (1.0 - terminated) * q
 
     def _update(self, state: TrainState, obs, action, reward, terminated,
-                noise: UpdateNoise) -> dict:
+                noise: UpdateNoise, task=None) -> dict:
         """The training step on a batch in the buffer's layout (obs
-        [T+1, B, ...], action [T, B, A], reward and terminated [T, B, 1]),
-        in place on `state` (reference tdmpc2.py:259-332)."""
+        [T+1, B, ...], action [T, B, A], reward and terminated [T, B, 1];
+        task [B], a multi-task model's), in place on `state` (reference
+        tdmpc2.py:259-332)."""
         cfg, model = self.cfg, self.model
         T = cfg.horizon
         rho_t, rho_pi = self.rho[:T], self.rho
+        if task is not None:
+            task = task.long()
 
         with torch.no_grad():
-            next_z = model.encode(state.params, obs[1:])
+            next_z = model.encode(state.params, obs[1:], task)
             td_targets = self._td_target(state.params, state.target_Qs,
-                                         next_z, reward, terminated, noise)
+                                         next_z, reward, terminated, noise,
+                                         task)
 
         # -- model loss (reference tdmpc2.py:268-304)
         live = tree.map(lambda p: p.detach().requires_grad_(True),
                         state.params)
-        z = model.encode(live, obs[0])
+        z = model.encode(live, obs[0], task)
         zs = [z]
         for t in range(T):
-            z = model.next(live, z, action[t])
+            z = model.next(live, z, action[t], task)
             zs.append(z)
         zs = torch.stack(zs)                                   # [T+1, B, L]
         consistency = torch.sum(
             torch.mean((zs[1:] - next_z) ** 2, dim=(1, 2)) * rho_t) / T
         qs = model.Q(live, zs[:-1], action, return_type='all',
-                     keep_mask=noise.q_keep)
-        reward_preds = model.reward(live, zs[:-1], action)
+                     keep_mask=noise.q_keep, task=task)
+        reward_preds = model.reward(live, zs[:-1], action, task)
         reward_loss = torch.sum(torch.mean(
             math.soft_ce(reward_preds, reward, cfg.num_bins, cfg.vmin,
                          cfg.vmax), dim=(1, 2)) * rho_t) / T
@@ -590,7 +692,7 @@ class TDMPC2:
         if cfg.episodic:
             # the termination head on the predicted latents z_1..z_T
             # (JAX tdmpc2.py:977-987)
-            term_logit = model.termination(live, zs[1:], unnormalized=True)
+            term_logit = model.termination(live, zs[1:], task, unnormalized=True)
             termination_loss = torch.mean(
                 math.sigmoid_binary_cross_entropy(term_logit, terminated))
             total = total + cfg.termination_coef * termination_loss
@@ -611,9 +713,9 @@ class TDMPC2:
         pi_live = tree.map(lambda p: p.detach().requires_grad_(True),
                            state.params['pi'])
         p = dict(state.params, pi=pi_live)
-        a_pi, info = model.pi(p, zs, noise.pi_eps)
+        a_pi, info = model.pi(p, zs, noise.pi_eps, task)
         qs_pi = model.Q(p, zs, a_pi, qidx=noise.pi_qidx, return_type='avg',
-                        detach=True, keep_mask=noise.pi_keep)
+                        detach=True, keep_mask=noise.pi_keep, task=task)
         new_scale = update_scale(state.scale, qs_pi[0], cfg.tau)
         pi_loss = torch.mean(-torch.mean(
             cfg.entropy_coef * info['scaled_entropy'] + qs_pi / new_scale,

@@ -1,19 +1,23 @@
-"""Training entry point, single-task online (port of tdmpc2_tpu/train.py).
+"""Training entry point (port of tdmpc2_tpu/train.py).
 
 Usage:
     python -m tdmpc2_tpu_torch.train task=toy-reach
     python -m tdmpc2_tpu_torch.train task=toy-reach num_envs=8
     python -m tdmpc2_tpu_torch.train task=toy-reach-episodic episodic=true
     python -m tdmpc2_tpu_torch.train task=toy-reach steps=2000 device=cpu
+    python -m tdmpc2_tpu_torch.train task=mt30 model_size=48 data_dir=<npz dir>
 
-Collects with the planner (the CUDA kernels on the card, their plain
-versions on the CPU), stores episodes in the replay buffer and takes one
-update per environment step after the seed phase. `num_envs > 1` steps
-that many env copies together with one batched plan per vector step
-(`VecOnlineTrainer`), as the JAX `train.py` does. `device` defaults to
-`cuda`; without a card that raises unless `device=cpu` is given. The
-JAX package's other modes raise here: multi-task offline training, seed
-fleets and resuming.
+Single-task configs train online: collect with the planner (the CUDA
+kernels on the card, their plain versions on the CPU), store episodes in
+the replay buffer and take one update per environment step after the seed
+phase. `num_envs > 1` steps that many env copies together with one batched
+plan per vector step (`VecOnlineTrainer`), as the JAX `train.py` does.
+Multi-task configs train offline on a dataset (`OfflineTrainer`, JAX
+train.py:71-72); their evaluation needs an env for every task, and the
+port has envs for the toy tasks only (the mt30/mt80 tasks stop at
+`make_env` until their adapters are ported, ROADMAP A11). `device`
+defaults to `cuda`; without a card that raises unless `device=cpu` is
+given. Seed fleets, resuming and eval videos (`save_video=true`) raise.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from tdmpc2_tpu_torch.config import load_cfg
 from tdmpc2_tpu_torch.data.buffer import Buffer
 from tdmpc2_tpu_torch.envs import make_env
 from tdmpc2_tpu_torch.tdmpc2 import TDMPC2, device_of
+from tdmpc2_tpu_torch.trainer.offline import OfflineTrainer
 from tdmpc2_tpu_torch.trainer.online import OnlineTrainer
 from tdmpc2_tpu_torch.trainer.vec_online import VecOnlineTrainer
 from tdmpc2_tpu_torch.utils.logger import Logger
@@ -39,11 +44,19 @@ def train(cfg) -> OnlineTrainer:
                                   'of the port; pass seed=<n>')
     if cfg.resume:
         raise NotImplementedError('resume=true is a later part of the port')
+    if cfg.save_video:
+        raise NotImplementedError('save_video=true: the eval video recorder '
+                                  'is a later part of the port (ROADMAP A12)')
     device_of(cfg.device)       # raise before any work when there is no card
     set_seed(cfg.seed)
     env = make_env(cfg)
     agent = TDMPC2(cfg)
-    cls = VecOnlineTrainer if int(cfg.num_envs or 1) > 1 else OnlineTrainer
+    if cfg.multitask:
+        cls = OfflineTrainer
+    elif int(cfg.num_envs or 1) > 1:
+        cls = VecOnlineTrainer
+    else:
+        cls = OnlineTrainer
     trainer = cls(cfg=cfg, env=env, agent=agent, buffer=Buffer(cfg),
                   logger=Logger(cfg))
     trainer.train()

@@ -2,19 +2,22 @@
 tdmpc2/common/logger.py:13-241).
 
 Fixed-format console lines per category, the eval CSV with the published
-results schema (step,episode_reward,episode_success), and checkpoints
-through the agent's `save`. No wandb and no video in the port.
+results schema (step,episode_reward,episode_success), the multi-task eval's
+per-domain aggregate, and checkpoints through the agent's `save`. No wandb
+and no video in the port (save_video=true raises in the entry points).
 """
 
 from __future__ import annotations
 
 import csv
+from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
 
 _CAT_COLOR = {'train': '34', 'eval': '32', 'pretrain': '35'}
 _PRINT_KEYS = (
+    ('iteration', 'I', 'int'),
     ('step', 'S', 'int'),
     ('episode', 'E', 'int'),
     ('episode_reward', 'R', 'float'),
@@ -65,7 +68,7 @@ class Logger:
                  for key, abbrev, ty in _PRINT_KEYS if key in metrics]
         print(f'\033[{color}m[{category:>8s}]\033[0m ' + '  '.join(parts))
         if category == 'eval' and self.cfg.save_csv and 'episode_reward' in metrics:
-            step = int(metrics.get('step', 0))
+            step = int(metrics.get('step', metrics.get('iteration', 0)))
             self._eval_rows = [r for r in self._eval_rows if r['step'] != step]
             self._eval_rows.append(
                 dict(step=step,
@@ -77,6 +80,28 @@ class Logger:
                     f, fieldnames=['step', 'episode_reward', 'episode_success'])
                 w.writeheader()
                 w.writerows(self._eval_rows)
+
+    def pprint_multitask(self, metrics: dict, cfg) -> float:
+        """Print the per-task eval rewards aggregated by domain, and return
+        the normalized score: success x 100 on Meta-World tasks, return / 10
+        elsewhere (JAX logger.py:170-189; reference logger.py:194-222)."""
+        domains = defaultdict(list)
+        scores = []
+        for k, v in metrics.items():
+            if k.startswith('episode_reward+'):
+                task = k.split('+', 1)[1]
+                domains[task.split('-')[0]].append(v)
+                if task.startswith('mw-'):
+                    scores.append(metrics.get(f'episode_success+{task}', 0.0) * 100)
+                else:
+                    scores.append(v / 10)
+        print('-' * 40)
+        for d, vals in sorted(domains.items()):
+            print(f'  {d:<16s} {np.nanmean(vals):8.1f}  ({len(vals)} tasks)')
+        if scores:
+            print(f'  {"normalized score":<16s} {np.nanmean(scores):8.2f}')
+        print('-' * 40)
+        return float(np.nanmean(scores)) if scores else 0.0
 
     def save_agent(self, agent, identifier: str = 'final', extra=None):
         if not self.cfg.save_agent:

@@ -28,7 +28,15 @@ for bit, and the canary at n = 1, 3, 1027 and at a storage offset. The
 agent's plan, a replayed CUDA graph, is held bit for bit against its eager
 body (`TDMPC2._plan_body`) on the same draws: at n = 1 and n = num_envs,
 in both modes, with mixed episode starts, after an update (the prep
-refreshed in place) and after `load_params` (the graphs captured anew)."""
+refreshed in place) and after `load_params` (the graphs captured anew).
+On the task axis (a multi-task model: each env's task id picks its rows of
+the prep's first-layer bias tables, and its action mask masks the policy
+and the samples): the three planner kernels at N = 6 envs on 5 tasks with
+mixed action dims against their plain versions and, bit for bit, against
+one-task launches, masked columns 0; the episodic value step under the
+gate rule; `act_tasks` (one graph replay of 1 + 2 x iterations launches
+for every task) against its eager body bit for bit; and a single-task
+model as task 0 of a one-row table, unchanged bit for bit."""
 
 import numpy as np
 import pytest
@@ -144,19 +152,22 @@ def _sampled_inputs(ag, n, n_pi, seed):
             ag.discs.expand(n, -1))
 
 
-def _hold_sampled(ag, args, episodic):
+def _hold_sampled(ag, args, episodic, task=None):
     """The fused kernel's actions equal sample_actions_plain's and its values
-    (and flags) the given-actions launch's on those actions, exactly."""
+    (and flags) the given-actions launch's on those actions (with the same
+    mask on the terminal policy, and the same task ids), exactly."""
     n, S = args[1].shape[:2]
     H, A = ag.cfg.horizon, ag.cfg.action_dim
     k_at = torch.empty(n, S, dtype=torch.int32, device=ag.device)
     at = torch.empty_like(k_at)
     n0 = value_sampled.launches
-    v, acts = value_sampled(*args, **_heads(ag), episodic=episodic, term_at=k_at)
+    v, acts = value_sampled(*args, **_heads(ag), episodic=episodic, term_at=k_at,
+                            task=task)
     assert value_sampled.launches == n0 + 1
     torch.testing.assert_close(acts, sample_actions_plain(*args[2:7]), rtol=0, atol=0)
     ref = value_estimate(args[0], args[1], acts.view(n, S, H, A).permute(0, 2, 1, 3),
-                         *args[7:], **_heads(ag), episodic=episodic, term_at=at)
+                         *args[7:], **_heads(ag), episodic=episodic, term_at=at,
+                         task=task, amask=args[6])
     torch.testing.assert_close(v, ref, rtol=0, atol=0)
     assert torch.equal(k_at, at)
     return v, acts, k_at
@@ -758,3 +769,155 @@ def test_plan_graph_after_update_and_load_params(graph_agent):
     _hold_graph_against_eager(ag, 4, False, t0, 72)
     assert Graph.captures['plan'] == captures['plan'] + 1
     assert Graph.captures['prep'] == captures['prep'] + 1
+
+
+# ----------------------------------------------------------------- task axis
+
+MT_ADIMS = [3, 1, 2, 3, 2]       # the toy multi-task model's action dims (A = 3)
+
+
+def _mt_agent(episodic):
+    cfg = parse_cfg(Config(task='toy', device='cuda', enc_dim=48, mlp_dim=64,
+                           latent_dim=64, num_q=3, num_samples=77,
+                           num_elites=9, num_pi_trajs=5, iterations=3,
+                           episodic=episodic))
+    cfg.obs_shape, cfg.action_dim, cfg.episode_length = {'state': (10,)}, 3, 30
+    cfg.multitask, cfg.task_dim = True, 8
+    cfg.tasks = [f'toy-{i}' for i in range(len(MT_ADIMS))]
+    cfg.action_dims, cfg.episode_lengths = list(MT_ADIMS), [30, 60, 100, 500, 30]
+    ag = TDMPC2(cfg)
+    g = torch.Generator().manual_seed(11)
+    ag.load_params(tree.map(lambda t: t + 0.05 * torch.randn(t.shape, generator=g),
+                            ag.model.init(g)))
+    return ag
+
+
+@pytest.fixture(scope='module')
+def mt_agent(agent):
+    return _mt_agent(False)
+
+
+def _task_inputs(ag, task, n_pi, seed):
+    """The planner steps' operands for one env per task id in `task`."""
+    cfg, dev = ag.cfg, ag.device
+    H, A, S = cfg.horizon, cfg.action_dim, cfg.num_samples
+    n = len(task)
+    tt = torch.tensor(task, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    z0 = ag.model.encode(ag.params, torch.randn(n, 10, device=dev, generator=g),
+                         tt.long())[:, None]
+    noise = torch.randn(n, 2, S, H * A, device=dev, generator=g)[:, 1]
+    pi_eps = torch.randn(n, n_pi, H * A, device=dev, generator=g)
+    qidx = torch.stack([torch.randperm(cfg.num_q, device=dev, generator=g)[:2]
+                        for _ in range(n)]).to(torch.int32)
+    amask = ag.amask[tt.long()].contiguous()
+    return tt, z0, pi_eps, (
+        ag.prep, z0.expand(n, S, -1),
+        torch.rand(n, H * A, device=dev, generator=g) * 1.6 - 0.8,
+        torch.rand(n, H * A, device=dev, generator=g) * 1.9 + 0.1, noise, None,
+        amask, torch.randn(n, S, A, device=dev, generator=g), qidx,
+        ag.discs[tt.long()])
+
+
+def test_task_axis_kernels_match_plain_and_single_task_launches(mt_agent):
+    """N = 6 envs on 5 tasks (one task twice), each with its bias rows, mask
+    and discounts: the pi rollout against its plain version (band), the
+    sampled value step exactly against sample_actions_plain and the
+    given-actions launch (band against the plain step), the elite step
+    (1e-4); masked action columns are 0; and the N-task launch of each
+    equals N one-task launches bit for bit."""
+    ag = mt_agent
+    task = [3, 1, 0, 4, 2, 1]
+    n, E = len(task), ag.cfg.num_elites
+    tt, z0, pi_eps, args = _task_inputs(ag, task, 5, 90)
+    heads = _heads(ag)
+    pa = cem.pi_rollout(ag.prep, z0, pi_eps, **heads, task=tt, amask=args[6])
+    torch.testing.assert_close(pa, cem.pi_rollout_plain(
+        ag.prep, z0, pi_eps, **heads, task=tt, amask=args[6]), **BAND)
+    args = args[:5] + (pa,) + args[6:]
+    v, acts, _ = _hold_sampled(ag, args, False, task=tt)
+    v_p, acts_p = value_sampled_plain(*args, **heads, task=tt)
+    torch.testing.assert_close(acts, acts_p, rtol=0, atol=0)
+    torch.testing.assert_close(v, v_p, **BAND)
+    kw = dict(num_elites=E, temperature=0.5, min_std=0.05, max_std=2.0)
+    got = cem.elite_moments(v, acts, args[6], **kw)
+    for a, b in zip(got, cem.elite_moments_plain(v, acts, args[6], **kw)):
+        torch.testing.assert_close(a, b, **ELITE)
+    H = ag.cfg.horizon
+    for i, t in enumerate(task):
+        for x in (pa[i], acts[i], got[0][i], got[1][i]):
+            assert torch.all(x.view(-1, H, 3)[..., MT_ADIMS[t]:] == 0)
+    for i in range(n):
+        sl = slice(i, i + 1)
+        one_pa = cem.pi_rollout(ag.prep, z0[sl], pi_eps[sl], **heads, task=tt[sl],
+                                amask=args[6][sl])
+        one = value_sampled(*[a if a is args[0] else a[sl] for a in args], **heads,
+                            task=tt[sl])
+        one_e = cem.elite_moments(v[sl], acts[sl], args[6][sl], **kw)
+        assert torch.equal(pa[sl], one_pa)
+        assert torch.equal(v[sl], one[0]) and torch.equal(acts[sl], one[1])
+        assert all(torch.equal(a[sl], b) for a, b in zip(got, one_e))
+
+
+def test_single_task_is_task_zero_of_a_one_row_table(agent):
+    """A single-task prep's bias tables have one row: task ids of 0 and a
+    mask of ones given to the kernels change no bit."""
+    ag = agent
+    assert ag.prep['db0'].shape[0] == 1 and ag.prep['qb0'].dim() == 3
+    args = _sampled_inputs(ag, 4, 5, 44)
+    args = args[:6] + (torch.ones(4, ag.cfg.action_dim, device=ag.device),) + args[7:]
+    zero = torch.zeros(4, dtype=torch.int32, device=ag.device)
+    v, acts = value_sampled(*args, **_heads(ag))
+    v0, acts0 = value_sampled(*args, **_heads(ag), task=zero)
+    assert torch.equal(v, v0) and torch.equal(acts, acts0)
+
+
+def test_act_tasks_graph_equals_eager_body(mt_agent):
+    """act_tasks over the 5 tasks: one graph replay of 1 + 2 x iterations
+    launches a lockstep step, equal bit for bit to the eager body on the
+    same draws and warm starts."""
+    ag = mt_agent
+    n, H, A = 5, ag.cfg.horizon, ag.cfg.action_dim
+    obs = np.random.default_rng(4).normal(size=(n, 10)).astype(np.float32)
+    tasks = np.arange(n)
+    a, pm = ag.act_tasks(obs, np.zeros((n, H, A), np.float32), True, tasks)
+    counts = [w.launches for w in PLAN_WRAPPERS]
+    replays = Graph.replays.get('plan', 0)
+    pm0 = pm.clone()
+    ag.generator.manual_seed(8)
+    a, pm = ag.act_tasks(obs, pm, False, tasks)
+    I = ag.iterations
+    assert Graph.replays['plan'] == replays + 1
+    assert [w.launches - c for w, c in zip(PLAN_WRAPPERS, counts)] == [1, I, I]
+    pm_graph = pm.clone()
+    pm.copy_(pm0)
+    ag.generator.manual_seed(8)
+    noise = ag.draw_noise(n)
+    tt = torch.tensor(tasks, dtype=torch.int32, device=ag.device)
+    a_e, _ = ag._plan_body(ag.prep, torch.from_numpy(obs).to(ag.device),
+                           torch.zeros(n, dtype=torch.bool, device=ag.device), noise,
+                           True, tt, pm)
+    assert np.array_equal(a, a_e.cpu().numpy()) and torch.equal(pm_graph, pm)
+    for i, t in enumerate(tasks):
+        assert np.all(a[i, MT_ADIMS[t]:] == 0)
+
+
+def test_episodic_task_axis_value_under_gate_rule(agent):
+    """An episodic multi-task model: the termination head's first-layer bias
+    folded per task; the value kernel at N = 5 tasks against its plain
+    version under the gate rule."""
+    ag = _mt_agent(True)
+    task = [0, 1, 2, 3, 4]
+    tt, _, _, args = _task_inputs(ag, task, 5, 91)
+    n, S, H, A = 5, ag.cfg.num_samples, ag.cfg.horizon, ag.cfg.action_dim
+    acts = (torch.rand(n, H, S, A, device=ag.device) * 2 - 1) * args[6][:, None, None]
+    vargs = (ag.prep, args[1], acts, args[7], args[8], args[9])
+    k_at = torch.empty(n, S, dtype=torch.int32, device=ag.device)
+    p_at = torch.empty_like(k_at)
+    got = value_estimate(*vargs, **_heads(ag), episodic=True, term_at=k_at, task=tt,
+                         amask=args[6])
+    ref = value_estimate_plain(*vargs, **_heads(ag), episodic=True, term_at=p_at,
+                               task=tt, amask=args[6])
+    logits, _ = termination_trace_plain(*vargs[:3], vargs[5], task=tt)
+    flips, bad = gate_check(got, ref, k_at, p_at, logits, **BAND)
+    assert bad == 0 and flips <= 0.01 * n * S

@@ -107,10 +107,16 @@ def test_config_matches_jax_config(overrides):
 
 
 def test_config_refuses_unknown_keys_and_multitask():
+    """Unknown keys raise. A multi-task config is taken (its offline
+    training is ported), but its envs are not: the port has envs for the
+    toy tasks only, so `make_env` refuses mt30 as the JAX factory does
+    without dm_control."""
     with pytest.raises(ValueError):
         load_cfg(overrides=['no_such_key=1'])
-    with pytest.raises(NotImplementedError):
-        load_cfg(overrides=['task=mt30'])
+    cfg = load_cfg(overrides=['task=mt30'])
+    assert cfg.multitask and len(cfg.tasks) == 30 and cfg.task_dim == 64
+    with pytest.raises(ValueError, match='Failed to make environment'):
+        make_env(cfg)
     assert set(MODEL_SIZE) == {1, 5, 19, 48, 317}
 
 

@@ -72,11 +72,15 @@ def _sampled_inputs(jagent, jp, n, n_pi, seed):
 
 def _jax_sampled(jagent, jp, x, episodic):
     """Each env's actions as the TPU kernel samples them and its values by
-    the Pallas value kernel (interpreted, f32 dots)."""
+    the Pallas value kernel (interpreted, f32 dots). The action mask also
+    masks the terminal policy, as in the JAX planner wherever a mask is
+    set: folded into the pi mean head, and the eps masked
+    (tdmpc2_tpu/tdmpc2.py:467-470, 589-590)."""
     cfg = jagent.cfg
     H, A = cfg.horizon, cfg.action_dim
     n, n_pi = x['pi_acts'].shape[:2]
-    jprep = jprepare(jp, cfg, dot_dtype=jnp.float32)
+    jprep = jprepare(jp, cfg, action_mask=jnp.asarray(x['amask']),
+                     dot_dtype=jnp.float32)
     is_pi = (jnp.arange(S) < n_pi).astype(jnp.float32)[:, None]
     values, acts = [], []
     for e in range(n):
@@ -93,7 +97,7 @@ def _jax_sampled(jagent, jp, x, episodic):
         a = jnp.stack(steps)                                   # [H, S, A]
         acts.append(jnp.moveaxis(a, 0, 1).reshape(S, H * A))
         values.append(value_prepared(
-            jprep, x['z'][e], a, x['eps'][e], x['qidx'][e], x['discs'][e],
+            jprep, x['z'][e], a, x['eps'][e] * x['amask'], x['qidx'][e], x['discs'][e],
             horizon=H, episodic=episodic, dot_dtype=jnp.float32, interpret=True,
             block_s=8, **_heads(jagent)))
     return np.stack(values), np.stack(acts)
