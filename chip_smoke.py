@@ -136,6 +136,21 @@ MT_STEPS = 256             # offline iterations at mt30/48 (32 x update_many(8))
 MT_ACT_STEPS = 4           # lockstep act_tasks steps after the capturing one
 MT_GATE_TASKS = [0, 4, 6, 12, 16, 17, 26, 29]  # action dims 6, 2, 1, 2, 5, 4, 3, 1
 TOY_MT_STEPS = 64          # the toy multi-task path's iterations, then its eval
+# The committed checkpoints the card reads (the copy of the tree sent to
+# the card keeps these two of results/), both of the default 5M model:
+# task -> (file, obs dim, action dim). The observations the planner sees on them were recorded from each
+# trained agent on its dm_control task by tests/data/record_observations.py
+# (the card has no dm_control).
+CHECKPOINTS = {
+    'acrobot-swingup': ('results/checkpoints/acrobot-swingup-s1.pkl.gz', 6, 1),
+    'hopper-hop': ('results/checkpoints/full/hopper-hop-s1-r5.pkl.gz', 15, 4)}
+OBS_FILE = 'tests/data/observations.npz'
+BLOCKED = ('jax', 'jaxlib', 'optax', 'ml_dtypes')   # unimportable while reading them
+FULL_ADAM_COUNT, FULL_SCALE = 1440484, 15.452264    # the hopper-hop train state's
+SNAPSHOT_EPS = 3           # the train paths' replay snapshot: 3 x 50 = 150 steps
+RESUME_STEPS = 1600        # the resumed toy-reach runs go on from TRAIN_STEPS
+RESUME_REFILL = 200        # the snapshot's 150 steps of credit open it 50 steps in
+TOY_MT_RESUME = 128        # the toy multi-task run resumed at TOY_MT_STEPS
 
 # Bands of kernel against plain version. Both round every dot input to
 # bf16 and accumulate in f32; they differ in summation order and in the
@@ -197,6 +212,16 @@ def log(msg):
     print(msg, flush=True)
 
 
+class ImportBlocker:
+    """A meta path finder that makes the JAX stack (BLOCKED) unimportable
+    in this process."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in BLOCKED:
+            raise ImportError(f'{name} is blocked in chip_smoke')
+        return None
+
+
 def elite_edge_values(kind, n, S, g):
     """[n, S] values: distinct, integer ties across the elite boundary, all
     tied, or normal values with NaN, +-inf, +-3e38 and 3.3e38 among them."""
@@ -255,7 +280,10 @@ def hold(name, got, want, tol):
         tol['atol'] + tol['rtol'] * want.float().abs())
     if bool(bad.any()):
         raise AssertionError(f'{name}: max |err| {err:.3g} outside {tol}')
-    log(f'  {name}: max |err| {err:.3g} within {tol}')
+    room = tol['atol'] + tol['rtol'] * want.float().abs()
+    use = (f', {float(((got.float() - want.float()).abs() / room).max()):.3f} of the '
+           'band at its tightest' if tol['atol'] > 0 else '')
+    log(f'  {name}: max |err| {err:.3g} within {tol}{use}')
     return err
 
 
@@ -487,18 +515,21 @@ def pi_rollout_forced(prep, z0, pi_eps, acts, heads, task=None, amask=None):
     return torch.cat(out, -1)
 
 
-def hold_plan_graph(label, ag, n, eval_mode, seed):
+def hold_plan_graph(label, ag, n, eval_mode, seed, obs=None):
     """One plan of `ag` through its CUDA graph (captured by a first plan of
     (n, eval_mode) if need be) against the eager body on the same draws
     and warm starts, with mixed episode starts and a negative warm start:
     actions, means, every row of prev_mean and its sign bits equal; the
-    replay counted once, with the eager body's launches."""
+    replay counted once, with the eager body's launches. `obs` [n, obs]
+    (host) replaces the observations drawn from `seed`."""
     import numpy as np
     import torch
     from tdmpc2_tpu_torch.tdmpc2 import PLAN_WRAPPERS
     from tdmpc2_tpu_torch.utils.cuda_graph import Graph
-    obs = torch.from_numpy(np.random.default_rng(seed).normal(
-        size=(n, ag.cfg.obs_shape['state'][0])).astype(np.float32))
+    if obs is None:
+        obs = np.random.default_rng(seed).normal(
+            size=(n, ag.cfg.obs_shape['state'][0])).astype(np.float32)
+    obs = torch.from_numpy(obs)
     t0 = np.arange(n) % 3 == 0
     ag.plan_vec(obs, t0, eval_mode=eval_mode)
     pm = ag.prev_mean.clone()
@@ -1237,6 +1268,403 @@ def multitask_phases(zero_counts, read_counts, check_plan_counts):
     return errs, paths, rows
 
 
+def leaves(obj):
+    """The leaves of a checkpoint's tree (dicts, tuples, lists)."""
+    if isinstance(obj, dict):
+        return [x for v in obj.values() for x in leaves(v)]
+    if isinstance(obj, (tuple, list)):
+        return [x for v in obj for x in leaves(v)]
+    return [obj]
+
+
+def recorded_batch(recorded, task, horizon, batch, seed):
+    """`batch` slices of horizon+1 rows of `task`'s recorded trajectory, in
+    the update's layout (obs [T+1, B, obs], action [T, B, A], reward and
+    terminated [T, B, 1]), on the card."""
+    import numpy as np
+    import torch
+    obs, act, rew = (recorded[f'{task}/{k}'] for k in ('obs', 'action', 'reward'))
+    starts = np.random.default_rng(seed).integers(0, len(act) - horizon, batch)
+    rows = starts[None] + np.arange(horizon + 1)[:, None]
+    return [torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in (
+        obs[rows], act[rows[:-1]], rew[rows[:-1]][..., None],
+        np.zeros((horizon, batch, 1), np.float32))]
+
+
+def hold_restored(name, agent, buffer, blob):
+    """An agent and its buffer's generator just after a resume, against the
+    checkpoint it read: every array and both generator states bit for bit."""
+    import numpy as np
+    from tdmpc2_tpu_torch.utils import tree
+    n = 0
+    for field, key in (('params', 'model'), ('target_Qs', 'target_Qs'),
+                       ('opt_state', 'torch_opt_state'),
+                       ('pi_opt_state', 'torch_pi_opt_state'), ('scale', 'scale')):
+        got, ref = tree.leaves(getattr(agent.state, field)), tree.leaves(blob[key])
+        if len(got) != len(ref) or any(
+                a.cpu().numpy().tobytes() != np.asarray(b).tobytes()
+                for a, b in zip(got, ref)):
+            raise AssertionError(f'{name}: {field} differs from the checkpoint\'s')
+        n += len(got)
+    for gen, key in ((agent.generator, 'torch_rng'), (buffer.generator, 'torch_buffer_rng')):
+        if gen.get_state().numpy().tobytes() != blob[key]['state'].tobytes():
+            raise AssertionError(f'{name}: the generator of {key} differs')
+    log(f'  {name}: {n} arrays (parameters, target heads, Adam counts and moments, '
+        'scale) and the agent\'s and the buffer\'s generator states equal the '
+        'checkpoint\'s, bit for bit')
+
+
+def reference_state_dict(cfg, seed):
+    """A reference-format WorldModel state dict of cfg's widths (the
+    reference's key scheme, torch's [out, in] weights; target heads copied
+    from the Q heads), its weights drawn from `seed`, as `torch.save` of the
+    reference agent's model holds one (tests/test_interop.py builds one
+    alike)."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    D, A, M, nb = cfg.latent_dim, cfg.action_dim, cfg.mlp_dim, max(cfg.num_bins, 1)
+
+    def mlp(prefix, dims, final_normed=False, lead=()):
+        for i in range(len(dims) - 1):
+            o, k = dims[i + 1], dims[i]
+            sd[f'{prefix}.{i}.weight'] = torch.randn(*lead, o, k, generator=gen) / k ** 0.5
+            sd[f'{prefix}.{i}.bias'] = torch.randn(*lead, o, generator=gen) * 0.1
+            if i < len(dims) - 2 or final_normed:
+                sd[f'{prefix}.{i}.ln.weight'] = torch.rand(*lead, o, generator=gen) + 0.5
+                sd[f'{prefix}.{i}.ln.bias'] = torch.randn(*lead, o, generator=gen) * 0.1
+    enc = [cfg.obs_shape['state'][0]] + max(cfg.num_enc_layers - 1, 1) * [cfg.enc_dim]
+    mlp('_encoder.state', enc + [D], final_normed=True)
+    mlp('_dynamics', [D + A, M, M, D], final_normed=True)
+    mlp('_reward', [D + A, M, M, nb])
+    mlp('_pi', [D, M, M, 2 * A])
+    mlp('_Qs.params', [D + A, M, M, nb], lead=(cfg.num_q,))
+    for k in [k for k in sd if k.startswith('_Qs.params.')]:
+        sd['_target_Qs_params.' + k[len('_Qs.params.'):]] = sd[k].clone()
+    sd['log_std_min'] = torch.tensor(float(cfg.log_std_min))
+    sd['log_std_dif'] = torch.tensor(float(cfg.log_std_max - cfg.log_std_min))
+    return sd
+
+
+def hold_trained(task, ag, obs_rows):
+    """The planner's kernels on `ag`'s trained weights against their plain
+    versions, on recorded observations: the pi rollout, the sampled value
+    step and the elite step at N = N_ENVS envs and at one env (each N-env
+    launch against N one-env launches, bit for bit), the plain versions'
+    own spread (the CPU's against the card's), and the plan's graph against
+    its eager body at one env and N envs. Returns {kernel: max |err|}."""
+    import numpy as np
+    import torch
+    from tdmpc2_tpu_torch.ops import cem, value
+    cfg, dev, NE = ag.cfg, torch.device('cuda'), N_ENVS
+    H, S, L, HA = cfg.horizon, cfg.num_samples, cfg.latent_dim, cfg.horizon * cfg.action_dim
+    n_pi, prep = cfg.num_pi_trajs, ag.prep
+    heads = dict(log_std_min=ag.model.log_std_min, log_std_dif=ag.model.log_std_dif,
+                 simnorm_dim=cfg.simnorm_dim)
+    elite_kw = dict(num_elites=cfg.num_elites, temperature=cfg.temperature,
+                    min_std=cfg.min_std, max_std=cfg.max_std)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    idx = np.linspace(0, len(obs_rows) - 1, NE).astype(int)   # spread over the episode
+    obs = obs_rows[idx]
+    z = ag.model.encode(ag.params, torch.from_numpy(obs).to(dev))[:, None]
+    noise = ag.draw_noise(NE)
+    pi_args = (prep, z, noise.pi_eps[:, :n_pi])
+    pa = cem.pi_rollout(*pi_args, **heads)
+    vs_args = (prep, z.expand(NE, S, L), torch.rand(NE, HA, device=dev, generator=g) * 0.4
+               - 0.2, torch.rand(NE, HA, device=dev, generator=g) * 1.9 + 0.1,
+               noise.sample[:, 0], pa, ag.amask, noise.eps[:, 0], noise.qidx[:, 0],
+               ag.discs.expand(NE, -1))
+    errs = {'cem_pi_rollout': hold(f'{task} pi_rollout N={NE}', pa,
+                                   cem.pi_rollout_plain(*pi_args, **heads), PI_TOL)}
+    errs['value_sampled'], v, acts = hold_sampled(f'{task} N={NE}', vs_args, heads)
+    e_args = (v, acts, ag.amask)
+    errs['cem_elite'] = max(
+        hold(f'{task} elite N={NE} {k}', a, b, tol) for k, a, b, tol in zip(
+            ('mean', 'std', 'guarded v'), cem.elite_moments(*e_args, **elite_kw),
+            cem.elite_moments_plain(*e_args, **elite_kw),
+            (ELITE_TOL, ELITE_TOL, GUARD_TOL)))
+    log(f'  {task}: values of the sampled step in [{float(v.min()):.3f}, '
+        f'{float(v.max()):.3f}] (std {float(v.std()):.3f})')
+    shared = (prep, ag.amask)
+    calls = (('cem_pi_rollout', cem.pi_rollout, cem.pi_rollout_plain, pi_args, heads,
+              (PI_TOL,)),
+             ('value_sampled', value.value_sampled, value.value_sampled_plain, vs_args,
+              heads, (VALUE_TOL, SAMPLE_TOL)),
+             ('cem_elite', cem.elite_moments, cem.elite_moments_plain, e_args, elite_kw,
+              (ELITE_TOL, ELITE_TOL, GUARD_TOL)))
+    for name, kern, plain, args, kw, tols in calls:
+        got = as_tuple(kern(*args, **kw))
+        for i in range(NE):
+            one_args = [a if any(a is x for x in shared) else a[i:i + 1] for a in args]
+            one = as_tuple(kern(*one_args, **kw))
+            if not all(torch.equal(a[i:i + 1], b) for a, b in zip(got, one)):
+                raise AssertionError(f'{task} {name}: env {i} of the N={NE} launch differs '
+                                     'from its one-env launch')
+            if i == 0:
+                ref = as_tuple(plain(*one_args, **kw))
+                errs[name] = max(errs[name], *[
+                    hold(f'{task} {name} one env [{j}]', a, b, tol)
+                    for j, (a, b, tol) in enumerate(zip(one, ref, tols))])
+        log(f'  {task} {name}: the N={NE} launch equals {NE} one-env launches bit for bit')
+    # the spread of two plain versions of the same arithmetic, beside the bands
+    cpu = {k: x.cpu() for k, x in prep.items()}
+    pa_c = cem.pi_rollout_plain(cpu, z.cpu(), pi_args[2].cpu(), **heads)
+    v_c = value.value_sampled_plain(cpu, *[a.cpu() for a in vs_args[1:]], **heads)[0]
+    v_p = value.value_sampled_plain(*vs_args, **heads)[0]
+    log(f'  {task}, trained weights: max |err| kernel vs plain: pi rollout '
+        f'{errs["cem_pi_rollout"]:.3g}, value {errs["value_sampled"]:.3g} (band '
+        f'{VALUE_TOL["atol"]}), elite {errs["cem_elite"]:.3g} ({ELITE_TOL["atol"]}); the '
+        f'JAX suite\'s action tolerance 1e-3: pi rollout '
+        f'{"within" if errs["cem_pi_rollout"] <= 1e-3 else "outside"}; two plain '
+        f'versions (CPU vs card): pi rollout '
+        f'{max_err(pa_c, cem.pi_rollout_plain(*pi_args, **heads).cpu()):.3g}, value '
+        f'{max_err(v_c, v_p.cpu()):.3g}')
+    for label, n, ev in (('one env', 1, False), (f'N={NE}, eval', NE, True)):
+        hold_plan_graph(f'{task} {label}', ag, n, ev, SEED + n, obs[:n])
+    return errs
+
+
+def checkpoint_phases(zero_counts, read_counts, check_plan_counts, hold_update):
+    """Checkpoints and resuming on the card. Returns ({kernel: {checkpoint:
+    max |err| on its trained weights}}, {path: launch counts}, {checkpoint:
+    seconds to read it}).
+
+    (a) both committed checkpoints read in this process with jax, jaxlib,
+        optax and ml_dtypes unimportable (and never imported);
+    (b) the planner's kernels against their plain versions on each
+        checkpoint's trained weights (`hold_trained`);
+    (c) one update on the card from the full hopper-hop train state (its
+        Adam states and scale carried) against the same update on the CPU;
+    (d) `train resume=true` on toy-reach, one env and num_envs=8, from the
+        train paths' checkpoints at step TRAIN_STEPS to RESUME_STEPS behind
+        a RESUME_REFILL-step refill gate: the restored state bit for bit,
+        the snapshot's episodes, no update inside the gate and one update
+        per env step after it; and offline training on the toy multi-task
+        config resumed at its iteration checkpoint;
+    (e) `evaluate` from a reference-format `.pt` checkpoint.
+    """
+    import importlib
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tdmpc2_tpu_torch import train as train_mod
+    from tdmpc2_tpu_torch.config import load_cfg
+    from tdmpc2_tpu_torch.envs import make_env
+    from tdmpc2_tpu_torch.evaluate import evaluate
+    from tdmpc2_tpu_torch.interop import load_blob
+    from tdmpc2_tpu_torch.ops import probe
+    from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
+    from tdmpc2_tpu_torch.trainer.offline import OfflineTrainer
+    from tdmpc2_tpu_torch.trainer.online import OnlineTrainer
+    root = Path(__file__).resolve().parent
+    errs, paths, read_s = {}, {}, {}
+
+    with Phase('(a) read the two committed checkpoints here, jax, optax and ml_dtypes '
+               'blocked'):
+        sys.meta_path.insert(0, ImportBlocker())
+        for m in BLOCKED:
+            try:
+                importlib.import_module(m)
+            except ImportError:
+                continue
+            raise AssertionError(f'{m} imported past the blocker')
+        blobs = {}
+        for task, (fp, _, _) in CHECKPOINTS.items():
+            t0 = time.perf_counter()
+            blobs[task] = load_blob(root / fp)
+            read_s[task] = time.perf_counter() - t0
+            arrays = [x for x in leaves(blobs[task]) if isinstance(x, np.ndarray)]
+            log(f'  {fp}: {(root / fp).stat().st_size / 1e6:.1f} MB gzipped, '
+                f'{len(arrays)} arrays ({sum(a.nbytes for a in arrays) / 1e6:.1f} MB) read '
+                f'in {read_s[task]:.2f} s; keys {sorted(blobs[task])}; extra '
+                f'{blobs[task].get("extra")}')
+        full = blobs['hopper-hop']
+        counts = [int(full['opt_state'][1].inner_states[k].inner_state[0].count)
+                  for k in ('enc', 'rest')] + [int(full['pi_opt_state'][1][0].count)]
+        log(f'  the full train state: Adam counts {counts} (enc, rest, policy), scale '
+            f'{float(full["scale"])}')
+        if counts != [FULL_ADAM_COUNT] * 3 or abs(float(full['scale']) - FULL_SCALE) > 1e-5:
+            raise AssertionError('the full train state: unexpected counts or scale')
+        bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+        if bad:
+            raise AssertionError(f'imported while reading: {bad}')
+        log(f'  none of {", ".join(BLOCKED)} importable here, none in sys.modules')
+
+    with np.load(root / OBS_FILE) as d:
+        recorded = {k: d[k] for k in d.files}
+    agents = {}
+    for task, (fp, obs_dim, act_dim) in CHECKPOINTS.items():
+        with Phase(f'(b) the planner\'s kernels vs plain on trained weights: {task}, '
+                   f'one env and N={N_ENVS}, recorded observations'):
+            cfg = load_cfg(overrides=[f'task={task}', f'seed={SEED}', 'device=cuda',
+                                      f'num_envs={N_ENVS}'])
+            cfg.obs_shape, cfg.action_dim = {'state': (obs_dim,)}, act_dim
+            cfg.episode_length = 1000
+            ag = agents[task] = TDMPC2(cfg, device='cuda')
+            t0 = time.perf_counter()
+            extra = ag.load(root / fp)
+            torch.cuda.synchronize()
+            log(f'  TDMPC2.load({fp}) onto the card in {time.perf_counter() - t0:.2f} s; '
+                f'extra {extra}')
+            for k, e in hold_trained(task, ag, recorded[f'{task}/obs']).items():
+                errs.setdefault(k, {})[task] = e
+
+    with Phase('(c) one update on the card from the full hopper-hop train state vs the '
+               'same update on the CPU, on recorded observations'):
+        ag = agents['hopper-hop']
+        st = ag.state
+        got = [int(st.opt_state[k]['count']) for k in ('enc', 'rest')] + [
+            int(st.pi_opt_state['count'])]
+        log(f'  carried over: Adam counts {got}, scale {float(st.scale)}')
+        if got != [FULL_ADAM_COUNT] * 3 or abs(float(st.scale) - FULL_SCALE) > 1e-5:
+            raise AssertionError('the full train state was not carried over')
+        info = hold_update(ag, recorded_batch(recorded, 'hopper-hop', ag.cfg.horizon,
+                                              ag.cfg.batch_size, SEED))
+        log(f'  pi_scale after the update {float(info["pi_scale"]):.4f}, pi loss '
+            f'{float(info["pi_loss"]):.4f}, total loss {float(info["total_loss"]):.4f}')
+    del agents, blobs
+
+    def resume_path(name, extra):
+        """`train resume=true` in the work dir of train path `name` (its
+        checkpoint at TRAIN_STEPS, its replay snapshot) to RESUME_STEPS."""
+        got, steps = {}, []
+        orig = OnlineTrainer.maybe_resume
+        update, many = TDMPC2.update, TDMPC2.update_many
+
+        def recording_resume(self):
+            models = Path(self.cfg.work_dir) / 'models'
+            blob = load_blob(models / 'latest.pkl')
+            with np.load(models / 'buffer.npz') as snap:
+                saved_obs = snap['ep__obs']
+            orig(self)
+            got['trainer'] = self
+            hold_restored(f'resume {name}', self.agent, self.buffer, blob)
+            if (self._step, self._ep_idx) != (blob['extra']['step'], blob['extra']['ep_idx']) \
+                    or self._step != TRAIN_STEPS:
+                raise AssertionError(f'resume {name}: counters {self._step}, {self._ep_idx}')
+            n = self.buffer.num_eps
+            if n != SNAPSHOT_EPS or not np.array_equal(
+                    self.buffer._storage['obs'][:n].cpu().numpy(), saved_obs):
+                raise AssertionError(f'resume {name}: the snapshot\'s episodes are not back')
+            log(f'  resume {name}: step {self._step}, episode {self._ep_idx}, {n} snapshot '
+                f'episodes back ({self._refill_credit} steps of refill credit)')
+        OnlineTrainer.maybe_resume = recording_resume
+        TDMPC2.update = lambda self, buf: steps.append(got['trainer']._step) or update(
+            self, buf)
+        TDMPC2.update_many = lambda self, buf, n: steps.extend(
+            [got['trainer']._step] * n) or many(self, buf, n)
+        try:
+            probe._verdict = None       # as in a fresh process
+            zero_counts()
+            t0 = time.perf_counter()
+            tr = train_mod.main([
+                'task=toy-reach', f'steps={RESUME_STEPS}', f'eval_freq={TRAIN_STEPS}',
+                'eval_episodes=1', f'seed={SEED}', 'save_agent=true', 'device=cuda',
+                f'exp_name=chip_smoke_{name}', f'buffer_snapshot_eps={SNAPSHOT_EPS}',
+                'resume=true', f'resume_refill_steps={RESUME_REFILL}', *extra])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+        finally:
+            OnlineTrainer.maybe_resume = orig
+            TDMPC2.update, TDMPC2.update_many = update, many
+        n = int(tr.cfg.num_envs or 1)
+        gate_open = TRAIN_STEPS + RESUME_REFILL - tr._refill_credit
+        want = [s for s in range(TRAIN_STEPS, tr._step, n) if s >= gate_open
+                for _ in range(n)]
+        log(f'  resume {name}: to step {tr._step} in {secs:.1f} s, {len(steps)} updates '
+            f'from step {steps[0] if steps else None} (the gate opens at {gate_open}), '
+            f'{tr.buffer._draws} replay draws; launches {counts}')
+        if not steps or steps != want or tr.buffer._draws != len(steps) // n:
+            raise AssertionError(f'resume {name}: updates at {sorted(set(steps))}')
+        check_plan_counts(f'resume {name}', counts)
+        if counts['probe'] <= 0:
+            raise AssertionError(f'resume {name}: the canary never launched')
+        return counts
+
+    with Phase(f'(d) train resume=true, toy-reach, one env: {TRAIN_STEPS} -> '
+               f'{RESUME_STEPS} steps, a {RESUME_REFILL}-step refill gate'):
+        paths['train resumed, one env'] = resume_path('one_env', [])
+    with Phase(f'(d) train resume=true, toy-reach, num_envs={N_ENVS}: {TRAIN_STEPS} -> '
+               f'{RESUME_STEPS} env steps'):
+        paths[f'train resumed, num_envs={N_ENVS}'] = resume_path(
+            'vec', [f'num_envs={N_ENVS}'])
+
+    with tempfile.TemporaryDirectory() as data_dir, \
+            Phase(f'(d) offline training resumed: toy multi-task, {TOY_MT_STEPS} '
+                  f'iterations, then resume=true at its checkpoint to {TOY_MT_RESUME}'):
+        write_toy_chunks(data_dir)
+
+        def toy_cfg(*extra):
+            cfg = load_cfg(overrides=['task=toy-mt2', f'seed={SEED}', 'device=cuda',
+                                      f'data_dir={data_dir}', f'eval_freq={TOY_MT_STEPS}',
+                                      'eval_episodes=1', 'exp_name=chip_smoke_toy_mt_resume',
+                                      *extra])
+            cfg.multitask, cfg.tasks, cfg.task_dim = True, ['toy-reach', 'toy-reach'], 8
+            return cfg
+        first = train_mod.train(toy_cfg(f'steps={TOY_MT_STEPS}'))
+        blob = load_blob(Path(first.cfg.work_dir) / 'models' / f'{TOY_MT_STEPS}.pkl')
+        got = {}
+        orig = OfflineTrainer._maybe_resume
+
+        def recording_resume(self):
+            got['i'] = orig(self)
+            hold_restored('offline resume', self.agent, self.buffer, blob)
+            return got['i']
+        OfflineTrainer._maybe_resume = recording_resume
+        try:
+            probe._verdict = None
+            zero_counts()
+            tr = train_mod.train(toy_cfg(f'steps={TOY_MT_RESUME}', 'resume=true'))
+            counts = paths['offline train toy multi-task, resumed'] = read_counts()
+        finally:
+            OfflineTrainer._maybe_resume = orig
+        count = int(tr.agent.state.opt_state['enc']['count'])
+        log(f'  resumed at iteration {got["i"]}, Adam count {count} at the end; launches '
+            f'{counts}')
+        if got['i'] != TOY_MT_STEPS or count != TOY_MT_RESUME:
+            raise AssertionError(f'offline resume: iteration {got["i"]}, count {count}')
+        check_plan_counts('offline resume (its eval)', counts, MAX_EP_LEN)
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            Phase('(e) evaluate from a reference-format .pt checkpoint (toy-reach dims, '
+                  'default 5M model, seeded weights)'):
+        cfg = load_cfg(overrides=['task=toy-reach', f'seed={SEED}', 'device=cuda'])
+        make_env(cfg)
+        sd = reference_state_dict(cfg, SEED)
+        fp = Path(tmp) / 'reference.pt'
+        torch.save({'model': sd}, fp)
+        got = {}
+        orig = TDMPC2.load
+
+        def recording_load(self, fp_, buffer=None):
+            got['agent'] = self
+            return orig(self, fp_, buffer)
+        TDMPC2.load = recording_load
+        try:
+            zero_counts()
+            res = evaluate(load_cfg(overrides=['task=toy-reach', f'seed={SEED}',
+                                               'device=cuda', 'eval_episodes=1',
+                                               f'checkpoint={fp}']))['toy-reach']
+            counts = paths['evaluate from a reference .pt'] = read_counts()
+        finally:
+            TDMPC2.load = orig
+        p = got['agent'].params
+        pairs = ((p['dynamics'][0]['w'], sd['_dynamics.0.weight'].T),
+                 (p['Qs'][2]['w'], sd['_Qs.params.2.weight'].transpose(1, 2)),
+                 (got['agent'].state.target_Qs[0]['b'], sd['_target_Qs_params.0.bias']),
+                 (p['encoder']['state'][1]['ln_w'], sd['_encoder.state.1.ln.weight']))
+        if not all(torch.equal(a.cpu(), b) for a, b in pairs):
+            raise AssertionError('.pt: the loaded weights differ from the state dict')
+        log(f'  reward {res["reward"]:.4f}, {res["plans"]} plans, '
+            f'{res["plans"] / res["seconds"]:.1f} plans/s; launches {counts}')
+        if not math.isfinite(res['reward']):
+            raise AssertionError('evaluate from .pt: non-finite reward')
+        check_plan_counts('evaluate from a reference .pt', counts, res['plans'])
+    return errs, paths, read_s
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
@@ -1816,13 +2244,16 @@ def main() -> int:
         if losses is not None and not float(losses[-1, 2]) > 0:
             raise AssertionError(f'{name}: the termination loss is zero')
 
+    # the two toy-reach runs save their checkpoints and replay snapshots, from
+    # which checkpoint_phases resumes them
+    snap = ['save_agent=true', f'buffer_snapshot_eps={SNAPSHOT_EPS}']
     with Phase(f'path: train toy-reach, 5M model, {TRAIN_STEPS} steps, one env'):
-        trainer, launches, _, _, _, _ = train_path('one_env', [])
+        trainer, launches, _, _, _, _ = train_path('one_env', snap)
 
     with Phase(f'main path (vectorised): train toy-reach num_envs={NE}, 5M '
                f'model, {TRAIN_STEPS} env steps'):
         vtrainer, vec_launches, vec_s, vec_evals, _, _ = train_path(
-            'vec', [f'num_envs={NE}'])
+            'vec', [f'num_envs={NE}', *snap])
         if not isinstance(vtrainer, VecOnlineTrainer) or vtrainer._n != NE:
             raise AssertionError('vec path: not the vectorised trainer')
         if len(vec_evals) < 2:
@@ -2046,6 +2477,8 @@ def main() -> int:
 
     mt_errs, mt_paths, mt_rows = multitask_phases(zero_counts, read_counts,
                                                   check_plan_counts)
+    ckpt_errs, ckpt_paths, ckpt_read_s = checkpoint_phases(
+        zero_counts, read_counts, check_plan_counts, hold_update)
 
     with Phase('timing (CUDA events) and bounds, one env and N envs'):
         HA = H * A
@@ -2134,7 +2567,8 @@ def main() -> int:
                  'train, one env': launches, f'train, num_envs={NE}': vec_launches,
                  'evaluate episodic': ev_ep_launches,
                  'train episodic, one env': ep_launches,
-                 f'train episodic, num_envs={NE}': vep_launches, **mt_paths}
+                 f'train episodic, num_envs={NE}': vep_launches, **mt_paths,
+                 **ckpt_paths}
         episodic_paths = ('evaluate episodic', 'train episodic, one env',
                           f'train episodic, num_envs={NE}')
         kernels = []
@@ -2151,7 +2585,9 @@ def main() -> int:
                    'launches': (vep_launches if name.endswith('_episodic')
                                 else vec_launches)[wname],
                    'launches_by_path': by_path,
-                   'max_abs_err': results[name], 'n_envs': NE}
+                   'max_abs_err': results[name], 'n_envs': NE,
+                   # the same checks on the committed checkpoints' trained weights
+                   'max_abs_err_trained': ckpt_errs.get(name)}
             for suffix, args in (('', an), ('_n1', a1)):
                 ms = time_ms(lambda: kern(*args, **kw), 50)
                 dev_ms = device_share(lambda: kern(*args, **kw), 20)[0]
@@ -2226,6 +2662,7 @@ def main() -> int:
             log(f'  whole cem_plan, {label}: kernels {plan_ms:.3f} ms, plain '
                 f'{plan_plain_ms:.3f} ms')
 
+    log(f'  seconds to read each committed checkpoint on this machine: {ckpt_read_s}')
     log(f'[done] {time.perf_counter() - t_start:.1f} s')
     log(smi)
     log(json.dumps({'kernels': kernels}))

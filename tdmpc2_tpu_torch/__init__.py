@@ -11,9 +11,10 @@ evaluation — config, world-model heads, the MPPI planner (ops/value.py,
 ops/cem.py), the update and its optimisers, the replay buffer, the online
 trainer, the toy env, `train` and `evaluate` — multi-task offline training
 (task embeddings, action masks, per-task discounts, the offline trainer,
-lockstep planning over tasks through the same kernels), and every TPU
-kernel of the JAX package (value step, CEM loop, reward+dynamics rollout,
-canary).
+lockstep planning over tasks through the same kernels), checkpoints (the
+JAX package's, the port's and the reference's `.pt`, read without jax,
+optax or ml_dtypes) and resuming, and every TPU kernel of the JAX package
+(value step, CEM loop, reward+dynamics rollout, canary).
 """
 
 __version__ = "0.1.0"

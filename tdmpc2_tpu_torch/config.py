@@ -136,12 +136,24 @@ class Config:
     simnorm_dim: int = 8
 
     # online training (JAX config names and defaults; the port trains one
-    # seed from scratch, and raises on seed fleets and resuming; multi-task
-    # configs train offline, trainer/offline.py)
+    # seed and raises on seed fleets; multi-task configs train offline,
+    # trainer/offline.py)
     update_ratio: float = 1.0
+    # after a resume, no updates until the restored policy has collected
+    # this many env steps (a restored buffer snapshot's steps count): a
+    # trained value function updated at the usual rate on a nearly empty
+    # buffer diverges (JAX config.py:182-192). The skipped updates are not
+    # made up. 0 disables.
+    resume_refill_steps: int = 25_000
+    # > 0: at every checkpoint also save the newest K replay episodes next
+    # to the model (models/buffer.npz), restored on resume (JAX
+    # config.py:193-199). 0 = off.
+    buffer_snapshot_eps: int = 0
     # parallel env copies for vectorised collection (trainer/vec_online.py)
     num_envs: int = 1
     seeds: Any = None
+    # continue from work_dir/models: 'latest.pkl' online, the newest
+    # iteration checkpoint offline
     resume: bool = False
 
     # where the port runs: 'cuda' (the default) or 'cpu' (tests)

@@ -22,14 +22,23 @@ path, single- and multi-task).
   write, and `load(episodes)` writes whole chunks of episodes at once
   (JAX buffer.py:363-440; the reference's offline loading,
   common/buffer.py:69-82).
+- `save_snapshot` writes the newest episodes to an npz in the JAX
+  buffer's layout (`ep__<name>`, `valid_rows`, `task`; JAX
+  buffer.py:290-352), so either package reads the other's, and
+  `load_snapshot` writes one back through `load`. The generator's state
+  travels with the agent's checkpoint (`TDMPC2.save(buffer=...)`,
+  `set_rng_state`).
 
-Pixel frame restacking and snapshots are later parts of the port.
+Pixel frame restacking (and so a pixel snapshot) is a later part of the
+port (ROADMAP A8).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from tdmpc2_tpu_torch.utils.seed import restore_generator
 
 
 def draw_slice_indices(generator, ep_rows, n_filled: int, nb: int,
@@ -73,10 +82,28 @@ class Buffer:
         self._ep_rows = None
         self._task_store = None
         self._generator = None
+        self._rng_state = None      # a checkpoint's, until the ring exists
+        self._draws = 0             # sample_many calls (JAX buffer._draws)
 
     @property
     def capacity(self) -> int:
         return self._capacity
+
+    @property
+    def generator(self):
+        """The slice sampler's generator; None until the first write."""
+        return self._generator
+
+    def set_rng_state(self, saved: dict):
+        """Restore the generator from a checkpoint (`TDMPC2.load`): at once,
+        or when the first write creates it."""
+        self._rng_state = saved
+        if self._generator is not None:
+            self._restore_rng()
+
+    def _restore_rng(self):
+        restore_generator(self._generator, self._rng_state, 'the buffer')
+        self._rng_state = None
 
     @property
     def num_eps(self) -> int:
@@ -116,6 +143,8 @@ class Buffer:
                                            dtype=torch.int32, device=store)
         self._generator = torch.Generator(device=store).manual_seed(
             self.cfg.seed + 0x5EED)
+        if self._rng_state is not None:
+            self._restore_rng()
 
     def add(self, ep: dict) -> int:
         """Add one episode: a dict of [rows, ...] arrays (obs, action,
@@ -241,11 +270,50 @@ class Buffer:
         unbatched layout of `sample`."""
         if self._num_eps == 0:
             raise RuntimeError('cannot sample from an empty buffer')
+        self._draws += 1
         ep_idx, start = draw_slice_indices(
             self._generator, self._ep_rows,
             min(self._num_eps, self._capacity_eps), n * self._batch_size,
             self._horizon, self._capacity_eps)
         return self.gather(ep_idx, start, n)
+
+    def save_snapshot(self, fp, max_episodes: int) -> int:
+        """Write the newest `max_episodes` episodes of the ring to `fp` (npz,
+        the storage dtypes kept; JAX buffer.py:290-334). Returns the env
+        steps they hold (valid rows less each bootstrap row). A resumed run
+        restores them (`load_snapshot`): resuming a trained agent against an
+        empty buffer destabilises it even behind the refill gate."""
+        if self._storage is None or self._num_eps == 0:
+            return 0
+        k = min(int(max_episodes), self._num_eps, self._capacity_eps)
+        idxs = torch.tensor([(self._num_eps - k + i) % self._capacity_eps
+                             for i in range(k)], device=self._ep_rows.device)
+        out = {f'ep__{name}': arr[idxs].cpu().numpy()
+               for name, arr in self._storage.items()}
+        rows = self._ep_rows[idxs].cpu().numpy().astype(np.int32)
+        out['valid_rows'] = rows
+        if self._task_store is not None:
+            out['task'] = self._task_store[idxs].cpu().numpy().astype(np.int32)
+        with open(fp, 'wb') as f:
+            np.savez(f, **out)
+        return int(rows.astype(np.int64).sum() - k)
+
+    def load_snapshot(self, fp) -> int:
+        """Write a `save_snapshot` file (the port's or the JAX buffer's) into
+        the buffer through `load` (JAX buffer.py:336-352). Returns the env
+        steps restored, the refill gate's credit."""
+        with np.load(fp, allow_pickle=False) as data:
+            if 'meta_frame_shape' in data.files:
+                raise NotImplementedError(
+                    f'{fp}: a pixel snapshot (stacked frames) is a later part '
+                    'of the port (ROADMAP A8)')
+            episodes = {n[4:]: data[n] for n in data.files if n.startswith('ep__')}
+            rows = data['valid_rows'].astype(np.int32)
+            episodes['valid_rows'] = rows
+            if 'task' in data.files:
+                episodes['task'] = data['task']
+        self.load(episodes)
+        return int(rows.astype(np.int64).sum() - rows.shape[0])
 
     def close(self):
         """Nothing runs beside the buffer; kept for the trainer's teardown."""

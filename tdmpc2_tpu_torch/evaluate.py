@@ -4,14 +4,17 @@ Usage:
     python -m tdmpc2_tpu_torch.evaluate task=toy-reach eval_episodes=2
     python -m tdmpc2_tpu_torch.evaluate task=toy-reach device=cpu
     python -m tdmpc2_tpu_torch.evaluate task=toy-reach-episodic episodic=true
+    python -m tdmpc2_tpu_torch.evaluate task=toy-reach checkpoint=<file>
 
 Runs `eval_episodes` greedy-planning episodes and reports the mean return.
 `device` defaults to `cuda`, where the planner runs on the hand-written
 kernels; without a card that raises unless `device=cpu` is given. With
-`checkpoint=<file>` the weights come from a checkpoint of this port or
-of the JAX package (`TDMPC2.load`, which refuses one whose architecture
-differs from the config's; the committed bf16 files need `ml_dtypes`);
-without one the agent keeps its fresh weights, drawn from `seed`.
+`checkpoint=<file>` the weights come from a checkpoint (`TDMPC2.load`,
+which refuses one whose architecture differs from the config's): a
+pickle of this port or of the JAX package, full or stripped, gzipped or
+not (read without jax, optax or ml_dtypes), or a reference PyTorch `.pt`
+checkpoint; without one the agent keeps its fresh weights, drawn from
+`seed`.
 
 A multi-task config evaluates every task, all tasks' episodes in lockstep
 through one `act_tasks` plan a step (JAX evaluate.py:36-75; a pi-only

@@ -64,12 +64,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from tdmpc2_tpu_torch import interop
 from tdmpc2_tpu_torch.models.world_model import WorldModel
 from tdmpc2_tpu_torch.ops import cem, math, optim, probe
 from tdmpc2_tpu_torch.ops.scale import update_scale
 from tdmpc2_tpu_torch.ops.value import prepare_value_params, value_sampled
-from tdmpc2_tpu_torch.utils import tree
+from tdmpc2_tpu_torch.utils import torch_interop, tree
 from tdmpc2_tpu_torch.utils.cuda_graph import Graph
+from tdmpc2_tpu_torch.utils.seed import generator_state, restore_generator
 
 # the kernel wrappers a plan runs, whose launch counts a replay adds
 PLAN_WRAPPERS = (cem.pi_rollout, value_sampled, cem.elite_moments)
@@ -275,11 +277,13 @@ class TDMPC2:
         meta['num_tasks'] = len(self.cfg.tasks) if self.cfg.multitask else 1
         return meta
 
-    def save(self, fp, extra: Optional[dict] = None):
+    def save(self, fp, extra: Optional[dict] = None, buffer=None):
         """Pickle the train state. 'model', 'target_Qs' and 'scale' are in
         the JAX package's pytree names as numpy arrays, so interop and the
-        JAX agent's `load` read them; the port's optimiser states go under
-        keys of their own, which the JAX agent does not read."""
+        JAX agent's `load` read them; the port's optimiser states, the
+        agent's generator state and, with `buffer`, the replay buffer's go
+        under keys of their own (the port's counterpart of the JAX state's
+        PRNG key, tdmpc2.py:255), which the JAX agent does not read."""
         def np_(x):
             return x.detach().cpu().numpy()
         blob = {
@@ -288,22 +292,57 @@ class TDMPC2:
             'scale': np_(self.state.scale),
             'torch_opt_state': tree.map(np_, self.state.opt_state),
             'torch_pi_opt_state': tree.map(np_, self.state.pi_opt_state),
+            'torch_rng': generator_state(self.generator),
             'arch': self._arch_meta(),
         }
+        if buffer is not None and buffer.generator is not None:
+            blob['torch_buffer_rng'] = generator_state(buffer.generator)
         if extra:
             blob['extra'] = dict(extra)
         Path(fp).parent.mkdir(parents=True, exist_ok=True)
         with open(fp, 'wb') as f:
             pickle.dump(blob, f)
 
-    def load(self, fp) -> dict:
-        """Load a checkpoint this port or the JAX package wrote (pickle,
-        gzip-sniffed); returns its 'extra' dict. Without the port's
-        optimiser states (a JAX checkpoint) they start fresh. A checkpoint
-        holds no warm starts (nor does the JAX package's): `prev_mean`
-        stays as it was."""
-        from tdmpc2_tpu_torch.interop import load_blob, params_from_jax
-        blob = load_blob(fp)
+    def load(self, fp, buffer=None) -> dict:
+        """Load a checkpoint (JAX tdmpc2.py:275-335); returns its 'extra'
+        dict ({} for the reference's formats). `fp` is one of:
+
+        - a pickle of the port or of the JAX package, plain or gzipped, read
+          without jax, optax or ml_dtypes (`interop.load_blob`): a full JAX
+          train state carries its optimiser states and `scale` across
+          (`interop.opt_states_from_jax`), a stripped one (weights only)
+          leaves them fresh, as the JAX agent does; the JAX state's PRNG
+          key is not read (threefry draws cannot become a torch
+          generator's). The port's own pickles also restore the agent's
+          generator and, given `buffer`, the buffer's, where the saved
+          generator is on the same kind of device; a checkpoint is refused
+          when its architecture differs from the config's;
+        - a reference-format state dict passed as a dict, or a reference
+          PyTorch `.pt` checkpoint (`utils/torch_interop.py`): parameters
+          and target heads; the optimiser states and `scale` stay as they
+          were, as in the JAX agent;
+        - an `.orbax` directory raises: reading it needs orbax, which the
+          port does not use.
+
+        A checkpoint holds no warm starts: `prev_mean` stays as it was.
+        Every plan graph and the prep are dropped."""
+        if isinstance(fp, dict):
+            blob = fp
+        elif str(fp).endswith('.pt'):
+            return self._load_reference(*torch_interop.load_reference_checkpoint(
+                fp, self.params))
+        elif str(fp).endswith('.orbax'):
+            raise NotImplementedError(
+                f'{fp}: Orbax checkpoints need the orbax package, which the '
+                'port does not use; save the JAX agent to a .pkl instead')
+        else:
+            blob = interop.load_blob(fp)
+        model = blob.get('model', blob)
+        if isinstance(model, dict) and any(
+                str(k).startswith('_') and '.' in str(k) for k in model):
+            # a reference-format state dict (reference tdmpc2.py:87-90)
+            return self._load_reference(*torch_interop.convert_reference_state_dict(
+                blob if 'model' in blob else model, self.params))
         arch = blob.get('arch')
         if isinstance(arch, dict):
             mine = self._arch_meta()
@@ -313,18 +352,37 @@ class TDMPC2:
                 raise ValueError(f'checkpoint architecture does not match '
                                  f'the configured model: {diffs}')
         prev_mean = self.prev_mean
-        self.load_params(params_from_jax(blob['model'], self.device))
+        self.load_params(interop.params_from_jax(blob['model'], self.device))
         st = self.state
         st.prev_mean = prev_mean
         if 'target_Qs' in blob:
-            st.target_Qs = params_from_jax(blob['target_Qs'], self.device)
-        if 'torch_opt_state' in blob:
-            def t(x):
-                return torch.from_numpy(np.asarray(x)).to(self.device)
+            st.target_Qs = interop.params_from_jax(blob['target_Qs'], self.device)
+
+        def t(x):
+            return torch.tensor(np.asarray(x), device=self.device)
+        if 'opt_state' in blob:             # a full JAX train state
+            st.opt_state, st.pi_opt_state = interop.opt_states_from_jax(
+                blob['opt_state'], blob['pi_opt_state'], self.device)
+            st.scale = t(blob['scale']).float()
+        elif 'torch_opt_state' in blob:     # the port's
             st.opt_state = tree.map(t, blob['torch_opt_state'])
             st.pi_opt_state = tree.map(t, blob['torch_pi_opt_state'])
             st.scale = t(blob['scale']).float()
+        if 'torch_rng' in blob:
+            restore_generator(self.generator, blob['torch_rng'], 'the agent')
+        if buffer is not None and 'torch_buffer_rng' in blob:
+            buffer.set_rng_state(blob['torch_buffer_rng'])
         return blob.get('extra', {})
+
+    def _load_reference(self, params, target_Qs) -> dict:
+        """Take a reference checkpoint's parameters and target heads; the
+        optimiser states, `scale` and warm starts stay as they were."""
+        old = self.state
+        self.load_params(interop.params_from_jax(params, self.device))
+        self.state.target_Qs = interop.params_from_jax(target_Qs, self.device)
+        for k in ('opt_state', 'pi_opt_state', 'scale', 'prev_mean'):
+            setattr(self.state, k, getattr(old, k))
+        return {}
 
     # ------------------------------------------------------------------ act
 

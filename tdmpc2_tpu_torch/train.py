@@ -5,6 +5,7 @@ Usage:
     python -m tdmpc2_tpu_torch.train task=toy-reach num_envs=8
     python -m tdmpc2_tpu_torch.train task=toy-reach-episodic episodic=true
     python -m tdmpc2_tpu_torch.train task=toy-reach steps=2000 device=cpu
+    python -m tdmpc2_tpu_torch.train task=toy-reach steps=3000 resume=true
     python -m tdmpc2_tpu_torch.train task=mt30 model_size=48 data_dir=<npz dir>
 
 Single-task configs train online: collect with the planner (the CUDA
@@ -17,7 +18,9 @@ train.py:71-72); their evaluation needs an env for every task, and the
 port has envs for the toy tasks only (the mt30/mt80 tasks stop at
 `make_env` until their adapters are ported, ROADMAP A11). `device`
 defaults to `cuda`; without a card that raises unless `device=cpu` is
-given. Seed fleets, resuming and eval videos (`save_video=true`) raise.
+given. `resume=true` continues a run from its work_dir's checkpoints
+(`maybe_resume` of the trainers). Seed fleets and eval videos
+(`save_video=true`) raise.
 """
 
 from __future__ import annotations
@@ -42,8 +45,6 @@ def train(cfg) -> OnlineTrainer:
     if cfg.seeds is not None:
         raise NotImplementedError('seed fleets (seeds=...) are a later part '
                                   'of the port; pass seed=<n>')
-    if cfg.resume:
-        raise NotImplementedError('resume=true is a later part of the port')
     if cfg.save_video:
         raise NotImplementedError('save_video=true: the eval video recorder '
                                   'is a later part of the port (ROADMAP A12)')

@@ -25,5 +25,5 @@ class Trainer:
     def finish(self):
         """End-of-run teardown: the final checkpoint through the logger,
         then the buffer."""
-        self.logger.finish(self.agent)
+        self.logger.finish(self.agent, self.buffer)
         self.buffer.close()

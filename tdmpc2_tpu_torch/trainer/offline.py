@@ -8,9 +8,10 @@ saves a checkpoint.
 
 - Datasets are native `.npz` chunks (arrays 'obs', 'action', 'reward',
   'task' shaped [episodes, rows, ...], 'task' [episodes] or
-  [episodes, rows]). The buffer is sized to the dataset from the chunks'
-  headers (`Buffer.reserve`) and filled chunk by chunk (`Buffer.load`).
-  The published TensorDict `.pt` chunks raise: reading them is ROADMAP A2.
+  [episodes, rows]), or the published TensorDict `.pt` chunks, read
+  without tensordict (`utils/torch_interop.read_tensordict_chunk`). The
+  buffer is sized to an npz dataset from the chunks' headers
+  (`Buffer.reserve`) and filled chunk by chunk (`Buffer.load`).
 - Iterations run in chunks of `update_many` (8 at most), cut so that the
   log, eval and checkpoint boundaries fall on their exact iteration.
 - `eval` runs every task's episodes in lockstep: one `act_tasks` plan a
@@ -18,7 +19,9 @@ saves a checkpoint.
   launches), where the reference loops the tasks one after another;
   `_eval_sequential` is that loop, for a pi-only agent or an env without
   sub-envs.
-- `resume=true` raises: resuming is ROADMAP A3.
+- `resume=true` continues from the newest iteration checkpoint
+  (work_dir/models/<iteration>.pkl): the train state, both generators and
+  the iteration (JAX offline.py:143-162).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from __future__ import annotations
 import os
 import zipfile
 from glob import glob
+from pathlib import Path
 from time import time
 
 import numpy as np
@@ -33,6 +37,7 @@ from numpy.lib import format as npf
 
 from tdmpc2_tpu_torch.data.buffer import Buffer
 from tdmpc2_tpu_torch.trainer.base import Trainer
+from tdmpc2_tpu_torch.utils.torch_interop import read_tensordict_chunk
 
 UPDATE_CHUNK = 8   # updates per update_many call (JAX offline.py:169)
 
@@ -41,10 +46,9 @@ def _load_chunk(fp: str) -> dict:
     if fp.endswith('.npz'):
         with np.load(fp) as z:
             return {k: z[k] for k in z.files}
-    raise NotImplementedError(
-        f'{fp}: the published TensorDict .pt chunks are read by a later part '
-        'of the port (ROADMAP A2); convert them with '
-        'datasets/convert_pt_to_npz.py')
+    if fp.endswith('.pt'):
+        return read_tensordict_chunk(fp)
+    raise ValueError(f'Unknown dataset format: {fp}')
 
 
 def _npz_episode_count(fp: str) -> int:
@@ -144,17 +148,32 @@ class OfflineTrainer(Trainer):
             self.buffer.load(chunk)
         print(f'Loaded {self.buffer.num_eps} episodes.')
 
+    def _maybe_resume(self) -> int:
+        """With resume=true, load the newest iteration checkpoint of
+        work_dir/models into the agent and the buffer's generator; returns
+        its iteration, 0 without one (JAX offline.py:143-162)."""
+        if not self.cfg.resume:
+            return 0
+        ckpts = {int(fp.stem): fp
+                 for fp in (Path(self.cfg.work_dir) / 'models').glob('*.pkl')
+                 if fp.stem.isdigit()}
+        if not ckpts:
+            print('resume=true but no iteration checkpoint found; '
+                  'starting fresh.')
+            return 0
+        i = max(ckpts)
+        self.agent.load(ckpts[i], buffer=self.buffer)
+        print(f'Resumed offline training at iteration {i:,}.')
+        return i
+
     def train(self):
         """The offline loop (JAX offline.py:164-209; reference
         offline_trainer.py:67-94)."""
         if not self.cfg.multitask:
             raise ValueError('Offline training requires a multitask cfg.')
-        if self.cfg.resume:
-            raise NotImplementedError('resume=true is a later part of the '
-                                      'port (ROADMAP A3)')
         self._load_dataset()
         print(f'Training agent for {self.cfg.steps} iterations...')
-        i = 0
+        i = self._maybe_resume()
         while i < self.cfg.steps:
             boundary = min(
                 x for x in (
@@ -173,7 +192,8 @@ class OfflineTrainer(Trainer):
                 if i % self.cfg.eval_freq == 0:
                     metrics.update(self.eval())
                     score = self.logger.pprint_multitask(metrics, self.cfg)
-                    self.logger.save_agent(self.agent, identifier=f'{i}')
+                    self.logger.save_agent(self.agent, identifier=f'{i}',
+                                           buffer=self.buffer)
                     rts = [v for k, v in metrics.items()
                            if k.startswith('episode_reward+')]
                     scs = [v for k, v in metrics.items()

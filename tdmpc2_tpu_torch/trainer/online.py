@@ -4,12 +4,22 @@ reference tdmpc2/trainer/online_trainer.py:9-127).
 Random actions for the first `seed_steps` steps, a `seed_steps`-update
 pretraining burst at the first update, then updates every step by
 `update_ratio`; episodes are buffered with a leading bootstrap row (NaN
-action, reward and terminated); periodic evaluation. Resuming, buffer
-snapshots and profiling are later parts of the port.
+action, reward and terminated); periodic evaluation, each followed by the
+'latest' checkpoint and, with `buffer_snapshot_eps`, a snapshot of the
+newest replay episodes.
+
+`resume=true` continues from work_dir/models/latest.pkl (JAX
+online.py:82-121): the train state, both generators, the step and episode
+counters and the snapshot; then no updates (and no burst) until the
+restored policy has collected `resume_refill_steps` env steps, the
+snapshot's steps counted. Profiling is a later part of the port.
 """
 
 from __future__ import annotations
 
+import os
+import zipfile
+from pathlib import Path
 from time import time
 
 import numpy as np
@@ -24,12 +34,18 @@ class OnlineTrainer(Trainer):
         self._ep_idx = 0
         self._start_time = time()
         self._upd_credit = 0.0
+        self._sps_anchor = 0    # steps done before this process started
+        self._resumed = False
+        self._resume_step = 0
+        self._refill_credit = 0
 
     def common_metrics(self):
         elapsed = time() - self._start_time
         return dict(step=self._step, episode=self._ep_idx,
                     elapsed_time=elapsed,
-                    steps_per_second=self._step / max(elapsed, 1e-9))
+                    # a resumed run: this process's steps over its time
+                    steps_per_second=(self._step - self._sps_anchor)
+                    / max(elapsed, 1e-9))
 
     def eval(self):
         """Greedy-planning episodes (reference online_trainer.py:28-52)."""
@@ -84,14 +100,79 @@ class OnlineTrainer(Trainer):
         self._upd_credit -= k
         return k
 
+    def _models(self) -> Path:
+        return Path(self.cfg.work_dir) / 'models'
+
+    def maybe_resume(self):
+        """With resume=true, load work_dir/models/latest.pkl into the agent
+        and the buffer's generator, take its step and episode counters, and
+        write its replay snapshot (buffer.npz) back into the buffer (JAX
+        online.py:82-110); without a checkpoint, start fresh. Once per
+        trainer."""
+        if not self.cfg.resume or self._resumed:
+            return
+        fp = self._models() / 'latest.pkl'
+        if not fp.exists():
+            print('resume=true but no checkpoint found; starting fresh.')
+            return
+        extra = self.agent.load(fp, buffer=self.buffer)
+        self._step = int(extra.get('step', 0))
+        self._ep_idx = int(extra.get('ep_idx', 0))
+        self._sps_anchor = self._resume_step = self._step
+        self._resumed = True
+        print(f'Resumed from {fp} at step {self._step:,}.')
+        snap = fp.parent / 'buffer.npz'
+        if snap.exists():
+            try:
+                self._refill_credit = self.buffer.load_snapshot(snap)
+            except (OSError, ValueError, KeyError, zipfile.BadZipFile) as e:
+                # a damaged snapshot must not stop the resume
+                print(f'Replay snapshot restore failed ({type(e).__name__}: '
+                      f'{e}); continuing with an empty buffer.')
+            else:
+                print(f'Restored replay snapshot: {self.buffer.num_eps} '
+                      f'episodes, {self._refill_credit:,} steps of refill '
+                      'credit.')
+
+    def _refill_done(self) -> bool:
+        """The update gate after a resume: True once the restored policy
+        has collected cfg.resume_refill_steps env steps, a restored
+        snapshot's steps counted (JAX online.py:112-121); always True on a
+        fresh run."""
+        if not self._resumed:
+            return True
+        gate = int(self.cfg.get('resume_refill_steps', 0) or 0)
+        return self._step - self._resume_step + self._refill_credit >= gate
+
     def _checkpoint(self):
+        """The 'latest' checkpoint, with the buffer's generator, and with
+        buffer_snapshot_eps > 0 the newest episodes in models/buffer.npz,
+        written to a temporary file and renamed (JAX online.py:136-149)."""
         self.logger.save_agent(
             self.agent, identifier='latest',
-            extra=dict(step=self._step, ep_idx=self._ep_idx))
+            extra=dict(step=self._step, ep_idx=self._ep_idx),
+            buffer=self.buffer)
+        k = int(self.cfg.get('buffer_snapshot_eps', 0) or 0)
+        if k > 0 and self.buffer.num_eps > 0:
+            snap = self._models() / 'buffer.npz'
+            snap.parent.mkdir(parents=True, exist_ok=True)
+            tmp = snap.with_name('buffer.npz.tmp')
+            try:
+                self.buffer.save_snapshot(tmp, k)
+                os.replace(tmp, snap)
+            except OSError as e:         # snapshots are best-effort
+                print(f'Replay snapshot save failed ({type(e).__name__}: {e})')
+
+    def _updates_now(self) -> bool:
+        """Whether this step updates: past the seed phase, with data, and
+        past a resume's refill gate."""
+        return (self._step >= self.cfg.seed_steps and self.buffer.num_eps > 0
+                and self._refill_done())
 
     def train(self):
         """Main loop (reference online_trainer.py:74-127)."""
         cfg = self.cfg
+        self.maybe_resume()
         train_metrics, done, eval_next = {}, True, False
         info = {}
         while self._step <= cfg.steps:
@@ -133,8 +214,8 @@ class OnlineTrainer(Trainer):
 
             # update the agent; its metrics stay on the device until the
             # logger converts them at the end of the episode
-            if self._step >= cfg.seed_steps and self.buffer.num_eps > 0:
-                if self._step == cfg.seed_steps:
+            if self._updates_now():
+                if self._step == cfg.seed_steps and not self._resumed:
                     num_updates = cfg.seed_steps
                     print('Pretraining agent on seed data...')
                 else:

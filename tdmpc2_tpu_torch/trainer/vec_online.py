@@ -20,6 +20,8 @@ schedule.
 
 Evaluation reuses the training envs; in-progress training episodes are
 discarded at eval boundaries (only complete episodes enter the buffer).
+`resume=true` continues as the one-env trainer does (its refill gate, no
+burst after a resume; JAX vec_online.py:105-122).
 """
 
 from __future__ import annotations
@@ -110,7 +112,7 @@ class VecOnlineTrainer(OnlineTrainer):
             actions = self.env.rand_act()
         timer.mark('act')
         # queue the updates before stepping the envs: they only read replay
-        if self._step >= cfg.seed_steps and self.buffer.num_eps > 0:
+        if self._updates_now():
             info = None
             if not pretrained:
                 pretrained = True
@@ -130,10 +132,11 @@ class VecOnlineTrainer(OnlineTrainer):
     def train(self):
         cfg = self.cfg
         n = self._n
+        self.maybe_resume()
         train_metrics = {}
         next_eval_at = (self._step // cfg.eval_freq) * cfg.eval_freq
         ep_rewards, ep_successes, ep_lengths, ep_terms = [], [], [], []
-        pretrained = False
+        pretrained = self._resumed      # no burst after a resume
         obs = None
         timer = PhaseTimer(steps_per_mark=n)
 

@@ -47,6 +47,16 @@ class Logger:
         self._model_dir = self._work_dir / 'models'
         self._work_dir.mkdir(parents=True, exist_ok=True)
         self._eval_rows = []
+        if cfg.get('resume') and (self._work_dir / 'eval.csv').exists():
+            # a resumed run keeps its eval history (each flush rewrites the
+            # file); a re-evaluated step's row is replaced (JAX
+            # logger.py:100-109)
+            with open(self._work_dir / 'eval.csv') as f:
+                self._eval_rows = [
+                    dict(step=int(r['step']),
+                         episode_reward=float(r['episode_reward']),
+                         episode_success=float(r.get('episode_success', 0.0)))
+                    for r in csv.DictReader(f)]
         self.print_run()
 
     def print_run(self):
@@ -103,14 +113,17 @@ class Logger:
         print('-' * 40)
         return float(np.nanmean(scores)) if scores else 0.0
 
-    def save_agent(self, agent, identifier: str = 'final', extra=None):
+    def save_agent(self, agent, identifier: str = 'final', extra=None,
+                   buffer=None):
+        """The agent's checkpoint `models/<identifier>.pkl`, with the
+        buffer's generator state when `buffer` is given."""
         if not self.cfg.save_agent:
             return None
         fp = self._model_dir / f'{identifier}.pkl'
-        agent.save(fp, extra=extra)
+        agent.save(fp, extra=extra, buffer=buffer)
         return fp
 
-    def finish(self, agent=None):
+    def finish(self, agent=None, buffer=None):
         """The final checkpoint (reference logger.py:167-173)."""
         if agent is not None:
-            self.save_agent(agent)
+            self.save_agent(agent, buffer=buffer)

@@ -36,7 +36,13 @@ mixed action dims against their plain versions and, bit for bit, against
 one-task launches, masked columns 0; the episodic value step under the
 gate rule; `act_tasks` (one graph replay of 1 + 2 x iterations launches
 for every task) against its eager body bit for bit; and a single-task
-model as task 0 of a one-row table, unchanged bit for bit."""
+model as task 0 of a one-row table, unchanged bit for bit. On the committed
+checkpoints' trained weights (read on the card without jax, optax or
+ml_dtypes), at one env on recorded observations: the planner's kernels
+against their plain versions and the plan's graph against its eager body,
+and one update from the full hopper-hop train state against the CPU's."""
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -921,3 +927,99 @@ def test_episodic_task_axis_value_under_gate_rule(agent):
     logits, _ = termination_trace_plain(*vargs[:3], vargs[5], task=tt)
     flips, bad = gate_check(got, ref, k_at, p_at, logits, **BAND)
     assert bad == 0 and flips <= 0.01 * n * S
+
+
+# ------------------------------------------ trained weights: the checkpoints
+
+ROOT = Path(__file__).resolve().parent.parent
+CHECKPOINTS = {'acrobot-swingup': ('results/checkpoints/acrobot-swingup-s1.pkl.gz', 6, 1),
+               'hopper-hop': ('results/checkpoints/full/hopper-hop-s1-r5.pkl.gz', 15, 4)}
+
+
+@pytest.fixture(scope='module')
+def trained(agent):
+    """The committed checkpoints' agents of the default 5M model, loaded on
+    the card (jax, optax and ml_dtypes not needed), with the observations
+    recorded from each trained agent (tests/data/observations.npz)."""
+    out = {}
+    with np.load(ROOT / 'tests/data/observations.npz') as d:
+        recorded = {k: d[k] for k in d.files}
+    for task, (fp, obs_dim, act_dim) in CHECKPOINTS.items():
+        cfg = parse_cfg(Config(task=task, device='cuda'))
+        cfg.obs_shape, cfg.action_dim, cfg.episode_length = {'state': (obs_dim,)}, act_dim, 1000
+        ag = TDMPC2(cfg)
+        ag.load(ROOT / fp)
+        out[task] = (ag, {k.split('/')[1]: v for k, v in recorded.items()
+                          if k.startswith(task + '/')})
+    return out
+
+
+@pytest.mark.parametrize('task', list(CHECKPOINTS))
+def test_trained_weights_kernels_match_plain(trained, task):
+    """One env on a recorded observation: the pi rollout and the sampled
+    value step in the value band, the sampled step exact against the
+    given-actions launch, the elite step at 1e-4; the plan's graph against
+    its eager body."""
+    ag, rec = trained[task]
+    cfg, dev = ag.cfg, ag.device
+    H, S, HA = cfg.horizon, cfg.num_samples, cfg.horizon * cfg.action_dim
+    g = torch.Generator(device=dev).manual_seed(7)
+    z = ag.model.encode(ag.params, torch.from_numpy(rec['obs'][100:101]).to(dev))[:, None]
+    noise = ag.draw_noise(1)
+    pi_args = (ag.prep, z, noise.pi_eps[:, :cfg.num_pi_trajs])
+    pa = cem.pi_rollout(*pi_args, **_heads(ag))
+    torch.testing.assert_close(pa, cem.pi_rollout_plain(*pi_args, **_heads(ag)), **BAND)
+    args = (ag.prep, z.expand(1, S, -1),
+            torch.rand(1, HA, device=dev, generator=g) * 0.4 - 0.2,
+            torch.rand(1, HA, device=dev, generator=g) * 1.9 + 0.1, noise.sample[:, 0],
+            pa, ag.amask, noise.eps[:, 0], noise.qidx[:, 0], ag.discs[None])
+    v, acts, _ = _hold_sampled(ag, args, False)
+    torch.testing.assert_close(v, value_sampled_plain(*args, **_heads(ag))[0], **BAND)
+    assert float(v.std()) > 0
+    kw = dict(num_elites=cfg.num_elites, temperature=cfg.temperature,
+              min_std=cfg.min_std, max_std=cfg.max_std)
+    for got, ref in zip(cem.elite_moments(v, acts, ag.amask, **kw),
+                        cem.elite_moments_plain(v, acts, ag.amask, **kw)):
+        torch.testing.assert_close(got, ref, **ELITE)
+    t0 = np.array([False])
+    obs = rec['obs'][101:102]
+    ag.plan_vec(torch.from_numpy(obs), t0)          # captures
+    ag.generator.manual_seed(8)
+    pm = ag.prev_mean.clone()
+    a, m = (x.clone() for x in ag.plan_vec(torch.from_numpy(obs), t0))
+    ag.prev_mean = pm
+    ag.generator.manual_seed(8)
+    a_e, m_e = ag._plan_body(ag.prep, torch.from_numpy(obs).to(dev),
+                             torch.tensor(t0, device=dev), ag.draw_noise(1), False)
+    assert torch.equal(a, a_e) and torch.equal(m, m_e)
+
+
+def test_full_train_state_update_on_card_matches_cpu(trained):
+    """One update from the hopper-hop train state (Adam count 1,440,484,
+    scale 15.45, both carried over) on a batch of recorded slices, the
+    card's against the CPU's (f32, TF32 off), at 1e-4."""
+    ag, rec = trained['hopper-hop']
+    assert int(ag.state.opt_state['enc']['count']) == 1440484
+    assert abs(float(ag.state.scale) - 15.452264) < 1e-5
+    T, B = ag.cfg.horizon, 64
+    ag.cfg.batch_size = B
+    starts = np.random.default_rng(9).integers(0, len(rec['action']) - T, B)
+    rows = starts[None] + np.arange(T + 1)[:, None]
+    batch = [torch.from_numpy(np.ascontiguousarray(x)).to(ag.device) for x in (
+        rec['obs'][rows], rec['action'][rows[:-1]], rec['reward'][rows[:-1]][..., None],
+        np.zeros((T, B, 1), np.float32))]
+    cpu = TDMPC2(ag.cfg, device='cpu')
+    cpu.state = ag.state.to('cpu')
+    noise = ag.draw_update_noise()
+    cpu_noise = UpdateNoise(**{k: None if v is None else v.cpu()
+                               for k, v in vars(noise).items()})
+    info = ag._update(ag.state, *batch, noise)
+    ref = cpu._update(cpu.state, *[x.cpu() for x in batch], cpu_noise)
+    for k in ref:
+        torch.testing.assert_close(info[k].cpu(), ref[k], rtol=1e-4, atol=1e-4)
+    assert float(ref['pi_scale']) > 10.0
+    got = ag.state.to('cpu')
+    for name in ('params', 'target_Qs', 'opt_state', 'pi_opt_state'):
+        for a, b in zip(tree.leaves(getattr(got, name)),
+                        tree.leaves(getattr(cpu.state, name))):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

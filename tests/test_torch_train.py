@@ -462,7 +462,7 @@ def test_train_num_envs_on_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize('extra,err', [
     ([], RuntimeError), (['num_envs=4', 'obs=rgb'], NotImplementedError),
-    (['seeds=1,2'], NotImplementedError), (['resume=true'], NotImplementedError)])
+    (['seeds=1,2'], NotImplementedError), (['save_video=true'], NotImplementedError)])
 def test_train_refuses_what_the_port_lacks(extra, err):
     argv = [o for o in TINY if not o.startswith('device=')] + extra
     if extra:
