@@ -28,13 +28,30 @@ and read just after:
   an episode on reaching the goal), and episodic evaluate: `evaluate` on
   the same task from the `num_envs=8` run's checkpoint;
 - offline mt30 (multi-task, model_size 48, task_dim 64, the dataset's
-  per-task dims): `OfflineTrainer` for 256 iterations on 8 seeded chunks of
+  per-task dims): `OfflineTrainer` for 128 iterations on 8 seeded chunks of
   datasets/mt30_medium's geometry written to a temporary directory (eval
   past the last iteration: the card has no dm_control), then `act_tasks`
   over the 30 tasks for 5 lockstep steps on observations from the data;
 - toy multi-task: `train` on a toy multi-task config (two toy tasks, the
   default 5M model): offline training, then the lockstep eval over its
-  envs, and `evaluate` from its checkpoint.
+  envs, and `evaluate` from its checkpoint;
+- offline mt80 at model_size 317 (the published 317M model: mlp_dim 4096,
+  latent 1376, 8 Q heads, task_dim 96; 80 tasks, mt30's then 50 Meta-World
+  tasks of obs 39 and action 4): `OfflineTrainer` for 16 iterations on 2
+  seeded chunks of the mt80 dataset's geometry (101-row episodes), then
+  `act_tasks` over the 80 tasks for 3 lockstep steps, each a graph replay of
+  the 13 planner calls and their 373 launches of the wide engine.
+
+At model_size 317 no row tile fits, and the value step and the pi rollout
+take the layer-per-launch engine (csrc/mlp_wide.cuh, ops/wide.py); the
+rollout kernel takes it at every width. The wide engine is held against
+the plain versions there: the value step (given actions, and episodic
+under the gate rule, or, where two plain versions, the CPU's and the
+card's, break the rule too, on no more rows than they do), the sampled
+step (exactly the given-actions launch on its actions), the pi rollout and
+the rollout, at one env and at N=8 tasks; N=8 and N=80 tasks against
+one-task launches bit for bit; `act_tasks`' graph against its eager body;
+and the rollout at model_size 1, 5, 19 and 48 in the width sweep.
 
 The planner's kernels are also held on the task axis at mt30/model_size 48,
 N = 30 tasks with mixed action dims (each env's task id picks its rows of
@@ -82,15 +99,17 @@ device time, and last
 that line; so does a machine without CUDA, or a directory without the
 port's package. A watchdog turns a hang into an exit with a traceback.
 
-`--compare DIR` times the row-tile kernels (value, its episodic branch, pi
-rollout, rollout; one env and N=8), the elite kernel (one env and N=8), the
-canary, the planner's value step (the sampled mode where the version has
-it) and the agent's `plan_vec` (one env and N=8) of another version of the
-port, unpacked in DIR, against this
+`--compare DIR` times the tensor-core kernels (value, its episodic branch,
+pi rollout, rollout; one env and N=8), the elite kernel (one env and N=8),
+the canary, the planner's value step (the sampled mode where the version
+has it; also mt30's N=30 tasks at model_size 48, with the pi rollout) and
+the agent's `plan_vec` (one env and N=8) of another version of the port,
+unpacked in DIR, against this
 tree's on the same inputs, in PAIRS (2 unless given) pairs of processes,
 alternating as DIR, this, this, DIR, DIR, this, ..., and prints the median
 and range of the pairs' ratios by CUDA events (plan_vec: by the host clock,
-each call synchronised) and by own device time.
+each call synchronised) and by own device time, and whether each kernel's
+outputs are the same bits in both versions.
 `--cycles` builds the value and elite kernels with their cycle counters
 (TDM_CYCLES: csrc/mlp_rows.cuh, csrc/cem.cu) and prints where block 0 of
 each spends its cycles at the default model.
@@ -99,6 +118,7 @@ each spends its cycles at the default model.
 from __future__ import annotations
 
 import faulthandler
+import hashlib
 import json
 import math
 import os
@@ -131,11 +151,33 @@ MT30_ACTION_DIMS = [6, 6, 6, 6, 2, 2, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2, 5, 4, 4, 6,
 MT30_OBS_DIMS = [24, 24, 24, 17, 6, 6, 6, 3, 5, 5, 5, 5, 8, 9, 12, 12, 24, 15, 15,
                  24, 24, 17, 17, 17, 17, 15, 8, 8, 8, 3]
 MT30_EPISODE_LENGTH = 500
+# mt80 (config.TASK_SET['mt80']): mt30's 30 tasks, then the 50 Meta-World v2
+# tasks, each with a 39-column observation and 4 action columns (the JAX
+# adapter takes them from the env's spaces, tdmpc2_tpu/envs/metaworld.py:
+# 26-27; its contract test's env has these, tests/test_env_adapters_mocked.py:
+# 53-54) and 100-step episodes (metaworld.py EPISODE_STEPS). The mt80
+# dataset's episodes are 100 steps for every task (the offline buffer's
+# geometry, trainer/offline.py).
+MW_OBS_DIM, MW_ACTION_DIM, MW_EPISODE_LENGTH = 39, 4, 100
+MT80_ACTION_DIMS = MT30_ACTION_DIMS + [MW_ACTION_DIM] * 50
+MT80_OBS_DIMS = MT30_OBS_DIMS + [MW_OBS_DIM] * 50
+MT80_EPISODE_LENGTHS = [MT30_EPISODE_LENGTH] * 30 + [MW_EPISODE_LENGTH] * 50
+MT80_DATA_EPISODE = 100
 MT_CHUNKS, MT_EPISODES = 8, 150   # the in-repo mt30 set's size: 601,200 transitions
-MT_STEPS = 256             # offline iterations at mt30/48 (32 x update_many(8))
+MT_STEPS = 128             # offline iterations at mt30/48 (16 x update_many(8))
 MT_ACT_STEPS = 4           # lockstep act_tasks steps after the capturing one
 MT_GATE_TASKS = [0, 4, 6, 12, 16, 17, 26, 29]  # action dims 6, 2, 1, 2, 5, 4, 3, 1
 TOY_MT_STEPS = 64          # the toy multi-task path's iterations, then its eval
+# The 317M model (mt80's published size) on the wide engine: offline
+# training cut to 16 iterations (2 x update_many(8)) on 2 seeded chunks of
+# 80 episodes (one of each task), then act_tasks over the 80 tasks for 3
+# lockstep steps (the capturing one and 2 replays).
+WIDE_SIZE = 317
+WIDE_STEPS = 16
+WIDE_CHUNKS, WIDE_EPISODES = 2, 80
+WIDE_ACT_STEPS = 2
+# the N=8 checks' tasks: action dims 6, 2, 1, 5, 3, 1, 4, 4 (two Meta-World)
+WIDE_TASKS = [0, 4, 6, 16, 26, 29, 30, 79]
 # The committed checkpoints the card reads (the copy of the tree sent to
 # the card keeps these two of results/), both of the default 5M model:
 # task -> (file, obs dim, action dim). The observations the planner sees on them were recorded from each
@@ -148,7 +190,7 @@ OBS_FILE = 'tests/data/observations.npz'
 BLOCKED = ('jax', 'jaxlib', 'optax', 'ml_dtypes')   # unimportable while reading them
 FULL_ADAM_COUNT, FULL_SCALE = 1440484, 15.452264    # the hopper-hop train state's
 SNAPSHOT_EPS = 3           # the train paths' replay snapshot: 3 x 50 = 150 steps
-RESUME_STEPS = 1600        # the resumed toy-reach runs go on from TRAIN_STEPS
+RESUME_STEPS = 1400        # the resumed toy-reach runs go on from TRAIN_STEPS
 RESUME_REFILL = 200        # the snapshot's 150 steps of credit open it 50 steps in
 TOY_MT_RESUME = 128        # the toy multi-task run resumed at TOY_MT_STEPS
 
@@ -164,7 +206,10 @@ TOY_MT_RESUME = 128        # the toy multi-task run resumed at TOY_MT_STEPS
 # on every row whose flags agree; a row whose flags differ is allowed only
 # if the plain (f32-accumulated) logit is within GATE_NEAR of 0 at the
 # first step where they differ, and such rows may be at most
-# GATE_FLIP_SHARE of the rows. Any other row outside the band fails.
+# GATE_FLIP_SHARE of the rows. Any other row outside the band fails. At
+# 4096 columns (model_size 317) two plain versions' logits, the CPU's and
+# the card's, differ by up to ~0.2: there a flip is allowed where the plain
+# |logit| is within that spread, measured on the same inputs.
 VALUE_TOL = dict(rtol=2e-2, atol=2e-2)
 GATE_NEAR = 1e-2
 GATE_FLIP_SHARE = 0.01
@@ -583,13 +628,14 @@ def elite_inputs(ag, n, g):
 
 
 def time_kernels(root) -> int:
-    """`--time-kernels ROOT`: time the row-tile kernels, the elite kernel,
-    the canary, the planner's value step and `plan_vec` of the port at ROOT
-    (this tree, or an older one unpacked elsewhere) on the main paths'
-    inputs, made from SEED, through the entry points that every version
-    has; prints one JSON line {name: [ms by CUDA events (plan_vec: by the
-    host clock, each call synchronised), own device ms by
-    torch.profiler]}."""
+    """`--time-kernels ROOT`: time the row-tile kernels, the rollout, the
+    elite kernel, the canary, the planner's value step and `plan_vec` of the
+    port at ROOT (this tree, or an older one unpacked elsewhere) on the main
+    paths' inputs and on mt30's at model_size 48 (N = 30 tasks), made from
+    SEED, through the entry points that every version has; prints one JSON
+    line {name: [ms by CUDA events (plan_vec: by the host clock, each call
+    synchronised), own device ms by torch.profiler, a digest of the
+    kernel's output bits (None for plan_vec)]}."""
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -682,13 +728,43 @@ def time_kernels(root) -> int:
         calls[f'plan_vec_n{n}'] = (ag8.plan_vec, (obs8[:n], t0), dict(eval_mode=True))
     calls['plan_vec_episodic_n1'] = (agents['episodic'].plan_vec, (obs8[:1], np.zeros(1, bool)),
                                      dict(eval_mode=True))
+    # mt30 at model_size 48, N = 30 tasks: the planner's value step and pi rollout
+    mcfg = mt30_cfg(load_cfg)
+    mag = TDMPC2(mcfg, device='cuda')
+    mgen = torch.Generator().manual_seed(SEED + 48)
+    mag.load_params(perturbed(mag.model.init(mgen), mgen, sweep_scale(mcfg.mlp_dim)))
+    NT = len(MT30_ACTION_DIMS)
+    tt = torch.arange(NT, dtype=torch.int32, device=dev)
+    m_amask = mag.amask[tt.long()].contiguous()
+    m_obs = torch.randn(NT, mcfg.obs_shape['state'][0], device=dev, generator=g)
+    m_z = mag.model.encode(mag.params, m_obs, tt.long())[:, None]
+    m_noise = mag.draw_noise(NT)
+    m_heads = dict(heads, task=tt)
+    m_pi = (mag.prep, m_z, m_noise.pi_eps[:, :mcfg.num_pi_trajs])
+    m_pa = cem.pi_rollout(*m_pi, **m_heads, amask=m_amask)
+    m_HA = mcfg.horizon * mcfg.action_dim
+    calls[f'pi_rollout_mt30_n{NT}'] = (cem.pi_rollout, m_pi, dict(m_heads, amask=m_amask))
+    calls[f'value_step_mt30_n{NT}'] = (value.value_sampled, (
+        mag.prep, m_z.expand(NT, mcfg.num_samples, mcfg.latent_dim),
+        torch.rand(NT, m_HA, device=dev, generator=g) * 1.6 - 0.8,
+        torch.rand(NT, m_HA, device=dev, generator=g) * 1.9 + 0.1, m_noise.sample[:, 0],
+        m_pa, m_amask, m_noise.eps[:, 0], m_noise.qidx[:, 0], mag.discs[tt.long()]),
+        m_heads)
+    def digest(x):
+        h = hashlib.sha256()
+        for t in as_tuple(x):
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
     out = {}
     for name, (fn, args, kw) in calls.items():
+        # a kernel's output bits on these inputs (a plan's depend on its draws)
+        dg = None if name.startswith('plan_vec') else digest(fn(*args, **kw))
         if name.startswith('plan_vec'):
             ms = host_ms(lambda: (fn(*args, **kw), torch.cuda.synchronize()), 50)
         else:
             ms = time_ms(lambda: fn(*args, **kw), 50)
-        out[name] = [ms, device_share(lambda: fn(*args, **kw), 20)[0]]
+        out[name] = [ms, device_share(lambda: fn(*args, **kw), 20)[0], dg]
     print(json.dumps(out), flush=True)
     return 0
 
@@ -792,8 +868,14 @@ def compare(prev_root, pairs=2) -> int:
             pair[label] = json.loads(r.stdout.strip().splitlines()[-1])
             log(f'[compare] pair {i}, {label} ({root}): {json.dumps(pair[label])}')
         runs.append(pair)
-    ratios = {}
+    ratios, same = {}, {}
     for name in runs[0]['prev']:
+        bits = {label: {p[label][name][2] for p in runs if len(p[label][name]) > 2}
+                for label in ('prev', 'this')}
+        if bits['prev'] and None not in bits['prev']:
+            same[name] = len(bits['prev'] | bits['this']) == 1
+            log(f'[compare] {name}: outputs of prev and this '
+                + ('equal bit for bit' if same[name] else f'differ ({bits})'))
         ratios[name] = {}
         for k, kind in enumerate(('events', 'device')):
             rs = sorted(p['prev'][name][k] / p['this'][name][k] for p in runs
@@ -806,7 +888,7 @@ def compare(prev_root, pairs=2) -> int:
                 f'this {[p["this"][name][k] for p in runs]} ms; prev/this median '
                 f'{med:.3f}x, range {rs[0]:.3f}-{rs[-1]:.3f}x over {len(rs)} pairs')
     log(nvidia_smi_line())
-    log(json.dumps({'compare': ratios}))
+    log(json.dumps({'compare': ratios, 'equal_outputs': same}))
     return 0
 
 
@@ -814,14 +896,16 @@ def plan_counters(I):
     """The kernel wrappers by name, and (zero_counts, read_counts,
     check_plan_counts) over their launch counters and the plan graphs'
     replays and captures, for plans of I iterations."""
-    from tdmpc2_tpu_torch.ops import cem, probe, rollout, value
+    from tdmpc2_tpu_torch.ops import cem, probe, rollout, value, wide
     from tdmpc2_tpu_torch.utils.cuda_graph import Graph
     wrappers = {'value': value.value_estimate,
                 'value_sampled': value.value_sampled,
                 'cem_pi_rollout': cem.pi_rollout,
                 'cem_elite': cem.elite_moments,
                 'rollout': rollout.rollout_prepared,
-                'probe': probe.add_one}
+                'probe': probe.add_one,
+                # the wide engine's device launches (ops/wide.py), of any wrapper
+                'wide': wide.engine_launches}
 
     def zero_counts():
         for w in wrappers.values():
@@ -833,58 +917,71 @@ def plan_counters(I):
                 'plan_replays': Graph.replays.get('plan', 0),
                 'plan_captures': Graph.captures.get('plan', 0)}
 
-    def check_plan_counts(name, counts, plans=None):
+    def check_plan_counts(name, counts, plans=None, wide_per_plan=0):
         """Each plan of a path: one pi rollout, I sampled value launches and
         I elite launches (1 + 2 I kernels), none of the given-actions value
-        launch, and one graph replay, or the eager run of a capture."""
+        launch, and one graph replay, or the eager run of a capture; and
+        `wide_per_plan` device launches of the wide engine (0 below 2048
+        columns)."""
         p = counts['cem_pi_rollout']
         ok = (p > 0 and counts['value_sampled'] == I * p and counts['cem_elite'] == I * p
               and counts['value'] == 0 and counts['plan_replays'] > 0
               and counts['plan_replays'] + counts['plan_captures'] == p
+              and counts['wide'] == wide_per_plan * p
               and (plans is None or p == plans))
         log(f'  {name}: {p} plans, {1 + 2 * I} planner launches a plan '
             f'({counts["value_sampled"]} sampled value, {counts["cem_elite"]} elite), '
-            f'{counts["plan_replays"]} graph replays, {counts["plan_captures"]} captures')
+            f'{counts["plan_replays"]} graph replays, {counts["plan_captures"]} captures'
+            + (f'; the wide engine {counts["wide"]} launches, {wide_per_plan} a plan'
+               if wide_per_plan else ''))
         if not ok:
             raise AssertionError(f'{name}: planner launches {counts} for {plans} plans')
     return wrappers, zero_counts, read_counts, check_plan_counts
 
 
-def mt30_cfg(load_cfg, extra=(), model_size=48):
-    """mt30 at `model_size` (48 unless given; None: the default 5M widths;
-    task_dim 64 by the config's rule), its per-task dims set from the
-    literals above, as the JAX suite sets them where no dm_control builds
-    the envs."""
+def mt30_cfg(load_cfg, extra=(), model_size=48, task='mt30'):
+    """mt30 (or `task` mt80) at `model_size` (48 unless given; None: the
+    default 5M widths; task_dim 64, or 96 at mt80 and model_size 317, by
+    the config's rule), its per-task dims set from the literals above, as
+    the JAX suite sets them where no dm_control builds the envs."""
     size = [] if model_size is None else [f'model_size={model_size}']
-    cfg = load_cfg(overrides=['task=mt30', *size, f'seed={SEED}', 'device=cuda',
+    cfg = load_cfg(overrides=[f'task={task}', *size, f'seed={SEED}', 'device=cuda',
                               *extra])
-    cfg.obs_shape = {'state': (max(MT30_OBS_DIMS),)}
-    cfg.action_dim = max(MT30_ACTION_DIMS)
-    cfg.obs_shapes, cfg.action_dims = list(MT30_OBS_DIMS), list(MT30_ACTION_DIMS)
-    cfg.episode_lengths = [MT30_EPISODE_LENGTH] * len(MT30_ACTION_DIMS)
-    cfg.episode_length = MT30_EPISODE_LENGTH
+    obs, act, lengths = ((MT30_OBS_DIMS, MT30_ACTION_DIMS,
+                          [MT30_EPISODE_LENGTH] * len(MT30_ACTION_DIMS))
+                         if task == 'mt30' else
+                         (MT80_OBS_DIMS, MT80_ACTION_DIMS, MT80_EPISODE_LENGTHS))
+    cfg.obs_shape = {'state': (max(obs),)}
+    cfg.action_dim = max(act)
+    cfg.obs_shapes, cfg.action_dims = list(obs), list(act)
+    cfg.episode_lengths = list(lengths)
+    cfg.episode_length = max(lengths)
     return cfg
 
 
-def write_mt30_chunks(root, n_chunks, eps, seed):
-    """Seeded .npz chunks in the layout of datasets/mt30_medium: rows 501
-    (the bootstrap row first, its action and reward NaN), obs 24 with zeros
-    past each task's obs dim, actions 6 with zeros past its action dim, one
-    task id per episode, every task in turn."""
+def write_mt30_chunks(root, n_chunks, eps, seed, task='mt30'):
+    """Seeded .npz chunks in the layout of datasets/mt30_medium (or of the
+    mt80 dataset, `task`): rows of an episode 501 (mt80: 101), the bootstrap
+    row first (its action and reward NaN), obs 24 (mt80: 39) with zeros past
+    each task's obs dim, actions 6 with zeros past its action dim, one task
+    id per episode, every task in turn."""
     import numpy as np
+    obs_dims, act_dims, rows = ((MT30_OBS_DIMS, MT30_ACTION_DIMS, MT30_EPISODE_LENGTH + 1)
+                                if task == 'mt30' else
+                                (MT80_OBS_DIMS, MT80_ACTION_DIMS, MT80_DATA_EPISODE + 1))
     rng = np.random.default_rng(seed)
-    rows, n_tasks = MT30_EPISODE_LENGTH + 1, len(MT30_ACTION_DIMS)
+    n_tasks = len(act_dims)
     for c in range(n_chunks):
-        task = (np.arange(eps) + c * eps) % n_tasks
-        obs = rng.standard_normal((eps, rows, max(MT30_OBS_DIMS)), dtype=np.float32)
-        act = rng.uniform(-1, 1, (eps, rows, max(MT30_ACTION_DIMS))).astype(np.float32)
-        for i, t in enumerate(task):
-            obs[i, :, MT30_OBS_DIMS[t]:] = 0.0
-            act[i, :, MT30_ACTION_DIMS[t]:] = 0.0
+        task_ids = (np.arange(eps) + c * eps) % n_tasks
+        obs = rng.standard_normal((eps, rows, max(obs_dims)), dtype=np.float32)
+        act = rng.uniform(-1, 1, (eps, rows, max(act_dims))).astype(np.float32)
+        for i, t in enumerate(task_ids):
+            obs[i, :, obs_dims[t]:] = 0.0
+            act[i, :, act_dims[t]:] = 0.0
         reward = rng.uniform(0, 1, (eps, rows)).astype(np.float32)
         act[:, 0], reward[:, 0] = np.nan, np.nan
         np.savez(Path(root) / f'chunk_{c}.npz', obs=obs, action=act, reward=reward,
-                 task=task.astype(np.int32))
+                 task=task_ids.astype(np.int32))
 
 
 def write_toy_chunks(root, n_chunks=2, eps=6, rows=51):
@@ -1265,6 +1362,504 @@ def multitask_phases(zero_counts, read_counts, check_plan_counts):
             raise AssertionError(f'evaluate toy multi-task: {res}')
         log(f'  evaluate: reward {res["reward"]:.4f}, {res["plans"]} lockstep plans, '
             f'{res["plans"] / res["seconds"]:.1f} plans/s')
+    return errs, paths, rows
+
+
+def pi_rollout_own_steps(name, prep, z0, pi_eps, heads, task, amask):
+    """The pi-rollout kernel's free-running launch (all H steps) with each
+    step held in PI_TOL against the plain arithmetic on that step's own
+    inputs: its action at step t against the plain policy at the kernel's
+    latent z_t (z_0 given; z_1 .. z_{H-1} the kernel's own, its `latents`),
+    and each z_{t+1} against the plain dynamics of the kernel's (z_t, a_t).
+    Both sides round the same f32 inputs to bf16, so a wrong layer anywhere
+    in the launch shows at its step. Returns (the kernel's actions, the max
+    |err|)."""
+    import torch
+    from tdmpc2_tpu_torch.ops import cem, value
+    N, n_pi, HA = pi_eps.shape
+    A, L = prep['pWm'].shape[1], z0.shape[-1]
+    H = HA // A
+    zs = torch.empty(H - 1, N, n_pi, L, device=z0.device)
+    acts = cem.pi_rollout(prep, z0, pi_eps, **heads, task=task, amask=amask, latents=zs)
+    m = value.mask_rows(amask, A)
+    z = z0.float().expand(N, n_pi, L)
+    want_a, want_z = [], []
+    for t in range(H):
+        sl = slice(t * A, (t + 1) * A)
+        mean, ls = value.pi_head_plain(prep, z, heads['log_std_min'], heads['log_std_dif'],
+                                       task)
+        want_a.append(value.pi_action_plain(mean, ls, pi_eps[..., sl], m))
+        if t + 1 < H:
+            want_z.append(value.dynamics_plain(prep, z, acts[..., sl], heads['simnorm_dim'],
+                                               task))
+            z = zs[t]
+    err = max(hold(f'{name}, each step\'s action from the kernel\'s own latent', acts,
+                   torch.cat(want_a, -1), PI_TOL),
+              hold(f'{name}, z_1..z_{H - 1} from the kernel\'s own (z_t, a_t)', zs,
+                   torch.stack(want_z), PI_TOL))
+    return acts, err
+
+
+def log_pi_drift(name, pi, heads, tk, acts):
+    """Log the free-running pi rollout's distance from the plain rollout
+    (not held: PERF.md §6), beside that of two plain versions, the CPU's
+    and the card's, on the same inputs; and the same with the plain latents
+    advanced on the other side's actions (`pi_rollout_forced`)."""
+    from tdmpc2_tpu_torch.ops import cem
+    prep, z0, eps = pi
+    free = cem.pi_rollout_plain(*pi, **heads, **tk)
+    cpu = ({k: x.cpu() for k, x in prep.items() if k[0] in 'dp'}, z0.cpu(), eps.cpu())
+    cpu_tk = {k: x.cpu() for k, x in tk.items()}
+    free_c = cem.pi_rollout_plain(*cpu, **heads, **cpu_tk)
+    forced = pi_rollout_forced(*pi, acts, heads, **tk)
+    forced_c = pi_rollout_forced(*cpu, free.cpu(), heads, **cpu_tk)
+
+    def outside(a, b):
+        return int(((a - b).abs() > PI_TOL['atol'] + PI_TOL['rtol'] * b.abs()).sum())
+    log(f'  {name}, free-running against the plain rollout (not held): max |err| '
+        f'{max_err(acts, free):.3g}, {outside(acts, free)} of {acts.numel()} values outside '
+        f'{PI_TOL}; two plain versions (CPU against the card): max |err| '
+        f'{max_err(free_c, free.cpu()):.3g}, {outside(free_c, free.cpu())} outside. Plain '
+        f'latents advanced on the kernel\'s actions: max |err| {max_err(acts, forced):.3g}, '
+        f'{outside(acts, forced)} outside; the CPU\'s on the card plain\'s actions: max '
+        f'|err| {max_err(free.cpu(), forced_c):.3g}, {outside(free.cpu(), forced_c)} outside')
+
+
+def wide_bounds(prep, n, S, H, A, n_pi, used_heads, episodic=False, task_rows=1):
+    """The card's least time for the planner's steps at the prep's widths
+    for n envs: {'value_sampled': (ms, by), 'pi_rollout': ..., 'rollout':
+    ...}: every distinct weight read once (the used Q heads only, a bias
+    row per task), each input and output once, every multiply-add of the
+    rows."""
+    L, M = prep['dWz'].shape
+    B = prep['rW2'].shape[1]
+    HA = H * A
+    mac_rew = (L + A) * M + M * M + M * B
+    mac_dyn = (L + A) * M + M * M + M * L
+    mac_pi = L * M + M * M + 2 * M * A
+    mac_term = L * M + M * M + M
+    w = {k: nbytes(prep[k]) for k in prep if k[0] in 'drpt' and k[1] == 'P'}
+    q1 = sum(nbytes(prep[k][0]) for k in ('qP0', 'qP1', 'qP2') if k in prep)
+    vecs = 4 * (6 * M + L + B) * task_rows
+    w_step = sum(v for k, v in w.items() if k[0] in 'drp' or episodic) + used_heads * q1
+    mac_step = mac_rew + mac_dyn + (mac_term if episodic else 0)
+    value_by = (w_step + vecs + n * (L * 4 + 2 * HA * 4 + (S - n_pi) * HA * 4
+                                     + n_pi * HA * 4 + S * A * 4 + S * 4 + S * HA * 4))
+    pi_by = (sum(v for k, v in w.items() if k[0] in 'dp') + vecs
+             + n * (L * 4 + 2 * n_pi * HA * 4))
+    ro_by = (sum(v for k, v in w.items() if k[0] in 'dr') + vecs
+             + n * S * (L * 4 + HA * 4 + 4 + L * 4))
+    return {
+        'value_sampled': bound_ms(value_by, 2 * n * S * (H * mac_step + mac_pi + 2 * mac_rew),
+                                  BF16_FLOPS, 3 * n * S * HA),
+        'pi_rollout': bound_ms(pi_by, 2 * n * n_pi * (H * mac_pi + (H - 1) * mac_dyn),
+                               BF16_FLOPS),
+        'rollout': bound_ms(ro_by, 2 * n * S * H * (mac_rew + mac_dyn), BF16_FLOPS)}
+
+
+def wide_phases(zero_counts, read_counts, check_plan_counts):
+    """The 317M model on the card: mt80 at model_size 317 (80 tasks, task_dim
+    96, mlp_dim 4096, latent 1376, 8 Q heads), where the value step, the pi
+    rollout and the rollout take the layer-per-launch engine (ops/wide.py).
+    Returns (max |err| of each check, {path: launch counts}, the wide
+    route's rows of the JSON line).
+
+    - the value step (given actions; episodic under the gate rule, its flips
+      allowed within the logit spread of two plain versions, the CPU's and
+      the card's), the sampled step (exactly the given-actions launch on its
+      actions), the pi rollout (its launch held at each step on its own
+      inputs, at one env, N=8 and N=80 tasks; its free-running distance from
+      the plain rollout logged beside two plain versions') and the rollout
+      against their plain versions at one env and N=8 tasks; N=80 tasks
+      against 80 one-task launches bit for bit;
+    - `act_tasks` over the 80 tasks: its graph against the eager body;
+    - offline mt80 training (`OfflineTrainer`, env=None) on seeded chunks of
+      the mt80 dataset's geometry, then `act_tasks` over the 80 tasks;
+    - each kernel's time against its bound and its plain version's.
+    """
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+    from tdmpc2_tpu_torch.config import load_cfg
+    from tdmpc2_tpu_torch.data.buffer import Buffer
+    from tdmpc2_tpu_torch.models import layers
+    from tdmpc2_tpu_torch.models.layers import simnorm
+    from tdmpc2_tpu_torch.ops import cem, rollout, value, wide
+    from tdmpc2_tpu_torch.tdmpc2 import PLAN_WRAPPERS, TDMPC2
+    from tdmpc2_tpu_torch.trainer.offline import OfflineTrainer
+    from tdmpc2_tpu_torch.utils import tree
+    from tdmpc2_tpu_torch.utils.cuda_graph import Graph
+    from tdmpc2_tpu_torch.utils.logger import Logger
+    dev = torch.device('cuda')
+    errs, paths, rows = {}, {}, []
+    NT = len(MT80_ACTION_DIMS)
+    tag = f'model_size {WIDE_SIZE}'
+
+    with Phase(f'wide engine at {tag}, mt80 ({NT} tasks): the planner\'s kernels vs plain '
+               f'at one env and N={len(WIDE_TASKS)} tasks, N={NT} vs {NT} one-task launches, '
+               'the rollout, the plan\'s graph'):
+        t0 = time.perf_counter()
+        cfg = mt30_cfg(load_cfg, model_size=WIDE_SIZE, task='mt80')
+        ag = TDMPC2(cfg, device='cuda')
+        wg = torch.Generator().manual_seed(SEED + WIDE_SIZE)
+        ag.load_params(perturbed(ag.model.init(wg), wg, sweep_scale(cfg.mlp_dim)))
+        prep = ag.prep
+        H, S, A, L = cfg.horizon, cfg.num_samples, cfg.action_dim, cfg.latent_dim
+        M, n_pi, HA, I = cfg.mlp_dim, cfg.num_pi_trajs, cfg.horizon * cfg.action_dim, ag.iterations
+        heads = dict(log_std_min=ag.model.log_std_min,
+                     log_std_dif=ag.model.log_std_dif, simnorm_dim=cfg.simnorm_dim)
+        n_par = sum(x.numel() for x in tree.leaves(ag.params))
+        plans = {k: value.kernel_plan(prep, cfg.simnorm_dim, H, k)
+                 for k in ('value', 'pi_rollout')}
+        log(f'  {n_par:,} parameters (L={L}, M={M}, num_q={cfg.num_q}, task_dim '
+            f'{cfg.task_dim}, A={A}), built in {time.perf_counter() - t0:.1f} s; bias tables '
+            f'{tuple(prep["db0"].shape)}, Q {tuple(prep["qb0"].shape)}; plans {plans}')
+        if any(p['route'] != 'wide' or p['engine'] != 'wide' for p in plans.values()):
+            raise AssertionError(f'{tag}: not the wide engine: {plans}')
+        g = torch.Generator(device=dev).manual_seed(SEED + WIDE_SIZE)
+        tt = torch.arange(NT, dtype=torch.int32, device=dev)
+        amask = ag.amask[tt.long()].contiguous()
+        discs = ag.discs[tt.long()]
+        obs = torch.randn(NT, cfg.obs_shape['state'][0], device=dev, generator=g)
+        obs *= torch.arange(obs.shape[1], device=dev) < torch.tensor(
+            MT80_OBS_DIMS, device=dev)[:, None]
+        z = ag.model.encode(ag.params, obs, tt.long())[:, None]
+        noise = ag.draw_noise(NT)
+        mean = torch.rand(NT, HA, device=dev, generator=g) * 1.6 - 0.8
+        std = torch.rand(NT, HA, device=dev, generator=g) * 1.9 + 0.1
+        given = (torch.rand(NT, H, S, A, device=dev, generator=g) * 2 - 1) * amask[:, None, None]
+        pa = cem.pi_rollout(prep, z, noise.pi_eps[:, :n_pi], **heads, task=tt, amask=amask)
+
+        def env_args(idx):
+            sel = (lambda x: x[idx])
+            v = (prep, sel(z).expand(len(idx), S, L), sel(given), sel(noise.eps[:, 0]),
+                 sel(noise.qidx[:, 0]), sel(discs))
+            vs = (prep, sel(z).expand(len(idx), S, L), sel(mean), sel(std),
+                  sel(noise.sample[:, 0]), sel(pa), sel(amask), sel(noise.eps[:, 0]),
+                  sel(noise.qidx[:, 0]), sel(discs))
+            pi = (prep, sel(z), sel(noise.pi_eps[:, :n_pi]))
+            return v, vs, pi, dict(task=sel(tt), amask=sel(amask))
+
+        # the episodic model: a termination head at these widths beside the
+        # same weights, spread and centred as the main phases' (split_termination)
+        e_cfg = cfg.replace(episodic=True)
+        e_params = dict(ag.params)
+        e_params['termination'] = tree.map(
+            lambda x: x.to(dev), perturbed(layers.mlp_init(
+                wg, L + cfg.task_dim, [M, M], 1), wg, sweep_scale(M)))
+        split_termination(types.SimpleNamespace(cfg=e_cfg, device=dev, params=e_params,
+                                                discs=ag.discs), g)
+        e_prep = value.prepare_value_params(e_params, e_cfg)
+        sub = torch.tensor(WIDE_TASKS, device=dev)
+        cases = {}
+        for label, idx in (('one env', sub[:1]), (f'N={len(WIDE_TASKS)}', sub)):
+            v, vs, pi, tk = env_args(idx)
+            cases[label] = (v, vs, pi, tk)
+            n = len(idx)
+            errs['value_317'] = max(errs.get('value_317', 0.0), hold(
+                f'{tag} value, {label}', value.value_estimate(*v, **heads, **tk),
+                value.value_estimate_plain(*v, **heads, **tk), VALUE_TOL))
+            # the sampled step: exactly sample_actions_plain and the
+            # given-actions launch on its actions, and the plain step
+            v_k, acts_k = value.value_sampled(*vs, **heads, task=tk['task'])
+            hold(f'{tag} sampled actions, {label}', acts_k,
+                 value.sample_actions_plain(*vs[2:7]), SAMPLE_TOL)
+            if not torch.equal(v_k, value.value_estimate(
+                    prep, vs[1], acts_k.view(n, S, H, A).permute(0, 2, 1, 3), *vs[7:],
+                    **heads, **tk)):
+                raise AssertionError(f'{tag}, {label}: the sampled launch differs from the '
+                                     'given-actions launch on its actions')
+            errs['value_sampled_317'] = max(errs.get('value_sampled_317', 0.0), hold(
+                f'{tag} value sampled, {label}', v_k,
+                value.value_sampled_plain(*vs, **heads, task=tk['task'])[0], VALUE_TOL))
+            # the pi rollout: its launch held at each step on its own
+            # inputs; with the latents written, bit for bit the launch without
+            pa_k = cem.pi_rollout(*pi, **heads, **tk)
+            own, e = pi_rollout_own_steps(f'{tag} pi_rollout, {label}', *pi, heads,
+                                          tk['task'], tk['amask'])
+            if not torch.equal(own, pa_k):
+                raise AssertionError(f'{tag} pi_rollout, {label}: writing the latents changes '
+                                     'the actions')
+            errs['cem_pi_rollout_317'] = max(errs.get('cem_pi_rollout_317', 0.0), e)
+            log_pi_drift(f'{tag} pi_rollout, {label}', pi, heads, tk, pa_k)
+            # the episodic step: given actions under the gate rule, and the
+            # sampled mode exactly against it
+            ev = (e_prep,) + v[1:]
+            k_at = torch.empty(n, S, dtype=torch.int32, device=dev)
+            p_at = torch.empty_like(k_at)
+            got = value.value_estimate(*ev, **heads, **tk, episodic=True, term_at=k_at)
+            ref = value.value_estimate_plain(*ev, **heads, **tk, episodic=True, term_at=p_at)
+            logits, _ = value.termination_trace_plain(*ev[:3], ev[5], cfg.simnorm_dim,
+                                                      task=tk['task'])
+            flips, bad = value.gate_check(got, ref, k_at, p_at, logits, **VALUE_TOL,
+                                          near=GATE_NEAR)
+            agree = (k_at == p_at)[..., None]
+            e_err = max_err(got[agree], ref[agree])
+            log(f'  {tag} value episodic, {label}: rows flagged by t=1..{H} (plain) '
+                + ', '.join(f'{100 * x:.1f}%' for x in flag_shares(p_at, H))
+                + f'; max |err| {e_err:.3g} on the {int(agree.sum())} rows whose flags '
+                f'agree (band {VALUE_TOL}); {flips} flips with |logit| < {GATE_NEAR}, '
+                f'{bad} rows outside the gate rule')
+            if bad:
+                # at 4096 columns a flip may fall where |logit| >= GATE_NEAR: it
+                # is allowed where |logit| is within the spread of two plain
+                # versions' logits (the CPU's, the card's) on these inputs
+                cpu_prep = {k: x.cpu() for k, x in e_prep.items() if k[0] not in 'pq'}
+                lc, _ = value.termination_trace_plain(
+                    cpu_prep, ev[1].cpu(), ev[2].cpu(), ev[5].cpu(), cfg.simnorm_dim,
+                    task=tk['task'].cpu())
+                spread = max_err(lc, logits.cpu())
+                flips, bad = value.gate_check(got, ref, k_at, p_at, logits, **VALUE_TOL,
+                                              near=max(GATE_NEAR, spread))
+                log(f'  two plain versions (CPU against the card), {label}: termination '
+                    f'logits differ by up to {spread:.3g} (logit std '
+                    f'{float(logits.std()):.3g}); at that spread {flips} flips, {bad} rows '
+                    'outside the gate rule')
+                if bad:
+                    raise AssertionError(f'{tag} value episodic, {label}: {bad} rows outside '
+                                         f'the gate rule at the plain spread {spread:.3g}')
+            if flips > GATE_FLIP_SHARE * ref.numel():
+                raise AssertionError(f'{tag} value episodic, {label}: {flips} flips')
+            errs['value_sampled_episodic_317'] = max(
+                errs.get('value_sampled_episodic_317', 0.0), e_err)
+            hold_sampled(f'{tag} episodic, {label}', (e_prep,) + vs[1:], heads,
+                         episodic=True, task=tk['task'], gate_rule=False)
+            n8 = n
+        # N=8 against 8 one-task launches, both branches
+        v, vs, pi, tk = cases[f'N={n8}']
+        for e_label, pr, kw in (('', prep, {}), (' episodic', e_prep, dict(episodic=True))):
+            got = value.value_sampled(pr, *vs[1:], **heads, **kw, task=tk['task'])
+            for i in range(n8):
+                one = value.value_sampled(pr, *[x[i:i + 1] for x in vs[1:]], **heads, **kw,
+                                          task=tk['task'][i:i + 1])
+                if not all(torch.equal(a[i:i + 1], b) for a, b in zip(got, one)):
+                    raise AssertionError(f'{tag}{e_label}: env {i} of the N={n8} launch '
+                                         'differs from its one-env launch')
+        log(f'  {tag}: the N={n8} sampled step (and its episodic branch) equals {n8} '
+            'one-task launches bit for bit')
+        # N=80 tasks: each launch against the plain sampling and the given-actions
+        # launch exactly, and against 80 one-task launches bit for bit
+        vs80 = (prep, z.expand(NT, S, L), mean, std, noise.sample[:, 0], pa, amask,
+                noise.eps[:, 0], noise.qidx[:, 0], discs)
+        v80, acts80 = value.value_sampled(*vs80, **heads, task=tt)
+        hold(f'{tag} sampled actions, N={NT}', acts80,
+             value.sample_actions_plain(*vs80[2:7]), SAMPLE_TOL)
+        ref80 = value.value_estimate(prep, vs80[1], acts80.view(NT, S, H, A).permute(
+            0, 2, 1, 3), *vs80[7:], **heads, task=tt, amask=amask)
+        if not torch.equal(v80, ref80):
+            raise AssertionError(f'{tag}: the N={NT} sampled launch differs from the '
+                                 'given-actions launch on its actions')
+        for i in range(NT):
+            sl = slice(i, i + 1)
+            one_pa = cem.pi_rollout(prep, z[sl], noise.pi_eps[sl, :n_pi], **heads,
+                                    task=tt[sl], amask=amask[sl])
+            one = value.value_sampled(*[x if x is prep else x[sl] for x in vs80], **heads,
+                                      task=tt[sl])
+            if not (torch.equal(pa[sl], one_pa) and torch.equal(v80[sl], one[0])
+                    and torch.equal(acts80[sl], one[1])):
+                raise AssertionError(f'{tag}: the N={NT} launch differs from task {i}\'s')
+        # the pi rollout at the plan's shape (N=80 tasks of n_pi rows, H
+        # steps): its launch held at each step on its own inputs
+        pi80 = (prep, z, noise.pi_eps[:, :n_pi])
+        own, e = pi_rollout_own_steps(f'{tag} pi_rollout, N={NT}', *pi80, heads, tt, amask)
+        if not torch.equal(own, pa):
+            raise AssertionError(f'{tag} pi_rollout, N={NT}: writing the latents changes the '
+                                 'actions')
+        errs['cem_pi_rollout_317'] = max(errs['cem_pi_rollout_317'], e)
+        log_pi_drift(f'{tag} pi_rollout, N={NT}', pi80, heads, dict(task=tt, amask=amask), pa)
+        masked = (torch.arange(A, device=dev) >= torch.tensor(
+            MT80_ACTION_DIMS, device=dev)[:, None]).float()
+        for name, x in (('policy rows', pa), ('sampled actions', acts80)):
+            if float((x.reshape(NT, -1, H, A).abs() * masked[:, None, None]).max()) != 0:
+                raise AssertionError(f'{tag}: {name} not 0 in masked columns')
+        log(f'  {tag}: pi rollout and sampled value at N={NT} equal {NT} one-task '
+            'launches bit for bit, the sampled launch equals the given-actions launch; '
+            'masked columns 0')
+        # the rollout (single-task: task 0's folded bias rows)
+        prep_r = rollout.prepare_rollout_params(
+            ag.params['dynamics'], ag.params['reward'], L, cfg.vmin, cfg.vmax,
+            emb=value.task_embeddings(ag.params)[:1])
+        r_args = (prep_r, simnorm(torch.randn(S, L, device=dev, generator=g), cfg.simnorm_dim),
+                  given[0])
+        r_kw = dict(horizon=H, discount=float(ag.discount[0]), simnorm_dim=cfg.simnorm_dim)
+        Gk, zHk = rollout.rollout_prepared(*r_args, **r_kw)
+        Gp, zHp = rollout.rollout_prepared_plain(*r_args, **r_kw)
+        errs['rollout_317'] = max(hold(f'{tag} rollout G', Gk, Gp, ROLLOUT_TOL),
+                                  hold(f'{tag} rollout z_H', zHk, zHp, ROLLOUT_TOL))
+        # act_tasks: one graph replay against the eager body on the same draws
+        obs_np = obs.cpu().numpy()
+        tasks = np.arange(NT)
+        a, pm = ag.act_tasks(obs_np, np.zeros((NT, H, A), np.float32), True, tasks)
+        pm0 = pm.clone()
+        ag.generator.manual_seed(SEED + 80)
+        counts = [w.launches for w in PLAN_WRAPPERS]
+        w0, replays = wide.engine_launches.launches, Graph.replays.get('plan', 0)
+        a, pm = ag.act_tasks(obs_np, pm, False, tasks)
+        launched = [w.launches - c for w, c in zip(PLAN_WRAPPERS, counts)]
+        w_plan = wide.engine_launches.launches - w0
+        pm_graph = pm.clone()
+        pm.copy_(pm0)
+        ag.generator.manual_seed(SEED + 80)
+        a_e, _ = ag._plan_body(prep, obs, torch.zeros(NT, dtype=torch.bool, device=dev),
+                               ag.draw_noise(NT), True, tt, pm)
+        if (Graph.replays['plan'] != replays + 1 or launched != [1, I, I]
+                or w_plan != wide.plan_launches(H, I, False)):
+            raise AssertionError(f'{tag} act_tasks graph: launches {launched}, wide {w_plan}')
+        if not (np.array_equal(a, a_e.cpu().numpy()) and torch.equal(pm_graph, pm)):
+            raise AssertionError(f'{tag} act_tasks graph: the replay differs from the eager '
+                                 f'body (max |err| {max_err(torch.from_numpy(a), a_e.cpu()):.3g})')
+        log(f'  act_tasks N={NT}: one replay ({launched} calls, {w_plan} launches of the '
+            'wide engine) equals the eager body bit for bit')
+
+        # times and bounds (CUDA events; own device time by torch.profiler)
+        used = len(set(noise.qidx[:, 0].flatten().tolist()))
+        n8_used = len(set(cases[f'N={n8}'][1][8].flatten().tolist()))
+        one_used = 2
+        timed = {
+            'value_sampled_317': (value.value_sampled, value.value_sampled_plain,
+                                  lambda c: (c[1], dict(heads, task=c[3]['task'])),
+                                  'value_sampled', False, 'tdmpc2_tpu_torch/csrc/value.cu',
+                                  'tdmpc2_tpu/ops/pallas_rollout.py:437'),
+            'value_sampled_episodic_317': (
+                value.value_sampled, value.value_sampled_plain,
+                lambda c: ((e_prep,) + c[1][1:], dict(heads, task=c[3]['task'], episodic=True)),
+                'value_sampled', True, 'tdmpc2_tpu_torch/csrc/value.cu',
+                'tdmpc2_tpu/ops/pallas_rollout.py:437'),
+            'cem_pi_rollout_317': (cem.pi_rollout, cem.pi_rollout_plain,
+                                   lambda c: (c[2], dict(heads, **c[3])), 'pi_rollout', False,
+                                   'tdmpc2_tpu_torch/csrc/cem.cu',
+                                   'tdmpc2_tpu/ops/pallas_cem.py:53')}
+        for name, (kern, plain, pick, bkey, episodic, src, rpl) in timed.items():
+            row = {'name': name, 'route': 'cuda', 'source': src, 'replaces': rpl,
+                   'engine': 'wide', 'model_size': WIDE_SIZE, 'launches': None,
+                   'max_abs_err': errs[name], 'n_envs': n8, 'library_ms': None}
+            per_call = (wide.pi_rollout_launches(H) if bkey == 'pi_rollout'
+                        else wide.value_launches(H, episodic))
+            runs = [('', cases[f'N={n8}'], n8, n8_used), ('_n1', cases['one env'], 1, one_used)]
+            if not episodic:
+                runs.append(('_n80', ((), vs80, (prep, z, noise.pi_eps[:, :n_pi]),
+                                      dict(task=tt, amask=amask)), NT, used))
+            for suffix, c, n, heads_used in runs:
+                args, kw = pick(c)
+                w0 = wide.engine_launches.launches
+                kern(*args, **kw)
+                counted = wide.engine_launches.launches - w0
+                if counted != per_call:
+                    raise AssertionError(f'{name} (N={n}): {counted} device launches counted, '
+                                         f'{per_call} expected')
+                ms = time_ms(lambda: kern(*args, **kw), 10 if n < NT else 3)
+                dev_ms, _, top = device_share(lambda: kern(*args, **kw), 3 if n < NT else 2)
+                plain_ms = (time_ms(lambda: plain(*args, **kw), 2) if n < NT else None)
+                b_ms, b_by = wide_bounds(prep if not episodic else e_prep, n, S, H, A, n_pi,
+                                         heads_used, episodic, NT)[bkey]
+                row.update({f'ms{suffix}': ms, f'device_ms{suffix}': dev_ms,
+                            f'plain_ms{suffix}': plain_ms, f'bound_ms{suffix}': b_ms,
+                            f'bound_by{suffix}': b_by,
+                            f'device_launches_a_call{suffix}': counted})
+                log(f'  {name} (N={n}): kernel {ms:.4f} ms (its own device time {dev_ms} ms, '
+                    f'{counted} launches counted), plain '
+                    + ('not measured' if plain_ms is None else f'{plain_ms:.4f} ms')
+                    + f', bound {b_ms:.6f} ms ({b_by}), {ms / b_ms:.1f}x the bound')
+                for t, cnt, k in top or []:
+                    log(f'    {t:.3f} ms in {cnt:.0f} x {k[:90]}')
+            rows.append(row)
+        w0 = wide.engine_launches.launches
+        rollout.rollout_prepared(*r_args, **r_kw)
+        counted = wide.engine_launches.launches - w0
+        if counted != wide.rollout_launches(H):
+            raise AssertionError(f'rollout_317: {counted} device launches counted, '
+                                 f'{wide.rollout_launches(H)} expected')
+        ms = time_ms(lambda: rollout.rollout_prepared(*r_args, **r_kw), 10)
+        dev_ms = device_share(lambda: rollout.rollout_prepared(*r_args, **r_kw), 3)[0]
+        plain_ms = time_ms(lambda: rollout.rollout_prepared_plain(*r_args, **r_kw), 2)
+        b_ms, b_by = wide_bounds(prep_r, 1, S, H, A, 0, 0)['rollout']
+        log(f'  rollout_317 (S={S}): kernel {ms:.4f} ms (its own device time {dev_ms} ms, '
+            f'{counted} launches counted), plain {plain_ms:.4f} ms, bound '
+            f'{b_ms:.6f} ms ({b_by})')
+        rows.append({'name': 'rollout_317', 'route': 'cuda', 'engine': 'wide',
+                     'source': 'tdmpc2_tpu_torch/csrc/rollout.cu',
+                     'replaces': 'tdmpc2_tpu/ops/pallas_rollout.py:50', 'launches': 0,
+                     'max_abs_err': errs['rollout_317'], 'ms': ms, 'device_ms': dev_ms,
+                     'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
+                     'library_ms': None, 'model_size': WIDE_SIZE,
+                     'device_launches_a_call': counted})
+        del e_prep, e_params, cases, prep_r
+
+    with tempfile.TemporaryDirectory() as data_dir, \
+            Phase(f'path: offline training mt80, {tag}, {WIDE_STEPS} iterations '
+                  f'(OfflineTrainer, {WIDE_CHUNKS} seeded chunks of the mt80 dataset\'s '
+                  f'geometry), then act_tasks over the {NT} tasks'):
+        write_mt30_chunks(data_dir, WIDE_CHUNKS, WIDE_EPISODES, SEED, task='mt80')
+        t_cfg = mt30_cfg(load_cfg, [f'data_dir={data_dir}', f'steps={WIDE_STEPS}',
+                                    f'eval_freq={10 * WIDE_STEPS}', 'save_agent=false',
+                                    'exp_name=chip_smoke_mt80'],
+                         model_size=WIDE_SIZE, task='mt80')
+        trainer = OfflineTrainer(cfg=t_cfg, env=None, agent=ag, buffer=Buffer(t_cfg),
+                                 logger=Logger(t_cfg))
+        infos = []
+        many = ag.update_many
+        ag.update_many = lambda buf, n: infos.append(many(buf, n)) or infos[-1]
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        paths['offline train mt80'] = read_counts()
+        del ag.update_many
+        buf = trainer.buffer
+        losses = torch.stack([torch.stack([i['total_loss'], i['pi_loss']]) for i in infos])
+        log(f'  {buf.num_eps} episodes loaded; {WIDE_STEPS} iterations ({len(infos)} '
+            f'update_many calls) in {secs:.1f} s with the load: last losses total '
+            f'{float(losses[-1, 0]):.4f}, pi {float(losses[-1, 1]):.4f}')
+        if not bool(torch.isfinite(losses).all()) or len(infos) != WIDE_STEPS // 8:
+            raise AssertionError(f'offline mt80: {len(infos)} calls, losses {losses}')
+        upd_ms = time_ms(lambda: ag.update_many(buf, 8), 1) / 8
+        busy, n_dev, _ = device_share(lambda: ag.update(buf), 2)
+        log(f'  update: {upd_ms:.3f} ms (CUDA events, update_many(8) / 8), '
+            f'{1e3 / upd_ms:.2f} update steps/s at batch {t_cfg.batch_size}; device busy '
+            f'{busy} ms of one update over {n_dev} device activities (torch.profiler)')
+        store, task_store = buf._storage['obs'], buf._task_store
+        first = torch.stack([torch.nonzero(task_store == t)[0, 0] for t in range(NT)])
+        obs_at = [store[first, r].cpu().numpy() for r in range(WIDE_ACT_STEPS + 1)]
+        ag._drop_graphs()        # the first act_tasks after training captures anew
+        zero_counts()
+        t0 = time.perf_counter()
+        a, pm = ag.act_tasks(obs_at[0], np.zeros((NT, H, A), np.float32), True, tasks)
+        capture_ms = 1e3 * (time.perf_counter() - t0)
+        for r in range(1, WIDE_ACT_STEPS + 1):
+            a, pm = ag.act_tasks(obs_at[r], pm, False, tasks)
+        paths['act_tasks mt80'] = read_counts()
+        check_plan_counts(f'act_tasks mt80 (N={NT}, {tag})', paths['act_tasks mt80'],
+                          WIDE_ACT_STEPS + 1, wide.plan_launches(H, I, False))
+        if not np.isfinite(a).all() or any(
+                (a[i, MT80_ACTION_DIMS[i]:] != 0).any() for i in range(NT)):
+            raise AssertionError('act_tasks mt80: non-finite actions or a masked column set')
+        ms = host_ms(lambda: ag.act_tasks(obs_at[-1], pm, False, tasks), 3)
+        busy, n_dev, top = device_share(lambda: ag.act_tasks(obs_at[-1], pm, False, tasks), 2)
+        log(f'  act_tasks N={NT}: first call (eager warm-up and capture) {capture_ms:.1f} ms; '
+            f'then {ms:.3f} ms a call ({1e3 * NT / ms:.1f} task-plans/s, host clock); device '
+            f'busy {busy} ms (' + ('not measured' if busy is None else
+                                   f'{100 * busy / ms:.1f}% of the call')
+            + f') over {n_dev} activities')
+        for t, n, k in top or []:
+            log(f'    {t:.3f} ms in {n:.0f} x {k[:90]}')
+        o1 = obs_at[-1][30]
+        ag.act(o1, t0=True, eval_mode=True, task=30)
+        ms1 = host_ms(lambda: ag.act(o1, eval_mode=True, task=30), 5)
+        busy1, _, _ = device_share(lambda: ag.act(o1, eval_mode=True, task=30), 2)
+        log(f'  act, one env (task 30, {tag}): {ms1:.3f} ms a call (host clock), device busy '
+            f'{busy1} ms')
+        for row in rows:
+            key = {'value_sampled_317': 'value_sampled',
+                   'value_sampled_episodic_317': None,
+                   'cem_pi_rollout_317': 'cem_pi_rollout'}.get(row['name'])
+            if key is not None:
+                row['launches'] = paths['act_tasks mt80'][key]
+            elif row['name'] == 'value_sampled_episodic_317':
+                row['launches'] = 0
+        del trainer, ag, buf, store
     return errs, paths, rows
 
 
@@ -1682,7 +2277,7 @@ def main() -> int:
         from tdmpc2_tpu_torch.envs import make_env
         from tdmpc2_tpu_torch.evaluate import evaluate
         from tdmpc2_tpu_torch.models.layers import simnorm
-        from tdmpc2_tpu_torch.ops import _build, cem, probe, rollout, value
+        from tdmpc2_tpu_torch.ops import _build, cem, probe, rollout, value, wide
         from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
         from tdmpc2_tpu_torch.trainer.online import OnlineTrainer
         from tdmpc2_tpu_torch.trainer.vec_online import VecOnlineTrainer
@@ -1761,16 +2356,27 @@ def main() -> int:
         log(f'  value range [{float(v_p.min()):.3f}, {float(v_p.max()):.3f}]')
 
     plans = {}
-    with Phase('row-tile plans of the tensor-core kernels (default 5M model)'):
+    wide_kernels = ('gemm_kernel', 'row_kernel<', 'stage_kernel')
+    with Phase('plans of the tensor-core kernels (default 5M model): the row tiles, '
+               'and the wide engine the rollout takes'):
         for kname in ('value', 'pi_rollout', 'rollout'):
-            plans[kname] = value.kernel_plan(prep, cfg.simnorm_dim, H, kname)
-            regs = {k: v for k, v in usage.items() if k.startswith(kname + '_kernel<')}
-            log(f'  {kname}_kernel: RT={plans[kname]["rt"]}, '
-                f'{plans[kname]["smem_bytes"]} bytes of shared memory, '
-                f'{plans[kname]["stages"]} ring stages, '
-                f'{plans[kname]["blocks_per_sm"]} block(s) per SM; ptxas {regs}')
-            if plans[kname]['blocks_per_sm'] < 1:
+            plans[kname] = pl = value.kernel_plan(prep, cfg.simnorm_dim, H, kname)
+            if pl['route'] == 'rows':
+                regs = {k: v for k, v in usage.items() if k.startswith(kname + '_kernel<')}
+                log(f'  {kname}_kernel: RT={pl["rt"]}, {pl["smem_bytes"]} bytes of shared '
+                    f'memory, {pl["stages"]} ring stages, {pl["blocks_per_sm"]} block(s) '
+                    f'per SM; ptxas {regs}')
+            else:
+                regs = {k: v for k, v in usage.items() if k.startswith(wide_kernels)}
+                log(f'  {kname} (wide engine): product blocks of {pl["bm"]} rows x '
+                    f'{pl["bn"]} columns, K {pl["bk"]} a stage, {pl["stages"]} stages, '
+                    f'{pl["smem_bytes"]} bytes of shared memory, {pl["blocks_per_sm"]} '
+                    f'block(s) per SM; ptxas {regs}')
+            if pl['blocks_per_sm'] < 1:
                 raise AssertionError(f'{kname}: no block fits an SM')
+        if (plans['value']['route'], plans['pi_rollout']['route'],
+                plans['rollout']['route']) != ('rows', 'rows', 'wide'):
+            raise AssertionError(f'engines at the default widths: {plans}')
         log(f'  device functions: '
             f'{ {k: v for k, v in usage.items() if "_layer<" in k} }')
 
@@ -2056,8 +2662,8 @@ def main() -> int:
             hold_plan_graph(label, ag, n, ev, SEED + n)
 
     sweep = {}
-    with Phase(f'width sweep: value (and its episodic branch) and pi rollout kernels '
-               f'vs plain at model_size {SWEEP_SIZES}, one env, S={S}'):
+    with Phase(f'width sweep: value (and its episodic branch), pi rollout and rollout '
+               f'kernels vs plain at model_size {SWEEP_SIZES}, one env, S={S}'):
         for size in SWEEP_SIZES:
             wcfg = load_cfg(overrides=EP_ARGS + [f'seed={SEED}', f'model_size={size}'])
             make_env(wcfg)
@@ -2093,13 +2699,25 @@ def main() -> int:
             pi_w = (w_prep, zw[None], w_agent.draw_noise().pi_eps[:, :n_pi])
             err_p = hold(f'{tag} pi_rollout', cem.pi_rollout(*pi_w, **heads),
                          cem.pi_rollout_plain(*pi_w, **heads), PI_TOL)
+            wp_r = rollout.prepare_rollout_params(w_agent.params['dynamics'],
+                                                  w_agent.params['reward'], wL,
+                                                  wcfg.vmin, wcfg.vmax)
+            wr_args = (wp_r, w_args[1][0], w_args[2][0])
+            wr_kw = dict(horizon=H, discount=w_agent.discount, simnorm_dim=wcfg.simnorm_dim)
+            Gw, zHw = rollout.rollout_prepared(*wr_args, **wr_kw)
+            Gwp, zHwp = rollout.rollout_prepared_plain(*wr_args, **wr_kw)
+            err_r = max(hold(f'{tag} rollout G', Gw, Gwp, ROLLOUT_TOL),
+                        hold(f'{tag} rollout z_H', zHw, zHwp, ROLLOUT_TOL))
+            results['rollout'] = max(results['rollout'], err_r)
             ms = time_ms(lambda: value.value_estimate(*w_args, **heads), 20)
             ms_pi = time_ms(lambda: cem.pi_rollout(*pi_w, **heads), 20)
+            ms_r = time_ms(lambda: rollout.rollout_prepared(*wr_args, **wr_kw), 20)
             sweep[size] = dict(plan=wplan, value_err=err_v, episodic_err=err_e,
-                               pi_err=err_p, value_ms=ms, pi_ms=ms_pi)
+                               pi_err=err_p, rollout_err=err_r, value_ms=ms, pi_ms=ms_pi,
+                               rollout_ms=ms_r)
             log(f'  {tag}: plan {wplan}; value kernel {ms:.4f} ms, pi rollout '
-                f'{ms_pi:.4f} ms (CUDA events)')
-            del w_agent, w_prep, w_args
+                f'{ms_pi:.4f} ms, rollout (wide engine) {ms_r:.4f} ms (CUDA events)')
+            del w_agent, w_prep, w_args, wp_r, wr_args
 
     with Phase('weight prep: prepare_value_params with its packed copies, 5M model'):
         prep_ms = host_ms(lambda: value.prepare_value_params(agent.params, cfg), 20)
@@ -2477,6 +3095,7 @@ def main() -> int:
 
     mt_errs, mt_paths, mt_rows = multitask_phases(zero_counts, read_counts,
                                                   check_plan_counts)
+    w_errs, w_paths, w_rows = wide_phases(zero_counts, read_counts, check_plan_counts)
     ckpt_errs, ckpt_paths, ckpt_read_s = checkpoint_phases(
         zero_counts, read_counts, check_plan_counts, hold_update)
 
@@ -2568,7 +3187,7 @@ def main() -> int:
                  'evaluate episodic': ev_ep_launches,
                  'train episodic, one env': ep_launches,
                  f'train episodic, num_envs={NE}': vep_launches, **mt_paths,
-                 **ckpt_paths}
+                 **w_paths, **ckpt_paths}
         episodic_paths = ('evaluate episodic', 'train episodic, one env',
                           f'train episodic, num_envs={NE}')
         kernels = []
@@ -2621,6 +3240,11 @@ def main() -> int:
                       'tdmpc2_tpu/ops/pallas_rollout.py:233', vec_launches),
         }
         for name, (kern, plain, lib, (b_ms, b_by), src, rpl, own) in others.items():
+            w0 = wide.engine_launches.launches
+            kern()
+            counted = wide.engine_launches.launches - w0
+            if counted != (wide.rollout_launches(H) if name == 'rollout' else 0):
+                raise AssertionError(f'{name}: {counted} launches of the wide engine counted')
             ms = time_ms(kern, 50)
             plain_ms = time_ms(plain, 10)
             lib_ms = time_ms(lib, 50) if lib is not None else None
@@ -2650,10 +3274,13 @@ def main() -> int:
                 'library_ms': lib_ms, 'library_device_ms': lib_dev_ms}
             if name == 'rollout':
                 row['plan'] = plans['rollout']
+                row['engine'] = 'wide'
+                row['device_launches_a_call'] = counted
                 row['ptxas'] = {k: v for k, v in usage.items()
-                                if k.startswith('rollout_kernel<')}
+                                if k.startswith(wide_kernels)}
             kernels.append(row)
         kernels.extend(mt_rows)
+        kernels.extend(w_rows)
         for label, args, kw in (('one env', plan_args, plan_kw),
                                 (f'N={NE}', plan_n_args, plan_kw),
                                 (f'episodic N={NE}', e_plan_args, e_plan_kw)):

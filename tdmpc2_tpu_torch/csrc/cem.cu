@@ -24,6 +24,10 @@
 //                      barrier), boundary-shell tie weights, softmax-weighted
 //                      mean/std update over the weighted rows only
 //
+// At widths above the row tiles (model_size 317) the pi rollout takes the
+// layer-per-launch engine of mlp_wide.cuh (tdm_pi_rollout_wide); the elite
+// kernel does not depend on the widths.
+//
 // Bounds, default 5M model at S=512: the value step carries the plan
 // (~36 GFLOP over 6 iterations, ~36 us at 989 TFLOP/s). The pi rollout is
 // 24 rows on the tensor-core row-tile engine (mlp_rows.cuh): H steps of the
@@ -33,7 +37,7 @@
 // and sits far below any throughput bound: what it takes is launch and
 // latency (its design is at elite_kernel). The sampling has no kernel of
 // its own: a microsecond of work would sit inside a launch's fixed cost.
-#include "mlp_rows.cuh"
+#include "mlp_wide.cuh"
 
 namespace tdm {
 
@@ -583,6 +587,38 @@ extern "C" int tdm_pi_rollout(const void* const* wptrs, const int* dims, float l
 
 // out = {rows per block, shared bytes, ring stages, blocks per SM} of the
 // pi-rollout kernel at these dims; returns an error code.
+// The pi rollout on the wide engine (mlp_wide.cuh), one layer a launch:
+// the latent staged once, then per step the policy (its actions to pi_acts
+// and into the action columns) and, but after the last, the dynamics.
+// Operands as tdm_pi_rollout's, then the scratch buffers and their row
+// strides (ops/wide.py); `launched` receives the number of launches. When
+// `latents` is not null it receives each step's latent z_1 .. z_{H-1} in f32,
+// [H-1, N * n_pi, L], as the dynamics writes it.
+extern "C" int tdm_pi_rollout_wide(const void* const* wptrs, const int* dims, float lsmin,
+                                   float lsdif, int N, int n_pi, const float* z0, long zn,
+                                   const float* pi_eps, long pn, const int* task, int ntask,
+                                   const float* amask, long amn, float* pi_acts,
+                                   const void* const* scratch, const long* lds, float* latents,
+                                   int* launched, void* stream) {
+  using namespace tdm;
+  Wide wd(wptrs, dims, N, n_pi, task, ntask, scratch_from(scratch, lds),
+          static_cast<cudaStream_t>(stream));
+  if (!wide_fits(wd.d)) return kNoPlan;
+  const int A = wd.d.A, HA = wd.d.H * A;
+  StageArgs s{};
+  s.load_z = 1;
+  s.z0 = z0;
+  s.zn = zn;
+  wd.stage(s);
+  for (int t = 0; t < wd.d.H; ++t) {
+    wd.policy(pi_eps + t * A, pn, HA, amask, amn, lsmin, lsdif, pi_acts + t * A, HA);
+    if (t + 1 < wd.d.H)
+      wd.dynamics(latents == nullptr ? nullptr : latents + t * wd.R * wd.d.L);
+  }
+  *launched = wd.launched;
+  return wd.err;
+}
+
 extern "C" int tdm_pi_rollout_plan(const int* dims, int* out) {
   using namespace tdm;
   const Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6]};

@@ -49,6 +49,12 @@
 // The grouped SimNorm softmax is computed directly, where the TPU kernel
 // used a block-diagonal mask product.
 //
+// Widths above the row tiles (model_size 317: mlp_dim 4096) take the
+// layer-per-launch engine of mlp_wide.cuh instead (tdm_value_wide,
+// tdm_value_sampled_wide): the same arithmetic, one launch a layer and a
+// row kernel after each product, the env's two Q heads only. The wrapper
+// picks the engine from the widths (ops/wide.py engine), never by trying.
+//
 // Sampled mode (the planner's step, ops/value.py value_sampled): the kernel
 // also does the CEM sampling of the TPU kernel _cem_kernel
 // (tdmpc2_tpu/ops/pallas_cem.py:136-147), which there runs in the same
@@ -61,26 +67,9 @@
 // Each action is written once, in f32, to acts [N, S, H*A] for the elite
 // step. The noise rows take the place of the action rows the given-actions
 // mode reads, at the same size.
-#include "mlp_rows.cuh"
+#include "mlp_wide.cuh"
 
 namespace tdm {
-
-// The sampled mode's operands, each env's through an env stride: mean and
-// std [H*A], noise [S, H*A] and the n_pi policy-prior rows pi_acts
-// [n_pi, H*A] (rows H*A apart); the sampled actions acts [N, S, H*A].
-// mean == nullptr: the actions are given.
-struct Sampling {
-  const float* mean;
-  long mn;
-  const float* stdv;
-  long sn;
-  const float* noise;
-  long nn;
-  const float* pi_acts;
-  long pn;
-  int n_pi;
-  float* acts;
-};
 
 // Step t's actions of the block's rows, sampled as the module comment says
 // (the _rn intrinsics: no contraction into an fma, the roundings of the
@@ -317,6 +306,92 @@ extern "C" int tdm_value_sampled(const void* const* wptrs, const int* dims, floa
   return value_launch(wptrs, dims, lsmin, lsdif, episodic, N, S, z0, zn, zs, nullptr, 0, 0, 0,
                       sp, task, ntask, amask, amn, eps, en, qidx, qn, discs, dn, out, term_at,
                       stream);
+}
+
+namespace {
+
+// The value step on the wide engine (mlp_wide.cuh), one layer a launch:
+// per step, the actions staged (given or sampled, with the latent at t = 0),
+// the reward head, the dynamics and, on episodic tasks, the termination
+// gate; then the policy at z_H and the env's two Q heads. Operands as for
+// value_launch, and the call's scratch buffers.
+int value_wide(const void* const* wptrs, const int* dims, float lsmin, float lsdif,
+               int episodic, int N, int S, const float* z0, long zn, long zs,
+               const float* actions, long an, long ats, long ass, const tdm::Sampling& sp,
+               const int* task, int ntask, const float* amask, long amn, const float* eps,
+               long en, const int* qidx, long qn, const float* discs, long dn, float* out,
+               int* term_at, const void* const* scratch, const long* lds, int* launched,
+               void* stream) {
+  using namespace tdm;
+  Wide wd(wptrs, dims, N, S, task, ntask, scratch_from(scratch, lds),
+          static_cast<cudaStream_t>(stream));
+  if (!wide_fits(wd.d)) return kNoPlan;
+  for (int t = 0; t < wd.d.H; ++t) {
+    StageArgs s{};
+    s.t = t;
+    s.load_z = t == 0;
+    s.z0 = z0;
+    s.zn = zn;
+    s.zs = zs;
+    s.actions = sp.mean == nullptr ? actions : nullptr;
+    s.an = an;
+    s.ats = ats;
+    s.ass = ass;
+    s.sp = sp;
+    s.amask = amask;
+    s.amn = amn;
+    s.G = wd.sc.G;
+    s.q = wd.sc.q;
+    s.term = wd.sc.term;
+    s.term_at = term_at;
+    wd.stage(s);
+    wd.reward(discs, dn, t);
+    wd.dynamics();
+    if (episodic) wd.termination(t, term_at);
+  }
+  wd.policy(eps, en, wd.d.A, amask, amn, lsmin, lsdif);
+  wd.q_head(0, qidx, qn, discs, dn, out);
+  wd.q_head(1, qidx, qn, discs, dn, out);
+  *launched = wd.launched;
+  return wd.err;
+}
+
+}  // namespace
+
+// tdm_value on the wide engine: the same operands, then the scratch
+// buffers (x, h, y, G, q, term; ops/wide.py) and their row strides (x, h,
+// y); `launched` receives the number of launches. Returns kNoPlan when the
+// wide engine does not take the widths.
+extern "C" int tdm_value_wide(const void* const* wptrs, const int* dims, float lsmin,
+                              float lsdif, int episodic, int N, int S, const float* z0, long zn,
+                              long zs, const float* actions, long an, long ats, long ass,
+                              const int* task, int ntask, const float* amask, long amn,
+                              const float* eps, long en, const int* qidx, long qn,
+                              const float* discs, long dn, float* out, int* term_at,
+                              const void* const* scratch, const long* lds, int* launched,
+                              void* stream) {
+  const tdm::Sampling given{};
+  return value_wide(wptrs, dims, lsmin, lsdif, episodic, N, S, z0, zn, zs, actions, an, ats, ass,
+                    given, task, ntask, amask, amn, eps, en, qidx, qn, discs, dn, out, term_at,
+                    scratch, lds, launched, stream);
+}
+
+// tdm_value_sampled on the wide engine, with the scratch as tdm_value_wide.
+extern "C" int tdm_value_sampled_wide(const void* const* wptrs, const int* dims, float lsmin,
+                                      float lsdif, int episodic, int N, int S, const float* z0,
+                                      long zn, long zs, const float* mean, long mn,
+                                      const float* stdv, long sn, const float* noise, long nn,
+                                      const float* pi_acts, long pn, int n_pi, float* acts,
+                                      const int* task, int ntask, const float* amask, long amn,
+                                      const float* eps, long en, const int* qidx, long qn,
+                                      const float* discs, long dn, float* out, int* term_at,
+                                      const void* const* scratch, const long* lds,
+                                      int* launched, void* stream) {
+  if (amask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const tdm::Sampling sp{mean, mn, stdv, sn, noise, nn, pi_acts, pn, n_pi, acts};
+  return value_wide(wptrs, dims, lsmin, lsdif, episodic, N, S, z0, zn, zs, nullptr, 0, 0, 0, sp,
+                    task, ntask, amask, amn, eps, en, qidx, qn, discs, dn, out, term_at,
+                    scratch, lds, launched, stream);
 }
 
 // out = {rows per block, shared bytes of one block, ring stages, blocks

@@ -26,11 +26,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 SOURCES = ('value', 'cem', 'rollout', 'probe')
+WIDE_SOURCES = ('value', 'cem', 'rollout')   # the ones that include mlp_wide.cuh
 FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
          '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _PTRS, _INTS = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+_LONGS = ctypes.POINTER(ctypes.c_long)
 # (library, function) -> argtypes; every function returns a cudaError_t as int
 SIGNATURES = {
     ('value', 'tdm_value'): (_PTRS, _INTS, _F, _F, _I, _I, _I, _P, _L, _L, _P,
@@ -40,15 +42,26 @@ SIGNATURES = {
                                      _P, _L, _P, _L, _P, _L, _P, _L, _I, _P,
                                      _P, _I, _P, _L, _P, _L, _P, _L, _P, _L,
                                      _P, _P, _P),
+    ('value', 'tdm_value_wide'): (_PTRS, _INTS, _F, _F, _I, _I, _I, _P, _L, _L,
+                                  _P, _L, _L, _L, _P, _I, _P, _L, _P, _L, _P,
+                                  _L, _P, _L, _P, _P, _PTRS, _LONGS, _INTS,
+                                  _P),
+    ('value', 'tdm_value_sampled_wide'): (_PTRS, _INTS, _F, _F, _I, _I, _I, _P,
+                                          _L, _L, _P, _L, _P, _L, _P, _L, _P,
+                                          _L, _I, _P, _P, _I, _P, _L, _P, _L,
+                                          _P, _L, _P, _L, _P, _P, _PTRS,
+                                          _LONGS, _INTS, _P),
     ('value', 'tdm_value_plan'): (_INTS, _INTS),
     ('cem', 'tdm_pi_rollout_plan'): (_INTS, _INTS),
-    ('rollout', 'tdm_rollout_plan'): (_INTS, _INTS),
     ('cem', 'tdm_pi_rollout'): (_PTRS, _INTS, _F, _F, _I, _I, _P, _L, _P, _L,
                                 _P, _I, _P, _L, _P, _P),
+    ('cem', 'tdm_pi_rollout_wide'): (_PTRS, _INTS, _F, _F, _I, _I, _P, _L, _P,
+                                     _L, _P, _I, _P, _L, _P, _PTRS, _LONGS,
+                                     _P, _INTS, _P),
     ('cem', 'tdm_elite'): (_P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _F, _P,
                            _P, _P, _P),
     ('rollout', 'tdm_rollout'): (_PTRS, _INTS, _I, _P, _L, _P, _L, _L, _P,
-                                 _P, _P, _P),
+                                 _P, _P, _PTRS, _LONGS, _INTS, _P),
     ('probe', 'tdm_probe'): (_P, _P, _L, _P),
 }
 
@@ -135,23 +148,27 @@ def library(name: str, defines=()) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
         lib.tdm_error_name.argtypes = (ctypes.c_int,)
         lib.tdm_error_name.restype = ctypes.c_char_p
+        if name in WIDE_SOURCES:   # csrc/mlp_wide.cuh's report functions
+            lib.tdm_wide_plan.argtypes = (_INTS, _INTS)
+            lib.tdm_engine.argtypes = (_INTS,)
+            lib.tdm_wide_plan.restype = lib.tdm_engine.restype = ctypes.c_int
         _loaded[(name, defines)] = lib
     return lib
 
 
-# Returned by a launch function when no row tile fits the model's widths
-# (csrc/mlp_rows.cuh kNoPlan).
+# Returned by a launch function when its engine does not take the model's
+# widths (csrc/mlp_rows.cuh kNoPlan).
 NO_PLAN = 10000
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str, dims=None):
     """Raise if a launch function returned an error: ValueError naming the
-    widths (`dims`, csrc/mlp_rows.cuh's Dims order) when no row tile fits
-    them, RuntimeError for a CUDA error."""
+    widths (`dims`, csrc/mlp_rows.cuh's Dims order) when its engine does not
+    take them, RuntimeError for a CUDA error."""
     if rc == NO_PLAN:
         names = ('L', 'M', 'A', 'B', 'num_q', 'simnorm_dim', 'H')
         widths = ', '.join(f'{k}={v}' for k, v in zip(names, dims or ()))
-        raise ValueError(f'{what}: no row tile fits the widths ({widths}): '
+        raise ValueError(f'{what}: no engine takes the widths ({widths}): '
                          'the accumulators or shared memory are too small')
     if rc != 0:
         raise RuntimeError(

@@ -17,7 +17,9 @@ covers all N envs, 1 + 2 x iterations launches a plan:
                                tie weights, softmax-weighted mean/std update
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain
-version on CPU tensors. `cem_plan` chains the wrappers; `cem_plan_plain`
+version on CPU tensors. At widths above the row tiles (model_size 317) the
+pi rollout and the value step run on the layer-per-launch engine
+(ops/wide.py): still one wrapper call a step, of several launches. `cem_plan` chains the wrappers; `cem_plan_plain`
 chains the plain versions. All noise is input, laid out as for
 `cem_prepared` with a leading env axis N (N=1 for one env): z0 [N, 1, L];
 pi_eps [N, n_pi, H*A]; noise [N, I, S, H*A] (rows below n_pi unused); eps
@@ -43,7 +45,7 @@ import ctypes
 
 import torch
 
-from tdmpc2_tpu_torch.ops import _build
+from tdmpc2_tpu_torch.ops import _build, wide
 from tdmpc2_tpu_torch.ops.value import (check_prep, dynamics_plain, mask_rows,
                                         pi_action_plain, pi_head_plain,
                                         prep_dims,
@@ -73,9 +75,10 @@ def _stream(dev):
 
 def pi_rollout_plain(prep, z0, pi_eps, *, log_std_min: float,
                      log_std_dif: float, simnorm_dim: int = 8, task=None,
-                     amask=None):
+                     amask=None, latents=None):
     """z0 [N, 1, L]; pi_eps [N, n_pi, H*A]; task [N] or None; amask [A],
-    [N, A] or None (ones) -> actions [N, n_pi, H*A]."""
+    [N, A] or None (ones) -> actions [N, n_pi, H*A]. `latents` [H-1, N,
+    n_pi, L], when given, receives z_1 .. z_{H-1}."""
     A = prep['pWm'].shape[1]
     HA = pi_eps.shape[-1]
     z = z0.float().expand(*pi_eps.shape[:-1], z0.shape[-1])
@@ -86,20 +89,26 @@ def pi_rollout_plain(prep, z0, pi_eps, *, log_std_min: float,
         a = pi_action_plain(mean, ls, pi_eps[..., t * A:(t + 1) * A], m)
         out.append(a)
         z = dynamics_plain(prep, z, a, simnorm_dim, task)
+        if latents is not None and t + 1 < HA // A:
+            latents[t] = z
     return torch.cat(out, dim=-1)
 
 
 def pi_rollout(prep, z0, pi_eps, *, log_std_min: float, log_std_dif: float,
-               simnorm_dim: int = 8, task=None, amask=None):
+               simnorm_dim: int = 8, task=None, amask=None, latents=None):
     """The pi-rollout kernel on CUDA tensors, the plain version on CPU.
     pi_eps rows contiguous; any stride on the env axes. `task` (int32 [N])
-    and `amask` ([A] or [N, A]) as for ops/value.py `value_estimate`."""
+    and `amask` ([A] or [N, A]) as for ops/value.py `value_estimate`.
+    `latents`, a contiguous f32 [H-1, N, n_pi, L] tensor, receives the
+    latents z_1 .. z_{H-1} the kernel advances to: on the wide engine only
+    (the row tiles keep them in shared memory), to hold each step on its own
+    inputs."""
     dev = z0.device
     if dev.type == 'cpu':
         return pi_rollout_plain(prep, z0, pi_eps, log_std_min=log_std_min,
                                 log_std_dif=log_std_dif,
                                 simnorm_dim=simnorm_dim, task=task,
-                                amask=amask)
+                                amask=amask, latents=latents)
     if dev.type != 'cuda':
         raise ValueError(f'pi_rollout: unsupported device {dev}')
     check_prep(prep, dev, simnorm_dim)
@@ -117,10 +126,25 @@ def pi_rollout(prep, z0, pi_eps, *, log_std_min: float, log_std_dif: float,
     out = torch.empty(N, n_pi, HA, dtype=torch.float32, device=dev)
     lib = _build.library('cem')
     dims = (ctypes.c_int * 7)(*prep_dims(prep, simnorm_dim, HA // A))
-    rc = lib.tdm_pi_rollout(weight_ptrs(prep), dims, log_std_min, log_std_dif,
-                            N, n_pi, z0.data_ptr(), z0.stride(0),
-                            pi_eps.data_ptr(), pi_eps.stride(0), *tk,
-                            out.data_ptr(), _stream(dev))
+    args = (weight_ptrs(prep), dims, log_std_min, log_std_dif, N, n_pi,
+            z0.data_ptr(), z0.stride(0), pi_eps.data_ptr(), pi_eps.stride(0),
+            *tk, out.data_ptr())
+    route = wide.engine(lib, dims)
+    if latents is not None and (
+            route != 'wide' or latents.device != dev
+            or latents.dtype != torch.float32 or not latents.is_contiguous()
+            or latents.shape != (HA // A - 1, N, n_pi, L)):
+        raise ValueError(f'pi_rollout: latents must be a contiguous f32 '
+                         f'{(HA // A - 1, N, n_pi, L)} tensor on {dev}, on the '
+                         f'wide engine (this model takes the {route} engine)')
+    if route == 'rows':
+        rc = lib.tdm_pi_rollout(*args, _stream(dev))
+    else:
+        sc, n = wide.Scratch(N * n_pi, tuple(dims), dev), ctypes.c_int(0)
+        zs = None if latents is None else latents.data_ptr()
+        rc = lib.tdm_pi_rollout_wide(*args, sc.ptrs, sc.lds, zs,
+                                     ctypes.byref(n), _stream(dev))
+        wide.engine_launches.launches += n.value
     _build.check(lib, rc, 'pi_rollout kernel', dims)
     pi_rollout.launches += 1
     return out

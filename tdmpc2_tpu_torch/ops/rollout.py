@@ -10,7 +10,8 @@ and the final latent,
 
 `rollout_prepared` runs the hand-written kernel `csrc/rollout.cu` on CUDA
 tensors and `rollout_prepared_plain` on CPU tensors; any other device
-raises. The weights are laid out by `prepare_rollout_params` as for the
+raises. The kernel runs on the layer-per-launch engine (csrc/mlp_wide.cuh,
+ops/wide.py) at every width: 13 launches a step. The weights are laid out by `prepare_rollout_params` as for the
 value step (ops/value.py): the first layers split into latent and action
 rows. As there, SimNorm is a grouped softmax computed per group: the TPU
 kernel's block-diagonal mask product is not carried over, so no group mask
@@ -25,7 +26,7 @@ import ctypes
 
 import torch
 
-from tdmpc2_tpu_torch.ops import _build
+from tdmpc2_tpu_torch.ops import _build, wide
 # The rollout is the value step's first part: its weight prep and plain
 # version live in ops/value.py, which builds on them.
 from tdmpc2_tpu_torch.ops.value import (ROLLOUT_KERNEL_NAMES, check_prep,
@@ -76,16 +77,18 @@ def rollout_prepared(prep, z0, actions, *, horizon: int, discount: float,
         raise ValueError(f'rollout_prepared: z0 {tuple(z0.shape)} / actions '
                          f'{tuple(actions.shape)} must be f32 on {dev} with '
                          f'unit inner stride and L={L}')
+    dims = (ctypes.c_int * 7)(L, M, A, B, 0, simnorm_dim, horizon)
     discs = _discs(discount, horizon, dev)
     G = torch.empty(S, 1, dtype=torch.float32, device=dev)
     zH = torch.empty(S, L, dtype=torch.float32, device=dev)
     lib = _build.library('rollout')
-    dims = (ctypes.c_int * 7)(L, M, A, B, 0, simnorm_dim, horizon)
+    sc, n = wide.Scratch(S, tuple(dims), dev), ctypes.c_int(0)
     rc = lib.tdm_rollout(
         weight_ptrs(prep), dims, S, z0.data_ptr(), z0.stride(0),
         actions.data_ptr(), actions.stride(0), actions.stride(1),
-        discs.data_ptr(), G.data_ptr(), zH.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        discs.data_ptr(), G.data_ptr(), zH.data_ptr(), sc.ptrs, sc.lds,
+        ctypes.byref(n), torch.cuda.current_stream(dev).cuda_stream)
+    wide.engine_launches.launches += n.value
     _build.check(lib, rc, 'rollout kernel', dims)
     rollout_prepared.launches += 1
     return G, zH

@@ -50,6 +50,11 @@ The kernels read the matrices in a packed copy (`pack_matrix`) that the
 prep adds for bf16 weights: zero-padded to multiples of 16 and laid out in
 the order of the tensor-core fragments the kernels load
 (csrc/mlp_rows.cuh). The plain versions read the [in, out] matrices.
+
+Two engines run the kernel (ops/wide.py `engine`, from the widths alone):
+the row-tile engine up to 2048 columns (model_size 1 to 48), and above it
+(model_size 317) the layer-per-launch engine of csrc/mlp_wide.cuh, which
+reads the same packed copies and per-task bias tables.
 """
 
 from __future__ import annotations
@@ -60,7 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from tdmpc2_tpu_torch.models.layers import layer_norm, mish, simnorm
-from tdmpc2_tpu_torch.ops import _build
+from tdmpc2_tpu_torch.ops import _build, wide
 
 # The prepared weights the plain versions read.
 PREP_NAMES = (
@@ -615,14 +620,19 @@ def value_estimate(prep, z0, actions, eps, qidx, discs, *,
     out = torch.empty(N, S, 1, dtype=torch.float32, device=dev)
     lib = _build.library('value')
     dims = (ctypes.c_int * 7)(*prep_dims(prep, simnorm_dim, H))
-    rc = lib.tdm_value(
-        weight_ptrs(prep), dims, log_std_min, log_std_dif, int(episodic), N, S,
-        z0.data_ptr(), z0.stride(0), z0.stride(1),
-        actions.data_ptr(), actions.stride(0), actions.stride(1),
-        actions.stride(2), *tk, eps.data_ptr(), eps.stride(0), qidx.data_ptr(),
-        qidx.stride(0), discs.data_ptr(), discs.stride(0), out.data_ptr(),
-        None if term_at is None else term_at.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    args = (weight_ptrs(prep), dims, log_std_min, log_std_dif, int(episodic), N,
+            S, z0.data_ptr(), z0.stride(0), z0.stride(1),
+            actions.data_ptr(), actions.stride(0), actions.stride(1),
+            actions.stride(2), *tk, eps.data_ptr(), eps.stride(0),
+            qidx.data_ptr(), qidx.stride(0), discs.data_ptr(), discs.stride(0),
+            out.data_ptr(), None if term_at is None else term_at.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if wide.engine(lib, dims) == 'rows':
+        rc = lib.tdm_value(*args, stream)
+    else:
+        sc, n = wide.Scratch(N * S, tuple(dims), dev), ctypes.c_int(0)
+        rc = lib.tdm_value_wide(*args, sc.ptrs, sc.lds, ctypes.byref(n), stream)
+        wide.engine_launches.launches += n.value
     _build.check(lib, rc, 'value kernel', dims)
     value_estimate.launches += 1
     return out
@@ -675,15 +685,21 @@ def value_sampled(prep, z0, mean, std, noise, pi_acts, amask, eps, qidx, discs,
     acts = torch.empty(N, S, HA, dtype=torch.float32, device=dev)
     lib = _build.library('value')
     dims = (ctypes.c_int * 7)(*prep_dims(prep, simnorm_dim, H))
-    rc = lib.tdm_value_sampled(
-        weight_ptrs(prep), dims, log_std_min, log_std_dif, int(episodic), N, S,
-        z0.data_ptr(), z0.stride(0), z0.stride(1), mean.data_ptr(),
-        mean.stride(0), std.data_ptr(), std.stride(0), noise.data_ptr(),
-        noise.stride(0), pi_acts.data_ptr(), pi_acts.stride(0), n_pi,
-        acts.data_ptr(), *tk, eps.data_ptr(), eps.stride(0),
-        qidx.data_ptr(), qidx.stride(0), discs.data_ptr(), discs.stride(0),
-        out.data_ptr(), None if term_at is None else term_at.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    args = (weight_ptrs(prep), dims, log_std_min, log_std_dif, int(episodic), N,
+            S, z0.data_ptr(), z0.stride(0), z0.stride(1), mean.data_ptr(),
+            mean.stride(0), std.data_ptr(), std.stride(0), noise.data_ptr(),
+            noise.stride(0), pi_acts.data_ptr(), pi_acts.stride(0), n_pi,
+            acts.data_ptr(), *tk, eps.data_ptr(), eps.stride(0),
+            qidx.data_ptr(), qidx.stride(0), discs.data_ptr(), discs.stride(0),
+            out.data_ptr(), None if term_at is None else term_at.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if wide.engine(lib, dims) == 'rows':
+        rc = lib.tdm_value_sampled(*args, stream)
+    else:
+        sc, n = wide.Scratch(N * S, tuple(dims), dev), ctypes.c_int(0)
+        rc = lib.tdm_value_sampled_wide(*args, sc.ptrs, sc.lds, ctypes.byref(n),
+                                        stream)
+        wide.engine_launches.launches += n.value
     _build.check(lib, rc, 'value kernel (sampled)', dims)
     value_sampled.launches += 1
     return out, acts
@@ -694,16 +710,29 @@ value_sampled.launches = 0
 
 def kernel_plan(prep, simnorm_dim: int = 8, horizon: int = 3,
                 kernel: str = 'value') -> dict:
-    """The built kernel's plan for these weights' dims (csrc/mlp_rows.cuh
-    Plan): rows per block `rt`, shared-memory bytes of one block, weight
-    ring `stages`, and blocks that fit one SM. `kernel` is 'value',
-    'pi_rollout' or 'rollout'. Raises ValueError when no row tile fits."""
-    lib, fn = {'value': ('value', 'tdm_value_plan'),
-               'pi_rollout': ('cem', 'tdm_pi_rollout_plan'),
-               'rollout': ('rollout', 'tdm_rollout_plan')}[kernel]
-    lib = _build.library(lib)
+    """The built kernel's plan for these weights' dims. `kernel` is
+    'value', 'pi_rollout' or 'rollout'. On the row-tile engine
+    (csrc/mlp_rows.cuh Plan): route 'rows', rows per block `rt`,
+    shared-memory bytes of one block, weight ring `stages`, and blocks that
+    fit one SM. On the wide engine (csrc/mlp_wide.cuh; the rollout always):
+    route 'wide', a product block's rows `bm`, columns `bn` and K depth a
+    stage `bk`, its `stages`, shared bytes and blocks per SM. `engine` is
+    the engine the value kernel and the pi rollout take at these widths
+    (the rollout's route is 'wide' whatever it is). Raises ValueError when
+    no engine takes the widths."""
+    libname, fn = {'value': ('value', 'tdm_value_plan'),
+                   'pi_rollout': ('cem', 'tdm_pi_rollout_plan'),
+                   'rollout': ('rollout', None)}[kernel]
+    lib = _build.library(libname)
     dims = (ctypes.c_int * 7)(*prep_dims(prep, simnorm_dim, horizon))
-    out = (ctypes.c_int * 4)()
-    _build.check(lib, getattr(lib, fn)(dims, out), f'{kernel} plan', dims)
-    return dict(rt=out[0], smem_bytes=out[1], stages=out[2],
-                blocks_per_sm=out[3])
+    engine = wide.engine(lib, dims)
+    route = 'wide' if fn is None else engine
+    if route == 'rows':
+        out = (ctypes.c_int * 4)()
+        _build.check(lib, getattr(lib, fn)(dims, out), f'{kernel} plan', dims)
+        return dict(route=route, engine=engine, rt=out[0], smem_bytes=out[1],
+                    stages=out[2], blocks_per_sm=out[3])
+    out = (ctypes.c_int * 6)()
+    _build.check(lib, lib.tdm_wide_plan(dims, out), f'{kernel} plan', dims)
+    return dict(route=route, engine=engine, bm=out[0], bn=out[1], bk=out[2],
+                stages=out[3], smem_bytes=out[4], blocks_per_sm=out[5])

@@ -28,7 +28,11 @@ agent's plan is one jitted program (tdmpc2.py:153-157): one graph for each
 (n, eval_mode), captured at the first plan of that pair, whose eager
 warm-up is that plan's result; later plans refill its inputs in place and
 replay it. It holds the encoder, the planner's 1 + 2 x iterations kernel
-launches, the final pick and the write of `prev_mean[:n]`. The generator's
+calls, the final pick and the write of `prev_mean[:n]`. At model_size 317
+the pi rollout and the value steps run on the layer-per-launch engine
+(ops/wide.py): the same calls, 31 + 57 x iterations device launches of it
+a plan (75 a value step on episodic tasks) beside the elite kernel's, and
+still one replay; their scratch buffers come from the graph's pool. The generator's
 draws run outside it, into its input buffers. The weight prep is a graph
 too (the JAX agent's `_prep_jit`), replayed in place at the first plan
 after the weights changed; the weights change in place (`update`), and a
@@ -66,7 +70,7 @@ import torch
 
 from tdmpc2_tpu_torch import interop
 from tdmpc2_tpu_torch.models.world_model import WorldModel
-from tdmpc2_tpu_torch.ops import cem, math, optim, probe
+from tdmpc2_tpu_torch.ops import cem, math, optim, probe, wide
 from tdmpc2_tpu_torch.ops.scale import update_scale
 from tdmpc2_tpu_torch.ops.value import prepare_value_params, value_sampled
 from tdmpc2_tpu_torch.utils import torch_interop, tree
@@ -75,6 +79,9 @@ from tdmpc2_tpu_torch.utils.seed import generator_state, restore_generator
 
 # the kernel wrappers a plan runs, whose launch counts a replay adds
 PLAN_WRAPPERS = (cem.pi_rollout, value_sampled, cem.elite_moments)
+# and the wide engine's device launches (ops/wide.py), which a replay adds
+# too: 0 a plan below 2048 columns
+PLAN_COUNTS = PLAN_WRAPPERS + (wide.engine_launches,)
 
 
 @dataclass
@@ -567,7 +574,7 @@ class TDMPC2:
                 prep, ins['obs'], ins['t0'],
                 self._noise_from(d) if isinstance(d, PlanDraws) else d,
                 eval_mode, ins['task'], pm)
-        g = Graph(body, PLAN_WRAPPERS, self.device, 'plan')
+        g = Graph(body, PLAN_COUNTS, self.device, 'plan')
         self._graphs[key] = (g, ins)
         return g.first
 

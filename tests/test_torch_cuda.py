@@ -20,8 +20,14 @@ kernel's termination gate is held under `ops.value.gate_check`: the 2e-2
 band where the flags agree, a flip only where the plain logit is within
 1e-2 of 0 (at most 1% of the rows). The tensor-core kernels are also held
 at the widths of model_size 1, 19 and 48 (row tiles of 32, 32 and 16 rows
-with 4, 8 and 16 column pairs a warp), and a width that no row tile fits
-raises, naming the widths. The elite kernel is held at its edges (S = 77,
+with 4, 8 and 16 column pairs a warp), and a width that no engine takes
+raises, naming the widths. At model_size 317's widths (mlp_dim 4096: the
+wide engine, ops/wide.py) the value step (both branches), the sampled
+step, the pi rollout and the rollout are held against their plain versions
+at one env and N=8, N=8 against 8 one-env launches bit for bit, and the
+plan's graph against its eager body; the rollout (on the wide engine at
+every width) also at model_size 1, 5, 19 and 48; the engine mirror against
+the built library's choice. The elite kernel is held at its edges (S = 77,
 2048 and 28,000, HA = 114, E = 1 and E = S, ties across the boundary, all
 tied, NaN, inf and +-3e38), its N=8 launch against 8 one-env launches bit
 for bit, and the canary at n = 1, 3, 1027 and at a storage offset. The
@@ -51,9 +57,10 @@ import torch
 from tdmpc2_tpu_torch.config import Config, parse_cfg
 from tdmpc2_tpu_torch.models.layers import simnorm
 from tdmpc2_tpu_torch.data.buffer import Buffer
-from tdmpc2_tpu_torch.ops import cem, probe, rollout
-from tdmpc2_tpu_torch.ops.value import (gate_check, prepare_value_params,
-                                        sample_actions_plain,
+from tdmpc2_tpu_torch.ops import _build, cem, probe, rollout, wide
+from tdmpc2_tpu_torch.ops.value import (dynamics_plain, gate_check, kernel_plan,
+                                        pi_action_plain, pi_head_plain,
+                                        prepare_value_params, sample_actions_plain,
                                         termination_trace_plain, value_estimate,
                                         value_estimate_plain, value_sampled,
                                         value_sampled_plain)
@@ -665,22 +672,188 @@ def test_kernels_match_plain_at_model_widths(agent, size):
 
 
 def test_width_without_row_tile_raises(agent):
-    """mlp_dim 4096 (model_size 317's) fits no row tile: the wrappers raise
-    naming the widths, before any launch, and run no plain version."""
+    """mlp_dim 4096 (model_size 317's) fits no row tile: the wrappers take
+    the wide engine there (ops/wide.py) and plan. Above the wide engine's
+    4096 columns the wrappers raise naming the widths, before any launch,
+    and run no plain version."""
     prep = dict(agent.prep)
     L = agent.cfg.latent_dim
-    prep['dWz'] = torch.zeros(L, 4096, dtype=torch.bfloat16, device=agent.device)
     S, A, dev = 8, agent.cfg.action_dim, agent.device
+    dims = (L, 4096, A, 101, 3, 8, 3)
+    assert wide.engine(_build.library('value'), dims) == 'wide'
+    prep['dWz'] = torch.zeros(L, 8192, dtype=torch.bfloat16, device=agent.device)
     n0 = value_estimate.launches
-    with pytest.raises(ValueError, match='no row tile fits the widths.*M=4096'):
+    with pytest.raises(ValueError, match='no engine takes the widths.*M=8192'):
         value_estimate(prep, torch.zeros(1, S, L, device=dev),
                        torch.zeros(1, 3, S, A, device=dev), torch.zeros(1, S, A, device=dev),
                        torch.zeros(1, 2, dtype=torch.int32, device=dev),
                        agent.discs[None], **_heads(agent))
-    with pytest.raises(ValueError, match='no row tile fits the widths.*M=4096'):
+    with pytest.raises(ValueError, match='no engine takes the widths.*M=8192'):
         cem.pi_rollout(prep, torch.zeros(1, 1, L, device=dev),
                        torch.zeros(1, 4, 3 * A, device=dev), **_heads(agent))
     assert value_estimate.launches == n0
+
+
+# ------------------------------------------ widths above the row tiles: 317
+
+
+@pytest.fixture(scope='module')
+def wide_agent(agent):
+    """An episodic agent at model_size 317's widths (L 1376, M 4096, 8 Q
+    heads), S = 77: the wide engine, rows ragged against its 128-row tiles."""
+    return _sized_agent(317)
+
+
+@pytest.mark.parametrize('n', [1, 8])
+def test_wide_engine_matches_plain_at_317_widths(wide_agent, n):
+    """The value step (given actions, and episodic under the gate rule), the
+    sampled step (exactly the given-actions launch on its actions), the pi
+    rollout (each step on its own inputs) and the rollout on the wide engine
+    against their plain versions, in the bands above; each call's device
+    launches counted."""
+    ag = wide_agent
+    cfg, dev = ag.cfg, ag.device
+    S, H, A, L = cfg.num_samples, cfg.horizon, cfg.action_dim, cfg.latent_dim
+    args = _episodic_inputs(ag, n, 317 + n)
+    assert kernel_plan(ag.prep, 8, H)['route'] == 'wide'
+    w0 = wide.engine_launches.launches
+    torch.testing.assert_close(value_estimate(*args, **_heads(ag)),
+                               value_estimate_plain(*args, **_heads(ag)), **BAND)
+    assert wide.engine_launches.launches == w0 + wide.value_launches(H, False)
+    k_at = torch.empty(n, S, dtype=torch.int32, device=dev)
+    p_at = torch.empty_like(k_at)
+    got = value_estimate(*args, **_heads(ag), episodic=True, term_at=k_at)
+    ref = value_estimate_plain(*args, **_heads(ag), episodic=True, term_at=p_at)
+    logits, _ = termination_trace_plain(*args[:3], args[5])
+    flips, bad = gate_check(got, ref, k_at, p_at, logits, **BAND)
+    if bad:
+        # At 4096 columns the termination logits of two plain versions (the
+        # CPU's, the card's) differ by up to ~0.2 (logit std 4): a flip is
+        # allowed where the plain |logit| is within that measured spread.
+        cpu = [{k: x.cpu() for k, x in args[0].items()}] + [x.cpu() for x in args[1:]]
+        lc, _ = termination_trace_plain(*cpu[:3], cpu[5])
+        spread = float((lc - logits.cpu()).abs().max())
+        flips, bad = gate_check(got, ref, k_at, p_at, logits, **BAND,
+                                near=max(1e-2, spread))
+    assert bad == 0 and flips <= 0.01 * n * S, (flips, bad)
+    sargs = _sampled_inputs(ag, n, cfg.num_pi_trajs, 31 + n)
+    v, _, _ = _hold_sampled(ag, sargs, False)
+    torch.testing.assert_close(v, value_sampled_plain(*sargs, **_heads(ag))[0], **BAND)
+    z0 = ag.model.encode(ag.params, torch.randn(n, 10, device=dev))[:, None]
+    pi_args = (ag.prep, z0, ag.draw_noise(n).pi_eps[:, :cfg.num_pi_trajs])
+    pa = cem.pi_rollout(*pi_args, **_heads(ag))
+    # Held at each step on its own inputs: the kernel's latents (the launch
+    # unchanged by writing them) against the plain dynamics of its (z_t,
+    # a_t), its actions against the plain policy at its latents. Free
+    # running, a last-bit difference ahead of a bf16 rounding moves the next
+    # latent, and the policy's exp(log_std) amplifies it: at 4096 columns two
+    # plain versions (the CPU's, the card's) leave the band on as many values
+    # as the kernel does (PERF.md §6).
+    zs = torch.empty(H - 1, n, cfg.num_pi_trajs, L, device=dev)
+    assert torch.equal(cem.pi_rollout(*pi_args, **_heads(ag), latents=zs), pa)
+    z = z0.expand(n, cfg.num_pi_trajs, L)
+    for t in range(H):
+        sl = slice(t * A, (t + 1) * A)
+        mean, ls = pi_head_plain(ag.prep, z, ag.model.log_std_min, ag.model.log_std_dif)
+        torch.testing.assert_close(pa[..., sl], pi_action_plain(mean, ls, pi_args[2][..., sl],
+                                                                1.0), **BAND)
+        if t + 1 < H:
+            torch.testing.assert_close(zs[t], dynamics_plain(ag.prep, z, pa[..., sl], 8),
+                                       **BAND)
+            z = zs[t]
+    prep_r = rollout.prepare_rollout_params(ag.params['dynamics'], ag.params['reward'],
+                                            L, cfg.vmin, cfg.vmax)
+    kw = dict(horizon=H, discount=ag.discount, simnorm_dim=8)
+    acts = args[2][0]
+    w0 = wide.engine_launches.launches
+    G, zH = rollout.rollout_prepared(prep_r, args[1][0], acts, **kw)
+    assert wide.engine_launches.launches == w0 + wide.rollout_launches(H)
+    Gp, zHp = rollout.rollout_prepared_plain(prep_r, args[1][0], acts, **kw)
+    torch.testing.assert_close(G, Gp, **BAND)
+    torch.testing.assert_close(zH, zHp, **BAND)
+
+
+def test_wide_engine_n8_equals_single_env_launches(wide_agent):
+    """N = 8 envs on the wide engine equal 8 one-env launches bit for bit:
+    the value step (both branches, with the flags), the sampled step and the
+    pi rollout."""
+    ag, n = wide_agent, 8
+    S, dev = ag.cfg.num_samples, ag.device
+    args = _episodic_inputs(ag, n, 71)
+    for episodic in (False, True):
+        at = torch.empty(n, S, dtype=torch.int32, device=dev)
+        got = value_estimate(*args, **_heads(ag), episodic=episodic, term_at=at)
+        for i in range(n):
+            one_at = torch.empty(1, S, dtype=torch.int32, device=dev)
+            one = value_estimate(ag.prep, *[a[i:i + 1] for a in args[1:]], **_heads(ag),
+                                 episodic=episodic, term_at=one_at)
+            assert torch.equal(got[i:i + 1], one) and torch.equal(at[i:i + 1], one_at)
+    sargs = _sampled_inputs(ag, n, ag.cfg.num_pi_trajs, 72)
+    got = value_sampled(*sargs, **_heads(ag))
+    pi_args = (ag.prep, args[1][:, :1], ag.draw_noise(n).pi_eps[:, :ag.cfg.num_pi_trajs])
+    pa = cem.pi_rollout(*pi_args, **_heads(ag))
+    for i in range(n):
+        one = value_sampled(*[a if a is ag.prep or a is sargs[6] else a[i:i + 1]
+                              for a in sargs], **_heads(ag))
+        assert all(torch.equal(a[i:i + 1], b) for a, b in zip(got, one))
+        one_pa = cem.pi_rollout(ag.prep, *[a[i:i + 1] for a in pi_args[1:]], **_heads(ag))
+        assert torch.equal(pa[i:i + 1], one_pa)
+
+
+def test_wide_plan_graph_equals_eager_body(wide_agent):
+    """The 317-width agent's plan: one graph replay of the planner's
+    1 + 2 x iterations calls, their wide engine's launches counted, equal
+    bit for bit to the eager body on the same draws."""
+    ag, n = wide_agent, 1
+    ag.prev_mean = torch.zeros(n, ag.cfg.horizon, ag.cfg.action_dim, device=ag.device)
+    w0 = wide.engine_launches.launches
+    _hold_graph_against_eager(ag, n, True, np.array([True]), 317)
+    # the capture's eager run, the replay and the eager body
+    assert (wide.engine_launches.launches - w0
+            == 3 * wide.plan_launches(ag.cfg.horizon, ag.iterations, True))
+
+
+@pytest.mark.parametrize('size', [1, 5, 19, 48])
+def test_rollout_wide_engine_matches_plain_at_model_widths(agent, size):
+    """The rollout kernel, on the wide engine at every width, against its
+    plain version at the widths of model_size 1, 5, 19 and 48 (S = 77)."""
+    ag = _sized_agent(size)
+    cfg = ag.cfg
+    args = _episodic_inputs(ag, 1, 40 + size)
+    prep_r = rollout.prepare_rollout_params(ag.params['dynamics'], ag.params['reward'],
+                                            cfg.latent_dim, cfg.vmin, cfg.vmax)
+    kw = dict(horizon=cfg.horizon, discount=ag.discount, simnorm_dim=8)
+    assert kernel_plan(prep_r, 8, cfg.horizon, 'rollout')['route'] == 'wide'
+    G, zH = rollout.rollout_prepared(prep_r, args[1][0], args[2][0], **kw)
+    Gp, zHp = rollout.rollout_prepared_plain(prep_r, args[1][0], args[2][0], **kw)
+    torch.testing.assert_close(G, Gp, **BAND)
+    torch.testing.assert_close(zH, zHp, **BAND)
+
+
+@pytest.mark.parametrize('size,route,rt', [(1, 'rows', 32), (5, 'rows', 32),
+                                           (19, 'rows', 32), (48, 'rows', 16),
+                                           (317, 'wide', None)])
+def test_engine_mirror_matches_the_built_library(agent, size, route, rt):
+    """The built library's engine and plan at each model size's widths
+    against what the CPU tests' mirror of its rule gives
+    (tests/test_torch_wide.py): a row tile of 32 rows (16 at 48) up to
+    model_size 48, the wide engine's 128 x 128 product block at 317; the
+    rollout on the wide engine at every size (64 x 64 below 2048 columns)."""
+    from tdmpc2_tpu_torch.config import MODEL_SIZE
+    d = MODEL_SIZE[size]
+    dims = (d['latent_dim'], d['mlp_dim'], 6, 101, d.get('num_q', 5), 8, 3)
+    prep = {'dWz': torch.zeros(dims[0], dims[1]), 'dWa': torch.zeros(dims[2], dims[1]),
+            'rW2': torch.zeros(dims[1], dims[3]), 'qWz': torch.zeros(dims[4], 1, 1)}
+    tile = 128 if size == 317 else 64
+    for kernel in ('value', 'pi_rollout'):
+        plan = kernel_plan(prep, 8, 3, kernel)
+        assert plan['route'] == plan['engine'] == route
+        if rt is not None:
+            assert plan['rt'] == rt and 2 <= plan['stages'] <= 8
+        else:
+            assert plan['bm'] == plan['bn'] == tile and plan['blocks_per_sm'] >= 1
+    ro = kernel_plan(prep, 8, 3, 'rollout')
+    assert ro['route'] == 'wide' and ro['bm'] == ro['bn'] == tile
 
 
 # ------------------------------------------------------- the plan's graph
