@@ -51,7 +51,16 @@ card's, break the rule too, on no more rows than they do), the sampled
 step (exactly the given-actions launch on its actions), the pi rollout and
 the rollout, at one env and at N=8 tasks; N=8 and N=80 tasks against
 one-task launches bit for bit; `act_tasks`' graph against its eager body;
-and the rollout at model_size 1, 5, 19 and 48 in the width sweep.
+and the rollout at model_size 1, 5, 19 and 48 in the width sweep. The
+wide engine's product (`gemm_kernel`: wgmma fed by a TMA ring) is also
+held alone, through the library's `tdm_wide_gemm` entry (`ops/wide.py`
+`gemm`), at every distinct product of the 317M model at 512, 4,096 and
+40,960 rows, the pi rollout's at 80 x 24 rows and the 5M rollout's at 512
+rows, against the plain product within 1e-4 of |x| @ |W| (x's columns
+past K NaN), N=8 against a one-env launch bit for bit, timed beside
+`torch.matmul` on the same bf16 operands (cuBLAS; never called by the
+port) and against its bound; its built kernels' SASS is counted
+(cuobjdump: wgmma and TMA instructions, no mma.sync, no cp.async).
 
 The planner's kernels are also held on the task axis at mt30/model_size 48,
 N = 30 tasks with mixed action dims (each env's task id picks its rows of
@@ -102,7 +111,9 @@ port's package. A watchdog turns a hang into an exit with a traceback.
 `--compare DIR` times the tensor-core kernels (value, its episodic branch,
 pi rollout, rollout; one env and N=8), the elite kernel (one env and N=8),
 the canary, the planner's value step (the sampled mode where the version
-has it; also mt30's N=30 tasks at model_size 48, with the pi rollout) and
+has it; also mt30's N=30 tasks at model_size 48, with the pi rollout, and
+mt80's at model_size 317 at one env, N=8 and N=80 tasks, with the pi
+rollout at one env and N=80) and
 the agent's `plan_vec` (one env and N=8) of another version of the port,
 unpacked in DIR, against this
 tree's on the same inputs, in PAIRS (2 unless given) pairs of processes,
@@ -631,8 +642,9 @@ def time_kernels(root) -> int:
     """`--time-kernels ROOT`: time the row-tile kernels, the rollout, the
     elite kernel, the canary, the planner's value step and `plan_vec` of the
     port at ROOT (this tree, or an older one unpacked elsewhere) on the main
-    paths' inputs and on mt30's at model_size 48 (N = 30 tasks), made from
-    SEED, through the entry points that every version has; prints one JSON
+    paths' inputs, on mt30's at model_size 48 (N = 30 tasks) and on mt80's
+    at model_size 317 (one env, N = 8 and 80 tasks), made from SEED,
+    through the entry points that every version has; prints one JSON
     line {name: [ms by CUDA events (plan_vec: by the host clock, each call
     synchronised), own device ms by torch.profiler, a digest of the
     kernel's output bits (None for plan_vec)]}."""
@@ -750,6 +762,35 @@ def time_kernels(root) -> int:
         torch.rand(NT, m_HA, device=dev, generator=g) * 1.9 + 0.1, m_noise.sample[:, 0],
         m_pa, m_amask, m_noise.eps[:, 0], m_noise.qidx[:, 0], mag.discs[tt.long()]),
         m_heads)
+    del mag
+    # mt80 at model_size 317 (the wide engine): the planner's value step at
+    # one env, N = 8 and N = 80 tasks, and the pi rollout at one env and N = 80
+    wcfg = mt30_cfg(load_cfg, model_size=WIDE_SIZE, task='mt80')
+    wag = TDMPC2(wcfg, device='cuda')
+    wgen = torch.Generator().manual_seed(SEED + WIDE_SIZE)
+    wag.load_params(perturbed(wag.model.init(wgen), wgen, sweep_scale(wcfg.mlp_dim)))
+    WT = len(MT80_ACTION_DIMS)
+    wt = torch.arange(WT, dtype=torch.int32, device=dev)
+    w_amask = wag.amask[wt.long()].contiguous()
+    w_z = wag.model.encode(wag.params, torch.randn(
+        WT, wcfg.obs_shape['state'][0], device=dev, generator=g), wt.long())[:, None]
+    w_noise = wag.draw_noise(WT)
+    w_HA, w_pi = wcfg.horizon * wcfg.action_dim, wcfg.num_pi_trajs
+    w_pa = cem.pi_rollout(wag.prep, w_z, w_noise.pi_eps[:, :w_pi], **heads, task=wt,
+                          amask=w_amask)
+    w_step = (wag.prep, w_z.expand(WT, wcfg.num_samples, wcfg.latent_dim),
+              torch.rand(WT, w_HA, device=dev, generator=g) * 1.6 - 0.8,
+              torch.rand(WT, w_HA, device=dev, generator=g) * 1.9 + 0.1,
+              w_noise.sample[:, 0], w_pa, w_amask, w_noise.eps[:, 0], w_noise.qidx[:, 0],
+              wag.discs[wt.long()])
+    for n in (1, N_ENVS, WT):
+        calls[f'value_step_317_n{n}'] = (
+            value.value_sampled, tuple(a if a is wag.prep else a[:n] for a in w_step),
+            dict(heads, task=wt[:n]))
+    for n in (1, WT):
+        calls[f'pi_rollout_317_n{n}'] = (
+            cem.pi_rollout, (wag.prep, w_z[:n], w_noise.pi_eps[:n, :w_pi]),
+            dict(heads, task=wt[:n], amask=w_amask[:n]))
     def digest(x):
         h = hashlib.sha256()
         for t in as_tuple(x):
@@ -760,11 +801,12 @@ def time_kernels(root) -> int:
     for name, (fn, args, kw) in calls.items():
         # a kernel's output bits on these inputs (a plan's depend on its draws)
         dg = None if name.startswith('plan_vec') else digest(fn(*args, **kw))
+        reps = 10 if '317_n80' in name else 50
         if name.startswith('plan_vec'):
-            ms = host_ms(lambda: (fn(*args, **kw), torch.cuda.synchronize()), 50)
+            ms = host_ms(lambda: (fn(*args, **kw), torch.cuda.synchronize()), reps)
         else:
-            ms = time_ms(lambda: fn(*args, **kw), 50)
-        out[name] = [ms, device_share(lambda: fn(*args, **kw), 20)[0], dg]
+            ms = time_ms(lambda: fn(*args, **kw), reps)
+        out[name] = [ms, device_share(lambda: fn(*args, **kw), reps // 5 * 2)[0], dg]
     print(json.dumps(out), flush=True)
     return 0
 
@@ -904,8 +946,11 @@ def plan_counters(I):
                 'cem_elite': cem.elite_moments,
                 'rollout': rollout.rollout_prepared,
                 'probe': probe.add_one,
-                # the wide engine's device launches (ops/wide.py), of any wrapper
-                'wide': wide.engine_launches}
+                # the wide engine's device launches (ops/wide.py), of any wrapper,
+                # and the products, row kernels and stagings among them, each
+                # counted where the library launches it
+                'wide': wide.engine_launches, 'wide_gemm': wide.gemm_launches,
+                'wide_row': wide.row_launches, 'wide_stage': wide.stage_launches}
 
     def zero_counts():
         for w in wrappers.values():
@@ -917,22 +962,31 @@ def plan_counters(I):
                 'plan_replays': Graph.replays.get('plan', 0),
                 'plan_captures': Graph.captures.get('plan', 0)}
 
-    def check_plan_counts(name, counts, plans=None, wide_per_plan=0):
+    def check_plan_counts(name, counts, plans=None, wide_per_plan=0, products_per_plan=0):
         """Each plan of a path: one pi rollout, I sampled value launches and
         I elite launches (1 + 2 I kernels), none of the given-actions value
         launch, and one graph replay, or the eager run of a capture; and
         `wide_per_plan` device launches of the wide engine (0 below 2048
-        columns)."""
+        columns), `products_per_plan` of them products, as many row
+        kernels (one after each product) and the rest stagings, each kind
+        counted where the library launches it."""
         p = counts['cem_pi_rollout']
+        stages_per_plan = wide_per_plan - 2 * products_per_plan
         ok = (p > 0 and counts['value_sampled'] == I * p and counts['cem_elite'] == I * p
               and counts['value'] == 0 and counts['plan_replays'] > 0
               and counts['plan_replays'] + counts['plan_captures'] == p
               and counts['wide'] == wide_per_plan * p
+              and counts['wide_gemm'] == products_per_plan * p
+              and counts['wide_row'] == products_per_plan * p
+              and counts['wide_stage'] == stages_per_plan * p
               and (plans is None or p == plans))
         log(f'  {name}: {p} plans, {1 + 2 * I} planner launches a plan '
             f'({counts["value_sampled"]} sampled value, {counts["cem_elite"]} elite), '
             f'{counts["plan_replays"]} graph replays, {counts["plan_captures"]} captures'
-            + (f'; the wide engine {counts["wide"]} launches, {wide_per_plan} a plan'
+            + (f'; the wide engine {counts["wide"]} launches, {wide_per_plan} a plan: '
+               f'{counts["wide_gemm"]} products and {counts["wide_row"]} row kernels '
+               f'({products_per_plan} a plan each), {counts["wide_stage"]} stagings '
+               f'({stages_per_plan} a plan)'
                if wide_per_plan else ''))
         if not ok:
             raise AssertionError(f'{name}: planner launches {counts} for {plans} plans')
@@ -1425,6 +1479,226 @@ def log_pi_drift(name, pi, heads, tk, acts):
         f'|err| {max_err(free.cpu(), forced_c):.3g}, {outside(free.cpu(), forced_c)} outside')
 
 
+# The wide engine's product (csrc/mlp_wide.cuh gemm_kernel) alone, at the
+# 317M model's shapes (L 1376, M 4096, A 6, 101 bins, 8 Q heads, 80 tasks)
+# and the 5M rollout's: (name, K, N, kind), kind 'task' a first layer's
+# per-task bias rows, 'q0' the Q heads' first layer (each env's head and
+# task rows), 'q' a later Q layer (each env's head), 'pi' the policy head
+# (its log-std bias past A), '' one bias row. Rows: one env, N=8 and N=80
+# envs of S=512 (the value step); the pi rollout's N=80 x 24 rows.
+WIDE_DIMS = (1376, 4096, 6, 101, 8, 8, 3)
+PRODUCT_SHAPES = (
+    ('z||a -> M', 1392, 4096, 'task'), ('latent -> M', 1376, 4096, 'task'),
+    ('M -> M', 4096, 4096, ''), ('M -> latent', 4096, 1376, ''),
+    ('M -> bins', 4096, 101, ''), ('M -> pi', 4096, 12, 'pi'), ('M -> term', 4096, 1, ''),
+    ('Q: z||a -> M', 1392, 4096, 'q0'), ('Q: M -> M', 4096, 4096, 'q'),
+    ('Q: M -> bins', 4096, 101, 'q'))
+PRODUCT_ENVS = (1, 8, 80)
+PI_SHAPES = ('latent -> M', 'M -> M', 'M -> latent', 'M -> pi', 'z||a -> M')
+ROLLOUT_5M = (512, 512, 6, 101, 5, 8, 3)
+ROLLOUT_5M_SHAPES = (('z||a -> M', 528, 512, ''), ('M -> M', 512, 512, ''),
+                     ('M -> bins', 512, 101, ''))
+# |y - y_plain| <= 1e-4 (|x| @ |W|) + 1e-6: f32 sums of bf16 products over
+# K <= 4096, about 256 accumulator roundings of 2^-23, with margin.
+PRODUCT_RTOL, PRODUCT_ATOL = 1e-4, 1e-6
+PRODUCT_HEADLINE = ('M -> M', 80)
+
+
+def sass_counts():
+    """{library: {kernel: {instruction: count}}} of the product kernels in
+    the built libraries' SASS (cuobjdump -sass): wgmma (HGMMA), TMA loads
+    (UTMALDG), bulk copies (UBLKCP), mma.sync (HMMA), cp.async (LDGSTS);
+    None where the toolkit has no cuobjdump."""
+    import re
+    from tdmpc2_tpu_torch.ops import _build
+    exe = Path(_build.nvcc()).parent / 'cuobjdump'
+    if not exe.is_file():
+        return None
+    ops = ('HGMMA', 'UTMALDG', 'UBLKCP', 'HMMA', 'LDGSTS')
+    out = {}
+    for name in _build.WIDE_SOURCES:
+        text = subprocess.run([str(exe), '-sass', str(_build.target(name))],
+                              capture_output=True, text=True, timeout=300).stdout
+        fn, counts = None, {}
+        for line in text.splitlines():
+            m = re.search(r'Function : (\S+)', line)
+            if m:
+                fn = _build._short(m.group(1))
+                if fn.startswith('gemm_kernel'):
+                    counts[fn] = dict.fromkeys(ops, 0)
+                continue
+            if fn in counts:
+                for op in ops:
+                    if re.search(r'\b' + op + r'[.\s]', line):
+                        counts[fn][op] += 1
+        out[name] = counts
+    return out
+
+
+def product_phase():
+    """The product alone on the card, each shape of PRODUCT_SHAPES at N=1,
+    8 and 80 envs of 512 rows, the pi rollout's at N=80 x 24 rows and the
+    5M rollout's at 512 rows: held against the plain product (x.float() @
+    W.float() + bias) within PRODUCT_RTOL of |x| @ |W| (x's columns past K
+    NaN, so that a read past K shows); N=8 against a one-env launch on env
+    3's rows bit for bit; timed by CUDA events beside torch.matmul on the
+    same bf16 operands (cuBLAS, in turns), each one's own device time by
+    torch.profiler, the plain product's time, and the bound. Returns (the
+    shapes' records, max |err|)."""
+    import torch
+    from tdmpc2_tpu_torch.ops import wide
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(SEED + 4096)
+    n_tasks, NQ = 80, WIDE_DIMS[4]
+    records, worst = [], 0.0
+    cases = [(WIDE_DIMS, 512, n, sh) for n in PRODUCT_ENVS for sh in PRODUCT_SHAPES]
+    cases += [(WIDE_DIMS, 24, 80, sh) for sh in PRODUCT_SHAPES if sh[0] in PI_SHAPES]
+    cases += [(ROLLOUT_5M, 512, 1, sh) for sh in ROLLOUT_5M_SHAPES]
+
+    def operands(dims, S, n, K, N, kind):
+        R, heads = n * S, NQ if kind in ('q0', 'q') else 1
+        ldx = K + 16 if K % 64 else K      # the latent's x rows carry the actions after
+        x = torch.randn(R, ldx, device=dev, generator=g).to(torch.bfloat16)
+        x[:, K:] = float('nan')
+        w = (torch.randn(heads, N, K, device=dev, generator=g) * K ** -0.5).to(torch.bfloat16)
+        env = torch.arange(n, device=dev, dtype=torch.int32)
+        task = env % n_tasks
+        head = torch.stack([env % NQ, (env + 1) % NQ], 1).to(torch.int32)   # as qidx [n, 2]
+        kw = dict(task=None, ntask=1, head=None, hn=2, bt=0, bh=0)
+        if kind == 'task':
+            b = torch.randn(n_tasks, N, device=dev, generator=g)
+            kw.update(task=task, ntask=n_tasks, bt=N)
+        elif kind == 'q0':
+            b = torch.randn(n_tasks, NQ, N, device=dev, generator=g)
+            kw.update(task=task, ntask=n_tasks, head=head, bt=NQ * N, bh=N)
+        elif kind == 'q':
+            b = torch.randn(NQ, N, device=dev, generator=g)
+            kw.update(head=head, bh=N)
+        elif kind == 'pi':
+            b = torch.randn(N // 2, device=dev, generator=g)
+            kw.update(b1=torch.randn(N // 2, device=dev, generator=g), split=N // 2)
+        else:
+            b = torch.randn(N, device=dev, generator=g)
+        return x, (w if heads > 1 else w[0]), b, kw
+
+    def plain(x, w, b, kw, S, K, N, mag=False):
+        """x.float() @ W.float() + bias row by row's env (|x| @ |W| with
+        mag), in f32 on the card (TF32 off)."""
+        R = x.shape[0]
+        env = torch.arange(R, device=dev) // S
+        xf = x[:, :K].float()
+        ws = w if w.dim() == 3 else w[None]
+        h = kw['head'][env.long(), 0].long() if kw['head'] is not None else torch.zeros_like(env)
+        y = torch.empty(R, N, device=dev)
+        for k in range(ws.shape[0]):
+            sel = h == k
+            if bool(sel.any()):
+                wk = ws[k].float().t()
+                y[sel] = (xf[sel].abs() @ wk.abs()) if mag else (xf[sel] @ wk)
+        if mag:
+            return y
+        t = kw['task'][env.long()].long() if kw['task'] is not None else torch.zeros_like(env)
+        if kw.get('split', -1) >= 0:
+            bias = torch.cat([b, kw['b1']])[None].expand(R, N)
+        elif b.dim() == 3:
+            bias = b[t, h]
+        elif kw['head'] is not None:
+            bias = b[h]
+        elif kw['task'] is not None:
+            bias = b[t]
+        else:
+            bias = b[None].expand(R, N)
+        return y + bias
+
+    for dims, S, n, (label, K, N, kind) in cases:
+        x, w, b, kw = operands(dims, S, n, K, N, kind)
+        R = n * S
+        y, plan = wide.gemm(x, w, b, dims, S, **kw)
+        got = wide.gemm_sum(y, plan, N)
+        want = plain(x, w, b, kw, S, K, N)
+        room = PRODUCT_RTOL * plain(x, w, b, kw, S, K, N, mag=True) + PRODUCT_ATOL
+        err = max_err(got, want)
+        over = float(((got - want).abs() / room).max())
+        tag = f'{label} ({"317" if dims is WIDE_DIMS else "5M"}, {n} x {S} rows)'
+        if not bool(torch.isfinite(got).all()) or over > 1:
+            raise AssertionError(f'product {tag}: max |err| {err:.3g}, {over:.3f} of the '
+                                 f'tolerance at its tightest (plan {plan})')
+        worst = max(worst, err)
+        if n == 8:
+            # env 3 alone: its rows of the N=8 launch bit for bit
+            sl = slice(3 * S, 4 * S)
+            one_kw = dict(kw, task=None if kw['task'] is None else kw['task'][3:4],
+                          head=None if kw['head'] is None else kw['head'][3:4])
+            y1, _ = wide.gemm(x[sl], w, b, dims, S, **one_kw)
+            if not torch.equal(wide.gemm_sum(y1, plan, N), got[sl]):
+                raise AssertionError(f'product {tag}: env 3 of the N=8 launch differs '
+                                     'from its one-env launch')
+        out = torch.empty_like(y)
+        kern = (lambda: wide.gemm(x, w, b, dims, S, **kw, out=out))
+        wl = w[0] if w.dim() == 3 else w
+        xl = x[:, :K]
+        lib = (lambda: torch.matmul(xl, wl.t()))
+        reps = 10 if R * K * N < 2e10 else 5
+        ms = [time_ms(kern, reps), time_ms(lib, reps), time_ms(lib, reps), time_ms(kern, reps)]
+        k_ms, l_ms = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+        _, _, top = device_share(kern, 3)
+        k_dev = sum(t for t, _, k in top if 'gemm_kernel' in k) or None
+        l_dev = device_share(lib, 3)[0]
+        p_ms = time_ms(lambda: plain(x, w, b, kw, S, K, N), 2)
+        heads_used = 1 if kw['head'] is None else len(set(kw['head'][:, 0].tolist()))
+        by = R * K * 2 + heads_used * N * K * 2 + R * N * 4 + nbytes(b)
+        b_ms, b_by = bound_ms(by, 2 * R * K * N, BF16_FLOPS)
+        rec = dict(shape=label, model=317 if dims is WIDE_DIMS else 5, n_envs=n, rows=R, K=K,
+                   N=N, plan=plan, max_abs_err=err, tol_used=over, ms=k_ms, device_ms=k_dev,
+                   library_ms=l_ms, library_device_ms=l_dev, plain_ms=p_ms, bound_ms=b_ms,
+                   bound_by=b_by)
+        records.append(rec)
+        log(f'  product {tag}: K={K} N={N}, tile {plan["bm"]}x{plan["bn"]}, {plan["splits"]} '
+            f'split(s), grid {plan["grid"]}; max |err| {err:.3g} ({over:.3f} of the '
+            f'tolerance); kernel {k_ms:.4f} ms (device {k_dev}), torch.matmul '
+            f'{l_ms:.4f} ms (device {l_dev}), plain {p_ms:.3f} ms, bound {b_ms:.5f} ms '
+            f'({b_by}): {100 * b_ms / k_ms:.1f}% of the bound, {k_ms / l_ms:.2f}x cuBLAS')
+        del x, w, b, y, got, want, room, out
+    return records, worst
+
+
+def packed_bytes(prep):
+    """Bytes that the fragment-packed copies (ops/value.py pack_matrix:
+    each K block and N padded to 16, bf16) of prep's matrices take."""
+    def up(n):
+        return -(-n // 16) * 16
+    from tdmpc2_tpu_torch.ops import value
+    total = 0
+    for k, parts in value.PACKED.items():
+        if all(q in prep for q in parts):
+            blocks = [prep[q] for q in parts]
+            lead = math.prod(blocks[0].shape[:-2])
+            if k == 'pP2':      # stacked along N
+                kp, np_ = up(blocks[0].shape[-2]), up(sum(b.shape[-1] for b in blocks))
+            else:
+                kp, np_ = sum(up(b.shape[-2]) for b in blocks), up(blocks[0].shape[-1])
+            total += 2 * lead * kp * np_
+    return total
+
+
+# The wide engine's row kernel at the 317M model, by the template the
+# profiler names (threads a row): its modes in a value step and the bytes
+# its function must move on R rows (an f32 product row read once and a
+# bf16 row written; the per-row scalars). The K-split partial rows that the
+# narrow outputs' row kernels read are this design's cost, not the
+# function's, and are not charged: the product's bound does not charge
+# their writes either.
+def row_kernel_bytes(R):
+    """{template: (modes, launches a non-episodic value step, least bytes
+    a launch)} at model_size 317 (M 4096, L 1376, 101 bins, A 6)."""
+    M, L, B, A = 4096, 1376, 101, 6
+    two_hot = R * (B * 4 + 3 * 4)              # the row, G or q in and out
+    pi = R * (2 * A * 4 + A * 4 + 16 * 2)      # the row, eps, bf16 actions
+    return {'row_kernel<256>': ('LayerNorm + Mish', 18, R * M * (4 + 2)),
+            'row_kernel<128>': ('LayerNorm + SimNorm', 3, R * L * (4 + 2)),
+            'row_kernel<32>': ('two-hot decode, pi head', 6, (5 * two_hot + pi) / 6)}
+
+
 def wide_bounds(prep, n, S, H, A, n_pi, used_heads, episodic=False, task_rows=1):
     """The card's least time for the planner's steps at the prep's widths
     for n envs: {'value_sampled': (ms, by), 'pi_rollout': ..., 'rollout':
@@ -1438,8 +1712,8 @@ def wide_bounds(prep, n, S, H, A, n_pi, used_heads, episodic=False, task_rows=1)
     mac_dyn = (L + A) * M + M * M + M * L
     mac_pi = L * M + M * M + 2 * M * A
     mac_term = L * M + M * M + M
-    w = {k: nbytes(prep[k]) for k in prep if k[0] in 'drpt' and k[1] == 'P'}
-    q1 = sum(nbytes(prep[k][0]) for k in ('qP0', 'qP1', 'qP2') if k in prep)
+    w = {k: nbytes(prep[k]) for k in prep if k[0] in 'drpt' and k[1] == 'T'}
+    q1 = sum(nbytes(prep[k][0]) for k in ('qT0', 'qT1', 'qT2') if k in prep)
     vecs = 4 * (6 * M + L + B) * task_rows
     w_step = sum(v for k, v in w.items() if k[0] in 'drp' or episodic) + used_heads * q1
     mac_step = mac_rew + mac_dyn + (mac_term if episodic else 0)
@@ -1511,8 +1785,19 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
         heads = dict(log_std_min=ag.model.log_std_min,
                      log_std_dif=ag.model.log_std_dif, simnorm_dim=cfg.simnorm_dim)
         n_par = sum(x.numel() for x in tree.leaves(ag.params))
-        plans = {k: value.kernel_plan(prep, cfg.simnorm_dim, H, k)
-                 for k in ('value', 'pi_rollout')}
+        plans = {k: value.kernel_plan(prep, cfg.simnorm_dim, H, k, rows)
+                 for k, rows in (('value', S), ('pi_rollout', n_pi))}
+        # the prep's bytes, and what they were with the fragment-packed
+        # copies the wide engine read before it read the wide layout
+        wide_by = nbytes(*[prep[k] for k in value.WIDE if k in prep])
+        prep_by = nbytes(*prep.values())
+        packed_by = packed_bytes(prep)
+        log(f'  the prep holds {prep_by / 2**20:.1f} MiB, {wide_by / 2**20:.1f} MiB of them '
+            f'the wide layout and none fragment-packed; with the packed copies in its place, '
+            f'as the first wide engine read them, {(prep_by - wide_by + packed_by) / 2**20:.1f} '
+            'MiB')
+        if any(k in prep for k in value.PACKED):
+            raise AssertionError(f'{tag}: the prep holds fragment-packed copies')
         log(f'  {n_par:,} parameters (L={L}, M={M}, num_q={cfg.num_q}, task_dim '
             f'{cfg.task_dim}, A={A}), built in {time.perf_counter() - t0:.1f} s; bias tables '
             f'{tuple(prep["db0"].shape)}, Q {tuple(prep["qb0"].shape)}; plans {plans}')
@@ -1695,28 +1980,33 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
         pm0 = pm.clone()
         ag.generator.manual_seed(SEED + 80)
         counts = [w.launches for w in PLAN_WRAPPERS]
-        w0, replays = wide.engine_launches.launches, Graph.replays.get('plan', 0)
+        w0, replays = [c.launches for c in wide.COUNTERS], Graph.replays.get('plan', 0)
         a, pm = ag.act_tasks(obs_np, pm, False, tasks)
         launched = [w.launches - c for w, c in zip(PLAN_WRAPPERS, counts)]
-        w_plan = wide.engine_launches.launches - w0
+        w_plan, g_plan, r_plan, s_plan = [c.launches - k for c, k in zip(wide.COUNTERS, w0)]
         pm_graph = pm.clone()
         pm.copy_(pm0)
         ag.generator.manual_seed(SEED + 80)
         a_e, _ = ag._plan_body(prep, obs, torch.zeros(NT, dtype=torch.bool, device=dev),
                                ag.draw_noise(NT), True, tt, pm)
         if (Graph.replays['plan'] != replays + 1 or launched != [1, I, I]
-                or w_plan != wide.plan_launches(H, I, False)):
-            raise AssertionError(f'{tag} act_tasks graph: launches {launched}, wide {w_plan}')
+                or w_plan != wide.plan_launches(H, I, False)
+                or g_plan != wide.plan_products(H, I, False) or r_plan != g_plan
+                or s_plan != w_plan - 2 * g_plan):
+            raise AssertionError(f'{tag} act_tasks graph: launches {launched}, wide {w_plan}, '
+                                 f'products {g_plan}, row kernels {r_plan}, stagings {s_plan}')
         if not (np.array_equal(a, a_e.cpu().numpy()) and torch.equal(pm_graph, pm)):
             raise AssertionError(f'{tag} act_tasks graph: the replay differs from the eager '
                                  f'body (max |err| {max_err(torch.from_numpy(a), a_e.cpu()):.3g})')
         log(f'  act_tasks N={NT}: one replay ({launched} calls, {w_plan} launches of the '
-            'wide engine) equals the eager body bit for bit')
+            f'wide engine, {g_plan} of them products, {r_plan} row kernels, {s_plan} '
+            'stagings) equals the eager body bit for bit')
 
         # times and bounds (CUDA events; own device time by torch.profiler)
         used = len(set(noise.qidx[:, 0].flatten().tolist()))
         n8_used = len(set(cases[f'N={n8}'][1][8].flatten().tolist()))
         one_used = 2
+        row_kernels = {}
         timed = {
             'value_sampled_317': (value.value_sampled, value.value_sampled_plain,
                                   lambda c: (c[1], dict(heads, task=c[3]['task'])),
@@ -1737,18 +2027,21 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
                    'max_abs_err': errs[name], 'n_envs': n8, 'library_ms': None}
             per_call = (wide.pi_rollout_launches(H) if bkey == 'pi_rollout'
                         else wide.value_launches(H, episodic))
+            products = (wide.pi_rollout_products(H) if bkey == 'pi_rollout'
+                        else wide.value_products(H, episodic))
             runs = [('', cases[f'N={n8}'], n8, n8_used), ('_n1', cases['one env'], 1, one_used)]
             if not episodic:
                 runs.append(('_n80', ((), vs80, (prep, z, noise.pi_eps[:, :n_pi]),
                                       dict(task=tt, amask=amask)), NT, used))
             for suffix, c, n, heads_used in runs:
                 args, kw = pick(c)
-                w0 = wide.engine_launches.launches
+                w0 = [c.launches for c in wide.COUNTERS]
                 kern(*args, **kw)
-                counted = wide.engine_launches.launches - w0
-                if counted != per_call:
+                counted, *kinds = [c.launches - k for c, k in zip(wide.COUNTERS, w0)]
+                if counted != per_call or kinds[:2] != [products, products]:
                     raise AssertionError(f'{name} (N={n}): {counted} device launches counted, '
-                                         f'{per_call} expected')
+                                         f'{per_call} expected; products, row kernels, '
+                                         f'stagings {kinds}, {products} products expected')
                 ms = time_ms(lambda: kern(*args, **kw), 10 if n < NT else 3)
                 dev_ms, _, top = device_share(lambda: kern(*args, **kw), 3 if n < NT else 2)
                 plain_ms = (time_ms(lambda: plain(*args, **kw), 2) if n < NT else None)
@@ -1764,6 +2057,8 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
                     + f', bound {b_ms:.6f} ms ({b_by}), {ms / b_ms:.1f}x the bound')
                 for t, cnt, k in top or []:
                     log(f'    {t:.3f} ms in {cnt:.0f} x {k[:90]}')
+                if name == 'value_sampled_317':
+                    row_kernels[suffix or f'_n{n8}'] = (n * S, top or [])
             rows.append(row)
         w0 = wide.engine_launches.launches
         rollout.rollout_prepared(*r_args, **r_kw)
@@ -1785,7 +2080,33 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
                      'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
                      'library_ms': None, 'model_size': WIDE_SIZE,
                      'device_launches_a_call': counted})
-        del e_prep, e_params, cases, prep_r
+        # the row kernel on its own, from the value step's traces: each
+        # template's device time a launch against the bytes it must move
+        by_template = {}
+        for suffix, (R, top) in row_kernels.items():
+            for name_, (modes, per_step, by) in row_kernel_bytes(R).items():
+                hit = [(t, c) for t, c, k in top if name_ in k]
+                t_ms, cnt = (sum(t for t, _ in hit), sum(c for _, c in hit)) if hit else (None, 0)
+                b_ms = by / HBM_BYTES_PER_S * 1e3
+                by_template[f'{name_}{suffix}'] = dict(
+                    modes=modes, rows=R, launches_a_step=cnt, ms=t_ms and t_ms / cnt,
+                    bound_ms=b_ms, bound_by='bytes')
+                log(f'  {name_} ({modes}), {R} rows: '
+                    + ('not in the trace\'s top entries' if t_ms is None else
+                       f'{t_ms / cnt:.4f} ms a launch ({cnt:.0f} a value step)')
+                    + f', bound {b_ms:.5f} ms (bytes)')
+        y80 = torch.randn(NT * S, M, device=dev, generator=g)
+        plain_row = (lambda: layers.mish(layers.layer_norm(y80, prep['dg0'], prep['de0'])))
+        hid = by_template.get(f'row_kernel<256>_n{NT}', {})
+        rows.append({'name': 'wide_row', 'route': 'cuda', 'engine': 'wide',
+                     'source': 'tdmpc2_tpu_torch/csrc/mlp_wide.cuh',
+                     'replaces': 'tdmpc2_tpu/ops/pallas_rollout.py:437', 'launches': 0,
+                     'max_abs_err': errs['value_sampled_317'], 'n_rows': NT * S,
+                     'ms': hid.get('ms'), 'plain_ms': time_ms(plain_row, 3),
+                     'bound_ms': hid.get('bound_ms'), 'bound_by': 'bytes',
+                     'library_ms': None, 'model_size': WIDE_SIZE,
+                     'by_template': by_template})
+        del e_prep, e_params, cases, prep_r, y80
 
     with tempfile.TemporaryDirectory() as data_dir, \
             Phase(f'path: offline training mt80, {tag}, {WIDE_STEPS} iterations '
@@ -1832,7 +2153,8 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
             a, pm = ag.act_tasks(obs_at[r], pm, False, tasks)
         paths['act_tasks mt80'] = read_counts()
         check_plan_counts(f'act_tasks mt80 (N={NT}, {tag})', paths['act_tasks mt80'],
-                          WIDE_ACT_STEPS + 1, wide.plan_launches(H, I, False))
+                          WIDE_ACT_STEPS + 1, wide.plan_launches(H, I, False),
+                          wide.plan_products(H, I, False))
         if not np.isfinite(a).all() or any(
                 (a[i, MT80_ACTION_DIMS[i]:] != 0).any() for i in range(NT)):
             raise AssertionError('act_tasks mt80: non-finite actions or a masked column set')
@@ -1854,7 +2176,8 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
         for row in rows:
             key = {'value_sampled_317': 'value_sampled',
                    'value_sampled_episodic_317': None,
-                   'cem_pi_rollout_317': 'cem_pi_rollout'}.get(row['name'])
+                   'cem_pi_rollout_317': 'cem_pi_rollout',
+                   'wide_row': 'wide_row'}.get(row['name'])
             if key is not None:
                 row['launches'] = paths['act_tasks mt80'][key]
             elif row['name'] == 'value_sampled_episodic_317':
@@ -2369,9 +2692,11 @@ def main() -> int:
             else:
                 regs = {k: v for k, v in usage.items() if k.startswith(wide_kernels)}
                 log(f'  {kname} (wide engine): product blocks of {pl["bm"]} rows x '
-                    f'{pl["bn"]} columns, K {pl["bk"]} a stage, {pl["stages"]} stages, '
-                    f'{pl["smem_bytes"]} bytes of shared memory, {pl["blocks_per_sm"]} '
-                    f'block(s) per SM; ptxas {regs}')
+                    f'{pl["bn"]} columns ({pl["wgs"]} consumer warpgroup(s) on wgmma, a '
+                    f'producer warpgroup issuing TMA), K {pl["bk"]} a stage, {pl["stages"]} '
+                    f'stages, {pl["smem_bytes"]} bytes of shared memory, '
+                    f'{pl["blocks_per_sm"]} block(s) per SM, {pl["regs"]} registers a thread '
+                    f'at launch; ptxas {regs}')
             if pl['blocks_per_sm'] < 1:
                 raise AssertionError(f'{kname}: no block fits an SM')
         if (plans['value']['route'], plans['pi_rollout']['route'],
@@ -3095,6 +3420,16 @@ def main() -> int:
 
     mt_errs, mt_paths, mt_rows = multitask_phases(zero_counts, read_counts,
                                                   check_plan_counts)
+    with Phase('the wide engine\'s product alone (wgmma on a TMA ring) against the plain '
+               'product and torch.matmul, at the 317M model\'s shapes and the 5M rollout\'s'):
+        prod_records, prod_err = product_phase()
+        sass = sass_counts()
+        log(f'  SASS of the product kernels (cuobjdump): '
+            + ('not available' if sass is None else json.dumps(sass)))
+        for lib_name, fns in (sass or {}).items():
+            for fn, c in fns.items():
+                if not (c['HGMMA'] and c['UTMALDG']) or c['HMMA'] or c['LDGSTS']:
+                    raise AssertionError(f'{lib_name} {fn}: SASS {c}: not wgmma on TMA copies')
     w_errs, w_paths, w_rows = wide_phases(zero_counts, read_counts, check_plan_counts)
     ckpt_errs, ckpt_paths, ckpt_read_s = checkpoint_phases(
         zero_counts, read_counts, check_plan_counts, hold_update)
@@ -3280,7 +3615,23 @@ def main() -> int:
                                 if k.startswith(wide_kernels)}
             kernels.append(row)
         kernels.extend(mt_rows)
+        for row in w_rows:
+            if row['name'] == 'wide_row':
+                row['launches_by_path'] = {k: v['wide_row'] for k, v in paths.items()}
         kernels.extend(w_rows)
+        top = next(r for r in prod_records
+                   if (r['shape'], r['n_envs'], r['model']) == (*PRODUCT_HEADLINE, 317))
+        kernels.append({
+            'name': 'wide_gemm', 'route': 'cuda', 'engine': 'wide',
+            'source': 'tdmpc2_tpu_torch/csrc/mlp_wide.cuh',
+            'replaces': 'tdmpc2_tpu/ops/pallas_rollout.py:437',
+            'launches': w_paths['act_tasks mt80']['wide_gemm'],
+            'launches_by_path': {k: v['wide_gemm'] for k, v in paths.items()},
+            'max_abs_err': prod_err, 'headline': f'{top["shape"]}, {top["rows"]} rows',
+            'ms': top['ms'], 'device_ms': top['device_ms'], 'plain_ms': top['plain_ms'],
+            'bound_ms': top['bound_ms'], 'bound_by': top['bound_by'],
+            'library_ms': top['library_ms'], 'library_device_ms': top['library_device_ms'],
+            'sass': sass, 'shapes': prod_records})
         for label, args, kw in (('one env', plan_args, plan_kw),
                                 (f'N={NE}', plan_n_args, plan_kw),
                                 (f'episodic N={NE}', e_plan_args, e_plan_kw)):

@@ -1,7 +1,9 @@
 // Layer-per-launch MLP engine on Hopper's tensor cores: the value, pi-rollout
 // and rollout kernels at widths that no row tile of mlp_rows.cuh holds
 // (above 2048 columns: model_size 317's mlp_dim 4096), and the rollout
-// kernel at every width.
+// kernel at every width. It serves the TPU kernels _value_kernel
+// (tdmpc2_tpu/ops/pallas_rollout.py:437), _rollout_kernel (:50) and the pi
+// rollout of _cem_kernel (tdmpc2_tpu/ops/pallas_cem.py:53).
 //
 // The row-tile engine keeps a block's rows in shared memory for a whole
 // rollout, which needs a layer's whole output row in one block's
@@ -13,57 +15,106 @@
 // the termination gate, the rounding to bf16 of the next layer's input. A
 // kernel boundary is the only synchronisation across blocks.
 //
-// The product (gemm_kernel): a block owns T rows of one env and T columns
-// (T = 128 above 2048 columns, else 64: WTile); 8 warps, 2 (T/2 rows each)
-// x 4 (T/4 columns each), run
-// mma.sync.m16n8k16 (bf16 x bf16 -> f32). A fragments come from a bf16
-// activation tile in shared memory through ldmatrix; B fragments from the
-// packed weights (ops/value.py pack_matrix, the row-tile engine's layout),
-// whose k-tile of a column tile is one contiguous run, one 16-byte shared
-// load per lane. Both are staged by cp.async, kWStages deep, kWKT k-tiles
-// a stage. Each k-tile's products are taken alone and added to the f32 sums
-// (mma16816: the tensor cores truncate). The K loop runs over the layer's
-// whole input width in order, and the tile shape is fixed, so every output
-// element's sum is formed in one order whatever N and S are, and a row
-// tile never straddles two envs (as the value kernel's blocks_per_env), so
-// that its Q heads and task bias rows are one env's: an N-env launch equals
-// N one-env launches bit for bit.
+// The product (gemm_kernel): y = x . W + bias, bf16 inputs, f32 sums, f32
+// output rows (the row kernel needs the whole f32 row for LayerNorm). A
+// block owns BM rows and BN columns: 128 x 256 (two consumer warpgroups of
+// 64 rows) where a layer is wider than 2048 columns and an env has more than
+// 64 rows, else 64 x 128 (one consumer warpgroup: the pi rollout's 24 rows
+// an env, the rollout at model_size 1-48). The tile follows from S and the
+// widths (wide_large), never from N. 256 columns where registers allow it:
+// a consumer thread holds 128 f32 accumulators, in the 232 registers that
+// setmaxnreg gives it (the producer warpgroup keeps 40); the wider tile
+// reads x from L2 half as often as 128 columns would (x is read N / BN
+// times, the weights R / BM times), and at 4096 x 4096 on 40,960 rows that
+// traffic would otherwise need more than L2 delivers.
+//
+// Each consumer warpgroup runs wgmma.mma_async m64nBNk16 (bf16 x bf16 ->
+// f32) on operands in shared memory and keeps the sum in the wgmma
+// accumulators across the whole K. One producer thread stages both
+// operands with TMA (cp.async.bulk.tensor, 128-byte swizzle, 64 deep in K a
+// stage) into a ring of kWStages stages: a stage is complete when its full
+// mbarrier has counted the copies' bytes, and the consumers hand it back on
+// its empty mbarrier once the wgmma group that read it has retired. There
+// is no __syncthreads in the K loop, and no block waits on another. The
+// blocks are persistent: as many as the card holds at once (one an SM for
+// the large tile, two for the small) walk the tiles in order, column tiles
+// fastest, and the producer runs on into the next tile's stages while the
+// consumers store the last one's, so a tile's first stages arrive during
+// the previous tile's epilogue. The tensor maps are encoded on the host at each launch from that launch's
+// pointers (cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint, so the library links to the runtime alone) and
+// passed as __grid_constant__ parameters: x's rows [R, K], and the weights'
+// wide layout [heads, N, K] (ops/value.py wide_matrix: each matrix
+// transposed, its K blocks zero-padded to 16 as the activation rows are),
+// so that both operands are K-major. K and rows past a tensor's end arrive
+// as zeros.
+//
+// Order of the sums: every output element is its wgmma accumulator's sum
+// over K in 16-deep steps from the first (or from its split's first) in
+// order, whatever N, S and the block's other rows are, so an N-env launch
+// equals N one-env launches bit for bit. Where the bias or the weights
+// depend on the env (a multi-task model's per-task bias rows, the Q heads)
+// a block's rows stay inside one env, as the value kernel's
+// blocks_per_env; elsewhere the row tiles run over all R rows (bpe = 0),
+// which packs the pi rollout's 24-row envs.
+//
+// Narrow outputs (one column tile: the bins, the policy's 2A columns, the
+// termination logit): at one env 4 blocks would walk a 4096-deep K alone.
+// There K is split over up to 8 blocks (gemm_splits, from the widths
+// alone); each writes an f32 partial row pstride columns after the last in
+// the same row of y, the bias in the first, and the row kernel sums them in
+// order in every mode, whichever layer the output is. No atomics.
+//
+// Why the sums stay in the accumulators: the tensor cores round toward zero
+// where an f32 add rounds to nearest (mlp_rows.cuh mma16816), at most about
+// an ulp of the running sum a 16-deep step: over K = 4096 at most 256 ulps
+// of |x| . |W|, 3e-5 of it, inside the product checks' 1e-4 (chip_smoke.py,
+// tests/test_torch_cuda.py). Taking each k-tile's products alone and adding
+// them to f32 registers, as the first version did, cost a CUDA-core add for
+// every 32 tensor-core flops.
+//
+// Bound: a layer of K x N on R rows reads K N bf16 weights and R K bf16
+// inputs, writes R N f32 outputs and does R K N multiply-adds: at K = N =
+// 4096 it is compute-bound above ~600 rows (1.37 TFLOP at R = 40,960: 1.39
+// ms at 989 TFLOP/s); at one env (512 rows) its 64 blocks fill half the
+// SMs; a narrow output is bound by reading x.
 //
 // The row kernel (row_kernel): TPR threads a row (32 to 256, from the
 // width), 16 values a thread at most (so at most 4096 columns), the row's
 // statistics summed in a fixed tree in f32 in the plain version's order
 // (mean, then the centred variance).
-//
-// Bound: a layer of K x N on R rows moves K N bf16 weights and R (K + N)
-// activations and does R K N multiply-adds; at model_size 317 (K = N =
-// 4096) the work is compute-bound on the card above ~600 rows. This first
-// version runs mma.sync, not wgmma, and writes each pre-activation to
-// device memory in f32 (the row statistics need the whole row).
 #pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 
 #include "mlp_rows.cuh"
 
 namespace tdm {
 
-constexpr int kWKT = 4;                  // k-tiles (16 deep) a stage
-constexpr int kWStages = 3;
-constexpr int kWThreads = 256;
-constexpr int kWLdA = kWKT * 16 + 8;     // bf16 row stride of an A stage (+8: ldmatrix banks)
+constexpr int kWK = 64;                  // K depth of a stage: one 128-byte swizzle row of bf16
+constexpr int kWStages = 4;
 constexpr int kWideCols = 2048;          // above this widest layer, the large tile
+constexpr int kWMaxSplits = 8;           // K splits of a narrow output at most
 
-// A product block of T rows x T columns: T = 128 where the widest layer is
-// above 2048 columns (model_size 317), else 64 (the rollout at model_size
-// 1-48: four times the blocks of a small layer). The shape follows from
-// the widths alone.
-template <int T>
+// A product block: WGS consumer warpgroups of 64 rows and BN columns, then
+// one producer warpgroup (its first thread issues the copies). Registers:
+// 65,536 / (threads x min_blocks) a thread at launch; setmaxnreg lowers the
+// producer's to 40 and raises the consumers' by what that frees.
+template <int WGS, int BN>
 struct WTile {
-  static constexpr int bm = T, bn = T, pairs = T / 16;
-  static constexpr int mt = T / 32;   // m-tiles of a warp (8 warps: 2 x 4)
-  static constexpr int jp = T / 64;   // column pairs of a warp
-  static constexpr int stage_a = T * kWLdA * 2;
-  static constexpr int stage_b = kWKT * pairs * 512;
-  static constexpr int smem = kWStages * (stage_a + stage_b);
+  static constexpr int wgs = WGS, bm = 64 * WGS, bn = BN;
+  static constexpr int threads = 128 * (WGS + 1);
+  static constexpr int min_blocks = WGS == 2 ? 1 : 2;
+  static constexpr int stage_a = bm * kWK * 2, stage_b = bn * kWK * 2;
+  // the stages from a 1024-byte boundary (the swizzle's period), then the
+  // full and empty mbarriers
+  static constexpr int smem = 1024 + kWStages * (stage_a + stage_b) + 16 * kWStages;
+  static constexpr int launch_regs = (65536 / (threads * min_blocks)) & ~7;
+  static constexpr int prod_regs = 40;
+  static constexpr int cons_regs = ((launch_regs * (WGS + 1) - prod_regs) / WGS) & ~7;
 };
+using WLarge = WTile<2, 256>;   // 128 x 256, one block an SM
+using WSmall = WTile<1, 128>;   // 64 x 128, two blocks an SM
 
 constexpr int kWRowThreads = 256;
 constexpr int kWVals = 16;               // values a thread of the row kernel
@@ -94,203 +145,337 @@ inline bool wide_fits(const Dims& d) {
          d.B <= kWMaxCols && 2 * d.A <= kWMaxCols && d.A >= 1;
 }
 
-// The product block's side at these widths (WTile).
-inline int wide_tile(const Dims& d) {
+// The product's tile at these widths and S rows an env: WLarge where the
+// widest layer is above 2048 columns and an env has more than 64 rows,
+// else WSmall.
+inline bool wide_large(const Dims& d, int S) {
   const int Lp = up16(d.L), Mp = up16(d.M), Bp = up16(d.B);
   const int widest = Mp > Lp ? (Mp > Bp ? Mp : Bp) : (Lp > Bp ? Lp : Bp);
-  return widest > kWideCols ? 128 : 64;
+  return widest > kWideCols && S > 64;
+}
+
+// K splits of a product of ncols columns and nk stages on tiles of bn
+// columns, into rows of y ldy wide: 1 unless one column tile holds the
+// output; then splits of at least 8 stages, at most kWMaxSplits, and no
+// more partial rows of up16(ncols) columns than a row of y holds.
+inline int gemm_splits(int ncols, int bn, int nk, long ldy) {
+  if (ncols > bn) return 1;
+  long s = nk / 8;
+  const long fit = ldy / up16(ncols);
+  if (s > kWMaxSplits) s = kWMaxSplits;
+  if (s > fit) s = fit;
+  return s < 1 ? 1 : static_cast<int>(s);
 }
 
 // ---------------------------------------------------------------------------
 // The product
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src, uint32_t src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
+// mbar_wait for the product's ring, bounded: a wait that outlasts 2^26
+// polls (far beyond any copy's or wgmma's latency) traps, so that a fault in
+// the ring's accounting ends the launch with an error instead of a hang.
+__device__ __forceinline__ void ring_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i == (1u << 26)) asm volatile("trap;\n");
+  }
+}
+
+__device__ __forceinline__ void expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// TMA: the box at coordinates (c0 innermost, c1[, c2]) of `map` into shared
+// memory at dst, its bytes counted on `bar`.
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                       uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
 }
 
-template <int n>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                       int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
 }
 
-// One layer's product: y[row, c] = x[row, :16 kt] . W[:, c] + bias[c] for
-// c < ncols, the rows of N envs of S rows each (row env * S + s).
+// The wgmma descriptor of a K-major operand tile in shared memory as TMA
+// writes it with a 128-byte swizzle: rows of 64 bf16 (128 bytes), 8-row
+// groups 1024 bytes apart, the tile on a 1024-byte boundary. A 16-deep
+// step further in K is 32 bytes further: + 2 on the descriptor.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3ffffu) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma issue and its wait.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// d (m64 x n128, f32, 64 registers a thread) += A (64 x 16, shared, K-major)
+// . B (16 x 128, shared, K-major), both through 128-byte-swizzle descriptors.
+__device__ __forceinline__ void wgmma128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (m64 x n256, f32, 128 registers a thread) += A (64 x 16, shared, K-major)
+// . B (16 x 256, shared, K-major), both through 128-byte-swizzle descriptors.
+__device__ __forceinline__ void wgmma256(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN == 256) {
+    wgmma256(d, da, db);
+  } else {
+    wgmma128(d, da, db);
+  }
+}
+
+// One layer's product: y[row, c] = x[row, :K] . W_head[:K, c] + bias[c] for
+// c < ncols, the rows of N envs of S rows each (row env * S + s). x and W
+// come through the kernel's tensor maps.
 struct GemmArgs {
-  const uint16_t* x;  // bf16 activations, ldx apart (a multiple of 8)
-  long ldx;
-  const uint4* w;     // packed matrix: kt k-tiles of np column pairs
-  int kt, np;
-  long wh;            // uint4s from one head's packed matrix to the next
+  float* y;           // f32 output, ldy apart (even); split z's partial at y + z * pstride
+  long ldy;
+  int ncols;
   const float* b;     // bias of column c: b[task * bt + head * bh + c]
   long bt, bh;
   const float* b1;    // columns c >= split: b1[c - split] (the pi head's log-std)
   int split;
-  float* y;           // f32 output, ldy apart (even)
-  long ldy;
-  int ncols;
   const int* task;    // [N] task ids, or null (task 0)
   int ntask;
   const int* head;    // env e's head index at head[e * hn] (a Q head), or null
   long hn;
   int nhead;
-  int S, bpe;         // rows an env, row tiles an env
+  int S;              // rows an env
+  int bpe;            // row tiles an env; 0: row tiles over all R rows
+  long R;
+  int nk;             // stages of K (kWK deep) in all
+  int kchunk;         // stages a split
+  int pstride;        // columns from one partial row to the next
+  int gx, gy, gz;     // tiles: column tiles, row tiles, K splits
 };
 
-template <int T>
-__global__ void __launch_bounds__(kWThreads, 2) gemm_kernel(const GemmArgs a) {
-  using Tl = WTile<T>;
-  extern __shared__ uint4 wide_smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, q = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;
-  const int env = blockIdx.y / a.bpe;
-  const int r0 = (blockIdx.y % a.bpe) * Tl::bm;
-  const int nrows = min(Tl::bm, a.S - r0);
-  const long rowbase = static_cast<long>(env) * a.S + r0;
-  const int p0 = blockIdx.x * Tl::pairs;
-  const int npb = min(Tl::pairs, a.np - p0);
-  const int task = a.task == nullptr ? 0 : min(max(a.task[env], 0), a.ntask - 1);
-  const int head = a.head == nullptr ? 0 : min(max(a.head[env * a.hn], 0), a.nhead - 1);
-  const uint4* W = a.w + head * a.wh;
-  const uint32_t sA = smem_u32(wide_smem);
-  const uint32_t sB = sA + kWStages * Tl::stage_a;
-  const int nk = (a.kt + kWKT - 1) / kWKT;
+// One output tile of a product: its rows (inside one env when bpe > 0),
+// that env's head, its columns and its split's K stages. Tile t runs
+// column tiles fastest, then row tiles, then splits.
+struct GemmTile {
+  long row0;
+  int nrows, env, head, n0, z, ks0, n;
+};
 
-  // stage `st` <- k-tiles [kt0, kt0 + n): the A rows (zeros past nrows) and
-  // the column tile's pairs of each k-tile. A whole stage of a whole column
-  // tile (all but the ragged edges) indexes by shifts.
-  auto load = [&](int st, int kt0) {
-    const int n = min(kWKT, a.kt - kt0);
-    const uint32_t dA = sA + st * Tl::stage_a;
-    const uint32_t dB = sB + st * Tl::stage_b;
-    if (n == kWKT && npb == Tl::pairs) {
-#pragma unroll
-      for (int i = tid; i < Tl::bm * kWKT * 2; i += kWThreads) {
-        const int r = i / (kWKT * 2), c = i % (kWKT * 2);
-        const bool ok = r < nrows;
-        const uint16_t* src = a.x + (ok ? (rowbase + r) * a.ldx + kt0 * 16 + c * 8 : 0);
-        cp16(dA + (r * kWLdA + c * 8) * 2, src, ok ? 16 : 0);
-      }
-#pragma unroll
-      for (int i = tid; i < kWKT * Tl::pairs * 32; i += kWThreads) {
-        const int l = i & 31, j = (i >> 5) % Tl::pairs, k = (i >> 5) / Tl::pairs;
-        cp16(dB + ((k * Tl::pairs + j) * 32 + l) * 16,
-             W + (static_cast<long>(kt0 + k) * a.np + p0 + j) * 32 + l, 16);
-      }
-      return;
-    }
-    for (int i = tid; i < Tl::bm * n * 2; i += kWThreads) {
-      const int r = i / (n * 2), c = i % (n * 2);
-      const bool ok = r < nrows;
-      const uint16_t* src = a.x + (ok ? (rowbase + r) * a.ldx + kt0 * 16 + c * 8 : 0);
-      cp16(dA + (r * kWLdA + c * 8) * 2, src, ok ? 16 : 0);
-    }
-    for (int i = tid; i < n * npb * 32; i += kWThreads) {
-      const int l = i & 31, j = (i >> 5) % npb, k = (i >> 5) / npb;
-      cp16(dB + ((k * Tl::pairs + j) * 32 + l) * 16,
-           W + (static_cast<long>(kt0 + k) * a.np + p0 + j) * 32 + l, 16);
-    }
-  };
-
-  float c[Tl::mt][Tl::jp][2][4];
-#pragma unroll
-  for (int mt = 0; mt < Tl::mt; ++mt)
-#pragma unroll
-    for (int j = 0; j < Tl::jp; ++j)
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) c[mt][j][t][x] = 0.f;
-
-  for (int s = 0; s < kWStages - 1; ++s) {
-    if (s < nk) load(s, s * kWKT);
-    cp_commit();
+template <class Tl>
+__device__ __forceinline__ GemmTile gemm_tile(const GemmArgs& a, int t) {
+  GemmTile u;
+  const int yz = t / a.gx, y = yz % a.gy;
+  u.z = yz / a.gy;
+  u.n0 = (t % a.gx) * Tl::bn;
+  u.env = 0;
+  if (a.bpe > 0) {
+    u.env = y / a.bpe;
+    const int r0 = (y % a.bpe) * Tl::bm;
+    u.row0 = static_cast<long>(u.env) * a.S + r0;
+    u.nrows = min(Tl::bm, a.S - r0);
+  } else {
+    u.row0 = static_cast<long>(y) * Tl::bm;
+    u.nrows = static_cast<int>(min(static_cast<long>(Tl::bm), a.R - u.row0));
   }
-  // m-tiles with rows, pairs with columns: warp-uniform, so the ldmatrix and
-  // mma instructions below never sit under a divergent branch
-  const int mrow = wm * (Tl::bm / 2);
-  for (int ks = 0; ks < nk; ++ks) {
-    cp_wait<kWStages - 2>();
-    __syncthreads();
-    {  // refill the stage every warp finished before the barrier
-      const int nx = ks + kWStages - 1;
-      if (nx < nk) load(nx % kWStages, nx * kWKT);
-      cp_commit();
+  u.head = a.head == nullptr ? 0 : min(max(a.head[u.env * a.hn], 0), a.nhead - 1);
+  u.ks0 = u.z * a.kchunk;
+  u.n = min(a.nk, u.ks0 + a.kchunk) - u.ks0;
+  return u;
+}
+
+// Persistent: each block walks the tiles blockIdx.x, + gridDim.x, ...; the
+// producer runs on into the next tile's stages while the consumers store
+// the last one's, and the ring's stage and phase run on across tiles.
+template <class Tl>
+__global__ void __launch_bounds__(Tl::threads, Tl::min_blocks)
+    gemm_kernel(const GemmArgs a, const __grid_constant__ CUtensorMap tx,
+                const __grid_constant__ CUtensorMap tw) {
+  extern __shared__ __align__(1024) uint8_t wide_smem[];
+  const uint32_t sA = (smem_u32(wide_smem) + 1023u) & ~1023u;
+  const uint32_t sB = sA + kWStages * Tl::stage_a;
+  const uint32_t full = sB + kWStages * Tl::stage_b, empty = full + 8 * kWStages;
+  const int wg = threadIdx.x >> 7;
+  const int ntiles = a.gx * a.gy * a.gz;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, Tl::wgs * 4);   // a warp of each consumer warpgroup
     }
-    const int st = ks % kWStages;
-    const int n = min(kWKT, a.kt - ks * kWKT);
-    const uint32_t aS = sA + st * Tl::stage_a, bS = sB + st * Tl::stage_b;
-    // one k-tile of the stage: the same products in the same order whether
-    // the loop below runs unrolled (a whole stage) or not
-    auto ktile = [&](int i) {
-      uint32_t af[Tl::mt][4];
-#pragma unroll
-      for (int mt = 0; mt < Tl::mt; ++mt)
-        if (mrow + mt * 16 < nrows)
-          ldsm_x4(af[mt], aS + ((mrow + mt * 16 + (lane & 15)) * kWLdA + i * 16 +
-                                (lane >> 4) * 8) * 2);
-#pragma unroll
-      for (int j = 0; j < Tl::jp; ++j) {
-        const int pair = wn * Tl::jp + j;
-        if (pair >= npb) continue;
-        const uint4 b = lds128(bS + ((i * Tl::pairs + pair) * 32 + lane) * 16);
-#pragma unroll
-        for (int mt = 0; mt < Tl::mt; ++mt) {
-          if (mrow + mt * 16 >= nrows) continue;
-          float k16[2][4];
-          mma16816(k16[0], af[mt], b.x, b.y);
-          mma16816(k16[1], af[mt], b.z, b.w);
-#pragma unroll
-          for (int t = 0; t < 2; ++t)
-#pragma unroll
-            for (int x = 0; x < 4; ++x) c[mt][j][t][x] += k16[t][x];
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == Tl::wgs) {
+    // the producer warpgroup: its first thread keeps the ring full
+    reg_dealloc<Tl::prod_regs>();
+    if (threadIdx.x == Tl::wgs * 128) {
+      uint32_t it = 0;   // stages issued, across tiles
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        const GemmTile u = gemm_tile<Tl>(a, t);
+        for (int i = 0; i < u.n; ++i, ++it) {
+          const uint32_t st = it % kWStages;
+          if (it >= kWStages) ring_wait(empty + 8 * st, (it / kWStages - 1) & 1);
+          expect_tx(full + 8 * st, Tl::stage_a + Tl::stage_b);
+          const int k = (u.ks0 + i) * kWK;
+          tma_2d(sA + st * Tl::stage_a, &tx, k, static_cast<int>(u.row0), full + 8 * st);
+          tma_3d(sB + st * Tl::stage_b, &tw, k, u.n0, u.head, full + 8 * st);
         }
       }
-    };
-    if (n == kWKT) {
-#pragma unroll
-      for (int i = 0; i < kWKT; ++i) ktile(i);
-    } else {
-      for (int i = 0; i < n; ++i) ktile(i);
     }
+    return;
   }
-  cp_wait<0>();
 
-  const float* bias = a.b + task * a.bt + head * a.bh;
+  // a consumer warpgroup: rows [64 wg, 64 wg + 64) of each tile
+  reg_alloc<Tl::cons_regs>();
+  const uint32_t aoff = wg * 64 * kWK * 2;
+  const bool releaser = (threadIdx.x & 31) == 0;
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, q = lane & 3;
+  const int rw = wg * 64 + w * 16 + g;
+  uint32_t it = 0;   // stages consumed, across tiles
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const GemmTile u = gemm_tile<Tl>(a, t);
+    float acc[Tl::bn / 2];
 #pragma unroll
-  for (int j = 0; j < Tl::jp; ++j) {
-    const int pair = wn * Tl::jp + j;
-    if (pair >= npb) continue;
+    for (int i = 0; i < Tl::bn / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < u.n; ++i, ++it) {
+      const uint32_t st = it % kWStages;
+      ring_wait(full + 8 * st, (it / kWStages) & 1);
+      const uint64_t da = sw128_desc(sA + st * Tl::stage_a + aoff);
+      const uint64_t db = sw128_desc(sB + st * Tl::stage_b);
+      fence_acc(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int col = (p0 + pair) * 16 + t * 8 + 2 * q;
-      float bv[2];
+      for (int k = 0; k < kWK / 16; ++k) wgmma<Tl::bn>(acc, da + 2 * k, db + 2 * k);
+      wgmma_commit();
+      fence_acc(acc);
+      wgmma_wait<1>();
+      // the previous stage's group has retired: its stage goes back to the producer
+      if (i > 0 && releaser) mbar_arrive(empty + 8 * ((it - 1) % kWStages));
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (u.n > 0 && releaser) mbar_arrive(empty + 8 * ((it - 1) % kWStages));
+
+    // epilogue: thread (warp w, lane 4 g + q) holds rows 16 w + g (+ 8) of
+    // its warpgroup's 64 at columns 8 j + 2 q (+ 1), j < BN / 8
+    const int task = a.task == nullptr ? 0 : min(max(a.task[u.env], 0), a.ntask - 1);
+    const bool first = u.z == 0;
+    const float* bias = a.b + task * a.bt + u.head * a.bh;
+    float* yb = a.y + u.row0 * a.ldy + u.z * a.pstride;
+#pragma unroll
+    for (int j = 0; j < Tl::bn / 8; ++j) {
+      const int col = u.n0 + 8 * j + 2 * q;
+      float bv[2] = {0.f, 0.f};
 #pragma unroll
       for (int x = 0; x < 2; ++x) {
         const int cc = col + x;
-        bv[x] = cc >= a.ncols ? 0.f : cc < a.split ? __ldg(bias + cc) : __ldg(a.b1 + cc - a.split);
+        if (first && cc < a.ncols)
+          bv[x] = cc < a.split ? __ldg(bias + cc) : __ldg(a.b1 + cc - a.split);
       }
 #pragma unroll
-      for (int mt = 0; mt < Tl::mt; ++mt)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = mrow + mt * 16 + g + 8 * hf;
-          if (row >= nrows) continue;
-          float* yr = a.y + (rowbase + row) * a.ldy + col;
-          const float v0 = c[mt][j][t][2 * hf] + bv[0], v1 = c[mt][j][t][2 * hf + 1] + bv[1];
-          if (col + 1 < a.ncols) {
-            *reinterpret_cast<float2*>(yr) = make_float2(v0, v1);
-          } else if (col < a.ncols) {
-            yr[0] = v0;
-          }
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = rw + 8 * hf;
+        if (row >= u.nrows || col >= a.ncols) continue;
+        float* yr = yb + static_cast<long>(row) * a.ldy + col;
+        const float v0 = acc[4 * j + 2 * hf] + bv[0], v1 = acc[4 * j + 2 * hf + 1] + bv[1];
+        if (col + 1 < a.ncols) {
+          *reinterpret_cast<float2*>(yr) = make_float2(v0, v1);
+        } else {
+          yr[0] = v0;
         }
+      }
     }
   }
 }
@@ -305,6 +490,8 @@ struct RowArgs {
   int mode;
   const float* y;   // the product's rows, ldy apart
   long ldy;
+  int nsplit;       // partial rows of a split product, pstride columns apart (1: none)
+  int pstride;
   int ncols;        // the layer's width
   const float *gain, *beta;  // LayerNorm (hidden, latent): + head * gh
   long gh;
@@ -366,6 +553,12 @@ __global__ void __launch_bounds__(kWRowThreads) row_kernel(const RowArgs a) {
   const int env = static_cast<int>(rr / a.S);
   const float* yr = a.y + rr * a.ldy;
   const int nc = a.ncols;
+  // column c of the product: its partial rows summed in order
+  auto yat = [&](int c) {
+    float v = yr[c];
+    for (int p = 1; p < a.nsplit; ++p) v += yr[p * a.pstride + c];
+    return v;
+  };
 
   if (a.mode == kRowPi) {
     // columns [0, A) the mean, [A, 2A) the raw log-std
@@ -376,8 +569,8 @@ __global__ void __launch_bounds__(kWRowThreads) row_kernel(const RowArgs a) {
       if (c < a.A) {
         const float m = a.amask != nullptr ? a.amask[env * a.amn + c] : 1.f;
         const float e = a.eps[env * a.en + s * a.es + c];
-        const float mean = __fmul_rn(yr[c], m);
-        const float ls = a.lsmin + 0.5f * a.lsdif * (tanhf(yr[a.A + c]) + 1.f);
+        const float mean = __fmul_rn(yat(c), m);
+        const float ls = a.lsmin + 0.5f * a.lsdif * (tanhf(yat(a.A + c)) + 1.f);
         act = tanhf(mean + __fmul_rn(e, m) * expf(ls));
         if (a.fdst != nullptr) a.fdst[rr * a.ldf + c] = act;
       }
@@ -387,7 +580,7 @@ __global__ void __launch_bounds__(kWRowThreads) row_kernel(const RowArgs a) {
   }
   if (a.mode == kRowTerm) {
     if (!live || lr != 0) return;
-    const float hit = yr[0] > 0.f ? 1.f : 0.f;
+    const float hit = yat(0) > 0.f ? 1.f : 0.f;
     if (a.term_at != nullptr && a.term[rr] == 0.f && hit != 0.f) a.term_at[rr] = a.t + 1;
     a.term[rr] = fminf(a.term[rr] + hit, 1.f);
     return;
@@ -398,13 +591,25 @@ __global__ void __launch_bounds__(kWRowThreads) row_kernel(const RowArgs a) {
     const int h = a.head == nullptr ? 0 : min(max(a.head[env * a.hn], 0), a.nhead - 1);
     const float* gn = a.gain + h * a.gh;
     const float* bt = a.beta + h * a.gh;
+    // the row, its partial rows summed where K was split; the branch is
+    // taken once, so that an unsplit row's loads issue back to back (read
+    // through yat, LayerNorm + Mish took 1.4x as long at 4,096 rows)
+    if (a.nsplit == 1) {
+#pragma unroll
+      for (int i = 0; i < kWVals; ++i) {
+        const int c = lr + i * TPR;
+        v[i] = live && c < nc ? yr[c] : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kWVals; ++i) {
+        const int c = lr + i * TPR;
+        v[i] = live && c < nc ? yat(c) : 0.f;
+      }
+    }
     float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < kWVals; ++i) {
-      const int c = lr + i * TPR;
-      v[i] = live && c < nc ? yr[c] : 0.f;
-      s += v[i];
-    }
+    for (int i = 0; i < kWVals; ++i) s += v[i];
     const float mu = row_all<TPR, false>(s, red) / nc;
     s = 0.f;
 #pragma unroll
@@ -450,7 +655,7 @@ __global__ void __launch_bounds__(kWRowThreads) row_kernel(const RowArgs a) {
 #pragma unroll
   for (int i = 0; i < kWVals; ++i) {
     const int c = lr + i * TPR;
-    v[i] = live && c < nc ? yr[c] : ninf;
+    v[i] = live && c < nc ? yat(c) : ninf;
     mx = fmaxf(mx, v[i]);
   }
   mx = row_all<TPR, true>(mx, red);
@@ -576,8 +781,85 @@ inline Scratch scratch_from(const void* const* p, const long* ld) {
                  ld[0], ld[1], ld[2]};
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, looked up once through the runtime
+// (the library is not linked to libcuda); null if the driver has none.
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tensor map of a bf16 tensor of `rank` dims at p: sizes dim and byte
+// strides of dims 1.. (innermost first), boxes of `box`, 128-byte swizzle,
+// zeros past the ends.
+inline cudaError_t encode_bf16(CUtensorMap* m, const void* p, int rank, const cuuint64_t* dim,
+                               const cuuint64_t* stride, const cuuint32_t* box) {
+  const EncodeTiled fn = tensor_map_encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t ones[3] = {1, 1, 1};
+  const CUresult r =
+      fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank), const_cast<void*>(p),
+         dim, stride, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Before the first launch of a tile: its shared memory opted into, the
+// registers it launches with read back, and the blocks the card holds at
+// once (`resident`: blocks an SM x SMs, the persistent grid's most).
+// setmaxnreg moves registers inside the block's pool, and the consumers'
+// increase waits for the producer's decrease: with fewer registers at
+// launch than the split assumes it would wait forever, so such a build
+// refuses to launch instead.
+template <class Tl>
+cudaError_t prepare_gemm(int* resident = nullptr) {
+  cudaError_t e = opt_in_smem(gemm_kernel<Tl>, Tl::smem);
+  if (e != cudaSuccess) return e;
+  static int regs = -1, blocks = 0;
+  if (regs < 0) {
+    cudaFuncAttributes fa{};
+    int dev = 0, sms = 0, per_sm = 0;
+    e = cudaFuncGetAttributes(&fa, gemm_kernel<Tl>);
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gemm_kernel<Tl>, Tl::threads,
+                                                        Tl::smem);
+    if (e != cudaSuccess) return e;
+    regs = fa.numRegs;
+    blocks = sms * per_sm;
+  }
+  if (resident != nullptr) *resident = blocks;
+  if (blocks < 1) return cudaErrorLaunchOutOfResources;
+  return regs >= Tl::launch_regs ? cudaSuccess : cudaErrorLaunchOutOfResources;
+}
+
+// The launch plan of one product (tests/wide_mirror.py gemm_plan mirrors
+// it): the tile, the K splits, the tiles' grid and the blocks launched.
+struct GemmPlan {
+  int bm, bn, wgs, splits, kchunk, pstride, gx, gy, gz, blocks;
+};
+
 // One call's launches on `stream`, stopping at the first error (`err`);
-// `launched` counts them.
+// `launched` counts them, `gemms`, `rowk` and `stagings` the products, row
+// kernels and stagings among them, each where it launches.
 struct Wide {
   Weights w;
   Dims d;
@@ -587,26 +869,23 @@ struct Wide {
   int ntask;
   Scratch sc;
   cudaStream_t stream;
-  int err = 0, launched = 0;
-  int tile;  // the product block's side (wide_tile)
-  int Lp, Ap, Mp, kz, kl, km, npM, npL, npB, npH;
+  int err = 0, launched = 0, gemms = 0, rowk = 0, stagings = 0;
+  bool large;          // the product's tile (wide_large)
+  GemmPlan last{};     // the last product's plan: the row kernel reads its partials
+  int Lp, Ap, Mp, kz, kl, km;
 
   Wide(const void* const* wptrs, const int* dims, int N_, int S_, const int* task_, int ntask_,
        const Scratch& sc_, cudaStream_t st)
       : d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6]}, N(N_), S(S_),
         R(static_cast<long>(N_) * S_), task(task_), ntask(ntask_), sc(sc_), stream(st) {
     for (int i = 0; i < kNumOps; ++i) w.p[i] = wptrs[i];
-    tile = wide_tile(d);
+    large = wide_large(d, S);
     Lp = up16(d.L);
     Ap = up16(d.A);
     Mp = up16(d.M);
     kz = (Lp + Ap) / 16;
     kl = Lp / 16;
     km = Mp / 16;
-    npM = Mp / 16;
-    npL = Lp / 16;
-    npB = up16(d.B) / 16;
-    npH = up16(2 * d.A) / 16;
   }
 
   void check_launch() {
@@ -615,31 +894,73 @@ struct Wide {
     if (e != cudaSuccess) err = static_cast<int>(e);
   }
 
-  // y <- x . W (+ bias): the matrix `op` of head `head` (Q: per env)
-  void gemm(const uint16_t* x, long ldx, int kt, int op, int np, int ncols, const float* b,
+  // out [4]: the launches, then the products, the row kernels and the
+  // stagings among them
+  void report(int* out) const {
+    out[0] = launched;
+    out[1] = gemms;
+    out[2] = rowk;
+    out[3] = stagings;
+  }
+
+  // y <- x . W (+ bias): x's rows ldx apart, K = 16 kt columns; W the wide
+  // layout [heads, ncols, 16 kt] of a matrix (heads = num_q where `head`
+  // picks each env's); K splits as gemm_splits gives them.
+  void gemm(const uint16_t* x, long ldx, int kt, const void* W, int ncols, const float* b,
             long bt, long bh, const int* head = nullptr, long hn = 0,
             const float* b1 = nullptr, int split = -1) {
     if (err) return;
-    GemmArgs a{x, ldx, w.w(op), kt, np, static_cast<long>(kt) * np * 32, b, bt, bh, b1,
-               split < 0 ? ncols : split, sc.y, sc.ldy, ncols, task, ntask, head, hn,
-               d.NQ > 0 ? d.NQ : 1, S, 0};
-    if (tile == 128) {
-      launch_gemm<128>(a);
+    const int nheads = head == nullptr ? 1 : (d.NQ > 0 ? d.NQ : 1);
+    GemmArgs a{sc.y, sc.ldy, ncols, b, bt, bh, b1, split < 0 ? ncols : split, task, ntask,
+               head, hn, nheads, S, 0, R, (16 * kt + kWK - 1) / kWK, 0, up16(ncols), 0, 0, 0};
+    // the rows of a block stay in one env where its bias or weights depend on the env
+    const bool per_env = head != nullptr || (task != nullptr && ntask > 1 && bt != 0);
+    if (large) {
+      launch_gemm<WLarge>(a, x, ldx, 16 * kt, W, per_env);
     } else {
-      launch_gemm<64>(a);
+      launch_gemm<WSmall>(a, x, ldx, 16 * kt, W, per_env);
     }
   }
 
-  template <int T>
-  void launch_gemm(GemmArgs a) {
-    const cudaError_t e = opt_in_smem(gemm_kernel<T>, WTile<T>::smem);
+  template <class Tl>
+  void launch_gemm(GemmArgs a, const uint16_t* x, long ldx, int K, const void* W,
+                   bool per_env) {
+    int resident = 0;
+    cudaError_t e = prepare_gemm<Tl>(&resident);
+    int s = gemm_splits(a.ncols, Tl::bn, a.nk, a.ldy);
+    if (e == cudaSuccess && (s > 1 && static_cast<long>(s) * a.pstride > a.ldy))
+      e = cudaErrorInvalidValue;   // the partial rows must fit a row of y
+    a.kchunk = (a.nk + s - 1) / s;
+    s = (a.nk + a.kchunk - 1) / a.kchunk;
+    a.bpe = per_env ? (S + Tl::bm - 1) / Tl::bm : 0;
+    const long gy = per_env ? static_cast<long>(N) * a.bpe : (R + Tl::bm - 1) / Tl::bm;
+    a.gx = (a.ncols + Tl::bn - 1) / Tl::bn;
+    a.gy = static_cast<int>(gy);
+    a.gz = s;
+    const long tiles = static_cast<long>(a.gx) * a.gy * a.gz;
+    last = GemmPlan{Tl::bm, Tl::bn, Tl::wgs, s, a.kchunk, a.pstride, a.gx, a.gy, a.gz,
+                    static_cast<int>(tiles < resident ? tiles : resident)};
+    CUtensorMap tx, tw;
+    if (e == cudaSuccess) {
+      const cuuint64_t dim[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(R)};
+      const cuuint64_t stride[1] = {static_cast<cuuint64_t>(ldx) * 2};
+      const cuuint32_t box[2] = {kWK, Tl::bm};
+      e = encode_bf16(&tx, x, 2, dim, stride, box);
+    }
+    if (e == cudaSuccess) {
+      const cuuint64_t dim[3] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(a.ncols),
+                                 static_cast<cuuint64_t>(a.nhead)};
+      const cuuint64_t stride[2] = {static_cast<cuuint64_t>(K) * 2,
+                                    static_cast<cuuint64_t>(K) * a.ncols * 2};
+      const cuuint32_t box[3] = {kWK, Tl::bn, 1};
+      e = encode_bf16(&tw, W, 3, dim, stride, box);
+    }
     if (e != cudaSuccess) {
       err = static_cast<int>(e);
       return;
     }
-    a.bpe = (S + T - 1) / T;
-    const dim3 grid((a.np + WTile<T>::pairs - 1) / WTile<T>::pairs, N * a.bpe);
-    gemm_kernel<T><<<grid, kWThreads, WTile<T>::smem, stream>>>(a);
+    gemm_kernel<Tl><<<last.blocks, Tl::threads, Tl::smem, stream>>>(a, tx, tw);
+    ++gemms;
     check_launch();
   }
 
@@ -647,6 +968,8 @@ struct Wide {
     if (err) return;
     a.y = sc.y;
     a.ldy = sc.ldy;
+    a.nsplit = last.splits;
+    a.pstride = last.pstride;
     a.S = S;
     a.R = R;
     int tpr = 32;
@@ -660,6 +983,7 @@ struct Wide {
       case 128: row_kernel<128><<<blocks, kWRowThreads, 0, stream>>>(a); break;
       default: row_kernel<256><<<blocks, kWRowThreads, 0, stream>>>(a); break;
     }
+    ++rowk;
     check_launch();
   }
 
@@ -677,6 +1001,7 @@ struct Wide {
     const long total = R * (a.load_z ? Lp + Ap : Ap);
     const long blocks = (total + 255) / 256;
     stage_kernel<<<static_cast<unsigned>(blocks < 8192 ? blocks : 8192), 256, 0, stream>>>(a);
+    ++stagings;
     check_launch();
   }
 
@@ -694,7 +1019,7 @@ struct Wide {
   // A NormedLinear + Mish layer from x (kt k-tiles) into h.
   void hidden(const uint16_t* x, long ldx, int kt, int op, const float* b, long bt, long bh,
               const float* gain, const float* beta, const int* head = nullptr, long hn = 0) {
-    gemm(x, ldx, kt, op, npM, d.M, b, bt, bh, head, hn);
+    gemm(x, ldx, kt, w.p[op], d.M, b, bt, bh, head, hn);
     RowArgs r = row_args(kRowHidden, d.M);
     r.gain = gain;
     r.beta = beta;
@@ -722,7 +1047,7 @@ struct Wide {
   // zH (rows L apart) too when zH is not null.
   void dynamics(float* zH = nullptr) {
     hidden2(kz, dP0);
-    gemm(sc.h, sc.ldh, km, dP2, npL, d.L, w.f(db2), 0, 0);
+    gemm(sc.h, sc.ldh, km, w.p[dP2], d.L, w.f(db2), 0, 0);
     RowArgs r = row_args(kRowLatent, d.L);
     r.gain = w.f(dg2);
     r.beta = w.f(de2);
@@ -737,7 +1062,7 @@ struct Wide {
   // G += discs[t] * (1 - term) * reward(z_t, a_t)
   void reward(const float* discs, long dn, int t) {
     hidden2(kz, rP0);
-    gemm(sc.h, sc.ldh, km, rP2, npB, d.B, w.f(rb2), 0, 0);
+    gemm(sc.h, sc.ldh, km, w.p[rP2], d.B, w.f(rb2), 0, 0);
     RowArgs r = row_args(kRowReward, d.B);
     r.G = sc.G;
     r.discs = discs;
@@ -749,7 +1074,7 @@ struct Wide {
   // The sticky termination flag after step t's dynamics.
   void termination(int t, int* term_at) {
     hidden2(kl, tP0);
-    gemm(sc.h, sc.ldh, km, tP2, 1, 1, w.f(tb2), 0, 0);
+    gemm(sc.h, sc.ldh, km, w.p[tP2], 1, w.f(tb2), 0, 0);
     RowArgs r = row_args(kRowTerm, 1);
     r.t = t;
     r.term_at = term_at;
@@ -761,7 +1086,7 @@ struct Wide {
   void policy(const float* eps, long en, long es, const float* amask, long amn, float lsmin,
               float lsdif, float* acts = nullptr, long ldf = 0) {
     hidden2(kl, pP0);
-    gemm(sc.h, sc.ldh, km, pP2, npH, 2 * d.A, w.f(pbm), 0, 0, nullptr, 0, w.f(pbl), d.A);
+    gemm(sc.h, sc.ldh, km, w.p[pP2], 2 * d.A, w.f(pbm), 0, 0, nullptr, 0, w.f(pbl), d.A);
     RowArgs r = row_args(kRowPi, 2 * d.A);
     r.eps = eps;
     r.en = en;
@@ -783,7 +1108,7 @@ struct Wide {
   void q_head(int j, const int* qidx, long qn, const float* discs, long dn, float* out) {
     const int* hd = qidx + j;
     hidden2(kz, qP0, hd, qn);
-    gemm(sc.h, sc.ldh, km, qP2, npB, d.B, w.f(qb2), 0, d.B, hd, qn);
+    gemm(sc.h, sc.ldh, km, w.p[qP2], d.B, w.f(qb2), 0, d.B, hd, qn);
     RowArgs r = row_args(j == 0 ? kRowQ0 : kRowQ1, d.B);
     r.G = sc.G;
     r.q = sc.q;
@@ -795,30 +1120,34 @@ struct Wide {
   }
 };
 
-}  // namespace tdm
-
-namespace tdm {
-template <int T>
+template <class Tl>
 int wide_plan_report(int* out) {
-  out[0] = WTile<T>::bm;
-  out[1] = WTile<T>::bn;
-  out[2] = kWKT * 16;
+  out[0] = Tl::bm;
+  out[1] = Tl::bn;
+  out[2] = kWK;
   out[3] = kWStages;
-  out[4] = WTile<T>::smem;
+  out[4] = Tl::smem;
   out[5] = 0;
-  const cudaError_t err = opt_in_smem(gemm_kernel<T>, WTile<T>::smem);
+  out[6] = Tl::wgs;
+  out[7] = 0;
+  const cudaError_t err = prepare_gemm<Tl>();
+  cudaFuncAttributes fa{};
+  if (cudaFuncGetAttributes(&fa, gemm_kernel<Tl>) == cudaSuccess) out[7] = fa.numRegs;
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[5], gemm_kernel<T>, kWThreads, WTile<T>::smem));
+      &out[5], gemm_kernel<Tl>, Tl::threads, Tl::smem));
 }
+
 }  // namespace tdm
 
 // out = {rows and columns of a product block, its K depth a stage, stages,
-// shared bytes, product blocks per SM} at these dims; returns an error code.
-extern "C" int tdm_wide_plan(const int* dims, int* out) {
+// shared bytes, product blocks per SM, consumer warpgroups, registers a
+// thread at launch} of the product at these dims and S rows an env;
+// returns an error code.
+extern "C" int tdm_wide_plan(const int* dims, int S, int* out) {
   using namespace tdm;
   const Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6]};
-  return wide_tile(d) == 128 ? wide_plan_report<128>(out) : wide_plan_report<64>(out);
+  return wide_large(d, S) ? wide_plan_report<WLarge>(out) : wide_plan_report<WSmall>(out);
 }
 
 // The engine the value and pi-rollout kernels take at these dims: 0 the

@@ -21,7 +21,7 @@
 // smaller than the 39 launches' fixed costs. The row-tile version it
 // replaces ran 16 blocks (one a 32-row tile) that each streamed all ~8 MB
 // of the step's packed weights from L2; here each layer spreads over
-// (columns / 128) x (S / 128) blocks.
+// (columns / 128) x (S / 64) blocks (the wide engine's small tile).
 #include "mlp_wide.cuh"
 
 // Launch on `stream`; returns cudaGetLastError() after the last launch, or
@@ -30,7 +30,8 @@
 // apart (0 broadcasts one row); actions [H, S, A] with strides ats, ass, 1;
 // discs [H]; G [S] receives the return and zH [S, L] the final latent. The
 // scratch buffers (x, h, y; ops/wide.py) and their row strides follow;
-// `launched` receives the number of launches.
+// `launched` [4] receives the number of launches and of products, row
+// kernels and stagings among them.
 extern "C" int tdm_rollout(const void* const* wptrs, const int* dims, int S, const float* z0,
                            long zs, const float* actions, long ats, long ass,
                            const float* discs, float* G, float* zH,
@@ -57,6 +58,38 @@ extern "C" int tdm_rollout(const void* const* wptrs, const int* dims, int S, con
     wd.reward(discs, 0, t);
     wd.dynamics(t + 1 == wd.d.H ? zH : nullptr);
   }
-  *launched = wd.launched;
+  wd.report(launched);
+  return wd.err;
+}
+
+// One product of the wide engine on given operands, as Wide::gemm launches
+// it for the model dims `dims` and N envs of S rows, for the checks and
+// timings of chip_smoke.py and tests/test_torch_cuda.py (no path calls
+// it): y = x . W + bias with x [N*S, ldx] bf16 (its first 16 kt columns
+// read), W the wide layout [heads, ncols, 16 kt] bf16 (heads = num_q where
+// `head` is not null), bias b[task * bt + head * bh + c] (b1[c - split] from
+// column split on), task [N] or null, head[e * hn] or null; y [N*S, ldy]
+// f32 receives the product, or its partial rows pstride columns apart when
+// K is split (the engine's rule, gemm_splits). plan receives {rows and
+// columns of a tile, consumer warpgroups, splits, stages a split, pstride,
+// tiles in x, y, z, blocks launched}; launched [4] as above.
+extern "C" int tdm_wide_gemm(const int* dims, int N, int S, const void* x, long ldx, int kt,
+                             const void* w, int ncols, const float* b, long bt, long bh,
+                             const float* b1, int split, const int* task, int ntask,
+                             const int* head, long hn, float* y, long ldy, int* plan,
+                             int* launched, void* stream) {
+  using namespace tdm;
+  const void* none[kNumOps] = {};
+  Scratch sc{};
+  sc.y = y;
+  sc.ldy = ldy;
+  Wide wd(none, dims, N, S, task, ntask, sc, static_cast<cudaStream_t>(stream));
+  if (!wide_fits(wd.d)) return kNoPlan;
+  wd.gemm(static_cast<const uint16_t*>(x), ldx, kt, w, ncols, b, bt, bh, head, hn, b1, split);
+  const GemmPlan& p = wd.last;
+  const int out[10] = {p.bm, p.bn, p.wgs, p.splits, p.kchunk, p.pstride,
+                       p.gx, p.gy, p.gz, p.blocks};
+  for (int i = 0; i < 10; ++i) plan[i] = out[i];
+  wd.report(launched);
   return wd.err;
 }

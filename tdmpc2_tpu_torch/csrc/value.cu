@@ -352,7 +352,7 @@ int value_wide(const void* const* wptrs, const int* dims, float lsmin, float lsd
   wd.policy(eps, en, wd.d.A, amask, amn, lsmin, lsdif);
   wd.q_head(0, qidx, qn, discs, dn, out);
   wd.q_head(1, qidx, qn, discs, dn, out);
-  *launched = wd.launched;
+  wd.report(launched);
   return wd.err;
 }
 
@@ -360,8 +360,8 @@ int value_wide(const void* const* wptrs, const int* dims, float lsmin, float lsd
 
 // tdm_value on the wide engine: the same operands, then the scratch
 // buffers (x, h, y, G, q, term; ops/wide.py) and their row strides (x, h,
-// y); `launched` receives the number of launches. Returns kNoPlan when the
-// wide engine does not take the widths.
+// y); `launched` [4] receives the number of launches and of products, row
+// kernels and stagings among them. Returns kNoPlan when the wide engine does not take the widths.
 extern "C" int tdm_value_wide(const void* const* wptrs, const int* dims, float lsmin,
                               float lsdif, int episodic, int N, int S, const float* z0, long zn,
                               long zs, const float* actions, long an, long ats, long ass,

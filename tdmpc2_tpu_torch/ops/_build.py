@@ -62,6 +62,9 @@ SIGNATURES = {
                            _P, _P, _P),
     ('rollout', 'tdm_rollout'): (_PTRS, _INTS, _I, _P, _L, _P, _L, _L, _P,
                                  _P, _P, _PTRS, _LONGS, _INTS, _P),
+    ('rollout', 'tdm_wide_gemm'): (_INTS, _I, _I, _P, _L, _I, _P, _I, _P, _L, _L,
+                                   _P, _I, _P, _I, _P, _L, _P, _L, _INTS, _INTS,
+                                   _P),
     ('probe', 'tdm_probe'): (_P, _P, _L, _P),
 }
 
@@ -149,7 +152,7 @@ def library(name: str, defines=()) -> ctypes.CDLL:
         lib.tdm_error_name.argtypes = (ctypes.c_int,)
         lib.tdm_error_name.restype = ctypes.c_char_p
         if name in WIDE_SOURCES:   # csrc/mlp_wide.cuh's report functions
-            lib.tdm_wide_plan.argtypes = (_INTS, _INTS)
+            lib.tdm_wide_plan.argtypes = (_INTS, _I, _INTS)
             lib.tdm_engine.argtypes = (_INTS,)
             lib.tdm_wide_plan.restype = lib.tdm_engine.restype = ctypes.c_int
         _loaded[(name, defines)] = lib
@@ -175,16 +178,42 @@ def check(lib: ctypes.CDLL, rc: int, what: str, dims=None):
             f'{what}: {lib.tdm_error_name(rc).decode()} ({rc}) at launch')
 
 
+def _template_ints(s: str) -> list:
+    """The integer and bool arguments, nested ones too, of the template
+    argument list `I ... E` that the mangled text s starts with ([] if it
+    starts with none)."""
+    if not s.startswith('I'):
+        return []
+    depth, i, vals = 0, 0, []
+    while i < len(s):
+        lit = re.match(r'L[ib](\d+)E', s[i:])
+        if lit:
+            vals.append(lit.group(1))
+            i += lit.end()
+            continue
+        if s[i].isdigit():                 # a length-prefixed identifier
+            n = re.match(r'\d+', s[i:])
+            i += n.end() + int(n.group())
+            continue
+        if s[i] in 'IN':
+            depth += 1
+        elif s[i] == 'E':
+            depth -= 1
+            if depth == 0:
+                break
+        i += 1
+    return vals
+
+
 def _short(mangled: str) -> str:
     """`value_kernel<32,4,1>` for a function of namespace tdm (its integer
-    and bool template arguments, the row tile and the mode, in brackets);
-    other names as they are."""
+    and bool template arguments, the row tile and the mode, or the product's
+    tile, `gemm_kernel<2,256>`, in brackets); other names as they are."""
     k = re.search(r'tdm(\d+)', mangled)   # namespace tdm, then the name
     if not k:
         return mangled
     end = k.end() + int(k.group(1))
-    args = re.match(r'I((?:L[ib]\d+E)+)E', mangled[end:])
-    shape = ','.join(re.findall(r'L[ib](\d+)E', args.group(1))) if args else ''
+    shape = ','.join(_template_ints(mangled[end:]))
     return mangled[k.end():end] + (f'<{shape}>' if shape else '')
 
 

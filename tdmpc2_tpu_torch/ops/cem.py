@@ -41,14 +41,12 @@ iterations launches as one.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from tdmpc2_tpu_torch.ops import _build, wide
-from tdmpc2_tpu_torch.ops.value import (check_prep, dynamics_plain, mask_rows,
+from tdmpc2_tpu_torch.ops.value import (check_prep, dynamics_plain, kernel_names,
+                                        launch_route, mask_rows,
                                         pi_action_plain, pi_head_plain,
-                                        prep_dims,
                                         sample_actions_plain,  # noqa: F401
                                         task_operands, value_sampled,
                                         value_sampled_plain, weight_ptrs)
@@ -111,9 +109,11 @@ def pi_rollout(prep, z0, pi_eps, *, log_std_min: float, log_std_dif: float,
                                 amask=amask, latents=latents)
     if dev.type != 'cuda':
         raise ValueError(f'pi_rollout: unsupported device {dev}')
-    check_prep(prep, dev, simnorm_dim)
     N, n_pi, HA = pi_eps.shape
     L, A = prep['dWz'].shape[0], prep['pWm'].shape[1]
+    lib, dims, route = launch_route('pi_rollout', 'cem', prep, dev, simnorm_dim,
+                                    HA // A)
+    check_prep(prep, dev, simnorm_dim, kernel_names(route))
     for t in (z0, pi_eps):
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError(f'pi_rollout: operands must be f32 on {dev}')
@@ -124,12 +124,9 @@ def pi_rollout(prep, z0, pi_eps, *, log_std_min: float, log_std_dif: float,
                          'with contiguous rows')
     tk = task_operands('pi_rollout', prep, task, amask, N, dev, False)
     out = torch.empty(N, n_pi, HA, dtype=torch.float32, device=dev)
-    lib = _build.library('cem')
-    dims = (ctypes.c_int * 7)(*prep_dims(prep, simnorm_dim, HA // A))
-    args = (weight_ptrs(prep), dims, log_std_min, log_std_dif, N, n_pi,
+    args = (weight_ptrs(prep, route), dims, log_std_min, log_std_dif, N, n_pi,
             z0.data_ptr(), z0.stride(0), pi_eps.data_ptr(), pi_eps.stride(0),
             *tk, out.data_ptr())
-    route = wide.engine(lib, dims)
     if latents is not None and (
             route != 'wide' or latents.device != dev
             or latents.dtype != torch.float32 or not latents.is_contiguous()
@@ -140,11 +137,10 @@ def pi_rollout(prep, z0, pi_eps, *, log_std_min: float, log_std_dif: float,
     if route == 'rows':
         rc = lib.tdm_pi_rollout(*args, _stream(dev))
     else:
-        sc, n = wide.Scratch(N * n_pi, tuple(dims), dev), ctypes.c_int(0)
+        sc, n = wide.Scratch(N * n_pi, tuple(dims), dev), wide.counts()
         zs = None if latents is None else latents.data_ptr()
-        rc = lib.tdm_pi_rollout_wide(*args, sc.ptrs, sc.lds, zs,
-                                     ctypes.byref(n), _stream(dev))
-        wide.engine_launches.launches += n.value
+        rc = lib.tdm_pi_rollout_wide(*args, sc.ptrs, sc.lds, zs, n, _stream(dev))
+        wide.count(n)
     _build.check(lib, rc, 'pi_rollout kernel', dims)
     pi_rollout.launches += 1
     return out

@@ -82,13 +82,13 @@ def rollout_prepared(prep, z0, actions, *, horizon: int, discount: float,
     G = torch.empty(S, 1, dtype=torch.float32, device=dev)
     zH = torch.empty(S, L, dtype=torch.float32, device=dev)
     lib = _build.library('rollout')
-    sc, n = wide.Scratch(S, tuple(dims), dev), ctypes.c_int(0)
+    sc, n = wide.Scratch(S, tuple(dims), dev), wide.counts()
     rc = lib.tdm_rollout(
-        weight_ptrs(prep), dims, S, z0.data_ptr(), z0.stride(0),
+        weight_ptrs(prep, 'wide'), dims, S, z0.data_ptr(), z0.stride(0),
         actions.data_ptr(), actions.stride(0), actions.stride(1),
         discs.data_ptr(), G.data_ptr(), zH.data_ptr(), sc.ptrs, sc.lds,
-        ctypes.byref(n), torch.cuda.current_stream(dev).cuda_stream)
-    wide.engine_launches.launches += n.value
+        n, torch.cuda.current_stream(dev).cuda_stream)
+    wide.count(n)
     _build.check(lib, rc, 'rollout kernel', dims)
     rollout_prepared.launches += 1
     return G, zH

@@ -46,15 +46,22 @@ out,
 returning the actions too, for the elite step. Its plain version is
 `sample_actions_plain` followed by `value_estimate_plain`.
 
-The kernels read the matrices in a packed copy (`pack_matrix`) that the
-prep adds for bf16 weights: zero-padded to multiples of 16 and laid out in
-the order of the tensor-core fragments the kernels load
-(csrc/mlp_rows.cuh). The plain versions read the [in, out] matrices.
-
 Two engines run the kernel (ops/wide.py `engine`, from the widths alone):
 the row-tile engine up to 2048 columns (model_size 1 to 48), and above it
-(model_size 317) the layer-per-launch engine of csrc/mlp_wide.cuh, which
-reads the same packed copies and per-task bias tables.
+(model_size 317) the layer-per-launch engine of csrc/mlp_wide.cuh; the
+rollout kernel runs on the wide engine at every width. Each reads the
+matrices in a layout of its own, which the prep adds for bf16 weights
+(`_add_layouts`): the row tiles a fragment-packed copy (`pack_matrix`,
+PACKED: zero-padded to multiples of 16 and laid out in the order of the
+mma fragments they load, csrc/mlp_rows.cuh), the wide engine a transposed
+copy read through TMA tensor maps (`wide_matrix`, WIDE: [N, K] with K
+contiguous). A prep holds the packed copies only where the row tiles take
+the widths (on the card the built library says which, ops/wide.py
+`engine`), and the wide copies of the dynamics and reward (the rollout's)
+at every width and of every matrix where the row tiles do not take them:
+at model_size 317 no packed copy, at the 5M model the dynamics and reward
+in both layouts. Both engines read the same per-task bias tables. The
+plain versions read the [in, out] matrices.
 """
 
 from __future__ import annotations
@@ -107,6 +114,16 @@ PACKED = {
     'tP0': ('tW0',), 'tP1': ('tW1',), 'tP2': ('tW2',),
 }
 
+
+def _wide_name(k: str) -> str:
+    """The wide engine's name of a kernel operand: xT* for a packed xP*."""
+    return k[0] + 'T' + k[2:] if k[1] == 'P' else k
+
+
+# The wide engine's copy of each packed matrix (`wide_matrix`), of the same
+# [in, out] matrices.
+WIDE = {_wide_name(k): parts for k, parts in PACKED.items()}
+
 # The termination head's weights (episodic tasks only).
 TERM_NAMES = tuple(k for k in PREP_NAMES if k[0] == 't')
 
@@ -114,7 +131,17 @@ TERM_NAMES = tuple(k for k in PREP_NAMES if k[0] == 't')
 # The reward+dynamics operands (and `bins`), all that the rollout reads
 # (ops/rollout.py): the plain version's and the kernel's.
 ROLLOUT_NAMES = tuple(k for k in PREP_NAMES if k[0] in 'dr') + ('bins',)
-ROLLOUT_KERNEL_NAMES = tuple(k for k in KERNEL_NAMES if k[0] in 'dr') + ('bins',)
+
+
+def kernel_names(route: str, names=KERNEL_NAMES) -> tuple:
+    """The operands `names` as the engine `route` reads them: the packed
+    matrices on the row tiles ('rows'), their wide copies on 'wide'."""
+    return tuple(names) if route == 'rows' else tuple(_wide_name(k) for k in names)
+
+
+# The rollout's operands: it runs on the wide engine at every width.
+ROLLOUT_KERNEL_NAMES = kernel_names(
+    'wide', tuple(k for k in KERNEL_NAMES if k[0] in 'dr') + ('bins',))
 
 
 def _up16(n: int) -> int:
@@ -147,15 +174,41 @@ def pack_matrix(*blocks, cat_dim: int = -2):
     return W.reshape(*lead, -1).contiguous()
 
 
-def _add_packed(prep: dict, dot_dtype):
-    """Add the packed copies of prep's matrices (bf16 preps only: the
-    kernels take bf16; an f32 prep feeds the plain versions)."""
+def wide_matrix(*blocks, cat_dim: int = -2):
+    """The wide engine's copy of a matrix given as blocks [..., K_i, N_i]
+    stacked along K (cat_dim=-2, each block's rows zero-padded to a
+    multiple of 16 as `pack_matrix` pads them: the layout of the activation
+    rows, the latent then the actions of a z||a layer) or along N
+    (cat_dim=-1, K padded to 16): transposed, [..., N, Kp] with K
+    contiguous, the operand that csrc/mlp_wide.cuh's product reads through
+    a TMA tensor map (K-major for wgmma). N is not padded: the copy fills
+    the columns past N with zeros. Leading axes (the stacked Q heads)
+    stay."""
+    if cat_dim == -2:
+        W = torch.cat([F.pad(b, (0, 0, 0, _up16(b.shape[-2]) - b.shape[-2]))
+                       for b in blocks], dim=-2)
+    else:
+        W = torch.cat(blocks, dim=-1)
+        W = F.pad(W, (0, 0, 0, _up16(W.shape[-2]) - W.shape[-2]))
+    return W.transpose(-1, -2).contiguous()
+
+
+def _add_layouts(prep: dict, dot_dtype, engine):
+    """Add the kernels' copies of prep's matrices (bf16 preps only: the
+    kernels take bf16; an f32 prep feeds the plain versions): the packed
+    copies unless the value step and the pi rollout take the wide engine
+    (`engine` 'wide'), the wide copies of the dynamics and reward (the
+    rollout's) and, unless they take the row tiles (`engine` 'rows'), of
+    every matrix. `engine` None holds both layouts of every matrix."""
     if dot_dtype != torch.bfloat16:
         return prep
-    for k, parts in PACKED.items():
-        if k not in prep and all(p in prep for p in parts):
-            prep[k] = pack_matrix(*[prep[p] for p in parts],
-                                  cat_dim=-1 if k == 'pP2' else -2)
+    for table, make, take in ((PACKED, pack_matrix, lambda k: engine != 'wide'),
+                              (WIDE, wide_matrix,
+                               lambda k: k[0] in 'dr' or engine != 'rows')):
+        for k, parts in table.items():
+            if take(k) and k not in prep and all(p in prep for p in parts):
+                prep[k] = make(*[prep[p] for p in parts],
+                               cat_dim=-1 if k[0] == 'p' and k[2] == '2' else -2)
     return prep
 
 
@@ -193,7 +246,7 @@ def prepare_rollout_params(dyn, rew, latent_dim: int, vmin: float,
     dt = 0 if emb is None else emb.shape[-1]
     w, f = _casts(dot_dtype)
     B = rew[2]['w'].shape[-1]
-    return _add_packed({
+    return _add_layouts({
         'dWz': w(dyn[0]['w'][:L]), 'dWa': w(dyn[0]['w'][L + dt:]),
         'db0': f(_fold(dyn[0]['w'], dyn[0]['b'], L, emb)),
         'dg0': f(dyn[0]['ln_w']), 'de0': f(dyn[0]['ln_b']),
@@ -209,17 +262,23 @@ def prepare_rollout_params(dyn, rew, latent_dim: int, vmin: float,
         'rW2': w(rew[2]['w']), 'rb2': f(rew[2]['b']),
         'bins': torch.linspace(vmin, vmax, B, dtype=torch.float32,
                                device=dyn[0]['w'].device),
-    }, dot_dtype)
+    }, dot_dtype, 'wide')
 
 
-def prepare_value_params(params, cfg, dot_dtype=torch.bfloat16) -> dict:
+def prepare_value_params(params, cfg, dot_dtype=torch.bfloat16,
+                         engine=None) -> dict:
     """Slice and cast the value step's operands once per set of weights.
 
     Matrices go to `dot_dtype` (bf16 for the kernel; f32 gives the exact
     plain reference), everything else stays f32; all contiguous, on the
     params' device. Keys are PREP_NAMES, the termination head's
     (TERM_NAMES) only when cfg.episodic; a bf16 prep also holds the
-    kernels' packed matrices (PACKED). The first-layer biases (db0, rb0,
+    kernels' copies of the matrices (`_add_layouts`: PACKED where the row
+    tiles take the value step and the pi rollout, WIDE for the wide
+    engine). `engine` ('rows' or 'wide') names the engine those two take;
+    None asks the built library on the card (ops/wide.py `engine`, at
+    cfg's widths, simnorm_dim and horizon) and holds both layouts on the
+    CPU, where no kernel runs. The first-layer biases (db0, rb0,
     pb0, qb0, tb0) are tables with a row per task (cfg.tasks when
     cfg.multitask, else one): the module docstring's task axis.
     """
@@ -255,8 +314,12 @@ def prepare_value_params(params, cfg, dot_dtype=torch.bfloat16) -> dict:
             'tg1': f(trm[1]['ln_w']), 'te1': f(trm[1]['ln_b']),
             'tW2': w(trm[2]['w']), 'tb2': f(trm[2]['b']),
         })
-    return _add_packed({k: prep[k] for k in (*PREP_NAMES, *PACKED)
-                        if k in prep}, dot_dtype)
+    if engine is None and dot_dtype == torch.bfloat16 and prep['dWz'].is_cuda:
+        engine = wide.engine(_build.library('value'),
+                             prep_dims(prep, getattr(cfg, 'simnorm_dim', 8),
+                                       getattr(cfg, 'horizon', 3)))
+    return _add_layouts({k: prep[k] for k in (*PREP_NAMES, *PACKED, *WIDE)
+                         if k in prep}, dot_dtype, engine)
 
 
 def task_embeddings(params):
@@ -286,10 +349,11 @@ def check_prep(prep, device, simnorm_dim: int, names=KERNEL_NAMES):
     for k in names:
         if k[0] == 't' and 'tW0' not in prep:
             continue
-        want = torch.bfloat16 if k[1] in 'WP' else torch.float32
+        want = torch.bfloat16 if k[1] in 'WPT' else torch.float32
         if k not in prep:
             raise ValueError(f'prepared weight {k}: missing (the kernels take '
-                             'the packed copies of a bf16 prep)')
+                             'the packed or wide copies of a bf16 prep, each '
+                             'where its engine reads it)')
         t = prep[k]
         if t.device != device or t.dtype != want or not t.is_contiguous():
             raise ValueError(
@@ -299,10 +363,23 @@ def check_prep(prep, device, simnorm_dim: int, names=KERNEL_NAMES):
         raise ValueError('latent_dim must be a multiple of simnorm_dim')
 
 
-def weight_ptrs(prep):
-    """Pointers in KERNEL_NAMES order; a name `prep` lacks is null."""
+def weight_ptrs(prep, route: str = 'rows'):
+    """Pointers in KERNEL_NAMES order, the matrices in the layout of the
+    engine `route`; a name `prep` lacks is null."""
     return (ctypes.c_void_p * len(KERNEL_NAMES))(
-        *[prep[k].data_ptr() if k in prep else None for k in KERNEL_NAMES])
+        *[prep[k].data_ptr() if k in prep else None
+          for k in kernel_names(route)])
+
+
+def launch_route(name: str, libname: str, prep, dev, simnorm_dim: int, H: int):
+    """(library, dims, engine) of a launch on `dev`: ValueError for a device
+    other than CUDA and for widths that no engine takes, before anything is
+    built or launched."""
+    if dev.type != 'cuda':
+        raise ValueError(f'{name}: unsupported device {dev}')
+    lib = _build.library(libname)
+    dims = (ctypes.c_int * 7)(*prep_dims(prep, simnorm_dim, H))
+    return lib, dims, wide.engine(lib, dims)
 
 
 # ---------------------------------------------------------------------------
@@ -524,13 +601,13 @@ def gate_check(got, want, got_at, want_at, logits, *, rtol: float,
 
 
 def _check_operands(name, prep, z0, eps, qidx, discs, N, S, simnorm_dim,
-                    term_at):
-    """Validate the operands both launches share, on a CUDA device; returns
-    (the device, H)."""
+                    term_at, route):
+    """Validate the operands both launches share, on a CUDA device, the
+    weights in the layout of the engine `route`; returns (the device, H)."""
     dev = z0.device
     if dev.type != 'cuda':
         raise ValueError(f'{name}: unsupported device {dev}')
-    check_prep(prep, dev, simnorm_dim)
+    check_prep(prep, dev, simnorm_dim, kernel_names(route))
     L = prep['dWz'].shape[0]
     H = discs.shape[-1] - 1
     if (z0.shape != (N, S, L) or z0.stride(2) != 1 or z0.dtype != torch.float32):
@@ -608,8 +685,10 @@ def value_estimate(prep, z0, actions, eps, qidx, discs, *,
         raise ValueError(f'value_estimate: actions {tuple(actions.shape)} '
                          'must be [N, H, S, A] with z0 [N, S, L]')
     N, H, S, A = actions.shape
+    lib, dims, route = launch_route('value_estimate', 'value', prep, z0.device,
+                                    simnorm_dim, H)
     dev, _ = _check_operands('value_estimate', prep, z0, eps, qidx, discs, N, S,
-                             simnorm_dim, term_at)
+                             simnorm_dim, term_at, route)
     if (actions.device != dev or actions.dtype != torch.float32
             or actions.stride(3) != 1 or prep['dWa'].shape[0] != A
             or discs.shape[-1] != H + 1):
@@ -618,21 +697,19 @@ def value_estimate(prep, z0, actions, eps, qidx, discs, *,
                          f'(A={prep["dWa"].shape[0]}) and discs')
     tk = task_operands('value_estimate', prep, task, amask, N, dev, False)
     out = torch.empty(N, S, 1, dtype=torch.float32, device=dev)
-    lib = _build.library('value')
-    dims = (ctypes.c_int * 7)(*prep_dims(prep, simnorm_dim, H))
-    args = (weight_ptrs(prep), dims, log_std_min, log_std_dif, int(episodic), N,
-            S, z0.data_ptr(), z0.stride(0), z0.stride(1),
+    args = (weight_ptrs(prep, route), dims, log_std_min, log_std_dif, int(episodic),
+            N, S, z0.data_ptr(), z0.stride(0), z0.stride(1),
             actions.data_ptr(), actions.stride(0), actions.stride(1),
             actions.stride(2), *tk, eps.data_ptr(), eps.stride(0),
             qidx.data_ptr(), qidx.stride(0), discs.data_ptr(), discs.stride(0),
             out.data_ptr(), None if term_at is None else term_at.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if wide.engine(lib, dims) == 'rows':
+    if route == 'rows':
         rc = lib.tdm_value(*args, stream)
     else:
-        sc, n = wide.Scratch(N * S, tuple(dims), dev), ctypes.c_int(0)
-        rc = lib.tdm_value_wide(*args, sc.ptrs, sc.lds, ctypes.byref(n), stream)
-        wide.engine_launches.launches += n.value
+        sc, n = wide.Scratch(N * S, tuple(dims), dev), wide.counts()
+        rc = lib.tdm_value_wide(*args, sc.ptrs, sc.lds, n, stream)
+        wide.count(n)
     _build.check(lib, rc, 'value kernel', dims)
     value_estimate.launches += 1
     return out
@@ -665,8 +742,11 @@ def value_sampled(prep, z0, mean, std, noise, pi_acts, amask, eps, qidx, discs,
         return value_sampled_plain(prep, z0, mean, std, noise, pi_acts, amask,
                                    eps, qidx, discs, **kw)
     N, S, HA = noise.shape
+    H = discs.shape[-1] - 1
+    lib, dims, route = launch_route('value_sampled', 'value', prep, z0.device,
+                                    simnorm_dim, H)
     dev, H = _check_operands('value_sampled', prep, z0, eps, qidx, discs, N, S,
-                             simnorm_dim, term_at)
+                             simnorm_dim, term_at, route)
     A, n_pi = prep['dWa'].shape[0], pi_acts.shape[1]
     for what, t, shape, inner in (
             ('mean', mean, (N, HA), (1,)), ('std', std, (N, HA), (1,)),
@@ -683,9 +763,7 @@ def value_sampled(prep, z0, mean, std, noise, pi_acts, amask, eps, qidx, discs,
     tk = task_operands('value_sampled', prep, task, amask, N, dev, True)
     out = torch.empty(N, S, 1, dtype=torch.float32, device=dev)
     acts = torch.empty(N, S, HA, dtype=torch.float32, device=dev)
-    lib = _build.library('value')
-    dims = (ctypes.c_int * 7)(*prep_dims(prep, simnorm_dim, H))
-    args = (weight_ptrs(prep), dims, log_std_min, log_std_dif, int(episodic), N,
+    args = (weight_ptrs(prep, route), dims, log_std_min, log_std_dif, int(episodic), N,
             S, z0.data_ptr(), z0.stride(0), z0.stride(1), mean.data_ptr(),
             mean.stride(0), std.data_ptr(), std.stride(0), noise.data_ptr(),
             noise.stride(0), pi_acts.data_ptr(), pi_acts.stride(0), n_pi,
@@ -693,13 +771,12 @@ def value_sampled(prep, z0, mean, std, noise, pi_acts, amask, eps, qidx, discs,
             qidx.data_ptr(), qidx.stride(0), discs.data_ptr(), discs.stride(0),
             out.data_ptr(), None if term_at is None else term_at.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if wide.engine(lib, dims) == 'rows':
+    if route == 'rows':
         rc = lib.tdm_value_sampled(*args, stream)
     else:
-        sc, n = wide.Scratch(N * S, tuple(dims), dev), ctypes.c_int(0)
-        rc = lib.tdm_value_sampled_wide(*args, sc.ptrs, sc.lds, ctypes.byref(n),
-                                        stream)
-        wide.engine_launches.launches += n.value
+        sc, n = wide.Scratch(N * S, tuple(dims), dev), wide.counts()
+        rc = lib.tdm_value_sampled_wide(*args, sc.ptrs, sc.lds, n, stream)
+        wide.count(n)
     _build.check(lib, rc, 'value kernel (sampled)', dims)
     value_sampled.launches += 1
     return out, acts
@@ -709,14 +786,16 @@ value_sampled.launches = 0
 
 
 def kernel_plan(prep, simnorm_dim: int = 8, horizon: int = 3,
-                kernel: str = 'value') -> dict:
+                kernel: str = 'value', rows: int = 512) -> dict:
     """The built kernel's plan for these weights' dims. `kernel` is
     'value', 'pi_rollout' or 'rollout'. On the row-tile engine
     (csrc/mlp_rows.cuh Plan): route 'rows', rows per block `rt`,
     shared-memory bytes of one block, weight ring `stages`, and blocks that
     fit one SM. On the wide engine (csrc/mlp_wide.cuh; the rollout always):
-    route 'wide', a product block's rows `bm`, columns `bn` and K depth a
-    stage `bk`, its `stages`, shared bytes and blocks per SM. `engine` is
+    route 'wide', the product block's rows `bm`, columns `bn` and K depth a
+    stage `bk` at `rows` rows an env (the tile follows from them and the
+    widths), its `stages`, shared bytes, blocks per SM, consumer
+    warpgroups `wgs` and registers a thread at launch `regs`. `engine` is
     the engine the value kernel and the pi rollout take at these widths
     (the rollout's route is 'wide' whatever it is). Raises ValueError when
     no engine takes the widths."""
@@ -732,7 +811,8 @@ def kernel_plan(prep, simnorm_dim: int = 8, horizon: int = 3,
         _build.check(lib, getattr(lib, fn)(dims, out), f'{kernel} plan', dims)
         return dict(route=route, engine=engine, rt=out[0], smem_bytes=out[1],
                     stages=out[2], blocks_per_sm=out[3])
-    out = (ctypes.c_int * 6)()
-    _build.check(lib, lib.tdm_wide_plan(dims, out), f'{kernel} plan', dims)
+    out = (ctypes.c_int * 8)()
+    _build.check(lib, lib.tdm_wide_plan(dims, rows, out), f'{kernel} plan', dims)
     return dict(route=route, engine=engine, bm=out[0], bn=out[1], bk=out[2],
-                stages=out[3], smem_bytes=out[4], blocks_per_sm=out[5])
+                stages=out[3], smem_bytes=out[4], blocks_per_sm=out[5], wgs=out[6],
+                regs=out[7])

@@ -79,9 +79,10 @@ from tdmpc2_tpu_torch.utils.seed import generator_state, restore_generator
 
 # the kernel wrappers a plan runs, whose launch counts a replay adds
 PLAN_WRAPPERS = (cem.pi_rollout, value_sampled, cem.elite_moments)
-# and the wide engine's device launches (ops/wide.py), which a replay adds
-# too: 0 a plan below 2048 columns
-PLAN_COUNTS = PLAN_WRAPPERS + (wide.engine_launches,)
+# and the wide engine's device launches and the products, row kernels and
+# stagings among them (ops/wide.py), which a replay adds too: 0 a plan
+# below 2048 columns
+PLAN_COUNTS = PLAN_WRAPPERS + wide.COUNTERS
 
 
 @dataclass

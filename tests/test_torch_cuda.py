@@ -26,8 +26,14 @@ wide engine, ops/wide.py) the value step (both branches), the sampled
 step, the pi rollout and the rollout are held against their plain versions
 at one env and N=8, N=8 against 8 one-env launches bit for bit, and the
 plan's graph against its eager body; the rollout (on the wide engine at
-every width) also at model_size 1, 5, 19 and 48; the engine mirror against
-the built library's choice. The elite kernel is held at its edges (S = 77,
+every width) also at model_size 1, 5, 19 and 48, and at a 128-column
+latent whose products split K; the engine mirror (tests/wide_mirror.py)
+and the product's tile plan against the built library's, and the layouts
+a card prep holds; and the wide engine's product alone (wgmma on a TMA
+ring) at each distinct product of the 317M model at 512 and 4,096 rows
+against the plain product, within 1e-4 of |x| @ |W|, its plan the
+mirror's, each env's rows of an N=8 launch bit for bit a one-env
+launch's. The elite kernel is held at its edges (S = 77,
 2048 and 28,000, HA = 114, E = 1 and E = S, ties across the boundary, all
 tied, NaN, inf and +-3e38), its N=8 launch against 8 one-env launches bit
 for bit, and the canary at n = 1, 3, 1027 and at a storage offset. The
@@ -55,11 +61,12 @@ import pytest
 import torch
 
 from tdmpc2_tpu_torch.config import Config, parse_cfg
+from tdmpc2_tpu_torch.models import layers
 from tdmpc2_tpu_torch.models.layers import simnorm
 from tdmpc2_tpu_torch.data.buffer import Buffer
 from tdmpc2_tpu_torch.ops import _build, cem, probe, rollout, wide
-from tdmpc2_tpu_torch.ops.value import (dynamics_plain, gate_check, kernel_plan,
-                                        pi_action_plain, pi_head_plain,
+from tdmpc2_tpu_torch.ops.value import (PACKED, WIDE, dynamics_plain, gate_check,
+                                        kernel_plan, pi_action_plain, pi_head_plain,
                                         prepare_value_params, sample_actions_plain,
                                         termination_trace_plain, value_estimate,
                                         value_estimate_plain, value_sampled,
@@ -67,6 +74,7 @@ from tdmpc2_tpu_torch.ops.value import (dynamics_plain, gate_check, kernel_plan,
 from tdmpc2_tpu_torch.tdmpc2 import PLAN_WRAPPERS, TDMPC2, UpdateNoise
 from tdmpc2_tpu_torch.utils import tree
 from tdmpc2_tpu_torch.utils.cuda_graph import Graph
+import wide_mirror as wm  # tests/ is on pytest's path; a `tests` package may be installed
 
 pytestmark = pytest.mark.cuda
 
@@ -836,24 +844,161 @@ def test_rollout_wide_engine_matches_plain_at_model_widths(agent, size):
 def test_engine_mirror_matches_the_built_library(agent, size, route, rt):
     """The built library's engine and plan at each model size's widths
     against what the CPU tests' mirror of its rule gives
-    (tests/test_torch_wide.py): a row tile of 32 rows (16 at 48) up to
-    model_size 48, the wide engine's 128 x 128 product block at 317; the
-    rollout on the wide engine at every size (64 x 64 below 2048 columns)."""
+    (tests/wide_mirror.py row_tile_plan, gemm_tile): a row tile of 32
+    rows (16 at 48) up to model_size 48, the wide engine at 317 with the
+    product's 128 x 256 tile (two consumer warpgroups) for 512 rows an env
+    and 64 x 128 (one) for the pi rollout's 24; the rollout on the wide engine at every size
+    (64 x 128 below 2048 columns); at least one block an SM, launched with
+    the registers that setmaxnreg's split assumes."""
     from tdmpc2_tpu_torch.config import MODEL_SIZE
     d = MODEL_SIZE[size]
     dims = (d['latent_dim'], d['mlp_dim'], 6, 101, d.get('num_q', 5), 8, 3)
     prep = {'dWz': torch.zeros(dims[0], dims[1]), 'dWa': torch.zeros(dims[2], dims[1]),
             'rW2': torch.zeros(dims[1], dims[3]), 'qWz': torch.zeros(dims[4], 1, 1)}
-    tile = 128 if size == 317 else 64
+    assert wm.mirror_lib().tdm_engine(dims) == ('rows', 'wide').index(route)
     for kernel in ('value', 'pi_rollout'):
-        plan = kernel_plan(prep, 8, 3, kernel)
-        assert plan['route'] == plan['engine'] == route
-        if rt is not None:
-            assert plan['rt'] == rt and 2 <= plan['stages'] <= 8
-        else:
-            assert plan['bm'] == plan['bn'] == tile and plan['blocks_per_sm'] >= 1
+        for rows in (512, 24):
+            plan = kernel_plan(prep, 8, 3, kernel, rows=rows)
+            assert plan['route'] == plan['engine'] == route
+            if rt is not None:
+                assert plan['rt'] == rt and 2 <= plan['stages'] <= 8
+            else:
+                tile = wm.gemm_tile(dims, rows)
+                assert {k: plan[k] for k in ('bm', 'bn', 'wgs')} == tile
+                assert plan['bk'] == 64 and plan['stages'] == 4
+                assert plan['blocks_per_sm'] >= 1
+                assert plan['regs'] == 65536 // (128 * (tile['wgs'] + 1)
+                                                 * (1 if tile['wgs'] == 2 else 2)) // 8 * 8
     ro = kernel_plan(prep, 8, 3, 'rollout')
-    assert ro['route'] == 'wide' and ro['bm'] == ro['bn'] == tile
+    assert ro['route'] == 'wide'
+    assert {k: ro[k] for k in ('bm', 'bn', 'wgs')} == wm.gemm_tile(dims, 512)
+
+
+def test_card_prep_holds_its_engines_layouts(agent, wide_agent):
+    """A bf16 prep on the card asks the built library which engine the
+    value step and the pi rollout take: at the module's widths the row
+    tiles' packed copies and, for the rollout, the wide dynamics and reward
+    only; at 317's the wide layout of every matrix and no packed copy (the
+    module's agent has no termination head, the 317 agent has one)."""
+    assert {k for k in PACKED if k[0] != 't'} <= set(agent.prep)
+    assert {k for k in WIDE if k in agent.prep} == {k for k in WIDE if k[0] in 'dr'}
+    assert set(WIDE) <= set(wide_agent.prep) and not set(PACKED) & set(wide_agent.prep)
+
+
+def test_rollout_sums_the_partials_of_a_narrow_latent(agent):
+    """A 128-column latent under a 1024-wide MLP: the dynamics' last
+    product is one column tile deep in K 1024, so it splits K over 2 blocks
+    (tests/wide_mirror.py gemm_splits), and the row kernel's LayerNorm +
+    SimNorm must sum the partial rows, as the two-hot decode does for the
+    reward's. The rollout against its plain version in the band."""
+    L, M, A, B, S, H = 128, 1024, 3, 101, 77, 3
+    dims = (L, M, A, B, 0, 8, H)
+    assert wm.gemm_plan(dims, 1, S, M, L, False)['splits'] == 2
+    assert wm.gemm_plan(dims, 1, S, M, B, False)['splits'] == 2
+    g = torch.Generator().manual_seed(L + M)
+    scale = 0.05 * (512 / M) ** 0.5
+
+    def mlp(i, o, **kw):
+        return tree.map(lambda t: (t + scale * torch.randn(t.shape, generator=g)).cuda(),
+                        layers.mlp_init(g, i, [M, M], o, **kw))
+    dyn, rew = mlp(L + A, L, final_normed=True), mlp(L + A, B)
+    prep_r = rollout.prepare_rollout_params(dyn, rew, L, -10.0, 10.0)
+    assert kernel_plan(prep_r, 8, H, 'rollout')['route'] == 'wide'
+    dev = torch.device('cuda')
+    gd = torch.Generator(device=dev).manual_seed(L)
+    z0 = simnorm(torch.randn(S, L, device=dev, generator=gd), 8)
+    acts = torch.rand(H, S, A, device=dev, generator=gd) * 2 - 1
+    kw = dict(horizon=H, discount=0.95, simnorm_dim=8)
+    G, zH = rollout.rollout_prepared(prep_r, z0, acts, **kw)
+    Gp, zHp = rollout.rollout_prepared_plain(prep_r, z0, acts, **kw)
+    torch.testing.assert_close(G, Gp, **BAND)
+    torch.testing.assert_close(zH, zHp, **BAND)
+
+
+# The 317M model's distinct products (K, N, kind): kind 'task' a first
+# layer's per-task bias rows, 'q0' the Q heads' first layer, 'q' a later Q
+# layer (each env's head), 'pi' the policy head (its log-std bias past A).
+_317_PRODUCTS = [(1392, 4096, 'task'), (1376, 4096, 'task'), (4096, 4096, ''),
+                 (4096, 1376, ''), (4096, 101, ''), (4096, 12, 'pi'), (4096, 1, ''),
+                 (1392, 4096, 'q0'), (4096, 4096, 'q'), (4096, 101, 'q')]
+_317_DIMS = (1376, 4096, 6, 101, 8, 8, 3)
+
+
+def _product_operands(n, S, K, N, kind, seed):
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(seed)
+    NQ, T = 8, 80
+    x = torch.randn(n * S, K + 16, device=dev, generator=g).to(torch.bfloat16)
+    x[:, K:] = float('nan')        # never read: K is the tensor map's width
+    heads = NQ if kind in ('q0', 'q') else 1
+    w = (torch.randn(heads, N, K, device=dev, generator=g) * K ** -0.5).to(torch.bfloat16)
+    env = torch.arange(n, device=dev, dtype=torch.int32)
+    task, head = (env * 7) % T, torch.stack([(env * 3) % NQ, env % NQ], 1).to(torch.int32)
+    kw = dict(task=None, ntask=1, head=None, hn=2, bt=0, bh=0)
+    if kind == 'task':
+        b = torch.randn(T, N, device=dev, generator=g)
+        kw.update(task=task, ntask=T, bt=N)
+    elif kind == 'q0':
+        b = torch.randn(T, NQ, N, device=dev, generator=g)
+        kw.update(task=task, ntask=T, head=head, bt=NQ * N, bh=N)
+    elif kind == 'q':
+        b = torch.randn(NQ, N, device=dev, generator=g)
+        kw.update(head=head, bh=N)
+    elif kind == 'pi':
+        b = torch.randn(N // 2, device=dev, generator=g)
+        kw.update(b1=torch.randn(N // 2, device=dev, generator=g), split=N // 2)
+    else:
+        b = torch.randn(N, device=dev, generator=g)
+    # each row's weights and bias, for the plain product
+    rows_env = torch.arange(n * S, device=dev) // S
+    h = kw['head'][rows_env, 0].long() if kw['head'] is not None else torch.zeros_like(rows_env)
+    t = kw['task'][rows_env].long() if kw['task'] is not None else torch.zeros_like(rows_env)
+    bias = (torch.cat([b, kw['b1']])[None].expand(n * S, N) if kind == 'pi'
+            else b[t, h] if kind == 'q0' else b[h] if kind == 'q'
+            else b[t] if kind == 'task' else b[None].expand(n * S, N))
+    return x, (w if heads > 1 else w[0]), b, kw, h, bias
+
+
+@pytest.mark.parametrize('n', [1, 8])
+@pytest.mark.parametrize('K,N,kind', _317_PRODUCTS)
+def test_wide_product_matches_plain_at_317_shapes(agent, K, N, kind, n):
+    """The wide engine's product alone (ops/wide.py gemm, the library's
+    tdm_wide_gemm) at each distinct product of the 317M model at R = 512
+    and 4,096 rows (one env and N = 8 of 512 rows) against the plain
+    product x.float() @ W.float() + bias: |y - y_plain| <= 1e-4 (|x| @
+    |W|)[r, c] + 1e-6 (f32 sums of bf16 products over K <= 4096: about 256
+    accumulator roundings of 2^-23, with margin). x's columns past K are
+    NaN: K is the width of its tensor map. The launch's plan is the
+    mirror's (tests/wide_mirror.py gemm_plan). At N = 8 each env's rows
+    equal a one-env launch on them bit for bit."""
+    S = 512
+    x, w, b, kw, h, bias = _product_operands(n, S, K, N, kind, K + N + n)
+    y, plan = wide.gemm(x, w, b, _317_DIMS, S, **kw)
+    want_plan = wm.gemm_plan(_317_DIMS, n, S, K, N, kind in ('task', 'q0', 'q'))
+    keys = ('bm', 'bn', 'wgs', 'splits', 'kchunk', 'pstride', 'grid')
+    assert {k: plan[k] for k in keys} == {k: want_plan[k] for k in keys}
+    got = wide.gemm_sum(y, plan, N)
+    ws = w if w.dim() == 3 else w[None]
+    want = torch.empty_like(got)
+    mag = torch.empty_like(got)
+    xf = x[:, :K].float()
+    for k in range(ws.shape[0]):
+        sel = h == k
+        if bool(sel.any()):
+            wk = ws[k].float().t()
+            want[sel] = xf[sel] @ wk
+            mag[sel] = xf[sel].abs() @ wk.abs()
+    want += bias
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= 1e-4 * mag + 1e-6).all()), \
+        float((got - want).abs().max())
+    if n > 1:
+        for e in (0, 5):
+            sl = slice(e * S, (e + 1) * S)
+            one_kw = dict(kw, task=None if kw['task'] is None else kw['task'][e:e + 1],
+                          head=None if kw['head'] is None else kw['head'][e:e + 1])
+            y1, _ = wide.gemm(x[sl], w, b, _317_DIMS, S, **one_kw)
+            assert torch.equal(wide.gemm_sum(y1, plan, N), got[sl])
 
 
 # ------------------------------------------------------- the plan's graph

@@ -182,6 +182,23 @@ ptxas info    : Used 40 registers, used 1 barriers
         'value_kernel<32,4,1>': (160, 0, 0), 'elite_kernel': (40, 0, 0)}
 
 
+def test_ptxas_report_names_the_wide_products_by_tile():
+    """The wide engine's product kernels, templated on a tile type
+    (csrc/mlp_wide.cuh gemm_kernel<WTile<WGS, BN>>), are named by the
+    integers nested in it: consumer warpgroups and columns."""
+    report = """\
+ptxas info    : Compiling entry function '_ZN3tdm11gemm_kernelINS_5WTileILi2ELi256EEEEEvNS_8GemmArgsE14CUtensorMap_stS4_' for 'sm_90a'
+ptxas info    : Used 168 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN3tdm11gemm_kernelINS_5WTileILi1ELi128EEEEEvNS_8GemmArgsE14CUtensorMap_stS4_' for 'sm_90a'
+ptxas info    : Used 128 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN3tdm10row_kernelILi256EEEvNS_7RowArgsE' for 'sm_90a'
+ptxas info    : Used 80 registers, used 1 barriers
+"""
+    assert _build.ptxas_usage(report) == {
+        'gemm_kernel<2,256>': (168, 0, 0), 'gemm_kernel<1,128>': (128, 0, 0),
+        'row_kernel<256>': (80, 0, 0)}
+
+
 def test_no_row_tile_raises_value_error_naming_the_widths():
     dims = (1376, 4096, 2, 101, 8, 8, 3)
     with pytest.raises(ValueError, match='L=1376, M=4096, A=2, B=101, num_q=8'):

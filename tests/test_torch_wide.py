@@ -7,9 +7,9 @@ csrc/mlp_wide.cuh above (the 317M model: mlp_dim 4096, latent 1376, 8 Q
 heads, task_dim 96). No kernel runs here; these tests hold what surrounds
 the kernels:
 
-- the engine each model size takes (a mirror of the C rule, whose answers
-  tests/test_torch_cuda.py holds the built library to on the card), and
-  the error for widths that neither engine takes;
+- the engine each model size takes (tests/wide_mirror.py, a mirror of the
+  C rule, whose answers tests/test_torch_cuda.py holds the built library
+  to on the card), and the error for widths that neither engine takes;
 - the packed weights and per-task bias tables at 317's dims read back
   through the wide engine's own index map (its product block's B loads,
   column tile by column tile, and its head and task offsets);
@@ -44,78 +44,26 @@ from tdmpc2_tpu.tdmpc2 import TDMPC2 as JTDMPC2
 from tdmpc2_tpu.trainer.offline import OfflineTrainer as JOfflineTrainer
 from tdmpc2_tpu_torch.config import MODEL_SIZE, Config, parse_cfg
 from tdmpc2_tpu_torch.interop import params_from_jax
-from tdmpc2_tpu_torch.ops import _build, cem, wide
+from tdmpc2_tpu_torch.ops import cem, wide
 from tdmpc2_tpu_torch.ops import value as tv
 from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
 from tdmpc2_tpu_torch.trainer.offline import OfflineTrainer
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
+import wide_mirror as wm  # noqa: E402  (tests/, on pytest's path)
+from wide_mirror import mirror_lib, row_tile_plan, wide_fits  # noqa: E402
 
 VTOL = dict(rtol=1e-4, atol=1e-4)
 
 
 # ------------------------------------------------------------------ engine
 
-# A mirror of the engine rule: csrc/mlp_rows.cuh kShapes (rows a block,
-# column pairs a warp), kWarps, kSmemMax, kMaxStages, kNarrowPairs and
-# pick_plan; csrc/mlp_wide.cuh wide_fits (the row kernel's 256 threads x 16
-# values) and wide_tile.
-ROW_SHAPES = ((32, 2), (32, 4), (32, 8), (16, 16))
-WARPS, SMEM_MAX, MAX_STAGES, NARROW_PAIRS = 8, 232448, 8, 4
-GROUPS = (2, 4, 8, 16)
-WIDE_MAX_COLS = 4096
-
-
-def _up16(n):
-    return -(-n // 16) * 16
-
-
-def row_tile_plan(dims):
-    """pick_plan at dims (L, M, A, B, NQ, G, H): the first row-tile shape
-    whose accumulators and shared memory fit, as {rt, stages, smem_bytes},
-    or None when none fits."""
-    L, M, A, B, _, G, H = dims
-    Lp, Ap, Mp, Bp = _up16(L), _up16(A), _up16(M), _up16(B)
-    widest, hp = max(Mp, Lp, Bp), _up16(2 * A)
-    if G not in GROUPS or L % G:
-        return None
-    for rt, np_ in ROW_SHAPES:
-        if widest > 8 * 16 * np_ or hp > 16 * NARROW_PAIRS:
-            continue
-        ldz, ldh, nmat = Lp + Ap + 8, Mp + 8, 9 * H + 9
-        ks = WARPS // (rt // 16)
-        fixed = (2 * rt * (ldz + ldh) + 4 * 3 * WARPS * rt + 4 * ks * rt * hp
-                 + 4 * 4 * rt + 16 * nmat + 16 * MAX_STAGES)
-        fixed = (fixed + 127) & ~127
-        tile = 32 * widest
-        slot = 2 * tile if (SMEM_MAX - fixed) // (2 * tile) >= 4 else tile
-        stages = min((SMEM_MAX - fixed) // slot, MAX_STAGES)
-        if stages >= 2:
-            return dict(rt=rt, stages=stages, smem_bytes=fixed + stages * slot)
-    return None
-
-
-def wide_fits(dims):
-    L, M, A, B, _, G, _ = dims
-    return (G in GROUPS and L % G == 0 and A >= 1
-            and max(L, M, B, 2 * A) <= WIDE_MAX_COLS)
-
-
-def wide_tile(dims):
-    L, M, _, B = dims[:4]
-    return 128 if max(_up16(L), _up16(M), _up16(B)) > 2048 else 64
-
-
-def mirror_lib():
-    """A stand-in for a built library whose tdm_engine is the mirror: 0 the
-    row tiles, 1 the wide engine, NO_PLAN neither."""
-    def tdm_engine(dims):
-        dims = tuple(dims)
-        if row_tile_plan(dims) is not None:
-            return 0
-        return 1 if wide_fits(dims) else _build.NO_PLAN
-    return types.SimpleNamespace(tdm_engine=tdm_engine)
+# The engine rule and the product's tile plan: tests/wide_mirror.py (the
+# mirror of csrc/mlp_rows.cuh pick_plan, mlp_wide.cuh wide_fits,
+# wide_large and Wide::launch_gemm); tests/test_torch_cuda.py holds the
+# built library's answers to it on the card.
+_up16 = wm.up16
 
 
 def _dims(size, A=6, B=101):
@@ -137,9 +85,11 @@ def test_engine_choice_from_the_widths(size, route, rt):
         assert (plan is None) == (rt is None)
         if plan is not None:
             assert plan['rt'] == rt and 2 <= plan['stages'] <= 8
-            assert plan['smem_bytes'] <= SMEM_MAX
-        # the wide engine's product block (the rollout's at every size)
-        assert wide_tile(dims) == (128 if size == 317 else 64)
+            assert plan['smem_bytes'] <= wm.SMEM_MAX
+        # the wide engine's product tile (the rollout's at every size): 128
+        # x 256 above 2048 columns where an env has more than 64 rows
+        assert wm.gemm_tile(dims, 512) == (wm.LARGE if size == 317 else wm.SMALL)
+        assert wm.gemm_tile(dims, 24) == wm.SMALL
     if size == 317:
         assert wide_fits(_dims(size))
 
@@ -166,79 +116,229 @@ def test_wide_launch_counts():
     assert wide.pi_rollout_launches(3) == 31
     assert wide.rollout_launches(3) == 39
     assert wide.plan_launches(3, 6, False) == 31 + 6 * 57
+    # the products among them: a product per layer
+    assert (wide.value_products(3, False), wide.value_products(3, True)) == (27, 36)
+    assert (wide.pi_rollout_products(3), wide.rollout_products(3)) == (15, 18)
+    assert wide.plan_products(3, 6, False) == 15 + 6 * 27
 
 
 # ---------------------------------------------- the layout the engine reads
 
-def _wide_read(packed, kt, np_, k_tiles, q_head=0):
-    """The [K, N] elements (int16 bits, -1 where unread) that gemm_kernel's
-    B loads take from one packed matrix at k-tiles `k_tiles`: column tile
-    bx, pair j < min(8, np - 8 bx), lane l, uint4 at ((kt * np + 8 bx + j) *
-    32 + l) after the head's offset kt * np * 32 (in uint4s); element 4t +
-    2r + h of lane 4g + q is W[16 kt + 8 r + 2 q + h, 16 p + 8 t + g]."""
-    u4 = packed.reshape(-1).view(torch.int16).numpy().reshape(-1, 8)
-    head0 = q_head * kt * np_ * 32
-    W = -np.ones((16 * kt, 16 * np_), np.int32)
-    for k in k_tiles:
-        for bx in range(-(-np_ // 8)):
-            for j in range(min(8, np_ - 8 * bx)):
-                p = 8 * bx + j
-                lanes = u4[head0 + (k * np_ + p) * 32 + np.arange(32)]
-                for lane in range(32):
-                    g, q = lane // 4, lane % 4
-                    for e in range(8):
-                        t, r, h = e // 4, (e // 2) % 2, e % 2
-                        W[16 * k + 8 * r + 2 * q + h, 16 * p + 8 * t + g] = lanes[lane, e]
-    return W
+def _box(wT, k0, n0, head, rows):
+    """The B box that gemm_kernel's producer copies from a wide-layout
+    matrix (3-D tensor map {K, N, heads}) at coordinates (k0, n0, head):
+    [rows, 64] bf16 bits, zeros past N and past K, as TMA fills them."""
+    w = wT if wT.dim() == 3 else wT[None]
+    K, N = w.shape[2], w.shape[1]
+    box = torch.zeros(rows, wm.STAGE_K, dtype=torch.int16)
+    blk = w[head, n0:min(n0 + rows, N), k0:min(k0 + wm.STAGE_K, K)]
+    box[:blk.shape[0], :blk.shape[1]] = blk.contiguous().view(torch.int16)
+    return box
 
 
 def _bits(x):
     return x.contiguous().view(torch.int16).numpy().astype(np.int32)
 
 
-@pytest.mark.parametrize('case', ['z||a', 'hidden', 'latent out', 'bins', 'pi head',
-                                  'Q heads'])
-def test_wide_layout_read_back_at_317_dims(case):
-    """Each packed matrix of the 317M model's value step, read back through
-    the wide engine's index map at its first, a middle and its last k-tile,
-    equals its [in, out] blocks, zeros in the padding (the z||a first
-    layers: latent rows padded to 1376, action rows to 16; the bins and the
-    pi head's 2A columns padded to 16 columns); the Q heads at each head's
-    offset."""
+def _padded_blocks(blocks, along_n):
+    """[K, N] of a matrix's blocks as the activation rows see it: each K
+    block zero-padded to 16 (the latent rows, then the action rows), or,
+    stacked along N, K padded to 16."""
+    if along_n:
+        W = torch.cat(blocks, dim=-1)
+        return torch.nn.functional.pad(W, (0, 0, 0, _up16(W.shape[0]) - W.shape[0]))
+    return torch.cat([torch.nn.functional.pad(b, (0, 0, 0, _up16(b.shape[0]) - b.shape[0]))
+                      for b in blocks], dim=0)
+
+
+def _317_blocks(case, g):
     L, M, A, B, NQ = 1376, 4096, 6, 101, 8
-    g = torch.Generator().manual_seed(317)
 
     def w(*shape):
         return torch.randn(*shape, generator=g).to(torch.bfloat16)
-    if case == 'z||a':
-        blocks, along_n, heads = [w(L, M), w(A, M)], False, None
-    elif case == 'hidden':
-        blocks, along_n, heads = [w(M, M)], False, None
-    elif case == 'latent out':
-        blocks, along_n, heads = [w(M, L)], False, None
-    elif case == 'bins':
-        blocks, along_n, heads = [w(M, B)], False, None
-    elif case == 'pi head':
-        blocks, along_n, heads = [w(M, A), w(M, A)], True, None
-    else:
-        blocks, along_n, heads = [w(NQ, L, 64), w(NQ, A, 64)], False, NQ
-    packed = tv.pack_matrix(*blocks, cat_dim=-1 if along_n else -2)
+    return {'z||a': ([w(L, M), w(A, M)], False, None),
+            'hidden': ([w(M, M)], False, None),
+            'latent out': ([w(M, L)], False, None),
+            'bins': ([w(M, B)], False, None),
+            'pi head': ([w(M, A), w(M, A)], True, None),
+            'termination': ([w(M, 1)], False, None),
+            'Q heads': ([w(NQ, L, 64), w(NQ, A, 64)], False, NQ)}[case]
+
+
+@pytest.mark.parametrize('case', ['z||a', 'hidden', 'latent out', 'bins', 'pi head',
+                                  'termination', 'Q heads'])
+def test_wide_layout_read_back_at_317_dims(case):
+    """Each matrix of the 317M model's value step in the wide layout
+    (`wide_matrix`), read back through the product's index map (the TMA
+    boxes of 64 K x the tile's columns, zeros past N and K) at its first, a
+    middle and its last K stage and every column tile, equals its [in, out]
+    blocks with zeros in the K padding (the z||a first layers: latent rows
+    padded to 1376, action rows to 16) and past the ragged N (the bins'
+    101, the pi head's 2A = 12, the termination's 1 column); the Q heads at
+    each head's coordinate."""
+    g = torch.Generator().manual_seed(317)
+    blocks, along_n, heads = _317_blocks(case, g)
+    wT = tv.wide_matrix(*blocks, cat_dim=-1 if along_n else -2)
+    bn = wm.LARGE['bn']
     for h in range(heads or 1):
-        bl = [b[h] for b in blocks] if heads else blocks
-        if along_n:
-            want = torch.cat(bl, dim=-1)
-            want = torch.nn.functional.pad(want, (0, _up16(want.shape[1]) - want.shape[1]))
-        else:
-            want = torch.cat([torch.nn.functional.pad(
-                b, (0, _up16(b.shape[1]) - b.shape[1], 0, _up16(b.shape[0]) - b.shape[0]))
-                for b in bl], dim=0)
-        want = _bits(want)
-        kt, np_ = want.shape[0] // 16, want.shape[1] // 16
-        k_tiles = sorted({0, kt // 2, kt - 1})
-        got = _wide_read(packed[h] if heads else packed, kt, np_, k_tiles)
-        for k in k_tiles:
-            rows = slice(16 * k, 16 * k + 16)
-            np.testing.assert_array_equal(got[rows], want[rows], err_msg=f'{case} {h} {k}')
+        want = _padded_blocks([b[h] for b in blocks] if heads else blocks, along_n)
+        K, N = want.shape
+        assert wT.shape[-2:] == (N, K) and wT.dtype == torch.bfloat16 and wT.is_contiguous()
+        want = np.pad(_bits(want), ((0, wm.STAGE_K), (0, bn)))
+        nk = -(-K // wm.STAGE_K)
+        for ks in sorted({0, nk // 2, nk - 1}):
+            k0 = ks * wm.STAGE_K
+            for n0 in range(0, N, bn):
+                got = _box(wT, k0, n0, h, bn).numpy().astype(np.int32).T   # [64 K, bn N]
+                np.testing.assert_array_equal(
+                    got, want[k0:k0 + wm.STAGE_K, n0:n0 + bn], err_msg=f'{case} {h} {ks}')
+
+
+@pytest.mark.parametrize('case', ['z||a', 'bins', 'pi head', 'termination'])
+def test_product_through_wide_layout(case):
+    """Integer-valued weights, inputs and bias, so that every product and
+    sum is exact in f32: the product taken through the wide layout as the
+    kernel takes it (x's rows with their K blocks padded, the boxes of each
+    K stage in order, every stage's partial sum added to f32 accumulators,
+    the bias last) equals x.float() @ W.float() + b with no tolerance, at
+    ragged widths (L 40, A 3, M 200: four stages, the last one partly past
+    K)."""
+    rng = np.random.default_rng(0)
+    R, L, A, M, B = 24, 40, 3, 200, 101
+
+    def ints(*shape):
+        return torch.from_numpy(rng.integers(-3, 4, shape).astype(np.float32))
+    blocks, x_parts = {
+        'z||a': ([ints(L, M), ints(A, M)], [ints(R, L), ints(R, A)]),
+        'bins': ([ints(M, B)], [ints(R, M)]),
+        'pi head': ([ints(M, A), ints(M, A)], [ints(R, M)]),
+        'termination': ([ints(M, 1)], [ints(R, M)])}[case]
+    along_n = case == 'pi head'
+    W = torch.cat(blocks, dim=-1 if along_n else 0)
+    b = ints(W.shape[1])
+    wT = tv.wide_matrix(*[x.to(torch.bfloat16) for x in blocks],
+                        cat_dim=-1 if along_n else -2)
+    X = torch.cat([torch.nn.functional.pad(x, (0, _up16(x.shape[1]) - x.shape[1]))
+                   for x in x_parts], dim=1).to(torch.bfloat16)
+    N, K = wT.shape
+    bn = wm.SMALL['bn']
+    acc = torch.zeros(R, -(-N // bn) * bn)
+    for k0 in range(0, K, wm.STAGE_K):
+        xs = torch.zeros(R, wm.STAGE_K)
+        xs[:, :min(wm.STAGE_K, K - k0)] = X[:, k0:k0 + wm.STAGE_K].float()
+        for n0 in range(0, N, bn):
+            box = _box(wT, k0, n0, 0, bn).view(torch.bfloat16).float()
+            acc[:, n0:n0 + bn] += xs @ box.T
+    got = acc[:, :N] + b
+    want = torch.cat(x_parts, dim=1) @ W + b
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+_D317, _D5 = (1376, 4096, 6, 101, 8, 8, 3), (512, 512, 6, 101, 5, 8, 3)
+
+
+@pytest.mark.parametrize('dims,n_envs,S,K,N,per_env', [
+    (_D317, 1, 512, 1392, 4096, True), (_D317, 8, 512, 4096, 4096, False),
+    (_D317, 3, 512, 4096, 101, True), (_D317, 2, 512, 4096, 12, False),
+    (_D317, 2, 512, 4096, 1, False), (_D317, 5, 24, 1376, 4096, True),
+    (_D317, 5, 24, 4096, 4096, False), (_D317, 5, 24, 4096, 12, False),
+    (_D317, 2, 77, 4096, 1376, True), (_D5, 1, 512, 528, 512, False),
+    (_D5, 1, 77, 512, 101, False), (_D5, 3, 77, 528, 512, True)])
+def test_gemm_plan_covers_each_output_once(dims, n_envs, S, K, N, per_env):
+    """The product's tile plan (ops/wide.py gemm_plan, the mirror of
+    Wide::launch_gemm): every output row and column in exactly one tile of
+    each K split, the splits' K ranges tiling K in order, a per-env layer's
+    tiles inside one env, the tile from S and the widths, and the partial
+    rows of a split inside a row of y."""
+    plan = wm.gemm_plan(dims, n_envs, S, K, N, per_env)
+    assert {k: plan[k] for k in ('bm', 'bn', 'wgs')} == wm.gemm_tile(dims, S)
+    assert plan['bm'] == (128 if dims == _D317 and S > 64 else 64)
+    R = n_envs * S
+    cover = np.zeros((plan['splits'], R, N), np.int32)
+    k_ranges = set()
+    for (r0, r1), (c0, c1), (k0, k1), off in wm.gemm_blocks(plan, n_envs, S, K, N):
+        split = off // plan['pstride']
+        cover[split, r0:r1, c0:c1] += 1
+        k_ranges.add((split, k0, k1))
+        if per_env:
+            assert r0 // S == (r1 - 1) // S, 'a tile straddles two envs'
+        assert off + min(N, c1) <= wide.y_width(dims)
+    assert (cover == 1).all()
+    ks = sorted(k_ranges)
+    assert [k[0] for k in ks] == list(range(plan['splits']))
+    assert ks[0][1] == 0 and ks[-1][2] == K
+    assert all(a[2] == b[1] for a, b in zip(ks, ks[1:]))
+    # narrow outputs split K (4096 deep: 8 blocks of 8 stages) where y has room
+    narrow = N <= plan['bn']
+    assert plan['splits'] == (min(8, K // 512, wide.y_width(dims) // _up16(N))
+                              if narrow and K >= 512 else 1)
+
+
+def _engine_of(params, cfg):
+    """The engine the mirror gives a model's widths: the built library's
+    answer, which a bf16 prep on the card asks for itself."""
+    dims = tv.prep_dims(tv.prepare_value_params(params, cfg, torch.float32),
+                        getattr(cfg, 'simnorm_dim', 8), getattr(cfg, 'horizon', 3))
+    return wide.engine(mirror_lib(), dims)
+
+
+def test_prep_holds_each_engine_layout():
+    """The weight prep holds the layouts its engines read: at 317's widths
+    no row tile fits and the value step and pi rollout take the wide engine
+    (every matrix in the wide layout, no packed copy); at the 5M model the
+    row tiles take them (packed copies) and the rollout, on the wide engine
+    at every width, reads the dynamics and reward in the wide layout."""
+    assert wide.engine(mirror_lib(), _D317) == 'wide'
+    assert wide.engine(mirror_lib(), _D5) == 'rows'
+    from tests.test_torch_pack import _params
+    params, cfg = _params(5)
+    prep = tv.prepare_value_params(params, cfg, torch.bfloat16, _engine_of(params, cfg))
+    assert set(tv.PACKED) <= set(prep)
+    assert {k for k in tv.WIDE if k in prep} == {k for k in tv.WIDE if k[0] in 'dr'}
+    for k, parts in tv.WIDE.items():
+        if k in prep:
+            cat = -1 if k == 'pT2' else -2
+            assert torch.equal(prep[k], tv.wide_matrix(*[prep[p] for p in parts],
+                                                       cat_dim=cat))
+    tv.check_prep(prep, torch.device('cpu'), 8, tv.ROLLOUT_KERNEL_NAMES)
+    with pytest.raises(ValueError, match='prepared weight pT0: missing'):
+        tv.check_prep(prep, torch.device('cpu'), 8, tv.kernel_names('wide'))
+    rollout_prep = tv.prepare_rollout_params(params['dynamics'], params['reward'],
+                                             cfg.latent_dim, cfg.vmin, cfg.vmax)
+    assert not set(tv.PACKED) & set(rollout_prep)
+    tv.check_prep(rollout_prep, torch.device('cpu'), 8, tv.ROLLOUT_KERNEL_NAMES)
+
+
+def test_cpu_prep_without_an_engine_holds_both_layouts():
+    """A bf16 prep on the CPU that is not told the engine (no library is
+    built there, and no kernel runs) holds every matrix in both layouts,
+    each equal to its own layout of the same blocks."""
+    from tests.test_torch_pack import _params
+    params, cfg = _params(5)
+    prep = tv.prepare_value_params(params, cfg, torch.bfloat16)
+    assert set(tv.PACKED) <= set(prep) and set(tv.WIDE) <= set(prep)
+    for table, make in ((tv.PACKED, tv.pack_matrix), (tv.WIDE, tv.wide_matrix)):
+        for k, parts in table.items():
+            cat = -1 if k[0] == 'p' and k[2] == '2' else -2
+            assert torch.equal(prep[k], make(*[prep[p] for p in parts], cat_dim=cat)), k
+    for route in ('rows', 'wide'):
+        tv.check_prep(prep, torch.device('cpu'), 8, tv.kernel_names(route))
+
+
+def test_prep_above_2048_holds_the_wide_layout_only(wide_agents):
+    """mlp_dim 2560 (above 2048: the widths the wide engine serves): the
+    agent's bf16 prep holds every matrix in the wide layout and no packed
+    copy, so the prep does not double."""
+    _, _, tagent = wide_agents
+    engine = _engine_of(tagent.params, tagent.cfg)
+    assert engine == 'wide'
+    prep = tv.prepare_value_params(tagent.params, tagent.cfg, torch.bfloat16, engine)
+    assert not set(tv.PACKED) & set(prep)
+    assert set(tv.WIDE) - {k for k in tv.WIDE if k[0] == 't'} <= set(prep)
+    tv.check_prep(prep, torch.device('cpu'), 8, tv.kernel_names('wide'))
+    matrices = sum(prep[k].numel() for k in tv.PREP_NAMES if k in prep and k[1] == 'W')
+    wide_copies = sum(prep[k].numel() for k in tv.WIDE if k in prep)
+    assert wide_copies < 1.01 * matrices
 
 
 def test_wide_bias_tables_at_80_tasks_and_task_dim_96():
