@@ -828,7 +828,7 @@ def cycles() -> int:
     flags = ('TDM_CYCLES',)
     library = _build.library
     _build.library = lambda name, defines=(): library(
-        name, flags if name in ('value', 'cem') else defines)
+        name, flags if name in ('value', 'cem', 'rollout') else defines)
     lib = _build.library('value')
     lib.tdm_cycles.argtypes = (ctypes.POINTER(ctypes.c_ulonglong),)
     lib.tdm_cycles.restype = ctypes.c_int
@@ -885,7 +885,51 @@ def cycles() -> int:
             'events); block 0: ' + ', '.join(
                 f'{k} {out[i]} ({100 * out[i] / out[0]:.1f}%)'
                 for i, k in enumerate(enames)))
+    # the wide engine's row kernel (ops/wide.py rows) at the 317M model's widths
+    from tdmpc2_tpu_torch.ops import wide
+    rlib = _build.library('rollout')
+    rlib.tdm_row_cycles.argtypes = (ctypes.POINTER(ctypes.c_ulonglong),)
+    rlib.tdm_row_cycles.restype = ctypes.c_int
+    rnames = ('kernel', 'waiting for a row', 'row statistics', 'activation and stores')
+    for R, S in (ROW_ROWS[0], ROW_ROWS[-1]):
+        for label, mode, heads in ROW_CASES[:3]:
+            kw, per_row, per_env = row_operands(mode, R, S, g, heads)
+            y = kw.pop('y')
+            out = (ctypes.c_ulonglong * 5)()
+            for _ in range(2):      # the second launch's counts are kept
+                wide.rows(mode, y, WIDE_DIMS, S, **kw)
+                torch.cuda.synchronize()
+                _build.check(rlib, rlib.tdm_row_cycles(out), 'cycle counters')
+            ms = time_ms(lambda: wide.rows(mode, y, WIDE_DIMS, S, **kw), 10)
+            log(f'[cycles] row kernel, {label}, {R} rows: {ms:.4f} ms a launch with the '
+                f'counters (CUDA events); block 0, thread 0, over {out[4]} row(s): '
+                + ', '.join(f'{k} {out[i]} ({100 * out[i] / max(out[0], 1):.1f}%)'
+                            for i, k in enumerate(rnames)))
+            del kw, y
     log(nvidia_smi_line())
+    return 0
+
+
+def rows_only() -> int:
+    """`--rows`: the build, then the row kernel alone (row_phase), for a
+    quick check of it on the card; prints the card and the records."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+    from tdmpc2_tpu_torch.ops import _build
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 2
+    for name, (secs, _) in _build.build().items():
+        log(f'  {name}.cu built in {secs:.1f} s')
+    for fn, (regs, st, ld) in _build.ptxas_usage(_build.ptxas_report('rollout')).items():
+        if fn.startswith('row'):
+            log(f'    rollout.cu {fn}: {regs} registers, {st} bytes spill stores, '
+                f'{ld} bytes spill loads')
+    with Phase('the wide engine\'s row kernel alone against rows_plain'):
+        records, worst = row_phase()
+    log(f'  largest share of a tolerance used: {worst[0]:.3f}, max |err| {worst[1]:.3g}')
+    log(nvidia_smi_line())
+    log(json.dumps({'rows': records}))
     return 0
 
 
@@ -1662,6 +1706,230 @@ def product_phase():
     return records, worst
 
 
+# The row kernel alone (ops/wide.py rows, the library's tdm_wide_rows) at the
+# 317M model's widths: each template on the rows of one env (512), the pi
+# rollout at N=80 x 24 (1,920), N=8 (4,096) and N=80 tasks (40,960). The
+# narrow outputs' rows are 8 partial rows of a split product (their
+# products' K split, gemm_splits), as the value step gives them.
+ROW_ROWS = ((512, 512), (1920, 24), (4096, 512), (40960, 512))
+ROW_CASES = (   # (label, mode, per-env heads)
+    ('LayerNorm + Mish', 'hidden', False),
+    ('LayerNorm + Mish, per-env heads', 'hidden', True),
+    ('LayerNorm + SimNorm', 'latent', False),
+    ('two-hot: reward', 'reward', False), ('two-hot: Q0', 'q0', False),
+    ('two-hot: Q1', 'q1', False), ('pi head', 'pi', False), ('termination gate', 'term', False))
+ROW_SPLITS = 8
+# bf16 outputs: at most one bf16 step from the plain version's (the f32
+# order of the statistics ahead of the rounding); f32 outputs 1e-4.
+ROW_BF16_REL, ROW_BF16_ABS = 2.0 ** -7, 1e-6
+ROW_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+ROW_HEADLINE = ('LayerNorm + Mish', 40960)
+
+
+def row_operands(mode, R, S, g, heads=False, fdst=False):
+    """The operands of one row-kernel launch at WIDE_DIMS on R rows (N = R
+    / S envs): y [R, 4096] (the product's rows; 8 partial rows of up16
+    columns for the narrow outputs), NaN wherever the kernel must not read;
+    the mode's weights, per-env inputs and outputs (dst and fdst NaN where
+    it must not write). Returns (the rows / rows_plain keywords, their
+    names per row, per env)."""
+    import torch
+    from tdmpc2_tpu_torch.ops import wide
+    dev = torch.device('cuda')
+    dims = WIDE_DIMS
+    L, M, A, B, NQ, G_, H = dims
+    N, ncols = R // S, wide.row_width(mode, dims)
+    narrow = mode not in ('hidden', 'latent')
+    nsplit, pstride = (ROW_SPLITS, -(-ncols // 16) * 16) if narrow else (1, 0)
+    y = torch.full((R, wide.y_width(dims)), float('nan'), device=dev)
+    for p_ in range(nsplit):
+        y[:, p_ * pstride:p_ * pstride + ncols] = torch.randn(
+            R, ncols, device=dev, generator=g) * (0.7 if narrow else 1.5)
+    kw = dict(y=y, nsplit=nsplit, pstride=pstride)
+    if not narrow:
+        shape = (NQ, ncols) if heads else (ncols,)
+        kw['gain'] = 1 + 0.2 * torch.randn(shape, device=dev, generator=g)
+        kw['beta'] = 0.2 * torch.randn(shape, device=dev, generator=g)
+        if heads:
+            kw['head'] = torch.randint(0, NQ, (N,), device=dev, generator=g,
+                                       dtype=torch.int32)
+        dpad = -(-ncols // 16) * 16
+        ldd = dpad + (16 if mode == 'latent' else 0)    # the latent's rows carry the actions
+        kw.update(dst=torch.full((R, ldd), float('nan'), device=dev, dtype=torch.bfloat16),
+                  dpad=dpad)
+        if fdst:
+            kw['fdst'] = torch.full((R, ncols), float('nan'), device=dev)
+    elif mode == 'pi':
+        Lp = -(-L // 16) * 16
+        x = torch.full((R, Lp + 16), float('nan'), device=dev, dtype=torch.bfloat16)
+        amask = (torch.rand(N, A, device=dev, generator=g) < 0.8).float()
+        kw.update(dst=x[:, Lp:], dpad=16, fdst=torch.full((R, A), float('nan'), device=dev),
+                  eps=torch.randn(N, S, A, device=dev, generator=g), amask=amask,
+                  log_std_min=-10.0, log_std_dif=12.0)
+    elif mode == 'term':
+        term = (torch.rand(R, device=dev, generator=g) < 0.3).float()
+        kw.update(term=term, term_at=(term * 1).to(torch.int32), t=1)
+    else:
+        kw.update(bins=torch.linspace(-10, 10, B, device=dev),
+                  G=torch.randn(R, device=dev, generator=g),
+                  q=torch.randn(R, device=dev, generator=g),
+                  term=(torch.rand(R, device=dev, generator=g) < 0.3).float(),
+                  discs=torch.rand(N, H + 1, device=dev, generator=g),
+                  out=torch.full((R,), float('nan'), device=dev),
+                  t=1 if mode == 'reward' else H)
+    per_row = [k for k in ('y', 'dst', 'fdst', 'G', 'q', 'term', 'term_at', 'out') if k in kw]
+    per_env = [k for k in ('head', 'discs', 'eps', 'amask') if k in kw]
+    return kw, per_row, per_env
+
+
+def row_clone(kw, per_row, per_env, e=None, S=None):
+    """A copy of the operands whose outputs can be written (the rows of
+    env e alone, when given)."""
+    out = dict(kw)
+    for k in per_row:
+        if kw[k] is not None:
+            out[k] = (kw[k] if e is None else kw[k][e * S:(e + 1) * S]).clone()
+    if e is not None:
+        for k in per_env:
+            out[k] = kw[k][e:e + 1]
+    return out
+
+
+def row_outputs(mode, kw):
+    """{name: tensor} of what a launch of `mode` writes."""
+    names = {'hidden': ('dst', 'fdst'), 'latent': ('dst', 'fdst'), 'pi': ('dst', 'fdst'),
+             'reward': ('G',), 'q0': ('q',), 'q1': ('out',), 'term': ('term', 'term_at')}
+    return {k: kw[k] for k in names[mode] if kw.get(k) is not None}
+
+
+def hold_rows(tag, mode, got, want, dpad):
+    """The kernel's outputs against rows_plain's: bf16 within one step
+    (ROW_BF16_REL of |plain| + ROW_BF16_ABS), f32 within ROW_F32_TOL, the
+    gate's flags exactly, dst untouched past dpad. Returns (the largest share
+    of its tolerance any value used, the largest |err|)."""
+    import torch
+    worst = (0.0, 0.0)
+    for k, x in got.items():
+        w = want[k]
+        if k == 'dst':
+            if not bool(torch.isnan(x[:, dpad:].float()).all()):
+                raise AssertionError(f'row kernel {tag}: dst written past dpad {dpad}')
+            x, w = x[:, :dpad].float(), w[:, :dpad].float()
+            room = ROW_BF16_REL * w.abs() + ROW_BF16_ABS
+        elif k in ('term', 'term_at'):
+            if not torch.equal(x, w):
+                raise AssertionError(f'row kernel {tag}: {k} differs from the plain version')
+            continue
+        else:
+            room = ROW_F32_TOL['atol'] + ROW_F32_TOL['rtol'] * w.abs()
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f'row kernel {tag}: non-finite {k}')
+        use = float(((x - w).abs() / room).max())
+        if use > 1:
+            raise AssertionError(f'row kernel {tag}: {k} max |err| '
+                                 f'{max_err(x, w):.3g}, {use:.3f} of its tolerance')
+        worst = (max(worst[0], use), max(worst[1], max_err(x, w)))
+    return worst
+
+
+def row_bytes(mode, R, N, kw):
+    """(the function's bytes, the bytes as launched): each input read once
+    and each output written once; the launch reads the split product's 8
+    partial rows where the function reads one row."""
+    from tdmpc2_tpu_torch.ops import wide
+    ncols = wide.row_width(mode, WIDE_DIMS)
+    small = sum(nbytes(kw[k]) for k in ('gain', 'beta', 'bins', 'head', 'discs', 'amask')
+                if kw.get(k) is not None)
+    scal = {'reward': 4 * 3, 'q0': 4, 'q1': 4 * 4, 'term': 4 * 4}
+    if mode in ('hidden', 'latent'):    # bf16 rows out, and f32 where given
+        rest = R * kw['dpad'] * 2 + (R * ncols * 4 if kw.get('fdst') is not None else 0)
+    elif mode == 'pi':
+        A = ncols // 2
+        rest = R * (A * 4 + A * 4 + kw['dpad'] * 2)    # eps in, f32 and bf16 actions out
+    else:
+        rest = R * scal[mode]
+    fn = R * ncols * 4 + rest + small
+    return fn, fn + (kw['nsplit'] - 1) * R * ncols * 4
+
+
+def row_phase():
+    """The row kernel alone on the card: each ROW_CASES template at the rows
+    of ROW_ROWS, through ops/wide.py rows (the library's tdm_wide_rows),
+    held against rows_plain on the same operands (hold_rows; the latent's
+    f32 rows too), each env of an N=8 launch against its one-env launch bit
+    for bit; timed by CUDA events, its own device time by torch.profiler,
+    the plain version's time and, for the LayerNorm templates,
+    torch.nn.functional.layer_norm on the same f32 rows (contiguous) as a
+    yardstick (a part of the function only: it writes f32); both bounds
+    (row_bytes). Returns (records, (the largest tolerance share used, the
+    largest |err|))."""
+    import torch
+    from tdmpc2_tpu_torch.ops import wide
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(SEED + 1376)
+    records, worst = [], (0.0, 0.0)
+    for R, S in ROW_ROWS:
+        N = R // S
+        for label, mode, heads in ROW_CASES:
+            kw, per_row, per_env = row_operands(mode, R, S, g, heads, fdst=mode == 'latent')
+            tag = f'{label}, {R} rows'
+            got, want = row_clone(kw, per_row, per_env), row_clone(kw, per_row, per_env)
+            plan = wide.rows(mode, got.pop('y'), WIDE_DIMS, S, **got)
+            wide.rows_plain(mode, want.pop('y'), WIDE_DIMS, S, **want)
+            torch.cuda.synchronize()
+            use, err = hold_rows(tag, mode, row_outputs(mode, got), row_outputs(mode, want),
+                                 kw.get('dpad', 0))
+            worst = (max(worst[0], use), max(worst[1], err))
+            if N == 8:
+                for e in (0, 5):
+                    one = row_clone(kw, per_row, per_env, e, S)
+                    wide.rows(mode, one.pop('y'), WIDE_DIMS, S, **one)
+                    sl = slice(e * S, (e + 1) * S)
+                    for k, x in row_outputs(mode, one).items():
+                        if not torch.equal(x.view(torch.int16) if x.dtype == torch.bfloat16
+                                           else x, (got[k][sl].view(torch.int16)
+                                                    if x.dtype == torch.bfloat16
+                                                    else got[k][sl])):
+                            raise AssertionError(f'row kernel {tag}: env {e} of the N=8 '
+                                                 f'launch differs from its one-env launch')
+            # times: the main path's launch (the latent without its f32 rows)
+            if mode == 'latent':
+                kw['fdst'] = None
+            run = row_clone(kw, per_row, per_env)
+            y = run.pop('y')
+            kern = (lambda: wide.rows(mode, y, WIDE_DIMS, S, **run))
+            reps = 20 if R <= 4096 else 10
+            k_ms = time_ms(kern, reps)
+            _, _, top = device_share(kern, reps // 2)
+            k_dev = sum(t for t, _, k in top if 'row' in k and 'kernel' in k) or None
+            pl = row_clone(kw, per_row, per_env)
+            yp = pl.pop('y')
+            p_ms = time_ms(lambda: wide.rows_plain(mode, yp, WIDE_DIMS, S, **pl), 2)
+            ln_ms = None
+            if mode in ('hidden', 'latent'):
+                ncols = wide.row_width(mode, WIDE_DIMS)
+                yc = y[:, :ncols].contiguous()
+                gn = run['gain'] if run['gain'].dim() == 1 else run['gain'][0]
+                bt = run['beta'] if run['beta'].dim() == 1 else run['beta'][0]
+                ln_ms = time_ms(lambda: torch.nn.functional.layer_norm(
+                    yc, (ncols,), gn, bt, 1e-5), reps)
+                del yc
+            fn_by, run_by = row_bytes(mode, R, N, kw)
+            b_fn = fn_by / HBM_BYTES_PER_S * 1e3
+            b_run = run_by / HBM_BYTES_PER_S * 1e3
+            rec = dict(template=label, mode=mode, rows=R, n_envs=N, plan=plan, tol_used=use,
+                       max_abs_err=err, ms=k_ms, device_ms=k_dev, plain_ms=p_ms, layer_norm_ms=ln_ms,
+                       bound_ms=b_fn, bound_launched_ms=b_run, bound_by='bytes')
+            records.append(rec)
+            log(f'  row kernel {tag}: plan {plan}; {use:.3f} of the tolerance; kernel '
+                f'{k_ms:.4f} ms (device {k_dev}), plain {p_ms:.3f} ms'
+                + (f', F.layer_norm alone {ln_ms:.4f} ms' if ln_ms is not None else '')
+                + f'; bound {b_fn:.5f} ms (bytes; {b_run:.5f} as launched): '
+                + (f'{100 * b_fn / k_dev:.1f}% of the bound' if k_dev else 'no device time'))
+            del kw, got, want, run, y, pl, yp
+    return records, worst
+
+
 def packed_bytes(prep):
     """Bytes that the fragment-packed copies (ops/value.py pack_matrix:
     each K block and N padded to 16, bf16) of prep's matrices take."""
@@ -1696,7 +1964,8 @@ def row_kernel_bytes(R):
     pi = R * (2 * A * 4 + A * 4 + 16 * 2)      # the row, eps, bf16 actions
     return {'row_kernel<256>': ('LayerNorm + Mish', 18, R * M * (4 + 2)),
             'row_kernel<128>': ('LayerNorm + SimNorm', 3, R * L * (4 + 2)),
-            'row_kernel<32>': ('two-hot decode, pi head', 6, (5 * two_hot + pi) / 6)}
+            'row_narrow_kernel<16>': ('two-hot decode', 5, two_hot),
+            'row_narrow_kernel<8>': ('pi head', 1, pi)}
 
 
 def wide_bounds(prep, n, S, H, A, n_pi, used_heads, episodic=False, task_rows=1):
@@ -2095,18 +2364,13 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
                     + ('not in the trace\'s top entries' if t_ms is None else
                        f'{t_ms / cnt:.4f} ms a launch ({cnt:.0f} a value step)')
                     + f', bound {b_ms:.5f} ms (bytes)')
-        y80 = torch.randn(NT * S, M, device=dev, generator=g)
-        plain_row = (lambda: layers.mish(layers.layer_norm(y80, prep['dg0'], prep['de0'])))
-        hid = by_template.get(f'row_kernel<256>_n{NT}', {})
+        # the row's own numbers come from the row phase (main)
         rows.append({'name': 'wide_row', 'route': 'cuda', 'engine': 'wide',
                      'source': 'tdmpc2_tpu_torch/csrc/mlp_wide.cuh',
                      'replaces': 'tdmpc2_tpu/ops/pallas_rollout.py:437', 'launches': 0,
-                     'max_abs_err': errs['value_sampled_317'], 'n_rows': NT * S,
-                     'ms': hid.get('ms'), 'plain_ms': time_ms(plain_row, 3),
-                     'bound_ms': hid.get('bound_ms'), 'bound_by': 'bytes',
                      'library_ms': None, 'model_size': WIDE_SIZE,
                      'by_template': by_template})
-        del e_prep, e_params, cases, prep_r, y80
+        del e_prep, e_params, cases, prep_r
 
     with tempfile.TemporaryDirectory() as data_dir, \
             Phase(f'path: offline training mt80, {tag}, {WIDE_STEPS} iterations '
@@ -2679,7 +2943,7 @@ def main() -> int:
         log(f'  value range [{float(v_p.min()):.3f}, {float(v_p.max()):.3f}]')
 
     plans = {}
-    wide_kernels = ('gemm_kernel', 'row_kernel<', 'stage_kernel')
+    wide_kernels = ('gemm_kernel', 'row_kernel<', 'row_narrow_kernel<', 'stage_kernel')
     with Phase('plans of the tensor-core kernels (default 5M model): the row tiles, '
                'and the wide engine the rollout takes'):
         for kname in ('value', 'pi_rollout', 'rollout'):
@@ -3430,6 +3694,10 @@ def main() -> int:
             for fn, c in fns.items():
                 if not (c['HGMMA'] and c['UTMALDG']) or c['HMMA'] or c['LDGSTS']:
                     raise AssertionError(f'{lib_name} {fn}: SASS {c}: not wgmma on TMA copies')
+    with Phase('the wide engine\'s row kernel alone (rows streamed by bulk copies into a ring) '
+               'against rows_plain, at the 317M model\'s widths'):
+        row_records, row_err = row_phase()
+        log(f'  largest share of a tolerance used: {row_err[0]:.3f}, max |err| {row_err[1]:.3g}')
     w_errs, w_paths, w_rows = wide_phases(zero_counts, read_counts, check_plan_counts)
     ckpt_errs, ckpt_paths, ckpt_read_s = checkpoint_phases(
         zero_counts, read_counts, check_plan_counts, hold_update)
@@ -3618,6 +3886,14 @@ def main() -> int:
         for row in w_rows:
             if row['name'] == 'wide_row':
                 row['launches_by_path'] = {k: v['wide_row'] for k, v in paths.items()}
+                top = next(r for r in row_records
+                           if (r['template'], r['rows']) == ROW_HEADLINE)
+                row.update({'headline': f'{top["template"]}, {top["rows"]} rows',
+                            'max_abs_err': row_err[1], 'tol_used': row_err[0],
+                            **{k: top[k] for k in ('ms', 'device_ms', 'plain_ms', 'bound_ms',
+                                                   'bound_launched_ms', 'bound_by',
+                                                   'layer_norm_ms', 'plan')},
+                            'templates': row_records})
         kernels.extend(w_rows)
         top = next(r for r in prod_records
                    if (r['shape'], r['n_envs'], r['model']) == (*PRODUCT_HEADLINE, 317))
@@ -3657,5 +3933,7 @@ if __name__ == '__main__':
         sys.exit(compare(sys.argv[2], *map(int, sys.argv[3:])))
     if len(sys.argv) == 2 and sys.argv[1] == '--cycles':
         sys.exit(cycles())
+    if len(sys.argv) == 2 and sys.argv[1] == '--rows':
+        sys.exit(rows_only())
 
     sys.exit(main())

@@ -486,6 +486,22 @@ __global__ void __launch_bounds__(Tl::threads, Tl::min_blocks)
 
 enum RowMode { kRowHidden, kRowLatent, kRowReward, kRowQ0, kRowQ1, kRowPi, kRowTerm };
 
+// Cycle counters of the row kernel's block 0, thread 0, with -DTDM_CYCLES
+// (`chip_smoke.py --cycles`; otherwise nothing): [0] the whole kernel, [1]
+// waiting for a row (until its values are in registers), [2] the row's
+// statistics, [3] the activation and the stores, [4] rows.
+#ifdef TDM_CYCLES
+__device__ unsigned long long g_row_cycles[5];
+#define TDM_ROW_MARK(t, dep)           \
+  asm volatile("" ::"f"(dep));          \
+  const long long t = clock64()
+#define TDM_ROW_ADD(i, t0, t1) \
+  if (blockIdx.x == 0 && threadIdx.x == 0) g_row_cycles[i] += (t1) - (t0)
+#else
+#define TDM_ROW_MARK(t, dep)
+#define TDM_ROW_ADD(i, t0, t1)
+#endif
+
 struct RowArgs {
   int mode;
   const float* y;   // the product's rows, ldy apart
@@ -588,6 +604,7 @@ __global__ void __launch_bounds__(kWRowThreads) row_kernel(const RowArgs a) {
 
   float v[kWVals];
   if (a.mode == kRowHidden || a.mode == kRowLatent) {
+    TDM_ROW_MARK(c0, 0.f);
     const int h = a.head == nullptr ? 0 : min(max(a.head[env * a.hn], 0), a.nhead - 1);
     const float* gn = a.gain + h * a.gh;
     const float* bt = a.beta + h * a.gh;
@@ -610,6 +627,7 @@ __global__ void __launch_bounds__(kWRowThreads) row_kernel(const RowArgs a) {
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < kWVals; ++i) s += v[i];
+    TDM_ROW_MARK(c1, s);
     const float mu = row_all<TPR, false>(s, red) / nc;
     s = 0.f;
 #pragma unroll
@@ -618,6 +636,7 @@ __global__ void __launch_bounds__(kWRowThreads) row_kernel(const RowArgs a) {
       s += lr + i * TPR < nc ? dv * dv : 0.f;
     }
     const float rstd = rsqrtf(row_all<TPR, false>(s, red) / nc + 1e-5f);
+    TDM_ROW_MARK(c2, rstd);
 #pragma unroll
     for (int i = 0; i < kWVals; ++i) {
       const int c = lr + i * TPR;
@@ -646,6 +665,12 @@ __global__ void __launch_bounds__(kWRowThreads) row_kernel(const RowArgs a) {
       if (c < a.dpad) a.dst[rr * a.ldd + c] = bf16_bits(v[i]);
       if (a.fdst != nullptr && c < nc) a.fdst[rr * a.ldf + c] = v[i];
     }
+    TDM_ROW_MARK(c3, v[0]);
+    TDM_ROW_ADD(0, c0, c3);
+    TDM_ROW_ADD(1, c0, c1);
+    TDM_ROW_ADD(2, c1, c2);
+    TDM_ROW_ADD(3, c2, c3);
+    TDM_ROW_ADD(4, 0, 1);
     return;
   }
 
@@ -872,6 +897,8 @@ struct Wide {
   int err = 0, launched = 0, gemms = 0, rowk = 0, stagings = 0;
   bool large;          // the product's tile (wide_large)
   GemmPlan last{};     // the last product's plan: the row kernel reads its partials
+  int row_plan[6] = {};  // the last row kernel's: threads a row, row groups a
+                         // block, ring stages, shared bytes, blocks, resident blocks
   int Lp, Ap, Mp, kz, kl, km;
 
   Wide(const void* const* wptrs, const int* dims, int N_, int S_, const int* task_, int ntask_,
@@ -977,6 +1004,8 @@ struct Wide {
       while (tpr < kWRowThreads && a.ncols > tpr * kWVals) tpr *= 2;
     const long rpb = kWRowThreads / tpr;
     const unsigned blocks = static_cast<unsigned>((R + rpb - 1) / rpb);
+    const int plan[6] = {tpr, static_cast<int>(rpb), 0, 0, static_cast<int>(blocks), 0};
+    for (int i = 0; i < 6; ++i) row_plan[i] = plan[i];
     switch (tpr) {
       case 32: row_kernel<32><<<blocks, kWRowThreads, 0, stream>>>(a); break;
       case 64: row_kernel<64><<<blocks, kWRowThreads, 0, stream>>>(a); break;

@@ -93,3 +93,74 @@ extern "C" int tdm_wide_gemm(const int* dims, int N, int S, const void* x, long 
   wd.report(launched);
   return wd.err;
 }
+
+// One row kernel of the wide engine on given operands, as Wide::rows
+// launches it after a product, for the checks and timings of chip_smoke.py
+// and tests/test_torch_cuda.py (no path calls it; ops/wide.py rows): mode
+// (RowMode) on the rows of N envs of S rows of y [N*S, ldy] f32, each the
+// product's row or its nsplit partial rows pstride columns apart, at the
+// widths of dims (ncols: M, L, B, 2A or 1 by the mode; SimNorm's group, A).
+// p = {gain, beta, head, bins, dst, fdst, G, q, term, term_at, discs, out,
+// eps, amask}, n = {gh, hn, nhead, ldd, dpad, ldf, dn, t, en, es, amn}, as
+// RowArgs reads them. plan receives {threads a row, row groups a block, ring
+// stages, shared bytes a block, blocks launched, blocks the card holds};
+// launched [4] as above.
+extern "C" int tdm_wide_rows(const int* dims, int mode, int N, int S, const float* y, long ldy,
+                             int nsplit, int pstride, const void* const* p, const long* n,
+                             float lsmin, float lsdif, int* plan, int* launched,
+                             void* stream) {
+  using namespace tdm;
+  const void* none[kNumOps] = {};
+  Scratch sc{};
+  sc.y = const_cast<float*>(y);
+  sc.ldy = ldy;
+  Wide wd(none, dims, N, S, nullptr, 1, sc, static_cast<cudaStream_t>(stream));
+  if (!wide_fits(wd.d) || mode < kRowHidden || mode > kRowTerm) return kNoPlan;
+  const int widths[7] = {wd.d.M, wd.d.L, wd.d.B, wd.d.B, wd.d.B, 2 * wd.d.A, 1};
+  RowArgs a = wd.row_args(mode, widths[mode]);
+  auto f = [&](int i) { return static_cast<float*>(const_cast<void*>(p[i])); };
+  a.gain = f(0);
+  a.beta = f(1);
+  a.head = static_cast<const int*>(p[2]);
+  a.bins = f(3);
+  a.dst = static_cast<uint16_t*>(const_cast<void*>(p[4]));
+  a.fdst = f(5);
+  a.G = f(6);
+  a.q = f(7);
+  a.term = f(8);
+  a.term_at = static_cast<int*>(const_cast<void*>(p[9]));
+  a.discs = f(10);
+  a.out = f(11);
+  a.eps = f(12);
+  a.amask = f(13);
+  a.gh = n[0];
+  a.hn = n[1];
+  a.nhead = static_cast<int>(n[2]);
+  a.ldd = n[3];
+  a.dpad = static_cast<int>(n[4]);
+  a.ldf = n[5];
+  a.dn = n[6];
+  a.t = static_cast<int>(n[7]);
+  a.en = n[8];
+  a.es = n[9];
+  a.amn = n[10];
+  a.lsmin = lsmin;
+  a.lsdif = lsdif;
+  wd.last.splits = nsplit;
+  wd.last.pstride = pstride;
+  wd.rows(a);
+  for (int i = 0; i < 6; ++i) plan[i] = wd.row_plan[i];
+  wd.report(launched);
+  return wd.err;
+}
+
+#ifdef TDM_CYCLES
+// The row kernel's block-0 cycle counters (mlp_wide.cuh g_row_cycles) into
+// out [5], then zeroed.
+extern "C" int tdm_row_cycles(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, tdm::g_row_cycles, sizeof(tdm::g_row_cycles));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[5] = {0, 0, 0, 0, 0};
+  return static_cast<int>(cudaMemcpyToSymbol(tdm::g_row_cycles, zero, sizeof(zero)));
+}
+#endif

@@ -65,6 +65,8 @@ SIGNATURES = {
     ('rollout', 'tdm_wide_gemm'): (_INTS, _I, _I, _P, _L, _I, _P, _I, _P, _L, _L,
                                    _P, _I, _P, _I, _P, _L, _P, _L, _INTS, _INTS,
                                    _P),
+    ('rollout', 'tdm_wide_rows'): (_INTS, _I, _I, _I, _P, _L, _I, _I, _PTRS, _LONGS,
+                                   _F, _F, _INTS, _INTS, _P),
     ('probe', 'tdm_probe'): (_P, _P, _L, _P),
 }
 

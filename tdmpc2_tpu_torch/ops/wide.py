@@ -231,3 +231,154 @@ def gemm_sum(y, plan, ncols: int):
     for p in range(1, plan['splits']):
         out += y[:, p * plan['pstride']:p * plan['pstride'] + ncols]
     return out
+
+
+# -------------------------------------------------------- the row kernel
+
+# csrc/mlp_wide.cuh RowMode, in its order.
+ROW_MODES = ('hidden', 'latent', 'reward', 'q0', 'q1', 'pi', 'term')
+
+
+def row_width(mode: str, dims) -> int:
+    """Columns of the product a row kernel of `mode` reads at dims (L, M,
+    A, B, ...): M, L, the bins, the policy's 2A (mean, raw log-std), the
+    termination logit."""
+    L, M, A, B = dims[:4]
+    return {'hidden': M, 'latent': L, 'reward': B, 'q0': B, 'q1': B,
+            'pi': 2 * A, 'term': 1}[mode]
+
+
+def rows_plain(mode, y, dims, S: int, *, nsplit: int = 1, pstride: int = 0,
+               gain=None, beta=None, head=None, bins=None, dst=None, dpad: int = 0,
+               fdst=None, G=None, q=None, term=None, term_at=None, discs=None,
+               t: int = 0, out=None, eps=None, amask=None, log_std_min: float = 0.0,
+               log_std_dif: float = 0.0):
+    """The row kernel's function in torch ops, in place, on the rows of N
+    envs of S rows. y [R, >= nsplit * pstride] f32 holds the product's
+    row, or its nsplit partial rows pstride columns apart, summed here in
+    order; ncols = row_width(mode, dims). The modes:
+
+    - 'hidden': mish(layer_norm(y, gain, beta)), 'latent': simnorm of the
+      LayerNorm over groups of dims[5]; gain and beta [ncols], or [heads,
+      ncols] with `head` (int [N]: env e's row of them, clamped); into dst
+      (bf16 [R, >= dpad]: the values, zeros from ncols to dpad) and, when
+      given, fdst (f32 [R, >= ncols]);
+    - 'reward', 'q0', 'q1': r, the two-hot decode over `bins`: G += discs[e,
+      t] * (1 - term) * r; q = r; out = G + discs[e, t] * (1 - term) * (q +
+      r) / 2 (G, q, term, out f32 [R]; term None: 0);
+    - 'pi': act = tanh(mean * m + eps * m * exp(log_std)) on columns [0, A)
+      (the mean) and [A, 2A) (the raw log-std through log_std_min/dif), eps
+      a [N, S, >= A] view, m the amask row ([A], [N, A] or None: ones); into
+      fdst (f32 [R, >= A]) when given and dst (bf16, zeros from A to dpad);
+    - 'term': the sticky flag term = min(term + (logit > 0), 1), and term_at
+      (int32 [R], or None) set to t + 1 where a row's flag is first set.
+    """
+    from tdmpc2_tpu_torch.models.layers import layer_norm, mish, simnorm
+    from tdmpc2_tpu_torch.ops.value import _two_hot_dec, pi_action_plain
+    ncols = row_width(mode, dims)
+    R = y.shape[0]
+    ys = y[:, :ncols].clone()
+    for p in range(1, nsplit):
+        ys += y[:, p * pstride:p * pstride + ncols]
+    idx = torch.arange(R, device=y.device)
+    env = idx // S
+    if mode in ('hidden', 'latent'):
+        if gain.dim() == 2:
+            h = torch.zeros_like(env) if head is None else \
+                head.long()[env].clamp(0, gain.shape[0] - 1)
+            gain, beta = gain[h], beta[h]
+        v = layer_norm(ys, gain, beta)
+        v = mish(v) if mode == 'hidden' else simnorm(v, dims[5])
+        dst[:, :ncols] = v.to(dst.dtype)
+        dst[:, ncols:dpad] = 0
+        if fdst is not None:
+            fdst[:, :ncols] = v
+    elif mode == 'pi':
+        A = ncols // 2
+        ls = log_std_min + 0.5 * log_std_dif * (torch.tanh(ys[:, A:]) + 1.0)
+        m = 1.0 if amask is None else (amask[env] if amask.dim() == 2 else amask)
+        act = pi_action_plain(ys[:, :A], ls, eps[env, idx % S, :A], m)
+        if fdst is not None:
+            fdst[:, :A] = act
+        dst[:, :A] = act.to(dst.dtype)
+        dst[:, A:dpad] = 0
+    elif mode == 'term':
+        hit = (ys[:, 0] > 0.0).float()
+        if term_at is not None:
+            term_at.copy_(torch.where((term == 0) & (hit != 0), t + 1, term_at))
+        term.copy_(torch.clamp(term + hit, max=1.0))
+    else:
+        r = _two_hot_dec(ys, bins)[:, 0]
+        keep = 1.0 - (term if term is not None else torch.zeros_like(r))
+        if mode == 'reward':
+            G += discs[env, t] * (keep * r)
+        elif mode == 'q0':
+            q.copy_(0.0 + r)
+        else:
+            out.copy_(G + discs[env, t] * (keep * ((q + r) / 2.0)))
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def rows(mode, y, dims, S: int, *, nsplit: int = 1, pstride: int = 0, gain=None,
+         beta=None, head=None, bins=None, dst=None, dpad: int = 0, fdst=None, G=None,
+         q=None, term=None, term_at=None, discs=None, t: int = 0, out=None, eps=None,
+         amask=None, log_std_min: float = 0.0, log_std_dif: float = 0.0):
+    """One launch of the wide engine's row kernel on given operands (the
+    library's `tdm_wide_rows`, as Wide::rows launches it after a product;
+    no path calls it), for checks and timings; the arguments and the
+    function are `rows_plain`'s, which it takes on CPU tensors. On the card
+    y's rows and partial rows start on 16 bytes (y.stride(0), pstride: 4
+    columns), dst's rows on 8 bytes; head int32; discs [N, > t] with unit
+    inner stride. Returns the launch's plan: threads a row, row groups a
+    block, ring stages, shared bytes a block, blocks launched and the
+    blocks the card holds at once (None on the CPU)."""
+    kw = dict(nsplit=nsplit, pstride=pstride, gain=gain, beta=beta, head=head,
+              bins=bins, dst=dst, dpad=dpad, fdst=fdst, G=G, q=q, term=term,
+              term_at=term_at, discs=discs, t=t, out=out, eps=eps, amask=amask,
+              log_std_min=log_std_min, log_std_dif=log_std_dif)
+    if y.device.type == 'cpu':
+        rows_plain(mode, y, dims, S, **kw)
+        return None
+    ncols = row_width(mode, dims)
+    R = y.shape[0]
+    aligned = (y.dtype == torch.float32 and y.stride(1) == 1 and y.stride(0) % 4 == 0
+               and y.data_ptr() % 16 == 0 and R % S == 0
+               and (nsplit == 1 or pstride % 4 == 0)
+               and (nsplit - 1) * pstride + -(-ncols // 4) * 4 <= y.stride(0))
+    if dst is not None:
+        aligned &= (dst.dtype == torch.bfloat16 and dst.stride(1) == 1
+                    and dst.stride(0) % 4 == 0 and dst.data_ptr() % 8 == 0)
+    if not aligned:
+        raise ValueError(f'wide.rows: y {tuple(y.shape)} {y.dtype} (stride {y.stride()}), '
+                         f'dst {None if dst is None else (tuple(dst.shape), dst.dtype)} do '
+                         f'not fit mode {mode!r} at dims {tuple(dims)}')
+    ptrs = (ctypes.c_void_p * 14)(
+        _ptr(gain), _ptr(beta), _ptr(head), _ptr(bins), _ptr(dst), _ptr(fdst), _ptr(G),
+        _ptr(q), _ptr(term), _ptr(term_at), _ptr(discs), _ptr(out), _ptr(eps),
+        _ptr(amask))
+    longs = (ctypes.c_long * 11)(
+        0 if gain is None or gain.dim() == 1 else gain.stride(0),
+        0 if head is None else head.stride(0),
+        1 if gain is None or gain.dim() == 1 else gain.shape[0],
+        dst.stride(0) if dst is not None else 0, dpad,
+        fdst.stride(0) if fdst is not None else 0,
+        discs.stride(0) if discs is not None else 0, t,
+        eps.stride(0) if eps is not None else 0, eps.stride(1) if eps is not None else 0,
+        amask.stride(0) if amask is not None and amask.dim() == 2 else 0)
+    plan = (ctypes.c_int * 6)()
+    n = counts()
+    lib = _build.library('rollout')
+    rc = lib.tdm_wide_rows(
+        (ctypes.c_int * 7)(*dims), ROW_MODES.index(mode), R // S, S, y.data_ptr(),
+        y.stride(0), nsplit, pstride, ptrs, longs, log_std_min, log_std_dif, plan, n,
+        torch.cuda.current_stream(y.device).cuda_stream)
+    _build.check(lib, rc, 'wide row kernel', dims)
+    rows.launches += n[2]
+    keys = ('threads_a_row', 'row_groups', 'stages', 'smem_bytes', 'blocks', 'resident')
+    return dict(zip(keys, plan))
+
+
+rows.launches = 0

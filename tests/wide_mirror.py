@@ -2,8 +2,10 @@
 
 The port takes these decisions in the built library alone: which engine
 the value step and the pi rollout take (csrc/mlp_wide.cuh `tdm_engine`,
-from mlp_rows.cuh `pick_plan` and `wide_fits`) and how the wide engine's
-product is launched (`Wide::launch_gemm`: its tile, K splits and grid).
+from mlp_rows.cuh `pick_plan` and `wide_fits`), how the wide engine's
+product is launched (`Wide::launch_gemm`: its tile, K splits and grid) and
+how its row kernel is (`Wide::rows`: the threads a row, from the width
+alone, the columns each owns, the ring of row buffers).
 The CPU has no library, so the CPU tests use this copy of the rules, and
 tests/test_torch_cuda.py holds the built library's answers to it on the
 card. It imports neither jax nor the JAX package.
@@ -20,6 +22,11 @@ ROW_SHAPES = ((32, 2), (32, 4), (32, 8), (16, 16))
 WARPS, SMEM_MAX, MAX_STAGES, NARROW_PAIRS = 8, 232448, 8, 4
 GROUPS = (2, 4, 8, 16)
 WIDE_MAX_COLS = 4096      # mlp_wide.cuh: the row kernel's 256 threads x 16 values
+# mlp_wide.cuh's row kernel: a block's threads, float4 chunks a LayerNorm
+# thread holds, a LayerNorm block's ring of rows (bytes) and its stages at
+# most.
+ROW_THREADS, ROW_CHUNKS, ROW_RING, ROW_STAGES = 256, 4, 64 * 1024, 8
+ROW_KEEP = 2              # chunks of a two-hot row a lane keeps in registers
 
 # The product's tiles (mlp_wide.cuh WTile): rows and columns of a block and
 # its consumer warpgroups; K 64 deep a stage (kWK), kWStages stages.
@@ -131,3 +138,57 @@ def gemm_blocks(plan, n_envs: int, S: int, K: int, ncols: int):
                 c0 = bx * bn
                 yield ((row0, row0 + nrows), (c0, min(c0 + bn, ncols)),
                        (k0, min(k1, K)), bz * plan['pstride'])
+
+
+def row_plan(mode: str, ncols: int, nsplit: int = 1, pstride: int = 0, A: int = 0) -> dict:
+    """Wide::rows: the LayerNorm modes ('hidden', 'latent') on row groups of
+    threads_a_row threads (32 to 256: the fewest that hold the row at
+    ROW_CHUNKS float4 chunks a thread), row_groups of them a block, each
+    with a ring of `stages` row buffers (the row and its partial rows, 4
+    columns at a time); the narrow modes on threads_a_row lanes a row (the
+    policy: A lanes; the two-hot decode: ROW_KEEP chunks a lane; the gate:
+    one), no ring."""
+    if mode in ('hidden', 'latent'):
+        tpr = 32
+        while tpr < ROW_THREADS and ncols > tpr * ROW_CHUNKS * 4:
+            tpr *= 2
+        rg = ROW_THREADS // tpr
+        floats = (nsplit - 1) * pstride + -(-ncols // 4) * 4
+        stages = min(max(ROW_RING // (rg * floats * 4), 2), ROW_STAGES)
+        return dict(threads_a_row=tpr, row_groups=rg, stages=stages,
+                    smem_bytes=rg * stages * (floats * 4 + 8))
+    lpr = 1
+    if mode == 'pi':
+        while lpr < 32 and lpr < A:
+            lpr *= 2
+    elif mode != 'term':
+        while lpr < 32 and ROW_KEEP * lpr < -(-ncols // 4):
+            lpr *= 2
+    return dict(threads_a_row=lpr, row_groups=ROW_THREADS // lpr, stages=0, smem_bytes=0)
+
+
+def row_owners(mode: str, ncols: int, dpad: int = 0, A: int = 0) -> dict:
+    """{column: (thread of the row's group, its slot)} of the row kernel:
+    LayerNorm thread t holds the float4 chunks t + i * threads_a_row (i <
+    ROW_CHUNKS), to dpad (dst's zeros included); a two-hot lane l the chunks
+    l, l + threads_a_row, ... (the first ROW_KEEP kept); a policy lane l
+    the columns l, l + threads_a_row, ... below dpad; the gate's lane its
+    row's one column. Every owner follows from the width alone."""
+    n = row_plan(mode, ncols, A=A)['threads_a_row']
+    owners = {}
+    if mode in ('hidden', 'latent', 'reward', 'q0', 'q1'):
+        slots = ROW_CHUNKS if mode in ('hidden', 'latent') else None
+        width = max(ncols, dpad)
+        for t in range(n):
+            i = 0
+            while (slots is None or i < slots) and 4 * (t + i * n) < width:
+                for c in range(4 * (t + i * n), 4 * (t + i * n) + 4):
+                    if c < width:
+                        owners.setdefault(c, []).append((t, i))
+                i += 1
+    else:
+        width = max(dpad, 1)
+        for t in range(n):
+            for i, c in enumerate(range(t, width, n)):
+                owners.setdefault(c, []).append((t, i))
+    return owners
