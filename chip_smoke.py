@@ -643,11 +643,12 @@ def time_kernels(root) -> int:
     elite kernel, the canary, the planner's value step and `plan_vec` of the
     port at ROOT (this tree, or an older one unpacked elsewhere) on the main
     paths' inputs, on mt30's at model_size 48 (N = 30 tasks) and on mt80's
-    at model_size 317 (one env, N = 8 and 80 tasks), made from SEED,
-    through the entry points that every version has; prints one JSON
-    line {name: [ms by CUDA events (plan_vec: by the host clock, each call
-    synchronised), own device ms by torch.profiler, a digest of the
-    kernel's output bits (None for plan_vec)]}."""
+    at model_size 317 (one env, N = 8 and 80 tasks, and `act_tasks` over
+    the 80 tasks), made from SEED, through the entry points that every
+    version has; prints one JSON line {name: [ms by CUDA events (plan_vec,
+    act_tasks: by the host clock, each call synchronised), own device ms by
+    torch.profiler, a digest of the kernel's output bits (None for
+    plan_vec and act_tasks)]}."""
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -791,6 +792,15 @@ def time_kernels(root) -> int:
         calls[f'pi_rollout_317_n{n}'] = (
             cem.pi_rollout, (wag.prep, w_z[:n], w_noise.pi_eps[:n, :w_pi]),
             dict(heads, task=wt[:n], amask=w_amask[:n]))
+    # act_tasks over the 80 tasks: one lockstep step, a graph replay after
+    # the capturing first call (its call time by the host clock, each call
+    # synchronised, as for plan_vec)
+    w_obs = torch.randn(WT, wcfg.obs_shape['state'][0], device=dev, generator=g).cpu().numpy()
+    tasks = np.arange(WT)
+    _, w_pm = wag.act_tasks(w_obs, np.zeros((WT, wcfg.horizon, wcfg.action_dim), np.float32),
+                            True, tasks)
+    calls[f'act_tasks_317_n{WT}'] = (wag.act_tasks, (w_obs, w_pm, False, tasks), {})
+
     def digest(x):
         h = hashlib.sha256()
         for t in as_tuple(x):
@@ -800,9 +810,10 @@ def time_kernels(root) -> int:
     out = {}
     for name, (fn, args, kw) in calls.items():
         # a kernel's output bits on these inputs (a plan's depend on its draws)
-        dg = None if name.startswith('plan_vec') else digest(fn(*args, **kw))
+        whole = name.startswith(('plan_vec', 'act_tasks'))
+        dg = None if whole else digest(fn(*args, **kw))
         reps = 10 if '317_n80' in name else 50
-        if name.startswith('plan_vec'):
+        if whole:
             ms = host_ms(lambda: (fn(*args, **kw), torch.cuda.synchronize()), reps)
         else:
             ms = time_ms(lambda: fn(*args, **kw), reps)

@@ -79,10 +79,25 @@
 // ms at 989 TFLOP/s); at one env (512 rows) its 64 blocks fill half the
 // SMs; a narrow output is bound by reading x.
 //
-// The row kernel (row_kernel): TPR threads a row (32 to 256, from the
-// width), 16 values a thread at most (so at most 4096 columns), the row's
-// statistics summed in a fixed tree in f32 in the plain version's order
-// (mean, then the centred variance).
+// The row kernels read the product's f32 rows once and write bf16 rows (or
+// a few scalars a row): bound by bytes, 0.30 ms for LayerNorm + Mish on
+// 40,960 rows of 4096 columns (16 KB in, 8 KB out a row). row_kernel (the
+// LayerNorm modes) streams the rows: persistent blocks of row groups, each
+// group of TPR threads (32 to 256, from the width alone, up to 16 columns
+// a thread, so at most 4096) owning a row at a time; its rows arrive by
+// bulk copies (cp.async.bulk, no tensor map) into a ring of row buffers in
+// shared memory, counted on an mbarrier each, so a group's next rows are in
+// flight while it computes this one (the earlier kernel ran one row a
+// block, its loads never overlapping its own math). Threads read 16 bytes
+// of the ring and write 8 bytes of bf16 at a time; gain and beta stay in
+// registers; the statistics are summed in a fixed tree in f32 in the plain
+// version's order (the mean, then the centred variance) with warp shuffles
+// and one exchange among the group's warps on its own named barrier; Mish
+// takes the quotient from the reciprocal's estimate. row_narrow_kernel
+// (the two-hot decode, the policy's action, the termination gate) packs
+// several rows a warp, and sums a split product's partial rows with 16-byte
+// loads in order. No arithmetic depends on the block or the row count, so
+// an N-env launch equals N one-env launches bit for bit.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
@@ -116,9 +131,11 @@ struct WTile {
 using WLarge = WTile<2, 256>;   // 128 x 256, one block an SM
 using WSmall = WTile<1, 128>;   // 64 x 128, two blocks an SM
 
-constexpr int kWRowThreads = 256;
-constexpr int kWVals = 16;               // values a thread of the row kernel
-constexpr int kWMaxCols = kWRowThreads * kWVals;
+constexpr int kWRowThreads = 256;       // a row kernel's block
+constexpr int kWChunks = 4;             // float4 chunks of a row a LayerNorm thread holds
+constexpr int kWMaxCols = kWRowThreads * kWChunks * 4;
+constexpr int kWRowRing = 64 * 1024;    // bytes of a LayerNorm block's ring of rows
+constexpr int kWRowStages = 8;          // row buffers a row group at most
 
 // The sampled mode's operands, each env's through an env stride: mean and
 // std [H*A], noise [S, H*A] and the n_pi policy-prior rows pi_acts
@@ -487,13 +504,13 @@ __global__ void __launch_bounds__(Tl::threads, Tl::min_blocks)
 enum RowMode { kRowHidden, kRowLatent, kRowReward, kRowQ0, kRowQ1, kRowPi, kRowTerm };
 
 // Cycle counters of the row kernel's block 0, thread 0, with -DTDM_CYCLES
-// (`chip_smoke.py --cycles`; otherwise nothing): [0] the whole kernel, [1]
-// waiting for a row (until its values are in registers), [2] the row's
-// statistics, [3] the activation and the stores, [4] rows.
+// (`chip_smoke.py --cycles`; otherwise nothing), summed over its rows: [0]
+// the rows, [1] waiting for a row (until its values are in registers), [2]
+// the row's statistics, [3] the activation and the stores, [4] rows.
 #ifdef TDM_CYCLES
 __device__ unsigned long long g_row_cycles[5];
-#define TDM_ROW_MARK(t, dep)           \
-  asm volatile("" ::"f"(dep));          \
+#define TDM_ROW_MARK(t, dep)  \
+  asm volatile("" ::"f"(dep)); \
   const long long t = clock64()
 #define TDM_ROW_ADD(i, t0, t1) \
   if (blockIdx.x == 0 && threadIdx.x == 0) g_row_cycles[i] += (t1) - (t0)
@@ -537,176 +554,369 @@ struct RowArgs {
   long R;           // rows in all
 };
 
-// Sum (or maximum) over the TPR threads of a row (TPR a multiple of 32),
-// in a fixed tree: the warp's lanes, then the row's warps in order.
-template <int TPR, bool kMax>
-__device__ __forceinline__ float row_all(float x, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, o);
-    x = kMax ? fmaxf(x, y) : x + y;
-  }
+// Mish as JAX _mish computes it (z = exp(min(x, 15)) + 1, then x (z^2 - 1)
+// / (z^2 + 1)), the quotient through the reciprocal's estimate (within 2
+// ulps; the denominator is in [2, 1.1e13]) where the row tiles' mish
+// (mlp_rows.cuh) rounds it exactly: a third of the instructions an element.
+__device__ __forceinline__ float mish_rcp(float x) {
+  const float z = expf(fminf(x, 15.f)) + 1.f;
+  const float z2 = z * z;
+  return __fdividef(x * (z2 - 1.f), z2 + 1.f);
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Sum over the TPR threads of a row group (a multiple of 32) in a fixed
+// tree: the warp's lanes by shuffles, then the group's warps in order
+// through red (a slot a warp), on the group's own named barrier.
+template <int TPR>
+__device__ __forceinline__ float group_sum(float x, float* red, int bar) {
+  x = warp_sum(x);
   if constexpr (TPR > 32) {
-    __syncthreads();  // the last reduction's reads are done
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
-    __syncthreads();
-    const int w0 = (threadIdx.x / TPR) * (TPR / 32);
-    x = red[w0];
+    if ((threadIdx.x & 31) == 0) red[(threadIdx.x % TPR) >> 5] = x;
+    bar_sync(bar, TPR);
+    x = red[0];
 #pragma unroll
-    for (int k = 1; k < TPR / 32; ++k) x = kMax ? fmaxf(x, red[w0 + k]) : x + red[w0 + k];
+    for (int k = 1; k < TPR / 32; ++k) x += red[k];
+  } else {
+    __syncwarp();
   }
   return x;
 }
 
+// SimNorm of four consecutive columns, groups of G: within them (G <= 4),
+// or with the lanes that hold the group's other chunks (the G / 4 lanes
+// next to this one: a thread's chunks sit TPR chunks apart, TPR a multiple
+// of 32, so a group's chunks are adjacent lanes of one warp).
+template <int G>
+__device__ __forceinline__ void simnorm4(float (&v)[4]) {
+  if constexpr (G >= 4) {
+    float m = fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
+#pragma unroll
+    for (int o = 1; o < G / 4; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float e[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) e[k] = expf(v[k] - m);
+    float se = (e[0] + e[1]) + (e[2] + e[3]);
+#pragma unroll
+    for (int o = 1; o < G / 4; o <<= 1) se += __shfl_xor_sync(0xffffffffu, se, o);
+    const float r = __frcp_rn(se);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = e[k] * r;
+  } else {
+#pragma unroll
+    for (int p = 0; p < 4; p += 2) {
+      const float m = fmaxf(v[p], v[p + 1]);
+      const float e0 = expf(v[p] - m), e1 = expf(v[p + 1] - m);
+      const float r = __frcp_rn(e0 + e1);
+      v[p] = e0 * r;
+      v[p + 1] = e1 * r;
+    }
+  }
+}
+
+// The LayerNorm modes (hidden: + Mish, latent: + SimNorm). A row group of
+// TPR threads owns a row at a time (TPR from the width alone, Wide::rows:
+// 256 at 4096 columns, 128 at 1376, 32 at 512), thread lr the float4
+// chunks lr + i TPR (i < kWChunks): the columns 4 (lr + i TPR) .. + 3. A
+// block holds kWRowThreads / TPR groups and stays for the launch: group
+// `first` takes rows first, first + groups, ... Its rows arrive by bulk
+// copies (cp.async.bulk, no tensor map: one copy a row, its split
+// product's partial rows with it) into a ring of `stages` row buffers in
+// shared memory, each counted on its full mbarrier; the group's first
+// thread issues the first `stages` copies, and refills a buffer as soon as
+// the group's first reduction shows that every thread has read it, so the
+// next rows stream in while this one's statistics, activation and stores
+// run. Gain and beta stay in registers, reloaded only where the head
+// changes (the Q heads' layers pick theirs per env).
 template <int TPR>
-__global__ void __launch_bounds__(kWRowThreads) row_kernel(const RowArgs a) {
-  constexpr int RPB = kWRowThreads / TPR;
-  __shared__ float red[kWRowThreads / 32];
-  const int lr = threadIdx.x % TPR;
-  const long row = static_cast<long>(blockIdx.x) * RPB + threadIdx.x / TPR;
-  const bool live = row < a.R;
-  const long rr = live ? row : 0;
-  const int env = static_cast<int>(rr / a.S);
-  const float* yr = a.y + rr * a.ldy;
-  const int nc = a.ncols;
-  // column c of the product: its partial rows summed in order
-  auto yat = [&](int c) {
-    float v = yr[c];
-    for (int p = 1; p < a.nsplit; ++p) v += yr[p * a.pstride + c];
-    return v;
-  };
-
-  if (a.mode == kRowPi) {
-    // columns [0, A) the mean, [A, 2A) the raw log-std
-    if (!live) return;
-    const int s = static_cast<int>(rr - static_cast<long>(env) * a.S);
-    for (int c = lr; c < a.dpad; c += TPR) {
-      float act = 0.f;
-      if (c < a.A) {
-        const float m = a.amask != nullptr ? a.amask[env * a.amn + c] : 1.f;
-        const float e = a.eps[env * a.en + s * a.es + c];
-        const float mean = __fmul_rn(yat(c), m);
-        const float ls = a.lsmin + 0.5f * a.lsdif * (tanhf(yat(a.A + c)) + 1.f);
-        act = tanhf(mean + __fmul_rn(e, m) * expf(ls));
-        if (a.fdst != nullptr) a.fdst[rr * a.ldf + c] = act;
-      }
-      a.dst[rr * a.ldd + c] = bf16_bits(act);
-    }
-    return;
+__global__ void __launch_bounds__(kWRowThreads) row_kernel(const RowArgs a, int stages,
+                                                           int floats) {
+  constexpr int RG = kWRowThreads / TPR;
+  extern __shared__ __align__(16) float row_ring[];
+  __shared__ float red[2 * kWRowThreads / 32];  // [group][mean, variance][warp]
+  const int grp = threadIdx.x / TPR, lr = threadIdx.x % TPR, w = lr >> 5;
+  const uint32_t bytes = static_cast<uint32_t>(floats) * 4;
+  const uint32_t bars0 = smem_u32(row_ring) + RG * stages * bytes;
+  const uint32_t bars = bars0 + 8 * grp * stages;
+  const uint32_t ring = smem_u32(row_ring) + grp * stages * bytes;
+  const float* gring = row_ring + static_cast<long>(grp) * stages * floats;
+  float* gred = red + grp * 2 * (TPR / 32);
+  const int bar = 1 + grp;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < RG * stages; ++i) mbar_init(bars0 + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (a.mode == kRowTerm) {
-    if (!live || lr != 0) return;
-    const float hit = yat(0) > 0.f ? 1.f : 0.f;
-    if (a.term_at != nullptr && a.term[rr] == 0.f && hit != 0.f) a.term_at[rr] = a.t + 1;
-    a.term[rr] = fminf(a.term[rr] + hit, 1.f);
-    return;
-  }
+  __syncthreads();
 
-  float v[kWVals];
-  if (a.mode == kRowHidden || a.mode == kRowLatent) {
+  const long groups = static_cast<long>(gridDim.x) * RG;
+  const long first = static_cast<long>(blockIdx.x) * RG + grp;
+  const long n = first < a.R ? (a.R - 1 - first) / groups + 1 : 0;
+  const bool producer = lr == 0;
+  if (producer)
+    for (int k = 0; k < stages && k < n; ++k)
+      bulk_copy(ring + k * bytes, a.y + (first + k * groups) * a.ldy, bytes, bars + 8 * k);
+
+  const int nc = a.ncols, nch = (nc + 3) >> 2, dch = a.dpad >> 2;
+  const bool fvec = a.fdst != nullptr && (a.ldf & 3) == 0 &&
+                    (reinterpret_cast<uintptr_t>(a.fdst) & 15) == 0;
+  float gw[kWChunks][4], bw[kWChunks][4];
+  int cur = -1;
+  for (long k = 0; k < n; ++k) {
     TDM_ROW_MARK(c0, 0.f);
+    const int s = static_cast<int>(k % stages);
+    const long row = first + k * groups;
+    const int env = static_cast<int>(row / a.S);
     const int h = a.head == nullptr ? 0 : min(max(a.head[env * a.hn], 0), a.nhead - 1);
-    const float* gn = a.gain + h * a.gh;
-    const float* bt = a.beta + h * a.gh;
-    // the row, its partial rows summed where K was split; the branch is
-    // taken once, so that an unsplit row's loads issue back to back (read
-    // through yat, LayerNorm + Mish took 1.4x as long at 4,096 rows)
-    if (a.nsplit == 1) {
+    if (h != cur) {
+      const float* gn = a.gain + h * a.gh;
+      const float* bt = a.beta + h * a.gh;
 #pragma unroll
-      for (int i = 0; i < kWVals; ++i) {
-        const int c = lr + i * TPR;
-        v[i] = live && c < nc ? yr[c] : 0.f;
+      for (int i = 0; i < kWChunks; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 4 * (lr + i * TPR) + e;
+          gw[i][e] = c < nc ? __ldg(gn + c) : 0.f;
+          bw[i][e] = c < nc ? __ldg(bt + c) : 0.f;
+        }
       }
-    } else {
+      cur = h;
+    }
+    ring_wait(bars + 8 * s, static_cast<uint32_t>((k / stages) & 1));
+    const float* st = gring + s * floats;
+    // the row, its partial rows summed in order where K was split
+    float v[kWChunks][4];
+    float sum = 0.f;
 #pragma unroll
-      for (int i = 0; i < kWVals; ++i) {
-        const int c = lr + i * TPR;
-        v[i] = live && c < nc ? yat(c) : 0.f;
+    for (int i = 0; i < kWChunks; ++i) {
+      const int j = lr + i * TPR;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (j < nch) {
+        x = *reinterpret_cast<const float4*>(st + 4 * j);
+#pragma unroll
+        for (int p = 1; p < kWMaxSplits; ++p) {
+          if (p < a.nsplit) {
+            const float4 u = *reinterpret_cast<const float4*>(st + p * a.pstride + 4 * j);
+            x.x += u.x;
+            x.y += u.y;
+            x.z += u.z;
+            x.w += u.w;
+          }
+        }
+      }
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[i][e] = 4 * j + e < nc ? xs[e] : 0.f;
+        sum += v[i][e];
       }
     }
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < kWVals; ++i) s += v[i];
-    TDM_ROW_MARK(c1, s);
-    const float mu = row_all<TPR, false>(s, red) / nc;
-    s = 0.f;
-#pragma unroll
-    for (int i = 0; i < kWVals; ++i) {
-      const float dv = v[i] - mu;
-      s += lr + i * TPR < nc ? dv * dv : 0.f;
+    TDM_ROW_MARK(c1, sum);
+    const float mu = group_sum<TPR>(sum, gred, bar) / nc;
+    // every thread of the group has read buffer s: it takes the row `stages` on
+    if (producer && k + stages < n) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bulk_copy(ring + s * bytes, a.y + (row + stages * groups) * a.ldy, bytes, bars + 8 * s);
     }
-    const float rstd = rsqrtf(row_all<TPR, false>(s, red) / nc + 1e-5f);
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWChunks; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float d = v[i][e] - mu;
+        ss += 4 * (lr + i * TPR) + e < nc ? d * d : 0.f;
+      }
+    }
+    const float rstd = rsqrtf(group_sum<TPR>(ss, gred + TPR / 32, bar) / nc + 1e-5f);
     TDM_ROW_MARK(c2, rstd);
 #pragma unroll
-    for (int i = 0; i < kWVals; ++i) {
-      const int c = lr + i * TPR;
-      const bool ok = c < nc;
-      float y = (v[i] - mu) * rstd * (ok ? __ldg(gn + c) : 0.f) + (ok ? __ldg(bt + c) : 0.f);
-      if (a.mode == kRowHidden) y = mish(y);
-      v[i] = ok ? y : 0.f;
-    }
-    if (a.mode == kRowLatent) {
-      // SimNorm over groups of G consecutive columns: G consecutive lanes
-      // of one warp (TPR is a multiple of 32), groups never straddle nc
+    for (int i = 0; i < kWChunks; ++i) {
+      if (i * TPR + 32 * w >= dch) continue;  // the warp holds none of dst's columns
+      const int j = lr + i * TPR;
 #pragma unroll
-      for (int i = 0; i < kWVals; ++i) {
-        float m = v[i];
-        for (int o = 1; o < a.group; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-        const float e = expf(v[i] - m);
-        float se = e;
-        for (int o = 1; o < a.group; o <<= 1) se += __shfl_xor_sync(0xffffffffu, se, o);
-        v[i] = lr + i * TPR < nc ? e / se : 0.f;
+      for (int e = 0; e < 4; ++e) {
+        float y = (v[i][e] - mu) * rstd * gw[i][e] + bw[i][e];
+        if (a.mode == kRowHidden) y = mish_rcp(y);
+        v[i][e] = 4 * j + e < nc ? y : 0.f;
+      }
+      if (a.mode == kRowLatent) {
+        switch (a.group) {
+          case 2: simnorm4<2>(v[i]); break;
+          case 4: simnorm4<4>(v[i]); break;
+          case 16: simnorm4<16>(v[i]); break;
+          default: simnorm4<8>(v[i]); break;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[i][e] = 4 * j + e < nc ? v[i][e] : 0.f;
+      }
+      if (j < dch)
+        *reinterpret_cast<uint2*>(a.dst + row * a.ldd + 4 * j) =
+            make_uint2(bf16x2_bits(v[i][0], v[i][1]), bf16x2_bits(v[i][2], v[i][3]));
+      if (a.fdst != nullptr && j < nch) {
+        float* f = a.fdst + row * a.ldf + 4 * j;
+        if (fvec && 4 * j + 3 < nc) {
+          *reinterpret_cast<float4*>(f) = make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (4 * j + e < nc) f[e] = v[i][e];
+        }
       }
     }
-    if (!live) return;
-#pragma unroll
-    for (int i = 0; i < kWVals; ++i) {
-      const int c = lr + i * TPR;
-      if (c < a.dpad) a.dst[rr * a.ldd + c] = bf16_bits(v[i]);
-      if (a.fdst != nullptr && c < nc) a.fdst[rr * a.ldf + c] = v[i];
-    }
-    TDM_ROW_MARK(c3, v[0]);
+    TDM_ROW_MARK(c3, v[0][0]);
     TDM_ROW_ADD(0, c0, c3);
     TDM_ROW_ADD(1, c0, c1);
     TDM_ROW_ADD(2, c1, c2);
     TDM_ROW_ADD(3, c2, c3);
     TDM_ROW_ADD(4, 0, 1);
-    return;
   }
+}
 
-  // two-hot decode: symexp(softmax(logits) . bins)
-  const float ninf = __int_as_float(0xff800000);
-  float mx = ninf;
+// The narrow modes: the two-hot decode (reward, Q0, Q1), the policy's
+// action, the termination gate, each a product's one column tile split over
+// K into up to 8 partial rows. LPR lanes a row (from the width alone), 32
+// / LPR rows a warp; the warps stay for the launch and walk the rows. Each
+// lane sums its columns' partial rows in order with 16-byte loads straight
+// from device memory (two-hot; the policy's and the gate's columns one at a
+// time), all of a row's loads issued together: a row is a few hundred
+// bytes, and the many resident warps keep enough of them in flight without
+// a ring.
+template <int LPR>
+__global__ void __launch_bounds__(kWRowThreads) row_narrow_kernel(const RowArgs a) {
+  constexpr int kKeep = 2;   // chunks of a two-hot row a lane keeps in registers
+  constexpr int RPW = 32 / LPR;
+  const int lane = threadIdx.x & 31, l = lane % LPR;
+  const long warps = static_cast<long>(gridDim.x) * (kWRowThreads / 32);
+  const long warp = static_cast<long>(blockIdx.x) * (kWRowThreads / 32) + (threadIdx.x >> 5);
+  const int nc = a.ncols, nch = (nc + 3) >> 2;
+  const long ps = a.pstride;
+  const bool two_hot = a.mode == kRowReward || a.mode == kRowQ0 || a.mode == kRowQ1;
+  float bn[kKeep][4];
 #pragma unroll
-  for (int i = 0; i < kWVals; ++i) {
-    const int c = lr + i * TPR;
-    v[i] = live && c < nc ? yat(c) : ninf;
-    mx = fmaxf(mx, v[i]);
-  }
-  mx = row_all<TPR, true>(mx, red);
-  float se = 0.f, sb = 0.f;
+  for (int i = 0; i < kKeep; ++i)
 #pragma unroll
-  for (int i = 0; i < kWVals; ++i) {
-    const int c = lr + i * TPR;
-    if (c < nc) {
-      const float ex = expf(v[i] - mx);
-      se += ex;
-      sb += ex * __ldg(a.bins + c);
+    for (int e = 0; e < 4; ++e) {
+      const int c = 4 * (l + i * LPR) + e;
+      bn[i][e] = two_hot && c < nc ? __ldg(a.bins + c) : 0.f;
     }
-  }
-  se = row_all<TPR, false>(se, red);
-  sb = row_all<TPR, false>(sb, red);
-  if (!live || lr != 0) return;
-  const float x = sb / se;
-  const float r = copysignf(expm1f(fabsf(x)), x);
-  const float term = a.term != nullptr ? a.term[rr] : 0.f;
-  if (a.mode == kRowReward) {
-    a.G[rr] += a.discs[env * a.dn + a.t] * ((1.f - term) * r);
-  } else if (a.mode == kRowQ0) {
-    a.q[rr] = 0.f + r;
-  } else {
-    const float qs = a.q[rr] + r;
-    a.out[rr] = a.G[rr] + a.discs[env * a.dn + a.t] * ((1.f - term) * (qs / 2.f));
+  const float ninf = __int_as_float(0xff800000);
+  for (long base = warp * RPW; base < a.R; base += warps * RPW) {
+    const long row = base + lane / LPR;
+    const bool live = row < a.R;
+    const long rr = live ? row : a.R - 1;   // a slot past the last row stores nothing
+    const int env = static_cast<int>(rr / a.S);
+    const float* yr = a.y + rr * a.ldy;
+    // column c of the product: its partial rows summed in order
+    auto yat = [&](int c) {
+      float v = yr[c];
+#pragma unroll
+      for (int p = 1; p < kWMaxSplits; ++p)
+        if (p < a.nsplit) v += yr[p * ps + c];
+      return v;
+    };
+    auto chunk = [&](int j) {
+      float4 x = __ldg(reinterpret_cast<const float4*>(yr + 4 * j));
+#pragma unroll
+      for (int p = 1; p < kWMaxSplits; ++p) {
+        if (p < a.nsplit) {
+          const float4 u = __ldg(reinterpret_cast<const float4*>(yr + p * ps + 4 * j));
+          x.x += u.x;
+          x.y += u.y;
+          x.z += u.z;
+          x.w += u.w;
+        }
+      }
+      return x;
+    };
+
+    if (a.mode == kRowTerm) {
+      if (live && l == 0) {
+        const float hit = yat(0) > 0.f ? 1.f : 0.f;
+        if (a.term_at != nullptr && a.term[rr] == 0.f && hit != 0.f) a.term_at[rr] = a.t + 1;
+        a.term[rr] = fminf(a.term[rr] + hit, 1.f);
+      }
+      continue;
+    }
+    if (a.mode == kRowPi) {
+      // columns [0, A) the mean, [A, 2A) the raw log-std
+      const int s = static_cast<int>(rr - static_cast<long>(env) * a.S);
+      for (int c = l; c < a.dpad; c += LPR) {
+        float act = 0.f;
+        if (c < a.A) {
+          const float m = a.amask != nullptr ? a.amask[env * a.amn + c] : 1.f;
+          const float e = a.eps[env * a.en + s * a.es + c];
+          const float mean = __fmul_rn(yat(c), m);
+          const float ls = a.lsmin + 0.5f * a.lsdif * (tanhf(yat(a.A + c)) + 1.f);
+          act = tanhf(mean + __fmul_rn(e, m) * expf(ls));
+          if (live && a.fdst != nullptr) a.fdst[rr * a.ldf + c] = act;
+        }
+        if (live) a.dst[rr * a.ldd + c] = bf16_bits(act);
+      }
+      continue;
+    }
+
+    // two-hot decode: symexp(softmax(logits) . bins); a lane keeps kKeep
+    // chunks, and reads again any past them (above 8 LPR bins)
+    float v[kKeep][4];
+    float mx = ninf;
+#pragma unroll
+    for (int i = 0; i < kKeep; ++i) {
+      const int j = l + i * LPR;
+      const float4 x = j < nch ? chunk(j) : make_float4(ninf, ninf, ninf, ninf);
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[i][e] = 4 * j + e < nc ? xs[e] : ninf;
+        mx = fmaxf(mx, v[i][e]);
+      }
+    }
+    for (int j = l + kKeep * LPR; j < nch; j += LPR) {
+      const float4 x = chunk(j);
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+      for (int e = 0; e < 4; ++e)
+        if (4 * j + e < nc) mx = fmaxf(mx, xs[e]);
+    }
+#pragma unroll
+    for (int o = LPR / 2; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float se = 0.f, sb = 0.f;
+#pragma unroll
+    for (int i = 0; i < kKeep; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (4 * (l + i * LPR) + e < nc) {
+          const float ex = expf(v[i][e] - mx);
+          se += ex;
+          sb += ex * bn[i][e];
+        }
+    for (int j = l + kKeep * LPR; j < nch; j += LPR) {
+      const float4 x = chunk(j);
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+      for (int e = 0; e < 4; ++e)
+        if (4 * j + e < nc) {
+          const float ex = expf(xs[e] - mx);
+          se += ex;
+          sb += ex * __ldg(a.bins + 4 * j + e);
+        }
+    }
+#pragma unroll
+    for (int o = LPR / 2; o > 0; o >>= 1) {
+      se += __shfl_xor_sync(0xffffffffu, se, o);
+      sb += __shfl_xor_sync(0xffffffffu, sb, o);
+    }
+    if (!live || l != 0) continue;
+    const float x = sb / se;
+    const float r = copysignf(expm1f(fabsf(x)), x);
+    const float term = a.term != nullptr ? a.term[rr] : 0.f;
+    if (a.mode == kRowReward) {
+      a.G[rr] += a.discs[env * a.dn + a.t] * ((1.f - term) * r);
+    } else if (a.mode == kRowQ0) {
+      a.q[rr] = 0.f + r;
+    } else {
+      const float qs = a.q[rr] + r;
+      a.out[rr] = a.G[rr] + a.discs[env * a.dn + a.t] * ((1.f - term) * (qs / 2.f));
+    }
   }
 }
 
@@ -876,6 +1086,38 @@ cudaError_t prepare_gemm(int* resident = nullptr) {
   return regs >= Tl::launch_regs ? cudaSuccess : cudaErrorLaunchOutOfResources;
 }
 
+// Before a row kernel's launch with `smem` bytes of dynamic shared memory:
+// the memory opted into, and the blocks the card holds at once (blocks an
+// SM x SMs, the persistent grid's most), asked once per (kernel, bytes,
+// device) and kept.
+template <class K>
+cudaError_t prepare_rows(K* kernel, int smem, int* resident) {
+  struct Entry {
+    const void* kernel;
+    int dev, smem, blocks;
+  };
+  static Entry table[64];
+  static int used = 0;
+  cudaError_t e = smem > 0 ? opt_in_smem(kernel, smem) : cudaSuccess;
+  int dev = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const void* k = reinterpret_cast<const void*>(kernel);
+  for (int i = 0; i < used; ++i)
+    if (table[i].kernel == k && table[i].dev == dev && table[i].smem == smem) {
+      *resident = table[i].blocks;
+      return cudaSuccess;
+    }
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWRowThreads, smem);
+  if (e != cudaSuccess) return e;
+  *resident = sms * per_sm;
+  if (used < 64) table[used++] = Entry{k, dev, smem, *resident};
+  return *resident > 0 ? cudaSuccess : cudaErrorLaunchOutOfResources;
+}
+
 // The launch plan of one product (tests/wide_mirror.py gemm_plan mirrors
 // it): the tile, the K splits, the tiles' grid and the blocks launched.
 struct GemmPlan {
@@ -991,6 +1233,11 @@ struct Wide {
     check_launch();
   }
 
+  // The row kernel after a product (tests/wide_mirror.py row_plan mirrors
+  // its plan): the LayerNorm modes on row groups of TPR threads, 32 to 256
+  // from the width, with a ring of row buffers a group (as many as
+  // kWRowRing holds, 1 to kWRowStages); the narrow modes on LPR lanes a
+  // row. Persistent: as many blocks as the card holds, or as the rows need.
   void rows(RowArgs a) {
     if (err) return;
     a.y = sc.y;
@@ -999,19 +1246,59 @@ struct Wide {
     a.pstride = last.pstride;
     a.S = S;
     a.R = R;
-    int tpr = 32;
-    if (a.mode != kRowPi && a.mode != kRowTerm)
-      while (tpr < kWRowThreads && a.ncols > tpr * kWVals) tpr *= 2;
-    const long rpb = kWRowThreads / tpr;
-    const unsigned blocks = static_cast<unsigned>((R + rpb - 1) / rpb);
-    const int plan[6] = {tpr, static_cast<int>(rpb), 0, 0, static_cast<int>(blocks), 0};
-    for (int i = 0; i < 6; ++i) row_plan[i] = plan[i];
-    switch (tpr) {
-      case 32: row_kernel<32><<<blocks, kWRowThreads, 0, stream>>>(a); break;
-      case 64: row_kernel<64><<<blocks, kWRowThreads, 0, stream>>>(a); break;
-      case 128: row_kernel<128><<<blocks, kWRowThreads, 0, stream>>>(a); break;
-      default: row_kernel<256><<<blocks, kWRowThreads, 0, stream>>>(a); break;
+    if (a.mode == kRowHidden || a.mode == kRowLatent) {
+      int tpr = 32;
+      while (tpr < kWRowThreads && a.ncols > tpr * kWChunks * 4) tpr *= 2;
+      const int rg = kWRowThreads / tpr;
+      const int floats = (a.nsplit - 1) * a.pstride + ((a.ncols + 3) & ~3);
+      int stages = kWRowRing / (rg * floats * 4);
+      stages = stages < 1 ? 1 : (stages > kWRowStages ? kWRowStages : stages);
+      const long smem = static_cast<long>(rg) * stages * (floats * 4 + 8);
+      if (smem > kSmemMax) {   // a row and its partial rows too wide to stage
+        err = static_cast<int>(cudaErrorInvalidValue);
+        return;
+      }
+      const int sm = static_cast<int>(smem);
+      switch (tpr) {
+        case 32: launch_rows(row_kernel<32>, 32, rg, stages, sm, a, stages, floats); break;
+        case 64: launch_rows(row_kernel<64>, 64, rg, stages, sm, a, stages, floats); break;
+        case 128: launch_rows(row_kernel<128>, 128, rg, stages, sm, a, stages, floats); break;
+        default: launch_rows(row_kernel<256>, 256, rg, stages, sm, a, stages, floats); break;
+      }
+      return;
     }
+    int lpr = 1;   // the gate: a lane a row
+    if (a.mode == kRowPi) {
+      while (lpr < 32 && lpr < a.A) lpr *= 2;
+    } else if (a.mode != kRowTerm) {
+      const int nch = (a.ncols + 3) / 4;
+      while (lpr < 32 && 2 * lpr < nch) lpr *= 2;   // two chunks a lane
+    }
+    const int rg = kWRowThreads / lpr;
+    switch (lpr) {
+      case 1: launch_rows(row_narrow_kernel<1>, 1, rg, 0, 0, a); break;
+      case 2: launch_rows(row_narrow_kernel<2>, 2, rg, 0, 0, a); break;
+      case 4: launch_rows(row_narrow_kernel<4>, 4, rg, 0, 0, a); break;
+      case 8: launch_rows(row_narrow_kernel<8>, 8, rg, 0, 0, a); break;
+      case 16: launch_rows(row_narrow_kernel<16>, 16, rg, 0, 0, a); break;
+      default: launch_rows(row_narrow_kernel<32>, 32, rg, 0, 0, a); break;
+    }
+  }
+
+  // One row kernel: `rg` rows a block at once, persistent blocks.
+  template <class K, class... Args>
+  void launch_rows(K* kernel, int tpr, int rg, int stages, int smem, Args... args) {
+    int resident = 0;
+    const cudaError_t e = prepare_rows(kernel, smem, &resident);
+    const long want = (R + rg - 1) / rg;
+    const int blocks = static_cast<int>(want < resident ? (want > 0 ? want : 1) : resident);
+    const int plan[6] = {tpr, rg, stages, smem, blocks, resident};
+    for (int i = 0; i < 6; ++i) row_plan[i] = plan[i];
+    if (e != cudaSuccess) {
+      err = static_cast<int>(e);
+      return;
+    }
+    kernel<<<blocks, kWRowThreads, smem, stream>>>(args...);
     ++rowk;
     check_launch();
   }

@@ -116,6 +116,7 @@ extern "C" int tdm_wide_rows(const int* dims, int mode, int N, int S, const floa
   sc.ldy = ldy;
   Wide wd(none, dims, N, S, nullptr, 1, sc, static_cast<cudaStream_t>(stream));
   if (!wide_fits(wd.d) || mode < kRowHidden || mode > kRowTerm) return kNoPlan;
+  if (nsplit < 1 || nsplit > kWMaxSplits || (n[4] & 3) != 0) return cudaErrorInvalidValue;
   const int widths[7] = {wd.d.M, wd.d.L, wd.d.B, wd.d.B, wd.d.B, 2 * wd.d.A, 1};
   RowArgs a = wd.row_args(mode, widths[mode]);
   auto f = [&](int i) { return static_cast<float*>(const_cast<void*>(p[i])); };

@@ -43,7 +43,14 @@ value step is 13 launches a horizon step (19 with the termination gate) +
 a pi rollout 12 H - 5, 6 H - 3 products and as many row kernels, one
 staging; a rollout 13 H, 6 H products and row kernels, H stagings. `gemm`
 launches one product on given operands (the library's `tdm_wide_gemm`),
-for checks and timings; no path calls it.
+and `rows` one row kernel (`tdm_wide_rows`; its plain version
+`rows_plain`), for checks and timings; no path calls them.
+
+The row kernel (csrc/mlp_wide.cuh row_kernel, row_narrow_kernel): the
+LayerNorm modes stream a row group's rows by bulk copies into a ring of
+row buffers in shared memory, persistent blocks walking the rows; the
+narrow modes pack several rows a warp. Each row's arithmetic follows from
+the width alone (tests/wide_mirror.py row_plan, row_owners).
 """
 
 from __future__ import annotations
@@ -345,8 +352,8 @@ def rows(mode, y, dims, S: int, *, nsplit: int = 1, pstride: int = 0, gain=None,
     ncols = row_width(mode, dims)
     R = y.shape[0]
     aligned = (y.dtype == torch.float32 and y.stride(1) == 1 and y.stride(0) % 4 == 0
-               and y.data_ptr() % 16 == 0 and R % S == 0
-               and (nsplit == 1 or pstride % 4 == 0)
+               and y.data_ptr() % 16 == 0 and R % S == 0 and dpad % 4 == 0
+               and 1 <= nsplit <= 8 and (nsplit == 1 or pstride % 4 == 0)
                and (nsplit - 1) * pstride + -(-ncols // 4) * 4 <= y.stride(0))
     if dst is not None:
         aligned &= (dst.dtype == torch.bfloat16 and dst.stride(1) == 1

@@ -33,7 +33,11 @@ a card prep holds; and the wide engine's product alone (wgmma on a TMA
 ring) at each distinct product of the 317M model at 512 and 4,096 rows
 against the plain product, within 1e-4 of |x| @ |W|, its plan the
 mirror's, each env's rows of an N=8 launch bit for bit a one-env
-launch's. The elite kernel is held at its edges (S = 77,
+launch's; and its row kernel alone (tdm_wide_rows) in every mode at 512,
+1,920 and 4,096 rows of the 317M model's widths, and a LayerNorm row of
+8 partial rows, against ops/wide.py rows_plain: bf16 outputs within one
+bf16 step, f32 outputs at 1e-4, its plan the mirror's, N=8 bit for bit
+one-env launches. The elite kernel is held at its edges (S = 77,
 2048 and 28,000, HA = 114, E = 1 and E = S, ties across the boundary, all
 tied, NaN, inf and +-3e38), its N=8 launch against 8 one-env launches bit
 for bit, and the canary at n = 1, 3, 1027 and at a storage offset. The
@@ -54,6 +58,7 @@ ml_dtypes), at one env on recorded observations: the planner's kernels
 against their plain versions and the plan's graph against its eager body,
 and one update from the full hopper-hop train state against the CPU's."""
 
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -75,6 +80,9 @@ from tdmpc2_tpu_torch.tdmpc2 import PLAN_WRAPPERS, TDMPC2, UpdateNoise
 from tdmpc2_tpu_torch.utils import tree
 from tdmpc2_tpu_torch.utils.cuda_graph import Graph
 import wide_mirror as wm  # tests/ is on pytest's path; a `tests` package may be installed
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402  (its row-kernel operands and checks; imports no jax)
 
 pytestmark = pytest.mark.cuda
 
@@ -999,6 +1007,77 @@ def test_wide_product_matches_plain_at_317_shapes(agent, K, N, kind, n):
                           head=None if kw['head'] is None else kw['head'][e:e + 1])
             y1, _ = wide.gemm(x[sl], w, b, _317_DIMS, S, **one_kw)
             assert torch.equal(wide.gemm_sum(y1, plan, N), got[sl])
+
+
+# ------------------------------------------------ the wide engine's row kernel
+
+
+@pytest.mark.parametrize('R,S', [(512, 512), (1920, 24), (4096, 512)])
+@pytest.mark.parametrize('label,mode,heads', chip_smoke.ROW_CASES)
+def test_wide_rows_match_plain_at_317_widths(agent, label, mode, heads, R, S):
+    """The row kernel alone (ops/wide.py rows, the library's tdm_wide_rows)
+    at the 317M model's widths on the rows of one env, the pi rollout's N=80
+    x 24 and N=8 (chip_smoke.row_operands: the narrow outputs as 8 partial
+    rows of a split product, the Q heads' LayerNorm with a head per env,
+    NaN wherever the kernel must not read or write) against rows_plain on
+    the same rows: bf16 outputs within one bf16 step, |d| <= 2^-7 |plain| +
+    1e-6 (the f32 order ahead of the rounding), f32 outputs (the latent's
+    f32 rows, G, q, the value, the actions) at 1e-4, the gate's flags
+    exactly (chip_smoke.hold_rows); one launch counted; its plan the
+    mirror's (tests/wide_mirror.py row_plan), on no more blocks than the
+    card holds; at N=8 each env's rows bit for bit its one-env launch's."""
+    g = torch.Generator(device='cuda').manual_seed(R + 7 * len(label))
+    kw, per_row, per_env = chip_smoke.row_operands(mode, R, S, g, heads,
+                                                   fdst=mode == 'latent')
+    got = chip_smoke.row_clone(kw, per_row, per_env)
+    want = chip_smoke.row_clone(kw, per_row, per_env)
+    n0 = wide.rows.launches
+    plan = wide.rows(mode, got.pop('y'), _317_DIMS, S, **got)
+    assert wide.rows.launches == n0 + 1
+    wide.rows_plain(mode, want.pop('y'), _317_DIMS, S, **want)
+    chip_smoke.hold_rows(label, mode, chip_smoke.row_outputs(mode, got),
+                         chip_smoke.row_outputs(mode, want), kw.get('dpad', 0))
+    mirror = wm.row_plan(mode, wide.row_width(mode, _317_DIMS), kw['nsplit'], kw['pstride'],
+                         A=_317_DIMS[2])
+    assert {k: plan[k] for k in mirror} == mirror
+    assert 1 <= plan['blocks'] <= plan['resident']
+    if R // S == 8:
+        for e in (0, 5):
+            one = chip_smoke.row_clone(kw, per_row, per_env, e, S)
+            wide.rows(mode, one.pop('y'), _317_DIMS, S, **one)
+            for k, x in chip_smoke.row_outputs(mode, one).items():
+                y = got[k][e * S:(e + 1) * S]
+                if x.dtype == torch.bfloat16:
+                    x, y = x.view(torch.int16), y.view(torch.int16)
+                assert torch.equal(x, y), (e, k)
+
+
+@pytest.mark.parametrize('mode,dims', [('latent', (128, 1024, 3, 101, 2, 8, 3)),
+                                       ('hidden', (64, 128, 3, 101, 2, 8, 3))])
+def test_wide_rows_layernorm_sums_8_partial_rows(agent, mode, dims):
+    """A LayerNorm row of one column tile whose product splits K into 8
+    partial rows (128 columns, 128 apart; 3 envs of 77 rows): the ring
+    stages the row with its partial rows in one copy, and the row kernel
+    sums them in order as rows_plain does: bf16 within one step, f32 at
+    1e-4; its plan the mirror's."""
+    dev, S, N = torch.device('cuda'), 77, 3
+    R, ncols = N * S, wide.row_width(mode, dims)
+    g = torch.Generator(device=dev).manual_seed(ncols)
+    y = torch.full((R, 8 * ncols + 16), float('nan'), device=dev)
+    for p in range(8):
+        y[:, p * ncols:(p + 1) * ncols] = torch.randn(R, ncols, device=dev, generator=g) / 2
+    kw = dict(nsplit=8, pstride=ncols, gain=1 + 0.2 * torch.randn(ncols, device=dev, generator=g),
+              beta=0.2 * torch.randn(ncols, device=dev, generator=g), dpad=ncols)
+    outs = []
+    for _ in range(2):
+        o = dict(dst=torch.full((R, ncols + 16), float('nan'), device=dev, dtype=torch.bfloat16),
+                 fdst=torch.full((R, ncols), float('nan'), device=dev))
+        outs.append(o)
+    plan = wide.rows(mode, y, dims, S, **kw, **outs[0])
+    wide.rows_plain(mode, y, dims, S, **kw, **outs[1])
+    chip_smoke.hold_rows(f'{mode}, 8 partial rows', mode, outs[0], outs[1], ncols)
+    mirror = wm.row_plan(mode, ncols, 8, ncols)
+    assert {k: plan[k] for k in mirror} == mirror
 
 
 # ------------------------------------------------------- the plan's graph

@@ -17,6 +17,14 @@ the kernels:
   the widths the wide engine serves) against the JAX package's, the Pallas
   value kernel run interpreted with f32 dots, on the same noise;
 - the wide engine's launches a call and a plan;
+- the row kernel's plain version (ops/wide.py `rows_plain`, what the
+  kernel is held to on the card) in each mode against the JAX package's
+  row functions (`_ln`, `_mish`, `layers.simnorm`, `math.two_hot_inv`,
+  `math.log_std`) with a split product's partial rows summed in order, and
+  composed into the port's plain value step's reward, dynamics and policy
+  heads at the 317M model's widths; the row kernel's layout
+  (tests/wide_mirror.py `row_plan`, `row_owners`): each column of a row
+  owned once, its owner following from the width alone;
 - mt80 at model_size 317: the Meta-World dims of chip_smoke's literals
   against the JAX adapter's, and the offline buffer that the port's
   trainer loads from chunks of that geometry against the JAX trainer's, at
@@ -38,7 +46,7 @@ from tdmpc2_tpu.data.buffer import draw_slice_indices as jdraw
 from tdmpc2_tpu.envs import make_env as jmake_env
 from tdmpc2_tpu.models import layers as jl
 from tdmpc2_tpu.ops import math as jmath
-from tdmpc2_tpu.ops.pallas_rollout import (prepare_value_params as jprepare,
+from tdmpc2_tpu.ops.pallas_rollout import (_ln, _mish, prepare_value_params as jprepare,
                                            value_prepared)
 from tdmpc2_tpu.tdmpc2 import TDMPC2 as JTDMPC2
 from tdmpc2_tpu.trainer.offline import OfflineTrainer as JOfflineTrainer
@@ -448,6 +456,229 @@ def test_plain_pi_rollout_above_2048_matches_jax(wide_agents):
                 np.testing.assert_allclose(zs[t, e].numpy(), np.asarray(zc), **VTOL)
         np.testing.assert_allclose(got[e].numpy(), np.asarray(jnp.concatenate(steps, -1)),
                                    **VTOL)
+
+
+# ------------------------------------------------------------ the row kernel
+
+# small widths (L, M, A, B, num_q, simnorm_dim, H), and the 317M model's
+# latent of 1376 columns
+_ROW_SMALL = (24, 40, 3, 11, 4, 8, 3)
+_ROW_1376 = (1376, 64, 6, 101, 8, 8, 3)
+
+
+def _row_inputs(mode, dims, seed, nsplit):
+    """numpy-seeded operands of one row launch on N = 2 envs of S = 3 rows:
+    y with `nsplit` partial rows (up16 columns apart) and NaN where the row
+    kernel reads nothing, and the mode's inputs and outputs."""
+    L, M, A, B, NQ, G, H = dims
+    N, S = 2, 3
+    R, ncols = N * S, wide.row_width(mode, dims)
+    ps = _up16(ncols)
+    rng = np.random.default_rng(seed)
+    y = np.full((R, nsplit * ps + 16), np.nan, np.float32)
+    for p in range(nsplit):
+        y[:, p * ps:p * ps + ncols] = rng.normal(size=(R, ncols)) * 1.5 / nsplit
+    kw = dict(nsplit=nsplit, pstride=ps if nsplit > 1 else 0)
+    if mode in ('hidden', 'latent'):
+        kw.update(gain=1 + 0.2 * rng.normal(size=(NQ, ncols)), beta=0.2 * rng.normal(
+            size=(NQ, ncols)), head=np.array([3, 1], np.int32), dpad=_up16(ncols))
+    elif mode == 'pi':
+        kw.update(eps=rng.normal(size=(N, S, A)), amask=np.array([[1] * A, [1] * (A - 1) + [0]]),
+                  dpad=_up16(A), log_std_min=-10.0, log_std_dif=12.0)
+    elif mode == 'term':
+        kw.update(term=(rng.random(R) < 0.3) * 1.0, t=1)
+    else:
+        kw.update(G=rng.normal(size=R), q=rng.normal(size=R), term=(rng.random(R) < 0.3) * 1.0,
+                  discs=rng.random((N, H + 1)), t=1 if mode == 'reward' else H)
+    cast = {k: (v.astype(np.int32) if k in ('head', 'term_at') else v.astype(np.float32))
+            if isinstance(v, np.ndarray) else v for k, v in kw.items()}
+    return y, cast, N, S
+
+
+@pytest.mark.parametrize('mode,dims', [(m, _ROW_SMALL) for m in wide.ROW_MODES]
+                         + [('latent', _ROW_1376)])
+def test_rows_plain_matches_jax_row_functions(mode, dims):
+    """ops/wide.py rows_plain, the function the row kernel is held to on the
+    card, on numpy-seeded rows (the narrow outputs' as 3 partial rows of a
+    split product, the small LayerNorm rows as 2, each env its own head of
+    the gain and beta), against the JAX package's own row functions on the
+    partial rows summed in order, at 1e-4: LayerNorm then Mish (`_ln`,
+    `_mish`, pallas_rollout.py:36-48) or SimNorm (`layers.simnorm`), the
+    two-hot decode (`math.two_hot_inv`) into G, q or the value, the policy's
+    action (`math.log_std`) and the termination gate. bf16 rows are the f32
+    rows rounded, zeros to dpad; `rows` takes the same function on the
+    CPU."""
+    L, M, A, B, NQ, G, H = dims
+    narrow = mode not in ('hidden', 'latent')
+    y, kw, N, S = _row_inputs(mode, dims, wide.ROW_MODES.index(mode) + dims[0],
+                              3 if narrow else (2 if dims is _ROW_SMALL else 1))
+    R, ncols = N * S, wide.row_width(mode, dims)
+    ps = kw['pstride']
+    ys = y[:, :ncols].copy()
+    for p in range(1, kw['nsplit']):
+        ys += y[:, p * ps:p * ps + ncols]
+    env = np.arange(R) // S
+    vmin, vmax = -10.0, 10.0
+    bins = np.array(jnp.linspace(vmin, vmax, B, dtype=jnp.float32))
+    t = {k: torch.from_numpy(v.copy()) if isinstance(v, np.ndarray) else v
+         for k, v in kw.items()}
+    if mode in ('hidden', 'latent', 'pi'):
+        width = _up16(ncols) if mode != 'pi' else _up16(A)
+        t['dst'] = torch.full((R, width + 16), float('nan'), dtype=torch.bfloat16)
+        t['fdst'] = torch.full((R, ncols if mode != 'pi' else A), float('nan'))
+    elif mode == 'term':
+        t['term_at'] = torch.zeros(R, dtype=torch.int32)
+    else:
+        t['bins'], t['out'] = torch.from_numpy(bins), torch.full((R,), float('nan'))
+    state = {k: v.clone() for k, v in t.items() if k in ('G', 'q', 'term')}
+    assert wide.rows(mode, torch.from_numpy(y), dims, S, **t) is None   # rows_plain on the CPU
+    if mode in ('hidden', 'latent'):
+        g, b = kw['gain'][kw['head'][env]], kw['beta'][kw['head'][env]]
+        u = _ln(jnp.asarray(ys), g, b)
+        ref = _mish(u) if mode == 'hidden' else jl.simnorm(u, G)
+        got = t['fdst']
+    elif mode == 'pi':
+        m = kw['amask'][env]
+        ls = jmath.log_std(jnp.asarray(ys[:, A:]), kw['log_std_min'], kw['log_std_dif'])
+        ref = jnp.tanh(ys[:, :A] * m + (kw['eps'][env, np.arange(R) % S] * m) * jnp.exp(ls))
+        got = t['fdst']
+    elif mode == 'term':
+        hit, term0 = (ys[:, 0] > 0) * 1.0, state['term'].numpy()
+        np.testing.assert_array_equal(t['term'].numpy(), np.minimum(term0 + hit, 1.0))
+        np.testing.assert_array_equal(t['term_at'].numpy(),
+                                      np.where((term0 == 0) & (hit > 0), 2, 0))
+        return
+    else:
+        r = np.asarray(jmath.two_hot_inv(jnp.asarray(ys), B, vmin, vmax))[:, 0]
+        d, keep = kw['discs'][env, kw['t']], 1.0 - state['term'].numpy()
+        G0, q0 = state['G'].numpy(), state['q'].numpy()
+        ref, got = {'reward': (G0 + d * keep * r, t['G']), 'q0': (r, t['q']),
+                    'q1': (G0 + d * keep * (q0 + r) / 2, t['out'])}[mode]
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **VTOL)
+    if 'dst' in t:
+        n = got.shape[1]
+        assert torch.equal(t['dst'][:, :n].float(), got.to(torch.bfloat16).float())
+        assert (t['dst'][:, n:kw['dpad']] == 0).all()
+        assert t['dst'][:, kw['dpad']:].isnan().all()
+
+
+def test_rows_plain_composes_the_plain_value_step_at_317_widths():
+    """At the 317M model's widths (latent 1376, mlp 4096, 101 bins, A = 6;
+    one first layer and one hidden matrix shared by the heads, to keep the
+    test small), the wide engine's layers as its row kernel sees them (the
+    product's f32 rows, the narrow outputs' split over K into 8 partial rows
+    as gemm_splits gives them) through rows_plain, against the port's plain
+    value step's heads (ops/value.py: dynamics_plain, the reward's two-hot
+    decode, pi_head_plain and pi_action_plain; the plain step at these
+    widths is held to JAX by test_plain_value_step_above_2048_matches_jax),
+    at 1e-4."""
+    L, M, A, B = 1376, 4096, 6, 101
+    dims, N, S = (L, M, A, B, 8, 8, 3), 2, 3
+    R = N * S
+    rng = np.random.default_rng(317)
+
+    def t(*shape, scale=1.0, base=0.0):
+        return torch.from_numpy((base + scale * rng.standard_normal(shape)).astype(np.float32))
+    W0, W1 = t(L + A, M, scale=(L + A) ** -0.5), t(M, M, scale=M ** -0.5)
+    p = {'bins': torch.linspace(-10, 10, B)}
+    for h in 'drp':
+        p.update({h + 'W1': W1, h + 'b0': t(1, M, scale=0.1), h + 'b1': t(M, scale=0.1)})
+        for k in ('g0', 'g1'):
+            p[h + k] = t(M, scale=0.1, base=1.0)
+        for k in ('e0', 'e1'):
+            p[h + k] = t(M, scale=0.1)
+    p.update(dWz=W0[:L], dWa=W0[L:], rWz=W0[:L], rWa=W0[L:], pW0=W0[:L],
+             dW2=t(M, L, scale=M ** -0.5), db2=t(L, scale=0.1), dg2=t(L, scale=0.1, base=1.0),
+             de2=t(L, scale=0.1), rW2=t(M, B, scale=M ** -0.5), rb2=t(B, scale=0.1),
+             pWm=t(M, A, scale=M ** -0.5), pbm=t(A, scale=0.1), pWl=t(M, A, scale=M ** -0.5),
+             pbl=t(A, scale=0.1))
+    z = torch.from_numpy(np.asarray(jl.simnorm(
+        rng.normal(size=(R, L)).astype(np.float32), 8))).reshape(N, S, L)
+    a = t(N, S, A, scale=0.6).clamp(-1, 1)
+    eps = t(N, S, A)
+
+    def hidden(x0, h):
+        """The head's two NormedLinear + Mish layers, each a product's f32
+        rows through rows_plain ('hidden'), f32 out."""
+        u = x0
+        for i in '01':
+            f = torch.empty(R, M)
+            wide.rows_plain('hidden', u, dims, S, gain=p[f'{h}g{i}'], beta=p[f'{h}e{i}'],
+                            dst=torch.empty(R, M, dtype=torch.bfloat16), dpad=M, fdst=f)
+            u = f @ p[f'{h}W1'] + p[f'{h}b1'] if i == '0' else f
+        return u
+
+    def split8(u, W, b):
+        """u @ W + b as 8 partial rows over K (the bias in the first),
+        up16 columns apart, as the engine's split product writes them."""
+        n, ps, kc = W.shape[1], _up16(W.shape[1]), M // 8
+        y = torch.zeros(R, wide.y_width(dims))
+        for q in range(8):
+            y[:, q * ps:q * ps + n] = u[:, q * kc:(q + 1) * kc] @ W[q * kc:(q + 1) * kc] + (
+                b if q == 0 else 0.0)
+        return y, ps
+
+    zr, ar = z.reshape(R, L), a.reshape(R, A)
+    za = torch.cat([zr, ar], 1)
+    # the dynamics: LayerNorm + SimNorm of the last product (one column tile)
+    zf = torch.empty(R, L)
+    wide.rows_plain('latent', hidden(za @ W0 + p['db0'][0], 'd') @ p['dW2'] + p['db2'], dims,
+                    S, gain=p['dg2'], beta=p['de2'],
+                    dst=torch.empty(R, _up16(L), dtype=torch.bfloat16), dpad=_up16(L), fdst=zf)
+    torch.testing.assert_close(zf.reshape(N, S, L), tv.dynamics_plain(p, z, a, 8), **VTOL)
+    # the reward: the two-hot decode of 8 partial rows into G
+    y, ps = split8(hidden(za @ W0 + p['rb0'][0], 'r'), p['rW2'], p['rb2'])
+    G = torch.zeros(R)
+    wide.rows_plain('reward', y, dims, S, nsplit=8, pstride=ps, bins=p['bins'], G=G,
+                    discs=torch.ones(N, 4), t=0)
+    u = tv._hidden2(tv._dot(z, p['rWz']) + tv._dot(a, p['rWa']), p, 'r', p['rb0'][0])
+    r = tv._two_hot_dec(tv._dot(u, p['rW2']) + p['rb2'], p['bins'])
+    torch.testing.assert_close(G.reshape(N, S, 1), r, **VTOL)
+    # the policy: mean and raw log-std as 8 partial rows of 2A columns
+    amask = torch.tensor([[1.0] * A, [1.0] * 4 + [0.0] * 2])
+    y, ps = split8(hidden(zr @ p['pW0'] + p['pb0'][0], 'p'), torch.cat([p['pWm'], p['pWl']], 1),
+                   torch.cat([p['pbm'], p['pbl']]))
+    act = torch.empty(R, A)
+    wide.rows_plain('pi', y, dims, S, nsplit=8, pstride=ps, eps=eps, amask=amask,
+                    dst=torch.empty(R, 16, dtype=torch.bfloat16), dpad=16, fdst=act,
+                    log_std_min=-10.0, log_std_dif=12.0)
+    mean, ls = tv.pi_head_plain(p, z, -10.0, 12.0)
+    torch.testing.assert_close(act.reshape(N, S, A),
+                               tv.pi_action_plain(mean, ls, eps, tv.mask_rows(amask, A)),
+                               **VTOL)
+
+
+_LAYOUT_WIDTHS = (12, 64, 101, 384, 512, 1024, 1376, 1792, 4096)
+
+
+@pytest.mark.parametrize('mode,ncols', [(m, n) for m in ('hidden', 'latent', 'reward')
+                                        for n in _LAYOUT_WIDTHS]
+                         + [('pi', 2 * a) for a in (1, 6, 38)] + [('term', 1)])
+def test_row_layout_owns_each_column_once(mode, ncols):
+    """The row kernel's layout (tests/wide_mirror.py, the mirror of
+    Wide::rows, whose plans tests/test_torch_cuda.py holds the built
+    library to): every column of a row, dst's zero columns to dpad included,
+    has exactly one owner, and the owners and the plan follow from the width
+    alone (the same for any row count, env count or block); a LayerNorm
+    thread holds at most 4 float4 chunks and its ring fits shared memory."""
+    A, width = (ncols // 2 if mode == 'pi' else 6), ncols
+    dpad = _up16(A) if mode == 'pi' else (_up16(width) if mode in ('hidden', 'latent') else 0)
+    plan = wm.row_plan(mode, width, A=A)
+    owners = wm.row_owners(mode, width, dpad, A=A)
+    need = range(max(dpad, width) if mode != 'pi' else dpad)
+    assert sorted(owners) == list(need)
+    assert all(len(v) == 1 for v in owners.values())
+    assert all(t < plan['threads_a_row'] for v in owners.values() for t, _ in v)
+    assert owners == wm.row_owners(mode, width, dpad, A=A)
+    if mode in ('hidden', 'latent'):
+        assert all(i < wm.ROW_CHUNKS for v in owners.values() for _, i in v)
+        assert 2 <= plan['stages'] <= wm.ROW_STAGES and plan['smem_bytes'] <= wm.SMEM_MAX
+        if width <= wm.LARGE['bn']:
+            # K split over 8 blocks (an output of one column tile): the same
+            # owners, a ring of the 8 partial rows that still fits
+            split = wm.row_plan(mode, width, 8, _up16(width))
+            assert split['threads_a_row'] == plan['threads_a_row']
+            assert 1 <= split['stages'] and split['smem_bytes'] <= wm.SMEM_MAX
 
 
 # --------------------------------------------------- mt80 at model_size 317

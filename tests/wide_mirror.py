@@ -145,7 +145,8 @@ def row_plan(mode: str, ncols: int, nsplit: int = 1, pstride: int = 0, A: int = 
     threads_a_row threads (32 to 256: the fewest that hold the row at
     ROW_CHUNKS float4 chunks a thread), row_groups of them a block, each
     with a ring of `stages` row buffers (the row and its partial rows, 4
-    columns at a time); the narrow modes on threads_a_row lanes a row (the
+    columns at a time; None where they do not fit shared memory: the
+    launch refuses); the narrow modes on threads_a_row lanes a row (the
     policy: A lanes; the two-hot decode: ROW_KEEP chunks a lane; the gate:
     one), no ring."""
     if mode in ('hidden', 'latent'):
@@ -154,9 +155,10 @@ def row_plan(mode: str, ncols: int, nsplit: int = 1, pstride: int = 0, A: int = 
             tpr *= 2
         rg = ROW_THREADS // tpr
         floats = (nsplit - 1) * pstride + -(-ncols // 4) * 4
-        stages = min(max(ROW_RING // (rg * floats * 4), 2), ROW_STAGES)
-        return dict(threads_a_row=tpr, row_groups=rg, stages=stages,
-                    smem_bytes=rg * stages * (floats * 4 + 8))
+        stages = min(max(ROW_RING // (rg * floats * 4), 1), ROW_STAGES)
+        smem = rg * stages * (floats * 4 + 8)
+        return None if smem > SMEM_MAX else dict(
+            threads_a_row=tpr, row_groups=rg, stages=stages, smem_bytes=smem)
     lpr = 1
     if mode == 'pi':
         while lpr < 32 and lpr < A:
