@@ -632,8 +632,8 @@ __device__ __forceinline__ void simnorm4(float (&v)[4]) {
 // run. Gain and beta stay in registers, reloaded only where the head
 // changes (the Q heads' layers pick theirs per env).
 template <int TPR>
-__global__ void __launch_bounds__(kWRowThreads) row_kernel(const RowArgs a, int stages,
-                                                           int floats) {
+__global__ void __launch_bounds__(kWRowThreads, 3) row_kernel(const RowArgs a, int stages,
+                                                              int floats) {
   constexpr int RG = kWRowThreads / TPR;
   extern __shared__ __align__(16) float row_ring[];
   __shared__ float red[2 * kWRowThreads / 32];  // [group][mean, variance][warp]
