@@ -134,7 +134,7 @@ using WSmall = WTile<1, 128>;   // 64 x 128, two blocks an SM
 constexpr int kWRowThreads = 256;       // a row kernel's block
 constexpr int kWChunks = 4;             // float4 chunks of a row a LayerNorm thread holds
 constexpr int kWMaxCols = kWRowThreads * kWChunks * 4;
-constexpr int kWRowRing = 48 * 1024;    // bytes of a LayerNorm block's ring of rows
+constexpr int kWRowRing = 64 * 1024;    // bytes of a LayerNorm block's ring of rows
 constexpr int kWRowStages = 8;          // row buffers a row group at most
 
 // The sampled mode's operands, each env's through an env stride: mean and
@@ -621,8 +621,8 @@ __device__ __forceinline__ void simnorm4(float (&v)[4]) {
 // TPR threads owns a row at a time (TPR from the width alone, Wide::rows:
 // 256 at 4096 columns, 128 at 1376, 32 at 512), thread lr the float4
 // chunks lr + i TPR (i < kWChunks): the columns 4 (lr + i TPR) .. + 3. A
-// block holds kWRowThreads / TPR groups and stays for the launch: group
-// `first` takes rows first, first + groups, ... Its rows arrive by bulk
+// block holds kWRowThreads / TPR groups and stays for the launch, each group
+// taking a run of consecutive rows. Its rows arrive by bulk
 // copies (cp.async.bulk, no tensor map: one copy a row, its split
 // product's partial rows with it) into a ring of `stages` row buffers in
 // shared memory, each counted on its full mbarrier; the group's first
@@ -632,8 +632,8 @@ __device__ __forceinline__ void simnorm4(float (&v)[4]) {
 // run. Gain and beta stay in registers, reloaded only where the head
 // changes (the Q heads' layers pick theirs per env).
 template <int TPR>
-__global__ void __launch_bounds__(kWRowThreads, 4) row_kernel(const RowArgs a, int stages,
-                                                              int floats) {
+__global__ void __launch_bounds__(kWRowThreads) row_kernel(const RowArgs a, int stages,
+                                                           int floats) {
   constexpr int RG = kWRowThreads / TPR;
   extern __shared__ __align__(16) float row_ring[];
   __shared__ float red[2 * kWRowThreads / 32];  // [group][mean, variance][warp]
@@ -651,13 +651,15 @@ __global__ void __launch_bounds__(kWRowThreads, 4) row_kernel(const RowArgs a, i
   }
   __syncthreads();
 
+  // the group's rows: a run of consecutive rows (an env's, mostly)
   const long groups = static_cast<long>(gridDim.x) * RG;
-  const long first = static_cast<long>(blockIdx.x) * RG + grp;
-  const long n = first < a.R ? (a.R - 1 - first) / groups + 1 : 0;
+  const long per = (a.R + groups - 1) / groups;
+  const long first = (static_cast<long>(blockIdx.x) * RG + grp) * per;
+  const long n = first < a.R ? min(per, a.R - first) : 0;
   const bool producer = lr == 0;
   if (producer)
     for (int k = 0; k < stages && k < n; ++k)
-      bulk_copy(ring + k * bytes, a.y + (first + k * groups) * a.ldy, bytes, bars + 8 * k);
+      bulk_copy(ring + k * bytes, a.y + (first + k) * a.ldy, bytes, bars + 8 * k);
 
   const int nc = a.ncols, nch = (nc + 3) >> 2, dch = a.dpad >> 2;
   const bool fvec = a.fdst != nullptr && (a.ldf & 3) == 0 &&
@@ -667,7 +669,7 @@ __global__ void __launch_bounds__(kWRowThreads, 4) row_kernel(const RowArgs a, i
   for (long k = 0; k < n; ++k) {
     TDM_ROW_MARK(c0, 0.f);
     const int s = static_cast<int>(k % stages);
-    const long row = first + k * groups;
+    const long row = first + k;
     const int env = static_cast<int>(row / a.S);
     const int h = a.head == nullptr ? 0 : min(max(a.head[env * a.hn], 0), a.nhead - 1);
     if (h != cur) {
@@ -686,99 +688,86 @@ __global__ void __launch_bounds__(kWRowThreads, 4) row_kernel(const RowArgs a, i
     }
     ring_wait(bars + 8 * s, static_cast<uint32_t>((k / stages) & 1));
     const float* st = gring + s * floats;
-    // chunk i of the row from its buffer, the partial rows summed in order
-    // where K was split, zeros past the width; read again in each pass, so
-    // that only gain and beta stay in registers
-    auto chunk = [&](int i, float (&x)[4]) {
-      const int j = lr + i * TPR;
-      float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (j < nch) {
-        u = *reinterpret_cast<const float4*>(st + 4 * j);
-#pragma unroll
-        for (int p = 1; p < kWMaxSplits; ++p) {
-          if (p < a.nsplit) {
-            const float4 q = *reinterpret_cast<const float4*>(st + p * a.pstride + 4 * j);
-            u.x += q.x;
-            u.y += q.y;
-            u.z += q.z;
-            u.w += q.w;
-          }
-        }
-      }
-      const float xs[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) x[e] = 4 * j + e < nc ? xs[e] : 0.f;
-    };
+    // the row, its partial rows summed in order where K was split
+    float v[kWChunks][4];
     float sum = 0.f;
 #pragma unroll
     for (int i = 0; i < kWChunks; ++i) {
-      float x[4];
-      chunk(i, x);
+      const int j = lr + i * TPR;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (j < nch) {
+        x = *reinterpret_cast<const float4*>(st + 4 * j);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sum += x[e];
+        for (int p = 1; p < kWMaxSplits; ++p) {
+          if (p < a.nsplit) {
+            const float4 u = *reinterpret_cast<const float4*>(st + p * a.pstride + 4 * j);
+            x.x += u.x;
+            x.y += u.y;
+            x.z += u.z;
+            x.w += u.w;
+          }
+        }
+      }
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[i][e] = 4 * j + e < nc ? xs[e] : 0.f;
+        sum += v[i][e];
+      }
     }
     TDM_ROW_MARK(c1, sum);
     const float mu = group_sum<TPR>(sum, gred, bar) / nc;
-    // every thread of the group is done with the last row: its buffer takes
-    // the row `stages` - 1 after this one
-    if (producer && k > 0 && k - 1 + stages < n) {
-      const int sp = static_cast<int>((k - 1) % stages);
+    // every thread of the group has read buffer s: it takes the row `stages` on
+    if (producer && k + stages < n) {
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      bulk_copy(ring + sp * bytes, a.y + (row + (stages - 1) * groups) * a.ldy, bytes,
-                bars + 8 * sp);
+      bulk_copy(ring + s * bytes, a.y + (row + stages) * a.ldy, bytes, bars + 8 * s);
     }
     float ss = 0.f;
 #pragma unroll
     for (int i = 0; i < kWChunks; ++i) {
-      float x[4];
-      chunk(i, x);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float d = x[e] - mu;
+        const float d = v[i][e] - mu;
         ss += 4 * (lr + i * TPR) + e < nc ? d * d : 0.f;
       }
     }
     const float rstd = rsqrtf(group_sum<TPR>(ss, gred + TPR / 32, bar) / nc + 1e-5f);
     TDM_ROW_MARK(c2, rstd);
-    float last = 0.f;
 #pragma unroll
     for (int i = 0; i < kWChunks; ++i) {
       if (i * TPR + 32 * w >= dch) continue;  // the warp holds none of dst's columns
       const int j = lr + i * TPR;
-      float v[4];
-      chunk(i, v);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float y = (v[e] - mu) * rstd * gw[i][e] + bw[i][e];
+        float y = (v[i][e] - mu) * rstd * gw[i][e] + bw[i][e];
         if (a.mode == kRowHidden) y = mish_rcp(y);
-        v[e] = 4 * j + e < nc ? y : 0.f;
+        v[i][e] = 4 * j + e < nc ? y : 0.f;
       }
       if (a.mode == kRowLatent) {
         switch (a.group) {
-          case 2: simnorm4<2>(v); break;
-          case 4: simnorm4<4>(v); break;
-          case 16: simnorm4<16>(v); break;
-          default: simnorm4<8>(v); break;
+          case 2: simnorm4<2>(v[i]); break;
+          case 4: simnorm4<4>(v[i]); break;
+          case 16: simnorm4<16>(v[i]); break;
+          default: simnorm4<8>(v[i]); break;
         }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) v[e] = 4 * j + e < nc ? v[e] : 0.f;
+        for (int e = 0; e < 4; ++e) v[i][e] = 4 * j + e < nc ? v[i][e] : 0.f;
       }
       if (j < dch)
         *reinterpret_cast<uint2*>(a.dst + row * a.ldd + 4 * j) =
-            make_uint2(bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]));
+            make_uint2(bf16x2_bits(v[i][0], v[i][1]), bf16x2_bits(v[i][2], v[i][3]));
       if (a.fdst != nullptr && j < nch) {
         float* f = a.fdst + row * a.ldf + 4 * j;
         if (fvec && 4 * j + 3 < nc) {
-          *reinterpret_cast<float4*>(f) = make_float4(v[0], v[1], v[2], v[3]);
+          *reinterpret_cast<float4*>(f) = make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
         } else {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            if (4 * j + e < nc) f[e] = v[e];
+            if (4 * j + e < nc) f[e] = v[i][e];
         }
       }
-      last = v[0];
     }
-    TDM_ROW_MARK(c3, last);
+    TDM_ROW_MARK(c3, v[0][0]);
     TDM_ROW_ADD(0, c0, c3);
     TDM_ROW_ADD(1, c0, c1);
     TDM_ROW_ADD(2, c1, c2);
@@ -1265,7 +1254,7 @@ struct Wide {
       const int rg = kWRowThreads / tpr;
       const int floats = (a.nsplit - 1) * a.pstride + ((a.ncols + 3) & ~3);
       int stages = kWRowRing / (rg * floats * 4);
-      stages = stages < 2 ? 2 : (stages > kWRowStages ? kWRowStages : stages);
+      stages = stages < 1 ? 1 : (stages > kWRowStages ? kWRowStages : stages);
       const long smem = static_cast<long>(rg) * stages * (floats * 4 + 8);
       if (smem > kSmemMax) {   // a row and its partial rows too wide to stage
         err = static_cast<int>(cudaErrorInvalidValue);
