@@ -134,7 +134,7 @@ using WSmall = WTile<1, 128>;   // 64 x 128, two blocks an SM
 constexpr int kWRowThreads = 256;       // a row kernel's block
 constexpr int kWChunks = 4;             // float4 chunks of a row a LayerNorm thread holds
 constexpr int kWMaxCols = kWRowThreads * kWChunks * 4;
-constexpr int kWRowRing = 64 * 1024;    // bytes of a LayerNorm block's ring of rows
+constexpr int kWRowRing = 32 * 1024;    // bytes of a LayerNorm block's ring of rows
 constexpr int kWRowStages = 8;          // row buffers a row group at most
 
 // The sampled mode's operands, each env's through an env stride: mean and
