@@ -372,10 +372,10 @@ def host_ms(fn, reps):
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
-def device_share(fn, reps, tries=8):
+def device_share(fn, reps, tries=8, keep=6):
     """(device-busy ms, device activities, top activities) per call of fn,
     from the kernel and copy events of a torch.profiler trace of `reps`
-    calls; top is [(ms, count, name)] of the 6 largest by time. A trace
+    calls; top is [(ms, count, name)] of the `keep` largest by time. A trace
     now and then comes back with its device events missing or cut short
     (after many traces in one process, every other one), so two traces
     are taken and the one with more device events is kept; every fn given
@@ -411,7 +411,7 @@ def device_share(fn, reps, tries=8):
                            n + 1 / reps)
     top = sorted(((t, n, k) for k, (t, n) in by_name.items()), reverse=True)
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps
-    return busy, len(dev) / reps, top[:6]
+    return busy, len(dev) / reps, top[:keep]
 
 
 def as_tuple(x):
@@ -1979,6 +1979,18 @@ def row_kernel_bytes(R):
             'row_narrow_kernel<8>': ('pi head', 1, pi)}
 
 
+def stage_bytes(R, N, L, A, H):
+    """The bytes a staging launch of the value step must move, on average
+    over its H launches: each step the rows' action columns (bf16, padded to
+    16) written, their noise read and the sampled actions written (f32); at
+    t = 0 also the latent columns (bf16, from each env's one latent row) and
+    the zeroed G, q and term."""
+    Lp, Ap = -(-L // 16) * 16, -(-A // 16) * 16
+    step = R * (Ap * 2 + 2 * A * 4)
+    first = R * Lp * 2 + N * L * 4 + R * 3 * 4
+    return step + first / H
+
+
 def wide_bounds(prep, n, S, H, A, n_pi, used_heads, episodic=False, task_rows=1):
     """The card's least time for the planner's steps at the prep's widths
     for n envs: {'value_sampled': (ms, by), 'pi_rollout': ..., 'rollout':
@@ -2323,7 +2335,8 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
                                          f'{per_call} expected; products, row kernels, '
                                          f'stagings {kinds}, {products} products expected')
                 ms = time_ms(lambda: kern(*args, **kw), 10 if n < NT else 3)
-                dev_ms, _, top = device_share(lambda: kern(*args, **kw), 3 if n < NT else 2)
+                dev_ms, _, top = device_share(lambda: kern(*args, **kw), 3 if n < NT else 2,
+                                              keep=12)
                 plain_ms = (time_ms(lambda: plain(*args, **kw), 2) if n < NT else None)
                 b_ms, b_by = wide_bounds(prep if not episodic else e_prep, n, S, H, A, n_pi,
                                          heads_used, episodic, NT)[bkey]
@@ -2335,7 +2348,7 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
                     f'{counted} launches counted), plain '
                     + ('not measured' if plain_ms is None else f'{plain_ms:.4f} ms')
                     + f', bound {b_ms:.6f} ms ({b_by}), {ms / b_ms:.1f}x the bound')
-                for t, cnt, k in top or []:
+                for t, cnt, k in (top or [])[:6]:
                     log(f'    {t:.3f} ms in {cnt:.0f} x {k[:90]}')
                 if name == 'value_sampled_317':
                     row_kernels[suffix or f'_n{n8}'] = (n * S, top or [])
@@ -2375,6 +2388,28 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
                     + ('not in the trace\'s top entries' if t_ms is None else
                        f'{t_ms / cnt:.4f} ms a launch ({cnt:.0f} a value step)')
                     + f', bound {b_ms:.5f} ms (bytes)')
+        # the staging (stage_kernel: each step's actions sampled into the
+        # z||a rows, the latent too at t = 0) from the same traces
+        stage = {}
+        for suffix, (R, top) in row_kernels.items():
+            hit = [(t, c) for t, c, k in top if 'stage_kernel' in k]
+            t_ms, cnt = (sum(t for t, _ in hit), sum(c for _, c in hit)) if hit else (None, 0)
+            b_ms = stage_bytes(R, R // S, L, A, H) / HBM_BYTES_PER_S * 1e3
+            stage[suffix] = dict(rows=R, launches_a_step=cnt, ms=t_ms and t_ms / cnt,
+                                 bound_ms=b_ms, bound_by='bytes')
+            log(f'  stage_kernel, {R} rows: '
+                + ('not in the trace' if t_ms is None else
+                   f'{t_ms / cnt:.4f} ms a launch ({cnt:.0f} a value step)')
+                + f', bound {b_ms:.5f} ms (bytes, a launch on average)')
+        s80 = stage.get(f'_n{NT}', {})
+        rows.append({'name': 'wide_stage', 'route': 'cuda', 'engine': 'wide',
+                     'source': 'tdmpc2_tpu_torch/csrc/mlp_wide.cuh',
+                     'replaces': 'tdmpc2_tpu/ops/pallas_rollout.py:437', 'launches': 0,
+                     'max_abs_err': 0.0, 'n_rows': NT * S, 'ms': s80.get('ms'),
+                     'plain_ms': time_ms(lambda: value.sample_actions_plain(*vs80[2:7]), 3),
+                     'plain_is': 'sample_actions_plain (the sampling the staging does)',
+                     'bound_ms': s80.get('bound_ms'), 'bound_by': 'bytes',
+                     'library_ms': None, 'model_size': WIDE_SIZE, 'by_rows': stage})
         # the row's own numbers come from the row phase (main)
         rows.append({'name': 'wide_row', 'route': 'cuda', 'engine': 'wide',
                      'source': 'tdmpc2_tpu_torch/csrc/mlp_wide.cuh',
@@ -2452,7 +2487,7 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
             key = {'value_sampled_317': 'value_sampled',
                    'value_sampled_episodic_317': None,
                    'cem_pi_rollout_317': 'cem_pi_rollout',
-                   'wide_row': 'wide_row'}.get(row['name'])
+                   'wide_row': 'wide_row', 'wide_stage': 'wide_stage'}.get(row['name'])
             if key is not None:
                 row['launches'] = paths['act_tasks mt80'][key]
             elif row['name'] == 'value_sampled_episodic_317':
@@ -3895,6 +3930,8 @@ def main() -> int:
             kernels.append(row)
         kernels.extend(mt_rows)
         for row in w_rows:
+            if row['name'] == 'wide_stage':
+                row['launches_by_path'] = {k: v['wide_stage'] for k, v in paths.items()}
             if row['name'] == 'wide_row':
                 row['launches_by_path'] = {k: v['wide_row'] for k, v in paths.items()}
                 top = next(r for r in row_records
