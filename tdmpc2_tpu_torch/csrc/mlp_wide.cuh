@@ -556,12 +556,14 @@ struct RowArgs {
 
 // Mish as JAX _mish computes it (z = exp(min(x, 15)) + 1, then x (z^2 - 1)
 // / (z^2 + 1)), the quotient through the reciprocal's estimate (within 2
-// ulps; the denominator is in [2, 1.1e13]) where the row tiles' mish
-// (mlp_rows.cuh) rounds it exactly: a third of the instructions an element.
+// ulps: the denominator is in [2, 1.1e13], no guard for tiny ones) where
+// the row tiles' mish (mlp_rows.cuh) rounds it exactly.
 __device__ __forceinline__ float mish_rcp(float x) {
   const float z = expf(fminf(x, 15.f)) + 1.f;
   const float z2 = z * z;
-  return __fdividef(x * (z2 - 1.f), z2 + 1.f);
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(z2 + 1.f));
+  return x * (z2 - 1.f) * r;
 }
 
 __device__ __forceinline__ void bar_sync(int id, int threads) {
@@ -631,7 +633,7 @@ __device__ __forceinline__ void simnorm4(float (&v)[4]) {
 // next rows stream in while this one's statistics, activation and stores
 // run. Gain and beta stay in registers, reloaded only where the head
 // changes (the Q heads' layers pick theirs per env).
-template <int TPR>
+template <int TPR, int MODE>
 __global__ void __launch_bounds__(kWRowThreads) row_kernel(const RowArgs a, int stages,
                                                            int floats) {
   constexpr int RG = kWRowThreads / TPR;
@@ -747,13 +749,13 @@ __global__ void __launch_bounds__(kWRowThreads) row_kernel(const RowArgs a, int 
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float y = fmaf((v[i][e] - mu) * rstd, gw[i][e], bw[i][e]);
-        v[i][e] = a.mode == kRowHidden ? mish_rcp(y) : y;
+        v[i][e] = MODE == kRowHidden ? mish_rcp(y) : y;
       }
       if (4 * j + 4 > nc) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) v[i][e] = 4 * j + e < nc ? v[i][e] : 0.f;
       }
-      if (a.mode == kRowLatent) {
+      if constexpr (MODE == kRowLatent) {
         switch (a.group) {
           case 2: simnorm4<2>(v[i]); break;
           case 4: simnorm4<4>(v[i]); break;
@@ -1273,11 +1275,10 @@ struct Wide {
         return;
       }
       const int sm = static_cast<int>(smem);
-      switch (tpr) {
-        case 32: launch_rows(row_kernel<32>, 32, rg, stages, sm, a, stages, floats); break;
-        case 64: launch_rows(row_kernel<64>, 64, rg, stages, sm, a, stages, floats); break;
-        case 128: launch_rows(row_kernel<128>, 128, rg, stages, sm, a, stages, floats); break;
-        default: launch_rows(row_kernel<256>, 256, rg, stages, sm, a, stages, floats); break;
+      if (a.mode == kRowHidden) {
+        launch_ln<kRowHidden>(tpr, rg, stages, sm, a, floats);
+      } else {
+        launch_ln<kRowLatent>(tpr, rg, stages, sm, a, floats);
       }
       return;
     }
@@ -1296,6 +1297,20 @@ struct Wide {
       case 8: launch_rows(row_narrow_kernel<8>, 8, rg, 0, 0, a); break;
       case 16: launch_rows(row_narrow_kernel<16>, 16, rg, 0, 0, a); break;
       default: launch_rows(row_narrow_kernel<32>, 32, rg, 0, 0, a); break;
+    }
+  }
+
+  template <int MODE>
+  void launch_ln(int tpr, int rg, int stages, int sm, const RowArgs& a, int floats) {
+    switch (tpr) {
+      case 32: launch_rows(row_kernel<32, MODE>, 32, rg, stages, sm, a, stages, floats); break;
+      case 64: launch_rows(row_kernel<64, MODE>, 64, rg, stages, sm, a, stages, floats); break;
+      case 128:
+        launch_rows(row_kernel<128, MODE>, 128, rg, stages, sm, a, stages, floats);
+        break;
+      default:
+        launch_rows(row_kernel<256, MODE>, 256, rg, stages, sm, a, stages, floats);
+        break;
     }
   }
 
