@@ -1974,7 +1974,7 @@ def row_kernel_bytes(R):
     two_hot = R * (B * 4 + 3 * 4)              # the row, G or q in and out
     pi = R * (2 * A * 4 + A * 4 + 16 * 2)      # the row, eps, bf16 actions
     return {'row_kernel<256, 0>': ('LayerNorm + Mish', 18, R * M * (4 + 2)),
-            'row_kernel<128, 1>': ('LayerNorm + SimNorm', 3, R * L * (4 + 2)),
+            'row_kernel<128, 8>': ('LayerNorm + SimNorm', 3, R * L * (4 + 2)),
             'row_narrow_kernel<16>': ('two-hot decode', 5, two_hot),
             'row_narrow_kernel<8>': ('pi head', 1, pi)}
 
