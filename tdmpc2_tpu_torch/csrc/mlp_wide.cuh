@@ -558,17 +558,12 @@ struct RowArgs {
 // / (z^2 + 1)), the quotient through the reciprocal's estimate (within 2
 // ulps: the denominator is in [2, 1.1e13], no guard for tiny ones) where
 // the row tiles' mish (mlp_rows.cuh) rounds it exactly.
-// 1 / x within an ulp, for normal x well inside the f32 range.
-__device__ __forceinline__ float rcp_approx(float x) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
-  return r;
-}
-
 __device__ __forceinline__ float mish_rcp(float x) {
   const float z = expf(fminf(x, 15.f)) + 1.f;
   const float z2 = z * z;
-  return x * (z2 - 1.f) * rcp_approx(z2 + 1.f);
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(z2 + 1.f));
+  return x * (z2 - 1.f) * r;
 }
 
 __device__ __forceinline__ void bar_sync(int id, int threads) {
@@ -609,7 +604,7 @@ __device__ __forceinline__ void simnorm4(float (&v)[4]) {
     float se = (e[0] + e[1]) + (e[2] + e[3]);
 #pragma unroll
     for (int o = 1; o < G / 4; o <<= 1) se += __shfl_xor_sync(0xffffffffu, se, o);
-    const float r = rcp_approx(se);   // se is in [1, G]
+    const float r = __frcp_rn(se);
 #pragma unroll
     for (int k = 0; k < 4; ++k) v[k] = e[k] * r;
   } else {
@@ -617,54 +612,41 @@ __device__ __forceinline__ void simnorm4(float (&v)[4]) {
     for (int p = 0; p < 4; p += 2) {
       const float m = fmaxf(v[p], v[p + 1]);
       const float e0 = expf(v[p] - m), e1 = expf(v[p + 1] - m);
-      const float r = rcp_approx(e0 + e1);
+      const float r = __frcp_rn(e0 + e1);
       v[p] = e0 * r;
       v[p + 1] = e1 * r;
     }
   }
 }
 
-// The LayerNorm modes, ACT the activation after it: Mish (kActMish, the
-// hidden layers), SimNorm over groups of 8 (kActSimNorm8, the latent at
-// every published size) or of the config's group (kActSimNorm). A row group
-// of TPR threads owns a row at a time (TPR from the width alone, Wide::rows:
-// 256 at 4096 columns, 128 at 1376, 32 at 512), thread lr the float4 chunks
-// lr + i TPR (i < kWChunks): the columns 4 (lr + i TPR) .. + 3. A block
-// holds kWRowThreads / TPR groups and stays for the launch, each group
-// taking a run of consecutive rows. Its rows arrive by bulk copies
-// (cp.async.bulk, no tensor map: one copy a row, its split product's
-// partial rows with it) into a ring of `stages` row buffers in shared
-// memory, each counted on its full mbarrier; the group's first thread
-// issues the first `stages` copies and refills a buffer once the group is
-// done with its row, so the next rows stream in while this one computes.
-//
-// Each row is taken in two halves a step apart: its warp statistics (each
-// warp's mean over its columns, then their centred sum of squares, by
-// shuffles), then, after the next row's warp statistics, its activation and
-// stores from its buffer, while the one exchange of the next row's warp
-// statistics among the group's warps waits on the group's named barrier.
-// The row's mean and centred variance combine the warps' in a fixed order
-// (Chan et al.'s formula: the mean of the warps' means by their columns,
-// then the warps' sums of squares plus each warp's columns times its mean's
-// squared distance from the row's; one warp's are the row's). Gain and beta
-// stay in registers, reloaded only where the head changes (the Q heads'
-// layers pick theirs per env). The activation is a template parameter, so
-// that a thread's chunks run without a branch between their elements.
-enum RowAct { kActMish = 0, kActSimNorm = 1, kActSimNorm8 = 8 };
-
-template <int TPR, int ACT>
-__global__ void __launch_bounds__(kWRowThreads) row_kernel(const RowArgs a, int stages,
-                                                           int floats) {
-  constexpr int RG = kWRowThreads / TPR, W = TPR / 32;
+// The LayerNorm modes (hidden: + Mish, latent: + SimNorm). A row group of
+// TPR threads owns a row at a time (TPR from the width alone, Wide::rows:
+// 256 at 4096 columns, 128 at 1376, 32 at 512), thread lr the float4
+// chunks lr + i TPR (i < kWChunks): the columns 4 (lr + i TPR) .. + 3. A
+// block holds kWRowThreads / TPR groups and stays for the launch, each group
+// taking a run of consecutive rows. Its rows arrive by bulk
+// copies (cp.async.bulk, no tensor map: one copy a row, its split
+// product's partial rows with it) into a ring of `stages` row buffers in
+// shared memory, each counted on its full mbarrier; the group's first
+// thread issues the first `stages` copies, and refills a buffer as soon as
+// the group's first reduction shows that every thread has read it, so the
+// next rows stream in while this one's statistics, activation and stores
+// run. Gain and beta stay in registers, reloaded only where the head
+// changes (the Q heads' layers pick theirs per env).
+template <int TPR, int MODE>
+__global__ void __launch_bounds__(kWRowThreads, MODE == kRowHidden ? 3 : 4)
+    row_kernel(const RowArgs a, int stages, int floats) {
+  constexpr int RG = kWRowThreads / TPR;
   extern __shared__ __align__(16) float row_ring[];
-  __shared__ float2 red[2 * kWRowThreads / 32];  // [group][row parity][warp]: (mean, M2)
+  __shared__ float red[2 * kWRowThreads / 32];  // [group][mean, variance][warp]
   const int grp = threadIdx.x / TPR, lr = threadIdx.x % TPR, w = lr >> 5;
   const uint32_t bytes = static_cast<uint32_t>(floats) * 4;
   const uint32_t bars0 = smem_u32(row_ring) + RG * stages * bytes;
   const uint32_t bars = bars0 + 8 * grp * stages;
   const uint32_t ring = smem_u32(row_ring) + grp * stages * bytes;
   const float* gring = row_ring + static_cast<long>(grp) * stages * floats;
-  float2* gred = red + grp * 2 * W;
+  float* gred = red + grp * 2 * (TPR / 32);
+  const int bar = 1 + grp;
   if (threadIdx.x == 0) {
     for (int i = 0; i < RG * stages; ++i) mbar_init(bars0 + 8 * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -684,190 +666,127 @@ __global__ void __launch_bounds__(kWRowThreads) row_kernel(const RowArgs a, int 
   const int nc = a.ncols, nch = (nc + 3) >> 2, dch = a.dpad >> 2;
   const bool fvec = a.fdst != nullptr && (a.ldf & 3) == 0 &&
                     (reinterpret_cast<uintptr_t>(a.fdst) & 15) == 0;
-  // the columns each warp of the group holds in a row (this one's: mine)
-  float cols[W], mine = 0.f;
-#pragma unroll
-  for (int u = 0; u < W; ++u) {
-    int m = 0;
-#pragma unroll
-    for (int i = 0; i < kWChunks; ++i) m += min(max(nc - 4 * (i * TPR + 32 * u), 0), 128);
-    cols[u] = static_cast<float>(m);
-    if (u == w) mine = cols[u];
-  }
-  // chunk i of the row in buffer st, its partial rows summed in order where
-  // K was split, zeros past the width
-  auto chunk = [&](const float* st, int i, float (&x)[4]) {
-    const int j = lr + i * TPR;
-    float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (j < nch) {
-      u = *reinterpret_cast<const float4*>(st + 4 * j);
-      for (int p = 1; p < a.nsplit; ++p) {
-        const float4 q = *reinterpret_cast<const float4*>(st + p * a.pstride + 4 * j);
-        u.x += q.x;
-        u.y += q.y;
-        u.z += q.z;
-        u.w += q.w;
-      }
-    }
-    x[0] = u.x;
-    x[1] = u.y;
-    x[2] = u.z;
-    x[3] = u.w;
-    if (4 * j + 4 > nc) {   // the row's last chunk, or past it
-#pragma unroll
-      for (int e = 0; e < 4; ++e) x[e] = 4 * j + e < nc ? x[e] : 0.f;
-    }
-  };
   float gw[kWChunks][4], bw[kWChunks][4];
   int cur = -1;
-  float mu = 0.f, rstd = 0.f;  // the last row's statistics
-  for (long k = 0; k <= n; ++k) {
+  for (long k = 0; k < n; ++k) {
     TDM_ROW_MARK(c0, 0.f);
+    const int s = static_cast<int>(k % stages);
     const long row = first + k;
-    float q = 0.f;
-    if (k < n) {
-      // row k's warp statistics: the warp's mean, then its centred sum of squares
-      const int s = static_cast<int>(k % stages);
-      ring_wait(bars + 8 * s, static_cast<uint32_t>((k / stages) & 1));
-      const float* st = gring + s * floats;
-      float v[kWChunks][4];
-      float sum = 0.f;
+    const int env = static_cast<int>(row / a.S);
+    const int h = a.head == nullptr ? 0 : min(max(a.head[env * a.hn], 0), a.nhead - 1);
+    if (h != cur) {
+      const float* gn = a.gain + h * a.gh;
+      const float* bt = a.beta + h * a.gh;
 #pragma unroll
       for (int i = 0; i < kWChunks; ++i) {
-        chunk(st, i, v[i]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sum += v[i][e];
-      }
-      TDM_ROW_MARK(c1, sum);
-      TDM_ROW_ADD(1, c0, c1);
-      const float mw = mine > 0.f ? warp_sum(sum) / mine : 0.f;
-#pragma unroll
-      for (int i = 0; i < kWChunks; ++i) {
-        const int j = lr + i * TPR;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float d = v[i][e] - mw;
-          q += 4 * j + e < nc ? d * d : 0.f;
+          const int c = 4 * (lr + i * TPR) + e;
+          gw[i][e] = c < nc ? __ldg(gn + c) : 0.f;
+          bw[i][e] = c < nc ? __ldg(bt + c) : 0.f;
         }
       }
-      q = warp_sum(q);
-      if ((threadIdx.x & 31) == 0) gred[(k & 1) * W + w] = make_float2(mw, q);
-      TDM_ROW_MARK(c2, q);
-      TDM_ROW_ADD(2, c1, c2);
+      cur = h;
     }
-    if (k >= 1) {
-      // row k - 1: its activation and stores, from its buffer
-      TDM_ROW_MARK(c3, rstd);
-      const long prow = row - 1;
-      const float* st = gring + static_cast<int>((k - 1) % stages) * floats;
-      const int env = static_cast<int>(prow / a.S);
-      const int h = a.head == nullptr ? 0 : min(max(a.head[env * a.hn], 0), a.nhead - 1);
-      if (h != cur) {
-        const float* gn = a.gain + h * a.gh;
-        const float* bt = a.beta + h * a.gh;
+    ring_wait(bars + 8 * s, static_cast<uint32_t>((k / stages) & 1));
+    const float* st = gring + s * floats;
+    // the row, its partial rows summed in order where K was split
+    float v[kWChunks][4];
+    float sum = 0.f;
 #pragma unroll
-        for (int i = 0; i < kWChunks; ++i) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = 4 * (lr + i * TPR) + e;
-            gw[i][e] = c < nc ? __ldg(gn + c) : 0.f;
-            bw[i][e] = c < nc ? __ldg(bt + c) : 0.f;
-          }
+    for (int i = 0; i < kWChunks; ++i) {
+      const int j = lr + i * TPR;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (j < nch) {
+        x = *reinterpret_cast<const float4*>(st + 4 * j);
+        for (int p = 1; p < a.nsplit; ++p) {   // a split product's partial rows
+          const float4 u = *reinterpret_cast<const float4*>(st + p * a.pstride + 4 * j);
+          x.x += u.x;
+          x.y += u.y;
+          x.z += u.z;
+          x.w += u.w;
         }
-        cur = h;
       }
-      float v[kWChunks][4];
+      v[i][0] = x.x;
+      v[i][1] = x.y;
+      v[i][2] = x.z;
+      v[i][3] = x.w;
+      if (4 * j + 4 > nc) {   // the row's last chunk, or past it
 #pragma unroll
-      for (int i = 0; i < kWChunks; ++i) {
-        const int j = lr + i * TPR;
-        chunk(st, i, v[i]);
+        for (int e = 0; e < 4; ++e) v[i][e] = 4 * j + e < nc ? v[i][e] : 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum += v[i][e];
+    }
+    TDM_ROW_MARK(c1, sum);
+    const float mu = group_sum<TPR>(sum, gred, bar) / nc;
+    // every thread of the group has read buffer s: it takes the row `stages` on
+    if (producer && k + stages < n) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bulk_copy(ring + s * bytes, a.y + (row + stages) * a.ldy, bytes, bars + 8 * s);
+    }
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWChunks; ++i) {
+      const int j = lr + i * TPR;
+      if (4 * j + 4 <= nc) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ss += (v[i][e] - mu) * (v[i][e] - mu);
+      } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float y = fmaf((v[i][e] - mu) * rstd, gw[i][e], bw[i][e]);
-          v[i][e] = 4 * j + e < nc ? (ACT == kActMish ? mish_rcp(y) : y) : 0.f;
+          const float d = v[i][e] - mu;
+          ss += 4 * j + e < nc ? d * d : 0.f;
         }
       }
-      if constexpr (ACT != kActMish) {
-        // SimNorm: the warp's lanes together (no slot left out: shuffles)
+    }
+    const float rstd = rsqrtf(group_sum<TPR>(ss, gred + TPR / 32, bar) / nc + 1e-5f);
+    TDM_ROW_MARK(c2, rstd);
 #pragma unroll
-        for (int i = 0; i < kWChunks; ++i) {
-          if (i * TPR + 32 * w >= nch) continue;  // the warp holds none of the row's columns
-          if constexpr (ACT == kActSimNorm8) {
-            simnorm4<8>(v[i]);
-          } else {
-            switch (a.group) {
-              case 2: simnorm4<2>(v[i]); break;
-              case 4: simnorm4<4>(v[i]); break;
-              case 16: simnorm4<16>(v[i]); break;
-              default: simnorm4<8>(v[i]); break;
-            }
-          }
-          const int j = lr + i * TPR;
+    for (int i = 0; i < kWChunks; ++i) {
+      if (i * TPR + 32 * w >= dch) continue;  // the warp holds none of dst's columns
+      const int j = lr + i * TPR;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float y = fmaf((v[i][e] - mu) * rstd, gw[i][e], bw[i][e]);
+        v[i][e] = MODE == kRowHidden ? mish_rcp(y) : y;
+      }
+      if (4 * j + 4 > nc) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[i][e] = 4 * j + e < nc ? v[i][e] : 0.f;
+      }
+      if constexpr (MODE == kRowLatent) {
+        switch (a.group) {
+          case 2: simnorm4<2>(v[i]); break;
+          case 4: simnorm4<4>(v[i]); break;
+          case 16: simnorm4<16>(v[i]); break;
+          default: simnorm4<8>(v[i]); break;
+        }
+        if (4 * j + 4 > nc) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) v[i][e] = 4 * j + e < nc ? v[i][e] : 0.f;
         }
       }
+      if (j < dch)
+        *reinterpret_cast<uint2*>(a.dst + row * a.ldd + 4 * j) =
+            make_uint2(bf16x2_bits(v[i][0], v[i][1]), bf16x2_bits(v[i][2], v[i][3]));
+      if (a.fdst != nullptr && j < nch) {
+        float* f = a.fdst + row * a.ldf + 4 * j;
+        if (fvec && 4 * j + 3 < nc) {
+          *reinterpret_cast<float4*>(f) = make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+        } else {
 #pragma unroll
-      for (int i = 0; i < kWChunks; ++i) {
-        const int j = lr + i * TPR;
-        if (j < dch)
-          *reinterpret_cast<uint2*>(a.dst + prow * a.ldd + 4 * j) =
-              make_uint2(bf16x2_bits(v[i][0], v[i][1]), bf16x2_bits(v[i][2], v[i][3]));
-      }
-      if (a.fdst != nullptr) {
-#pragma unroll
-        for (int i = 0; i < kWChunks; ++i) {
-          const int j = lr + i * TPR;
-          if (j >= nch) continue;
-          float* f = a.fdst + prow * a.ldf + 4 * j;
-          if (fvec && 4 * j + 3 < nc) {
-            *reinterpret_cast<float4*>(f) = make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
-          } else {
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              if (4 * j + e < nc) f[e] = v[i][e];
-          }
+          for (int e = 0; e < 4; ++e)
+            if (4 * j + e < nc) f[e] = v[i][e];
         }
       }
-      TDM_ROW_MARK(c4, v[0][0]);
-      TDM_ROW_ADD(3, c3, c4);
-      TDM_ROW_ADD(4, 0, 1);
     }
-    if (k < n) {
-      // the one exchange: row k's warp statistics; every thread is also
-      // done with row k - 1's buffer, which takes the row `stages` on
-      TDM_ROW_MARK(c5, q);
-      if constexpr (W > 1) {
-        bar_sync(1 + grp, TPR);
-      } else {
-        __syncwarp();
-      }
-      if (producer && k >= 1 && k - 1 + stages < n) {
-        const int sp = static_cast<int>((k - 1) % stages);
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        bulk_copy(ring + sp * bytes, a.y + (row - 1 + stages) * a.ldy, bytes, bars + 8 * sp);
-      }
-      const float2* r = gred + (k & 1) * W;
-      float m2 = r[0].y;
-      if constexpr (W == 1) {
-        mu = r[0].x;
-      } else {
-        float t = 0.f;
-#pragma unroll
-        for (int u = 0; u < W; ++u) t += cols[u] * r[u].x;
-        mu = t / nc;
-        m2 = 0.f;
-#pragma unroll
-        for (int u = 0; u < W; ++u) {
-          const float d = r[u].x - mu;
-          m2 += r[u].y + cols[u] * d * d;
-        }
-      }
-      rstd = rsqrtf(m2 / nc + 1e-5f);
-      TDM_ROW_MARK(c6, rstd);
-      TDM_ROW_ADD(2, c5, c6);
-      TDM_ROW_ADD(0, c0, c6);
-    }
+    TDM_ROW_MARK(c3, v[0][0]);
+    TDM_ROW_ADD(0, c0, c3);
+    TDM_ROW_ADD(1, c0, c1);
+    TDM_ROW_ADD(2, c1, c2);
+    TDM_ROW_ADD(3, c2, c3);
+    TDM_ROW_ADD(4, 0, 1);
   }
 }
 
@@ -1357,11 +1276,9 @@ struct Wide {
       }
       const int sm = static_cast<int>(smem);
       if (a.mode == kRowHidden) {
-        launch_ln<kActMish>(tpr, rg, stages, sm, a, floats);
-      } else if (a.group == 8) {
-        launch_ln<kActSimNorm8>(tpr, rg, stages, sm, a, floats);
+        launch_ln<kRowHidden>(tpr, rg, stages, sm, a, floats);
       } else {
-        launch_ln<kActSimNorm>(tpr, rg, stages, sm, a, floats);
+        launch_ln<kRowLatent>(tpr, rg, stages, sm, a, floats);
       }
       return;
     }
@@ -1383,13 +1300,17 @@ struct Wide {
     }
   }
 
-  template <int ACT>
+  template <int MODE>
   void launch_ln(int tpr, int rg, int stages, int sm, const RowArgs& a, int floats) {
     switch (tpr) {
-      case 32: launch_rows(row_kernel<32, ACT>, 32, rg, stages, sm, a, stages, floats); break;
-      case 64: launch_rows(row_kernel<64, ACT>, 64, rg, stages, sm, a, stages, floats); break;
-      case 128: launch_rows(row_kernel<128, ACT>, 128, rg, stages, sm, a, stages, floats); break;
-      default: launch_rows(row_kernel<256, ACT>, 256, rg, stages, sm, a, stages, floats); break;
+      case 32: launch_rows(row_kernel<32, MODE>, 32, rg, stages, sm, a, stages, floats); break;
+      case 64: launch_rows(row_kernel<64, MODE>, 64, rg, stages, sm, a, stages, floats); break;
+      case 128:
+        launch_rows(row_kernel<128, MODE>, 128, rg, stages, sm, a, stages, floats);
+        break;
+      default:
+        launch_rows(row_kernel<256, MODE>, 256, rg, stages, sm, a, stages, floats);
+        break;
     }
   }
 
