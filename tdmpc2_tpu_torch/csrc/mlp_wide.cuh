@@ -558,12 +558,17 @@ struct RowArgs {
 // / (z^2 + 1)), the quotient through the reciprocal's estimate (within 2
 // ulps: the denominator is in [2, 1.1e13], no guard for tiny ones) where
 // the row tiles' mish (mlp_rows.cuh) rounds it exactly.
+// 1 / x within an ulp, for normal x well inside the f32 range.
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
+}
+
 __device__ __forceinline__ float mish_rcp(float x) {
   const float z = expf(fminf(x, 15.f)) + 1.f;
   const float z2 = z * z;
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(z2 + 1.f));
-  return x * (z2 - 1.f) * r;
+  return x * (z2 - 1.f) * rcp_approx(z2 + 1.f);
 }
 
 __device__ __forceinline__ void bar_sync(int id, int threads) {
@@ -604,7 +609,7 @@ __device__ __forceinline__ void simnorm4(float (&v)[4]) {
     float se = (e[0] + e[1]) + (e[2] + e[3]);
 #pragma unroll
     for (int o = 1; o < G / 4; o <<= 1) se += __shfl_xor_sync(0xffffffffu, se, o);
-    const float r = __frcp_rn(se);
+    const float r = rcp_approx(se);   // se is in [1, G]
 #pragma unroll
     for (int k = 0; k < 4; ++k) v[k] = e[k] * r;
   } else {
@@ -612,7 +617,7 @@ __device__ __forceinline__ void simnorm4(float (&v)[4]) {
     for (int p = 0; p < 4; p += 2) {
       const float m = fmaxf(v[p], v[p + 1]);
       const float e0 = expf(v[p] - m), e1 = expf(v[p + 1] - m);
-      const float r = __frcp_rn(e0 + e1);
+      const float r = rcp_approx(e0 + e1);
       v[p] = e0 * r;
       v[p + 1] = e1 * r;
     }
@@ -633,8 +638,10 @@ __device__ __forceinline__ void simnorm4(float (&v)[4]) {
 // next rows stream in while this one's statistics, activation and stores
 // run. Gain and beta stay in registers, reloaded only where the head
 // changes (the Q heads' layers pick theirs per env).
-template <int TPR, int MODE>
-__global__ void __launch_bounds__(kWRowThreads, MODE == kRowHidden ? 3 : 4)
+enum RowAct { kActMish = 0, kActSimNorm = 1, kActSimNorm8 = 8 };
+
+template <int TPR, int ACT>
+__global__ void __launch_bounds__(kWRowThreads, 3)
     row_kernel(const RowArgs a, int stages, int floats) {
   constexpr int RG = kWRowThreads / TPR;
   extern __shared__ __align__(16) float row_ring[];
@@ -749,19 +756,23 @@ __global__ void __launch_bounds__(kWRowThreads, MODE == kRowHidden ? 3 : 4)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float y = fmaf((v[i][e] - mu) * rstd, gw[i][e], bw[i][e]);
-        v[i][e] = MODE == kRowHidden ? mish_rcp(y) : y;
+        v[i][e] = ACT == kActMish ? mish_rcp(y) : y;
       }
       if (4 * j + 4 > nc) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) v[i][e] = 4 * j + e < nc ? v[i][e] : 0.f;
       }
-      if constexpr (MODE == kRowLatent) {
+      if constexpr (ACT == kActSimNorm8) {
+        simnorm4<8>(v[i]);
+      } else if constexpr (ACT == kActSimNorm) {
         switch (a.group) {
           case 2: simnorm4<2>(v[i]); break;
           case 4: simnorm4<4>(v[i]); break;
           case 16: simnorm4<16>(v[i]); break;
           default: simnorm4<8>(v[i]); break;
         }
+      }
+      if constexpr (ACT != kActMish) {
         if (4 * j + 4 > nc) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) v[i][e] = 4 * j + e < nc ? v[i][e] : 0.f;
@@ -1276,9 +1287,11 @@ struct Wide {
       }
       const int sm = static_cast<int>(smem);
       if (a.mode == kRowHidden) {
-        launch_ln<kRowHidden>(tpr, rg, stages, sm, a, floats);
+        launch_ln<kActMish>(tpr, rg, stages, sm, a, floats);
+      } else if (a.group == 8) {
+        launch_ln<kActSimNorm8>(tpr, rg, stages, sm, a, floats);
       } else {
-        launch_ln<kRowLatent>(tpr, rg, stages, sm, a, floats);
+        launch_ln<kActSimNorm>(tpr, rg, stages, sm, a, floats);
       }
       return;
     }
@@ -1300,16 +1313,16 @@ struct Wide {
     }
   }
 
-  template <int MODE>
+  template <int ACT>
   void launch_ln(int tpr, int rg, int stages, int sm, const RowArgs& a, int floats) {
     switch (tpr) {
-      case 32: launch_rows(row_kernel<32, MODE>, 32, rg, stages, sm, a, stages, floats); break;
-      case 64: launch_rows(row_kernel<64, MODE>, 64, rg, stages, sm, a, stages, floats); break;
+      case 32: launch_rows(row_kernel<32, ACT>, 32, rg, stages, sm, a, stages, floats); break;
+      case 64: launch_rows(row_kernel<64, ACT>, 64, rg, stages, sm, a, stages, floats); break;
       case 128:
-        launch_rows(row_kernel<128, MODE>, 128, rg, stages, sm, a, stages, floats);
+        launch_rows(row_kernel<128, ACT>, 128, rg, stages, sm, a, stages, floats);
         break;
       default:
-        launch_rows(row_kernel<256, MODE>, 256, rg, stages, sm, a, stages, floats);
+        launch_rows(row_kernel<256, ACT>, 256, rg, stages, sm, a, stages, floats);
         break;
     }
   }
