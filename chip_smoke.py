@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare DIR [PAIRS]  # kernel times against the port in DIR
-    python3 chip_smoke.py --cycles        # value and elite kernels: block 0 cycles
+    python3 chip_smoke.py --cycles        # value, elite and row kernels: block 0 cycles
+    python3 chip_smoke.py --rows          # the build, then the row phase alone
 
 Builds the port's CUDA kernels from `tdmpc2_tpu_torch/csrc` with nvcc,
 runs the kernel-engine canary, holds every kernel against its plain
@@ -60,7 +61,19 @@ rows, against the plain product within 1e-4 of |x| @ |W| (x's columns
 past K NaN), N=8 against a one-env launch bit for bit, timed beside
 `torch.matmul` on the same bf16 operands (cuBLAS; never called by the
 port) and against its bound; its built kernels' SASS is counted
-(cuobjdump: wgmma and TMA instructions, no mma.sync, no cp.async).
+(cuobjdump: wgmma and TMA instructions, no mma.sync, no cp.async). Its
+row kernel is held alone too (the row phase), through the library's
+`tdm_wide_rows` (`ops/wide.py` `rows`): each template (LayerNorm + Mish,
+with a head per env too; LayerNorm + SimNorm; the two-hot decode into G, q
+and the value; the policy's action; the termination gate) at the 317M
+model's widths on 512, 1,920, 4,096 and 40,960 rows, the narrow outputs as
+8 partial rows of a split product, against `rows_plain` on the same rows
+(bf16 outputs within one bf16 step, f32 outputs within 1e-4, the gate's
+flags exactly), N=8 against one-env launches bit for bit, timed by CUDA
+events and by its own device time against both bytes bounds (the
+function's, and as launched with the partial rows), beside its plain
+version and `torch.nn.functional.layer_norm` on the same f32 rows (a
+yardstick that computes a part of the function).
 
 The planner's kernels are also held on the task axis at mt30/model_size 48,
 N = 30 tasks with mixed action dims (each env's task id picks its rows of
@@ -121,9 +134,12 @@ alternating as DIR, this, this, DIR, DIR, this, ..., and prints the median
 and range of the pairs' ratios by CUDA events (plan_vec: by the host clock,
 each call synchronised) and by own device time, and whether each kernel's
 outputs are the same bits in both versions.
-`--cycles` builds the value and elite kernels with their cycle counters
-(TDM_CYCLES: csrc/mlp_rows.cuh, csrc/cem.cu) and prints where block 0 of
-each spends its cycles at the default model.
+`--cycles` builds the value, elite and row kernels with their cycle
+counters (TDM_CYCLES: csrc/mlp_rows.cuh, csrc/cem.cu, csrc/mlp_wide.cuh)
+and prints where block 0 of each spends its cycles: the value and elite
+kernels at the default model, the row kernel's LayerNorm templates at the
+317M model's widths (waiting for a row, its statistics, its activation and
+stores). `--rows` runs the build and the row phase alone.
 """
 
 from __future__ import annotations
@@ -825,9 +841,12 @@ def time_kernels(root) -> int:
 def cycles() -> int:
     """`--cycles`: where one block of the value kernel and of the elite
     kernel spends its cycles, at the default 5M model (one env and N=8,
-    S=512; the value kernel non-episodic and episodic): the kernels built
-    with their TDM_CYCLES counters (csrc/mlp_rows.cuh, csrc/cem.cu; block 0,
-    thread 0), driven through `value_estimate` and `elite_moments`."""
+    S=512; the value kernel non-episodic and episodic), and the wide row
+    kernel's LayerNorm templates at the 317M model's widths (512 and 40,960
+    rows): the kernels built with their TDM_CYCLES counters
+    (csrc/mlp_rows.cuh, csrc/cem.cu, csrc/mlp_wide.cuh; block 0, thread 0),
+    driven through `value_estimate`, `elite_moments` and `ops/wide.py`
+    `rows`."""
     import ctypes
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch

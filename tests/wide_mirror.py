@@ -155,7 +155,7 @@ def row_plan(mode: str, ncols: int, nsplit: int = 1, pstride: int = 0, A: int = 
             tpr *= 2
         rg = ROW_THREADS // tpr
         floats = (nsplit - 1) * pstride + -(-ncols // 4) * 4
-        stages = min(max(ROW_RING // (rg * floats * 4), 2), ROW_STAGES)
+        stages = min(max(ROW_RING // (rg * floats * 4), 1), ROW_STAGES)
         smem = rg * stages * (floats * 4 + 8)
         return None if smem > SMEM_MAX else dict(
             threads_a_row=tpr, row_groups=rg, stages=stages, smem_bytes=smem)
