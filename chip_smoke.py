@@ -843,7 +843,9 @@ def cycles() -> int:
     kernel spends its cycles, at the default 5M model (one env and N=8,
     S=512; the value kernel non-episodic and episodic), and the wide row
     kernel's LayerNorm templates at the 317M model's widths (512 and 40,960
-    rows): the kernels built with their TDM_CYCLES counters
+    rows; at 40,960 also the launch with every row read from row 0, and
+    PyTorch's cast of the same rows to bf16, the same bytes moved): the
+    kernels built with their TDM_CYCLES counters
     (csrc/mlp_rows.cuh, csrc/cem.cu, csrc/mlp_wide.cuh; block 0, thread 0),
     driven through `value_estimate`, `elite_moments` and `ops/wide.py`
     `rows`."""
@@ -935,6 +937,26 @@ def cycles() -> int:
                 f'counters (CUDA events); block 0, thread 0, over {out[4]} row(s): '
                 + ', '.join(f'{k} {out[i]} ({100 * out[i] / max(out[0], 1):.1f}%)'
                             for i, k in enumerate(rnames)))
+            if mode == 'hidden' and not heads and R == ROW_ROWS[-1][0]:
+                # what bounds it: the same launch with every row read from
+                # row 0 (from L2, not device memory), and one PyTorch call
+                # that moves the same bytes (the f32 rows to bf16)
+                n = wide.counts()
+                ptrs = (ctypes.c_void_p * 14)(kw['gain'].data_ptr(), kw['beta'].data_ptr(),
+                                              *[None] * 2, kw['dst'].data_ptr(), *[None] * 9)
+                longs = (ctypes.c_long * 11)(0, 0, 1, kw['dst'].stride(0), kw['dpad'],
+                                             *[0] * 6)
+                plan = (ctypes.c_int * 6)()
+                one = (lambda: _build.check(rlib, rlib.tdm_wide_rows(
+                    (ctypes.c_int * 7)(*WIDE_DIMS), 0, R // S, S, y.data_ptr(), 0, 1, 0,
+                    ptrs, longs, 0.0, 0.0, plan, n,
+                    torch.cuda.current_stream().cuda_stream), 'rows'))
+                yc = y[:, :WIDE_DIMS[1]].contiguous()
+                log(f'[cycles] row kernel, {label}, {R} rows, every row read from row 0: '
+                    f'{time_ms(one, 10):.4f} ms a launch with the counters; '
+                    f'torch y.to(torch.bfloat16) on the same f32 rows: '
+                    f'{time_ms(lambda: yc.to(torch.bfloat16), 10):.4f} ms (CUDA events)')
+                del yc
             del kw, y
     log(nvidia_smi_line())
     return 0
@@ -1832,7 +1854,7 @@ def row_outputs(mode, kw):
     return {k: kw[k] for k in names[mode] if kw.get(k) is not None}
 
 
-def hold_rows(tag, mode, got, want, dpad):
+def hold_rows(tag, got, want, dpad):
     """The kernel's outputs against rows_plain's: bf16 within one step
     (ROW_BF16_REL of |plain| + ROW_BF16_ABS), f32 within ROW_F32_TOL, the
     gate's flags exactly, dst untouched past dpad. Returns (the largest share
@@ -1862,7 +1884,7 @@ def hold_rows(tag, mode, got, want, dpad):
     return worst
 
 
-def row_bytes(mode, R, N, kw):
+def row_bytes(mode, R, kw):
     """(the function's bytes, the bytes as launched): each input read once
     and each output written once; the launch reads the split product's 8
     partial rows where the function reads one row."""
@@ -1907,7 +1929,7 @@ def row_phase():
             plan = wide.rows(mode, got.pop('y'), WIDE_DIMS, S, **got)
             wide.rows_plain(mode, want.pop('y'), WIDE_DIMS, S, **want)
             torch.cuda.synchronize()
-            use, err = hold_rows(tag, mode, row_outputs(mode, got), row_outputs(mode, want),
+            use, err = hold_rows(tag, row_outputs(mode, got), row_outputs(mode, want),
                                  kw.get('dpad', 0))
             worst = (max(worst[0], use), max(worst[1], err))
             if N == 8:
@@ -1944,7 +1966,7 @@ def row_phase():
                 ln_ms = time_ms(lambda: torch.nn.functional.layer_norm(
                     yc, (ncols,), gn, bt, 1e-5), reps)
                 del yc
-            fn_by, run_by = row_bytes(mode, R, N, kw)
+            fn_by, run_by = row_bytes(mode, R, kw)
             b_fn = fn_by / HBM_BYTES_PER_S * 1e3
             b_run = run_by / HBM_BYTES_PER_S * 1e3
             rec = dict(template=label, mode=mode, rows=R, n_envs=N, plan=plan, tol_used=use,
@@ -2425,6 +2447,8 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
                      'source': 'tdmpc2_tpu_torch/csrc/mlp_wide.cuh',
                      'replaces': 'tdmpc2_tpu/ops/pallas_rollout.py:437', 'launches': 0,
                      'max_abs_err': 0.0, 'n_rows': NT * S, 'ms': s80.get('ms'),
+                     'device_ms': s80.get('ms'),
+                     'ms_is': 'its own device time a launch, from the value step\'s trace',
                      'plain_ms': time_ms(lambda: value.sample_actions_plain(*vs80[2:7]), 3),
                      'plain_is': 'sample_actions_plain (the sampling the staging does)',
                      'bound_ms': s80.get('bound_ms'), 'bound_by': 'bytes',

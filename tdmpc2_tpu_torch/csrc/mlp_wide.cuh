@@ -87,13 +87,13 @@
 // a thread, so at most 4096) owning a row at a time; its rows arrive by
 // bulk copies (cp.async.bulk, no tensor map) into a ring of row buffers in
 // shared memory, counted on an mbarrier each, so a group's next rows are in
-// flight while it computes this one (the earlier kernel ran one row a
-// block, its loads never overlapping its own math). Threads read 16 bytes
-// of the ring and write 8 bytes of bf16 at a time; gain and beta stay in
-// registers; the statistics are summed in a fixed tree in f32 in the plain
-// version's order (the mean, then the centred variance) with warp shuffles
-// and one exchange among the group's warps on its own named barrier; Mish
-// takes the quotient from the reciprocal's estimate. row_narrow_kernel
+// flight while it computes this one. Threads read 16 bytes of the ring and
+// write 8 bytes of bf16 at a time; gain and beta stay in registers; the
+// statistics are summed in a fixed tree in f32 in the plain version's order
+// (the mean, then the centred variance) with warp shuffles and one exchange
+// a statistic among the group's warps on its named barrier; Mish takes the quotient
+// from the reciprocal's estimate. It runs at ~80% of the bytes bound at 4096
+// columns, held by instruction issue (PERF.md §6). row_narrow_kernel
 // (the two-hot decode, the policy's action, the termination gate) packs
 // several rows a warp, and sums a split product's partial rows with 16-byte
 // loads in order. No arithmetic depends on the block or the row count, so
@@ -624,20 +624,28 @@ __device__ __forceinline__ void simnorm4(float (&v)[4]) {
   }
 }
 
-// The LayerNorm modes (hidden: + Mish, latent: + SimNorm). A row group of
-// TPR threads owns a row at a time (TPR from the width alone, Wide::rows:
-// 256 at 4096 columns, 128 at 1376, 32 at 512), thread lr the float4
-// chunks lr + i TPR (i < kWChunks): the columns 4 (lr + i TPR) .. + 3. A
-// block holds kWRowThreads / TPR groups and stays for the launch, each group
-// taking a run of consecutive rows. Its rows arrive by bulk
-// copies (cp.async.bulk, no tensor map: one copy a row, its split
-// product's partial rows with it) into a ring of `stages` row buffers in
-// shared memory, each counted on its full mbarrier; the group's first
-// thread issues the first `stages` copies, and refills a buffer as soon as
-// the group's first reduction shows that every thread has read it, so the
-// next rows stream in while this one's statistics, activation and stores
-// run. Gain and beta stay in registers, reloaded only where the head
-// changes (the Q heads' layers pick theirs per env).
+// The LayerNorm modes, ACT the activation after it: Mish (kActMish),
+// SimNorm over groups of 8 (kActSimNorm8: every published size) or of the
+// config's group (kActSimNorm). A row group of TPR threads owns a row at a
+// time (TPR from the width alone, Wide::rows: 256 at 4096 columns, 128 at
+// 1376, 32 at 512), thread lr the float4 chunks lr + i TPR (i < kWChunks):
+// the columns 4 (lr + i TPR) .. + 3. A block holds kWRowThreads / TPR
+// groups and stays for the launch, each group taking a run of consecutive
+// rows (so a Q head's gain and beta, kept in registers, change once or
+// twice a group). The staging: a group's rows arrive by 1-D bulk copies
+// (cp.async.bulk, no tensor map: one copy a row, its split product's
+// partial rows with it) into a ring of `stages` row buffers in shared
+// memory, each counted on its full mbarrier; the group's first thread
+// issues the first `stages` copies and refills a buffer as soon as the
+// group's first reduction shows that every thread has read it, so the next
+// rows stream in while this one's statistics, activation and stores run.
+// The bound is the bytes (an f32 row in, a bf16 row out), but at 4096
+// columns instruction issue holds the kernel at ~80% of it (reading every
+// row from L2 takes as long; PERF.md §6). So the activation is a
+// template parameter (no branch between a thread's elements), Mish's
+// quotient comes from rcp.approx, the partial-row loop runs only where K
+// was split, masks apply to a row's last chunk only, and the launch bounds
+// hold 80 registers so that 3 blocks share an SM.
 enum RowAct { kActMish = 0, kActSimNorm = 1, kActSimNorm8 = 8 };
 
 template <int TPR, int ACT>

@@ -1035,7 +1035,7 @@ def test_wide_rows_match_plain_at_317_widths(agent, label, mode, heads, R, S):
     plan = wide.rows(mode, got.pop('y'), _317_DIMS, S, **got)
     assert wide.rows.launches == n0 + 1
     wide.rows_plain(mode, want.pop('y'), _317_DIMS, S, **want)
-    chip_smoke.hold_rows(label, mode, chip_smoke.row_outputs(mode, got),
+    chip_smoke.hold_rows(label, chip_smoke.row_outputs(mode, got),
                          chip_smoke.row_outputs(mode, want), kw.get('dpad', 0))
     mirror = wm.row_plan(mode, wide.row_width(mode, _317_DIMS), kw['nsplit'], kw['pstride'],
                          A=_317_DIMS[2])
@@ -1075,7 +1075,7 @@ def test_wide_rows_layernorm_sums_8_partial_rows(agent, mode, dims):
         outs.append(o)
     plan = wide.rows(mode, y, dims, S, **kw, **outs[0])
     wide.rows_plain(mode, y, dims, S, **kw, **outs[1])
-    chip_smoke.hold_rows(f'{mode}, 8 partial rows', mode, outs[0], outs[1], ncols)
+    chip_smoke.hold_rows(f'{mode}, 8 partial rows', outs[0], outs[1], ncols)
     mirror = wm.row_plan(mode, ncols, 8, ncols)
     assert {k: plan[k] for k in mirror} == mirror
 
