@@ -73,7 +73,13 @@ flags exactly), N=8 against one-env launches bit for bit, timed by CUDA
 events and by its own device time against both bytes bounds (the
 function's, and as launched with the partial rows), beside its plain
 version and `torch.nn.functional.layer_norm` on the same f32 rows (a
-yardstick that computes a part of the function).
+yardstick that computes a part of the function); LayerNorm + SimNorm also
+at SimNorm's groups 2, 4 and 16. Its cases and their check are
+tests/row_cases.py, loaded by its path (the card tests share it). The
+staging of each step (`stage_kernel`) is held alone through the library's
+`tdm_wide_stage` (`ops/wide.py` `stage`) on the N=80 value step's inputs
+(40,960 rows) against `stage_plain`, the z||a rows bit for bit and the
+sampled actions exactly, and timed.
 
 The planner's kernels are also held on the task axis at mt30/model_size 48,
 N = 30 tasks with mixed action dims (each env's task id picks its rows of
@@ -919,13 +925,14 @@ def cycles() -> int:
                 for i, k in enumerate(enames)))
     # the wide engine's row kernel (ops/wide.py rows) at the 317M model's widths
     from tdmpc2_tpu_torch.ops import wide
+    rc = row_cases()
     rlib = _build.library('rollout')
     rlib.tdm_row_cycles.argtypes = (ctypes.POINTER(ctypes.c_ulonglong),)
     rlib.tdm_row_cycles.restype = ctypes.c_int
     rnames = ('kernel', 'waiting for a row', 'row statistics', 'activation and stores')
     for R, S in (ROW_ROWS[0], ROW_ROWS[-1]):
-        for label, mode, heads in ROW_CASES[:3]:
-            kw, per_row, per_env = row_operands(mode, R, S, g, heads)
+        for label, mode, heads in rc.ROW_CASES[:3]:
+            kw, per_row, per_env = rc.row_operands(mode, R, S, g, WIDE_DIMS, heads)
             y = kw.pop('y')
             out = (ctypes.c_ulonglong * 5)()
             for _ in range(2):      # the second launch's counts are kept
@@ -939,24 +946,16 @@ def cycles() -> int:
                             for i, k in enumerate(rnames)))
             if mode == 'hidden' and not heads and R == ROW_ROWS[-1][0]:
                 # what bounds it: the same launch with every row read from
-                # row 0 (from L2, not device memory), and one PyTorch call
-                # that moves the same bytes (the f32 rows to bf16)
-                n = wide.counts()
-                ptrs = (ctypes.c_void_p * 14)(kw['gain'].data_ptr(), kw['beta'].data_ptr(),
-                                              *[None] * 2, kw['dst'].data_ptr(), *[None] * 9)
-                longs = (ctypes.c_long * 11)(0, 0, 1, kw['dst'].stride(0), kw['dpad'],
-                                             *[0] * 6)
-                plan = (ctypes.c_int * 6)()
-                one = (lambda: _build.check(rlib, rlib.tdm_wide_rows(
-                    (ctypes.c_int * 7)(*WIDE_DIMS), 0, R // S, S, y.data_ptr(), 0, 1, 0,
-                    ptrs, longs, 0.0, 0.0, plan, n,
-                    torch.cuda.current_stream().cuda_stream), 'rows'))
+                # row 0 (a zero row stride: from L2, not device memory), and
+                # one PyTorch call that moves the same bytes (the f32 rows
+                # to bf16)
+                y0 = y[:1].expand(R, -1)
                 yc = y[:, :WIDE_DIMS[1]].contiguous()
                 log(f'[cycles] row kernel, {label}, {R} rows, every row read from row 0: '
-                    f'{time_ms(one, 10):.4f} ms a launch with the counters; '
-                    f'torch y.to(torch.bfloat16) on the same f32 rows: '
-                    f'{time_ms(lambda: yc.to(torch.bfloat16), 10):.4f} ms (CUDA events)')
-                del yc
+                    f'{time_ms(lambda: wide.rows(mode, y0, WIDE_DIMS, S, **kw), 10):.4f} ms '
+                    'a launch with the counters; torch y.to(torch.bfloat16) on the same f32 '
+                    f'rows: {time_ms(lambda: yc.to(torch.bfloat16), 10):.4f} ms (CUDA events)')
+                del yc, y0
             del kw, y
     log(nvidia_smi_line())
     return 0
@@ -1759,129 +1758,27 @@ def product_phase():
 
 
 # The row kernel alone (ops/wide.py rows, the library's tdm_wide_rows) at the
-# 317M model's widths: each template on the rows of one env (512), the pi
-# rollout at N=80 x 24 (1,920), N=8 (4,096) and N=80 tasks (40,960). The
-# narrow outputs' rows are 8 partial rows of a split product (their
-# products' K split, gemm_splits), as the value step gives them.
+# 317M model's widths: each template (tests/row_cases.py ROW_CASES) on the
+# rows of one env (512), the pi rollout at N=80 x 24 (1,920), N=8 (4,096)
+# and N=80 tasks (40,960).
 ROW_ROWS = ((512, 512), (1920, 24), (4096, 512), (40960, 512))
-ROW_CASES = (   # (label, mode, per-env heads)
-    ('LayerNorm + Mish', 'hidden', False),
-    ('LayerNorm + Mish, per-env heads', 'hidden', True),
-    ('LayerNorm + SimNorm', 'latent', False),
-    ('two-hot: reward', 'reward', False), ('two-hot: Q0', 'q0', False),
-    ('two-hot: Q1', 'q1', False), ('pi head', 'pi', False), ('termination gate', 'term', False))
-ROW_SPLITS = 8
-# bf16 outputs: at most one bf16 step from the plain version's (the f32
-# order of the statistics ahead of the rounding); f32 outputs 1e-4.
-ROW_BF16_REL, ROW_BF16_ABS = 2.0 ** -7, 1e-6
-ROW_F32_TOL = dict(rtol=1e-4, atol=1e-4)
 ROW_HEADLINE = ('LayerNorm + Mish', 40960)
+# SimNorm's other groups (the row kernel's runtime group), held at 512 rows.
+ROW_GROUPS = (2, 4, 16)
 
 
-def row_operands(mode, R, S, g, heads=False, fdst=False):
-    """The operands of one row-kernel launch at WIDE_DIMS on R rows (N = R
-    / S envs): y [R, 4096] (the product's rows; 8 partial rows of up16
-    columns for the narrow outputs), NaN wherever the kernel must not read;
-    the mode's weights, per-env inputs and outputs (dst and fdst NaN where
-    it must not write). Returns (the rows / rows_plain keywords, their
-    names per row, per env)."""
-    import torch
-    from tdmpc2_tpu_torch.ops import wide
-    dev = torch.device('cuda')
-    dims = WIDE_DIMS
-    L, M, A, B, NQ, G_, H = dims
-    N, ncols = R // S, wide.row_width(mode, dims)
-    narrow = mode not in ('hidden', 'latent')
-    nsplit, pstride = (ROW_SPLITS, -(-ncols // 16) * 16) if narrow else (1, 0)
-    y = torch.full((R, wide.y_width(dims)), float('nan'), device=dev)
-    for p_ in range(nsplit):
-        y[:, p_ * pstride:p_ * pstride + ncols] = torch.randn(
-            R, ncols, device=dev, generator=g) * (0.7 if narrow else 1.5)
-    kw = dict(y=y, nsplit=nsplit, pstride=pstride)
-    if not narrow:
-        shape = (NQ, ncols) if heads else (ncols,)
-        kw['gain'] = 1 + 0.2 * torch.randn(shape, device=dev, generator=g)
-        kw['beta'] = 0.2 * torch.randn(shape, device=dev, generator=g)
-        if heads:
-            kw['head'] = torch.randint(0, NQ, (N,), device=dev, generator=g,
-                                       dtype=torch.int32)
-        dpad = -(-ncols // 16) * 16
-        ldd = dpad + (16 if mode == 'latent' else 0)    # the latent's rows carry the actions
-        kw.update(dst=torch.full((R, ldd), float('nan'), device=dev, dtype=torch.bfloat16),
-                  dpad=dpad)
-        if fdst:
-            kw['fdst'] = torch.full((R, ncols), float('nan'), device=dev)
-    elif mode == 'pi':
-        Lp = -(-L // 16) * 16
-        x = torch.full((R, Lp + 16), float('nan'), device=dev, dtype=torch.bfloat16)
-        amask = (torch.rand(N, A, device=dev, generator=g) < 0.8).float()
-        kw.update(dst=x[:, Lp:], dpad=16, fdst=torch.full((R, A), float('nan'), device=dev),
-                  eps=torch.randn(N, S, A, device=dev, generator=g), amask=amask,
-                  log_std_min=-10.0, log_std_dif=12.0)
-    elif mode == 'term':
-        term = (torch.rand(R, device=dev, generator=g) < 0.3).float()
-        kw.update(term=term, term_at=(term * 1).to(torch.int32), t=1)
-    else:
-        kw.update(bins=torch.linspace(-10, 10, B, device=dev),
-                  G=torch.randn(R, device=dev, generator=g),
-                  q=torch.randn(R, device=dev, generator=g),
-                  term=(torch.rand(R, device=dev, generator=g) < 0.3).float(),
-                  discs=torch.rand(N, H + 1, device=dev, generator=g),
-                  out=torch.full((R,), float('nan'), device=dev),
-                  t=1 if mode == 'reward' else H)
-    per_row = [k for k in ('y', 'dst', 'fdst', 'G', 'q', 'term', 'term_at', 'out') if k in kw]
-    per_env = [k for k in ('head', 'discs', 'eps', 'amask') if k in kw]
-    return kw, per_row, per_env
-
-
-def row_clone(kw, per_row, per_env, e=None, S=None):
-    """A copy of the operands whose outputs can be written (the rows of
-    env e alone, when given)."""
-    out = dict(kw)
-    for k in per_row:
-        if kw[k] is not None:
-            out[k] = (kw[k] if e is None else kw[k][e * S:(e + 1) * S]).clone()
-    if e is not None:
-        for k in per_env:
-            out[k] = kw[k][e:e + 1]
-    return out
-
-
-def row_outputs(mode, kw):
-    """{name: tensor} of what a launch of `mode` writes."""
-    names = {'hidden': ('dst', 'fdst'), 'latent': ('dst', 'fdst'), 'pi': ('dst', 'fdst'),
-             'reward': ('G',), 'q0': ('q',), 'q1': ('out',), 'term': ('term', 'term_at')}
-    return {k: kw[k] for k in names[mode] if kw.get(k) is not None}
-
-
-def hold_rows(tag, got, want, dpad):
-    """The kernel's outputs against rows_plain's: bf16 within one step
-    (ROW_BF16_REL of |plain| + ROW_BF16_ABS), f32 within ROW_F32_TOL, the
-    gate's flags exactly, dst untouched past dpad. Returns (the largest share
-    of its tolerance any value used, the largest |err|)."""
-    import torch
-    worst = (0.0, 0.0)
-    for k, x in got.items():
-        w = want[k]
-        if k == 'dst':
-            if not bool(torch.isnan(x[:, dpad:].float()).all()):
-                raise AssertionError(f'row kernel {tag}: dst written past dpad {dpad}')
-            x, w = x[:, :dpad].float(), w[:, :dpad].float()
-            room = ROW_BF16_REL * w.abs() + ROW_BF16_ABS
-        elif k in ('term', 'term_at'):
-            if not torch.equal(x, w):
-                raise AssertionError(f'row kernel {tag}: {k} differs from the plain version')
-            continue
-        else:
-            room = ROW_F32_TOL['atol'] + ROW_F32_TOL['rtol'] * w.abs()
-        if not bool(torch.isfinite(x).all()):
-            raise AssertionError(f'row kernel {tag}: non-finite {k}')
-        use = float(((x - w).abs() / room).max())
-        if use > 1:
-            raise AssertionError(f'row kernel {tag}: {k} max |err| '
-                                 f'{max_err(x, w):.3g}, {use:.3f} of its tolerance')
-        worst = (max(worst[0], use), max(worst[1], max_err(x, w)))
-    return worst
+def row_cases():
+    """tests/row_cases.py, loaded by its path: the row kernel's cases, their
+    operands and the check against rows_plain, one copy shared with the
+    card tests."""
+    import importlib.util
+    if 'row_cases' not in sys.modules:
+        path = Path(__file__).resolve().parent / 'tests' / 'row_cases.py'
+        spec = importlib.util.spec_from_file_location('row_cases', path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules['row_cases'] = mod
+    return sys.modules['row_cases']
 
 
 def row_bytes(mode, R, kw):
@@ -1905,25 +1802,31 @@ def row_bytes(mode, R, kw):
 
 
 def row_phase():
-    """The row kernel alone on the card: each ROW_CASES template at the rows
-    of ROW_ROWS, through ops/wide.py rows (the library's tdm_wide_rows),
-    held against rows_plain on the same operands (hold_rows; the latent's
-    f32 rows too), each env of an N=8 launch against its one-env launch bit
-    for bit; timed by CUDA events, its own device time by torch.profiler,
-    the plain version's time and, for the LayerNorm templates,
-    torch.nn.functional.layer_norm on the same f32 rows (contiguous) as a
-    yardstick (a part of the function only: it writes f32); both bounds
-    (row_bytes). Returns (records, (the largest tolerance share used, the
-    largest |err|))."""
+    """The row kernel alone on the card: each ROW_CASES template
+    (tests/row_cases.py) at the rows of ROW_ROWS, through ops/wide.py rows
+    (the library's tdm_wide_rows), held against rows_plain on the same
+    operands (hold_rows; the latent's f32 rows too), each env of an N=8
+    launch against its one-env launch bit for bit; timed by CUDA events,
+    its own device time by torch.profiler, the plain version's time and,
+    for the LayerNorm templates, torch.nn.functional.layer_norm on the same
+    f32 rows (contiguous) as a yardstick (a part of the function only: it
+    writes f32); both bounds (row_bytes). Then the LayerNorm + SimNorm
+    row at SimNorm's other groups (ROW_GROUPS, the kernel's runtime group)
+    on 512 rows, held alone. Returns (records, (the largest tolerance share
+    used, the largest |err|))."""
     import torch
     from tdmpc2_tpu_torch.ops import wide
+    rc = row_cases()
+    row_operands, row_clone, row_outputs, hold_rows = (
+        rc.row_operands, rc.row_clone, rc.row_outputs, rc.hold_rows)
     dev = torch.device('cuda')
     g = torch.Generator(device=dev).manual_seed(SEED + 1376)
     records, worst = [], (0.0, 0.0)
     for R, S in ROW_ROWS:
         N = R // S
-        for label, mode, heads in ROW_CASES:
-            kw, per_row, per_env = row_operands(mode, R, S, g, heads, fdst=mode == 'latent')
+        for label, mode, heads in rc.ROW_CASES:
+            kw, per_row, per_env = row_operands(mode, R, S, g, WIDE_DIMS, heads,
+                                                fdst=mode == 'latent')
             tag = f'{label}, {R} rows'
             got, want = row_clone(kw, per_row, per_env), row_clone(kw, per_row, per_env)
             plan = wide.rows(mode, got.pop('y'), WIDE_DIMS, S, **got)
@@ -1979,6 +1882,20 @@ def row_phase():
                 + f'; bound {b_fn:.5f} ms (bytes; {b_run:.5f} as launched): '
                 + (f'{100 * b_fn / k_dev:.1f}% of the bound' if k_dev else 'no device time'))
             del kw, got, want, run, y, pl, yp
+    for G_ in ROW_GROUPS:
+        dims = WIDE_DIMS[:5] + (G_,) + WIDE_DIMS[6:]
+        kw, per_row, _ = row_operands('latent', 512, 512, g, dims, fdst=True)
+        got, want = row_clone(kw, per_row, []), row_clone(kw, per_row, [])
+        plan = wide.rows('latent', got.pop('y'), dims, 512, **got)
+        wide.rows_plain('latent', want.pop('y'), dims, 512, **want)
+        use, err = hold_rows(f'LayerNorm + SimNorm of group {G_}',
+                             row_outputs('latent', got), row_outputs('latent', want),
+                             kw['dpad'])
+        worst = (max(worst[0], use), max(worst[1], err))
+        records.append(dict(template=f'LayerNorm + SimNorm, group {G_}', mode='latent',
+                            rows=512, n_envs=1, plan=plan, tol_used=use, max_abs_err=err))
+        log(f'  row kernel LayerNorm + SimNorm of group {G_}, 512 rows: plan {plan}; '
+            f'{use:.3f} of the tolerance, max |err| {err:.3g}')
     return records, worst
 
 
@@ -2030,6 +1947,53 @@ def stage_bytes(R, N, L, A, H):
     step = R * (Ap * 2 + 2 * A * 4)
     first = R * Lp * 2 + N * L * 4 + R * 3 * 4
     return step + first / H
+
+
+def stage_alone(dims, S, z0, mean, std, noise, pi_acts, amask):
+    """The wide engine's staging alone (ops/wide.py stage, the library's
+    tdm_wide_stage) on a sampled value step's inputs (N envs of S rows): its
+    H launches (the latent too at t = 0) against stage_plain's on the same
+    inputs, the z||a rows bit for bit (NaN past the padded widths: nothing
+    written there), the f32 actions exactly (SAMPLE_TOL), G, q, term and
+    term_at zeroed. Returns (max |err| over the actions and the z||a rows,
+    ms a launch on average by CUDA events, the plain version's)."""
+    import torch
+    from tdmpc2_tpu_torch.ops import wide
+    L, A, H = dims[0], dims[2], dims[6]
+    N, dev = mean.shape[0], mean.device
+    R, width = N * S, -(-L // 16) * 16 + -(-A // 16) * 16
+
+    def outputs():
+        nan = (lambda *shape: torch.full(shape, float('nan'), device=dev))
+        return dict(x=nan(R, width + 16).to(torch.bfloat16), acts=nan(N, S, H * A),
+                    G=nan(R), q=nan(R), term=nan(R),
+                    term_at=torch.full((R,), -1, dtype=torch.int32, device=dev))
+
+    def step(fn, o):
+        for t in range(H):
+            fn(dims, S, t, z0, mean, std, noise, pi_acts, amask, o['x'], o['acts'],
+               load_z=t == 0, G=o['G'], q=o['q'], term=o['term'], term_at=o['term_at'])
+
+    got, want = outputs(), outputs()
+    n0 = wide.stage.launches
+    step(wide.stage, got)
+    step(wide.stage_plain, want)
+    torch.cuda.synchronize()
+    if wide.stage.launches != n0 + H:
+        raise AssertionError(f'staging alone: {wide.stage.launches - n0} launches counted, '
+                             f'{H} expected')
+    tag = f'staging alone, {N} x {S} rows'
+    if not torch.equal(got['x'].view(torch.int16), want['x'].view(torch.int16)):
+        raise AssertionError(f'{tag}: the z||a rows differ from stage_plain\'s, max |err| '
+                             f'{max_err(got["x"][:, :width], want["x"][:, :width]):.3g}')
+    for k in ('G', 'q', 'term', 'term_at'):
+        if not bool((got[k] == 0).all()):
+            raise AssertionError(f'{tag}: {k} not zeroed')
+    err = max(hold(f'{tag}, the sampled actions', got['acts'], want['acts'], SAMPLE_TOL),
+              max_err(got['x'][:, :width], want['x'][:, :width]))
+    ms = time_ms(lambda: step(wide.stage, got), 10) / H
+    plain_ms = time_ms(lambda: step(wide.stage_plain, want), 3) / H
+    return err, ms, plain_ms
 
 
 def wide_bounds(prep, n, S, H, A, n_pi, used_heads, episodic=False, task_rows=1):
@@ -2443,14 +2407,23 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
                    f'{t_ms / cnt:.4f} ms a launch ({cnt:.0f} a value step)')
                 + f', bound {b_ms:.5f} ms (bytes, a launch on average)')
         s80 = stage.get(f'_n{NT}', {})
+        # the staging alone on the N=80 step's inputs, held against its
+        # plain version and timed
+        st_err, st_ms, st_plain_ms = stage_alone(
+            (L, M, A, cfg.num_bins, cfg.num_q, cfg.simnorm_dim, H), S, *vs80[1:7])
+        log(f'  stage_kernel alone, {NT * S} rows: max |err| {st_err:.3g} against '
+            f'stage_plain; {st_ms:.4f} ms a launch (CUDA events), plain {st_plain_ms:.4f} ms')
         rows.append({'name': 'wide_stage', 'route': 'cuda', 'engine': 'wide',
                      'source': 'tdmpc2_tpu_torch/csrc/mlp_wide.cuh',
                      'replaces': 'tdmpc2_tpu/ops/pallas_rollout.py:437', 'launches': 0,
-                     'max_abs_err': 0.0, 'n_rows': NT * S, 'ms': s80.get('ms'),
+                     'max_abs_err': st_err, 'n_rows': NT * S, 'ms': st_ms,
                      'device_ms': s80.get('ms'),
-                     'ms_is': 'its own device time a launch, from the value step\'s trace',
-                     'plain_ms': time_ms(lambda: value.sample_actions_plain(*vs80[2:7]), 3),
-                     'plain_is': 'sample_actions_plain (the sampling the staging does)',
+                     'ms_is': 'a launch on average over a value step\'s H stagings, alone '
+                              '(ops/wide.py stage), by CUDA events; device_ms: its own '
+                              'device time a launch, from the value step\'s trace',
+                     'plain_ms': st_plain_ms,
+                     'plain_is': 'ops/wide.py stage_plain (sample_actions_plain, then the '
+                                 'bf16 copies), a launch on average',
                      'bound_ms': s80.get('bound_ms'), 'bound_by': 'bytes',
                      'library_ms': None, 'model_size': WIDE_SIZE, 'by_rows': stage})
         # the row's own numbers come from the row phase (main)

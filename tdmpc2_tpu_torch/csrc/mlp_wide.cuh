@@ -102,6 +102,8 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 
+#include <mutex>
+
 #include "mlp_rows.cuh"
 
 namespace tdm {
@@ -1122,9 +1124,11 @@ cudaError_t prepare_gemm(int* resident = nullptr) {
 }
 
 // Before a row kernel's launch with `smem` bytes of dynamic shared memory:
-// the memory opted into, and the blocks the card holds at once (blocks an
-// SM x SMs, the persistent grid's most), asked once per (kernel, bytes,
-// device) and kept.
+// the blocks the card holds at once (blocks an SM x SMs, the persistent
+// grid's most) and the memory opted into, asked once per (kernel, bytes,
+// device) and kept: a launch that finds its entry makes no attribute or
+// occupancy call. A mutex guards the table (and opt_in_smem's, which only
+// a miss reaches).
 template <class K>
 cudaError_t prepare_rows(K* kernel, int smem, int* resident) {
   struct Entry {
@@ -1133,16 +1137,19 @@ cudaError_t prepare_rows(K* kernel, int smem, int* resident) {
   };
   static Entry table[64];
   static int used = 0;
-  cudaError_t e = smem > 0 ? opt_in_smem(kernel, smem) : cudaSuccess;
+  static std::mutex mu;
   int dev = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const void* k = reinterpret_cast<const void*>(kernel);
+  const std::lock_guard<std::mutex> lock(mu);
   for (int i = 0; i < used; ++i)
     if (table[i].kernel == k && table[i].dev == dev && table[i].smem == smem) {
       *resident = table[i].blocks;
       return cudaSuccess;
     }
+  if (smem > 0) e = opt_in_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
   int sms = 0, per_sm = 0;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)

@@ -394,6 +394,49 @@ extern "C" int tdm_value_sampled_wide(const void* const* wptrs, const int* dims,
                     scratch, lds, launched, stream);
 }
 
+// The wide engine's staging alone (stage_kernel, as the sampled step on
+// the wide engine launches it at step t), for the checks and timings of
+// chip_smoke.py and tests/test_torch_cuda.py (no path calls it; ops/wide.py
+// stage): step t's actions of N envs of S rows sampled as
+// tdm_value_sampled_wide samples them (operands as there), written in f32
+// to acts and as bf16 into the action columns of x [N*S, ldx] (the z||a
+// rows, zeros up to up16(A)); with load_z also the latent z0 into its
+// columns (zeros up to up16(L)) and G, q, term and term_at (each [N*S],
+// each may be null) zeroed. launched [4] as above.
+extern "C" int tdm_wide_stage(const int* dims, int N, int S, int t, int load_z,
+                              const float* z0, long zn, long zs, const float* mean, long mn,
+                              const float* stdv, long sn, const float* noise, long nn,
+                              const float* pi_acts, long pn, int n_pi, float* acts,
+                              const float* amask, long amn, void* x, long ldx, float* G,
+                              float* q, float* term, int* term_at, int* launched,
+                              void* stream) {
+  using namespace tdm;
+  const void* none[kNumOps] = {};
+  Scratch sc{};
+  sc.x = static_cast<uint16_t*>(x);
+  sc.ldx = ldx;
+  Wide wd(none, dims, N, S, nullptr, 1, sc, static_cast<cudaStream_t>(stream));
+  if (!wide_fits(wd.d)) return kNoPlan;
+  if (amask == nullptr || t < 0 || t >= wd.d.H || ldx < up16(wd.d.L) + up16(wd.d.A))
+    return static_cast<int>(cudaErrorInvalidValue);
+  StageArgs s{};
+  s.t = t;
+  s.load_z = load_z;
+  s.z0 = z0;
+  s.zn = zn;
+  s.zs = zs;
+  s.sp = Sampling{mean, mn, stdv, sn, noise, nn, pi_acts, pn, n_pi, acts};
+  s.amask = amask;
+  s.amn = amn;
+  s.G = G;
+  s.q = q;
+  s.term = term;
+  s.term_at = term_at;
+  wd.stage(s);
+  wd.report(launched);
+  return wd.err;
+}
+
 // out = {rows per block, shared bytes of one block, ring stages, blocks
 // per SM} of the value kernel at these dims; returns an error code.
 extern "C" int tdm_value_plan(const int* dims, int* out) {

@@ -52,6 +52,9 @@ SIGNATURES = {
                                           _P, _L, _P, _L, _P, _P, _PTRS,
                                           _LONGS, _INTS, _P),
     ('value', 'tdm_value_plan'): (_INTS, _INTS),
+    ('value', 'tdm_wide_stage'): (_INTS, _I, _I, _I, _I, _P, _L, _L, _P, _L, _P, _L,
+                                  _P, _L, _P, _L, _I, _P, _P, _L, _P, _L, _P, _P,
+                                  _P, _P, _INTS, _P),
     ('cem', 'tdm_pi_rollout_plan'): (_INTS, _INTS),
     ('cem', 'tdm_pi_rollout'): (_PTRS, _INTS, _F, _F, _I, _I, _P, _L, _P, _L,
                                 _P, _I, _P, _L, _P, _P),

@@ -43,8 +43,9 @@ value step is 13 launches a horizon step (19 with the termination gate) +
 a pi rollout 12 H - 5, 6 H - 3 products and as many row kernels, one
 staging; a rollout 13 H, 6 H products and row kernels, H stagings. `gemm`
 launches one product on given operands (the library's `tdm_wide_gemm`),
-and `rows` one row kernel (`tdm_wide_rows`; its plain version
-`rows_plain`), for checks and timings; no path calls them.
+`rows` one row kernel (`tdm_wide_rows`; its plain version `rows_plain`)
+and `stage` one staging (`tdm_wide_stage`; `stage_plain`), for checks
+and timings; no path calls them.
 
 The row kernel (csrc/mlp_wide.cuh row_kernel, row_narrow_kernel): the
 LayerNorm modes stream a row group's rows by bulk copies into a ring of
@@ -339,9 +340,11 @@ def rows(mode, y, dims, S: int, *, nsplit: int = 1, pstride: int = 0, gain=None,
     function are `rows_plain`'s, which it takes on CPU tensors. On the card
     y's rows and partial rows start on 16 bytes (y.stride(0), pstride: 4
     columns), dst's rows on 8 bytes; head int32; discs [N, > t] with unit
-    inner stride. Returns the launch's plan: threads a row, row groups a
-    block, ring stages, shared bytes a block, blocks launched and the
-    blocks the card holds at once (None on the CPU)."""
+    inner stride. A y of row stride 0 (one row expanded, nsplit 1) has
+    every row read from the same memory: a diagnostic of what the reads
+    from device memory cost. Returns the launch's plan: threads a row, row
+    groups a block, ring stages, shared bytes a block, blocks launched and
+    the blocks the card holds at once (None on the CPU)."""
     kw = dict(nsplit=nsplit, pstride=pstride, gain=gain, beta=beta, head=head,
               bins=bins, dst=dst, dpad=dpad, fdst=fdst, G=G, q=q, term=term,
               term_at=term_at, discs=discs, t=t, out=out, eps=eps, amask=amask,
@@ -351,10 +354,12 @@ def rows(mode, y, dims, S: int, *, nsplit: int = 1, pstride: int = 0, gain=None,
         return None
     ncols = row_width(mode, dims)
     R = y.shape[0]
+    width = (nsplit - 1) * pstride + -(-ncols // 4) * 4     # what a row's copy reads
     aligned = (y.dtype == torch.float32 and y.stride(1) == 1 and y.stride(0) % 4 == 0
                and y.data_ptr() % 16 == 0 and R % S == 0 and dpad % 4 == 0
                and 1 <= nsplit <= 8 and (nsplit == 1 or pstride % 4 == 0)
-               and (nsplit - 1) * pstride + -(-ncols // 4) * 4 <= y.stride(0))
+               and (width <= y.stride(0)
+                    or (y.stride(0) == 0 and nsplit == 1 and width <= y.shape[1])))
     if dst is not None:
         aligned &= (dst.dtype == torch.bfloat16 and dst.stride(1) == 1
                     and dst.stride(0) % 4 == 0 and dst.data_ptr() % 8 == 0)
@@ -389,3 +394,72 @@ def rows(mode, y, dims, S: int, *, nsplit: int = 1, pstride: int = 0, gain=None,
 
 
 rows.launches = 0
+
+
+def stage_plain(dims, S: int, t: int, z0, mean, std, noise, pi_acts, amask, x, acts, *,
+                load_z: bool = False, G=None, q=None, term=None, term_at=None):
+    """The plain version of one staging: step t's actions of N envs of S
+    rows, `ops/value.py` sample_actions_plain's (mean, std [N, H*A]; noise
+    [N, S, H*A]; pi_acts [N, n_pi, H*A]; amask [A] or [N, A]) at columns t*A
+    to (t+1)*A, into acts [N, S, H*A] (f32) and the action columns of x
+    [N*S, >= up16(L) + up16(A)] (bf16, zeros up to up16(A)); with load_z
+    also z0 [N, S, L] into the latent columns (zeros up to up16(L)), and G,
+    q, term, term_at zeroed where given."""
+    from tdmpc2_tpu_torch.ops.value import sample_actions_plain
+    L, A = dims[0], dims[2]
+    Lp, Ap = _up16(L), _up16(A)
+    N = mean.shape[0]
+    k = slice(t * A, (t + 1) * A)
+    a = sample_actions_plain(mean, std, noise, pi_acts, amask)[..., k]
+    acts[..., k] = a
+    x[:, Lp:Lp + A] = a.reshape(N * S, A).to(x.dtype)
+    x[:, Lp + A:Lp + Ap] = 0
+    if load_z:
+        x[:, :L] = z0.expand(N, S, L).reshape(N * S, L).to(x.dtype)
+        x[:, L:Lp] = 0
+        for v in (G, q, term, term_at):
+            if v is not None:
+                v.zero_()
+
+
+def stage(dims, S: int, t: int, z0, mean, std, noise, pi_acts, amask, x, acts, *,
+          load_z: bool = False, G=None, q=None, term=None, term_at=None):
+    """One launch of the wide engine's staging on given operands (the
+    library's `tdm_wide_stage`, as the sampled value step launches it at
+    step t; no path calls it), for checks and timings; the arguments and
+    the function are `stage_plain`'s, which it takes on CPU tensors. On the
+    card: f32 operands with unit inner stride, noise's and pi_acts' rows H*A
+    apart, acts contiguous, amask's rows contiguous; x bf16 with unit inner
+    stride; G, q, term f32 and term_at int32, contiguous [N*S]."""
+    kw = dict(load_z=load_z, G=G, q=q, term=term, term_at=term_at)
+    if x.device.type == 'cpu':
+        stage_plain(dims, S, t, z0, mean, std, noise, pi_acts, amask, x, acts, **kw)
+        return
+    L, A, H = dims[0], dims[2], dims[6]
+    N, HA = mean.shape[0], H * A
+    f32 = (z0, mean, std, noise, pi_acts, amask, acts)
+    ok = (all(v.dtype == torch.float32 and v.stride(-1) == 1 for v in f32)
+          and x.dtype == torch.bfloat16 and x.stride(1) == 1 and x.shape[0] == N * S
+          and x.shape[1] >= _up16(L) + _up16(A) and acts.is_contiguous()
+          and tuple(acts.shape) == (N, S, HA) and tuple(noise.shape) == (N, S, HA)
+          and noise.stride(1) == HA and pi_acts.shape[1] <= S
+          and (pi_acts.shape[1] == 0 or pi_acts.stride(1) == HA)
+          and all(v is None or v.is_contiguous() for v in (G, q, term, term_at)))
+    if not ok:
+        raise ValueError(f'wide.stage: operands that do not fit dims {tuple(dims)} '
+                         f'and {N} envs of {S} rows')
+    n = counts()
+    lib = _build.library('value')
+    rc = lib.tdm_wide_stage(
+        (ctypes.c_int * 7)(*dims), N, S, t, int(load_z), z0.data_ptr(), z0.stride(0),
+        z0.stride(1), mean.data_ptr(), mean.stride(0), std.data_ptr(), std.stride(0),
+        noise.data_ptr(), noise.stride(0), pi_acts.data_ptr(), pi_acts.stride(0),
+        pi_acts.shape[1], acts.data_ptr(), amask.data_ptr(),
+        amask.stride(0) if amask.dim() == 2 else 0, x.data_ptr(), x.stride(0),
+        _ptr(G), _ptr(q), _ptr(term), _ptr(term_at), n,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, 'wide staging', dims)
+    stage.launches += n[3]
+
+
+stage.launches = 0

@@ -34,10 +34,13 @@ ring) at each distinct product of the 317M model at 512 and 4,096 rows
 against the plain product, within 1e-4 of |x| @ |W|, its plan the
 mirror's, each env's rows of an N=8 launch bit for bit a one-env
 launch's; and its row kernel alone (tdm_wide_rows) in every mode at 512,
-1,920 and 4,096 rows of the 317M model's widths, and a LayerNorm row of
-8 partial rows, against ops/wide.py rows_plain: bf16 outputs within one
-bf16 step, f32 outputs at 1e-4, its plan the mirror's, N=8 bit for bit
-one-env launches. The elite kernel is held at its edges (S = 77,
+1,920 and 4,096 rows of the 317M model's widths (tests/row_cases.py, the
+cases chip_smoke.py's row phase shares), a LayerNorm row of 8 partial
+rows and LayerNorm + SimNorm at groups 2, 4 and 16, against ops/wide.py
+rows_plain: bf16 outputs within one bf16 step, f32 outputs at 1e-4, its
+plan the mirror's, N=8 bit for bit one-env launches; and its staging
+alone (tdm_wide_stage) over a sampled step's H launches against
+stage_plain bit for bit. The elite kernel is held at its edges (S = 77,
 2048 and 28,000, HA = 114, E = 1 and E = S, ties across the boundary, all
 tied, NaN, inf and +-3e38), its N=8 launch against 8 one-env launches bit
 for bit, and the canary at n = 1, 3, 1027 and at a storage offset. The
@@ -58,7 +61,6 @@ ml_dtypes), at one env on recorded observations: the planner's kernels
 against their plain versions and the plan's graph against its eager body,
 and one update from the full hopper-hop train state against the CPU's."""
 
-import sys
 from pathlib import Path
 
 import numpy as np
@@ -79,10 +81,8 @@ from tdmpc2_tpu_torch.ops.value import (PACKED, WIDE, dynamics_plain, gate_check
 from tdmpc2_tpu_torch.tdmpc2 import PLAN_WRAPPERS, TDMPC2, UpdateNoise
 from tdmpc2_tpu_torch.utils import tree
 from tdmpc2_tpu_torch.utils.cuda_graph import Graph
-import wide_mirror as wm  # tests/ is on pytest's path; a `tests` package may be installed
-
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-import chip_smoke  # noqa: E402  (its row-kernel operands and checks; imports no jax)
+import row_cases as rc  # tests/ is on pytest's path; a `tests` package may be installed
+import wide_mirror as wm
 
 pytestmark = pytest.mark.cuda
 
@@ -1013,39 +1013,39 @@ def test_wide_product_matches_plain_at_317_shapes(agent, K, N, kind, n):
 
 
 @pytest.mark.parametrize('R,S', [(512, 512), (1920, 24), (4096, 512)])
-@pytest.mark.parametrize('label,mode,heads', chip_smoke.ROW_CASES)
+@pytest.mark.parametrize('label,mode,heads', rc.ROW_CASES)
 def test_wide_rows_match_plain_at_317_widths(agent, label, mode, heads, R, S):
     """The row kernel alone (ops/wide.py rows, the library's tdm_wide_rows)
     at the 317M model's widths on the rows of one env, the pi rollout's N=80
-    x 24 and N=8 (chip_smoke.row_operands: the narrow outputs as 8 partial
+    x 24 and N=8 (row_cases.row_operands: the narrow outputs as 8 partial
     rows of a split product, the Q heads' LayerNorm with a head per env,
     NaN wherever the kernel must not read or write) against rows_plain on
     the same rows: bf16 outputs within one bf16 step, |d| <= 2^-7 |plain| +
     1e-6 (the f32 order ahead of the rounding), f32 outputs (the latent's
     f32 rows, G, q, the value, the actions) at 1e-4, the gate's flags
-    exactly (chip_smoke.hold_rows); one launch counted; its plan the
+    exactly (row_cases.hold_rows); one launch counted; its plan the
     mirror's (tests/wide_mirror.py row_plan), on no more blocks than the
     card holds; at N=8 each env's rows bit for bit its one-env launch's."""
     g = torch.Generator(device='cuda').manual_seed(R + 7 * len(label))
-    kw, per_row, per_env = chip_smoke.row_operands(mode, R, S, g, heads,
-                                                   fdst=mode == 'latent')
-    got = chip_smoke.row_clone(kw, per_row, per_env)
-    want = chip_smoke.row_clone(kw, per_row, per_env)
+    kw, per_row, per_env = rc.row_operands(mode, R, S, g, _317_DIMS, heads,
+                                           fdst=mode == 'latent')
+    got = rc.row_clone(kw, per_row, per_env)
+    want = rc.row_clone(kw, per_row, per_env)
     n0 = wide.rows.launches
     plan = wide.rows(mode, got.pop('y'), _317_DIMS, S, **got)
     assert wide.rows.launches == n0 + 1
     wide.rows_plain(mode, want.pop('y'), _317_DIMS, S, **want)
-    chip_smoke.hold_rows(label, chip_smoke.row_outputs(mode, got),
-                         chip_smoke.row_outputs(mode, want), kw.get('dpad', 0))
+    rc.hold_rows(label, rc.row_outputs(mode, got), rc.row_outputs(mode, want),
+                 kw.get('dpad', 0))
     mirror = wm.row_plan(mode, wide.row_width(mode, _317_DIMS), kw['nsplit'], kw['pstride'],
                          A=_317_DIMS[2])
     assert {k: plan[k] for k in mirror} == mirror
     assert 1 <= plan['blocks'] <= plan['resident']
     if R // S == 8:
         for e in (0, 5):
-            one = chip_smoke.row_clone(kw, per_row, per_env, e, S)
+            one = rc.row_clone(kw, per_row, per_env, e, S)
             wide.rows(mode, one.pop('y'), _317_DIMS, S, **one)
-            for k, x in chip_smoke.row_outputs(mode, one).items():
+            for k, x in rc.row_outputs(mode, one).items():
                 y = got[k][e * S:(e + 1) * S]
                 if x.dtype == torch.bfloat16:
                     x, y = x.view(torch.int16), y.view(torch.int16)
@@ -1075,11 +1075,84 @@ def test_wide_rows_layernorm_sums_8_partial_rows(agent, mode, dims):
         outs.append(o)
     plan = wide.rows(mode, y, dims, S, **kw, **outs[0])
     wide.rows_plain(mode, y, dims, S, **kw, **outs[1])
-    chip_smoke.hold_rows(f'{mode}, 8 partial rows', outs[0], outs[1], ncols)
+    rc.hold_rows(f'{mode}, 8 partial rows', outs[0], outs[1], ncols)
     mirror = wm.row_plan(mode, ncols, 8, ncols)
     assert {k: plan[k] for k in mirror} == mirror
 
 
+@pytest.mark.parametrize('L', [64, 1376])
+@pytest.mark.parametrize('group', [2, 4, 16])
+def test_wide_rows_simnorm_groups(agent, group, L):
+    """LayerNorm + SimNorm at SimNorm's groups other than 8 (the row
+    kernel's runtime group: pairs and fours inside a lane's float4, sixteen
+    across four lanes), on a 64-column latent and on the 317M model's
+    1,376 columns, 2 envs of 512 rows, against rows_plain: bf16 within one
+    bf16 step, f32 at 1e-4 (row_cases.hold_rows); its plan the mirror's."""
+    dims = (L, 128 if L == 64 else 4096, 3, 101, 2, group, 3)
+    g = torch.Generator(device='cuda').manual_seed(L + group)
+    kw, per_row, _ = rc.row_operands('latent', 1024, 512, g, dims, fdst=True)
+    got, want = rc.row_clone(kw, per_row, []), rc.row_clone(kw, per_row, [])
+    plan = wide.rows('latent', got.pop('y'), dims, 512, **got)
+    wide.rows_plain('latent', want.pop('y'), dims, 512, **want)
+    rc.hold_rows(f'SimNorm of group {group}, {L} columns', rc.row_outputs('latent', got),
+                 rc.row_outputs('latent', want), kw['dpad'])
+    mirror = wm.row_plan('latent', L, 1, 0)
+    assert {k: plan[k] for k in mirror} == mirror
+
+
+@pytest.mark.parametrize('N,n_pi', [(1, 24), (8, 24), (8, 0)])
+def test_wide_stage_matches_plain_at_317_widths(agent, N, n_pi):
+    """The wide engine's staging alone (ops/wide.py stage, the library's
+    tdm_wide_stage) over the H stagings of a sampled value step at the 317M
+    model's widths, N envs of 512 rows (a broadcast latent, a mask row per
+    env, the noise a strided view as the planner passes it), against
+    stage_plain exactly: the z||a rows bit for bit, nothing written past
+    the padded widths, the f32 actions sample_actions_plain's; G, q, term
+    and term_at zeroed; H launches counted; at N=8 each env's rows bit for
+    bit its one-env launch's."""
+    dims, S, dev = _317_DIMS, 512, torch.device('cuda')
+    L, A, H = dims[0], dims[2], dims[6]
+    HA, width = H * A, wm.up16(L) + wm.up16(A)
+    g = torch.Generator(device=dev).manual_seed(N + n_pi)
+    z0 = torch.randn(N, 1, L, device=dev, generator=g).expand(N, S, L)
+    mean = torch.rand(N, HA, device=dev, generator=g) * 1.6 - 0.8
+    std = torch.rand(N, HA, device=dev, generator=g) * 1.9 + 0.1
+    noise = torch.randn(N, 2, S, HA, device=dev, generator=g)[:, 0]
+    pi_acts = torch.rand(N, n_pi, HA, device=dev, generator=g) * 2 - 1
+    amask = (torch.rand(N, A, device=dev, generator=g) < 0.8).float()
+
+    def run(fn, e=None):
+        sel = (lambda x: x) if e is None else (lambda x: x[e:e + 1])
+        n = 1 if e is not None else N
+        o = dict(x=torch.full((n * S, width + 16), float('nan'), device=dev,
+                              dtype=torch.bfloat16),
+                 acts=torch.full((n, S, HA), float('nan'), device=dev),
+                 G=torch.ones(n * S, device=dev), q=torch.ones(n * S, device=dev),
+                 term=torch.ones(n * S, device=dev),
+                 term_at=torch.ones(n * S, device=dev, dtype=torch.int32))
+        for t in range(H):
+            fn(dims, S, t, sel(z0), sel(mean), sel(std), sel(noise), sel(pi_acts), sel(amask),
+               o['x'], o['acts'], load_z=t == 0, G=o['G'], q=o['q'], term=o['term'],
+               term_at=o['term_at'])
+        return o
+
+    n0 = wide.stage.launches
+    got = run(wide.stage)
+    assert wide.stage.launches == n0 + H
+    want = run(wide.stage_plain)
+    assert torch.equal(got['x'].view(torch.int16), want['x'].view(torch.int16))
+    assert torch.equal(got['acts'], want['acts'])
+    assert torch.equal(got['acts'], sample_actions_plain(mean, std, noise, pi_acts, amask))
+    assert all(bool((got[k] == 0).all()) for k in ('G', 'q', 'term', 'term_at'))
+    if N == 8:
+        for e in (0, 5):
+            one = run(wide.stage, e)
+            assert torch.equal(one['x'].view(torch.int16),
+                               got['x'][e * S:(e + 1) * S].view(torch.int16))
+            assert torch.equal(one['acts'], got['acts'][e:e + 1])
+
+
+# ------------------------------------------------------- the plan's graph
 # ------------------------------------------------------- the plan's graph
 
 

@@ -25,12 +25,17 @@ the kernels:
   heads at the 317M model's widths; the row kernel's layout
   (tests/wide_mirror.py `row_plan`, `row_owners`): each column of a row
   owned once, its owner following from the width alone;
+- the staging's plain version (ops/wide.py `stage_plain`) against the TPU
+  kernel's sampling in JAX, and each library entry's ctypes argument
+  types (ops/_build.py `SIGNATURES`) against its declaration in csrc/;
 - mt80 at model_size 317: the Meta-World dims of chip_smoke's literals
   against the JAX adapter's, and the offline buffer that the port's
   trainer loads from chunks of that geometry against the JAX trainer's, at
   tiny depth (no agent is built: the loader reads only the config).
 """
 
+import ctypes
+import re
 import sys
 import types
 from pathlib import Path
@@ -52,7 +57,7 @@ from tdmpc2_tpu.tdmpc2 import TDMPC2 as JTDMPC2
 from tdmpc2_tpu.trainer.offline import OfflineTrainer as JOfflineTrainer
 from tdmpc2_tpu_torch.config import MODEL_SIZE, Config, parse_cfg
 from tdmpc2_tpu_torch.interop import params_from_jax
-from tdmpc2_tpu_torch.ops import cem, wide
+from tdmpc2_tpu_torch.ops import _build, cem, wide
 from tdmpc2_tpu_torch.ops import value as tv
 from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
 from tdmpc2_tpu_torch.trainer.offline import OfflineTrainer
@@ -679,6 +684,77 @@ def test_row_layout_owns_each_column_once(mode, ncols):
             split = wm.row_plan(mode, width, 8, _up16(width))
             assert split['threads_a_row'] == plan['threads_a_row']
             assert 1 <= split['stages'] and split['smem_bytes'] <= wm.SMEM_MAX
+
+
+@pytest.mark.parametrize('n_pi,mask_per_env', [(0, False), (3, False), (3, True)])
+def test_stage_plain_matches_jax_sampling(n_pi, mask_per_env):
+    """ops/wide.py stage_plain, the function the wide engine's staging
+    (stage_kernel) is held to on the card, over the H stagings of a value
+    step on numpy-seeded inputs (2 envs of 7 rows, 3 of them policy-prior
+    rows where given; the action mask one row for every env or one per env)
+    against the TPU kernel's sampling (pallas_cem.py:136-147: clip(mean +
+    std * noise), the policy-prior rows, the mask) in JAX within 1e-6 (XLA
+    may fuse the multiply-add): the f32 actions, their bf16 copies in the
+    action columns, the latent's bf16 copy at t = 0, zeros to the padded
+    widths, G, q, term and term_at zeroed; `stage` takes the same function
+    on the CPU."""
+    dims = (20, 32, 3, 11, 2, 4, 3)
+    L, A, H = dims[0], dims[2], dims[6]
+    N, S, HA, Lp, Ap = 2, 7, H * A, _up16(L), _up16(A)
+    rng = np.random.default_rng(31 + n_pi + mask_per_env)
+    x = dict(z=rng.normal(size=(N, 1, L)), mean=rng.uniform(-0.8, 0.8, (N, HA)),
+             std=rng.uniform(0.1, 2.0, (N, HA)), noise=rng.normal(size=(N, S, HA)),
+             pi_acts=rng.uniform(-1, 1, (N, n_pi, HA)),
+             amask=(rng.random((N, A) if mask_per_env else (A,)) < 0.7))
+    x = {k: v.astype(np.float32) for k, v in x.items()}
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    xs = torch.full((N * S, Lp + Ap + 16), float('nan'), dtype=torch.bfloat16)
+    acts = torch.full((N, S, HA), float('nan'))
+    G, q, term = (torch.ones(N * S) for _ in range(3))
+    term_at = torch.ones(N * S, dtype=torch.int32)
+    for step in range(H):
+        wide.stage(dims, S, step, t['z'].expand(N, S, L), t['mean'], t['std'], t['noise'],
+                   t['pi_acts'], t['amask'], xs, acts, load_z=step == 0, G=G, q=q,
+                   term=term, term_at=term_at)
+    m = np.broadcast_to(x['amask'], (N, A))
+    ref = jnp.clip(x['mean'][:, None] + x['std'][:, None] * x['noise'], -1.0, 1.0)
+    ref = jnp.concatenate([x['pi_acts'], ref[:, n_pi:]], axis=1)
+    ref = np.asarray(ref * jnp.tile(m, (1, H))[:, None])
+    np.testing.assert_allclose(acts.numpy(), ref, rtol=0, atol=1e-6)
+    assert torch.equal(acts, tv.sample_actions_plain(t['mean'], t['std'], t['noise'],
+                                                     t['pi_acts'], t['amask']))
+    assert torch.equal(xs[:, Lp:Lp + A].view(torch.int16),
+                       acts[..., (H - 1) * A:].reshape(N * S, A).to(torch.bfloat16)
+                       .view(torch.int16))
+    assert torch.equal(xs[:, :L].view(torch.int16),
+                       t['z'].expand(N, S, L).reshape(N * S, L).to(torch.bfloat16)
+                       .view(torch.int16))
+    assert (xs[:, L:Lp] == 0).all() and (xs[:, Lp + A:Lp + Ap] == 0).all()
+    assert xs[:, Lp + Ap:].isnan().all()
+    assert all((v == 0).all() for v in (G, q, term, term_at))
+
+
+_SIG_TYPES = {'int': ctypes.c_int, 'long': ctypes.c_long, 'float': ctypes.c_float}
+
+
+@pytest.mark.parametrize('lib,fn', sorted(_build.SIGNATURES))
+def test_library_signatures_match_the_sources(lib, fn):
+    """ops/_build.py SIGNATURES, the ctypes argument types the wrappers call
+    each library entry with, against the entry's `extern "C"` declaration in
+    csrc/<lib>.cu: as many arguments, a pointer type where the source has a
+    pointer and int, long or float where it has that (ctypes passes its
+    arguments by position, so a missing or moved one would go unnoticed)."""
+    src = (Path(_build.__file__).resolve().parent.parent / 'csrc' / f'{lib}.cu').read_text()
+    head = re.search(rf'extern "C" int {fn}\(([^)]*)\)', src)
+    assert head is not None, f'{fn} not declared in csrc/{lib}.cu'
+    params = [' '.join(p.split()) for p in head.group(1).split(',')]
+    argtypes = _build.SIGNATURES[(lib, fn)]
+    assert len(params) == len(argtypes), (fn, params)
+    for p, a in zip(params, argtypes):
+        if '*' in p:
+            assert a is ctypes.c_void_p or issubclass(a, ctypes._Pointer), (fn, p, a)
+        else:
+            assert a is _SIG_TYPES[p.rsplit(' ', 1)[0].replace('const ', '')], (fn, p, a)
 
 
 # --------------------------------------------------- mt80 at model_size 317
