@@ -5,6 +5,7 @@
     python3 chip_smoke.py --compare DIR [PAIRS]  # kernel times against the port in DIR
     python3 chip_smoke.py --cycles        # value, elite and row kernels: block 0 cycles
     python3 chip_smoke.py --rows          # the build, then the row phase alone
+    python3 chip_smoke.py --stage         # the build, the staging and the fold's products
 
 Builds the port's CUDA kernels from `tdmpc2_tpu_torch/csrc` with nvcc,
 runs the kernel-engine canary, holds every kernel against its plain
@@ -41,7 +42,7 @@ and read just after:
   tasks of obs 39 and action 4): `OfflineTrainer` for 16 iterations on 2
   seeded chunks of the mt80 dataset's geometry (101-row episodes), then
   `act_tasks` over the 80 tasks for 3 lockstep steps, each a graph replay of
-  the 13 planner calls and their 373 launches of the wide engine.
+  the 13 planner calls and their 385 launches of the wide engine.
 
 At model_size 317 no row tile fits, and the value step and the pi rollout
 take the layer-per-launch engine (csrc/mlp_wide.cuh, ops/wide.py); the
@@ -77,9 +78,16 @@ yardstick that computes a part of the function); LayerNorm + SimNorm also
 at SimNorm's groups 2, 4 and 16. Its cases and their check are
 tests/row_cases.py, loaded by its path (the card tests share it). The
 staging of each step (`stage_kernel`) is held alone through the library's
-`tdm_wide_stage` (`ops/wide.py` `stage`) on the N=80 value step's inputs
-(40,960 rows) against `stage_plain`, the z||a rows bit for bit and the
-sampled actions exactly, and timed.
+`tdm_wide_stage` (`ops/wide.py` `stage`) in each mode its launches take
+(step 0 with the latent broadcast or one a row, a later step's actions,
+and the folded step 0 that writes each env's latent once into zb) at 512,
+4,096 and 40,960 rows against `stage_plain`, the z||a rows, zb and the
+sampled actions bit for bit, N=8 against a one-env launch, and timed
+against the bytes each mode's function must move; the folded first
+layers' two products (the envs' latents into u with the task's bias row,
+then the rows' action columns with u's row of the env as the bias) are
+held and timed in the product phase beside the z||a product they replace
+at step 0.
 
 The planner's kernels are also held on the task axis at mt30/model_size 48,
 N = 30 tasks with mixed action dims (each env's task id picks its rows of
@@ -1057,31 +1065,32 @@ def plan_counters(I):
                 'plan_replays': Graph.replays.get('plan', 0),
                 'plan_captures': Graph.captures.get('plan', 0)}
 
-    def check_plan_counts(name, counts, plans=None, wide_per_plan=0, products_per_plan=0):
+    def check_plan_counts(name, counts, plans=None, wide_per_plan=0, products_per_plan=0,
+                          stages_per_plan=0):
         """Each plan of a path: one pi rollout, I sampled value launches and
         I elite launches (1 + 2 I kernels), none of the given-actions value
         launch, and one graph replay, or the eager run of a capture; and
         `wide_per_plan` device launches of the wide engine (0 below 2048
-        columns), `products_per_plan` of them products, as many row
-        kernels (one after each product) and the rest stagings, each kind
-        counted where the library launches it."""
+        columns), `products_per_plan` of them products, `stages_per_plan`
+        stagings and the rest row kernels, each kind counted where the
+        library launches it."""
         p = counts['cem_pi_rollout']
-        stages_per_plan = wide_per_plan - 2 * products_per_plan
+        rows_per_plan = wide_per_plan - products_per_plan - stages_per_plan
         ok = (p > 0 and counts['value_sampled'] == I * p and counts['cem_elite'] == I * p
               and counts['value'] == 0 and counts['plan_replays'] > 0
               and counts['plan_replays'] + counts['plan_captures'] == p
               and counts['wide'] == wide_per_plan * p
               and counts['wide_gemm'] == products_per_plan * p
-              and counts['wide_row'] == products_per_plan * p
+              and counts['wide_row'] == rows_per_plan * p
               and counts['wide_stage'] == stages_per_plan * p
               and (plans is None or p == plans))
         log(f'  {name}: {p} plans, {1 + 2 * I} planner launches a plan '
             f'({counts["value_sampled"]} sampled value, {counts["cem_elite"]} elite), '
             f'{counts["plan_replays"]} graph replays, {counts["plan_captures"]} captures'
             + (f'; the wide engine {counts["wide"]} launches, {wide_per_plan} a plan: '
-               f'{counts["wide_gemm"]} products and {counts["wide_row"]} row kernels '
-               f'({products_per_plan} a plan each), {counts["wide_stage"]} stagings '
-               f'({stages_per_plan} a plan)'
+               f'{counts["wide_gemm"]} products ({products_per_plan} a plan), '
+               f'{counts["wide_row"]} row kernels ({rows_per_plan} a plan), '
+               f'{counts["wide_stage"]} stagings ({stages_per_plan} a plan)'
                if wide_per_plan else ''))
         if not ok:
             raise AssertionError(f'{name}: planner launches {counts} for {plans} plans')
@@ -1589,6 +1598,13 @@ PRODUCT_SHAPES = (
     ('Q: z||a -> M', 1392, 4096, 'q0'), ('Q: M -> M', 4096, 4096, 'q'),
     ('Q: M -> bins', 4096, 101, 'q'))
 PRODUCT_ENVS = (1, 8, 80)
+# A value step's folded first layers (step 0, the latent broadcast): u =
+# the envs' latents . the layout's latent block + the task's bias row, on a
+# row an env ('task', S = 1), then the rows' action columns . its action
+# block + u's row of the env ('env': an identity task index into u), each
+# block of a [4096, 1392] wide layout read with its rows 1392 apart.
+FOLD_SHAPES = (('fold: latent -> M (u)', 1376, 4096, 'task'),
+               ('fold: actions -> M', 16, 4096, 'env'))
 PI_SHAPES = ('latent -> M', 'M -> M', 'M -> latent', 'M -> pi', 'z||a -> M')
 ROLLOUT_5M = (512, 512, 6, 101, 5, 8, 3)
 ROLLOUT_5M_SHAPES = (('z||a -> M', 528, 512, ''), ('M -> M', 512, 512, ''),
@@ -1630,16 +1646,18 @@ def sass_counts():
     return out
 
 
-def product_phase():
+def product_phase(only=None):
     """The product alone on the card, each shape of PRODUCT_SHAPES at N=1,
-    8 and 80 envs of 512 rows, the pi rollout's at N=80 x 24 rows and the
-    5M rollout's at 512 rows: held against the plain product (x.float() @
-    W.float() + bias) within PRODUCT_RTOL of |x| @ |W| (x's columns past K
-    NaN, so that a read past K shows); N=8 against a one-env launch on env
-    3's rows bit for bit; timed by CUDA events beside torch.matmul on the
-    same bf16 operands (cuBLAS, in turns), each one's own device time by
-    torch.profiler, the plain product's time, and the bound. Returns (the
-    shapes' records, max |err|)."""
+    8 and 80 envs of 512 rows, the pi rollout's at N=80 x 24 rows, the 5M
+    rollout's at 512 rows and the folded first layers' (FOLD_SHAPES) at N=1,
+    8 and 80 envs (only the 317M shapes named in `only`, when given): held
+    against the plain product (x.float() @ W.float() + bias) within
+    PRODUCT_RTOL of |x| @ |W| (x's columns past K NaN, so that a read past
+    K shows); N=8 against a one-env launch on env 3's rows bit for bit;
+    timed by CUDA events beside torch.matmul on the same bf16 operands
+    (cuBLAS, in turns), each one's own device time by torch.profiler, the
+    plain product's time, and the bound. Returns (the shapes' records, max
+    |err|)."""
     import torch
     from tdmpc2_tpu_torch.ops import wide
     dev = torch.device('cuda')
@@ -1649,18 +1667,38 @@ def product_phase():
     cases = [(WIDE_DIMS, 512, n, sh) for n in PRODUCT_ENVS for sh in PRODUCT_SHAPES]
     cases += [(WIDE_DIMS, 24, 80, sh) for sh in PRODUCT_SHAPES if sh[0] in PI_SHAPES]
     cases += [(ROLLOUT_5M, 512, 1, sh) for sh in ROLLOUT_5M_SHAPES]
+    cases += [(WIDE_DIMS, 1 if sh[3] == 'task' else 512, n, sh)
+              for sh in FOLD_SHAPES for n in PRODUCT_ENVS]
+    if only is not None:
+        cases = [c for c in cases if c[0] is WIDE_DIMS and c[3][0] in only]
 
-    def operands(dims, S, n, K, N, kind):
+    def operands(dims, S, n, K, N, kind, fold=False):
         R, heads = n * S, NQ if kind in ('q0', 'q') else 1
         ldx = K + 16 if K % 64 else K      # the latent's x rows carry the actions after
         x = torch.randn(R, ldx, device=dev, generator=g).to(torch.bfloat16)
         x[:, K:] = float('nan')
         w = (torch.randn(heads, N, K, device=dev, generator=g) * K ** -0.5).to(torch.bfloat16)
+        if fold:
+            # a block of the first layer's wide layout [N, Lp + Ap], the other
+            # block NaN (a read past the block's K shows); the actions' x the
+            # last 16 columns of 1392-wide rows, their latent columns NaN
+            Lp = dims[0]
+            full = torch.full((N, Lp + 16), float('nan'), device=dev, dtype=torch.bfloat16)
+            blk = slice(0, Lp) if kind == 'task' else slice(Lp, Lp + 16)
+            full[:, blk] = w[0]
+            w = full[None, :, blk]
+            if kind == 'env':
+                xf = torch.full((R, Lp + 16), float('nan'), device=dev, dtype=torch.bfloat16)
+                xf[:, Lp:] = x[:, :K]
+                x = xf[:, Lp:]
         env = torch.arange(n, device=dev, dtype=torch.int32)
         task = env % n_tasks
         head = torch.stack([env % NQ, (env + 1) % NQ], 1).to(torch.int32)   # as qidx [n, 2]
         kw = dict(task=None, ntask=1, head=None, hn=2, bt=0, bh=0)
-        if kind == 'task':
+        if kind == 'env':
+            b = torch.randn(n, N, device=dev, generator=g)
+            kw.update(task=env, ntask=n, bt=N)
+        elif kind == 'task':
             b = torch.randn(n_tasks, N, device=dev, generator=g)
             kw.update(task=task, ntask=n_tasks, bt=N)
         elif kind == 'q0':
@@ -1706,7 +1744,8 @@ def product_phase():
         return y + bias
 
     for dims, S, n, (label, K, N, kind) in cases:
-        x, w, b, kw = operands(dims, S, n, K, N, kind)
+        fold = label.startswith('fold')
+        x, w, b, kw = operands(dims, S, n, K, N, kind, fold)
         R = n * S
         y, plan = wide.gemm(x, w, b, dims, S, **kw)
         got = wide.gemm_sum(y, plan, N)
@@ -1741,7 +1780,9 @@ def product_phase():
         l_dev = device_share(lib, 3)[0]
         p_ms = time_ms(lambda: plain(x, w, b, kw, S, K, N), 2)
         heads_used = 1 if kw['head'] is None else len(set(kw['head'][:, 0].tolist()))
-        by = R * K * 2 + heads_used * N * K * 2 + R * N * 4 + nbytes(b)
+        # the bias rows read: a fold's one row an env (of the task table, or of u)
+        bias_by = nbytes(b) if not fold else len(set(kw['task'].tolist())) * N * 4
+        by = R * K * 2 + heads_used * N * K * 2 + R * N * 4 + bias_by
         b_ms, b_by = bound_ms(by, 2 * R * K * N, BF16_FLOPS)
         rec = dict(shape=label, model=317 if dims is WIDE_DIMS else 5, n_envs=n, rows=R, K=K,
                    N=N, plan=plan, max_abs_err=err, tol_used=over, ms=k_ms, device_ms=k_dev,
@@ -1937,63 +1978,192 @@ def row_kernel_bytes(R):
             'row_narrow_kernel<8>': ('pi head', 1, pi)}
 
 
-def stage_bytes(R, N, L, A, H):
-    """The bytes a staging launch of the value step must move, on average
-    over its H launches: each step the rows' action columns (bf16, padded to
-    16) written, their noise read and the sampled actions written (f32); at
-    t = 0 also the latent columns (bf16, from each env's one latent row) and
-    the zeroed G, q and term."""
+# The wide engine's staging (csrc/mlp_wide.cuh stage_kernel) alone, at the
+# value step's rows (N envs of 512 at N = 1, 8, 80), in each mode its
+# launches take: step t = 0 with the latent broadcast over an env's rows
+# (zs = 0: the pi rollout's staging, and the value step's unless folded)
+# or a latent per row (zs != 0), a later step's actions alone, and the
+# folded t = 0 launch (the actions, each env's one latent into zb, the
+# identity env index).
+STAGE_ROWS = (512, 4096, 40960)
+STAGE_MODES = ('latent, broadcast', 'latent, per row', 'actions', 'folded')
+STAGE_PI = 24              # policy-prior rows an env (num_pi_trajs)
+STAGE_HEADLINE = 40960
+
+
+def stage_bytes(mode, R, N, L, A, n_pi=STAGE_PI):
+    """The bytes one staging launch in `mode` (STAGE_MODES) must move on N
+    envs of R / N rows: the rows' action columns written (bf16, padded to
+    16), each row's A noise or policy-prior values read and its sampled
+    actions written (f32), each env's mean, std and mask read; at t = 0
+    the four per-row scalars zeroed and the latent: an env's one row read
+    (broadcast, folded) or a row each (per row), written into every row's
+    latent columns (bf16, padded to 16), or into the env's row of zb and
+    its env index (folded)."""
     Lp, Ap = -(-L // 16) * 16, -(-A // 16) * 16
-    step = R * (Ap * 2 + 2 * A * 4)
-    first = R * Lp * 2 + N * L * 4 + R * 3 * 4
-    return step + first / H
+    acts = R * (Ap * 2 + 2 * A * 4) + N * 3 * A * 4
+    if mode == 'actions':
+        return acts
+    first = acts + R * 4 * 4
+    if mode == 'folded':
+        return first + N * L * 4 + N * Lp * 2 + N * 4
+    return first + R * Lp * 2 + (R if mode == 'latent, per row' else N) * L * 4
 
 
-def stage_alone(dims, S, z0, mean, std, noise, pi_acts, amask):
+def step_stage_bytes(R, N, L, A, H, folded):
+    """A value step's staging bytes a launch, on average over its H
+    launches: t = 0 folded or with the broadcast latent, then the actions."""
+    first = stage_bytes('folded' if folded else 'latent, broadcast', R, N, L, A)
+    return (first + (H - 1) * stage_bytes('actions', R, N, L, A)) / H
+
+
+def stage_alone(dims, S, mode, z0, mean, std, noise, pi_acts, amask):
     """The wide engine's staging alone (ops/wide.py stage, the library's
-    tdm_wide_stage) on a sampled value step's inputs (N envs of S rows): its
-    H launches (the latent too at t = 0) against stage_plain's on the same
-    inputs, the z||a rows bit for bit (NaN past the padded widths: nothing
-    written there), the f32 actions exactly (SAMPLE_TOL), G, q, term and
-    term_at zeroed. Returns (max |err| over the actions and the z||a rows,
-    ms a launch on average by CUDA events, the plain version's)."""
+    tdm_wide_stage), one launch in `mode` (STAGE_MODES) on a sampled value
+    step's inputs (N envs of S rows, z0 [N, S, L] broadcast or per row),
+    held against stage_plain on the same inputs bit for bit: the z||a rows
+    (NaN wherever nothing is written: past the padded widths, and the
+    latent columns of a folded or later step), the f32 actions (the other
+    steps' columns NaN), G, q, term and term_at zeroed at t = 0, zb and
+    env when folded; at N = 8 env 5's rows against its one-env launch.
+    Timed by CUDA events and by its own device time, beside stage_plain,
+    against the bytes its function must move (stage_bytes). Returns the
+    record."""
     import torch
     from tdmpc2_tpu_torch.ops import wide
     L, A, H = dims[0], dims[2], dims[6]
     N, dev = mean.shape[0], mean.device
-    R, width = N * S, -(-L // 16) * 16 + -(-A // 16) * 16
+    R, Lp = N * S, -(-L // 16) * 16
+    width = Lp + -(-A // 16) * 16
+    t, fold = (1 if mode == 'actions' else 0), mode == 'folded'
 
-    def outputs():
-        nan = (lambda *shape: torch.full(shape, float('nan'), device=dev))
-        return dict(x=nan(R, width + 16).to(torch.bfloat16), acts=nan(N, S, H * A),
-                    G=nan(R), q=nan(R), term=nan(R),
-                    term_at=torch.full((R,), -1, dtype=torch.int32, device=dev))
+    def outputs(n):
+        def nan(*shape, dtype=torch.float32):
+            return torch.full(shape, float('nan'), device=dev).to(dtype)
+        o = dict(x=nan(n * S, width + 16, dtype=torch.bfloat16), acts=nan(n, S, H * A))
+        if t == 0:
+            o.update(G=nan(n * S), q=nan(n * S), term=nan(n * S),
+                     term_at=torch.full((n * S,), -1, dtype=torch.int32, device=dev))
+        if fold:
+            o.update(zb=nan(n, Lp, dtype=torch.bfloat16),
+                     env=torch.full((n,), -1, dtype=torch.int32, device=dev))
+        return o
 
-    def step(fn, o):
-        for t in range(H):
-            fn(dims, S, t, z0, mean, std, noise, pi_acts, amask, o['x'], o['acts'],
-               load_z=t == 0, G=o['G'], q=o['q'], term=o['term'], term_at=o['term_at'])
+    def run(fn, o, e=None):
+        sel = (lambda v: v) if e is None else (lambda v: v[e:e + 1])
+        kw = {k: v for k, v in o.items() if k not in ('x', 'acts')}
+        fn(dims, S, t, sel(z0), sel(mean), sel(std), sel(noise), sel(pi_acts), sel(amask),
+           o['x'], o['acts'], load_z=t == 0, **kw)
 
-    got, want = outputs(), outputs()
+    def bits(v):
+        return v.view(torch.int16) if v.element_size() == 2 else v.view(torch.int32)
+
+    tag = f'staging alone, {mode}, {N} x {S} rows'
+    got, want = outputs(N), outputs(N)
     n0 = wide.stage.launches
-    step(wide.stage, got)
-    step(wide.stage_plain, want)
+    run(wide.stage, got)
+    run(wide.stage_plain, want)
     torch.cuda.synchronize()
-    if wide.stage.launches != n0 + H:
-        raise AssertionError(f'staging alone: {wide.stage.launches - n0} launches counted, '
-                             f'{H} expected')
-    tag = f'staging alone, {N} x {S} rows'
-    if not torch.equal(got['x'].view(torch.int16), want['x'].view(torch.int16)):
-        raise AssertionError(f'{tag}: the z||a rows differ from stage_plain\'s, max |err| '
-                             f'{max_err(got["x"][:, :width], want["x"][:, :width]):.3g}')
-    for k in ('G', 'q', 'term', 'term_at'):
-        if not bool((got[k] == 0).all()):
-            raise AssertionError(f'{tag}: {k} not zeroed')
-    err = max(hold(f'{tag}, the sampled actions', got['acts'], want['acts'], SAMPLE_TOL),
-              max_err(got['x'][:, :width], want['x'][:, :width]))
-    ms = time_ms(lambda: step(wide.stage, got), 10) / H
-    plain_ms = time_ms(lambda: step(wide.stage_plain, want), 3) / H
-    return err, ms, plain_ms
+    if wide.stage.launches != n0 + 1:
+        raise AssertionError(f'{tag}: {wide.stage.launches - n0} launches counted, 1 expected')
+    for k in got:
+        if not torch.equal(bits(got[k]), bits(want[k])):
+            fin = torch.isfinite(want[k].float())
+            raise AssertionError(f'{tag}: {k} differs from stage_plain\'s, max |err| '
+                                 f'{max_err(got[k][fin], want[k][fin]):.3g}')
+    if fold and not torch.equal(got['env'], torch.arange(N, device=dev, dtype=torch.int32)):
+        raise AssertionError(f'{tag}: env is not the identity index')
+    if N == 8:
+        one = outputs(1)
+        run(wide.stage, one, 5)
+        pairs = [('x', got['x'][5 * S:6 * S]), ('acts', got['acts'][5:6])]
+        if fold:
+            pairs.append(('zb', got['zb'][5:6]))
+        for k, v in pairs:
+            if not torch.equal(bits(one[k]), bits(v)):
+                raise AssertionError(f'{tag}: env 5 of the N=8 launch differs from its '
+                                     f'one-env launch ({k})')
+    o, p = outputs(N), outputs(N)
+    reps = 50 if R <= 4096 else 20
+    ms = time_ms(lambda: run(wide.stage, o), reps)
+    _, _, top = device_share(lambda: run(wide.stage, o), reps // 2)
+    dev_ms = sum(t_ for t_, _, k in top if 'stage_kernel' in k) or None
+    plain_ms = time_ms(lambda: run(wide.stage_plain, p), 3)
+    b_ms = stage_bytes(mode, R, N, L, A, pi_acts.shape[1]) / HBM_BYTES_PER_S * 1e3
+    log(f'  {tag}: bit for bit; kernel {ms:.4f} ms (device {dev_ms}), plain '
+        f'{plain_ms:.3f} ms; bound {b_ms:.5f} ms (bytes): '
+        + (f'{100 * b_ms / dev_ms:.1f}% of the bound' if dev_ms else 'no device time'))
+    return dict(mode=mode, rows=R, n_envs=N, max_abs_err=0.0, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by='bytes')
+
+
+def stage_phase():
+    """The staging alone (stage_alone) in each of STAGE_MODES at each of
+    STAGE_ROWS (N envs of 512 rows), on seeded inputs in the value step's
+    form: the latent one row an env (broadcast) or one a row, the noise a
+    strided view, STAGE_PI policy-prior rows, a mask row per env. Returns
+    the records."""
+    import torch
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(SEED + 2784)
+    dims, S = WIDE_DIMS, 512
+    L, A, H = dims[0], dims[2], dims[6]
+    records = []
+    for R in STAGE_ROWS:
+        N, HA = R // S, H * A
+        z = torch.randn(N, 1, L, device=dev, generator=g)
+        z_rows = torch.randn(N, S, L, device=dev, generator=g)
+        mean = torch.rand(N, HA, device=dev, generator=g) * 1.6 - 0.8
+        std = torch.rand(N, HA, device=dev, generator=g) * 1.9 + 0.1
+        noise = torch.randn(N, 2, S, HA, device=dev, generator=g)[:, 0]
+        pi_acts = torch.rand(N, STAGE_PI, HA, device=dev, generator=g) * 2 - 1
+        amask = (torch.rand(N, A, device=dev, generator=g) < 0.8).float()
+        for mode in STAGE_MODES:
+            z0 = z_rows if mode == 'latent, per row' else z.expand(N, S, L)
+            records.append(stage_alone(dims, S, mode, z0, mean, std, noise, pi_acts, amask))
+        del z_rows, noise
+    return records
+
+
+def stage_headline(records, H=WIDE_DIMS[6]):
+    """The staging's numbers for the kernels' line: a value step's H
+    launches on average at STAGE_HEADLINE rows (the folded t = 0 launch,
+    then H - 1 of the actions alone), from stage_phase's records."""
+    at = {r['mode']: r for r in records if r['rows'] == STAGE_HEADLINE}
+    out = {}
+    for k in ('ms', 'device_ms', 'plain_ms', 'bound_ms'):
+        v = (at['folded'][k], at['actions'][k])
+        out[k] = None if None in v else (v[0] + (H - 1) * v[1]) / H
+    return dict(out, bound_by='bytes', max_abs_err=max(r['max_abs_err'] for r in records),
+                headline=f'a value step\'s {H} stagings on average, {STAGE_HEADLINE} rows '
+                         '(the folded t = 0 launch, then the actions alone)')
+
+
+def stage_only() -> int:
+    """`--stage`: the build, then the staging alone (stage_phase) and the
+    folded first layers' products with the z||a product they replace at
+    t = 0 (product_phase), for a quick check of them on the card; prints
+    the card and the records."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+    from tdmpc2_tpu_torch.ops import _build
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 2
+    for name, (secs, _) in _build.build().items():
+        log(f'  {name}.cu built in {secs:.1f} s')
+    for fn, (regs, st, ld) in _build.ptxas_usage(_build.ptxas_report('value')).items():
+        if 'stage' in fn:
+            log(f'    value.cu {fn}: {regs} registers, {st} bytes spill stores, '
+                f'{ld} bytes spill loads')
+    with Phase('the wide engine\'s staging alone against stage_plain'):
+        records = stage_phase()
+    with Phase('the folded first layers\' products alone, beside the z||a product they '
+               'replace at t = 0'):
+        products, _ = product_phase(only=('z||a -> M',) + tuple(s[0] for s in FOLD_SHAPES))
+    log(nvidia_smi_line())
+    log(json.dumps({'stage': records, 'products': products}))
+    return 0
 
 
 def wide_bounds(prep, n, S, H, A, n_pi, used_heads, episodic=False, task_rows=1):
@@ -2288,8 +2458,8 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
                                ag.draw_noise(NT), True, tt, pm)
         if (Graph.replays['plan'] != replays + 1 or launched != [1, I, I]
                 or w_plan != wide.plan_launches(H, I, False)
-                or g_plan != wide.plan_products(H, I, False) or r_plan != g_plan
-                or s_plan != w_plan - 2 * g_plan):
+                or g_plan != wide.plan_products(H, I, False)
+                or s_plan != wide.plan_stagings(H, I) or r_plan != w_plan - g_plan - s_plan):
             raise AssertionError(f'{tag} act_tasks graph: launches {launched}, wide {w_plan}, '
                                  f'products {g_plan}, row kernels {r_plan}, stagings {s_plan}')
         if not (np.array_equal(a, a_e.cpu().numpy()) and torch.equal(pm_graph, pm)):
@@ -2326,6 +2496,8 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
                         else wide.value_launches(H, episodic))
             products = (wide.pi_rollout_products(H) if bkey == 'pi_rollout'
                         else wide.value_products(H, episodic))
+            stagings = 1 if bkey == 'pi_rollout' else H
+            kinds_want = [products, per_call - products - stagings, stagings]
             runs = [('', cases[f'N={n8}'], n8, n8_used), ('_n1', cases['one env'], 1, one_used)]
             if not episodic:
                 runs.append(('_n80', ((), vs80, (prep, z, noise.pi_eps[:, :n_pi]),
@@ -2335,10 +2507,10 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
                 w0 = [c.launches for c in wide.COUNTERS]
                 kern(*args, **kw)
                 counted, *kinds = [c.launches - k for c, k in zip(wide.COUNTERS, w0)]
-                if counted != per_call or kinds[:2] != [products, products]:
+                if counted != per_call or kinds != kinds_want:
                     raise AssertionError(f'{name} (N={n}): {counted} device launches counted, '
                                          f'{per_call} expected; products, row kernels, '
-                                         f'stagings {kinds}, {products} products expected')
+                                         f'stagings {kinds}, {kinds_want} expected')
                 ms = time_ms(lambda: kern(*args, **kw), 10 if n < NT else 3)
                 dev_ms, _, top = device_share(lambda: kern(*args, **kw), 3 if n < NT else 2,
                                               keep=12)
@@ -2394,37 +2566,22 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
                        f'{t_ms / cnt:.4f} ms a launch ({cnt:.0f} a value step)')
                     + f', bound {b_ms:.5f} ms (bytes)')
         # the staging (stage_kernel: each step's actions sampled into the
-        # z||a rows, the latent too at t = 0) from the same traces
+        # z||a rows; at t = 0 folded: the env's latent into zb) from the
+        # same traces; its numbers alone come from the staging phase (main)
         stage = {}
         for suffix, (R, top) in row_kernels.items():
             hit = [(t, c) for t, c, k in top if 'stage_kernel' in k]
             t_ms, cnt = (sum(t for t, _ in hit), sum(c for _, c in hit)) if hit else (None, 0)
-            b_ms = stage_bytes(R, R // S, L, A, H) / HBM_BYTES_PER_S * 1e3
+            b_ms = step_stage_bytes(R, R // S, L, A, H, True) / HBM_BYTES_PER_S * 1e3
             stage[suffix] = dict(rows=R, launches_a_step=cnt, ms=t_ms and t_ms / cnt,
                                  bound_ms=b_ms, bound_by='bytes')
             log(f'  stage_kernel, {R} rows: '
                 + ('not in the trace' if t_ms is None else
                    f'{t_ms / cnt:.4f} ms a launch ({cnt:.0f} a value step)')
                 + f', bound {b_ms:.5f} ms (bytes, a launch on average)')
-        s80 = stage.get(f'_n{NT}', {})
-        # the staging alone on the N=80 step's inputs, held against its
-        # plain version and timed
-        st_err, st_ms, st_plain_ms = stage_alone(
-            (L, M, A, cfg.num_bins, cfg.num_q, cfg.simnorm_dim, H), S, *vs80[1:7])
-        log(f'  stage_kernel alone, {NT * S} rows: max |err| {st_err:.3g} against '
-            f'stage_plain; {st_ms:.4f} ms a launch (CUDA events), plain {st_plain_ms:.4f} ms')
         rows.append({'name': 'wide_stage', 'route': 'cuda', 'engine': 'wide',
                      'source': 'tdmpc2_tpu_torch/csrc/mlp_wide.cuh',
                      'replaces': 'tdmpc2_tpu/ops/pallas_rollout.py:437', 'launches': 0,
-                     'max_abs_err': st_err, 'n_rows': NT * S, 'ms': st_ms,
-                     'device_ms': s80.get('ms'),
-                     'ms_is': 'a launch on average over a value step\'s H stagings, alone '
-                              '(ops/wide.py stage), by CUDA events; device_ms: its own '
-                              'device time a launch, from the value step\'s trace',
-                     'plain_ms': st_plain_ms,
-                     'plain_is': 'ops/wide.py stage_plain (sample_actions_plain, then the '
-                                 'bf16 copies), a launch on average',
-                     'bound_ms': s80.get('bound_ms'), 'bound_by': 'bytes',
                      'library_ms': None, 'model_size': WIDE_SIZE, 'by_rows': stage})
         # the row's own numbers come from the row phase (main)
         rows.append({'name': 'wide_row', 'route': 'cuda', 'engine': 'wide',
@@ -2480,7 +2637,7 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
         paths['act_tasks mt80'] = read_counts()
         check_plan_counts(f'act_tasks mt80 (N={NT}, {tag})', paths['act_tasks mt80'],
                           WIDE_ACT_STEPS + 1, wide.plan_launches(H, I, False),
-                          wide.plan_products(H, I, False))
+                          wide.plan_products(H, I, False), wide.plan_stagings(H, I))
         if not np.isfinite(a).all() or any(
                 (a[i, MT80_ACTION_DIMS[i]:] != 0).any() for i in range(NT)):
             raise AssertionError('act_tasks mt80: non-finite actions or a masked column set')
@@ -3760,6 +3917,8 @@ def main() -> int:
                'against rows_plain, at the 317M model\'s widths'):
         row_records, row_err = row_phase()
         log(f'  largest share of a tolerance used: {row_err[0]:.3f}, max |err| {row_err[1]:.3g}')
+    with Phase('the wide engine\'s staging alone against stage_plain, in each launch\'s mode'):
+        stage_records = stage_phase()
     w_errs, w_paths, w_rows = wide_phases(zero_counts, read_counts, check_plan_counts)
     ckpt_errs, ckpt_paths, ckpt_read_s = checkpoint_phases(
         zero_counts, read_counts, check_plan_counts, hold_update)
@@ -3948,6 +4107,7 @@ def main() -> int:
         for row in w_rows:
             if row['name'] == 'wide_stage':
                 row['launches_by_path'] = {k: v['wide_stage'] for k, v in paths.items()}
+                row.update(stage_headline(stage_records), modes=stage_records)
             if row['name'] == 'wide_row':
                 row['launches_by_path'] = {k: v['wide_row'] for k, v in paths.items()}
                 top = next(r for r in row_records
@@ -3999,5 +4159,7 @@ if __name__ == '__main__':
         sys.exit(cycles())
     if len(sys.argv) == 2 and sys.argv[1] == '--rows':
         sys.exit(rows_only())
+    if len(sys.argv) == 2 and sys.argv[1] == '--stage':
+        sys.exit(stage_only())
 
     sys.exit(main())

@@ -65,6 +65,17 @@
 // the same row of y, the bias in the first, and the row kernel sums them in
 // order in every mode, whichever layer the output is. No atomics.
 //
+// A first layer on z||a rows whose latent is one row an env (a value
+// step's t = 0 with zs = 0, the planner's) is taken apart as the TPU
+// kernel takes it, x W = z Wz + a Wa (Wide::hidden2, folded): a product of
+// the N envs' latents (zb, which the staging writes once an env) with the
+// layout's latent block and the first layer's per-task bias, into u [N,
+// Mp]; then a K = 16 product of the rows' action columns with its action
+// block, u's row of the env as the bias (an identity index as the
+// product's task ids). Each block is read through the tensor map with the
+// layout's row stride (ldw), from a 16-byte aligned column offset. Only
+// the f32 order of the sum changes.
+//
 // Why the sums stay in the accumulators: the tensor cores round toward zero
 // where an f32 add rounds to nearest (mlp_rows.cuh mma16816), at most about
 // an ulp of the running sum a 16-deep step: over K = 4096 at most 256 ulps
@@ -961,12 +972,28 @@ __global__ void __launch_bounds__(kWRowThreads) row_narrow_kernel(const RowArgs 
 // Staging of each step's inputs
 // ---------------------------------------------------------------------------
 
-// Step t's inputs of the z||a buffer x [R, Lp + Ap]: with load_z, the
-// latent z0 (env e, row s at z0 + e * zn + s * zs; zs = 0 broadcasts one
-// row) rounded to bf16 in [0, L), zeros to Lp, and the per-row scalars
-// zeroed; the actions in [Lp, Lp + A), zeros to Ap: given (actions + e * an
-// + t * ats + s * ass), sampled (value.cu's formula), or none (zeros: the
-// pi rollout writes its own).
+// Step t's inputs of the z||a buffer x [R, Lp + Ap] (rows ldx apart), R
+// = N S rows: the actions in [Lp, Lp + A), zeros to Ap: given (actions + e
+// * an + t * ats + s * ass), sampled (value.cu's formula, also written in
+// f32 to sp.acts), or none (zeros: the pi rollout writes its own). With
+// load_z also the per-row scalars zeroed and the latent z0 (env e, row s
+// at z0 + e * zn + s * zs; zs = 0 broadcasts one row) rounded to bf16:
+// into the latent columns [0, L) of every row, zeros to Lp; or, folded (zb
+// not null: value_wide at t = 0 with zs = 0), into env e's row of zb [N,
+// Lp] only, with env[e] = e, and the latent columns of x left as they are.
+//
+// Bound by bytes: the latent's copy into every row (at N = 80 envs of 512
+// rows, 114 MB of bf16 for 80 distinct rows, 0.034 ms at 3.35 TB/s) where
+// it is written, else the action columns (3.3 MB). So the latent is
+// written only where a row's latent differs from its env's (the pi
+// rollout's and the rollout's first step, a value step's latent of a row
+// each): the folded first layers (Wide::hidden2) take it from zb once an
+// env. The design: a thread a row for the actions and the scalars (its A
+// actions, the Ap bf16 columns as 16-byte stores), a warp a row for the
+// latent (float4 reads, 16-byte stores of 8 bf16, a broadcast row read from
+// L1 by the block's rows of the env), a warp an env for zb; 32-bit row
+// arithmetic (one divide by S a row); the grid sized to the rows, no loop
+// over elements.
 struct StageArgs {
   uint16_t* x;
   long ldx;
@@ -980,51 +1007,123 @@ struct StageArgs {
   long amn;
   float *G, *q, *term;
   int* term_at;
-  int S;
-  long R;
+  uint16_t* zb;     // folded: [N, Lp] (rows Lp apart), or null
+  int* env;         // folded: [N]
+  int S, N, R;
+  int rpb;          // rows a block of rows
+  int row_blocks;   // blocks of rows; the blocks after them write zb, a warp an env
+  int vec;          // z0's rows start on 16 bytes (zn, zs multiples of 4): float4 reads
 };
 
-__global__ void __launch_bounds__(256) stage_kernel(const StageArgs a) {
-  const int w = a.load_z ? a.Lp + a.Ap : a.Ap;
-  const long total = a.R * w;
-  for (long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
-       i += static_cast<long>(gridDim.x) * blockDim.x) {
-    const long row = i / w;
-    const int col = static_cast<int>(i % w) + (a.load_z ? 0 : a.Lp);
-    const int env = static_cast<int>(row / a.S);
-    const int s = static_cast<int>(row - static_cast<long>(env) * a.S);
-    uint16_t bits = 0;
-    if (col < a.Lp) {
-      if (col < a.L) bits = bf16_bits(a.z0[env * a.zn + s * a.zs + col]);
-      if (col == 0) {
-        if (a.G != nullptr) a.G[row] = 0.f;
-        if (a.q != nullptr) a.q[row] = 0.f;
-        if (a.term != nullptr) a.term[row] = 0.f;
-        if (a.term_at != nullptr) a.term_at[row] = 0;
-      }
-    } else if (col - a.Lp < a.A) {
-      const int c = col - a.Lp;
-      if (a.actions != nullptr) {
-        bits = bf16_bits(a.actions[env * a.an + a.t * a.ats + s * a.ass + c]);
-      } else if (a.sp.mean != nullptr) {
-        const int HA = a.H * a.A, k = a.t * a.A + c;
-        const long at = static_cast<long>(s) * HA + k;
-        float v;
-        if (s < a.sp.n_pi) {
-          v = a.sp.pi_acts[env * a.sp.pn + at];
-        } else {
-          v = fminf(fmaxf(__fadd_rn(a.sp.mean[env * a.sp.mn + k],
-                                    __fmul_rn(a.sp.stdv[env * a.sp.sn + k],
-                                              a.sp.noise[env * a.sp.nn + at])),
-                          -1.f),
-                    1.f);
-        }
-        v *= a.amask[env * a.amn + c];
-        a.sp.acts[row * HA + k] = v;
-        bits = bf16_bits(v);
-      }
+constexpr int kStageLatentRows = 16;   // rows a block where the latent is written
+
+// Column c (< A) of env `env`'s row s's action at step t: given, sampled,
+// or 0 (none). Reads only: the sampled values go to acts after a chunk's
+// reads.
+__device__ __forceinline__ float stage_action(const StageArgs& a, int env, int s, int c) {
+  if (a.actions != nullptr)
+    return __ldg(a.actions + env * a.an + a.t * a.ats + s * a.ass + c);
+  if (a.sp.mean == nullptr) return 0.f;
+  const int HA = a.H * a.A, k = a.t * a.A + c;
+  const long at = static_cast<long>(s) * HA + k;
+  float v;
+  if (s < a.sp.n_pi) {
+    v = __ldg(a.sp.pi_acts + env * a.sp.pn + at);
+  } else {
+    v = fminf(fmaxf(__fadd_rn(__ldg(a.sp.mean + env * a.sp.mn + k),
+                              __fmul_rn(__ldg(a.sp.stdv + env * a.sp.sn + k),
+                                        __ldg(a.sp.noise + env * a.sp.nn + at))),
+                    -1.f),
+              1.f);
+  }
+  return v * __ldg(a.amask + env * a.amn + c);
+}
+
+// One row's actions (its action columns, 16 bytes at a time: a chunk's 8
+// values read together, then stored; sampled ones also to acts in f32)
+// and, with load_z, its scalars zeroed.
+__device__ __forceinline__ void stage_actions(const StageArgs& a, int row) {
+  const int env = row / a.S, s = row - env * a.S;
+  if (a.load_z) {
+    if (a.G != nullptr) a.G[row] = 0.f;
+    if (a.q != nullptr) a.q[row] = 0.f;
+    if (a.term != nullptr) a.term[row] = 0.f;
+    if (a.term_at != nullptr) a.term_at[row] = 0;
+  }
+  uint16_t* xr = a.x + static_cast<long>(row) * a.ldx + a.Lp;
+  const bool sampled = a.actions == nullptr && a.sp.mean != nullptr;
+  float* acts =
+      sampled ? a.sp.acts + static_cast<long>(row) * (a.H * a.A) + a.t * a.A : nullptr;
+  for (int c0 = 0; c0 < a.Ap; c0 += 8) {
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = c0 + j < a.A ? stage_action(a, env, s, c0 + j) : 0.f;
+    if (sampled) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (c0 + j < a.A) acts[c0 + j] = v[j];
     }
-    a.x[row * a.ldx + col] = bits;
+    *reinterpret_cast<uint4*>(xr + c0) =
+        make_uint4(bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]), bf16x2_bits(v[4], v[5]),
+                   bf16x2_bits(v[6], v[7]));
+  }
+}
+
+// Latent columns [8k, 8k + 8) of the row z as 8 bf16 (zeros from L on).
+__device__ __forceinline__ uint4 latent_chunk(const StageArgs& a, const float* z, int k) {
+  const int c = 8 * k;
+  float v[8];
+  if (a.vec && c + 8 <= a.L) {
+    const float4 p = __ldg(reinterpret_cast<const float4*>(z + c));
+    const float4 r = __ldg(reinterpret_cast<const float4*>(z + c + 4));
+    v[0] = p.x, v[1] = p.y, v[2] = p.z, v[3] = p.w, v[4] = r.x, v[5] = r.y, v[6] = r.z,
+    v[7] = r.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = c + j < a.L ? __ldg(z + c + j) : 0.f;
+  }
+  return make_uint4(bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]), bf16x2_bits(v[4], v[5]),
+                    bf16x2_bits(v[6], v[7]));
+}
+
+// A warp writes the latent row z into dst's Lp columns: lane l the 16-byte
+// chunks l, l + 32, ..., four chunks' reads issued before their stores.
+__device__ __forceinline__ void stage_latent(const StageArgs& a, const float* z, uint16_t* dst,
+                                             int lane) {
+  const int nch = a.Lp >> 3;
+  for (int k0 = lane; k0 < nch; k0 += 4 * 32) {
+    uint4 out[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      out[u] = k0 + 32 * u < nch ? latent_chunk(a, z, k0 + 32 * u) : make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (k0 + 32 * u < nch) *reinterpret_cast<uint4*>(dst + 8 * (k0 + 32 * u)) = out[u];
+  }
+}
+
+// Blocks [0, row_blocks) each own rpb rows: a thread a row for the actions
+// and scalars, and where the latent goes into x (load_z, not folded) a
+// warp a row for it; the blocks after them (folded) a warp an env for zb.
+__global__ void __launch_bounds__(256) stage_kernel(const StageArgs a) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  if (static_cast<int>(blockIdx.x) >= a.row_blocks) {
+    const int e = (static_cast<int>(blockIdx.x) - a.row_blocks) * warps + warp;
+    if (e < a.N) {
+      stage_latent(a, a.z0 + e * a.zn, a.zb + static_cast<long>(e) * a.Lp, lane);
+      if (lane == 0) a.env[e] = e;
+    }
+    return;
+  }
+  const int r0 = static_cast<int>(blockIdx.x) * a.rpb;
+  const int nrows = min(a.rpb, a.R - r0);
+  if (static_cast<int>(threadIdx.x) < nrows) stage_actions(a, r0 + threadIdx.x);
+  if (a.load_z && a.zb == nullptr) {
+    for (int i = warp; i < nrows; i += warps) {
+      const int row = r0 + i, env = row / a.S, s = row - env * a.S;
+      stage_latent(a, a.z0 + env * a.zn + s * a.zs, a.x + static_cast<long>(row) * a.ldx,
+                   lane);
+    }
   }
 }
 
@@ -1034,23 +1133,26 @@ __global__ void __launch_bounds__(256) stage_kernel(const StageArgs a) {
 
 // Device buffers of one call, allocated by the wrapper (ops/wide.py
 // scratch): x the z||a rows [R, ldx] bf16, h the hidden rows [R, ldh]
-// bf16, y the product [R, ldy] f32, and the per-row G, q, term [R] f32.
+// bf16, y the product [R, ldy] f32, the per-row G, q, term [R] f32; for a
+// value step's folded first layers zb the envs' latents [N, Lp] bf16, u the
+// latent's share of a first layer [N, Mp] f32 and env the identity index
+// [N] int32 (null where the call folds nothing).
 struct Scratch {
   uint16_t* x;
   uint16_t* h;
   float* y;
   float *G, *q, *term;
   long ldx, ldh, ldy;
+  uint16_t* zb;
+  float* u;
+  int* env;
 };
 
 inline Scratch scratch_from(const void* const* p, const long* ld) {
-  return Scratch{static_cast<uint16_t*>(const_cast<void*>(p[0])),
-                 static_cast<uint16_t*>(const_cast<void*>(p[1])),
-                 static_cast<float*>(const_cast<void*>(p[2])),
-                 static_cast<float*>(const_cast<void*>(p[3])),
-                 static_cast<float*>(const_cast<void*>(p[4])),
-                 static_cast<float*>(const_cast<void*>(p[5])),
-                 ld[0], ld[1], ld[2]};
+  auto f = [&](int i) { return static_cast<float*>(const_cast<void*>(p[i])); };
+  auto b = [&](int i) { return static_cast<uint16_t*>(const_cast<void*>(p[i])); };
+  return Scratch{b(0), b(1), f(2), f(3), f(4), f(5), ld[0], ld[1], ld[2],
+                 b(6), f(7), static_cast<int*>(const_cast<void*>(p[8]))};
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1214,28 +1316,39 @@ struct Wide {
     out[3] = stagings;
   }
 
-  // y <- x . W (+ bias): x's rows ldx apart, K = 16 kt columns; W the wide
-  // layout [heads, ncols, 16 kt] of a matrix (heads = num_q where `head`
-  // picks each env's); K splits as gemm_splits gives them.
+  // y <- x . W (+ bias) on the call's rows: x's rows ldx apart, K = 16 kt
+  // columns; W the wide layout [heads, ncols, 16 kt] of a matrix (heads =
+  // num_q where `head` picks each env's), or its first 16 kt columns of
+  // rows ldw apart; K splits as gemm_splits gives them.
   void gemm(const uint16_t* x, long ldx, int kt, const void* W, int ncols, const float* b,
             long bt, long bh, const int* head = nullptr, long hn = 0,
-            const float* b1 = nullptr, int split = -1) {
+            const float* b1 = nullptr, int split = -1, long ldw = 0) {
+    product(x, ldx, kt, W, ldw > 0 ? ldw : 16L * kt, ncols, b, bt, bh, head, hn, b1, split,
+            N, S, task, ntask, sc.y, sc.ldy);
+  }
+
+  // The same on n envs of s_ rows (env e's task tk[e] of ntk) into y [n
+  // s_, ldy]: the tile from s_ and the widths (wide_large).
+  void product(const uint16_t* x, long ldx, int kt, const void* W, long ldw, int ncols,
+               const float* b, long bt, long bh, const int* head, long hn, const float* b1,
+               int split, int n, int s_, const int* tk, int ntk, float* y, long ldy) {
     if (err) return;
     const int nheads = head == nullptr ? 1 : (d.NQ > 0 ? d.NQ : 1);
-    GemmArgs a{sc.y, sc.ldy, ncols, b, bt, bh, b1, split < 0 ? ncols : split, task, ntask,
-               head, hn, nheads, S, 0, R, (16 * kt + kWK - 1) / kWK, 0, up16(ncols), 0, 0, 0};
+    GemmArgs a{y, ldy, ncols, b, bt, bh, b1, split < 0 ? ncols : split, tk, ntk,
+               head, hn, nheads, s_, 0, static_cast<long>(n) * s_, (16 * kt + kWK - 1) / kWK,
+               0, up16(ncols), 0, 0, 0};
     // the rows of a block stay in one env where its bias or weights depend on the env
-    const bool per_env = head != nullptr || (task != nullptr && ntask > 1 && bt != 0);
-    if (large) {
-      launch_gemm<WLarge>(a, x, ldx, 16 * kt, W, per_env);
+    const bool per_env = head != nullptr || (tk != nullptr && ntk > 1 && bt != 0);
+    if (wide_large(d, s_)) {
+      launch_gemm<WLarge>(a, n, x, ldx, 16 * kt, W, ldw, per_env);
     } else {
-      launch_gemm<WSmall>(a, x, ldx, 16 * kt, W, per_env);
+      launch_gemm<WSmall>(a, n, x, ldx, 16 * kt, W, ldw, per_env);
     }
   }
 
   template <class Tl>
-  void launch_gemm(GemmArgs a, const uint16_t* x, long ldx, int K, const void* W,
-                   bool per_env) {
+  void launch_gemm(GemmArgs a, int n, const uint16_t* x, long ldx, int K, const void* W,
+                   long ldw, bool per_env) {
     int resident = 0;
     cudaError_t e = prepare_gemm<Tl>(&resident);
     int s = gemm_splits(a.ncols, Tl::bn, a.nk, a.ldy);
@@ -1243,8 +1356,8 @@ struct Wide {
       e = cudaErrorInvalidValue;   // the partial rows must fit a row of y
     a.kchunk = (a.nk + s - 1) / s;
     s = (a.nk + a.kchunk - 1) / a.kchunk;
-    a.bpe = per_env ? (S + Tl::bm - 1) / Tl::bm : 0;
-    const long gy = per_env ? static_cast<long>(N) * a.bpe : (R + Tl::bm - 1) / Tl::bm;
+    a.bpe = per_env ? (a.S + Tl::bm - 1) / Tl::bm : 0;
+    const long gy = per_env ? static_cast<long>(n) * a.bpe : (a.R + Tl::bm - 1) / Tl::bm;
     a.gx = (a.ncols + Tl::bn - 1) / Tl::bn;
     a.gy = static_cast<int>(gy);
     a.gz = s;
@@ -1253,16 +1366,19 @@ struct Wide {
                     static_cast<int>(tiles < resident ? tiles : resident)};
     CUtensorMap tx, tw;
     if (e == cudaSuccess) {
-      const cuuint64_t dim[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(R)};
+      const cuuint64_t dim[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(a.R)};
       const cuuint64_t stride[1] = {static_cast<cuuint64_t>(ldx) * 2};
       const cuuint32_t box[2] = {kWK, Tl::bm};
       e = encode_bf16(&tx, x, 2, dim, stride, box);
     }
     if (e == cudaSuccess) {
+      // K columns of each of the ncols rows, ldw apart (the whole K of a
+      // matrix, or one block of it: the latent's or the actions' share of
+      // a first layer)
       const cuuint64_t dim[3] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(a.ncols),
                                  static_cast<cuuint64_t>(a.nhead)};
-      const cuuint64_t stride[2] = {static_cast<cuuint64_t>(K) * 2,
-                                    static_cast<cuuint64_t>(K) * a.ncols * 2};
+      const cuuint64_t stride[2] = {static_cast<cuuint64_t>(ldw) * 2,
+                                    static_cast<cuuint64_t>(ldw) * a.ncols * 2};
       const cuuint32_t box[3] = {kWK, Tl::bn, 1};
       e = encode_bf16(&tw, W, 3, dim, stride, box);
     }
@@ -1360,6 +1476,9 @@ struct Wide {
     check_launch();
   }
 
+  // One staging launch: the grid from the rows (a block of 64 rows, a
+  // thread a row; kStageLatentRows rows and a warp a row where the latent
+  // goes into x), then a block of 2 envs a warp each when folded (a.zb).
   void stage(StageArgs a) {
     if (err) return;
     a.x = sc.x;
@@ -1370,10 +1489,22 @@ struct Wide {
     a.Ap = Ap;
     a.H = d.H;
     a.S = S;
-    a.R = R;
-    const long total = R * (a.load_z ? Lp + Ap : Ap);
-    const long blocks = (total + 255) / 256;
-    stage_kernel<<<static_cast<unsigned>(blocks < 8192 ? blocks : 8192), 256, 0, stream>>>(a);
+    a.N = N;
+    a.R = static_cast<int>(R);
+    const bool latent_rows = a.load_z && a.zb == nullptr;
+    const int threads = latent_rows ? 256 : 64;
+    a.rpb = latent_rows ? kStageLatentRows : threads;
+    a.row_blocks = static_cast<int>((R + a.rpb - 1) / a.rpb);
+    const int env_blocks = a.zb != nullptr ? (N + threads / 32 - 1) / (threads / 32) : 0;
+    auto on16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+    a.vec = on16(a.z0) && a.zn % 4 == 0 && a.zs % 4 == 0;
+    // 16-byte stores: x's rows (and zb's) start on 16 bytes; rows counted in 32 bits
+    if (!on16(a.x) || a.ldx % 8 != 0 || (a.zb != nullptr && (!on16(a.zb) || !a.load_z))
+        || R >= (1L << 31) || (a.load_z && a.z0 == nullptr)) {
+      err = static_cast<int>(cudaErrorInvalidValue);
+      return;
+    }
+    stage_kernel<<<a.row_blocks + env_blocks, threads, 0, stream>>>(a);
     ++stagings;
     check_launch();
   }
@@ -1393,6 +1524,11 @@ struct Wide {
   void hidden(const uint16_t* x, long ldx, int kt, int op, const float* b, long bt, long bh,
               const float* gain, const float* beta, const int* head = nullptr, long hn = 0) {
     gemm(x, ldx, kt, w.p[op], d.M, b, bt, bh, head, hn);
+    mish_rows(gain, beta, head, hn);
+  }
+
+  // LayerNorm + Mish of the last product's rows into h.
+  void mish_rows(const float* gain, const float* beta, const int* head, long hn) {
     RowArgs r = row_args(kRowHidden, d.M);
     r.gain = gain;
     r.beta = beta;
@@ -1407,19 +1543,36 @@ struct Wide {
   }
 
   // The first two layers of a head: op0 from x (kt k-tiles; its bias a row
-  // of a task table), op0 + 4 from h.
-  void hidden2(int kt, int op0, const int* head = nullptr, long hn = 0) {
+  // of a task table), op0 + 4 from h. Folded (a z||a first layer at t = 0,
+  // each env's latent in zb: value_wide with zs = 0), op0's product is
+  // split as x W = z Wz + a Wa, the TPU kernel's split
+  // (tdmpc2_tpu/ops/pallas_rollout.py:484): u = zb . W[:, :Lp] + b0[task]
+  // on the N envs' rows, then the action columns of x . W[:, Lp:] + u[env]
+  // on every row (the identity index env as the product's task ids, u's
+  // rows as its bias table).
+  void hidden2(int kt, int op0, const int* head = nullptr, long hn = 0, bool folded = false) {
     const bool qh = op0 == qP0;
     const long bt = qh ? static_cast<long>(d.NQ) * d.M : d.M;
     const long bh = qh ? d.M : 0;
-    hidden(sc.x, sc.ldx, kt, op0, w.f(op0 + 1), bt, bh, w.f(op0 + 2), w.f(op0 + 3), head, hn);
+    if (folded) {
+      const uint16_t* W = static_cast<const uint16_t*>(w.p[op0]);
+      const long ldw = 16L * kz;
+      product(sc.zb, Lp, kl, W, ldw, d.M, w.f(op0 + 1), bt, 0, nullptr, 0, nullptr, -1, N, 1,
+              task, ntask, sc.u, Mp);
+      product(sc.x + Lp, sc.ldx, Ap / 16, W + Lp, ldw, d.M, sc.u, Mp, 0, nullptr, 0, nullptr,
+              -1, N, S, sc.env, N, sc.y, sc.ldy);
+      mish_rows(w.f(op0 + 2), w.f(op0 + 3), nullptr, 0);
+    } else {
+      hidden(sc.x, sc.ldx, kt, op0, w.f(op0 + 1), bt, bh, w.f(op0 + 2), w.f(op0 + 3), head,
+             hn);
+    }
     hidden(sc.h, sc.ldh, km, op0 + 4, w.f(op0 + 5), 0, bh, w.f(op0 + 6), w.f(op0 + 7), head, hn);
   }
 
   // z_{t+1} = SimNorm(LN(dynamics)) into the latent columns of x; f32 into
   // zH (rows L apart) too when zH is not null.
-  void dynamics(float* zH = nullptr) {
-    hidden2(kz, dP0);
+  void dynamics(float* zH = nullptr, bool folded = false) {
+    hidden2(kz, dP0, nullptr, 0, folded);
     gemm(sc.h, sc.ldh, km, w.p[dP2], d.L, w.f(db2), 0, 0);
     RowArgs r = row_args(kRowLatent, d.L);
     r.gain = w.f(dg2);
@@ -1433,8 +1586,8 @@ struct Wide {
   }
 
   // G += discs[t] * (1 - term) * reward(z_t, a_t)
-  void reward(const float* discs, long dn, int t) {
-    hidden2(kz, rP0);
+  void reward(const float* discs, long dn, int t, bool folded = false) {
+    hidden2(kz, rP0, nullptr, 0, folded);
     gemm(sc.h, sc.ldh, km, w.p[rP2], d.B, w.f(rb2), 0, 0);
     RowArgs r = row_args(kRowReward, d.B);
     r.G = sc.G;

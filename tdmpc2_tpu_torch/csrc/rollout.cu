@@ -67,15 +67,17 @@ extern "C" int tdm_rollout(const void* const* wptrs, const int* dims, int S, con
 // timings of chip_smoke.py and tests/test_torch_cuda.py (no path calls
 // it): y = x . W + bias with x [N*S, ldx] bf16 (its first 16 kt columns
 // read), W the wide layout [heads, ncols, 16 kt] bf16 (heads = num_q where
-// `head` is not null), bias b[task * bt + head * bh + c] (b1[c - split] from
-// column split on), task [N] or null, head[e * hn] or null; y [N*S, ldy]
+// `head` is not null), or the first 16 kt columns of its rows, ldw apart
+// (0: 16 kt; a block of a first layer's wide layout), bias b[task * bt +
+// head * bh + c] (b1[c - split] from column split on), task [N] or null,
+// head[e * hn] or null; y [N*S, ldy]
 // f32 receives the product, or its partial rows pstride columns apart when
 // K is split (the engine's rule, gemm_splits). plan receives {rows and
 // columns of a tile, consumer warpgroups, splits, stages a split, pstride,
 // tiles in x, y, z, blocks launched}; launched [4] as above.
 extern "C" int tdm_wide_gemm(const int* dims, int N, int S, const void* x, long ldx, int kt,
-                             const void* w, int ncols, const float* b, long bt, long bh,
-                             const float* b1, int split, const int* task, int ntask,
+                             const void* w, long ldw, int ncols, const float* b, long bt,
+                             long bh, const float* b1, int split, const int* task, int ntask,
                              const int* head, long hn, float* y, long ldy, int* plan,
                              int* launched, void* stream) {
   using namespace tdm;
@@ -85,7 +87,9 @@ extern "C" int tdm_wide_gemm(const int* dims, int N, int S, const void* x, long 
   sc.ldy = ldy;
   Wide wd(none, dims, N, S, task, ntask, sc, static_cast<cudaStream_t>(stream));
   if (!wide_fits(wd.d)) return kNoPlan;
-  wd.gemm(static_cast<const uint16_t*>(x), ldx, kt, w, ncols, b, bt, bh, head, hn, b1, split);
+  if (ldw != 0 && ldw < 16L * kt) return static_cast<int>(cudaErrorInvalidValue);
+  wd.gemm(static_cast<const uint16_t*>(x), ldx, kt, w, ncols, b, bt, bh, head, hn, b1, split,
+          ldw);
   const GemmPlan& p = wd.last;
   const int out[10] = {p.bm, p.bn, p.wgs, p.splits, p.kchunk, p.pstride,
                        p.gx, p.gy, p.gz, p.blocks};

@@ -313,8 +313,12 @@ namespace {
 // The value step on the wide engine (mlp_wide.cuh), one layer a launch:
 // per step, the actions staged (given or sampled, with the latent at t = 0),
 // the reward head, the dynamics and, on episodic tasks, the termination
-// gate; then the policy at z_H and the env's two Q heads. Operands as for
-// value_launch, and the call's scratch buffers.
+// gate; then the policy at z_H and the env's two Q heads. Where the latent
+// broadcasts over an env's rows (zs = 0: the planner's), step 0's staging
+// writes each env's latent once, into zb, and the reward's and the
+// dynamics' first layers take the latent's share from it (Wide::hidden2,
+// folded): 2 more products a call, 114 MB less staged at N = 80 envs of
+// 512 rows. Operands as for value_launch, and the call's scratch buffers.
 int value_wide(const void* const* wptrs, const int* dims, float lsmin, float lsdif,
                int episodic, int N, int S, const float* z0, long zn, long zs,
                const float* actions, long an, long ats, long ass, const tdm::Sampling& sp,
@@ -326,7 +330,11 @@ int value_wide(const void* const* wptrs, const int* dims, float lsmin, float lsd
   Wide wd(wptrs, dims, N, S, task, ntask, scratch_from(scratch, lds),
           static_cast<cudaStream_t>(stream));
   if (!wide_fits(wd.d)) return kNoPlan;
+  const bool fold = zs == 0;
+  if (fold && (wd.sc.zb == nullptr || wd.sc.u == nullptr || wd.sc.env == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   for (int t = 0; t < wd.d.H; ++t) {
+    const bool folded = fold && t == 0;
     StageArgs s{};
     s.t = t;
     s.load_z = t == 0;
@@ -344,9 +352,13 @@ int value_wide(const void* const* wptrs, const int* dims, float lsmin, float lsd
     s.q = wd.sc.q;
     s.term = wd.sc.term;
     s.term_at = term_at;
+    if (folded) {
+      s.zb = wd.sc.zb;
+      s.env = wd.sc.env;
+    }
     wd.stage(s);
-    wd.reward(discs, dn, t);
-    wd.dynamics();
+    wd.reward(discs, dn, t, folded);
+    wd.dynamics(nullptr, folded);
     if (episodic) wd.termination(t, term_at);
   }
   wd.policy(eps, en, wd.d.A, amask, amn, lsmin, lsdif);
@@ -359,9 +371,10 @@ int value_wide(const void* const* wptrs, const int* dims, float lsmin, float lsd
 }  // namespace
 
 // tdm_value on the wide engine: the same operands, then the scratch
-// buffers (x, h, y, G, q, term; ops/wide.py) and their row strides (x, h,
-// y); `launched` [4] receives the number of launches and of products, row
-// kernels and stagings among them. Returns kNoPlan when the wide engine does not take the widths.
+// buffers (x, h, y, G, q, term, zb, u, env; ops/wide.py) and their row
+// strides (x, h, y); `launched` [4] receives the number of launches and of
+// products, row kernels and stagings among them. Returns kNoPlan when the
+// wide engine does not take the widths.
 extern "C" int tdm_value_wide(const void* const* wptrs, const int* dims, float lsmin,
                               float lsdif, int episodic, int N, int S, const float* z0, long zn,
                               long zs, const float* actions, long an, long ats, long ass,
@@ -400,16 +413,18 @@ extern "C" int tdm_value_sampled_wide(const void* const* wptrs, const int* dims,
 // stage): step t's actions of N envs of S rows sampled as
 // tdm_value_sampled_wide samples them (operands as there), written in f32
 // to acts and as bf16 into the action columns of x [N*S, ldx] (the z||a
-// rows, zeros up to up16(A)); with load_z also the latent z0 into its
-// columns (zeros up to up16(L)) and G, q, term and term_at (each [N*S],
-// each may be null) zeroed. launched [4] as above.
+// rows, zeros up to up16(A)); with load_z also G, q, term and term_at
+// (each [N*S], each may be null) zeroed and the latent z0: into its
+// columns of x (zeros up to up16(L)), or, folded (zb not null; zs = 0),
+// each env's into its row of zb [N, up16(L)] bf16 and env [N] int32 set to
+// 0 .. N-1, x's latent columns untouched. launched [4] as above.
 extern "C" int tdm_wide_stage(const int* dims, int N, int S, int t, int load_z,
                               const float* z0, long zn, long zs, const float* mean, long mn,
                               const float* stdv, long sn, const float* noise, long nn,
                               const float* pi_acts, long pn, int n_pi, float* acts,
                               const float* amask, long amn, void* x, long ldx, float* G,
-                              float* q, float* term, int* term_at, int* launched,
-                              void* stream) {
+                              float* q, float* term, int* term_at, void* zb, int* env,
+                              int* launched, void* stream) {
   using namespace tdm;
   const void* none[kNumOps] = {};
   Scratch sc{};
@@ -417,7 +432,8 @@ extern "C" int tdm_wide_stage(const int* dims, int N, int S, int t, int load_z,
   sc.ldx = ldx;
   Wide wd(none, dims, N, S, nullptr, 1, sc, static_cast<cudaStream_t>(stream));
   if (!wide_fits(wd.d)) return kNoPlan;
-  if (amask == nullptr || t < 0 || t >= wd.d.H || ldx < up16(wd.d.L) + up16(wd.d.A))
+  if (amask == nullptr || t < 0 || t >= wd.d.H || ldx < up16(wd.d.L) + up16(wd.d.A) ||
+      (zb != nullptr && (env == nullptr || zs != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   StageArgs s{};
   s.t = t;
@@ -432,6 +448,8 @@ extern "C" int tdm_wide_stage(const int* dims, int N, int S, int t, int load_z,
   s.q = q;
   s.term = term;
   s.term_at = term_at;
+  s.zb = static_cast<uint16_t*>(zb);
+  s.env = env;
   wd.stage(s);
   wd.report(launched);
   return wd.err;

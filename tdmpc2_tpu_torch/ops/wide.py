@@ -30,22 +30,34 @@ tests hold the built library to the mirror).
 
 A wide call's intermediates live in scratch buffers that the wrapper
 allocates per call (`Scratch`): the bf16 z||a rows, the bf16 hidden rows,
-the f32 product and three per-row scalars. Inside the plan's CUDA graph
-they come from the graph's pool, at fixed addresses, so the tensor maps
-captured with the launches stay valid.
+the f32 product and three per-row scalars; for a value step also each env's
+latent (bf16), the latent's share of a first layer (f32, a row an env) and
+an identity env index. Inside the plan's CUDA graph they come from the
+graph's pool, at fixed addresses, so the tensor maps captured with the
+launches stay valid.
+
+The staging (csrc/mlp_wide.cuh stage_kernel) writes each step's actions
+into the z||a rows, a thread a row, and at step 0 the latent, a warp a row.
+Where a value step's latent broadcasts over an env's rows (the planner's:
+z0 of row stride 0) it folds: step 0's staging writes each env's latent
+once, into the env's row of zb, and the reward's and the dynamics' first
+layers at step 0 take x W = z Wz + a Wa apart, as the TPU kernel does: a
+product of the N latents into u (with the first layer's per-task bias),
+then a product of the rows' action columns with u[env] as its bias. A
+value step is then 13 launches a horizon step (19 with the termination
+gate) + 18 + 2, 6 (9) a step + 9 + 2 of them products, a staging a step,
+and a row kernel after each product but the two of u; a pi rollout 12 H -
+5, 6 H - 3 products and as many row kernels, one staging; a rollout 13 H,
+6 H products and row kernels, H stagings (neither folds).
 
 `engine_launches.launches` counts the wide engine's device launches and
 `gemm_launches`, `row_launches` and `stage_launches` the products, row
 kernels and stagings among them, each counted by the library where it
-launches that kernel (the wrappers count their calls, one a kernel): a
-value step is 13 launches a horizon step (19 with the termination gate) +
-18, 6 (9) and 9 of them products, as many row kernels, a staging a step;
-a pi rollout 12 H - 5, 6 H - 3 products and as many row kernels, one
-staging; a rollout 13 H, 6 H products and row kernels, H stagings. `gemm`
-launches one product on given operands (the library's `tdm_wide_gemm`),
-`rows` one row kernel (`tdm_wide_rows`; its plain version `rows_plain`)
-and `stage` one staging (`tdm_wide_stage`; `stage_plain`), for checks
-and timings; no path calls them.
+launches that kernel (the wrappers count their calls, one a kernel).
+`gemm` launches one product on given operands (the library's
+`tdm_wide_gemm`), `rows` one row kernel (`tdm_wide_rows`; its plain
+version `rows_plain`) and `stage` one staging (`tdm_wide_stage`;
+`stage_plain`), for checks and timings; no path calls them.
 
 The row kernel (csrc/mlp_wide.cuh row_kernel, row_narrow_kernel): the
 LayerNorm modes stream a row group's rows by bulk copies into a ring of
@@ -124,15 +136,17 @@ def count(n) -> None:
 
 
 def value_launches(horizon: int, episodic: bool) -> int:
-    """Device launches of one wide value step: per horizon step the staging
+    """Device launches of one wide value step with the latent broadcast over
+    each env's rows (the planner's; folded): per horizon step the staging
     and a product and a row kernel for each of the reward's and the
     dynamics' three layers (and the termination head's), then the policy's
-    three layers and the two Q heads' six."""
-    return horizon * (19 if episodic else 13) + 18
+    three layers and the two Q heads' six, and the products of u for step
+    0's two z||a first layers (2 fewer with a latent a row)."""
+    return horizon * (19 if episodic else 13) + 18 + 2
 
 
 def value_products(horizon: int, episodic: bool) -> int:
-    return horizon * (9 if episodic else 6) + 9
+    return horizon * (9 if episodic else 6) + 9 + 2
 
 
 def pi_rollout_launches(horizon: int) -> int:
@@ -153,7 +167,7 @@ def rollout_products(horizon: int) -> int:
 
 def plan_launches(horizon: int, iterations: int, episodic: bool) -> int:
     """The wide engine's device launches of one plan: the pi rollout and
-    `iterations` value steps (the elite kernel's launches apart)."""
+    `iterations` folded value steps (the elite kernel's launches apart)."""
     return (pi_rollout_launches(horizon)
             + iterations * value_launches(horizon, episodic))
 
@@ -163,13 +177,21 @@ def plan_products(horizon: int, iterations: int, episodic: bool) -> int:
             + iterations * value_products(horizon, episodic))
 
 
+def plan_stagings(horizon: int, iterations: int) -> int:
+    """A plan's stagings: the pi rollout's one, a value step's one a step.
+    Its row kernels are the rest of its launches past its products."""
+    return 1 + iterations * horizon
+
+
 class Scratch:
     """One wide call's device buffers for R rows at dims: x (bf16 z||a
     rows), h (bf16 hidden rows), y (f32 product rows, as wide as the widest
-    layer), and the per-row G, q, term (f32); `ptrs` and `lds` are the
-    kernels' arguments."""
+    layer), and the per-row G, q, term (f32); with `envs` (a value step's
+    N) also zb (bf16 [N, up16(L)]), u (f32 [N, up16(M)]) and env (int32
+    [N]) for its folded first layers; `ptrs` and `lds` are the kernels'
+    arguments."""
 
-    def __init__(self, R: int, dims, device):
+    def __init__(self, R: int, dims, device, envs: int = 0):
         L, M, A, B = dims[:4]
         Lp, Ap, Mp = _up16(L), _up16(A), _up16(M)
         ldy = y_width(dims)
@@ -177,9 +199,15 @@ class Scratch:
         self.h = torch.empty(R, Mp, dtype=torch.bfloat16, device=device)
         self.y = torch.empty(R, ldy, dtype=torch.float32, device=device)
         self.s = torch.empty(3, R, dtype=torch.float32, device=device)
-        self.ptrs = (ctypes.c_void_p * 6)(
+        fold = ()
+        if envs:
+            self.zb = torch.empty(envs, Lp, dtype=torch.bfloat16, device=device)
+            self.u = torch.empty(envs, Mp, dtype=torch.float32, device=device)
+            self.env = torch.empty(envs, dtype=torch.int32, device=device)
+            fold = (self.zb.data_ptr(), self.u.data_ptr(), self.env.data_ptr())
+        self.ptrs = (ctypes.c_void_p * 9)(
             self.x.data_ptr(), self.h.data_ptr(), self.y.data_ptr(),
-            *(self.s[i].data_ptr() for i in range(3)))
+            *(self.s[i].data_ptr() for i in range(3)), *(fold or (None, None, None)))
         self.lds = (ctypes.c_long * 3)(Lp + Ap, Mp, ldy)
 
 
@@ -189,22 +217,25 @@ def gemm(x, w, bias, dims, S: int, *, b1=None, split: int = -1, task=None,
     """One product of the wide engine on given CUDA operands (the library's
     `tdm_wide_gemm`; no path calls it): y = x[:, :K] @ W + bias for the
     model dims `dims` (its tile) and N envs of S rows. x [N*S, >= K] bf16
-    with contiguous rows (K = w's last dim, a multiple of 16); w the wide
-    layout [ncols, K] or [heads, ncols, K] bf16 (heads with `head`, int32,
-    env e's head at head[e * hn]); bias f32, column c of env e at bias[task
-    * bt + head * bh + c] (from column `split` on, b1[c - split]); task
-    int32 [N] or None, of `ntask` tasks; K split as the engine's rule
-    gives it. `out`, a contiguous f32 [N*S, ldy] tensor, receives y (None: a
-    new one, NaN where the kernel writes nothing). Returns (y as the kernel
-    wrote it, the plan: tile, splits, pstride, grid); `gemm_sum` adds the
-    partial rows."""
+    with unit inner stride; w the wide layout [ncols, K] (rows of any
+    stride: a block of a wider matrix's layout, such as a first layer's
+    latent or action columns) or [heads, ncols, K] bf16 (contiguous; heads
+    with `head`, int32, env e's head at head[e * hn]); x's and w's rows on
+    16 bytes; bias f32, column c of env e at bias[task * bt + head * bh +
+    c] (from column `split` on, b1[c - split]); task int32 [N] or None, of
+    `ntask` tasks; K split as the engine's rule gives it. `out`, a
+    contiguous f32 [N*S, ldy] tensor, receives y (None: a new one, NaN
+    where the kernel writes nothing). Returns (y as the kernel wrote it, the
+    plan: tile, splits, pstride, grid); `gemm_sum` adds the partial rows."""
     if x.device.type != 'cuda':
         raise ValueError(f'wide.gemm: unsupported device {x.device}')
     K, ncols = w.shape[-1], w.shape[-2]
+    ldw = w.stride(-2)
     R = x.shape[0]
     if (x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 or x.stride(1) != 1
-            or not w.is_contiguous() or x.shape[1] < K or K % 16 or R % S
-            or bias.dtype != torch.float32):
+            or w.stride(-1) != 1 or (w.dim() == 3 and w.stride(0) != ncols * ldw)
+            or x.shape[1] < K or K % 16 or R % S or bias.dtype != torch.float32
+            or x.data_ptr() % 16 or x.stride(0) % 8 or w.data_ptr() % 16 or ldw % 8):
         raise ValueError(f'wide.gemm: x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)} '
                          f'{w.dtype} do not fit (K={K}, S={S})')
     y = out if out is not None else torch.full(
@@ -218,7 +249,7 @@ def gemm(x, w, bias, dims, S: int, *, b1=None, split: int = -1, task=None,
     lib = _build.library('rollout')
     rc = lib.tdm_wide_gemm(
         (ctypes.c_int * 7)(*dims), R // S, S, x.data_ptr(), x.stride(0), K // 16,
-        w.data_ptr(), ncols, bias.data_ptr(), bt, bh,
+        w.data_ptr(), ldw, ncols, bias.data_ptr(), bt, bh,
         None if b1 is None else b1.data_ptr(), split,
         None if task is None else task.data_ptr(), ntask,
         None if head is None else head.data_ptr(), hn, y.data_ptr(), y.shape[1],
@@ -230,6 +261,23 @@ def gemm(x, w, bias, dims, S: int, *, b1=None, split: int = -1, task=None,
 
 
 gemm.launches = 0
+
+
+def fold_plain(zb, xa, wT, b0, task, S: int):
+    """The plain version of a folded z||a first layer (csrc/mlp_wide.cuh
+    Wide::hidden2 at a value step's t = 0, the latent broadcast over each
+    env's S rows): u = zb . W[:, :Lp] + b0[task] on the N envs' latents (zb
+    [N, Lp]), then y = xa . W[:, Lp:] + u[env] on the N*S rows' action
+    columns (xa [N*S, Ap]); wT the layer's wide layout [M, Lp + Ap]
+    (ops/value.py wide_matrix), b0 its bias table [tasks, M], task int [N]
+    or None (task 0). Returns (u, y), f32 sums of the operands' values."""
+    Lp = zb.shape[1]
+    W = wT.float()
+    t = (torch.zeros(zb.shape[0], dtype=torch.long, device=zb.device) if task is None
+         else task.long())
+    u = zb.float() @ W[:, :Lp].T + b0[t]
+    env = torch.arange(xa.shape[0], device=xa.device) // S
+    return u, xa.float() @ W[:, Lp:].T + u[env]
 
 
 def gemm_sum(y, plan, ncols: int):
@@ -397,14 +445,18 @@ rows.launches = 0
 
 
 def stage_plain(dims, S: int, t: int, z0, mean, std, noise, pi_acts, amask, x, acts, *,
-                load_z: bool = False, G=None, q=None, term=None, term_at=None):
+                load_z: bool = False, G=None, q=None, term=None, term_at=None, zb=None,
+                env=None):
     """The plain version of one staging: step t's actions of N envs of S
     rows, `ops/value.py` sample_actions_plain's (mean, std [N, H*A]; noise
     [N, S, H*A]; pi_acts [N, n_pi, H*A]; amask [A] or [N, A]) at columns t*A
     to (t+1)*A, into acts [N, S, H*A] (f32) and the action columns of x
     [N*S, >= up16(L) + up16(A)] (bf16, zeros up to up16(A)); with load_z
-    also z0 [N, S, L] into the latent columns (zeros up to up16(L)), and G,
-    q, term, term_at zeroed where given."""
+    also G, q, term, term_at zeroed where given and z0 [N, S, L]: into the
+    latent columns (zeros up to up16(L)), or folded (zb given: bf16 [N,
+    up16(L)], with env int32 [N]; z0 one row an env, broadcast) each env's
+    row 0 into its row of zb and env set to 0 .. N-1, x's latent columns
+    untouched."""
     from tdmpc2_tpu_torch.ops.value import sample_actions_plain
     L, A = dims[0], dims[2]
     Lp, Ap = _up16(L), _up16(A)
@@ -415,23 +467,30 @@ def stage_plain(dims, S: int, t: int, z0, mean, std, noise, pi_acts, amask, x, a
     x[:, Lp:Lp + A] = a.reshape(N * S, A).to(x.dtype)
     x[:, Lp + A:Lp + Ap] = 0
     if load_z:
-        x[:, :L] = z0.expand(N, S, L).reshape(N * S, L).to(x.dtype)
-        x[:, L:Lp] = 0
+        if zb is not None:
+            zb[:, :L] = z0[:, 0].to(zb.dtype)
+            zb[:, L:Lp] = 0
+            env.copy_(torch.arange(N, dtype=env.dtype, device=env.device))
+        else:
+            x[:, :L] = z0.expand(N, S, L).reshape(N * S, L).to(x.dtype)
+            x[:, L:Lp] = 0
         for v in (G, q, term, term_at):
             if v is not None:
                 v.zero_()
 
 
 def stage(dims, S: int, t: int, z0, mean, std, noise, pi_acts, amask, x, acts, *,
-          load_z: bool = False, G=None, q=None, term=None, term_at=None):
+          load_z: bool = False, G=None, q=None, term=None, term_at=None, zb=None, env=None):
     """One launch of the wide engine's staging on given operands (the
     library's `tdm_wide_stage`, as the sampled value step launches it at
     step t; no path calls it), for checks and timings; the arguments and
     the function are `stage_plain`'s, which it takes on CPU tensors. On the
     card: f32 operands with unit inner stride, noise's and pi_acts' rows H*A
     apart, acts contiguous, amask's rows contiguous; x bf16 with unit inner
-    stride; G, q, term f32 and term_at int32, contiguous [N*S]."""
-    kw = dict(load_z=load_z, G=G, q=q, term=term, term_at=term_at)
+    stride, its rows on 16 bytes; G, q, term f32 and term_at int32,
+    contiguous [N*S]; folded, zb contiguous bf16 on 16 bytes and env int32
+    [N], z0 of row stride 0."""
+    kw = dict(load_z=load_z, G=G, q=q, term=term, term_at=term_at, zb=zb, env=env)
     if x.device.type == 'cpu':
         stage_plain(dims, S, t, z0, mean, std, noise, pi_acts, amask, x, acts, **kw)
         return
@@ -441,10 +500,17 @@ def stage(dims, S: int, t: int, z0, mean, std, noise, pi_acts, amask, x, acts, *
     ok = (all(v.dtype == torch.float32 and v.stride(-1) == 1 for v in f32)
           and x.dtype == torch.bfloat16 and x.stride(1) == 1 and x.shape[0] == N * S
           and x.shape[1] >= _up16(L) + _up16(A) and acts.is_contiguous()
+          and x.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0
           and tuple(acts.shape) == (N, S, HA) and tuple(noise.shape) == (N, S, HA)
           and noise.stride(1) == HA and pi_acts.shape[1] <= S
           and (pi_acts.shape[1] == 0 or pi_acts.stride(1) == HA)
-          and all(v is None or v.is_contiguous() for v in (G, q, term, term_at)))
+          and all(v is None or v.is_contiguous() for v in (G, q, term, term_at))
+          and (zb is None) == (env is None))
+    if zb is not None:
+        ok &= (load_z and z0.stride(1) == 0 and zb.dtype == torch.bfloat16
+               and zb.is_contiguous() and tuple(zb.shape) == (N, _up16(L))
+               and zb.data_ptr() % 16 == 0 and env.dtype == torch.int32
+               and env.is_contiguous() and env.numel() == N)
     if not ok:
         raise ValueError(f'wide.stage: operands that do not fit dims {tuple(dims)} '
                          f'and {N} envs of {S} rows')
@@ -456,7 +522,7 @@ def stage(dims, S: int, t: int, z0, mean, std, noise, pi_acts, amask, x, acts, *
         noise.data_ptr(), noise.stride(0), pi_acts.data_ptr(), pi_acts.stride(0),
         pi_acts.shape[1], acts.data_ptr(), amask.data_ptr(),
         amask.stride(0) if amask.dim() == 2 else 0, x.data_ptr(), x.stride(0),
-        _ptr(G), _ptr(q), _ptr(term), _ptr(term_at), n,
+        _ptr(G), _ptr(q), _ptr(term), _ptr(term_at), _ptr(zb), _ptr(env), n,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, 'wide staging', dims)
     stage.launches += n[3]

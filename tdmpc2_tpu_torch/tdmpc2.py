@@ -81,7 +81,8 @@ from tdmpc2_tpu_torch.utils.seed import generator_state, restore_generator
 PLAN_WRAPPERS = (cem.pi_rollout, value_sampled, cem.elite_moments)
 # and the wide engine's device launches and the products, row kernels and
 # stagings among them (ops/wide.py), which a replay adds too: 0 a plan
-# below 2048 columns
+# below 2048 columns; at model_size 317 (H 3, 6 iterations) 385, 189 of them
+# products, 177 row kernels and 19 stagings (ops/wide.py plan_launches)
 PLAN_COUNTS = PLAN_WRAPPERS + wide.COUNTERS
 
 

@@ -38,12 +38,16 @@ launch's; and its row kernel alone (tdm_wide_rows) in every mode at 512,
 cases chip_smoke.py's row phase shares), a LayerNorm row of 8 partial
 rows and LayerNorm + SimNorm at groups 2, 4 and 16, against ops/wide.py
 rows_plain: bf16 outputs within one bf16 step, f32 outputs at 1e-4, its
-plan the mirror's, N=8 bit for bit one-env launches; and its staging
-alone (tdm_wide_stage) over a sampled step's H launches against
-stage_plain bit for bit. The elite kernel is held at its edges (S = 77,
-2048 and 28,000, HA = 114, E = 1 and E = S, ties across the boundary, all
-tied, NaN, inf and +-3e38), its N=8 launch against 8 one-env launches bit
-for bit, and the canary at n = 1, 3, 1027 and at a storage offset. The
+plan the mirror's, N=8 bit for bit one-env launches; its staging alone
+(tdm_wide_stage) over a sampled step's H launches at 512, 4,096 and 40,960
+rows, the latent broadcast, one a row and folded, a mask per env or
+shared, against stage_plain bit for bit; and a folded first layer's two
+products (the envs' latents into u, then the action columns with u's row
+of the env as the bias) against fold_plain at 1e-4 of |x| . |W|. The
+elite kernel is held at its edges (S = 77, 2048 and 28,000, HA = 114, E =
+1 and E = S, ties across the boundary, all tied, NaN, inf and +-3e38), its
+N=8 launch against 8 one-env launches bit for bit, and the canary at n =
+1, 3, 1027 and at a storage offset. The
 agent's plan, a replayed CUDA graph, is held bit for bit against its eager
 body (`TDMPC2._plan_body`) on the same draws: at n = 1 and n = num_envs,
 in both modes, with mixed episode starts, after an update (the prep
@@ -1100,56 +1104,132 @@ def test_wide_rows_simnorm_groups(agent, group, L):
     assert {k: plan[k] for k in mirror} == mirror
 
 
-@pytest.mark.parametrize('N,n_pi', [(1, 24), (8, 24), (8, 0)])
-def test_wide_stage_matches_plain_at_317_widths(agent, N, n_pi):
+@pytest.mark.parametrize('N,n_pi,mask', [
+    pytest.param(1, 24, 'env', id='1-24'), pytest.param(8, 24, 'env', id='8-24'),
+    pytest.param(8, 0, 'env', id='8-0'), pytest.param(80, 24, 'env', id='80-24'),
+    pytest.param(8, 24, 'shared', id='8-24-shared')])
+def test_wide_stage_matches_plain_at_317_widths(agent, N, n_pi, mask):
     """The wide engine's staging alone (ops/wide.py stage, the library's
     tdm_wide_stage) over the H stagings of a sampled value step at the 317M
-    model's widths, N envs of 512 rows (a broadcast latent, a mask row per
-    env, the noise a strided view as the planner passes it), against
-    stage_plain exactly: the z||a rows bit for bit, nothing written past
-    the padded widths, the f32 actions sample_actions_plain's; G, q, term
-    and term_at zeroed; H launches counted; at N=8 each env's rows bit for
-    bit its one-env launch's."""
+    model's widths, N envs of 512 rows (512, 4,096 and 40,960 rows; a mask
+    row per env, or one for every env; the noise a strided view as the
+    planner passes it), with the latent broadcast (zs = 0), a latent per row
+    (zs != 0) and folded (step 0's latent into zb, each env's once, env the
+    identity), against stage_plain exactly: the z||a rows bit for bit,
+    nothing written past the padded widths (nor, folded, in the latent
+    columns), the f32 actions sample_actions_plain's; G, q, term and
+    term_at zeroed; H launches counted; at N=8 each env's rows bit for bit
+    its one-env launch's."""
     dims, S, dev = _317_DIMS, 512, torch.device('cuda')
     L, A, H = dims[0], dims[2], dims[6]
-    HA, width = H * A, wm.up16(L) + wm.up16(A)
-    g = torch.Generator(device=dev).manual_seed(N + n_pi)
-    z0 = torch.randn(N, 1, L, device=dev, generator=g).expand(N, S, L)
+    HA, Lp, width = H * A, wm.up16(L), wm.up16(L) + wm.up16(A)
+    g = torch.Generator(device=dev).manual_seed(N + n_pi + (mask == 'shared'))
+    z1 = torch.randn(N, 1, L, device=dev, generator=g)
+    z_rows = torch.randn(N, S, L, device=dev, generator=g)
     mean = torch.rand(N, HA, device=dev, generator=g) * 1.6 - 0.8
     std = torch.rand(N, HA, device=dev, generator=g) * 1.9 + 0.1
     noise = torch.randn(N, 2, S, HA, device=dev, generator=g)[:, 0]
     pi_acts = torch.rand(N, n_pi, HA, device=dev, generator=g) * 2 - 1
-    amask = (torch.rand(N, A, device=dev, generator=g) < 0.8).float()
+    amask = (torch.rand(N if mask == 'env' else 1, A, device=dev, generator=g) < 0.8).float()
+    if mask == 'shared':
+        amask = amask[0]
 
-    def run(fn, e=None):
-        sel = (lambda x: x) if e is None else (lambda x: x[e:e + 1])
-        n = 1 if e is not None else N
-        o = dict(x=torch.full((n * S, width + 16), float('nan'), device=dev,
-                              dtype=torch.bfloat16),
-                 acts=torch.full((n, S, HA), float('nan'), device=dev),
-                 G=torch.ones(n * S, device=dev), q=torch.ones(n * S, device=dev),
-                 term=torch.ones(n * S, device=dev),
-                 term_at=torch.ones(n * S, device=dev, dtype=torch.int32))
-        for t in range(H):
-            fn(dims, S, t, sel(z0), sel(mean), sel(std), sel(noise), sel(pi_acts), sel(amask),
-               o['x'], o['acts'], load_z=t == 0, G=o['G'], q=o['q'], term=o['term'],
-               term_at=o['term_at'])
-        return o
+    def bits(v):
+        return v.view(torch.int16) if v.element_size() == 2 else v.view(torch.int32)
 
-    n0 = wide.stage.launches
-    got = run(wide.stage)
-    assert wide.stage.launches == n0 + H
-    want = run(wide.stage_plain)
-    assert torch.equal(got['x'].view(torch.int16), want['x'].view(torch.int16))
-    assert torch.equal(got['acts'], want['acts'])
-    assert torch.equal(got['acts'], sample_actions_plain(mean, std, noise, pi_acts, amask))
-    assert all(bool((got[k] == 0).all()) for k in ('G', 'q', 'term', 'term_at'))
-    if N == 8:
-        for e in (0, 5):
-            one = run(wide.stage, e)
-            assert torch.equal(one['x'].view(torch.int16),
-                               got['x'][e * S:(e + 1) * S].view(torch.int16))
-            assert torch.equal(one['acts'], got['acts'][e:e + 1])
+    for z_mode in ('broadcast', 'per row', 'folded'):
+        z0 = z_rows if z_mode == 'per row' else z1.expand(N, S, L)
+
+        def run(fn, e=None):
+            sel = (lambda x: x) if e is None else (lambda x: x[e:e + 1])
+            n = 1 if e is not None else N
+            o = dict(x=torch.full((n * S, width + 16), float('nan'), device=dev,
+                                  dtype=torch.bfloat16),
+                     acts=torch.full((n, S, HA), float('nan'), device=dev),
+                     G=torch.ones(n * S, device=dev), q=torch.ones(n * S, device=dev),
+                     term=torch.ones(n * S, device=dev),
+                     term_at=torch.ones(n * S, device=dev, dtype=torch.int32))
+            fold = {}
+            if z_mode == 'folded':
+                fold = dict(zb=torch.full((n, Lp), float('nan'), device=dev,
+                                          dtype=torch.bfloat16),
+                            env=torch.full((n,), -1, device=dev, dtype=torch.int32))
+                o.update(fold)
+            am = amask if amask.dim() == 1 else sel(amask)
+            for t in range(H):
+                fn(dims, S, t, sel(z0), sel(mean), sel(std), sel(noise), sel(pi_acts), am,
+                   o['x'], o['acts'], load_z=t == 0, G=o['G'], q=o['q'], term=o['term'],
+                   term_at=o['term_at'], **(fold if t == 0 else {}))
+            return o
+
+        n0 = wide.stage.launches
+        got = run(wide.stage)
+        assert wide.stage.launches == n0 + H
+        want = run(wide.stage_plain)
+        for k in got:
+            assert torch.equal(bits(got[k]), bits(want[k])), (z_mode, k)
+        assert torch.equal(got['acts'], sample_actions_plain(mean, std, noise, pi_acts, amask))
+        assert all(bool((got[k] == 0).all()) for k in ('G', 'q', 'term', 'term_at'))
+        if z_mode == 'folded':
+            assert bool(got['x'][:, :Lp].isnan().all())
+        if N == 8:
+            for e in (0, 5):
+                one = run(wide.stage, e)
+                assert torch.equal(bits(one['x']), bits(got['x'][e * S:(e + 1) * S]))
+                assert torch.equal(one['acts'], got['acts'][e:e + 1])
+                if z_mode == 'folded':
+                    assert torch.equal(bits(one['zb']), bits(got['zb'][e:e + 1]))
+
+
+@pytest.mark.parametrize('n', [1, 8, 80])
+def test_wide_fold_products_match_plain_at_317_widths(agent, n):
+    """A value step's folded first layer through the wide engine's product
+    (ops/wide.py gemm) on the wide layout's blocks (rows 1392 apart): u =
+    zb . W[:, :1376] + b0[task] on the n envs' latents (80 tasks), then the
+    action columns of x (its rows 1392 wide) . W[:, 1376:] + u[env] on n x
+    512 rows, against fold_plain within 1e-4 of the products' magnitudes
+    (|zb| . |Wz| + |a| . |Wa|, the tolerance of the product checks); each
+    launch's plan the mirror's (tests/wide_mirror.py fold_plans); at N = 8
+    env 5's rows of each product equal its one-env launch bit for bit."""
+    dims, S, dev = _317_DIMS, 512, torch.device('cuda')
+    L, M, A = dims[0], dims[1], dims[2]
+    Lp, Ap, T = wm.up16(L), wm.up16(A), 80
+    g = torch.Generator(device=dev).manual_seed(1392 + n)
+    wT = (torch.randn(M, Lp + Ap, device=dev, generator=g) * L ** -0.5).to(torch.bfloat16)
+    wT[:, L:Lp] = 0
+    wT[:, Lp + A:] = 0
+    zb = torch.randn(n, Lp, device=dev, generator=g).to(torch.bfloat16)
+    zb[:, L:] = 0
+    x = torch.full((n * S, Lp + Ap), float('nan'), device=dev, dtype=torch.bfloat16)
+    x[:, Lp:] = 0
+    x[:, Lp:Lp + A] = (torch.rand(n * S, A, device=dev, generator=g) * 2 - 1).to(torch.bfloat16)
+    b0 = torch.randn(T, M, device=dev, generator=g)
+    task = ((torch.arange(n, device=dev) * 7 + 3) % T).to(torch.int32)
+    env = torch.arange(n, device=dev, dtype=torch.int32)
+
+    def products(zb_, x_, task_, env_):
+        k = len(env_)
+        u, pu = wide.gemm(zb_, wT[:, :Lp], b0, dims, 1, task=task_, ntask=T, bt=M)
+        y, py = wide.gemm(x_[:, Lp:], wT[:, Lp:], u, dims, S, task=env_, ntask=k,
+                          bt=u.stride(0))
+        return u[:, :M], y[:, :M], pu, py
+
+    u, y, pu, py = products(zb, x, task, env)
+    want_u, want_y = wide.fold_plain(zb, x[:, Lp:], wT, b0, task, S)
+    keys = ('bm', 'bn', 'wgs', 'splits', 'kchunk', 'pstride', 'grid')
+    for plan, mirror in zip((pu, py), wm.fold_plans(dims, n, S, T)):
+        assert {k: plan[k] for k in keys} == {k: mirror[k] for k in keys}
+    mag_u = zb.float().abs() @ wT[:, :Lp].float().abs().T
+    mag_y = x[:, Lp:].float().abs() @ wT[:, Lp:].float().abs().T + mag_u[
+        torch.arange(n * S, device=dev) // S]
+    for got, want, mag in ((u, want_u, mag_u), (y, want_y, mag_y)):
+        assert bool(torch.isfinite(got).all())
+        assert bool(((got - want).abs() <= 1e-4 * mag + 1e-6).all()), \
+            float((got - want).abs().max())
+    if n == 8:
+        sl = slice(5 * S, 6 * S)
+        u1, y1, _, _ = products(zb[5:6], x[sl], task[5:6], env[:1])
+        assert torch.equal(u1, u[5:6]) and torch.equal(y1, y[sl])
 
 
 # ------------------------------------------------------- the plan's graph

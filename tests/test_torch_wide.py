@@ -16,7 +16,8 @@ the kernels:
 - the port's plain value step and pi rollout at mlp_dim 2560 (above 2048:
   the widths the wide engine serves) against the JAX package's, the Pallas
   value kernel run interpreted with f32 dots, on the same noise;
-- the wide engine's launches a call and a plan;
+- the wide engine's launches a call and a plan, folded and not, and the
+  fold's two product plans (tests/wide_mirror.py `fold_plans`);
 - the row kernel's plain version (ops/wide.py `rows_plain`, what the
   kernel is held to on the card) in each mode against the JAX package's
   row functions (`_ln`, `_mish`, `layers.simnorm`, `math.two_hot_inv`,
@@ -26,8 +27,12 @@ the kernels:
   (tests/wide_mirror.py `row_plan`, `row_owners`): each column of a row
   owned once, its owner following from the width alone;
 - the staging's plain version (ops/wide.py `stage_plain`) against the TPU
-  kernel's sampling in JAX, and each library entry's ctypes argument
-  types (ops/_build.py `SIGNATURES`) against its declaration in csrc/;
+  kernel's sampling in JAX, folded too (each env's latent into zb), a
+  value step's folded first layer (ops/wide.py `fold_plain`: the latent's
+  share with the task's bias row, then the actions' with it as a bias row
+  an env) against the port's plain first layer and JAX's z Wz + a Wa at
+  317's widths, and each library entry's ctypes argument types
+  (ops/_build.py `SIGNATURES`) against its declaration in csrc/;
 - mt80 at model_size 317: the Meta-World dims of chip_smoke's literals
   against the JAX adapter's, and the offline buffer that the port's
   trainer loads from chunks of that geometry against the JAX trainer's, at
@@ -122,17 +127,31 @@ def test_widths_no_engine_takes_raise_naming_them(dims):
 def test_wide_launch_counts():
     """13 launches a step (the staging, reward and dynamics: a product and a
     row kernel a layer), 6 more with the termination gate, 18 for the
-    policy and the two Q heads; the pi rollout stages once and skips the
-    last step's dynamics; a plan of 6 iterations at H=3."""
-    assert wide.value_launches(3, False) == 57
-    assert wide.value_launches(3, True) == 75
+    policy and the two Q heads, and, folded (the latent broadcast over an
+    env's rows, as the planner passes it), the two products of u for step
+    0's z||a first layers; the pi rollout stages once and skips the last
+    step's dynamics; a plan of 6 iterations at H=3 (folded value steps)."""
+    assert wide.value_launches(3, False) == 57 + 2
+    assert wide.value_launches(3, True) == 75 + 2
     assert wide.pi_rollout_launches(3) == 31
     assert wide.rollout_launches(3) == 39
-    assert wide.plan_launches(3, 6, False) == 31 + 6 * 57
-    # the products among them: a product per layer
-    assert (wide.value_products(3, False), wide.value_products(3, True)) == (27, 36)
+    assert wide.plan_launches(3, 6, False) == 31 + 6 * 59 == 385
+    # the products among them: a product per layer, and the fold's two
+    assert (wide.value_products(3, False), wide.value_products(3, True)) == (27 + 2, 36 + 2)
     assert (wide.pi_rollout_products(3), wide.rollout_products(3)) == (15, 18)
-    assert wide.plan_products(3, 6, False) == 15 + 6 * 27
+    assert wide.plan_products(3, 6, False) == 15 + 6 * 29 == 189
+    # a staging a step and the pi rollout's one; a row kernel after every
+    # product but u's two a value step
+    assert wide.plan_stagings(3, 6) == 19
+    rows = (wide.plan_launches(3, 6, False) - wide.plan_products(3, 6, False)
+            - wide.plan_stagings(3, 6))
+    assert rows == wide.plan_products(3, 6, False) - 2 * 6 == 177
+    # the fold's two products as the mirror plans them: u on the N envs'
+    # rows (an env a row tile where the task picks the bias), the actions on
+    # every row with u's row of the env as the bias
+    u, act = wm.fold_plans(_D317, 80, 512, 80)
+    assert (u['bm'], u['grid'], u['nk']) == (64, (32, 80, 1), 22)
+    assert (act['bm'], act['grid'], act['nk']) == (128, (16, 320, 1), 1)
 
 
 # ---------------------------------------------- the layout the engine reads
@@ -256,7 +275,9 @@ _D317, _D5 = (1376, 4096, 6, 101, 8, 8, 3), (512, 512, 6, 101, 5, 8, 3)
     (_D317, 2, 512, 4096, 1, False), (_D317, 5, 24, 1376, 4096, True),
     (_D317, 5, 24, 4096, 4096, False), (_D317, 5, 24, 4096, 12, False),
     (_D317, 2, 77, 4096, 1376, True), (_D5, 1, 512, 528, 512, False),
-    (_D5, 1, 77, 512, 101, False), (_D5, 3, 77, 528, 512, True)])
+    (_D5, 1, 77, 512, 101, False), (_D5, 3, 77, 528, 512, True),
+    (_D317, 80, 1, 1376, 4096, True), (_D317, 1, 1, 1376, 4096, False),
+    (_D317, 80, 512, 16, 4096, True), (_D317, 1, 512, 16, 4096, False)])
 def test_gemm_plan_covers_each_output_once(dims, n_envs, S, K, N, per_env):
     """The product's tile plan (ops/wide.py gemm_plan, the mirror of
     Wide::launch_gemm): every output row and column in exactly one tile of
@@ -686,8 +707,11 @@ def test_row_layout_owns_each_column_once(mode, ncols):
             assert 1 <= split['stages'] and split['smem_bytes'] <= wm.SMEM_MAX
 
 
-@pytest.mark.parametrize('n_pi,mask_per_env', [(0, False), (3, False), (3, True)])
-def test_stage_plain_matches_jax_sampling(n_pi, mask_per_env):
+@pytest.mark.parametrize('n_pi,mask_per_env,fold', [
+    pytest.param(0, False, False, id='0-False'), pytest.param(3, False, False, id='3-False'),
+    pytest.param(3, True, False, id='3-True'), pytest.param(3, True, True, id='3-True-folded'),
+    pytest.param(0, False, True, id='0-False-folded')])
+def test_stage_plain_matches_jax_sampling(n_pi, mask_per_env, fold):
     """ops/wide.py stage_plain, the function the wide engine's staging
     (stage_kernel) is held to on the card, over the H stagings of a value
     step on numpy-seeded inputs (2 envs of 7 rows, 3 of them policy-prior
@@ -695,13 +719,15 @@ def test_stage_plain_matches_jax_sampling(n_pi, mask_per_env):
     against the TPU kernel's sampling (pallas_cem.py:136-147: clip(mean +
     std * noise), the policy-prior rows, the mask) in JAX within 1e-6 (XLA
     may fuse the multiply-add): the f32 actions, their bf16 copies in the
-    action columns, the latent's bf16 copy at t = 0, zeros to the padded
-    widths, G, q, term and term_at zeroed; `stage` takes the same function
-    on the CPU."""
+    action columns, zeros to the padded widths, G, q, term and term_at
+    zeroed; at t = 0 the latent's bf16 copy in every row's latent columns,
+    or, folded, each env's in its row of zb (zeros to the padded width),
+    env the identity and the latent columns untouched; `stage` takes the
+    same function on the CPU."""
     dims = (20, 32, 3, 11, 2, 4, 3)
     L, A, H = dims[0], dims[2], dims[6]
     N, S, HA, Lp, Ap = 2, 7, H * A, _up16(L), _up16(A)
-    rng = np.random.default_rng(31 + n_pi + mask_per_env)
+    rng = np.random.default_rng(31 + n_pi + mask_per_env + 2 * fold)
     x = dict(z=rng.normal(size=(N, 1, L)), mean=rng.uniform(-0.8, 0.8, (N, HA)),
              std=rng.uniform(0.1, 2.0, (N, HA)), noise=rng.normal(size=(N, S, HA)),
              pi_acts=rng.uniform(-1, 1, (N, n_pi, HA)),
@@ -712,10 +738,12 @@ def test_stage_plain_matches_jax_sampling(n_pi, mask_per_env):
     acts = torch.full((N, S, HA), float('nan'))
     G, q, term = (torch.ones(N * S) for _ in range(3))
     term_at = torch.ones(N * S, dtype=torch.int32)
+    fold_kw = dict(zb=torch.full((N, Lp), float('nan'), dtype=torch.bfloat16),
+                   env=torch.full((N,), -1, dtype=torch.int32)) if fold else {}
     for step in range(H):
         wide.stage(dims, S, step, t['z'].expand(N, S, L), t['mean'], t['std'], t['noise'],
                    t['pi_acts'], t['amask'], xs, acts, load_z=step == 0, G=G, q=q,
-                   term=term, term_at=term_at)
+                   term=term, term_at=term_at, **(fold_kw if step == 0 else {}))
     m = np.broadcast_to(x['amask'], (N, A))
     ref = jnp.clip(x['mean'][:, None] + x['std'][:, None] * x['noise'], -1.0, 1.0)
     ref = jnp.concatenate([x['pi_acts'], ref[:, n_pi:]], axis=1)
@@ -726,12 +754,55 @@ def test_stage_plain_matches_jax_sampling(n_pi, mask_per_env):
     assert torch.equal(xs[:, Lp:Lp + A].view(torch.int16),
                        acts[..., (H - 1) * A:].reshape(N * S, A).to(torch.bfloat16)
                        .view(torch.int16))
-    assert torch.equal(xs[:, :L].view(torch.int16),
-                       t['z'].expand(N, S, L).reshape(N * S, L).to(torch.bfloat16)
-                       .view(torch.int16))
-    assert (xs[:, L:Lp] == 0).all() and (xs[:, Lp + A:Lp + Ap] == 0).all()
+    zbits = t['z'][:, 0].to(torch.bfloat16).view(torch.int16)
+    if fold:
+        assert xs[:, :Lp].isnan().all()
+        assert torch.equal(fold_kw['zb'][:, :L].view(torch.int16), zbits)
+        assert (fold_kw['zb'][:, L:] == 0).all()
+        assert torch.equal(fold_kw['env'], torch.arange(N, dtype=torch.int32))
+    else:
+        assert torch.equal(xs[:, :L].view(torch.int16),
+                           zbits[:, None].expand(N, S, L).reshape(N * S, L))
+        assert (xs[:, L:Lp] == 0).all()
+    assert (xs[:, Lp + A:Lp + Ap] == 0).all()
     assert xs[:, Lp + Ap:].isnan().all()
     assert all((v == 0).all() for v in (G, q, term, term_at))
+
+
+def test_folded_first_layer_matches_plain_and_jax():
+    """A value step's folded z||a first layer (ops/wide.py fold_plain, the
+    function of csrc/mlp_wide.cuh's two products at t = 0): the product of
+    each env's latent with the wide layout's latent block plus the env's
+    task row of the bias table (u), then the rows' action columns with the
+    layout's action block plus u as a bias row an env, at the 317M model's
+    widths (latent 1376, mlp 4096, 6 actions; 2 envs of 3 rows, tasks 5
+    and 61 of 80), against the port's plain first layer (ops/value.py:
+    _dot(z, Wz) + _dot(a, Wa) + b0[task]) and JAX's z @ Wz + a @ Wa + b0 on
+    the same bf16-rounded operands, within 1e-4."""
+    L, M, A, T, N, S = 1376, 4096, 6, 80, 2, 3
+    Lp, Ap = _up16(L), _up16(A)
+    rng = np.random.default_rng(1392)
+
+    def bf(v):
+        return torch.from_numpy(v.astype(np.float32)).to(torch.bfloat16)
+    z, a = bf(rng.normal(size=(N, L))), bf(rng.uniform(-1, 1, (N, S, A)))
+    Wz, Wa = bf(rng.normal(size=(L, M)) * L ** -0.5), bf(rng.normal(size=(A, M)) * 0.4)
+    b0 = torch.from_numpy(rng.normal(size=(T, M)).astype(np.float32) * 0.1)
+    task = torch.tensor([5, 61], dtype=torch.int32)
+    wT = tv.wide_matrix(Wz, Wa)
+    assert tuple(wT.shape) == (M, Lp + Ap)
+    zb = torch.nn.functional.pad(z, (0, Lp - L))
+    xa = torch.nn.functional.pad(a.reshape(N * S, A), (0, Ap - A))
+    u, y = wide.fold_plain(zb, xa, wT, b0, task, S)
+    assert tuple(u.shape) == (N, M) and tuple(y.shape) == (N * S, M)
+    zr = z.float()[:, None].expand(N, S, L)
+    want = (tv._dot(zr, Wz) + tv._dot(a.float(), Wa)
+            + tv.bias0({'db0': b0}, 'db0', task))
+    torch.testing.assert_close(y.reshape(N, S, M), want, **VTOL)
+    ref = (jnp.asarray(zr.numpy()) @ jnp.asarray(Wz.float().numpy())
+           + jnp.asarray(a.float().numpy()) @ jnp.asarray(Wa.float().numpy())
+           + jnp.asarray(b0.numpy())[np.array([5, 61])][:, None])
+    np.testing.assert_allclose(y.reshape(N, S, M).numpy(), np.asarray(ref), **VTOL)
 
 
 _SIG_TYPES = {'int': ctypes.c_int, 'long': ctypes.c_long, 'float': ctypes.c_float}

@@ -5,7 +5,8 @@ the value step and the pi rollout take (csrc/mlp_wide.cuh `tdm_engine`,
 from mlp_rows.cuh `pick_plan` and `wide_fits`), how the wide engine's
 product is launched (`Wide::launch_gemm`: its tile, K splits and grid) and
 how its row kernel is (`Wide::rows`: the threads a row, from the width
-alone, the columns each owns, the ring of row buffers).
+alone, the columns each owns, the ring of row buffers), and the two
+products of a value step's folded first layers (`Wide::hidden2`).
 The CPU has no library, so the CPU tests use this copy of the rules, and
 tests/test_torch_cuda.py holds the built library's answers to it on the
 card. It imports neither jax nor the JAX package.
@@ -115,6 +116,17 @@ def gemm_plan(dims, n_envs: int, S: int, K: int, ncols: int, per_env: bool) -> d
     gy = n_envs * bpe if per_env else -(-n_envs * S // t['bm'])
     return dict(t, nk=nk, splits=s, kchunk=kchunk, pstride=up16(ncols), bpe=bpe,
                 grid=(-(-ncols // t['bn']), gy, s))
+
+
+def fold_plans(dims, n_envs: int, S: int, ntask: int):
+    """The two products of a folded z||a first layer (Wide::hidden2 at a
+    value step's t = 0 with the latent broadcast): u = zb . W[:, :Lp] +
+    b0[task] on the n_envs envs' rows, a row an env (per env where the task
+    picks the bias row: ntask > 1), then the action columns . W[:, Lp:] +
+    u[env] on every row (per env where there is more than one)."""
+    L, M, A = dims[0], dims[1], dims[2]
+    return (gemm_plan(dims, n_envs, 1, up16(L), M, ntask > 1),
+            gemm_plan(dims, n_envs, S, up16(A), M, n_envs > 1))
 
 
 def gemm_blocks(plan, n_envs: int, S: int, K: int, ncols: int):
