@@ -6,6 +6,7 @@
     python3 chip_smoke.py --cycles        # value, elite and row kernels: block 0 cycles
     python3 chip_smoke.py --rows          # the build, then the row phase alone
     python3 chip_smoke.py --stage         # the build, the staging and the fold's products
+    python3 chip_smoke.py --pixels        # the build, the canary, the pixel phases
 
 Builds the port's CUDA kernels from `tdmpc2_tpu_torch/csrc` with nvcc,
 runs the kernel-engine canary, holds every kernel against its plain
@@ -234,6 +235,20 @@ SNAPSHOT_EPS = 3           # the train paths' replay snapshot: 3 x 50 = 150 step
 RESUME_STEPS = 1400        # the resumed toy-reach runs go on from TRAIN_STEPS
 RESUME_REFILL = 200        # the snapshot's 150 steps of credit open it 50 steps in
 TOY_MT_RESUME = 128        # the toy multi-task run resumed at TOY_MT_STEPS
+# The pixel phases (obs=rgb, `pixel_phases`): the committed walker-walk pixel
+# model (the default 5M config; a conv encoder of 32 channels on 64 x 64 x 9
+# uint8 stacks, whose 4 x 4 x 32 output is the latent, 512; action 6) on the
+# frames its trained agent saw (PIXEL_OBS_FILE, recorded by
+# tests/data/record_observations.py: the card has no dm_control), and pixel
+# agents of the same widths (action 2) trained from seeded weights on
+# PixelObs(point mass), the port's toy env rendered at 64 x 64.
+PIXEL_CKPT = ('walker-walk', 'results/checkpoints/walker-walk-rgb-s1.pkl.gz', 6)
+PIXEL_OBS_FILE = 'tests/data/pixel_observations.npz'
+PIXEL_SHAPE = (9, 64, 64)
+PIXEL_STEPS, PIXEL_SEED_STEPS = 300, 100        # one env: the burst, then 200 planned
+# num_envs=8: planned vector steps from env step 168; the first episodes end
+# at 8 x 50 = 400, where the 160-update burst runs, then 8 updates a vector step
+PIXEL_VEC_STEPS, PIXEL_VEC_SEED_STEPS = 480, 160
 
 # Bands of kernel against plain version. Both round every dot input to
 # bf16 and accumulate in f32; they differ in summation order and in the
@@ -258,6 +273,15 @@ GATE_FLIP_SHARE = 0.01
 # of them flagged at t=H.
 FLAG_SPLIT = (0.05, 0.95)
 PI_TOL = dict(rtol=2e-2, atol=2e-2)
+# The pi rollout on a policy that sits at its log-std cap (the trained
+# walker pixel model: log_std 2, means up to ~17): an action is
+# tanh(mean + exp(log_std) eps), whose two terms can nearly cancel, so a
+# bf16 step of either moves the action by far more than 2e-2 of itself
+# (on those inputs the kernel and the bf16 plain version each lie 0.1-0.4
+# from an all-f32 rollout, 0.03 from each other). There the band is two
+# bf16 steps of |mean| + exp(log_std) |eps| on top of PI_TOL's atol, held
+# step by step (`hold_pi_terms`).
+PI_TERMS_TOL = dict(rtol=2 ** -7, atol=2e-2)
 # The fused kernel's sampled actions are sample_actions_plain's, bit for
 # bit, and its values the given-actions launch's on them.
 SAMPLE_TOL = dict(rtol=0.0, atol=0.0)
@@ -283,6 +307,10 @@ GUARD_TOL = dict(rtol=0.0, atol=0.0)
 # state that has trained (so Adam's step is not a sign of a tiny
 # gradient): sums in another order, 1e-4 as the CPU parity with JAX.
 UPDATE_TOL = dict(rtol=1e-4, atol=1e-4)
+# The conv encoder on the card (cuDNN, f32: TF32 off around the stack)
+# against the CPU's, the same arithmetic in another order; ShiftAug is a
+# gather, exact.
+ENC_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 # The elite kernel's edges: values in registers (S <= 512) or in shared
@@ -579,26 +607,48 @@ def hold_sampled(label, args, heads, episodic=False, task=None, gate_rule=True):
     return err, v, acts
 
 
-def pi_rollout_forced(prep, z0, pi_eps, acts, heads, task=None, amask=None):
+def pi_rollout_forced(prep, z0, pi_eps, acts, heads, task=None, amask=None, terms=False):
     """The plain pi rollout with each step's latent advanced on the kernel's
     actions `acts` [N, n_pi, H*A]: each step's plain action computed from
     the kernel's own trajectory. A free-running comparison carries a bf16
     flip of one step into the next step's latent, where the policy's
     exp(log_std) (up to e^2) amplifies it; this one holds every step's
-    arithmetic on its own."""
+    arithmetic on its own. With `terms`, also the size of the two terms
+    each action's tanh sums, |mean| + exp(log_std) |eps|, per value."""
     import torch
     from tdmpc2_tpu_torch.ops import value
     A = prep['pWm'].shape[1]
     z = z0.float().expand(*pi_eps.shape[:-1], z0.shape[-1])
     m = 1.0 if amask is None else value.mask_rows(amask, A)
-    out = []
+    out, mags = [], []
     for t in range(pi_eps.shape[-1] // A):
         sl = slice(t * A, (t + 1) * A)
         mean, ls = value.pi_head_plain(prep, z, heads['log_std_min'],
                                        heads['log_std_dif'], task)
         out.append(value.pi_action_plain(mean, ls, pi_eps[..., sl], m))
+        mags.append((mean.abs() + torch.exp(ls) * pi_eps[..., sl].abs()) * m)
         z = value.dynamics_plain(prep, z, acts[..., sl], heads['simnorm_dim'], task)
-    return torch.cat(out, -1)
+    return (torch.cat(out, -1), torch.cat(mags, -1)) if terms else torch.cat(out, -1)
+
+
+def hold_pi_terms(name, got, prep, z0, pi_eps, heads):
+    """The pi rollout `got` held step by step (`pi_rollout_forced`) in
+    PI_TERMS_TOL: its band scales with the terms the tanh sums, not with
+    the action, which they may nearly cancel. Returns the max |err|."""
+    import torch
+    want, mags = pi_rollout_forced(prep, z0, pi_eps, got, heads, terms=True)
+    err = max_err(got, want)
+    band = PI_TERMS_TOL['atol'] + PI_TERMS_TOL['rtol'] * mags
+    d = (got - want).abs()
+    if not bool(torch.isfinite(got).all()) or bool((d > band).any()):
+        raise AssertionError(f'{name}: max |err| {err:.3g} outside {PI_TERMS_TOL} of the '
+                             'terms')
+    i = int(torch.argmax(d / band))
+    log(f'  {name}, step by step: max |err| {err:.3g}, within {PI_TERMS_TOL} of |mean| + '
+        f'exp(log_std)|eps| (at most {float((d / band).flatten()[i]):.3f} of the band, where '
+        f'the terms are {float(mags.flatten()[i]):.3f}); {int((d > PI_TOL["atol"] + PI_TOL["rtol"] * want.abs()).sum())} '
+        f'of {d.numel()} values outside {PI_TOL} of the action')
+    return err
 
 
 def hold_plan_graph(label, ag, n, eval_mode, seed, obs=None):
@@ -966,6 +1016,32 @@ def cycles() -> int:
                 del yc, y0
             del kw, y
     log(nvidia_smi_line())
+    return 0
+
+
+def pixels_only() -> int:
+    """`--pixels`: the build, the canary, then the pixel phases alone
+    (pixel_phases), for a quick check of the pixel path on the card."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 2
+    from tdmpc2_tpu_torch.ops import _build, probe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    for name, (secs, _) in _build.build().items():
+        log(f'  {name}.cu built in {secs:.1f} s')
+    if not probe.kernel_engine_alive(torch.device('cuda')):
+        raise AssertionError(f'canary: {probe.verdict()["reason"]}')
+    _, zero_counts, read_counts, check_plan_counts = plan_counters(
+        pixel_cfg().iterations)
+    errs, paths, metrics = pixel_phases(zero_counts, read_counts, check_plan_counts)
+    log(f'[done] {time.perf_counter() - t_start:.1f} s')
+    log(smi)
+    log(json.dumps({'pixels': metrics, 'max_abs_err_trained': errs, 'launches': paths}))
     return 0
 
 
@@ -2747,13 +2823,17 @@ def reference_state_dict(cfg, seed):
     return sd
 
 
-def hold_trained(task, ag, obs_rows):
+def hold_trained(task, ag, obs_rows, forced=False):
     """The planner's kernels on `ag`'s trained weights against their plain
     versions, on recorded observations: the pi rollout, the sampled value
     step and the elite step at N = N_ENVS envs and at one env (each N-env
     launch against N one-env launches, bit for bit), the plain versions'
     own spread (the CPU's against the card's), and the plan's graph against
-    its eager body at one env and N envs. Returns {kernel: max |err|}."""
+    its eager body at one env and N envs. With `forced` the pi rollout is
+    held step by step, against the plain rollout whose latents advance on
+    the kernel's actions (`pi_rollout_forced`), and its free-running
+    distance is logged beside two plain versions' (`log_pi_drift`; ROADMAP
+    C4). Returns {kernel: max |err|}."""
     import numpy as np
     import torch
     from tdmpc2_tpu_torch.ops import cem, value
@@ -2775,8 +2855,19 @@ def hold_trained(task, ag, obs_rows):
                - 0.2, torch.rand(NE, HA, device=dev, generator=g) * 1.9 + 0.1,
                noise.sample[:, 0], pa, ag.amask, noise.eps[:, 0], noise.qidx[:, 0],
                ag.discs.expand(NE, -1))
-    errs = {'cem_pi_rollout': hold(f'{task} pi_rollout N={NE}', pa,
-                                   cem.pi_rollout_plain(*pi_args, **heads), PI_TOL)}
+    if forced:
+        log_pi_drift(f'{task} pi_rollout N={NE}', pi_args, heads, {}, pa)
+        # both bf16 versions against an all-f32 one, latents on the kernel's actions
+        f32 = pi_rollout_forced(value.prepare_value_params(ag.params, cfg, torch.float32),
+                                *pi_args[1:], pa, heads)
+        log(f'  {task} pi_rollout N={NE} against an all-f32 rollout: the kernel max |err| '
+            f'{max_err(pa, f32):.3g}, the bf16 plain version '
+            f'{max_err(pi_rollout_forced(*pi_args, pa, heads), f32):.3g}')
+        errs = {'cem_pi_rollout': hold_pi_terms(f'{task} pi_rollout N={NE}', pa, *pi_args,
+                                                heads)}
+    else:
+        errs = {'cem_pi_rollout': hold(f'{task} pi_rollout N={NE}', pa,
+                                       cem.pi_rollout_plain(*pi_args, **heads), PI_TOL)}
     errs['value_sampled'], v, acts = hold_sampled(f'{task} N={NE}', vs_args, heads)
     e_args = (v, acts, ag.amask)
     errs['cem_elite'] = max(
@@ -2801,7 +2892,10 @@ def hold_trained(task, ag, obs_rows):
             if not all(torch.equal(a[i:i + 1], b) for a, b in zip(got, one)):
                 raise AssertionError(f'{task} {name}: env {i} of the N={NE} launch differs '
                                      'from its one-env launch')
-            if i == 0:
+            if i == 0 and forced and name == 'cem_pi_rollout':
+                errs[name] = max(errs[name], hold_pi_terms(
+                    f'{task} {name} one env', one[0], *one_args, kw))
+            elif i == 0:
                 ref = as_tuple(plain(*one_args, **kw))
                 errs[name] = max(errs[name], *[
                     hold(f'{task} {name} one env [{j}]', a, b, tol)
@@ -3064,6 +3158,325 @@ def checkpoint_phases(zero_counts, read_counts, check_plan_counts, hold_update):
             raise AssertionError('evaluate from .pt: non-finite reward')
         check_plan_counts('evaluate from a reference .pt', counts, res['plans'])
     return errs, paths, read_s
+
+
+def pixel_env(seed):
+    """NormalizeInfo(Timeout(PixelObs(point mass))): 64 x 64 x 9 uint8 stacks
+    of the toy env's frames, as the JAX pixel loop's env is built
+    (tests/test_pixels_loop.py)."""
+    from tdmpc2_tpu_torch.envs.base import NormalizeInfo, Timeout
+    from tdmpc2_tpu_torch.envs.dmcontrol import PixelObs
+    from tdmpc2_tpu_torch.envs.toy import PointMassEnv
+    return NormalizeInfo(Timeout(PixelObs(PointMassEnv(seed)), MAX_EP_LEN))
+
+
+def pixel_cfg(*extra, action_dim=2, task='toy-reach'):
+    """The default 5M config with obs=rgb at 64 x 64 x 9 (num_channels 32,
+    latent 512), the env fields set as the JAX pixel loop sets them."""
+    from tdmpc2_tpu_torch.config import load_cfg
+    cfg = load_cfg(overrides=[f'task={task}', 'obs=rgb', f'seed={SEED}', 'device=cuda',
+                              *extra])
+    cfg.obs_shape, cfg.action_dim = {'rgb': PIXEL_SHAPE}, action_dim
+    cfg.episode_length = MAX_EP_LEN
+    return cfg
+
+
+def pixel_phases(zero_counts, read_counts, check_plan_counts):
+    """The pixel path on the card. Returns ({kernel: max |err| on the
+    trained pixel latents}, {path: launch counts}, {metric: value}).
+
+    (a) the committed walker-walk pixel model read with jax, optax and
+        ml_dtypes blocked; its conv encoder on the recorded frames against
+        the CPU's at ENC_TOL, with and without ShiftAug, and ShiftAug
+        against the CPU's bit for bit on the same shifts;
+    (b) the planner's kernels on the trained pixel latents against their
+        plain versions, one env and N=8, N=8 against 8 one-env launches,
+        and the plan's graph (the shift draw among its inputs, the encoder
+        in it) against its eager body (`hold_trained`);
+    (c) one pixel update on the card against the CPU's, batch 256 of the
+        recorded frames;
+    (d) OnlineTrainer on PixelObs(point mass), PIXEL_STEPS steps (the burst
+        at PIXEL_SEED_STEPS, then planned steps), uint8 frames in the ring;
+        VecOnlineTrainer with num_envs=8 envs in this process; `evaluate`
+        of the saved pixel agent on its env;
+    (e) the encoder's device time per act (N=1, 8) and per update, the
+        update's time and device share, env-steps/s, plans/s at N=1 and 8.
+    """
+    import importlib
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tdmpc2_tpu_torch.data.buffer import Buffer
+    from tdmpc2_tpu_torch.envs.vec import VecEnv
+    from tdmpc2_tpu_torch.evaluate import evaluate
+    from tdmpc2_tpu_torch.models import layers
+    from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
+    from tdmpc2_tpu_torch.trainer.online import OnlineTrainer
+    from tdmpc2_tpu_torch.trainer.vec_online import VecOnlineTrainer
+    from tdmpc2_tpu_torch.utils import tree
+    from tdmpc2_tpu_torch.utils.logger import Logger
+    root = Path(__file__).resolve().parent
+    dev = torch.device('cuda')
+    task, fp, act_dim = PIXEL_CKPT
+    paths, metrics = {}, {}
+
+    with Phase(f'(a) pixels: {fp} read with jax, optax and ml_dtypes blocked; its conv '
+               'encoder on recorded frames, card vs CPU'):
+        if not any(isinstance(f, ImportBlocker) for f in sys.meta_path):
+            sys.meta_path.insert(0, ImportBlocker())
+        for m in BLOCKED:
+            try:
+                importlib.import_module(m)
+            except ImportError:
+                continue
+            raise AssertionError(f'{m} imported past the blocker')
+        with np.load(root / PIXEL_OBS_FILE) as d:
+            recorded = {k: d[k] for k in d.files}
+        frames = recorded[f'{task}/obs']
+        cfg = pixel_cfg(f'num_envs={N_ENVS}', action_dim=act_dim, task=task)
+        cfg.episode_length = 500
+        ag = TDMPC2(cfg, device='cuda')
+        t0 = time.perf_counter()
+        extra = ag.load(root / fp)
+        torch.cuda.synchronize()
+        enc = ag.params['encoder']['rgb']
+        log(f'  TDMPC2.load({fp}) in {time.perf_counter() - t0:.2f} s, extra {extra}; conv '
+            f'weights {[tuple(p["w"].shape) for p in enc]} (HWIO); frames '
+            f'{frames.shape} {frames.dtype}')
+        bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+        if bad:
+            raise AssertionError(f'imported while reading: {bad}')
+        x = torch.from_numpy(frames).to(dev)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        sh = torch.randint(0, 2 * layers.SHIFT_PAD + 1, (len(frames), 2), device=dev,
+                           generator=g)
+        cpu_params = tree.map(lambda t: t.cpu(), ag.params)
+        aug = layers.shift_aug(x, sh)
+        if aug.dtype != torch.uint8 or not torch.equal(
+                aug.cpu(), layers.shift_aug(x.cpu(), sh.cpu())):
+            raise AssertionError('ShiftAug: the card differs from the CPU')
+        log(f'  ShiftAug on {len(frames)} frames: the card equals the CPU bit for bit '
+            f'(shifts {int(sh.min())}..{int(sh.max())})')
+        z = {}
+        for label, s_ in (('no shift', None), ('ShiftAug', sh)):
+            z[label] = ag.model.encode(ag.params, x, shifts=s_)
+            hold(f'conv encoder ({label}) card vs CPU', z[label],
+                 ag.model.encode(cpu_params, x.cpu(),
+                                 shifts=None if s_ is None else s_.cpu()).to(dev), ENC_TOL)
+        if z['no shift'].shape != (len(frames), cfg.latent_dim):
+            raise AssertionError(f'conv encoder: latent shape {tuple(z["no shift"].shape)}')
+
+    with Phase(f'(b) pixels: the planner\'s kernels vs plain on the trained pixel latents, '
+               f'one env and N={N_ENVS}; the plan graph vs eager'):
+        errs = hold_trained(f'{task}-rgb', ag, frames, forced=True)
+
+    with Phase('(c) pixels: one update on the card vs the same update on the CPU, batch '
+               f'{cfg.batch_size} of the recorded frames'):
+        batch = recorded_batch(recorded, task, cfg.horizon, cfg.batch_size, SEED)
+        if batch[0].dtype != torch.uint8:
+            raise AssertionError('the recorded batch is not uint8')
+        info = hold_update(ag, batch)
+        log(f'  pi_scale {float(info["pi_scale"]):.4f}, total loss '
+            f'{float(info["total_loss"]):.4f}, pi entropy {float(info["pi_entropy"]):.3f}')
+
+    with Phase('(e) pixels: the conv encoder\'s device time per act and per update; plans/s '
+               'of act on the walker model'):
+        for n in (1, N_ENVS):
+            xs, ss = x[:n], sh[:n]
+            ms = time_ms(lambda: ag.model.encode(ag.params, xs, shifts=ss), 50)
+            busy = device_share(lambda: ag.model.encode(ag.params, xs, shifts=ss), 20)[0]
+            metrics[f'encoder_act_ms_n{n}'], metrics[f'encoder_act_device_ms_n{n}'] = ms, busy
+            log(f'  conv encoder, act N={n}: {ms:.4f} ms (CUDA events), device busy '
+                f'{busy} ms (torch.profiler)')
+        obs_b = batch[0]
+        nxt = torch.randint(0, 7, (*obs_b.shape[:2], 2), device=dev, generator=g)
+
+        def encoder_of_update():
+            """The update's encoder work: obs[1:] without gradient, obs[0]
+            with its backward into the conv weights."""
+            with torch.no_grad():
+                ag.model.encode(ag.params, obs_b[1:], shifts=nxt[1:])
+            live = tuple({k: v.detach().requires_grad_(True) for k, v in p.items()}
+                         for p in enc)
+            zz = ag.model.encode({'encoder': {'rgb': live}}, obs_b[0], shifts=nxt[0])
+            with layers.f32_convs():
+                return torch.autograd.grad(zz.square().sum(), tree.leaves(live))
+        ms = time_ms(encoder_of_update, 10)
+        busy = device_share(encoder_of_update, 5)[0]
+        metrics['encoder_update_ms'], metrics['encoder_update_device_ms'] = ms, busy
+        log(f'  conv encoder, one update\'s share (batch {cfg.batch_size}, {cfg.horizon + 1} '
+            f'steps; the first with its backward): {ms:.3f} ms, device busy {busy} ms')
+        for n in (1, N_ENVS):
+            o = frames[0] if n == 1 else frames[:n]
+            ag.act(o, t0=True)                       # captures the plan's graph
+            ms = host_ms(lambda: ag.act(o), 30)
+            busy = device_share(lambda: ag.act(o), 5)[0]
+            metrics[f'act_ms_n{n}'], metrics[f'plans_per_s_n{n}'] = ms, 1e3 * n / ms
+            metrics[f'act_device_ms_n{n}'] = busy
+            log(f'  act N={n} on the walker pixel model: {ms:.3f} ms per call, '
+                f'{1e3 * n / ms:.1f} plans/s (host clock); device busy {busy} ms')
+    del ag, x, batch, obs_b
+
+    def recording(store):
+        update = TDMPC2._update
+
+        def run(self, *args):
+            info = update(self, *args)
+            store.append(torch.stack([info['total_loss'], info['pi_loss']]))
+            return info
+        return update, run
+
+    with tempfile.TemporaryDirectory() as work:
+        with Phase(f'(d) pixels: OnlineTrainer on PixelObs(point mass), default 5M model, '
+                   f'{PIXEL_STEPS} steps, the burst at {PIXEL_SEED_STEPS}'):
+            cfg = pixel_cfg(f'steps={PIXEL_STEPS}', f'eval_freq={PIXEL_STEPS}',
+                            'eval_episodes=1', 'save_agent=true', 'save_csv=false')
+            cfg.work_dir, cfg.seed_steps = str(Path(work) / 'one_env'), PIXEL_SEED_STEPS
+            losses = []
+            update, TDMPC2._update = recording(losses)
+            try:
+                zero_counts()
+                t0 = time.perf_counter()
+                tr = OnlineTrainer(cfg=cfg, env=pixel_env(SEED), agent=TDMPC2(cfg),
+                                   buffer=Buffer(cfg), logger=Logger(cfg))
+                tr.train()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                counts = paths['train pixels, one env'] = read_counts()
+            finally:
+                TDMPC2._update = update
+            losses = torch.stack(losses)
+            st = tr.buffer._storage['obs']
+            metrics['train_env_steps_per_s'] = tr._step / secs
+            log(f'  {tr._step} env steps, {len(losses)} updates in {secs:.1f} s '
+                f'({tr._step / secs:.1f} env-steps/s over the run); last losses: total '
+                f'{float(losses[-1, 0]):.4f}, pi {float(losses[-1, 1]):.4f}; ring '
+                f'{st.dtype} {tuple(st.shape)} on {st.device}; launches {counts}')
+            if not bool(torch.isfinite(losses).all()):
+                raise AssertionError('pixel train: non-finite loss')
+            if len(losses) != PIXEL_STEPS:
+                raise AssertionError(f'pixel train: {len(losses)} updates')
+            if st.dtype != torch.uint8 or tuple(st.shape[1:]) != (
+                    MAX_EP_LEN + 1, 3 * PIXEL_SHAPE[1] * PIXEL_SHAPE[2]):
+                raise AssertionError(f'pixel ring: {st.dtype} {tuple(st.shape)}')
+            check_plan_counts('pixel train, one env', counts)
+            p_agent, p_buf = tr.agent, tr.buffer
+
+        with Phase('(e) pixels: the update\'s time and device share; the collect + update '
+                   'loop'):
+            ms = time_ms(lambda: p_agent.update(p_buf), 20)
+            busy, n_dev, top = device_share(lambda: p_agent.update(p_buf), 5)
+            metrics['update_ms'], metrics['update_device_ms'] = ms, busy
+            log(f'  pixel update (batch {cfg.batch_size}): {ms:.3f} ms ({1e3 / ms:.1f} update '
+                'steps/s, CUDA events); ' + ('device busy not measured' if busy is None else
+                                            f'device busy {busy:.3f} ms (idle share '
+                                            f'{100 * (1 - busy / ms):.1f}%), {n_dev:.0f} device '
+                                            'activities'))
+            for t_, n_, k_ in top:
+                log(f'    {t_:.3f} ms in {n_:.0f} x {k_[:90]}')
+            env = tr.env
+            o, loop = env.reset(), 40
+            ph = dict(act=0.0, env=0.0, update=0.0)
+            torch.cuda.synchronize()
+            t_all = time.perf_counter()
+            for t in range(loop):
+                t1 = time.perf_counter()
+                a = p_agent.act(o, t0=(t % MAX_EP_LEN == 0))
+                t2 = time.perf_counter()
+                o, _, done, _ = env.step(a)
+                if done:
+                    o = env.reset()
+                t3 = time.perf_counter()
+                p_agent.update(p_buf)
+                torch.cuda.synchronize()
+                t4 = time.perf_counter()
+                ph['act'] += t2 - t1
+                ph['env'] += t3 - t2
+                ph['update'] += t4 - t3
+            total = time.perf_counter() - t_all
+            metrics['loop_env_steps_per_s'] = loop / total
+            log(f'  pixel collect + update loop: {loop / total:.1f} env-steps/s; per step '
+                + ', '.join(f'{k} {1e3 * v / loop:.2f} ms ({100 * v / total:.1f}%)'
+                            for k, v in ph.items()) + ' (host clock)')
+
+        with Phase(f'(d) pixels: VecOnlineTrainer, num_envs={N_ENVS} in this process, '
+                   f'{PIXEL_VEC_STEPS} env steps'):
+            vcfg = pixel_cfg(f'steps={PIXEL_VEC_STEPS}', f'num_envs={N_ENVS}',
+                             'vec_mode=inproc', f'eval_freq={PIXEL_VEC_STEPS}',
+                             'eval_episodes=1', 'save_agent=false', 'save_csv=false')
+            vcfg.work_dir, vcfg.seed_steps = str(Path(work) / 'vec'), PIXEL_VEC_SEED_STEPS
+            vlosses = []
+            update, TDMPC2._update = recording(vlosses)
+            try:
+                zero_counts()
+                t0 = time.perf_counter()
+                vtr = VecOnlineTrainer(
+                    cfg=vcfg, env=VecEnv([pixel_env(SEED + 1000 * i) for i in range(N_ENVS)]),
+                    agent=TDMPC2(vcfg), buffer=Buffer(vcfg), logger=Logger(vcfg))
+                vtr.train()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                counts = paths[f'train pixels, num_envs={N_ENVS}'] = read_counts()
+            finally:
+                TDMPC2._update = update
+            vlosses = torch.stack(vlosses) if vlosses else torch.zeros(0, 2)
+            metrics['vec_train_env_steps_per_s'] = vtr._step / secs
+            log(f'  {vtr._step} env steps, {len(vlosses)} updates in {secs:.1f} s '
+                f'({vtr._step / secs:.1f} env-steps/s); last total loss '
+                f'{float(vlosses[-1, 0]) if len(vlosses) else None}; launches {counts}')
+            want = PIXEL_VEC_SEED_STEPS + PIXEL_VEC_STEPS - N_ENVS * MAX_EP_LEN
+            if not bool(torch.isfinite(vlosses).all()) or len(vlosses) != want:
+                raise AssertionError(f'pixel vec train: {len(vlosses)} updates ({want} due), '
+                                     f'finite {bool(torch.isfinite(vlosses).all())}')
+            check_plan_counts(f'pixel train, num_envs={N_ENVS}', counts)
+
+        with Phase('(d) pixels: evaluate the saved pixel agent on its env, 2 episodes'):
+            ckpt = Path(cfg.work_dir) / 'models' / 'final.pkl'
+            ecfg = pixel_cfg('eval_episodes=2', f'checkpoint={ckpt}')
+            zero_counts()
+            res = evaluate(ecfg, env=pixel_env(SEED))['toy-reach']
+            counts = paths['evaluate pixels'] = read_counts()
+            log(f'  reward {res["reward"]:.4f}, {res["plans"]} plans, '
+                f'{res["plans"] / res["seconds"]:.1f} plans/s; launches {counts}')
+            if not math.isfinite(res['reward']):
+                raise AssertionError('pixel evaluate: non-finite reward')
+            check_plan_counts('pixel evaluate', counts, res['plans'])
+    log(json.dumps({'pixels': metrics}))
+    return errs, paths, metrics
+
+
+def hold_update(agent, batch):
+    """One update of `agent` on the card against the same update of a copy
+    of its state on the CPU, on `batch` with the same draws: every info
+    value, the parameters, target heads and Adam states at UPDATE_TOL."""
+    from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
+    from tdmpc2_tpu_torch.utils import tree
+    cpu_agent = TDMPC2(agent.cfg, device='cpu')
+    cpu_agent.state = agent.state.to('cpu')
+    u_noise = agent.draw_update_noise()
+    cpu_batch = [x.cpu() for x in batch]
+    cpu_noise = type(u_noise)(**{
+        k: (None if v is None else v.cpu()) for k, v in vars(u_noise).items()})
+    info_k = agent._update(agent.state, *batch, u_noise)
+    info_c = cpu_agent._update(cpu_agent.state, *cpu_batch, cpu_noise)
+    if set(info_k) != set(info_c):
+        raise AssertionError('update: the info keys differ')
+    for k in sorted(info_c):
+        hold(f'update {k}', info_k[k].cpu(), info_c[k], UPDATE_TOL)
+    got, ref = agent.state.to('cpu'), cpu_agent.state
+    for name in ('params', 'target_Qs', 'opt_state', 'pi_opt_state'):
+        e = [max_err(a, b) for a, b in zip(tree.leaves(getattr(got, name)),
+                                            tree.leaves(getattr(ref, name)))]
+        bad = [a for a, b in zip(tree.leaves(getattr(got, name)),
+                                 tree.leaves(getattr(ref, name)))
+               if bool(((a.float() - b.float()).abs() > UPDATE_TOL['atol']
+                        + UPDATE_TOL['rtol'] * b.float().abs()).any())]
+        log(f'  {name}: max |err| {max(e):.3g}')
+        if bad:
+            raise AssertionError(f'update: {name} outside {UPDATE_TOL}')
+    agent._prep = None
+    return info_k
 
 
 def main() -> int:
@@ -3720,35 +4133,6 @@ def main() -> int:
         check_episodic('episodic evaluate', res['lengths'])
     t_agent, buffer, env = trainer.agent, trainer.buffer, trainer.env
 
-    def hold_update(agent, batch):
-        """One update of `agent` on the card against the same update of a
-        copy of its state on the CPU, on `batch` with the same draws."""
-        cpu_agent = TDMPC2(agent.cfg, device='cpu')
-        cpu_agent.state = agent.state.to('cpu')
-        u_noise = agent.draw_update_noise()
-        cpu_batch = [x.cpu() for x in batch]
-        cpu_noise = type(u_noise)(**{
-            k: (None if v is None else v.cpu()) for k, v in vars(u_noise).items()})
-        info_k = agent._update(agent.state, *batch, u_noise)
-        info_c = cpu_agent._update(cpu_agent.state, *cpu_batch, cpu_noise)
-        if set(info_k) != set(info_c):
-            raise AssertionError('update: the info keys differ')
-        for k in sorted(info_c):
-            hold(f'update {k}', info_k[k].cpu(), info_c[k], UPDATE_TOL)
-        got, ref = agent.state.to('cpu'), cpu_agent.state
-        for name in ('params', 'target_Qs', 'opt_state', 'pi_opt_state'):
-            e = [max_err(a, b) for a, b in zip(tree.leaves(getattr(got, name)),
-                                                tree.leaves(getattr(ref, name)))]
-            bad = [a for a, b in zip(tree.leaves(getattr(got, name)),
-                                     tree.leaves(getattr(ref, name)))
-                   if bool(((a.float() - b.float()).abs() > UPDATE_TOL['atol']
-                            + UPDATE_TOL['rtol'] * b.float().abs()).any())]
-            log(f'  {name}: max |err| {max(e):.3g}')
-            if bad:
-                raise AssertionError(f'update: {name} outside {UPDATE_TOL}')
-        agent._prep = None
-        return info_k
-
     with Phase('one update on the card vs the same update on the CPU'):
         hold_update(t_agent, buffer.sample())
 
@@ -3922,6 +4306,9 @@ def main() -> int:
     w_errs, w_paths, w_rows = wide_phases(zero_counts, read_counts, check_plan_counts)
     ckpt_errs, ckpt_paths, ckpt_read_s = checkpoint_phases(
         zero_counts, read_counts, check_plan_counts, hold_update)
+    pix_errs, pix_paths, _ = pixel_phases(zero_counts, read_counts, check_plan_counts)
+    for k, e in pix_errs.items():
+        ckpt_errs.setdefault(k, {})[f'{PIXEL_CKPT[0]}-rgb'] = e
 
     with Phase('timing (CUDA events) and bounds, one env and N envs'):
         HA = H * A
@@ -4011,7 +4398,7 @@ def main() -> int:
                  'evaluate episodic': ev_ep_launches,
                  'train episodic, one env': ep_launches,
                  f'train episodic, num_envs={NE}': vep_launches, **mt_paths,
-                 **w_paths, **ckpt_paths}
+                 **w_paths, **ckpt_paths, **pix_paths}
         episodic_paths = ('evaluate episodic', 'train episodic, one env',
                           f'train episodic, num_envs={NE}')
         kernels = []
@@ -4161,5 +4548,7 @@ if __name__ == '__main__':
         sys.exit(rows_only())
     if len(sys.argv) == 2 and sys.argv[1] == '--stage':
         sys.exit(stage_only())
+    if len(sys.argv) == 2 and sys.argv[1] == '--pixels':
+        sys.exit(pixels_only())
 
     sys.exit(main())

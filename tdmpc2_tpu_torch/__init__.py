@@ -13,8 +13,10 @@ trainer, the toy env, `train` and `evaluate` — multi-task offline training
 (task embeddings, action masks, per-task discounts, the offline trainer,
 lockstep planning over tasks through the same kernels), checkpoints (the
 JAX package's, the port's and the reference's `.pt`, read without jax,
-optax or ml_dtypes) and resuming, and every TPU kernel of the JAX package
-(value step, CEM loop, reward+dynamics rollout, canary).
+optax or ml_dtypes) and resuming, pixel observations (the conv encoder
+with ShiftAug, uint8 frames stored unstacked in the replay ring, the
+frame-stack wrapper, worker-process env copies), and every TPU kernel of
+the JAX package (value step, CEM loop, reward+dynamics rollout, canary).
 """
 
 __version__ = "0.1.0"

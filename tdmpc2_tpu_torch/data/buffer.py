@@ -1,5 +1,5 @@
-"""Episode replay buffer (port of tdmpc2_tpu/data/buffer.py, the state
-path, single- and multi-task).
+"""Episode replay buffer (port of tdmpc2_tpu/data/buffer.py: state and
+pixel observations, single- and multi-task).
 
 - Storage is a ring of whole episodes, tensors [capacity_eps, rows, ...]
   with rows = episode_length + 1: each episode keeps the reference's
@@ -28,9 +28,15 @@ path, single- and multi-task).
   `load_snapshot` writes one back through `load`. The generator's state
   travels with the agent's checkpoint (`TDMPC2.save(buffer=...)`,
   `set_rng_state`).
-
-Pixel frame restacking (and so a pixel snapshot) is a later part of the
-port (ROADMAP A8).
+- Pixel observations (uint8 stacks of 3 frames, oldest first, as
+  envs/dmcontrol.py `PixelObs` makes them) are stored unstacked, as in the
+  JAX buffer (buffer.py:21-27): a row keeps only its newest frame's
+  c = C/3 channels, flattened to c*H*W (the reset row's stack is its first
+  frame three times, so that row holds it too). A sampled slice rebuilds
+  each of its T+1 stacks from rows start-2 .. start+T, clipped at row 0
+  (JAX buffer.py:558-593), on the device and in uint8: the encoder casts.
+  A ring on the host sends the unstacked frames to the card, a third of
+  the stacks' bytes. Snapshots carry the frame shape (`meta_frame_shape`).
 """
 
 from __future__ import annotations
@@ -84,6 +90,9 @@ class Buffer:
         self._generator = None
         self._rng_state = None      # a checkpoint's, until the ring exists
         self._draws = 0             # sample_many calls (JAX buffer._draws)
+        # pixel frame stacks are stored unstacked: (c, H, W) of one frame
+        self._frame_stack = 3 if cfg.get('obs') == 'rgb' else 1
+        self._obs_frame_shape = None
 
     @property
     def capacity(self) -> int:
@@ -120,8 +129,9 @@ class Buffer:
 
     def _init_storage(self, ep: dict, has_task: bool = False):
         """Allocate the ring, sized by the first episode (reference
-        buffer.py:50-67), and the per-episode task store when the data
-        carries tasks."""
+        buffer.py:50-67; pixel frames already unstacked, so the placement
+        rule counts the uint8 frames it stores), and the per-episode task
+        store when the data carries tasks."""
         total = self._rows * self._capacity_eps * sum(
             v[0].nbytes for v in ep.values())
         store = self.device
@@ -146,6 +156,22 @@ class Buffer:
         if self._rng_state is not None:
             self._restore_rng()
 
+    def _unstack(self, obs, lead: int):
+        """Pixel frame stacks [*rows, fs*c, H, W] -> the newest frame of each,
+        flat [*rows, c*H*W] (`lead` leading axes); other observations as
+        they are. The first stack seen fixes the frame shape."""
+        if (self._frame_stack == 1 or obs.ndim != lead + 3
+                or obs.shape[lead] % self._frame_stack):
+            return obs
+        if self._obs_frame_shape is None and self._storage is None:
+            self._obs_frame_shape = (obs.shape[lead] // self._frame_stack,
+                                     *obs.shape[lead + 1:])
+        if self._obs_frame_shape is None:
+            return obs
+        c = self._obs_frame_shape[0]
+        return np.ascontiguousarray(obs[(slice(None),) * lead + (
+            slice(-c, None),)]).reshape(*obs.shape[:lead], -1)
+
     def add(self, ep: dict) -> int:
         """Add one episode: a dict of [rows, ...] arrays (obs, action,
         reward, terminated) and optionally 'valid_rows' and a scalar 'task'.
@@ -165,6 +191,7 @@ class Buffer:
                 v = np.pad(v, [(0, self._rows - v.shape[0])]
                            + [(0, 0)] * (v.ndim - 1))
             ep[k] = np.ascontiguousarray(v)
+        ep['obs'] = self._unstack(ep['obs'], 1)
         if self._storage is None:
             self._init_storage(ep, task is not None)
         slot = self._num_eps % self._capacity_eps
@@ -207,6 +234,7 @@ class Buffer:
             n = int(valid.shape[0])
         if n == 0:
             return self._num_eps
+        episodes['obs'] = self._unstack(episodes['obs'], 2)
         if self._storage is None:
             self._init_storage({k: v[0] for k, v in episodes.items()},
                                task is not None)
@@ -239,7 +267,10 @@ class Buffer:
         rows_obs = start[:, None] + torch.arange(T + 1, device=dev)[None]
         rows_act = rows_obs[:, 1:]
         ep_b = ep_idx[:, None]
-        obs = st['obs'][ep_b, rows_obs]
+        if self._obs_frame_shape is None:
+            obs = st['obs'][ep_b, rows_obs]
+        else:
+            obs = self._restack(st['obs'], ep_b, start)
         action = st['action'][ep_b, rows_act]
         reward = st['reward'][ep_b, rows_act]
         terminated = (st['terminated'][ep_b, rows_act] if 'terminated' in st
@@ -258,6 +289,22 @@ class Buffer:
         return tuple(
             x.reshape(n_batches, -1, *x.shape[1:]).transpose(1, 2)
             .to(self.device).contiguous() for x in out) + task
+
+    def _restack(self, frames, ep_b, start):
+        """The slices' pixel stacks [NB, T+1, fs*c, H, W] uint8 on the
+        buffer's device: the frames of rows start-fs+1 .. start+T, clipped
+        at 0 (JAX buffer.py:587-588), gathered where the ring is, then
+        restacked oldest first (a flat concat of fs frames is their channel
+        concat, a frame being (c, H, W)-contiguous)."""
+        fs, T = self._frame_stack, self._horizon
+        dev = frames.device
+        f_rows = torch.clamp(
+            start[:, None] + torch.arange(-(fs - 1), T + 1, device=dev)[None], min=0)
+        got = frames[ep_b, f_rows].to(self.device)          # [NB, T+fs, c*H*W]
+        win = (torch.arange(T + 1, device=self.device)[:, None]
+               + torch.arange(fs, device=self.device)[None])  # [T+1, fs]
+        c, h, w = self._obs_frame_shape
+        return got[:, win].reshape(got.shape[0], T + 1, fs * c, h, w)
 
     def sample(self):
         """A batch of batch_size slices of horizon+1 rows (reference
@@ -294,6 +341,8 @@ class Buffer:
         out['valid_rows'] = rows
         if self._task_store is not None:
             out['task'] = self._task_store[idxs].cpu().numpy().astype(np.int32)
+        if self._obs_frame_shape is not None:
+            out['meta_frame_shape'] = np.array(self._obs_frame_shape, np.int32)
         with open(fp, 'wb') as f:
             np.savez(f, **out)
         return int(rows.astype(np.int64).sum() - k)
@@ -303,10 +352,9 @@ class Buffer:
         the buffer through `load` (JAX buffer.py:336-352). Returns the env
         steps restored, the refill gate's credit."""
         with np.load(fp, allow_pickle=False) as data:
-            if 'meta_frame_shape' in data.files:
-                raise NotImplementedError(
-                    f'{fp}: a pixel snapshot (stacked frames) is a later part '
-                    'of the port (ROADMAP A8)')
+            if 'meta_frame_shape' in data.files:     # flat unstacked frames
+                self._obs_frame_shape = tuple(
+                    int(x) for x in data['meta_frame_shape'])
             episodes = {n[4:]: data[n] for n in data.files if n.startswith('ep__')}
             rows = data['valid_rows'].astype(np.int32)
             episodes['valid_rows'] = rows

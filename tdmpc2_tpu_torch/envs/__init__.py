@@ -1,16 +1,21 @@
-"""Environment factory (tdmpc2_tpu/envs/__init__.py, the state part).
+"""Environment factory (tdmpc2_tpu/envs/__init__.py).
 
 `make_env(cfg)` builds the environment and fills the config's env-derived
 fields (obs_shape, action_dim, episode_length, seed_steps). The port knows
-only the pure-numpy `toy*` tasks with state observations so far; the
-dm_control adapters come with a later part of the port, and pixel
-observations, with the worker-process env copies that render them, with
-the pixel slice. `num_envs > 1` builds a `VecEnv` of decorrelated copies
-stepped in this process (JAX envs/__init__.py:66-92). A multi-task config
+only the pure-numpy `toy*` tasks so far, whose observations are state
+vectors; the dm_control adapters, and with them the rgb tasks, come with a
+later part of the port (ROADMAP A11). The pixel wrapper `PixelObs`
+(envs/dmcontrol.py) takes any env that renders, and a trainer takes such an
+env directly, as the JAX package's pixel loop does
+(tests/test_pixels_loop.py). `num_envs > 1` builds env copies seeded
+cfg.seed + 1000*i (JAX envs/__init__.py:66-92): by `vec_mode`, a `VecEnv`
+stepped in this process ('inproc') or a `SubprocVecEnv` of worker processes
+('subproc'); 'auto' takes subproc for rgb observations on a non-toy task,
+where rendering sets the pace, as the JAX factory does. A multi-task config
 builds a `MultitaskEnv` of one env per task and fills the per-task fields
-(obs_shapes, action_dims, episode_lengths), as `make_multitask_env` does
-in the JAX package (envs/__init__.py:14-28); a task the port has no env
-for raises "Failed to make environment", as the JAX factory does where its
+(obs_shapes, action_dims, episode_lengths), as `make_multitask_env` does in
+the JAX package (envs/__init__.py:14-28); a task the port has no env for
+raises "Failed to make environment", as the JAX factory does where its
 backend is missing (the mt30 and mt80 tasks need dm_control and
 Meta-World).
 """
@@ -39,7 +44,21 @@ def make_multitask_env(cfg):
     return env
 
 
+def _check_obs(cfg):
+    """Raise where no env of the port has cfg's observations."""
+    is_toy = str(cfg.task).startswith('toy')
+    if cfg.get('obs', 'state') != 'state':
+        raise ValueError(
+            f'obs={cfg.obs} on task {cfg.task}: '
+            + ('the toy tasks have state observations only (no rgb mode, as in '
+               'the JAX package); wrap an env in envs.dmcontrol.PixelObs and '
+               'give it to a trainer instead' if is_toy else
+               'the dm_control rgb tasks come with the dm_control adapter '
+               '(ROADMAP A11)'))
+
+
 def _make_single_env(cfg):
+    _check_obs(cfg)
     try:
         return toy.make_env(cfg)
     except ValueError as e:
@@ -48,16 +67,30 @@ def _make_single_env(cfg):
             f'tasks only so far (ROADMAP A11): {e}') from e
 
 
+def vec_mode(cfg) -> str:
+    """'inproc' or 'subproc' for cfg's env copies (JAX envs/__init__.py:
+    73-79): `vec_mode`, where 'auto' picks subproc for rgb observations on
+    a non-toy task (rendering dominates there; a toy env is cheap to step
+    in this process)."""
+    mode = cfg.get('vec_mode', 'auto')
+    if mode not in ('auto', 'inproc', 'subproc'):
+        raise ValueError(f"vec_mode={mode!r}: 'auto', 'inproc' or 'subproc'")
+    if mode == 'auto':
+        mode = ('subproc' if cfg.get('obs') == 'rgb'
+                and not str(cfg.task).startswith('toy') else 'inproc')
+    return mode
+
+
 def make_env(cfg):
-    if cfg.get('obs', 'state') != 'state':
-        raise NotImplementedError(
-            f'obs={cfg.obs}: pixel observations, and the worker-process env '
-            'copies that render them, come with the pixel slice of the port '
-            '(ROADMAP A8)')
+    _check_obs(cfg)
     if cfg.multitask:
         env = make_multitask_env(cfg)
     elif int(cfg.get('num_envs') or 1) > 1:
-        env = make_vec_env(cfg, _make_single_env)
+        if vec_mode(cfg) == 'subproc':
+            from tdmpc2_tpu_torch.envs.subproc import SubprocVecEnv
+            env = SubprocVecEnv(cfg)
+        else:
+            env = make_vec_env(cfg, _make_single_env)
     else:
         env = _make_single_env(cfg)
     cfg.obs_shape = {cfg.get('obs', 'state'): tuple(env.observation_space.shape)}

@@ -21,7 +21,8 @@ through one `act_tasks` plan a step (JAX evaluate.py:36-75; a pi-only
 agent, `mpc=false`, one task after another), and prints each task's return
 and success and the normalized score (success x 100 on Meta-World tasks,
 return / 10 elsewhere; reference evaluate.py:93-99).
-The port has envs for the toy tasks only (ROADMAP A11). `save_video=true`
+The port has envs for the toy tasks only (ROADMAP A11); a pixel agent is
+evaluated on an env given to `evaluate(cfg, env)`. `save_video=true`
 raises: the recorder is ROADMAP A12.
 """
 
@@ -38,17 +39,19 @@ from tdmpc2_tpu_torch.tdmpc2 import TDMPC2, device_of
 from tdmpc2_tpu_torch.utils.seed import set_seed
 
 
-def evaluate(cfg) -> dict:
+def evaluate(cfg, env=None) -> dict:
     """-> {task: {'reward', 'success', 'lengths', 'plans', 'seconds'}}:
     mean episode return and success, each episode's length, and the plans
     made in `seconds` of acting (for a multi-task config, the lockstep
-    plans, which serve every task at once)."""
+    plans, which serve every task at once). `env` replaces `make_env(cfg)`
+    (a pixel env, `PixelObs` around one that renders); cfg's env fields
+    must then be set to its spaces."""
     if cfg.save_video:
         raise NotImplementedError('save_video=true: the eval video recorder '
                                   'is a later part of the port (ROADMAP A12)')
     device_of(cfg.device)       # raise before any work when there is no card
     set_seed(cfg.seed)
-    env = make_env(cfg)
+    env = make_env(cfg) if env is None else env
     agent = TDMPC2(cfg)
     if cfg.checkpoint:
         agent.load(cfg.checkpoint)      # raises on an architecture mismatch

@@ -7,15 +7,20 @@ its layout, so weights carry across by renaming nothing:
 - MLP:          tuple of layer dicts; the last is a plain Linear, or a
                 NormedLinear whose activation the caller supplies.
 - Ensemble:     one MLP whose leaves carry a leading [n] member axis.
+- Conv encoder: tuple of {'w': [kh, kw, in, out] (HWIO), 'b': [out]}.
 
-Dropout takes its keep-mask as an input (noise is data in the port).
+Dropout takes its keep-mask as an input, and ShiftAug its integer shifts
+(noise is data in the port).
 """
 
 from __future__ import annotations
 
+import math as _pymath
+from contextlib import contextmanager
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 # ---------------------------------------------------------------------------
 # Initializers (reference: tdmpc2/common/init.py; JAX layers.py:31-56)
@@ -60,6 +65,16 @@ def mlp_init(gen, in_dim: int, mlp_dims: Sequence[int], out_dim: int,
     else:
         layers.append(linear_init(gen, dims[-2], dims[-1], zero=zero_final))
     return tuple(layers)
+
+
+def conv_init(gen, kh: int, kw: int, in_ch: int, out_ch: int):
+    """Kaiming-uniform(a=sqrt(5)) weights and a uniform bias, torch
+    Conv2d's default (the reference leaves its convs at that; JAX
+    layers.py:56-66), in HWIO."""
+    bound = 1.0 / _pymath.sqrt(in_ch * kh * kw)
+    w = torch.rand(kh, kw, in_ch, out_ch, generator=gen) * (2 * bound) - bound
+    b = torch.rand(out_ch, generator=gen) * (2 * bound) - bound
+    return {'w': w, 'b': b}
 
 
 def ensemble_init(n: int, init_fn: Callable):
@@ -146,3 +161,81 @@ def ensemble(params, x, keep_mask=None, dropout: float = 0.0):
         keep_mask = keep_mask.reshape(n, xs.shape[1], -1)
     out = mlp(params, xs, keep_mask=keep_mask, dropout=dropout)
     return out.reshape(n, *x.shape[:-1], out.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Pixel path (JAX layers.py:212-284; reference layers.py:36-71, 136-150)
+# ---------------------------------------------------------------------------
+
+SHIFT_PAD = 3                                  # ShiftAug's +-3 pixels
+_CONV_SPEC = ((7, 2), (5, 2), (3, 2), (3, 1))  # (kernel, stride) per layer
+
+
+def pixel_preprocess(x):
+    """uint8 [0, 255] -> f32 [-0.5, 0.5] (reference layers.py:62-71)."""
+    return x.float() / 255.0 - 0.5
+
+
+def shift_aug(x, shifts, pad: int = SHIFT_PAD):
+    """ShiftAug with the caller's integer shifts (reference layers.py:36-59):
+    x [N, C, H, W], any dtype; shifts [N, 2] (rows, columns) in
+    [0, 2 * pad]. Image n is edge-padded by `pad` and cropped at
+    (shifts[n, 0], shifts[n, 1]), as the JAX package's two `take_along_axis`
+    gathers do (layers.py:217-234): here one gather of rows, one of columns,
+    on the input's dtype, with the padding folded into clamped indices."""
+    n, c, h, w = x.shape
+    shifts = shifts.to(device=x.device, dtype=torch.long)
+    rows = torch.clamp(shifts[:, :1] - pad + torch.arange(h, device=x.device),
+                       0, h - 1)                                  # [N, H]
+    cols = torch.clamp(shifts[:, 1:] - pad + torch.arange(w, device=x.device),
+                       0, w - 1)                                  # [N, W]
+    x = torch.gather(x, 2, rows[:, None, :, None].expand(n, c, h, w))
+    return torch.gather(x, 3, cols[:, None, None, :].expand(n, c, h, w))
+
+
+def conv_output_dim(h: int, w: int, num_channels: int) -> int:
+    """Flattened output size of the conv encoder for an h x w input."""
+    for k, s in _CONV_SPEC:
+        h = (h - k) // s + 1
+        w = (w - k) // s + 1
+    return h * w * num_channels
+
+
+def conv_encoder_init(gen, in_ch: int, num_channels: int):
+    """The 4-layer CNN for 64x64 frames (reference layers.py:136-150)."""
+    layers, ch = [], in_ch
+    for ksize, _ in _CONV_SPEC:
+        layers.append(conv_init(gen, ksize, ksize, ch, num_channels))
+        ch = num_channels
+    return tuple(layers)
+
+
+@contextmanager
+def f32_convs():
+    """cuDNN's convolutions in f32 inside the block (TF32 off), the
+    previous setting restored after it: the card then holds the CPU at
+    1e-4. Nothing else changes."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = prev
+
+
+def conv_encoder_apply(params, x, simnorm_dim: int, shifts=None):
+    """x [N, C, H, W] (uint8 frames, channel-first) -> [N, D]: ShiftAug
+    when `shifts` [N, 2] is given, then [-0.5, 0.5], the convs (VALID
+    padding, each followed by ReLU), the NHWC flatten of the JAX package
+    (layers.py:283) and SimNorm. The weights stay HWIO, permuted to OIHW
+    at the call; the convs are cuDNN's on the card, in f32."""
+    if shifts is not None:
+        x = shift_aug(x, shifts)
+    x = pixel_preprocess(x)
+    with f32_convs():
+        for p, (_, stride) in zip(params, _CONV_SPEC):
+            x = torch.relu(F.conv2d(x, p['w'].permute(3, 2, 0, 1), p['b'],
+                                    stride=stride))
+    x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+    return simnorm(x, simnorm_dim)

@@ -1,14 +1,17 @@
-"""TD-MPC2 implicit world model, state path, single- and multi-task
-(port of tdmpc2_tpu/models/world_model.py:126-256).
+"""TD-MPC2 implicit world model, state and pixel observations, single- and
+multi-task (port of tdmpc2_tpu/models/world_model.py:126-256).
 
 The model is a parameter pytree (the JAX package's names and [in, out]
 layout, torch tensors for leaves) plus pure apply methods. Where the JAX
 heads draw randomness inside, the port takes it as input: `pi` takes its
-Gaussian `eps`, `Q` takes the indices of the two heads it averages.
+Gaussian `eps`, `Q` takes the indices of the two heads it averages, and
+the pixel encoder takes ShiftAug's integer shifts.
 
 Networks (reference world_model.py:25-30); e is the task embedding, on
 multi-task models only:
-- encoder:     state MLP on [obs, e], SimNorm-capped
+- encoder:     state MLP on [obs, e], SimNorm-capped; or, for rgb
+               observations, the conv encoder (models/layers.py), whose
+               flattened output is the latent
 - dynamics:    MLP([z, e, a] -> z'), SimNorm-capped
 - reward:      MLP([z, e, a] -> num_bins logits)
 - termination: MLP([z, e] -> 1 logit), episodic tasks only
@@ -34,9 +37,21 @@ class WorldModel:
     """Stateless apply-function namespace; all params are explicit."""
 
     def __init__(self, cfg):
-        if cfg.obs != 'state':
-            raise NotImplementedError(
-                f'obs={cfg.obs!r}: the port has the state encoder only so far')
+        if cfg.obs not in ('state', 'rgb'):
+            raise ValueError(f'obs={cfg.obs!r}: state or rgb observations only')
+        if cfg.obs == 'rgb':
+            if cfg.multitask:
+                raise ValueError('obs=rgb: pixel observations are single-task '
+                                 '(the JAX package has no multi-task conv encoder)')
+            # the conv output is the latent (64 px and 32 channels -> 512,
+            # the reference geometry; JAX world_model.py:72-80)
+            shape = cfg.obs_shape['rgb']
+            conv_out = layers.conv_output_dim(shape[1], shape[2], cfg.num_channels)
+            if conv_out != cfg.latent_dim:
+                raise ValueError(
+                    f'latent_dim={cfg.latent_dim} must equal the conv encoder '
+                    f'output {conv_out} for rgb input {tuple(shape)} with '
+                    f'num_channels={cfg.num_channels}')
         self.cfg = cfg
         self.log_std_min = float(cfg.log_std_min)
         self.log_std_dif = float(cfg.log_std_max) - float(cfg.log_std_min)
@@ -63,11 +78,16 @@ class WorldModel:
         dt = cfg.task_dim if cfg.multitask else 0
         act_in = cfg.latent_dim + cfg.action_dim + dt
         z_in = cfg.latent_dim + dt
-        params = {
-            'encoder': {'state': layers.mlp_init(
+        if cfg.obs == 'rgb':
+            encoder = {'rgb': layers.conv_encoder_init(
+                gen, cfg.obs_shape['rgb'][0], cfg.num_channels)}
+        else:
+            encoder = {'state': layers.mlp_init(
                 gen, cfg.obs_shape['state'][0] + dt,
                 max(cfg.num_enc_layers - 1, 1) * [cfg.enc_dim],
-                cfg.latent_dim, final_normed=True)},
+                cfg.latent_dim, final_normed=True)}
+        params = {
+            'encoder': encoder,
             'dynamics': layers.mlp_init(
                 gen, act_in, 2 * [cfg.mlp_dim], cfg.latent_dim,
                 final_normed=True),
@@ -103,8 +123,19 @@ class WorldModel:
     def _simnorm(self, x):
         return layers.simnorm(x, self.cfg.simnorm_dim)
 
-    def encode(self, params, obs, task=None):
-        """obs -> SimNorm latent (reference world_model.py:103-112)."""
+    def encode(self, params, obs, task=None, shifts=None):
+        """obs -> SimNorm latent (reference world_model.py:103-112). Pixel
+        observations are uint8 frames [B, C, H, W], or [T, B, C, H, W]; with
+        `shifts` ([B, 2] or [T, B, 2], ints in [0, 6]) they are ShiftAug'd
+        first, each time step with its own draw as the JAX package's key
+        split per step (world_model.py:139-143)."""
+        if self.cfg.obs == 'rgb':
+            lead = obs.shape[:-3]
+            z = layers.conv_encoder_apply(
+                params['encoder']['rgb'], obs.reshape(-1, *obs.shape[-3:]),
+                self.cfg.simnorm_dim,
+                None if shifts is None else shifts.reshape(-1, 2))
+            return z.reshape(*lead, z.shape[-1])
         return layers.mlp(params['encoder']['state'],
                           self._with_task(params, obs, task),
                           final_act=self._simnorm)

@@ -62,6 +62,7 @@ from __future__ import annotations
 
 import pickle
 from dataclasses import dataclass
+from functools import partial
 from pathlib import Path
 from typing import Optional
 
@@ -69,6 +70,7 @@ import numpy as np
 import torch
 
 from tdmpc2_tpu_torch import interop
+from tdmpc2_tpu_torch.models import layers
 from tdmpc2_tpu_torch.models.world_model import WorldModel
 from tdmpc2_tpu_torch.ops import cem, math, optim, probe, wide
 from tdmpc2_tpu_torch.ops.scale import update_scale
@@ -84,6 +86,8 @@ PLAN_WRAPPERS = (cem.pi_rollout, value_sampled, cem.elite_moments)
 # below 2048 columns; at model_size 317 (H 3, 6 iterations) 385, 189 of them
 # products, 177 row kernels and 19 stagings (ops/wide.py plan_launches)
 PLAN_COUNTS = PLAN_WRAPPERS + wide.COUNTERS
+# the raw draws that are not f32
+_DRAW_DTYPES = {'shift': torch.long}
 
 
 @dataclass
@@ -111,17 +115,32 @@ class PlanDraws:
 
 
 @dataclass
+class PixelPlanNoise(PlanNoise):
+    """A pixel model's plan noise: also each env's ShiftAug shifts, drawn
+    after the rest (the JAX `_plan`'s k_enc, tdmpc2.py:545-546)."""
+    shift: torch.Tensor = None   # [n, 2] long in [0, 6]
+
+
+@dataclass
+class PixelPlanDraws(PlanDraws):
+    """A pixel model's raw plan draws: the PlanDraws, then the shifts."""
+    shift: torch.Tensor = None   # [n, 2] long in [0, 6]
+
+
+@dataclass
 class UpdateNoise:
     """Every random draw of one update step (T horizon, B batch, A action,
     N Q heads, M mlp width); the JAX step splits them from its key as
-    k_td (td_eps, td_qidx), k_drop, k_pi_upd, k_pi_q and k_pi_drop
-    (tdmpc2.py:933-936)."""
+    k_td (td_eps, td_qidx), k_drop, k_pi_upd, k_pi_q and k_pi_drop, and on
+    pixels k_enc_next and k_enc0 (tdmpc2.py:933-949)."""
     td_eps: torch.Tensor               # [T, B, A] TD-target policy eps
     td_qidx: torch.Tensor              # [2] long, TD-target Q heads
     q_keep: Optional[torch.Tensor]     # [N, T, B, M] bool, Q('all') dropout
     pi_eps: torch.Tensor               # [T+1, B, A] policy-loss eps
     pi_qidx: torch.Tensor              # [2] long, policy-loss Q heads
     pi_keep: Optional[torch.Tensor]    # [N, T+1, B, M] bool, its dropout
+    next_shift: Optional[torch.Tensor] = None   # [T, B, 2] ShiftAug, obs[1:]
+    shift0: Optional[torch.Tensor] = None       # [B, 2] ShiftAug, obs[0]
 
 
 @dataclass
@@ -156,7 +175,8 @@ def device_of(name: str) -> torch.device:
 
 
 class TDMPC2:
-    """TD-MPC2 agent: single- and multi-task, state observations."""
+    """TD-MPC2 agent: single- and multi-task, state observations; single-task
+    pixel observations (uint8 frame stacks through the conv encoder)."""
 
     # cfg fields that fix the parameter tree's shapes, written into every
     # checkpoint in the JAX package's format (tdmpc2.py:214-226)
@@ -409,14 +429,27 @@ class TDMPC2:
             raise ValueError(f'task ids {ids} outside [0, {len(self.cfg.tasks)})')
         return torch.from_numpy(ids.astype(np.int32)).to(self.device)
 
+    def _obs_array(self, obs):
+        """A host observation as the encoder takes it: pixel frames stay
+        uint8 (a quarter of f32's bytes to the card), state becomes f32."""
+        if self.cfg.obs == 'rgb':
+            return np.ascontiguousarray(obs, np.uint8)
+        return np.asarray(obs, np.float32)
+
+    def _shifts(self, *lead):
+        """ShiftAug's shifts [*lead, 2] from the agent's generator (rgb)."""
+        return torch.randint(0, 2 * layers.SHIFT_PAD + 1, (*lead, 2),
+                             generator=self.generator, device=self.device)
+
     @torch.no_grad()
     def act(self, obs, t0=False, eval_mode=False, task=None):
         """Plan for one observation (numpy [obs_dim] -> action [A]) or for a
         stack of n envs' observations ([n, obs_dim] -> [n, A]), the JAX
-        agent's rank test (tdmpc2.py:349-352). `t0` (a bool, or one per
-        env) starts an env's episode: its warm start is reset. A multi-task
-        model plans for `task` (an index into cfg.tasks)."""
-        obs = np.asarray(obs, np.float32)
+        agent's rank test (tdmpc2.py:349-352); pixel observations are
+        [C, H, W] uint8 frame stacks, or [n, C, H, W]. `t0` (a bool, or one
+        per env) starts an env's episode: its warm start is reset. A
+        multi-task model plans for `task` (an index into cfg.tasks)."""
+        obs = self._obs_array(obs)
         single = obs.ndim == len(self.cfg.obs_shape[self.cfg.obs])
         if single:
             obs = obs[None]
@@ -425,9 +458,12 @@ class TDMPC2:
         task = self._task_ids(task, n)
         if not self.cfg.mpc:
             tl = None if task is None else task.long()
-            z = self.model.encode(self.params, obs.to(self.device), tl)
             eps = torch.randn(n, self.cfg.action_dim, generator=self.generator,
                               device=self.device)
+            # the JAX agent shifts the frames here too, eval or not
+            # (tdmpc2.py:369-372)
+            shifts = self._shifts(n) if self.cfg.obs == 'rgb' else None
+            z = self.model.encode(self.params, obs.to(self.device), tl, shifts)
             a, info = self.model.pi(self.params, z, eps, tl)
             a = info['mean'] if eval_mode else a
         else:
@@ -463,41 +499,52 @@ class TDMPC2:
                              task=self._task_ids(tasks, n), prev_mean=pm)
         return a.cpu().numpy(), pm
 
+    def _draws_cls(self):
+        return PixelPlanDraws if self.cfg.obs == 'rgb' else PlanDraws
+
     def draw_noise(self, n: int = 1) -> PlanNoise:
         """Every draw of one plan for n envs, from the agent's generator."""
         return self._noise_from(self._draw(n))
 
     def _draws(self, n: int) -> dict:
-        """{field of PlanDraws: (torch.rand or torch.randn, shape)}, in the
-        order of the draws."""
+        """{field of PlanDraws: (draw function, shape)}, in the order of the
+        draws; the pixel encoder's shifts (long, `_DRAW_DTYPES`) come last,
+        on rgb only, so that the state path's draws are what they were."""
         cfg = self.cfg
         H, S, A, I = cfg.horizon, cfg.num_samples, cfg.action_dim, self.iterations
-        return dict(u=(torch.rand, (n, cfg.num_elites)),
-                    pi_eps=(torch.randn, (n, max(cfg.num_pi_trajs, 1), H * A)),
-                    sample=(torch.randn, (n, I, S, H * A)),
-                    eps=(torch.randn, (n, I, S, A)),
-                    qr=(torch.rand, (n, I, cfg.num_q)),
-                    act=(torch.randn, (n, A)))
+        d = dict(u=(torch.rand, (n, cfg.num_elites)),
+                 pi_eps=(torch.randn, (n, max(cfg.num_pi_trajs, 1), H * A)),
+                 sample=(torch.randn, (n, I, S, H * A)),
+                 eps=(torch.randn, (n, I, S, A)),
+                 qr=(torch.rand, (n, I, cfg.num_q)),
+                 act=(torch.randn, (n, A)))
+        if cfg.obs == 'rgb':
+            d['shift'] = (partial(torch.randint, 0, 2 * layers.SHIFT_PAD + 1), (n, 2))
+        return d
 
     def _draw(self, n: int, out: Optional[PlanDraws] = None) -> PlanDraws:
         """The raw draws of one plan for n envs, in their order; into the
         tensors of `out` when given (the same bits)."""
         g, dev = self.generator, self.device
-        return PlanDraws(**{
-            k: fn(*shape, generator=g, device=dev) if out is None
-            else fn(*shape, generator=g, out=getattr(out, k))
+        return self._draws_cls()(**{
+            k: fn(shape, generator=g, device=dev) if out is None
+            else fn(shape, generator=g, out=getattr(out, k))
             for k, (fn, shape) in self._draws(n).items()})
 
     @staticmethod
     def _noise_from(d: PlanDraws) -> PlanNoise:
         """The plan's noise from its raw draws: two distinct Q heads (the
-        first two of a random permutation), Gumbel noise."""
-        return PlanNoise(
+        first two of a random permutation), Gumbel noise; a pixel model's
+        shifts as drawn."""
+        noise = dict(
             pi_eps=d.pi_eps, sample=d.sample, eps=d.eps,
             qidx=torch.argsort(d.qr, dim=-1)[..., :2].to(torch.int32).contiguous(),
             gumbel=-torch.log(-torch.log(
                 d.u.clamp(min=torch.finfo(torch.float32).tiny))),
             act=d.act)
+        if isinstance(d, PixelPlanDraws):
+            return PixelPlanNoise(**noise, shift=d.shift)
+        return PlanNoise(**noise)
 
     def _qpair(self, *lead):
         """Two distinct Q heads (the first two of a random permutation)."""
@@ -546,16 +593,19 @@ class TDMPC2:
         entry = self._graphs.get(key)
         if entry is None:
             ins = dict(
-                obs=torch.empty(obs.shape, device=self.device),
+                # the observation's own dtype: pixel frames stay uint8
+                obs=torch.empty(obs.shape, dtype=obs.dtype, device=self.device),
                 t0=torch.empty(n, dtype=torch.bool, device=self.device),
                 task=(None if task is None else
                       torch.empty(n, dtype=torch.int32, device=self.device)),
-                draws=(PlanDraws(**{k: torch.empty(shape, device=self.device)
-                                    for k, (_, shape) in self._draws(n).items()})
+                draws=(self._draws_cls()(**{
+                    k: torch.empty(shape, dtype=_DRAW_DTYPES.get(k, torch.float32),
+                                   device=self.device)
+                    for k, (_, shape) in self._draws(n).items()})
                        if noise is None else
-                       PlanNoise(**{k: torch.empty(v.shape, dtype=v.dtype,
-                                                   device=self.device)
-                                    for k, v in vars(noise).items()})))
+                       type(noise)(**{k: torch.empty(v.shape, dtype=v.dtype,
+                                                     device=self.device)
+                                      for k, v in vars(noise).items()})))
         else:
             ins = entry[1]
         ins['obs'].copy_(obs)
@@ -582,10 +632,10 @@ class TDMPC2:
 
     def _plan_body(self, prep, obs, t0, noise: PlanNoise, eval_mode,
                    task=None, pm=None):
-        """The plan on device tensors (obs [n, obs_dim], t0 [n] bool, the
-        draws in `noise`, task ids int32 [n] or None, the warm starts `pm`,
-        by default the agent's): what the plan's graph captures, and the
-        CPU's plan."""
+        """The plan on device tensors (obs [n, obs_dim], or uint8 frames
+        [n, C, H, W], t0 [n] bool, the draws in `noise`, task ids int32 [n]
+        or None, the warm starts `pm`, by default the agent's): what the
+        plan's graph captures, and the CPU's plan."""
         cfg = self.cfg
         H, E, A = cfg.horizon, cfg.num_elites, cfg.action_dim
         n = obs.shape[0]
@@ -595,7 +645,12 @@ class TDMPC2:
         else:
             tl = task.long()
             discs, amask = self.discs[tl], self.amask[tl]
-        z0 = self.model.encode(self.params, obs.reshape(n, -1).float(), tl)
+        if self.cfg.obs == 'rgb':
+            # each env's frames shifted by its own draw (JAX tdmpc2.py:545-546)
+            z0 = self.model.encode(self.params, obs, tl,
+                                   getattr(noise, 'shift', None))
+        else:
+            z0 = self.model.encode(self.params, obs.reshape(n, -1).float(), tl)
         mean0 = torch.cat([pm[:n, 1:],
                            torch.zeros(n, 1, A, device=self.device)], 1)
         # a reset row is +0.0, never -0.0
@@ -660,13 +715,16 @@ class TDMPC2:
             if cfg.dropout <= 0.0:
                 return None
             return torch.rand(*shape, generator=g, device=dev) < 1.0 - cfg.dropout
-        return UpdateNoise(
+        noise = UpdateNoise(
             td_eps=torch.randn(T, B, A, generator=g, device=dev),
             td_qidx=self._qpair(),
             q_keep=keep(N, T, B, M),
             pi_eps=torch.randn(T + 1, B, A, generator=g, device=dev),
             pi_qidx=self._qpair(),
             pi_keep=keep(N, T + 1, B, M))
+        if cfg.obs == 'rgb':    # after the state path's draws
+            noise.next_shift, noise.shift0 = self._shifts(T, B), self._shifts(B)
+        return noise
 
     def update(self, buffer) -> dict:
         """One learning step on a batch from `buffer` (reference
@@ -730,7 +788,7 @@ class TDMPC2:
             task = task.long()
 
         with torch.no_grad():
-            next_z = model.encode(state.params, obs[1:], task)
+            next_z = model.encode(state.params, obs[1:], task, noise.next_shift)
             td_targets = self._td_target(state.params, state.target_Qs,
                                          next_z, reward, terminated, noise,
                                          task)
@@ -738,7 +796,7 @@ class TDMPC2:
         # -- model loss (reference tdmpc2.py:268-304)
         live = tree.map(lambda p: p.detach().requires_grad_(True),
                         state.params)
-        z = model.encode(live, obs[0], task)
+        z = model.encode(live, obs[0], task, noise.shift0)
         zs = [z]
         for t in range(T):
             z = model.next(live, z, action[t], task)
@@ -768,7 +826,8 @@ class TDMPC2:
         total = total + cfg.value_coef * value_loss
         groups = optim.model_groups(live)
         flat = {g: tree.leaves(p) for g, p in groups.items()}
-        grads = torch.autograd.grad(total, flat['enc'] + flat['rest'])
+        with layers.f32_convs():       # the conv encoder's backward too
+            grads = torch.autograd.grad(total, flat['enc'] + flat['rest'])
         n_enc = len(flat['enc'])
         grad_norm = optim.model_step_(
             state.params, {'enc': list(grads[:n_enc]),

@@ -24,6 +24,8 @@ class Trainer:
 
     def finish(self):
         """End-of-run teardown: the final checkpoint through the logger,
-        then the buffer."""
+        then the buffer and the env's worker processes, if it has any."""
         self.logger.finish(self.agent, self.buffer)
         self.buffer.close()
+        if hasattr(self.env, 'close'):
+            self.env.close()

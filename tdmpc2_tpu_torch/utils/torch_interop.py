@@ -14,8 +14,8 @@ This module reads both without the ``tensordict`` and ``torchrl`` packages:
   new API key scheme; the old-to-new renaming follows reference
   common/layers.py:167-221 ``api_model_conversion``) onto the port's
   parameter tree, torch's [out, in] linear weights turned into the port's
-  [in, out]. A pixel model's conv encoder raises until the port has one
-  (ROADMAP A8).
+  [in, out], and a pixel model's conv weights torch's OIHW turned into the
+  port's HWIO (the JAX package's layout).
 - `read_tensordict_chunk`: a published dataset chunk -> a dict of numpy
   arrays (obs, action, reward, task, ...), ready for ``Buffer.load``.
 
@@ -207,13 +207,18 @@ def _qs_from_keys(sd: Dict[str, np.ndarray], prefix: str):
 
 
 def _conv_encoder_from_keys(sd: Dict[str, np.ndarray], prefix: str):
-    """A pixel model's conv encoder: None when the checkpoint has none; one
-    raises until the port has the conv encoder (ROADMAP A8)."""
-    if not any(f'{prefix}.{i}.weight' in sd for i in _CONV_SEQ_IDX):
-        return None
-    raise NotImplementedError(
-        'a pixel model (conv encoder, obs=rgb) is a later part of the port '
-        '(ROADMAP A8)')
+    """The reference's conv() Sequential -> a tuple of {'w' HWIO, 'b'}
+    layers (JAX torch_interop.py:225-235); None when a conv layer is
+    missing."""
+    out = []
+    for i in _CONV_SEQ_IDX:
+        w = sd.get(f'{prefix}.{i}.weight')
+        if w is None:
+            return None
+        # torch OIHW -> HWIO
+        out.append({'w': np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
+                    'b': sd[f'{prefix}.{i}.bias']})
+    return tuple(out)
 
 
 def convert_reference_state_dict(

@@ -13,8 +13,11 @@
 - the reference's formats against the JAX package's `torch_interop` on the
   same synthetic state dicts and TensorDict chunk: new and old API keys,
   the normed-linear forward, the architecture mismatch, a state dict
-  passed as a dict and as a `.pt` file, the chunk read; a pixel model and
-  an Orbax directory raise;
+  passed as a dict and as a `.pt` file, the chunk read, a pixel model's
+  conv encoder (OIHW to HWIO); an Orbax directory raises;
+- the committed full pixel train state (walker-walk-rgb, conv encoder) in
+  both: equal Adam states, then one `_update` at 1e-4 on a batch of 32
+  slices of the recorded walker frames;
 - the port's own round trip: the train state and both generators (agent
   and buffer), whose next draws are equal.
 """
@@ -47,7 +50,9 @@ from tdmpc2_tpu_torch.utils import tree
 ROOT = Path(__file__).resolve().parent.parent
 FULL = ROOT / 'results/checkpoints/full/hopper-hop-s1-r5.pkl.gz'
 STRIPPED = ROOT / 'results/checkpoints/acrobot-swingup-s1.pkl.gz'
+FULL_RGB = ROOT / 'results/checkpoints/full/walker-walk-rgb-s1-r4px3.pkl.gz'
 OBS_FILE = ROOT / 'tests/data/observations.npz'
+PIX_FILE = ROOT / 'tests/data/pixel_observations.npz'
 UPD = dict(rtol=1e-4, atol=1e-4)
 B = 32                           # update batch (not part of the architecture)
 BLOCKED = ('jax', 'jaxlib', 'optax', 'ml_dtypes')
@@ -100,9 +105,10 @@ def _hold_tree(got, ref, path='blob'):
 
 
 def _noise_from_jax(key, cfg):
-    """The draws JAX `_update` makes from `key` (tdmpc2.py:933-936)."""
+    """The draws JAX `_update` makes from `key` (tdmpc2.py:933-949), the
+    pixel encoder's shifts among them on an rgb config."""
     T, N, M, A = cfg.horizon, cfg.num_q, cfg.mlp_dim, cfg.action_dim
-    (_, _, k_td, _, k_drop, k_pi_upd, k_pi_q, k_pi_drop,
+    (_, k_enc_next, k_td, k_enc0, k_drop, k_pi_upd, k_pi_q, k_pi_drop,
      _) = jax.random.split(key, 9)
     k_pi, k_q = jax.random.split(k_td)
 
@@ -116,10 +122,17 @@ def _noise_from_jax(key, cfg):
 
     def normal(k, shape):
         return torch.from_numpy(np.array(jax.random.normal(k, shape), np.float32))
+
+    def shifts(k):
+        return torch.from_numpy(np.array(jax.random.randint(k, (B, 2), 0, 7))).long()
+    rgb = cfg.obs == 'rgb'
     return UpdateNoise(
         td_eps=normal(k_pi, (T, B, A)), td_qidx=qpair(k_q),
         q_keep=keep(k_drop, T), pi_eps=normal(k_pi_upd, (T + 1, B, A)),
-        pi_qidx=qpair(k_pi_q), pi_keep=keep(k_pi_drop, T + 1))
+        pi_qidx=qpair(k_pi_q), pi_keep=keep(k_pi_drop, T + 1),
+        next_shift=(torch.stack([shifts(k) for k in jax.random.split(k_enc_next, T)])
+                    if rgb else None),
+        shift0=shifts(k_enc0) if rgb else None)
 
 
 def recorded_batch(task, horizon, batch, seed):
@@ -167,6 +180,55 @@ def test_full_checkpoint_update_matches_jax(jax_blobs):
         np.testing.assert_allclose(float(tinfo[k]), float(jinfo[k]), **UPD,
                                    err_msg=k)
     assert float(tinfo['pi_scale']) > 10.0
+    _hold_states(tag.state, state_from_jax(jstate), UPD)
+
+
+def test_full_pixel_checkpoint_update_matches_jax():
+    """The committed full walker-walk-rgb train state (conv encoder, Adam
+    states, scale) in both packages, then one `_update` each on 32 slices
+    of the recorded walker frames with the same draws (ShiftAug's among
+    them), at 1e-4. One diagnostic has a wider band: `pi_entropy`, the
+    policy's entropy with its squash term log(1 - tanh(u)^2 + 1e-6), which
+    the trained walker policy saturates, so one f32 step of tanh(u) next to
+    1 (6e-8) moves the log's argument by several percent of its 1e-6 floor;
+    it enters no loss (the loss takes `pi_scaled_entropy`, held at 1e-4)
+    and is held at 1e-3 of its value."""
+    jcfg, tcfg = (parse(Cfg(task='walker-walk', obs='rgb', batch_size=B, **kw))
+                  for parse, Cfg, kw in ((jparse, JConfig, {}),
+                                         (parse_cfg, Config, {'device': 'cpu'})))
+    for c in (jcfg, tcfg):
+        c.obs_shape, c.action_dim, c.episode_length = {'rgb': (9, 64, 64)}, 6, 500
+    with gzip.open(FULL_RGB, 'rb') as f:
+        jblob = pickle.load(f)
+    jag, tag = JTDMPC2(jcfg), TDMPC2(tcfg)
+    jag.load(jblob)
+    assert tag.load(FULL_RGB) == jblob['extra']
+    jstate = jag.state
+    _hold_states(tag.state, state_from_jax(jstate), dict(rtol=0, atol=0))
+    assert int(tag.state.opt_state['enc']['count']) > 0
+    assert tag.params['encoder']['rgb'][0]['w'].shape == (7, 7, 9, 32)
+    with np.load(PIX_FILE) as d:
+        obs, act, rew = (d[f'walker-walk/{k}'] for k in ('obs', 'action', 'reward'))
+    T = jcfg.horizon
+    rows = (np.random.default_rng(12).integers(0, len(act) - T, B)[None]
+            + np.arange(T + 1)[:, None])
+    batch = (obs[rows], act[rows[:-1]], rew[rows[:-1]][..., None],
+             np.zeros((T, B, 1), np.float32))
+    noise = _noise_from_jax(jstate.key, jcfg)
+    jstate, jinfo = jax.jit(jag._update)(jstate, *batch)
+    # one intra-op thread: the convs' parallel regions oversubscribe the
+    # cores when the suite runs several workers
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        tinfo = tag._update(tag.state, *(torch.from_numpy(x) for x in batch), noise)
+    finally:
+        torch.set_num_threads(threads)
+    assert set(tinfo) == set(jinfo)
+    for k in tinfo:
+        np.testing.assert_allclose(float(tinfo[k]), float(jinfo[k]), err_msg=k,
+                                   **(dict(rtol=1e-3, atol=0) if k == 'pi_entropy'
+                                      else UPD))
     _hold_states(tag.state, state_from_jax(jstate), UPD)
 
 
@@ -413,11 +475,27 @@ def test_reference_architecture_mismatch_raises(mismatch):
 
 
 def test_pixel_reference_and_orbax_raise(tmp_path):
-    _, tcfg = _ref_cfgs()
-    sd = build_reference_sd(tcfg)
-    sd['_encoder.rgb.2.weight'] = torch.zeros(32, 9, 7, 7)
-    with pytest.raises(NotImplementedError, match='A8'):
-        tti.convert_reference_state_dict(sd)
+    """A pixel model's reference state dict (`_encoder.rgb.{2,4,6,8}`, torch
+    OIHW) converts to the JAX package's tree (HWIO), held against a pixel
+    agent's shapes, and loads into it; an Orbax directory raises."""
+    _, tcfg = _ref_cfgs(obs='rgb', num_channels=2)      # 64 px x 2 -> latent 32
+    tcfg.obs_shape = {'rgb': (9, 64, 64)}
+    sd = {k: v for k, v in build_reference_sd(tcfg).items()
+          if not k.startswith('_encoder.state')}
+    gen = torch.Generator().manual_seed(4)
+    ch = 9
+    for i, k in zip((2, 4, 6, 8), (7, 5, 3, 3)):
+        sd[f'_encoder.rgb.{i}.weight'] = torch.randn(2, ch, k, k, generator=gen)
+        sd[f'_encoder.rgb.{i}.bias'] = torch.randn(2, generator=gen)
+        ch = 2
+    ag = TDMPC2(tcfg)
+    got = tti.convert_reference_state_dict(dict(sd), ag.params)
+    ref = jti.convert_reference_state_dict(dict(sd))
+    for g, r in zip(got, ref):
+        _equal_trees(g, r)
+    assert got[0]['encoder']['rgb'][0]['w'].shape == (7, 7, 9, 2)
+    assert ag.load({'model': sd}) == {}
+    _equal_trees(ag.params, ref[0])
     with pytest.raises(NotImplementedError, match='orbax'):
         TDMPC2(tcfg).load(tmp_path / 'state.orbax')
 

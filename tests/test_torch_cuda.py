@@ -63,7 +63,12 @@ model as task 0 of a one-row table, unchanged bit for bit. On the committed
 checkpoints' trained weights (read on the card without jax, optax or
 ml_dtypes), at one env on recorded observations: the planner's kernels
 against their plain versions and the plan's graph against its eager body,
-and one update from the full hopper-hop train state against the CPU's."""
+and one update from the full hopper-hop train state against the CPU's.
+Pixels: ShiftAug on the recorded walker frames (uint8) against the CPU's
+bit for bit, the conv encoder (cuDNN, f32) against the CPU's at 1e-4 on a
+small pixel model and on the committed walker-walk-rgb model's trained
+weights, and the pixel plan's graph (uint8 frames and the shift draw among
+its inputs, the encoder in it) against its eager body."""
 
 from pathlib import Path
 
@@ -1248,13 +1253,14 @@ def graph_agent(agent):
     return ag
 
 
-def _hold_graph_against_eager(ag, n, eval_mode, t0, seed):
+def _hold_graph_against_eager(ag, n, eval_mode, t0, seed, obs=None):
     """One plan through the graph against the eager body on the same draws
     and warm starts: actions, means and every row of prev_mean bit for
     bit. The first plan of (n, eval_mode) captures; the checked one
-    replays."""
-    obs = torch.from_numpy(np.random.default_rng(seed).normal(
-        size=(n, 10)).astype(np.float32))
+    replays. `obs` (host) replaces the state vectors drawn from `seed`."""
+    if obs is None:
+        obs = torch.from_numpy(np.random.default_rng(seed).normal(
+            size=(n, 10)).astype(np.float32))
     ag.plan_vec(obs, t0, eval_mode=eval_mode)         # captured by now
     pm = ag.prev_mean.clone()
     pm[0, :, 0] = -0.5            # a negative warm start, reset where t0
@@ -1573,3 +1579,55 @@ def test_full_train_state_update_on_card_matches_cpu(trained):
         for a, b in zip(tree.leaves(getattr(got, name)),
                         tree.leaves(getattr(cpu.state, name))):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------------ pixels
+
+
+@pytest.fixture(scope='module')
+def pixel_agent(agent):
+    """A pixel agent of the module's MLP widths (64 x 64 x 9 frames, 4
+    channels: latent 64) with num_envs = 4, and the walker frames recorded
+    from the trained pixel agent (tests/data/pixel_observations.npz)."""
+    cfg = agent.cfg.replace(obs='rgb', num_channels=4, num_envs=4)
+    cfg.obs_shape = {'rgb': (9, 64, 64)}
+    ag = TDMPC2(cfg)
+    g = torch.Generator().manual_seed(5)
+    ag.load_params(tree.map(lambda t: t + 0.05 * torch.randn(t.shape, generator=g),
+                            ag.model.init(g)))
+    with np.load(ROOT / 'tests/data/pixel_observations.npz') as d:
+        frames = d['walker-walk/obs']
+    return ag, frames
+
+
+def test_pixel_encoder_and_shift_aug_match_cpu(pixel_agent):
+    """ShiftAug bit for bit and the conv encoder at 1e-4, card against CPU,
+    on the small model and on the trained walker conv weights."""
+    from tdmpc2_tpu_torch.interop import load_blob, params_from_jax
+    ag, frames = pixel_agent
+    x = torch.from_numpy(frames).cuda()
+    g = torch.Generator(device='cuda').manual_seed(2)
+    sh = torch.randint(0, 7, (len(frames), 2), device='cuda', generator=g)
+    aug = layers.shift_aug(x, sh)
+    assert aug.dtype == torch.uint8
+    assert torch.equal(aug.cpu(), layers.shift_aug(x.cpu(), sh.cpu()))
+    walker = params_from_jax(load_blob(
+        ROOT / 'results/checkpoints/walker-walk-rgb-s1.pkl.gz')['model']['encoder']['rgb'])
+    for conv, width in ((ag.params['encoder']['rgb'], 64), (walker, 512)):
+        for s_ in (None, sh):
+            got = layers.conv_encoder_apply(tree.map(lambda t: t.cuda(), conv), x, 8, s_)
+            ref = layers.conv_encoder_apply(tree.map(lambda t: t.cpu(), conv), x.cpu(), 8,
+                                            None if s_ is None else s_.cpu())
+            assert got.shape == (len(frames), width)
+            torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize('eval_mode', [True, False])
+@pytest.mark.parametrize('n', [1, 4])
+def test_pixel_plan_graph_equals_eager_body(pixel_agent, n, eval_mode):
+    """The pixel plan's graph (uint8 frames in, the encoder and its shift
+    draw in the graph) against its eager body, bit for bit."""
+    ag, frames = pixel_agent
+    obs = torch.from_numpy(frames[10:10 + n])
+    _hold_graph_against_eager(ag, n, eval_mode, np.arange(n) % 2 == 0, 80 + n, obs)
+    assert ag._graphs[(n, eval_mode, None, False, True)][1]['obs'].dtype == torch.uint8

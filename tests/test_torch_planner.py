@@ -28,7 +28,7 @@ from tdmpc2_tpu_torch.config import Config, parse_cfg
 from tdmpc2_tpu_torch.interop import params_from_jax
 from tdmpc2_tpu_torch.ops import cem
 from tdmpc2_tpu_torch.ops.value import prepare_value_params, value_estimate
-from tdmpc2_tpu_torch.tdmpc2 import TDMPC2, PlanNoise
+from tdmpc2_tpu_torch.tdmpc2 import TDMPC2, PixelPlanNoise, PlanNoise
 
 VTOL = dict(rtol=1e-4, atol=1e-4)
 ATOL = dict(rtol=1e-3, atol=1e-3)
@@ -227,10 +227,11 @@ def test_elite_moments_tie_rule():
 
 def _jax_plan_noise(key, cfg, iterations) -> PlanNoise:
     """The draws of `TDMPC2._plan` for `key`, replayed from its key splits,
-    as the draws of one env (a leading axis of 1)."""
+    as the draws of one env (a leading axis of 1); on a pixel config also
+    the encoder's ShiftAug shifts, from k_enc (layers.py:229)."""
     H, S, A, E = cfg.horizon, cfg.num_samples, cfg.action_dim, cfg.num_elites
     n_pi = cfg.num_pi_trajs
-    _, _, k_pi_roll, k_loop, k_gumbel, k_noise, _ = jax.random.split(key, 7)
+    _, k_enc, k_pi_roll, k_loop, k_gumbel, k_noise, _ = jax.random.split(key, 7)
     samples, epss, qidxs = [], [], []
     k = k_loop
     for _ in range(iterations):
@@ -244,12 +245,16 @@ def _jax_plan_noise(key, cfg, iterations) -> PlanNoise:
     pi_eps = jnp.concatenate(
         [jax.random.normal(kh, (n_pi, A), jnp.float32)
          for kh in jax.random.split(k_pi_roll, H)], axis=-1)
-    return PlanNoise(
+    noise = dict(
         pi_eps=_t(pi_eps)[None], sample=_t(jnp.stack(samples))[None],
         eps=_t(jnp.stack(epss))[None],
         qidx=_t(jnp.stack(qidxs)).to(torch.int32)[None],
         gumbel=_t(jax.random.gumbel(k_gumbel, (E,), jnp.float32))[None],
         act=_t(jax.random.normal(k_noise, (A,)))[None])
+    if cfg.obs == 'rgb':
+        return PixelPlanNoise(**noise, shift=torch.from_numpy(
+            np.array(jax.random.randint(k_enc, (1, 2), 0, 7))).long())
+    return PlanNoise(**noise)
 
 
 @pytest.mark.parametrize('seed,eval_mode', [(7, True), (8, False)])

@@ -345,3 +345,103 @@ def test_snapshot_read_across_packages(tmp_path, writer, tasks):
         for i, ep in enumerate(eps[2:]):
             n = ep[k].shape[0]
             np.testing.assert_array_equal(stored[i, :n], ep[k])
+
+
+# ---------------------------------------------------------------- pixels
+
+
+PIX = (9, 16, 16)
+
+
+def _pixel_episode(rng, rows):
+    """An episode of uint8 frame stacks [rows, 9, 16, 16] as PixelObs makes
+    them: oldest frame first, the reset frame repeated."""
+    f = rng.integers(0, 256, (rows, 3, 16, 16), dtype=np.uint8)
+    idx = np.clip(np.arange(rows)[:, None] + np.arange(-2, 1)[None], 0, None)
+    ep = _episode(rng, rows)
+    ep['obs'] = f[idx].reshape(rows, *PIX)
+    ep['valid_rows'] = rows
+    return ep
+
+
+@pytest.mark.parametrize('writer', ['jax', 'port'])
+def test_pixel_snapshot_read_across_packages(tmp_path, writer):
+    """Pixel episodes (one short) snapshotted by one package and loaded by
+    the other: the flat uint8 frames, `meta_frame_shape` (3, 16, 16), rows
+    and refill credit, and the reader restacks the frames it was given."""
+    jcfg = _cfg(tmp_path, jax=True, buffer_size=100, steps=100, obs='rgb')
+    tcfg = _cfg(tmp_path, buffer_size=100, steps=100, obs='rgb')
+    for c in (jcfg, tcfg):
+        c.obs_shape, c.action_dim, c.episode_length = {'rgb': PIX}, 2, 20
+    rng = np.random.default_rng(4)
+    eps = [_pixel_episode(rng, rows) for rows in (21, 15, 21, 21)]
+    src = JBuffer(jcfg) if writer == 'jax' else Buffer(tcfg)
+    dst = Buffer(tcfg) if writer == 'jax' else JBuffer(jcfg)
+    for ep in eps:
+        src.add(dict(ep))
+    fp = tmp_path / 'buffer.npz'
+    steps = src.save_snapshot(str(fp), 3)
+    assert dst.load_snapshot(str(fp)) == steps == 14 + 20 + 20
+    with np.load(fp) as snap:
+        assert snap['meta_frame_shape'].tolist() == [3, 16, 16]
+        assert snap['ep__obs'].dtype == np.uint8 and snap['ep__obs'].shape == (3, 21, 768)
+        np.testing.assert_array_equal(np.asarray(dst._storage['obs'][:3]), snap['ep__obs'])
+    for i, ep in enumerate(eps[1:]):
+        n = ep['valid_rows']
+        np.testing.assert_array_equal(
+            np.asarray(dst._storage['obs'][i, :n]), ep['obs'][:, 6:].reshape(n, -1))
+    if writer == 'jax':       # the port rebuilds the stacks from the frames
+        got = dst.gather(torch.tensor([0, 1, 2]), torch.tensor([0, 1, 17]))[0]
+        for j, (e, s) in enumerate(((1, 0), (2, 1), (3, 17))):
+            np.testing.assert_array_equal(got[:, j].numpy(), eps[e]['obs'][s:s + 4])
+
+
+class _PixelRecorder(_Recorder):
+    """`_Recorder` for [C, H, W] frame stacks (one env)."""
+
+    def act(self, obs, t0=False, eval_mode=False, task=None):
+        return self.rng.uniform(-1, 1, self.cfg.action_dim).astype(np.float32)
+
+
+def _pixel_run(jax, work, **kw):
+    """A recorded run on NormalizeInfo(Timeout(PixelObs(point mass))), the
+    env given to the trainer as the JAX pixel loop gives it."""
+    from tdmpc2_tpu.envs import base as jbase, dmcontrol as jdmc, toy as jtoy
+    from tdmpc2_tpu_torch.envs import base as tbase, dmcontrol as tdmc, toy as ttoy
+    cfg = _cfg(work, jax=jax, obs='rgb', **kw)
+    cfg.obs_shape, cfg.action_dim, cfg.episode_length = {'rgb': (9, 64, 64)}, 2, 50
+    cfg.seed_steps = SEED_STEPS
+    base, dmc, toy = (jbase, jdmc, jtoy) if jax else (tbase, tdmc, ttoy)
+    env = base.NormalizeInfo(base.Timeout(dmc.PixelObs(toy.PointMassEnv(cfg.seed)), 50))
+    parts = (dict(buffer=JBuffer(cfg), logger=JLogger(cfg)) if jax else
+             dict(buffer=Buffer(cfg), logger=Logger(cfg)))
+    agent = _PixelRecorder(cfg)
+    trainer = (JOnlineTrainer if jax else OnlineTrainer)(cfg=cfg, env=env, agent=agent,
+                                                         **parts)
+    agent.trainer = trainer
+    trainer.train()
+    return trainer, agent.calls
+
+
+def test_resumed_pixel_schedule_matches_jax_trainer(tmp_path):
+    """A pixel run and its resumed continuation (a 3-episode snapshot of
+    uint8 frames, a 100-step refill gate): the JAX trainer's update steps,
+    and the same frames back in both rings."""
+    eval_freq, steps1, steps2 = SPANS[1]
+    runs = {}
+    for jax in (True, False):
+        work = tmp_path / ('jax' if jax else 'port')
+        kw = dict(eval_freq=eval_freq, buffer_snapshot_eps=3)
+        first = _pixel_run(jax, work, steps=steps1, **kw)
+        second = _pixel_run(jax, work, steps=steps2, resume=True, resume_refill_steps=100,
+                            **kw)
+        runs[jax] = (first, second)
+    (_, jcalls_f), (js, jcalls_s) = runs[True]
+    (_, tcalls_f), (ts, tcalls_s) = runs[False]
+    assert tcalls_f == jcalls_f and tcalls_s == jcalls_s and tcalls_s
+    assert ts._refill_credit == js._refill_credit == 150
+    n = ts.buffer.num_eps
+    assert n == js.buffer.num_eps
+    st = ts.buffer._storage['obs']
+    assert st.dtype == torch.uint8 and st.shape[2] == 3 * 64 * 64
+    np.testing.assert_array_equal(st[:n].numpy(), np.asarray(js.buffer._storage['obs'])[:n])

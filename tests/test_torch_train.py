@@ -220,10 +220,13 @@ def test_clip_and_adam_match_optax(max_norm):
 
 
 def _noise_from_jax(key, cfg):
-    """The draws JAX `_update` makes from `key` (tdmpc2.py:933-936 and
-    the heads it calls), as the port's UpdateNoise."""
+    """The draws JAX `_update` makes from `key` (tdmpc2.py:933-949 and
+    the heads it calls), as the port's UpdateNoise; on a pixel config also
+    the encoder's ShiftAug shifts, from k_enc_next (one key a time step,
+    world_model.py:139-143) and k_enc0 (layers.py:229)."""
     T, N, M = cfg.horizon, cfg.num_q, cfg.mlp_dim
-    (_, _, k_td, _, k_drop, k_pi_upd, k_pi_q, k_pi_drop,
+    B, ACT = cfg.batch_size, cfg.action_dim
+    (_, k_enc_next, k_td, k_enc0, k_drop, k_pi_upd, k_pi_q, k_pi_drop,
      _) = jax.random.split(key, 9)
     k_pi, k_q = jax.random.split(k_td)
 
@@ -236,11 +239,17 @@ def _noise_from_jax(key, cfg):
 
     def qpair(k):
         return torch.from_numpy(np.array(jax.random.permutation(k, N)[:2])).long()
+    def shifts(k):
+        return torch.from_numpy(np.array(jax.random.randint(k, (B, 2), 0, 7))).long()
+    rgb = cfg.obs == 'rgb'
     return UpdateNoise(
         td_eps=_t(jax.random.normal(k_pi, (T, B, ACT))), td_qidx=qpair(k_q),
         q_keep=keep(k_drop, T),
         pi_eps=_t(jax.random.normal(k_pi_upd, (T + 1, B, ACT))),
-        pi_qidx=qpair(k_pi_q), pi_keep=keep(k_pi_drop, T + 1))
+        pi_qidx=qpair(k_pi_q), pi_keep=keep(k_pi_drop, T + 1),
+        next_shift=(torch.stack([shifts(k) for k in jax.random.split(k_enc_next, T)])
+                    if rgb else None),
+        shift0=shifts(k_enc0) if rgb else None)
 
 
 def _hold_states(got, ref, tol=UPD):
@@ -461,7 +470,7 @@ def test_train_num_envs_on_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('extra,err', [
-    ([], RuntimeError), (['num_envs=4', 'obs=rgb'], NotImplementedError),
+    ([], RuntimeError), (['num_envs=4', 'obs=rgb'], ValueError),
     (['seeds=1,2'], NotImplementedError), (['save_video=true'], NotImplementedError)])
 def test_train_refuses_what_the_port_lacks(extra, err):
     argv = [o for o in TINY if not o.startswith('device=')] + extra

@@ -336,14 +336,19 @@ def test_vec_env_matches_jax_vec_env():
 
 @pytest.mark.parametrize('num_envs', [2, 1])
 def test_vec_mode_subproc_is_refused(num_envs):
-    """The worker-process env copies (JAX vec_mode=subproc) exist to render
-    pixels: the port has neither the option nor pixel observations yet."""
+    """What is refused around the worker-process env copies: a `vec_mode`
+    that is none of auto, inproc and subproc, and rgb observations on a toy
+    task (no rgb mode in either package; a pixel env is given to the
+    trainer). `vec_mode=subproc` itself is an option now, as in the JAX
+    config (config.py:159-161)."""
+    assert load_cfg(overrides=['task=toy-reach', f'num_envs={num_envs}',
+                               'vec_mode=subproc']).vec_mode == 'subproc'
     with pytest.raises(ValueError, match='vec_mode'):
-        load_cfg(overrides=['task=toy-reach', f'num_envs={num_envs}',
-                            'vec_mode=subproc'])
+        make_env(parse_cfg(Config(task='toy-reach', num_envs=2, device='cpu',
+                                  vec_mode='threads')))
     cfg = parse_cfg(Config(task='toy-reach', num_envs=num_envs, obs='rgb',
                            device='cpu'))
-    with pytest.raises(NotImplementedError, match='A8'):
+    with pytest.raises(ValueError, match='no rgb mode'):
         make_env(cfg)
 
 
