@@ -15,8 +15,8 @@ lockstep planning over tasks through the same kernels), checkpoints (the
 JAX package's, the port's and the reference's `.pt`, read without jax,
 optax or ml_dtypes) and resuming, pixel observations (the conv encoder
 with ShiftAug, uint8 frames stored unstacked in the replay ring, the
-frame-stack wrapper, worker-process env copies), and every TPU kernel of
-the JAX package (value step, CEM loop, reward+dynamics rollout, canary).
+frame-stack wrapper), and every TPU kernel of the JAX package (value
+step, CEM loop, reward+dynamics rollout, canary).
 """
 
 __version__ = "0.1.0"

@@ -151,10 +151,6 @@ class Config:
     buffer_snapshot_eps: int = 0
     # parallel env copies for vectorised collection (trainer/vec_online.py)
     num_envs: int = 1
-    # their backend (JAX config.py:159-161): 'subproc' (one worker process
-    # per env copy, envs/subproc.py), 'inproc' (stepped in this process),
-    # or 'auto' (subproc for rgb observations on a non-toy task)
-    vec_mode: str = 'auto'
     seeds: Any = None
     # continue from work_dir/models: 'latest.pkl' online, the newest
     # iteration checkpoint offline

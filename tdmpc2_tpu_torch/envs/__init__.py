@@ -7,16 +7,15 @@ vectors; the dm_control adapters, and with them the rgb tasks, come with a
 later part of the port (ROADMAP A11). The pixel wrapper `PixelObs`
 (envs/dmcontrol.py) takes any env that renders, and a trainer takes such an
 env directly, as the JAX package's pixel loop does
-(tests/test_pixels_loop.py). `num_envs > 1` builds env copies seeded
-cfg.seed + 1000*i (JAX envs/__init__.py:66-92): by `vec_mode`, a `VecEnv`
-stepped in this process ('inproc') or a `SubprocVecEnv` of worker processes
-('subproc'); 'auto' takes subproc for rgb observations on a non-toy task,
-where rendering sets the pace, as the JAX factory does. A multi-task config
-builds a `MultitaskEnv` of one env per task and fills the per-task fields
-(obs_shapes, action_dims, episode_lengths), as `make_multitask_env` does in
-the JAX package (envs/__init__.py:14-28); a task the port has no env for
-raises "Failed to make environment", as the JAX factory does where its
-backend is missing (the mt30 and mt80 tasks need dm_control and
+(tests/test_pixels_loop.py). `num_envs > 1` builds a `VecEnv` of
+decorrelated copies stepped in this process (JAX envs/__init__.py:66-92);
+the JAX package's worker-process copies (`vec_mode=subproc`) serve the
+rendered dm_control tasks and come with them (ROADMAP A11). A multi-task
+config builds a `MultitaskEnv` of one env per task and fills the per-task
+fields (obs_shapes, action_dims, episode_lengths), as `make_multitask_env`
+does in the JAX package (envs/__init__.py:14-28); a task the port has no
+env for raises "Failed to make environment", as the JAX factory does where
+its backend is missing (the mt30 and mt80 tasks need dm_control and
 Meta-World).
 """
 
@@ -58,7 +57,6 @@ def _check_obs(cfg):
 
 
 def _make_single_env(cfg):
-    _check_obs(cfg)
     try:
         return toy.make_env(cfg)
     except ValueError as e:
@@ -67,30 +65,12 @@ def _make_single_env(cfg):
             f'tasks only so far (ROADMAP A11): {e}') from e
 
 
-def vec_mode(cfg) -> str:
-    """'inproc' or 'subproc' for cfg's env copies (JAX envs/__init__.py:
-    73-79): `vec_mode`, where 'auto' picks subproc for rgb observations on
-    a non-toy task (rendering dominates there; a toy env is cheap to step
-    in this process)."""
-    mode = cfg.get('vec_mode', 'auto')
-    if mode not in ('auto', 'inproc', 'subproc'):
-        raise ValueError(f"vec_mode={mode!r}: 'auto', 'inproc' or 'subproc'")
-    if mode == 'auto':
-        mode = ('subproc' if cfg.get('obs') == 'rgb'
-                and not str(cfg.task).startswith('toy') else 'inproc')
-    return mode
-
-
 def make_env(cfg):
     _check_obs(cfg)
     if cfg.multitask:
         env = make_multitask_env(cfg)
     elif int(cfg.get('num_envs') or 1) > 1:
-        if vec_mode(cfg) == 'subproc':
-            from tdmpc2_tpu_torch.envs.subproc import SubprocVecEnv
-            env = SubprocVecEnv(cfg)
-        else:
-            env = make_vec_env(cfg, _make_single_env)
+        env = make_vec_env(cfg, _make_single_env)
     else:
         env = _make_single_env(cfg)
     cfg.obs_shape = {cfg.get('obs', 'state'): tuple(env.observation_space.shape)}

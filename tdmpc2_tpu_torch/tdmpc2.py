@@ -86,8 +86,6 @@ PLAN_WRAPPERS = (cem.pi_rollout, value_sampled, cem.elite_moments)
 # below 2048 columns; at model_size 317 (H 3, 6 iterations) 385, 189 of them
 # products, 177 row kernels and 19 stagings (ops/wide.py plan_launches)
 PLAN_COUNTS = PLAN_WRAPPERS + wide.COUNTERS
-# the raw draws that are not f32
-_DRAW_DTYPES = {'shift': torch.long}
 
 
 @dataclass
@@ -100,6 +98,9 @@ class PlanNoise:
     qidx: torch.Tensor      # [n, I, 2] int32 Q heads
     gumbel: torch.Tensor    # [n, E] Gumbel noise of the final pick
     act: torch.Tensor       # [n, A] exploration noise (not in eval mode)
+    # [n, 2] long in [0, 6]: ShiftAug's shifts of each env's frames, on
+    # pixels only (the JAX `_plan`'s k_enc, tdmpc2.py:545-546)
+    shift: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -112,19 +113,7 @@ class PlanDraws:
     eps: torch.Tensor       # [n, I, S, A]
     qr: torch.Tensor        # [n, I, num_q] uniform
     act: torch.Tensor       # [n, A]
-
-
-@dataclass
-class PixelPlanNoise(PlanNoise):
-    """A pixel model's plan noise: also each env's ShiftAug shifts, drawn
-    after the rest (the JAX `_plan`'s k_enc, tdmpc2.py:545-546)."""
-    shift: torch.Tensor = None   # [n, 2] long in [0, 6]
-
-
-@dataclass
-class PixelPlanDraws(PlanDraws):
-    """A pixel model's raw plan draws: the PlanDraws, then the shifts."""
-    shift: torch.Tensor = None   # [n, 2] long in [0, 6]
+    shift: Optional[torch.Tensor] = None   # [n, 2] long, pixels only, last
 
 
 @dataclass
@@ -499,17 +488,14 @@ class TDMPC2:
                              task=self._task_ids(tasks, n), prev_mean=pm)
         return a.cpu().numpy(), pm
 
-    def _draws_cls(self):
-        return PixelPlanDraws if self.cfg.obs == 'rgb' else PlanDraws
-
     def draw_noise(self, n: int = 1) -> PlanNoise:
         """Every draw of one plan for n envs, from the agent's generator."""
         return self._noise_from(self._draw(n))
 
     def _draws(self, n: int) -> dict:
         """{field of PlanDraws: (draw function, shape)}, in the order of the
-        draws; the pixel encoder's shifts (long, `_DRAW_DTYPES`) come last,
-        on rgb only, so that the state path's draws are what they were."""
+        draws; the pixel encoder's shifts (long) come last, on rgb only, so
+        that the state path's draws are what they were."""
         cfg = self.cfg
         H, S, A, I = cfg.horizon, cfg.num_samples, cfg.action_dim, self.iterations
         d = dict(u=(torch.rand, (n, cfg.num_elites)),
@@ -526,7 +512,7 @@ class TDMPC2:
         """The raw draws of one plan for n envs, in their order; into the
         tensors of `out` when given (the same bits)."""
         g, dev = self.generator, self.device
-        return self._draws_cls()(**{
+        return PlanDraws(**{
             k: fn(shape, generator=g, device=dev) if out is None
             else fn(shape, generator=g, out=getattr(out, k))
             for k, (fn, shape) in self._draws(n).items()})
@@ -536,15 +522,12 @@ class TDMPC2:
         """The plan's noise from its raw draws: two distinct Q heads (the
         first two of a random permutation), Gumbel noise; a pixel model's
         shifts as drawn."""
-        noise = dict(
+        return PlanNoise(
             pi_eps=d.pi_eps, sample=d.sample, eps=d.eps,
             qidx=torch.argsort(d.qr, dim=-1)[..., :2].to(torch.int32).contiguous(),
             gumbel=-torch.log(-torch.log(
                 d.u.clamp(min=torch.finfo(torch.float32).tiny))),
-            act=d.act)
-        if isinstance(d, PixelPlanDraws):
-            return PixelPlanNoise(**noise, shift=d.shift)
-        return PlanNoise(**noise)
+            act=d.act, shift=d.shift)
 
     def _qpair(self, *lead):
         """Two distinct Q heads (the first two of a random permutation)."""
@@ -573,6 +556,9 @@ class TDMPC2:
                              'warm starts (cfg.num_envs)')
         if self.cfg.multitask and task is None:
             raise ValueError('a multi-task model plans for a task: pass task')
+        if self.cfg.obs == 'rgb' and noise is not None and noise.shift is None:
+            raise ValueError('a pixel plan shifts its frames: the noise needs '
+                             'ShiftAug shifts (PlanNoise.shift)')
         prep = self.prep
         t0 = torch.tensor(np.asarray(t0, bool).reshape(n))
         if self.device.type == 'cuda':
@@ -588,8 +574,8 @@ class TDMPC2:
         a key captures."""
         n = obs.shape[0]
         key = (n, bool(eval_mode), None if noise is None else tuple(
-            tuple(x.shape) for x in vars(noise).values()), task is not None,
-            own)
+            None if x is None else tuple(x.shape) for x in vars(noise).values()),
+            task is not None, own)
         entry = self._graphs.get(key)
         if entry is None:
             ins = dict(
@@ -598,14 +584,14 @@ class TDMPC2:
                 t0=torch.empty(n, dtype=torch.bool, device=self.device),
                 task=(None if task is None else
                       torch.empty(n, dtype=torch.int32, device=self.device)),
-                draws=(self._draws_cls()(**{
-                    k: torch.empty(shape, dtype=_DRAW_DTYPES.get(k, torch.float32),
-                                   device=self.device)
+                draws=(PlanDraws(**{
+                    k: torch.empty(shape, device=self.device, dtype=(
+                        torch.long if k == 'shift' else torch.float32))
                     for k, (_, shape) in self._draws(n).items()})
                        if noise is None else
-                       type(noise)(**{k: torch.empty(v.shape, dtype=v.dtype,
-                                                     device=self.device)
-                                      for k, v in vars(noise).items()})))
+                       PlanNoise(**{k: None if v is None else torch.empty(
+                           v.shape, dtype=v.dtype, device=self.device)
+                           for k, v in vars(noise).items()})))
         else:
             ins = entry[1]
         ins['obs'].copy_(obs)
@@ -616,7 +602,8 @@ class TDMPC2:
             self._draw(n, out=ins['draws'])
         else:
             for k, v in vars(noise).items():
-                getattr(ins['draws'], k).copy_(v)
+                if v is not None:
+                    getattr(ins['draws'], k).copy_(v)
         if entry is not None:
             return entry[0].replay()
 
@@ -647,8 +634,7 @@ class TDMPC2:
             discs, amask = self.discs[tl], self.amask[tl]
         if self.cfg.obs == 'rgb':
             # each env's frames shifted by its own draw (JAX tdmpc2.py:545-546)
-            z0 = self.model.encode(self.params, obs, tl,
-                                   getattr(noise, 'shift', None))
+            z0 = self.model.encode(self.params, obs, tl, noise.shift)
         else:
             z0 = self.model.encode(self.params, obs.reshape(n, -1).float(), tl)
         mean0 = torch.cat([pm[:n, 1:],

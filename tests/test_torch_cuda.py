@@ -1300,8 +1300,9 @@ def test_draws_into_the_graph_inputs_are_the_draws(graph_agent):
     ag.generator.manual_seed(7)
     ag._draw(n, out=out)
     got = ag._noise_from(out)
-    for k, v in vars(ref).items():
-        assert torch.equal(getattr(got, k), v), k
+    for k, v in vars(ref).items():      # shift: None on a state model
+        assert (getattr(got, k) is None if v is None
+                else torch.equal(getattr(got, k), v)), k
 
 
 def test_plan_graph_after_update_and_load_params(graph_agent):

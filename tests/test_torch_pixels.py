@@ -14,8 +14,8 @@ JAX function and the port's, with the JAX draws fed to the port as data:
 - the buffer's unstacked uint8 frames after `add` and `load`, and the
   restacked slices at the same (episode, start) pairs, starts 0 and 1
   among them, bit for bit;
-- `PixelObs(PointMassEnv)` over an episode, `SubprocVecEnv` against
-  `VecEnv`, and the `vec_mode` rule;
+- `PixelObs(PointMassEnv)` over an episode, and what `make_env` refuses
+  for rgb observations;
 - a port-only pixel `OnlineTrainer` run: finite losses, uint8 storage.
 """
 
@@ -37,10 +37,9 @@ from tdmpc2_tpu.models import layers as jl
 from tdmpc2_tpu.tdmpc2 import TDMPC2 as JTDMPC2
 from tdmpc2_tpu_torch.config import Config, parse_cfg
 from tdmpc2_tpu_torch.data.buffer import Buffer
-from tdmpc2_tpu_torch.envs import make_env, vec_mode
+from tdmpc2_tpu_torch.envs import make_env
 from tdmpc2_tpu_torch.envs.base import NormalizeInfo, Timeout
 from tdmpc2_tpu_torch.envs.dmcontrol import PixelObs
-from tdmpc2_tpu_torch.envs.subproc import SubprocVecEnv
 from tdmpc2_tpu_torch.envs.toy import PointMassEnv
 from tdmpc2_tpu_torch.interop import load_blob, params_from_jax, state_from_jax
 from tdmpc2_tpu_torch.models import layers as tl
@@ -259,6 +258,12 @@ def test_act_sends_frames_as_uint8(frames, monkeypatch):
     assert ag.act(frames[:2], eval_mode=True).shape == (2, 2)
     assert seen == [(torch.uint8, (1,) + SHAPE, (1, 2)), (torch.uint8, (3,) + SHAPE, (3, 2)),
                     (torch.uint8, (2,) + SHAPE, (2, 2))]
+    # a plan's noise without shifts is refused, not planned unshifted
+    noise = ag.draw_noise(1)
+    assert noise.shift.shape == (1, 2) and noise.shift.dtype == torch.long
+    noise.shift = None
+    with pytest.raises(ValueError, match='ShiftAug'):
+        ag.plan_vec(_t(frames[:1]), np.array([True]), noise=noise)
 
 
 # ------------------------------------------------------------ buffer
@@ -340,38 +345,18 @@ def test_pixel_obs_frames_match_jax():
     assert o.any()
 
 
-def test_subproc_vec_env_matches_vec_env():
-    """Worker-process env copies against the in-process VecEnv on toy-reach:
-    observations, rewards, dones and infos bit for bit, resets included."""
-    cfgs = [parse_cfg(Config(task='toy-reach', num_envs=3, device='cpu', vec_mode=m))
-            for m in ('subproc', 'inproc')]
-    env, ref = (make_env(c) for c in cfgs)
-    try:
-        assert isinstance(env, SubprocVecEnv) and not isinstance(ref, SubprocVecEnv)
-        assert cfgs[0].obs_shape == cfgs[1].obs_shape
-        np.testing.assert_array_equal(env.reset(), ref.reset())
-        rng = np.random.default_rng(1)
-        for t in range(60):
-            a = rng.uniform(-1, 1, (3, 2)).astype(np.float32)
-            out, rout = env.step(a), ref.step(a)
-            for x, y in zip(out[:3], rout[:3]):
-                np.testing.assert_array_equal(x, y)
-            assert out[3] == rout[3]
-            if t == 20:
-                np.testing.assert_array_equal(env.reset_at(1), ref.reset_at(1))
-        np.testing.assert_array_equal(env.rand_act(), ref.rand_act())
-    finally:
-        env.close()
-    assert not any(p.is_alive() for p in env._procs)
-
-
-@pytest.mark.parametrize('task,obs,mode,want', [
-    ('toy-reach', 'state', 'auto', 'inproc'), ('toy-reach', 'rgb', 'auto', 'inproc'),
-    ('walker-walk', 'rgb', 'auto', 'subproc'), ('walker-walk', 'state', 'auto', 'inproc'),
-    ('toy-reach', 'state', 'subproc', 'subproc'), ('walker-walk', 'rgb', 'inproc', 'inproc')])
-def test_vec_mode_rule(task, obs, mode, want):
-    """JAX envs/__init__.py:73-79: auto is subproc for rgb on a non-toy task."""
-    assert vec_mode(parse_cfg(Config(task=task, obs=obs, vec_mode=mode))) == want
+@pytest.mark.parametrize('task,num_envs,why', [
+    ('toy-reach', 1, 'no rgb mode'), ('toy-reach', 4, 'no rgb mode'),
+    ('toy', 1, 'no rgb mode'), ('toy-reach-episodic', 1, 'no rgb mode'),
+    ('toy-reach-episodic', 4, 'no rgb mode'), ('walker-walk', 1, 'A11'),
+    ('walker-walk', 4, 'A11'), ('mt30', 1, 'A11')])
+def test_make_env_refuses_rgb(task, num_envs, why):
+    """`make_env` has no env that renders: a toy task has state observations
+    only, and the dm_control rgb tasks come with the dm_control adapter. A
+    pixel env (PixelObs around an env that renders) goes to a trainer."""
+    cfg = parse_cfg(Config(task=task, obs='rgb', num_envs=num_envs, device='cpu'))
+    with pytest.raises(ValueError, match=why):
+        make_env(cfg)
 
 
 # ------------------------------------------------------------ trainer

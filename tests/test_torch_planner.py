@@ -28,7 +28,7 @@ from tdmpc2_tpu_torch.config import Config, parse_cfg
 from tdmpc2_tpu_torch.interop import params_from_jax
 from tdmpc2_tpu_torch.ops import cem
 from tdmpc2_tpu_torch.ops.value import prepare_value_params, value_estimate
-from tdmpc2_tpu_torch.tdmpc2 import TDMPC2, PixelPlanNoise, PlanNoise
+from tdmpc2_tpu_torch.tdmpc2 import TDMPC2, PlanNoise
 
 VTOL = dict(rtol=1e-4, atol=1e-4)
 ATOL = dict(rtol=1e-3, atol=1e-3)
@@ -245,16 +245,14 @@ def _jax_plan_noise(key, cfg, iterations) -> PlanNoise:
     pi_eps = jnp.concatenate(
         [jax.random.normal(kh, (n_pi, A), jnp.float32)
          for kh in jax.random.split(k_pi_roll, H)], axis=-1)
-    noise = dict(
+    return PlanNoise(
         pi_eps=_t(pi_eps)[None], sample=_t(jnp.stack(samples))[None],
         eps=_t(jnp.stack(epss))[None],
         qidx=_t(jnp.stack(qidxs)).to(torch.int32)[None],
         gumbel=_t(jax.random.gumbel(k_gumbel, (E,), jnp.float32))[None],
-        act=_t(jax.random.normal(k_noise, (A,)))[None])
-    if cfg.obs == 'rgb':
-        return PixelPlanNoise(**noise, shift=torch.from_numpy(
-            np.array(jax.random.randint(k_enc, (1, 2), 0, 7))).long())
-    return PlanNoise(**noise)
+        act=_t(jax.random.normal(k_noise, (A,)))[None],
+        shift=(torch.from_numpy(np.array(jax.random.randint(k_enc, (1, 2), 0, 7))).long()
+               if cfg.obs == 'rgb' else None))
 
 
 @pytest.mark.parametrize('seed,eval_mode', [(7, True), (8, False)])

@@ -238,8 +238,9 @@ def test_draws_are_the_draws_before(vec_agent, into):
         got = ag._noise_from(out)
     else:
         got = ag.draw_noise(n)
-    for k, v in vars(ref).items():
-        assert torch.equal(getattr(got, k), v), k
+    for k, v in vars(ref).items():      # shift: None on a state model
+        assert (getattr(got, k) is None if v is None
+                else torch.equal(getattr(got, k), v)), k
 
 
 def test_warm_starts_and_prep_follow_the_state(vec_agent):
