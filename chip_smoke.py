@@ -122,10 +122,24 @@ memory, ring stages, blocks per SM) and `-Xptxas -v` registers and spills
 are printed, and the value kernel (both branches) and the pi rollout are
 held against their plain versions at the widths of model_size 1, 5, 19 and
 48 (one env), with the weight prep's packing timed. Then one update on the
-card is held against the same update on the CPU (and one episodic update),
-and the training paths are timed
+card, a replay of its CUDA graph, is held against the same update on the
+CPU (and one episodic update), and the training paths are timed
 (update steps/s, env-steps/s, and the shares of an env step spent in
-`act` and in `update`; plans/s of batched `act` at N = 1, 8, 16). Phases
+`act` and in `update`; plans/s of batched `act` at N = 1, 8, 16).
+The update graph (the whole `_update` a replay) is held against its eager
+body bit for bit, from the same state on the same batch and draws (every
+info value, the parameters, target heads, both Adam states, the scale),
+on the 5M state and episodic models, the walker pixel model, mt30 at
+model_size 48 and mt80 at 317; `update_many(8)` against 8 eager steps;
+`vec_step`, and `act_collect` + `update_many_fused`, against `act` +
+`update_many` at N=8 (actions, info, train state, warm starts); each
+update timed as the eager body and as the graph (CUDA events, device busy
+and activities by torch.profiler), its capture and its graph's pool; the
+N=8 loop under each collection schedule. Every training path counts one
+update graph replay an update, or a capture's eager warm-up; the
+vectorised paths take the pipelined schedule, the episodic one
+`overlap_update=false` (`vec_step`); `profile_dir` writes the one-env
+trainer's trace of ten update replays. Phases
 print one progress line each. It ends with the card's name and power
 limit, one JSON line of per-kernel numbers (launches on each path, error
 against the plain version, kernel, plain and library times at N=8 and
@@ -138,7 +152,9 @@ port's package. A watchdog turns a hang into an exit with a traceback.
 
 `--compare DIR` times the tensor-core kernels (value, its episodic branch,
 pi rollout, rollout; one env and N=8), the elite kernel (one env and N=8),
-the canary, the planner's value step (the sampled mode where the version
+the canary, one update of the 5M model on a fixed batch and draws
+(`update_5m`: the graph's replay where the version has one, its info and
+parameters the outputs compared), the planner's value step (the sampled mode where the version
 has it; also mt30's N=30 tasks at model_size 48, with the pi rollout, and
 mt80's at model_size 317 at one env, N=8 and N=80 tasks, with the pi
 rollout at one env and N=80) and
@@ -167,6 +183,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -888,6 +905,25 @@ def time_kernels(root) -> int:
     _, w_pm = wag.act_tasks(w_obs, np.zeros((WT, wcfg.horizon, wcfg.action_dim), np.float32),
                             True, tasks)
     calls[f'act_tasks_317_n{WT}'] = (wag.act_tasks, (w_obs, w_pm, False, tasks), {})
+    # one update of the 5M model on a fixed batch and draws, from the same
+    # state: a replay of the update graph where the tree has one (`_step`;
+    # captured first on a copy of the state), else the eager body; its
+    # outputs are the info values and the parameters after it
+    T, B = cfg.horizon, cfg.batch_size
+    u_batch = (torch.randn(T + 1, B, cfg.obs_shape['state'][0], device=dev, generator=g),
+               torch.rand(T, B, A, device=dev, generator=g) * 2 - 1,
+               torch.rand(T, B, 1, device=dev, generator=g),
+               torch.zeros(T, B, 1, device=dev))
+    u_noise = ag.draw_update_noise()
+    step = getattr(ag, '_step', None)
+    if step is not None:
+        with_update_graph(ag, u_batch)
+
+    def one_update():
+        info = (step(u_batch, u_noise) if step is not None
+                else ag._update(ag.state, *u_batch, u_noise))
+        return tuple(info[k] for k in sorted(info)) + tuple(tree.leaves(ag.state.params))
+    calls['update_5m'] = (one_update, (), {})
 
     def digest(x):
         h = hashlib.sha256()
@@ -1046,7 +1082,7 @@ def pixels_only() -> int:
         raise AssertionError(f'canary: {probe.verdict()["reason"]}')
     _, zero_counts, read_counts, check_plan_counts = plan_counters(
         pixel_cfg().iterations)
-    errs, paths, metrics = pixel_phases(zero_counts, read_counts, check_plan_counts)
+    errs, paths, metrics = pixel_phases(zero_counts, read_counts, check_plan_counts, {})
     log(f'[done] {time.perf_counter() - t_start:.1f} s')
     log(smi)
     log(json.dumps({'pixels': metrics, 'max_abs_err_trained': errs, 'launches': paths}))
@@ -1142,12 +1178,13 @@ def plan_counters(I):
     def zero_counts():
         for w in wrappers.values():
             w.launches = 0
-        Graph.replays['plan'] = Graph.captures['plan'] = 0
+        for kind in ('plan', 'update'):
+            Graph.replays[kind] = Graph.captures[kind] = 0
 
     def read_counts():
         return {**{k: w.launches for k, w in wrappers.items()},
-                'plan_replays': Graph.replays.get('plan', 0),
-                'plan_captures': Graph.captures.get('plan', 0)}
+                **{f'{kind}_{what}': getattr(Graph, what).get(kind, 0)
+                   for kind in ('plan', 'update') for what in ('replays', 'captures')}}
 
     def check_plan_counts(name, counts, plans=None, wide_per_plan=0, products_per_plan=0,
                           stages_per_plan=0):
@@ -1239,7 +1276,7 @@ def write_toy_chunks(root, n_chunks=2, eps=6, rows=51):
                  task=(np.arange(eps) % 2).astype(np.int32))
 
 
-def multitask_phases(zero_counts, read_counts, check_plan_counts):
+def multitask_phases(zero_counts, read_counts, check_plan_counts, update_records):
     """The multi-task slice on the card. Returns (max |err| of each
     task-axis check, {path: launch counts}, the task-axis kernels' rows of
     the JSON line).
@@ -1256,7 +1293,6 @@ def multitask_phases(zero_counts, read_counts, check_plan_counts):
     - a toy multi-task config through `train` (offline training, then the
       lockstep eval over its envs) and `evaluate` from its checkpoint.
     """
-    import tempfile
 
     import numpy as np
     import torch
@@ -1489,8 +1525,8 @@ def multitask_phases(zero_counts, read_counts, check_plan_counts):
         trainer = OfflineTrainer(cfg=cfg, env=None, agent=ag, buffer=Buffer(cfg),
                                  logger=Logger(cfg))
         infos, t_load = [], {}
-        many = ag.update_many
-        ag.update_many = lambda buf, n: infos.append(many(buf, n)) or infos[-1]
+        many = ag.update_many       # its info is the graph's, overwritten by the next
+        ag.update_many = lambda buf, n: infos.append(clone_info(many(buf, n))) or infos[-1]
         load = trainer._load_dataset
 
         def timed_load():
@@ -1525,11 +1561,16 @@ def multitask_phases(zero_counts, read_counts, check_plan_counts):
                                  'episodes')
         if store.device.type != 'cuda':
             raise AssertionError('offline mt30: the dataset is not on the card')
+        check_update_counts('offline train mt30', paths['offline train mt30'], MT_STEPS)
         upd_ms = time_ms(lambda: ag.update_many(buf, 8), 3) / 8
         busy, n_dev, _ = device_share(lambda: ag.update(buf), 3)
         log(f'  update: {upd_ms:.3f} ms (CUDA events, update_many(8) / 8), '
             f'{1e3 / upd_ms:.2f} update steps/s at batch {cfg.batch_size}; device busy '
             f'{busy} ms of one update over {n_dev} device activities (torch.profiler)')
+        hold_update_graph('mt30, model_size 48', ag, buf.sample())
+        update_records['mt30/48'] = dict(update_record(
+            'mt30, model_size 48', ag, buf.sample(), buf, reps=8),
+            offline_iterations_per_s=MT_STEPS / secs)
 
         # act_tasks over the 30 tasks on the data's observations
         task_store = buf._task_store
@@ -1585,6 +1626,8 @@ def multitask_phases(zero_counts, read_counts, check_plan_counts):
             Logger.pprint_multitask = pprint
         check_plan_counts('offline train toy multi-task (its eval)',
                           paths['offline train toy multi-task'], MAX_EP_LEN)
+        check_update_counts('offline train toy multi-task',
+                            paths['offline train toy multi-task'], TOY_MT_STEPS)
         ckpt = Path(cfg.work_dir) / 'models' / f'{TOY_MT_STEPS}.pkl'
         if not (isinstance(tr, OfflineTrainer) and scores and math.isfinite(scores[0])
                 and ckpt.exists()):
@@ -2282,7 +2325,7 @@ def wide_bounds(prep, n, S, H, A, n_pi, used_heads, episodic=False, task_rows=1)
         'rollout': bound_ms(ro_by, 2 * n * S * H * (mac_rew + mac_dyn), BF16_FLOPS)}
 
 
-def wide_phases(zero_counts, read_counts, check_plan_counts):
+def wide_phases(zero_counts, read_counts, check_plan_counts, update_records):
     """The 317M model on the card: mt80 at model_size 317 (80 tasks, task_dim
     96, mlp_dim 4096, latent 1376, 8 Q heads), where the value step, the pi
     rollout and the rollout take the layer-per-launch engine (ops/wide.py).
@@ -2302,7 +2345,6 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
       the mt80 dataset's geometry, then `act_tasks` over the 80 tasks;
     - each kernel's time against its bound and its plain version's.
     """
-    import tempfile
     import types
 
     import numpy as np
@@ -2688,7 +2730,7 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
                                  logger=Logger(t_cfg))
         infos = []
         many = ag.update_many
-        ag.update_many = lambda buf, n: infos.append(many(buf, n)) or infos[-1]
+        ag.update_many = lambda buf, n: infos.append(clone_info(many(buf, n))) or infos[-1]
         zero_counts()
         t0 = time.perf_counter()
         trainer.train()
@@ -2703,11 +2745,15 @@ def wide_phases(zero_counts, read_counts, check_plan_counts):
             f'{float(losses[-1, 0]):.4f}, pi {float(losses[-1, 1]):.4f}')
         if not bool(torch.isfinite(losses).all()) or len(infos) != WIDE_STEPS // 8:
             raise AssertionError(f'offline mt80: {len(infos)} calls, losses {losses}')
+        check_update_counts('offline train mt80', paths['offline train mt80'], WIDE_STEPS)
         upd_ms = time_ms(lambda: ag.update_many(buf, 8), 1) / 8
         busy, n_dev, _ = device_share(lambda: ag.update(buf), 2)
         log(f'  update: {upd_ms:.3f} ms (CUDA events, update_many(8) / 8), '
             f'{1e3 / upd_ms:.2f} update steps/s at batch {t_cfg.batch_size}; device busy '
             f'{busy} ms of one update over {n_dev} device activities (torch.profiler)')
+        hold_update_graph(f'mt80, model_size {WIDE_SIZE}', ag, buf.sample())
+        update_records[f'mt80/{WIDE_SIZE}'] = update_record(
+            f'mt80, model_size {WIDE_SIZE}', ag, buf.sample(), buf, reps=4)
         store, task_store = buf._storage['obs'], buf._task_store
         first = torch.stack([torch.nonzero(task_store == t)[0, 0] for t in range(NT)])
         obs_at = [store[first, r].cpu().numpy() for r in range(WIDE_ACT_STEPS + 1)]
@@ -2948,7 +2994,6 @@ def checkpoint_phases(zero_counts, read_counts, check_plan_counts, hold_update):
     (e) `evaluate` from a reference-format `.pt` checkpoint.
     """
     import importlib
-    import tempfile
 
     import numpy as np
     import torch
@@ -3034,7 +3079,7 @@ def checkpoint_phases(zero_counts, read_counts, check_plan_counts, hold_update):
         checkpoint at TRAIN_STEPS, its replay snapshot) to RESUME_STEPS."""
         got, steps = {}, []
         orig = OnlineTrainer.maybe_resume
-        update, many = TDMPC2.update, TDMPC2.update_many
+        updates = TDMPC2._updates     # every schedule's n steps on one draw
 
         def recording_resume(self):
             models = Path(self.cfg.work_dir) / 'models'
@@ -3054,10 +3099,8 @@ def checkpoint_phases(zero_counts, read_counts, check_plan_counts, hold_update):
             log(f'  resume {name}: step {self._step}, episode {self._ep_idx}, {n} snapshot '
                 f'episodes back ({self._refill_credit} steps of refill credit)')
         OnlineTrainer.maybe_resume = recording_resume
-        TDMPC2.update = lambda self, buf: steps.append(got['trainer']._step) or update(
-            self, buf)
-        TDMPC2.update_many = lambda self, buf, n: steps.extend(
-            [got['trainer']._step] * n) or many(self, buf, n)
+        TDMPC2._updates = lambda self, buf, n: steps.extend(
+            [got['trainer']._step] * n) or updates(self, buf, n)
         try:
             probe._verdict = None       # as in a fresh process
             zero_counts()
@@ -3072,7 +3115,7 @@ def checkpoint_phases(zero_counts, read_counts, check_plan_counts, hold_update):
             counts = read_counts()
         finally:
             OnlineTrainer.maybe_resume = orig
-            TDMPC2.update, TDMPC2.update_many = update, many
+            TDMPC2._updates = updates
         n = int(tr.cfg.num_envs or 1)
         gate_open = TRAIN_STEPS + RESUME_REFILL - tr._refill_credit
         want = [s for s in range(TRAIN_STEPS, tr._step, n) if s >= gate_open
@@ -3083,6 +3126,7 @@ def checkpoint_phases(zero_counts, read_counts, check_plan_counts, hold_update):
         if not steps or steps != want or tr.buffer._draws != len(steps) // n:
             raise AssertionError(f'resume {name}: updates at {sorted(set(steps))}')
         check_plan_counts(f'resume {name}', counts)
+        check_update_counts(f'resume {name}', counts, len(steps))
         if counts['probe'] <= 0:
             raise AssertionError(f'resume {name}: the canary never launched')
         return counts
@@ -3190,7 +3234,7 @@ def pixel_cfg(*extra, action_dim=2, task='toy-reach'):
     return cfg
 
 
-def pixel_phases(zero_counts, read_counts, check_plan_counts):
+def pixel_phases(zero_counts, read_counts, check_plan_counts, update_records):
     """The pixel path on the card. Returns ({kernel: max |err| on the
     trained pixel latents}, {path: launch counts}, {metric: value}).
 
@@ -3212,7 +3256,6 @@ def pixel_phases(zero_counts, read_counts, check_plan_counts):
         update's time and device share, env-steps/s, plans/s at N=1 and 8.
     """
     import importlib
-    import tempfile
 
     import numpy as np
     import torch
@@ -3289,6 +3332,11 @@ def pixel_phases(zero_counts, read_counts, check_plan_counts):
         log(f'  pi_scale {float(info["pi_scale"]):.4f}, total loss '
             f'{float(info["total_loss"]):.4f}, pi entropy {float(info["pi_entropy"]):.3f}')
 
+    with Phase('(c) pixels: the walker model\'s update graph vs its eager body, bit for '
+               'bit; eager vs graph times'):
+        hold_update_graph('walker pixels', ag, batch)
+        update_records['walker pixels'] = update_record('walker pixels', ag, batch, reps=10)
+
     with Phase('(e) pixels: the conv encoder\'s device time per act and per update; plans/s '
                'of act on the walker model'):
         for n in (1, N_ENVS):
@@ -3328,7 +3376,7 @@ def pixel_phases(zero_counts, read_counts, check_plan_counts):
     del ag, x, batch, obs_b
 
     def recording(store):
-        update = TDMPC2._update
+        update = TDMPC2._step
 
         def run(self, *args):
             info = update(self, *args)
@@ -3343,7 +3391,7 @@ def pixel_phases(zero_counts, read_counts, check_plan_counts):
                             'eval_episodes=1', 'save_agent=true', 'save_csv=false')
             cfg.work_dir, cfg.seed_steps = str(Path(work) / 'one_env'), PIXEL_SEED_STEPS
             losses = []
-            update, TDMPC2._update = recording(losses)
+            update, TDMPC2._step = recording(losses)
             try:
                 zero_counts()
                 t0 = time.perf_counter()
@@ -3354,7 +3402,7 @@ def pixel_phases(zero_counts, read_counts, check_plan_counts):
                 secs = time.perf_counter() - t0
                 counts = paths['train pixels, one env'] = read_counts()
             finally:
-                TDMPC2._update = update
+                TDMPC2._step = update
             losses = torch.stack(losses)
             st = tr.buffer._storage['obs']
             metrics['train_env_steps_per_s'] = tr._step / secs
@@ -3366,6 +3414,7 @@ def pixel_phases(zero_counts, read_counts, check_plan_counts):
                 raise AssertionError('pixel train: non-finite loss')
             if len(losses) != PIXEL_STEPS:
                 raise AssertionError(f'pixel train: {len(losses)} updates')
+            check_update_counts('pixel train, one env', counts, len(losses))
             if st.dtype != torch.uint8 or tuple(st.shape[1:]) != (
                     MAX_EP_LEN + 1, 3 * PIXEL_SHAPE[1] * PIXEL_SHAPE[2]):
                 raise AssertionError(f'pixel ring: {st.dtype} {tuple(st.shape)}')
@@ -3416,7 +3465,7 @@ def pixel_phases(zero_counts, read_counts, check_plan_counts):
                              'eval_episodes=1', 'save_agent=false', 'save_csv=false')
             vcfg.work_dir, vcfg.seed_steps = str(Path(work) / 'vec'), PIXEL_VEC_SEED_STEPS
             vlosses = []
-            update, TDMPC2._update = recording(vlosses)
+            update, TDMPC2._step = recording(vlosses)
             try:
                 zero_counts()
                 t0 = time.perf_counter()
@@ -3428,7 +3477,7 @@ def pixel_phases(zero_counts, read_counts, check_plan_counts):
                 secs = time.perf_counter() - t0
                 counts = paths[f'train pixels, num_envs={N_ENVS}'] = read_counts()
             finally:
-                TDMPC2._update = update
+                TDMPC2._step = update
             vlosses = torch.stack(vlosses) if vlosses else torch.zeros(0, 2)
             metrics['vec_train_env_steps_per_s'] = vtr._step / secs
             log(f'  {vtr._step} env steps, {len(vlosses)} updates in {secs:.1f} s '
@@ -3439,6 +3488,7 @@ def pixel_phases(zero_counts, read_counts, check_plan_counts):
                 raise AssertionError(f'pixel vec train: {len(vlosses)} updates ({want} due), '
                                      f'finite {bool(torch.isfinite(vlosses).all())}')
             check_plan_counts(f'pixel train, num_envs={N_ENVS}', counts)
+            check_update_counts(f'pixel train, num_envs={N_ENVS}', counts, len(vlosses))
 
         with Phase('(d) pixels: evaluate the saved pixel agent on its env, 2 episodes'):
             ckpt = Path(cfg.work_dir) / 'models' / 'final.pkl'
@@ -3455,20 +3505,203 @@ def pixel_phases(zero_counts, read_counts, check_plan_counts):
     return errs, paths, metrics
 
 
+def state_leaves(st, warm=False):
+    """The train state's tensors an update reads and writes (with the warm
+    starts too where `warm`)."""
+    from tdmpc2_tpu_torch.utils import tree
+    return tree.leaves([st.params, st.target_Qs, st.opt_state, st.pi_opt_state,
+                        st.scale] + ([st.prev_mean] if warm else []))
+
+
+def snapshot(agent, warm=False):
+    """Copies of the agent's train state (and warm starts where `warm`)."""
+    return [x.clone() for x in state_leaves(agent.state, warm)]
+
+
+def restore(agent, saved, warm=False):
+    """Write `snapshot`'s copies back into the same tensors (the graphs read
+    them where they are); the prep is redone at the next plan."""
+    for x, y in zip(state_leaves(agent.state, warm), saved):
+        x.copy_(y)
+    agent._prep = None
+
+
+def with_update_graph(agent, batch):
+    """Make sure the agent's update graph is captured for its train state:
+    one step on `batch` (a capture, or a replay), then the state as it was."""
+    saved = snapshot(agent)
+    agent._step(batch)
+    restore(agent, saved)
+
+
+def clone_info(info):
+    return {k: v.clone() for k, v in info.items()}
+
+
+def same_bits(what, got, want):
+    """Lists (or dicts) of tensors equal bit for bit, else AssertionError
+    naming the first that is not and its max |err|."""
+    if isinstance(got, dict):
+        if set(got) != set(want):
+            raise AssertionError(f'{what}: keys {sorted(got)} vs {sorted(want)}')
+        got, want = [got[k] for k in sorted(got)], [want[k] for k in sorted(got)]
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not torch_equal(a, b):
+            raise AssertionError(f'{what}: tensor {i} of {len(got)} differs, max |err| '
+                                 f'{max_err(a, b):.3g}')
+
+
+def torch_equal(a, b):
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a, b))
+
+
+def check_update_counts(name, counts, updates):
+    """Each update of a path is a replay of the update graph, or the eager
+    warm-up of a capture: replays + captures == updates."""
+    r, c = counts['update_replays'], counts['update_captures']
+    log(f'  {name}: {updates} updates, {r} update graph replays, {c} captures')
+    if r + c != updates or r <= 0:
+        raise AssertionError(f'{name}: {updates} updates, {r} replays, {c} captures')
+
+
+def hold_update_graph(label, agent, batch):
+    """One update through the agent's CUDA graph (a replay) against the eager
+    body `_update` from the same state, on `batch` with the same draws:
+    every info value, the parameters, target heads, both Adam states and
+    the scale bit for bit. Returns the eager step's info."""
+    from tdmpc2_tpu_torch.utils.cuda_graph import Graph
+    with_update_graph(agent, batch)
+    saved = snapshot(agent)
+    noise = agent.draw_update_noise()
+    replays = Graph.replays.get('update', 0)
+    info_g = clone_info(agent._step(batch, noise))
+    if Graph.replays['update'] != replays + 1:
+        raise AssertionError(f'update graph {label}: not one replay')
+    after_g = snapshot(agent)
+    restore(agent, saved)
+    info_e = agent._update(agent.state, *batch[:4], noise, *batch[4:])
+    same_bits(f'update graph {label}: info', info_g, info_e)
+    same_bits(f'update graph {label}: train state', after_g, snapshot(agent))
+    agent._prep = None
+    log(f'  {label}: one replay of the update graph equals the eager body bit for bit '
+        f'({len(info_e)} info values, {len(after_g)} state tensors)')
+    return info_e
+
+
+def update_record(label, agent, batch, buffer=None, reps=20):
+    """The update on `batch`, eager body against its graph: ms by CUDA events
+    (the graph's with its inputs' copies), device-busy ms and device
+    activities by torch.profiler; the capture's ms (the eager warm-up,
+    which is a real update, and the capture), the graph's pool bytes; with
+    `buffer`, `update(buffer)` (the sample, the draws, the replay). The
+    train state is put back afterwards."""
+    import torch
+    saved = snapshot(agent)
+    noise = agent.draw_update_noise()
+    agent._graphs.pop('update', None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agent._step(batch, noise)
+    torch.cuda.synchronize()
+    rec = {'capture_ms': 1e3 * (time.perf_counter() - t0),
+           'pool_bytes': agent._graphs['update'][0].pool_bytes}
+
+    def eager():
+        return agent._update(agent.state, *batch[:4], noise, *batch[4:])
+
+    def graph():
+        return agent._step(batch, noise)
+    for name, fn in (('eager', eager), ('graph', graph)):
+        rec[f'{name}_ms'] = time_ms(fn, reps)
+        busy, n_dev, top = device_share(fn, max(2, reps // 4))
+        rec[f'{name}_device_ms'], rec[f'{name}_activities'] = busy, n_dev
+        if name == 'graph':
+            rec['top'] = [(round(t, 4), round(n, 1), k[:80]) for t, n, k in top]
+    if buffer is not None:
+        rec['update_ms'] = time_ms(lambda: agent.update(buffer), reps)
+    restore(agent, saved)
+    log(f'  {label} update: eager body {rec["eager_ms"]:.3f} ms (device busy '
+        f'{rec["eager_device_ms"]} ms, {rec["eager_activities"]:.0f} activities), graph '
+        f'{rec["graph_ms"]:.3f} ms (device busy {rec["graph_device_ms"]} ms, '
+        f'{rec["graph_activities"]:.0f} activities)'
+        + (f', update(buffer) {rec["update_ms"]:.3f} ms' if buffer is not None else '')
+        + f' (CUDA events; profiler); capture {rec["capture_ms"]:.1f} ms (host clock, '
+        f'its eager warm-up included), pool {rec["pool_bytes"] / 1e6:.1f} MB')
+    return rec
+
+
+def hold_update_many(agent, buf, n):
+    """`update_many(n)` through the graph against n eager steps on the same
+    sample_many(n) draw and draws: info and train state bit for bit."""
+    saved = snapshot(agent)
+    gens = (agent.generator.get_state(), buf.generator.get_state())
+    info_g = clone_info(agent.update_many(buf, n))
+    after_g = snapshot(agent)
+    restore(agent, saved)
+    agent.generator.set_state(gens[0])
+    buf.generator.set_state(gens[1])
+    batch = buf.sample_many(n)
+    for i in range(n):
+        info_e = agent._update(agent.state, *[x[i] for x in batch[:4]],
+                               agent.draw_update_noise(), *[x[i] for x in batch[4:]])
+    agent._prep = None
+    same_bits(f'update_many({n}): info', info_g, info_e)
+    same_bits(f'update_many({n}): train state', after_g, snapshot(agent))
+    log(f'  update_many({n}): {n} graph replays equal {n} eager steps bit for bit')
+
+
+def hold_schedules(agent, buf, obs, t0, n):
+    """`vec_step`, and `act_collect` + `update_many_fused`, against `act` +
+    `update_many` from the same state and generators: actions, info, the
+    train state and the warm starts bit for bit."""
+    start = snapshot(agent, warm=True)
+    gens = (agent.generator.get_state(), buf.generator.get_state())
+    runs = {}
+    for name in ('act + update_many', 'vec_step', 'act_collect + update_many_fused'):
+        restore(agent, start, warm=True)
+        agent.generator.set_state(gens[0])
+        buf.generator.set_state(gens[1])
+        if name == 'vec_step':
+            a, info = agent.vec_step(buf, obs, t0, n)
+        elif name == 'act + update_many':
+            a = agent.act(obs, t0=t0)
+            info = agent.update_many(buf, n)
+        else:
+            a = agent.act_collect(obs, t0)
+            info = agent.update_many_fused(buf, n)
+        runs[name] = (a, clone_info(info), snapshot(agent, warm=True))
+    import torch
+    a0, i0, s0 = runs['act + update_many']
+    for name, (a, info, st) in runs.items():
+        same_bits(f'{name}: actions', [torch.from_numpy(a)], [torch.from_numpy(a0)])
+        same_bits(f'{name}: info', info, i0)
+        same_bits(f'{name}: train state and warm starts', st, s0)
+    log(f'  N={len(obs)}: vec_step, and act_collect + update_many_fused({n}), equal act + '
+        f'update_many({n}) bit for bit (actions, info, train state, warm starts)')
+
+
 def hold_update(agent, batch):
-    """One update of `agent` on the card against the same update of a copy
-    of its state on the CPU, on `batch` with the same draws: every info
-    value, the parameters, target heads and Adam states at UPDATE_TOL."""
+    """One update of `agent` on the card, a replay of its update graph,
+    against the same update of a copy of its state on the CPU, on `batch`
+    with the same draws: every info value, the parameters, target heads and
+    Adam states at UPDATE_TOL."""
     from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
     from tdmpc2_tpu_torch.utils import tree
+    from tdmpc2_tpu_torch.utils.cuda_graph import Graph
+    with_update_graph(agent, batch)
     cpu_agent = TDMPC2(agent.cfg, device='cpu')
     cpu_agent.state = agent.state.to('cpu')
     u_noise = agent.draw_update_noise()
     cpu_batch = [x.cpu() for x in batch]
     cpu_noise = type(u_noise)(**{
         k: (None if v is None else v.cpu()) for k, v in vars(u_noise).items()})
-    info_k = agent._update(agent.state, *batch, u_noise)
-    info_c = cpu_agent._update(cpu_agent.state, *cpu_batch, cpu_noise)
+    replays = Graph.replays.get('update', 0)
+    info_k = agent._step(batch, u_noise)
+    if Graph.replays['update'] != replays + 1:
+        raise AssertionError('update: not a replay of the update graph')
+    info_c = cpu_agent._update(cpu_agent.state, *cpu_batch[:4], cpu_noise,
+                               *cpu_batch[4:])
     if set(info_k) != set(info_c):
         raise AssertionError('update: the info keys differ')
     for k in sorted(info_c):
@@ -3485,7 +3718,7 @@ def hold_update(agent, batch):
         if bad:
             raise AssertionError(f'update: {name} outside {UPDATE_TOL}')
     agent._prep = None
-    return info_k
+    return clone_info(info_k)
 
 
 def main() -> int:
@@ -4014,15 +4247,24 @@ def main() -> int:
 
     # the training paths, as `python -m tdmpc2_tpu_torch.train` runs them: a
     # fresh process has no canary verdict yet, so agent construction runs it
-    update_step = TDMPC2._update
+    update_step = TDMPC2._step
     orig_evals = {c: c.eval for c in (OnlineTrainer, VecOnlineTrainer)}
     orig_add = Buffer.add
 
-    def train_path(name, extra):
+    def train_path(name, extra, schedule=()):
         """Run `train` with the counts zeroed just before; returns (trainer,
         launches, seconds, eval results, lengths of the episodes flushed to
-        the buffer) and logs the [total, pi, termination] losses."""
+        the buffer) and logs the [total, pi, termination] losses. Each of
+        the agent's calls in `schedule` must have been made."""
         losses, evals, lengths = [], [], []
+        calls = {k: 0 for k in schedule}
+        orig_calls = {k: getattr(TDMPC2, k) for k in schedule}
+
+        def counted(k):
+            def run(self, *args, **kw):
+                calls[k] += 1
+                return orig_calls[k](self, *args, **kw)
+            return run
 
         def recording_update(self, *args):
             info = update_step(self, *args)
@@ -4039,10 +4281,12 @@ def main() -> int:
                 evals.append(orig_evals[cls](self))
                 return evals[-1]
             return run
-        TDMPC2._update = recording_update
+        TDMPC2._step = recording_update
         Buffer.add = recording_add
         for c in orig_evals:
             c.eval = recording_eval(c)
+        for k in schedule:
+            setattr(TDMPC2, k, counted(k))
         try:
             probe._verdict = None       # as in a fresh process
             zero_counts()
@@ -4056,11 +4300,17 @@ def main() -> int:
             secs = time.perf_counter() - t0
             counts = read_counts()
         finally:
-            TDMPC2._update = update_step
+            TDMPC2._step = update_step
             Buffer.add = orig_add
             for c, f in orig_evals.items():
                 c.eval = f
+            for k, f in orig_calls.items():
+                setattr(TDMPC2, k, f)
         losses = torch.stack(losses)
+        if schedule:
+            log(f'  the collection schedule\'s calls: {calls}')
+            if not all(calls.values()):
+                raise AssertionError(f'{name}: the schedule\'s calls {calls}')
         log(f'  {tr._step} env steps, {len(losses)} updates in {secs:.1f} s '
             f'({tr._step / secs:.1f} env-steps/s over the whole run); '
             f'launches {counts}; canary child {probe.verdict()["seconds"]:.2f} s')
@@ -4070,7 +4320,9 @@ def main() -> int:
             f'mean eval episode length {[e["episode_length"] for e in evals]}')
         if not bool(torch.isfinite(losses).all()):
             raise AssertionError(f'{name}: non-finite loss')
-        # the seed_steps burst at step seed_steps, then one per later env step
+        # the seed_steps burst at step seed_steps, then one per later env step,
+        # each a replay of the update graph but the capture's eager warm-up
+        check_update_counts(name, counts, len(losses))
         if len(losses) != TRAIN_STEPS:
             raise AssertionError(f'{name}: {len(losses)} updates')
         for k in planner + ('probe',):
@@ -4101,7 +4353,7 @@ def main() -> int:
     with Phase(f'main path (vectorised): train toy-reach num_envs={NE}, 5M '
                f'model, {TRAIN_STEPS} env steps'):
         vtrainer, vec_launches, vec_s, vec_evals, _, _ = train_path(
-            'vec', [f'num_envs={NE}', *snap])
+            'vec', [f'num_envs={NE}', *snap], ('act_collect', 'update_many_fused'))
         if not isinstance(vtrainer, VecOnlineTrainer) or vtrainer._n != NE:
             raise AssertionError('vec path: not the vectorised trainer')
         if len(vec_evals) < 2:
@@ -4113,10 +4365,13 @@ def main() -> int:
             'episodic_one_env', EP_ARGS)
         check_episodic('episodic one env', ep_lengths + [
             round(e['episode_length']) for e in ep_evals], ep_losses)
-    with Phase(f'path: train {EP_TASK} episodic=true num_envs={NE}, 5M model, '
-               f'{TRAIN_STEPS} env steps'):
+    # this path takes the one-call schedule (vec_step), the other vectorised
+    # paths the pipelined one (act_collect, update_many_fused)
+    with Phase(f'path: train {EP_TASK} episodic=true num_envs={NE} overlap_update=false, '
+               f'5M model, {TRAIN_STEPS} env steps'):
         vep_trainer, vep_launches, _, vep_evals, vep_lengths, vep_losses = train_path(
-            'episodic_vec', EP_ARGS + [f'num_envs={NE}', 'save_agent=true'])
+            'episodic_vec', EP_ARGS + [f'num_envs={NE}', 'save_agent=true',
+                                       'overlap_update=false'], ('vec_step',))
         check_episodic(f'episodic num_envs={NE}', vep_lengths + [
             round(e['episode_length']) for e in vep_evals], vep_losses)
 
@@ -4153,6 +4408,20 @@ def main() -> int:
         info = hold_update(ep_trainer.agent, batch)
         if not float(info['termination_loss']) > 0:
             raise AssertionError('episodic update: the termination loss is zero')
+
+    update_records = {}
+    with Phase('the update graph vs its eager body, bit for bit: 5M state (toy-reach) and '
+               f'{EP_TASK}; update_many({NE}) vs {NE} eager steps'):
+        hold_update_graph('5M state', t_agent, buffer.sample())
+        e_batch = list(ep_trainer.buffer.sample())
+        e_batch[3] = (torch.rand(e_batch[3].shape, device=dev, generator=g) < 0.2).float()
+        hold_update_graph('5M episodic', ep_trainer.agent, e_batch)
+        hold_update_many(t_agent, buffer, NE)
+    with Phase('the update: eager body vs graph (CUDA events, torch.profiler), capture'):
+        update_records['5M state'] = update_record('5M state', t_agent, buffer.sample(),
+                                                   buffer)
+        update_records['5M episodic'] = update_record('5M episodic', ep_trainer.agent,
+                                                      e_batch, ep_trainer.buffer)
 
     with Phase('training path timing (update steps/s, env-steps/s)'):
         B = trainer.cfg.batch_size
@@ -4199,6 +4468,21 @@ def main() -> int:
             for t, n, k in top:
                 log(f'    {t:.3f} ms in {n:.0f} x {k[:90]}')
 
+    with Phase('profile_dir: the one-env trainer\'s trace of ten updates'), \
+            tempfile.TemporaryDirectory() as prof_dir:
+        trainer.cfg.profile_dir = prof_dir
+        replays = Graph.replays['update']
+        trainer._profile_updates(10)
+        trainer.cfg.profile_dir = None
+        trace = Path(prof_dir) / 'updates.trace.json'
+        with open(trace) as f:
+            events = json.load(f)['traceEvents']
+        if Graph.replays['update'] != replays + 10 or not events:
+            raise AssertionError(f'profile_dir: {Graph.replays["update"] - replays} '
+                                 f'replays, {len(events)} trace events')
+        log(f'  {trace.name}: {trace.stat().st_size / 1e6:.1f} MB, {len(events)} events, '
+            'ten update graph replays')
+
     with Phase(f'vec path timing (plans/s of batched act at N=1, 8, 16; '
                f'env-steps/s of the N={NE} training loop)'):
         v_agent, v_buf, v_env = vtrainer.agent, vtrainer.buffer, vtrainer.env
@@ -4237,10 +4521,12 @@ def main() -> int:
                 f'device busy {busy} ms (idle share '
                 f'{"not measured" if busy is None else f"{100 * (1 - busy / ms):.1f}%"})')
 
-        def vec_loop(steps, wait_for_update):
-            """The trainer's vector step (act, the queued update_many,
-            env.step); with wait_for_update the host waits for the updates
-            before stepping the envs."""
+        def vec_loop(steps, schedule):
+            """The trainer's vector step under `schedule`: 'pipelined'
+            (act_collect, update_many_fused queued, env.step; the default),
+            'one call' (vec_step, env.step; overlap_update=false), 'unfused'
+            (act, update_many, env.step; fused_step=false), or 'waited'
+            (act, update_many, the host waiting for the updates)."""
             o = v_env.reset()
             t_in = np.zeros(NE, np.int64)
             ph = dict(act=0.0, update=0.0, env=0.0)
@@ -4248,10 +4534,18 @@ def main() -> int:
             t_all = time.perf_counter()
             for _ in range(steps):
                 t1 = time.perf_counter()
-                a = v_agent.act(o, t0=t_in == 0)
-                t2 = time.perf_counter()
-                v_agent.update_many(v_buf, NE)
-                if wait_for_update:
+                if schedule == 'one call':
+                    a, _ = v_agent.vec_step(v_buf, o, t_in == 0, NE)
+                    t2 = time.perf_counter()
+                elif schedule == 'pipelined':
+                    a = v_agent.act_collect(o, t_in == 0)
+                    t2 = time.perf_counter()
+                    v_agent.update_many_fused(v_buf, NE)
+                else:
+                    a = v_agent.act(o, t0=t_in == 0)
+                    t2 = time.perf_counter()
+                    v_agent.update_many(v_buf, NE)
+                if schedule == 'waited':
                     torch.cuda.synchronize()
                 t3 = time.perf_counter()
                 o, _, dones, _ = v_env.step(a)
@@ -4265,17 +4559,22 @@ def main() -> int:
                 ph['env'] += t4 - t3
             torch.cuda.synchronize()
             total = time.perf_counter() - t_all
-            log(f'  N={NE} loop, {"update waited for" if wait_for_update else "pipelined"}: '
+            log(f'  N={NE} loop, {schedule}: '
                 f'{NE * steps / total:.2f} env-steps/s, {1e3 * total / steps:.1f} ms '
                 'per vector step; ' + ', '.join(
                     f'{k} {1e3 * v / steps:.1f} ms ({100 * v / total:.1f}%)'
                     for k, v in ph.items()) + ' (host clock)')
             return total / steps
-        vec_loop(2, False)                           # warm-up
-        t_pipe = vec_loop(12, False)
-        t_wait = vec_loop(12, True)
-        log(f'  pipelining saved {1e3 * (t_wait - t_pipe):.1f} ms per vector step '
-            f'({100 * (t_wait - t_pipe) / t_wait:.1f}%)')
+        hold_schedules(v_agent, v_buf, obs16[:NE], np.arange(NE) % 3 == 0, NE)
+        schedules, loops = ('pipelined', 'one call', 'unfused', 'waited'), {}
+        for schedule in schedules:
+            vec_loop(2, schedule)                    # warm-up
+        for _ in range(2):                           # in turns, two readings each
+            for schedule in schedules:
+                t = vec_loop(12, schedule)
+                loops[schedule] = min(loops.get(schedule, t), t)
+        log(f'  N={NE} env-steps/s by schedule (the better of two readings): ' + ', '.join(
+            f'{k} {NE / v:.2f}' for k, v in loops.items()))
         um_ms = time_ms(lambda: v_agent.update_many(v_buf, NE), 5)
         # the same NE updates one call each, on both trained agents, in turns
         for label, ag, buf in (('vec agent', v_agent, v_buf),
@@ -4295,7 +4594,7 @@ def main() -> int:
                 f'{100 * (1 - busy / um_ms):.1f}%), {n_dev:.0f} device activities'))
 
     mt_errs, mt_paths, mt_rows = multitask_phases(zero_counts, read_counts,
-                                                  check_plan_counts)
+                                                  check_plan_counts, update_records)
     with Phase('the wide engine\'s product alone (wgmma on a TMA ring) against the plain '
                'product and torch.matmul, at the 317M model\'s shapes and the 5M rollout\'s'):
         prod_records, prod_err = product_phase()
@@ -4312,10 +4611,12 @@ def main() -> int:
         log(f'  largest share of a tolerance used: {row_err[0]:.3f}, max |err| {row_err[1]:.3g}')
     with Phase('the wide engine\'s staging alone against stage_plain, in each launch\'s mode'):
         stage_records = stage_phase()
-    w_errs, w_paths, w_rows = wide_phases(zero_counts, read_counts, check_plan_counts)
+    w_errs, w_paths, w_rows = wide_phases(zero_counts, read_counts, check_plan_counts,
+                                          update_records)
     ckpt_errs, ckpt_paths, ckpt_read_s = checkpoint_phases(
         zero_counts, read_counts, check_plan_counts, hold_update)
-    pix_errs, pix_paths, _ = pixel_phases(zero_counts, read_counts, check_plan_counts)
+    pix_errs, pix_paths, _ = pixel_phases(zero_counts, read_counts, check_plan_counts,
+                                          update_records)
     for k, e in pix_errs.items():
         ckpt_errs.setdefault(k, {})[f'{PIXEL_CKPT[0]}-rgb'] = e
 
@@ -4537,6 +4838,7 @@ def main() -> int:
                 f'{plan_plain_ms:.3f} ms')
 
     log(f'  seconds to read each committed checkpoint on this machine: {ckpt_read_s}')
+    log(json.dumps({'update_graph': update_records}))
     log(f'[done] {time.perf_counter() - t_start:.1f} s')
     log(smi)
     log(json.dumps({'kernels': kernels}))

@@ -4,9 +4,12 @@ A copy of the reference-facing part of ``tdmpc2_tpu/config.py``: the same
 ``Config`` field names and defaults (reference tdmpc2/config.yaml), the same
 ``MODEL_SIZE`` table and the same ``key=value`` override parser, so a recipe
 that runs the JAX package runs the port unchanged. Fields that only steer
-the JAX runtime (mesh, platform, Pallas gates, fused dispatches) are left
-out. One field is added: ``device``, where the port runs (``cuda`` unless the
-caller asks for ``cpu``). The multi-task sets (``mt30``, ``mt80``: the
+the JAX runtime (mesh, platform, Pallas gates) are left out, and
+``profiler_port`` (a jax.profiler trace server) is refused with its reason;
+the collection schedules' keys (``fused_step``, ``overlap_update``,
+``update_chunk``, ``buffer_device``) and ``profile_dir`` are the JAX
+package's, with its defaults. One field is added: ``device``, where the
+port runs (``cuda`` unless the caller asks for ``cpu``). The multi-task sets (``mt30``, ``mt80``: the
 order of a set is the task embedding's index) and the ``task_dim`` rule
 are the JAX package's.
 
@@ -151,6 +154,23 @@ class Config:
     buffer_snapshot_eps: int = 0
     # parallel env copies for vectorised collection (trainer/vec_online.py)
     num_envs: int = 1
+    # cap on updates an `update_many` / `update_many_fused` call samples at
+    # once (JAX config.py:162-172): each sampled batch is held on the device
+    # until its update. 0 = auto, free device memory over one batch's bytes
+    # (TDMPC2._auto_update_chunk); > 0 overrides it. A capped call draws its
+    # batches one sample_many(chunk) at a time.
+    update_chunk: int = 0
+    # the vectorised trainer's collection schedule after the seed burst (JAX
+    # config.py:200-216): fused_step takes the fused calls, act_collect and
+    # update_many_fused with overlap_update (the updates queued on the card
+    # before the envs step), or vec_step without it (the plan, the updates,
+    # then one fetch of the actions); false takes act and update_many. On
+    # the same draws all three give the same numbers.
+    fused_step: bool = True
+    overlap_update: bool = True
+    # replay ring placement (JAX config.py:217-219): 'auto' (the 2.5x-bytes
+    # rule), 'device' or 'host' (data/buffer.py)
+    buffer_device: str = 'auto'
     seeds: Any = None
     # continue from work_dir/models: 'latest.pkl' online, the newest
     # iteration checkpoint offline
@@ -158,6 +178,9 @@ class Config:
 
     # where the port runs: 'cuda' (the default) or 'cpu' (tests)
     device: str = 'cuda'
+    # write a torch.profiler trace of ten updates after the warm-up here
+    # (the one-env trainer; JAX config.py:225-226, trainer/online.py:203-210)
+    profile_dir: Optional[str] = None
 
     # logging
     save_csv: bool = True
@@ -258,6 +281,14 @@ def parse_cfg(cfg: Config) -> Config:
     return cfg
 
 
+# JAX config keys the port refuses, with the reason
+REFUSED_KEYS = {
+    'profiler_port': 'profiler_port starts a jax.profiler trace server, which '
+                     'torch has no counterpart of; set profile_dir for a '
+                     'torch.profiler trace of ten updates instead',
+}
+
+
 def load_cfg(yaml_path: Optional[str] = None, overrides=()) -> Config:
     """Build a Config from an optional YAML file + CLI overrides, then parse."""
     cfg = Config()
@@ -269,6 +300,10 @@ def load_cfg(yaml_path: Optional[str] = None, overrides=()) -> Config:
     values.update(parse_overrides(list(overrides)))
     known = {f.name for f in dataclasses.fields(Config)}
     for k, v in values.items():
+        if k in REFUSED_KEYS:
+            if v is not None:       # None is the JAX default: nothing asked
+                raise ValueError(REFUSED_KEYS[k])
+            continue
         if k not in known:
             raise ValueError(f'Unknown config key: {k}')
         setattr(cfg, k, v)

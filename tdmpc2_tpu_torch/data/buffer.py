@@ -6,9 +6,16 @@ pixel observations, single- and multi-task).
   leading bootstrap row, whose action, reward and terminated are NaN
   (online_trainer.py:54-72). Sampled slices never read that row's action
   or reward: they take the actions and rewards one row after the start.
-- The ring lives on the device when 2.5x its bytes fit in the card's free
-  memory (the reference's heuristic, buffer.py:62); otherwise in host RAM,
-  and each sampled batch is gathered there and copied to the device once.
+- Where the ring lives is `cfg.buffer_device` (JAX buffer.py:146-193):
+  'device' puts it on the agent's device, 'host' in host RAM, and 'auto'
+  (the default) on the device when 2.5x its bytes fit in the card's free
+  memory (the reference's heuristic, buffer.py:62), where a card that
+  refuses the allocation sends it to the host instead; without a card
+  (the CPU) 'auto' is 'device', as the JAX buffer's trial allocation
+  decides on a backend that reports no free memory. A ring in host RAM is
+  gathered there, and each sampled batch is copied to the device once.
+  `sample_batch_bytes` and `device_ring_bytes` feed the agent's cap on
+  updates a call (`TDMPC2._update_chunk`).
 - `sample` draws (episode, start) pairs with `draw_slice_indices` from the
   buffer's own `torch.Generator` and returns the update's layout
   (obs [H+1, B, ...], action [H, B, A], reward and terminated [H, B, 1]).
@@ -46,6 +53,17 @@ import torch
 
 from tdmpc2_tpu_torch.utils.seed import restore_generator
 
+BUFFER_DEVICES = ('auto', 'device', 'host')
+
+
+def device_free_bytes(device):
+    """Free memory of `device` in bytes (`torch.cuda.mem_get_info`), None
+    for a device that does not report it (the CPU)."""
+    device = torch.device(device)
+    if device.type != 'cuda':
+        return None
+    return torch.cuda.mem_get_info(device)[0]
+
 
 def draw_slice_indices(generator, ep_rows, n_filled: int, nb: int,
                        horizon: int, capacity_eps: int):
@@ -78,6 +96,11 @@ class Buffer:
     def __init__(self, cfg, device=None):
         self.cfg = cfg
         self.device = torch.device(device or cfg.device)
+        self._placement = str(cfg.get('buffer_device') or 'auto')
+        if self._placement not in BUFFER_DEVICES:
+            raise ValueError(f'buffer_device={self._placement!r}: one of '
+                             f'{BUFFER_DEVICES}')
+        self._on_device = None
         self._capacity = int(min(cfg.buffer_size, cfg.steps))
         self._rows = int(cfg.episode_length) + 1
         self._capacity_eps = max(1, self._capacity // int(cfg.episode_length))
@@ -97,6 +120,35 @@ class Buffer:
     @property
     def capacity(self) -> int:
         return self._capacity
+
+    @property
+    def on_device(self) -> bool:
+        """Whether the ring lives on the agent's device (False before the
+        first write), the condition of the agent's fused schedules."""
+        return bool(self._on_device)
+
+    def device_ring_bytes(self) -> int:
+        """Bytes the ring holds on the device: 0 in host RAM or before the
+        first write (JAX buffer.py:105-111)."""
+        if not self._on_device or self._storage is None:
+            return 0
+        return sum(v.numel() * v.element_size() for v in self._storage.values())
+
+    def sample_batch_bytes(self):
+        """Bytes of one sampled batch as the update takes it in, or None
+        before the first write (JAX buffer.py:113-125): every field in f32,
+        pixel stacks frame_stack x the stored frame, since the encoder casts
+        them to f32."""
+        if self._storage is None:
+            return None
+        T, B = self._horizon, self._batch_size
+        total = 0
+        for k, v in self._storage.items():
+            n_feat = int(np.prod(v.shape[2:])) if v.ndim > 2 else 1
+            if k == 'obs':
+                n_feat *= self._frame_stack
+            total += (T + 1 if k == 'obs' else T) * B * n_feat * 4
+        return total
 
     @property
     def generator(self):
@@ -130,22 +182,38 @@ class Buffer:
     def _init_storage(self, ep: dict, has_task: bool = False):
         """Allocate the ring, sized by the first episode (reference
         buffer.py:50-67; pixel frames already unstacked, so the placement
-        rule counts the uint8 frames it stores), and the per-episode task
-        store when the data carries tasks."""
+        rule counts the uint8 frames it stores), where `buffer_device` puts
+        it (JAX buffer.py:140-193), and the per-episode task store when the
+        data carries tasks."""
         total = self._rows * self._capacity_eps * sum(
             v[0].nbytes for v in ep.values())
-        store = self.device
-        if store.type == 'cuda':
-            free, _ = torch.cuda.mem_get_info(store)
-            if not 2.5 * total < free:
-                store = torch.device('cpu')
+        free = device_free_bytes(self.device)
+        if self._placement == 'auto':
+            self._on_device = free is None or 2.5 * total < free
+        else:
+            self._on_device = self._placement == 'device'
+
+        def alloc(store):
+            return {k: torch.zeros((self._capacity_eps, self._rows) + v.shape[1:],
+                                   dtype=torch.from_numpy(v).dtype, device=store)
+                    for k, v in ep.items()}
+        storage = None
+        if self._on_device:
+            try:
+                storage = alloc(self.device)
+            except torch.cuda.OutOfMemoryError as e:
+                if self._placement == 'device':
+                    raise
+                print(f'Device buffer allocation failed ({e}); the ring goes '
+                      'to host RAM')
+                self._on_device = False
+        store = self.device if self._on_device else torch.device('cpu')
+        self._storage = storage if storage is not None else alloc(store)
         print(f'Buffer capacity: {self._capacity:,} '
               f'({self._capacity_eps:,} episodes x {self._rows} rows); '
-              f'storage {total / 1e9:.3f} GB on {store}')
-        self._storage = {
-            k: torch.zeros((self._capacity_eps, self._rows) + v.shape[1:],
-                           dtype=torch.from_numpy(v).dtype, device=store)
-            for k, v in ep.items()}
+              f'storage {total / 1e9:.3f} GB on {store} (buffer_device='
+              f'{self._placement}, free device memory '
+              f'{"n/a" if free is None else f"{free / 1e9:.2f} GB"})')
         self._ep_rows = torch.zeros(self._capacity_eps, dtype=torch.long,
                                     device=store)
         if has_task:

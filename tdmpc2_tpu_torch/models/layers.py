@@ -212,16 +212,18 @@ def conv_encoder_init(gen, in_ch: int, num_channels: int):
 
 @contextmanager
 def f32_convs():
-    """cuDNN's convolutions in f32 inside the block (TF32 off), the
-    previous setting restored after it: the card then holds the CPU at
-    1e-4. Nothing else changes."""
+    """cuDNN's convolutions in f32 inside the block (TF32 off), the card
+    then holding the CPU at 1e-4, and by deterministic algorithms, so that
+    an update's weight gradients have the same bits in every run and in
+    its graph's replays; the previous settings restored after it. Nothing
+    else changes."""
     cudnn = torch.backends.cudnn
-    prev = cudnn.allow_tf32
-    cudnn.allow_tf32 = False
+    prev = cudnn.allow_tf32, cudnn.deterministic
+    cudnn.allow_tf32, cudnn.deterministic = False, True
     try:
         yield
     finally:
-        cudnn.allow_tf32 = prev
+        cudnn.allow_tf32, cudnn.deterministic = prev
 
 
 def conv_encoder_apply(params, x, simnorm_dim: int, shifts=None):

@@ -48,9 +48,20 @@ Adam step, the policy loss with the running Q scale on the updated
 weights, the policy's Adam step and the Polyak update of the target Q
 heads, and on episodic tasks the termination loss. It is plain autograd,
 as it is plain XLA in the JAX package. The step updates the train state in
-place and keeps its info on the device.
-`update_many` takes n such steps on n batches drawn at once
-(`Buffer.sample_many`), the vectorised trainer's schedule.
+place and keeps its info on the device. On the card a step is one replay
+of a CUDA graph of the whole of `_update` (both `autograd.grad` calls, the
+clips, both Adam steps, the scale and Polyak), as the JAX agent's step is
+one jitted program (`_update_jit`, tdmpc2.py:160): the batch and the draws
+are copied into its inputs, which stay where they are; the first step of a
+train state runs eagerly as the capture's warm-up and then captures. A
+failed capture or replay raises. On the CPU the same `_update` runs
+eagerly. `update_many` takes n such steps on n batches drawn at once
+(`Buffer.sample_many`; JAX `_update_scan_jit`), at most `update_chunk` a
+draw. The vectorised trainer's fused schedules are `act_collect` with
+`update_many_fused` (the updates queued on the card while the host steps
+the envs) and `vec_step` (the plan, the updates, then one fetch of the
+actions), each equal to `act` then `update_many` on the same draws (JAX
+tdmpc2.py:774-901).
 
 All noise is data. `draw_noise` and `draw_update_noise` draw it from the
 agent's explicit `torch.Generator` on the device; `plan_vec` takes a
@@ -70,6 +81,7 @@ import numpy as np
 import torch
 
 from tdmpc2_tpu_torch import interop
+from tdmpc2_tpu_torch.data.buffer import device_free_bytes
 from tdmpc2_tpu_torch.models import layers
 from tdmpc2_tpu_torch.models.world_model import WorldModel
 from tdmpc2_tpu_torch.ops import cem, math, optim, probe, wide
@@ -207,6 +219,7 @@ class TDMPC2:
         self.dot_dtype = (torch.bfloat16 if self.device.type == 'cuda'
                           else torch.float32)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self._auto_chunk_cache = None    # (ring, its auto update-chunk cap)
         self.load_params(self.model.init(
             torch.Generator().manual_seed(cfg.seed)))
 
@@ -285,7 +298,9 @@ class TDMPC2:
         if bound is not None and bound[0] is not st.params:
             self._graphs, self._prep = {}, None
         elif bound is not None and bound[1] is not st.prev_mean:
-            self._graphs = {k: g for k, g in self._graphs.items() if k == 'prep'}
+            # the update graph reads no warm start either
+            self._graphs = {k: g for k, g in self._graphs.items()
+                            if k in ('prep', 'update')}
         self._bound = (st.params, st.prev_mean)
 
     def _arch_meta(self) -> dict:
@@ -714,28 +729,153 @@ class TDMPC2:
 
     def update(self, buffer) -> dict:
         """One learning step on a batch from `buffer` (reference
-        tdmpc2.py:334-349); returns the step's info as device tensors."""
-        batch = buffer.sample()
-        info = self._update(self.state, *batch[:4], self.draw_update_noise(),
-                            *batch[4:])
+        tdmpc2.py:334-349); returns the step's info as device tensors (on
+        the card the update graph's outputs, which its next replay
+        overwrites)."""
+        return self._updates(buffer, 1)
+
+    def _updates(self, buffer, n: int) -> dict:
+        """n steps on one `sample`/`sample_many(n)` draw; the last info."""
+        if n == 1:
+            info = self._step(buffer.sample())
+        else:
+            batch = buffer.sample_many(n)
+            for i in range(n):
+                info = self._step(tuple(x[i] for x in batch))
         self._prep = None
         return info
+
+    def _step(self, batch, noise: Optional[UpdateNoise] = None) -> dict:
+        """One training step on `batch` (the buffer's layout; a multi-task
+        batch ends with its tasks) with `noise`, by default the agent's
+        next draws. On the CPU the eager `_update`. On the card one replay
+        of the update's CUDA graph (JAX `_update_jit`): the batch and the
+        draws are copied into its inputs first; the first step of a train
+        state captures it, and the eager run before that capture is this
+        step. Each graph is bound to the state's parameter, target, Adam
+        and scale tensors, which the step writes in place; another state
+        captures anew."""
+        if noise is None:
+            noise = self.draw_update_noise()
+        st = self.state
+        if self.device.type != 'cuda':
+            return self._update(st, *batch[:4], noise, *batch[4:])
+        bound = (st.params, st.target_Qs, st.opt_state, st.pi_opt_state,
+                 st.scale)
+        entry = self._graphs.get('update')
+        if entry is not None and all(a is b for a, b in zip(entry[2], bound)):
+            graph, ins = entry[:2]
+        else:
+            graph, ins = None, (
+                tuple(torch.empty_like(x) for x in batch),
+                UpdateNoise(**{k: None if v is None else torch.empty_like(v)
+                               for k, v in vars(noise).items()}))
+        for x, y in zip(ins[0], batch):
+            x.copy_(y)
+        for k, v in vars(noise).items():
+            if v is not None:
+                getattr(ins[1], k).copy_(v)
+        if graph is not None:
+            return graph.replay()
+        b, nz = ins
+        graph = Graph(lambda: self._update(st, *b[:4], nz, *b[4:]), (),
+                      self.device, 'update')
+        self._graphs['update'] = (graph, ins, bound)
+        return graph.first
+
+    # the update-chunk cap's memory model (JAX tdmpc2.py:703-745): the card's
+    # free memory when it reports it; otherwise (the CPU) an H100's 80 GB
+    # less the device ring and the train state. The reserve keeps room for
+    # all but the sampled batches: the graphs' pools (the 317M update's is
+    # logged by chip_smoke.py), the planner's scratch, fragmentation.
+    _MEM_FALLBACK_BYTES = 80_000_000_000
+    _MEM_RESERVE_BYTES = 8_000_000_000
+
+    def _auto_update_chunk(self, buffer) -> int:
+        """Updates whose sampled batches fit beside the rest (JAX
+        tdmpc2.py:711-729): (free bytes - the reserve) // one batch's
+        bytes, at least 1; 0 (no cap) while the batch bytes are unknown."""
+        bb = buffer.sample_batch_bytes()
+        if not bb:
+            return 0
+        free = device_free_bytes(self.device)
+        if free is None:
+            state_bytes = sum(x.numel() * x.element_size() for x in tree.leaves(
+                [self.state.params, self.state.target_Qs, self.state.opt_state,
+                 self.state.pi_opt_state, self.state.scale,
+                 self.state.prev_mean]))
+            free = (self._MEM_FALLBACK_BYTES - buffer.device_ring_bytes()
+                    - state_bytes)
+        return max(1, int((free - self._MEM_RESERVE_BYTES) // bb))
+
+    def _update_chunk(self, buffer) -> int:
+        """cfg.update_chunk where it is > 0; 0 means the auto cap, taken once
+        per ring (its geometry is fixed once it exists; JAX
+        tdmpc2.py:731-745)."""
+        chunk = self.cfg.get('update_chunk', 0)
+        if chunk:
+            return chunk
+        storage = buffer._storage
+        if storage is None:
+            return 0
+        cached = self._auto_chunk_cache
+        if cached is None or cached[0] is not storage:
+            cached = self._auto_chunk_cache = (
+                storage, self._auto_update_chunk(buffer))
+        return cached[1]
 
     def update_many(self, buffer, n: int) -> dict:
         """`n` learning steps on `n` batches drawn at once
         (`Buffer.sample_many`, JAX tdmpc2.py:747-772); returns the last
         step's info. On the same n batches and draws this is n sequential
-        `update`s. A multi-task buffer's batches carry their tasks; the
-        JAX agent's fused schedules leave multi-task out
-        (tdmpc2.py:795, 841, 876), and so this is its schedule there too."""
-        if n == 1:
-            return self.update(buffer)
-        batch = buffer.sample_many(n)
-        info = self._update_scan(
-            self.state, *batch[:4],
-            (self.draw_update_noise() for _ in range(n)), *batch[4:])
-        self._prep = None
-        return info
+        `update`s: on the card n replays of the update's graph, each after
+        its batch and draws are copied in. More than the update-chunk cap
+        runs as ceil(n / chunk) such calls, each with its own draw."""
+        chunk = self._update_chunk(buffer)
+        if chunk and n > chunk:
+            info = None
+            for m in range(0, n, chunk):
+                info = self.update_many(buffer, min(chunk, n - m))
+            return info
+        return self._updates(buffer, n)
+
+    def update_many_fused(self, buffer, n: int) -> dict:
+        """The pipelined schedule's updates (JAX tdmpc2.py:859-901). This is
+        `update_many`, which already queues its graph replays with no host
+        sync when the ring is on the card, so that they run while the host
+        steps the envs. Where the JAX agent falls back to `update_many` (a
+        ring in host RAM, whose batch copies the host waits for, or a
+        multi-task model), so does this."""
+        return self.update_many(buffer, n)
+
+    def act_collect(self, obs, t0):
+        """Training-time batched act (JAX tdmpc2.py:834-857), which the JAX
+        agent compiles with the weight prep inside: here `act(obs, t0=t0)`,
+        already the prep graph's and the plan graph's replays back to back
+        and one fetch of the actions."""
+        return self.act(obs, t0=t0)
+
+    @torch.no_grad()
+    def _plan_collect(self, obs, t0):
+        """The training plan for n envs' observations, left on the device."""
+        obs = torch.from_numpy(self._obs_array(obs))
+        t0 = np.broadcast_to(np.asarray(t0, bool).reshape(-1), (obs.shape[0],))
+        return self.plan_vec(obs, t0)[0]
+
+    def vec_step(self, buffer, obs, t0, n_updates: int):
+        """The one-call collection step (JAX tdmpc2.py:774-832): the plan's
+        replay for every env, then `n_updates` update replays on one
+        `sample_many` draw, then one fetch of the actions, which were
+        planned with the weights before the updates. Equal to
+        `act(obs, t0=t0)` then `update_many(buffer, n_updates)` on the same
+        draws, which is what a pi-only or multi-task agent, or a ring in host
+        RAM, takes instead. Returns (actions [n, A] numpy, the last info)."""
+        if not self.cfg.mpc or self.cfg.multitask or not buffer.on_device:
+            a = self.act(obs, t0=t0)
+            return a, self.update_many(buffer, n_updates)
+        a = self._plan_collect(obs, t0)
+        info = self._updates(buffer, n_updates)
+        return a.cpu().numpy(), info
 
     def _update_scan(self, state: TrainState, obs, action, reward,
                      terminated, noises, task=None) -> dict:
@@ -838,7 +978,7 @@ class TDMPC2:
 
         # -- Polyak target update (reference tdmpc2.py:316)
         optim.polyak_(state.target_Qs, state.params['Qs'], cfg.tau)
-        state.scale = new_scale
+        state.scale.copy_(new_scale)    # in place: an update graph reads it
         out = {
             'consistency_loss': consistency.detach(),
             'reward_loss': reward_loss.detach(),

@@ -13,7 +13,8 @@ saves a checkpoint.
   buffer is sized to an npz dataset from the chunks' headers
   (`Buffer.reserve`) and filled chunk by chunk (`Buffer.load`).
 - Iterations run in chunks of `update_many` (8 at most), cut so that the
-  log, eval and checkpoint boundaries fall on their exact iteration.
+  log, eval and checkpoint boundaries fall on their exact iteration; on
+  the card each update is one replay of the update's CUDA graph.
 - `eval` runs every task's episodes in lockstep: one `act_tasks` plan a
   step for all tasks (on the card one graph replay of the planner's
   launches), where the reference loops the tasks one after another;

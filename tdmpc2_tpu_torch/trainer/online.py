@@ -12,7 +12,12 @@ newest replay episodes.
 online.py:82-121): the train state, both generators, the step and episode
 counters and the snapshot; then no updates (and no burst) until the
 restored policy has collected `resume_refill_steps` env steps, the
-snapshot's steps counted. Profiling is a later part of the port.
+snapshot's steps counted.
+
+`profile_dir` (JAX online.py:203-210): at the first step after the burst
+that owes one update, ten updates run under `torch.profiler` (on the card
+ten replays of the update's graph) in its place, and the trace is written
+to `profile_dir/updates.trace.json` (Chrome's trace format), once a run.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from pathlib import Path
 from time import time
 
 import numpy as np
+import torch
 
 from tdmpc2_tpu_torch.trainer.base import Trainer
 
@@ -38,6 +44,7 @@ class OnlineTrainer(Trainer):
         self._resumed = False
         self._resume_step = 0
         self._refill_credit = 0
+        self._profiled = False
 
     def common_metrics(self):
         elapsed = time() - self._start_time
@@ -169,6 +176,30 @@ class OnlineTrainer(Trainer):
         return (self._step >= self.cfg.seed_steps and self.buffer.num_eps > 0
                 and self._refill_done())
 
+    def _profile_updates(self, n) -> dict:
+        """n updates under torch.profiler, their trace written to
+        cfg.profile_dir; returns the last update's info."""
+        from torch.profiler import ProfilerActivity, profile
+        on_card = self.agent.device.type == 'cuda'
+        activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if on_card else [])
+        with profile(activities=activities) as prof:
+            for _ in range(n):
+                info = self.agent.update(self.buffer)
+            if on_card:
+                torch.cuda.synchronize(self.agent.device)
+        out = Path(self.cfg.profile_dir) / 'updates.trace.json'
+        out.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out))
+        if on_card:
+            device = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            print(f'Profiled {n} updates into {out}: {len(device) / n:.0f} '
+                  'device activities an update')
+        else:
+            print(f'Profiled {n} updates into {out} (on the CPU)')
+        return info
+
     def train(self):
         """Main loop (reference online_trainer.py:74-127)."""
         cfg = self.cfg
@@ -220,8 +251,12 @@ class OnlineTrainer(Trainer):
                     print('Pretraining agent on seed data...')
                 else:
                     num_updates = self._updates_due(1)
-                for _ in range(num_updates):
-                    train_metrics.update(self.agent.update(self.buffer))
+                if cfg.profile_dir and num_updates == 1 and not self._profiled:
+                    self._profiled = True
+                    train_metrics.update(self._profile_updates(10))
+                else:
+                    for _ in range(num_updates):
+                        train_metrics.update(self.agent.update(self.buffer))
 
             self._step += 1
 

@@ -10,13 +10,18 @@ updates) pretrains on the seed data.
 
 Episode boundaries are tracked per env slot: each slot flushes its own
 episode (with the NaN bootstrap row) and is reset on its own. After the
-burst each vector step plans with `act`, then queues that step's
-`update_many` on the card before stepping the envs (the updates only read
-replay), so host physics can overlap the card's update. This is the call
-order of the JAX trainer's pipelined schedule (act_collect, then
-update_many_fused) and of its one-call `vec_step` alike; in eager PyTorch
-those do the same work as `act` and `update_many`, so the port keeps one
-schedule.
+burst a vector step takes the JAX trainer's schedule (vec_online.py:
+132-181). With `fused_step` (the default) and `overlap_update` (the
+default) it plans with `act_collect` (the prep's and the plan's graph
+replays, one fetch of the actions), then queues the step's updates with
+`update_many_fused` (graph replays, no host sync) before stepping the
+envs, so that the card updates while the host runs physics; without
+`overlap_update` it makes one `vec_step` call (the plan, the updates, then
+the fetch, so the envs step after the updates). With `fused_step=false` it
+calls `act`, then `update_many`, before stepping the envs. The three give
+the same numbers on the same draws. A failure in any of them raises: the
+JAX trainer's fallback to the unfused calls (and its double count of
+update credit there, ROADMAP C) has no counterpart.
 
 Evaluation reuses the training envs; in-progress training episodes are
 discarded at eval boundaries (only complete episodes enter the buffer).
@@ -106,6 +111,21 @@ class VecOnlineTrainer(OnlineTrainer):
         """Actions for one vector step, with this step's updates queued
         (JAX vec_online.py:126-181). Returns (actions, pretrained)."""
         cfg, n = self.cfg, self._n
+        if (cfg.fused_step and pretrained and self._step > cfg.seed_steps
+                and self._updates_now()):
+            k = self._updates_due(n)      # n unless update_ratio < 1
+            if cfg.overlap_update or k == 0:
+                actions = self.agent.act_collect(obs, t0)
+                timer.mark('act')
+                if k:
+                    train_metrics.update(self.agent.update_many_fused(
+                        self.buffer, k))
+                timer.mark('update')
+            else:
+                actions, info = self.agent.vec_step(self.buffer, obs, t0, k)
+                train_metrics.update(info)
+                timer.mark('act')
+            return actions, pretrained
         if self._step > cfg.seed_steps:
             actions = self.agent.act(obs, t0=t0)
         else:

@@ -1,8 +1,8 @@
 """One CUDA graph of a function on tensors at fixed addresses.
 
-The JAX agent dispatches a whole plan, and its weight prep, as one jitted
-program each (tdmpc2_tpu/tdmpc2.py:140, 153-157). The port's counterpart
-is a `torch.cuda.CUDAGraph`: `Graph(fn, counted, device)` runs `fn()` once
+The JAX agent dispatches a whole plan, its weight prep and each update
+step as one jitted program each (tdmpc2_tpu/tdmpc2.py:140, 153-161). The
+port's counterpart is a `torch.cuda.CUDAGraph`: `Graph(fn, counted, device)` runs `fn()` once
 eagerly on a side stream (the warm-up a capture needs: libraries loaded,
 cuBLAS's workspace made, the kernels' shared-memory attributes set), keeps
 that run's result as `first`, then captures `fn()`; `replay()` runs the
@@ -10,7 +10,10 @@ captured work again and returns the tensors the capture made. Everything
 `fn` reads and writes stays at the address it had at capture: the caller
 refills inputs in place and keeps every tensor that `fn` reads alive and
 where it is. A failed capture or replay raises; nothing runs `fn`
-eagerly in its place.
+eagerly in its place. Where `fn` writes its inputs in place (an update
+step), the eager run is a real call: the caller counts it as the first,
+and the capture itself runs nothing. Each graph keeps its own memory pool,
+whose bytes the capture reserved are `pool_bytes`.
 
 Launch counts: the kernel wrappers in `counted` count their launches in a
 `.launches` attribute. The capture launches nothing, so its counts are
@@ -45,7 +48,9 @@ class Graph:
         before = [w.launches for w in counted]
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
+            reserved = torch.cuda.memory_reserved(device)
             self.out = fn()
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         self.counted = counted
         self.deltas = [w.launches - b for w, b in zip(counted, before)]
         for w, b in zip(counted, before):

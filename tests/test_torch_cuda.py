@@ -68,7 +68,13 @@ Pixels: ShiftAug on the recorded walker frames (uint8) against the CPU's
 bit for bit, the conv encoder (cuDNN, f32) against the CPU's at 1e-4 on a
 small pixel model and on the committed walker-walk-rgb model's trained
 weights, and the pixel plan's graph (uint8 frames and the shift draw among
-its inputs, the encoder in it) against its eager body."""
+its inputs, the encoder in it) against its eager body. The update's graph
+(the whole `_update` a replay) against its eager body from the same state
+on the same batch and draws, bit for bit (info, parameters, targets, Adam
+states, scale), on a state, an episodic, a pixel and a multi-task model;
+`update_many(4)` against four eager steps; a new parameter tree captured
+anew; `vec_step`, and `act_collect` + `update_many_fused`, against `act` +
+`update_many` (actions, info, state, warm starts)."""
 
 from pathlib import Path
 
@@ -1323,7 +1329,9 @@ def test_plan_graph_after_update_and_load_params(graph_agent):
     ag.update(buf)
     _hold_graph_against_eager(ag, 4, False, t0, 71)
     assert ag.prep is prep and not torch.equal(prep['dP0'], packed)
-    assert Graph.captures == captures
+    # the update captured its own graph; the plan's and the prep's stand
+    assert {k: v for k, v in Graph.captures.items() if k != 'update'} == {
+        k: v for k, v in captures.items() if k != 'update'}
     torch.testing.assert_close(
         prep['dP0'], prepare_value_params(ag.params, cfg)['dP0'], rtol=0, atol=0)
     g = torch.Generator().manual_seed(9)
@@ -1632,3 +1640,142 @@ def test_pixel_plan_graph_equals_eager_body(pixel_agent, n, eval_mode):
     obs = torch.from_numpy(frames[10:10 + n])
     _hold_graph_against_eager(ag, n, eval_mode, np.arange(n) % 2 == 0, 80 + n, obs)
     assert ag._graphs[(n, eval_mode, None, False, True)][1]['obs'].dtype == torch.uint8
+
+
+# ------------------------------------------------------- the update's graph
+
+UPDATE_KINDS = ['state', 'episodic', 'pixels', 'multitask']
+
+
+def _update_agent(kind):
+    """A fresh agent of the module's widths of `kind`, num_envs = 4, and a
+    buffer of three random episodes on the card (pixels: 64 x 64 x 9 uint8
+    frame stacks, 4 channels; multi-task: one task an episode; episodic: a
+    fifth of the steps terminated)."""
+    cfg = parse_cfg(Config(task='toy', device='cuda', enc_dim=48, mlp_dim=64,
+                           latent_dim=64, num_q=3, num_samples=77, num_elites=9,
+                           num_pi_trajs=5, iterations=3, batch_size=16, num_envs=4,
+                           buffer_size=300, steps=300, episodic=kind == 'episodic'))
+    cfg.obs_shape, cfg.action_dim, cfg.episode_length = {'state': (10,)}, 3, 30
+    if kind == 'pixels':
+        cfg.obs, cfg.num_channels, cfg.obs_shape = 'rgb', 4, {'rgb': (9, 64, 64)}
+    if kind == 'multitask':
+        cfg.multitask, cfg.task_dim = True, 8
+        cfg.tasks = [f'toy-{i}' for i in range(len(MT_ADIMS))]
+        cfg.action_dims, cfg.episode_lengths = list(MT_ADIMS), [30, 60, 100, 500, 30]
+    ag = TDMPC2(cfg)
+    g = torch.Generator().manual_seed(13)
+    ag.load_params(tree.map(lambda t: t + 0.05 * torch.randn(t.shape, generator=g),
+                            ag.model.init(g)))
+    buf = Buffer(cfg)
+    rng = np.random.default_rng(4)
+    for i, ep in enumerate(_episodes(rng, 3)):
+        if kind == 'pixels':
+            ep['obs'] = rng.integers(0, 256, (31, 9, 64, 64), dtype=np.uint8)
+        if kind == 'episodic':
+            ep['terminated'][1:] = rng.uniform(size=30) < 0.2
+        if kind == 'multitask':
+            ep['task'] = i
+        buf.add(ep)
+    assert buf.on_device
+    return ag, buf
+
+
+def _state_copy(ag):
+    return [x.clone() for x in tree.leaves([
+        ag.state.params, ag.state.target_Qs, ag.state.opt_state,
+        ag.state.pi_opt_state, ag.state.scale])]
+
+
+@pytest.mark.parametrize('kind', UPDATE_KINDS)
+def test_update_graph_equals_eager_body(agent, kind):
+    """The first update of a train state runs the eager body and captures
+    the graph; a replay then equals the eager `_update` from the same state
+    on the same batch and draws, bit for bit: every info value, the
+    parameters, target heads, both Adam states and the scale."""
+    ag, buf = _update_agent(kind)
+    captures, replays = (dict(getattr(Graph, k)) for k in ('captures', 'replays'))
+    ag.update(buf)
+    assert Graph.captures['update'] == captures.get('update', 0) + 1
+    batch = buf.sample()
+    noise = ag.draw_update_noise()
+    start = _state_copy(ag)
+    info = {k: v.clone() for k, v in ag._step(batch, noise).items()}
+    assert Graph.replays['update'] == replays.get('update', 0) + 1
+    after = _state_copy(ag)
+    for x, y in zip(tree.leaves([ag.state.params, ag.state.target_Qs, ag.state.opt_state,
+                                 ag.state.pi_opt_state, ag.state.scale]), start):
+        x.copy_(y)
+    ref = ag._update(ag.state, *batch[:4], noise, *batch[4:])
+    assert set(info) == set(ref)
+    for k in ref:
+        assert torch.equal(info[k], ref[k]), k
+    for x, y in zip(after, _state_copy(ag)):
+        assert torch.equal(x, y)
+    assert Graph.captures['update'] == captures.get('update', 0) + 1
+
+
+def test_update_many_graph_equals_eager_steps(agent):
+    """update_many(4): one sample_many(4) draw and four replays, equal to
+    four eager steps on that draw, bit for bit; a new parameter tree
+    captures anew."""
+    ag, buf = _update_agent('state')
+    ag.update(buf)
+    start = _state_copy(ag)
+    gens = ag.generator.get_state(), buf.generator.get_state()
+    replays = Graph.replays['update']
+    info = {k: v.clone() for k, v in ag.update_many(buf, 4).items()}
+    assert Graph.replays['update'] == replays + 4
+    after = _state_copy(ag)
+    for x, y in zip(tree.leaves([ag.state.params, ag.state.target_Qs, ag.state.opt_state,
+                                 ag.state.pi_opt_state, ag.state.scale]), start):
+        x.copy_(y)
+    ag.generator.set_state(gens[0])
+    buf.generator.set_state(gens[1])
+    batch = buf.sample_many(4)
+    for i in range(4):
+        ref = ag._update(ag.state, *[x[i] for x in batch], ag.draw_update_noise())
+    for k in ref:
+        assert torch.equal(info[k], ref[k]), k
+    for x, y in zip(after, _state_copy(ag)):
+        assert torch.equal(x, y)
+    captures = Graph.captures['update']
+    ag.load_params(tree.map(torch.clone, ag.params))
+    ag.update(buf)
+    assert Graph.captures['update'] == captures + 1
+
+
+@pytest.mark.parametrize('schedule', ['vec_step', 'pipelined'])
+def test_fused_schedules_equal_act_then_update_many(agent, schedule):
+    """vec_step, and act_collect + update_many_fused, against act +
+    update_many from the same state and generators at N = 4: actions,
+    info, the train state and the warm starts bit for bit."""
+    ag, buf = _update_agent('state')
+    ag.update(buf)
+    obs = np.random.default_rng(6).normal(size=(4, 10)).astype(np.float32)
+    t0 = np.array([True, False, False, True])
+    start = _state_copy(ag) + [ag.prev_mean.clone()]
+    gens = ag.generator.get_state(), buf.generator.get_state()
+    runs = []
+    for fused in (False, True):
+        for x, y in zip(tree.leaves([ag.state.params, ag.state.target_Qs,
+                                     ag.state.opt_state, ag.state.pi_opt_state,
+                                     ag.state.scale, ag.state.prev_mean]), start):
+            x.copy_(y)
+        ag._prep = None
+        ag.generator.set_state(gens[0])
+        buf.generator.set_state(gens[1])
+        if not fused:
+            a, info = ag.act(obs, t0=t0), ag.update_many(buf, 4)
+        elif schedule == 'vec_step':
+            a, info = ag.vec_step(buf, obs, t0, 4)
+        else:
+            a, info = ag.act_collect(obs, t0), ag.update_many_fused(buf, 4)
+        runs.append((a, {k: v.clone() for k, v in info.items()},
+                     _state_copy(ag) + [ag.prev_mean.clone()]))
+    (a0, i0, s0), (a1, i1, s1) = runs
+    np.testing.assert_array_equal(a0, a1)
+    for k in i0:
+        assert torch.equal(i0[k], i1[k]), k
+    for x, y in zip(s0, s1):
+        assert torch.equal(x, y)

@@ -53,9 +53,9 @@ def _cfg(work, jax=False, **kw):
     kw = {**SMALL, **kw}
     cfg = jparse(JConfig(**kw)) if jax else parse_cfg(Config(**kw, device='cpu'))
     cfg.work_dir = str(work)
+    cfg.fused_step = False               # act and update_many: the recorder's calls
     if jax:
         cfg.buffer_device = 'device'     # no 2 GiB trial allocation here
-        cfg.fused_step = False           # the port's one vector-step schedule
     return cfg
 
 

@@ -12,8 +12,9 @@ training, num_envs > 1 (CPU, small widths, f32).
 - `Buffer.sample_many`'s layout against the JAX buffer's;
 - `VecEnv` against the JAX `VecEnv` (exact);
 - `VecOnlineTrainer`: its call schedule and episode flushes against each
-  of the JAX trainer's schedules, a run end to end, the final-boundary
-  eval and the checkpoint at eval.
+  of the JAX trainer's schedules (the pipelined `act_collect` +
+  `update_many_fused`, the one-call `vec_step`, and `fused_step=false`),
+  a run end to end, the final-boundary eval and the checkpoint at eval.
 
 Tolerances are the JAX suite's: 1e-4 for values, plan means and the
 update, 1e-3 for actions."""
@@ -353,9 +354,8 @@ def test_vec_mode_subproc_is_refused(num_envs):
 
 
 class _StubAgent:
-    """Records the trainer's calls; actions are a fixed function of obs.
-    The JAX trainer's fused calls are logged as the `act` and `update_many`
-    calls that do the same work (the port's one schedule)."""
+    """Records the trainer's calls, each under its own name; actions are a
+    fixed function of obs."""
 
     def __init__(self, log):
         self.log = log
@@ -371,7 +371,8 @@ class _StubAgent:
         return self._a(obs)
 
     def act_collect(self, obs, t0):
-        return self.act(obs, t0=t0)
+        self.log.append(('act_collect', tuple(np.atleast_1d(t0))))
+        return self._a(obs)
 
     def update(self, buffer):
         self.log.append(('update', 1))
@@ -382,10 +383,12 @@ class _StubAgent:
         return {'total_loss': 0.0}
 
     def update_many_fused(self, buffer, n):
-        return self.update_many(buffer, n)
+        self.log.append(('update_many_fused', n))
+        return {'total_loss': 0.0}
 
     def vec_step(self, buffer, obs, t0, n):
-        return self.act(obs, t0=t0), self.update_many(buffer, n)
+        self.log.append(('vec_step', tuple(np.atleast_1d(t0)), n))
+        return self._a(obs), {'total_loss': 0.0}
 
     def save(self, fp, extra=None):
         self.log.append(('save',))
@@ -413,21 +416,29 @@ def _vec_cfg(pkg_cfg, pkg_parse, tmp_path, **kw):
     return cfg
 
 
-@pytest.mark.parametrize('ratio,overlap', [(1.0, True), (0.5, True), (1.0, False)],
-                         ids=['ratio1-pipelined', 'ratio0.5-pipelined',
-                              'ratio1-one-call'])
-def test_vec_trainer_schedule_matches_jax_trainer(tmp_path, ratio, overlap):
-    """The same env copies and the same (stub) agent under both trainers
-    give the same calls in the same order (plans, the seed burst, the
-    update calls with their counts) and the same episode flushes, against
-    the JAX trainer's pipelined (`overlap_update`) and one-call schedules
-    alike."""
+# (update_ratio, fused_step, overlap_update) -> the call that takes a planned
+# vector step's updates after the burst
+SCHEDULES = {'ratio1-pipelined': (1.0, True, True, 'update_many_fused'),
+             'ratio0.5-pipelined': (0.5, True, True, 'update_many_fused'),
+             'ratio1-one-call': (1.0, True, False, 'vec_step'),
+             'ratio1-unfused': (1.0, False, True, 'update_many')}
+
+
+@pytest.mark.parametrize('schedule', list(SCHEDULES), ids=list(SCHEDULES))
+def test_vec_trainer_schedule_matches_jax_trainer(tmp_path, schedule):
+    """The same env copies and the same (stub) agent under both trainers,
+    given the same fused_step and overlap_update, give the same calls in
+    the same order (`act`, `act_collect`, `vec_step`, the seed burst, the
+    update calls with their counts) and the same episode flushes: the JAX
+    trainer's pipelined, one-call and unfused schedules alike."""
+    ratio, fused, overlap, later = SCHEDULES[schedule]
     logs = {}
     for name, (C, P, mk, Trainer, Log) in {
             'jax': (JConfig, jparse, jmake_env, JVecTrainer, JLogger),
             'port': (Config, parse_cfg, make_env, VecOnlineTrainer, Logger)}.items():
-        kw = ({'overlap_update': overlap} if name == 'jax'
-              else {'device': 'cpu'})
+        kw = {'fused_step': fused, 'overlap_update': overlap}
+        if name == 'port':
+            kw['device'] = 'cpu'
         cfg = _vec_cfg(C, P, tmp_path / name, update_ratio=ratio, **kw)
         env = mk(cfg)
         cfg.seed_steps = 61            # a burst of 20 x update_many(3) + 1
@@ -436,11 +447,17 @@ def test_vec_trainer_schedule_matches_jax_trainer(tmp_path, ratio, overlap):
                 logger=Log(cfg)).train()
         logs[name] = log
     assert logs['port'] == logs['jax']
-    assert {'act', 'update_many', 'update', 'add'} <= {e[0] for e in logs['port']}
-    many = [e[1] for e in logs['port'] if e[0] == 'update_many']
+    calls = {e[0] for e in logs['port']}
+    assert {'act', 'update_many', 'update', 'add', later} <= calls
+    if fused:
+        assert ('act_collect' in calls) == overlap
+    else:
+        assert not calls & {'act_collect', 'update_many_fused', 'vec_step'}
+    burst = [e[1] for e in logs['port'] if e[0] == 'update_many'][:20]
     # the burst, then the updates each planned vector step owes
-    assert many[:20] == [N] * 20 and len(many) > 20
-    assert set(many[20:]) == ({N} if ratio == 1.0 else {1, 2})
+    assert burst == [N] * 20
+    owed = [e[-1] for e in logs['port'] if e[0] == later][0 if fused else 20:]
+    assert owed and set(owed) == ({N} if ratio == 1.0 else {1, 2})
 
 
 def _tiny_vec_cfg(tmp_path, **kw):
