@@ -131,15 +131,15 @@ body bit for bit, from the same state on the same batch and draws (every
 info value, the parameters, target heads, both Adam states, the scale),
 on the 5M state and episodic models, the walker pixel model, mt30 at
 model_size 48 and mt80 at 317; `update_many(8)` against 8 eager steps;
-`vec_step`, and `act_collect` + `update_many_fused`, against `act` +
-`update_many` at N=8 (actions, info, train state, warm starts); each
-update timed as the eager body and as the graph (CUDA events, device busy
-and activities by torch.profiler), its capture and its graph's pool; the
-N=8 loop under each collection schedule. Every training path counts one
-update graph replay an update, or a capture's eager warm-up; the
-vectorised paths take the pipelined schedule, the episodic one
-`overlap_update=false` (`vec_step`); `profile_dir` writes the one-env
-trainer's trace of ten update replays. Phases
+`vec_step` against `act` + `update_many` at N=8, with 8 updates and with
+none (actions, info, train state, warm starts); each update timed as the
+eager body and as the graph (CUDA events, device busy and activities by
+torch.profiler), its capture and its graph's pool; the N=8 loop with
+`vec_step` (the trainer's), with `act` then `update_many`, and with the
+host waiting for the updates. Every training path counts one update graph
+replay an update, or a capture's eager warm-up; the vectorised paths
+count their `vec_step` calls; `profile_dir` writes the one-env trainer's
+trace of ten update replays. Phases
 print one progress line each. It ends with the card's name and power
 limit, one JSON line of per-kernel numbers (launches on each path, error
 against the plain version, kernel, plain and library times at N=8 and
@@ -158,7 +158,9 @@ parameters the outputs compared), the planner's value step (the sampled mode whe
 has it; also mt30's N=30 tasks at model_size 48, with the pi rollout, and
 mt80's at model_size 317 at one env, N=8 and N=80 tasks, with the pi
 rollout at one env and N=80) and
-the agent's `plan_vec` (one env and N=8) of another version of the port,
+the agent's `plan_vec` (one env and N=8), and the walker pixel model's
+`plan_vec` (one env and N=8) and one update (`update_pixels`, where both
+versions have the update graph) of another version of the port,
 unpacked in DIR, against this
 tree's on the same inputs, in PAIRS (2 unless given) pairs of processes,
 alternating as DIR, this, this, DIR, DIR, this, ..., and prints the median
@@ -924,6 +926,32 @@ def time_kernels(root) -> int:
                 else ag._update(ag.state, *u_batch, u_noise))
         return tuple(info[k] for k in sorted(info)) + tuple(tree.leaves(ag.state.params))
     calls['update_5m'] = (one_update, (), {})
+    # the walker pixel model (random weights from SEED): its plan at one env
+    # and N=8 (timed as plan_vec above) and one update on random frames,
+    # batch 256, fixed draws (a graph replay where the tree has one)
+    p_task, _, p_act = PIXEL_CKPT
+    pcfg = pixel_cfg(f'num_envs={N_ENVS}', action_dim=p_act, task=p_task)
+    pag = TDMPC2(pcfg, device='cuda')
+    pag.load_params(perturbed(pag.model.init(gen), gen))
+    p_obs = torch.randint(0, 256, (N_ENVS, *PIXEL_SHAPE), device=dev, generator=g,
+                          dtype=torch.uint8)
+    for n in (1, N_ENVS):
+        calls[f'plan_vec_pixels_n{n}'] = (pag.plan_vec, (p_obs[:n], np.zeros(n, bool)),
+                                          dict(eval_mode=True))
+    T, B, pA = pcfg.horizon, pcfg.batch_size, pcfg.action_dim
+    p_batch = (torch.randint(0, 256, (T + 1, B, *PIXEL_SHAPE), device=dev, generator=g,
+                             dtype=torch.uint8),
+               torch.rand(T, B, pA, device=dev, generator=g) * 2 - 1,
+               torch.rand(T, B, 1, device=dev, generator=g),
+               torch.zeros(T, B, 1, device=dev))
+    p_noise = pag.draw_update_noise()
+
+    def pixel_update():
+        info = pag._step(p_batch, p_noise)
+        return tuple(info[k] for k in sorted(info)) + tuple(tree.leaves(pag.state.params))
+    if step is not None:
+        with_update_graph(pag, p_batch)
+        calls['update_pixels'] = (pixel_update, (), {})
 
     def digest(x):
         h = hashlib.sha256()
@@ -3357,7 +3385,7 @@ def pixel_phases(zero_counts, read_counts, check_plan_counts, update_records):
             live = tuple({k: v.detach().requires_grad_(True) for k, v in p.items()}
                          for p in enc)
             zz = ag.model.encode({'encoder': {'rgb': live}}, obs_b[0], shifts=nxt[0])
-            with layers.f32_convs():
+            with layers.f32_convs(deterministic=True):     # as the update's
                 return torch.autograd.grad(zz.square().sum(), tree.leaves(live))
         ms = time_ms(encoder_of_update, 10)
         busy = device_share(encoder_of_update, 5)[0]
@@ -3652,33 +3680,31 @@ def hold_update_many(agent, buf, n):
 
 
 def hold_schedules(agent, buf, obs, t0, n):
-    """`vec_step`, and `act_collect` + `update_many_fused`, against `act` +
-    `update_many` from the same state and generators: actions, info, the
-    train state and the warm starts bit for bit."""
+    """`vec_step` against `act` + `update_many` from the same state and
+    generators, with n updates and with none: actions, info, the train
+    state and the warm starts bit for bit."""
+    import torch
     start = snapshot(agent, warm=True)
     gens = (agent.generator.get_state(), buf.generator.get_state())
-    runs = {}
-    for name in ('act + update_many', 'vec_step', 'act_collect + update_many_fused'):
-        restore(agent, start, warm=True)
-        agent.generator.set_state(gens[0])
-        buf.generator.set_state(gens[1])
-        if name == 'vec_step':
-            a, info = agent.vec_step(buf, obs, t0, n)
-        elif name == 'act + update_many':
-            a = agent.act(obs, t0=t0)
-            info = agent.update_many(buf, n)
-        else:
-            a = agent.act_collect(obs, t0)
-            info = agent.update_many_fused(buf, n)
-        runs[name] = (a, clone_info(info), snapshot(agent, warm=True))
-    import torch
-    a0, i0, s0 = runs['act + update_many']
-    for name, (a, info, st) in runs.items():
-        same_bits(f'{name}: actions', [torch.from_numpy(a)], [torch.from_numpy(a0)])
-        same_bits(f'{name}: info', info, i0)
-        same_bits(f'{name}: train state and warm starts', st, s0)
-    log(f'  N={len(obs)}: vec_step, and act_collect + update_many_fused({n}), equal act + '
-        f'update_many({n}) bit for bit (actions, info, train state, warm starts)')
+    for k in (n, 0):
+        runs = {}
+        for name in ('act + update_many', 'vec_step'):
+            restore(agent, start, warm=True)
+            agent.generator.set_state(gens[0])
+            buf.generator.set_state(gens[1])
+            if name == 'vec_step':
+                a, info = agent.vec_step(buf, obs, t0, k)
+            else:
+                a, info = agent.act(obs, t0=t0), (agent.update_many(buf, k) if k else None)
+            runs[name] = (a, clone_info(info or {}), snapshot(agent, warm=True))
+        a0, i0, s0 = runs['act + update_many']
+        a, info, st = runs['vec_step']
+        same_bits(f'vec_step, {k} updates: actions', [torch.from_numpy(a)],
+                  [torch.from_numpy(a0)])
+        same_bits(f'vec_step, {k} updates: info', info, i0)
+        same_bits(f'vec_step, {k} updates: train state and warm starts', st, s0)
+    log(f'  N={len(obs)}: vec_step with {n} updates and with none equals act + '
+        f'update_many({n}) and act bit for bit (actions, info, train state, warm starts)')
 
 
 def hold_update(agent, batch):
@@ -4353,7 +4379,7 @@ def main() -> int:
     with Phase(f'main path (vectorised): train toy-reach num_envs={NE}, 5M '
                f'model, {TRAIN_STEPS} env steps'):
         vtrainer, vec_launches, vec_s, vec_evals, _, _ = train_path(
-            'vec', [f'num_envs={NE}', *snap], ('act_collect', 'update_many_fused'))
+            'vec', [f'num_envs={NE}', *snap], ('vec_step',))
         if not isinstance(vtrainer, VecOnlineTrainer) or vtrainer._n != NE:
             raise AssertionError('vec path: not the vectorised trainer')
         if len(vec_evals) < 2:
@@ -4365,13 +4391,10 @@ def main() -> int:
             'episodic_one_env', EP_ARGS)
         check_episodic('episodic one env', ep_lengths + [
             round(e['episode_length']) for e in ep_evals], ep_losses)
-    # this path takes the one-call schedule (vec_step), the other vectorised
-    # paths the pipelined one (act_collect, update_many_fused)
-    with Phase(f'path: train {EP_TASK} episodic=true num_envs={NE} overlap_update=false, '
-               f'5M model, {TRAIN_STEPS} env steps'):
+    with Phase(f'path: train {EP_TASK} episodic=true num_envs={NE}, 5M model, '
+               f'{TRAIN_STEPS} env steps'):
         vep_trainer, vep_launches, _, vep_evals, vep_lengths, vep_losses = train_path(
-            'episodic_vec', EP_ARGS + [f'num_envs={NE}', 'save_agent=true',
-                                       'overlap_update=false'], ('vec_step',))
+            'episodic_vec', EP_ARGS + [f'num_envs={NE}', 'save_agent=true'], ('vec_step',))
         check_episodic(f'episodic num_envs={NE}', vep_lengths + [
             round(e['episode_length']) for e in vep_evals], vep_losses)
 
@@ -4522,11 +4545,11 @@ def main() -> int:
                 f'{"not measured" if busy is None else f"{100 * (1 - busy / ms):.1f}%"})')
 
         def vec_loop(steps, schedule):
-            """The trainer's vector step under `schedule`: 'pipelined'
-            (act_collect, update_many_fused queued, env.step; the default),
-            'one call' (vec_step, env.step; overlap_update=false), 'unfused'
-            (act, update_many, env.step; fused_step=false), or 'waited'
-            (act, update_many, the host waiting for the updates)."""
+            """The trainer's vector step under `schedule`: 'vec_step' (the
+            plan, the updates, one fetch, env.step; the trainer's), 'act,
+            update_many' (act's fetch, the updates queued, env.step while
+            they run), or 'waited' (act, update_many, the host waiting for
+            the updates)."""
             o = v_env.reset()
             t_in = np.zeros(NE, np.int64)
             ph = dict(act=0.0, update=0.0, env=0.0)
@@ -4534,13 +4557,9 @@ def main() -> int:
             t_all = time.perf_counter()
             for _ in range(steps):
                 t1 = time.perf_counter()
-                if schedule == 'one call':
+                if schedule == 'vec_step':
                     a, _ = v_agent.vec_step(v_buf, o, t_in == 0, NE)
                     t2 = time.perf_counter()
-                elif schedule == 'pipelined':
-                    a = v_agent.act_collect(o, t_in == 0)
-                    t2 = time.perf_counter()
-                    v_agent.update_many_fused(v_buf, NE)
                 else:
                     a = v_agent.act(o, t0=t_in == 0)
                     t2 = time.perf_counter()
@@ -4566,7 +4585,7 @@ def main() -> int:
                     for k, v in ph.items()) + ' (host clock)')
             return total / steps
         hold_schedules(v_agent, v_buf, obs16[:NE], np.arange(NE) % 3 == 0, NE)
-        schedules, loops = ('pipelined', 'one call', 'unfused', 'waited'), {}
+        schedules, loops = ('vec_step', 'act, update_many', 'waited'), {}
         for schedule in schedules:
             vec_loop(2, schedule)                    # warm-up
         for _ in range(2):                           # in turns, two readings each

@@ -8,8 +8,9 @@ the JAX runtime (mesh, platform, Pallas gates) are left out, and
 ``profiler_port`` (a jax.profiler trace server) is refused with its reason;
 the collection schedules' keys (``fused_step``, ``overlap_update``,
 ``update_chunk``, ``buffer_device``) and ``profile_dir`` are the JAX
-package's, with its defaults. One field is added: ``device``, where the
-port runs (``cuda`` unless the caller asks for ``cpu``). The multi-task sets (``mt30``, ``mt80``: the
+package's, with its defaults (``fused_step`` and ``overlap_update`` select
+nothing: the port has one schedule). One field is added: ``device``, where
+the port runs (``cuda`` unless the caller asks for ``cpu``). The multi-task sets (``mt30``, ``mt80``: the
 order of a set is the task embedding's index) and the ``task_dim`` rule
 are the JAX package's.
 
@@ -154,18 +155,17 @@ class Config:
     buffer_snapshot_eps: int = 0
     # parallel env copies for vectorised collection (trainer/vec_online.py)
     num_envs: int = 1
-    # cap on updates an `update_many` / `update_many_fused` call samples at
-    # once (JAX config.py:162-172): each sampled batch is held on the device
-    # until its update. 0 = auto, free device memory over one batch's bytes
-    # (TDMPC2._auto_update_chunk); > 0 overrides it. A capped call draws its
-    # batches one sample_many(chunk) at a time.
+    # cap on updates an `update_many` call samples at once (JAX
+    # config.py:162-172): each sampled batch is held on the device until
+    # its update. 0 = auto, free device memory over one batch's bytes
+    # (TDMPC2._auto_update_chunk; no cap where the device reports none);
+    # > 0 overrides it. A capped call draws its batches one
+    # sample_many(chunk) at a time.
     update_chunk: int = 0
-    # the vectorised trainer's collection schedule after the seed burst (JAX
-    # config.py:200-216): fused_step takes the fused calls, act_collect and
-    # update_many_fused with overlap_update (the updates queued on the card
-    # before the envs step), or vec_step without it (the plan, the updates,
-    # then one fetch of the actions); false takes act and update_many. On
-    # the same draws all three give the same numbers.
+    # the JAX trainer's collection schedule after the seed burst (JAX
+    # config.py:200-216), accepted so that its recipes run; the port's
+    # vectorised trainer takes `vec_step` for every value, which gives the
+    # numbers of all three JAX schedules (trainer/vec_online.py)
     fused_step: bool = True
     overlap_update: bool = True
     # replay ring placement (JAX config.py:217-219): 'auto' (the 2.5x-bytes

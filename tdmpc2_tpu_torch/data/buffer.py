@@ -14,8 +14,8 @@ pixel observations, single- and multi-task).
   (the CPU) 'auto' is 'device', as the JAX buffer's trial allocation
   decides on a backend that reports no free memory. A ring in host RAM is
   gathered there, and each sampled batch is copied to the device once.
-  `sample_batch_bytes` and `device_ring_bytes` feed the agent's cap on
-  updates a call (`TDMPC2._update_chunk`).
+  `sample_batch_bytes` feeds the agent's cap on updates a call
+  (`TDMPC2._update_chunk`).
 - `sample` draws (episode, start) pairs with `draw_slice_indices` from the
   buffer's own `torch.Generator` and returns the update's layout
   (obs [H+1, B, ...], action [H, B, A], reward and terminated [H, B, 1]).
@@ -124,15 +124,8 @@ class Buffer:
     @property
     def on_device(self) -> bool:
         """Whether the ring lives on the agent's device (False before the
-        first write), the condition of the agent's fused schedules."""
+        first write): `vec_step` takes its one-call path on such a ring."""
         return bool(self._on_device)
-
-    def device_ring_bytes(self) -> int:
-        """Bytes the ring holds on the device: 0 in host RAM or before the
-        first write (JAX buffer.py:105-111)."""
-        if not self._on_device or self._storage is None:
-            return 0
-        return sum(v.numel() * v.element_size() for v in self._storage.values())
 
     def sample_batch_bytes(self):
         """Bytes of one sampled batch as the update takes it in, or None

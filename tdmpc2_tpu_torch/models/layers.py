@@ -211,15 +211,18 @@ def conv_encoder_init(gen, in_ch: int, num_channels: int):
 
 
 @contextmanager
-def f32_convs():
-    """cuDNN's convolutions in f32 inside the block (TF32 off), the card
-    then holding the CPU at 1e-4, and by deterministic algorithms, so that
-    an update's weight gradients have the same bits in every run and in
-    its graph's replays; the previous settings restored after it. Nothing
-    else changes."""
+def f32_convs(deterministic: bool = False):
+    """cuDNN's convolutions in f32 inside the block (TF32 off): the card
+    then holds the CPU at 1e-4. With `deterministic`, by deterministic
+    algorithms as well, which an update's backward takes so that its
+    weight gradients have the same bits in every run and in its graph's
+    replays; cuDNN reads both settings where it runs a convolution, the
+    backward's at `torch.autograd.grad`. The previous settings are
+    restored after it. Nothing else changes."""
     cudnn = torch.backends.cudnn
     prev = cudnn.allow_tf32, cudnn.deterministic
-    cudnn.allow_tf32, cudnn.deterministic = False, True
+    cudnn.allow_tf32 = False
+    cudnn.deterministic = deterministic or prev[1]
     try:
         yield
     finally:

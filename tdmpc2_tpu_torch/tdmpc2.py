@@ -57,11 +57,12 @@ train state runs eagerly as the capture's warm-up and then captures. A
 failed capture or replay raises. On the CPU the same `_update` runs
 eagerly. `update_many` takes n such steps on n batches drawn at once
 (`Buffer.sample_many`; JAX `_update_scan_jit`), at most `update_chunk` a
-draw. The vectorised trainer's fused schedules are `act_collect` with
-`update_many_fused` (the updates queued on the card while the host steps
-the envs) and `vec_step` (the plan, the updates, then one fetch of the
-actions), each equal to `act` then `update_many` on the same draws (JAX
-tdmpc2.py:774-901).
+draw. The vectorised trainer's collection step is `vec_step` (the plan,
+the updates, then one fetch of the actions), equal to `act` then
+`update_many` on the same draws (JAX tdmpc2.py:774-832). The JAX agent's
+`act_collect` and `update_many_fused` have no counterpart: they would be
+`act` and `update_many`, which already replay their graphs with no host
+sync but the fetch of the actions.
 
 All noise is data. `draw_noise` and `draw_update_noise` draw it from the
 agent's explicit `torch.Generator` on the device; `plan_vec` takes a
@@ -784,28 +785,21 @@ class TDMPC2:
         return graph.first
 
     # the update-chunk cap's memory model (JAX tdmpc2.py:703-745): the card's
-    # free memory when it reports it; otherwise (the CPU) an H100's 80 GB
-    # less the device ring and the train state. The reserve keeps room for
-    # all but the sampled batches: the graphs' pools (the 317M update's is
-    # logged by chip_smoke.py), the planner's scratch, fragmentation.
-    _MEM_FALLBACK_BYTES = 80_000_000_000
+    # free memory, less a reserve for all but the sampled batches (the
+    # graphs' pools, the 317M update's logged by chip_smoke.py; the
+    # planner's scratch; fragmentation). The reserve's 8 GB is a guess: no
+    # run has yet been held to a cap that binds.
     _MEM_RESERVE_BYTES = 8_000_000_000
 
     def _auto_update_chunk(self, buffer) -> int:
         """Updates whose sampled batches fit beside the rest (JAX
         tdmpc2.py:711-729): (free bytes - the reserve) // one batch's
-        bytes, at least 1; 0 (no cap) while the batch bytes are unknown."""
+        bytes, at least 1; 0 (no cap) while the batch bytes are unknown or
+        the device reports no free bytes (the CPU)."""
         bb = buffer.sample_batch_bytes()
-        if not bb:
-            return 0
         free = device_free_bytes(self.device)
-        if free is None:
-            state_bytes = sum(x.numel() * x.element_size() for x in tree.leaves(
-                [self.state.params, self.state.target_Qs, self.state.opt_state,
-                 self.state.pi_opt_state, self.state.scale,
-                 self.state.prev_mean]))
-            free = (self._MEM_FALLBACK_BYTES - buffer.device_ring_bytes()
-                    - state_bytes)
+        if not bb or free is None:
+            return 0
         return max(1, int((free - self._MEM_RESERVE_BYTES) // bb))
 
     def _update_chunk(self, buffer) -> int:
@@ -839,22 +833,6 @@ class TDMPC2:
             return info
         return self._updates(buffer, n)
 
-    def update_many_fused(self, buffer, n: int) -> dict:
-        """The pipelined schedule's updates (JAX tdmpc2.py:859-901). This is
-        `update_many`, which already queues its graph replays with no host
-        sync when the ring is on the card, so that they run while the host
-        steps the envs. Where the JAX agent falls back to `update_many` (a
-        ring in host RAM, whose batch copies the host waits for, or a
-        multi-task model), so does this."""
-        return self.update_many(buffer, n)
-
-    def act_collect(self, obs, t0):
-        """Training-time batched act (JAX tdmpc2.py:834-857), which the JAX
-        agent compiles with the weight prep inside: here `act(obs, t0=t0)`,
-        already the prep graph's and the plan graph's replays back to back
-        and one fetch of the actions."""
-        return self.act(obs, t0=t0)
-
     @torch.no_grad()
     def _plan_collect(self, obs, t0):
         """The training plan for n envs' observations, left on the device."""
@@ -863,33 +841,18 @@ class TDMPC2:
         return self.plan_vec(obs, t0)[0]
 
     def vec_step(self, buffer, obs, t0, n_updates: int):
-        """The one-call collection step (JAX tdmpc2.py:774-832): the plan's
-        replay for every env, then `n_updates` update replays on one
-        `sample_many` draw, then one fetch of the actions, which were
+        """The vectorised trainer's collection step (JAX tdmpc2.py:774-832):
+        the plan's replay for every env, then `update_many(buffer,
+        n_updates)` (none at 0), then one fetch of the actions, which were
         planned with the weights before the updates. Equal to
         `act(obs, t0=t0)` then `update_many(buffer, n_updates)` on the same
         draws, which is what a pi-only or multi-task agent, or a ring in host
-        RAM, takes instead. Returns (actions [n, A] numpy, the last info)."""
-        if not self.cfg.mpc or self.cfg.multitask or not buffer.on_device:
-            a = self.act(obs, t0=t0)
-            return a, self.update_many(buffer, n_updates)
-        a = self._plan_collect(obs, t0)
-        info = self._updates(buffer, n_updates)
-        return a.cpu().numpy(), info
-
-    def _update_scan(self, state: TrainState, obs, action, reward,
-                     terminated, noises, task=None) -> dict:
-        """`_update` on each of n batches in the layout of
-        `Buffer.sample_many` (obs [n, T+1, B, ...], ..., task [n, B] or
-        None), with one UpdateNoise per batch from `noises`, in place on
-        `state`; returns the last step's info (JAX `_update_scan`,
-        tdmpc2.py:903-914)."""
-        info = None
-        for i, noise in zip(range(obs.shape[0]), noises):
-            info = self._update(state, obs[i], action[i], reward[i],
-                                terminated[i], noise,
-                                *(() if task is None else (task[i],)))
-        return info
+        RAM, takes instead. Returns (actions [n, A] numpy, the last info or
+        None)."""
+        one_call = self.cfg.mpc and not self.cfg.multitask and buffer.on_device
+        a = self._plan_collect(obs, t0) if one_call else self.act(obs, t0=t0)
+        info = self.update_many(buffer, n_updates) if n_updates else None
+        return (a.cpu().numpy() if one_call else a), info
 
     def _td_target(self, params, target_Qs, next_z, reward, terminated,
                    noise: UpdateNoise, task=None):
@@ -952,7 +915,9 @@ class TDMPC2:
         total = total + cfg.value_coef * value_loss
         groups = optim.model_groups(live)
         flat = {g: tree.leaves(p) for g, p in groups.items()}
-        with layers.f32_convs():       # the conv encoder's backward too
+        # the conv encoder's backward in f32 too, by deterministic algorithms:
+        # the same weight gradients in every run and in the graph's replays
+        with layers.f32_convs(deterministic=True):
             grads = torch.autograd.grad(total, flat['enc'] + flat['rest'])
         n_enc = len(flat['enc'])
         grad_norm = optim.model_step_(

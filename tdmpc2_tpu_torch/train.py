@@ -3,7 +3,6 @@
 Usage:
     python -m tdmpc2_tpu_torch.train task=toy-reach
     python -m tdmpc2_tpu_torch.train task=toy-reach num_envs=8
-    python -m tdmpc2_tpu_torch.train task=toy-reach num_envs=8 overlap_update=false
     python -m tdmpc2_tpu_torch.train task=toy-reach-episodic episodic=true
     python -m tdmpc2_tpu_torch.train task=toy-reach steps=2000 device=cpu
     python -m tdmpc2_tpu_torch.train task=toy-reach steps=3000 resume=true
@@ -14,11 +13,10 @@ kernels on the card, their plain versions on the CPU), store episodes in
 the replay buffer and take one update per environment step after the seed
 phase, each update one replay of a CUDA graph on the card. `num_envs > 1`
 steps that many env copies together with one batched plan per vector step
-(`VecOnlineTrainer`), as the JAX `train.py` does, under the JAX trainer's
-collection schedule: `fused_step=true overlap_update=true` (the default)
-queues a vector step's updates on the card before the envs step,
-`overlap_update=false` makes one `vec_step` call, `fused_step=false`
-calls `act` and `update_many`. `profile_dir=<dir>` writes a trace of ten
+(`VecOnlineTrainer`), as the JAX `train.py` does: one `vec_step` call a
+vector step queues the plan and the step's updates on the card before the
+envs step (`fused_step` and `overlap_update` are accepted and select
+nothing). `profile_dir=<dir>` writes a trace of ten
 updates (one env).
 Multi-task configs train offline on a dataset (`OfflineTrainer`, JAX
 train.py:71-72); their evaluation needs an env for every task, and the

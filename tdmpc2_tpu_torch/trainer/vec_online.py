@@ -10,18 +10,17 @@ updates) pretrains on the seed data.
 
 Episode boundaries are tracked per env slot: each slot flushes its own
 episode (with the NaN bootstrap row) and is reset on its own. After the
-burst a vector step takes the JAX trainer's schedule (vec_online.py:
-132-181). With `fused_step` (the default) and `overlap_update` (the
-default) it plans with `act_collect` (the prep's and the plan's graph
-replays, one fetch of the actions), then queues the step's updates with
-`update_many_fused` (graph replays, no host sync) before stepping the
-envs, so that the card updates while the host runs physics; without
-`overlap_update` it makes one `vec_step` call (the plan, the updates, then
-the fetch, so the envs step after the updates). With `fused_step=false` it
-calls `act`, then `update_many`, before stepping the envs. The three give
-the same numbers on the same draws. A failure in any of them raises: the
-JAX trainer's fallback to the unfused calls (and its double count of
-update credit there, ROADMAP C) has no counterpart.
+burst a vector step plans and queues its updates with one `vec_step` call
+(the plan's graph replay, the updates' replays, then one fetch of the
+actions) before the envs step. It gives the numbers of the JAX trainer's
+three schedules (vec_online.py:132-181), which are equal on the same
+draws. `fused_step` and `overlap_update` are accepted, so that a JAX
+recipe runs unchanged, and select nothing: the JAX agent's `act_collect`
+and `update_many_fused` would be `act` and `update_many` here, the same
+replays in another order, and `vec_step` measured the faster of the two
+orders on the toy env (PERF.md). A failure raises: the JAX trainer's
+fallback to the unfused calls (and its double count of update credit
+there, ROADMAP C) has no counterpart.
 
 Evaluation reuses the training envs; in-progress training episodes are
 discarded at eval boundaries (only complete episodes enter the buffer).
@@ -109,22 +108,15 @@ class VecOnlineTrainer(OnlineTrainer):
 
     def _collect_and_update(self, obs, t0, pretrained, timer, train_metrics):
         """Actions for one vector step, with this step's updates queued
-        (JAX vec_online.py:126-181). Returns (actions, pretrained)."""
+        before the envs step (JAX vec_online.py:126-181). Returns (actions,
+        pretrained)."""
         cfg, n = self.cfg, self._n
-        if (cfg.fused_step and pretrained and self._step > cfg.seed_steps
-                and self._updates_now()):
-            k = self._updates_due(n)      # n unless update_ratio < 1
-            if cfg.overlap_update or k == 0:
-                actions = self.agent.act_collect(obs, t0)
-                timer.mark('act')
-                if k:
-                    train_metrics.update(self.agent.update_many_fused(
-                        self.buffer, k))
-                timer.mark('update')
-            else:
-                actions, info = self.agent.vec_step(self.buffer, obs, t0, k)
+        if pretrained and self._step > cfg.seed_steps:
+            k = self._updates_due(n) if self._updates_now() else 0
+            actions, info = self.agent.vec_step(self.buffer, obs, t0, k)
+            if info is not None:
                 train_metrics.update(info)
-                timer.mark('act')
+            timer.mark('act')
             return actions, pretrained
         if self._step > cfg.seed_steps:
             actions = self.agent.act(obs, t0=t0)

@@ -73,8 +73,8 @@ its inputs, the encoder in it) against its eager body. The update's graph
 on the same batch and draws, bit for bit (info, parameters, targets, Adam
 states, scale), on a state, an episodic, a pixel and a multi-task model;
 `update_many(4)` against four eager steps; a new parameter tree captured
-anew; `vec_step`, and `act_collect` + `update_many_fused`, against `act` +
-`update_many` (actions, info, state, warm starts)."""
+anew; `vec_step` against `act` + `update_many`, with four updates and
+with none (actions, info, state, warm starts)."""
 
 from pathlib import Path
 
@@ -1745,11 +1745,11 @@ def test_update_many_graph_equals_eager_steps(agent):
     assert Graph.captures['update'] == captures + 1
 
 
-@pytest.mark.parametrize('schedule', ['vec_step', 'pipelined'])
-def test_fused_schedules_equal_act_then_update_many(agent, schedule):
-    """vec_step, and act_collect + update_many_fused, against act +
-    update_many from the same state and generators at N = 4: actions,
-    info, the train state and the warm starts bit for bit."""
+@pytest.mark.parametrize('k', [4, 0], ids=['vec_step', 'no-updates'])
+def test_fused_schedules_equal_act_then_update_many(agent, k):
+    """vec_step against act + update_many from the same state and
+    generators at N = 4, with k updates: actions, info, the train state and
+    the warm starts bit for bit."""
     ag, buf = _update_agent('state')
     ag.update(buf)
     obs = np.random.default_rng(6).normal(size=(4, 10)).astype(np.float32)
@@ -1765,17 +1765,16 @@ def test_fused_schedules_equal_act_then_update_many(agent, schedule):
         ag._prep = None
         ag.generator.set_state(gens[0])
         buf.generator.set_state(gens[1])
-        if not fused:
-            a, info = ag.act(obs, t0=t0), ag.update_many(buf, 4)
-        elif schedule == 'vec_step':
-            a, info = ag.vec_step(buf, obs, t0, 4)
+        if fused:
+            a, info = ag.vec_step(buf, obs, t0, k)
         else:
-            a, info = ag.act_collect(obs, t0), ag.update_many_fused(buf, 4)
-        runs.append((a, {k: v.clone() for k, v in info.items()},
+            a, info = ag.act(obs, t0=t0), (ag.update_many(buf, k) if k else None)
+        runs.append((a, {name: v.clone() for name, v in (info or {}).items()},
                      _state_copy(ag) + [ag.prev_mean.clone()]))
     (a0, i0, s0), (a1, i1, s1) = runs
     np.testing.assert_array_equal(a0, a1)
-    for k in i0:
-        assert torch.equal(i0[k], i1[k]), k
+    assert set(i0) == set(i1) and bool(i0) == bool(k)
+    for name in i0:
+        assert torch.equal(i0[name], i1[name]), name
     for x, y in zip(s0, s1):
         assert torch.equal(x, y)

@@ -10,8 +10,8 @@ termination loss of the update.
 - the CEM loop (`cem_plan_plain`) against JAX `cem_prepared(episodic=True)`
   and `plan_vec` against the JAX agent's `_plan_vec`, each env fed the
   draws JAX made;
-- five `_update`s and one `_update_scan` against JAX from
-  `interop.state_from_jax`, on batches with about 20% of `terminated` set:
+- five `_update`s, and the steps of one `update_many` against JAX's
+  `_update_scan`, from `interop.state_from_jax`, on batches with about 20% of `terminated` set:
   every info key (incl. `termination_loss`, `termination_rate`,
   `termination_f1`) and the whole train state;
 - `sigmoid_binary_cross_entropy` against optax;
@@ -38,7 +38,7 @@ import torch
 
 from test_torch_planner import _jax_plan_noise, _perturb, _small
 from test_torch_train import _dims, _hold_states, _noise_from_jax
-from test_torch_vec import _StubAgent, _StubBuffer, _stack
+from test_torch_vec import _StubAgent, _StubBuffer, _as_vec_steps, _stack
 from tdmpc2_tpu.config import Config as JConfig, parse_cfg as jparse
 from tdmpc2_tpu.envs import make_env as jmake_env
 from tdmpc2_tpu.ops.pallas_cem import cem_prepared
@@ -358,7 +358,10 @@ def test_update_scan_episodic_matches_jax_update_scan():
     _assert_split(_predicted_split(tag, tstate.params, *(
         torch.from_numpy(x[0]) for x in batch[:2])))
     jstate, jinfo = jax.jit(jag._update_scan)(jstate, *batch)
-    tinfo = tag._update_scan(tstate, *(torch.from_numpy(x) for x in batch), noises)
+    tag.state = tstate
+    tb = [torch.from_numpy(x) for x in batch]
+    for i in range(n):                # update_many's steps, on these draws
+        tinfo = tag._step(tuple(x[i] for x in tb), noises[i])
     assert set(tinfo) == set(jinfo) and 'termination_f1' in tinfo
     for k in tinfo:
         np.testing.assert_allclose(float(tinfo[k]), float(jinfo[k]), **VTOL,
@@ -410,8 +413,10 @@ def _recording(logger, out):
 def test_trainers_match_jax_trainers_on_episodic_env(tmp_path, num_envs):
     """The same episodic env copies and the same (stub) agent under the JAX
     and the port's trainer give the same calls (t0 per env after a slot's
-    reset), the same episode flushes (valid_rows, obs, reward) and the same
-    logged episode lengths and termination flags."""
+    reset; each planned vector step of the JAX trainer's pipelined schedule
+    is the port's one `vec_step` call), the same episode flushes
+    (valid_rows, obs, reward) and the same logged episode lengths and
+    termination flags."""
     logs, metrics = {}, {}
     for name, (C, P, mk, Trainer, Log) in {
             'jax': (JConfig, jparse, jmake_env,
@@ -430,7 +435,7 @@ def test_trainers_match_jax_trainers_on_episodic_env(tmp_path, num_envs):
         Trainer(cfg=cfg, env=env, agent=_GoalAgent(log), buffer=_StubBuffer(log),
                 logger=_recording(Log(cfg), out)).train()
         logs[name], metrics[name] = log, out
-    assert logs['port'] == logs['jax']
+    assert logs['port'] == (_as_vec_steps(logs['jax']) if num_envs > 1 else logs['jax'])
     assert metrics['port'] == metrics['jax']
     lengths = [m[0] for m in metrics['port']]
     assert min(lengths) < 50 and any(m[1] for m in metrics['port'])

@@ -1,20 +1,22 @@
-"""PyTorch port vs the JAX package: the collection schedules built on the
+"""PyTorch port vs the JAX package: the collection step built on the
 update (CPU, small widths, f32).
 
-- `vec_step`, and `act_collect` + `update_many_fused`, against `act` +
-  `update_many` on the same draws, bit for bit: actions, infos, the train
-  state, the warm starts and both generators (the port's cases of JAX
-  tests/test_fused_step.py), and a ring in host RAM taking the unfused
-  calls, as the JAX agent's does;
-- the update-chunk cap: `sample_batch_bytes` and `device_ring_bytes`
-  against the JAX buffer's, `_auto_update_chunk` against the JAX agent's
-  on the same free-bytes number, and a capped `update_many` drawing its
-  batches chunk by chunk as JAX's does;
+- `vec_step` against `act` + `update_many` on the same draws, bit for bit:
+  actions, infos, the train state, the warm starts and both generators
+  (the port's case of JAX tests/test_fused_step.py), with no update owed
+  too, and a ring in host RAM taking `act` + `update_many`, as the JAX
+  agent's does;
+- the update-chunk cap: `sample_batch_bytes` and the ring's bytes against
+  the JAX buffer's, `_auto_update_chunk` against the JAX agent's on the
+  same free-bytes number (no cap without one), and a capped `update_many`
+  and `vec_step` drawing their batches chunk by chunk as JAX's
+  `update_many` does;
 - `buffer_device` placement against the JAX buffer's;
 - the new keys' defaults against JAX's `Config`, `profiler_port` refused;
 - `profile_dir`: ten updates in place of one, their trace written;
-- `VecOnlineTrainer` end to end under each schedule: the same run bit for
-  bit (JAX tests/test_fused_step.py::test_vec_trainer_fused_equals_unfused).
+- `VecOnlineTrainer` end to end under each JAX schedule's keys, and with
+  `vec_step` replaced by `act` + `update_many`: the same run bit for bit
+  (JAX tests/test_fused_step.py::test_vec_trainer_fused_equals_unfused).
 """
 
 import json
@@ -100,47 +102,44 @@ def _equal_infos(a, b):
         assert torch.equal(a[k], b[k]), k
 
 
-@pytest.mark.parametrize('schedule', ['vec_step', 'pipelined'])
-def test_fused_schedule_matches_act_then_update_many(schedule, monkeypatch):
-    """vec_step (JAX ::test_vec_step_matches_act_then_update_many), which
-    calls neither, and act_collect + update_many_fused
-    (::test_update_many_fused_matches_update_many), which are those calls,
-    equal act + update_many on the same draws, bit for bit."""
+@pytest.mark.parametrize('k', [N, 0], ids=['vec_step', 'no-updates'])
+def test_fused_schedule_matches_act_then_update_many(k, monkeypatch):
+    """vec_step (JAX ::test_vec_step_matches_act_then_update_many) equals
+    act + update_many on the same draws, bit for bit, without calling act;
+    with no update owed (k = 0, a step under update_ratio < 1) it is the
+    plan alone."""
     cfg = _cfg()
     seq, fused = (TDMPC2(cfg), _filled(cfg)), (TDMPC2(cfg), _filled(cfg))
     assert fused[1].on_device
-    if schedule == 'vec_step':
-        for name in ('act', 'update_many'):
-            monkeypatch.setattr(fused[0], name, lambda *a, **k: pytest.fail(
-                'the fused schedule took the unfused call'))
+    monkeypatch.setattr(fused[0], 'act', lambda *a, **kw: pytest.fail(
+        'vec_step took the host ring\'s calls'))
     rng = np.random.default_rng(1)
     obs = rng.standard_normal((N, OBS)).astype(np.float32)
     t0 = np.array([True, False])
     for _ in range(3):
         a_seq = seq[0].act(obs, t0=t0)
-        info_seq = seq[0].update_many(seq[1], N)
-        if schedule == 'vec_step':
-            a_f, info_f = fused[0].vec_step(fused[1], obs, t0, N)
-        else:
-            a_f = fused[0].act_collect(obs, t0)
-            info_f = fused[0].update_many_fused(fused[1], N)
+        info_seq = seq[0].update_many(seq[1], k) if k else None
+        a_f, info_f = fused[0].vec_step(fused[1], obs, t0, k)
         np.testing.assert_array_equal(a_seq, a_f)
-        _equal_infos(info_seq, info_f)
+        if k:
+            _equal_infos(info_seq, info_f)
+        else:
+            assert info_f is None
         t0 = np.array([False, False])
         obs = rng.standard_normal((N, OBS)).astype(np.float32)
     _same(seq, fused)
-    if schedule == 'vec_step':       # one update a step: the unbatched sample
-        a_seq = seq[0].act(obs[:1], t0=True)
-        seq[0].update_many(seq[1], 1)
-        a_f, _ = fused[0].vec_step(fused[1], obs[:1], np.array([True]), 1)
-        np.testing.assert_array_equal(a_seq, a_f)
-        _same(seq, fused)
+    # one update a step: the unbatched sample
+    a_seq = seq[0].act(obs[:1], t0=True)
+    seq[0].update_many(seq[1], 1)
+    a_f, _ = fused[0].vec_step(fused[1], obs[:1], np.array([True]), 1)
+    np.testing.assert_array_equal(a_seq, a_f)
+    _same(seq, fused)
 
 
 def test_vec_step_host_buffer_fallback(monkeypatch):
-    """A ring in host RAM takes act + update_many in vec_step, and
-    update_many in update_many_fused (JAX
-    ::test_vec_step_host_buffer_fallback), with the same numbers."""
+    """A ring in host RAM takes act + update_many in vec_step (JAX
+    ::test_vec_step_host_buffer_fallback), with the same numbers as the
+    one-call path on a device ring."""
     cfg = _cfg(buffer_device='host')
     agent, buf = TDMPC2(cfg), _filled(cfg)
     ref = (TDMPC2(cfg), _filled(_cfg()))
@@ -151,15 +150,13 @@ def test_vec_step_host_buffer_fallback(monkeypatch):
         monkeypatch.setattr(agent, name, lambda *a, fn=fn, name=name, **k: (
             calls.append(name), fn(*a, **k))[1])
     obs = np.zeros((N, OBS), np.float32)
-    a, info = agent.vec_step(buf, obs, np.array([True, True]), N)
+    t0 = np.array([True, True])
+    a, info = agent.vec_step(buf, obs, t0, N)
     assert calls == ['act', 'update_many'] and a.shape == (N, ACT)
     assert np.isfinite(float(info['total_loss']))
-    info_f = agent.update_many_fused(buf, N)
-    assert calls[2:] == ['update_many']
-    a_ref = ref[0].act(obs, t0=np.array([True, True]))
-    ref[0].update_many(ref[1], N)
-    _equal_infos(ref[0].update_many(ref[1], N), info_f)
+    a_ref, info_ref = ref[0].vec_step(ref[1], obs, t0, N)
     np.testing.assert_array_equal(a, a_ref)
+    _equal_infos(info_ref, info)
     _same((agent, buf), ref)
 
 
@@ -181,10 +178,12 @@ def test_batch_and_ring_bytes_match_jax_buffer(obs):
     for pkg, cls in (('jax', JBuffer), ('port', Buffer)):
         cfg = _cfg(pkg, obs=obs)
         buf = cls(cfg)
-        assert buf.sample_batch_bytes() is None and buf.device_ring_bytes() == 0
+        assert buf.sample_batch_bytes() is None
         for ep in eps:
             buf.add({k: v.copy() for k, v in ep.items()})
-        got[pkg] = (buf.sample_batch_bytes(), buf.device_ring_bytes())
+        got[pkg] = (buf.sample_batch_bytes(), buf.device_ring_bytes() if pkg == 'jax'
+                    else sum(v.numel() * v.element_size()
+                             for v in buf._storage.values()))
     assert got['port'] == got['jax'] and got['port'][0] > 0 and got['port'][1] > 0
 
 
@@ -215,9 +214,24 @@ def test_auto_update_chunk_matches_jax(free_mb, monkeypatch):
     assert TDMPC2(_cfg(update_chunk=3))._update_chunk(tbuf) == 3
 
 
+def test_auto_update_chunk_without_free_bytes_is_no_cap(monkeypatch):
+    """Where the device reports no free bytes (the CPU) the auto cap is 0,
+    no cap, whatever the batch; so is a ring not yet written."""
+    monkeypatch.setattr(agent_mod, 'device_free_bytes', lambda dev: None)
+    cfg = _cfg()
+    tag = TDMPC2(cfg)
+    assert tag._update_chunk(Buffer(cfg)) == 0
+    buf = _filled(cfg)
+    assert buf.sample_batch_bytes() > 0
+    assert tag._auto_update_chunk(buf) == tag._update_chunk(buf) == 0
+    monkeypatch.setattr(agent_mod, 'device_free_bytes', lambda dev: 10**12)
+    assert tag._auto_update_chunk(Buffer(cfg)) == 0       # no batch bytes yet
+    assert tag._auto_update_chunk(buf) > 0
+
+
 def test_chunked_update_many_draws_as_jax(monkeypatch):
     """update_chunk=3: update_many(8) draws 3, 3 and 2 batches, as the JAX
-    agent's does, and so does update_many_fused(8); both equal update_many
+    agent's does, and so do vec_step's 8 updates; both equal update_many
     calls of those sizes bit for bit."""
     sizes = {}
     for pkg, cls in (('jax', JBuffer), ('port', Buffer)):
@@ -229,11 +243,16 @@ def test_chunked_update_many_draws_as_jax(monkeypatch):
     jag.update_many(_filled(jcfg, JBuffer), 8)      # its draws, no update
     cfg = _cfg(update_chunk=3)
     capped, plain = (TDMPC2(cfg), _filled(cfg)), (TDMPC2(_cfg()), _filled(_cfg()))
+    obs, t0 = np.ones((N, OBS), np.float32), np.array([True, False])
     capped[0].update_many(capped[1], 8)
-    capped[0].update_many_fused(capped[1], 8)
+    a_capped, _ = capped[0].vec_step(capped[1], obs, t0, 8)
     assert sizes['jax'] == [3, 3, 2] and sizes['port'] == sizes['jax'] * 2
-    for n in (3, 3, 2, 3, 3, 2):
+    for n in (3, 3, 2):
         plain[0].update_many(plain[1], n)
+    a_plain = plain[0].act(obs, t0=t0)
+    for n in (3, 3, 2):
+        plain[0].update_many(plain[1], n)
+    np.testing.assert_array_equal(a_capped, a_plain)
     _same(capped, plain)
 
 
@@ -252,7 +271,6 @@ def test_buffer_device_placement_matches_jax(mode, free, monkeypatch):
     jbuf = _filled(_cfg('jax', buffer_device=mode), JBuffer, n_eps=1)
     buf = _filled(_cfg(buffer_device=mode), n_eps=1)
     assert buf.on_device == jbuf._on_device
-    assert buf.device_ring_bytes() == jbuf.device_ring_bytes()
     with pytest.raises(AssertionError):
         _filled(_cfg('jax', buffer_device='hbm'), JBuffer, n_eps=1)
     with pytest.raises(ValueError, match='buffer_device'):
@@ -319,24 +337,28 @@ def test_profile_dir_traces_ten_updates(tmp_path, monkeypatch):
 
 
 def test_vec_trainer_schedules_give_the_same_run(tmp_path):
-    """A vectorised run under the pipelined, the one-call and the unfused
-    schedule: the same final train state, warm starts and generators bit
-    for bit (JAX ::test_vec_trainer_fused_equals_unfused)."""
+    """A vectorised run under the keys of the JAX trainer's pipelined, one-call
+    and unfused schedules, each a `vec_step` a planned vector step, and one
+    whose `vec_step` is replaced by `act` + `update_many`: the same final
+    train state, warm starts and generators bit for bit (JAX
+    ::test_vec_trainer_fused_equals_unfused)."""
     runs = {}
     for name, fused, overlap in (('pipe', True, True), ('one', True, False),
-                                 ('plain', False, True)):
+                                 ('unfused', False, True), ('plain', True, True)):
         cfg = _tiny_train_cfg(tmp_path / name, steps=20, num_envs=N,
                               fused_step=fused, overlap_update=overlap)
         trainer = _trainer(VecOnlineTrainer, cfg, 4)
         agent, buf = trainer.agent, trainer.buffer
         calls = []
-        for fn in ('act_collect', 'vec_step', 'update_many_fused'):
-            orig = getattr(agent, fn)
-            setattr(agent, fn, lambda *a, orig=orig, fn=fn, **k: (
-                calls.append(fn), orig(*a, **k))[1])
+        if name == 'plain':
+            agent.vec_step = lambda buf, obs, t0, k: (
+                calls.append('act'), agent.act(obs, t0=t0),
+                agent.update_many(buf, k) if k else None)[1:]
+        else:
+            vec_step = agent.vec_step
+            agent.vec_step = lambda *a: (calls.append('vec_step'), vec_step(*a))[1]
         trainer.train()
-        assert set(calls) == {'pipe': {'act_collect', 'update_many_fused'},
-                              'one': {'vec_step'}, 'plain': set()}[name]
+        assert calls and set(calls) == {'act' if name == 'plain' else 'vec_step'}
         runs[name] = (agent, buf)
-    _same(runs['pipe'], runs['plain'])
-    _same(runs['one'], runs['plain'])
+    for name in ('pipe', 'one', 'unfused'):
+        _same(runs[name], runs['plain'])

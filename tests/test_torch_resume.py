@@ -53,9 +53,10 @@ def _cfg(work, jax=False, **kw):
     kw = {**SMALL, **kw}
     cfg = jparse(JConfig(**kw)) if jax else parse_cfg(Config(**kw, device='cpu'))
     cfg.work_dir = str(work)
-    cfg.fused_step = False               # act and update_many: the recorder's calls
     if jax:
         cfg.buffer_device = 'device'     # no 2 GiB trial allocation here
+        cfg.fused_step = False           # act and update_many, as the port's
+                                         # vec_step calls them on a recorder
     return cfg
 
 
@@ -83,6 +84,10 @@ class _Recorder:
     def update_many(self, buffer, n):
         self.calls.append((self.trainer._step, n))
         return {}
+
+    def vec_step(self, buffer, obs, t0, n):
+        """The vector trainer's step: `act`, then `update_many` if n."""
+        return self.act(obs), (self.update_many(buffer, n) if n else None)
 
     def save(self, fp, extra=None, buffer=None):
         Path(fp).parent.mkdir(parents=True, exist_ok=True)
