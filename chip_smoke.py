@@ -7,6 +7,7 @@
     python3 chip_smoke.py --rows          # the build, then the row phase alone
     python3 chip_smoke.py --stage         # the build, the staging and the fold's products
     python3 chip_smoke.py --pixels        # the build, the canary, the pixel phases
+    python3 chip_smoke.py --bf16-fleet    # the build, the canary, bf16 updates, the fleet
 
 Builds the port's CUDA kernels from `tdmpc2_tpu_torch/csrc` with nvcc,
 runs the kernel-engine canary, holds every kernel against its plain
@@ -43,7 +44,20 @@ and read just after:
   tasks of obs 39 and action 4): `OfflineTrainer` for 16 iterations on 2
   seeded chunks of the mt80 dataset's geometry (101-row episodes), then
   `act_tasks` over the 80 tasks for 3 lockstep steps, each a graph replay of
-  the 13 planner calls and their 385 launches of the wide engine.
+  the 13 planner calls and their 385 launches of the wide engine;
+- bf16 train: `train bf16_update=true` on `toy-reach`, one env, 1,200
+  steps (the update's products in bf16, acting f32 on the kernels);
+- the fleet: `train seeds=3,7,11` on `toy-reach` at the default 5M config
+  with 2 env copies a seed and with one, and on `toy-reach-episodic`
+  (`fleet_phases`), each seed's plans on its own kernels' graphs.
+
+Beside each of the five update graphs held (5M state and episodic, the
+walker pixel model, mt30/48, mt80/317) a `bf16_update=true` agent on the
+same state and batch (`bf16_twin_hold`): its graph against its eager body
+bit for bit, one bf16 update against one f32 update under JAX's contract
+(each loss within 5% of max(|f32|, 1), weights within 2e-3), its plan the
+f32 agent's bit for bit, its times. The fleet's seed k is held against
+the single agent of seed k bit for bit (plans and updates).
 
 At model_size 317 no row tile fits, and the value step and the pi rollout
 take the layer-per-launch engine (csrc/mlp_wide.cuh, ops/wide.py); the
@@ -268,6 +282,25 @@ PIXEL_STEPS, PIXEL_SEED_STEPS = 300, 100        # one env: the burst, then 200 p
 # num_envs=8: planned vector steps from env step 168; the first episodes end
 # at 8 x 50 = 400, where the 160-update burst runs, then 8 updates a vector step
 PIXEL_VEC_STEPS, PIXEL_VEC_SEED_STEPS = 480, 160
+# The bf16 update (bf16_update=true, `bf16_twin_hold`): beside each of the
+# five f32 update graphs held above, a bf16 agent on the same state and
+# batch. JAX's contract for it (tests/test_bf16_update.py:52-71): each loss
+# within 5% of max(|f32|, 1), the f32 master weights within 2e-3 of the f32
+# update's.
+BF16_LOSS_SHARE, BF16_PARAM_ATOL = 0.05, 2e-3
+BF16_LOSSES = ('total_loss', 'consistency_loss', 'reward_loss', 'value_loss',
+               'pi_loss', 'grad_norm')
+# The seed fleet (`seeds=`, `fleet_phases`): K = 3 seeds of toy-reach at the
+# default 5M config, 2 env copies a seed (and one), each seed's agent on its
+# own plan and update graphs; the seed phase cut to 200 steps (the burst of
+# 200 updates a seed there), evals (and checkpoints) at 0 and 400. The
+# episodic fleet's seed phase ends at 20, before its slowest seed's first
+# episode: the updates owed meanwhile join the burst.
+FLEET_SEEDS = (3, 7, 11)
+FLEET_ENVS = 2
+FLEET_STEPS, FLEET_SEED_STEPS = 400, 200
+FLEET_EP_STEPS, FLEET_EP_SEED_STEPS = 200, 20
+FLEET_LOOP_STEPS = 20      # timed vector steps of the trained fleet
 
 # Bands of kernel against plain version. Both round every dot input to
 # bf16 and accumulate in f32; they differ in summation order and in the
@@ -1599,6 +1632,7 @@ def multitask_phases(zero_counts, read_counts, check_plan_counts, update_records
         update_records['mt30/48'] = dict(update_record(
             'mt30, model_size 48', ag, buf.sample(), buf, reps=8),
             offline_iterations_per_s=MT_STEPS / secs)
+        bf16_twin_hold('mt30/48', ag, buf.sample(), update_records)
 
         # act_tasks over the 30 tasks on the data's observations
         task_store = buf._task_store
@@ -2782,6 +2816,7 @@ def wide_phases(zero_counts, read_counts, check_plan_counts, update_records):
         hold_update_graph(f'mt80, model_size {WIDE_SIZE}', ag, buf.sample())
         update_records[f'mt80/{WIDE_SIZE}'] = update_record(
             f'mt80, model_size {WIDE_SIZE}', ag, buf.sample(), buf, reps=4)
+        bf16_twin_hold(f'mt80/{WIDE_SIZE}', ag, buf.sample(), update_records)
         store, task_store = buf._storage['obs'], buf._task_store
         first = torch.stack([torch.nonzero(task_store == t)[0, 0] for t in range(NT)])
         obs_at = [store[first, r].cpu().numpy() for r in range(WIDE_ACT_STEPS + 1)]
@@ -3364,6 +3399,7 @@ def pixel_phases(zero_counts, read_counts, check_plan_counts, update_records):
                'bit; eager vs graph times'):
         hold_update_graph('walker pixels', ag, batch)
         update_records['walker pixels'] = update_record('walker pixels', ag, batch, reps=10)
+        bf16_twin_hold('walker pixels', ag, batch, update_records)
 
     with Phase('(e) pixels: the conv encoder\'s device time per act and per update; plans/s '
                'of act on the walker model'):
@@ -3745,6 +3781,314 @@ def hold_update(agent, batch):
             raise AssertionError(f'update: {name} outside {UPDATE_TOL}')
     agent._prep = None
     return clone_info(info_k)
+
+
+def bf16_twin_hold(label, ag, batch, records):
+    """The bf16 update beside the f32 agent `ag`'s: a `bf16_update=true`
+    agent on a copy of its state. Its update graph against its eager body
+    bit for bit (`hold_update_graph`); one bf16 update against one f32
+    update from the same state, batch and draws under JAX's contract; its
+    plan against `ag`'s on the same draws bit for bit (acting stays f32);
+    its eager and graph times (`update_record`) into records[f'{label} bf16']. `ag`'s
+    state, warm starts and generator are put back."""
+    import numpy as np
+    import torch
+    from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
+    from tdmpc2_tpu_torch.utils import tree
+    twin = TDMPC2(ag.cfg.replace(bf16_update=True), device='cuda')
+    twin.state = ag.state.to(ag.device)
+    if twin.model_upd.dtype != torch.bfloat16 or twin.model.dtype is not None:
+        raise AssertionError(f'{label} bf16: the update view is not bf16')
+    hold_update_graph(f'{label} bf16', twin, batch)
+    # the hold left the twin one eager step on: back to `ag`'s state
+    gen = ag.generator.get_state()
+    saved_f = snapshot(ag, warm=True)
+    restore(twin, saved_f, warm=True)
+    saved_b = snapshot(twin, warm=True)
+    noise = ag.draw_update_noise()
+    info_f = ag._update(ag.state, *batch[:4], noise, *batch[4:])
+    info_b = twin._update(twin.state, *batch[:4], noise, *batch[4:])
+    loss_share = {}
+    for k in BF16_LOSSES:
+        a, b = float(info_f[k]), float(info_b[k])
+        loss_share[k] = abs(a - b) / max(abs(a), 1.0)
+        if not math.isfinite(b) or loss_share[k] > BF16_LOSS_SHARE:
+            raise AssertionError(f'{label} bf16: {k} {b} against f32 {a}')
+    p_err = 0.0
+    for pf, pb in zip(tree.leaves(ag.state.params), tree.leaves(twin.state.params)):
+        if pb.dtype != torch.float32:
+            raise AssertionError(f'{label} bf16: a master weight in {pb.dtype}')
+        p_err = max(p_err, max_err(pf, pb))
+    if p_err > BF16_PARAM_ATOL:
+        raise AssertionError(f'{label} bf16: params {p_err:.3g} from the f32 update\'s')
+    log(f'  {label} bf16 vs f32, one update: losses within '
+        f'{100 * max(loss_share.values()):.3f}% of max(|f32|, 1) '
+        f'({ {k: round(v, 5) for k, v in loss_share.items()} }), params within '
+        f'{p_err:.3g} (contract {100 * BF16_LOSS_SHARE:.0f}%, {BF16_PARAM_ATOL})')
+    restore(ag, saved_f, warm=True)
+    restore(twin, saved_b, warm=True)
+    n = min(ag.prev_mean.shape[0], N_ENVS)
+    obs = batch[0][0, :n]
+    task = batch[4][:n].int() if len(batch) > 4 else None
+    pnoise = ag.draw_noise(n)
+    t0 = np.arange(n) % 2 == 0
+    got = [x.clone() for x in twin.plan_vec(obs, t0, noise=pnoise, task=task)]
+    want = [x.clone() for x in ag.plan_vec(obs, t0, noise=pnoise, task=task)]
+    same_bits(f'{label} bf16: the plan (actions, means)', got, want)
+    restore(ag, saved_f, warm=True)
+    ag.generator.set_state(gen)
+    log(f'  {label} bf16: the plan at n={n} equals the f32 agent\'s bit for bit')
+    records[f'{label} bf16'] = dict(update_record(f'{label} bf16', twin, batch, reps=8),
+                                    loss_share=max(loss_share.values()), param_err=p_err)
+    del twin
+    torch.cuda.empty_cache()
+
+
+def fleet_phases(zero_counts, read_counts, check_plan_counts):
+    """The seed fleet at the default 5M config on toy-reach: seed k's plan
+    and update against the single agent of seed k bit for bit; `train
+    seeds=3,7,11` with 2 env copies a seed and with one, and the episodic
+    fleet, each with the counts zeroed just before and read after; each
+    seed's artifacts; the launches and replays of one fleet `act` and of
+    one update step; env-steps/s of the trained fleet, a seed and in all.
+    Returns (launch counts by path, metrics)."""
+    import numpy as np
+    import torch
+    from tdmpc2_tpu_torch import train as train_mod
+    from tdmpc2_tpu_torch.config import load_cfg
+    from tdmpc2_tpu_torch.envs import make_env
+    from tdmpc2_tpu_torch.fleet import FleetAgent
+    from tdmpc2_tpu_torch.ops import probe
+    from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
+    from tdmpc2_tpu_torch.trainer.fleet_online import FleetOnlineTrainer
+    dev = torch.device('cuda')
+    K, N = len(FLEET_SEEDS), FLEET_ENVS
+    seeds = ','.join(map(str, FLEET_SEEDS))
+    paths, metrics = {}, {}
+
+    with Phase(f'fleet: seed k\'s plan and update against the single agent of seed k, '
+               f'bit for bit (K={K}, {N} envs a seed, 5M model)'):
+        cfg = load_cfg(overrides=['task=toy-reach', f'num_envs={N}', 'device=cuda'])
+        make_env(cfg)
+        fleet = FleetAgent(cfg, FLEET_SEEDS)
+        singles = [TDMPC2(cfg.replace(seed=s), device='cuda') for s in FLEET_SEEDS]
+        for k, single in enumerate(singles):
+            same_bits(f'fleet seed {k}: the initial state', snapshot(fleet.agents[k], True),
+                      snapshot(single, True))
+            gk = torch.Generator().manual_seed(FLEET_SEEDS[k])
+            p = perturbed(single.model.init(gk), gk)
+            fleet.agents[k].load_params(p)
+            single.load_params(p)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        obs = torch.randn(K, N, cfg.obs_shape['state'][0], device=dev, generator=g)
+        for t0 in (True, False):
+            noise = [s.draw_noise(N) for s in singles]
+            a = fleet.act(obs.cpu().numpy(), t0=t0, noise=noise)
+            for k, s in enumerate(singles):
+                a_s, m_s = s.plan_vec(obs[k], np.full(N, t0), noise=noise[k])
+                same_bits(f'fleet seed {k}: the plan (t0={t0})',
+                          [torch.from_numpy(a[k]), fleet.agents[k].prev_mean],
+                          [a_s.cpu(), s.prev_mean])
+        T, B, A = cfg.horizon, cfg.batch_size, cfg.action_dim
+        batch = (torch.randn(K, 1, T + 1, B, obs.shape[-1], device=dev, generator=g),
+                 torch.rand(K, 1, T, B, A, device=dev, generator=g) * 2 - 1,
+                 torch.rand(K, 1, T, B, 1, device=dev, generator=g),
+                 torch.zeros(K, 1, T, B, 1, device=dev))
+        for rep in range(2):          # the capture's eager warm-up, then a replay
+            unoise = [[s.draw_update_noise()] for s in singles]
+            info = fleet._update_batches(batch, 1, unoise)
+            infos = [clone_info(s._step(tuple(x[k, 0] for x in batch), unoise[k][0]))
+                     for k, s in enumerate(singles)]
+            for k, s in enumerate(singles):
+                same_bits(f'fleet seed {k}: the update ({"capture" if rep == 0 else "replay"})',
+                          snapshot(fleet.agents[k]), snapshot(s))
+            mean = {key: torch.stack([i[key] for i in infos]).mean(0) for key in infos[0]}
+            same_bits('fleet: the seed-averaged info', info, mean)
+        log(f'  {K} seeds: the initial states, the plans (t0 and warm starts: actions and '
+            'means) and two updates (a capture, a replay) equal the single agents\' bit '
+            'for bit')
+        del fleet, singles
+
+    orig_env = train_mod.make_fleet_env
+
+    def fleet_path(name, extra, seed_steps, steps):
+        """`train seeds=...` with the seed phase cut to `seed_steps`, the
+        counts zeroed just before and read after; (trainer, counts, s)."""
+        def cut(cfg, s):
+            env = orig_env(cfg, s)
+            cfg.seed_steps = seed_steps
+            return env
+        train_mod.make_fleet_env = cut
+        try:
+            probe._verdict = None       # as in a fresh process
+            zero_counts()
+            t0 = time.perf_counter()
+            tr = train_mod.main([f'seeds={seeds}', f'steps={steps}', f'eval_freq={steps}',
+                                 'eval_episodes=1', 'device=cuda',
+                                 f'exp_name=chip_smoke_{name}', *extra])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+        finally:
+            train_mod.make_fleet_env = orig_env
+        if not isinstance(tr, FleetOnlineTrainer) or tr.K != K:
+            raise AssertionError(f'{name}: not a fleet of {K}')
+        log(f'  {tr._step} env steps a seed ({K * tr._step} in all), {tr._n_updates} '
+            f'updates a seed in {secs:.1f} s ({K * tr._step / secs:.1f} env-steps/s in all '
+            f'over the whole run); launches {counts}')
+        check_update_counts(name, counts, K * tr._n_updates)
+        if counts['update_captures'] != K:
+            raise AssertionError(f'{name}: {counts["update_captures"]} update captures')
+        for k in ('value_sampled', 'cem_pi_rollout', 'cem_elite', 'probe'):
+            if counts[k] <= 0:
+                raise AssertionError(f'{name}: kernel {k} never launched')
+        check_plan_counts(name, counts)
+        if tr._update_deficit != 0 or abs(tr._n_updates - tr._step) > tr.N:
+            raise AssertionError(f'{name}: {tr._n_updates} updates for {tr._step} steps, '
+                                 f'{tr._update_deficit} owed')
+        for k, s in enumerate(FLEET_SEEDS):
+            d = tr.agent.work_dir(k)
+            csv = (d / 'eval.csv').read_text().splitlines()
+            ckpt = d / 'models' / 'latest.pkl'
+            log(f'  seed {s}: {d / "eval.csv"} ({len(csv) - 1} evals: '
+                f'{csv[1:]}), {ckpt}')
+            if len(csv) < 3 or not ckpt.exists():
+                raise AssertionError(f'{name}: seed {s}\'s artifacts')
+        return tr, counts, secs
+
+    with Phase(f'path: train seeds={seeds} num_envs={N}, toy-reach, 5M model, '
+               f'{FLEET_STEPS} env steps a seed'):
+        tr, paths[f'train fleet K={K} x {N} envs'], secs = fleet_path(
+            'fleet', [f'num_envs={N}', 'task=toy-reach'], FLEET_SEED_STEPS, FLEET_STEPS)
+        single = TDMPC2(tr.cfg.replace(seed=FLEET_SEEDS[0], num_envs=N), device='cuda')
+        single.load(tr.agent.work_dir(0) / 'models' / 'latest.pkl')
+        same_bits('fleet seed 0: its checkpoint in a single agent', snapshot(single),
+                  snapshot(tr.agent.agents[0]))
+        log('  seed 0\'s checkpoint loads into a single agent bit for bit')
+        metrics['whole_run_env_steps_per_s'] = K * tr._step / secs
+
+    with Phase(f'fleet: the launches of one act and of one update step; env-steps/s of '
+               f'the trained fleet ({FLEET_LOOP_STEPS} vector steps)'):
+        fleet, buf, env = tr.agent, tr.buffer, tr.env
+        obs = env.reset()
+        o = obs.reshape(K, N, -1)
+        fleet.act(o, t0=True)
+        I = fleet.agents[0].iterations
+        zero_counts()
+        fleet.act(o, t0=False)
+        act_counts = read_counts()
+        zero_counts()
+        fleet.update_many(buf, N)
+        torch.cuda.synchronize()
+        upd_counts = read_counts()
+        log(f'  one fleet act: {act_counts["plan_replays"]} plan graph replays, '
+            f'{act_counts["cem_pi_rollout"]} pi rollouts, {act_counts["value_sampled"]} '
+            f'sampled value steps, {act_counts["cem_elite"]} elite steps (K={K} plans of '
+            f'1 + 2 x {I} kernel calls, a replay each); one update step '
+            f'(update_many({N})): {upd_counts["update_replays"]} update graph replays')
+        if (act_counts['plan_replays'], act_counts['cem_pi_rollout'],
+                act_counts['value_sampled'], act_counts['cem_elite']) != (K, K, K * I, K * I):
+            raise AssertionError(f'one fleet act: {act_counts}')
+        if upd_counts['update_replays'] != K * N or upd_counts['plan_replays']:
+            raise AssertionError(f'one fleet update step: {upd_counts}')
+        t_in = np.zeros(K * N, np.int64)
+        ph = dict(step=0.0, env=0.0)
+        torch.cuda.synchronize()
+        t_all = time.perf_counter()
+        for _ in range(FLEET_LOOP_STEPS):
+            t1 = time.perf_counter()
+            a, _ = fleet.step(buf, obs.reshape(K, N, -1), (t_in == 0).reshape(K, N), N)
+            t2 = time.perf_counter()
+            obs, _, dones, _ = env.step(a.reshape(K * N, -1))
+            t_in += 1
+            for j in np.flatnonzero(dones):
+                obs[j] = env.reset_at(j)
+                t_in[j] = 0
+            ph['step'] += t2 - t1
+            ph['env'] += time.perf_counter() - t2
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t_all) / FLEET_LOOP_STEPS
+        busy, n_dev, _ = device_share(
+            lambda: fleet.step(buf, obs.reshape(K, N, -1), False, N), 3)
+        metrics.update(env_steps_per_s_a_seed=N / dt, env_steps_per_s=K * N / dt,
+                       ms_per_vector_step=1e3 * dt, step_device_ms=busy,
+                       step_activities=n_dev, act_launches=act_counts,
+                       update_step_launches=upd_counts)
+        log(f'  trained fleet, `step` (K plans, {N} updates a seed, one fetch) then the '
+            f'envs: {1e3 * dt:.2f} ms a vector step, {N / dt:.1f} env-steps/s a seed, '
+            f'{K * N / dt:.1f} in all (host clock; step {1e3 * ph["step"] / FLEET_LOOP_STEPS:.2f}'
+            f' ms, env {1e3 * ph["env"] / FLEET_LOOP_STEPS:.2f} ms); one step\'s device busy '
+            f'{busy} ms over {n_dev} activities (torch.profiler)')
+        del fleet, buf, env, tr
+
+    with Phase(f'path: train seeds={seeds} num_envs=1, toy-reach, 5M model, '
+               f'{FLEET_STEPS} env steps a seed'):
+        _, paths[f'train fleet K={K} x 1 env'], _ = fleet_path(
+            'fleet_one_env', ['task=toy-reach'], FLEET_SEED_STEPS, FLEET_STEPS)
+
+    with Phase(f'path: train seeds={seeds} {EP_TASK} episodic=true num_envs={N}, 5M '
+               f'model, {FLEET_EP_STEPS} env steps a seed, the seed phase {FLEET_EP_SEED_STEPS}'):
+        tr, paths['train fleet episodic'], _ = fleet_path(
+            'fleet_episodic', [*EP_ARGS, f'num_envs={N}'], FLEET_EP_SEED_STEPS,
+            FLEET_EP_STEPS)
+        log(f'  {tr._n_updates} updates a seed for {tr._step} env steps, '
+            f'{tr._update_deficit} owed at the end')
+        del tr
+    torch.cuda.empty_cache()
+    return paths, metrics
+
+
+def bf16_fleet_only() -> int:
+    """`--bf16-fleet`: the build, the canary, the bf16 update beside the f32
+    one on a seeded 5M state agent and a 5M pixel agent, then the fleet
+    phases, for a quick check of this slice on the card."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 2
+    from tdmpc2_tpu_torch.config import load_cfg
+    from tdmpc2_tpu_torch.envs import make_env
+    from tdmpc2_tpu_torch.ops import _build, probe
+    from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    for name, (secs, _) in _build.build().items():
+        log(f'  {name}.cu built in {secs:.1f} s')
+    if not probe.kernel_engine_alive(torch.device('cuda')):
+        raise AssertionError(f'canary: {probe.verdict()["reason"]}')
+    dev = torch.device('cuda')
+    records = {}
+    for label, cfg in (('5M state', load_cfg(overrides=['task=toy-reach', f'seed={SEED}'])),
+                       ('5M pixels', pixel_cfg())):
+        with Phase(f'{label}: the bf16 update beside the f32 one'):
+            if cfg.obs == 'state':
+                make_env(cfg)
+            ag = TDMPC2(cfg, device='cuda')
+            gen = torch.Generator().manual_seed(SEED)
+            ag.load_params(perturbed(ag.model.init(gen), gen))
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            T, B, A = cfg.horizon, cfg.batch_size, cfg.action_dim
+            shape = cfg.obs_shape[cfg.obs]
+            o = (torch.randint(0, 256, (T + 1, B, *shape), device=dev, generator=g,
+                               dtype=torch.uint8) if cfg.obs == 'rgb'
+                 else torch.randn(T + 1, B, *shape, device=dev, generator=g))
+            batch = (o, torch.rand(T, B, A, device=dev, generator=g) * 2 - 1,
+                     torch.rand(T, B, 1, device=dev, generator=g), torch.zeros(T, B, 1, device=dev))
+            hold_update_graph(label, ag, batch)
+            update_record(label, ag, batch, reps=8)
+            bf16_twin_hold(label, ag, batch, records)
+            del ag
+    _, zero_counts, read_counts, check_plan_counts = plan_counters(
+        load_cfg(overrides=['task=toy-reach']).iterations)
+    paths, metrics = fleet_phases(zero_counts, read_counts, check_plan_counts)
+    log(f'[done] {time.perf_counter() - t_start:.1f} s')
+    log(smi)
+    log(json.dumps({'bf16_update': records, 'fleet': metrics, 'launches': paths},
+                   default=str))
+    return 0
 
 
 def main() -> int:
@@ -4398,6 +4742,13 @@ def main() -> int:
         check_episodic(f'episodic num_envs={NE}', vep_lengths + [
             round(e['episode_length']) for e in vep_evals], vep_losses)
 
+    with Phase(f'path: train toy-reach bf16_update=true, 5M model, {TRAIN_STEPS} steps, '
+               'one env'):
+        bf_trainer, bf16_launches, _, _, _, _ = train_path('bf16', ['bf16_update=true'])
+        if bf_trainer.agent.model_upd.dtype != torch.bfloat16:
+            raise AssertionError('bf16 path: the update view is not bf16')
+        del bf_trainer
+
     with Phase(f'path: evaluate {EP_TASK} episodic=true from the num_envs={NE} '
                f'run\'s checkpoint, {EP_EVAL_EPISODES} episodes'):
         ckpt = Path(vep_trainer.cfg.work_dir) / 'models' / 'latest.pkl'
@@ -4445,6 +4796,11 @@ def main() -> int:
                                                    buffer)
         update_records['5M episodic'] = update_record('5M episodic', ep_trainer.agent,
                                                       e_batch, ep_trainer.buffer)
+    with Phase('the bf16 update (bf16_update=true) beside the f32 one: its graph vs its '
+               'eager body, JAX\'s contract against f32, its plan, its times; 5M state '
+               'and episodic'):
+        bf16_twin_hold('5M state', t_agent, buffer.sample(), update_records)
+        bf16_twin_hold('5M episodic', ep_trainer.agent, e_batch, update_records)
 
     with Phase('training path timing (update steps/s, env-steps/s)'):
         B = trainer.cfg.batch_size
@@ -4638,6 +4994,7 @@ def main() -> int:
                                           update_records)
     for k, e in pix_errs.items():
         ckpt_errs.setdefault(k, {})[f'{PIXEL_CKPT[0]}-rgb'] = e
+    fleet_paths, fleet_metrics = fleet_phases(zero_counts, read_counts, check_plan_counts)
 
     with Phase('timing (CUDA events) and bounds, one env and N envs'):
         HA = H * A
@@ -4727,7 +5084,8 @@ def main() -> int:
                  'evaluate episodic': ev_ep_launches,
                  'train episodic, one env': ep_launches,
                  f'train episodic, num_envs={NE}': vep_launches, **mt_paths,
-                 **w_paths, **ckpt_paths, **pix_paths}
+                 **w_paths, **ckpt_paths, **pix_paths, 'train bf16, one env': bf16_launches,
+                 **fleet_paths}
         episodic_paths = ('evaluate episodic', 'train episodic, one env',
                           f'train episodic, num_envs={NE}')
         kernels = []
@@ -4858,6 +5216,7 @@ def main() -> int:
 
     log(f'  seconds to read each committed checkpoint on this machine: {ckpt_read_s}')
     log(json.dumps({'update_graph': update_records}))
+    log(json.dumps({'fleet': fleet_metrics}, default=str))
     log(f'[done] {time.perf_counter() - t_start:.1f} s')
     log(smi)
     log(json.dumps({'kernels': kernels}))
@@ -4878,6 +5237,8 @@ if __name__ == '__main__':
         sys.exit(rows_only())
     if len(sys.argv) == 2 and sys.argv[1] == '--stage':
         sys.exit(stage_only())
+    if len(sys.argv) == 2 and sys.argv[1] == '--bf16-fleet':
+        sys.exit(bf16_fleet_only())
     if len(sys.argv) == 2 and sys.argv[1] == '--pixels':
         sys.exit(pixels_only())
 

@@ -4,13 +4,18 @@ A copy of the reference-facing part of ``tdmpc2_tpu/config.py``: the same
 ``Config`` field names and defaults (reference tdmpc2/config.yaml), the same
 ``MODEL_SIZE`` table and the same ``key=value`` override parser, so a recipe
 that runs the JAX package runs the port unchanged. Fields that only steer
-the JAX runtime (mesh, platform, Pallas gates) are left out, and
-``profiler_port`` (a jax.profiler trace server) is refused with its reason;
-the collection schedules' keys (``fused_step``, ``overlap_update``,
+the JAX runtime (mesh, platform, Pallas gates, XLA precision, compilation),
+wandb's and ``profiler_port`` (a jax.profiler trace server) are in
+``REFUSED_KEYS`` with the reason the port refuses each: a value the JAX
+package takes by default asks nothing and is accepted, any other raises.
+The collection schedules' keys (``fused_step``, ``overlap_update``,
 ``update_chunk``, ``buffer_device``) and ``profile_dir`` are the JAX
 package's, with its defaults (``fused_step`` and ``overlap_update`` select
-nothing: the port has one schedule). One field is added: ``device``, where
-the port runs (``cuda`` unless the caller asks for ``cpu``). The multi-task sets (``mt30``, ``mt80``: the
+nothing: the port has one schedule); ``bf16_update`` takes the update's
+products with bf16 operands and f32 sums (JAX config.py:149-152), and
+``seeds`` trains a fleet of seeds of one task in one process (fleet.py).
+One field is added: ``device``, where the port runs (``cuda`` unless the
+caller asks for ``cpu``). The multi-task sets (``mt30``, ``mt80``: the
 order of a set is the task embedding's index) and the ``task_dim`` rule
 are the JAX package's.
 
@@ -139,9 +144,8 @@ class Config:
     dropout: float = 0.01
     simnorm_dim: int = 8
 
-    # online training (JAX config names and defaults; the port trains one
-    # seed and raises on seed fleets; multi-task configs train offline,
-    # trainer/offline.py)
+    # online training (JAX config names and defaults; multi-task configs
+    # train offline, trainer/offline.py)
     update_ratio: float = 1.0
     # after a resume, no updates until the restored policy has collected
     # this many env steps (a restored buffer snapshot's steps count): a
@@ -171,6 +175,11 @@ class Config:
     # replay ring placement (JAX config.py:217-219): 'auto' (the 2.5x-bytes
     # rule), 'device' or 'host' (data/buffer.py)
     buffer_device: str = 'auto'
+    # run the update's products with bf16 operands and f32 sums, f32
+    # master weights (JAX config.py:149-152); acting stays f32
+    bf16_update: bool = False
+    # a fleet: 'seeds=1,2,3' trains K seeds of the task in one process
+    # (fleet.py, trainer/fleet_online.py; JAX config.py:240-243)
     seeds: Any = None
     # continue from work_dir/models: 'latest.pkl' online, the newest
     # iteration checkpoint offline
@@ -281,11 +290,37 @@ def parse_cfg(cfg: Config) -> Config:
     return cfg
 
 
-# JAX config keys the port refuses, with the reason
+# JAX config keys the port refuses: {key: (the values that ask nothing,
+# the JAX default first; the reason any other is refused)}
 REFUSED_KEYS = {
-    'profiler_port': 'profiler_port starts a jax.profiler trace server, which '
-                     'torch has no counterpart of; set profile_dir for a '
-                     'torch.profiler trace of ten updates instead',
+    'profiler_port': ((None,), 'profiler_port starts a jax.profiler trace '
+                      'server, which torch has no counterpart of; set '
+                      'profile_dir for a torch.profiler trace of ten updates '
+                      'instead'),
+    'mesh_shape': ((None,), 'mesh_shape shards the model over a device mesh: '
+                   'data parallelism and FSDP on torch.distributed are '
+                   'ROADMAP A10, not ported yet'),
+    'vec_mode': (('auto', 'inproc'), 'vec_mode=subproc steps the env copies in '
+                 'worker processes, which serve the rendered dm_control rgb '
+                 'tasks; they come with those tasks (ROADMAP A11), and the '
+                 "port's env copies step in this process (inproc)"),
+    'compile': ((True,), 'compile: the JAX package always jits; the port '
+                'captures CUDA graphs of the plan and the update on the card '
+                'and has no switch for them'),
+    'use_pallas': ((True,), "use_pallas=false asks for the JAX package's plain "
+                   'XLA planner; the port plans through its CUDA kernels on '
+                   'the card and has no plain planner there'),
+    'platform': ((None,), 'platform selects a JAX backend; the port runs where '
+                 'device= says (cuda or cpu)'),
+    'matmul_precision': (('default',), "matmul_precision sets XLA's f32 matmul "
+                         "precision; the port's f32 products are f32 (TF32 "
+                         'off), and bf16_update=true takes bf16 operands in '
+                         'the update'),
+    'enable_wandb': ((False,), 'the port logs to the console and csv files; '
+                     'it has no wandb logger'),
+    'wandb_project': ((None,), 'the port has no wandb logger'),
+    'wandb_entity': ((None,), 'the port has no wandb logger'),
+    'wandb_silent': ((False,), 'the port has no wandb logger'),
 }
 
 
@@ -301,8 +336,9 @@ def load_cfg(yaml_path: Optional[str] = None, overrides=()) -> Config:
     known = {f.name for f in dataclasses.fields(Config)}
     for k, v in values.items():
         if k in REFUSED_KEYS:
-            if v is not None:       # None is the JAX default: nothing asked
-                raise ValueError(REFUSED_KEYS[k])
+            accepted, reason = REFUSED_KEYS[k]
+            if not any(v == a and type(v) is type(a) for a in accepted):
+                raise ValueError(f'{k}={v!r}: {reason}')
             continue
         if k not in known:
             raise ValueError(f'Unknown config key: {k}')

@@ -10,7 +10,9 @@ env directly, as the JAX package's pixel loop does
 (tests/test_pixels_loop.py). `num_envs > 1` builds a `VecEnv` of
 decorrelated copies stepped in this process (JAX envs/__init__.py:66-92);
 the JAX package's worker-process copies (`vec_mode=subproc`) serve the
-rendered dm_control tasks and come with them (ROADMAP A11). A multi-task
+rendered dm_control tasks and come with them (ROADMAP A11).
+`make_fleet_env(cfg, seeds)` builds the flat `VecEnv` of a seed fleet (K
+seeds x num_envs copies, JAX envs/__init__.py:45-63). A multi-task
 config builds a `MultitaskEnv` of one env per task and fills the per-task
 fields (obs_shapes, action_dims, episode_lengths), as `make_multitask_env`
 does in the JAX package (envs/__init__.py:14-28); a task the port has no
@@ -65,6 +67,22 @@ def _make_single_env(cfg):
             f'tasks only so far (ROADMAP A11): {e}') from e
 
 
+def make_fleet_env(cfg, seeds):
+    """A flat `VecEnv` of K seeds x cfg.num_envs copies for a fleet (JAX
+    envs/__init__.py:45-63): copy (k, i) is seeded seeds[k] + 1000*i, the
+    env seeds K single-seed runs would use. In-process copies only (the
+    worker-process `vec_mode=subproc` waits on ROADMAP A11). Fills cfg's
+    env fields as `make_env` does."""
+    _check_obs(cfg)
+    if cfg.multitask:
+        raise ValueError('a fleet trains one task online (single-task)')
+    env = make_vec_env(cfg, _make_single_env, seed_list=[
+        int(s) + 1000 * i for s in seeds
+        for i in range(int(cfg.get('num_envs') or 1))])
+    _fill_env_cfg(cfg, env)
+    return env
+
+
 def make_env(cfg):
     _check_obs(cfg)
     if cfg.multitask:
@@ -73,8 +91,12 @@ def make_env(cfg):
         env = make_vec_env(cfg, _make_single_env)
     else:
         env = _make_single_env(cfg)
+    _fill_env_cfg(cfg, env)
+    return env
+
+
+def _fill_env_cfg(cfg, env):
     cfg.obs_shape = {cfg.get('obs', 'state'): tuple(env.observation_space.shape)}
     cfg.action_dim = env.action_space.shape[0]
     cfg.episode_length = env.max_episode_steps
     cfg.seed_steps = max(1000, 5 * cfg.episode_length)
-    return env

@@ -52,11 +52,15 @@ class VecEnv:
         return self.envs[0].render(*args, **kwargs)
 
 
-def make_vec_env(cfg, make_single):
-    """A VecEnv of cfg.num_envs decorrelated copies, seeded cfg.seed + 1000*i."""
+def make_vec_env(cfg, make_single, seed_list=None):
+    """A VecEnv of cfg.num_envs decorrelated copies, seeded cfg.seed + 1000*i;
+    `seed_list` gives the copies' count and seeds instead (a fleet: K seeds
+    x N copies)."""
+    seeds = (list(seed_list) if seed_list is not None
+             else [cfg.seed + 1000 * i for i in range(cfg.num_envs)])
     envs = []
-    for i in range(cfg.num_envs):
+    for s in seeds:
         c = deepcopy(cfg)
-        c.seed = int(cfg.seed + 1000 * i)
+        c.seed = int(s)
         envs.append(make_single(c))
     return VecEnv(envs)

@@ -11,7 +11,8 @@ across, from a live JAX TrainState or from a pickled one alike (the same
 namedtuple fields); `state_from_jax` carries a whole JAX TrainState:
 parameters, target Q heads, both optimiser states, the running scale and
 the planner's per-env warm starts, so one JAX state and one port state take
-the same update step and plan from the same means.
+the same update step and plan from the same means. `fleet_states_from_jax`
+cuts a JAX fleet's seed-stacked TrainState into the port's K states.
 
 `load_blob` reads a checkpoint file (pickle, gzip-sniffed) of the JAX
 package or of the port without `jax`, `optax` or `ml_dtypes`: a restricted
@@ -25,8 +26,10 @@ optax's order. Any other class raises `pickle.UnpicklingError`.
 
 from __future__ import annotations
 
+import dataclasses
 import gzip
 import pickle
+from types import SimpleNamespace
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -89,6 +92,34 @@ def state_from_jax(state, device='cpu'):
         pi_opt_state=pi_opt_state,
         scale=torch.tensor(np.asarray(state.scale, np.float32), device=device),
         prev_mean=_leaf(state.prev_mean, device))
+
+
+def _seed_slice(tree, k: int):
+    """Leaf [k] of every array leaf of a JAX pytree of numpy leaves (dicts,
+    tuples, namedtuples such as optax's states, dataclasses such as the
+    TrainState); None stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {key: _seed_slice(v, k) for key, v in tree.items()}
+    if hasattr(tree, '_fields'):
+        return type(tree)(*(_seed_slice(v, k) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_seed_slice(v, k) for v in tree)
+    if dataclasses.is_dataclass(tree):
+        return SimpleNamespace(**{f.name: _seed_slice(getattr(tree, f.name), k)
+                                  for f in dataclasses.fields(tree)})
+    return np.asarray(tree)[k]
+
+
+def fleet_states_from_jax(state, device='cpu') -> list:
+    """A JAX `FleetAgent.state` (every leaf with a leading [K] seed axis,
+    numpy leaves: `jax.tree.map(np.asarray, fleet.state)`) -> the port's K
+    TrainStates, seed k's from leaf [k] (JAX fleet.py:49-53), for
+    `FleetAgent.load_states`."""
+    k_seeds = int(np.asarray(state.scale).shape[0])
+    return [state_from_jax(_seed_slice(state, k), device)
+            for k in range(k_seeds)]
 
 
 # ------------------------------------------------------ reading a checkpoint

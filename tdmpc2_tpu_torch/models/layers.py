@@ -11,6 +11,12 @@ its layout, so weights carry across by renaming nothing:
 
 Dropout takes its keep-mask as an input, and ShiftAug its integer shifts
 (noise is data in the port).
+
+`dtype=torch.bfloat16` (the update's view under `cfg.bf16_update`; JAX
+layers.py:110-121, 260-284) takes every product with bf16 operands and
+f32 sums into an f32 output, the weights staying f32 masters; LayerNorm,
+Mish, SimNorm, dropout and the bias stay f32. The conv stack then runs in
+bf16 end to end, as JAX's does.
 """
 
 from __future__ import annotations
@@ -115,19 +121,81 @@ def layer_norm(x, w, b, eps: float = 1e-5):
 # ---------------------------------------------------------------------------
 
 
-def linear(p, x):
-    """y = x @ w + b, weights [in, out] (a leading member axis batches)."""
-    return torch.matmul(x, p['w']) + p['b'].unsqueeze(-2)
+BF16 = torch.bfloat16
+
+
+def _mm_f32(a, b):
+    """bf16 a @ b into f32 on the card: cuBLAS with f32 sums
+    (`aten::mm.dtype`, `aten::bmm.dtype` for a leading member axis)."""
+    if b.ndim == 3:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+class _Bf16Product(torch.autograd.Function):
+    """x @ w with bf16 operands and f32 sums on the card: x [..., in] and w
+    [in, out], or x [n, R, in] and w [n, in, out]. The backward's two
+    products take bf16 operands too (the output's f32 cotangent rounded
+    once) and give each cotangent as JAX's transposed products do: the f32
+    sum rounded to bf16, then widened to f32 (the casts' transposes)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xb = x.to(BF16).reshape(-1, x.shape[-1]) if w.ndim == 2 else x.to(BF16)
+        wb = w.to(BF16)
+        ctx.save_for_backward(xb, wb)
+        ctx.x_shape = x.shape
+        return _mm_f32(xb, wb).reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        gb = g.to(BF16).reshape(xb.shape[:-1] + g.shape[-1:])
+        gx = _mm_f32(gb, wb.transpose(-1, -2)).to(BF16).float()
+        gw = _mm_f32(xb.transpose(-1, -2), gb).to(BF16).float()
+        return gx.reshape(ctx.x_shape), gw
+
+
+def product(x, w, dtype=None):
+    """x @ w in f32, or with `dtype` (bf16) operands and f32 sums. On the
+    card `_Bf16Product`; the plain version (the CPU) rounds the operands to
+    bf16 and multiplies in f32, where autograd through the two casts gives
+    JAX's cotangents: the f32 sums rounded to bf16, then widened."""
+    if dtype is None:
+        return torch.matmul(x, w)
+    if x.is_cuda:
+        return _Bf16Product.apply(x, w)
+    return torch.matmul(x.to(BF16).float(), w.to(BF16).float())
+
+
+@contextmanager
+def bf16_f32_sums():
+    """cuBLAS's bf16 products sum in f32 inside the block, split-K
+    reductions included (`allow_bf16_reduced_precision_reduction` off); the
+    previous setting is restored after it."""
+    m = torch.backends.cuda.matmul
+    prev = m.allow_bf16_reduced_precision_reduction
+    m.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        m.allow_bf16_reduced_precision_reduction = prev
+
+
+def linear(p, x, dtype=None):
+    """y = x @ w + b, weights [in, out] (a leading member axis batches);
+    `dtype` selects the product's operands (see `product`)."""
+    return product(x, p['w'], dtype) + p['b'].unsqueeze(-2)
 
 
 def normed_linear(p, x, act: Callable = mish, keep_mask=None,
-                  dropout: float = 0.0):
+                  dropout: float = 0.0, dtype=None):
     """Linear -> Dropout -> LayerNorm -> act (reference layers.py:107-111).
 
     `keep_mask` (bool, the linear output's shape) turns on dropout at rate
     `dropout`; without it the layer is in eval mode.
     """
-    x = linear(p, x)
+    x = linear(p, x, dtype)
     if keep_mask is not None and dropout > 0.0:
         keep = 1.0 - dropout
         x = torch.where(keep_mask, x / keep, torch.zeros_like(x))
@@ -135,20 +203,20 @@ def normed_linear(p, x, act: Callable = mish, keep_mask=None,
 
 
 def mlp(params, x, final_act: Optional[Callable] = None, keep_mask=None,
-        dropout: float = 0.0):
+        dropout: float = 0.0, dtype=None):
     """Apply the MLP; dropout (if a mask is given) on the first layer only
-    (reference layers.py:131)."""
+    (reference layers.py:131); `dtype` for every product."""
     for i, p in enumerate(params[:-1]):
         x = normed_linear(p, x, keep_mask=keep_mask if i == 0 else None,
-                          dropout=dropout)
+                          dropout=dropout, dtype=dtype)
     last = params[-1]
     if 'ln_w' in last:
-        return normed_linear(last, x, act=final_act or mish)
-    x = linear(last, x)
+        return normed_linear(last, x, act=final_act or mish, dtype=dtype)
+    x = linear(last, x, dtype)
     return final_act(x) if final_act is not None else x
 
 
-def ensemble(params, x, keep_mask=None, dropout: float = 0.0):
+def ensemble(params, x, keep_mask=None, dropout: float = 0.0, dtype=None):
     """Every member of a stacked MLP on shared input x [..., in] ->
     [n, ..., out] (a batched matmul over the member axis).
 
@@ -159,7 +227,7 @@ def ensemble(params, x, keep_mask=None, dropout: float = 0.0):
     xs = x.reshape(1, -1, x.shape[-1]).expand(n, -1, -1)
     if keep_mask is not None:
         keep_mask = keep_mask.reshape(n, xs.shape[1], -1)
-    out = mlp(params, xs, keep_mask=keep_mask, dropout=dropout)
+    out = mlp(params, xs, keep_mask=keep_mask, dropout=dropout, dtype=dtype)
     return out.reshape(n, *x.shape[:-1], out.shape[-1])
 
 
@@ -229,14 +297,35 @@ def f32_convs(deterministic: bool = False):
         cudnn.allow_tf32, cudnn.deterministic = prev
 
 
-def conv_encoder_apply(params, x, simnorm_dim: int, shifts=None):
+def _conv_bf16(x, w, stride):
+    """A bf16 convolution (x bf16, w f32 master): cuDNN's in bf16 on the
+    card; the plain version (the CPU) convolves the bf16 values in f32 and
+    rounds the output to bf16, where autograd through the casts rounds each
+    cotangent to bf16 as JAX's bf16 transposes do."""
+    wb = w.to(BF16)
+    if x.is_cuda:
+        return F.conv2d(x, wb, stride=stride)
+    return F.conv2d(x.float(), wb.float(), stride=stride).to(BF16)
+
+
+def conv_encoder_apply(params, x, simnorm_dim: int, shifts=None, dtype=None):
     """x [N, C, H, W] (uint8 frames, channel-first) -> [N, D]: ShiftAug
     when `shifts` [N, 2] is given, then [-0.5, 0.5], the convs (VALID
     padding, each followed by ReLU), the NHWC flatten of the JAX package
     (layers.py:283) and SimNorm. The weights stay HWIO, permuted to OIHW
-    at the call; the convs are cuDNN's on the card, in f32."""
+    at the call; the convs are cuDNN's on the card, in f32, or with
+    `dtype` (bf16) in bf16 from the scaling on: each conv's bf16 output,
+    plus the bias cast to bf16, ReLU, as JAX layers.py:260-284; SimNorm
+    in f32."""
     if shifts is not None:
         x = shift_aug(x, shifts)
+    if dtype is not None:
+        x = x.to(dtype) / 255.0 - 0.5
+        for p, (_, stride) in zip(params, _CONV_SPEC):
+            x = torch.relu(_conv_bf16(x, p['w'].permute(3, 2, 0, 1), stride)
+                           + p['b'].to(dtype)[:, None, None])
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1).float()
+        return simnorm(x, simnorm_dim)
     x = pixel_preprocess(x)
     with f32_convs():
         for p, (_, stride) in zip(params, _CONV_SPEC):

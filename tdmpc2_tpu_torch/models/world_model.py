@@ -36,7 +36,12 @@ from tdmpc2_tpu_torch.ops import math
 class WorldModel:
     """Stateless apply-function namespace; all params are explicit."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, compute_dtype=None):
+        """`compute_dtype` (torch.bfloat16) takes every head's products, and
+        the conv stack, with bf16 operands and f32 sums over the same f32
+        parameters (JAX world_model.py:34-41): the agent's second view of
+        its model, for the update under `cfg.bf16_update`; acting and the
+        plan keep the f32 view."""
         if cfg.obs not in ('state', 'rgb'):
             raise ValueError(f'obs={cfg.obs!r}: state or rgb observations only')
         if cfg.obs == 'rgb':
@@ -53,6 +58,7 @@ class WorldModel:
                     f'output {conv_out} for rgb input {tuple(shape)} with '
                     f'num_channels={cfg.num_channels}')
         self.cfg = cfg
+        self.dtype = compute_dtype
         self.log_std_min = float(cfg.log_std_min)
         self.log_std_dif = float(cfg.log_std_max) - float(cfg.log_std_min)
         if cfg.multitask:
@@ -134,27 +140,28 @@ class WorldModel:
             z = layers.conv_encoder_apply(
                 params['encoder']['rgb'], obs.reshape(-1, *obs.shape[-3:]),
                 self.cfg.simnorm_dim,
-                None if shifts is None else shifts.reshape(-1, 2))
+                None if shifts is None else shifts.reshape(-1, 2), self.dtype)
             return z.reshape(*lead, z.shape[-1])
         return layers.mlp(params['encoder']['state'],
                           self._with_task(params, obs, task),
-                          final_act=self._simnorm)
+                          final_act=self._simnorm, dtype=self.dtype)
 
     def next(self, params, z, a, task=None):
         """Latent dynamics (reference world_model.py:114-121)."""
         z = self._with_task(params, z, task)
         return layers.mlp(params['dynamics'], torch.cat([z, a], dim=-1),
-                          final_act=self._simnorm)
+                          final_act=self._simnorm, dtype=self.dtype)
 
     def reward(self, params, z, a, task=None):
         """Reward logits (reference world_model.py:123-130)."""
         z = self._with_task(params, z, task)
-        return layers.mlp(params['reward'], torch.cat([z, a], dim=-1))
+        return layers.mlp(params['reward'], torch.cat([z, a], dim=-1),
+                          dtype=self.dtype)
 
     def termination(self, params, z, task=None, unnormalized: bool = False):
         """Termination probability/logit (reference world_model.py:132-141)."""
         logit = layers.mlp(params['termination'],
-                           self._with_task(params, z, task))
+                           self._with_task(params, z, task), dtype=self.dtype)
         return logit if unnormalized else torch.sigmoid(logit)
 
     def pi(self, params, z, eps, task=None):
@@ -166,7 +173,8 @@ class WorldModel:
         action columns and the size is the task's action count
         (world_model.py:158-162).
         """
-        out = layers.mlp(params['pi'], self._with_task(params, z, task))
+        out = layers.mlp(params['pi'], self._with_task(params, z, task),
+                         dtype=self.dtype)
         mean, lstd = torch.chunk(out, 2, dim=-1)
         lstd = math.log_std(lstd, self.log_std_min, self.log_std_dif)
         if self.cfg.multitask:
@@ -205,7 +213,8 @@ class WorldModel:
             qp = params['Qs']
         z = self._with_task(params, z, task)
         out = layers.ensemble(qp, torch.cat([z, a], dim=-1),
-                              keep_mask=keep_mask, dropout=cfg.dropout)
+                              keep_mask=keep_mask, dropout=cfg.dropout,
+                              dtype=self.dtype)
         if return_type == 'all':
             return out
         qsub = math.two_hot_inv(out[qidx], cfg.num_bins, cfg.vmin, cfg.vmax)

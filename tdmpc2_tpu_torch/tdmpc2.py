@@ -196,6 +196,11 @@ class TDMPC2:
             raise RuntimeError('the CUDA kernels cannot run on this card: '
                                f'{probe.verdict()["reason"]}')
         self.model = WorldModel(cfg).to(self.device)
+        # the update's view of the same parameters: bf16 products with f32
+        # sums under cfg.bf16_update (JAX tdmpc2.py:81-85); acting, the
+        # plan and the weight prep keep the f32 model
+        self.model_upd = (WorldModel(cfg, torch.bfloat16).to(self.device)
+                          if cfg.get('bf16_update') else self.model)
         # heuristic for large action spaces (reference tdmpc2.py:34)
         self.iterations = cfg.iterations + 2 * int(cfg.action_dim >= 20)
         H = cfg.horizon
@@ -858,9 +863,9 @@ class TDMPC2:
                    noise: UpdateNoise, task=None):
         """Min-Q TD target (reference tdmpc2.py:241-257), with each sample's
         task discount on a multi-task model."""
-        action, _ = self.model.pi(params, next_z, noise.td_eps, task)
+        action, _ = self.model_upd.pi(params, next_z, noise.td_eps, task)
         discount = self.discount if task is None else self.discount[task][..., None]
-        q = self.model.Q(params, next_z, action, qidx=noise.td_qidx,
+        q = self.model_upd.Q(params, next_z, action, qidx=noise.td_qidx,
                          return_type='min', target_params=target_Qs, task=task)
         return reward + discount * (1.0 - terminated) * q
 
@@ -869,8 +874,15 @@ class TDMPC2:
         """The training step on a batch in the buffer's layout (obs
         [T+1, B, ...], action [T, B, A], reward and terminated [T, B, 1];
         task [B], a multi-task model's), in place on `state` (reference
-        tdmpc2.py:259-332)."""
-        cfg, model = self.cfg, self.model
+        tdmpc2.py:259-332), through `model_upd` (bf16 products under
+        cfg.bf16_update, cuBLAS summing in f32)."""
+        with layers.bf16_f32_sums():
+            return self._update_body(state, obs, action, reward, terminated,
+                                     noise, task)
+
+    def _update_body(self, state, obs, action, reward, terminated, noise,
+                     task):
+        cfg, model = self.cfg, self.model_upd
         T = cfg.horizon
         rho_t, rho_pi = self.rho[:T], self.rho
         if task is not None:

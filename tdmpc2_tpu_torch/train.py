@@ -24,18 +24,25 @@ port has envs for the toy tasks only (the mt30/mt80 tasks stop at
 `make_env` until their adapters are ported, ROADMAP A11). `device`
 defaults to `cuda`; without a card that raises unless `device=cpu` is
 given. `resume=true` continues a run from its work_dir's checkpoints
-(`maybe_resume` of the trainers). Seed fleets and eval videos
-(`save_video=true`) raise.
+(`maybe_resume` of the trainers). `seeds=3,7,11` trains a fleet, K seeds
+of the task in one process (JAX train.py:54-60, 90-126; fleet.py,
+trainer/fleet_online.py), each seed's artifacts under
+logs/<task>/<seed>/<exp>/; a fleet of one seed is a plain run of that
+seed. `bf16_update=true` takes the update's products in bf16 with f32
+sums. Eval videos (`save_video=true`) raise.
 """
 
 from __future__ import annotations
 
 import sys
 
-from tdmpc2_tpu_torch.config import load_cfg
+from tdmpc2_tpu_torch.config import load_cfg, parse_cfg
 from tdmpc2_tpu_torch.data.buffer import Buffer
-from tdmpc2_tpu_torch.envs import make_env
+from tdmpc2_tpu_torch.data.fleet_buffer import FleetBuffer
+from tdmpc2_tpu_torch.envs import make_env, make_fleet_env
+from tdmpc2_tpu_torch.fleet import FleetAgent
 from tdmpc2_tpu_torch.tdmpc2 import TDMPC2, device_of
+from tdmpc2_tpu_torch.trainer.fleet_online import FleetOnlineTrainer
 from tdmpc2_tpu_torch.trainer.offline import OfflineTrainer
 from tdmpc2_tpu_torch.trainer.online import OnlineTrainer
 from tdmpc2_tpu_torch.trainer.vec_online import VecOnlineTrainer
@@ -47,14 +54,18 @@ def train(cfg) -> OnlineTrainer:
     """Train as `cfg` says; returns the finished trainer."""
     if cfg.steps <= 0:
         raise ValueError('Must train for at least 1 step.')
-    if cfg.seeds is not None:
-        raise NotImplementedError('seed fleets (seeds=...) are a later part '
-                                  'of the port; pass seed=<n>')
     if cfg.save_video:
         raise NotImplementedError('save_video=true: the eval video recorder '
                                   'is a later part of the port (ROADMAP A12)')
     device_of(cfg.device)       # raise before any work when there is no card
     set_seed(cfg.seed)
+    seeds = _parse_seeds(cfg.seeds)
+    if seeds is not None and len(seeds) == 1:
+        cfg.seed, cfg.seeds = seeds[0], None   # a fleet of one is a plain run
+        parse_cfg(cfg)                         # its work dir, for that seed
+        seeds = None
+    if seeds is not None:
+        return _train_fleet(cfg, seeds)
     env = make_env(cfg)
     agent = TDMPC2(cfg)
     if cfg.multitask:
@@ -65,6 +76,34 @@ def train(cfg) -> OnlineTrainer:
         cls = OnlineTrainer
     trainer = cls(cfg=cfg, env=env, agent=agent, buffer=Buffer(cfg),
                   logger=Logger(cfg))
+    trainer.train()
+    print('Training completed successfully')
+    return trainer
+
+
+def _parse_seeds(seeds):
+    """None, an int, '3,7,11' or a sequence -> a list of ints (or None)."""
+    if seeds is None:
+        return None
+    if isinstance(seeds, int):
+        return [seeds]
+    if isinstance(seeds, str):
+        return [int(s) for s in seeds.replace(' ', '').split(',') if s]
+    return [int(s) for s in seeds]
+
+
+def _train_fleet(cfg, seeds) -> FleetOnlineTrainer:
+    """K seeds in one process (JAX train.py:90-126), on the planner's
+    kernels on the card; each seed logs as a single-seed run would."""
+    if cfg.multitask:
+        raise ValueError('a fleet trains one task online (single-task)')
+    env = make_fleet_env(cfg, seeds)
+    agent = FleetAgent(cfg, seeds)
+    loggers = [Logger(cfg.replace(seed=s, work_dir=str(agent.work_dir(k))))
+               for k, s in enumerate(seeds)]
+    trainer = FleetOnlineTrainer(cfg=cfg, env=env, agent=agent,
+                                 buffer=FleetBuffer(cfg, len(seeds)),
+                                 loggers=loggers)
     trainer.train()
     print('Training completed successfully')
     return trainer

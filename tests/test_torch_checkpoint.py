@@ -46,6 +46,7 @@ from tdmpc2_tpu_torch.models.layers import normed_linear
 from tdmpc2_tpu_torch.tdmpc2 import TDMPC2, UpdateNoise
 from tdmpc2_tpu_torch.utils import torch_interop as tti
 from tdmpc2_tpu_torch.utils import tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 FULL = ROOT / 'results/checkpoints/full/hopper-hop-s1-r5.pkl.gz'

@@ -74,7 +74,14 @@ on the same batch and draws, bit for bit (info, parameters, targets, Adam
 states, scale), on a state, an episodic, a pixel and a multi-task model;
 `update_many(4)` against four eager steps; a new parameter tree captured
 anew; `vec_step` against `act` + `update_many`, with four updates and
-with none (actions, info, state, warm starts)."""
+with none (actions, info, state, warm starts). The bf16 update
+(bf16_update=true): its graph against its eager body bit for bit on the
+four kinds of model, the bf16 product (cuBLAS, f32 sums) against the
+plain one, one bf16 update against one f32 update under JAX's contract
+(losses within 5% of max(|f32|, 1), weights within 2e-3), and a bf16
+agent's plan the f32 agent's bit for bit. The fleet: seed k's initial
+state, plans and updates (graph replays) the single agent of seed k's bit
+for bit."""
 
 from pathlib import Path
 
@@ -1647,15 +1654,16 @@ def test_pixel_plan_graph_equals_eager_body(pixel_agent, n, eval_mode):
 UPDATE_KINDS = ['state', 'episodic', 'pixels', 'multitask']
 
 
-def _update_agent(kind):
+def _update_agent(kind, bf16=False):
     """A fresh agent of the module's widths of `kind`, num_envs = 4, and a
     buffer of three random episodes on the card (pixels: 64 x 64 x 9 uint8
     frame stacks, 4 channels; multi-task: one task an episode; episodic: a
-    fifth of the steps terminated)."""
+    fifth of the steps terminated); `bf16` sets bf16_update."""
     cfg = parse_cfg(Config(task='toy', device='cuda', enc_dim=48, mlp_dim=64,
                            latent_dim=64, num_q=3, num_samples=77, num_elites=9,
                            num_pi_trajs=5, iterations=3, batch_size=16, num_envs=4,
-                           buffer_size=300, steps=300, episodic=kind == 'episodic'))
+                           buffer_size=300, steps=300, episodic=kind == 'episodic',
+                           bf16_update=bf16))
     cfg.obs_shape, cfg.action_dim, cfg.episode_length = {'state': (10,)}, 3, 30
     if kind == 'pixels':
         cfg.obs, cfg.num_channels, cfg.obs_shape = 'rgb', 4, {'rgb': (9, 64, 64)}
@@ -1693,7 +1701,20 @@ def test_update_graph_equals_eager_body(agent, kind):
     the graph; a replay then equals the eager `_update` from the same state
     on the same batch and draws, bit for bit: every info value, the
     parameters, target heads, both Adam states and the scale."""
-    ag, buf = _update_agent(kind)
+    _hold_update_graph(*_update_agent(kind))
+
+
+@pytest.mark.parametrize('kind', UPDATE_KINDS)
+def test_bf16_update_graph_equals_eager_body(agent, kind):
+    """The same with bf16_update=true: cuBLAS's bf16 products with f32
+    sums (`_Bf16Product`), and on pixels cuDNN's bf16 convolutions with
+    the deterministic weight gradient, in the graph as in the eager body."""
+    ag, buf = _update_agent(kind, bf16=True)
+    assert ag.model_upd.dtype == torch.bfloat16
+    _hold_update_graph(ag, buf)
+
+
+def _hold_update_graph(ag, buf):
     captures, replays = (dict(getattr(Graph, k)) for k in ('captures', 'replays'))
     ag.update(buf)
     assert Graph.captures['update'] == captures.get('update', 0) + 1
@@ -1778,3 +1799,112 @@ def test_fused_schedules_equal_act_then_update_many(agent, k):
         assert torch.equal(i0[name], i1[name]), name
     for x, y in zip(s0, s1):
         assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------- the bf16 update
+
+
+@pytest.mark.parametrize('shapes', [((5, 7, 40), (40, 24)), ((3, 16, 40), (3, 40, 24))],
+                         ids=['rows', 'members'])
+def test_bf16_product_matches_plain_on_card(agent, shapes):
+    """`_Bf16Product` (cuBLAS, bf16 operands, f32 sums) against the plain
+    version on the card's tensors (the bf16 operands multiplied in f32,
+    TF32 off): the output within f32 summation order; the cotangents, each
+    a bf16 value, within one bf16 step of the plain ones on the output's
+    cotangent rounded to bf16, as the card's backward takes it."""
+    xs, ws = shapes
+    g = torch.Generator(device='cuda').manual_seed(3)
+    x = torch.randn(xs, device='cuda', generator=g)
+    w = 0.1 * torch.randn(ws, device='cuda', generator=g)
+    gy = torch.randn(xs[:-1] + ws[-1:], device='cuda', generator=g)
+    outs = []
+    for fn in (layers._Bf16Product.apply,
+               lambda a, c: torch.matmul(a.to(torch.bfloat16).float(),
+                                         c.to(torch.bfloat16).float())):
+        a, c = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = fn(a, c)
+        (y * gy.to(torch.bfloat16).float()).sum().backward()
+        outs.append((y.detach(), a.grad, c.grad))
+    (y, gx, gw), (y_p, gx_p, gw_p) = outs
+    torch.testing.assert_close(y, y_p, rtol=1e-5, atol=1e-5)
+    for got, ref in ((gx, gx_p), (gw, gw_p)):
+        assert torch.equal(got, got.to(torch.bfloat16).float())
+        torch.testing.assert_close(got, ref, rtol=2 ** -8, atol=1e-5)
+
+
+@pytest.mark.parametrize('kind', ['state', 'pixels'])
+def test_bf16_update_close_to_f32_on_card(agent, kind):
+    """JAX's contract (tests/test_bf16_update.py:52-71) on the card: one
+    bf16 update against one f32 update from the same state, batch and
+    draws: each loss within 5% of max(|f32|, 1), the f32 master weights
+    within 2e-3."""
+    ag, buf = _update_agent(kind)
+    bf, _ = _update_agent(kind, bf16=True)
+    bf.state = ag.state.to('cuda')
+    batch, noise = buf.sample(), ag.draw_update_noise()
+    info_f = ag._update(ag.state, *batch[:4], noise, *batch[4:])
+    info_b = bf._update(bf.state, *batch[:4], noise, *batch[4:])
+    for k in ('total_loss', 'consistency_loss', 'reward_loss', 'value_loss', 'pi_loss',
+              'grad_norm'):
+        a, b = float(info_f[k]), float(info_b[k])
+        assert np.isfinite(b) and abs(a - b) <= 0.05 * max(abs(a), 1.0), (k, a, b)
+    for pf, pb in zip(tree.leaves(ag.state.params), tree.leaves(bf.state.params)):
+        assert pb.dtype == torch.float32
+        torch.testing.assert_close(pb, pf, rtol=0, atol=2e-3)
+
+
+def test_bf16_agent_plans_as_the_f32_agent_on_card(agent):
+    """Acting with bf16_update=true: the f32 agent's plan bit for bit."""
+    ag, _ = _update_agent('state')
+    bf, _ = _update_agent('state', bf16=True)
+    bf.state = ag.state.to('cuda')
+    obs = torch.randn(4, 10, device='cuda')
+    noise = ag.draw_noise(4)
+    t0 = np.array([True, False, True, False])
+    for a, b in zip(ag.plan_vec(obs, t0, noise=noise), bf.plan_vec(obs, t0, noise=noise)):
+        assert torch.equal(a, b)
+
+
+# -------------------------------------------------------------- the fleet
+
+
+def test_fleet_seed_equals_the_single_agent_on_card(agent):
+    """A fleet of two seeds at the module's widths, 2 envs a seed: seed k's
+    initial state, its plans on the single agent's draws (its kernels'
+    graph replays) and its updates on the same batch and draws (its update
+    graph: a capture, then a replay) equal the single agent of seed k bit
+    for bit."""
+    from tdmpc2_tpu_torch.fleet import FleetAgent
+    cfg = agent.cfg.replace(num_envs=2, batch_size=16)
+    seeds = (3, 7)
+    fleet = FleetAgent(cfg, seeds)
+    singles = [TDMPC2(cfg.replace(seed=s)) for s in seeds]
+    for k, s in enumerate(singles):
+        for x, y in zip(_state_copy(fleet.agents[k]), _state_copy(s)):
+            assert torch.equal(x, y)
+        g = torch.Generator().manual_seed(seeds[k])
+        p = tree.map(lambda t: t + 0.05 * torch.randn(t.shape, generator=g),
+                     s.model.init(g))
+        fleet.agents[k].load_params(p)
+        s.load_params(p)
+    obs = np.random.default_rng(5).normal(size=(2, 2, 10)).astype(np.float32)
+    for t0 in (True, False):
+        noise = [s.draw_noise(2) for s in singles]
+        a = fleet.act(obs, t0=t0, noise=noise)
+        for k, s in enumerate(singles):
+            a_s, _ = s.plan_vec(torch.from_numpy(obs[k]), np.full(2, t0), noise=noise[k])
+            np.testing.assert_array_equal(a[k], a_s.cpu().numpy())
+            assert torch.equal(fleet.agents[k].prev_mean, s.prev_mean)
+    gen = torch.Generator(device='cuda').manual_seed(9)
+    T = cfg.horizon
+    batch = (torch.randn(2, 1, T + 1, 16, 10, device='cuda', generator=gen),
+             torch.rand(2, 1, T, 16, 3, device='cuda', generator=gen) * 2 - 1,
+             torch.rand(2, 1, T, 16, 1, device='cuda', generator=gen),
+             torch.zeros(2, 1, T, 16, 1, device='cuda'))
+    for _ in range(2):
+        noise = [[s.draw_update_noise()] for s in singles]
+        fleet._update_batches(batch, 1, noise)
+        for k, s in enumerate(singles):
+            s._step(tuple(x[k, 0] for x in batch), noise[k][0])
+            for x, y in zip(_state_copy(fleet.agents[k]), _state_copy(s)):
+                assert torch.equal(x, y)

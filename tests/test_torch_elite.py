@@ -24,6 +24,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from tdmpc2_tpu_torch.ops import cem
+from torch_threads import one_torch_thread  # noqa: F401
 
 F = np.float32
 HUGE = F(3.0e38)

@@ -21,6 +21,7 @@ from tdmpc2_tpu_torch.config import MODEL_SIZE, load_cfg
 from tdmpc2_tpu_torch.envs import make_env
 from tdmpc2_tpu_torch.evaluate import evaluate, main
 from tdmpc2_tpu_torch.ops import cem, value
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / 'tdmpc2_tpu_torch').rglob('*.py')) + [ROOT / 'chip_smoke.py']

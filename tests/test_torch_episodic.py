@@ -60,6 +60,7 @@ from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
 from tdmpc2_tpu_torch.trainer.online import OnlineTrainer
 from tdmpc2_tpu_torch.trainer.vec_online import VecOnlineTrainer
 from tdmpc2_tpu_torch.utils.logger import Logger
+from torch_threads import one_torch_thread  # noqa: F401
 
 VTOL = dict(rtol=1e-4, atol=1e-4)
 ATOL = dict(rtol=1e-3, atol=1e-3)
@@ -443,7 +444,7 @@ def test_trainers_match_jax_trainers_on_episodic_env(tmp_path, num_envs):
     assert min(flushed) < 51
 
 
-TINY = ['task=toy-reach-episodic', 'episodic=true', 'device=cpu', 'steps=220',
+TINY = ['task=toy-reach-episodic', 'episodic=true', 'device=cpu', 'steps=260',
         'eval_freq=200', 'eval_episodes=1', 'batch_size=16', 'enc_dim=32',
         'mlp_dim=32', 'latent_dim=16', 'num_q=2', 'num_samples=32',
         'num_elites=4', 'num_pi_trajs=4', 'iterations=1', 'save_agent=false']
@@ -455,7 +456,8 @@ def test_train_episodic_on_cpu(tmp_path, monkeypatch, num_envs):
     0.12 of the goal here (a test-only reset), so that random and planned
     actions end some early in a short run: shorter episodes reach the
     buffer with their terminal flag, and the losses, the termination loss
-    included, are finite."""
+    included, are finite. 260 steps: the one-env run, in the one torch
+    thread of these tests' float sums, reaches the goal after 220."""
     monkeypatch.chdir(tmp_path)
     env_rng = np.random.default_rng(43)
 

@@ -42,6 +42,7 @@ from tdmpc2_tpu_torch.trainer.online import OnlineTrainer
 from tdmpc2_tpu_torch.trainer.vec_online import VecOnlineTrainer
 from tdmpc2_tpu_torch.utils import tree
 from tdmpc2_tpu_torch.utils.logger import Logger
+from torch_threads import one_torch_thread  # noqa: F401
 
 OBS, ACT, EP_LEN, N = 6, 2, 20, 2
 SMALL = dict(enc_dim=32, mlp_dim=32, latent_dim=16, num_samples=32,

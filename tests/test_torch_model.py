@@ -20,6 +20,7 @@ from tdmpc2_tpu_torch.interop import load_blob, params_from_jax
 from tdmpc2_tpu_torch.models import layers as tl
 from tdmpc2_tpu_torch.models.world_model import WorldModel
 from tdmpc2_tpu_torch.ops import math as tm
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 OBS, ACT = 10, 4

@@ -48,6 +48,7 @@ from tdmpc2_tpu_torch.interop import params_from_jax, state_from_jax
 from tdmpc2_tpu_torch.ops import cem
 from tdmpc2_tpu_torch.ops import value as tv
 from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 VTOL = dict(rtol=1e-4, atol=1e-4)

@@ -36,6 +36,7 @@ from tdmpc2_tpu_torch.interop import state_from_jax
 from tdmpc2_tpu_torch.tdmpc2 import TDMPC2, UpdateNoise
 from tdmpc2_tpu_torch.trainer import offline as offline_mod
 from tdmpc2_tpu_torch.utils.logger import Logger
+from torch_threads import one_torch_thread  # noqa: F401
 
 UPD = dict(rtol=1e-4, atol=1e-4)
 ROWS, OBS = 51, 6

@@ -31,6 +31,7 @@ from tdmpc2_tpu_torch.config import MODEL_SIZE
 from tdmpc2_tpu_torch.models import layers
 from tdmpc2_tpu_torch.ops import _build
 from tdmpc2_tpu_torch.ops import value as tv
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _up16(n):

@@ -49,6 +49,7 @@ from tdmpc2_tpu_torch.utils import tree
 from tdmpc2_tpu_torch.utils.logger import Logger
 from test_torch_planner import _jax_plan_noise
 from test_torch_train import _hold_states, _noise_from_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PIX_FILE = ROOT / 'tests/data/pixel_observations.npz'

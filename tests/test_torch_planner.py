@@ -29,6 +29,7 @@ from tdmpc2_tpu_torch.interop import params_from_jax
 from tdmpc2_tpu_torch.ops import cem
 from tdmpc2_tpu_torch.ops.value import prepare_value_params, value_estimate
 from tdmpc2_tpu_torch.tdmpc2 import TDMPC2, PlanNoise
+from torch_threads import one_torch_thread  # noqa: F401
 
 VTOL = dict(rtol=1e-4, atol=1e-4)
 ATOL = dict(rtol=1e-3, atol=1e-3)

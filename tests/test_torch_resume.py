@@ -40,6 +40,7 @@ from tdmpc2_tpu_torch.trainer.online import OnlineTrainer
 from tdmpc2_tpu_torch.trainer.vec_online import VecOnlineTrainer
 from tdmpc2_tpu_torch.utils import tree
 from tdmpc2_tpu_torch.utils.logger import Logger
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEED_STEPS = 120
 SMALL = dict(task='toy-reach', batch_size=8, latent_dim=16, mlp_dim=32,

@@ -25,6 +25,7 @@ from tdmpc2_tpu_torch.config import Config, parse_cfg
 from tdmpc2_tpu_torch.interop import params_from_jax
 from tdmpc2_tpu_torch.ops import _build, probe, rollout
 from tdmpc2_tpu_torch.tdmpc2 import TDMPC2
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 

@@ -34,6 +34,7 @@ from tdmpc2_tpu_torch.config import Config, parse_cfg
 from tdmpc2_tpu_torch.ops import cem
 from tdmpc2_tpu_torch.ops import value as tv
 from tdmpc2_tpu_torch.tdmpc2 import TDMPC2, PlanDraws, PlanNoise
+from torch_threads import one_torch_thread  # noqa: F401
 
 S = 40          # a ragged row count, room for 24 policy-prior rows
 OBS = 10

@@ -49,6 +49,7 @@ from tdmpc2_tpu_torch.ops.scale import update_scale
 from tdmpc2_tpu_torch.tdmpc2 import TDMPC2, UpdateNoise
 from tdmpc2_tpu_torch.trainer.online import OnlineTrainer
 from tdmpc2_tpu_torch.utils import tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -471,7 +472,8 @@ def test_train_num_envs_on_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize('extra,err', [
     ([], RuntimeError), (['num_envs=4', 'obs=rgb'], ValueError),
-    (['seeds=1,2'], NotImplementedError), (['save_video=true'], NotImplementedError)])
+    (['seeds=1,2', 'mesh_shape=2x1'], ValueError),
+    (['save_video=true'], NotImplementedError)])
 def test_train_refuses_what_the_port_lacks(extra, err):
     argv = [o for o in TINY if not o.startswith('device=')] + extra
     if extra:

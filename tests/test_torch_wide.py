@@ -71,6 +71,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
 import wide_mirror as wm  # noqa: E402  (tests/, on pytest's path)
 from wide_mirror import mirror_lib, row_tile_plan, wide_fits  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401
 
 VTOL = dict(rtol=1e-4, atol=1e-4)
 
