@@ -8,6 +8,7 @@
     python3 chip_smoke.py --stage         # the build, the staging and the fold's products
     python3 chip_smoke.py --pixels        # the build, the canary, the pixel phases
     python3 chip_smoke.py --bf16-fleet    # the build, the canary, bf16 updates, the fleet
+    python3 chip_smoke.py --envs          # the build, the canary, the env phases
 
 Builds the port's CUDA kernels from `tdmpc2_tpu_torch/csrc` with nvcc,
 runs the kernel-engine canary, holds every kernel against its plain
@@ -26,6 +27,17 @@ and read just after:
   steps in vector steps of 8 (1,000 random, the 1,000-update burst as 125
   x `update_many(8)`, planned vector steps of one 8-env plan and 8
   updates, and the batched eval on the training envs);
+- the env phases (`env_phases`, also alone with `--envs`): `train
+  toy-reach num_envs=4` at the default 5M config, 1,200 env steps, with
+  the env copies in worker processes (`vec_mode=subproc`: each a `python
+  -m tdmpc2_tpu_torch.envs.subproc` that never loads torch) and then in
+  this process (`inproc`), the same seed: the episode rewards, the replay
+  buffer's contents and the final parameters bit for bit, the same launch
+  counts, env-steps/s of each, and every worker ended; then the env
+  factory on this machine: which of dm_control, Gymnasium and MuJoCo
+  import, and without dm_control `make_env(task=walker-walk)` raising the
+  factory's ValueError naming it (with it, `evaluate` of the committed
+  acrobot-swingup checkpoint for one episode on its real env);
 - episodic train: `train task=toy-reach-episodic episodic=true`, one env
   and `num_envs=8`, 1,200 env steps each (the value kernel's termination
   gate in every plan, the termination loss in every update; the task ends
@@ -4038,6 +4050,163 @@ def fleet_phases(zero_counts, read_counts, check_plan_counts):
     return paths, metrics
 
 
+ENV_N = 4                  # the env phase's env copies
+ENV_BACKENDS = ('dm_control', 'gymnasium', 'mujoco')
+ENV_CKPT = 'acrobot-swingup'   # evaluated on its real env where dm_control imports
+
+
+def bits_equal(a, b):
+    """Tensors equal bit for bit, NaN where NaN (torch.equal says NaN != NaN)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        a = a.contiguous().view({2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()])
+        b = b.contiguous().view(a.dtype)
+    return bool(torch.equal(a, b))
+
+
+def env_phases(zero_counts, read_counts, check_plan_counts):
+    """The env layer on the card. (a) `train toy-reach num_envs=ENV_N` at the
+    default 5M config, TRAIN_STEPS env steps, with the env copies in worker
+    processes (vec_mode=subproc) and then in this process (inproc), the
+    same seed: the episode rewards, the replay buffer's contents and the
+    final parameters bit for bit, the same launch counts, env-steps/s of
+    each, and no worker left alive. (b) The factory on this machine: which
+    backends import; without dm_control, `make_env(task=walker-walk)` raises
+    the factory's ValueError naming it; with it, `evaluate` of the
+    committed acrobot-swingup checkpoint for one episode on its real env.
+    Returns (launch counts by path, metrics)."""
+    import importlib
+    import torch
+    from tdmpc2_tpu_torch import train as train_mod
+    from tdmpc2_tpu_torch.config import load_cfg
+    from tdmpc2_tpu_torch.envs import make_env
+    from tdmpc2_tpu_torch.envs.subproc import SubprocVecEnv
+    from tdmpc2_tpu_torch.envs.vec import VecEnv
+    from tdmpc2_tpu_torch.evaluate import evaluate
+    from tdmpc2_tpu_torch.ops import probe
+    from tdmpc2_tpu_torch.utils import tree
+    planner = ('value_sampled', 'cem_pi_rollout', 'cem_elite')
+    paths, metrics, runs = {}, {}, {}
+    for mode, cls in (('subproc', SubprocVecEnv), ('inproc', VecEnv)):
+        name = f'train, num_envs={ENV_N} vec_mode={mode}'
+        with Phase(f'env copies: {name} (toy-reach, 5M model, {TRAIN_STEPS} env steps)'):
+            probe._verdict = None       # as in a fresh process
+            zero_counts()
+            t0 = time.perf_counter()
+            tr = train_mod.main([
+                'task=toy-reach', f'steps={TRAIN_STEPS}', f'eval_freq={TRAIN_STEPS}',
+                'eval_episodes=1', f'seed={SEED}', 'save_agent=false', 'device=cuda',
+                f'exp_name=chip_smoke_env_{mode}', f'num_envs={ENV_N}', f'vec_mode={mode}'])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = paths[name] = read_counts()
+            if type(tr.env) is not cls or tr.env.num_envs != ENV_N:
+                raise AssertionError(f'{name}: the env is {type(tr.env).__name__}')
+            for k in planner + ('probe',):
+                if counts[k] <= 0:
+                    raise AssertionError(f'{name}: kernel {k} never launched')
+            check_plan_counts(name, counts)
+            rate = tr._step / secs
+            metrics[f'env_steps_per_s_{mode}'] = rate
+            log(f'  {tr._step} env steps in {secs:.1f} s ({rate:.1f} env-steps/s over the '
+                f'whole run); launches {counts}')
+            runs[mode] = tr
+    with Phase(f'env copies: worker processes against in-process copies, bit for bit'):
+        sub, inp = runs['subproc'], runs['inproc']
+        left = [p.pid for p in sub.env.procs if p.poll() is None]
+        if left:
+            raise AssertionError(f'env workers left alive: {left}')
+        if paths[f'train, num_envs={ENV_N} vec_mode=subproc'] != \
+                paths[f'train, num_envs={ENV_N} vec_mode=inproc']:
+            raise AssertionError('the two runs launched the kernels differently')
+        sb, ib = sub.buffer, inp.buffer
+        if (sub._step, sb.num_eps) != (inp._step, ib.num_eps) or sb.num_eps < ENV_N:
+            raise AssertionError(f'steps {sub._step} / {inp._step}, episodes '
+                                 f'{sb.num_eps} / {ib.num_eps}')
+        rewards = [torch.nansum(sb._storage['reward'][:sb.num_eps].float(), dim=1),
+                   torch.nansum(ib._storage['reward'][:ib.num_eps].float(), dim=1)]
+        checks = {'episode rewards': rewards,
+                  **{f'buffer {k}': (sb._storage[k], ib._storage[k]) for k in ib._storage},
+                  'buffer episode rows': (sb._ep_rows, ib._ep_rows),
+                  **{f'parameter {i}': ab for i, ab in enumerate(zip(
+                      tree.leaves(sub.agent.state.params), tree.leaves(inp.agent.state.params)))}}
+        for what, (a, b) in checks.items():
+            if not bits_equal(a, b):
+                raise AssertionError(f'{what}: subproc and inproc differ, max |err| '
+                                     f'{max_err(a.float().nan_to_num(), b.float().nan_to_num()):.3g}')
+        log(f'  {sb.num_eps} episodes (rewards {[round(float(r), 3) for r in rewards[0][:8]]}'
+            f'...), {len(checks)} tensors, the launch counts and '
+            f'{len(sub.env.procs)} closed workers: equal; env-steps/s subproc '
+            f'{metrics["env_steps_per_s_subproc"]:.1f}, inproc '
+            f'{metrics["env_steps_per_s_inproc"]:.1f}')
+        del runs, sub, inp
+    with Phase('env factory on this machine: the backends, and the task it builds'):
+        found = {}
+        for b in ENV_BACKENDS:
+            try:
+                importlib.import_module(b)
+                found[b] = True
+            except ImportError:
+                found[b] = False
+        metrics['backends'] = found
+        log('  backends: ' + ', '.join(f'{b} {"imports" if ok else "does not import"}'
+                                       for b, ok in found.items()))
+        if not found['dm_control']:
+            try:
+                make_env(load_cfg(overrides=['task=walker-walk', 'device=cuda']))
+            except ValueError as e:
+                msg = str(e)
+                if 'Failed to make environment' not in msg or 'dm_control' not in msg:
+                    raise AssertionError(f'walker-walk: the factory said {msg!r}') from e
+                log(f'  walker-walk raises ValueError: {msg[:240]}...')
+            else:
+                raise AssertionError('walker-walk built without dm_control')
+            log(f'  evaluate {ENV_CKPT} on its real env: not run (no dm_control here)')
+            metrics['walker_walk_error'] = msg
+        else:
+            cfg = load_cfg(overrides=[f'task={ENV_CKPT}', 'eval_episodes=1', f'seed={SEED}',
+                                      'device=cuda', f'checkpoint={CHECKPOINTS[ENV_CKPT][0]}'])
+            zero_counts()
+            res = evaluate(cfg)[ENV_CKPT]
+            counts = paths[f'evaluate {ENV_CKPT} (dm_control)'] = read_counts()
+            if not math.isfinite(res['reward']) or res['lengths'] != [500]:
+                raise AssertionError(f'{ENV_CKPT}: {res}')
+            check_plan_counts(f'evaluate {ENV_CKPT}', counts, res['plans'])
+            metrics[f'{ENV_CKPT}_reward'] = res['reward']
+            log(f'  evaluate {ENV_CKPT} from its checkpoint on its real env: reward '
+                f'{res["reward"]:.4f} over one episode of {res["lengths"][0]} steps')
+    return paths, metrics
+
+
+def envs_only() -> int:
+    """`--envs`: the build, the canary, then the env phases alone
+    (env_phases), for a quick check of the env layer on the card."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 2
+    from tdmpc2_tpu_torch.config import load_cfg
+    from tdmpc2_tpu_torch.ops import _build, probe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    for name, (secs, _) in _build.build().items():
+        log(f'  {name}.cu built in {secs:.1f} s')
+    if not probe.kernel_engine_alive(torch.device('cuda')):
+        raise AssertionError(f'canary: {probe.verdict()["reason"]}')
+    _, zero_counts, read_counts, check_plan_counts = plan_counters(
+        load_cfg(overrides=['task=toy-reach']).iterations)
+    paths, metrics = env_phases(zero_counts, read_counts, check_plan_counts)
+    log(f'[done] {time.perf_counter() - t_start:.1f} s')
+    log(smi)
+    log(json.dumps({'envs': metrics, 'launches': paths}, default=str))
+    return 0
+
+
 def bf16_fleet_only() -> int:
     """`--bf16-fleet`: the build, the canary, the bf16 update beside the f32
     one on a seeded 5M state agent and a 5M pixel agent, then the fleet
@@ -4729,6 +4898,8 @@ def main() -> int:
         if len(vec_evals) < 2:
             raise AssertionError(f'vec path: eval results {vec_evals}')
 
+    env_paths, env_metrics = env_phases(zero_counts, read_counts, check_plan_counts)
+
     with Phase(f'path: train {EP_TASK} episodic=true, 5M model, {TRAIN_STEPS} '
                'steps, one env'):
         ep_trainer, ep_launches, _, ep_evals, ep_lengths, ep_losses = train_path(
@@ -5085,7 +5256,7 @@ def main() -> int:
                  'train episodic, one env': ep_launches,
                  f'train episodic, num_envs={NE}': vep_launches, **mt_paths,
                  **w_paths, **ckpt_paths, **pix_paths, 'train bf16, one env': bf16_launches,
-                 **fleet_paths}
+                 **fleet_paths, **env_paths}
         episodic_paths = ('evaluate episodic', 'train episodic, one env',
                           f'train episodic, num_envs={NE}')
         kernels = []
@@ -5217,6 +5388,7 @@ def main() -> int:
     log(f'  seconds to read each committed checkpoint on this machine: {ckpt_read_s}')
     log(json.dumps({'update_graph': update_records}))
     log(json.dumps({'fleet': fleet_metrics}, default=str))
+    log(json.dumps({'envs': env_metrics}, default=str))
     log(f'[done] {time.perf_counter() - t_start:.1f} s')
     log(smi)
     log(json.dumps({'kernels': kernels}))
@@ -5241,5 +5413,7 @@ if __name__ == '__main__':
         sys.exit(bf16_fleet_only())
     if len(sys.argv) == 2 and sys.argv[1] == '--pixels':
         sys.exit(pixels_only())
+    if len(sys.argv) == 2 and sys.argv[1] == '--envs':
+        sys.exit(envs_only())
 
     sys.exit(main())

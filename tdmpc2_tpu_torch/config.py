@@ -13,9 +13,11 @@ The collection schedules' keys (``fused_step``, ``overlap_update``,
 package's, with its defaults (``fused_step`` and ``overlap_update`` select
 nothing: the port has one schedule); ``bf16_update`` takes the update's
 products with bf16 operands and f32 sums (JAX config.py:149-152), and
-``seeds`` trains a fleet of seeds of one task in one process (fleet.py).
-One field is added: ``device``, where the port runs (``cuda`` unless the
-caller asks for ``cpu``). The multi-task sets (``mt30``, ``mt80``: the
+``seeds`` trains a fleet of seeds of one task in one process (fleet.py);
+``vec_mode`` says where the env copies step (in this process or one
+worker process a copy, envs/__init__.py), and any value but ``auto``,
+``inproc`` and ``subproc`` raises. One field is added: ``device``, where
+the port runs (``cuda`` unless the caller asks for ``cpu``). The multi-task sets (``mt30``, ``mt80``: the
 order of a set is the task embedding's index) and the ``task_dim`` rule
 are the JAX package's.
 
@@ -159,6 +161,11 @@ class Config:
     buffer_snapshot_eps: int = 0
     # parallel env copies for vectorised collection (trainer/vec_online.py)
     num_envs: int = 1
+    # where the copies step (JAX config.py:158-161): 'subproc' (one worker
+    # process a copy, envs/subproc.py: parallel physics and rendering),
+    # 'inproc' (this process, envs/vec.py) or 'auto' (subproc for a
+    # rendered non-toy task, inproc otherwise)
+    vec_mode: str = 'auto'
     # cap on updates an `update_many` call samples at once (JAX
     # config.py:162-172): each sampled batch is held on the device until
     # its update. 0 = auto, free device memory over one batch's bytes
@@ -259,6 +266,9 @@ def parse_overrides(args) -> dict:
     return out
 
 
+VEC_MODES = ('auto', 'inproc', 'subproc')
+
+
 def parse_cfg(cfg: Config) -> Config:
     """Fill derived fields; mirrors reference parse_cfg (parser.py:29-80)."""
     for f in dataclasses.fields(cfg):
@@ -269,6 +279,8 @@ def parse_cfg(cfg: Config) -> Config:
     cfg.work_dir = str(Path.cwd() / 'logs' / cfg.task / str(cfg.seed) / cfg.exp_name)
     cfg.task_title = cfg.task.replace('-', ' ').title()
     cfg.bin_size = (cfg.vmax - cfg.vmin) / (cfg.num_bins - 1)
+    if cfg.vec_mode not in VEC_MODES:
+        raise ValueError(f'vec_mode={cfg.vec_mode!r}: one of {VEC_MODES}')
 
     if cfg.model_size is not None:
         if cfg.model_size not in MODEL_SIZE:
@@ -300,10 +312,6 @@ REFUSED_KEYS = {
     'mesh_shape': ((None,), 'mesh_shape shards the model over a device mesh: '
                    'data parallelism and FSDP on torch.distributed are '
                    'ROADMAP A10, not ported yet'),
-    'vec_mode': (('auto', 'inproc'), 'vec_mode=subproc steps the env copies in '
-                 'worker processes, which serve the rendered dm_control rgb '
-                 'tasks; they come with those tasks (ROADMAP A11), and the '
-                 "port's env copies step in this process (inproc)"),
     'compile': ((True,), 'compile: the JAX package always jits; the port '
                 'captures CUDA graphs of the plan and the update on the card '
                 'and has no switch for them'),

@@ -1,32 +1,34 @@
 """Environment factory (tdmpc2_tpu/envs/__init__.py).
 
-`make_env(cfg)` builds the environment and fills the config's env-derived
-fields (obs_shape, action_dim, episode_length, seed_steps). The port knows
-only the pure-numpy `toy*` tasks so far, whose observations are state
-vectors; the dm_control adapters, and with them the rgb tasks, come with a
-later part of the port (ROADMAP A11). The pixel wrapper `PixelObs`
-(envs/dmcontrol.py) takes any env that renders, and a trainer takes such an
-env directly, as the JAX package's pixel loop does
-(tests/test_pixels_loop.py). `num_envs > 1` builds a `VecEnv` of
-decorrelated copies stepped in this process (JAX envs/__init__.py:66-92);
-the JAX package's worker-process copies (`vec_mode=subproc`) serve the
-rendered dm_control tasks and come with them (ROADMAP A11).
-`make_fleet_env(cfg, seeds)` builds the flat `VecEnv` of a seed fleet (K
-seeds x num_envs copies, JAX envs/__init__.py:45-63). A multi-task
-config builds a `MultitaskEnv` of one env per task and fills the per-task
-fields (obs_shapes, action_dims, episode_lengths), as `make_multitask_env`
-does in the JAX package (envs/__init__.py:14-28); a task the port has no
-env for raises "Failed to make environment", as the JAX factory does where
-its backend is missing (the mt30 and mt80 tasks need dm_control and
-Meta-World).
+`make_env(cfg)` tries each domain factory in the JAX package's order (toy,
+dm_control with the 28 custom tasks, ManiSkill2, Meta-World, MyoSuite,
+Gymnasium) and fills the config's env-derived fields (obs_shape,
+action_dim, episode_length, seed_steps) — reference:
+tdmpc2/envs/__init__.py:37-83. Each adapter imports its backend inside its
+`make_env`, so importing this package needs none of them; where a backend
+does not import, its adapter raises ValueError and the chain goes on, and
+a task no adapter builds raises "Failed to make environment ... Tried:
+[...]" with each adapter's reason. The toy tasks have state observations
+only (no rgb mode, as in the JAX package); the dm_control tasks take
+`obs=rgb` (`dmcontrol.PixelObs`: three 64 x 64 RGB frames). A trainer or
+`evaluate` also takes any env of the port's protocol directly, such as
+`PixelObs` around an env that renders.
+
+`num_envs > 1` builds N decorrelated copies (JAX envs/__init__.py:66-92):
+in this process (`vec.VecEnv`, vec_mode=inproc) or one worker process a
+copy (`subproc.SubprocVecEnv`, vec_mode=subproc); vec_mode=auto picks the
+workers for a rendered (rgb) non-toy task, whose frames dominate a step,
+and this process otherwise. `make_fleet_env(cfg, seeds)` builds the flat
+vector of a seed fleet (K seeds x num_envs copies, JAX
+envs/__init__.py:45-63) the same way. A multi-task config (mt30, mt80)
+builds a `MultitaskEnv` of one env per task and fills the per-task fields
+(obs_shapes, action_dims, episode_lengths), as `make_multitask_env` does
+in the JAX package (envs/__init__.py:14-28).
 """
 
 from __future__ import annotations
 
 from copy import deepcopy
-
-from tdmpc2_tpu_torch.envs import toy
-from tdmpc2_tpu_torch.envs.vec import make_vec_env
 
 
 def make_multitask_env(cfg):
@@ -46,49 +48,74 @@ def make_multitask_env(cfg):
 
 
 def _check_obs(cfg):
-    """Raise where no env of the port has cfg's observations."""
-    is_toy = str(cfg.task).startswith('toy')
-    if cfg.get('obs', 'state') != 'state':
+    """A toy task has no rgb mode: raise rather than build its state env
+    under an rgb config."""
+    if str(cfg.task).startswith('toy') and cfg.get('obs', 'state') != 'state':
         raise ValueError(
-            f'obs={cfg.obs} on task {cfg.task}: '
-            + ('the toy tasks have state observations only (no rgb mode, as in '
-               'the JAX package); wrap an env in envs.dmcontrol.PixelObs and '
-               'give it to a trainer instead' if is_toy else
-               'the dm_control rgb tasks come with the dm_control adapter '
-               '(ROADMAP A11)'))
+            f'obs={cfg.obs} on task {cfg.task}: the toy tasks have state '
+            'observations only (no rgb mode, as in the JAX package); wrap an '
+            'env in envs.dmcontrol.PixelObs and give it to a trainer instead')
 
 
 def _make_single_env(cfg):
-    try:
-        return toy.make_env(cfg)
-    except ValueError as e:
-        raise ValueError(
-            f'Failed to make environment "{cfg.task}": the port has the toy '
-            f'tasks only so far (ROADMAP A11): {e}') from e
+    from tdmpc2_tpu_torch.envs import (dmcontrol, gym_tasks, maniskill,
+                                       metaworld, myosuite, toy)
+    errors = []
+    for factory in (toy.make_env, dmcontrol.make_env, maniskill.make_env,
+                    metaworld.make_env, myosuite.make_env, gym_tasks.make_env):
+        try:
+            return factory(cfg)
+        except ValueError as e:
+            errors.append(str(e))
+    raise ValueError(
+        f'Failed to make environment "{cfg.task}": verify that dependencies '
+        f'are installed and the task exists. Tried: {errors}')
+
+
+def _vec_mode(cfg) -> str:
+    """cfg.vec_mode, with auto resolved: worker processes for a rendered
+    non-toy task (rendering dominates its steps; the toy tasks have no rgb
+    mode), this process otherwise."""
+    mode = cfg.get('vec_mode', 'auto')
+    if mode == 'auto':
+        mode = ('subproc' if cfg.get('obs') == 'rgb'
+                and not str(cfg.task).startswith('toy') else 'inproc')
+    return mode
+
+
+def _make_vec(cfg, seed_list=None):
+    if _vec_mode(cfg) == 'subproc':
+        from tdmpc2_tpu_torch.envs.subproc import SubprocVecEnv
+        return SubprocVecEnv(cfg, seed_list=seed_list)
+    from tdmpc2_tpu_torch.envs.vec import make_vec_env
+    return make_vec_env(cfg, _make_single_env, seed_list=seed_list)
 
 
 def make_fleet_env(cfg, seeds):
-    """A flat `VecEnv` of K seeds x cfg.num_envs copies for a fleet (JAX
+    """The flat vector of K seeds x cfg.num_envs copies of a fleet (JAX
     envs/__init__.py:45-63): copy (k, i) is seeded seeds[k] + 1000*i, the
-    env seeds K single-seed runs would use. In-process copies only (the
-    worker-process `vec_mode=subproc` waits on ROADMAP A11). Fills cfg's
-    env fields as `make_env` does."""
+    env seeds K single-seed runs would use; in this process or in worker
+    processes as vec_mode says. Fills cfg's env fields as `make_env`
+    does."""
     _check_obs(cfg)
     if cfg.multitask:
         raise ValueError('a fleet trains one task online (single-task)')
-    env = make_vec_env(cfg, _make_single_env, seed_list=[
-        int(s) + 1000 * i for s in seeds
-        for i in range(int(cfg.get('num_envs') or 1))])
+    env = _make_vec(cfg, seed_list=[int(s) + 1000 * i for s in seeds
+                                    for i in range(int(cfg.get('num_envs') or 1))])
     _fill_env_cfg(cfg, env)
     return env
 
 
 def make_env(cfg):
+    """Make an environment and fill the env-derived config fields.
+
+    cfg.num_envs > 1 builds N decorrelated same-task copies for batched
+    collection (single-task online only), as vec_mode says."""
     _check_obs(cfg)
     if cfg.multitask:
         env = make_multitask_env(cfg)
     elif int(cfg.get('num_envs') or 1) > 1:
-        env = make_vec_env(cfg, _make_single_env)
+        env = _make_vec(cfg)
     else:
         env = _make_single_env(cfg)
     _fill_env_cfg(cfg, env)
@@ -96,7 +123,11 @@ def make_env(cfg):
 
 
 def _fill_env_cfg(cfg, env):
-    cfg.obs_shape = {cfg.get('obs', 'state'): tuple(env.observation_space.shape)}
+    obs_space = env.observation_space
+    if isinstance(obs_space, dict):
+        cfg.obs_shape = {k: v.shape for k, v in obs_space.items()}
+    else:
+        cfg.obs_shape = {cfg.get('obs', 'state'): tuple(obs_space.shape)}
     cfg.action_dim = env.action_space.shape[0]
     cfg.episode_length = env.max_episode_steps
     cfg.seed_steps = max(1000, 5 * cfg.episode_length)

@@ -5,6 +5,7 @@ Usage:
     python -m tdmpc2_tpu_torch.evaluate task=toy-reach device=cpu
     python -m tdmpc2_tpu_torch.evaluate task=toy-reach-episodic episodic=true
     python -m tdmpc2_tpu_torch.evaluate task=toy-reach checkpoint=<file>
+    python -m tdmpc2_tpu_torch.evaluate task=acrobot-swingup checkpoint=<file>
 
 Runs `eval_episodes` greedy-planning episodes and reports the mean return.
 `device` defaults to `cuda`, where the planner runs on the hand-written
@@ -21,9 +22,10 @@ through one `act_tasks` plan a step (JAX evaluate.py:36-75; a pi-only
 agent, `mpc=false`, one task after another), and prints each task's return
 and success and the normalized score (success x 100 on Meta-World tasks,
 return / 10 elsewhere; reference evaluate.py:93-99).
-The port has envs for the toy tasks only (ROADMAP A11); a pixel agent is
-evaluated on an env given to `evaluate(cfg, env)`. `save_video=true`
-raises: the recorder is ROADMAP A12.
+The env is any task the JAX package builds, where its backend imports
+(envs/__init__.py), or one given to `evaluate(cfg, env)` (a pixel env
+around any env that renders). `save_video=true` raises: the recorder is
+ROADMAP A12.
 """
 
 from __future__ import annotations

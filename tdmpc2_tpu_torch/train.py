@@ -6,6 +6,7 @@ Usage:
     python -m tdmpc2_tpu_torch.train task=toy-reach-episodic episodic=true
     python -m tdmpc2_tpu_torch.train task=toy-reach steps=2000 device=cpu
     python -m tdmpc2_tpu_torch.train task=toy-reach steps=3000 resume=true
+    python -m tdmpc2_tpu_torch.train task=walker-walk obs=rgb num_envs=4
     python -m tdmpc2_tpu_torch.train task=mt30 model_size=48 data_dir=<npz dir>
 
 Single-task configs train online: collect with the planner (the CUDA
@@ -17,19 +18,23 @@ steps that many env copies together with one batched plan per vector step
 vector step queues the plan and the step's updates on the card before the
 envs step (`fused_step` and `overlap_update` are accepted and select
 nothing). `profile_dir=<dir>` writes a trace of ten
-updates (one env).
+updates (one env). The env is any task the JAX package builds, where its
+backend imports (envs/__init__.py: the toy tasks, dm_control with the 28
+custom tasks, state or rgb, ManiSkill2, Meta-World, MyoSuite, Gymnasium);
+`vec_mode` says where the env copies step (a rendered task's in worker
+processes by default).
 Multi-task configs train offline on a dataset (`OfflineTrainer`, JAX
-train.py:71-72); their evaluation needs an env for every task, and the
-port has envs for the toy tasks only (the mt30/mt80 tasks stop at
-`make_env` until their adapters are ported, ROADMAP A11). `device`
+train.py:71-72) and evaluate on the mt30/mt80 envs (dm_control, and
+Meta-World for mt80). `device`
 defaults to `cuda`; without a card that raises unless `device=cpu` is
 given. `resume=true` continues a run from its work_dir's checkpoints
 (`maybe_resume` of the trainers). `seeds=3,7,11` trains a fleet, K seeds
 of the task in one process (JAX train.py:54-60, 90-126; fleet.py,
 trainer/fleet_online.py), each seed's artifacts under
 logs/<task>/<seed>/<exp>/; a fleet of one seed is a plain run of that
-seed. `bf16_update=true` takes the update's products in bf16 with f32
-sums. Eval videos (`save_video=true`) raise.
+seed (state observations only: a fleet of rgb seeds raises, as in JAX).
+`bf16_update=true` takes the update's products in bf16 with f32 sums. Eval
+videos (`save_video=true`) raise.
 """
 
 from __future__ import annotations

@@ -351,6 +351,10 @@ class FleetOnlineTrainer:
         self.finish()
 
     def finish(self):
+        """The final checkpoint, the loggers, then the env's worker
+        processes, if it has any (JAX trainer/fleet_online.py:421-428)."""
         self._checkpoint()
         for lg in self.loggers:
             lg.finish(agent=None)
+        if hasattr(self.env, 'close'):
+            self.env.close()

@@ -49,13 +49,15 @@ def test_a_config_with_every_jax_key_at_its_default_loads():
 
 
 @pytest.mark.parametrize('key,value,names', [
-    ('mesh_shape', '4x2', 'A10'), ('vec_mode', 'subproc', 'A11'),
+    ('mesh_shape', '4x2', 'A10'), ('vec_mode', 'bogus', 'auto.*inproc.*subproc'),
     ('compile', 'false', 'CUDA graphs'), ('use_pallas', 'false', 'CUDA kernels'),
     ('platform', 'cpu', 'device='), ('matmul_precision', 'highest', 'TF32'),
     ('enable_wandb', 'true', 'wandb'), ('wandb_project', 'x', 'wandb'),
     ('wandb_entity', 'x', 'wandb'), ('wandb_silent', 'true', 'wandb'),
     ('profiler_port', '9012', 'profile_dir')])
 def test_a_refused_key_raises_with_its_reason(key, value, names):
+    """A refused key's value other than JAX's default raises with the
+    reason; so does a vec_mode that is none of auto, inproc and subproc."""
     with pytest.raises(ValueError, match=names):
         load_cfg(overrides=['task=toy-reach', f'{key}={value}'])
 
@@ -64,3 +66,5 @@ def test_honoured_new_keys():
     cfg = load_cfg(overrides=['task=toy-reach', 'bf16_update=true',
                               'seeds=3,7', 'vec_mode=inproc'])
     assert cfg.bf16_update is True and cfg.seeds == '3,7'
+    assert cfg.vec_mode == 'inproc'
+    assert load_cfg(overrides=['task=toy-reach', 'vec_mode=subproc']).vec_mode == 'subproc'

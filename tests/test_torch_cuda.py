@@ -1908,3 +1908,54 @@ def test_fleet_seed_equals_the_single_agent_on_card(agent):
             s._step(tuple(x[k, 0] for x in batch), noise[k][0])
             for x, y in zip(_state_copy(fleet.agents[k]), _state_copy(s)):
                 assert torch.equal(x, y)
+
+
+# ------------------------------------------------------ worker-process envs
+
+
+def test_subproc_trainer_first_planned_step_equals_inproc_on_card(agent, tmp_path):
+    """`VecOnlineTrainer` on toy-reach at the module's widths, 2 env copies
+    in worker processes (vec_mode=subproc) and in this process (inproc),
+    the same seed: the burst at step 100 (the first episodes' end), then
+    the first planned vector step, one `vec_step` on the card; its actions,
+    the replay buffer and the train state bit for bit, and the workers
+    closed at the end."""
+    from tdmpc2_tpu_torch.envs import make_env
+    from tdmpc2_tpu_torch.envs.subproc import SubprocVecEnv
+    from tdmpc2_tpu_torch.trainer.vec_online import VecOnlineTrainer
+    from tdmpc2_tpu_torch.utils.logger import Logger
+    c = agent.cfg
+    runs = {}
+    for mode in ('subproc', 'inproc'):
+        cfg = parse_cfg(Config(
+            task='toy-reach', device='cuda', num_envs=2, vec_mode=mode, seed=4,
+            enc_dim=c.enc_dim, mlp_dim=c.mlp_dim, latent_dim=c.latent_dim, num_q=c.num_q,
+            num_samples=c.num_samples, num_elites=c.num_elites,
+            num_pi_trajs=c.num_pi_trajs, iterations=c.iterations, batch_size=16,
+            steps=102, eval_freq=1000, eval_episodes=1, save_agent=False, save_csv=False))
+        cfg.work_dir = str(tmp_path / mode)
+        env = make_env(cfg)
+        cfg.seed_steps = 100
+        ag = TDMPC2(cfg)
+        steps = []
+        vec_step = ag.vec_step
+
+        def recording(*args, _vec_step=vec_step, _steps=steps):
+            actions, info = _vec_step(*args)
+            _steps.append(np.array(actions))
+            return actions, info
+        ag.vec_step = recording
+        tr = VecOnlineTrainer(cfg=cfg, env=env, agent=ag, buffer=Buffer(cfg),
+                              logger=Logger(cfg))
+        tr.train()
+        assert len(steps) == 1 and isinstance(env, SubprocVecEnv) == (mode == 'subproc')
+        runs[mode] = (tr, steps[0], _state_copy(ag))
+    (sub, a, sa), (inp, b, sb) = runs['subproc'], runs['inproc']
+    assert all(p.poll() is not None for p in sub.env.procs)
+    np.testing.assert_array_equal(a, b)
+    for x, y in zip(sa, sb):
+        assert torch.equal(x, y)
+    assert sub.buffer.num_eps == inp.buffer.num_eps == 2
+    for k in sub.buffer._storage:
+        np.testing.assert_array_equal(sub.buffer._storage[k].cpu().numpy(),
+                                      inp.buffer._storage[k].cpu().numpy())

@@ -349,15 +349,43 @@ def test_pixel_obs_frames_match_jax():
 @pytest.mark.parametrize('task,num_envs,why', [
     ('toy-reach', 1, 'no rgb mode'), ('toy-reach', 4, 'no rgb mode'),
     ('toy', 1, 'no rgb mode'), ('toy-reach-episodic', 1, 'no rgb mode'),
-    ('toy-reach-episodic', 4, 'no rgb mode'), ('walker-walk', 1, 'A11'),
-    ('walker-walk', 4, 'A11'), ('mt30', 1, 'A11')])
+    ('toy-reach-episodic', 4, 'no rgb mode'),
+    pytest.param('walker-walk', 1, None, id='walker-walk-1-A11'),
+    pytest.param('walker-walk', 4, None, id='walker-walk-4-A11'),
+    pytest.param('mt30', 1, None, id='mt30-1-A11')])
 def test_make_env_refuses_rgb(task, num_envs, why):
-    """`make_env` has no env that renders: a toy task has state observations
-    only, and the dm_control rgb tasks come with the dm_control adapter. A
-    pixel env (PixelObs around an env that renders) goes to a trainer."""
+    """A toy task has state observations only: `make_env` refuses rgb there
+    (a pixel env, PixelObs around an env that renders, goes to a trainer).
+    The dm_control tasks render (ROADMAP A11): where dm_control imports,
+    walker-walk (one env, and 4 worker-process copies) and mt30 build with
+    rgb observations and the config fields the JAX factory gives them;
+    where it does not, the factory's error names it."""
     cfg = parse_cfg(Config(task=task, obs='rgb', num_envs=num_envs, device='cpu'))
-    with pytest.raises(ValueError, match=why):
-        make_env(cfg)
+    if why is not None:
+        with pytest.raises(ValueError, match=why):
+            make_env(cfg)
+        return
+    try:
+        import dm_control  # noqa: F401
+    except ImportError:
+        with pytest.raises(ValueError, match='Failed to make environment.*dm_control'):
+            make_env(cfg)
+        return
+    from tdmpc2_tpu.envs import make_env as jmake_env
+    jcfg = jparse(JConfig(task=task, obs='rgb', num_envs=num_envs))
+    env, jenv = make_env(cfg), jmake_env(jcfg)
+    try:
+        fields = ('obs_shape', 'action_dim', 'episode_length', 'seed_steps')
+        fields += ('obs_shapes', 'action_dims', 'episode_lengths') if task == 'mt30' else ()
+        assert {k: cfg.get(k) for k in fields} == {k: jcfg.get(k) for k in fields}
+        if task == 'walker-walk':
+            assert cfg.obs_shape == {'rgb': SHAPE}
+            assert getattr(env, 'num_envs', 1) == num_envs
+            np.testing.assert_array_equal(env.reset(), jenv.reset())
+    finally:
+        for e in (env, jenv):
+            if hasattr(e, 'close'):
+                e.close()
 
 
 # ------------------------------------------------------------ trainer

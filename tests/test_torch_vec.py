@@ -342,15 +342,34 @@ def test_vec_env_matches_jax_vec_env():
 
 @pytest.mark.parametrize('num_envs', [2, 1])
 def test_vec_mode_subproc_is_refused(num_envs):
-    """The worker-process env copies (JAX vec_mode=subproc) exist to render
-    the dm_control rgb tasks, which the port does not have yet (ROADMAP
-    A11): the key is refused, and so are rgb observations on a toy task,
-    which has no rgb mode (a pixel env is given to the trainer)."""
-    with pytest.raises(ValueError, match='vec_mode'):
-        load_cfg(overrides=['task=toy-reach', f'num_envs={num_envs}',
-                            'vec_mode=subproc'])
+    """vec_mode=subproc is taken (the worker-process copies came with the
+    dm_control rgb tasks, ROADMAP A11): with num_envs > 1 the copies step in
+    worker processes, equal to the in-process copies, and one env is one
+    env in this process, as in the JAX factory. rgb observations on a toy
+    task stay refused: it has no rgb mode (a pixel env is given to the
+    trainer)."""
+    from tdmpc2_tpu_torch.envs.subproc import SubprocVecEnv
+    cfg = load_cfg(overrides=['task=toy-reach', f'num_envs={num_envs}',
+                              'vec_mode=subproc', 'device=cpu'])
+    icfg = load_cfg(overrides=['task=toy-reach', f'num_envs={num_envs}',
+                               'vec_mode=inproc', 'device=cpu'])
+    env, ienv = make_env(cfg), make_env(icfg)
+    try:
+        assert isinstance(env, SubprocVecEnv) == (num_envs > 1)
+        assert (cfg.obs_shape, cfg.action_dim) == (icfg.obs_shape, icfg.action_dim)
+        np.testing.assert_array_equal(env.reset(), ienv.reset())
+        shape = (num_envs, 2) if num_envs > 1 else (2,)
+        a = np.random.default_rng(0).uniform(-1, 1, shape).astype(np.float32)
+        out, iout = env.step(a), ienv.step(a)
+        for x, y in zip(out[:3], iout[:3]):
+            np.testing.assert_array_equal(x, y)
+        assert out[3] == iout[3]
+    finally:
+        if num_envs > 1:
+            env.close()
+            assert all(p.poll() is not None for p in env.procs)
     cfg = parse_cfg(Config(task='toy-reach', num_envs=num_envs, obs='rgb',
-                           device='cpu'))
+                           device='cpu', vec_mode='subproc'))
     with pytest.raises(ValueError, match='no rgb mode'):
         make_env(cfg)
 
