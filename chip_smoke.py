@@ -5,7 +5,7 @@
     python3 chip_smoke.py --compare DIR [PAIRS]  # kernel times against the port in DIR
     python3 chip_smoke.py --cycles        # value, elite and row kernels: block 0 cycles
     python3 chip_smoke.py --rows          # the build, then the row phase alone
-    python3 chip_smoke.py --stage         # the build, the staging and the fold's products
+    python3 chip_smoke.py --stage         # the build, the staging and the fold's kernels
     python3 chip_smoke.py --pixels        # the build, the canary, the pixel phases
     python3 chip_smoke.py --bf16-fleet    # the build, the canary, bf16 updates, the fleet
     python3 chip_smoke.py --envs          # the build, the canary, the env phases
@@ -110,11 +110,19 @@ staging of each step (`stage_kernel`) is held alone through the library's
 and the folded step 0 that writes each env's latent once into zb) at 512,
 4,096 and 40,960 rows against `stage_plain`, the z||a rows, zb and the
 sampled actions bit for bit, N=8 against a one-env launch, and timed
-against the bytes each mode's function must move; the folded first
-layers' two products (the envs' latents into u with the task's bias row,
-then the rows' action columns with u's row of the env as the bias) are
-held and timed in the product phase beside the z||a product they replace
-at step 0.
+against the bytes each mode's function must move. The folded first
+layer's two kernels are held alone too (the fold phase, `fold_phase`;
+with the staging under `--stage`): the u product (`fold_u_kernel`, the
+envs' latents packed into shared wgmma tiles, K split into partial rows;
+`ops/wide.py` `fold_u`) at 1, 8 and 80 envs against `fold_u_plain` within
+1e-4 of |zb| @ |Wz|, timed beside `torch.mm(..., out_dtype=torch.float32)`
+and `torch.matmul`; and the fused layer (`fold_hidden_kernel`: the rows'
+action columns times the action block plus u's row of the env with its
+task's bias row, LayerNorm + Mish, the bf16 row out; `fold_hidden`) at
+512, 4,096 and 40,960 rows against `fold_hidden_plain`
+within one bf16 step, timed beside the product + row kernel pair it
+replaces on the same operands; N=8 against one-env launches bit for bit
+in both.
 
 The planner's kernels are also held on the task axis at mt30/model_size 48,
 N = 30 tasks with mixed action dims (each env's task id picks its rows of
@@ -208,6 +216,7 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -790,8 +799,15 @@ def elite_inputs(ag, n, g):
     return (v, acts, ag.amask), kw
 
 
-def time_kernels(root) -> int:
-    """`--time-kernels ROOT`: time the row-tile kernels, the rollout, the
+# The outputs `--time-kernels ROOT OUT` keeps for `--compare`'s differences:
+# the 317 value step (folded) and its unfolded launch, the pi rollout (no
+# fold), and one seeded act_tasks step over the 80 tasks.
+KEPT_OUTPUTS = ('value_step_317_n1', f'value_step_317_n{N_ENVS}', 'value_step_317_n80',
+                f'value_317_rows_n{N_ENVS}', 'pi_rollout_317_n80', 'act_tasks_317_n80')
+
+
+def time_kernels(root, out_path=None) -> int:
+    """`--time-kernels ROOT [OUT]`: time the row-tile kernels, the rollout, the
     elite kernel, the canary, the planner's value step and `plan_vec` of the
     port at ROOT (this tree, or an older one unpacked elsewhere) on the main
     paths' inputs, on mt30's at model_size 48 (N = 30 tasks) and on mt80's
@@ -800,7 +816,9 @@ def time_kernels(root) -> int:
     version has; prints one JSON line {name: [ms by CUDA events (plan_vec,
     act_tasks: by the host clock, each call synchronised), own device ms by
     torch.profiler, a digest of the kernel's output bits (None for
-    plan_vec and act_tasks)]}."""
+    plan_vec and act_tasks)]}; with OUT, also torch.saves the outputs of
+    KEPT_OUTPUTS there (act_tasks': the actions of one step from a seeded
+    generator)."""
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -940,6 +958,16 @@ def time_kernels(root) -> int:
         calls[f'value_step_317_n{n}'] = (
             value.value_sampled, tuple(a if a is wag.prep else a[:n] for a in w_step),
             dict(heads, task=wt[:n]))
+    # the value step unfolded (a latent a row): its products and row
+    # kernels are the ones the fold leaves as they were
+    w_L, w_S, w_H, w_A = (wcfg.latent_dim, wcfg.num_samples, wcfg.horizon,
+                          wcfg.action_dim)
+    calls[f'value_317_rows_n{N_ENVS}'] = (value.value_estimate, (
+        wag.prep, simnorm(torch.randn(N_ENVS, w_S, w_L, device=dev, generator=g),
+                          wcfg.simnorm_dim),
+        torch.rand(N_ENVS, w_H, w_S, w_A, device=dev, generator=g) * 2 - 1,
+        torch.randn(N_ENVS, w_S, w_A, device=dev, generator=g), w_noise.qidx[:N_ENVS, 0],
+        wag.discs[wt[:N_ENVS].long()]), dict(heads, task=wt[:N_ENVS]))
     for n in (1, WT):
         calls[f'pi_rollout_317_n{n}'] = (
             cem.pi_rollout, (wag.prep, w_z[:n], w_noise.pi_eps[:n, :w_pi]),
@@ -951,6 +979,7 @@ def time_kernels(root) -> int:
     tasks = np.arange(WT)
     _, w_pm = wag.act_tasks(w_obs, np.zeros((WT, wcfg.horizon, wcfg.action_dim), np.float32),
                             True, tasks)
+    w_pm0 = w_pm.clone()
     calls[f'act_tasks_317_n{WT}'] = (wag.act_tasks, (w_obs, w_pm, False, tasks), {})
     # one update of the 5M model on a fixed batch and draws, from the same
     # state: a replay of the update graph where the tree has one (`_step`;
@@ -1004,17 +1033,26 @@ def time_kernels(root) -> int:
             h.update(t.detach().contiguous().cpu().numpy().tobytes())
         return h.hexdigest()[:16]
 
-    out = {}
+    out, kept = {}, {}
     for name, (fn, args, kw) in calls.items():
         # a kernel's output bits on these inputs (a plan's depend on its draws)
         whole = name.startswith(('plan_vec', 'act_tasks'))
         dg = None if whole else digest(fn(*args, **kw))
+        if out_path is not None and name in KEPT_OUTPUTS:
+            if whole:
+                wag.generator.manual_seed(SEED + 80)
+                kept[name] = (torch.as_tensor(wag.act_tasks(w_obs, w_pm0.clone(), False,
+                                                            tasks)[0]),)
+            else:
+                kept[name] = tuple(t.detach().cpu() for t in as_tuple(fn(*args, **kw)))
         reps = 10 if '317_n80' in name else 50
         if whole:
             ms = host_ms(lambda: (fn(*args, **kw), torch.cuda.synchronize()), reps)
         else:
             ms = time_ms(lambda: fn(*args, **kw), reps)
         out[name] = [ms, device_share(lambda: fn(*args, **kw), reps // 5 * 2)[0], dg]
+    if out_path is not None:
+        torch.save(kept, out_path)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -1025,7 +1063,8 @@ def cycles() -> int:
     S=512; the value kernel non-episodic and episodic), and the wide row
     kernel's LayerNorm templates at the 317M model's widths (512 and 40,960
     rows; at 40,960 also the launch with every row read from row 0, and
-    PyTorch's cast of the same rows to bf16, the same bytes moved): the
+    PyTorch's cast of the same rows to bf16, the same bytes moved) and the
+    fused folded layer (512 and 40,960 rows): the
     kernels built with their TDM_CYCLES counters
     (csrc/mlp_rows.cuh, csrc/cem.cu, csrc/mlp_wide.cuh; block 0, thread 0),
     driven through `value_estimate`, `elite_moments` and `ops/wide.py`
@@ -1132,6 +1171,27 @@ def cycles() -> int:
                     f'rows: {time_ms(lambda: yc.to(torch.bfloat16), 10):.4f} ms (CUDA events)')
                 del yc, y0
             del kw, y
+    # the fused folded layer (ops/wide.py fold_hidden) on one env's and 80
+    # envs' rows, the counters in the same slots a row step (one or two rows)
+    fnames = ('kernel', 'the action product', 'row statistics', 'activation and stores')
+    Lp, Mp = -(-WIDE_DIMS[0] // 16) * 16, -(-WIDE_DIMS[1] // 16) * 16
+    for n in (1, FOLD_HEADLINE):
+        wT, zb, x, b0, task, gain, beta = fold_operands(n, 512, g)
+        u, _ = wide.fold_u(zb, wT[:, :Lp], WIDE_DIMS)
+        dst = torch.empty(n * 512, Mp, device=dev, dtype=torch.bfloat16)
+
+        def fused():
+            wide.fold_hidden(x[:, Lp:], wT[:, Lp:], u, b0, gain, beta, WIDE_DIMS, 512,
+                             task=task, dst=dst)
+        out = (ctypes.c_ulonglong * 5)()
+        for _ in range(2):      # the second launch's counts are kept
+            fused()
+            torch.cuda.synchronize()
+            _build.check(rlib, rlib.tdm_row_cycles(out), 'cycle counters')
+        log(f'[cycles] fused folded layer, {n * 512} rows: {time_ms(fused, 10):.4f} ms a '
+            f'launch with the counters (CUDA events); block 0, thread 0, over {out[4]} '
+            'row(s): ' + ', '.join(f'{k} {out[i]} ({100 * out[i] / max(out[0], 1):.1f}%)'
+                                   for i, k in enumerate(fnames)))
     log(nvidia_smi_line())
     return 0
 
@@ -1191,18 +1251,24 @@ def compare(prev_root, pairs=2) -> int:
     2 * PAIRS processes on the same card, PREV and this alternating as
     PREV, this, this, PREV, PREV, this, ... Prints each run's times and, per
     kernel, the ratios PREV / this of the pairs by CUDA events and by own
-    device time: their median and range."""
+    device time: their median and range; and, from the first pair, the
+    differences of the KEPT_OUTPUTS between PREV's and this tree's (the
+    largest |this - PREV| and its share of the largest |PREV|)."""
+    import torch
     here = os.path.dirname(os.path.abspath(__file__))
+    keep_dir = tempfile.mkdtemp(prefix='chip_smoke_compare_')
     runs = []
     for i in range(pairs):
         pair = {}
         for root in ((prev_root, here) if i % 2 == 0 else (here, prev_root)):
-            r = subprocess.run([sys.executable, os.path.abspath(__file__), '--time-kernels',
-                                root], capture_output=True, text=True, timeout=900)
+            label = 'prev' if root == prev_root else 'this'
+            cmd = [sys.executable, os.path.abspath(__file__), '--time-kernels', root]
+            if i == 0:
+                cmd.append(os.path.join(keep_dir, f'{label}.pt'))
+            r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
             if r.returncode != 0:
                 print(r.stdout[-3000:], r.stderr[-3000:], file=sys.stderr)
                 return 1
-            label = 'prev' if root == prev_root else 'this'
             pair[label] = json.loads(r.stdout.strip().splitlines()[-1])
             log(f'[compare] pair {i}, {label} ({root}): {json.dumps(pair[label])}')
         runs.append(pair)
@@ -1225,8 +1291,20 @@ def compare(prev_root, pairs=2) -> int:
             log(f'[compare] {name}, {kind}: prev {[p["prev"][name][k] for p in runs]} ms, '
                 f'this {[p["this"][name][k] for p in runs]} ms; prev/this median '
                 f'{med:.3f}x, range {rs[0]:.3f}-{rs[-1]:.3f}x over {len(rs)} pairs')
+    kept = {k: torch.load(os.path.join(keep_dir, f'{k}.pt')) for k in ('prev', 'this')}
+    shutil.rmtree(keep_dir, ignore_errors=True)
+    diffs = {}
+    for name in KEPT_OUTPUTS:
+        a, b = kept['prev'].get(name), kept['this'].get(name)
+        if a is None or b is None:
+            continue
+        d = max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b))
+        top = max(float(x.double().abs().max()) for x in a)
+        diffs[name] = {'max_abs_diff': d, 'share_of_max_abs': d / top if top else None}
+        log(f'[compare] {name}: largest |this - prev| {d:.4g} ({diffs[name]["share_of_max_abs"]}'
+            ' of the largest |prev|)')
     log(nvidia_smi_line())
-    log(json.dumps({'compare': ratios, 'equal_outputs': same}))
+    log(json.dumps({'compare': ratios, 'equal_outputs': same, 'output_differences': diffs}))
     return 0
 
 
@@ -1243,10 +1321,13 @@ def plan_counters(I):
                 'rollout': rollout.rollout_prepared,
                 'probe': probe.add_one,
                 # the wide engine's device launches (ops/wide.py), of any wrapper,
-                # and the products, row kernels and stagings among them, each
-                # counted where the library launches it
+                # and the products, row kernels, stagings, u products and fused
+                # folded layers among them, each counted where the library
+                # launches it
                 'wide': wide.engine_launches, 'wide_gemm': wide.gemm_launches,
-                'wide_row': wide.row_launches, 'wide_stage': wide.stage_launches}
+                'wide_row': wide.row_launches, 'wide_stage': wide.stage_launches,
+                'wide_fold_u': wide.fold_u_launches,
+                'wide_fold_hidden': wide.fold_hidden_launches}
 
     def zero_counts():
         for w in wrappers.values():
@@ -1260,16 +1341,18 @@ def plan_counters(I):
                    for kind in ('plan', 'update') for what in ('replays', 'captures')}}
 
     def check_plan_counts(name, counts, plans=None, wide_per_plan=0, products_per_plan=0,
-                          stages_per_plan=0):
+                          stages_per_plan=0, folds_per_plan=0):
         """Each plan of a path: one pi rollout, I sampled value launches and
         I elite launches (1 + 2 I kernels), none of the given-actions value
         launch, and one graph replay, or the eager run of a capture; and
         `wide_per_plan` device launches of the wide engine (0 below 2048
         columns), `products_per_plan` of them products, `stages_per_plan`
-        stagings and the rest row kernels, each kind counted where the
+        stagings, `folds_per_plan` u products and as many fused folded
+        layers, and the rest row kernels, each kind counted where the
         library launches it."""
         p = counts['cem_pi_rollout']
-        rows_per_plan = wide_per_plan - products_per_plan - stages_per_plan
+        rows_per_plan = (wide_per_plan - products_per_plan - stages_per_plan
+                         - 2 * folds_per_plan)
         ok = (p > 0 and counts['value_sampled'] == I * p and counts['cem_elite'] == I * p
               and counts['value'] == 0 and counts['plan_replays'] > 0
               and counts['plan_replays'] + counts['plan_captures'] == p
@@ -1277,6 +1360,8 @@ def plan_counters(I):
               and counts['wide_gemm'] == products_per_plan * p
               and counts['wide_row'] == rows_per_plan * p
               and counts['wide_stage'] == stages_per_plan * p
+              and counts['wide_fold_u'] == folds_per_plan * p
+              and counts['wide_fold_hidden'] == folds_per_plan * p
               and (plans is None or p == plans))
         log(f'  {name}: {p} plans, {1 + 2 * I} planner launches a plan '
             f'({counts["value_sampled"]} sampled value, {counts["cem_elite"]} elite), '
@@ -1284,7 +1369,9 @@ def plan_counters(I):
             + (f'; the wide engine {counts["wide"]} launches, {wide_per_plan} a plan: '
                f'{counts["wide_gemm"]} products ({products_per_plan} a plan), '
                f'{counts["wide_row"]} row kernels ({rows_per_plan} a plan), '
-               f'{counts["wide_stage"]} stagings ({stages_per_plan} a plan)'
+               f'{counts["wide_stage"]} stagings ({stages_per_plan} a plan), '
+               f'{counts["wide_fold_u"]} u products and {counts["wide_fold_hidden"]} fused '
+               f'layers ({folds_per_plan} a plan each)'
                if wide_per_plan else ''))
         if not ok:
             raise AssertionError(f'{name}: planner launches {counts} for {plans} plans')
@@ -1799,13 +1886,6 @@ PRODUCT_SHAPES = (
     ('Q: z||a -> M', 1392, 4096, 'q0'), ('Q: M -> M', 4096, 4096, 'q'),
     ('Q: M -> bins', 4096, 101, 'q'))
 PRODUCT_ENVS = (1, 8, 80)
-# A value step's folded first layers (step 0, the latent broadcast): u =
-# the envs' latents . the layout's latent block + the task's bias row, on a
-# row an env ('task', S = 1), then the rows' action columns . its action
-# block + u's row of the env ('env': an identity task index into u), each
-# block of a [4096, 1392] wide layout read with its rows 1392 apart.
-FOLD_SHAPES = (('fold: latent -> M (u)', 1376, 4096, 'task'),
-               ('fold: actions -> M', 16, 4096, 'env'))
 PI_SHAPES = ('latent -> M', 'M -> M', 'M -> latent', 'M -> pi', 'z||a -> M')
 ROLLOUT_5M = (512, 512, 6, 101, 5, 8, 3)
 ROLLOUT_5M_SHAPES = (('z||a -> M', 528, 512, ''), ('M -> M', 512, 512, ''),
@@ -1817,8 +1897,9 @@ PRODUCT_HEADLINE = ('M -> M', 80)
 
 
 def sass_counts():
-    """{library: {kernel: {instruction: count}}} of the product kernels in
-    the built libraries' SASS (cuobjdump -sass): wgmma (HGMMA), TMA loads
+    """{library: {kernel: {instruction: count}}} of the product kernels (the
+    wide engine's and the fold's u product) in the built libraries' SASS
+    (cuobjdump -sass): wgmma (HGMMA), TMA loads
     (UTMALDG), bulk copies (UBLKCP), mma.sync (HMMA), cp.async (LDGSTS);
     None where the toolkit has no cuobjdump."""
     import re
@@ -1836,7 +1917,7 @@ def sass_counts():
             m = re.search(r'Function : (\S+)', line)
             if m:
                 fn = _build._short(m.group(1))
-                if fn.startswith('gemm_kernel'):
+                if fn.startswith(('gemm_kernel', 'fold_u_kernel')):
                     counts[fn] = dict.fromkeys(ops, 0)
                 continue
             if fn in counts:
@@ -1849,9 +1930,9 @@ def sass_counts():
 
 def product_phase(only=None):
     """The product alone on the card, each shape of PRODUCT_SHAPES at N=1,
-    8 and 80 envs of 512 rows, the pi rollout's at N=80 x 24 rows, the 5M
-    rollout's at 512 rows and the folded first layers' (FOLD_SHAPES) at N=1,
-    8 and 80 envs (only the 317M shapes named in `only`, when given): held
+    8 and 80 envs of 512 rows, the pi rollout's at N=80 x 24 rows and the
+    5M rollout's at 512 rows (only the 317M shapes named in `only`, when
+    given): held
     against the plain product (x.float() @ W.float() + bias) within
     PRODUCT_RTOL of |x| @ |W| (x's columns past K NaN, so that a read past
     K shows); N=8 against a one-env launch on env 3's rows bit for bit;
@@ -1868,38 +1949,20 @@ def product_phase(only=None):
     cases = [(WIDE_DIMS, 512, n, sh) for n in PRODUCT_ENVS for sh in PRODUCT_SHAPES]
     cases += [(WIDE_DIMS, 24, 80, sh) for sh in PRODUCT_SHAPES if sh[0] in PI_SHAPES]
     cases += [(ROLLOUT_5M, 512, 1, sh) for sh in ROLLOUT_5M_SHAPES]
-    cases += [(WIDE_DIMS, 1 if sh[3] == 'task' else 512, n, sh)
-              for sh in FOLD_SHAPES for n in PRODUCT_ENVS]
     if only is not None:
         cases = [c for c in cases if c[0] is WIDE_DIMS and c[3][0] in only]
 
-    def operands(dims, S, n, K, N, kind, fold=False):
+    def operands(dims, S, n, K, N, kind):
         R, heads = n * S, NQ if kind in ('q0', 'q') else 1
         ldx = K + 16 if K % 64 else K      # the latent's x rows carry the actions after
         x = torch.randn(R, ldx, device=dev, generator=g).to(torch.bfloat16)
         x[:, K:] = float('nan')
         w = (torch.randn(heads, N, K, device=dev, generator=g) * K ** -0.5).to(torch.bfloat16)
-        if fold:
-            # a block of the first layer's wide layout [N, Lp + Ap], the other
-            # block NaN (a read past the block's K shows); the actions' x the
-            # last 16 columns of 1392-wide rows, their latent columns NaN
-            Lp = dims[0]
-            full = torch.full((N, Lp + 16), float('nan'), device=dev, dtype=torch.bfloat16)
-            blk = slice(0, Lp) if kind == 'task' else slice(Lp, Lp + 16)
-            full[:, blk] = w[0]
-            w = full[None, :, blk]
-            if kind == 'env':
-                xf = torch.full((R, Lp + 16), float('nan'), device=dev, dtype=torch.bfloat16)
-                xf[:, Lp:] = x[:, :K]
-                x = xf[:, Lp:]
         env = torch.arange(n, device=dev, dtype=torch.int32)
         task = env % n_tasks
         head = torch.stack([env % NQ, (env + 1) % NQ], 1).to(torch.int32)   # as qidx [n, 2]
         kw = dict(task=None, ntask=1, head=None, hn=2, bt=0, bh=0)
-        if kind == 'env':
-            b = torch.randn(n, N, device=dev, generator=g)
-            kw.update(task=env, ntask=n, bt=N)
-        elif kind == 'task':
+        if kind == 'task':
             b = torch.randn(n_tasks, N, device=dev, generator=g)
             kw.update(task=task, ntask=n_tasks, bt=N)
         elif kind == 'q0':
@@ -1945,8 +2008,7 @@ def product_phase(only=None):
         return y + bias
 
     for dims, S, n, (label, K, N, kind) in cases:
-        fold = label.startswith('fold')
-        x, w, b, kw = operands(dims, S, n, K, N, kind, fold)
+        x, w, b, kw = operands(dims, S, n, K, N, kind)
         R = n * S
         y, plan = wide.gemm(x, w, b, dims, S, **kw)
         got = wide.gemm_sum(y, plan, N)
@@ -1981,9 +2043,7 @@ def product_phase(only=None):
         l_dev = device_share(lib, 3)[0]
         p_ms = time_ms(lambda: plain(x, w, b, kw, S, K, N), 2)
         heads_used = 1 if kw['head'] is None else len(set(kw['head'][:, 0].tolist()))
-        # the bias rows read: a fold's one row an env (of the task table, or of u)
-        bias_by = nbytes(b) if not fold else len(set(kw['task'].tolist())) * N * 4
-        by = R * K * 2 + heads_used * N * K * 2 + R * N * 4 + bias_by
+        by = R * K * 2 + heads_used * N * K * 2 + R * N * 4 + nbytes(b)
         b_ms, b_by = bound_ms(by, 2 * R * K * N, BF16_FLOPS)
         rec = dict(shape=label, model=317 if dims is WIDE_DIMS else 5, n_envs=n, rows=R, K=K,
                    N=N, plan=plan, max_abs_err=err, tol_used=over, ms=k_ms, device_ms=k_dev,
@@ -1997,6 +2057,193 @@ def product_phase(only=None):
             f'({b_by}): {100 * b_ms / k_ms:.1f}% of the bound, {k_ms / l_ms:.2f}x cuBLAS')
         del x, w, b, y, got, want, room, out
     return records, worst
+
+
+# A value step's folded first layer (step 0, the latent one row an env),
+# its two kernels alone (ops/wide.py fold_u, fold_hidden) at the 317M
+# model's widths: the u product on FOLD_ENVS envs' latents, the fused layer
+# on their 512 rows each; the kernels' line reports them at FOLD_HEADLINE.
+FOLD_ENVS = (1, 8, 80)
+FOLD_HEADLINE = 80
+FOLD_TASKS = 80
+
+
+def fold_operands(n, S, g):
+    """A folded first layer's operands on n envs of S rows at WIDE_DIMS:
+    the wide layout [M, Lp + Ap] (pads zero), the envs' latents zb [n, Lp],
+    the z||a rows (latent columns NaN, A actions, zeros to Ap), a bias table
+    of FOLD_TASKS rows, the envs' task ids (80 distinct ones at 80 envs),
+    gain and beta."""
+    import torch
+    L, M, A = WIDE_DIMS[:3]
+    Lp, Ap = -(-L // 16) * 16, -(-A // 16) * 16
+    dev = g.device
+    wT = (torch.randn(M, Lp + Ap, device=dev, generator=g) * L ** -0.5).to(torch.bfloat16)
+    wT[:, L:Lp] = 0
+    wT[:, Lp:] *= 3
+    wT[:, Lp + A:] = 0
+    zb = torch.randn(n, Lp, device=dev, generator=g).to(torch.bfloat16)
+    zb[:, L:] = 0
+    x = torch.full((n * S, Lp + Ap), float('nan'), device=dev, dtype=torch.bfloat16)
+    x[:, Lp:] = 0
+    x[:, Lp:Lp + A] = (torch.rand(n * S, A, device=dev, generator=g) * 2 - 1).to(torch.bfloat16)
+    b0 = torch.randn(FOLD_TASKS, M, device=dev, generator=g) * 0.5
+    task = ((torch.arange(n, device=dev) * 7 + 3) % FOLD_TASKS).to(torch.int32)
+    gain = 1 + 0.2 * torch.randn(M, device=dev, generator=g)
+    beta = 0.2 * torch.randn(M, device=dev, generator=g)
+    return wT, zb, x, b0, task, gain, beta
+
+
+def fold_phase():
+    """The folded first layer's two kernels alone on the card, at each of
+    FOLD_ENVS envs of 512 rows. The u product (fold_u): its partial rows
+    summed in order against fold_u_plain within PRODUCT_RTOL of |zb| @ |Wz|,
+    env 3 of N=8 its one-env launch's bit for bit; timed by CUDA events (in
+    turns) and by its own device time beside torch.mm(zb, Wz.T,
+    out_dtype=torch.float32) (the same product with the kernel's f32
+    output) and torch.matmul (bf16 out), its plain version, and its bound
+    (Wz read once, the latents, u written once; the multiply-adds at the
+    bf16 peak). The fused layer
+    (fold_hidden) on the n x 512 rows: against fold_hidden_plain within one
+    bf16 step (tests/row_cases.py hold_rows), env 3 of N=8 its one-env
+    launch's bit for bit; timed beside the pair it replaces on the same
+    operands (the action product through gemm_kernel with u's rows plus the
+    env's bias row as its bias, then row_kernel<256, 0>; its output held to
+    the same band), its plain version, and its bound (the actions, the
+    action block, u, the used bias rows, gain and beta read once, the bf16
+    rows written; the f32 multiply-adds). Returns
+    (the records, the largest share of a tolerance used, max |err|)."""
+    import torch
+    from tdmpc2_tpu_torch.ops import wide
+    rc = row_cases()
+    dims, S, dev = WIDE_DIMS, 512, torch.device('cuda')
+    L, M, A = dims[:3]
+    Lp, Mp = -(-L // 16) * 16, -(-M // 16) * 16
+    g = torch.Generator(device=dev).manual_seed(SEED + 1392)
+    records, worst = [], (0.0, 0.0)
+    for n in FOLD_ENVS:
+        R = n * S
+        wT, zb, x, b0, task, gain, beta = fold_operands(n, S, g)
+        Wz, Wa, xa = wT[:, :Lp], wT[:, Lp:], x[:, Lp:]
+        # the u product
+        tag = f'fold: u product, {n} env(s)'
+        u, plan = wide.fold_u(zb, Wz, dims)
+        got = u[0].clone()
+        for k in range(1, plan['splits']):
+            got += u[k]
+        want = wide.fold_u_plain(zb, Wz)
+        room = PRODUCT_RTOL * (zb.float().abs() @ Wz.float().abs().T) + PRODUCT_ATOL
+        err, use = max_err(got, want), float(((got - want).abs() / room).max())
+        if not bool(torch.isfinite(got).all()) or use > 1:
+            raise AssertionError(f'{tag}: max |err| {err:.3g}, {use:.3f} of the tolerance '
+                                 f'(plan {plan})')
+        worst = (max(worst[0], use), max(worst[1], err))
+        if n == 8:
+            u1, _ = wide.fold_u(zb[3:4], Wz, dims)
+            if not torch.equal(u1, u[:, 3:4]):
+                raise AssertionError(f'{tag}: env 3 differs from its one-env launch')
+        uo = torch.empty(wide.FOLD_SPLITS, n, Mp, device=dev)
+        kern = (lambda: wide.fold_u(zb, Wz, dims, out=uo))
+        mm = (lambda: torch.mm(zb, Wz.t(), out_dtype=torch.float32))
+        mat = (lambda: torch.matmul(zb, Wz.t()))
+        t = [time_ms(f, 20) for f in (kern, mm, mat, mat, mm, kern)]
+        k_ms, mm_ms, mat_ms = (t[0] + t[5]) / 2, (t[1] + t[4]) / 2, (t[2] + t[3]) / 2
+        _, _, top = device_share(kern, 10)
+        k_dev = sum(t_ for t_, _, k in top if 'fold_u_kernel' in k) or None
+        mm_dev, mat_dev = device_share(mm, 10)[0], device_share(mat, 10)[0]
+        p_ms = time_ms(lambda: wide.fold_u_plain(zb, Wz), 3)
+        by = M * Lp * 2 + n * Lp * 2 + n * M * 4
+        b_ms, b_by = bound_ms(by, 2 * n * Lp * M, BF16_FLOPS)
+        log(f'  {tag}: {plan["splits"]} splits of {plan["kchunk"]} stages, {plan["ke"]} env '
+            f'tile(s) a block, grid {plan["grid"]}; max |err| {err:.3g} ({use:.3f} of the '
+            f'tolerance); kernel {k_ms:.4f} ms (device {k_dev}), torch.mm f32 out '
+            f'{mm_ms:.4f} ms (device {mm_dev}), torch.matmul {mat_ms:.4f} ms (device '
+            f'{mat_dev}), plain {p_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})'
+            + (f': {100 * b_ms / k_dev:.1f}% of the bound, {k_dev / mm_dev:.2f}x torch.mm'
+               if k_dev and mm_dev else ''))
+        records.append(dict(kernel='fold_u', n_envs=n, rows=n, plan=plan, max_abs_err=err,
+                            tol_used=use, ms=k_ms, device_ms=k_dev, library_ms=mm_ms,
+                            library_device_ms=mm_dev, matmul_ms=mat_ms,
+                            matmul_device_ms=mat_dev, plain_ms=p_ms, bound_ms=b_ms,
+                            bound_by=b_by))
+        # the fused layer
+        tag = f'fold: fused action product + LayerNorm + Mish, {R} rows'
+
+        def out():
+            return torch.full((R, Mp + 16), float('nan'), device=dev, dtype=torch.bfloat16)
+        hk, hp, hq = out(), out(), out()
+        fplan = wide.fold_hidden(xa, Wa, u, b0, gain, beta, dims, S, task=task, dst=hk)
+        wide.fold_hidden_plain(xa, Wa, u, b0, gain, beta, dims, S, hp, task=task)
+        use, err = rc.hold_rows(tag, {'dst': hk}, {'dst': hp}, M)
+        worst = (max(worst[0], use), max(worst[1], err))
+        if n == 8:
+            u1, _ = wide.fold_u(zb[3:4], Wz, dims)
+            h1 = torch.full((S, Mp + 16), float('nan'), device=dev, dtype=torch.bfloat16)
+            wide.fold_hidden(xa[3 * S:4 * S], Wa, u1, b0, gain, beta, dims, S,
+                             task=task[3:4], dst=h1)
+            if not torch.equal(h1.view(torch.int16), hk[3 * S:4 * S].view(torch.int16)):
+                raise AssertionError(f'{tag}: env 3 differs from its one-env launch')
+        # the pair it replaces: the action product with u's rows plus the
+        # env's bias row as its bias (gemm_kernel), then LayerNorm + Mish of
+        # its f32 rows (row_kernel)
+        us = (got + b0[task.long()]).contiguous()
+        env = torch.arange(n, device=dev, dtype=torch.int32)
+        y = torch.empty(R, wide.y_width(dims), device=dev)
+
+        def pair():
+            wide.gemm(xa, Wa, us, dims, S, task=env, ntask=n, bt=us.stride(0), out=y)
+            wide.rows('hidden', y, dims, S, gain=gain, beta=beta, dst=hq, dpad=Mp)
+        pair()
+        rc.hold_rows(f'{tag}, the product + row kernel pair', {'dst': hq}, {'dst': hp}, M)
+        kern = (lambda: wide.fold_hidden(xa, Wa, u, b0, gain, beta, dims, S, task=task,
+                                         dst=hk))
+        reps = 20 if R <= 4096 else 10
+        t = [time_ms(f, reps) for f in (kern, pair, pair, kern)]
+        k_ms, pair_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        _, _, top = device_share(kern, reps)
+        k_dev = sum(t_ for t_, _, k in top if 'fold_hidden_kernel' in k) or None
+        _, _, ptop = device_share(pair, reps)
+        g_dev = sum(t_ for t_, _, k in ptop if 'gemm_kernel' in k) or None
+        r_dev = sum(t_ for t_, _, k in ptop if 'row_kernel' in k) or None
+        p_ms = time_ms(lambda: wide.fold_hidden_plain(xa, Wa, u, b0, gain, beta, dims, S, hp,
+                                                      task=task), 2)
+        by = (R * A * 2 + M * A * 2 + n * M * 4 + len(set(task.tolist())) * M * 4
+              + 2 * M * 4 + R * Mp * 2)
+        b_ms, b_by = bound_ms(by, 0, BF16_FLOPS, 2 * R * M * A)
+        pair_dev = (g_dev + r_dev) if g_dev and r_dev else None
+        log(f'  {tag}: plan {fplan}; max |err| {err:.3g} ({use:.3f} of the band); kernel '
+            f'{k_ms:.4f} ms (device {k_dev}), the pair it replaces {pair_ms:.4f} ms (device: '
+            f'product {g_dev}, row kernel {r_dev}), plain {p_ms:.3f} ms, bound {b_ms:.6f} ms '
+            f'({b_by})' + (f': {100 * b_ms / k_dev:.1f}% of the bound, {pair_dev / k_dev:.2f}x '
+                           'faster than the pair' if k_dev and pair_dev else ''))
+        records.append(dict(kernel='fold_hidden', n_envs=n, rows=R, plan=fplan,
+                            max_abs_err=err, tol_used=use, ms=k_ms, device_ms=k_dev,
+                            pair_ms=pair_ms, pair_product_device_ms=g_dev,
+                            pair_row_device_ms=r_dev, plain_ms=p_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=None))
+        del wT, zb, x, u, hk, hp, hq, y, uo
+    return records, worst
+
+
+def fold_rows(records):
+    """The two fold kernels' lines for the kernels' JSON line, from
+    fold_phase's records: their numbers at FOLD_HEADLINE envs, every size's
+    records beside them."""
+    rows = []
+    for kernel, name in (('fold_u', 'wide_fold_u'), ('fold_hidden', 'wide_fold_hidden')):
+        mine = [r for r in records if r['kernel'] == kernel]
+        top = next(r for r in mine if r['n_envs'] == FOLD_HEADLINE)
+        rows.append({
+            'name': name, 'route': 'cuda', 'engine': 'wide',
+            'source': 'tdmpc2_tpu_torch/csrc/mlp_wide.cuh',
+            'replaces': 'tdmpc2_tpu/ops/pallas_rollout.py:437', 'launches': 0,
+            'headline': f'{top["rows"]} rows' if kernel == 'fold_hidden'
+                        else f'{top["n_envs"]} envs',
+            'max_abs_err': max(r['max_abs_err'] for r in mine),
+            **{k: top[k] for k in ('ms', 'device_ms', 'plain_ms', 'bound_ms', 'bound_by',
+                                   'library_ms')},
+            'sizes': mine})
+    return rows
 
 
 # The row kernel alone (ops/wide.py rows, the library's tdm_wide_rows) at the
@@ -2184,8 +2431,7 @@ def row_kernel_bytes(R):
 # launches take: step t = 0 with the latent broadcast over an env's rows
 # (zs = 0: the pi rollout's staging, and the value step's unless folded)
 # or a latent per row (zs != 0), a later step's actions alone, and the
-# folded t = 0 launch (the actions, each env's one latent into zb, the
-# identity env index).
+# folded t = 0 launch (the actions, each env's one latent into zb).
 STAGE_ROWS = (512, 4096, 40960)
 STAGE_MODES = ('latent, broadcast', 'latent, per row', 'actions', 'folded')
 STAGE_PI = 24              # policy-prior rows an env (num_pi_trajs)
@@ -2199,15 +2445,15 @@ def stage_bytes(mode, R, N, L, A, n_pi=STAGE_PI):
     actions written (f32), each env's mean, std and mask read; at t = 0
     the four per-row scalars zeroed and the latent: an env's one row read
     (broadcast, folded) or a row each (per row), written into every row's
-    latent columns (bf16, padded to 16), or into the env's row of zb and
-    its env index (folded)."""
+    latent columns (bf16, padded to 16), or into the env's row of zb
+    (folded)."""
     Lp, Ap = -(-L // 16) * 16, -(-A // 16) * 16
     acts = R * (Ap * 2 + 2 * A * 4) + N * 3 * A * 4
     if mode == 'actions':
         return acts
     first = acts + R * 4 * 4
     if mode == 'folded':
-        return first + N * L * 4 + N * Lp * 2 + N * 4
+        return first + N * L * 4 + N * Lp * 2
     return first + R * Lp * 2 + (R if mode == 'latent, per row' else N) * L * 4
 
 
@@ -2225,8 +2471,8 @@ def stage_alone(dims, S, mode, z0, mean, std, noise, pi_acts, amask):
     held against stage_plain on the same inputs bit for bit: the z||a rows
     (NaN wherever nothing is written: past the padded widths, and the
     latent columns of a folded or later step), the f32 actions (the other
-    steps' columns NaN), G, q, term and term_at zeroed at t = 0, zb and
-    env when folded; at N = 8 env 5's rows against its one-env launch.
+    steps' columns NaN), G, q, term and term_at zeroed at t = 0, zb when
+    folded; at N = 8 env 5's rows against its one-env launch.
     Timed by CUDA events and by its own device time, beside stage_plain,
     against the bytes its function must move (stage_bytes). Returns the
     record."""
@@ -2246,8 +2492,7 @@ def stage_alone(dims, S, mode, z0, mean, std, noise, pi_acts, amask):
             o.update(G=nan(n * S), q=nan(n * S), term=nan(n * S),
                      term_at=torch.full((n * S,), -1, dtype=torch.int32, device=dev))
         if fold:
-            o.update(zb=nan(n, Lp, dtype=torch.bfloat16),
-                     env=torch.full((n,), -1, dtype=torch.int32, device=dev))
+            o.update(zb=nan(n, Lp, dtype=torch.bfloat16))
         return o
 
     def run(fn, o, e=None):
@@ -2272,8 +2517,6 @@ def stage_alone(dims, S, mode, z0, mean, std, noise, pi_acts, amask):
             fin = torch.isfinite(want[k].float())
             raise AssertionError(f'{tag}: {k} differs from stage_plain\'s, max |err| '
                                  f'{max_err(got[k][fin], want[k][fin]):.3g}')
-    if fold and not torch.equal(got['env'], torch.arange(N, device=dev, dtype=torch.int32)):
-        raise AssertionError(f'{tag}: env is not the identity index')
     if N == 8:
         one = outputs(1)
         run(wide.stage, one, 5)
@@ -2341,10 +2584,10 @@ def stage_headline(records, H=WIDE_DIMS[6]):
 
 
 def stage_only() -> int:
-    """`--stage`: the build, then the staging alone (stage_phase) and the
-    folded first layers' products with the z||a product they replace at
-    t = 0 (product_phase), for a quick check of them on the card; prints
-    the card and the records."""
+    """`--stage`: the build, then the staging alone (stage_phase), the
+    folded first layer's two kernels (fold_phase) and the z||a product the
+    fold replaces at t = 0 (product_phase), for a quick check of them on the
+    card; prints the card and the records."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
     from tdmpc2_tpu_torch.ops import _build
@@ -2359,11 +2602,14 @@ def stage_only() -> int:
                 f'{ld} bytes spill loads')
     with Phase('the wide engine\'s staging alone against stage_plain'):
         records = stage_phase()
-    with Phase('the folded first layers\' products alone, beside the z||a product they '
-               'replace at t = 0'):
-        products, _ = product_phase(only=('z||a -> M',) + tuple(s[0] for s in FOLD_SHAPES))
+    with Phase('the folded first layer\'s two kernels alone (the u product; the fused '
+               'action product + LayerNorm + Mish), beside what they replace'):
+        folds, worst = fold_phase()
+        log(f'  largest share of a tolerance used: {worst[0]:.3f}, max |err| {worst[1]:.3g}')
+    with Phase('the z||a product the fold replaces at t = 0'):
+        products, _ = product_phase(only=('z||a -> M',))
     log(nvidia_smi_line())
-    log(json.dumps({'stage': records, 'products': products}))
+    log(json.dumps({'stage': records, 'fold': folds, 'products': products}))
     return 0
 
 
@@ -2650,7 +2896,8 @@ def wide_phases(zero_counts, read_counts, check_plan_counts, update_records):
         w0, replays = [c.launches for c in wide.COUNTERS], Graph.replays.get('plan', 0)
         a, pm = ag.act_tasks(obs_np, pm, False, tasks)
         launched = [w.launches - c for w, c in zip(PLAN_WRAPPERS, counts)]
-        w_plan, g_plan, r_plan, s_plan = [c.launches - k for c, k in zip(wide.COUNTERS, w0)]
+        w_plan, g_plan, r_plan, s_plan, fu_plan, fh_plan = [
+            c.launches - k for c, k in zip(wide.COUNTERS, w0)]
         pm_graph = pm.clone()
         pm.copy_(pm0)
         ag.generator.manual_seed(SEED + 80)
@@ -2659,15 +2906,19 @@ def wide_phases(zero_counts, read_counts, check_plan_counts, update_records):
         if (Graph.replays['plan'] != replays + 1 or launched != [1, I, I]
                 or w_plan != wide.plan_launches(H, I, False)
                 or g_plan != wide.plan_products(H, I, False)
-                or s_plan != wide.plan_stagings(H, I) or r_plan != w_plan - g_plan - s_plan):
+                or s_plan != wide.plan_stagings(H, I)
+                or fu_plan != wide.plan_folds(I) or fh_plan != wide.plan_folds(I)
+                or r_plan != w_plan - g_plan - s_plan - fu_plan - fh_plan):
             raise AssertionError(f'{tag} act_tasks graph: launches {launched}, wide {w_plan}, '
-                                 f'products {g_plan}, row kernels {r_plan}, stagings {s_plan}')
+                                 f'products {g_plan}, row kernels {r_plan}, stagings {s_plan}, '
+                                 f'u products {fu_plan}, fused layers {fh_plan}')
         if not (np.array_equal(a, a_e.cpu().numpy()) and torch.equal(pm_graph, pm)):
             raise AssertionError(f'{tag} act_tasks graph: the replay differs from the eager '
                                  f'body (max |err| {max_err(torch.from_numpy(a), a_e.cpu()):.3g})')
         log(f'  act_tasks N={NT}: one replay ({launched} calls, {w_plan} launches of the '
             f'wide engine, {g_plan} of them products, {r_plan} row kernels, {s_plan} '
-            'stagings) equals the eager body bit for bit')
+            f'stagings, {fu_plan} u products, {fh_plan} fused layers) equals the eager body '
+            'bit for bit')
 
         # times and bounds (CUDA events; own device time by torch.profiler)
         used = len(set(noise.qidx[:, 0].flatten().tolist()))
@@ -2697,7 +2948,9 @@ def wide_phases(zero_counts, read_counts, check_plan_counts, update_records):
             products = (wide.pi_rollout_products(H) if bkey == 'pi_rollout'
                         else wide.value_products(H, episodic))
             stagings = 1 if bkey == 'pi_rollout' else H
-            kinds_want = [products, per_call - products - stagings, stagings]
+            folds = 0 if bkey == 'pi_rollout' else wide.value_folds(episodic=episodic)
+            kinds_want = [products, per_call - products - stagings - 2 * folds, stagings, folds,
+                          folds]
             runs = [('', cases[f'N={n8}'], n8, n8_used), ('_n1', cases['one env'], 1, one_used)]
             if not episodic:
                 runs.append(('_n80', ((), vs80, (prep, z, noise.pi_eps[:, :n_pi]),
@@ -2710,7 +2963,8 @@ def wide_phases(zero_counts, read_counts, check_plan_counts, update_records):
                 if counted != per_call or kinds != kinds_want:
                     raise AssertionError(f'{name} (N={n}): {counted} device launches counted, '
                                          f'{per_call} expected; products, row kernels, '
-                                         f'stagings {kinds}, {kinds_want} expected')
+                                         f'stagings, u products, fused layers {kinds}, '
+                                         f'{kinds_want} expected')
                 ms = time_ms(lambda: kern(*args, **kw), 10 if n < NT else 3)
                 dev_ms, _, top = device_share(lambda: kern(*args, **kw), 3 if n < NT else 2,
                                               keep=12)
@@ -2789,6 +3043,22 @@ def wide_phases(zero_counts, read_counts, check_plan_counts, update_records):
                      'replaces': 'tdmpc2_tpu/ops/pallas_rollout.py:437', 'launches': 0,
                      'library_ms': None, 'model_size': WIDE_SIZE,
                      'by_template': by_template})
+        # the fold's two kernels from the same traces; their numbers alone
+        # come from the fold phase (main)
+        for fname, kname in (('wide_fold_u', 'fold_u_kernel'),
+                             ('wide_fold_hidden', 'fold_hidden_kernel')):
+            seen = {}
+            for suffix, (R, top) in row_kernels.items():
+                hit = [(t, c) for t, c, k in top if kname in k]
+                t_ms, cnt = (sum(t for t, _ in hit), sum(c for _, c in hit)) if hit else (None, 0)
+                seen[suffix] = dict(rows=R, launches_a_step=cnt, ms=t_ms and t_ms / cnt)
+                log(f'  {kname}, {R} rows: '
+                    + ('not in the trace\'s top entries' if t_ms is None else
+                       f'{t_ms / cnt:.4f} ms a launch ({cnt:.0f} a value step)'))
+            rows.append({'name': fname, 'route': 'cuda', 'engine': 'wide',
+                         'source': 'tdmpc2_tpu_torch/csrc/mlp_wide.cuh',
+                         'replaces': 'tdmpc2_tpu/ops/pallas_rollout.py:437', 'launches': 0,
+                         'library_ms': None, 'model_size': WIDE_SIZE, 'in_value_step': seen})
         del e_prep, e_params, cases, prep_r
 
     with tempfile.TemporaryDirectory() as data_dir, \
@@ -2842,7 +3112,8 @@ def wide_phases(zero_counts, read_counts, check_plan_counts, update_records):
         paths['act_tasks mt80'] = read_counts()
         check_plan_counts(f'act_tasks mt80 (N={NT}, {tag})', paths['act_tasks mt80'],
                           WIDE_ACT_STEPS + 1, wide.plan_launches(H, I, False),
-                          wide.plan_products(H, I, False), wide.plan_stagings(H, I))
+                          wide.plan_products(H, I, False), wide.plan_stagings(H, I),
+                          wide.plan_folds(I))
         if not np.isfinite(a).all() or any(
                 (a[i, MT80_ACTION_DIMS[i]:] != 0).any() for i in range(NT)):
             raise AssertionError('act_tasks mt80: non-finite actions or a masked column set')
@@ -2865,7 +3136,9 @@ def wide_phases(zero_counts, read_counts, check_plan_counts, update_records):
             key = {'value_sampled_317': 'value_sampled',
                    'value_sampled_episodic_317': None,
                    'cem_pi_rollout_317': 'cem_pi_rollout',
-                   'wide_row': 'wide_row', 'wide_stage': 'wide_stage'}.get(row['name'])
+                   'wide_row': 'wide_row', 'wide_stage': 'wide_stage',
+                   'wide_fold_u': 'wide_fold_u',
+                   'wide_fold_hidden': 'wide_fold_hidden'}.get(row['name'])
             if key is not None:
                 row['launches'] = paths['act_tasks mt80'][key]
             elif row['name'] == 'value_sampled_episodic_317':
@@ -5157,6 +5430,12 @@ def main() -> int:
         log(f'  largest share of a tolerance used: {row_err[0]:.3f}, max |err| {row_err[1]:.3g}')
     with Phase('the wide engine\'s staging alone against stage_plain, in each launch\'s mode'):
         stage_records = stage_phase()
+    with Phase('the folded first layer\'s two kernels alone (the u product on packed env '
+               'rows; the action product fused with its LayerNorm + Mish) against their plain '
+               'versions, beside torch.mm and the product + row kernel pair they replace'):
+        fold_records, fold_err = fold_phase()
+        log(f'  largest share of a tolerance used: {fold_err[0]:.3f}, max |err| '
+            f'{fold_err[1]:.3g}')
     w_errs, w_paths, w_rows = wide_phases(zero_counts, read_counts, check_plan_counts,
                                           update_records)
     ckpt_errs, ckpt_paths, ckpt_read_s = checkpoint_phases(
@@ -5349,10 +5628,15 @@ def main() -> int:
                                 if k.startswith(wide_kernels)}
             kernels.append(row)
         kernels.extend(mt_rows)
+        fold_lines = {r['name']: r for r in fold_rows(fold_records)}
         for row in w_rows:
             if row['name'] == 'wide_stage':
                 row['launches_by_path'] = {k: v['wide_stage'] for k, v in paths.items()}
                 row.update(stage_headline(stage_records), modes=stage_records)
+            if row['name'] in ('wide_fold_u', 'wide_fold_hidden'):
+                row['launches_by_path'] = {k: v[row['name']] for k, v in paths.items()}
+                row.update({k: v for k, v in fold_lines[row['name']].items()
+                            if k != 'launches'})
             if row['name'] == 'wide_row':
                 row['launches_by_path'] = {k: v['wide_row'] for k, v in paths.items()}
                 top = next(r for r in row_records
@@ -5399,8 +5683,8 @@ def main() -> int:
 
 
 if __name__ == '__main__':
-    if len(sys.argv) == 3 and sys.argv[1] == '--time-kernels':
-        sys.exit(time_kernels(sys.argv[2]))
+    if len(sys.argv) in (3, 4) and sys.argv[1] == '--time-kernels':
+        sys.exit(time_kernels(*sys.argv[2:]))
     if len(sys.argv) in (3, 4) and sys.argv[1] == '--compare':
         sys.exit(compare(sys.argv[2], *map(int, sys.argv[3:])))
     if len(sys.argv) == 2 and sys.argv[1] == '--cycles':

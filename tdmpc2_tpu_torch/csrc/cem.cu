@@ -591,10 +591,10 @@ extern "C" int tdm_pi_rollout(const void* const* wptrs, const int* dims, float l
 // the latent staged once, then per step the policy (its actions to pi_acts
 // and into the action columns) and, but after the last, the dynamics.
 // Operands as tdm_pi_rollout's, then the scratch buffers and their row
-// strides (ops/wide.py); `launched` [4] receives the number of launches and
-// of products, row kernels and stagings among them. When `latents` is not null it receives each
-// step's latent z_1 .. z_{H-1} in f32, [H-1, N * n_pi, L], as the dynamics
-// writes it.
+// strides (ops/wide.py); `launched` [6] receives the number of launches and
+// of products, row kernels, stagings, u products and fused layers among
+// them. When `latents` is not null it receives each step's latent z_1 ..
+// z_{H-1} in f32, [H-1, N * n_pi, L], as the dynamics writes it.
 extern "C" int tdm_pi_rollout_wide(const void* const* wptrs, const int* dims, float lsmin,
                                    float lsdif, int N, int n_pi, const float* z0, long zn,
                                    const float* pi_eps, long pn, const int* task, int ntask,

@@ -67,14 +67,18 @@
 //
 // A first layer on z||a rows whose latent is one row an env (a value
 // step's t = 0 with zs = 0, the planner's) is taken apart as the TPU
-// kernel takes it, x W = z Wz + a Wa (Wide::hidden2, folded): a product of
-// the N envs' latents (zb, which the staging writes once an env) with the
-// layout's latent block and the first layer's per-task bias, into u [N,
-// Mp]; then a K = 16 product of the rows' action columns with its action
-// block, u's row of the env as the bias (an identity index as the
-// product's task ids). Each block is read through the tensor map with the
-// layout's row stride (ldw), from a 16-byte aligned column offset. Only
-// the f32 order of the sum changes.
+// kernel takes it, x W = z Wz + a Wa (Wide::hidden2, folded), by two
+// kernels of their own (the fold section below): fold_u_kernel, the N
+// envs' latents (zb, which the staging writes once an env) times the
+// layout's latent block, on env rows packed into shared tiles, K split
+// over blocks into partial rows of u; then fold_hidden_kernel, which sums
+// an env's partial rows of u and its task's bias row once, and for each
+// row adds the A action columns times the action block in f32 to it and
+// applies LayerNorm + Mish, writing the bf16 hidden row: the f32
+// pre-activation never reaches device memory. Only the f32 order of the
+// sum changes. Where the fused layer's staged action block does not fit
+// in shared memory (fold_fits: more than 25 actions at 4096 columns), and
+// on episodic tasks, nothing folds (value.cu value_wide).
 //
 // Why the sums stay in the accumulators: the tensor cores round toward zero
 // where an f32 add rounds to nearest (mlp_rows.cuh mma16816), at most about
@@ -337,6 +341,22 @@ __device__ __forceinline__ void wgmma256(float (&d)[128], uint64_t da, uint64_t 
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (m64 x n64, f32, 32 registers a thread) += A (64 x 16, shared, K-major)
+// . B (16 x 64, shared, K-major), both through 128-byte-swizzle descriptors.
+__device__ __forceinline__ void wgmma64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(1));
 }
 
@@ -980,7 +1000,7 @@ __global__ void __launch_bounds__(kWRowThreads) row_narrow_kernel(const RowArgs 
 // at z0 + e * zn + s * zs; zs = 0 broadcasts one row) rounded to bf16:
 // into the latent columns [0, L) of every row, zeros to Lp; or, folded (zb
 // not null: value_wide at t = 0 with zs = 0), into env e's row of zb [N,
-// Lp] only, with env[e] = e, and the latent columns of x left as they are.
+// Lp] only, and the latent columns of x left as they are.
 //
 // Bound by bytes: the latent's copy into every row (at N = 80 envs of 512
 // rows, 114 MB of bf16 for 80 distinct rows, 0.034 ms at 3.35 TB/s) where
@@ -1008,7 +1028,6 @@ struct StageArgs {
   float *G, *q, *term;
   int* term_at;
   uint16_t* zb;     // folded: [N, Lp] (rows Lp apart), or null
-  int* env;         // folded: [N]
   int S, N, R;
   int rpb;          // rows a block of rows
   int row_blocks;   // blocks of rows; the blocks after them write zb, a warp an env
@@ -1111,7 +1130,6 @@ __global__ void __launch_bounds__(256) stage_kernel(const StageArgs a) {
     const int e = (static_cast<int>(blockIdx.x) - a.row_blocks) * warps + warp;
     if (e < a.N) {
       stage_latent(a, a.z0 + e * a.zn, a.zb + static_cast<long>(e) * a.Lp, lane);
-      if (lane == 0) a.env[e] = e;
     }
     return;
   }
@@ -1128,15 +1146,570 @@ __global__ void __launch_bounds__(256) stage_kernel(const StageArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// The folded first layer (a value step's t = 0, the latent one row an env)
+// ---------------------------------------------------------------------------
+//
+// u = zb . Wz (fold_u_kernel): N rows of Lp latent columns
+// against the layout's 4096 x 1376 latent block, 11.3 MB of weights for at
+// most a few hundred KB of latents, so the bound is reading Wz once. The
+// product runs with its operands swapped, as wgmma's A side has 64 rows:
+// a consumer warpgroup's 64 output columns (Wz's rows, K contiguous in the
+// wide layout) are the A operand, the envs the B operand, 64 of them an
+// env tile (m64n64k16). All the envs share one row tile (two env tiles a
+// block above 64 envs, more tiles above 128): Wz's stages are read once
+// and multiplied into every env's accumulators. 32 column tiles of 128
+// leave most SMs idle, so K is split over kFoldTiles / column tiles blocks
+// (from the widths alone: 4 at 317, 6 stages of 64 a split, all of a
+// split's stages in flight at once in a 6-stage ring); each split writes a
+// partial row of u, and the consumer sums them in order. Every element's
+// sum runs over its split's K
+// in 16-deep steps in the same m64n64k16 instruction whatever N is, so an
+// N-env launch equals N one-env launches bit for bit.
+//
+// h = mish(LN(a Wa + (u[env] + b0[task[env]]))) (fold_hidden_kernel): the
+// rows' A action columns against the layout's action block, u's row of the
+// env with its task's bias row added, LayerNorm and Mish as
+// row_kernel<TPR, kActMish> computes them (the same
+// statistics in the same order, mish_rcp), the bf16 row written: bound by
+// that write (8 KB a row at 4096 columns). The f32 pre-activation stays in
+// registers. A block stages the action block once, [A][columns] bf16 in
+// shared memory (48 KB at A = 6, 8 KB an action at 4096 columns: fold_fits
+// bounds A), then its row groups walk runs of
+// consecutive rows as row_kernel's do, up to four rows of an env at a
+// time: each action weight read from shared memory and widened once for
+// them all, and both statistics' barriers shared. The env's u (its partial
+// rows summed in order, then its bias row, when the env changes) and the
+// rows' actions sit in shared memory, gain and beta are read through L1.
+// Where every thread's
+// chunks are whole and inside the row (4096 columns, 256 threads of 16) a
+// specialisation drops the ragged edge's guards: with them the four rows'
+// values no longer fit the 128 registers of two blocks an SM and spill.
+// The sum of each element: fmaf(a_k, w_k, .) from 0 for k = 0 .. A - 1,
+// then + (u + the bias), the same whatever the row's neighbours or N.
+
+constexpr int kFoldCols = 128;     // u's columns a block: two consumer warpgroups of 64
+constexpr int kFoldEnvs = 64;      // envs an env tile: the wgmma's N
+constexpr int kFoldTiles = 128;    // u's blocks that the K split aims at, about one an SM
+constexpr int kFoldStages = 6;     // the u product's ring
+
+// The u product's block: two consumer warpgroups, then the producer
+// warpgroup; KE env tiles of 64.
+template <int KE>
+struct FTile {
+  static constexpr int wgs = 2, ke = KE;
+  static constexpr int threads = 128 * (wgs + 1);
+  static constexpr int stage_a = kFoldCols * kWK * 2;         // Wz: 128 columns x 64 K
+  static constexpr int stage_b = KE * kFoldEnvs * kWK * 2;    // zb: KE x 64 envs x 64 K
+  static constexpr int smem = 1024 + kFoldStages * (stage_a + stage_b) + 16 * kFoldStages;
+  static constexpr int launch_regs = (65536 / threads) & ~7;
+  static constexpr int prod_regs = 40;
+  static constexpr int cons_regs = ((launch_regs * (wgs + 1) - prod_regs) / wgs) & ~7;
+};
+
+// K splits of u over its ncols columns and nk stages: kFoldTiles blocks
+// over the column tiles, at most kWMaxSplits, at least 2 stages a split.
+inline int fold_splits(int ncols, int nk) {
+  const int gx = (ncols + kFoldCols - 1) / kFoldCols;
+  int s = kFoldTiles / gx;
+  if (s > kWMaxSplits) s = kWMaxSplits;
+  if (s > nk / 2) s = nk / 2;
+  return s < 1 ? 1 : s;
+}
+
+struct FoldArgs {
+  float* u;          // split z's partial row of env e at u + z * pstride + e * ldu
+  long ldu, pstride;
+  int ncols, N;
+  int nk, kchunk;    // stages of K (kWK deep) in all, and a split's
+  int gx, gy, gz;    // column tiles, tiles of KE x 64 envs, splits
+};
+
+// One block a tile: column tiles fastest, then env tiles, then splits.
+template <int KE>
+__global__ void __launch_bounds__(FTile<KE>::threads, 1)
+    fold_u_kernel(const FoldArgs a, const __grid_constant__ CUtensorMap tw,
+                  const __grid_constant__ CUtensorMap tz) {
+  using Tl = FTile<KE>;
+  extern __shared__ __align__(1024) uint8_t wide_smem[];
+  const uint32_t sA = (smem_u32(wide_smem) + 1023u) & ~1023u;
+  const uint32_t sB = sA + kFoldStages * Tl::stage_a;
+  const uint32_t full = sB + kFoldStages * Tl::stage_b, empty = full + 8 * kFoldStages;
+  const int wg = threadIdx.x >> 7;
+  const int t = blockIdx.x;
+  const int c0 = (t % a.gx) * kFoldCols;
+  const int e0 = (t / a.gx) % a.gy * (KE * kFoldEnvs);
+  const int z = t / (a.gx * a.gy);
+  const int ks0 = z * a.kchunk;
+  const int n = min(a.nk, ks0 + a.kchunk) - ks0;
+  // the env tiles that hold an env (a tile past N is neither copied nor multiplied)
+  const int live = min(KE, (a.N - e0 + kFoldEnvs - 1) / kFoldEnvs);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFoldStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, Tl::wgs * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == Tl::wgs) {
+    reg_dealloc<Tl::prod_regs>();
+    if (threadIdx.x == Tl::wgs * 128) {
+      for (int i = 0; i < n; ++i) {
+        const int st = i % kFoldStages;
+        if (i >= kFoldStages) ring_wait(empty + 8 * st, (i / kFoldStages - 1) & 1);
+        expect_tx(full + 8 * st, Tl::stage_a + live * kFoldEnvs * kWK * 2);
+        const int k = (ks0 + i) * kWK;
+        tma_2d(sA + st * Tl::stage_a, &tw, k, c0, full + 8 * st);
+        for (int j = 0; j < live; ++j)
+          tma_2d(sB + st * Tl::stage_b + j * kFoldEnvs * kWK * 2, &tz, k, e0 + j * kFoldEnvs,
+                 full + 8 * st);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: columns [c0 + 64 wg, + 64) of u for every env of the tile
+  reg_alloc<Tl::cons_regs>();
+  const bool releaser = (threadIdx.x & 31) == 0;
+  // thread (warp w, lane 4 g + q) holds columns 16 w + g (+ 8) of its
+  // warpgroup's 64 for envs 8 i + 2 q (+ 1) of each env tile
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, q = lane & 3;
+  float acc[KE][32];
+#pragma unroll
+  for (int j = 0; j < KE; ++j)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) acc[j][r] = 0.f;
+  for (int i = 0; i < n; ++i) {
+    const int st = i % kFoldStages;
+    ring_wait(full + 8 * st, (i / kFoldStages) & 1);
+    const uint64_t da = sw128_desc(sA + st * Tl::stage_a + wg * 64 * kWK * 2);
+#pragma unroll
+    for (int j = 0; j < KE; ++j) fence_acc(acc[j]);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < KE; ++j) {
+      if (j < live) {
+        const uint64_t db = sw128_desc(sB + st * Tl::stage_b + j * kFoldEnvs * kWK * 2);
+#pragma unroll
+        for (int k = 0; k < kWK / 16; ++k) wgmma64(acc[j], da + 2 * k, db + 2 * k);
+      }
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int j = 0; j < KE; ++j) fence_acc(acc[j]);
+    wgmma_wait<1>();
+    if (i > 0 && releaser) mbar_arrive(empty + 8 * ((i - 1) % kFoldStages));
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < KE; ++j) fence_acc(acc[j]);
+  if (n > 0 && releaser) mbar_arrive(empty + 8 * ((n - 1) % kFoldStages));
+
+  // epilogue: the partial row
+  float* ub = a.u + z * a.pstride;
+#pragma unroll
+  for (int j = 0; j < KE; ++j) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int e = e0 + j * kFoldEnvs + 8 * i + 2 * q + x;
+        if (e >= a.N) continue;
+        float* ue = ub + static_cast<long>(e) * a.ldu;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int c = c0 + wg * 64 + 16 * w + g + 8 * hf;
+          if (c >= a.ncols) continue;
+          ue[c] = acc[j][4 * i + 2 * hf + x];
+        }
+      }
+    }
+  }
+}
+
+struct FoldRowArgs {
+  const uint16_t* x;   // row r's action columns at x + r * ldx: A bf16, zeros after
+  long ldx;
+  const uint16_t* w;   // the action block: column c's weights at w + c * ldw
+  long ldw;
+  const float* u;      // env e's u: its partial rows at u + z * pstride + e * ldu, z < nsplit
+  long ldu, pstride;
+  int nsplit;
+  const float* b;      // env e's bias row at b + task[e] * bt
+  long bt;
+  const int* task;     // [N] task ids, or null (task 0)
+  int ntask;
+  const float *gain, *beta;
+  uint16_t* dst;       // bf16 row r at dst + r * ldd: the values, zeros from ncols to dpad
+  long ldd;
+  int dpad, ncols, A;
+  int ak;              // chunks of 8 action columns a row: A <= 8 ak
+  int wstride;         // columns of a staged action row: ncols up to a multiple of 4
+  int S;               // rows an env
+  long R;
+};
+
+constexpr int kFoldActRows = 128;   // a group's rows of actions in shared memory
+constexpr int kFoldRows = 4;        // rows of an env a step at most
+constexpr int kFoldBlocks = 2;      // the fused layer's blocks an SM (its launch bounds)
+
+// Sums of NR values over the TPR threads of a row group, each in
+// group_sum's tree (NR = 1: group_sum's), through red's NR slots a warp and
+// one barrier.
+template <int TPR, int NR>
+__device__ __forceinline__ void group_sums(float (&x)[NR], float* red, int bar) {
+#pragma unroll
+  for (int r = 0; r < NR; ++r) x[r] = warp_sum(x[r]);
+  if constexpr (TPR > 32) {
+    if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+      for (int r = 0; r < NR; ++r) red[NR * ((threadIdx.x % TPR) >> 5) + r] = x[r];
+    }
+    bar_sync(bar, TPR);
+#pragma unroll
+    for (int r = 0; r < NR; ++r) x[r] = red[r];
+#pragma unroll
+    for (int k = 1; k < TPR / 32; ++k)
+#pragma unroll
+      for (int r = 0; r < NR; ++r) x[r] += red[NR * k + r];
+  } else {
+    __syncwarp();
+  }
+}
+
+// Env e's u on the thread's chunks, its partial rows summed in order, then
+// its task's bias row added, into the group's u row in shared memory (su):
+// each thread writes and later reads only its own chunks, so no barrier
+// guards it.
+template <int TPR>
+__device__ __forceinline__ void fold_u_row(const FoldRowArgs& a, int env, int lr, float* su) {
+  const int nc = a.ncols, nch = (nc + 3) >> 2;
+  const float* ue = a.u + static_cast<long>(env) * a.ldu;
+  const int task = a.task == nullptr ? 0 : min(max(__ldg(a.task + env), 0), a.ntask - 1);
+  const float* be = a.b + static_cast<long>(task) * a.bt;
+#pragma unroll
+  for (int i = 0; i < kWChunks; ++i) {
+    const int j = lr + i * TPR;
+    if (j < nch) {
+      float4 s = __ldg(reinterpret_cast<const float4*>(ue + 4 * j));
+      for (int p = 1; p < a.nsplit; ++p) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(ue + p * a.pstride + 4 * j));
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+      }
+      float b4[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) b4[e] = 4 * j + e < nc ? __ldg(be + 4 * j + e) : 0.f;
+      s.x += b4[0];
+      s.y += b4[1];
+      s.z += b4[2];
+      s.w += b4[3];
+      *reinterpret_cast<float4*>(su + 4 * j) = s;
+    }
+  }
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
+
+// Columns 4 j .. 4 j + 3 of an f32 row p (zeros from nc on), through L1;
+// FULL: all of them below nc.
+template <bool FULL>
+__device__ __forceinline__ void load4(const float* p, int j, int nc, float (&out)[4]) {
+  if (FULL || 4 * j + 4 <= nc) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p + 4 * j));
+    out[0] = v.x;
+    out[1] = v.y;
+    out[2] = v.z;
+    out[3] = v.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[e] = 4 * j + e < nc ? __ldg(p + 4 * j + e) : 0.f;
+  }
+}
+
+// NR rows (1, 2 or 4, of one env) from `row` on: the pre-activation of
+// each column the thread owns, then row_kernel's LayerNorm + Mish, into
+// dst. The rows' actions at sa (a.ak uint4 a row, read as the product
+// needs them) and the env's u row (its bias added) at su, both in shared
+// memory; gain and beta read through L1 once for the NR rows. AK = 1: at
+// most 8 actions, the product's loop unrolled; AK = 0: any A.
+template <int TPR, int AK, int NR, bool FULL>
+__device__ __forceinline__ void fold_rows(const FoldRowArgs& a, long row, const uint16_t* sw,
+                                          const uint4* sa, const float* su, float* gred,
+                                          int bar, int lr, int w) {
+  TDM_ROW_MARK(c0, 0.f);
+  const int nc = a.ncols, nch = (nc + 3) >> 2, dch = a.dpad >> 2;
+  const uint32_t* sa32 = reinterpret_cast<const uint32_t*>(sa);   // bf16 pairs
+  // a sum over nc columns divided by nc: by its exact reciprocal where nc is
+  // a power of two (the same correctly rounded quotient, no division)
+  const float inv_nc = (nc & (nc - 1)) == 0 ? 1.f / nc : 0.f;
+  // pre = (sum over k of a_k w_k in order, in f32) + (u + b): ops/wide.py
+  // fold_plain's association (the action product, then u's row with its
+  // bias)
+  float v[NR][kWChunks][4];
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+#pragma unroll
+    for (int i = 0; i < kWChunks; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[r][i][e] = 0.f;
+  const int arow = AK > 0 ? 4 * AK : 4 * a.ak;   // bf16 pairs of a row's actions
+  auto action = [&](int k) {
+    float ak[NR];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const uint32_t pair = sa32[r * arow + (k >> 1)];
+      ak[r] = (k & 1) ? bf16_hi(pair) : bf16_lo(pair);
+    }
+#pragma unroll
+    for (int i = 0; i < kWChunks; ++i) {
+      const int j = lr + i * TPR;
+      if (FULL || j < nch) {
+        const uint2 wv = *reinterpret_cast<const uint2*>(sw + k * a.wstride + 4 * j);
+        const float w4[4] = {bf16_lo(wv.x), bf16_hi(wv.x), bf16_lo(wv.y), bf16_hi(wv.y)};
+#pragma unroll
+        for (int r = 0; r < NR; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[r][i][e] = fmaf(ak[r], w4[e], v[r][i][e]);
+      }
+    }
+  };
+  if constexpr (AK > 0) {
+#pragma unroll
+    for (int k = 0; k < 8 * AK; ++k) {
+      if (k >= a.A) break;
+      action(k);
+    }
+  } else {
+    for (int k = 0; k < a.A; ++k) action(k);
+  }
+#pragma unroll
+  for (int i = 0; i < kWChunks; ++i) {
+    const int j = lr + i * TPR;
+    if (FULL || j < nch) {
+      const float4 u4 = *reinterpret_cast<const float4*>(su + 4 * j);
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        v[r][i][0] += u4.x;
+        v[r][i][1] += u4.y;
+        v[r][i][2] += u4.z;
+        v[r][i][3] += u4.w;
+      }
+    }
+  }
+  TDM_ROW_MARK(c1, v[0][0][0]);
+  // the statistics: row_kernel's sums in its order
+  float mu[NR], rstd[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    mu[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWChunks; ++i) {
+      const int j = lr + i * TPR;
+      if (!FULL && 4 * j + 4 > nc) {   // the row's last chunk, or past it
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[r][i][e] = 4 * j + e < nc ? v[r][i][e] : 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mu[r] += v[r][i][e];
+    }
+  }
+  group_sums<TPR, NR>(mu, gred, bar);
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    mu[r] = inv_nc != 0.f ? mu[r] * inv_nc : mu[r] / nc;
+    rstd[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWChunks; ++i) {
+      const int j = lr + i * TPR;
+      if (FULL || 4 * j + 4 <= nc) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) rstd[r] += (v[r][i][e] - mu[r]) * (v[r][i][e] - mu[r]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float d = v[r][i][e] - mu[r];
+          rstd[r] += 4 * j + e < nc ? d * d : 0.f;
+        }
+      }
+    }
+  }
+  // the variances in slots of their own, whatever NR: a step's reads of its
+  // means and the next step's writes of its means are a barrier apart
+  group_sums<TPR, NR>(rstd, gred + kFoldRows * (TPR / 32), bar);
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+    rstd[r] = rsqrtf((inv_nc != 0.f ? rstd[r] * inv_nc : rstd[r] / nc) + 1e-5f);
+  TDM_ROW_MARK(c2, rstd[NR - 1]);
+  float last = 0.f;
+#pragma unroll
+  for (int i = 0; i < kWChunks; ++i) {
+    if (!FULL && i * TPR + 32 * w >= dch) continue;  // the warp holds none of dst's columns
+    const int j = lr + i * TPR;
+    float g4[4], b4[4];
+    load4<FULL>(a.gain, j, nc, g4);
+    load4<FULL>(a.beta, j, nc, b4);
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      float o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[e] = mish_rcp(fmaf((v[r][i][e] - mu[r]) * rstd[r], g4[e], b4[e]));
+      if (!FULL && 4 * j + 4 > nc) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[e] = 4 * j + e < nc ? o[e] : 0.f;
+      }
+      if (FULL || j < dch)
+        *reinterpret_cast<uint2*>(a.dst + (row + r) * a.ldd + 4 * j) =
+            make_uint2(bf16x2_bits(o[0], o[1]), bf16x2_bits(o[2], o[3]));
+      last = o[3];
+    }
+  }
+  TDM_ROW_MARK(c3, last);
+  TDM_ROW_ADD(0, c0, c3);
+  TDM_ROW_ADD(1, c0, c1);
+  TDM_ROW_ADD(2, c1, c2);
+  TDM_ROW_ADD(3, c2, c3);
+  TDM_ROW_ADD(4, 0, NR);
+  (void)last;
+}
+
+// Persistent blocks of kWRowThreads / TPR row groups (TPR from the width
+// alone, as row_kernel's); a.ak chunks of 8 action columns a row (AK as
+// fold_rows'). A group
+// copies the actions of kFoldActRows of its rows at a time into shared
+// memory (a thread a row), so that a row's product waits on no load from
+// device memory, and takes kFoldRows rows of an env a step, fewer at an
+// env's or a chunk's end: per row a quarter of the barriers, the action
+// weights' shared-memory reads and their widening to f32. The env's u row
+// (its bias added) sits in shared memory too (each thread's own chunks),
+// so that the registers hold the rows' values and little else.
+
+// Dynamic shared bytes of the fused layer at dims (tpr threads a row): the
+// action block [A][wstride] bf16 (on 16 bytes), then each group's
+// kFoldActRows rows of actions (a.ak uint4 each), then each group's u row
+// (f32).
+inline int fold_hidden_smem(const Dims& d, int tpr) {
+  const int wstride = (d.M + 3) & ~3, rg = kWRowThreads / tpr, ak = (d.A + 7) / 8;
+  return ((d.A * wstride * 2 + 15) & ~15) + rg * kFoldActRows * ak * 16 + rg * wstride * 4;
+}
+
+// Threads a row of the fused layer (and of row_kernel's LayerNorm modes)
+// at ncols columns: kWChunks float4 chunks a thread.
+inline int fold_tpr(int ncols) {
+  int tpr = 32;
+  while (tpr < kWRowThreads && ncols > tpr * kWChunks * 4) tpr *= 2;
+  return tpr;
+}
+
+// The fused layer's statistics slots: [group][mean, variance][a warp's NR]
+constexpr int kFoldRed = 2 * kFoldRows * kWRowThreads / 32;
+
+// Whether a value step may fold at these widths: the fused layer's staged
+// action block and row buffers fit in a block's shared memory (at 4096
+// columns up to 25 actions).
+inline bool fold_fits(const Dims& d) {
+  return fold_hidden_smem(d, fold_tpr(d.M)) + kFoldRed * 4 <= kSmemMax;
+}
+
+template <int TPR, int AK, bool FULL>
+__global__ void __launch_bounds__(kWRowThreads, kFoldBlocks)
+    fold_hidden_kernel(const FoldRowArgs a) {
+  constexpr int RG = kWRowThreads / TPR;
+  // fold_hidden_smem's layout
+  extern __shared__ __align__(16) uint16_t fold_w[];
+  __shared__ float red[kFoldRed];
+  const int grp = threadIdx.x / TPR, lr = threadIdx.x % TPR, w = lr >> 5;
+  float* gred = red + grp * 2 * kFoldRows * (TPR / 32);
+  const int bar = 1 + grp, ak = a.ak;
+  uint4* sact0 = reinterpret_cast<uint4*>(reinterpret_cast<uint8_t*>(fold_w) +
+                                          ((a.A * a.wstride * 2 + 15) & ~15));
+  uint4* sact = sact0 + grp * kFoldActRows * ak;
+  float* su = reinterpret_cast<float*>(sact0 + RG * kFoldActRows * ak) + grp * a.wstride;
+  // the action block, transposed: action k's weights of columns c at
+  // fold_w[k * wstride + c]; a chunk of 8 actions at a time, a thread's
+  // kFoldStageCols columns' loads issued together, then their stores
+  constexpr int kFoldStageCols = 8;
+  for (int h = 0; h < ak; ++h) {
+    for (int c0 = threadIdx.x; c0 < a.wstride; c0 += kFoldStageCols * kWRowThreads) {
+      uint4 wc[kFoldStageCols];
+#pragma unroll
+      for (int u = 0; u < kFoldStageCols; ++u) {
+        const int c = c0 + u * kWRowThreads;
+        const uint4* p = reinterpret_cast<const uint4*>(a.w + static_cast<long>(c) * a.ldw);
+        wc[u] = c < a.ncols ? __ldg(p + h) : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < kFoldStageCols; ++u) {
+        const int c = c0 + u * kWRowThreads;
+        if (c >= a.wstride) continue;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          if (8 * h + k >= a.A) break;
+          const uint32_t pair = k < 2 ? wc[u].x : k < 4 ? wc[u].y : k < 6 ? wc[u].z : wc[u].w;
+          fold_w[(8 * h + k) * a.wstride + c] =
+              static_cast<uint16_t>((k & 1) ? pair >> 16 : pair & 0xffffu);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // the group's rows: a run of consecutive rows, as row_kernel's
+  const long groups = static_cast<long>(gridDim.x) * RG;
+  const long per = (a.R + groups - 1) / groups;
+  const long first = (static_cast<long>(blockIdx.x) * RG + grp) * per;
+  const long n = first < a.R ? min(per, a.R - first) : 0;
+  int cur = -1;
+  for (long k0 = 0; k0 < n; k0 += kFoldActRows) {
+    const int cn = static_cast<int>(min(static_cast<long>(kFoldActRows), n - k0));
+    // the chunk's actions; the group's earlier reads of the buffer are done
+    // (each row's statistics pass a group barrier after its last read)
+    for (int r = lr; r < cn; r += TPR) {
+      const uint4* p = reinterpret_cast<const uint4*>(a.x + (first + k0 + r) * a.ldx);
+      for (int h = 0; h < ak; ++h) sact[r * ak + h] = __ldg(p + h);
+    }
+    if constexpr (TPR > 32) {
+      bar_sync(bar, TPR);
+    } else {
+      __syncwarp();
+    }
+    for (int k = 0; k < cn;) {
+      const long row = first + k0 + k;
+      const int env = static_cast<int>(row / a.S);
+      if (env != cur) {
+        fold_u_row<TPR>(a, env, lr, su);
+        cur = env;
+      }
+      if (kFoldRows == 4 && k + 3 < cn && (row + 3) / a.S == env) {
+        fold_rows<TPR, AK, kFoldRows, FULL>(a, row, fold_w, sact + k * ak, su, gred, bar, lr,
+                                            w);
+        k += kFoldRows;
+      } else if (k + 1 < cn && (row + 1) / a.S == env) {
+        fold_rows<TPR, AK, 2, FULL>(a, row, fold_w, sact + k * ak, su, gred, bar, lr, w);
+        k += 2;
+      } else {
+        fold_rows<TPR, AK, 1, FULL>(a, row, fold_w, sact + k * ak, su, gred, bar, lr, w);
+        k += 1;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side: a step's launches
 // ---------------------------------------------------------------------------
 
 // Device buffers of one call, allocated by the wrapper (ops/wide.py
 // scratch): x the z||a rows [R, ldx] bf16, h the hidden rows [R, ldh]
 // bf16, y the product [R, ldy] f32, the per-row G, q, term [R] f32; for a
-// value step's folded first layers zb the envs' latents [N, Lp] bf16, u the
-// latent's share of a first layer [N, Mp] f32 and env the identity index
-// [N] int32 (null where the call folds nothing).
+// value step's folded first layers zb the envs' latents [N, Lp] bf16 and u
+// the latent's share of a first layer as kWMaxSplits partial rows an env
+// [kWMaxSplits, N, Mp] f32 (null where the call folds nothing).
 struct Scratch {
   uint16_t* x;
   uint16_t* h;
@@ -1145,14 +1718,12 @@ struct Scratch {
   long ldx, ldh, ldy;
   uint16_t* zb;
   float* u;
-  int* env;
 };
 
 inline Scratch scratch_from(const void* const* p, const long* ld) {
   auto f = [&](int i) { return static_cast<float*>(const_cast<void*>(p[i])); };
   auto b = [&](int i) { return static_cast<uint16_t*>(const_cast<void*>(p[i])); };
-  return Scratch{b(0), b(1), f(2), f(3), f(4), f(5), ld[0], ld[1], ld[2],
-                 b(6), f(7), static_cast<int*>(const_cast<void*>(p[8]))};
+  return Scratch{b(0), b(1), f(2), f(3), f(4), f(5), ld[0], ld[1], ld[2], b(6), f(7)};
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1225,6 +1796,22 @@ cudaError_t prepare_gemm(int* resident = nullptr) {
   return regs >= Tl::launch_regs ? cudaSuccess : cudaErrorLaunchOutOfResources;
 }
 
+// prepare_gemm's checks for the u product's block of KE env tiles.
+template <int KE>
+cudaError_t prepare_fold_u() {
+  using Tl = FTile<KE>;
+  cudaError_t e = opt_in_smem(fold_u_kernel<KE>, Tl::smem);
+  if (e != cudaSuccess) return e;
+  static int regs = -1;
+  if (regs < 0) {
+    cudaFuncAttributes fa{};
+    e = cudaFuncGetAttributes(&fa, fold_u_kernel<KE>);
+    if (e != cudaSuccess) return e;
+    regs = fa.numRegs;
+  }
+  return regs >= Tl::launch_regs ? cudaSuccess : cudaErrorLaunchOutOfResources;
+}
+
 // Before a row kernel's launch with `smem` bytes of dynamic shared memory:
 // the blocks the card holds at once (blocks an SM x SMs, the persistent
 // grid's most) and the memory opted into, asked once per (kernel, bytes,
@@ -1268,9 +1855,19 @@ struct GemmPlan {
   int bm, bn, wgs, splits, kchunk, pstride, gx, gy, gz, blocks;
 };
 
+// The launch plan of the u product (tests/wide_mirror.py fold_u_plan
+// mirrors it): env tiles of 64 a block, the K splits and their stages, the
+// floats from one split's partial rows to the next, the grid of blocks.
+struct FoldPlan {
+  int ke, splits, kchunk;
+  long pstride;
+  int gx, gy, gz, blocks;
+};
+
 // One call's launches on `stream`, stopping at the first error (`err`);
-// `launched` counts them, `gemms`, `rowk` and `stagings` the products, row
-// kernels and stagings among them, each where it launches.
+// `launched` counts them, `gemms`, `rowk`, `stagings`, `fold_us` and
+// `fold_hs` the products, row kernels, stagings, u products and fused
+// folded layers among them, each where it launches.
 struct Wide {
   Weights w;
   Dims d;
@@ -1280,9 +1877,10 @@ struct Wide {
   int ntask;
   Scratch sc;
   cudaStream_t stream;
-  int err = 0, launched = 0, gemms = 0, rowk = 0, stagings = 0;
+  int err = 0, launched = 0, gemms = 0, rowk = 0, stagings = 0, fold_us = 0, fold_hs = 0;
   bool large;          // the product's tile (wide_large)
   GemmPlan last{};     // the last product's plan: the row kernel reads its partials
+  FoldPlan fold{};     // the last u product's plan: the fused layer sums its partials
   int row_plan[6] = {};  // the last row kernel's: threads a row, row groups a
                          // block, ring stages, shared bytes, blocks, resident blocks
   int Lp, Ap, Mp, kz, kl, km;
@@ -1307,13 +1905,15 @@ struct Wide {
     if (e != cudaSuccess) err = static_cast<int>(e);
   }
 
-  // out [4]: the launches, then the products, the row kernels and the
-  // stagings among them
+  // out [6]: the launches, then the products, the row kernels, the
+  // stagings, the u products and the fused folded layers among them
   void report(int* out) const {
     out[0] = launched;
     out[1] = gemms;
     out[2] = rowk;
     out[3] = stagings;
+    out[4] = fold_us;
+    out[5] = fold_hs;
   }
 
   // y <- x . W (+ bias) on the call's rows: x's rows ldx apart, K = 16 kt
@@ -1323,32 +1923,23 @@ struct Wide {
   void gemm(const uint16_t* x, long ldx, int kt, const void* W, int ncols, const float* b,
             long bt, long bh, const int* head = nullptr, long hn = 0,
             const float* b1 = nullptr, int split = -1, long ldw = 0) {
-    product(x, ldx, kt, W, ldw > 0 ? ldw : 16L * kt, ncols, b, bt, bh, head, hn, b1, split,
-            N, S, task, ntask, sc.y, sc.ldy);
-  }
-
-  // The same on n envs of s_ rows (env e's task tk[e] of ntk) into y [n
-  // s_, ldy]: the tile from s_ and the widths (wide_large).
-  void product(const uint16_t* x, long ldx, int kt, const void* W, long ldw, int ncols,
-               const float* b, long bt, long bh, const int* head, long hn, const float* b1,
-               int split, int n, int s_, const int* tk, int ntk, float* y, long ldy) {
     if (err) return;
     const int nheads = head == nullptr ? 1 : (d.NQ > 0 ? d.NQ : 1);
-    GemmArgs a{y, ldy, ncols, b, bt, bh, b1, split < 0 ? ncols : split, tk, ntk,
-               head, hn, nheads, s_, 0, static_cast<long>(n) * s_, (16 * kt + kWK - 1) / kWK,
-               0, up16(ncols), 0, 0, 0};
+    GemmArgs a{sc.y, sc.ldy, ncols, b, bt, bh, b1, split < 0 ? ncols : split, task, ntask,
+               head, hn, nheads, S, 0, R, (16 * kt + kWK - 1) / kWK, 0, up16(ncols), 0, 0, 0};
     // the rows of a block stay in one env where its bias or weights depend on the env
-    const bool per_env = head != nullptr || (tk != nullptr && ntk > 1 && bt != 0);
-    if (wide_large(d, s_)) {
-      launch_gemm<WLarge>(a, n, x, ldx, 16 * kt, W, ldw, per_env);
+    const bool per_env = head != nullptr || (task != nullptr && ntask > 1 && bt != 0);
+    const long lw = ldw > 0 ? ldw : 16L * kt;
+    if (large) {
+      launch_gemm<WLarge>(a, x, ldx, 16 * kt, W, lw, per_env);
     } else {
-      launch_gemm<WSmall>(a, n, x, ldx, 16 * kt, W, ldw, per_env);
+      launch_gemm<WSmall>(a, x, ldx, 16 * kt, W, lw, per_env);
     }
   }
 
   template <class Tl>
-  void launch_gemm(GemmArgs a, int n, const uint16_t* x, long ldx, int K, const void* W,
-                   long ldw, bool per_env) {
+  void launch_gemm(GemmArgs a, const uint16_t* x, long ldx, int K, const void* W, long ldw,
+                   bool per_env) {
     int resident = 0;
     cudaError_t e = prepare_gemm<Tl>(&resident);
     int s = gemm_splits(a.ncols, Tl::bn, a.nk, a.ldy);
@@ -1357,7 +1948,7 @@ struct Wide {
     a.kchunk = (a.nk + s - 1) / s;
     s = (a.nk + a.kchunk - 1) / a.kchunk;
     a.bpe = per_env ? (a.S + Tl::bm - 1) / Tl::bm : 0;
-    const long gy = per_env ? static_cast<long>(n) * a.bpe : (a.R + Tl::bm - 1) / Tl::bm;
+    const long gy = per_env ? static_cast<long>(N) * a.bpe : (a.R + Tl::bm - 1) / Tl::bm;
     a.gx = (a.ncols + Tl::bn - 1) / Tl::bn;
     a.gy = static_cast<int>(gy);
     a.gz = s;
@@ -1509,6 +2100,136 @@ struct Wide {
     check_launch();
   }
 
+  // u = zb . W[:, :16 kt] on n envs' latents (zb's rows ldz apart; W's
+  // rows ldw apart) into the partial rows of u (rows ldu apart, n ldu
+  // floats from one split's to the next): the plan of FoldPlan, from the
+  // widths and n.
+  void fold_u(const uint16_t* zb, long ldz, int kt, const void* W, long ldw, int ncols, int n,
+              float* u, long ldu) {
+    if (err) return;
+    FoldArgs a{};
+    a.u = u;
+    a.ldu = ldu;
+    a.pstride = static_cast<long>(n) * ldu;
+    a.ncols = ncols;
+    a.N = n;
+    a.nk = (16 * kt + kWK - 1) / kWK;
+    int s = fold_splits(ncols, a.nk);
+    a.kchunk = (a.nk + s - 1) / s;
+    s = (a.nk + a.kchunk - 1) / a.kchunk;
+    const int ke = n > kFoldEnvs ? 2 : 1;
+    a.gx = (ncols + kFoldCols - 1) / kFoldCols;
+    a.gy = (n + ke * kFoldEnvs - 1) / (ke * kFoldEnvs);
+    a.gz = s;
+    fold = FoldPlan{ke, s, a.kchunk, a.pstride, a.gx, a.gy, a.gz, a.gx * a.gy * a.gz};
+    cudaError_t e = ke == 2 ? prepare_fold_u<2>() : prepare_fold_u<1>();
+    if (e == cudaSuccess && (n < 1 || ldu % 4 != 0 || ldu < ncols))
+      e = cudaErrorInvalidValue;
+    CUtensorMap tw, tz;
+    if (e == cudaSuccess) {
+      const cuuint64_t dim[2] = {static_cast<cuuint64_t>(16 * kt), static_cast<cuuint64_t>(ncols)};
+      const cuuint64_t stride[1] = {static_cast<cuuint64_t>(ldw) * 2};
+      const cuuint32_t box[2] = {kWK, kFoldCols};
+      e = encode_bf16(&tw, W, 2, dim, stride, box);
+    }
+    if (e == cudaSuccess) {
+      const cuuint64_t dim[2] = {static_cast<cuuint64_t>(16 * kt), static_cast<cuuint64_t>(n)};
+      const cuuint64_t stride[1] = {static_cast<cuuint64_t>(ldz) * 2};
+      const cuuint32_t box[2] = {kWK, kFoldEnvs};
+      e = encode_bf16(&tz, zb, 2, dim, stride, box);
+    }
+    if (e != cudaSuccess) {
+      err = static_cast<int>(e);
+      return;
+    }
+    if (ke == 2) {
+      fold_u_kernel<2><<<fold.blocks, FTile<2>::threads, FTile<2>::smem, stream>>>(a, tw, tz);
+    } else {
+      fold_u_kernel<1><<<fold.blocks, FTile<1>::threads, FTile<1>::smem, stream>>>(a, tw, tz);
+    }
+    ++fold_us;
+    check_launch();
+  }
+
+  // h = mish(LN(x_a . Wa + (u[env] + b[task[env] * bt]))) on the call's
+  // rows: x_a the rows' action columns (rows ldx apart, A values and zeros
+  // to 16), Wa the action block (column c's weights at Wa + c ldw), u the
+  // last u product's partial rows (rows ldu apart), b the bias table (the
+  // call's task ids), gain and beta [M]; into dst (rows ldd apart, zeros
+  // from M to dpad). The plan (threads a row, row groups a block, action
+  // chunks of 8, shared bytes, blocks, resident blocks) into row_plan.
+  void fold_hidden(const uint16_t* xa, long ldx, const void* Wa, long ldw, const float* u,
+                   long ldu, const float* b, long bt, const float* gain, const float* beta,
+                   uint16_t* dst, long ldd, int dpad) {
+    if (err) return;
+    FoldRowArgs a{};
+    a.x = xa;
+    a.ldx = ldx;
+    a.w = static_cast<const uint16_t*>(Wa);
+    a.ldw = ldw;
+    a.u = u;
+    a.ldu = ldu;
+    a.pstride = fold.pstride;
+    a.nsplit = fold.splits;
+    a.b = b;
+    a.bt = bt;
+    a.task = task;
+    a.ntask = ntask;
+    a.gain = gain;
+    a.beta = beta;
+    a.dst = dst;
+    a.ldd = ldd;
+    a.dpad = dpad;
+    a.ncols = d.M;
+    a.A = d.A;
+    a.ak = (d.A + 7) / 8;
+    a.wstride = (d.M + 3) & ~3;
+    a.S = S;
+    a.R = R;
+    auto on16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+    // 16-byte reads of the actions, the weights and u; 8-byte stores of dst
+    if (!fold_fits(d) || !on16(xa) || ldx % 8 != 0 || !on16(Wa) || ldw % 8 != 0 ||
+        !on16(u) || !on16(gain) || !on16(beta) || b == nullptr ||
+        ldu % 4 != 0 || a.pstride % 4 != 0 || a.nsplit < 1 || a.nsplit > kWMaxSplits ||
+        (reinterpret_cast<uintptr_t>(dst) & 7) != 0 || ldd % 4 != 0 || dpad % 4 != 0) {
+      err = static_cast<int>(cudaErrorInvalidValue);
+      return;
+    }
+    const int tpr = fold_tpr(d.M), sm = fold_hidden_smem(d, tpr);
+    // every thread's chunks full and inside the row (4096 columns: 256
+    // threads of 16): the kernel without the ragged edge's guards, its
+    // product unrolled for up to 8 actions (mt80's 6); the other widths
+    // reach the wide engine with more than 32 actions (mlp_rows.cuh
+    // pick_plan) or between 2048 and 4096 columns
+    const bool full = tpr == kWRowThreads && d.M == tpr * kWChunks * 4 && dpad == d.M;
+    switch (full ? (a.ak == 1 ? 1 : 0) : tpr) {
+      case 1: launch_fold_h(fold_hidden_kernel<256, 1, true>, tpr, sm, a); break;
+      case 0: launch_fold_h(fold_hidden_kernel<256, 0, true>, tpr, sm, a); break;
+      case 32: launch_fold_h(fold_hidden_kernel<32, 0, false>, tpr, sm, a); break;
+      case 64: launch_fold_h(fold_hidden_kernel<64, 0, false>, tpr, sm, a); break;
+      case 128: launch_fold_h(fold_hidden_kernel<128, 0, false>, tpr, sm, a); break;
+      default: launch_fold_h(fold_hidden_kernel<256, 0, false>, tpr, sm, a); break;
+    }
+  }
+
+  template <class K>
+  void launch_fold_h(K* kernel, int tpr, int smem, const FoldRowArgs& a) {
+    int resident = 0;
+    const cudaError_t e = prepare_rows(kernel, smem, &resident);
+    const int rg = kWRowThreads / tpr;
+    const long want = (R + rg - 1) / rg;
+    const int blocks = static_cast<int>(want < resident ? (want > 0 ? want : 1) : resident);
+    const int plan[6] = {tpr, rg, a.ak, smem, blocks, resident};
+    for (int i = 0; i < 6; ++i) row_plan[i] = plan[i];
+    if (e != cudaSuccess) {
+      err = static_cast<int>(e);
+      return;
+    }
+    kernel<<<blocks, kWRowThreads, smem, stream>>>(a);
+    ++fold_hs;
+    check_launch();
+  }
+
   RowArgs row_args(int mode, int ncols) const {
     RowArgs a{};
     a.mode = mode;
@@ -1546,10 +2267,10 @@ struct Wide {
   // of a task table), op0 + 4 from h. Folded (a z||a first layer at t = 0,
   // each env's latent in zb: value_wide with zs = 0), op0's product is
   // split as x W = z Wz + a Wa, the TPU kernel's split
-  // (tdmpc2_tpu/ops/pallas_rollout.py:484): u = zb . W[:, :Lp] + b0[task]
-  // on the N envs' rows, then the action columns of x . W[:, Lp:] + u[env]
-  // on every row (the identity index env as the product's task ids, u's
-  // rows as its bias table).
+  // (tdmpc2_tpu/ops/pallas_rollout.py:484): u = zb . W[:, :Lp] on the N
+  // envs' latents (fold_u), then LayerNorm + Mish of the action columns of
+  // x . W[:, Lp:] + (u[env] + b0[task[env]]) on every row, in one launch
+  // (fold_hidden).
   void hidden2(int kt, int op0, const int* head = nullptr, long hn = 0, bool folded = false) {
     const bool qh = op0 == qP0;
     const long bt = qh ? static_cast<long>(d.NQ) * d.M : d.M;
@@ -1557,11 +2278,9 @@ struct Wide {
     if (folded) {
       const uint16_t* W = static_cast<const uint16_t*>(w.p[op0]);
       const long ldw = 16L * kz;
-      product(sc.zb, Lp, kl, W, ldw, d.M, w.f(op0 + 1), bt, 0, nullptr, 0, nullptr, -1, N, 1,
-              task, ntask, sc.u, Mp);
-      product(sc.x + Lp, sc.ldx, Ap / 16, W + Lp, ldw, d.M, sc.u, Mp, 0, nullptr, 0, nullptr,
-              -1, N, S, sc.env, N, sc.y, sc.ldy);
-      mish_rows(w.f(op0 + 2), w.f(op0 + 3), nullptr, 0);
+      fold_u(sc.zb, Lp, kl, W, ldw, d.M, N, sc.u, Mp);
+      fold_hidden(sc.x + Lp, sc.ldx, W + Lp, ldw, sc.u, Mp, w.f(op0 + 1), bt, w.f(op0 + 2),
+                  w.f(op0 + 3), sc.h, sc.ldh, Mp);
     } else {
       hidden(sc.x, sc.ldx, kt, op0, w.f(op0 + 1), bt, bh, w.f(op0 + 2), w.f(op0 + 3), head,
              hn);

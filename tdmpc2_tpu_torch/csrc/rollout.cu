@@ -30,8 +30,8 @@
 // apart (0 broadcasts one row); actions [H, S, A] with strides ats, ass, 1;
 // discs [H]; G [S] receives the return and zH [S, L] the final latent. The
 // scratch buffers (x, h, y; ops/wide.py) and their row strides follow;
-// `launched` [4] receives the number of launches and of products, row
-// kernels and stagings among them.
+// `launched` [6] receives the number of launches and of products, row
+// kernels, stagings, u products and fused layers among them.
 extern "C" int tdm_rollout(const void* const* wptrs, const int* dims, int S, const float* z0,
                            long zs, const float* actions, long ats, long ass,
                            const float* discs, float* G, float* zH,
@@ -74,7 +74,7 @@ extern "C" int tdm_rollout(const void* const* wptrs, const int* dims, int S, con
 // f32 receives the product, or its partial rows pstride columns apart when
 // K is split (the engine's rule, gemm_splits). plan receives {rows and
 // columns of a tile, consumer warpgroups, splits, stages a split, pstride,
-// tiles in x, y, z, blocks launched}; launched [4] as above.
+// tiles in x, y, z, blocks launched}; launched [6] as above.
 extern "C" int tdm_wide_gemm(const int* dims, int N, int S, const void* x, long ldx, int kt,
                              const void* w, long ldw, int ncols, const float* b, long bt,
                              long bh, const float* b1, int split, const int* task, int ntask,
@@ -108,7 +108,7 @@ extern "C" int tdm_wide_gemm(const int* dims, int N, int S, const void* x, long 
 // eps, amask}, n = {gh, hn, nhead, ldd, dpad, ldf, dn, t, en, es, amn}, as
 // RowArgs reads them. plan receives {threads a row, row groups a block, ring
 // stages, shared bytes a block, blocks launched, blocks the card holds};
-// launched [4] as above.
+// launched [6] as above.
 extern "C" int tdm_wide_rows(const int* dims, int mode, int N, int S, const float* y, long ldy,
                              int nsplit, int pstride, const void* const* p, const long* n,
                              float lsmin, float lsdif, int* plan, int* launched,
@@ -154,6 +154,66 @@ extern "C" int tdm_wide_rows(const int* dims, int mode, int N, int S, const floa
   wd.last.splits = nsplit;
   wd.last.pstride = pstride;
   wd.rows(a);
+  for (int i = 0; i < 6; ++i) plan[i] = wd.row_plan[i];
+  wd.report(launched);
+  return wd.err;
+}
+
+// The u product of a folded first layer alone (fold_u_kernel, as
+// Wide::hidden2 launches it at a value step's t = 0), for the checks and
+// timings of chip_smoke.py and tests/test_torch_cuda.py (no path calls it;
+// ops/wide.py fold_u): u = zb . W for the N envs' latents zb [N, ldz]
+// bf16 (its first 16 kt columns read), W the latent block of a first
+// layer's wide layout (column c's 16 kt weights at W + c ldw, bf16); u f32
+// receives split z's partial row of env e at u + z N ldu + e ldu, as many
+// splits as the plan's (ops/wide.py fold_splits). plan receives {env tiles
+// of 64 a block, splits, stages a split, floats from one split's rows to
+// the next, blocks in x, y, z, blocks launched}; launched [6] as above.
+extern "C" int tdm_wide_fold_u(const int* dims, int N, const void* zb, long ldz, int kt,
+                               const void* w, long ldw, int ncols, float* u, long ldu,
+                               int* plan, int* launched, void* stream) {
+  using namespace tdm;
+  const void* none[kNumOps] = {};
+  Scratch sc{};
+  Wide wd(none, dims, N, 1, nullptr, 1, sc, static_cast<cudaStream_t>(stream));
+  if (!wide_fits(wd.d)) return kNoPlan;
+  if (ldw < 16L * kt || ldz < 16L * kt) return static_cast<int>(cudaErrorInvalidValue);
+  wd.fold_u(static_cast<const uint16_t*>(zb), ldz, kt, w, ldw, ncols, N, u, ldu);
+  const FoldPlan& p = wd.fold;
+  const long out[8] = {p.ke, p.splits, p.kchunk, p.pstride, p.gx, p.gy, p.gz, p.blocks};
+  for (int i = 0; i < 8; ++i) plan[i] = static_cast<int>(out[i]);
+  wd.report(launched);
+  return wd.err;
+}
+
+// The fused folded layer alone (fold_hidden_kernel, as Wide::hidden2
+// launches it after the u product), for the checks and timings of
+// chip_smoke.py and tests/test_torch_cuda.py (no path calls it; ops/wide.py
+// fold_hidden): for each row r of N envs of S rows, h = mish(LN(x_a[r] .
+// Wa + (u[env] + b[task[env] * bt]))) at the widths of dims (M columns, A
+// actions): x_a the rows' action columns [N*S, ldx] bf16 (A values, zeros
+// to up16(A)), Wa the action block of the layout (column c's weights at w
+// + c ldw, bf16), u env e's nsplit partial rows at u + z pstride + e ldu,
+// summed in order, then env e's row of the bias table b added (task [N]
+// or null: task 0, of ntask), gain and beta [M] f32; h [N*S, ldh] bf16
+// receives the row and zeros from M to up16(M). plan receives {threads a
+// row, row groups a block, action chunks of 8, shared bytes a block,
+// blocks launched, blocks the card holds}; launched [6] as above.
+extern "C" int tdm_wide_fold_hidden(const int* dims, int N, int S, const void* x, long ldx,
+                                    const void* w, long ldw, const float* u, long ldu,
+                                    long pstride, int nsplit, const float* b, long bt,
+                                    const int* task, int ntask, const float* gain,
+                                    const float* beta, void* h, long ldh, int* plan,
+                                    int* launched, void* stream) {
+  using namespace tdm;
+  const void* none[kNumOps] = {};
+  Scratch sc{};
+  Wide wd(none, dims, N, S, task, ntask, sc, static_cast<cudaStream_t>(stream));
+  if (!wide_fits(wd.d)) return kNoPlan;
+  wd.fold.splits = nsplit;
+  wd.fold.pstride = pstride;
+  wd.fold_hidden(static_cast<const uint16_t*>(x), ldx, w, ldw, u, ldu, b, bt, gain, beta,
+                 static_cast<uint16_t*>(h), ldh, up16(wd.d.M));
   for (int i = 0; i < 6; ++i) plan[i] = wd.row_plan[i];
   wd.report(launched);
   return wd.err;

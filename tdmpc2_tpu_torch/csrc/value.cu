@@ -317,8 +317,13 @@ namespace {
 // broadcasts over an env's rows (zs = 0: the planner's), step 0's staging
 // writes each env's latent once, into zb, and the reward's and the
 // dynamics' first layers take the latent's share from it (Wide::hidden2,
-// folded): 2 more products a call, 114 MB less staged at N = 80 envs of
-// 512 rows. Operands as for value_launch, and the call's scratch buffers.
+// folded: a u product and a fused layer in place of a product and a row
+// kernel each), 114 MB less staged at N = 80 envs of 512 rows, where the
+// fused layer's staged action block fits (fold_fits). An episodic step does
+// not fold: its termination flags follow the sign of a logit, which the
+// last bits of a first layer can turn where it is near 0, and its first
+// layers keep the one product over z||a that the gate has always run
+// through. Operands as for value_launch, and the call's scratch buffers.
 int value_wide(const void* const* wptrs, const int* dims, float lsmin, float lsdif,
                int episodic, int N, int S, const float* z0, long zn, long zs,
                const float* actions, long an, long ats, long ass, const tdm::Sampling& sp,
@@ -330,8 +335,8 @@ int value_wide(const void* const* wptrs, const int* dims, float lsmin, float lsd
   Wide wd(wptrs, dims, N, S, task, ntask, scratch_from(scratch, lds),
           static_cast<cudaStream_t>(stream));
   if (!wide_fits(wd.d)) return kNoPlan;
-  const bool fold = zs == 0;
-  if (fold && (wd.sc.zb == nullptr || wd.sc.u == nullptr || wd.sc.env == nullptr))
+  const bool fold = zs == 0 && !episodic && fold_fits(wd.d);
+  if (fold && (wd.sc.zb == nullptr || wd.sc.u == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int t = 0; t < wd.d.H; ++t) {
     const bool folded = fold && t == 0;
@@ -352,10 +357,7 @@ int value_wide(const void* const* wptrs, const int* dims, float lsmin, float lsd
     s.q = wd.sc.q;
     s.term = wd.sc.term;
     s.term_at = term_at;
-    if (folded) {
-      s.zb = wd.sc.zb;
-      s.env = wd.sc.env;
-    }
+    if (folded) s.zb = wd.sc.zb;
     wd.stage(s);
     wd.reward(discs, dn, t, folded);
     wd.dynamics(nullptr, folded);
@@ -371,9 +373,10 @@ int value_wide(const void* const* wptrs, const int* dims, float lsmin, float lsd
 }  // namespace
 
 // tdm_value on the wide engine: the same operands, then the scratch
-// buffers (x, h, y, G, q, term, zb, u, env; ops/wide.py) and their row
-// strides (x, h, y); `launched` [4] receives the number of launches and of
-// products, row kernels and stagings among them. Returns kNoPlan when the
+// buffers (x, h, y, G, q, term, zb, u; ops/wide.py) and their row
+// strides (x, h, y); `launched` [6] receives the number of launches and of
+// products, row kernels, stagings, u products and fused folded layers
+// among them. Returns kNoPlan when the
 // wide engine does not take the widths.
 extern "C" int tdm_value_wide(const void* const* wptrs, const int* dims, float lsmin,
                               float lsdif, int episodic, int N, int S, const float* z0, long zn,
@@ -416,14 +419,14 @@ extern "C" int tdm_value_sampled_wide(const void* const* wptrs, const int* dims,
 // rows, zeros up to up16(A)); with load_z also G, q, term and term_at
 // (each [N*S], each may be null) zeroed and the latent z0: into its
 // columns of x (zeros up to up16(L)), or, folded (zb not null; zs = 0),
-// each env's into its row of zb [N, up16(L)] bf16 and env [N] int32 set to
-// 0 .. N-1, x's latent columns untouched. launched [4] as above.
+// each env's into its row of zb [N, up16(L)] bf16, x's latent columns
+// untouched. launched [6] as above.
 extern "C" int tdm_wide_stage(const int* dims, int N, int S, int t, int load_z,
                               const float* z0, long zn, long zs, const float* mean, long mn,
                               const float* stdv, long sn, const float* noise, long nn,
                               const float* pi_acts, long pn, int n_pi, float* acts,
                               const float* amask, long amn, void* x, long ldx, float* G,
-                              float* q, float* term, int* term_at, void* zb, int* env,
+                              float* q, float* term, int* term_at, void* zb,
                               int* launched, void* stream) {
   using namespace tdm;
   const void* none[kNumOps] = {};
@@ -433,7 +436,7 @@ extern "C" int tdm_wide_stage(const int* dims, int N, int S, int t, int load_z,
   Wide wd(none, dims, N, S, nullptr, 1, sc, static_cast<cudaStream_t>(stream));
   if (!wide_fits(wd.d)) return kNoPlan;
   if (amask == nullptr || t < 0 || t >= wd.d.H || ldx < up16(wd.d.L) + up16(wd.d.A) ||
-      (zb != nullptr && (env == nullptr || zs != 0)))
+      (zb != nullptr && zs != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   StageArgs s{};
   s.t = t;
@@ -449,7 +452,6 @@ extern "C" int tdm_wide_stage(const int* dims, int N, int S, int t, int load_z,
   s.term = term;
   s.term_at = term_at;
   s.zb = static_cast<uint16_t*>(zb);
-  s.env = env;
   wd.stage(s);
   wd.report(launched);
   return wd.err;

@@ -54,7 +54,7 @@ SIGNATURES = {
     ('value', 'tdm_value_plan'): (_INTS, _INTS),
     ('value', 'tdm_wide_stage'): (_INTS, _I, _I, _I, _I, _P, _L, _L, _P, _L, _P, _L,
                                   _P, _L, _P, _L, _I, _P, _P, _L, _P, _L, _P, _P,
-                                  _P, _P, _P, _P, _INTS, _P),
+                                  _P, _P, _P, _INTS, _P),
     ('cem', 'tdm_pi_rollout_plan'): (_INTS, _INTS),
     ('cem', 'tdm_pi_rollout'): (_PTRS, _INTS, _F, _F, _I, _I, _P, _L, _P, _L,
                                 _P, _I, _P, _L, _P, _P),
@@ -70,6 +70,11 @@ SIGNATURES = {
                                    _INTS, _P),
     ('rollout', 'tdm_wide_rows'): (_INTS, _I, _I, _I, _P, _L, _I, _I, _PTRS, _LONGS,
                                    _F, _F, _INTS, _INTS, _P),
+    ('rollout', 'tdm_wide_fold_u'): (_INTS, _I, _P, _L, _I, _P, _L, _I, _P, _L, _INTS,
+                                     _INTS, _P),
+    ('rollout', 'tdm_wide_fold_hidden'): (_INTS, _I, _I, _P, _L, _P, _L, _P, _L, _L,
+                                          _I, _P, _L, _P, _I, _P, _P, _P, _L, _INTS,
+                                          _INTS, _P),
     ('probe', 'tdm_probe'): (_P, _P, _L, _P),
 }
 

@@ -707,7 +707,8 @@ def value_estimate(prep, z0, actions, eps, qidx, discs, *,
     if route == 'rows':
         rc = lib.tdm_value(*args, stream)
     else:
-        sc, n = wide.Scratch(N * S, tuple(dims), dev, envs=N), wide.counts()
+        sc = wide.Scratch(N * S, tuple(dims), dev, envs=0 if episodic else N)
+        n = wide.counts()
         rc = lib.tdm_value_wide(*args, sc.ptrs, sc.lds, n, stream)
         wide.count(n)
     _build.check(lib, rc, 'value kernel', dims)
@@ -774,7 +775,8 @@ def value_sampled(prep, z0, mean, std, noise, pi_acts, amask, eps, qidx, discs,
     if route == 'rows':
         rc = lib.tdm_value_sampled(*args, stream)
     else:
-        sc, n = wide.Scratch(N * S, tuple(dims), dev, envs=N), wide.counts()
+        sc = wide.Scratch(N * S, tuple(dims), dev, envs=0 if episodic else N)
+        n = wide.counts()
         rc = lib.tdm_value_sampled_wide(*args, sc.ptrs, sc.lds, n, stream)
         wide.count(n)
     _build.check(lib, rc, 'value kernel (sampled)', dims)

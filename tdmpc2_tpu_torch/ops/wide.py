@@ -31,8 +31,8 @@ tests hold the built library to the mirror).
 A wide call's intermediates live in scratch buffers that the wrapper
 allocates per call (`Scratch`): the bf16 z||a rows, the bf16 hidden rows,
 the f32 product and three per-row scalars; for a value step also each env's
-latent (bf16), the latent's share of a first layer (f32, a row an env) and
-an identity env index. Inside the plan's CUDA graph they come from the
+latent (bf16) and the latent's share of a first layer (f32, up to 8
+partial rows an env). Inside the plan's CUDA graph they come from the
 graph's pool, at fixed addresses, so the tensor maps captured with the
 launches stay valid.
 
@@ -41,23 +41,36 @@ into the z||a rows, a thread a row, and at step 0 the latent, a warp a row.
 Where a value step's latent broadcasts over an env's rows (the planner's:
 z0 of row stride 0) it folds: step 0's staging writes each env's latent
 once, into the env's row of zb, and the reward's and the dynamics' first
-layers at step 0 take x W = z Wz + a Wa apart, as the TPU kernel does: a
-product of the N latents into u (with the first layer's per-task bias),
-then a product of the rows' action columns with u[env] as its bias. A
-value step is then 13 launches a horizon step (19 with the termination
-gate) + 18 + 2, 6 (9) a step + 9 + 2 of them products, a staging a step,
-and a row kernel after each product but the two of u; a pi rollout 12 H -
-5, 6 H - 3 products and as many row kernels, one staging; a rollout 13 H,
-6 H products and row kernels, H stagings (neither folds).
+layers at step 0 take x W = z Wz + a Wa apart, as the TPU kernel does, in
+two kernels of their own (csrc/mlp_wide.cuh fold_u_kernel,
+fold_hidden_kernel): the N latents times the latent block into u (the env
+rows packed into shared tiles, K split into partial rows), then for each
+row its action columns times the action block plus u's row of the env
+with the env's task bias row added, LayerNorm and Mish in one launch, the
+bf16 hidden row out (the f32 pre-activation never in device memory). It
+folds where the fused layer's staged action block fits a block's shared
+memory (`fold_fits`: at 4096 columns up to 25 actions) and the task is not
+episodic (the gate's flags keep step 0's one product over z||a);
+elsewhere step 0 runs as the other steps do, a product and a row kernel a
+layer. A value
+step is then 13 launches a horizon step (19 with the termination gate) +
+18, of them a staging a step, 6 (9) products a step + 9 less the 2 folded
+first layers, a u product and a fused layer for each of those, and a row
+kernel after every other product; a pi rollout 12 H - 5, 6 H - 3 products
+and as many row kernels, one staging; a rollout 13 H, 6 H products and row
+kernels, H stagings (neither folds).
 
 `engine_launches.launches` counts the wide engine's device launches and
-`gemm_launches`, `row_launches` and `stage_launches` the products, row
-kernels and stagings among them, each counted by the library where it
+`gemm_launches`, `row_launches`, `stage_launches`, `fold_u_launches` and
+`fold_hidden_launches` the products, row kernels, stagings, u products and
+fused folded layers among them, each counted by the library where it
 launches that kernel (the wrappers count their calls, one a kernel).
 `gemm` launches one product on given operands (the library's
 `tdm_wide_gemm`), `rows` one row kernel (`tdm_wide_rows`; its plain
-version `rows_plain`) and `stage` one staging (`tdm_wide_stage`;
-`stage_plain`), for checks and timings; no path calls them.
+version `rows_plain`), `stage` one staging (`tdm_wide_stage`;
+`stage_plain`), `fold_u` one u product (`tdm_wide_fold_u`; `fold_u_plain`)
+and `fold_hidden` one fused layer (`tdm_wide_fold_hidden`;
+`fold_hidden_plain`), for checks and timings; no path calls them.
 
 The row kernel (csrc/mlp_wide.cuh row_kernel, row_narrow_kernel): the
 LayerNorm modes stream a row group's rows by bulk copies into a ring of
@@ -120,12 +133,16 @@ engine_launches = LaunchCount()
 gemm_launches = LaunchCount()
 row_launches = LaunchCount()
 stage_launches = LaunchCount()
-COUNTERS = (engine_launches, gemm_launches, row_launches, stage_launches)
+fold_u_launches = LaunchCount()
+fold_hidden_launches = LaunchCount()
+COUNTERS = (engine_launches, gemm_launches, row_launches, stage_launches, fold_u_launches,
+            fold_hidden_launches)
 
 
 def counts():
-    """The array a wide call's library entry fills (`launched` [4]: its
-    launches, then the products, row kernels and stagings among them)."""
+    """The array a wide call's library entry fills (`launched` [6]: its
+    launches, then the products, row kernels, stagings, u products and
+    fused folded layers among them)."""
     return (ctypes.c_int * len(COUNTERS))()
 
 
@@ -135,18 +152,50 @@ def count(n) -> None:
         c.launches += k
 
 
+# The fused layer's shared memory (csrc/mlp_wide.cuh fold_hidden_smem,
+# fold_fits): rows of actions a row group stages, statistics slots, the
+# most a block may opt into.
+_FOLD_ACT_ROWS, _FOLD_RED_BYTES, _SMEM_MAX = 128, 256, 232448
+
+
+def fold_fits(dims) -> bool:
+    """Whether a value step at dims may fold (csrc/mlp_wide.cuh
+    fold_fits): the fused layer's staged action block (A rows of M columns,
+    bf16), each row group's rows of actions and its u row (f32) fit a
+    block's shared memory."""
+    M, A = dims[1], dims[2]
+    tpr = 32
+    while tpr < 256 and M > tpr * 16:
+        tpr *= 2
+    width, rg, ak = -(-M // 4) * 4, 256 // tpr, -(-A // 8)
+    smem = -(-(A * width * 2) // 16) * 16 + rg * _FOLD_ACT_ROWS * ak * 16 + rg * width * 4
+    return smem + _FOLD_RED_BYTES <= _SMEM_MAX
+
+
 def value_launches(horizon: int, episodic: bool) -> int:
-    """Device launches of one wide value step with the latent broadcast over
-    each env's rows (the planner's; folded): per horizon step the staging
+    """Device launches of one wide value step: per horizon step the staging
     and a product and a row kernel for each of the reward's and the
     dynamics' three layers (and the termination head's), then the policy's
-    three layers and the two Q heads' six, and the products of u for step
-    0's two z||a first layers (2 fewer with a latent a row)."""
-    return horizon * (19 if episodic else 13) + 18 + 2
+    three layers and the two Q heads' six. Folded (the latent broadcast
+    over each env's rows, the planner's, on a task that is not episodic),
+    step 0's two z||a first layers are a u product and a fused layer each
+    in place of a product and a row kernel: as many launches."""
+    return horizon * (19 if episodic else 13) + 18
 
 
-def value_products(horizon: int, episodic: bool) -> int:
-    return horizon * (9 if episodic else 6) + 9 + 2
+def value_products(horizon: int, episodic: bool, dims=None) -> int:
+    """The products (gemm_kernel) of a value step with a broadcast latent
+    at dims (None: widths that fold): a layer's each but the folded first
+    layers'."""
+    return horizon * (9 if episodic else 6) + 9 - value_folds(dims, episodic)
+
+
+def value_folds(dims=None, episodic: bool = False) -> int:
+    """The u products of a value step with a broadcast latent at dims
+    (None: widths that fold), and as many fused layers: step 0's reward and
+    dynamics first layers where `fold_fits` and the task is not episodic,
+    else none."""
+    return 0 if episodic or (dims is not None and not fold_fits(dims)) else 2
 
 
 def pi_rollout_launches(horizon: int) -> int:
@@ -167,7 +216,7 @@ def rollout_products(horizon: int) -> int:
 
 def plan_launches(horizon: int, iterations: int, episodic: bool) -> int:
     """The wide engine's device launches of one plan: the pi rollout and
-    `iterations` folded value steps (the elite kernel's launches apart)."""
+    `iterations` value steps (the elite kernel's launches apart)."""
     return (pi_rollout_launches(horizon)
             + iterations * value_launches(horizon, episodic))
 
@@ -179,17 +228,30 @@ def plan_products(horizon: int, iterations: int, episodic: bool) -> int:
 
 def plan_stagings(horizon: int, iterations: int) -> int:
     """A plan's stagings: the pi rollout's one, a value step's one a step.
-    Its row kernels are the rest of its launches past its products."""
+    Its row kernels are the rest of its launches past its products,
+    stagings, u products and fused layers."""
     return 1 + iterations * horizon
+
+
+def plan_folds(iterations: int) -> int:
+    """A plan's u products, and as many fused layers: each value step's
+    (on a task that is not episodic, at widths that fold)."""
+    return iterations * value_folds()
+
+
+# The u product's K splits at most (csrc/mlp_wide.cuh kWMaxSplits): the
+# partial rows of u a Scratch holds.
+FOLD_SPLITS = 8
 
 
 class Scratch:
     """One wide call's device buffers for R rows at dims: x (bf16 z||a
     rows), h (bf16 hidden rows), y (f32 product rows, as wide as the widest
     layer), and the per-row G, q, term (f32); with `envs` (a value step's
-    N) also zb (bf16 [N, up16(L)]), u (f32 [N, up16(M)]) and env (int32
-    [N]) for its folded first layers; `ptrs` and `lds` are the kernels'
-    arguments."""
+    N, 0 on an episodic task) at widths that fold (`fold_fits`) also zb
+    (bf16 [N, up16(L)]) and u
+    (f32 [FOLD_SPLITS, N, up16(M)]: the u product's partial rows) for its
+    folded first layers; `ptrs` and `lds` are the kernels' arguments."""
 
     def __init__(self, R: int, dims, device, envs: int = 0):
         L, M, A, B = dims[:4]
@@ -200,14 +262,13 @@ class Scratch:
         self.y = torch.empty(R, ldy, dtype=torch.float32, device=device)
         self.s = torch.empty(3, R, dtype=torch.float32, device=device)
         fold = ()
-        if envs:
+        if envs and fold_fits(dims):
             self.zb = torch.empty(envs, Lp, dtype=torch.bfloat16, device=device)
-            self.u = torch.empty(envs, Mp, dtype=torch.float32, device=device)
-            self.env = torch.empty(envs, dtype=torch.int32, device=device)
-            fold = (self.zb.data_ptr(), self.u.data_ptr(), self.env.data_ptr())
-        self.ptrs = (ctypes.c_void_p * 9)(
+            self.u = torch.empty(FOLD_SPLITS, envs, Mp, dtype=torch.float32, device=device)
+            fold = (self.zb.data_ptr(), self.u.data_ptr())
+        self.ptrs = (ctypes.c_void_p * 8)(
             self.x.data_ptr(), self.h.data_ptr(), self.y.data_ptr(),
-            *(self.s[i].data_ptr() for i in range(3)), *(fold or (None, None, None)))
+            *(self.s[i].data_ptr() for i in range(3)), *(fold or (None, None)))
         self.lds = (ctypes.c_long * 3)(Lp + Ap, Mp, ldy)
 
 
@@ -263,21 +324,147 @@ def gemm(x, w, bias, dims, S: int, *, b1=None, split: int = -1, task=None,
 gemm.launches = 0
 
 
+def _task_rows(task, n: int, ntask: int, device):
+    """Each env's row of a bias table: task (int [n]) clamped to the
+    table's ntask rows, as the kernels clamp it; None: row 0."""
+    if task is None:
+        return torch.zeros(n, dtype=torch.long, device=device)
+    return task.long().clamp(0, ntask - 1)
+
+
 def fold_plain(zb, xa, wT, b0, task, S: int):
     """The plain version of a folded z||a first layer (csrc/mlp_wide.cuh
     Wide::hidden2 at a value step's t = 0, the latent broadcast over each
-    env's S rows): u = zb . W[:, :Lp] + b0[task] on the N envs' latents (zb
-    [N, Lp]), then y = xa . W[:, Lp:] + u[env] on the N*S rows' action
+    env's S rows): u = zb . W[:, :Lp] on the N envs' latents (zb [N, Lp]),
+    then y = xa . W[:, Lp:] + (u + b0[task])[env] on the N*S rows' action
     columns (xa [N*S, Ap]); wT the layer's wide layout [M, Lp + Ap]
     (ops/value.py wide_matrix), b0 its bias table [tasks, M], task int [N]
-    or None (task 0). Returns (u, y), f32 sums of the operands' values."""
+    or None (task 0). Returns (u, y), f32 sums of the operands' values; y
+    is the pre-activation that the fused layer keeps in registers."""
     Lp = zb.shape[1]
     W = wT.float()
-    t = (torch.zeros(zb.shape[0], dtype=torch.long, device=zb.device) if task is None
-         else task.long())
-    u = zb.float() @ W[:, :Lp].T + b0[t]
+    t = _task_rows(task, zb.shape[0], b0.shape[0], zb.device)
+    u = zb.float() @ W[:, :Lp].T
     env = torch.arange(xa.shape[0], device=xa.device) // S
-    return u, xa.float() @ W[:, Lp:].T + u[env]
+    return u, xa.float() @ W[:, Lp:].T + (u + b0[t])[env]
+
+
+def fold_u_plain(zb, w):
+    """The plain version of the u product: zb[:, :K] . w.T in f32 on the N
+    envs' latents (zb [N, >= K] bf16, w [ncols, K] bf16: the latent block
+    of a first layer's wide layout). Returns u [N, ncols]."""
+    return zb[:, :w.shape[1]].float() @ w.float().T
+
+
+def fold_u(zb, w, dims, *, out=None):
+    """The u product of a folded first layer alone (the library's
+    `tdm_wide_fold_u`, as Wide::hidden2 launches it; no path calls it), for
+    checks and timings: `fold_u_plain`'s function for the model dims `dims`
+    (the u product's plan from M and K alone, its env tiles from N). On the
+    card zb [N, >= K] bf16 (unit inner stride, rows on 16 bytes), w [ncols,
+    K] bf16 of any row stride (a multiple of 8; K a multiple of 16); `out`
+    a contiguous f32 [FOLD_SPLITS, N, up16(ncols)] tensor (None: a new one,
+    NaN where the kernel writes nothing). Returns (u's partial rows [splits,
+    N, ncols], summed in order by the fused layer; the plan: env tiles a
+    block, splits, stages a split, pstride, grid, blocks). On the CPU:
+    (fold_u_plain's u as one partial row, None)."""
+    if zb.device.type == 'cpu':
+        return fold_u_plain(zb, w)[None], None
+    K, ncols = w.shape[1], w.shape[0]
+    N = zb.shape[0]
+    shape = (FOLD_SPLITS, N, _up16(ncols))
+    u = out if out is not None else torch.full(shape, float('nan'), dtype=torch.float32,
+                                               device=zb.device)
+    if (zb.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 or zb.stride(1) != 1
+            or w.stride(1) != 1 or K % 16 or zb.shape[1] < K or zb.data_ptr() % 16
+            or zb.stride(0) % 8 or w.data_ptr() % 16 or w.stride(0) % 8
+            or tuple(u.shape) != shape or u.dtype != torch.float32 or not u.is_contiguous()):
+        raise ValueError(f'wide.fold_u: zb {tuple(zb.shape)} {zb.dtype}, w {tuple(w.shape)} '
+                         f'{w.dtype}, out {tuple(u.shape)} do not fit')
+    plan = (ctypes.c_int * 8)()
+    n = counts()
+    lib = _build.library('rollout')
+    rc = lib.tdm_wide_fold_u(
+        (ctypes.c_int * 7)(*dims), N, zb.data_ptr(), zb.stride(0), K // 16, w.data_ptr(),
+        w.stride(0), ncols, u.data_ptr(), u.stride(1), plan, n,
+        torch.cuda.current_stream(zb.device).cuda_stream)
+    _build.check(lib, rc, 'wide u product', dims)
+    fold_u.launches += n[4]
+    keys = ('ke', 'splits', 'kchunk', 'pstride')
+    info = dict(zip(keys, plan[:4]), grid=tuple(plan[4:7]), blocks=plan[7])
+    return u[:info['splits'], :, :ncols], info
+
+
+fold_u.launches = 0
+
+
+def fold_hidden_plain(xa, wa, u, b0, gain, beta, dims, S: int, dst, fdst=None, *, task=None):
+    """The plain version of the fused folded layer: u's partial rows (u
+    [nsplit, N, >= M]) summed in order, then each env's task bias row
+    added, y = xa . wa.T + that[env] in f32 on the N*S rows' action columns
+    (xa [N*S, Ap] bf16,
+    wa [M, Ap] bf16: the action block of the layer's wide layout, the
+    columns past A zeros in both; b0 the bias table [tasks, >= M] f32, task
+    int [N] or None: task 0), then `rows_plain('hidden', y, ...)`:
+    mish(layer_norm(y, gain, beta)) into dst (bf16 [N*S, >= up16(M)], zeros
+    from M) and, when given, fdst (f32 [N*S, >= M])."""
+    M = dims[1]
+    us = u[0, :, :M].float().clone()
+    for p in range(1, u.shape[0]):
+        us += u[p, :, :M]
+    env = torch.arange(xa.shape[0], device=xa.device) // S
+    us += b0[_task_rows(task, u.shape[1], b0.shape[0], xa.device), :M]
+    Ap = wa.shape[1]
+    y = xa[:, :Ap].float() @ wa.float().T + us[env]
+    rows_plain('hidden', y, dims, S, gain=gain, beta=beta, dst=dst, dpad=_up16(M), fdst=fdst)
+
+
+def fold_hidden(xa, wa, u, b0, gain, beta, dims, S: int, *, task=None, dst):
+    """The fused folded layer alone (the library's `tdm_wide_fold_hidden`,
+    as Wide::hidden2 launches it after the u product; no path calls it),
+    for checks and timings: `fold_hidden_plain`'s function (without fdst),
+    which it takes on CPU tensors. On the card xa the rows' action columns
+    (bf16, unit inner stride, rows on 16 bytes: x[:, Lp:] of the z||a rows),
+    wa [M, >= up8(A)] bf16 of any row stride (a multiple of 8, on 16
+    bytes), u [nsplit, N, >= M] f32 (rows on 16 bytes: u's stride(1) and
+    stride(0) multiples of 4; `fold_u`'s partial rows), b0 [tasks, >= M]
+    f32 with unit inner stride, task int32 [N] or None, gain and beta [M]
+    f32 contiguous, dst [N*S, >= up16(M)] bf16 with rows on 8 bytes.
+    Returns the launch's plan: threads a row, row groups a block, action
+    chunks of 8, shared bytes a block, blocks launched and the blocks the
+    card holds at once (None on the CPU)."""
+    if xa.device.type == 'cpu':
+        fold_hidden_plain(xa, wa, u, b0, gain, beta, dims, S, dst, task=task)
+        return None
+    R, M, A = xa.shape[0], dims[1], dims[2]
+    N = u.shape[1]
+    if (xa.dtype != torch.bfloat16 or wa.dtype != torch.bfloat16 or xa.stride(1) != 1
+            or wa.stride(1) != 1 or u.dtype != torch.float32 or u.stride(2) != 1
+            or R != N * S or dst.dtype != torch.bfloat16 or dst.stride(1) != 1
+            or xa.shape[1] < -(-A // 8) * 8 or wa.shape[1] < -(-A // 8) * 8
+            or b0.dtype != torch.float32 or b0.stride(1) != 1 or b0.shape[1] < M
+            or (task is not None and (task.dtype != torch.int32 or task.numel() != N))
+            or dst.shape[1] < _up16(M) or not (gain.is_contiguous() and beta.is_contiguous())):
+        raise ValueError(f'wide.fold_hidden: xa {tuple(xa.shape)} {xa.dtype}, wa '
+                         f'{tuple(wa.shape)}, u {tuple(u.shape)}, dst {tuple(dst.shape)} do '
+                         f'not fit dims {tuple(dims)} and {N} envs of {S} rows')
+    plan = (ctypes.c_int * 6)()
+    n = counts()
+    lib = _build.library('rollout')
+    rc = lib.tdm_wide_fold_hidden(
+        (ctypes.c_int * 7)(*dims), N, S, xa.data_ptr(), xa.stride(0), wa.data_ptr(),
+        wa.stride(0), u.data_ptr(), u.stride(1), u.stride(0), u.shape[0], b0.data_ptr(),
+        b0.stride(0), None if task is None else task.data_ptr(), b0.shape[0],
+        gain.data_ptr(), beta.data_ptr(), dst.data_ptr(), dst.stride(0), plan, n,
+        torch.cuda.current_stream(xa.device).cuda_stream)
+    _build.check(lib, rc, 'wide fused folded layer', dims)
+    fold_hidden.launches += n[5]
+    keys = ('threads_a_row', 'row_groups', 'action_chunks', 'smem_bytes', 'blocks',
+            'resident')
+    return dict(zip(keys, plan))
+
+
+fold_hidden.launches = 0
 
 
 def gemm_sum(y, plan, ncols: int):
@@ -445,8 +632,7 @@ rows.launches = 0
 
 
 def stage_plain(dims, S: int, t: int, z0, mean, std, noise, pi_acts, amask, x, acts, *,
-                load_z: bool = False, G=None, q=None, term=None, term_at=None, zb=None,
-                env=None):
+                load_z: bool = False, G=None, q=None, term=None, term_at=None, zb=None):
     """The plain version of one staging: step t's actions of N envs of S
     rows, `ops/value.py` sample_actions_plain's (mean, std [N, H*A]; noise
     [N, S, H*A]; pi_acts [N, n_pi, H*A]; amask [A] or [N, A]) at columns t*A
@@ -454,9 +640,8 @@ def stage_plain(dims, S: int, t: int, z0, mean, std, noise, pi_acts, amask, x, a
     [N*S, >= up16(L) + up16(A)] (bf16, zeros up to up16(A)); with load_z
     also G, q, term, term_at zeroed where given and z0 [N, S, L]: into the
     latent columns (zeros up to up16(L)), or folded (zb given: bf16 [N,
-    up16(L)], with env int32 [N]; z0 one row an env, broadcast) each env's
-    row 0 into its row of zb and env set to 0 .. N-1, x's latent columns
-    untouched."""
+    up16(L)]; z0 one row an env, broadcast) each env's row 0 into its row of
+    zb, x's latent columns untouched."""
     from tdmpc2_tpu_torch.ops.value import sample_actions_plain
     L, A = dims[0], dims[2]
     Lp, Ap = _up16(L), _up16(A)
@@ -470,7 +655,6 @@ def stage_plain(dims, S: int, t: int, z0, mean, std, noise, pi_acts, amask, x, a
         if zb is not None:
             zb[:, :L] = z0[:, 0].to(zb.dtype)
             zb[:, L:Lp] = 0
-            env.copy_(torch.arange(N, dtype=env.dtype, device=env.device))
         else:
             x[:, :L] = z0.expand(N, S, L).reshape(N * S, L).to(x.dtype)
             x[:, L:Lp] = 0
@@ -480,7 +664,7 @@ def stage_plain(dims, S: int, t: int, z0, mean, std, noise, pi_acts, amask, x, a
 
 
 def stage(dims, S: int, t: int, z0, mean, std, noise, pi_acts, amask, x, acts, *,
-          load_z: bool = False, G=None, q=None, term=None, term_at=None, zb=None, env=None):
+          load_z: bool = False, G=None, q=None, term=None, term_at=None, zb=None):
     """One launch of the wide engine's staging on given operands (the
     library's `tdm_wide_stage`, as the sampled value step launches it at
     step t; no path calls it), for checks and timings; the arguments and
@@ -488,9 +672,9 @@ def stage(dims, S: int, t: int, z0, mean, std, noise, pi_acts, amask, x, acts, *
     card: f32 operands with unit inner stride, noise's and pi_acts' rows H*A
     apart, acts contiguous, amask's rows contiguous; x bf16 with unit inner
     stride, its rows on 16 bytes; G, q, term f32 and term_at int32,
-    contiguous [N*S]; folded, zb contiguous bf16 on 16 bytes and env int32
-    [N], z0 of row stride 0."""
-    kw = dict(load_z=load_z, G=G, q=q, term=term, term_at=term_at, zb=zb, env=env)
+    contiguous [N*S]; folded, zb contiguous bf16 on 16 bytes, z0 of row
+    stride 0."""
+    kw = dict(load_z=load_z, G=G, q=q, term=term, term_at=term_at, zb=zb)
     if x.device.type == 'cpu':
         stage_plain(dims, S, t, z0, mean, std, noise, pi_acts, amask, x, acts, **kw)
         return
@@ -504,13 +688,11 @@ def stage(dims, S: int, t: int, z0, mean, std, noise, pi_acts, amask, x, acts, *
           and tuple(acts.shape) == (N, S, HA) and tuple(noise.shape) == (N, S, HA)
           and noise.stride(1) == HA and pi_acts.shape[1] <= S
           and (pi_acts.shape[1] == 0 or pi_acts.stride(1) == HA)
-          and all(v is None or v.is_contiguous() for v in (G, q, term, term_at))
-          and (zb is None) == (env is None))
+          and all(v is None or v.is_contiguous() for v in (G, q, term, term_at)))
     if zb is not None:
         ok &= (load_z and z0.stride(1) == 0 and zb.dtype == torch.bfloat16
                and zb.is_contiguous() and tuple(zb.shape) == (N, _up16(L))
-               and zb.data_ptr() % 16 == 0 and env.dtype == torch.int32
-               and env.is_contiguous() and env.numel() == N)
+               and zb.data_ptr() % 16 == 0)
     if not ok:
         raise ValueError(f'wide.stage: operands that do not fit dims {tuple(dims)} '
                          f'and {N} envs of {S} rows')
@@ -522,7 +704,7 @@ def stage(dims, S: int, t: int, z0, mean, std, noise, pi_acts, amask, x, acts, *
         noise.data_ptr(), noise.stride(0), pi_acts.data_ptr(), pi_acts.stride(0),
         pi_acts.shape[1], acts.data_ptr(), amask.data_ptr(),
         amask.stride(0) if amask.dim() == 2 else 0, x.data_ptr(), x.stride(0),
-        _ptr(G), _ptr(q), _ptr(term), _ptr(term_at), _ptr(zb), _ptr(env), n,
+        _ptr(G), _ptr(q), _ptr(term), _ptr(term_at), _ptr(zb), n,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, 'wide staging', dims)
     stage.launches += n[3]

@@ -94,10 +94,11 @@ from tdmpc2_tpu_torch.utils.seed import generator_state, restore_generator
 
 # the kernel wrappers a plan runs, whose launch counts a replay adds
 PLAN_WRAPPERS = (cem.pi_rollout, value_sampled, cem.elite_moments)
-# and the wide engine's device launches and the products, row kernels and
-# stagings among them (ops/wide.py), which a replay adds too: 0 a plan
-# below 2048 columns; at model_size 317 (H 3, 6 iterations) 385, 189 of them
-# products, 177 row kernels and 19 stagings (ops/wide.py plan_launches)
+# and the wide engine's device launches and the products, row kernels,
+# stagings, u products and fused folded layers among them (ops/wide.py),
+# which a replay adds too: 0 a plan below 2048 columns; at model_size 317
+# (H 3, 6 iterations) 373, 165 of them products, 165 row kernels, 19
+# stagings, 12 u products and 12 fused layers (ops/wide.py plan_launches)
 PLAN_COUNTS = PLAN_WRAPPERS + wide.COUNTERS
 
 

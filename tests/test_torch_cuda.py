@@ -42,8 +42,16 @@ plan the mirror's, N=8 bit for bit one-env launches; its staging alone
 (tdm_wide_stage) over a sampled step's H launches at 512, 4,096 and 40,960
 rows, the latent broadcast, one a row and folded, a mask per env or
 shared, against stage_plain bit for bit; and a folded first layer's two
-products (the envs' latents into u, then the action columns with u's row
-of the env as the bias) against fold_plain at 1e-4 of |x| . |W|. The
+kernels: the u product (the envs' latents, packed into shared tiles, into
+u's partial rows) against fold_plain's u at 1e-4 of |zb| . |Wz|, and the
+fused layer (the action columns times the action block plus u's row of the
+env plus its task's bias row, LayerNorm + Mish) against fold_hidden_plain
+within one bf16 step, with 80 distinct tasks and with repeated ones, at
+317's widths and at each thread count a row it is built for (38 actions at
+512, 1024 and 1792 columns, 6 at 3000, 21 at 4096), each plan the
+mirror's, N = 8 bit for bit one-env launches; the value step at 38
+actions (model_size 5, folded; 317, not folded) and 21 (317, folded)
+against the plain value step. The
 elite kernel is held at its edges (S = 77, 2048 and 28,000, HA = 114, E =
 1 and E = S, ties across the boundary, all tied, NaN, inf and +-3e38), its
 N=8 launch against 8 one-env launches bit for bit, and the canary at n =
@@ -660,14 +668,15 @@ def test_episodic_value_sampled_matches_value_kernel(episodic_agent, n):
 # ------------------------------------------------------------ model widths
 
 
-def _sized_agent(size):
-    """An episodic agent at the widths of `size`, S = 77 (ragged row
-    tiles), its termination head spread and centred as above. Weights
-    are perturbed by 0.05 * sqrt(512 / mlp_dim), so that each width's
-    logits spread as the default model's do (chip_smoke.sweep_scale)."""
+def _sized_agent(size, A=3):
+    """An episodic agent at the widths of `size` with A actions, S = 77
+    (ragged row tiles), its termination head spread and centred as above.
+    Weights are perturbed by 0.05 * sqrt(512 / mlp_dim), so that each
+    width's logits spread as the default model's do
+    (chip_smoke.sweep_scale)."""
     cfg = parse_cfg(Config(task='toy', device='cuda', model_size=size, episodic=True,
                            num_samples=77, num_elites=9, num_pi_trajs=5, iterations=3))
-    cfg.obs_shape, cfg.action_dim, cfg.episode_length = {'state': (10,)}, 3, 30
+    cfg.obs_shape, cfg.action_dim, cfg.episode_length = {'state': (10,)}, A, 30
     ag = TDMPC2(cfg)
     g = torch.Generator().manual_seed(size)
     scale = 0.05 * (512 / cfg.mlp_dim) ** 0.5
@@ -1132,8 +1141,8 @@ def test_wide_stage_matches_plain_at_317_widths(agent, N, n_pi, mask):
     model's widths, N envs of 512 rows (512, 4,096 and 40,960 rows; a mask
     row per env, or one for every env; the noise a strided view as the
     planner passes it), with the latent broadcast (zs = 0), a latent per row
-    (zs != 0) and folded (step 0's latent into zb, each env's once, env the
-    identity), against stage_plain exactly: the z||a rows bit for bit,
+    (zs != 0) and folded (step 0's latent into zb, each env's once),
+    against stage_plain exactly: the z||a rows bit for bit,
     nothing written past the padded widths (nor, folded, in the latent
     columns), the f32 actions sample_actions_plain's; G, q, term and
     term_at zeroed; H launches counted; at N=8 each env's rows bit for bit
@@ -1170,8 +1179,7 @@ def test_wide_stage_matches_plain_at_317_widths(agent, N, n_pi, mask):
             fold = {}
             if z_mode == 'folded':
                 fold = dict(zb=torch.full((n, Lp), float('nan'), device=dev,
-                                          dtype=torch.bfloat16),
-                            env=torch.full((n,), -1, device=dev, dtype=torch.int32))
+                                          dtype=torch.bfloat16))
                 o.update(fold)
             am = amask if amask.dim() == 1 else sel(amask)
             for t in range(H):
@@ -1199,55 +1207,164 @@ def test_wide_stage_matches_plain_at_317_widths(agent, N, n_pi, mask):
                     assert torch.equal(bits(one['zb']), bits(got['zb'][e:e + 1]))
 
 
-@pytest.mark.parametrize('n', [1, 8, 80])
-def test_wide_fold_products_match_plain_at_317_widths(agent, n):
-    """A value step's folded first layer through the wide engine's product
-    (ops/wide.py gemm) on the wide layout's blocks (rows 1392 apart): u =
-    zb . W[:, :1376] + b0[task] on the n envs' latents (80 tasks), then the
-    action columns of x (its rows 1392 wide) . W[:, 1376:] + u[env] on n x
-    512 rows, against fold_plain within 1e-4 of the products' magnitudes
-    (|zb| . |Wz| + |a| . |Wa|, the tolerance of the product checks); each
-    launch's plan the mirror's (tests/wide_mirror.py fold_plans); at N = 8
-    env 5's rows of each product equal its one-env launch bit for bit."""
-    dims, S, dev = _317_DIMS, 512, torch.device('cuda')
+def _fold_operands(n, S, tasks, seed, dims=_317_DIMS):
+    """A folded first layer's operands at dims (the 317M model's: L 1376, M
+    4096, 6 actions) on n envs of S rows: the wide layout [M, up16(L) +
+    up16(A)] (its pads zero; [4096, 1392] at 317), the envs' latents zb [n,
+    up16(L)], the z||a rows (latent columns NaN, the A actions, zeros to
+    up16(A)), a bias table of 80 tasks, the envs' task ids (distinct, or 5
+    tasks repeated), gain and beta."""
+    dev = torch.device('cuda')
     L, M, A = dims[0], dims[1], dims[2]
     Lp, Ap, T = wm.up16(L), wm.up16(A), 80
-    g = torch.Generator(device=dev).manual_seed(1392 + n)
+    g = torch.Generator(device=dev).manual_seed(seed)
     wT = (torch.randn(M, Lp + Ap, device=dev, generator=g) * L ** -0.5).to(torch.bfloat16)
     wT[:, L:Lp] = 0
+    wT[:, Lp:] *= 3
     wT[:, Lp + A:] = 0
     zb = torch.randn(n, Lp, device=dev, generator=g).to(torch.bfloat16)
     zb[:, L:] = 0
     x = torch.full((n * S, Lp + Ap), float('nan'), device=dev, dtype=torch.bfloat16)
     x[:, Lp:] = 0
     x[:, Lp:Lp + A] = (torch.rand(n * S, A, device=dev, generator=g) * 2 - 1).to(torch.bfloat16)
-    b0 = torch.randn(T, M, device=dev, generator=g)
-    task = ((torch.arange(n, device=dev) * 7 + 3) % T).to(torch.int32)
-    env = torch.arange(n, device=dev, dtype=torch.int32)
+    b0 = torch.randn(T, M, device=dev, generator=g) * 0.5
+    e = torch.arange(n, device=dev)
+    task = ((e * 7 + 3) % (T if tasks == 'distinct' else 5)).to(torch.int32)
+    gain = 1 + 0.2 * torch.randn(M, device=dev, generator=g)
+    beta = 0.2 * torch.randn(M, device=dev, generator=g)
+    return wT, zb, x, b0, task, gain, beta
 
-    def products(zb_, x_, task_, env_):
-        k = len(env_)
-        u, pu = wide.gemm(zb_, wT[:, :Lp], b0, dims, 1, task=task_, ntask=T, bt=M)
-        y, py = wide.gemm(x_[:, Lp:], wT[:, Lp:], u, dims, S, task=env_, ntask=k,
-                          bt=u.stride(0))
-        return u[:, :M], y[:, :M], pu, py
 
-    u, y, pu, py = products(zb, x, task, env)
-    want_u, want_y = wide.fold_plain(zb, x[:, Lp:], wT, b0, task, S)
-    keys = ('bm', 'bn', 'wgs', 'splits', 'kchunk', 'pstride', 'grid')
-    for plan, mirror in zip((pu, py), wm.fold_plans(dims, n, S, T)):
-        assert {k: plan[k] for k in keys} == {k: mirror[k] for k in keys}
-    mag_u = zb.float().abs() @ wT[:, :Lp].float().abs().T
-    mag_y = x[:, Lp:].float().abs() @ wT[:, Lp:].float().abs().T + mag_u[
-        torch.arange(n * S, device=dev) // S]
-    for got, want, mag in ((u, want_u, mag_u), (y, want_y, mag_y)):
-        assert bool(torch.isfinite(got).all())
-        assert bool(((got - want).abs() <= 1e-4 * mag + 1e-6).all()), \
-            float((got - want).abs().max())
+@pytest.mark.parametrize('n,tasks', [(1, 'distinct'), (8, 'distinct'), (80, 'distinct'),
+                                     (8, 'repeated'), (80, 'repeated')])
+def test_wide_fold_products_match_plain_at_317_widths(agent, n, tasks):
+    """A value step's folded first layer: the u product alone (ops/wide.py
+    fold_u, the library's tdm_wide_fold_u) on the n envs' latents (the
+    layout's latent block, rows 1392 apart), its partial rows summed in
+    order, against fold_plain's u within 1e-4 of |zb| . |Wz|; the launch's
+    plan the mirror's (tests/wide_mirror.py fold_u_plan), the splits from
+    the widths alone; at N = 8 env 5's partial rows its one-env launch's
+    bit for bit. Then the fused layer on one row an env (80 distinct tasks,
+    or 5 tasks repeated) against fold_hidden_plain within one bf16 step:
+    each row's bias row its own env's task's."""
+    dims, S = _317_DIMS, 512
+    Lp, M = wm.up16(dims[0]), dims[1]
+    wT, zb, x, b0, task, gain, beta = _fold_operands(n, S, tasks, 1392 + n)
+    n0 = wide.fold_u.launches
+    u, plan = wide.fold_u(zb, wT[:, :Lp], dims)
+    assert wide.fold_u.launches == n0 + 1
+    mirror = wm.fold_u_plan(dims, n)
+    assert {k: plan[k] for k in ('ke', 'splits', 'kchunk', 'pstride', 'grid', 'blocks')} == \
+        {k: mirror[k] for k in ('ke', 'splits', 'kchunk', 'pstride', 'grid', 'blocks')}
+    got = u[0].clone()
+    for p in range(1, plan['splits']):
+        got += u[p]
+    want_u, _ = wide.fold_plain(zb, x[:, Lp:], wT, b0, task, S)
+    assert torch.equal(want_u, wide.fold_u_plain(zb, wT[:, :Lp]))
+    mag = zb.float().abs() @ wT[:, :Lp].float().abs().T
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want_u).abs() <= 1e-4 * mag + 1e-6).all()), \
+        float((got - want_u).abs().max())
     if n == 8:
-        sl = slice(5 * S, 6 * S)
-        u1, y1, _, _ = products(zb[5:6], x[sl], task[5:6], env[:1])
-        assert torch.equal(u1, u[5:6]) and torch.equal(y1, y[sl])
+        u1, _ = wide.fold_u(zb[5:6], wT[:, :Lp], dims)
+        assert torch.equal(u1, u[:, 5:6])
+    xa = x[::S, Lp:]
+    dst = {k: torch.full((n, M + 16), float('nan'), device=x.device, dtype=torch.bfloat16)
+           for k in ('got', 'want')}
+    wide.fold_hidden(xa, wT[:, Lp:], u, b0, gain, beta, dims, 1, task=task, dst=dst['got'])
+    wide.fold_hidden_plain(xa, wT[:, Lp:], u, b0, gain, beta, dims, 1, dst['want'], task=task)
+    rc.hold_rows(f'fused folded layer, {n} envs of one row, {tasks} tasks',
+                 {'dst': dst['got']}, {'dst': dst['want']}, M)
+
+
+@pytest.mark.parametrize('n', [1, 8, 80])
+def test_wide_fold_hidden_matches_plain_at_317_widths(agent, n):
+    """The fused folded layer alone (ops/wide.py fold_hidden, the library's
+    tdm_wide_fold_hidden) on n envs of 512 rows (512, 4,096 and 40,960
+    rows): the rows' action columns (rows 1392 wide, the latent columns NaN)
+    times the layout's action block, plus the u product's partial rows of
+    the env summed in order, LayerNorm + Mish, against fold_hidden_plain on
+    the same operands within the row phase's one-bf16-step band
+    (row_cases.hold_rows), nothing written past the 4096 columns; one
+    launch counted; its plan the mirror's (tests/wide_mirror.py
+    fold_hidden_plan), on no more blocks than the card holds; at N = 8 env
+    5's rows its one-env launch's bit for bit."""
+    dims, S, dev = _317_DIMS, 512, torch.device('cuda')
+    Lp, M = wm.up16(dims[0]), dims[1]
+    _hold_fold_hidden(dims, n, S, 4096 + n)
+
+
+def _hold_fold_hidden(dims, n, S, seed):
+    """The fused layer at dims on n envs of S rows (distinct tasks) against
+    fold_hidden_plain within one bf16 step, nothing written past up16(M);
+    one launch counted; its plan the mirror's, on no more blocks than the
+    card holds; at N = 8 env 5's rows its one-env launch's bit for bit."""
+    dev = torch.device('cuda')
+    Lp, M = wm.up16(dims[0]), dims[1]
+    wT, zb, x, b0, task, gain, beta = _fold_operands(n, S, 'distinct', seed, dims)
+    u, _ = wide.fold_u(zb, wT[:, :Lp], dims)
+
+    def run(fn, sel=slice(None), us=u, tk=task):
+        xa = x[sel, Lp:]
+        dst = torch.full((xa.shape[0], M + 16), float('nan'), device=dev, dtype=torch.bfloat16)
+        plan = fn(xa, wT[:, Lp:], us, b0, gain, beta, dims, S, task=tk, dst=dst)
+        return dst, plan
+
+    n0 = wide.fold_hidden.launches
+    got, plan = run(wide.fold_hidden)
+    assert wide.fold_hidden.launches == n0 + 1
+    want, _ = run(lambda *a, task, dst: wide.fold_hidden_plain(*a, dst, task=task))
+    rc.hold_rows(f'fused folded layer at {dims[:3]}, {n} envs', {'dst': got}, {'dst': want},
+                 wm.up16(M))
+    mirror = wm.fold_hidden_plan(dims)
+    assert {k: plan[k] for k in mirror} == mirror
+    assert 1 <= plan['blocks'] <= plan['resident']
+    if n == 8:
+        u1, _ = wide.fold_u(zb[5:6], wT[:, :Lp], dims)
+        one, _ = run(wide.fold_hidden, slice(5 * S, 6 * S), u1, task[5:6])
+        assert torch.equal(one.view(torch.int16), got[5 * S:6 * S].view(torch.int16))
+
+
+@pytest.mark.parametrize('dims', [
+    pytest.param((512, 512, 38, 101, 5, 8, 3), id='512-cols-38-actions'),
+    pytest.param((768, 1024, 38, 101, 5, 8, 3), id='1024-cols-38-actions'),
+    pytest.param((768, 1792, 38, 101, 5, 8, 3), id='1792-cols-38-actions'),
+    pytest.param((1376, 3000, 6, 101, 8, 8, 3), id='3000-cols-6-actions'),
+    pytest.param((1376, 4096, 21, 101, 8, 8, 3), id='4096-cols-21-actions')])
+def test_wide_fold_hidden_matches_plain_at_each_row_width(agent, dims):
+    """The fused layer's other builds: 32, 64 and 128 threads a row (38
+    actions, a dog task's, at the widths of model_size 5, 19 and 48: the
+    wide engine's because no row tile takes more than 32 actions), 256
+    with the ragged edge's guards (3000 columns) and without them at 21
+    actions (a humanoid task's at 317: three chunks of 8 actions staged); 8
+    envs of 77 rows, as the 317 test above."""
+    assert wide.fold_fits(dims)
+    _hold_fold_hidden(dims, 8, 77, 38 + dims[1])
+
+
+@pytest.mark.parametrize('size,A,folds', [(5, 38, True), (317, 21, True), (317, 38, False)])
+def test_wide_value_step_with_many_actions_matches_plain(agent, size, A, folds):
+    """The value step on the wide engine with a dog task's 38 actions at
+    model_size 5 (folded: the fused layer on 32 threads a row) and at 317
+    (its action block too large for shared memory: not folded, step 0 a
+    product and a row kernel a layer), and a humanoid task's 21 at 317
+    (folded), 2 envs with the latent broadcast: against the plain value
+    step in the band, its launches, products and folded layers as
+    ops/wide.py counts them at these widths."""
+    ag = _sized_agent(size, A)
+    cfg = ag.cfg
+    H = cfg.horizon
+    dims = (cfg.latent_dim, cfg.mlp_dim, A, cfg.num_bins, cfg.num_q, cfg.simnorm_dim, H)
+    assert wide.fold_fits(dims) == folds
+    assert kernel_plan(ag.prep, 8, H)['route'] == 'wide'
+    args = _episodic_inputs(ag, 2, 38 + A)
+    before = [c.launches for c in wide.COUNTERS]
+    got = value_estimate(*args, **_heads(ag))
+    n = [c.launches - b for c, b in zip(wide.COUNTERS, before)]
+    torch.testing.assert_close(got, value_estimate_plain(*args, **_heads(ag)), **BAND)
+    assert n[0] == wide.value_launches(H, False)
+    assert n[1] == wide.value_products(H, False, dims)
+    assert n[4] == n[5] == wide.value_folds(dims) == (2 if folds else 0)
 
 
 # ------------------------------------------------------- the plan's graph

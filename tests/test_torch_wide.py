@@ -17,7 +17,10 @@ the kernels:
   the widths the wide engine serves) against the JAX package's, the Pallas
   value kernel run interpreted with f32 dots, on the same noise;
 - the wide engine's launches a call and a plan, folded and not, and the
-  fold's two product plans (tests/wide_mirror.py `fold_plans`);
+  fold's two launches' plans (tests/wide_mirror.py `fold_plans`: the u
+  product's blocks covering each element of u once a split, its splits
+  from the widths alone), and which widths fold (ops/wide.py `fold_fits`,
+  against the fused layer's shared bytes; an episodic step never folds);
 - the row kernel's plain version (ops/wide.py `rows_plain`, what the
   kernel is held to on the card) in each mode against the JAX package's
   row functions (`_ln`, `_mish`, `layers.simnorm`, `math.two_hot_inv`,
@@ -29,9 +32,11 @@ the kernels:
 - the staging's plain version (ops/wide.py `stage_plain`) against the TPU
   kernel's sampling in JAX, folded too (each env's latent into zb), a
   value step's folded first layer (ops/wide.py `fold_plain`: the latent's
-  share with the task's bias row, then the actions' with it as a bias row
-  an env) against the port's plain first layer and JAX's z Wz + a Wa at
-  317's widths, and each library entry's ctypes argument types
+  share plus the task's bias row, then the actions' share plus it) against
+  the port's plain first layer and JAX's z Wz + a Wa + b0 at 317's widths,
+  the fused layer's plain version (`fold_hidden_plain`: u's partial rows
+  summed, the env's task bias row, the actions' share, LayerNorm + Mish) against JAX's _mish(_ln(z Wz + a Wa + b0)) at 317's
+  widths and at 38 and 21 actions, and each library entry's ctypes argument types
   (ops/_build.py `SIGNATURES`) against its declaration in csrc/;
 - mt80 at model_size 317: the Meta-World dims of chip_smoke's literals
   against the JAX adapter's, and the offline buffer that the port's
@@ -125,34 +130,72 @@ def test_widths_no_engine_takes_raise_naming_them(dims):
         wide.engine(mirror_lib(), dims)
 
 
+_D317, _D5 = (1376, 4096, 6, 101, 8, 8, 3), (512, 512, 6, 101, 5, 8, 3)
+
+
 def test_wide_launch_counts():
     """13 launches a step (the staging, reward and dynamics: a product and a
     row kernel a layer), 6 more with the termination gate, 18 for the
-    policy and the two Q heads, and, folded (the latent broadcast over an
-    env's rows, as the planner passes it), the two products of u for step
-    0's z||a first layers; the pi rollout stages once and skips the last
-    step's dynamics; a plan of 6 iterations at H=3 (folded value steps)."""
-    assert wide.value_launches(3, False) == 57 + 2
-    assert wide.value_launches(3, True) == 75 + 2
+    policy and the two Q heads; folded (the latent broadcast over an env's
+    rows, as the planner passes it), step 0's two z||a first layers are a u
+    product and a fused layer each (action product + LayerNorm + Mish) in
+    place of a product and a row kernel: as many launches, 2 fewer products
+    and row kernels (an episodic step does not fold); the pi rollout stages
+    once and skips the last step's dynamics; a plan of 6 iterations at H=3
+    (folded value steps)."""
+    assert wide.value_launches(3, False) == 57
+    assert wide.value_launches(3, True) == 75
     assert wide.pi_rollout_launches(3) == 31
     assert wide.rollout_launches(3) == 39
-    assert wide.plan_launches(3, 6, False) == 31 + 6 * 59 == 385
-    # the products among them: a product per layer, and the fold's two
-    assert (wide.value_products(3, False), wide.value_products(3, True)) == (27 + 2, 36 + 2)
+    assert wide.plan_launches(3, 6, False) == 31 + 6 * 57 == 373
+    # the products among them: a product per layer but the folded two; an
+    # episodic step does not fold (its gate's flags follow a logit's sign)
+    assert (wide.value_products(3, False), wide.value_products(3, True)) == (27 - 2, 36)
+    assert wide.value_folds(episodic=True) == wide.value_folds(_D317, True) == 0
     assert (wide.pi_rollout_products(3), wide.rollout_products(3)) == (15, 18)
-    assert wide.plan_products(3, 6, False) == 15 + 6 * 29 == 189
+    assert wide.plan_products(3, 6, False) == 15 + 6 * 25 == 165
+    # the fold's u products and fused layers: 2 a value step
+    assert wide.value_folds() == 2 and wide.plan_folds(6) == 12
     # a staging a step and the pi rollout's one; a row kernel after every
-    # product but u's two a value step
+    # product
     assert wide.plan_stagings(3, 6) == 19
     rows = (wide.plan_launches(3, 6, False) - wide.plan_products(3, 6, False)
-            - wide.plan_stagings(3, 6))
-    assert rows == wide.plan_products(3, 6, False) - 2 * 6 == 177
-    # the fold's two products as the mirror plans them: u on the N envs'
-    # rows (an env a row tile where the task picks the bias), the actions on
-    # every row with u's row of the env as the bias
-    u, act = wm.fold_plans(_D317, 80, 512, 80)
-    assert (u['bm'], u['grid'], u['nk']) == (64, (32, 80, 1), 22)
-    assert (act['bm'], act['grid'], act['nk']) == (128, (16, 320, 1), 1)
+            - wide.plan_stagings(3, 6) - 2 * wide.plan_folds(6))
+    assert rows == wide.plan_products(3, 6, False) == 165
+    # the fold's two launches as the mirror plans them: u on the 80 envs'
+    # latents packed into one block row (two env tiles of 64), K split in 4
+    # (6 stages of 64 a split) over 32 column tiles of 128: 128 blocks; the
+    # fused layer on 256 threads a row, the 6 action rows staged
+    u, fused = wm.fold_plans(_D317, 80)
+    assert (u['ke'], u['grid'], u['nk'], u['kchunk'], u['blocks']) == (
+        2, (32, 1, 4), 22, 6, 128)
+    assert fused == dict(threads_a_row=256, row_groups=1, action_chunks=1,
+                         smem_bytes=6 * 4096 * 2 + 128 * 16 + 4096 * 4)
+    # widths whose fused layer's action block does not fit shared memory (38
+    # actions at 4096 columns) do not fold: step 0 a product and a row
+    # kernel a layer, as many launches
+    dog317 = _D317[:2] + (38,) + _D317[3:]
+    assert wide.value_folds(_D317) == 2 and wide.value_folds(dog317) == 0
+    assert (wide.value_products(3, False, dog317), wide.value_products(3, True, dog317)) == (
+        27, 36)
+    assert wide.value_products(3, False, _D317) == wide.value_products(3, False) == 25
+
+
+@pytest.mark.parametrize('dims,folds', [
+    (_D5[:2] + (38,) + _D5[3:], True), ((768, 1024, 38, 101, 5, 8, 3), True),
+    ((768, 1792, 38, 101, 5, 8, 3), True), (_D317, True),
+    (_D317[:2] + (21,) + _D317[3:], True), (_D317[:2] + (25,) + _D317[3:], True),
+    (_D317[:2] + (26,) + _D317[3:], False), (_D317[:2] + (38,) + _D317[3:], False),
+    ((1376, 3000, 6, 101, 8, 8, 3), True)])
+def test_fold_fits_follows_the_fused_layers_shared_memory(dims, folds):
+    """ops/wide.py fold_fits (csrc/mlp_wide.cuh fold_fits: whether a value
+    step folds) against the fused layer's shared bytes as the mirror plans
+    them (tests/wide_mirror.py fold_hidden_plan) and the 227 KB a block may
+    opt into, 256 bytes of them its statistics slots: 38 actions fold at
+    the widths of model_size 5, 19 and 48, at most 25 at 4096 columns."""
+    plan = wm.fold_hidden_plan(dims)
+    assert wide.fold_fits(dims) == folds == (plan['smem_bytes'] + 256 <= 232448)
+    assert plan['action_chunks'] == -(-dims[2] // 8)
 
 
 # ---------------------------------------------- the layout the engine reads
@@ -267,9 +310,6 @@ def test_product_through_wide_layout(case):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-_D317, _D5 = (1376, 4096, 6, 101, 8, 8, 3), (512, 512, 6, 101, 5, 8, 3)
-
-
 @pytest.mark.parametrize('dims,n_envs,S,K,N,per_env', [
     (_D317, 1, 512, 1392, 4096, True), (_D317, 8, 512, 4096, 4096, False),
     (_D317, 3, 512, 4096, 101, True), (_D317, 2, 512, 4096, 12, False),
@@ -278,13 +318,20 @@ _D317, _D5 = (1376, 4096, 6, 101, 8, 8, 3), (512, 512, 6, 101, 5, 8, 3)
     (_D317, 2, 77, 4096, 1376, True), (_D5, 1, 512, 528, 512, False),
     (_D5, 1, 77, 512, 101, False), (_D5, 3, 77, 528, 512, True),
     (_D317, 80, 1, 1376, 4096, True), (_D317, 1, 1, 1376, 4096, False),
-    (_D317, 80, 512, 16, 4096, True), (_D317, 1, 512, 16, 4096, False)])
+    (_D317, 80, 512, 16, 4096, True), (_D317, 1, 512, 16, 4096, False),
+    (_D317, 1, 1, 1376, 4096, 'fold u'), (_D317, 8, 1, 1376, 4096, 'fold u'),
+    (_D317, 80, 1, 1376, 4096, 'fold u'), (_D317, 128, 1, 1376, 4096, 'fold u')])
 def test_gemm_plan_covers_each_output_once(dims, n_envs, S, K, N, per_env):
     """The product's tile plan (ops/wide.py gemm_plan, the mirror of
     Wide::launch_gemm): every output row and column in exactly one tile of
     each K split, the splits' K ranges tiling K in order, a per-env layer's
     tiles inside one env, the tile from S and the widths, and the partial
-    rows of a split inside a row of y."""
+    rows of a split inside a row of y. 'fold u': the u product's plan
+    (tests/wide_mirror.py fold_u_plan, the mirror of Wide::fold_u) at 1, 8,
+    80 and 128 envs, held by _hold_fold_u_plan."""
+    if per_env == 'fold u':
+        _hold_fold_u_plan(dims, n_envs, K, N)
+        return
     plan = wm.gemm_plan(dims, n_envs, S, K, N, per_env)
     assert {k: plan[k] for k in ('bm', 'bn', 'wgs')} == wm.gemm_tile(dims, S)
     assert plan['bm'] == (128 if dims == _D317 and S > 64 else 64)
@@ -307,6 +354,39 @@ def test_gemm_plan_covers_each_output_once(dims, n_envs, S, K, N, per_env):
     narrow = N <= plan['bn']
     assert plan['splits'] == (min(8, K // 512, wide.y_width(dims) // _up16(N))
                               if narrow and K >= 512 else 1)
+
+
+def _hold_fold_u_plan(dims, n_envs, K, N):
+    """The u product's plan on n_envs latents: every element of u in
+    exactly one block of each K split, the splits' K ranges tiling K in
+    order, the split the one-env plan's (from the widths alone, never from
+    N), each block's envs one or two env tiles of 64, and the partial rows
+    inside the scratch's FOLD_SPLITS. (Each env's task bias row is the
+    fused layer's, held by test_fold_hidden_plain_matches_jax.)"""
+    plan = wm.fold_u_plan(dims, n_envs)
+    one = wm.fold_u_plan(dims, 1)
+    assert {k: plan[k] for k in ('nk', 'splits', 'kchunk')} == \
+        {k: one[k] for k in ('nk', 'splits', 'kchunk')}
+    assert plan['nk'] == -(-K // wm.STAGE_K)
+    assert plan['ke'] == (2 if n_envs > wm.FOLD_ENVS else 1)
+    cover = np.zeros((plan['splits'], n_envs, N), np.int32)
+    k_ranges = set()
+    blocks = 0
+    for (c0, c1), (e0, e1), (k0, k1), z in wm.fold_u_blocks(plan, dims, n_envs):
+        blocks += 1
+        cover[z, e0:e1, c0:c1] += 1
+        k_ranges.add((z, k0, k1))
+        assert 0 < e1 - e0 <= plan['ke'] * wm.FOLD_ENVS and c1 - c0 <= wm.FOLD_COLS
+    assert blocks == plan['blocks']
+    assert (cover == 1).all()
+    ks = sorted(k_ranges)
+    assert [k[0] for k in ks] == list(range(plan['splits']))
+    assert ks[0][1] == 0 and ks[-1][2] == K
+    assert all(a[2] == b[1] for a, b in zip(ks, ks[1:]))
+    assert plan['pstride'] == n_envs * _up16(N)
+    assert plan['splits'] <= wide.FOLD_SPLITS
+    # at 317: 32 column tiles of 128 x 4 splits, about one block an SM
+    assert (plan['grid'][0], plan['splits'], plan['kchunk']) == (32, 4, 6)
 
 
 def _engine_of(params, cfg):
@@ -722,8 +802,8 @@ def test_stage_plain_matches_jax_sampling(n_pi, mask_per_env, fold):
     may fuse the multiply-add): the f32 actions, their bf16 copies in the
     action columns, zeros to the padded widths, G, q, term and term_at
     zeroed; at t = 0 the latent's bf16 copy in every row's latent columns,
-    or, folded, each env's in its row of zb (zeros to the padded width),
-    env the identity and the latent columns untouched; `stage` takes the
+    or, folded, each env's in its row of zb (zeros to the padded width) and
+    the latent columns untouched; `stage` takes the
     same function on the CPU."""
     dims = (20, 32, 3, 11, 2, 4, 3)
     L, A, H = dims[0], dims[2], dims[6]
@@ -739,8 +819,7 @@ def test_stage_plain_matches_jax_sampling(n_pi, mask_per_env, fold):
     acts = torch.full((N, S, HA), float('nan'))
     G, q, term = (torch.ones(N * S) for _ in range(3))
     term_at = torch.ones(N * S, dtype=torch.int32)
-    fold_kw = dict(zb=torch.full((N, Lp), float('nan'), dtype=torch.bfloat16),
-                   env=torch.full((N,), -1, dtype=torch.int32)) if fold else {}
+    fold_kw = dict(zb=torch.full((N, Lp), float('nan'), dtype=torch.bfloat16)) if fold else {}
     for step in range(H):
         wide.stage(dims, S, step, t['z'].expand(N, S, L), t['mean'], t['std'], t['noise'],
                    t['pi_acts'], t['amask'], xs, acts, load_z=step == 0, G=G, q=q,
@@ -760,7 +839,6 @@ def test_stage_plain_matches_jax_sampling(n_pi, mask_per_env, fold):
         assert xs[:, :Lp].isnan().all()
         assert torch.equal(fold_kw['zb'][:, :L].view(torch.int16), zbits)
         assert (fold_kw['zb'][:, L:] == 0).all()
-        assert torch.equal(fold_kw['env'], torch.arange(N, dtype=torch.int32))
     else:
         assert torch.equal(xs[:, :L].view(torch.int16),
                            zbits[:, None].expand(N, S, L).reshape(N * S, L))
@@ -772,10 +850,10 @@ def test_stage_plain_matches_jax_sampling(n_pi, mask_per_env, fold):
 
 def test_folded_first_layer_matches_plain_and_jax():
     """A value step's folded z||a first layer (ops/wide.py fold_plain, the
-    function of csrc/mlp_wide.cuh's two products at t = 0): the product of
-    each env's latent with the wide layout's latent block plus the env's
-    task row of the bias table (u), then the rows' action columns with the
-    layout's action block plus u as a bias row an env, at the 317M model's
+    function of csrc/mlp_wide.cuh's two kernels at t = 0): the product of
+    each env's latent with the wide layout's latent block (u), then the
+    rows' action columns with the layout's action block plus u's row of the
+    env with the env's task row of the bias table added, at the 317M model's
     widths (latent 1376, mlp 4096, 6 actions; 2 envs of 3 rows, tasks 5
     and 61 of 80), against the port's plain first layer (ops/value.py:
     _dot(z, Wz) + _dot(a, Wa) + b0[task]) and JAX's z @ Wz + a @ Wa + b0 on
@@ -804,6 +882,92 @@ def test_folded_first_layer_matches_plain_and_jax():
            + jnp.asarray(a.float().numpy()) @ jnp.asarray(Wa.float().numpy())
            + jnp.asarray(b0.numpy())[np.array([5, 61])][:, None])
     np.testing.assert_allclose(y.reshape(N, S, M).numpy(), np.asarray(ref), **VTOL)
+
+
+def _fold_hidden_case(dims, T, seed):
+    """bf16 operands of a folded first layer at dims, 2 envs of 3 rows of
+    tasks 5 and 61 of T, from a numpy seed; u as the u product's partial
+    rows (the latent's share over its splits' K ranges) and JAX's
+    _mish(_ln(z @ Wz + a @ Wa + b0[task], g0, e0)) on the same values."""
+    L, M, A, N, S = dims[0], dims[1], dims[2], 2, 3
+    Lp, Ap = _up16(L), _up16(A)
+    rng = np.random.default_rng(seed)
+
+    def bf(v):
+        return torch.from_numpy(v.astype(np.float32)).to(torch.bfloat16)
+    z, a = bf(rng.normal(size=(N, L))), bf(rng.uniform(-1, 1, (N, S, A)))
+    Wz, Wa = bf(rng.normal(size=(L, M)) * L ** -0.5), bf(rng.normal(size=(A, M)) * 0.4)
+    b0 = torch.from_numpy(rng.normal(size=(T, M)).astype(np.float32) * 0.1)
+    g0 = torch.from_numpy(1 + 0.2 * rng.normal(size=M).astype(np.float32))
+    e0 = torch.from_numpy(0.2 * rng.normal(size=M).astype(np.float32))
+    task = torch.tensor([5, 61], dtype=torch.int32)
+    wT = tv.wide_matrix(Wz, Wa)
+    zb = torch.nn.functional.pad(z, (0, Lp - L))
+    xa = torch.nn.functional.pad(a.reshape(N * S, A), (0, Ap - A))
+    step = wm.fold_u_plan(dims, N)['kchunk'] * wm.STAGE_K
+    cuts = list(range(0, Lp, step)) + [Lp]
+    u = torch.stack([zb[:, k0:k1].float() @ wT[:, k0:k1].float().T
+                     for k0, k1 in zip(cuts, cuts[1:])])
+    zr = np.broadcast_to(z.float().numpy()[:, None], (N, S, L))
+    pre = (jnp.asarray(zr) @ jnp.asarray(Wz.float().numpy())
+           + jnp.asarray(a.float().numpy()) @ jnp.asarray(Wa.float().numpy())
+           + jnp.asarray(b0.numpy())[np.array([5, 61])][:, None])
+    ref = np.asarray(_mish(_ln(pre, jnp.asarray(g0.numpy()), jnp.asarray(e0.numpy()))))
+    return dict(zb=zb, xa=xa, wT=wT, u=u, b0=b0, g0=g0, e0=e0, task=task, ref=ref, N=N, S=S,
+                Lp=Lp)
+
+
+def _hold_fold_hidden_plain(dims, c):
+    """fold_hidden_plain on case c against JAX within 1e-4, its bf16 row
+    the f32 row rounded, dst's columns past M untouched. Returns dst."""
+    M, N, S, Lp = dims[1], c['N'], c['S'], c['Lp']
+    dst = torch.full((N * S, M + 16), float('nan'), dtype=torch.bfloat16)
+    fdst = torch.full((N * S, M), float('nan'))
+    wide.fold_hidden_plain(c['xa'], c['wT'][:, Lp:], c['u'], c['b0'], c['g0'], c['e0'], dims,
+                           S, dst, fdst, task=c['task'])
+    np.testing.assert_allclose(fdst.reshape(N, S, M).numpy(), c['ref'], **VTOL)
+    assert torch.equal(dst[:, :M].view(torch.int16), fdst.to(torch.bfloat16).view(torch.int16))
+    assert dst[:, M:].isnan().all()
+    return dst
+
+
+def test_fold_hidden_plain_matches_jax():
+    """The fused folded layer's plain version (ops/wide.py
+    fold_hidden_plain, what fold_hidden_kernel is held to on the card): u
+    as 4 partial rows (the latent's share over 4 K ranges) summed in order,
+    then each env's own task bias row, the rows' action columns times the
+    layout's action block added, then LayerNorm + Mish, against the JAX
+    package's _mish(_ln(z @ Wz + a @ Wa + b0[task], g0, e0))
+    (tdmpc2_tpu/ops/pallas_rollout.py:484-485) on the same bf16 operands at
+    the 317M model's widths (2 envs of 3 rows, tasks 5 and 61 of 80) within
+    1e-4; its bf16 row the f32 row rounded; and the wrappers on CPU tensors
+    (fold_u, fold_hidden) the plain versions' bit for bit."""
+    dims = _D317
+    M = dims[1]
+    c = _fold_hidden_case(dims, 80, 4096)
+    dst = _hold_fold_hidden_plain(dims, c)
+    zb, wT, Lp, u, S = c['zb'], c['wT'], c['Lp'], c['u'], c['S']
+    # the wrappers take their plain versions on CPU tensors
+    got_u, plan = wide.fold_u(zb, wT[:, :Lp], dims)
+    assert plan is None and tuple(got_u.shape) == (1, c['N'], M)
+    assert torch.equal(got_u[0], wide.fold_u_plain(zb, wT[:, :Lp]))
+    torch.testing.assert_close(got_u[0], u.sum(0), **VTOL)
+    got = torch.full_like(dst, float('nan'))
+    assert wide.fold_hidden(c['xa'], wT[:, Lp:], u, c['b0'], c['g0'], c['e0'], dims, S,
+                            task=c['task'], dst=got) is None
+    assert torch.equal(got.view(torch.int16)[:, :M], dst.view(torch.int16)[:, :M])
+
+
+@pytest.mark.parametrize('dims', [
+    pytest.param(_D5[:2] + (38,) + _D5[3:], id='5M-38-actions'),
+    pytest.param(_D317[:2] + (21,) + _D317[3:], id='317-21-actions')])
+def test_fold_hidden_plain_matches_jax_at_more_actions(dims):
+    """fold_hidden_plain as above at the widths of a dog task (38 actions)
+    at model_size 5 and a humanoid task (21 actions) at 317: the widths
+    where the fused layer stages its action block in several chunks of 8
+    (2 envs of 3 rows, tasks 5 and 61 of 80, against JAX within 1e-4)."""
+    assert wide.fold_fits(dims)
+    _hold_fold_hidden_plain(dims, _fold_hidden_case(dims, 80, 38 + dims[2]))
 
 
 _SIG_TYPES = {'int': ctypes.c_int, 'long': ctypes.c_long, 'float': ctypes.c_float}

@@ -6,7 +6,9 @@ from mlp_rows.cuh `pick_plan` and `wide_fits`), how the wide engine's
 product is launched (`Wide::launch_gemm`: its tile, K splits and grid) and
 how its row kernel is (`Wide::rows`: the threads a row, from the width
 alone, the columns each owns, the ring of row buffers), and the two
-products of a value step's folded first layers (`Wide::hidden2`).
+kernels of a value step's folded first layers (`Wide::fold_u`, the u
+product on the envs' packed rows, and `Wide::fold_hidden`, the fused
+action product + LayerNorm + Mish).
 The CPU has no library, so the CPU tests use this copy of the rules, and
 tests/test_torch_cuda.py holds the built library's answers to it on the
 card. It imports neither jax nor the JAX package.
@@ -34,6 +36,10 @@ ROW_KEEP = 2              # chunks of a two-hot row a lane keeps in registers
 LARGE = dict(bm=128, bn=256, wgs=2)
 SMALL = dict(bm=64, bn=128, wgs=1)
 STAGE_K, STAGES, WIDE_COLS, MAX_SPLITS = 64, 4, 2048, 8
+# The u product (mlp_wide.cuh kFoldCols, kFoldEnvs, kFoldTiles): u's
+# columns a block, envs an env tile, the blocks its K split aims at.
+FOLD_COLS, FOLD_ENVS, FOLD_TILES = 128, 64, 128
+FOLD_ACT_ROWS = 128       # mlp_wide.cuh kFoldActRows: a group's rows of staged actions
 
 
 def up16(n: int) -> int:
@@ -118,15 +124,67 @@ def gemm_plan(dims, n_envs: int, S: int, K: int, ncols: int, per_env: bool) -> d
                 grid=(-(-ncols // t['bn']), gy, s))
 
 
-def fold_plans(dims, n_envs: int, S: int, ntask: int):
-    """The two products of a folded z||a first layer (Wide::hidden2 at a
-    value step's t = 0 with the latent broadcast): u = zb . W[:, :Lp] +
-    b0[task] on the n_envs envs' rows, a row an env (per env where the task
-    picks the bias row: ntask > 1), then the action columns . W[:, Lp:] +
-    u[env] on every row (per env where there is more than one)."""
-    L, M, A = dims[0], dims[1], dims[2]
-    return (gemm_plan(dims, n_envs, 1, up16(L), M, ntask > 1),
-            gemm_plan(dims, n_envs, S, up16(A), M, n_envs > 1))
+def fold_splits(ncols: int, nk: int) -> int:
+    """mlp_wide.cuh fold_splits: FOLD_TILES blocks over the column tiles, at
+    most MAX_SPLITS, at least 2 stages a split; from the widths alone."""
+    return max(1, min(FOLD_TILES // -(-ncols // FOLD_COLS), MAX_SPLITS, nk // 2))
+
+
+def fold_u_plan(dims, n_envs: int) -> dict:
+    """The u product's plan (Wide::fold_u): u = zb . W[:, :Lp] on n_envs
+    latents of K = up16(L) columns into M columns. Blocks of
+    FOLD_COLS columns and ke env tiles of FOLD_ENVS (2 above 64 envs), the K
+    split from the widths alone, one block a tile; pstride the floats from
+    one split's partial rows to the next (n_envs rows of up16(M))."""
+    M, K = dims[1], up16(dims[0])
+    nk = -(-K // STAGE_K)
+    s = fold_splits(M, nk)
+    kchunk = -(-nk // s)
+    s = -(-nk // kchunk)
+    ke = 2 if n_envs > FOLD_ENVS else 1
+    grid = (-(-M // FOLD_COLS), -(-n_envs // (ke * FOLD_ENVS)), s)
+    return dict(ke=ke, nk=nk, splits=s, kchunk=kchunk, pstride=n_envs * up16(M), grid=grid,
+                blocks=grid[0] * grid[1] * grid[2])
+
+
+def fold_u_blocks(plan, dims, n_envs: int):
+    """Each block of a u plan as (columns, envs, K range, split): the
+    columns [c0, c1) and envs [e0, e1) it stores, the K columns [k0, k1) it
+    sums and its split; fold_u_kernel's order, column tiles fastest."""
+    M, K = dims[1], up16(dims[0])
+    gx, gy, gz = plan['grid']
+    span = plan['ke'] * FOLD_ENVS
+    for t in range(gx * gy * gz):
+        bx, by, z = t % gx, t // gx % gy, t // (gx * gy)
+        c0, e0 = bx * FOLD_COLS, by * span
+        ks0 = z * plan['kchunk']
+        k0, k1 = ks0 * STAGE_K, min(plan['nk'], ks0 + plan['kchunk']) * STAGE_K
+        e1 = min(e0 + span, n_envs)
+        yield (c0, min(c0 + FOLD_COLS, M)), (e0, e1), (k0, min(k1, K)), z
+
+
+def fold_hidden_plan(dims) -> dict:
+    """Wide::fold_hidden: row groups of threads_a_row threads (row_kernel's,
+    from M alone), row_groups of them a block, action_chunks of 8 action
+    columns (up8(A) / 8), the shared bytes (mlp_wide.cuh fold_hidden_smem):
+    the staged action block (A rows of M columns, up to a multiple of 4,
+    bf16; on 16 bytes), then each group's FOLD_ACT_ROWS rows of actions (16
+    bytes a chunk), then its u row (f32)."""
+    M, A = dims[1], dims[2]
+    tpr = row_plan('hidden', M)['threads_a_row']
+    rg, ak = ROW_THREADS // tpr, -(-A // 8)
+    width = -(-M // 4) * 4
+    block = -(-(A * width * 2) // 16) * 16
+    return dict(threads_a_row=tpr, row_groups=rg, action_chunks=ak,
+                smem_bytes=block + rg * FOLD_ACT_ROWS * ak * 16 + rg * width * 4)
+
+
+def fold_plans(dims, n_envs: int):
+    """The two launches of a folded z||a first layer (Wide::hidden2 at a
+    value step's t = 0 with the latent broadcast): the u product on the
+    n_envs envs' latents, then the fused action product + LayerNorm + Mish
+    on every row."""
+    return fold_u_plan(dims, n_envs), fold_hidden_plan(dims)
 
 
 def gemm_blocks(plan, n_envs: int, S: int, K: int, ncols: int):
